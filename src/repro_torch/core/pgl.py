@@ -1,0 +1,163 @@
+"""Parallel Global Layout (PGL) on virtual ranks — paper §3.2.1.
+
+A PGL is a set of identically-shaped buffers, one per rank, that a kernel
+addresses by (rank, tile). The JAX package (``repro/core/pgl.py``) stores it
+as a mesh-sharded array of global shape ``(axis_size, *local_shape)`` whose
+slab d lives on device d. The port keeps exactly that layout as one torch
+tensor with a leading rank axis, ``(R, *local_shape)``, on ONE device:
+
+* :class:`VirtualMesh` stands in for ``jax.sharding.Mesh`` — named axes and
+  their sizes, plus the torch device every rank's slab lives on;
+* :class:`P` stands in for ``PartitionSpec``;
+* :func:`layout` / :func:`assemble` convert between a global tensor and its
+  stacked ``(R, *local)`` form by a spec (what ``shard_map`` does with
+  ``in_specs`` / ``out_specs``);
+* :func:`pointer_table` gives the per-rank base pointers a collective kernel
+  addresses. On one card they are R slices of one allocation; on a
+  multi-GPU node the same kernels take peer pointers instead.
+
+Only the tensor-parallel axis is split: every other named axis must have
+size 1 (a data axis larger than 1 raises ``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+class P(tuple):
+    """Partition spec: one entry per tensor dim — an axis name, a tuple of
+    axis names, or None (replicated)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+class VirtualMesh:
+    """Named mesh axes over virtual ranks that share one torch device."""
+
+    def __init__(self, shape, axes, device="cpu"):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                             "length")
+        self.shape = dict(zip(axes, shape))
+        self.axis_names = axes
+        self.device = torch.device(device)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"VirtualMesh({self.shape}, device={self.device})"
+
+
+def axes_size(mesh: VirtualMesh | None, axes) -> int:
+    """Product of the named mesh axes (1 for None/empty)."""
+    if mesh is None or axes is None:
+        return 1
+    if isinstance(axes, str):
+        return mesh.shape[axes]
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def split_dim(spec: P, mesh: VirtualMesh, axis: str) -> int | None:
+    """The dim ``spec`` shards over ``axis`` (None = replicated over it).
+    Any other sharded axis must have size 1 on this mesh."""
+    hit = None
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        if axis in names:
+            hit = i
+        for a in names:
+            if a != axis and mesh.shape.get(a, 1) != 1:
+                raise NotImplementedError(
+                    f"axis {a!r} has size {mesh.shape[a]}: the port runs "
+                    "tensor-parallel ranks only (data-parallel meshes are "
+                    "the next item of ROADMAP queue A)")
+    return hit
+
+
+def layout(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis: str, *,
+           lead: int = 0, expand: bool = True) -> torch.Tensor:
+    """Global tensor -> stacked layout over ``axis``, by ``spec``.
+
+    The rank axis goes after ``lead`` leading dims (0 for island inputs;
+    1 for the layer-period dim of stored parameters and caches), so the
+    stacked shape is ``(*lead_dims, R, *local)``. A tensor that already
+    carries the rank axis (``ndim == len(spec) + 1``) is returned as is:
+    weights and KV caches are stored stacked once, so islands never
+    re-slice them. A sharded dim becomes a view (``unflatten`` +
+    ``movedim``); a replicated tensor is broadcast without a copy
+    (``expand``), or left global when ``expand`` is False (storage)."""
+    r = mesh.shape[axis]
+    if x.dim() == len(spec) + 1:
+        if x.shape[lead] != r:
+            raise ValueError(f"stacked tensor has {x.shape[lead]} ranks, "
+                             f"the mesh axis {axis!r} has {r}")
+        return x
+    if x.dim() != len(spec):
+        raise ValueError(f"spec {spec} does not fit shape {tuple(x.shape)}")
+    d = split_dim(spec, mesh, axis)
+    if d is None:
+        if not expand:
+            return x
+        if lead:
+            raise ValueError("replicated inputs expand with lead=0 only")
+        return x.unsqueeze(0).expand(r, *x.shape)
+    if d < lead:
+        raise ValueError(f"spec {spec} shards a leading dim")
+    if x.shape[d] % r:
+        raise ValueError(f"dim {d} of shape {tuple(x.shape)} is not "
+                         f"divisible by {r} ranks")
+    return x.unflatten(d, (r, x.shape[d] // r)).movedim(d, lead)
+
+
+def assemble(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis: str, *,
+             lead: int = 0) -> torch.Tensor:
+    """Stacked -> global tensor, by ``spec`` (the inverse of
+    :func:`layout`): a sharded dim is concatenated over the ranks; a
+    replicated stacked result is rank 0's slab (the body made every slab
+    equal); a replicated tensor stored global is returned as is."""
+    d = split_dim(spec, mesh, axis)
+    if d is None:
+        return x.select(lead, 0) if x.dim() == len(spec) + 1 else x
+    return x.movedim(lead, d).flatten(d, d + 1)
+
+
+def stacked_shape(shape, spec: P, mesh: VirtualMesh, axis: str, *,
+                  lead: int = 0) -> tuple[int, ...]:
+    """Shape of the stored layout of a global ``shape``: stacked when
+    ``spec`` shards it over ``axis``, global when it is replicated."""
+    d = split_dim(spec, mesh, axis)
+    if d is None:
+        return tuple(shape)
+    r = mesh.shape[axis]
+    out = list(shape)
+    out[d] //= r
+    return (*out[:lead], r, *out[lead:])
+
+
+def is_split(spec: P, mesh: VirtualMesh | None, axis: str | None) -> bool:
+    """Does ``spec`` shard a dim over ``axis`` on this mesh?"""
+    if mesh is None or axis is None or mesh.shape.get(axis, 1) == 1:
+        return False
+    return split_dim(spec, mesh, axis) is not None
+
+
+def pointer_table(x: torch.Tensor) -> list[int]:
+    """Per-rank base addresses of a stacked ``(R, *local)`` tensor: the
+    addresses a collective kernel stores into and reads from. The slabs
+    must be contiguous (each rank's buffer is one dense block)."""
+    if not x.is_contiguous():
+        raise ValueError("a PGL buffer must be contiguous")
+    step = x[0].numel() * x.element_size()
+    return [x.data_ptr() + i * step for i in range(x.shape[0])]

@@ -1,0 +1,347 @@
+"""Unified PK island template on virtual ranks — the twin of
+``repro/core/template.py``.
+
+An :class:`Island` is declared exactly as in the JAX package: named inputs
+with partition specs, out_specs, a body ``body(ctx, **inputs)`` receiving a
+ready :class:`~repro_torch.core.comms.CommContext`, a dense reference, a
+fallback predicate and an optional :class:`Comm` descriptor for
+:meth:`Island.plan`. What ``shard_map`` does there, ``Island.__call__``
+does here over the stacked rank axis of ``core/pgl.py``:
+
+1. each input is laid out as ``(R, *local)`` by its spec (a tensor already
+   stored stacked — weights, KV caches — passes through untouched);
+2. the body runs ONCE on the stacked tensors; collectives inside it act on
+   dim 0 and ``lax.axis_index`` becomes :func:`rank_index`;
+3. outputs are reassembled by ``out_specs``; an out spec wrapped in
+   :class:`Stacked` is returned as ``(R, *local)`` (the KV cache stays
+   stored per rank).
+
+:class:`Gather` is the FSDP in-island weight gather; serving runs with
+``fsdp=False`` (``launch/serve.py``), so it is declared and never applied.
+Measured plans, guards and scripted faults are not ported (ROADMAP items
+12 and 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping, Sequence
+
+import torch
+
+from repro_torch.core import pgl
+from repro_torch.core.comms import GEMM_OP_KIND, OP_BACKENDS, CommContext
+from repro_torch.core.pgl import P
+
+__all__ = ["Island", "Gather", "Comm", "IslandPlan", "Stacked",
+           "comm_context", "render_plans", "plan_overrides",
+           "island_override", "rank_index"]
+
+
+def comm_context(run, axis: str, mesh=None, **overrides) -> CommContext:
+    """The single CommContext construction point for every island."""
+    kw: dict[str, Any] = {"axis_name": axis, "mesh": mesh}
+    if run is not None:
+        if run.comm_fault is not None or run.island_guards:
+            raise NotImplementedError(
+                "island guards and scripted comm faults are ROADMAP item "
+                "13 (runtime/health.py)")
+        kw.update(backend=run.comm_backend, allow_bidir=run.pk_bidirectional,
+                  policy=run.comm_policy, calibration=run.calibration_path,
+                  chunks=run.comm_chunks, wire=run.comm_wire)
+    kw.update(overrides)
+    return CommContext(**kw)
+
+
+def rank_index(x: torch.Tensor) -> torch.Tensor:
+    """``lax.axis_index`` on a stacked tensor: ``arange(R)``, shape (R,)."""
+    return torch.arange(x.shape[0], device=x.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Gather:
+    """FSDP all-gather instruction for one island input: gather ``dim`` back
+    to ``size`` over the fsdp axes before the body runs."""
+    dim: int
+    size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Stacked:
+    """Out spec marker: return this output as stacked ``(R, *local)``
+    instead of reassembling the global tensor."""
+    spec: P
+
+
+@dataclasses.dataclass(frozen=True)
+class Comm:
+    """An island's dominant collective, for :meth:`Island.plan`."""
+    op: str
+    m: int = 0
+    n: int = 0
+    k: int = 0
+    payload_bytes: float = 0.0
+    dtype_bytes: int = 2
+    n_chunks: int | None = None
+    chunk_dim: str | None = None
+    backend: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class IslandPlan:
+    """Trace-free overlap report for one island (paper §3.1.3 decision)."""
+    island: str
+    axis: Any
+    axis_size: int
+    fallback: bool
+    reason: str
+    op: str | None = None
+    backend: str | None = None
+    n_chunks: int | None = None
+    chunk_dim: str | None = None
+    hidden_fraction: float | None = None
+    source: str = "analytic"
+    wire: str | None = None
+
+    def asdict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def __str__(self) -> str:
+        if self.fallback:
+            return f"{self.island:<14} -> dense fallback ({self.reason})"
+        hf = ("-" if self.hidden_fraction is None
+              else f"{self.hidden_fraction:.2f}")
+        return (f"{self.island:<14} op={self.op or '-':<22} "
+                f"backend={self.backend or '-':<10} "
+                f"chunks={self.n_chunks or 1:<3} hidden={hf:<5} "
+                f"wire={self.wire or '-':<8} src={self.source}")
+
+
+def render_plans(plans: Sequence[IslandPlan]) -> str:
+    """One-line-per-island overlap schedule table."""
+    head = "island         overlap schedule (backend / chunks / hidden frac)"
+    return "\n".join([head, "-" * len(head)] + [str(p) for p in plans])
+
+
+def plan_overrides(plans: Sequence[IslandPlan]) -> tuple:
+    """Freeze resolved plans into ``RunConfig.island_overrides`` entries:
+    ``(island, backend, sub-chunks per ring step)`` for GEMM×collective
+    islands, ``(island, backend, None)`` for the others."""
+    out = []
+    for p in plans:
+        if p.fallback or p.backend is None:
+            continue
+        chunks = None
+        if (p.op in GEMM_OP_KIND and p.n_chunks
+                and p.backend in ("ring", "ring_bidir", "fused")):
+            chunks = max(1, p.n_chunks // max(p.axis_size, 1))
+        out.append((p.island, p.backend, chunks))
+    return tuple(out)
+
+
+def island_override(run, name: str) -> tuple | None:
+    """The ``(backend, chunks, source)`` override ``run.island_overrides``
+    carries for island ``name`` (later entries win), or None."""
+    entries = getattr(run, "island_overrides", ()) if run is not None else ()
+    hit = None
+    for entry in entries:
+        if entry and entry[0] == name:
+            hit = (entry[1], entry[2] if len(entry) > 2 else None,
+                   entry[3] if len(entry) > 3 else "plan")
+    return hit
+
+
+def _map_specs(fn, specs, outs):
+    """Apply ``fn(out, spec)`` over an out_specs tree (a spec or a tuple)."""
+    if isinstance(specs, tuple) and not isinstance(specs, P):
+        return tuple(_map_specs(fn, s, o) for s, o in zip(specs, outs))
+    return fn(outs, specs)
+
+
+class Island:
+    """One declarative overlapped island over virtual ranks (see module
+    docstring). Construction is cheap; ``plan()`` runs nothing."""
+
+    def __init__(self, name: str, *, body: Callable | None = None,
+                 inputs: Mapping[str, Any] | None = None,
+                 out_specs: Any = None,
+                 rules=None, mesh=None, axis=None, run=None,
+                 reference: Callable | None = None,
+                 gathers: Mapping[str, Gather] | None = None,
+                 enable: bool = True,
+                 divisible: Sequence[tuple[int, Any]] = (),
+                 fallback_axes: Any = None,
+                 comm: Comm | None = None):
+        self.name = name
+        self.rules = rules
+        self.mesh = mesh if mesh is not None else (
+            rules.mesh if rules is not None else None)
+        self.axis = axis if axis is not None else (
+            rules.tp if rules is not None else None)
+        self.run = run
+        self.body = body
+        self.inputs = dict(inputs or {})
+        self.out_specs = out_specs
+        self.reference = reference
+        self.gathers = dict(gathers or {})
+        self.enable = enable
+        self.divisible = tuple(divisible)
+        self.fallback_axes = fallback_axes if fallback_axes is not None \
+            else self.axis
+        self.comm = comm
+
+    # -- fallback predicate ------------------------------------------------
+
+    @property
+    def axis_size(self) -> int:
+        return pgl.axes_size(self.mesh, self.axis)
+
+    def fallback_reason(self) -> str | None:
+        """Why this island routes to the dense reference (None = it runs on
+        the stacked ranks): reference mode, single device, divisibility."""
+        if self.mesh is None:
+            return "no mesh (single-process reference mode)"
+        if self.run is not None and self.run.reference_mode:
+            return "RunConfig.reference_mode"
+        if not self.enable:
+            return "disabled by RunConfig"
+        if self.mesh.size == 1:
+            return "single-device mesh"
+        if pgl.axes_size(self.mesh, self.fallback_axes) == 1:
+            return f"axis {self.fallback_axes!r} has size 1"
+        for size, axes in self.divisible:
+            n = pgl.axes_size(self.mesh, axes)
+            if n and size % n != 0:
+                return (f"size {size} not divisible by axis {axes!r} "
+                        f"(= {n})")
+        return None
+
+    # -- execution ---------------------------------------------------------
+
+    def make_context(self) -> CommContext:
+        """The island's CommContext: ``RunConfig`` knobs, then this island's
+        frozen plan (``island_overrides``) as backend pin and chunk default,
+        then a declared ``Comm.n_chunks`` unless ``comm_chunks`` is set."""
+        kw: dict[str, Any] = {}
+        ov = island_override(self.run, self.name)
+        if ov is not None:
+            be, chunks, _src = ov
+            if be is not None:
+                kw.setdefault("backend", be)
+            if (chunks is not None and self.comm is not None
+                    and self.comm.op in GEMM_OP_KIND):
+                kw.setdefault("chunks", chunks)
+        if (self.comm is not None and self.comm.n_chunks is not None
+                and self.comm.op in GEMM_OP_KIND
+                and (self.run is None or self.run.comm_chunks is None)):
+            kw.setdefault("chunks", self.comm.n_chunks)
+        return comm_context(self.run, self.axis, mesh=self.mesh, **kw)
+
+    def _global(self, x, spec):
+        """An input as the dense reference expects it: global."""
+        if isinstance(x, torch.Tensor) and x.dim() == len(spec) + 1 \
+                and pgl.is_split(spec, self.mesh, self.axis):
+            return pgl.assemble(x, spec, self.mesh, self.axis)
+        return x
+
+    def __call__(self, **arrays):
+        reason = self.fallback_reason()
+        if set(arrays) != set(self.inputs) and reason is None:
+            raise TypeError(
+                f"island {self.name!r} declared inputs "
+                f"{sorted(self.inputs)}, got {sorted(arrays)}")
+        if reason is not None:
+            if self.reference is None:
+                raise ValueError(
+                    f"island {self.name!r} must fall back ({reason}) but "
+                    "declares no dense reference")
+            if self.mesh is None:
+                return self.reference(**arrays)
+            # stacked inputs -> global for the reference; outputs marked
+            # Stacked go back to the per-rank layout the caller stores
+            out = self.reference(**{
+                n: self._global(a, self.inputs.get(n, P()))
+                for n, a in arrays.items()})
+            return _map_specs(
+                lambda o, s: (pgl.layout(o, s.spec, self.mesh, self.axis)
+                              .contiguous() if isinstance(s, Stacked) else o),
+                self.out_specs, out)
+        ctx = self.make_context()
+        stacked = {n: pgl.layout(a, self.inputs[n], self.mesh, self.axis)
+                   for n, a in arrays.items()}
+        out = self.body(ctx, **stacked)
+        return _map_specs(
+            lambda o, s: (o if isinstance(s, Stacked)
+                          else pgl.assemble(o, s, self.mesh, self.axis)),
+            self.out_specs, out)
+
+    # -- introspection -----------------------------------------------------
+
+    def plan(self) -> IslandPlan:
+        """The trace-free §3.1.3 decision this island will make: backend,
+        chunk count, predicted hidden fraction — or the fallback reason."""
+        reason = self.fallback_reason()
+        base = IslandPlan(self.name, self.axis, self.axis_size,
+                          fallback=reason is not None,
+                          reason=reason or "",
+                          op=self.comm.op if self.comm else None)
+        if reason is not None or self.comm is None:
+            return base
+        c = self.comm
+        ctx = self.make_context()
+        if c.op in GEMM_OP_KIND:
+            n_dev = self.axis_size
+            ring_ok = c.op == "all_gather_matmul" or c.m % n_dev == 0
+            m_loc = c.m // n_dev if c.m % n_dev == 0 else c.m
+            fused_ok = ctx._prefer_fused()
+            if c.backend is not None:
+                backend = c.backend
+                reason = f"pinned backend={c.backend}"
+            elif ctx.backend in OP_BACKENDS.get(c.op, ()):
+                backend = ctx.backend
+                if backend != "bulk" and not ring_ok:
+                    backend = "bulk"
+                elif (backend == "ring_bidir" and n_dev % 2 == 0
+                        and m_loc < 2):
+                    backend = "ring"
+                reason = f"context pin -> {backend}"
+            elif not ring_ok:
+                backend = "bulk"
+                reason = f"m={c.m} not divisible by axis size {n_dev} -> bulk"
+            else:
+                backend = ctx.auto_gemm_backend(
+                    c.op, c.m, c.n, c.k, dtype_bytes=c.dtype_bytes,
+                    fused_ok=fused_ok, bidir_ok=(m_loc >= 2))
+                reason = None
+            pol = ctx.gemm_policy(c.m, c.n, c.k, kind=GEMM_OP_KIND[c.op],
+                                  dtype_bytes=c.dtype_bytes)
+            if backend in ("ring", "ring_bidir", "fused"):
+                sched = ctx.gemm_chunk_schedule(
+                    c.op, c.m, c.n, c.k, backend=backend,
+                    dtype_bytes=c.dtype_bytes, chunk_dim=c.chunk_dim)
+                n_chunks = n_dev * sched.n_chunks
+                chunk_dim = sched.chunk_dim
+                hidden = pol.hidden_fraction
+            else:
+                n_chunks = c.n_chunks if c.n_chunks is not None else 1
+                chunk_dim, hidden = None, 0.0
+            wire = "bf16" if backend in ("ring", "ring_bidir") else None
+            return dataclasses.replace(
+                base, backend=backend, n_chunks=n_chunks,
+                chunk_dim=chunk_dim, hidden_fraction=hidden,
+                source="analytic", wire=wire,
+                reason=reason if reason is not None else pol.reason)
+        backend = c.backend
+        if backend is None and ctx.backend in OP_BACKENDS.get(c.op, ()):
+            backend = ctx.backend
+        backend = backend or "bulk"
+        n_chunks = c.n_chunks if c.n_chunks is not None else (
+            self.axis_size if backend != "bulk" else 1)
+        return dataclasses.replace(
+            base, backend=backend, n_chunks=n_chunks,
+            reason=f"{c.op} via {backend}")
+
+    def __repr__(self) -> str:
+        return (f"Island({self.name!r}, axis={self.axis!r}, "
+                f"inputs={list(self.inputs)}, "
+                f"fallback={self.fallback_reason()!r})")

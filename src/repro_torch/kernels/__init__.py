@@ -1,0 +1,1 @@
+"""The hand-written Hopper kernels of the port and their plain versions."""

@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels (``kernels/csrc``).
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into an object,
+all sources at once in parallel, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library is
+keyed by a hash of the sources and the flags, built at first use into
+``build/repro_torch/`` under the repository root, and reused while the
+sources are unchanged. Nothing but the repository's sources and the CUDA
+toolkit goes into it. A failed build raises with nvcc's output.
+
+Each C launcher returns ``cudaGetLastError()`` after its launch; the
+Python wrappers raise when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import subprocess
+import tempfile
+
+from repro_torch import compat
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-lineinfo")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+#: C symbol -> argtypes (restype is int: the cudaError_t of the launch)
+SIGNATURES = {
+    # x, w, out, M, N, K, ldx, ldw, ldo, stream
+    "pk_matmul_bf16": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
+    # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, q strides (b, h, s),
+    # k strides, v strides, causal, window, scale, stream
+    "pk_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                _I, _I, ctypes.c_float, _P],
+    # x ptrs, w ptrs, landing ptrs, out ptrs (host tables of R addresses),
+    # flags, R, M, N, K, stream
+    "pk_matmul_ar_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
+                         + [_P, _I, _I, _I, _I, _P],
+}
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Start every command at once, wait for all, raise on any failure."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    errors = []
+    for c, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"$ {' '.join(c)}\n{out}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
+def build() -> pathlib.Path:
+    """Compile the library if no build of these sources exists; its path."""
+    lib = BUILD_DIR / f"libpk_kernels_{_digest()}.so"
+    if lib.exists():
+        return lib
+    nvcc = compat.nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels are built at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cus]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p),
+                   "-o", o] for p, o in zip(cus, objs)])
+        part = os.path.join(tmp, lib.name)
+        _run_all([[nvcc, "-shared", *NVCC_FLAGS, *objs, "-o", part]])
+        os.replace(part, lib)      # atomic: a reader never sees half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a launcher reports a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def host_table(addrs: list[int]):
+    """A C array of device addresses (a pointer table) for a launcher."""
+    return (ctypes.c_uint64 * len(addrs))(*addrs)

@@ -1,0 +1,82 @@
+"""Sharding rules over a ``VirtualMesh`` — the twin of
+``repro/models/sharding.py``.
+
+The specs are the JAX package's, entry for entry (``core.pgl.P`` stands in
+for ``PartitionSpec``), so the island declarations read the same. Dims are
+sharded only when divisible by the axis size, else replicated. Specs here
+always carry one entry per tensor dim: ``core.pgl.layout`` tells a global
+tensor from its stacked per-rank form by rank. Data-parallel axes must have
+size 1 (larger ones raise ``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs.base import RunConfig
+from repro_torch.core.pgl import P, VirtualMesh, axes_size
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    mesh: VirtualMesh
+    run: RunConfig
+
+    def __post_init__(self):
+        for a in self.run.dp_axes:
+            if self.mesh.shape.get(a, 1) != 1:
+                raise NotImplementedError(
+                    f"mesh axis {a!r} has size {self.mesh.shape[a]}: the "
+                    "port runs tensor-parallel ranks only (data-parallel "
+                    "meshes are the next item of ROADMAP queue A)")
+        if self.run.fsdp:
+            raise NotImplementedError(
+                "FSDP weight gathers are ROADMAP item A4/A6 (training); "
+                "serving runs with RunConfig(fsdp=False)")
+
+    @property
+    def dp(self):  # batch axes
+        a = self.run.dp_axes
+        return a[0] if len(a) == 1 else a
+
+    @property
+    def tp(self) -> str:
+        return self.run.tp_axis
+
+    @property
+    def fsdp_axes(self):
+        return self.dp if self.run.fsdp else None
+
+    def dim(self, size: int, axes):
+        """Shard ``size`` over ``axes`` iff divisible, else replicate."""
+        if axes is None:
+            return None
+        if isinstance(axes, str) and axes not in self.mesh.shape:
+            return None
+        if size % axes_size(self.mesh, axes) == 0:
+            return axes
+        return None
+
+    def local_batch(self, b: int) -> int:
+        if self.dim(b, self.dp) is None:
+            return b
+        return b // axes_size(self.mesh, self.dp)
+
+    def w2d(self, d_in: int, d_out: int, *, tp_dim: int | None) -> P:
+        """(d_in, d_out) weight; ``tp_dim`` says which dim (0/1/None) is TP."""
+        f = self.fsdp_axes
+        if tp_dim == 0:
+            return P(self.dim(d_in, self.tp), self.dim(d_out, f))
+        if tp_dim == 1:
+            return P(self.dim(d_in, f), self.dim(d_out, self.tp))
+        return P(self.dim(d_in, f), None)
+
+    def kv_cache(self, n_kv: int, batch: int, *, long_ctx: bool = False) -> P:
+        """(B, Hkv, S_max, hd): batch over dp, seq over tp."""
+        if long_ctx:
+            raise NotImplementedError(
+                "long-context decode over (dp × tp) is ROADMAP item A8")
+        if not self.run.decode_seq_shard:
+            return P(self.dim(batch, self.dp), self.dim(n_kv, self.tp),
+                     None, None)
+        return P(self.dim(batch, self.dp), None, self.tp, None)

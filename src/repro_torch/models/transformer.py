@@ -1,0 +1,278 @@
+"""Model assembly for the dense serving path — the twin of
+``repro/models/transformer.py``: parameter and cache templates (shape,
+spec and init in one place), then the cache-building prefill and the
+one-token decode step, looping over layer periods in Python where the JAX
+package scans.
+
+Storage layout: a leaf whose spec shards a dim over the tensor-parallel
+axis is stored stacked per rank, once (``core.pgl.layout`` with the rank
+axis after the layer-period dim); replicated leaves are stored global.
+With no mesh every leaf is global. Dense attention patterns only: MoE,
+SSM and encoder-decoder configs raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterator
+
+import torch
+
+from repro_torch.compat import DTYPES
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core import pgl
+from repro_torch.core.pgl import P
+from repro_torch.models import layers as L
+from repro_torch.models.sharding import ShardingRules
+
+
+@dataclasses.dataclass(frozen=True)
+class PD:
+    """Parameter (or cache) definition: global shape, spec, init, dtype.
+    ``periods`` marks a leading layer-period dim (spec entry None)."""
+    shape: tuple[int, ...]
+    spec: P
+    init: str = "normal"          # normal | zeros | ones
+    dtype: torch.dtype = torch.bfloat16
+    periods: bool = False
+
+    def stacked(self, n: int) -> "PD":
+        return dataclasses.replace(self, shape=(n, *self.shape),
+                                   spec=P(None, *self.spec), periods=True)
+
+
+def leaves(tree, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
+    """(path, leaf) pairs of a nested dict, keys sorted (jax.tree order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def set_path(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _check_dense(cfg: ArchConfig) -> None:
+    if cfg.encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder decode is ROADMAP item A7")
+    for sp in cfg.layer_pattern():
+        if sp.mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: SSM/hybrid layers are ROADMAP item A10")
+        if sp.mlp != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are ROADMAP item A9")
+
+
+# ---------------------------------------------------------------------------
+# Templates
+# ---------------------------------------------------------------------------
+
+def _attn_pds(cfg: ArchConfig, r: ShardingRules | None, dt) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sp = (lambda i, o, tp_dim: r.w2d(i, o, tp_dim=tp_dim)) if r else \
+        (lambda i, o, tp_dim: P(None, None))
+    return {
+        "norm": PD((d,), P(None), "ones", dt),
+        "wq": PD((d, hq * hd), sp(d, hq * hd, 1), "normal", dt),
+        "wk": PD((d, hkv * hd), sp(d, hkv * hd, 1), "normal", dt),
+        "wv": PD((d, hkv * hd), sp(d, hkv * hd, 1), "normal", dt),
+        "wo": PD((hq * hd, d), sp(hq * hd, d, 0), "normal", dt),
+    }
+
+
+def _mlp_pds(cfg: ArchConfig, r: ShardingRules | None, dt) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    sp = (lambda i, o, tp_dim: r.w2d(i, o, tp_dim=tp_dim)) if r else \
+        (lambda i, o, tp_dim: P(None, None))
+    out = {
+        "norm": PD((d,), P(None), "ones", dt),
+        "w1": PD((d, ff), sp(d, ff, 1), "normal", dt),
+        "w2": PD((ff, d), sp(ff, d, 0), "normal", dt),
+    }
+    if cfg.gated_mlp:
+        out["w3"] = PD((d, ff), sp(d, ff, 1), "normal", dt)
+    return out
+
+
+def param_template(cfg: ArchConfig, run: RunConfig,
+                   rules: ShardingRules | None) -> dict:
+    """The full parameter tree as PDs (the JAX template's shapes/specs)."""
+    _check_dense(cfg)
+    dt = DTYPES[cfg.dtype]
+    d = cfg.d_model
+    v = cfg.padded_vocab(rules.mesh.shape[rules.tp] if rules else 16)
+    fs = rules.dim(d, rules.fsdp_axes) if rules is not None else None
+    tpv = rules.dim(v, rules.tp) if rules is not None else None
+    tree: dict[str, Any] = {
+        "embed": PD((v, d), P(tpv, fs), "normal", dt),
+        "final_norm": PD((d,), P(None), "ones", dt),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = PD((d, v), P(fs, tpv), "normal", dt)
+    blocks = {}
+    for i, _spec in enumerate(cfg.layer_pattern()):
+        pds = {"attn": _attn_pds(cfg, rules, dt),
+               "mlp": _mlp_pds(cfg, rules, dt)}
+        blocks[f"pos{i}"] = {g: {k: pd.stacked(cfg.n_periods)
+                                 for k, pd in sub.items()}
+                             for g, sub in pds.items()}
+    tree["blocks"] = blocks
+    return tree
+
+
+def to_stored(x: torch.Tensor, pd: PD, rules: ShardingRules | None):
+    """A global tensor in its stored layout (stacked when sharded)."""
+    if rules is None:
+        return x
+    return pgl.layout(x, pd.spec, rules.mesh, rules.tp,
+                      lead=int(pd.periods), expand=False).contiguous()
+
+
+def stored_shape(pd: PD, rules: ShardingRules | None) -> tuple[int, ...]:
+    if rules is None:
+        return pd.shape
+    return pgl.stacked_shape(pd.shape, pd.spec, rules.mesh, rules.tp,
+                             lead=int(pd.periods))
+
+
+def init_params(template, generator: torch.Generator, d_model: int, *,
+                rules: ShardingRules | None = None,
+                device=None) -> dict:
+    """Random parameters from a seeded ``torch.Generator`` (normal leaves
+    ~ N(0, 1/d_model), f32 draws cast to the leaf dtype), laid out once
+    in their stored form. ``generator`` must live on ``device``."""
+    device = torch.device(device) if device is not None \
+        else generator.device
+    scale = d_model ** -0.5
+    out: dict = {}
+    for path, pd in leaves(template):
+        if pd.init == "ones":
+            x = torch.ones(pd.shape, dtype=pd.dtype, device=device)
+        elif pd.init == "normal":
+            x = (torch.randn(pd.shape, generator=generator, device=device,
+                             dtype=torch.float32) * scale).to(pd.dtype)
+        else:
+            raise NotImplementedError(f"init {pd.init!r}")
+        set_path(out, path, to_stored(x, pd, rules))
+    return out
+
+
+def zeros(template, rules: ShardingRules | None, device) -> dict:
+    """A zero tree in the stored layout of ``template``."""
+    out: dict = {}
+    for path, pd in leaves(template):
+        set_path(out, path, torch.zeros(stored_shape(pd, rules),
+                                        dtype=pd.dtype, device=device))
+    return out
+
+
+def cache_template(cfg: ArchConfig, run: RunConfig,
+                   rules: ShardingRules | None, *, batch: int, s_max: int,
+                   slot_pos: bool = False, kv_dtype: str = "bf16") -> dict:
+    """Slab decode cache: per layer period (np, B, Hkv, S_max, hd) K and V
+    (sequence-sharded over tp with a mesh) and the position — a scalar, or
+    one per slot with ``slot_pos=True`` (the serving engine's pool)."""
+    _check_dense(cfg)
+    if rules is not None and not run.decode_seq_shard:
+        raise NotImplementedError(
+            "head-sharded KV caches (decode_seq_shard=False on a mesh) are "
+            "ROADMAP item A7; the port shards the cache's sequence dim")
+    if kv_dtype != "bf16":
+        raise NotImplementedError(
+            f"kv_dtype {kv_dtype!r}: the int8 KV cache is ROADMAP item A11")
+    dt = DTYPES[cfg.dtype]
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    kv_spec = rules.kv_cache(hkv, batch) if rules else P(None, None, None,
+                                                          None)
+    bspec = rules.dim(batch, rules.dp) if rules else None
+    tree: dict[str, Any] = {
+        "pos": (PD((batch,), P(bspec), "zeros", torch.int32) if slot_pos
+                else PD((), P(), "zeros", torch.int32)),
+        "blocks": {}}
+    for i, _spec in enumerate(cfg.layer_pattern()):
+        kv = PD((batch, hkv, s_max, hd), kv_spec, "zeros", dt)
+        tree["blocks"][f"pos{i}"] = {"k": kv.stacked(cfg.n_periods),
+                                     "v": kv.stacked(cfg.n_periods)}
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode with caches
+# ---------------------------------------------------------------------------
+
+def _head(params) -> torch.Tensor:
+    if "lm_head" in params:
+        return params["lm_head"]
+    return L._row_weight(params["embed"]).T.contiguous()
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
+                rules: ShardingRules | None):
+    """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V) f32,
+    new_cache) with ``pos`` advanced by one."""
+    _check_dense(cfg)
+    pos = cache["pos"]
+    x = L.embed_tokens(params, tokens, rules, run)
+    new_blocks = {}
+    for i, _spec in enumerate(cfg.layer_pattern()):
+        bp, cp = params["blocks"][f"pos{i}"], cache["blocks"][f"pos{i}"]
+        ks, vs = [], []
+        for li in range(cfg.n_periods):
+            a = {k: t[li] for k, t in bp["attn"].items()}
+            h, nk, nv = L.decode_attention(
+                a, L.rms_norm(a["norm"], x, cfg.norm_eps), cp["k"][li],
+                cp["v"][li], pos, cfg, run, rules)
+            x = x + h
+            ks.append(nk)
+            vs.append(nv)
+            m = {k: t[li] for k, t in bp["mlp"].items()}
+            x = x + L.mlp_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps),
+                                cfg, run, rules)
+        new_blocks[f"pos{i}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.lm_logits({"lm_head": _head(params)}, x)
+    return logits, {"pos": pos + 1, "blocks": new_blocks}
+
+
+def prefill_step(params, cache, tokens, prompt_lens, cfg: ArchConfig,
+                 run: RunConfig, rules: ShardingRules | None):
+    """Batched cache-building prefill: one full-sequence forward over the
+    right-padded prompts (B, L) writes every layer's K/V into the cache and
+    returns each slot's next-token logits (B, 1, V) at its last real
+    position, with ``cache["pos"]`` set to the prompt lengths."""
+    _check_dense(cfg)
+    b, _ = tokens.shape
+    x = L.embed_tokens(params, tokens, rules, run)
+    new_blocks = {}
+    for i, _spec in enumerate(cfg.layer_pattern()):
+        bp, cp = params["blocks"][f"pos{i}"], cache["blocks"][f"pos{i}"]
+        ks, vs = [], []
+        for li in range(cfg.n_periods):
+            a = {k: t[li] for k, t in bp["attn"].items()}
+            h, nk, nv = L.prefill_attention_block(
+                a, L.rms_norm(a["norm"], x, cfg.norm_eps), cp["k"][li],
+                cp["v"][li], cfg, run, rules)
+            x = x + h
+            ks.append(nk)
+            vs.append(nv)
+            m = {k: t[li] for k, t in bp["mlp"].items()}
+            x = x + L.mlp_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps),
+                                cfg, run, rules)
+        new_blocks[f"pos{i}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    lens = torch.as_tensor(prompt_lens, device=x.device)
+    idx = (lens.reshape(-1) - 1).expand(b) if lens.dim() == 0 or \
+        lens.numel() == 1 else lens - 1
+    x_last = x[torch.arange(b, device=x.device), idx.long()][:, None]
+    logits = L.lm_logits({"lm_head": _head(params)}, x_last)
+    if cache["pos"].dim():
+        new_pos = torch.broadcast_to(lens, (b,)).to(torch.int32)
+    else:
+        new_pos = lens.reshape(()).to(torch.int32)
+    return logits, {"pos": new_pos, "blocks": new_blocks}

@@ -10,12 +10,14 @@ Phases (any failure exits non-zero before the last line is printed):
 2. build: the hand-written kernels of ``src/repro_torch/kernels/csrc`` are
    compiled by nvcc for sm_90a (seconds printed);
 3. kernels: each kernel of the serving path runs at the shapes that path
-   gives it and is held against its plain PyTorch version on the same
-   inputs — relative Frobenius error <= 1e-2 for bf16 outputs, <= 1e-3 for
-   f32 outputs of bf16 inputs — then timed with CUDA events (median of 20
-   after warm-up) beside its plain version, one PyTorch library call of the
-   same function (a yardstick only, never called by the port) and its
-   bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s, the larger);
+   gives it (every GEMM+AR site and prefill bucket, flash on the strided
+   views prefill passes) and is held against its plain PyTorch version on
+   the same inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
+   <= 1e-3 for f32 outputs of bf16 inputs; one shape of each is then
+   timed with CUDA events (median of 20 after warm-up) beside its plain
+   version, one PyTorch library call of the same function (a yardstick
+   only, never called by the port) and its bound (bytes over 3.35 TB/s or
+   operations over 989 TFLOP/s, the larger);
 4. serving: the continuous-batching engine serves 8 requests of a seeded
    synthetic trace with tinyllama-1.1b at full width and depth on 4 virtual
    tensor-parallel ranks, every GEMM+AR site pinned to the fused kernel;
@@ -42,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -107,8 +110,7 @@ def check_kernels(dev) -> dict:
 
     entries = {}
 
-    def record(name, shape, source, replaces, run, plain, library, tol,
-               nbytes, flops):
+    def compare(name, shape, run, plain, tol):
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = rel_err(got, want)
@@ -118,6 +120,11 @@ def check_kernels(dev) -> dict:
         if not err <= tol:
             raise AssertionError(f"{name} {shape} disagrees with its plain "
                                  f"version: rel_err {err:.3e} > {tol:g}")
+        return err, max_abs
+
+    def record(name, shape, source, replaces, run, plain, library, tol,
+               nbytes, flops):
+        err, max_abs = compare(name, shape, run, plain, tol)
         ms, plain_ms = time_ms(run), time_ms(plain)
         lib_ms = time_ms(library)
         b_ms, by = bound_ms(nbytes, flops)
@@ -144,33 +151,56 @@ def check_kernels(dev) -> dict:
                    (m * k + k * n + m * n) * 2, 2.0 * m * n * k)
         entries[key] = e
 
-    # flash attention: a prefill bucket group (B=4, S=512), tinyllama heads
-    b, hq, hkv, s, hd = 4, 32, 4, 512, 64
-    q, k_, v = randn(b, hq, s, hd), randn(b, hkv, s, hd), randn(b, hkv, s, hd)
-    kr = k_.repeat_interleave(hq // hkv, 1)
-    vr = v.repeat_interleave(hq // hkv, 1)
-    visible = s * (s + 1) // 2                 # causal (q, k) pairs per head
-    entries["flash_attention"] = record(
-        "flash_attention", f"q({b},{hq},{s},{hd}) kv({b},{hkv},{s},{hd}) "
-        "causal", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:73",
-        lambda: FA.flash_attention(q, k_, v, causal=True),
-        lambda: FA.flash_attention_plain(q, k_, v, causal=True),
-        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
-        TOL_BF16_OUT, (2 * q.numel() + k_.numel() + v.numel()) * 2,
-        4.0 * b * hq * hd * visible)
+    # flash attention: the prefill bucket groups (B=4, S=512 and S=128),
+    # tinyllama heads. Prefill hands the kernel head-transposed views of
+    # (B, S, H, hd) projections, so q/k/v are strided as there; the
+    # contiguous layout is checked as well.
+    b, hq, hkv, hd = 4, 32, 4, 64
+    for s, strided in ((512, True), (128, True), (512, False)):
+        if strided:
+            q, k_, v = (randn(b, s, h, hd).transpose(1, 2)
+                        for h in (hq, hkv, hkv))
+        else:
+            q, k_, v = (randn(b, h, s, hd) for h in (hq, hkv, hkv))
+        shape = (f"q({b},{hq},{s},{hd}) kv({b},{hkv},{s},{hd}) causal"
+                 + (" strided" if strided else ""))
+        run = partial(FA.flash_attention, q, k_, v, causal=True)
+        plain = partial(FA.flash_attention_plain, q, k_, v, causal=True)
+        if (s, strided) != (512, True):
+            compare("flash_attention", shape, run, plain, TOL_BF16_OUT)
+            continue
+        kr = k_.repeat_interleave(hq // hkv, 1)
+        vr = v.repeat_interleave(hq // hkv, 1)
+        visible = s * (s + 1) // 2             # causal (q, k) pairs per head
+        entries["flash_attention"] = record(
+            "flash_attention", shape,
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:73", run, plain,
+            lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                   is_causal=True),
+            TOL_BF16_OUT, (2 * q.numel() + k_.numel() + v.numel()) * 2,
+            4.0 * b * hq * hd * visible)
 
-    # GEMM+AR: the MLP down-projection island, prefill (m = 4 x 512) and
-    # decode (m = 8), R = 4 ranks of ff/R = 1408
-    r, kl, n = 4, 5632 // 4, 2048
-    for m, key in ((2048, "pk_matmul_ar"), (8, "pk_matmul_ar@decode")):
+    # GEMM+AR, R = 4 ranks: the MLP down-projection island (k_loc = ff/R =
+    # 1408) at prefill (m = 4 x 512 and 4 x 128) and decode (m = 8), and
+    # the attention out-projection island (k_loc = d/R = 512) at prefill.
+    # The 512-bucket MLP and the decode MLP are timed; the rest are checked.
+    r, n = 4, 2048
+    for m, kl, key in ((2048, 1408, "pk_matmul_ar"),
+                       (8, 1408, "pk_matmul_ar@decode"),
+                       (512, 1408, None), (2048, 512, None),
+                       (512, 512, None)):
         x, w = randn(r, m, kl), randn(r, kl, n, scale=(r * kl) ** -0.5)
+        shape = f"x({r},{m},{kl})@w({r},{kl},{n})"
+        run = partial(CM.matmul_ar_fused, x, w)
+        plain = partial(CM.matmul_ar_plain, x, w)
+        if key is None:
+            compare("pk_matmul_ar", shape, run, plain, TOL_F32_OUT)
+            continue
         entries[key] = record(
-            "pk_matmul_ar", f"x({r},{m},{kl})@w({r},{kl},{n})",
+            "pk_matmul_ar", shape,
             "src/repro_torch/kernels/csrc/collective_matmul.cu",
-            "src/repro/kernels/collective_matmul.py:306",
-            lambda: CM.matmul_ar_fused(x, w),
-            lambda: CM.matmul_ar_plain(x, w),
+            "src/repro/kernels/collective_matmul.py:306", run, plain,
             lambda: torch.matmul(x, w).sum(0), TOL_F32_OUT,
             (x.numel() + w.numel()) * 2 + r * m * n * 4,
             2.0 * r * m * kl * n)

@@ -20,7 +20,7 @@ Ported in this slice (the serving path's ops)::
 ``ring``  — the accumulate-and-forward reduce-scatter ring of
             ``repro.core.comms.pk_matmul_all_reduce`` (payload in the
             activation dtype, each hop's add in f32), then the all-gather.
-``fused`` — ``kernels/ops.py::pk_matmul_ar``: the hand-written GEMM×AR
+``fused`` — ``kernels/collective_matmul.py``: the hand-written GEMM×AR
             kernel on a CUDA device, its plain PyTorch version on the CPU.
 
 The other ops of ``OP_BACKENDS`` raise ``NotImplementedError`` naming the
@@ -253,8 +253,9 @@ class CommContext:
             dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim)
         if be == "ring":
             return pk_matmul_all_reduce(x, w, n_chunks=sched.n_chunks)
-        from repro_torch.kernels import ops
-        return ops.pk_matmul_ar(x, w, n_chunks=sched.n_chunks).to(x.dtype)
+        from repro_torch.kernels import collective_matmul
+        return collective_matmul.matmul_ar_fused(
+            x, w, n_chunks=sched.n_chunks).to(x.dtype)
 
     def _not_ported(self, op: str):
         raise NotImplementedError(

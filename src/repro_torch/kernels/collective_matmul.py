@@ -22,7 +22,12 @@ block ever waits in:
    ``atom.add.release.gpu``);
 4. the block that arrives last (the add returned R-1) acquires (``wait``),
    sums the R partials in rank order and stores the reduced tile into
-   ``out[d]`` for every rank d (the all-gather half), then resets the flag.
+   ``out[d]`` for every rank d (the all-gather half).
+
+The launcher zeroes the flags on the stream before each launch. Landing
+slots and flags are scratch cached per (device, stream, R, m, n): launches
+that share them run one after another on that stream, so no two launches
+ever count into the same flags at once.
 
 No block spin-waits, so the kernel is correct for any grid size and block
 order, and the fixed summation order makes the result independent of
@@ -52,8 +57,7 @@ TILE_N = 64
 #: pointer tables are passed to the kernel by value, at most this many ranks
 MAX_RANKS = 8
 
-# landing slots + arrival flags, cached by (device, R, m, n): the flags
-# start at 0 and every launch leaves them at 0 again
+# landing slots + arrival flags, cached by (device, stream, R, m, n)
 _SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -82,14 +86,14 @@ def _check(x: torch.Tensor, w: torch.Tensor, n_chunks: int) -> None:
         raise ValueError("x and w must be on one device")
 
 
-def _scratch(device, r: int, m: int, n: int):
-    key = (device, r, m, n)
+def _scratch(device, stream: int, r: int, m: int, n: int):
+    key = (device, stream, r, m, n)
     if key not in _SCRATCH:
         tiles = -(-m // TILE_M) * -(-n // TILE_N)
         _SCRATCH[key] = (
             torch.empty((r, r, m // r, n), dtype=torch.float32,
                         device=device),
-            torch.zeros((tiles,), dtype=torch.int32, device=device))
+            torch.empty((tiles,), dtype=torch.int32, device=device))
     return _SCRATCH[key]
 
 
@@ -113,13 +117,12 @@ def matmul_ar_fused(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError("k_loc and n must be multiples of 8 (16-byte rows)")
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty((r, m, n), dtype=torch.float32, device=x.device)
-    landing, flags = _scratch(x.device, r, m, n)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    landing, flags = _scratch(x.device, stream, r, m, n)
     tables = [_build.host_table(pgl.pointer_table(t))
               for t in (x, w, landing, out)]
     lib = _build.library()
-    err = lib.pk_matmul_ar_bf16(
-        *tables, flags.data_ptr(), r, m, n, k,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    err = lib.pk_matmul_ar_bf16(*tables, flags.data_ptr(), r, m, n, k, stream)
     _build.check(err, "pk_matmul_ar_bf16")
     matmul_ar_fused.launches += 1
     return out

@@ -4,8 +4,9 @@
 //
 // x: R slabs of (M x K) bf16, w: R slabs of (K x N) bf16 (K is each rank's
 // shard of the reduction dim). landing: R owner slots of (R x M/R x N) f32;
-// out: R slabs of (M x N) f32. flags: one int per (m tile, n tile), zero
-// before and after every launch.
+// out: R slabs of (M x N) f32. flags: one int per (m tile, n tile), zeroed
+// on the stream before every launch, so a launch that aborted part-way
+// cannot leave a count behind for the next.
 //
 // Why it cannot deadlock: no block ever waits for another. Each block
 // publishes its partial tile and counts itself in; only the block that
@@ -83,7 +84,6 @@ __global__ void __launch_bounds__(MT_THREADS)
           reinterpret_cast<float4*>((float*)outs.p[d] + (long)row * N + col),
           s);
   }
-  if (threadIdx.x == 0) *flag = 0;  // ready for the next launch
 }
 
 extern "C" int pk_matmul_ar_bf16(const unsigned long long* x_ptrs,
@@ -102,6 +102,9 @@ extern "C" int pk_matmul_ar_bf16(const unsigned long long* x_ptrs,
     os.p[i] = out_ptrs[i];
   }
   dim3 grid((N + MT_BN - 1) / MT_BN, (M + MT_BM - 1) / MT_BM, R);
+  cudaError_t err = cudaMemsetAsync(
+      flags, 0, sizeof(int) * grid.x * grid.y, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   pk_matmul_ar_kernel<<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
       xs, ws, ls, os, (int*)flags, R, M, N, K);
   return (int)cudaGetLastError();

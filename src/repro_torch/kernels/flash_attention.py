@@ -3,7 +3,7 @@
 Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
 ``_fa_kernel``): grid (B·H, q blocks, kv blocks) with the kv dim
 sequential, m/l/acc in VMEM scratch, fully masked kv blocks skipped with
-``pl.when``; GQA repeat and padding live in ``ops.flash_attention``.
+``pl.when``; GQA repeat and padding live in the JAX ``ops.flash_attention``.
 
 CUDA route (``csrc/flash_attention.cu``). One CTA per (64-query block,
 b·Hq); each of its four warps owns 16 query rows. The CTA reads KV head

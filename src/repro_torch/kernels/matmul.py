@@ -2,7 +2,7 @@
 
 Replaces ``repro/kernels/matmul.py::matmul`` (the Pallas ``_mm_kernel``),
 which tiles (M, K) @ (K, N) through 128×128×128 VMEM blocks with an f32
-accumulator and relies on ``ops.matmul`` to pad to the tile.
+accumulator and relies on the JAX ``ops.matmul`` to pad to the tile.
 
 CUDA route (``csrc/matmul.cu``, tile in ``csrc/mm_tile.cuh``). One CTA of
 four warps computes a 64×64 output tile with ``mma.sync`` m16n8k16 (bf16

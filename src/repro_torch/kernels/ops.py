@@ -1,27 +1,10 @@
-"""Public wrappers over the hand-written kernels — the twin of
-``repro/kernels/ops.py``. The Pallas wrappers pad to MXU tiles and repeat
-GQA heads; the CUDA kernels mask ragged edges and read KV heads in place,
-so these wrappers only fix the call conventions the callers share."""
+"""Public names of the hand-written kernels — the twin of
+``repro/kernels/ops.py``. The Pallas wrappers there pad to MXU tiles and
+repeat GQA heads; the CUDA kernels mask ragged edges and read KV heads in
+place, so nothing is left to wrap and these are plain re-exports."""
 
-from __future__ import annotations
-
-from repro_torch.kernels.collective_matmul import matmul_ar_fused
-from repro_torch.kernels.flash_attention import flash_attention as _flash
-from repro_torch.kernels.matmul import matmul as _mm
-
-
-def matmul(x, w):
-    """(M, K) @ (K, N), f32 accumulator, out in x's dtype."""
-    return _mm(x, w)
-
-
-def flash_attention(q, k, v, *, causal=True, window=None):
-    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D); scale head_dim**-0.5."""
-    return _flash(q, k, v, causal=causal, window=window)
-
-
-def pk_matmul_ar(x, w, *, n_chunks=1):
-    """Fused GEMM×all-reduce on stacked operands: x (R, m, k_loc),
-    w (R, k_loc, n) -> (R, m, n) f32, the same on every rank — the JAX
-    per-rank ``(m, n)`` result stacked over ranks."""
-    return matmul_ar_fused(x, w, n_chunks=n_chunks)
+from repro_torch.kernels.collective_matmul import (  # noqa: F401
+    matmul_ar_fused as pk_matmul_ar,
+)
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.matmul import matmul  # noqa: F401

@@ -5,11 +5,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.matmul import matmul_plain as matmul_ref  # noqa: F401
+
 NEG_INF = -1e30
-
-
-def matmul_ref(x, w):
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):

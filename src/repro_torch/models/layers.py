@@ -10,7 +10,7 @@ tp-sharded weight out once); the helpers :func:`_col_proj` and
 
 Ported: norms, activations, RoPE, ``_full_attention``, the slab KV-cache
 islands (``decode_island``, ``prefill_write_island``), prefill attention —
-whose causal mix is ``kernels/ops.py::flash_attention``, the hand-written
+whose causal mix is ``kernels/flash_attention.py``, the hand-written
 kernel on the card — the GEMM+AR islands (``attn_out_island``,
 ``mlp_island``), the vocab-parallel embedding and the serving logits. Not
 ported: sequence-parallel attention (ROADMAP A8), MoE (A9), paged and
@@ -26,7 +26,8 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.pgl import P
 from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
                                        Stacked, rank_index)
-from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.matmul import matmul
 from repro_torch.models.sharding import ShardingRules
 
 NEG_INF = -1e30
@@ -341,7 +342,7 @@ def prefill_attention_block(p, x, cache_k, cache_v, cfg: ArchConfig,
     positions = torch.arange(s, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     write = prefill_write_island(cfg, run, rules, b, s)
     new_k = write(cache=cache_k, new=k)
     new_v = write(cache=cache_v, new=v)
@@ -458,14 +459,14 @@ def embed_tokens(p, tokens, rules: ShardingRules | None,
 
 def lm_logits(p, x):
     """Serving logits (B, S, V) in f32: bf16 products rounded like the JAX
-    einsum, through the GEMM-tile kernel (``ops.matmul``) — per rank when
-    the head is stored stacked over the vocab."""
+    einsum, through the GEMM-tile kernel (``kernels/matmul.py``) — per rank
+    when the head is stored stacked over the vocab."""
     head = p["lm_head"]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if head.dim() == 2:
-        y = ops.matmul(x2, head)
+        y = matmul(x2, head)
     else:
-        y = torch.cat([ops.matmul(x2, head[r]) for r in range(head.shape[0])],
+        y = torch.cat([matmul(x2, head[r]) for r in range(head.shape[0])],
                       dim=-1)
     return y.float().reshape(*x.shape[:-1], -1)
 

@@ -120,11 +120,11 @@ def _np(*shape, seed=0):
 
 def _spy(monkeypatch):
     """Record which matmul_all_reduce implementation the port runs."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import collective_matmul
     calls = []
     for mod, name, tag in ((tcomms, "matmul_all_reduce_baseline", "bulk"),
                            (tcomms, "pk_matmul_all_reduce", "ring"),
-                           (ops, "pk_matmul_ar", "fused")):
+                           (collective_matmul, "matmul_ar_fused", "fused")):
         orig = getattr(mod, name)
 
         def wrapped(*a, _orig=orig, _tag=tag, **kw):

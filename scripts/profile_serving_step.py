@@ -43,7 +43,7 @@ TOP = 12
 
 
 def group_of(name: str) -> str:
-    low = name.lower()
+    low = name.lower().removeprefix("void ")
     if low.startswith("pk_"):
         return "pk_kernels"
     if any(s in low for s in GEMM_MARKS):

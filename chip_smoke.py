@@ -9,13 +9,17 @@ Phases (any failure exits non-zero before the last line is printed):
    CUDA versions;
 2. build: the hand-written kernels of ``src/repro_torch/kernels/csrc`` are
    compiled by nvcc for sm_90a (seconds printed);
-3. kernels: each kernel of the serving path runs at the shapes that path
-   gives it (every GEMM+AR site and prefill bucket, flash on the strided
-   views prefill passes) and is held against its plain PyTorch version on
-   the same inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
+3. kernels: each kernel of the serving and training paths runs at the
+   shapes those paths give it (every GEMM+AR site and prefill bucket, flash
+   on the strided views prefill passes, the ring all-gather and
+   reduce-scatter at every FSDP shard shape of the (2, 4) training run and
+   at 4 and 8 ranks, each for 1-4 chunks, whose results must be
+   bit-identical) and is held against its plain PyTorch version on the same
+   inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
    <= 1e-3 for f32 outputs of bf16 inputs; one shape of each is then
-   timed with CUDA events (median of 20 after warm-up) beside its plain
-   version, one PyTorch library call of the same function (a yardstick
+   timed with CUDA events (20 calls queued back to back behind a spin
+   kernel, median of 5; ``ms_single`` times each call alone) beside its
+   plain version, one PyTorch library call of the same function (a yardstick
    only, never called by the port) and its bound (bytes over 3.35 TB/s or
    operations over 989 TFLOP/s, the larger);
 4. serving: the continuous-batching engine serves 8 requests of a seeded
@@ -26,12 +30,28 @@ Phases (any failure exits non-zero before the last line is printed):
    the ``bulk`` backend (no GEMM+AR kernel) for the share of agreeing greedy
    tokens and the first prefill logits' largest difference (beside the
    ring backend's, a third summation order);
+3b. backward: the autograd wrappers of the GEMM tile, flash attention and
+   GEMM+AR at the training path's shapes — outputs and gradients against
+   plain-torch autograd of their plain versions, relative error <= 2e-2;
 4b. reference: tinyllama-1.1b at full width cut to 2 layers, card path
    (bf16, kernels) against the port's plain float32 path on the CPU with
    the same weights, on one small prefill group — relative Frobenius error
    of the logits <= 3e-2;
-5. a line ``{"kernels": [...]}`` with each kernel's numbers;
-6. the last line, ``{"ok": true, "device": {...}}``.
+5. training: ``build_and_train`` trains tinyllama-1.1b at full width and
+   depth on a (2, 4) virtual mesh (data 2 x model 4) with FSDP, every
+   collective pinned to the kernels (``comm_backend="fused"``), batch 8 x
+   seq 512 in 2 microbatches, 4 steps, and writes a checkpoint; every loss
+   must be finite and every kernel of the path (the ring all-gather of each
+   FSDP weight gather, the ring reduce-scatter of each FSDP gradient, the
+   GEMM+AR, flash and GEMM-tile kernels inside autograd) must launch;
+5b. train reference: the same model cut to 2 layers, one forward and
+   backward on the card (bf16, kernels) against the port's plain float32
+   path on the CPU with the same weights and batch — loss within relative
+   1e-2 and global gradient norm within relative 3e-2;
+6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
+   the serving run's count for the serving kernels, the training run's for
+   the ring kernels; ``launches_by_path`` has both);
+7. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository's ``src/`` beside it.
 """
@@ -39,7 +59,9 @@ It needs one CUDA device and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -60,8 +82,39 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_ms(fn, iters: int = 20, reps: int = 5, warmup: int = 3) -> float:
+    """Device time of one call: the median over ``reps`` of the time between
+    two CUDA events around ``iters`` calls, divided by ``iters``. The calls
+    are queued behind a spin kernel (``torch.cuda._sleep``) twice as long
+    as their host-side enqueue, so the device runs them back to back and
+    the wrappers' host time does not show."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    cycles = int(2 * (time.perf_counter() - t0) * 2e9) + 10 ** 6
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+
+def time_ms_single(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median of CUDA events around each call alone (the script's earlier
+    method): on an idle device this adds the wrapper's host time to the
+    kernel's."""
     import torch
     for _ in range(warmup):
         fn()
@@ -79,8 +132,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def rel_err(got, want) -> float:
-    want = want.float()
-    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
 def card_line() -> str:
@@ -101,6 +154,7 @@ def check_kernels(dev) -> dict:
     from repro_torch.kernels import collective_matmul as CM
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import matmul as MM
+    from repro_torch.kernels import pk_comm as PK
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -127,15 +181,16 @@ def check_kernels(dev) -> dict:
         err, max_abs = compare(name, shape, run, plain, tol)
         ms, plain_ms = time_ms(run), time_ms(plain)
         lib_ms = time_ms(library)
+        single = time_ms_single(run)
         b_ms, by = bound_ms(nbytes, flops)
         print(f"[kernel] {name} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({by})",
-              flush=True)
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({by}); "
+              f"ms_single={single:.4f}", flush=True)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "shape": shape, "launches": 0,
                 "max_abs_err": max_abs, "rel_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-                "library_ms": lib_ms}
+                "library_ms": lib_ms, "ms_single": single}
 
     # matmul: the logits GEMM of a decode step, one rank's vocab shard
     # (x (8, 2048) @ lm_head (2048, 32000/4)); then the MLP-shaped GEMM
@@ -204,7 +259,110 @@ def check_kernels(dev) -> dict:
             lambda: torch.matmul(x, w).sum(0), TOL_F32_OUT,
             (x.numel() + w.numel()) * 2 + r * m * n * 4,
             2.0 * r * m * kl * n)
+
+    # ring all-gather / reduce-scatter at the FSDP shard shapes of the
+    # (2, 4) training run: a dp rank's shard of a tp-stacked weight with the
+    # gathered dim moved to the front, (R_dp, d/2, R_tp, n) for n = 64 (wk,
+    # wv), 512 (wq, wo), 1408 (w1, w3, w2) and 8000 (embed, lm_head); then
+    # the MLP shard over 4 and 8 ranks. Every chunk count must give the
+    # same bits; the MLP shape at R = 2 is timed.
+    for r, rows, n in ((2, 1024, 64), (2, 1024, 512), (2, 1024, 1408),
+                       (2, 1024, 8000), (4, 512, 1408), (8, 256, 1408)):
+        x = randn(r, rows, 4, n)
+        parts = randn(r, r, rows, 4, n)
+        blk = rows * 4 * n
+        for name, fn, plain, arg, lib, nbytes in (
+                ("pk_all_gather", PK.ring_all_gather, PK.all_gather_plain,
+                 x, lambda: x.unsqueeze(0).repeat(r, 1, 1, 1, 1),
+                 (r + r * r) * blk * 2),
+                ("pk_reduce_scatter", PK.ring_reduce_scatter,
+                 PK.reduce_scatter_plain, parts, lambda: parts.sum(0),
+                 (r * r + r) * blk * 2)):
+            shape = f"x{tuple(arg.shape)} bf16"
+            first = fn(arg)
+            for nc in (2, 3, 4):
+                if not torch.equal(fn(arg, n_chunks=nc), first):
+                    raise AssertionError(f"{name} {shape}: n_chunks={nc} "
+                                         "changed the result")
+            run = partial(fn, arg)
+            if (r, n) != (2, 1408):
+                compare(name, shape, run, partial(plain, arg), TOL_BF16_OUT)
+                continue
+            entries[name] = record(
+                name, shape, "src/repro_torch/kernels/csrc/pk_comm.cu",
+                "src/repro/kernels/pk_comm.py:"
+                + ("151" if name == "pk_all_gather" else "242"),
+                run, partial(plain, arg), lib, TOL_BF16_OUT, nbytes, 0.0)
+    print("[kernel] ring all-gather / reduce-scatter: bit-identical for "
+          "n_chunks 1-4 at every shape", flush=True)
     return entries
+
+
+def check_backward(dev) -> None:
+    """Phase 3b: the autograd wrappers' outputs and gradients against
+    plain-torch autograd of the plain versions, at the training path's
+    shapes (per dp group and microbatch: 2 x 512 tokens; attention over the
+    microbatch's 4 sequences). Tolerance: relative error <= 2e-2 — bf16
+    products (and bf16 cotangents) on both sides, summed in other orders."""
+    import torch
+
+    from repro_torch.kernels import collective_matmul as CM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matmul as MM
+
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    def grads(fn, args):
+        args = [a.detach().requires_grad_(True) for a in args]
+        y = fn(*args)
+        gy = torch.randn(y.shape, generator=g, device=dev).to(y.dtype)
+        return [y, *torch.autograd.grad(y, args, gy)]
+
+    b, s, hq, hkv, hd = 4, 512, 32, 4, 64
+    cases = (
+        ("matmul", "x(1024,2048)@w(2048,8000)", MM.matmul, MM.matmul_plain,
+         (randn(1024, 2048), randn(2048, 8000, scale=2048 ** -0.5))),
+        ("flash_attention", f"q({b},{hq},{s},{hd}) kv({b},{hkv},{s},{hd}) "
+         "causal strided",
+         partial(FA.flash_attention, causal=True),
+         partial(FA.flash_attention_plain, causal=True),
+         tuple(randn(b, s, h, hd).transpose(1, 2) for h in (hq, hkv, hkv))),
+        ("pk_matmul_ar", "x(4,1024,1408)@w(4,1408,2048)", CM.matmul_ar_fused,
+         CM.matmul_ar_plain,
+         (randn(4, 1024, 1408), randn(4, 1408, 2048, scale=5632 ** -0.5))))
+    for name, shape, fn, plain, args in cases:
+        gen_state = g.get_state()
+        got = grads(fn, args)
+        g.set_state(gen_state)                  # the same cotangent
+        want = grads(plain, args)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        print(f"[backward] {name} {shape}: rel_err output {errs[0]:.3e}, "
+              f"grads {', '.join(f'{e:.3e}' for e in errs[1:])} (tol 2e-2)",
+              flush=True)
+        if not max(errs) <= 2e-2:
+            raise AssertionError(f"{name} autograd disagrees with plain "
+                                 f"autograd: {errs}")
+
+
+KERNEL_COUNTERS = ("matmul", "flash_attention", "pk_matmul_ar",
+                   "pk_all_gather", "pk_reduce_scatter")
+
+
+def _counters():
+    """Each kernel's launch counter: (module, wrapper attribute)."""
+    from repro_torch.kernels import collective_matmul as CM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matmul as MM
+    from repro_torch.kernels import pk_comm as PK
+    return {"matmul": MM.matmul, "flash_attention": FA.flash_attention,
+            "pk_matmul_ar": CM.matmul_ar_fused,
+            "pk_all_gather": PK.ring_all_gather,
+            "pk_reduce_scatter": PK.ring_reduce_scatter}
 
 
 def serve(dev) -> dict:
@@ -212,9 +370,6 @@ def serve(dev) -> dict:
     import torch
 
     from repro_torch.configs.base import ServeConfig
-    from repro_torch.kernels import collective_matmul as CM
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import matmul as MM
     from repro_torch.launch.serve import build_engine, synthetic_trace
 
     cfg_serve = ServeConfig(max_batch=8, prefill_batch=4,
@@ -236,14 +391,13 @@ def serve(dev) -> dict:
           f"{[len(p) for p in trace]}", flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
-    MM.matmul.launches = 0
-    FA.flash_attention.launches = 0
-    CM.matmul_ar_fused.launches = 0
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar")}
+    for fn in counters.values():
+        fn.launches = 0
     done = eng.run(trace)
     torch.cuda.synchronize()
-    launches = {"matmul": MM.matmul.launches,
-                "flash_attention": FA.flash_attention.launches,
-                "pk_matmul_ar": CM.matmul_ar_fused.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     st = eng.stats()
     step_ms = {kind: 1e3 * statistics.median(
         t for k, t in zip(eng.step_kinds, eng.step_times) if k == kind)
@@ -342,6 +496,125 @@ def check_reference(dev) -> None:
           f"{sum(map(len, got_t.values()))} agree", flush=True)
 
 
+def train(dev, steps: int = 4) -> dict:
+    """Phase 5: the port's training path, with launch counts around it."""
+    import torch
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch.train import build_and_train
+
+    batch, seq, mb = 8, 512, 2
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state, log = build_and_train(
+            "tinyllama-1.1b", steps=steps, reduced=False, mesh_shape=(2, 4),
+            mesh_axes=("data", "model"), batch=batch, seq=seq,
+            ckpt_dir=ckpt, microbatches=mb, log_every=1, ckpt_every=100,
+            comm_backend="fused", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        latest = CheckpointManager(ckpt).latest_step()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del state
+    losses = [m["loss"] for m in log]
+    step_s = [m["step_time_s"] for m in log]
+    steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    print(f"[train] tinyllama-1.1b full width and depth, mesh (2, 4) "
+          f"(data x model) virtual, FSDP, comm_backend=fused, batch {batch} "
+          f"x seq {seq}, microbatches {mb}: losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(m['grad_norm'], 4) for m in log]}", flush=True)
+    print(f"[train] step wall times (host clock, each ends in a device->host "
+          f"read) {[round(t, 4) for t in step_s]} s; median of steps 2-"
+          f"{steps} {steady:.4f} s = {batch * seq / steady:.1f} tokens/s; "
+          f"build + {steps} steps + checkpoint {wall:.1f} s; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B; "
+          f"checkpoint latest_step {latest}", flush=True)
+    print(f"[train] launches over {steps} steps {launches}; per step "
+          f"{ {k: v / steps for k, v in launches.items()} }", flush=True)
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses not all finite: {losses}")
+    if latest != steps:
+        raise AssertionError(f"checkpoint latest_step {latest} != {steps}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the training run launched no {name} "
+                                 "kernel")
+    return launches
+
+
+def check_train_reference(dev) -> None:
+    """Phase 5b: tinyllama-1.1b at full width cut to 2 layers on the (2, 4)
+    mesh with FSDP, one forward and backward of 4 x 128 tokens: the card
+    (bf16, kernels, fused collectives) against the port's plain float32
+    path on the CPU with the same weights (bf16 values widened) and batch.
+    Tolerance: loss within relative 1e-2 and the global gradient norm within
+    relative 3e-2 — two layers round some twenty bf16 intermediates per
+    element (about 1e-2 relative in all, as in phase 4b); the loss averages
+    that over tokens, the gradient norm over 2.2e8 entries, and the bf16
+    cotangents add as much again, hence three times the budget there."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2)
+    run = RunConfig(fsdp=True, comm_backend="fused")
+
+    def loss_and_norm(cfg, params, batch, device):
+        rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), device),
+                              run)
+        paths = list(T.leaves(params))
+        for _, p in paths:
+            p.requires_grad_(True)
+        loss, _ = T.forward_train(params, batch, cfg, run, rules)
+        gs = torch.autograd.grad(loss, [p for _, p in paths])
+        tree: dict = {}
+        for (path, _), g in zip(paths, gs):
+            T.set_path(tree, path, g)
+        return float(loss.detach()), float(AdamW.global_norm(tree))
+
+    rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), dev), run)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = T.init_params(T.param_template(cfg, run, rules), gen,
+                           cfg.d_model, rules=rules, device=dev)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 128, 4, seed=2),
+                        device=dev).batch(0)
+    cpu_params: dict = {}
+    for path, t in T.leaves(params):
+        T.set_path(cpu_params, path, t.detach().float().cpu())
+    got = loss_and_norm(cfg, params, batch, dev)
+    t0 = time.perf_counter()
+    want = loss_and_norm(dataclasses.replace(cfg, dtype="float32"),
+                         cpu_params, {k: v.cpu() for k, v in batch.items()},
+                         "cpu")
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"[train-reference] 2-layer full-width (2, 4) FSDP step, card "
+          f"(bf16 kernels) vs cpu (f32 plain, {time.perf_counter() - t0:.1f}"
+          f" s): loss {got[0]:.5f} vs {want[0]:.5f} (rel {errs[0]:.3e}, tol "
+          f"1e-2), grad norm {got[1]:.5f} vs {want[1]:.5f} (rel "
+          f"{errs[1]:.3e}, tol 3e-2)", flush=True)
+    if not (errs[0] <= 1e-2 and errs[1] <= 3e-2):
+        raise AssertionError(f"card training step disagrees with the f32 "
+                             f"plain path: {errs}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -359,12 +632,18 @@ def main() -> int:
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s",
           flush=True)
     entries = check_kernels(dev)
-    launches = serve(dev)
+    check_backward(dev)
+    serve_launches = serve(dev)
     check_reference(dev)
+    train_launches = train(dev)
+    check_train_reference(dev)
     main_entries = []
-    for key in ("matmul", "flash_attention", "pk_matmul_ar"):
-        e = dict(entries[key], launches=launches[key])
-        main_entries.append(e)
+    for key in KERNEL_COUNTERS:
+        by_path = {"serve": serve_launches.get(key, 0),
+                   "train": train_launches[key]}
+        main_path = "serve" if key in serve_launches else "train"
+        main_entries.append(dict(entries[key], launches=by_path[main_path],
+                                 launches_by_path=by_path))
     for key in ("matmul@mlp", "pk_matmul_ar@decode"):
         print(f"[kernel-extra] {json.dumps(entries[key])}", flush=True)
     print(f"[card] {card}", flush=True)

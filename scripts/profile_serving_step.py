@@ -43,7 +43,8 @@ TOP = 12
 
 
 def group_of(name: str) -> str:
-    low = name.lower().removeprefix("void ")
+    low = name.lower().removeprefix("void ").removeprefix(
+        "(anonymous namespace)::")
     if low.startswith("pk_"):
         return "pk_kernels"
     if any(s in low for s in GEMM_MARKS):

@@ -14,6 +14,8 @@ Ported in this slice (the serving path's ops)::
     ``matmul_all_reduce(x, w)``     bulk | ring | fused
     ``psum(x)``                     bulk | ring
     ``pmax(x)``                     bulk
+    ``all_gather(x, axis=)``        bulk | fused
+    ``reduce_scatter(x, axis=)``    bulk | fused
     ==============================  =======================================
 
 ``bulk``  — GEMM in f32, then the reduction over ranks in rank order.
@@ -21,7 +23,13 @@ Ported in this slice (the serving path's ops)::
             ``repro.core.comms.pk_matmul_all_reduce`` (payload in the
             activation dtype, each hop's add in f32), then the all-gather.
 ``fused`` — ``kernels/collective_matmul.py``: the hand-written GEMM×AR
-            kernel on a CUDA device, its plain PyTorch version on the CPU.
+            kernel on a CUDA device, its plain PyTorch version on the CPU;
+            for ``all_gather`` / ``reduce_scatter`` the ring kernels of
+            ``kernels/pk_comm.py``.
+
+``all_gather`` and ``reduce_scatter`` are autograd Functions: the
+backward of a gather is the reduce-scatter of its cotangent over the same
+axis and backend (FSDP's gradient shard-reduce), and the other way round.
 
 The other ops of ``OP_BACKENDS`` raise ``NotImplementedError`` naming the
 ROADMAP item that ports them. Backend precedence is the JAX package's:
@@ -67,12 +75,10 @@ GEMM_OP_KIND = {"all_gather_matmul": "all_gather",
 
 #: ops of the JAX registry this slice does not port yet, and where they live
 _NOT_PORTED = {
-    "all_gather_matmul": "ROADMAP A3 (all_gather_matmul)",
-    "matmul_reduce_scatter": "ROADMAP A3 (matmul_reduce_scatter)",
-    "all_to_all": "ROADMAP A3 (chunked all_to_all)",
-    "all_gather": "ROADMAP A3 (all_gather)",
-    "reduce_scatter": "ROADMAP A3 (reduce_scatter)",
-    "ring_shift": "ROADMAP A3 (ring_shift)",
+    "all_gather_matmul": "ROADMAP A3 (all_gather_matmul, kernel B5)",
+    "matmul_reduce_scatter": "ROADMAP A3 (matmul_reduce_scatter, kernel B6)",
+    "all_to_all": "ROADMAP A3 (chunked all_to_all, for MoE A9)",
+    "ring_shift": "ROADMAP A3 (ring_shift, kernel B8)",
 }
 
 
@@ -270,16 +276,44 @@ class CommContext:
     def all_to_all(self, x, **kw):
         self._not_ported("all_to_all")
 
-    def all_gather(self, x, **kw):
-        self._not_ported("all_gather")
-
-    def reduce_scatter(self, x, **kw):
-        self._not_ported("reduce_scatter")
-
     def ring_shift(self, x, **kw):
         self._not_ported("ring_shift")
 
     # -- data-movement ops -------------------------------------------------
+
+    def all_gather(self, x: torch.Tensor, *, axis: int = 0,
+                   backend: str | None = None) -> torch.Tensor:
+        """Tiled all-gather along ``axis`` of each rank's local tensor:
+        stacked (R, *local) -> (R, *gathered), ``gathered.shape[axis] =
+        R · local.shape[axis]``, the same on every rank (the FSDP param
+        gather). ``auto`` resolves to bulk; fused is the ring kernel."""
+        self._check_stacked(x)
+        if x.dim() < 2:
+            raise ValueError("all_gather takes a stacked (R, *local) tensor "
+                             "with at least one local dim")
+        be = self._resolve("all_gather", backend, lambda: "bulk")
+        return _AllGather.apply(x, axis % (x.dim() - 1), be)
+
+    def reduce_scatter(self, x: torch.Tensor, *, axis: int = 0,
+                       backend: str | None = None) -> torch.Tensor:
+        """Tiled reduce-scatter along ``axis``: stacked (R, *local) ->
+        (R, *scattered), rank r holding the sum over ranks of block r of
+        ``axis`` (the FSDP gradient shard-reduce). ``auto`` resolves to
+        bulk; fused takes ``axis=0`` only, as in JAX."""
+        self._check_stacked(x)
+        if x.dim() < 2:
+            raise ValueError("reduce_scatter takes a stacked (R, *local) "
+                             "tensor with at least one local dim")
+        be = self._resolve("reduce_scatter", backend, lambda: "bulk")
+        axis = axis % (x.dim() - 1)
+        if be == "fused" and axis != 0:
+            raise ValueError("fused reduce_scatter supports axis=0 only")
+        if x.shape[1 + axis] % self.axis_size:
+            raise ValueError(
+                f"reduce_scatter: dim {axis} of the local shape "
+                f"{tuple(x.shape[1:])} is not divisible by the axis size "
+                f"{self.axis_size}")
+        return _ReduceScatter.apply(x, axis, be)
 
     def psum(self, x: torch.Tensor, *,
              backend: str | None = None) -> torch.Tensor:
@@ -345,6 +379,62 @@ def pk_psum_ring(y: torch.Tensor) -> torch.Tensor:
         acc = torch.roll(acc, -1, 0) + parts[ranks, (ranks + 1 + i) % n]
     out = acc.reshape(n * (lead // n), *y.shape[2:])
     return out.unsqueeze(0).expand_as(y)
+
+
+def all_gather_stacked(x: torch.Tensor, axis: int,
+                       backend: str) -> torch.Tensor:
+    """(R, *local) -> (R, *gathered) along local dim ``axis``. ``fused``
+    moves the axis to the front, runs the ring kernel on (R, blk, ...) and
+    moves it back; ``bulk`` concatenates the shards in rank order."""
+    r = x.shape[0]
+    if backend == "bulk":
+        full = torch.cat(list(x.unbind(0)), dim=axis)
+        return full.unsqueeze(0).expand(r, *full.shape).contiguous()
+    from repro_torch.kernels import pk_comm
+    front = x.movedim(1 + axis, 1)
+    out = pk_comm.ring_all_gather(front)          # (R, R, L, *rest)
+    out = out.flatten(1, 2)                        # (R, R·L, *rest)
+    return out.movedim(1, 1 + axis)
+
+
+def reduce_scatter_stacked(x: torch.Tensor, axis: int,
+                           backend: str) -> torch.Tensor:
+    """(R, *local) -> (R, *scattered) along local dim ``axis``: rank r gets
+    the sum over ranks of block r. ``fused`` moves the axis to the front and
+    runs the ring kernel on (R, R, blk, ...); ``bulk`` sums over ranks in
+    rank order in f32 and splits."""
+    r = x.shape[0]
+    if backend == "bulk":
+        total = _rank_sum(x.float()).to(x.dtype)
+        return torch.stack(total.chunk(r, dim=axis))
+    from repro_torch.kernels import pk_comm
+    front = x.movedim(1 + axis, 1)                 # (R, L, *rest)
+    parts = front.unflatten(1, (r, front.shape[1] // r))
+    return pk_comm.ring_reduce_scatter(parts).movedim(1, 1 + axis)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, backend):
+        ctx.opts = (axis, backend)
+        return all_gather_stacked(x, axis, backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, backend = ctx.opts
+        return reduce_scatter_stacked(g, axis, backend), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, backend):
+        ctx.opts = (axis, backend)
+        return reduce_scatter_stacked(x, axis, backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, backend = ctx.opts
+        return all_gather_stacked(g, axis, backend), None, None
 
 
 def matmul_all_reduce_baseline(x: torch.Tensor,

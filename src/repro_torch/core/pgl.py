@@ -16,8 +16,25 @@ tensor with a leading rank axis, ``(R, *local_shape)``, on ONE device:
   addresses. On one card they are R slices of one allocation; on a
   multi-GPU node the same kernels take peer pointers instead.
 
-Only the tensor-parallel axis is split: every other named axis must have
-size 1 (a data axis larger than 1 raises ``NotImplementedError``).
+Data-parallel axes (a ``(dp, tp)`` mesh) are emulated as follows. The
+batch is split contiguously over the dp ranks, so activations stay global
+tensors outside islands and a dp rank's slice is a view of them. An island
+over the tp axis runs once per dp group (``core/template.py``): its inputs
+are sliced to the group's batch, the body runs on that group's stacked tp
+ranks, and the outputs are concatenated back over dp. Parameters keep the
+tp-stacked storage of a tp-only mesh: the FSDP (ZeRO-3) shard of dp rank
+``i`` is the i-th slice of its tp block along the FSDP dim, so the shards
+of all dp ranks together are exactly that storage. An FSDP gather reads the
+dp-stacked view of a leaf, ``(R_dp, *shard)``, and writes ``R_dp`` full
+copies, ``(R_dp, *stored)`` (the all-gather kernel's ``(n_dev, blk, ...)``
+output on every rank); dp group ``g`` computes with copy ``g``. The
+gradient of the copies is then ``R_dp`` distinct partials, one per dp
+group's batch slice, and its reduce-scatter is a real reduction. On one
+card the shards share one allocation, so the ZeRO-3 memory saving does not
+show; the gather traffic and the ``R_dp`` transient copies do.
+:func:`dp_view` and :func:`dp_slice` give the dp-stacked and per-group
+views. A dim sharded over the dp and tp axes at once (long-context decode)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -69,21 +86,53 @@ def axes_size(mesh: VirtualMesh | None, axes) -> int:
 
 def split_dim(spec: P, mesh: VirtualMesh, axis: str) -> int | None:
     """The dim ``spec`` shards over ``axis`` (None = replicated over it).
-    Any other sharded axis must have size 1 on this mesh."""
+    Entries naming other axes are left to the caller (a dp-sharded dim is
+    sliced per dp group before the tp layout)."""
     hit = None
     for i, entry in enumerate(spec):
         if entry is None:
             continue
         names = (entry,) if isinstance(entry, str) else tuple(entry)
-        if axis in names:
-            hit = i
+        if axis not in names:
+            continue
         for a in names:
             if a != axis and mesh.shape.get(a, 1) != 1:
                 raise NotImplementedError(
-                    f"axis {a!r} has size {mesh.shape[a]}: the port runs "
-                    "tensor-parallel ranks only (data-parallel meshes are "
-                    "the next item of ROADMAP queue A)")
+                    f"dim {i} is sharded over {names} at once: long-context "
+                    "decode over (dp × tp) is ROADMAP item A8")
+        hit = i
     return hit
+
+
+def dp_dim(spec: P, dp) -> int | None:
+    """The dim ``spec`` shards over the dp axes ``dp`` (an axis name or a
+    tuple of them, as ``ShardingRules.dp``), None when replicated."""
+    for i, entry in enumerate(spec):
+        if entry is not None and entry == dp:
+            return i
+    return None
+
+
+def dp_slice(x: torch.Tensor, dim: int | None, n_dp: int,
+             g: int) -> torch.Tensor:
+    """Dp group ``g``'s contiguous slice of ``x`` along ``dim`` (a view);
+    ``x`` itself when ``dim`` is None (replicated over dp)."""
+    if dim is None:
+        return x
+    if x.shape[dim] % n_dp:
+        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} is not "
+                         f"divisible by {n_dp} dp ranks")
+    return x.unflatten(dim, (n_dp, x.shape[dim] // n_dp)).select(dim, g)
+
+
+def dp_view(x: torch.Tensor, dim: int, n_dp: int) -> torch.Tensor:
+    """The dp-stacked view ``(R_dp, *shard)`` of a stored leaf whose stored
+    dim ``dim`` is FSDP-sharded: shard ``i`` is the i-th contiguous slice
+    along that dim."""
+    if x.shape[dim] % n_dp:
+        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} is not "
+                         f"divisible by {n_dp} dp ranks")
+    return x.unflatten(dim, (n_dp, x.shape[dim] // n_dp)).movedim(dim, 0)
 
 
 def layout(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis: str, *,

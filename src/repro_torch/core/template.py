@@ -16,8 +16,14 @@ does here over the stacked rank axis of ``core/pgl.py``:
    :class:`Stacked` is returned as ``(R, *local)`` (the KV cache stays
    stored per rank).
 
-:class:`Gather` is the FSDP in-island weight gather; serving runs with
-``fsdp=False`` (``launch/serve.py``), so it is declared and never applied.
+On a mesh whose dp axis is larger than 1 the island runs once per dp
+group (``core/pgl.py``): each :class:`Gather` input is first all-gathered
+over the FSDP axes by :func:`fsdp_gather` — ``CommContext.all_gather``
+over the dp axis, so ``RunConfig.comm_backend`` decides bulk or the fused
+ring kernel, as JAX's ``maybe_allgather`` runs inside ``shard_map`` — then
+group g takes its slice of every dp-sharded input and copy g of every
+gathered weight, and the groups' outputs are concatenated over dp. The
+gather's autograd backward is the reduce-scatter of the copies' gradients.
 Measured plans, guards and scripted faults are not ported (ROADMAP items
 12 and 13).
 """
@@ -35,7 +41,7 @@ from repro_torch.core.pgl import P
 
 __all__ = ["Island", "Gather", "Comm", "IslandPlan", "Stacked",
            "comm_context", "render_plans", "plan_overrides",
-           "island_override", "rank_index"]
+           "island_override", "rank_index", "fsdp_gather", "dp_groups"]
 
 
 def comm_context(run, axis: str, mesh=None, **overrides) -> CommContext:
@@ -56,6 +62,40 @@ def comm_context(run, axis: str, mesh=None, **overrides) -> CommContext:
 def rank_index(x: torch.Tensor) -> torch.Tensor:
     """``lax.axis_index`` on a stacked tensor: ``arange(R)``, shape (R,)."""
     return torch.arange(x.shape[0], device=x.device)
+
+
+def dp_groups(rules) -> tuple[Any, int]:
+    """(dp axes, their size) of ``rules``' mesh; (None, 1) without one."""
+    if rules is None:
+        return None, 1
+    return rules.dp, pgl.axes_size(rules.mesh, rules.dp)
+
+
+def fsdp_gather(w: torch.Tensor, spec: P, rules, run, *,
+                dim: int) -> torch.Tensor | None:
+    """FSDP (ZeRO-3) weight gather — the twin of JAX's ``maybe_allgather``.
+
+    ``w`` is a stored leaf of one layer (tp-stacked ``(R_tp, *local)`` when
+    ``spec`` shards it over tp, else global) whose global dim ``dim`` the
+    spec shards over ``rules.fsdp_axes``. Returns its ``(R_dp, *stored)``
+    full copies, one per dp group, all-gathered by the dp axis' context
+    (``run.comm_backend`` picks bulk or the fused ring kernel); None when
+    the leaf is not FSDP-sharded or the dp axis has size 1 (nothing to
+    gather)."""
+    if rules is None or rules.fsdp_axes is None \
+            or spec[dim] != rules.fsdp_axes:
+        return None
+    f = rules.fsdp_axes
+    n_dp = pgl.axes_size(rules.mesh, f)
+    if n_dp == 1:
+        return None
+    if not isinstance(f, str):
+        raise NotImplementedError(
+            f"FSDP over several dp axes {f}: the port gathers over one")
+    stacked = w.dim() == len(spec) + 1
+    sdim = dim + 1 if stacked else dim
+    ctx = comm_context(run, f, mesh=rules.mesh)
+    return ctx.all_gather(pgl.dp_view(w, sdim, n_dp), axis=sdim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +198,20 @@ def _map_specs(fn, specs, outs):
     return fn(outs, specs)
 
 
+def _join_groups(specs, outs: list, dp, name: str):
+    """Concatenate the dp groups' outputs over each out spec's dp-sharded
+    dim (group 0's output when the spec replicates it over dp)."""
+    if isinstance(specs, tuple) and not isinstance(specs, P):
+        return tuple(_join_groups(s, [o[i] for o in outs], dp, name)
+                     for i, s in enumerate(specs))
+    if isinstance(specs, Stacked):
+        raise NotImplementedError(
+            f"island {name!r} keeps a per-rank output on a dp > 1 mesh: "
+            "serving on data-parallel meshes is ROADMAP item A7c")
+    d = pgl.dp_dim(specs, dp)
+    return outs[0] if d is None else torch.cat(outs, dim=d)
+
+
 class Island:
     """One declarative overlapped island over virtual ranks (see module
     docstring). Construction is cheap; ``plan()`` runs nothing."""
@@ -245,6 +299,38 @@ class Island:
         return x
 
     def __call__(self, **arrays):
+        dp, n_dp = dp_groups(self.rules)
+        if n_dp == 1:
+            return self._run(arrays)
+        copies = {}
+        for n, g in self.gathers.items():
+            if n in arrays and n in self.inputs:
+                c = fsdp_gather(arrays[n], self.inputs[n], self.rules,
+                                self.run, dim=g.dim)
+                if c is not None:
+                    # unbind: its backward stacks the groups' gradients in
+                    # one copy (indexing would zero-fill and add per group)
+                    copies[n] = c.unbind(0)
+        outs = []
+        for gi in range(n_dp):
+            grp = {}
+            for n, a in arrays.items():
+                if n in copies:
+                    grp[n] = copies[n][gi]
+                    continue
+                spec = self.inputs.get(n, P())
+                d = pgl.dp_dim(spec, dp) if isinstance(a, torch.Tensor) \
+                    else None
+                if d is not None and a.dim() != len(spec):
+                    raise NotImplementedError(
+                        f"island {self.name!r}: input {n!r} is stored "
+                        "sharded over dp and declares no Gather")
+                grp[n] = pgl.dp_slice(a, d, n_dp, gi)
+            outs.append(self._run(grp))
+        return _join_groups(self.out_specs, outs, dp, self.name)
+
+    def _run(self, arrays):
+        """The island on one dp group's inputs (see the module docstring)."""
         reason = self.fallback_reason()
         if set(arrays) != set(self.inputs) and reason is None:
             raise TypeError(

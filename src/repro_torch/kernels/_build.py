@@ -47,6 +47,13 @@ SIGNATURES = {
     # flags, R, M, N, K, stream
     "pk_matmul_ar_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
                          + [_P, _I, _I, _I, _I, _P],
+    # in ptrs, out ptrs, R, blk bytes, chunk bytes, stream
+    "pk_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
+                     + [_I, _L, _L, _P],
+    # in ptrs, out ptrs, landing ptrs, flags, R, blk elems, chunk elems,
+    # dtype (0 f32, 1 bf16), stream
+    "pk_reduce_scatter": [ctypes.POINTER(ctypes.c_uint64)] * 3
+                         + [_P, _I, _L, _L, _I, _P],
 }
 
 

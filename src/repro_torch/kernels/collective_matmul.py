@@ -40,7 +40,11 @@ hold R slices of one allocation; a multi-GPU node feeds the same kernel
 peer pointers.
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises. The wrapper is a ``torch.autograd.Function``:
+the kernel in forward; in backward the all-reduce's cotangent
+``dy = Σ_r g_r`` (every rank's output is the same sum), then
+``dx_r = dy @ w_rᵀ`` and ``dw_r = x_rᵀ @ dy`` with ``torch.matmul`` — the
+JAX package has no backward kernel for it (XLA transposes the island).
 """
 
 from __future__ import annotations
@@ -97,12 +101,7 @@ def _scratch(device, stream: int, r: int, m: int, n: int):
     return _SCRATCH[key]
 
 
-def matmul_ar_fused(x: torch.Tensor, w: torch.Tensor, *,
-                    n_chunks: int = 1) -> torch.Tensor:
-    """x (R, m, k_loc) bf16, w (R, k_loc, n) bf16 -> (R, m, n) f32: the
-    all-reduced product, identical on every rank."""
-    _check(x, w, n_chunks)
-    fit_chunks(x.shape[1] // x.shape[0], n_chunks)   # validated, no effect
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return matmul_ar_plain(x, w)
     if x.device.type != "cuda":
@@ -126,6 +125,35 @@ def matmul_ar_fused(x: torch.Tensor, w: torch.Tensor, *,
     _build.check(err, "pk_matmul_ar_bf16")
     matmul_ar_fused.launches += 1
     return out
+
+
+class _MatmulAR(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dy = g[0].float()
+        for r in range(1, g.shape[0]):
+            dy = dy + g[r].float()
+        dy = dy.to(x.dtype)
+        dx = (torch.matmul(dy, w.transpose(1, 2))
+              if ctx.needs_input_grad[0] else None)
+        dw = (torch.matmul(x.transpose(1, 2), dy)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def matmul_ar_fused(x: torch.Tensor, w: torch.Tensor, *,
+                    n_chunks: int = 1) -> torch.Tensor:
+    """x (R, m, k_loc) bf16, w (R, k_loc, n) bf16 -> (R, m, n) f32: the
+    all-reduced product, identical on every rank."""
+    _check(x, w, n_chunks)
+    fit_chunks(x.shape[1] // x.shape[0], n_chunks)   # validated, no effect
+    return _MatmulAR.apply(x, w)
 
 
 matmul_ar_fused.launches = 0

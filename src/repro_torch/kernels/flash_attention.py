@@ -22,7 +22,11 @@ never write S or P to device memory. head_dim must be 64 or 128.
 The plain version is the twin of ``ref.flash_attention_ref`` with GQA
 grouping — the same function as ``layers._full_attention(causal=True)``.
 On a CPU tensor the wrapper runs it; on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises. The wrapper is a ``torch.autograd.Function``: the kernel
+in forward; in backward the gradient of the plain version, recomputed in
+plain torch (f32 scores) from the saved q, k, v. The Pallas kernel has no
+backward kernel either — JAX trains through the XLA attention; a
+hand-written backward kernel is queued in ROADMAP B7.
 """
 
 from __future__ import annotations
@@ -70,9 +74,7 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v must be on one device")
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
-    """Attention of q (B, Hq, S, D) over k, v (B, Hkv, Skv, D), out like q."""
-    _check(q, k, v)
+def _forward(q, k, v, causal, window, scale):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -108,6 +110,31 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     _build.check(err, "pk_flash_attention_bf16")
     flash_attention.launches += 1
     return out
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, scale)
+        return _forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        causal, window, scale = ctx.opts
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(True)
+                       for t in ctx.saved_tensors)
+            o = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
+    """Attention of q (B, Hq, S, D) over k, v (B, Hkv, Skv, D), out like q."""
+    _check(q, k, v)
+    return _Flash.apply(q, k, v, causal, window, scale)
 
 
 flash_attention.launches = 0

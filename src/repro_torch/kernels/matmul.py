@@ -15,7 +15,10 @@ per CTA and no ``cp.async``/TMA pipeline — it is right and simple, and the
 latency of each K step is what it pays for that; ``wgmma`` + TMA come later.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. The wrapper is a ``torch.autograd.Function``:
+the kernel (or the plain version) in forward, ``dx = dy @ wᵀ`` and
+``dw = xᵀ @ dy`` with ``torch.matmul`` in backward — the JAX package has no
+backward kernel for it either (XLA transposes the einsum).
 """
 
 from __future__ import annotations
@@ -38,9 +41,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("x and w must be on one device")
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) -> (M, N) in x's dtype (f32 accumulation)."""
-    _check(x, w)
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return matmul_plain(x, w)
     if x.device.type != "cuda":
@@ -64,6 +65,27 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(err, "pk_matmul_bf16")
     matmul.launches += 1
     return out
+
+
+class _Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = torch.matmul(dy, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.matmul(x.t(), dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) -> (M, N) in x's dtype (f32 accumulation)."""
+    _check(x, w)
+    return _Matmul.apply(x, w)
 
 
 matmul.launches = 0

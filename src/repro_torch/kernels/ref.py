@@ -30,3 +30,15 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
 def matmul_ar_ref(x, w):
     """Global semantics of GEMM+AR: the plain product, f32 out."""
     return torch.matmul(x.float(), w.float())
+
+
+def all_gather_ref(x_global):
+    """Identity at the global level: the gather leaves every rank holding
+    the full array."""
+    return x_global
+
+
+def reduce_scatter_ref(x_global):
+    """x_global: (n_dev, n_dev, blk, ...) — rank d holds partials x[d];
+    the result's shard d is sum_j x[j, d]."""
+    return x_global.sum(dim=0)

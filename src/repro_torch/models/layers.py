@@ -1,4 +1,4 @@
-"""Model layers of the dense serving path — the twin of
+"""Model layers of the dense serving and training paths — the twin of
 ``repro/models/layers.py``.
 
 Functional like the JAX module: ``fn(params_subtree, x, ...)``, with every
@@ -9,12 +9,18 @@ tp-sharded weight out once); the helpers :func:`_col_proj` and
 :func:`_row_weight` let global-level code use them without re-slicing.
 
 Ported: norms, activations, RoPE, ``_full_attention``, the slab KV-cache
-islands (``decode_island``, ``prefill_write_island``), prefill attention —
-whose causal mix is ``kernels/flash_attention.py``, the hand-written
-kernel on the card — the GEMM+AR islands (``attn_out_island``,
-``mlp_island``), the vocab-parallel embedding and the serving logits. Not
-ported: sequence-parallel attention (ROADMAP A8), MoE (A9), paged and
-int8 caches (A7, A11), the loss islands (A5).
+islands (``decode_island``, ``prefill_write_island``), prefill and
+training attention — whose causal mix is ``kernels/flash_attention.py``,
+the hand-written kernel on the card — the GEMM+AR islands
+(``attn_out_island``, ``mlp_island``), the vocab-parallel embedding, the
+serving logits and the chunked vocab-parallel loss (``lm_loss_island``),
+whose logits go through the GEMM-tile kernel. With FSDP on a dp > 1 mesh
+every sharded weight is gathered before use (``core.template.fsdp_gather``):
+inside islands through their ``Gather`` declarations, and for the q/k/v
+projections where they are used (the gathers XLA inserts in JAX). Not
+ported: sequence-parallel attention (ROADMAP A8), the XLA chunked
+attention (the flash kernel computes the same function at any length),
+MoE (A9), paged and int8 caches (A7, A11).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.pgl import P
 from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
-                                       Stacked, rank_index)
+                                       Stacked, fsdp_gather, rank_index)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import matmul
 from repro_torch.models.sharding import ShardingRules
@@ -37,9 +43,17 @@ def _dtype_bytes(cfg: ArchConfig) -> int:
     return 2 if cfg.dtype == "bfloat16" else 4
 
 
-def _col_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _col_proj(x: torch.Tensor, w) -> torch.Tensor:
     """x (..., d) @ w, where w is global (d, n) or stacked over its output
-    dim, (R, d, n/R): the per-rank products are concatenated back."""
+    dim, (R, d, n/R): the per-rank products are concatenated back. A tuple
+    of per-dp-group FSDP copies projects each group's batch slice of x with
+    its own copy."""
+    if isinstance(w, tuple):
+        n = len(w)
+        if x.shape[0] % n:           # batch replicated over dp: one copy
+            return _col_proj(x, w[0])
+        return torch.cat([_col_proj(xg, wg)
+                          for xg, wg in zip(x.chunk(n, 0), w)], 0)
     if w.dim() == 2:
         return torch.matmul(x, w)
     r, d, n_loc = w.shape
@@ -154,6 +168,38 @@ def attn_out_island(cfg: ArchConfig, run: RunConfig,
         comm=Comm("matmul_all_reduce", m=b_loc * s, n=d,
                   k=h_full // tp_size if h_full % tp_size == 0 else h_full,
                   dtype_bytes=_dtype_bytes(cfg)))
+
+
+def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
+                    rules: ShardingRules | None, *, causal=True,
+                    positions=None, seq_sharded=False):
+    """Full-sequence self-attention sub-layer without a cache (training):
+    projections, RoPE, the causal GQA mix — the flash kernel, with its
+    autograd backward — and the out-projection island. x: (B, S, d)."""
+    if seq_sharded:
+        raise NotImplementedError(
+            "sequence-parallel attention is ROADMAP item A8")
+    b, s, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def proj(name, n):
+        w = p[name]
+        if rules is not None:
+            c = fsdp_gather(w, rules.w2d(d, n, tp_dim=1), rules, run, dim=0)
+            if c is not None:
+                w = tuple(c.unbind(0))          # one copy per dp group
+        return _col_proj(x, w)
+
+    q = proj("wq", hq * hd).reshape(b, s, hq, hd).transpose(1, 2)
+    k = proj("wk", hkv * hd).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = proj("wv", hkv * hd).reshape(b, s, hkv, hd).transpose(1, 2)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    o = o.transpose(1, 2).reshape(b, s, hq * hd)
+    return attn_out_island(cfg, run, rules, b, s)(o=o, wo=p["wo"])
 
 
 def _cache_write(cache, new, pos):
@@ -436,12 +482,16 @@ def embed_island(run: RunConfig, rules: ShardingRules | None, v: int,
         return ctx.psum(x, backend="bulk")
 
     bspec = rules.dim(b, rules.dp)
+    # FSDP shards the table's d over dp: the port gathers the table (JAX
+    # all-gathers the looked-up activations instead, which mixes the dp
+    # ranks' batches — ROADMAP C4)
     return Island(
         "embed", rules=rules, run=run,
         inputs={"emb": P(tp, rules.dim(d_model, rules.fsdp_axes)),
                 "tok": P(bspec, None)},
         out_specs=P(bspec, None, None),
         body=body, reference=reference,
+        gathers={"emb": Gather(dim=1, size=d_model)},
         divisible=((v, tp),),
         comm=Comm("psum", backend="bulk", n_chunks=1))
 
@@ -455,6 +505,86 @@ def embed_tokens(p, tokens, rules: ShardingRules | None,
     island = embed_island(run if run is not None else RunConfig(),
                           rules, v, d_model, tokens.shape[0])
     return island(emb=emb, tok=tokens)
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """(..., d) @ head (d, v) through the GEMM-tile kernel, in f32."""
+    y = matmul(x.reshape(-1, x.shape[-1]).contiguous(), head)
+    return y.float().reshape(*x.shape[:-1], head.shape[-1])
+
+
+def lm_loss_island(run: RunConfig, rules: ShardingRules | None, b: int,
+                   d: int, v: int) -> Island:
+    """Chunked vocab-parallel cross-entropy island: each rank's logits over
+    its vocab shard (the GEMM-tile kernel), softmax statistics merged over
+    tp with ``pmax`` (the max without gradient) and ``psum``; never holds
+    (B, S, V) at once. Returns per-dp-rank (loss sum, weight sum)."""
+
+    def reference(xc, tc, wc, head):
+        tot = torch.zeros((), dtype=torch.float32, device=xc.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=xc.device)
+        for xi, ti, wi in zip(xc, tc, wc):
+            logits = _logits(xi, head)
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, ti[..., None].long())[..., 0]
+            tot = tot + ((lse - tgt) * wi).sum()
+            cnt = cnt + wi.sum()
+        return tot[None], cnt[None]      # (1,): the body's per-rank shape
+
+    if rules is None:
+        return Island("lm_loss", run=run, reference=reference)
+    tp = rules.tp
+    hspec = rules.w2d(d, v, tp_dim=1)
+
+    def body(ctx, xc, tc, wc, head):
+        r, v_loc = head.shape[0], head.shape[2]
+        v0 = (rank_index(head) * v_loc).view(r, 1, 1)
+        tot = torch.zeros((r, 1), dtype=torch.float32, device=xc.device)
+        cnt = torch.zeros((r, 1), dtype=torch.float32, device=xc.device)
+        for i in range(xc.shape[1]):
+            # x, targets and weights are replicated over tp: rank 0's slab
+            xi, ti, wi = xc[0, i], tc[:, i], wc[:, i]
+            logits = torch.stack([_logits(xi, head[j]) for j in range(r)])
+            m = ctx.pmax(logits.detach().amax(dim=-1))
+            se = ctx.psum(torch.exp(logits - m[..., None]).sum(dim=-1),
+                          backend="bulk")
+            lse = m + torch.log(se)
+            loc = ti.long() - v0
+            ok = (loc >= 0) & (loc < v_loc)
+            tgt = logits.gather(-1, loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+            tgt = ctx.psum(torch.where(ok, tgt, torch.zeros_like(tgt)),
+                           backend="bulk")
+            tot = tot + ((lse - tgt) * wi).sum(dim=(1, 2))[:, None]
+            cnt = cnt + wi.sum(dim=(1, 2))[:, None]
+        return tot, cnt
+
+    bspec = rules.dim(b, rules.dp)
+    return Island(
+        "lm_loss", rules=rules, run=run,
+        inputs={"xc": P(None, bspec, None, None),
+                "tc": P(None, bspec, None), "wc": P(None, bspec, None),
+                "head": hspec},
+        out_specs=(P(bspec), P(bspec)),
+        body=body, reference=reference,
+        gathers={"head": Gather(dim=0, size=d)},
+        divisible=((v, tp),),
+        comm=Comm("psum", backend="bulk", n_chunks=1))
+
+
+def lm_loss(p, x, targets, weights, cfg: ArchConfig, run: RunConfig,
+            rules: ShardingRules | None, *, chunk: int = 512):
+    """Chunked vocab-parallel cross-entropy. x: (B, S, d); targets,
+    weights: (B, S). The weighted mean over tokens, f32."""
+    head = p["lm_head"]
+    b, s, d = x.shape
+    v = head.shape[0] * head.shape[2] if head.dim() == 3 else head.shape[1]
+    n_chunks = max(1, s // chunk) if s % chunk == 0 else 1
+    xc = x.reshape(b, n_chunks, s // n_chunks, d).transpose(0, 1)
+    tc = targets.reshape(b, n_chunks, s // n_chunks).transpose(0, 1)
+    wc = weights.reshape(b, n_chunks, s // n_chunks).transpose(0, 1)
+    tot, cnt = lm_loss_island(run, rules, b, d, v)(xc=xc, tc=tc, wc=wc,
+                                                   head=head)
+    return tot.sum() / cnt.sum().clamp_min(1.0)
 
 
 def lm_logits(p, x):
@@ -477,15 +607,14 @@ def lm_logits(p, x):
 
 def _forward_islands(cfg: ArchConfig, run: RunConfig,
                      rules: ShardingRules | None, *, batch: int = 8,
-                     seq: int = 128, phase: str) -> list:
-    """Every island one serving bucket's step program builds: ``prefill``
-    (GEMM islands at m = B·seq) or ``decode`` (m = B·1 plus the decode
-    attention island). Dense attention patterns only."""
-    if phase not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"island phase {phase!r}: the port plans the serving phases "
-            "only (the training inventory with loss and sequence-parallel "
-            "islands is ROADMAP A5/A8)")
+                     seq: int = 128, phase: str = "all") -> list:
+    """Every island a forward pass (and a decode step) builds: ``prefill``
+    (GEMM islands at m = B·seq), ``decode`` (m = B·1 plus the decode
+    attention island) or ``all`` (the union, plus the loss island — what
+    the training launcher prints). Dense attention patterns only; the
+    sequence-parallel island JAX lists under ``all`` is ROADMAP A8."""
+    if phase not in ("all", "prefill", "decode"):
+        raise ValueError(f"unknown island phase {phase!r}")
     pattern = cfg.layer_pattern()
     if any(sp.mixer != "attn" or sp.mlp != "dense" for sp in pattern):
         raise NotImplementedError(
@@ -495,17 +624,20 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
     v = cfg.padded_vocab(rules.mesh.shape[rules.tp] if rules else 16)
     islands = [embed_island(run, rules, v, cfg.d_model, b),
                attn_out_island(cfg, run, rules, b, s)]
-    if phase == "decode":
+    if phase in ("all", "decode"):
         islands.append(decode_island(cfg, run, rules, b, seq, long_ctx=False,
                                      pos=0, kv_len=1,
                                      window=cfg.sliding_window))
     islands.append(mlp_island(cfg, run, rules, b, s))
+    if phase == "all":
+        islands.append(lm_loss_island(run, rules, b, cfg.d_model, v))
     return islands
 
 
 def island_plans(cfg: ArchConfig, run: RunConfig,
                  rules: ShardingRules | None, *, batch: int = 8,
-                 seq: int = 128, phase: str) -> list[IslandPlan]:
-    """Trace-free overlap schedule of every island of one serving bucket."""
+                 seq: int = 128, phase: str = "all") -> list[IslandPlan]:
+    """Trace-free overlap schedule of every island of one serving bucket
+    (``phase`` prefill / decode) or of a training forward (``all``)."""
     return [i.plan() for i in _forward_islands(cfg, run, rules, batch=batch,
                                                seq=seq, phase=phase)]

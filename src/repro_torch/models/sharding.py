@@ -5,8 +5,9 @@ The specs are the JAX package's, entry for entry (``core.pgl.P`` stands in
 for ``PartitionSpec``), so the island declarations read the same. Dims are
 sharded only when divisible by the axis size, else replicated. Specs here
 always carry one entry per tensor dim: ``core.pgl.layout`` tells a global
-tensor from its stacked per-rank form by rank. Data-parallel axes must have
-size 1 (larger ones raise ``NotImplementedError``).
+tensor from its stacked per-rank form by rank. Data-parallel axes of any
+size run as dp groups of virtual ranks (``core/pgl.py``), and ``fsdp``
+shards every weight's other dim over them as the JAX rules do.
 """
 
 from __future__ import annotations
@@ -21,18 +22,6 @@ from repro_torch.core.pgl import P, VirtualMesh, axes_size
 class ShardingRules:
     mesh: VirtualMesh
     run: RunConfig
-
-    def __post_init__(self):
-        for a in self.run.dp_axes:
-            if self.mesh.shape.get(a, 1) != 1:
-                raise NotImplementedError(
-                    f"mesh axis {a!r} has size {self.mesh.shape[a]}: the "
-                    "port runs tensor-parallel ranks only (data-parallel "
-                    "meshes are the next item of ROADMAP queue A)")
-        if self.run.fsdp:
-            raise NotImplementedError(
-                "FSDP weight gathers are ROADMAP item A4/A6 (training); "
-                "serving runs with RunConfig(fsdp=False)")
 
     @property
     def dp(self):  # batch axes
@@ -70,6 +59,25 @@ class ShardingRules:
         if tp_dim == 1:
             return P(self.dim(d_in, f), self.dim(d_out, self.tp))
         return P(self.dim(d_in, f), None)
+
+    def stacked(self, spec: P) -> P:
+        """Prepend the n_periods layer dim (replicated)."""
+        return P(None, *spec)
+
+    # --- activations ---
+
+    def act_btd(self) -> P:           # (B, S, d) residual stream
+        return P(self.dp, None, None)
+
+    def act_bhsd(self, n_heads: int) -> P:  # (B, H, S, hd) head-sharded
+        return P(self.dp, self.dim(n_heads, self.tp), None, None)
+
+    def act_seq_sharded(self) -> P:   # (B, S, d) sequence-parallel
+        return P(self.dp, self.tp, None)
+
+    def ssm_cache(self, batch: int) -> P:
+        """(B, d_inner, N) + conv (B, d_inner, ck-1): d_inner over tp."""
+        return P(self.dim(batch, self.dp), self.tp, None)
 
     def kv_cache(self, n_kv: int, batch: int, *, long_ctx: bool = False) -> P:
         """(B, Hkv, S_max, hd): batch over dp, seq over tp."""

@@ -1,8 +1,8 @@
-"""Model assembly for the dense serving path — the twin of
+"""Model assembly for the dense serving and training paths — the twin of
 ``repro/models/transformer.py``: parameter and cache templates (shape,
-spec and init in one place), then the cache-building prefill and the
-one-token decode step, looping over layer periods in Python where the JAX
-package scans.
+spec and init in one place), the training forward (``forward_train``),
+then the cache-building prefill and the one-token decode step, looping over
+layer periods in Python where the JAX package scans.
 
 Storage layout: a leaf whose spec shards a dim over the tensor-parallel
 axis is stored stacked per rank, once (``core.pgl.layout`` with the rank
@@ -17,6 +17,7 @@ import dataclasses
 from typing import Any, Iterator
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import DTYPES
 from repro_torch.configs.base import ArchConfig, RunConfig
@@ -200,6 +201,104 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
         tree["blocks"][f"pos{i}"] = {"k": kv.stacked(cfg.n_periods),
                                      "v": kv.stacked(cfg.n_periods)}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+class _BF16GradBarrier(torch.autograd.Function):
+    """Identity whose backward rounds an f32 residual-stream cotangent to
+    bf16 (JAX ``_bf16_grad_barrier``: the backward all-reduces inherit that
+    dtype). Other cotangent dtypes pass unchanged."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.dtype == torch.float32:
+            return g.to(torch.bfloat16).to(g.dtype)
+        return g
+
+
+def _attn_sub(a, x, cfg, run, rules):
+    return L.attention_block(a, L.rms_norm(a["norm"], x, cfg.norm_eps), cfg,
+                             run, rules, causal=True)
+
+
+def _mlp_sub(m, x, cfg, run, rules):
+    return L.mlp_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps), cfg, run,
+                       rules)
+
+
+def _apply_block(bp, x, cfg: ArchConfig, run: RunConfig, rules):
+    """One dense layer, pre-norm residual (JAX ``_apply_block``). With
+    ``run.remat`` and ``run.save_collectives`` each sub-block is
+    checkpointed on its own, so its output survives to the backward while
+    everything inside it is recomputed (the JAX policy saving
+    ``subblock_out``)."""
+    if run.bf16_backward_ars:
+        x = _BF16GradBarrier.apply(x)
+    sub_remat = run.remat and run.save_collectives
+    for fn, sp in ((_attn_sub, bp["attn"]), (_mlp_sub, bp["mlp"])):
+        if sub_remat:
+            h = checkpoint(fn, sp, x, cfg, run, rules, use_reentrant=False)
+        else:
+            h = fn(sp, x, cfg, run, rules)
+        x = x + h
+    return x
+
+
+def _scan_blocks(blocks, x, cfg: ArchConfig, run: RunConfig, rules):
+    """The layer periods in order (JAX ``lax.scan``). With ``run.remat``
+    and no ``save_collectives`` a whole period is checkpointed: only its
+    input is kept and everything else is recomputed in the backward (the
+    JAX policy ``None``)."""
+    pattern = cfg.layer_pattern()
+    # one unbind per stacked leaf: its backward stacks the layers' gradients
+    # in one copy, where indexing each layer would zero-fill and add the
+    # whole stacked leaf once per layer
+    layers = [{g: {k: t.unbind(0) for k, t in sub.items()}
+               for g, sub in blocks[f"pos{i}"].items()}
+              for i in range(len(pattern))]
+
+    def period(x, li):
+        for i in range(len(pattern)):
+            bp = {g: {k: ts[li] for k, ts in sub.items()}
+                  for g, sub in layers[i].items()}
+            x = _apply_block(bp, x, cfg, run, rules)
+        return x
+
+    for li in range(cfg.n_periods):
+        if run.remat and not run.save_collectives:
+            x = checkpoint(period, x, li, use_reentrant=False)
+        else:
+            x = period(x, li)
+    return x
+
+
+def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
+                  rules: ShardingRules | None, *, seq_sharded=False):
+    """Returns (loss, metrics). batch: tokens (B, S), targets (B, S),
+    weights (B, S). Dense decoders; the loss is the chunked vocab-parallel
+    cross-entropy (``layers.lm_loss``) and the aux loss is 0."""
+    _check_dense(cfg)
+    if seq_sharded:
+        raise NotImplementedError(
+            "sequence-parallel training is ROADMAP item A8")
+    if "lm_head" not in params and rules is not None:
+        raise NotImplementedError(
+            "tied embeddings on a mesh: the port's head is stored untied")
+    x = L.embed_tokens(params, batch["tokens"], rules, run)
+    x = _scan_blocks(params["blocks"], x, cfg, run, rules)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    head = params["lm_head"] if "lm_head" in params else _head(params)
+    loss = L.lm_loss({"lm_head": head}, x, batch["targets"],
+                     batch["weights"], cfg, run, rules, chunk=run.loss_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,71 @@
-"""Step-function factories of the serving path — the twins of
+"""Step-function factories — the twins of ``make_train_step``,
 ``make_serve_step`` and ``make_prefill_cache_step`` in
-``repro/train/step.py``. PyTorch runs eagerly, so where the JAX engine jits
-these closures the port calls them directly (under ``torch.no_grad``
-in the engine). The train step is ROADMAP item A6."""
+``repro/train/step.py``. PyTorch runs eagerly, so where JAX jits these
+closures the port calls them directly (the serving engine under
+``torch.no_grad``)."""
 
 from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.sharding import ShardingRules
+from repro_torch.optim.adamw import AdamW, AdamWState
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: AdamWState
+
+
+def make_train_step(cfg: ArchConfig, run: RunConfig,
+                    rules: ShardingRules | None, optimizer: AdamW):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    Microbatching: the batch's leading dim is split into
+    ``run.microbatches`` contiguous chunks; each chunk's gradient is
+    accumulated in f32 (divided by the count), the loss likewise, and one
+    optimizer update follows. With one microbatch the gradients keep the
+    parameters' dtype, as in JAX. (JAX's ``grad_transform`` hook serves the
+    int8 gradient compression, ROADMAP item 11.) metrics: loss, grad_norm
+    (f32 tensors) and step (int)."""
+
+    def grads_of(params, paths, mb):
+        for _, p in paths:
+            p.requires_grad_(True)
+        loss, _ = T.forward_train(params, mb, cfg, run, rules)
+        gs = torch.autograd.grad(loss, [p for _, p in paths])
+        return loss.detach(), gs
+
+    def train_step(state: TrainState, batch):
+        params = state.params
+        paths = list(T.leaves(params))
+        nm = run.microbatches
+        if nm > 1:
+            mbs = [{k: v.reshape(nm, v.shape[0] // nm, *v.shape[1:])[i]
+                    for k, v in batch.items()} for i in range(nm)]
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for _, p in paths]
+            loss = 0.0
+            for mb in mbs:
+                l_mb, gs = grads_of(params, paths, mb)
+                for a, g in zip(acc, gs):
+                    a.add_(g.float() / nm)
+                loss = loss + l_mb / nm
+            gs = acc
+        else:
+            loss, gs = grads_of(params, paths, batch)
+        grads: dict = {}
+        for (path, _), g in zip(paths, gs):
+            T.set_path(grads, path, g)
+        params, opt, gnorm = optimizer.update(grads, state.opt, params)
+        return TrainState(params, opt), {"loss": loss, "grad_norm": gnorm,
+                                         "step": opt.step}
+
+    return train_step
 
 
 def make_serve_step(cfg: ArchConfig, run: RunConfig,

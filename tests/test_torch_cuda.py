@@ -98,6 +98,108 @@ def test_matmul_ar_kernel(cuda, r, m, k, n):
         assert torch.equal(got[0], got[-1])     # the same on every rank
 
 
+@pytest.mark.parametrize("r,shape,dtype", [
+    (2, (4, 24), torch.bfloat16), (4, (3, 5), torch.bfloat16),
+    (8, (6, 7), torch.float32), (2, (5, 3), torch.uint8),
+    (2, (4, 1024, 1408), torch.bfloat16), (8, (8, 2048), torch.float32)])
+def test_ring_all_gather_kernel(cuda, r, shape, dtype):
+    from repro_torch.kernels import pk_comm as PK
+    x = (torch.randn((r, *shape), device=cuda) * 50).to(dtype)
+    want = PK.all_gather_plain(x)
+    before = PK.ring_all_gather.launches
+    for nc in (1, 2, 3, 4):             # a copy: exact for every chunking
+        got = PK.ring_all_gather(x, n_chunks=nc)
+        torch.cuda.synchronize()
+        assert got.shape == (r, r, *shape) and got.dtype == dtype
+        assert torch.equal(got, want)
+    assert PK.ring_all_gather.launches == before + 4
+
+
+@pytest.mark.parametrize("r,shape,dtype", [
+    (2, (4, 24), torch.bfloat16), (4, (3, 5), torch.bfloat16),
+    (8, (6, 7), torch.float32), (4, (16, 2048), torch.float32),
+    (2, (4, 1024, 1408), torch.bfloat16)])
+def test_ring_reduce_scatter_kernel(cuda, r, shape, dtype):
+    """f32 sums in rank order, rounded once: the plain version's arithmetic,
+    so the results are equal, for every chunking and launch."""
+    from repro_torch.kernels import pk_comm as PK
+    x = torch.randn((r, r, *shape), device=cuda).to(dtype)
+    want = PK.reduce_scatter_plain(x)
+    for nc in (1, 3, 4, 1):
+        got = PK.ring_reduce_scatter(x, n_chunks=nc)
+        torch.cuda.synchronize()
+        assert got.shape == (r, *shape) and got.dtype == dtype
+        assert torch.equal(got, want)
+
+
+def _grads(fn, *xs):
+    xs = [x.detach().clone().requires_grad_(True) for x in xs]
+    y = fn(*xs)
+    g = torch.randn(y.shape, device=y.device, generator=torch.Generator(
+        device=y.device).manual_seed(9)).to(y.dtype)
+    return y, torch.autograd.grad(y, xs, g)
+
+
+def test_kernel_autograd_matches_plain(cuda):
+    """The three autograd wrappers' gradients against plain-torch autograd
+    of their plain versions (bf16 products: relative error <= 2e-2)."""
+    from repro_torch.kernels import collective_matmul as CM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matmul as MM
+    x, w = _randn(cuda, 256, 512, seed=1), _randn(cuda, 512, 384, seed=2)
+    cases = [(MM.matmul, MM.matmul_plain, (x, w))]
+    q = _randn(cuda, 2, 8, 128, 64, seed=3)
+    k, v = _randn(cuda, 2, 2, 128, 64, seed=4), _randn(cuda, 2, 2, 128, 64,
+                                                         seed=5)
+    cases.append((lambda a, b, c: FA.flash_attention(a, b, c, causal=True),
+                  lambda a, b, c: FA.flash_attention_plain(a, b, c,
+                                                           causal=True),
+                  (q, k, v)))
+    xr, wr = _randn(cuda, 4, 64, 128, seed=6), _randn(cuda, 4, 128, 256,
+                                                      scale=0.05, seed=7)
+    cases.append((CM.matmul_ar_fused, CM.matmul_ar_plain, (xr, wr)))
+    for fn, plain, args in cases:
+        y, gs = _grads(fn, *args)
+        y0, gs0 = _grads(plain, *args)
+        assert _rel(y, y0) <= 2e-2
+        for a, b in zip(gs, gs0):
+            assert _rel(a, b) <= 2e-2
+
+
+def test_train_on_card_runs_the_ring_kernels(cuda):
+    """A small dense model (head_dim 64, as the flash kernel takes) trains
+    on a (2, 2) virtual mesh with FSDP and every collective pinned to the
+    kernels: each step gathers through the ring all-gather and reduces
+    through the ring reduce-scatter; the losses stay finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import pk_comm as PK
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import TrainState, make_train_step
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              d_model=256, head_dim=64, d_ff=512)
+    run = RunConfig(fsdp=True, comm_backend="fused", microbatches=2)
+    rules = ShardingRules(VirtualMesh((2, 2), ("data", "model"), cuda), run)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = T.init_params(T.param_template(cfg, run, rules), gen,
+                           cfg.d_model, rules=rules, device=cuda)
+    opt = AdamW(lr=1e-3)
+    state = TrainState(params, opt.init(params))
+    step = make_train_step(cfg, run, rules, opt)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4), device=cuda)
+    PK.ring_all_gather.launches = PK.ring_reduce_scatter.launches = 0
+    for i in range(2):
+        state, m = step(state, data.batch(i))
+        assert bool(torch.isfinite(m["loss"])) and m["step"] == i + 1
+    assert PK.ring_all_gather.launches > 0
+    assert PK.ring_reduce_scatter.launches > 0
+
+
 def test_engine_on_card_continuous_matches_sequential(cuda):
     """A small dense model (head_dim 64, as the flash kernel takes) served on
     4 virtual ranks with every GEMM+AR site on the fused kernel."""

@@ -223,8 +223,31 @@ def test_dense_only_and_data_axis_raise():
                          None)
     with pytest.raises(NotImplementedError, match="A10"):
         T.param_template(get_config("falcon-mamba-7b").reduced(), run, None)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        ShardingRules(VirtualMesh((2, 2), ("data", "model")), run)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        pgl.layout(torch.zeros(4, 4), pgl.P("data", "model"),
-                   VirtualMesh((2, 2), ("data", "model")), "model")
+    # data axes larger than 1 run (below); what still raises on them: a
+    # dim sharded over dp and tp at once, and per-rank (serving) outputs
+    mesh = VirtualMesh((2, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="A8"):
+        pgl.layout(torch.zeros(4, 4), pgl.P(("data", "model"), None), mesh,
+                   "model")
+    rules = ShardingRules(mesh, RunConfig(fsdp=False))
+    write = L.prefill_write_island(tcfg, rules.run, rules, B, 8)
+    with pytest.raises(NotImplementedError, match="A7c"):
+        write(cache=torch.zeros(B, 2, S_MAX, 16), new=torch.zeros(B, 2, 8, 16))
+
+
+def test_forward_train_on_data_axis_mesh():
+    """A (2, 2) mesh with FSDP off: each dp group's islands run on its own
+    tp ranks; the loss equals JAX's on the same mesh."""
+    j, t = _both((2, 2))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, 256, (B, 8)).astype(np.int32),
+             "targets": rng.integers(0, 256, (B, 8)).astype(np.int32),
+             "weights": np.ones((B, 8), np.float32)}
+    want, _ = jax.jit(partial(JT.forward_train, cfg=j["cfg"], run=j["run"],
+                              rules=j["rules"]))(
+        j["params"], {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got, _ = T.forward_train(
+            t["params"], {k: torch.from_numpy(v) for k, v in batch.items()},
+            t["cfg"], t["run"], t["rules"])
+    np.testing.assert_allclose(float(got), float(want), atol=ATOL, rtol=0)

@@ -11,7 +11,10 @@ Phases (any failure exits non-zero before the last line is printed):
    compiled by nvcc for sm_90a (seconds printed);
 3. kernels: each kernel of the serving and training paths runs at the
    shapes those paths give it (every GEMM+AR site and prefill bucket, flash
-   on the strided views prefill passes, the ring all-gather and
+   on the strided views prefill passes — also at moonshot's 16 heads of
+   128 —, the grouped GEMM at every MoE shape (64 groups; C = 1, 60, 240;
+   w1/w3 and w2; f32 and bf16 out), the GEMM tile at moonshot's logits
+   shape, the ring all-gather and
    reduce-scatter at every FSDP shard shape of the (2, 4) training run and
    at 4 and 8 ranks, each for 1-4 chunks, whose results must be
    bit-identical) and is held against its plain PyTorch version on the same
@@ -37,6 +40,22 @@ Phases (any failure exits non-zero before the last line is printed):
    (bf16, kernels) against the port's plain float32 path on the CPU with
    the same weights, on one small prefill group — relative Frobenius error
    of the logits <= 3e-2;
+4c. MoE serving: the engine serves the same trace (8 requests, 32 new
+   tokens, buckets 128/512) with moonshot-v1-16b-a3b at full width and
+   depth (48 layers, 64 experts top-6, 56 GB of bf16 parameters, built
+   once) on 4 virtual ranks, expert parallel (16 experts per rank), every
+   GEMM+AR site on the fused kernel; every request must complete with
+   finite logits and the grouped-GEMM, flash, GEMM+AR and GEMM-tile
+   kernels must each launch. The same parameters then serve the trace with
+   the ring MoE combine for the share of agreeing greedy tokens;
+4c'. MoE block: ``pk_moe_replicated`` at full width on a 512-bucket
+   prefill group, the grouped-GEMM kernel against the plain grouped GEMM
+   on the same inputs — relative Frobenius error <= 1e-2;
+4d. MoE reference: the same model cut to 2 layers, one prefill group on
+   the card against the port's plain f32 path on the CPU on the same
+   (1, 4) mesh, the f32 path replaying the card's routing — logits within
+   3e-2 and >= 0.8 of the tokens routed alike by the f32 path's own
+   decisions (details in ``check_moe_reference``); the engine is freed;
 5. training: ``build_and_train`` trains tinyllama-1.1b at full width and
    depth on a (2, 4) virtual mesh (data 2 x model 4) with FSDP, every
    collective pinned to the kernels (``comm_backend="fused"``), batch 8 x
@@ -49,8 +68,9 @@ Phases (any failure exits non-zero before the last line is printed):
    path on the CPU with the same weights and batch — loss within relative
    1e-2 and global gradient norm within relative 3e-2;
 6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
-   the serving run's count for the serving kernels, the training run's for
-   the ring kernels; ``launches_by_path`` has both);
+   the tinyllama serving run's count for the serving kernels, the MoE
+   serving run's for the grouped GEMM, the training run's for the ring
+   kernels; ``launches_by_path`` has all three);
 7. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository's ``src/`` beside it.
@@ -153,6 +173,7 @@ def check_kernels(dev) -> dict:
 
     from repro_torch.kernels import collective_matmul as CM
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import grouped_matmul as GM
     from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import pk_comm as PK
 
@@ -295,6 +316,66 @@ def check_kernels(dev) -> dict:
                 run, partial(plain, arg), lib, TOL_BF16_OUT, nbytes, 0.0)
     print("[kernel] ring all-gather / reduce-scatter: bit-identical for "
           "n_chunks 1-4 at every shape", flush=True)
+
+    # moonshot-v1-16b-a3b on (1, 4): the grouped expert GEMM over all
+    # G = 4 ranks x 16 experts at every shape the MoE path gives it — w1/w3
+    # (K, N) = (2048, 1408) and w2 (1408, 2048), capacity C = 1 (decode),
+    # 60 (128 bucket) and 240 (512 bucket), f32 out (the path's) and bf16;
+    # decode w1 and prefill-512 w1 (f32 out) are timed
+    g_all = 64
+    for c in (1, 60, 240):
+        for k, n in ((2048, 1408), (1408, 2048)):
+            x, w = randn(g_all, c, k), randn(g_all, k, n, scale=k ** -0.5)
+            for out_dt, tol in ((torch.float32, TOL_F32_OUT),
+                                (torch.bfloat16, TOL_BF16_OUT)):
+                shape = (f"x({g_all},{c},{k})@w({g_all},{k},{n}) "
+                         f"{str(out_dt).split('.')[-1]} out")
+                run = partial(GM.grouped_matmul, x, w, out_dtype=out_dt)
+                plain = partial(GM.grouped_matmul_plain, x, w,
+                                out_dtype=out_dt)
+                key = {1: "grouped_matmul", 240: "grouped_matmul@prefill"
+                       }.get(c)
+                if (k, out_dt) != (2048, torch.float32) or key is None:
+                    compare("grouped_matmul", shape, run, plain, tol)
+                    continue
+                entries[key] = record(
+                    "grouped_matmul", shape,
+                    "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                    "src/repro/kernels/grouped_matmul.py:33", run, plain,
+                    partial(torch.bmm, x, w), tol,
+                    (x.numel() + w.numel()) * 2 + g_all * c * n * 4,
+                    2.0 * g_all * c * k * n)
+
+    # flash at the moonshot prefill shape: 16 heads of 128, MHA, the
+    # head-transposed views prefill passes (512 bucket timed, 128 checked)
+    b, h, hd = 4, 16, 128
+    for s in (512, 128):
+        q, k_, v = (randn(b, s, h, hd).transpose(1, 2) for _ in range(3))
+        shape = f"q({b},{h},{s},{hd}) kv({b},{h},{s},{hd}) causal strided"
+        run = partial(FA.flash_attention, q, k_, v, causal=True)
+        plain = partial(FA.flash_attention_plain, q, k_, v, causal=True)
+        if s != 512:
+            compare("flash_attention", shape, run, plain, TOL_BF16_OUT)
+            continue
+        entries["flash_attention@moonshot"] = record(
+            "flash_attention", shape,
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:73", run, plain,
+            partial(F.scaled_dot_product_attention, q, k_, v,
+                    is_causal=True),
+            TOL_BF16_OUT, 4 * q.numel() * 2,
+            4.0 * b * h * hd * (s * (s + 1) // 2))
+
+    # the GEMM tile at the moonshot logits shape: a decode step's 8 tokens
+    # against one rank's vocab shard (163840 / 4)
+    m, k, n = 8, 2048, 40960
+    x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+    entries["matmul@moonshot"] = record(
+        "matmul", f"x({m},{k})@w({k},{n})",
+        "src/repro_torch/kernels/csrc/matmul.cu",
+        "src/repro/kernels/matmul.py:31", lambda: MM.matmul(x, w),
+        lambda: MM.matmul_plain(x, w), lambda: torch.matmul(x, w),
+        TOL_BF16_OUT, (m * k + k * n + m * n) * 2, 2.0 * m * n * k)
     return entries
 
 
@@ -350,19 +431,22 @@ def check_backward(dev) -> None:
 
 
 KERNEL_COUNTERS = ("matmul", "flash_attention", "pk_matmul_ar",
-                   "pk_all_gather", "pk_reduce_scatter")
+                   "pk_all_gather", "pk_reduce_scatter", "grouped_matmul")
+MOE_ARCH = "moonshot-v1-16b-a3b"
 
 
 def _counters():
     """Each kernel's launch counter: (module, wrapper attribute)."""
     from repro_torch.kernels import collective_matmul as CM
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import grouped_matmul as GM
     from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import pk_comm as PK
     return {"matmul": MM.matmul, "flash_attention": FA.flash_attention,
             "pk_matmul_ar": CM.matmul_ar_fused,
             "pk_all_gather": PK.ring_all_gather,
-            "pk_reduce_scatter": PK.ring_reduce_scatter}
+            "pk_reduce_scatter": PK.ring_reduce_scatter,
+            "grouped_matmul": GM.grouped_matmul}
 
 
 def serve(dev) -> dict:
@@ -496,6 +580,258 @@ def check_reference(dev) -> None:
           f"{sum(map(len, got_t.values()))} agree", flush=True)
 
 
+def serve_moe(dev) -> dict:
+    """Phase 4c: the MoE serving path — moonshot-v1-16b-a3b at full width
+    and depth on 4 virtual ranks (expert parallel: 16 experts per rank),
+    with launch counts around it; then, on the same parameters (built
+    once), the ring-combine engine, the MoE block check (4c') and the
+    2-layer reference (4d). Frees everything before returning."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch.serve import build_engine, synthetic_trace
+    from repro_torch.models.transformer import leaves
+    from repro_torch.runtime.serving import ServingEngine
+
+    cfg_serve = ServeConfig(max_batch=8, prefill_batch=4,
+                            bucket_edges=(128, 512), max_new_tokens=32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = build_engine(MOE_ARCH, reduced=False, mesh_shape=(1, 4),
+                       serve=cfg_serve, seed=0, device=dev,
+                       run_overrides={"comm_backend": "fused",
+                                      "pk_attn_out_island": True})
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves(eng.params))
+    trace = synthetic_trace(8, cfg_serve, eng.cfg.vocab_size, seed=0)
+    print(f"[serve-moe] engine built in {time.perf_counter() - t0:.1f}s: "
+          f"{eng.cfg.name} n_layers={eng.cfg.n_layers} d_model="
+          f"{eng.cfg.d_model} experts={eng.cfg.n_experts} top_k="
+          f"{eng.cfg.top_k} mesh=(1, 4) on {dev}; parameters {n_bytes} B; "
+          f"prompt lengths {[len(p) for p in trace]}", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "grouped_matmul")}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    done = eng.run(trace)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    st = eng.stats()
+    step_ms = {kind: 1e3 * statistics.median(
+        t for k, t in zip(eng.step_kinds, eng.step_times) if k == kind)
+        for kind in ("prefill", "decode")}
+    print(f"[serve-moe] median step wall time (host clock, each step ends "
+          f"in a device->host copy): prefill {step_ms['prefill']:.2f} ms, "
+          f"decode {step_ms['decode']:.2f} ms", flush=True)
+    print(f"[serve-moe] {len(done)}/{len(trace)} requests, "
+          f"{st['tokens_generated']} tokens in {st['wall_s']:.3f}s "
+          f"({st['tokens_per_s']:.1f} tok/s); {st['prefill_steps']} prefill "
+          f"+ {st['decode_steps']} decode steps; max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated(dev)} B; launches {launches}",
+          flush=True)
+    if len(done) != len(trace) or any(
+            len(c.tokens) != cfg_serve.max_new_tokens for c in done):
+        raise AssertionError("not every MoE request completed")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the MoE serving run launched no {name} "
+                                 "kernel")
+
+    # the same trace with the MoE combine as a ring (bf16 hops) on the same
+    # parameter tree: a second summation order
+    ring = ServingEngine(eng.cfg, dataclasses.replace(eng.base_run,
+                                                      pk_ring_psum=True),
+                         eng.rules, eng.params, cfg_serve, device=dev)
+    ring_done = {c.rid: c.tokens for c in ring.run(trace)}
+    del ring
+    same = sum(a == b for c in done for a, b in zip(c.tokens,
+                                                    ring_done[c.rid]))
+    total = sum(len(c.tokens) for c in done)
+    print(f"[serve-moe] bulk vs ring combine: {same}/{total} greedy tokens "
+          f"agree ({same / total:.3f})", flush=True)
+    check_moe_block(dev, eng)
+    check_moe_reference(dev, eng)
+    del eng, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_moe_block(dev, eng) -> None:
+    """Phase 4c': ``pk_moe_replicated`` at full width on the card with the
+    engine's layer-0 experts and bf16 inputs of a 512-bucket prefill group
+    (4 x 512 tokens, capacity 240): the grouped-GEMM kernel against the
+    same function with the plain grouped GEMM, on the same inputs — the
+    routing is the same, only the GEMM differs. Tolerance: relative
+    Frobenius error <= 1e-2 (bf16 outputs of bf16 products)."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import moe
+    from repro_torch.core.template import comm_context
+    from repro_torch.kernels import grouped_matmul as GM
+
+    cfg, rules = eng.cfg, eng.rules
+    r = rules.mesh.shape[rules.tp]
+    layer = {k: t[0] for k, t in eng.params["blocks"]["pos0"]["moe"].items()}
+    n_tok = 4 * 512
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n_tok, cfg.d_model, generator=g, device=dev).to(
+        torch.bfloat16)
+    plan = moe.dispatch_plan(n_tok, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
+    args = (x.expand(r, -1, -1), layer["router"].expand(r, -1, -1),
+            layer["w1"][:, 0], layer["w3"][:, 0], layer["w2"][:, 0])
+    kw = dict(ctx=comm_context(eng.base_run, rules.tp, mesh=rules.mesh),
+              n_experts=cfg.n_experts, top_k=cfg.top_k, plan=plan)
+    got, _ = moe.pk_moe_replicated(*args, **kw)
+    with mock.patch.object(moe, "grouped_matmul", GM.grouped_matmul_plain):
+        want, _ = moe.pk_moe_replicated(*args, **kw)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    print(f"[moe-block] pk_moe_replicated x({n_tok},{cfg.d_model}) bf16, "
+          f"{cfg.n_experts} experts on {r} ranks, capacity {plan.cap}: "
+          f"kernel vs plain grouped GEMM rel_err={err:.3e} (tol 1e-2), "
+          f"max |diff| {float((got.float() - want.float()).abs().max()):.3e}",
+          flush=True)
+    if not err <= 1e-2:
+        raise AssertionError(f"the MoE block with the kernel disagrees with "
+                             f"the plain GEMM: rel_err {err:.3e}")
+
+
+def _routes(calls, n_tok: int) -> list:
+    """Per layer, each token's routing from the recorded top-k calls (the
+    router's (T, K) top-k, then the capacity selection's (R, E_loc, C)):
+    (its expert set, the (rank, local expert) slots that selected it)."""
+    out = []
+    for (_, top_idx), (sel_gate, sel_idx) in zip(calls[0::2], calls[1::2]):
+        sel = [set() for _ in range(n_tok)]
+        for r, e, c in (sel_gate > 0).nonzero().tolist():
+            sel[int(sel_idx[r, e, c])].add((r, e))
+        out.append([(frozenset(row), frozenset(s))
+                    for row, s in zip(top_idx.tolist(), sel)])
+    return out
+
+
+def check_moe_reference(dev, eng) -> None:
+    """Phase 4d: moonshot at full width cut to 2 layers (the engine's first
+    two layers), one prefill group of 4 prompts (bucket 64, 256 routed
+    tokens, capacity 30) on the card (bf16, kernels, (1, 4)) against the
+    port's plain f32 path on the CPU on the same (1, 4) mesh (with no mesh
+    the CPU would run the dense oracle, other semantics), with the same
+    weights (bf16 values widened).
+
+    Routing is discontinuous: a token whose router probabilities nearly
+    tie may take another expert under bf16 rounding, and then take a
+    capacity slot from another token, whose hidden state changes in turn.
+    So the f32 path replays the card's routing — each top-k (the router's,
+    then the capacity selection) returns the card's indices, with the f32
+    path's own values at them — and computes the same function; it also
+    makes its own decisions beside them. Gates: the logits of all 4
+    prompts within relative Frobenius error 3e-2 (two layers round some
+    twenty bf16 intermediates per element, about 1e-2 in all, as in phase
+    4b), and the share of tokens whose own f32 routing (experts and
+    capacity slots) equals the card's in both layers >= 0.8 (bf16 against
+    f32 alone moves 4-15% of the decisions per layer at this width). A
+    free-running f32 prefill (its own routing throughout) is printed
+    beside them."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core import moe
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.launch.serve import synthetic_trace
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.models.transformer import leaves, set_path
+    from repro_torch.runtime.serving import ServingEngine
+
+    serve_cfg = ServeConfig(max_batch=4, prefill_batch=4, bucket_edges=(64,),
+                            max_new_tokens=3)
+    cfg = dataclasses.replace(eng.cfg, n_layers=2)
+    params = {**eng.params, "blocks": {"pos0": {
+        g: {k: t[:2] for k, t in sub.items()}
+        for g, sub in eng.params["blocks"]["pos0"].items()}}}
+    gpu = ServingEngine(cfg, eng.base_run, eng.rules, params, serve_cfg,
+                        device=dev)
+    cpu_params: dict = {}
+    for path, t in leaves(params):
+        set_path(cpu_params, path, t.cpu().float())
+    cpu_rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), "cpu"),
+                              eng.base_run)
+    cpu = ServingEngine(dataclasses.replace(cfg, dtype="float32"),
+                        eng.base_run, cpu_rules, cpu_params, serve_cfg,
+                        device="cpu")
+    trace = synthetic_trace(4, serve_cfg, cfg.vocab_size, seed=1)
+    n_tok = len(trace) * serve_cfg.bucket_edges[0]
+    real_topk = moe.topk_stable
+
+    def prefill(engine, topk):
+        with mock.patch.object(moe, "topk_stable", topk):
+            return engine.prefill_logits(trace).float().cpu()
+
+    def recorder(calls):
+        def topk(x, k):
+            out = real_topk(x, k)
+            calls.append(tuple(t.cpu() for t in out))
+            return out
+        return topk
+
+    card, own, free = [], [], []
+    got = prefill(gpu, recorder(card))
+    replayed = iter(card)
+
+    def replay(x, k):
+        own.append(tuple(t.cpu() for t in real_topk(x, k)))
+        idx = next(replayed)[1].to(x.device)
+        return x.gather(-1, idx), idx
+
+    t0 = time.perf_counter()
+    want = prefill(cpu, replay)
+    cpu_s = time.perf_counter() - t0
+    want_free = prefill(cpu, recorder(free))
+    if not len(card) == len(own) == len(free) == 4:
+        raise AssertionError("expected 2 top-k calls per MoE layer, got "
+                             f"{len(card)} / {len(own)} / {len(free)}")
+    r_card = _routes(card, n_tok)
+
+    def alike(routes):
+        per_layer = [sum(a == b for a, b in zip(x, y)) / n_tok
+                     for x, y in zip(r_card, routes)]
+        both = sum(all(x[t] == y[t] for x, y in zip(r_card, routes))
+                   for t in range(n_tok)) / n_tok
+        return both, per_layer
+
+    share, per_layer = alike(_routes(own, n_tok))
+    free_share, free_layer = alike(_routes(free, n_tok))
+    err = rel_err(got, want)
+    print(f"[moe-reference] 2-layer full-width prefill (4 prompts, {n_tok} "
+          f"routed tokens, mesh (1, 4)), card (bf16 kernels) vs cpu (f32 "
+          f"plain, {cpu_s:.1f} s) on the card's routing: logits rel_err="
+          f"{err:.3e} (tol 3e-2), max |diff| "
+          f"{float((got - want).abs().max()):.3e}; tokens whose f32 routing "
+          f"is the card's in both layers {share:.4f} (gate 0.8), per layer "
+          f"{[round(v, 4) for v in per_layer]}", flush=True)
+    print(f"[moe-reference] free-running f32 (its own routing): tokens "
+          f"routed as on the card in both layers {free_share:.4f}, per "
+          f"layer {[round(v, 4) for v in free_layer]}; logits rel_err "
+          f"{rel_err(got, want_free):.3e}", flush=True)
+    if not (share >= 0.8 and err <= 3e-2):
+        raise AssertionError(f"card MoE disagrees with the f32 plain path: "
+                             f"routing share {share:.4f}, rel_err "
+                             f"{err:.3e}")
+
+
 def train(dev, steps: int = 4) -> dict:
     """Phase 5: the port's training path, with launch counts around it."""
     import torch
@@ -506,7 +842,8 @@ def train(dev, steps: int = 4) -> dict:
     batch, seq, mb = 8, 512, 2
     ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
-    counters = _counters()
+    counters = {k: fn for k, fn in _counters().items()
+                if k != "grouped_matmul"}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
@@ -635,16 +972,20 @@ def main() -> int:
     check_backward(dev)
     serve_launches = serve(dev)
     check_reference(dev)
+    moe_launches = serve_moe(dev)
     train_launches = train(dev)
     check_train_reference(dev)
     main_entries = []
     for key in KERNEL_COUNTERS:
         by_path = {"serve": serve_launches.get(key, 0),
-                   "train": train_launches[key]}
-        main_path = "serve" if key in serve_launches else "train"
+                   "serve_moe": moe_launches.get(key, 0),
+                   "train": train_launches.get(key, 0)}
+        main_path = ("serve_moe" if key == "grouped_matmul" else
+                     "serve" if key in serve_launches else "train")
         main_entries.append(dict(entries[key], launches=by_path[main_path],
                                  launches_by_path=by_path))
-    for key in ("matmul@mlp", "pk_matmul_ar@decode"):
+    for key in ("matmul@mlp", "pk_matmul_ar@decode", "matmul@moonshot",
+                "flash_attention@moonshot", "grouped_matmul@prefill"):
         print(f"[kernel-extra] {json.dumps(entries[key])}", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": main_entries}), flush=True)

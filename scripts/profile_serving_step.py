@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a serving step of the PyTorch/CUDA port spends its time, on one GPU.
 
-    python3 scripts/profile_serving_step.py [--out FILE]
+    python3 scripts/profile_serving_step.py [--arch ARCH] [--out FILE]
 
-Serves the smoke run of ``chip_smoke.py`` (tinyllama-1.1b at full width and
-depth, 4 virtual tensor-parallel ranks, 8 requests of ``synthetic_trace``
-seed 0, every GEMM+AR site on the fused kernel) once to warm up, then again
+Serves a serving run of ``chip_smoke.py`` (``--arch`` tinyllama-1.1b, the
+default, or moonshot-v1-16b-a3b, at full width and depth, 4 virtual ranks,
+8 requests of ``synthetic_trace`` seed 0, every GEMM+AR site on the fused
+kernel) once to warm up, then again
 under ``torch.profiler`` with each engine step in its own
 ``record_function`` range. For each step kind (prefill, decode) it prints
 one JSON object with the median of, over the steps of that kind:
@@ -71,6 +72,9 @@ def busy_us(spans) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    choices=["tinyllama-1.1b", "moonshot-v1-16b-a3b"],
+                    help="the served model (chip_smoke.py's phase 4 or 4c)")
     ap.add_argument("--out", default=None,
                     help="also write the JSON objects to this file")
     ap.add_argument("--reduced", action="store_true",
@@ -91,7 +95,7 @@ def main() -> int:
     dev = resolve_device(args.device)
     serve = ServeConfig(max_batch=8, prefill_batch=4, bucket_edges=(128, 512),
                         max_new_tokens=32)
-    eng = build_engine("tinyllama-1.1b", reduced=args.reduced,
+    eng = build_engine(args.arch, reduced=args.reduced,
                        mesh_shape=(1, 4), serve=serve, seed=0, device=dev,
                        run_overrides={"comm_backend": "fused",
                                       "pk_attn_out_island": True})

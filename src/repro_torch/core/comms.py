@@ -42,13 +42,15 @@ queue item 11.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.core import costmodel as cm
 from repro_torch.core.schedule import (GEMM_CHUNK_DIM, ChunkSchedule,
-                                       OverlapPolicy, choose_gemm_chunks,
+                                       OverlapPolicy, choose_a2a_chunks,
+                                       choose_gemm_chunks,
                                        choose_gemm_collective)
 
 __all__ = ["CommContext", "OP_BACKENDS", "GEMM_OP_KIND",
@@ -208,6 +210,22 @@ class CommContext:
             dtype_bytes=dtype_bytes, hw=self.hw, fused=fused)
         return sched if chunk_dim is None else dataclasses.replace(
             sched, chunk_dim=chunk_dim)
+
+    def a2a_chunk_schedule(self, shape, split_axis: int, concat_axis: int, *,
+                           dtype_bytes: int = 2,
+                           downstream_compute_s: float = 0.0
+                           ) -> ChunkSchedule:
+        """Chunk count for an ``all_to_all`` of local payload ``shape``:
+        the analytic ``schedule.choose_a2a_chunks`` policy (the JAX
+        package's fallback when no calibration table answers), fitted to
+        the payload's splittable bystander dims. The MoE island's
+        ``moe_chunks = 0`` (auto) resolves through it."""
+        c = choose_a2a_chunks(
+            math.prod(shape) * dtype_bytes, axis_size=self.axis_size,
+            downstream_compute_s=downstream_compute_s, hw=self.hw,
+            shape=shape, split_axis=split_axis, concat_axis=concat_axis)
+        return ChunkSchedule(c, "a2a", f"choose_a2a_chunks -> {c}",
+                             source="analytic")
 
     @staticmethod
     def _check_wire(wire) -> None:

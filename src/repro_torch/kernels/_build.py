@@ -47,6 +47,10 @@ SIGNATURES = {
     # flags, R, M, N, K, stream
     "pk_matmul_ar_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
                          + [_P, _I, _I, _I, _I, _P],
+    # x, w, out, G, C, N, K, x strides (group, row), w strides, out
+    # strides, out_f32, stream
+    "pk_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
+                               _L, _L, _I, _P],
     # in ptrs, out ptrs, R, blk bytes, chunk bytes, stream
     "pk_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
                      + [_I, _L, _L, _P],

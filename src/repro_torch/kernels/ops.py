@@ -7,6 +7,7 @@ from repro_torch.kernels.collective_matmul import (  # noqa: F401
     matmul_ar_fused as pk_matmul_ar,
 )
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: F401
 from repro_torch.kernels.matmul import matmul  # noqa: F401
 from repro_torch.kernels.pk_comm import (  # noqa: F401
     ring_all_gather as pk_all_gather,

@@ -20,7 +20,9 @@ inside islands through their ``Gather`` declarations, and for the q/k/v
 projections where they are used (the gathers XLA inserts in JAX). Not
 ported: sequence-parallel attention (ROADMAP A8), the XLA chunked
 attention (the flash kernel computes the same function at any length),
-MoE (A9), paged and int8 caches (A7, A11).
+the resident 2D-TP MoE serving layout (``serve_moe_tp_data``, A9c), paged
+and int8 caches (A7, A11). The MoE island runs the replicated-dispatch
+strategy (``core/moe.py``), whose expert GEMMs are the grouped-GEMM kernel.
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core import moe as pk_moe
 from repro_torch.core.pgl import P
 from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
-                                       Stacked, fsdp_gather, rank_index)
+                                       Stacked, comm_context, fsdp_gather,
+                                       rank_index)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import matmul
 from repro_torch.models.sharding import ShardingRules
@@ -456,6 +460,112 @@ def mlp_block(p, x, cfg: ArchConfig, run: RunConfig,
     return island(x=x, w1=p["w1"], w3=w3, w2=p["w2"])
 
 
+def check_moe_run(run: RunConfig) -> None:
+    """Refuse the MoE run options the port does not have yet."""
+    if run.serve_moe_tp_data:
+        raise NotImplementedError(
+            "serve_moe_tp_data (resident 2D-TP expert weights, ff sliced over "
+            "the dp axes) is ROADMAP item A9c; it needs serving on dp > 1 "
+            "meshes (A7c)")
+
+
+def moe_island(cfg: ArchConfig, run: RunConfig,
+               rules: ShardingRules | None, b: int, s: int) -> Island:
+    """MoE island over the tp axis with device-major expert weights
+    (``core/moe.py``, replicated dispatch): one gating/capacity plan
+    (``pk_moe.dispatch_plan``), the expert GEMMs of every virtual rank in
+    one grouped-GEMM launch each, the combine a psum over tp. Returns
+    (out, aux) with out_specs (P(b), P(b))."""
+    check_moe_run(run)
+    d = cfg.d_model
+    gated = cfg.gated_mlp
+
+    def _undo_device_major(w, *, ff_axis):
+        # (M, E_loc, ...) device-major PGL -> (E, ...) with the full ff:
+        # rank r = g*tp_ff + j holds expert group g's ff slice j, so regroup
+        # to (ep, tp_ff, E_loc, ...), move the tp_ff axis next to its ff_loc
+        # slice (``ff_axis`` is ff_loc's absolute axis in w) and merge both
+        # pairs
+        m_dev, e_loc = w.shape[0], w.shape[1]
+        ep = cfg.n_experts // e_loc
+        tp_ff = m_dev // ep
+        w = w.reshape(ep, tp_ff, e_loc, *w.shape[2:]).movedim(1, ff_axis)
+        shape = [ep * e_loc] + list(w.shape[2:])
+        shape[ff_axis - 1:ff_axis + 1] = [shape[ff_axis - 1]
+                                          * shape[ff_axis]]
+        return w.reshape(shape)
+
+    def reference(x, router, w1, w3, w2):
+        # dense oracle: every expert on every token, no capacity drop
+        y, aux = pk_moe.moe_reference_dense(
+            x.reshape(-1, d), router, _undo_device_major(w1, ff_axis=3),
+            _undo_device_major(w3, ff_axis=3) if gated else None,
+            _undo_device_major(w2, ff_axis=2),
+            n_experts=cfg.n_experts, top_k=cfg.top_k)
+        return y.reshape(x.shape), aux.reshape(1)
+
+    if rules is None:
+        return Island("moe", run=run, reference=reference)
+    tp = rules.tp
+    f = rules.fsdp_axes
+    bspec = rules.dim(b, rules.dp)
+    n_tok = rules.local_batch(b) * s
+    moe_chunks = run.moe_chunks
+    if moe_chunks == 0:
+        # auto: the analytic a2a chunk policy over the dispatch payload
+        # (the JAX package asks its calibration table first, item 12)
+        n_dev = rules.mesh.shape[tp]
+        base = pk_moe.dispatch_plan(n_tok, n_experts=cfg.n_experts,
+                                    top_k=cfg.top_k,
+                                    capacity_factor=cfg.capacity_factor)
+        shape = (n_dev, max(cfg.n_experts // max(n_dev, 1), 1), base.cap, d)
+        moe_chunks = comm_context(run, tp, mesh=rules.mesh) \
+            .a2a_chunk_schedule(shape, 0, 0,
+                                dtype_bytes=_dtype_bytes(cfg)).n_chunks
+    plan = pk_moe.dispatch_plan(n_tok, n_experts=cfg.n_experts,
+                                top_k=cfg.top_k,
+                                capacity_factor=cfg.capacity_factor,
+                                n_chunks=moe_chunks)
+
+    def body(ctx, x, router, w1, w3, w2):
+        r = x.shape[0]
+        t = x.reshape(r, -1, d)
+        y, aux = pk_moe.pk_moe_replicated(
+            t, router, w1[:, 0], w3[:, 0] if gated else None, w2[:, 0],
+            ctx=ctx, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, plan=plan,
+            ring_combine=run.pk_ring_psum)
+        aux = ctx.psum(aux.reshape(1, 1).expand(r, 1), backend="bulk") / r
+        return y.reshape(x.shape), aux
+
+    # device-major PGL weights: (M, E_loc, d[, /fsdp], ff_loc)
+    wspec = P(tp, None, rules.dim(d, f), None)
+    w2spec = P(tp, None, None, rules.dim(d, f))
+    gathers = {"w1": Gather(dim=2, size=d), "w2": Gather(dim=3, size=d)}
+    if gated:
+        gathers["w3"] = Gather(dim=2, size=d)
+    return Island(
+        "moe", rules=rules, run=run,
+        inputs={"x": P(bspec, None, None), "router": P(None, None),
+                "w1": wspec, "w3": wspec if gated else P(), "w2": w2spec},
+        out_specs=(P(bspec, None, None), P(bspec)),
+        body=body, reference=reference, gathers=gathers,
+        comm=Comm("psum", backend="ring" if run.pk_ring_psum else "bulk",
+                  n_chunks=plan.n_chunks,
+                  payload_bytes=n_tok * d * _dtype_bytes(cfg)))
+
+
+def moe_block(p, x, cfg: ArchConfig, run: RunConfig,
+              rules: ShardingRules | None):
+    """MoE sub-layer; returns (out, aux_loss)."""
+    b, s, _ = x.shape
+    island = moe_island(cfg, run, rules, b, s)
+    w3 = p["w3"] if cfg.gated_mlp else torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)
+    out, aux = island(x=x, router=p["router"], w1=p["w1"], w3=w3, w2=p["w2"])
+    return out, aux.float().mean()
+
+
 # ---------------------------------------------------------------------------
 # Vocab-parallel embedding, logits
 # ---------------------------------------------------------------------------
@@ -611,14 +721,15 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
     """Every island a forward pass (and a decode step) builds: ``prefill``
     (GEMM islands at m = B·seq), ``decode`` (m = B·1 plus the decode
     attention island) or ``all`` (the union, plus the loss island — what
-    the training launcher prints). Dense attention patterns only; the
-    sequence-parallel island JAX lists under ``all`` is ROADMAP A8."""
+    the training launcher prints). Attention patterns with dense or MoE
+    FFNs; the sequence-parallel island JAX lists under ``all`` is ROADMAP
+    A8."""
     if phase not in ("all", "prefill", "decode"):
         raise ValueError(f"unknown island phase {phase!r}")
     pattern = cfg.layer_pattern()
-    if any(sp.mixer != "attn" or sp.mlp != "dense" for sp in pattern):
+    if any(sp.mixer != "attn" for sp in pattern):
         raise NotImplementedError(
-            f"{cfg.name}: MoE and SSM layer patterns are ROADMAP A9/A10")
+            f"{cfg.name}: SSM layer patterns are ROADMAP A10")
     b = batch
     s = 1 if phase == "decode" else seq
     v = cfg.padded_vocab(rules.mesh.shape[rules.tp] if rules else 16)
@@ -628,7 +739,10 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
         islands.append(decode_island(cfg, run, rules, b, seq, long_ctx=False,
                                      pos=0, kv_len=1,
                                      window=cfg.sliding_window))
-    islands.append(mlp_island(cfg, run, rules, b, s))
+    if any(sp.mlp == "dense" for sp in pattern):
+        islands.append(mlp_island(cfg, run, rules, b, s))
+    if any(sp.mlp == "moe" for sp in pattern):
+        islands.append(moe_island(cfg, run, rules, b, s))
     if phase == "all":
         islands.append(lm_loss_island(run, rules, b, cfg.d_model, v))
     return islands

@@ -7,8 +7,10 @@ layer periods in Python where the JAX package scans.
 Storage layout: a leaf whose spec shards a dim over the tensor-parallel
 axis is stored stacked per rank, once (``core.pgl.layout`` with the rank
 axis after the layer-period dim); replicated leaves are stored global.
-With no mesh every leaf is global. Dense attention patterns only: MoE,
-SSM and encoder-decoder configs raise ``NotImplementedError``.
+With no mesh every leaf is global. Attention patterns with dense or MoE
+FFNs (MoE expert weights device-major over tp, ``core/moe.py``); SSM and
+encoder-decoder configs raise ``NotImplementedError``, and so does MoE
+training.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.compat import DTYPES
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import pgl
+from repro_torch.core.moe import ep_tp_split
 from repro_torch.core.pgl import P
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import ShardingRules
@@ -57,7 +60,7 @@ def set_path(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def _check_dense(cfg: ArchConfig) -> None:
+def _check_attn(cfg: ArchConfig) -> None:
     if cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder decode is ROADMAP item A7")
@@ -65,9 +68,6 @@ def _check_dense(cfg: ArchConfig) -> None:
         if sp.mixer != "attn":
             raise NotImplementedError(
                 f"{cfg.name}: SSM/hybrid layers are ROADMAP item A10")
-        if sp.mlp != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are ROADMAP item A9")
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +101,33 @@ def _mlp_pds(cfg: ArchConfig, r: ShardingRules | None, dt) -> dict:
     return out
 
 
+def _moe_pds(cfg: ArchConfig, r: ShardingRules | None, dt) -> dict:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    m = r.mesh.shape[r.tp] if r is not None else 1
+    ep, tp_ff = ep_tp_split(e, m)
+    e_loc, ff_loc = e // ep, ff // tp_ff
+    fs = r.dim(d, r.fsdp_axes) if r is not None else None
+    tp = r.tp if r is not None else None
+    if r is not None:
+        L.check_moe_run(r.run)
+    w1s = P(tp, None, fs, None)
+    w2s = P(tp, None, None, fs)
+    out = {
+        "norm": PD((d,), P(None), "ones", dt),
+        "router": PD((d, e), P(None, None), "normal", torch.float32),
+        # device-major PGL layout over the tp axis (EP×TP)
+        "w1": PD((m, e_loc, d, ff_loc), w1s, "normal", dt),
+        "w2": PD((m, e_loc, ff_loc, d), w2s, "normal", dt),
+    }
+    if cfg.gated_mlp:
+        out["w3"] = PD((m, e_loc, d, ff_loc), w1s, "normal", dt)
+    return out
+
+
 def param_template(cfg: ArchConfig, run: RunConfig,
                    rules: ShardingRules | None) -> dict:
     """The full parameter tree as PDs (the JAX template's shapes/specs)."""
-    _check_dense(cfg)
+    _check_attn(cfg)
     dt = DTYPES[cfg.dtype]
     d = cfg.d_model
     v = cfg.padded_vocab(rules.mesh.shape[rules.tp] if rules else 16)
@@ -117,9 +140,12 @@ def param_template(cfg: ArchConfig, run: RunConfig,
     if not cfg.tie_embeddings:
         tree["lm_head"] = PD((d, v), P(fs, tpv), "normal", dt)
     blocks = {}
-    for i, _spec in enumerate(cfg.layer_pattern()):
-        pds = {"attn": _attn_pds(cfg, rules, dt),
-               "mlp": _mlp_pds(cfg, rules, dt)}
+    for i, spec in enumerate(cfg.layer_pattern()):
+        pds = {"attn": _attn_pds(cfg, rules, dt)}
+        if spec.mlp == "moe":
+            pds["moe"] = _moe_pds(cfg, rules, dt)
+        else:
+            pds["mlp"] = _mlp_pds(cfg, rules, dt)
         blocks[f"pos{i}"] = {g: {k: pd.stacked(cfg.n_periods)
                                  for k, pd in sub.items()}
                              for g, sub in pds.items()}
@@ -142,12 +168,22 @@ def stored_shape(pd: PD, rules: ShardingRules | None) -> tuple[int, ...]:
                              lead=int(pd.periods))
 
 
+# elements of one f32 draw in init_params (256 MiB): a leaf is drawn in
+# slices of whole rows along its leading axis, at least one row a slice
+_DRAW_ELEMS = 1 << 26
+
+
 def init_params(template, generator: torch.Generator, d_model: int, *,
                 rules: ShardingRules | None = None,
                 device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` (normal leaves
-    ~ N(0, 1/d_model), f32 draws cast to the leaf dtype), laid out once
-    in their stored form. ``generator`` must live on ``device``."""
+    ~ N(0, 1/d_model)), laid out once in their stored form. Each normal
+    leaf is drawn in slices along its leading axis (a layer of a stacked
+    leaf, a block of rows of a matrix; at most 2^26 elements unless one
+    row is larger), each slice in f32, cast to the
+    leaf dtype and written in place, so the f32 transient is one slice —
+    a full-width MoE expert leaf drawn whole in f32 would not fit the
+    card. ``generator`` must live on ``device``."""
     device = torch.device(device) if device is not None \
         else generator.device
     scale = d_model ** -0.5
@@ -156,8 +192,14 @@ def init_params(template, generator: torch.Generator, d_model: int, *,
         if pd.init == "ones":
             x = torch.ones(pd.shape, dtype=pd.dtype, device=device)
         elif pd.init == "normal":
-            x = (torch.randn(pd.shape, generator=generator, device=device,
-                             dtype=torch.float32) * scale).to(pd.dtype)
+            x = torch.empty(pd.shape, dtype=pd.dtype, device=device)
+            rows = x.view(len(x), -1)
+            step = max(1, _DRAW_ELEMS // rows.shape[1])
+            for i in range(0, rows.shape[0], step):
+                part = rows[i:i + step]
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       device=device,
+                                       dtype=torch.float32).mul_(scale))
         else:
             raise NotImplementedError(f"init {pd.init!r}")
         set_path(out, path, to_stored(x, pd, rules))
@@ -179,7 +221,7 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
     """Slab decode cache: per layer period (np, B, Hkv, S_max, hd) K and V
     (sequence-sharded over tp with a mesh) and the position — a scalar, or
     one per slot with ``slot_pos=True`` (the serving engine's pool)."""
-    _check_dense(cfg)
+    _check_attn(cfg)
     if rules is not None and not run.decode_seq_shard:
         raise NotImplementedError(
             "head-sharded KV caches (decode_seq_shard=False on a mesh) are "
@@ -284,7 +326,11 @@ def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
     """Returns (loss, metrics). batch: tokens (B, S), targets (B, S),
     weights (B, S). Dense decoders; the loss is the chunked vocab-parallel
     cross-entropy (``layers.lm_loss``) and the aux loss is 0."""
-    _check_dense(cfg)
+    _check_attn(cfg)
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training is ROADMAP item A9b; the port serves "
+            "MoE models")
     if seq_sharded:
         raise NotImplementedError(
             "sequence-parallel training is ROADMAP item A8")
@@ -311,11 +357,24 @@ def _head(params) -> torch.Tensor:
     return L._row_weight(params["embed"]).T.contiguous()
 
 
+def _ffn(bp, li, x, cfg: ArchConfig, run: RunConfig, rules):
+    """Layer ``li``'s FFN sub-block of one pattern position (its dense MLP
+    or its MoE, whichever ``bp`` holds) on the residual ``x``."""
+    if "moe" in bp:
+        m = {k: t[li] for k, t in bp["moe"].items()}
+        h, _ = L.moe_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps), cfg,
+                           run, rules)
+        return h
+    m = {k: t[li] for k, t in bp["mlp"].items()}
+    return L.mlp_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps), cfg, run,
+                       rules)
+
+
 def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
                 rules: ShardingRules | None):
     """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V) f32,
     new_cache) with ``pos`` advanced by one."""
-    _check_dense(cfg)
+    _check_attn(cfg)
     pos = cache["pos"]
     x = L.embed_tokens(params, tokens, rules, run)
     new_blocks = {}
@@ -330,9 +389,7 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
             x = x + h
             ks.append(nk)
             vs.append(nv)
-            m = {k: t[li] for k, t in bp["mlp"].items()}
-            x = x + L.mlp_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps),
-                                cfg, run, rules)
+            x = x + _ffn(bp, li, x, cfg, run, rules)
         new_blocks[f"pos{i}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.lm_logits({"lm_head": _head(params)}, x)
@@ -345,7 +402,7 @@ def prefill_step(params, cache, tokens, prompt_lens, cfg: ArchConfig,
     right-padded prompts (B, L) writes every layer's K/V into the cache and
     returns each slot's next-token logits (B, 1, V) at its last real
     position, with ``cache["pos"]`` set to the prompt lengths."""
-    _check_dense(cfg)
+    _check_attn(cfg)
     b, _ = tokens.shape
     x = L.embed_tokens(params, tokens, rules, run)
     new_blocks = {}
@@ -360,9 +417,7 @@ def prefill_step(params, cache, tokens, prompt_lens, cfg: ArchConfig,
             x = x + h
             ks.append(nk)
             vs.append(nv)
-            m = {k: t[li] for k, t in bp["mlp"].items()}
-            x = x + L.mlp_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps),
-                                cfg, run, rules)
+            x = x + _ffn(bp, li, x, cfg, run, rules)
         new_blocks[f"pos{i}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     lens = torch.as_tensor(prompt_lens, device=x.device)

@@ -132,6 +132,68 @@ def test_ring_reduce_scatter_kernel(cuda, r, shape, dtype):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("g,c,k,n", [(3, 1, 40, 72), (5, 70, 136, 64),
+                                     (2, 3, 8, 8), (64, 1, 2048, 1408),
+                                     (64, 240, 1408, 2048)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_kernel(cuda, g, c, k, n, out_dtype):
+    """Every group in one launch, ragged C masked; f32 output against the
+    plain f32 product within 1e-3 (sums in another order), bf16 within
+    1e-2 (one rounding)."""
+    from repro_torch.kernels import grouped_matmul as GM
+    x = _randn(cuda, g, c, k, seed=1)
+    w = _randn(cuda, g, k, n, scale=k ** -0.5, seed=2)
+    before = GM.grouped_matmul.launches
+    got = GM.grouped_matmul(x, w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert GM.grouped_matmul.launches == before + 1
+    assert got.shape == (g, c, n) and got.dtype == out_dtype
+    want = GM.grouped_matmul_plain(x, w, out_dtype=torch.float32)
+    assert _rel(got, want) <= (1e-3 if out_dtype == torch.float32 else 1e-2)
+
+
+def test_grouped_matmul_kernel_strided_groups(cuda):
+    """A stacked weight viewed as groups without a copy, and x broadcast to
+    every group with a group stride of 0 (the dense MoE oracle's input)."""
+    from repro_torch.kernels import grouped_matmul as GM
+    w = _randn(cuda, 2, 1, 3, 64, 48, scale=0.125, seed=3)
+    x = _randn(cuda, 10, 64, seed=4).expand(6, 10, 64)
+    got = GM.grouped_matmul(x, w.reshape(6, 64, 48), out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _rel(got, GM.grouped_matmul_plain(
+        x, w.reshape(6, 64, 48), out_dtype=torch.float32)) <= 1e-3
+    with pytest.raises(ValueError, match="N % 8"):
+        GM.grouped_matmul(x, _randn(cuda, 6, 64, 12))
+    with pytest.raises(ValueError, match="bf16"):
+        GM.grouped_matmul(x.float(), w.reshape(6, 64, 48).float())
+
+
+def test_moe_on_card_matches_plain_gemm(cuda):
+    """The replicated-dispatch MoE on 4 virtual ranks, bf16: the grouped
+    GEMM kernel against the same function with the plain GEMM on the same
+    inputs (the routing is the same, only the GEMM differs)."""
+    from unittest import mock
+
+    from repro_torch.core import moe
+    from repro_torch.core.comms import CommContext
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.kernels import grouped_matmul as GM
+    r, t, d, ff, e, k = 4, 64, 128, 96, 8, 2
+    x = _randn(cuda, t, d, seed=5).expand(r, t, d)
+    router = torch.randn(d, e, device=cuda).expand(r, d, e)
+    w1, w3 = (_randn(cuda, r, e // r, d, ff, scale=d ** -0.5, seed=s)
+              for s in (6, 7))
+    w2 = _randn(cuda, r, e // r, ff, d, scale=ff ** -0.5, seed=8)
+    ctx = CommContext(axis_name="model",
+                      mesh=VirtualMesh((1, r), ("data", "model"), cuda))
+    kw = dict(ctx=ctx, n_experts=e, top_k=k)
+    got, _ = moe.pk_moe_replicated(x, router, w1, w3, w2, **kw)
+    with mock.patch.object(moe, "grouped_matmul", GM.grouped_matmul_plain):
+        want, _ = moe.pk_moe_replicated(x, router, w1, w3, w2, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and _rel(got, want) <= 1e-2
+
+
 def _grads(fn, *xs):
     xs = [x.detach().clone().requires_grad_(True) for x in xs]
     y = fn(*xs)

@@ -218,9 +218,11 @@ def test_decode_island_matches_jax():
 def test_dense_only_and_data_axis_raise():
     _, tcfg = _cfgs()
     run = RunConfig(fsdp=False)
+    # MoE models serve (tests/test_torch_moe_model.py); training them is
+    # ROADMAP A9b
     with pytest.raises(NotImplementedError, match="A9"):
-        T.param_template(get_config("moonshot-v1-16b-a3b").reduced(), run,
-                         None)
+        T.forward_train({}, {}, get_config("moonshot-v1-16b-a3b").reduced(),
+                        run, None)
     with pytest.raises(NotImplementedError, match="A10"):
         T.param_template(get_config("falcon-mamba-7b").reduced(), run, None)
     # data axes larger than 1 run (below); what still raises on them: a

@@ -4,9 +4,10 @@
     python3 scripts/profile_serving_step.py [--arch ARCH] [--out FILE]
 
 Serves a serving run of ``chip_smoke.py`` (``--arch`` tinyllama-1.1b, the
-default, or moonshot-v1-16b-a3b, at full width and depth, 4 virtual ranks,
-8 requests of ``synthetic_trace`` seed 0, every GEMM+AR site on the fused
-kernel) once to warm up, then again
+default, moonshot-v1-16b-a3b or falcon-mamba-7b, at full width and depth,
+4 virtual ranks, 8 requests of ``synthetic_trace`` seed 0, every GEMM+AR
+site on the fused kernel; exact buckets for the SSM model) once to warm
+up, then again
 under ``torch.profiler`` with each engine step in its own
 ``record_function`` range. For each step kind (prefill, decode) it prints
 one JSON object with the median of, over the steps of that kind:
@@ -73,8 +74,10 @@ def busy_us(spans) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
-                    choices=["tinyllama-1.1b", "moonshot-v1-16b-a3b"],
-                    help="the served model (chip_smoke.py's phase 4 or 4c)")
+                    choices=["tinyllama-1.1b", "moonshot-v1-16b-a3b",
+                             "falcon-mamba-7b"],
+                    help="the served model (chip_smoke.py's phase 4, 4c or "
+                         "4e)")
     ap.add_argument("--out", default=None,
                     help="also write the JSON objects to this file")
     ap.add_argument("--reduced", action="store_true",
@@ -89,12 +92,15 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.compat import resolve_device
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import ServeConfig
     from repro_torch.launch.serve import build_engine, synthetic_trace
+    from repro_torch.models.transformer import has_ssm
 
     dev = resolve_device(args.device)
     serve = ServeConfig(max_batch=8, prefill_batch=4, bucket_edges=(128, 512),
-                        max_new_tokens=32)
+                        max_new_tokens=32,
+                        exact_buckets=has_ssm(get_config(args.arch)))
     eng = build_engine(args.arch, reduced=args.reduced,
                        mesh_shape=(1, 4), serve=serve, seed=0, device=dev,
                        run_overrides={"comm_backend": "fused",

@@ -58,6 +58,11 @@ SIGNATURES = {
     # dtype (0 f32, 1 bf16), stream
     "pk_reduce_scatter": [ctypes.POINTER(ctypes.c_uint64)] * 3
                          + [_P, _I, _L, _L, _I, _P],
+    # dt, x, b, c, a, h0, y, h_out, B, S, D, N, chunk, x/b/c bf16 flag,
+    # dt, x, b, c strides (batch, step), dl, h0 strides (rank, batch),
+    # h_out strides (rank, batch), stream
+    "pk_mamba_scan": [_P] * 8 + [_I] * 6 + [_L] * 8 + [_I] + [_L] * 4
+                     + [_P],
 }
 
 

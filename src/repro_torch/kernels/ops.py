@@ -8,6 +8,7 @@ from repro_torch.kernels.collective_matmul import (  # noqa: F401
 )
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: F401
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: F401
 from repro_torch.kernels.matmul import matmul  # noqa: F401
 from repro_torch.kernels.pk_comm import (  # noqa: F401
     ring_all_gather as pk_all_gather,

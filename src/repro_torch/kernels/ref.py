@@ -8,6 +8,9 @@ import torch
 from repro_torch.kernels.grouped_matmul import (  # noqa: F401
     grouped_matmul_plain as grouped_matmul_ref,
 )
+from repro_torch.kernels.mamba_scan import (  # noqa: F401
+    mamba_scan_plain as mamba_scan_ref,
+)
 from repro_torch.kernels.matmul import matmul_plain as matmul_ref  # noqa: F401
 
 NEG_INF = -1e30

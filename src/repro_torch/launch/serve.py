@@ -10,6 +10,10 @@ engine (``repro_torch.runtime.serving``), the twin of
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
         --mesh-shape 1 4 --mode continuous --requests 8 --device cpu
 
+    # an SSM model (exact buckets: one bucket per prompt length)
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --reduced \
+        --mesh-shape 1 4 --mode continuous --device cpu
+
 The entry points run on ``cuda`` unless ``device`` names another device;
 with no GPU and no device they raise.
 """
@@ -39,7 +43,8 @@ def build_engine(arch: str, *, reduced: bool = True, mesh_shape=None,
     """Config -> parameters -> ServingEngine on one device, the ranks of
     ``mesh_shape`` virtual. Parameters come from a ``torch.Generator``
     seeded with ``seed`` on that device; every tp-sharded weight is laid
-    out once as its stacked (R, *local) tensor."""
+    out once as its stacked (R, *local) tensor. With no ``serve`` given,
+    SSM and hybrid archs get ``ServeConfig(exact_buckets=True)``."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -55,6 +60,8 @@ def build_engine(arch: str, *, reduced: bool = True, mesh_shape=None,
     tmpl = T.param_template(cfg, run, rules)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(tmpl, gen, cfg.d_model, rules=rules, device=dev)
+    if serve is None:
+        serve = ServeConfig(exact_buckets=T.has_ssm(cfg))
     return ServingEngine(cfg, run, rules, params, serve, device=dev)
 
 
@@ -141,7 +148,8 @@ def main(argv=None):
     serve = ServeConfig(max_batch=args.max_batch,
                         prefill_batch=args.prefill_batch,
                         bucket_edges=edges, max_new_tokens=args.tokens,
-                        queue_policy=args.queue_policy)
+                        queue_policy=args.queue_policy,
+                        exact_buckets=T.has_ssm(get_config(args.arch)))
     eng = build_engine(args.arch, reduced=args.reduced,
                        mesh_shape=args.mesh_shape, serve=serve,
                        seed=args.seed, comm_chunks=args.comm_chunks,

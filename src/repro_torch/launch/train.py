@@ -59,7 +59,7 @@ def build_and_train(arch: str, *, steps: int, reduced: bool, mesh_shape,
            for sp in cfg.layer_pattern()) or cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the port trains dense decoders; MoE is ROADMAP "
-            "item 9 and SSM/hybrid item 10")
+            "item 9 and SSM/hybrid item 10 (A10b)")
     mesh = VirtualMesh(mesh_shape, mesh_axes, dev) if mesh_shape else None
     run = RunConfig(dp_axes=tuple(a for a in (mesh_axes or ())
                                   if a != "model") or ("data",),

@@ -65,10 +65,12 @@ def _col_proj(x: torch.Tensor, w) -> torch.Tensor:
     return y.movedim(0, 1).reshape(*x.shape[:-1], r * n_loc)
 
 
-def _row_weight(w: torch.Tensor) -> torch.Tensor:
-    """Global view of a weight stacked over its input dim, (R, k/R, n) ->
-    (k, n): rank slabs are contiguous row blocks, so this is a view."""
-    return w if w.dim() == 2 else w.reshape(-1, w.shape[-1])
+def _row_weight(w: torch.Tensor, ndim: int = 2) -> torch.Tensor:
+    """Global view of a leaf stacked over its leading dim, (R, k/R, ...)
+    -> (k, ...) for a leaf of ``ndim`` dims (a weight stacked over its
+    input dim by default): rank slabs are contiguous row blocks, so this is
+    a view."""
+    return w if w.dim() == ndim else w.reshape(-1, *w.shape[2:])
 
 
 # ---------------------------------------------------------------------------
@@ -721,24 +723,24 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
     """Every island a forward pass (and a decode step) builds: ``prefill``
     (GEMM islands at m = B·seq), ``decode`` (m = B·1 plus the decode
     attention island) or ``all`` (the union, plus the loss island — what
-    the training launcher prints). Attention patterns with dense or MoE
-    FFNs; the sequence-parallel island JAX lists under ``all`` is ROADMAP
-    A8."""
+    the training launcher prints). The attention islands only where a
+    layer attends — mamba layers have none: their collectives are implicit
+    in JAX's GSPMD program, and the port computes them on global
+    activations (``models/ssm.py``); the sequence-parallel island JAX
+    lists under ``all`` is ROADMAP A8."""
     if phase not in ("all", "prefill", "decode"):
         raise ValueError(f"unknown island phase {phase!r}")
     pattern = cfg.layer_pattern()
-    if any(sp.mixer != "attn" for sp in pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM layer patterns are ROADMAP A10")
     b = batch
     s = 1 if phase == "decode" else seq
     v = cfg.padded_vocab(rules.mesh.shape[rules.tp] if rules else 16)
-    islands = [embed_island(run, rules, v, cfg.d_model, b),
-               attn_out_island(cfg, run, rules, b, s)]
-    if phase in ("all", "decode"):
-        islands.append(decode_island(cfg, run, rules, b, seq, long_ctx=False,
-                                     pos=0, kv_len=1,
-                                     window=cfg.sliding_window))
+    islands = [embed_island(run, rules, v, cfg.d_model, b)]
+    if any(sp.mixer == "attn" for sp in pattern):
+        islands.append(attn_out_island(cfg, run, rules, b, s))
+        if phase in ("all", "decode"):
+            islands.append(decode_island(cfg, run, rules, b, seq,
+                                         long_ctx=False, pos=0, kv_len=1,
+                                         window=cfg.sliding_window))
     if any(sp.mlp == "dense" for sp in pattern):
         islands.append(mlp_island(cfg, run, rules, b, s))
     if any(sp.mlp == "moe" for sp in pattern):

@@ -1,4 +1,4 @@
-"""Model assembly for the dense serving and training paths — the twin of
+"""Model assembly for the serving and training paths — the twin of
 ``repro/models/transformer.py``: parameter and cache templates (shape,
 spec and init in one place), the training forward (``forward_train``),
 then the cache-building prefill and the one-token decode step, looping over
@@ -7,10 +7,12 @@ layer periods in Python where the JAX package scans.
 Storage layout: a leaf whose spec shards a dim over the tensor-parallel
 axis is stored stacked per rank, once (``core.pgl.layout`` with the rank
 axis after the layer-period dim); replicated leaves are stored global.
-With no mesh every leaf is global. Attention patterns with dense or MoE
-FFNs (MoE expert weights device-major over tp, ``core/moe.py``); SSM and
-encoder-decoder configs raise ``NotImplementedError``, and so does MoE
-training.
+With no mesh every leaf is global. Layers mix with attention or a mamba
+block (``models/ssm.py``; its state cache ``h`` (np, R, B, di/R, N) f32
+and conv tail (np, R, B, ck-1, di/R)) and have a dense, MoE (expert
+weights device-major over tp, ``core/moe.py``) or no FFN, so dense, MoE,
+SSM and hybrid decoders serve. Encoder-decoder configs raise
+``NotImplementedError``, and so does training MoE or SSM layers.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.core import pgl
 from repro_torch.core.moe import ep_tp_split
 from repro_torch.core.pgl import P
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.sharding import ShardingRules
 
 
@@ -36,7 +39,7 @@ class PD:
     ``periods`` marks a leading layer-period dim (spec entry None)."""
     shape: tuple[int, ...]
     spec: P
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal | zeros | ones | a_log | dt_bias
     dtype: torch.dtype = torch.bfloat16
     periods: bool = False
 
@@ -60,14 +63,15 @@ def set_path(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def _check_attn(cfg: ArchConfig) -> None:
+def _check_decoder(cfg: ArchConfig) -> None:
     if cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder decode is ROADMAP item A7")
-    for sp in cfg.layer_pattern():
-        if sp.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: SSM/hybrid layers are ROADMAP item A10")
+
+
+def has_ssm(cfg: ArchConfig) -> bool:
+    """Does any layer mix with a mamba block?"""
+    return any(sp.mixer == "mamba" for sp in cfg.layer_pattern())
 
 
 # ---------------------------------------------------------------------------
@@ -124,10 +128,30 @@ def _moe_pds(cfg: ArchConfig, r: ShardingRules | None, dt) -> dict:
     return out
 
 
+def _mamba_pds(cfg: ArchConfig, r: ShardingRules | None, dt) -> dict:
+    d, di, n, ck, dtr = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                         cfg.conv_kernel, cfg.dtr)
+    tp = r.tp if r is not None else None
+    fs = r.dim(d, r.fsdp_axes) if r is not None else None
+    tpd = (lambda s: r.dim(s, tp)) if r is not None else (lambda s: None)
+    return {
+        "norm": PD((d,), P(None), "ones", dt),
+        "in_proj": PD((d, 2 * di), P(fs, tpd(2 * di)), "normal", dt),
+        "conv_w": PD((di, ck), P(tpd(di), None), "normal", dt),
+        "conv_b": PD((di,), P(tpd(di)), "zeros", dt),
+        "x_proj": PD((di, dtr + 2 * n), P(tpd(di), None), "normal", dt),
+        "dt_proj": PD((dtr, di), P(None, tpd(di)), "normal", dt),
+        "dt_bias": PD((di,), P(tpd(di)), "dt_bias", torch.float32),
+        "A_log": PD((di, n), P(tpd(di), None), "a_log", torch.float32),
+        "D": PD((di,), P(tpd(di)), "ones", torch.float32),
+        "out_proj": PD((di, d), P(tpd(di), fs), "normal", dt),
+    }
+
+
 def param_template(cfg: ArchConfig, run: RunConfig,
                    rules: ShardingRules | None) -> dict:
     """The full parameter tree as PDs (the JAX template's shapes/specs)."""
-    _check_attn(cfg)
+    _check_decoder(cfg)
     dt = DTYPES[cfg.dtype]
     d = cfg.d_model
     v = cfg.padded_vocab(rules.mesh.shape[rules.tp] if rules else 16)
@@ -141,10 +165,11 @@ def param_template(cfg: ArchConfig, run: RunConfig,
         tree["lm_head"] = PD((d, v), P(fs, tpv), "normal", dt)
     blocks = {}
     for i, spec in enumerate(cfg.layer_pattern()):
-        pds = {"attn": _attn_pds(cfg, rules, dt)}
+        pds = ({"attn": _attn_pds(cfg, rules, dt)} if spec.mixer == "attn"
+               else {"mamba": _mamba_pds(cfg, rules, dt)})
         if spec.mlp == "moe":
             pds["moe"] = _moe_pds(cfg, rules, dt)
-        else:
+        elif spec.mlp == "dense":
             pds["mlp"] = _mlp_pds(cfg, rules, dt)
         blocks[f"pos{i}"] = {g: {k: pd.stacked(cfg.n_periods)
                                  for k, pd in sub.items()}
@@ -177,7 +202,9 @@ def init_params(template, generator: torch.Generator, d_model: int, *,
                 rules: ShardingRules | None = None,
                 device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` (normal leaves
-    ~ N(0, 1/d_model)), laid out once in their stored form. Each normal
+    ~ N(0, 1/d_model); ``a_log`` is log(1..N) along the state dim, as in
+    JAX; ``dt_bias`` the inverse softplus of U[1e-3, 1e-1]), laid out once
+    in their stored form. Each normal
     leaf is drawn in slices along its leading axis (a layer of a stacked
     leaf, a block of rows of a matrix; at most 2^26 elements unless one
     row is larger), each slice in f32, cast to the
@@ -189,8 +216,18 @@ def init_params(template, generator: torch.Generator, d_model: int, *,
     scale = d_model ** -0.5
     out: dict = {}
     for path, pd in leaves(template):
-        if pd.init == "ones":
-            x = torch.ones(pd.shape, dtype=pd.dtype, device=device)
+        if pd.init in ("ones", "zeros"):
+            x = (torch.ones if pd.init == "ones" else torch.zeros)(
+                pd.shape, dtype=pd.dtype, device=device)
+        elif pd.init == "a_log":
+            n = pd.shape[-1]
+            x = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                       device=device)) \
+                .expand(pd.shape).to(pd.dtype).contiguous()
+        elif pd.init == "dt_bias":
+            u = torch.rand(pd.shape, generator=generator, device=device,
+                           dtype=torch.float32) * (1e-1 - 1e-3) + 1e-3
+            x = (u + torch.log(-torch.expm1(-u))).to(pd.dtype)
         elif pd.init == "normal":
             x = torch.empty(pd.shape, dtype=pd.dtype, device=device)
             rows = x.view(len(x), -1)
@@ -219,10 +256,13 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
                    rules: ShardingRules | None, *, batch: int, s_max: int,
                    slot_pos: bool = False, kv_dtype: str = "bf16") -> dict:
     """Slab decode cache: per layer period (np, B, Hkv, S_max, hd) K and V
-    (sequence-sharded over tp with a mesh) and the position — a scalar, or
-    one per slot with ``slot_pos=True`` (the serving engine's pool)."""
-    _check_attn(cfg)
-    if rules is not None and not run.decode_seq_shard:
+    (sequence-sharded over tp with a mesh) for attention layers, the f32
+    state ``h`` (np, B, di, N) and conv tail (np, B, ck-1, di) (di over tp)
+    for mamba layers, and the position — a scalar, or one per slot with
+    ``slot_pos=True`` (the serving engine's pool)."""
+    _check_decoder(cfg)
+    attn = any(sp.mixer == "attn" for sp in cfg.layer_pattern())
+    if attn and rules is not None and not run.decode_seq_shard:
         raise NotImplementedError(
             "head-sharded KV caches (decode_seq_shard=False on a mesh) are "
             "ROADMAP item A7; the port shards the cache's sequence dim")
@@ -238,10 +278,19 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
         "pos": (PD((batch,), P(bspec), "zeros", torch.int32) if slot_pos
                 else PD((), P(), "zeros", torch.int32)),
         "blocks": {}}
-    for i, _spec in enumerate(cfg.layer_pattern()):
-        kv = PD((batch, hkv, s_max, hd), kv_spec, "zeros", dt)
-        tree["blocks"][f"pos{i}"] = {"k": kv.stacked(cfg.n_periods),
-                                     "v": kv.stacked(cfg.n_periods)}
+    di, n, ck = cfg.d_inner, cfg.ssm_state, cfg.conv_kernel
+    ssm_spec = rules.ssm_cache(batch) if rules else P(None, None, None)
+    conv_spec = P(bspec, None, rules.dim(di, rules.tp) if rules else None)
+    for i, spec in enumerate(cfg.layer_pattern()):
+        if spec.mixer == "attn":
+            kv = PD((batch, hkv, s_max, hd), kv_spec, "zeros", dt)
+            entry = {"k": kv, "v": kv}
+        else:
+            entry = {"h": PD((batch, di, n), ssm_spec, "zeros",
+                             torch.float32),
+                     "conv": PD((batch, ck - 1, di), conv_spec, "zeros", dt)}
+        tree["blocks"][f"pos{i}"] = {k: pd.stacked(cfg.n_periods)
+                                     for k, pd in entry.items()}
     return tree
 
 
@@ -326,7 +375,11 @@ def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
     """Returns (loss, metrics). batch: tokens (B, S), targets (B, S),
     weights (B, S). Dense decoders; the loss is the chunked vocab-parallel
     cross-entropy (``layers.lm_loss``) and the aux loss is 0."""
-    _check_attn(cfg)
+    _check_decoder(cfg)
+    if has_ssm(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: SSM training is ROADMAP item A10b; the port serves "
+            "SSM and hybrid models")
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE training is ROADMAP item A9b; the port serves "
@@ -370,27 +423,57 @@ def _ffn(bp, li, x, cfg: ArchConfig, run: RunConfig, rules):
                        rules)
 
 
+def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
+                  rules, attend):
+    """Every layer in order (period by period, pattern position by
+    position) over a serving cache: the mixer — ``attend(a, x_norm,
+    cache_k, cache_v) -> (h, k, v)`` for attention, the mamba block for
+    SSM layers, whose new state the kernel writes straight into the new
+    cache's slab — then the FFN if the layer has one. Returns (x, new
+    cache blocks)."""
+    pattern = cfg.layer_pattern()
+    new = {}
+    for i, spec in enumerate(pattern):
+        cp = cache["blocks"][f"pos{i}"]
+        new[f"pos{i}"] = ({"k": [], "v": []} if spec.mixer == "attn" else
+                          {"h": torch.empty_like(cp["h"]), "conv": []})
+    for li in range(cfg.n_periods):
+        for i, spec in enumerate(pattern):
+            bp, cp = params["blocks"][f"pos{i}"], cache["blocks"][f"pos{i}"]
+            nc = new[f"pos{i}"]
+            if spec.mixer == "attn":
+                a = {k: t[li] for k, t in bp["attn"].items()}
+                h, nk, nv = attend(a, L.rms_norm(a["norm"], x, cfg.norm_eps),
+                                   cp["k"][li], cp["v"][li])
+                nc["k"].append(nk)
+                nc["v"].append(nv)
+            else:
+                m = {k: t[li] for k, t in bp["mamba"].items()}
+                h, (_, tail) = S.mamba_block(
+                    m, L.rms_norm(m["norm"], x, cfg.norm_eps), cfg, run,
+                    rules, cache=(cp["h"][li], cp["conv"][li]),
+                    h_out=nc["h"][li])
+                nc["conv"].append(tail)
+            x = x + h
+            if spec.mlp != "none":
+                x = x + _ffn(bp, li, x, cfg, run, rules)
+    return x, {name: {k: v if isinstance(v, torch.Tensor) else
+                      torch.stack(v) for k, v in nc.items()}
+               for name, nc in new.items()}
+
+
 def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
                 rules: ShardingRules | None):
     """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V) f32,
     new_cache) with ``pos`` advanced by one."""
-    _check_attn(cfg)
+    _check_decoder(cfg)
     pos = cache["pos"]
     x = L.embed_tokens(params, tokens, rules, run)
-    new_blocks = {}
-    for i, _spec in enumerate(cfg.layer_pattern()):
-        bp, cp = params["blocks"][f"pos{i}"], cache["blocks"][f"pos{i}"]
-        ks, vs = [], []
-        for li in range(cfg.n_periods):
-            a = {k: t[li] for k, t in bp["attn"].items()}
-            h, nk, nv = L.decode_attention(
-                a, L.rms_norm(a["norm"], x, cfg.norm_eps), cp["k"][li],
-                cp["v"][li], pos, cfg, run, rules)
-            x = x + h
-            ks.append(nk)
-            vs.append(nv)
-            x = x + _ffn(bp, li, x, cfg, run, rules)
-        new_blocks[f"pos{i}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    def attend(a, xn, ck, cv):
+        return L.decode_attention(a, xn, ck, cv, pos, cfg, run, rules)
+
+    x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.lm_logits({"lm_head": _head(params)}, x)
     return logits, {"pos": pos + 1, "blocks": new_blocks}
@@ -399,26 +482,19 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
 def prefill_step(params, cache, tokens, prompt_lens, cfg: ArchConfig,
                  run: RunConfig, rules: ShardingRules | None):
     """Batched cache-building prefill: one full-sequence forward over the
-    right-padded prompts (B, L) writes every layer's K/V into the cache and
-    returns each slot's next-token logits (B, 1, V) at its last real
-    position, with ``cache["pos"]`` set to the prompt lengths."""
-    _check_attn(cfg)
+    right-padded prompts (B, L) writes every layer's K/V — and SSM state —
+    into the cache and returns each slot's next-token logits (B, 1, V) at
+    its last real position, with ``cache["pos"]`` set to the prompt
+    lengths. SSM state cannot mask right-padding: SSM and hybrid callers
+    prefill at the exact prompt length (the engine's ``exact_buckets``)."""
+    _check_decoder(cfg)
     b, _ = tokens.shape
     x = L.embed_tokens(params, tokens, rules, run)
-    new_blocks = {}
-    for i, _spec in enumerate(cfg.layer_pattern()):
-        bp, cp = params["blocks"][f"pos{i}"], cache["blocks"][f"pos{i}"]
-        ks, vs = [], []
-        for li in range(cfg.n_periods):
-            a = {k: t[li] for k, t in bp["attn"].items()}
-            h, nk, nv = L.prefill_attention_block(
-                a, L.rms_norm(a["norm"], x, cfg.norm_eps), cp["k"][li],
-                cp["v"][li], cfg, run, rules)
-            x = x + h
-            ks.append(nk)
-            vs.append(nv)
-            x = x + _ffn(bp, li, x, cfg, run, rules)
-        new_blocks[f"pos{i}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    def attend(a, xn, ck, cv):
+        return L.prefill_attention_block(a, xn, ck, cv, cfg, run, rules)
+
+    x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     lens = torch.as_tensor(prompt_lens, device=x.device)
     idx = (lens.reshape(-1) - 1).expand(b) if lens.dim() == 0 or \

@@ -8,6 +8,10 @@ function builds its islands from them. Prefill buckets run the
 cache-building forward at (prefill_batch, bucket_len); the decode pool's
 one-token step runs over every slot with a per-slot position vector.
 
+SSM and hybrid models need ``ServeConfig(exact_buckets=True)``: their
+recurrent state scans right-padding it cannot mask, so each distinct prompt
+length is its own bucket (the engine raises otherwise, as JAX's does).
+
 Scheduling is prefill-priority: each engine step prefills one bucket group
 when a slot is free and the queue is not empty, else runs one decode tick
 over the pool. Admission, eviction and greedy token choice are pure
@@ -155,6 +159,10 @@ class ServingEngine:
         self.cfg = cfg
         self.serve = serve if serve is not None else ServeConfig()
         _check_serve(self.serve)
+        if T.has_ssm(cfg) and not self.serve.exact_buckets:
+            raise ValueError(
+                "SSM state cannot mask right-padded prompts; use "
+                "ServeConfig(exact_buckets=True) for SSM/hybrid archs")
         self.base_run = run
         self.rules = rules
         self.params = params
@@ -447,6 +455,13 @@ class ServingEngine:
                 f"cache); got {mx}")
         n = len(prompts)
         bucket = self.serve.bucket_for(max(len(p) for p in prompts))
+        if T.has_ssm(self.cfg) and any(len(p) != bucket for p in prompts):
+            # the invariant the constructor's guard protects: the SSM state
+            # scans right-padding it cannot mask
+            raise ValueError(
+                "static SSM batches require uniform prompt lengths equal "
+                f"to the bucket ({bucket}); got "
+                f"{sorted({len(p) for p in prompts})}")
         prefill, decode, tmpl = self._static_step_fns(n, bucket)
         cache = T.zeros(tmpl, self.rules, self.device)
         tokens = np.zeros((n, bucket), np.int64)

@@ -294,3 +294,99 @@ def test_engine_on_card_continuous_matches_sequential(cuda):
     for c in done[:2]:
         solo = engine().run([trace[c.rid]])[0]
         assert solo.tokens == c.tokens
+
+
+def _scan_inputs(dev, b, s, d, n, *, bf16, seed=0, r=None):
+    """dt f32 = softplus(normal); x, b, c bf16 (the model's types) or f32;
+    a = -exp(normal); h0 f32 normal, stacked (R, B, D/R, N) when ``r``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def f(*sh):
+        return torch.randn(sh, generator=g, device=dev)
+    low = torch.bfloat16 if bf16 else torch.float32
+    h0 = f(b, d, n)
+    if r:
+        h0 = h0.unflatten(1, (r, d // r)).movedim(1, 0).contiguous()
+    return (torch.nn.functional.softplus(f(b, s, d)), f(b, s, n).to(low),
+            f(b, s, n).to(low), f(b, s, d).to(low), -torch.exp(f(d, n)), h0)
+
+
+@pytest.mark.parametrize("b,s,d,n,r,bf16", [
+    (1, 60, 8192, 16, 4, True),         # prefill group, stacked state
+    (8, 1, 8192, 16, 4, True),          # decode
+    (2, 129, 200, 16, None, True),      # ragged channel block, global state
+    (3, 70, 96, 8, 2, False),           # N = 8 (the reduced configs), f32
+    (1, 5, 64, 32, None, False),        # N = 32: one channel a warp
+])
+def test_mamba_scan_kernel(cuda, b, s, d, n, r, bf16):
+    from repro_torch.kernels import mamba_scan as MS
+    args = _scan_inputs(cuda, b, s, d, n, bf16=bf16, r=r)
+    before = MS.mamba_scan.launches
+    y, h = MS.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert MS.mamba_scan.launches == before + 1
+    assert y.dtype == h.dtype == torch.float32 and h.shape == args[5].shape
+    want_y, want_h = MS.mamba_scan_plain(*args)
+    assert want_h.shape == h.shape
+    assert _rel(y, want_y) <= 1e-3
+    assert _rel(h, want_h) <= 1e-3
+
+
+def test_mamba_scan_kernel_refuses_other_dtype_mixes(cuda):
+    """The kernel takes dt f32 with x, b, c all bf16 or all f32."""
+    from repro_torch.kernels import mamba_scan as MS
+    dt, bm, cm, x, a, h0 = _scan_inputs(cuda, 1, 4, 64, 16, bf16=True)
+    for args in ((dt.bfloat16(), bm, cm, x), (dt, bm.float(), cm, x),
+                 (dt, bm, cm, x.float())):
+        with pytest.raises(ValueError, match="all f32 or all bf16"):
+            MS.mamba_scan(*args, a, h0)
+
+
+def test_mamba_scan_kernel_bit_identical_over_chunks_and_chaining(cuda):
+    """Every chunk gives the same bits, and S + k steps in one launch equal
+    S steps then k single steps chained through h0 (written in place into
+    a slab of a larger state tensor, as the decode step does)."""
+    from repro_torch.kernels import mamba_scan as MS
+    s, k = 61, 4
+    dt, bm, cm, x, a, h0 = _scan_inputs(cuda, 2, s + k, 512, 16, bf16=True,
+                                        r=4, seed=1)
+    full = MS.mamba_scan(dt, bm, cm, x, a, h0)
+    for chunk in (1, 64, 256):
+        y, h = MS.mamba_scan(dt, bm, cm, x, a, h0, chunk=chunk)
+        assert torch.equal(y, full[0]) and torch.equal(h, full[1])
+    y, h = MS.mamba_scan(dt[:, :s], bm[:, :s], cm[:, :s], x[:, :s], a, h0)
+    ys = [y]
+    slab = torch.empty((k, *h0.shape), device=cuda)
+    for i in range(s, s + k):
+        y, h = MS.mamba_scan(dt[:, i:i + 1], bm[:, i:i + 1], cm[:, i:i + 1],
+                             x[:, i:i + 1], a, h, h_out=slab[i - s])
+        ys.append(y)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(ys, 1), full[0])
+    assert torch.equal(h, full[1])
+
+
+def test_ssm_engine_on_card_continuous_matches_sequential(cuda):
+    """The reduced falcon-mamba served on 4 virtual ranks: every selective
+    scan goes through the kernel (one launch a layer a step), and
+    continuous batching equals one request at a time."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.launch.serve import build_engine, synthetic_trace
+
+    serve = ServeConfig(max_batch=4, prefill_batch=2, bucket_edges=(16, 64),
+                        max_new_tokens=6, exact_buckets=True)
+
+    def engine():
+        return build_engine("falcon-mamba-7b", reduced=True,
+                            mesh_shape=(1, 4), serve=serve, device=cuda)
+
+    eng = engine()
+    trace = synthetic_trace(5, serve, eng.cfg.vocab_size, seed=0)
+    MS.mamba_scan.launches = 0
+    done = eng.run(trace)
+    assert len(done) == len(trace)
+    assert MS.mamba_scan.launches == eng.cfg.n_layers * eng.step_no
+    for c in done[:2]:
+        solo = engine().run([trace[c.rid]])[0]
+        assert solo.tokens == c.tokens

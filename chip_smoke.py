@@ -20,7 +20,11 @@ Phases (any failure exits non-zero before the last line is printed):
    all-gather and
    reduce-scatter at every FSDP shard shape of the (2, 4) training run and
    at 4 and 8 ranks, each for 1-4 chunks, whose results must be
-   bit-identical) and is held against its plain PyTorch version on the same
+   bit-identical; the p2p ring shift on k of the sequence-parallel path,
+   (4, 1, 4, 2048, 64) bf16, and at ragged shapes, bit-identical to the
+   roll; the flash hop at each of the 4 hops of that path at the ranks'
+   global offsets; flash at head_dim 120, padded to 128) and is held
+   against its plain PyTorch version on the same
    inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
    <= 1e-3 for f32 outputs of bf16 inputs; one shape of each is then
    timed with CUDA events (20 calls queued back to back behind a spin
@@ -82,11 +86,22 @@ Phases (any failure exits non-zero before the last line is printed):
    backward on the card (bf16, kernels) against the port's plain float32
    path on the CPU with the same weights and batch — loss within relative
    1e-2 and global gradient norm within relative 3e-2;
+5c. sequence-parallel training: ``forward_train(seq_sharded=True)`` and
+   its backward, 3 calls, tinyllama-1.1b at full width and depth on (1, 4)
+   with ring attention over 4 virtual ranks, batch 1 x seq 8192,
+   ``comm_backend="fused"``, remat; every loss finite, the p2p and flash
+   hop launches exactly what the code implies, the dense mix's loss within
+   1e-2, one layer's island under fused equal to bulk bit for bit
+   (details in ``train_sp``);
+5d. SP reference: the same model cut to 2 layers, seq 2048 on (1, 4), the
+   card against the port's plain f32 path on the CPU — loss within
+   relative 1e-2, gradient norm within 3e-2;
 6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
    the tinyllama serving run's count for the serving kernels, the MoE
    serving run's for the grouped GEMM, the SSM serving run's for the
-   selective scan, the training run's for the ring kernels;
-   ``launches_by_path`` has all four);
+   selective scan, the training run's for the ring AG/RS kernels, the
+   sequence-parallel run's for the p2p shift and the flash hop;
+   ``launches_by_path`` has all five);
 7. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository's ``src/`` beside it.
@@ -216,8 +231,11 @@ def check_kernels(dev) -> dict:
         return err, max_abs
 
     def record(name, shape, source, replaces, run, plain, library, tol,
-               nbytes, flops, peak=PEAK_BF16_FLOPS, plain_iters=20):
-        err, max_abs = compare(name, shape, run, plain, tol)
+               nbytes, flops, peak=PEAK_BF16_FLOPS, plain_iters=20,
+               checked=None):
+        """Compare (unless ``checked`` gives the (rel, max abs) errors of a
+        check already made), then time; the kernel's JSON entry."""
+        err, max_abs = checked or compare(name, shape, run, plain, tol)
         ms = time_ms(run)
         plain_ms = time_ms(plain, iters=plain_iters, reps=min(5, plain_iters))
         lib_ms = time_ms(library) if library is not None else None
@@ -416,6 +434,112 @@ def check_kernels(dev) -> dict:
             partial(torch.matmul, x, w), TOL_BF16_OUT,
             (m * k + k * n + m * n) * 2, 2.0 * m * n * k)
     entries.update(check_mamba_scan(dev, record, compare))
+    entries.update(check_ring_kernels(dev, record, compare, randn))
+    return entries
+
+
+def check_ring_kernels(dev, record, compare, randn) -> dict:
+    """Phase 3, the sequence-parallel path's kernels at the shapes of the
+    sp-train phase (tinyllama-1.1b, 4 ranks x 2048 tokens, batch 1):
+
+    * the p2p ring shift on k (or v) stacked over the ranks, (4, 1, 4,
+      2048, 64) bf16, and at ragged f32 and byte shapes: bit-identical to
+      ``ring_shift_plain`` (a copy), every rank's arrival flag counting the
+      same number of tiles; timed beside ``torch.roll``, its bound 2 x
+      bytes over 3.35 TB/s;
+    * the flash hop for each of the 4 hops, q (4, 32, 2048, 64) and kv (4,
+      4, 2048, 64) (rank folded into the batch), causal at the ranks'
+      global offsets: o and l within relative 1e-2 of the plain hop (bf16
+      products, P rounded to bf16), m within 1e-3 on the rows with a
+      visible key and exactly NEG_INF on the others. Each hop is timed
+      (hop 1 goes into the kernels line), its bound from the work the
+      hop's mask leaves (the ranks whose block comes from a later rank
+      are skipped: no q/k/v read, zeros written), beside SDPA over the
+      same visible work — causal over all ranks at hop 0 (every block is
+      its rank's own), non-causal over the ranks whose block is full
+      (src < d) at hops 1-3;
+    * flash at head_dim 120 (h2o-danube-3-4b; padded to 128) against its
+      plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import pk_comm as PK
+
+    entries = {}
+    r, b, hq, hkv, s, hd = 4, 1, 32, 4, 2048, 64
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, dtype in (((r, b, hkv, s, hd), torch.bfloat16),
+                         ((r, 3, 5, 7), torch.float32),
+                         ((r, 1001), torch.uint8)):
+        x = (torch.randn(shape, device=dev) * 50).to(dtype)
+        got = PK.p2p_ring_shift(x)
+        torch.cuda.synchronize()
+        flags = PK.p2p_flags(x.device, stream)[:r].tolist()
+        if not torch.equal(got, PK.ring_shift_plain(x)) \
+                or len(set(flags)) != 1 or flags[0] < 1:
+            raise AssertionError(f"p2p_ring_shift {shape} {dtype}: not the "
+                                 f"plain roll, or flags {flags}")
+        print(f"[kernel] p2p_ring_shift {shape} {dtype}: bit-identical to "
+              f"ring_shift_plain, {flags[0]} tiles counted into every "
+              "rank", flush=True)
+    kv = randn(r, b, hkv, s, hd)
+    nbytes = 2 * kv.numel() * kv.element_size()
+    entries["p2p_ring_shift"] = record(
+        "p2p_ring_shift", f"x{tuple(kv.shape)} bf16",
+        "src/repro_torch/kernels/csrc/pk_comm.cu",
+        "src/repro/kernels/pk_comm.py:284", partial(PK.p2p_ring_shift, kv),
+        partial(PK.ring_shift_plain, kv), partial(torch.roll, kv, 1, 0),
+        0.0, nbytes, 0.0)
+
+    q = randn(r * b, hq, s, hd)
+    k_, v = randn(r * b, hkv, s, hd), randn(r * b, hkv, s, hd)
+    kr = k_.repeat_interleave(hq // hkv, 1)
+    vr = v.repeat_interleave(hq // hkv, 1)
+    shape = (f"q({r}*{b},{hq},{s},{hd}) kv({r}*{b},{hkv},{s},{hd}) causal "
+             "global offsets")
+    for hop in range(r):
+        run = partial(FA.flash_attention_hop, q, k_, v, ranks=r, hop=hop)
+        got, want = run(), FA.flash_attention_hop_plain(q, k_, v, ranks=r,
+                                                        hop=hop)
+        torch.cuda.synchronize()
+        dead = want[2] == 0
+        errs = (rel_err(got[0], want[0]), rel_err(got[2], want[2]),
+                rel_err(got[1][~dead], want[1][~dead]))
+        print(f"[kernel] flash_attention_hop hop {hop} {shape}: rel_err o "
+              f"{errs[0]:.3e} l {errs[1]:.3e} (tol 1e-2), m {errs[2]:.3e} "
+              f"(tol 1e-3); {int(dead.sum())} rows see no key", flush=True)
+        if not (errs[0] <= TOL_BF16_OUT and errs[1] <= TOL_BF16_OUT
+                and errs[2] <= TOL_F32_OUT
+                and torch.equal(got[1][dead], want[1][dead])
+                and not bool(got[2][dead].any() or got[0][dead].any())):
+            raise AssertionError(f"flash_attention_hop hop {hop} disagrees "
+                                 f"with its plain version: {errs}")
+        live = r if hop == 0 else r - hop      # ranks with a visible block
+        pairs = live * s * (s + 1) // 2 if hop == 0 else live * s * s
+        lo = 0 if hop == 0 else hop
+        library = partial(F.scaled_dot_product_attention, q[lo:], kr[lo:],
+                          vr[lo:], is_causal=hop == 0)
+        entries[f"flash_attention_hop@{hop}"] = record(
+            "flash_attention_hop", f"hop {hop}, {shape}",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:73", run,
+            partial(FA.flash_attention_hop_plain, q, k_, v, ranks=r,
+                    hop=hop), library, TOL_BF16_OUT,
+            live * b * (hq + 2 * hkv) * s * hd * 2
+            + r * b * hq * s * (hd + 2) * 4,
+            4.0 * b * hq * hd * pairs, plain_iters=2,
+            checked=(errs[0], float((got[0] - want[0]).abs().max())))
+        del got, want
+    entries["flash_attention_hop"] = entries.pop("flash_attention_hop@1")
+
+    # C6: h2o-danube-3-4b's head_dim 120 (32 q heads, 8 KV heads), padded
+    q, k_, v = (randn(2, 512, h, 120).transpose(1, 2) for h in (32, 8, 8))
+    compare("flash_attention", "q(2,32,512,120) kv(2,8,512,120) causal "
+            "window 4096 strided (head_dim padded to 128)",
+            partial(FA.flash_attention, q, k_, v, window=4096),
+            partial(FA.flash_attention_plain, q, k_, v, window=4096),
+            TOL_BF16_OUT)
     return entries
 
 
@@ -553,7 +677,7 @@ def check_backward(dev) -> None:
 
 KERNEL_COUNTERS = ("matmul", "flash_attention", "pk_matmul_ar",
                    "pk_all_gather", "pk_reduce_scatter", "grouped_matmul",
-                   "mamba_scan")
+                   "mamba_scan", "p2p_ring_shift", "flash_attention_hop")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
 
@@ -571,7 +695,9 @@ def _counters():
             "pk_all_gather": PK.ring_all_gather,
             "pk_reduce_scatter": PK.ring_reduce_scatter,
             "grouped_matmul": GM.grouped_matmul,
-            "mamba_scan": MS.mamba_scan}
+            "mamba_scan": MS.mamba_scan,
+            "p2p_ring_shift": PK.p2p_ring_shift,
+            "flash_attention_hop": FA.flash_attention_hop}
 
 
 def serve(dev) -> dict:
@@ -1131,7 +1257,8 @@ def train(dev, steps: int = 4) -> dict:
     ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     counters = {k: fn for k, fn in _counters().items()
-                if k not in ("grouped_matmul", "mamba_scan")}
+                if k not in ("grouped_matmul", "mamba_scan",
+                             "p2p_ring_shift", "flash_attention_hop")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
@@ -1240,6 +1367,199 @@ def check_train_reference(dev) -> None:
                              f"plain path: {errs}")
 
 
+def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
+    """Phase 5c: the sequence-parallel training path — tinyllama-1.1b at
+    full width and depth (22 layers, d 2048, 32 q heads and 4 KV heads of
+    64, ff 5632, vocab 32000) on (1, 4), batch 1 x seq 8192 (2048 tokens a
+    virtual rank), ``comm_backend="fused"``, FSDP off, remat on (the
+    RunConfig default: a layer's forward runs again in the backward),
+    random weights from seed 0, tokens from a numpy seed. ``calls`` times
+    ``forward_train(seq_sharded=True)`` and its backward, with launch
+    counts around them: per call and layer the p2p kernel shifts k and v
+    R - 1 times and the flash hop runs R times in each of the 2 forward
+    passes. Then, on the same parameters and batch, the dense mix's loss
+    (a forward only) within 1e-2 of the ring's, and one layer's SP island
+    under fused equal to it under bulk, bit for bit (the shift is a
+    copy)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("tinyllama-1.1b")
+    run = RunConfig(fsdp=False, comm_backend="fused")
+    rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), dev), run)
+    r = rules.mesh.shape["model"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(T.param_template(cfg, run, rules), gen,
+                           cfg.d_model, rules=rules, device=dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (1, seq))).to(dev),
+             "targets": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (1, seq))).to(dev),
+             "weights": torch.ones((1, seq), device=dev)}
+    leaves = [p for _, p in T.leaves(params)]
+    for p in leaves:
+        p.requires_grad_(True)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "p2p_ring_shift", "flash_attention_hop")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    losses, walls = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        loss, _ = T.forward_train(params, batch, cfg, run, rules,
+                                  seq_sharded=True)
+        grads = torch.autograd.grad(loss, leaves)
+        losses.append(float(loss.detach()))  # the device->host read
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads
+    med = statistics.median(walls)
+    passes = 2 if run.remat else 1
+    want = {"p2p_ring_shift": 2 * (r - 1) * cfg.n_layers * passes * calls,
+            "flash_attention_hop": r * cfg.n_layers * passes * calls}
+    print(f"[train-sp] tinyllama-1.1b full width and depth, mesh (1, 4), "
+          f"seq_sharded ring attention, comm_backend=fused, batch 1 x seq "
+          f"{seq} ({seq // r} tokens a rank), remat: losses "
+          f"{[round(x, 5) for x in losses]}; wall times (host clock, each "
+          f"call ends in the loss's device->host read) "
+          f"{[round(t, 4) for t in walls]} s, median {med:.4f} s = "
+          f"{seq / med:.1f} tokens/s; max_memory_allocated {peak} B "
+          f"({at_start} B allocated at the start)", flush=True)
+    print(f"[train-sp] launches over {calls} calls {launches}; per call "
+          f"{ {k: v / calls for k, v in launches.items()} }; expected p2p "
+          f"2·(R-1)·layers·passes = {want['p2p_ring_shift'] // calls}, hop "
+          f"R·layers·passes = {want['flash_attention_hop'] // calls} a call "
+          f"(passes = {passes}: remat reruns each layer's forward in the "
+          "backward)", flush=True)
+    if not (all(map(math.isfinite, losses)) and finite):
+        raise AssertionError(f"sp-train losses or gradients not finite: "
+                             f"{losses}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"sp-train launched {name} "
+                                 f"{launches[name]} times, not {n}")
+    for name in ("matmul", "pk_matmul_ar"):
+        if launches[name] <= 0:
+            raise AssertionError(f"sp-train launched no {name} kernel")
+    for p in leaves:
+        p.requires_grad_(False)
+    with torch.no_grad():
+        dense = float(T.forward_train(params, batch, cfg, run, rules)[0])
+    print(f"[train-sp] dense mix (seq_sharded=False, forward only) loss "
+          f"{dense:.5f} vs ring {losses[0]:.5f}: |diff| "
+          f"{abs(dense - losses[0]):.3e} (tol 1e-2)", flush=True)
+    if not abs(dense - losses[0]) <= 1e-2:
+        raise AssertionError("the ring attention loss disagrees with the "
+                             "dense mix's")
+
+    # one layer's island at the path's shape, fused against bulk
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = ((torch.randn((1, h, seq, cfg.hd), generator=g, device=dev)
+                ).to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads,
+                                               cfg.n_kv_heads))
+    outs = {}
+    with torch.no_grad():
+        for be in ("fused", "bulk"):
+            isl = L.sp_attention_island(
+                cfg, dataclasses.replace(run, comm_backend=be), rules, 1, seq)
+            outs[be] = isl(q=q, k=k, v=v)
+    torch.cuda.synchronize()
+    same = torch.equal(outs["fused"], outs["bulk"])
+    print(f"[train-sp] one layer's SP island q(1,{cfg.n_heads},{seq},"
+          f"{cfg.hd}): fused equals bulk bit for bit: {same}", flush=True)
+    if not same:
+        raise AssertionError("the fused ring shift changed the island's "
+                             "output")
+    del params, leaves, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_sp_reference(dev, seq: int = 2048) -> None:
+    """Phase 5d: tinyllama-1.1b at full width cut to 2 layers on (1, 4),
+    ``forward_train(seq_sharded=True)`` and its backward on 1 x 2048 tokens:
+    the card (bf16, the p2p kernel and flash hops) against the port's plain
+    float32 path on the CPU (the hops' and the shift's plain versions) with
+    the same weights (bf16 values widened) and batch — loss within relative
+    1e-2 and global gradient norm within relative 3e-2, as phase 5b."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.optim.adamw import AdamW
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2)
+    run = RunConfig(fsdp=False, comm_backend="fused")
+
+    def loss_and_norm(cfg, params, batch, device):
+        rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), device),
+                              run)
+        paths = list(T.leaves(params))
+        for _, p in paths:
+            p.requires_grad_(True)
+        loss, _ = T.forward_train(params, batch, cfg, run, rules,
+                                  seq_sharded=True)
+        gs = torch.autograd.grad(loss, [p for _, p in paths])
+        tree: dict = {}
+        for (path, _), g in zip(paths, gs):
+            T.set_path(tree, path, g)
+        return float(loss.detach()), float(AdamW.global_norm(tree))
+
+    rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), dev), run)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = T.init_params(T.param_template(cfg, run, rules), gen,
+                           cfg.d_model, rules=rules, device=dev)
+    rng = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq)))
+             for k in ("tokens", "targets")}
+    batch["weights"] = torch.ones((1, seq))
+    cpu_params: dict = {}
+    for path, t in T.leaves(params):
+        T.set_path(cpu_params, path, t.detach().float().cpu())
+    got = loss_and_norm(cfg, params, {k: v.to(dev) for k, v in
+                                      batch.items()}, dev)
+    t0 = time.perf_counter()
+    want = loss_and_norm(dataclasses.replace(cfg, dtype="float32"),
+                         cpu_params, batch, "cpu")
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"[sp-reference] 2-layer full-width (1, 4) seq_sharded step on "
+          f"1 x {seq} tokens, card (bf16 kernels) vs cpu (f32 plain, "
+          f"{time.perf_counter() - t0:.1f} s): loss {got[0]:.5f} vs "
+          f"{want[0]:.5f} (rel {errs[0]:.3e}, tol 1e-2), grad norm "
+          f"{got[1]:.5f} vs {want[1]:.5f} (rel {errs[1]:.3e}, tol 3e-2)",
+          flush=True)
+    if not (errs[0] <= 1e-2 and errs[1] <= 3e-2):
+        raise AssertionError(f"card SP training step disagrees with the "
+                             f"f32 plain path: {errs}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1264,20 +1584,27 @@ def main() -> int:
     ssm_launches = serve_ssm(dev)
     train_launches = train(dev)
     check_train_reference(dev)
+    sp_launches = train_sp(dev)
+    check_sp_reference(dev)
     main_entries = []
     for key in KERNEL_COUNTERS:
         by_path = {"serve": serve_launches.get(key, 0),
                    "serve_moe": moe_launches.get(key, 0),
                    "serve_ssm": ssm_launches.get(key, 0),
-                   "train": train_launches.get(key, 0)}
+                   "train": train_launches.get(key, 0),
+                   "train_sp": sp_launches.get(key, 0)}
         main_path = {"grouped_matmul": "serve_moe",
-                     "mamba_scan": "serve_ssm"}.get(
+                     "mamba_scan": "serve_ssm",
+                     "p2p_ring_shift": "train_sp",
+                     "flash_attention_hop": "train_sp"}.get(
             key, "serve" if key in serve_launches else "train")
         main_entries.append(dict(entries[key], launches=by_path[main_path],
                                  launches_by_path=by_path))
     for key in ("matmul@mlp", "pk_matmul_ar@decode", "matmul@moonshot",
                 "flash_attention@moonshot", "grouped_matmul@prefill",
-                "matmul@falcon", "mamba_scan@prefill"):
+                "matmul@falcon", "mamba_scan@prefill",
+                "flash_attention_hop@0", "flash_attention_hop@2",
+                "flash_attention_hop@3"):
         print(f"[kernel-extra] {json.dumps(entries[key])}", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": main_entries}), flush=True)

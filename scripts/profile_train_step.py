@@ -2,6 +2,7 @@
 """Where a training step of the PyTorch/CUDA port spends its time, on one GPU.
 
     python3 scripts/profile_train_step.py [--out FILE] [--steps N]
+                                          [--seq-sharded]
 
 Builds the training run of ``chip_smoke.py`` — tinyllama-1.1b at full width
 and depth on a (2, 4) virtual mesh (data x model) with FSDP, every
@@ -9,8 +10,12 @@ collective on the hand-written kernels (``comm_backend="fused"``), batch 8
 x seq 512 in 2 microbatches, random weights from seed 0, AdamW — runs two
 steps to warm up, then ``--steps`` more under ``torch.profiler`` with each
 step in its own ``record_function`` range and the optimizer update in a
-range of its own. It prints one JSON object with the median over the
-profiled steps of:
+range of its own. With ``--seq-sharded`` it profiles chip_smoke's
+sequence-parallel run instead: ``forward_train(seq_sharded=True)`` and its
+backward (no optimizer) on (1, 4), batch 1 x seq 8192, ring attention over
+the fused p2p shift, the backward in a range of its own (reported as
+``backward_*`` in place of ``optimizer_*``). It prints one JSON object
+with the median over the profiled steps of:
 
 - ``wall_ms``: the step's host wall time (the profiler's CPU range), beside
   ``wall_ms_unprofiled`` (the warm-up steps, without the profiler);
@@ -48,6 +53,9 @@ def main() -> int:
                     help="profiled steps after the two warm-up steps")
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced config (a rehearsal of the script)")
+    ap.add_argument("--seq-sharded", action="store_true",
+                    help="profile the sequence-parallel (ring attention) "
+                         "forward and backward of chip_smoke's sp-train")
     ap.add_argument("--device", default=None,
                     help="default cuda; cpu rehearses the script and exits "
                          "1, with no device activity to read")
@@ -76,16 +84,40 @@ def main() -> int:
     cfg = get_config("tinyllama-1.1b")
     if args.reduced:
         cfg = cfg.reduced()
-    batch, seq = 8, 512
-    run = RunConfig(fsdp=True, microbatches=2, comm_backend="fused")
-    rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), dev), run)
+    if args.seq_sharded:
+        batch, seq, mesh, sub = 1, 64 if args.reduced else 8192, (1, 4), \
+            "backward"
+        run = RunConfig(fsdp=False, comm_backend="fused")
+        config = (f"{cfg.name} mesh (1, 4) seq_sharded ring attention, "
+                  f"fused, batch {batch} x seq {seq}, remat, no optimizer")
+    else:
+        batch, seq, mesh, sub = 8, 512, (2, 4), "optimizer"
+        run = RunConfig(fsdp=True, microbatches=2, comm_backend="fused")
+        config = (f"{cfg.name} mesh (2, 4) FSDP fused, batch {batch} x seq "
+                  f"{seq}, 2 microbatches")
+    rules = ShardingRules(VirtualMesh(mesh, ("data", "model"), dev), run)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = T.init_params(T.param_template(cfg, run, rules), gen,
                            cfg.d_model, rules=rules, device=dev)
-    opt = RangedAdamW(lr=warmup_cosine(3e-3, 10, 100), weight_decay=0.01)
-    state = TrainState(params, opt.init(params))
-    step = make_train_step(cfg, run, rules, opt)
     data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch), device=dev)
+    if args.seq_sharded:
+        leaves = [p for _, p in T.leaves(params)]
+        for p in leaves:
+            p.requires_grad_(True)
+
+        def step(state, bt):
+            loss, _ = T.forward_train(params, bt, cfg, run, rules,
+                                      seq_sharded=True)
+            with record_function("backward"):
+                torch.autograd.grad(loss, leaves)
+            return state, {"loss": loss.detach()}
+
+        state = None
+    else:
+        opt = RangedAdamW(lr=warmup_cosine(3e-3, 10, 100),
+                          weight_decay=0.01)
+        state = TrainState(params, opt.init(params))
+        step = make_train_step(cfg, run, rules, opt)
 
     unprofiled = []
     for i in range(2):
@@ -108,9 +140,9 @@ def main() -> int:
     ranges = {e.name: (e.time_range.start, e.time_range.end) for e in cpu
               if e.name.startswith("train_step_")}
     opt_ranges = sorted((e.time_range.start, e.time_range.end) for e in cpu
-                        if e.name == "optimizer")
+                        if e.name == sub)
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.name.startswith(("train_step_", "optimizer"))]
+              and not e.name.startswith(("train_step_", sub))]
     if not device:
         print("profile_train_step: the profiler recorded no device "
               "activity", file=sys.stderr)
@@ -154,16 +186,15 @@ def main() -> int:
     line = {
         "device": torch.cuda.get_device_name(0) if dev.type == "cuda"
         else str(dev),
-        "config": f"{cfg.name} mesh (2, 4) FSDP fused, batch {batch} x seq "
-                  f"{seq}, 2 microbatches",
+        "config": config,
         "steps": len(steps),
         "wall_ms": med("wall_us"),
         "wall_ms_unprofiled": [t * 1e3 for t in unprofiled],
         "device_busy_ms": med("busy_us"),
         "device_idle_share": 1.0 - med("busy_us") / med("wall_us"),
         "device_ops": statistics.median(s["ops"] for s in steps),
-        "optimizer_wall_ms": med("opt_wall_us"),
-        "optimizer_device_ms": med("opt_busy_us"),
+        f"{sub}_wall_ms": med("opt_wall_us"),
+        f"{sub}_device_ms": med("opt_busy_us"),
         "device_ms_per_step_by_group": {
             g: sum(s["groups"].get(g, 0.0) for s in steps) / len(steps)
             / 1e3 for g in groups},

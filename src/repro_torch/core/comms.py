@@ -16,6 +16,7 @@ Ported in this slice (the serving path's ops)::
     ``pmax(x)``                     bulk
     ``all_gather(x, axis=)``        bulk | fused
     ``reduce_scatter(x, axis=)``    bulk | fused
+    ``ring_shift(tree)``            bulk | fused
     ==============================  =======================================
 
 ``bulk``  — GEMM in f32, then the reduction over ranks in rank order.
@@ -25,11 +26,15 @@ Ported in this slice (the serving path's ops)::
 ``fused`` — ``kernels/collective_matmul.py``: the hand-written GEMM×AR
             kernel on a CUDA device, its plain PyTorch version on the CPU;
             for ``all_gather`` / ``reduce_scatter`` the ring kernels of
-            ``kernels/pk_comm.py``.
+            ``kernels/pk_comm.py``; for ``ring_shift`` its p2p kernel.
 
 ``all_gather`` and ``reduce_scatter`` are autograd Functions: the
 backward of a gather is the reduce-scatter of its cotangent over the same
 axis and backend (FSDP's gradient shard-reduce), and the other way round.
+``ring_shift`` moves every leaf of a pytree one hop around the ring (dim
+0 rolled by one); bulk is the roll and differentiates as one, fused
+launches the p2p kernel per leaf in the forward and takes the transpose of
+the hop (a roll the other way, in plain torch) in the backward.
 
 The other ops of ``OP_BACKENDS`` raise ``NotImplementedError`` naming the
 ROADMAP item that ports them. Backend precedence is the JAX package's:
@@ -80,7 +85,6 @@ _NOT_PORTED = {
     "all_gather_matmul": "ROADMAP A3 (all_gather_matmul, kernel B5)",
     "matmul_reduce_scatter": "ROADMAP A3 (matmul_reduce_scatter, kernel B6)",
     "all_to_all": "ROADMAP A3 (chunked all_to_all, for MoE A9)",
-    "ring_shift": "ROADMAP A3 (ring_shift, kernel B8)",
 }
 
 
@@ -294,8 +298,23 @@ class CommContext:
     def all_to_all(self, x, **kw):
         self._not_ported("all_to_all")
 
-    def ring_shift(self, x, **kw):
-        self._not_ported("ring_shift")
+    def ring_shift(self, x, *, reverse: bool = False,
+                   backend: str | None = None):
+        """One-hop ring rotation of a pytree of stacked ``(R, ...)``
+        tensors (KV blocks in ring attention, SSM boundary states):
+        rank d's leaf moves to rank d+1 (``reverse``: to d-1). ``auto``
+        resolves to bulk, as in JAX; fused sends right only."""
+        be = self._resolve("ring_shift", backend, lambda: "bulk")
+        if be == "fused" and reverse:
+            raise ValueError("fused ring_shift sends right only")
+
+        def shift(t):
+            self._check_stacked(t)
+            if be == "bulk":
+                return torch.roll(t, -1 if reverse else 1, 0)
+            return _RingShift.apply(t)
+
+        return _tree_map(shift, x)
 
     # -- data-movement ops -------------------------------------------------
 
@@ -429,6 +448,31 @@ def reduce_scatter_stacked(x: torch.Tensor, axis: int,
     front = x.movedim(1 + axis, 1)                 # (R, L, *rest)
     parts = front.unflatten(1, (r, front.shape[1] // r))
     return pk_comm.ring_reduce_scatter(parts).movedim(1, 1 + axis)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a pytree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class _RingShift(torch.autograd.Function):
+    """The fused hop: the p2p kernel forward. JAX's fused ring_shift has no
+    gradient (a Pallas call with DMA semaphores has no VJP), so the
+    backward is the bulk transpose of JAX's ``ppermute``: the cotangent
+    rolled one hop left, in plain torch; no kernel runs there."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from repro_torch.kernels import pk_comm
+        return pk_comm.p2p_ring_shift(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.roll(g, -1, 0)
 
 
 class _AllGather(torch.autograd.Function):

@@ -58,6 +58,13 @@ SIGNATURES = {
     # dtype (0 f32, 1 bf16), stream
     "pk_reduce_scatter": [ctypes.POINTER(ctypes.c_uint64)] * 3
                          + [_P, _I, _L, _L, _I, _P],
+    # in ptrs, out ptrs, flags, R, blk bytes, stream
+    "pk_p2p_ring_shift": [ctypes.POINTER(ctypes.c_uint64)] * 2
+                         + [_P, _I, _L, _P],
+    # q, k, v, o, m, l, B, Hq, Hkv, Sq, Skv, D, q/k/v strides (b, h, s),
+    # n_ranks, hop, causal, window, scale, stream
+    "pk_flash_attention_hop_bf16": [_P] * 6 + [_I] * 6 + [_L] * 9
+                                   + [_I] * 4 + [ctypes.c_float, _P],
     # dt, x, b, c, a, h0, y, h_out, B, S, D, N, chunk, x/b/c bf16 flag,
     # dt, x, b, c strides (batch, step), dl, h0 strides (rank, batch),
     # h_out strides (rank, batch), stream

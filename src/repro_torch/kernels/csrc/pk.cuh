@@ -20,13 +20,10 @@ struct PtrTable {
   unsigned long long p[PK_MAX_RANKS];
 };
 
-// store_async: one 16-byte store into a (possibly remote) slot. Ordering
-// against the flag is the caller's fence + signal.
-__device__ __forceinline__ void store_async(float4* dst, float4 v) {
-  *dst = v;
-}
-
-__device__ __forceinline__ void store_async(float2* dst, float2 v) {
+// store_async: one vector store (up to 16 bytes) into a (possibly remote)
+// slot. Ordering against the flag is the caller's fence + signal.
+template <typename U>
+__device__ __forceinline__ void store_async(U* dst, U v) {
   *dst = v;
 }
 

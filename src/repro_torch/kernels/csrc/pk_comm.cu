@@ -1,6 +1,7 @@
-// Ring all-gather and ring reduce-scatter over the ranks of a PGL. Port of
-// repro/kernels/pk_comm.py::ring_all_gather and ::ring_reduce_scatter; the
-// design note is in kernels/pk_comm.py.
+// Ring all-gather, ring reduce-scatter and the one-hop p2p ring shift over
+// the ranks of a PGL. Port of repro/kernels/pk_comm.py::ring_all_gather,
+// ::ring_reduce_scatter and ::p2p_ring_shift; the design note is in
+// kernels/pk_comm.py.
 //
 // A rank's block is blk_elems elements (its rows, flattened), split into
 // n_chunks row chunks of chunk_elems each; a chunk is cut into tiles of
@@ -14,6 +15,18 @@
 //                 itself in on the tile's flag; the last of the R arrivals
 //                 acquires, sums the R partials in rank order in f32 and
 //                 stores the reduced tile into out[o]. No block waits either.
+// p2p ring shift: grid (tile, source s): the block stores its tile of in[s]
+//                 into out[(s + 1) % R] (store_async), fences and counts
+//                 itself in on the destination's flag (signal, release).
+//                 The TPU kernel opens with a neighbour barrier so that no
+//                 chip writes into a buffer its neighbour still reads; on
+//                 one card, inside one launch, a block that spin-waited on
+//                 another rank's flag could wait on a block not yet resident
+//                 and deadlock. The hop needs no wait: its output is a fresh
+//                 buffer and the stream orders it after the producer of the
+//                 input. So no block waits; the flags count each rank's
+//                 arrived tiles (R ints, zeroed before the launch), which a
+//                 later consumer or a test can read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -162,6 +175,33 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// -- p2p ring shift: one hop to the right, store-and-count, no wait --
+
+template <typename U>
+__global__ void __launch_bounds__(THREADS)
+    pk_p2p_kernel(pk::PtrTable src, pk::PtrTable dst, int* __restrict__ flags,
+                  int R, long units) {
+  const int s = blockIdx.y, d = (s + 1) % R;
+  const long begin = (long)blockIdx.x * TILE_VECS;
+  const long end = lmin(begin + TILE_VECS, units);
+  const U* in = reinterpret_cast<const U*>(src.p[s]);
+  U* out = reinterpret_cast<U*>(dst.p[d]);
+  for (long i = begin + threadIdx.x; i < end; i += THREADS)
+    pk::store_async(out + i, __ldg(in + i));
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) pk::signal(flags + d, 1);
+}
+
+template <typename U>
+int launch_p2p(pk::PtrTable s, pk::PtrTable d, int* flags, int R,
+               long blk_bytes, cudaStream_t st) {
+  const long units = blk_bytes / (long)sizeof(U);
+  const int tiles = (int)((units + TILE_VECS - 1) / TILE_VECS);
+  pk_p2p_kernel<U><<<dim3(tiles, R), THREADS, 0, st>>>(s, d, flags, R, units);
+  return (int)cudaGetLastError();
+}
+
 pk::PtrTable table(const unsigned long long* ptrs, int R) {
   pk::PtrTable t{};
   for (int i = 0; i < R; ++i) t.p[i] = ptrs[i];
@@ -255,4 +295,31 @@ extern "C" int pk_reduce_scatter(const unsigned long long* in_ptrs,
     return launch_rs<__nv_bfloat16>(in_ptrs, out_ptrs, landing_ptrs, flags,
                                     R, blk_elems, chunk_elems, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// in/out: host tables of R rank addresses of blk_bytes each; flags: R ints,
+// zeroed here on the stream, flags[d] counts the tiles that arrived in
+// rank d's output. Moves 16-, 8-, 4-, 2- or 1-byte words: the widest that
+// divides blk_bytes and every address.
+extern "C" int pk_p2p_ring_shift(const unsigned long long* in_ptrs,
+                                 const unsigned long long* out_ptrs,
+                                 void* flags, int R, long blk_bytes,
+                                 void* stream) {
+  if (R < 1 || R > PK_MAX_RANKS || blk_bytes < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * R, st);
+  if (err != cudaSuccess) return (int)err;
+  if (blk_bytes == 0) return 0;
+  unsigned long long bits = (unsigned long long)blk_bytes;
+  for (int i = 0; i < R; ++i) bits |= in_ptrs[i] | out_ptrs[i];
+  pk::PtrTable s = table(in_ptrs, R), d = table(out_ptrs, R);
+  int* f = (int*)flags;
+  if (bits % 16 == 0) return launch_p2p<uint4>(s, d, f, R, blk_bytes, st);
+  if (bits % 8 == 0) return launch_p2p<uint2>(s, d, f, R, blk_bytes, st);
+  if (bits % 4 == 0)
+    return launch_p2p<unsigned int>(s, d, f, R, blk_bytes, st);
+  if (bits % 2 == 0)
+    return launch_p2p<unsigned short>(s, d, f, R, blk_bytes, st);
+  return launch_p2p<unsigned char>(s, d, f, R, blk_bytes, st);
 }

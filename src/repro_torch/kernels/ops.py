@@ -6,11 +6,15 @@ place, so nothing is left to wrap and these are plain re-exports."""
 from repro_torch.kernels.collective_matmul import (  # noqa: F401
     matmul_ar_fused as pk_matmul_ar,
 )
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention,
+    flash_attention_hop,
+)
 from repro_torch.kernels.grouped_matmul import grouped_matmul  # noqa: F401
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: F401
 from repro_torch.kernels.matmul import matmul  # noqa: F401
 from repro_torch.kernels.pk_comm import (  # noqa: F401
+    p2p_ring_shift as pk_ring_shift,
     ring_all_gather as pk_all_gather,
     ring_reduce_scatter as pk_reduce_scatter,
 )

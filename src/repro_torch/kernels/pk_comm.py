@@ -1,7 +1,9 @@
-"""Ring all-gather and ring reduce-scatter over the ranks of a PGL.
+"""Ring all-gather, ring reduce-scatter and the p2p ring shift over the
+ranks of a PGL.
 
 Replace ``repro/kernels/pk_comm.py::ring_all_gather`` (the Pallas
-``_ag_kernel``) and ``::ring_reduce_scatter`` (``_rs_kernel``). On the TPU
+``_ag_kernel``), ``::ring_reduce_scatter`` (``_rs_kernel``) and
+``::p2p_ring_shift`` (``_p2p_kernel``). On the TPU
 both walk a ring of R-1 hops on one core per chip: the all-gather forwards
 each shard to the right neighbour's slot, one DMA semaphore per (hop,
 chunk); the reduce-scatter sends a running accumulator to the left
@@ -29,6 +31,20 @@ spin-waits on one not yet resident deadlocks, so neither kernel waits:
   landing slots and flags are scratch cached per (device, stream, R, shard
   size, dtype), so launches that share them run one after another.
 
+* p2p ring shift (one hop of ring attention's KV rotation): the TPU
+  kernel waits on a neighbour barrier, then DMAs its whole buffer into the
+  right neighbour's output. Here grid (tile, source rank s): each block
+  stores one tile of rank s's buffer into rank (s + 1) % R's output slot
+  (``pk::store_async``), fences, and counts itself in on the destination's
+  flag (``pk::signal``, release). No block waits — the barrier guards a
+  buffer still being read, and a fresh output needs no such guard — so the
+  launch cannot deadlock on one card; the flags (one int per rank, zeroed
+  before each launch) end at the tile count of each rank's buffer. Any
+  shape and dtype: it moves the widest words (16 down to 1 byte) that
+  divide the buffer's size and every slab's address. What bounds it:
+  bytes, R·blk read and R·blk written; at ring attention's sizes (a few
+  MB) the launch latency dominates.
+
 ``n_chunks`` splits a rank's rows into chunks (``fit_chunks``'
 largest-divisor fallback, as in JAX); tiles never cross a chunk. What bounds
 both on the card: bytes — the all-gather reads R·blk and writes R²·blk, the
@@ -40,7 +56,8 @@ node feeds the same kernels peer pointers.
 Stacked layout (``core/pgl.py``): ``ring_all_gather`` takes (R, blk, ...)
 — rank r's shard at ``x[r]`` — and returns (R, R, blk, ...);
 ``ring_reduce_scatter`` takes (R, R, blk, ...) — rank s's partial for
-owner o at ``x[s, o]`` — and returns (R, blk, ...). On CPU tensors the
+owner o at ``x[s, o]`` — and returns (R, blk, ...); ``p2p_ring_shift``
+takes (R, ...) and returns ``out[(r + 1) % R] = x[r]``. On CPU tensors the
 wrappers run the plain versions; on CUDA tensors they launch the kernels
 or raise.
 """
@@ -62,6 +79,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # reduce-scatter landing slots + arrival flags, by (device, stream, R, blk,
 # dtype); the flags grow to the most tiles a launch has asked for
 _SCRATCH: dict[tuple, list[torch.Tensor]] = {}
+# p2p arrival flags (MAX_RANKS ints) by (device, stream)
+_P2P_FLAGS: dict[tuple, torch.Tensor] = {}
 
 
 def all_gather_plain(x: torch.Tensor) -> torch.Tensor:
@@ -76,6 +95,11 @@ def reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
     for s in range(1, x.shape[0]):
         acc = acc + x[s].float()
     return acc.to(x.dtype)
+
+
+def ring_shift_plain(x: torch.Tensor) -> torch.Tensor:
+    """(R, ...) -> (R, ...): one hop right, ``out[(r + 1) % R] = x[r]``."""
+    return torch.roll(x, 1, 0)
 
 
 def _chunks(rows: int, n_chunks: int) -> int:
@@ -163,3 +187,41 @@ def ring_reduce_scatter(x: torch.Tensor, *,
 
 
 ring_reduce_scatter.launches = 0
+
+
+def p2p_flags(device, stream: int) -> torch.Tensor:
+    """The arrival flags the p2p kernel counts into on ``stream``: after a
+    launch over R ranks, entry d holds the number of tiles stored into rank
+    d's output."""
+    key = (device, stream)
+    if key not in _P2P_FLAGS:
+        _P2P_FLAGS[key] = torch.zeros((MAX_RANKS,), dtype=torch.int32,
+                                      device=device)
+    return _P2P_FLAGS[key]
+
+
+def p2p_ring_shift(x: torch.Tensor) -> torch.Tensor:
+    """x (R, ...) stacked buffers -> (R, ...) with ``out[(r + 1) % R] =
+    x[r]``: one hop of the right-going ring, any dtype, bit for bit."""
+    if x.dim() < 1:
+        raise ValueError("p2p_ring_shift takes a stacked (R, ...) tensor")
+    if x.device.type == "cpu":
+        return ring_shift_plain(x)
+    _check_cuda(x, "p2p_ring_shift")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _build.library()
+    err = lib.pk_p2p_ring_shift(
+        _build.host_table(pgl.pointer_table(x)),
+        _build.host_table(pgl.pointer_table(out)),
+        p2p_flags(x.device, stream).data_ptr(), x.shape[0],
+        x[0].numel() * x.element_size(), stream)
+    _build.check(err, "pk_p2p_ring_shift")
+    p2p_ring_shift.launches += 1
+    return out
+
+
+p2p_ring_shift.launches = 0

@@ -12,6 +12,9 @@ from repro_torch.kernels.mamba_scan import (  # noqa: F401
     mamba_scan_plain as mamba_scan_ref,
 )
 from repro_torch.kernels.matmul import matmul_plain as matmul_ref  # noqa: F401
+from repro_torch.kernels.pk_comm import (  # noqa: F401
+    ring_shift_plain as ring_shift_ref,
+)
 
 NEG_INF = -1e30
 

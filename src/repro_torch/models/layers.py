@@ -17,8 +17,11 @@ serving logits and the chunked vocab-parallel loss (``lm_loss_island``),
 whose logits go through the GEMM-tile kernel. With FSDP on a dp > 1 mesh
 every sharded weight is gathered before use (``core.template.fsdp_gather``):
 inside islands through their ``Gather`` declarations, and for the q/k/v
-projections where they are used (the gathers XLA inserts in JAX). Not
-ported: sequence-parallel attention (ROADMAP A8), the XLA chunked
+projections where they are used (the gathers XLA inserts in JAX).
+Sequence-parallel training attention (``attention_block(seq_sharded=
+True)``) runs ring attention over the tp axis in ``sp_attention_island``
+(``core/ring_attention.py``: the p2p kernel and flash hops). Not ported:
+Ulysses attention (ROADMAP queue A item 3), the XLA chunked
 attention (the flash kernel computes the same function at any length),
 the resident 2D-TP MoE serving layout (``serve_moe_tp_data``, A9c), paged
 and int8 caches (A7, A11). The MoE island runs the replicated-dispatch
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import moe as pk_moe
 from repro_torch.core.pgl import P
+from repro_torch.core.ring_attention import pk_ring_attention
 from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
                                        Stacked, comm_context, fsdp_gather,
                                        rank_index)
@@ -176,15 +180,45 @@ def attn_out_island(cfg: ArchConfig, run: RunConfig,
                   dtype_bytes=_dtype_bytes(cfg)))
 
 
+def sp_attention_island(cfg: ArchConfig, run: RunConfig,
+                        rules: ShardingRules | None, b: int, s: int, *,
+                        causal: bool = True, reference=None) -> Island:
+    """Sequence-parallel attention island: ring attention (paper §4.2)
+    over the tp axis, q/k/v sequence-sharded on dim 2; once per dp group.
+    Ulysses (``sp_attention="ulysses"``) is not ported."""
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    if rules is None:
+        return Island("attn_sp", run=run, reference=reference)
+    if run.sp_attention == "ulysses":
+        raise NotImplementedError(
+            "Ulysses sequence-parallel attention (sp_attention='ulysses') "
+            "is ROADMAP queue A item 3")
+    axis = rules.tp
+    tp_size = rules.mesh.shape[axis]
+    spec = P(rules.dim(b, rules.dp), None, axis, None)
+    s_loc = max(s // tp_size, 1)
+    comm = Comm("ring_shift", backend="bulk", n_chunks=tp_size,
+                payload_bytes=2 * rules.local_batch(b) * hkv * s_loc * hd
+                * _dtype_bytes(cfg))
+
+    def body(ctx, q, k, v):
+        return pk_ring_attention(q, k, v, ctx=ctx, causal=causal,
+                                 window=cfg.sliding_window)
+
+    return Island(f"attn_{run.sp_attention}", rules=rules, run=run,
+                  inputs={"q": spec, "k": spec, "v": spec}, out_specs=spec,
+                  body=body, reference=reference, divisible=[(s, axis)],
+                  comm=comm)
+
+
 def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
                     rules: ShardingRules | None, *, causal=True,
                     positions=None, seq_sharded=False):
     """Full-sequence self-attention sub-layer without a cache (training):
     projections, RoPE, the causal GQA mix — the flash kernel, with its
-    autograd backward — and the out-projection island. x: (B, S, d)."""
-    if seq_sharded:
-        raise NotImplementedError(
-            "sequence-parallel attention is ROADMAP item A8")
+    autograd backward; with ``seq_sharded`` ring attention over the tp
+    axis in the SP island — and the out-projection island. x: (B, S,
+    d)."""
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
@@ -203,7 +237,17 @@ def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
         positions = torch.arange(s, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+
+    def dense_mix(q, k, v):
+        return flash_attention(q, k, v, causal=causal,
+                               window=cfg.sliding_window)
+
+    if seq_sharded and rules is not None:
+        island = sp_attention_island(cfg, run, rules, b, s, causal=causal,
+                                     reference=dense_mix)
+        o = island(q=q, k=k, v=v)
+    else:
+        o = dense_mix(q, k, v)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return attn_out_island(cfg, run, rules, b, s)(o=o, wo=p["wo"])
 
@@ -723,11 +767,12 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
     """Every island a forward pass (and a decode step) builds: ``prefill``
     (GEMM islands at m = B·seq), ``decode`` (m = B·1 plus the decode
     attention island) or ``all`` (the union, plus the loss island — what
-    the training launcher prints). The attention islands only where a
-    layer attends — mamba layers have none: their collectives are implicit
-    in JAX's GSPMD program, and the port computes them on global
-    activations (``models/ssm.py``); the sequence-parallel island JAX
-    lists under ``all`` is ROADMAP A8."""
+    the training launcher prints — and, unless ``run.sp_attention`` is
+    "none", the sequence-parallel island of ``forward_train(seq_sharded=
+    True)``, as JAX lists it). The attention islands only where a layer
+    attends — mamba layers have none: their collectives are implicit in
+    JAX's GSPMD program, and the port computes them on global activations
+    (``models/ssm.py``)."""
     if phase not in ("all", "prefill", "decode"):
         raise ValueError(f"unknown island phase {phase!r}")
     pattern = cfg.layer_pattern()
@@ -736,6 +781,9 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
     v = cfg.padded_vocab(rules.mesh.shape[rules.tp] if rules else 16)
     islands = [embed_island(run, rules, v, cfg.d_model, b)]
     if any(sp.mixer == "attn" for sp in pattern):
+        if run.sp_attention != "none" and phase == "all":
+            islands.append(
+                sp_attention_island(cfg, run, rules, b, s, causal=True))
         islands.append(attn_out_island(cfg, run, rules, b, s))
         if phase in ("all", "decode"):
             islands.append(decode_island(cfg, run, rules, b, seq,

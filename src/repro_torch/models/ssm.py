@@ -25,7 +25,9 @@ it is; the conv tail (R, B, ck-1, di/R) is small and is reassembled
 
 Not ported: SSM training (ROADMAP A10b), with the bf16 scan dtype
 (``run.ssm_scan_dtype``) that only the training forward reads, and
-sequence-parallel SSM (``ring_attention.ssm_entry_states``, A8).
+sequence-parallel SSM in the model (A10d; its state ring,
+``core/ring_attention.ssm_entry_states``, is ported, and no model calls
+it, in JAX either).
 """
 
 from __future__ import annotations

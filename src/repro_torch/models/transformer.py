@@ -18,6 +18,7 @@ SSM and hybrid decoders serve. Encoder-decoder configs raise
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Iterator
 
 import torch
@@ -314,9 +315,9 @@ class _BF16GradBarrier(torch.autograd.Function):
         return g
 
 
-def _attn_sub(a, x, cfg, run, rules):
+def _attn_sub(a, x, cfg, run, rules, *, seq_sharded):
     return L.attention_block(a, L.rms_norm(a["norm"], x, cfg.norm_eps), cfg,
-                             run, rules, causal=True)
+                             run, rules, causal=True, seq_sharded=seq_sharded)
 
 
 def _mlp_sub(m, x, cfg, run, rules):
@@ -324,16 +325,19 @@ def _mlp_sub(m, x, cfg, run, rules):
                        rules)
 
 
-def _apply_block(bp, x, cfg: ArchConfig, run: RunConfig, rules):
-    """One dense layer, pre-norm residual (JAX ``_apply_block``). With
-    ``run.remat`` and ``run.save_collectives`` each sub-block is
+def _apply_block(bp, x, cfg: ArchConfig, run: RunConfig, rules, *,
+                 seq_sharded=False):
+    """One dense layer, pre-norm residual (JAX ``_apply_block``); with
+    ``seq_sharded`` the attention mix is ring attention over the tp axis.
+    With ``run.remat`` and ``run.save_collectives`` each sub-block is
     checkpointed on its own, so its output survives to the backward while
     everything inside it is recomputed (the JAX policy saving
     ``subblock_out``)."""
     if run.bf16_backward_ars:
         x = _BF16GradBarrier.apply(x)
     sub_remat = run.remat and run.save_collectives
-    for fn, sp in ((_attn_sub, bp["attn"]), (_mlp_sub, bp["mlp"])):
+    attn = functools.partial(_attn_sub, seq_sharded=seq_sharded)
+    for fn, sp in ((attn, bp["attn"]), (_mlp_sub, bp["mlp"])):
         if sub_remat:
             h = checkpoint(fn, sp, x, cfg, run, rules, use_reentrant=False)
         else:
@@ -342,7 +346,8 @@ def _apply_block(bp, x, cfg: ArchConfig, run: RunConfig, rules):
     return x
 
 
-def _scan_blocks(blocks, x, cfg: ArchConfig, run: RunConfig, rules):
+def _scan_blocks(blocks, x, cfg: ArchConfig, run: RunConfig, rules, *,
+                 seq_sharded=False):
     """The layer periods in order (JAX ``lax.scan``). With ``run.remat``
     and no ``save_collectives`` a whole period is checkpointed: only its
     input is kept and everything else is recomputed in the backward (the
@@ -359,7 +364,8 @@ def _scan_blocks(blocks, x, cfg: ArchConfig, run: RunConfig, rules):
         for i in range(len(pattern)):
             bp = {g: {k: ts[li] for k, ts in sub.items()}
                   for g, sub in layers[i].items()}
-            x = _apply_block(bp, x, cfg, run, rules)
+            x = _apply_block(bp, x, cfg, run, rules,
+                             seq_sharded=seq_sharded)
         return x
 
     for li in range(cfg.n_periods):
@@ -370,11 +376,23 @@ def _scan_blocks(blocks, x, cfg: ArchConfig, run: RunConfig, rules):
     return x
 
 
+def _merge_frontend(x_tok, frontend_embeds, cfg: ArchConfig):
+    """VLM: replace the first ``n_frontend_tokens`` embeddings with the
+    precomputed patch embeddings (JAX ``_merge_frontend``)."""
+    if frontend_embeds is None or cfg.frontend != "vision":
+        return x_tok
+    n = cfg.n_frontend_tokens
+    return torch.cat([frontend_embeds.to(x_tok.dtype), x_tok[:, n:]], dim=1)
+
+
 def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
                   rules: ShardingRules | None, *, seq_sharded=False):
     """Returns (loss, metrics). batch: tokens (B, S), targets (B, S),
-    weights (B, S). Dense decoders; the loss is the chunked vocab-parallel
-    cross-entropy (``layers.lm_loss``) and the aux loss is 0."""
+    weights (B, S) [+ frontend_embeds (B, n, d) for vision configs]. Dense
+    decoders; the loss is the chunked vocab-parallel cross-entropy
+    (``layers.lm_loss``) and the aux loss is 0. ``seq_sharded``: every
+    attention mix is ring attention over the tp axis (the SP island), as
+    in JAX; JAX's launcher never sets it, and neither does the port's."""
     _check_decoder(cfg)
     if has_ssm(cfg):
         raise NotImplementedError(
@@ -384,14 +402,13 @@ def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
         raise NotImplementedError(
             f"{cfg.name}: MoE training is ROADMAP item A9b; the port serves "
             "MoE models")
-    if seq_sharded:
-        raise NotImplementedError(
-            "sequence-parallel training is ROADMAP item A8")
     if "lm_head" not in params and rules is not None:
         raise NotImplementedError(
             "tied embeddings on a mesh: the port's head is stored untied")
     x = L.embed_tokens(params, batch["tokens"], rules, run)
-    x = _scan_blocks(params["blocks"], x, cfg, run, rules)
+    x = _merge_frontend(x, batch.get("frontend_embeds"), cfg)
+    x = _scan_blocks(params["blocks"], x, cfg, run, rules,
+                     seq_sharded=seq_sharded)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["lm_head"] if "lm_head" in params else _head(params)
     loss = L.lm_loss({"lm_head": head}, x, batch["targets"],

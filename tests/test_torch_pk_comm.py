@@ -164,10 +164,13 @@ def test_ctx_gather_scatter_resolution_and_guards():
         ctx.all_gather(torch.ones(3, 4))
     for op, item in (("all_gather_matmul", "B5"),
                      ("matmul_reduce_scatter", "B6"),
-                     ("all_to_all", "A9"), ("ring_shift", "B8")):
+                     ("all_to_all", "A9")):
         with pytest.raises(NotImplementedError, match=item):
-            getattr(ctx, op)(x) if op in ("all_to_all", "ring_shift") \
+            getattr(ctx, op)(x) if op == "all_to_all" \
                 else getattr(ctx, op)(x, x)
+    # ring_shift is ported (kernel B8): one hop right, dim 0 rolled
+    np.testing.assert_array_equal(ctx.ring_shift(x).numpy(),
+                                  torch.roll(x, 1, 0).numpy())
 
 
 def test_fused_wrappers_refuse_other_devices():

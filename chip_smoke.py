@@ -23,7 +23,11 @@ Phases (any failure exits non-zero before the last line is printed):
    bit-identical; the p2p ring shift on k of the sequence-parallel path,
    (4, 1, 4, 2048, 64) bf16, and at ragged shapes, bit-identical to the
    roll; the flash hop at each of the 4 hops of that path at the ranks'
-   global offsets; flash at head_dim 120, padded to 128) and is held
+   global offsets; flash at head_dim 120, padded to 128; the AG×GEMM and
+   GEMM×RS kernels at tinyllama's MLP, a Fig. 7/8 shape and a ragged
+   shape, bit-identical for 1-4 chunks; the LCSC ring all-gather at every
+   ring all-gather shape and at 4 and 8 ranks, bit-identical to the plain
+   gather and to the ring all-gather kernel) and is held
    against its plain PyTorch version on the same
    inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
    <= 1e-3 for f32 outputs of bf16 inputs; one shape of each is then
@@ -96,12 +100,20 @@ Phases (any failure exits non-zero before the last line is printed):
 5d. SP reference: the same model cut to 2 layers, seq 2048 on (1, 4), the
    card against the port's plain f32 path on the CPU — loss within
    relative 1e-2, gradient norm within 3e-2;
+5e. TP GEMM pair: tinyllama-1.1b's MLP at full width on (1, 4), 4096
+   tokens, through declared ``Island``s: AG+GEMM (gate/up) and GEMM+RS
+   (down) under every backend, fused within 1e-2 of bulk, the AG×GEMM and
+   GEMM×RS kernels launched exactly once per fused call and never
+   otherwise, the sequence-sharded output gathered to every rank by the
+   LCSC all-gather; then the paper's Fig. 7/8 sweep, fused and bulk
+   device times (details in ``tp_gemm``);
 6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
    the tinyllama serving run's count for the serving kernels, the MoE
    serving run's for the grouped GEMM, the SSM serving run's for the
    selective scan, the training run's for the ring AG/RS kernels, the
-   sequence-parallel run's for the p2p shift and the flash hop;
-   ``launches_by_path`` has all five);
+   sequence-parallel run's for the p2p shift and the flash hop, the TP
+   GEMM pair's for AG×GEMM, GEMM×RS and the LCSC all-gather;
+   ``launches_by_path`` has all six);
 7. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository's ``src/`` beside it.
@@ -435,6 +447,7 @@ def check_kernels(dev) -> dict:
             (m * k + k * n + m * n) * 2, 2.0 * m * n * k)
     entries.update(check_mamba_scan(dev, record, compare))
     entries.update(check_ring_kernels(dev, record, compare, randn))
+    entries.update(check_tp_kernels(dev, record, compare, randn))
     return entries
 
 
@@ -540,6 +553,106 @@ def check_ring_kernels(dev, record, compare, randn) -> dict:
             partial(FA.flash_attention, q, k_, v, window=4096),
             partial(FA.flash_attention_plain, q, k_, v, window=4096),
             TOL_BF16_OUT)
+    return entries
+
+
+def check_tp_kernels(dev, record, compare, randn) -> dict:
+    """Phase 3, the kernels of the TP GEMM pair (phase 5e), R = 4 ranks:
+
+    * AG×GEMM at tinyllama's MLP gate/up projection, x (4, 1024, 2048) @
+      w (4, 2048, 2816) (timed), a Fig. 7 shape, x (4, 1024, 1024) @ w
+      (4, 1024, 1024), and a ragged one (m_loc 100, n 200): bf16 out within
+      ``TOL_BF16_OUT`` of ``ag_matmul_plain``;
+    * GEMM×RS at the MLP down projection, x (4, 4096, 1408) @ w (4, 1408,
+      2048) (timed), a Fig. 8 shape, x (4, 4096, 512) @ w (4, 512, 1024),
+      and a ragged one (m/R 50, n 120): f32 out within ``TOL_F32_OUT`` of
+      ``matmul_rs_plain``;
+    * each bit-identical for n_chunks 1-4 at every shape;
+    * the LCSC ring all-gather at every shape phase 3 runs the ring
+      all-gather at, and at ragged f32 and byte shapes: bit-identical to
+      ``all_gather_plain`` and to ``pk_comm.ring_all_gather``; timed at the
+      training run's MLP shard (2, 1024, 4, 1408) beside ``repeat``.
+
+    Bounds: AG×GEMM and GEMM×RS by their operations (2·R·m·k·n over 989
+    TFLOP/s) against their bytes (x, w read once; the output written
+    once); the all-gather by bytes (R·blk read, R²·blk written)."""
+    import torch
+
+    from repro_torch.kernels import collective_matmul as CM
+    from repro_torch.kernels import lcsc as LC
+    from repro_torch.kernels import pk_comm as PK
+
+    entries = {}
+    r = 4
+    cases = (
+        ("ag_matmul_fused", CM.ag_matmul_fused, CM.ag_matmul_plain,
+         "src/repro/kernels/collective_matmul.py:116", TOL_BF16_OUT,
+         ((1024, 2048, 2816, True), (1024, 1024, 1024, False),
+          (100, 264, 200, False))),
+        ("matmul_rs_fused", CM.matmul_rs_fused, CM.matmul_rs_plain,
+         "src/repro/kernels/collective_matmul.py:231", TOL_F32_OUT,
+         ((4096, 1408, 2048, True), (4096, 512, 1024, False),
+          (200, 136, 120, False))))
+    for name, fn, plain_fn, replaces, tol, shapes in cases:
+        ag = name == "ag_matmul_fused"
+        for m, k, n, timed in shapes:
+            x = randn(r, m, k)
+            w = randn(r, k, n, scale=(k if ag else r * k) ** -0.5)
+            shape = f"x({r},{m},{k})@w({r},{k},{n})"
+            run, plain = partial(fn, x, w), partial(plain_fn, x, w)
+            first = run()
+            for nc in (2, 3, 4):
+                if not torch.equal(fn(x, w, n_chunks=nc), first):
+                    raise AssertionError(f"{name} {shape}: n_chunks={nc} "
+                                         "changed the result")
+            if not timed:
+                compare(name, shape, run, plain, tol)
+                continue
+            if ag:      # the gathered x against every rank's w
+                library = partial(torch.matmul, x.reshape(-1, k), w)
+                out_bytes = r * r * m * n * 2
+                flops = 2.0 * r * (r * m) * k * n
+            else:
+                library = lambda x=x, w=w: torch.matmul(x, w).sum(0)  # noqa
+                out_bytes = m * n * 4
+                flops = 2.0 * r * m * k * n
+            entries[name] = record(
+                name, shape,
+                "src/repro_torch/kernels/csrc/collective_matmul.cu",
+                replaces, run, plain, library, tol,
+                (x.numel() + w.numel()) * 2 + out_bytes, flops)
+    print("[kernel] ag_matmul_fused / matmul_rs_fused: bit-identical for "
+          "n_chunks 1-4 at every shape", flush=True)
+
+    for rr, shape, dtype in ((2, (1024, 4, 64), torch.bfloat16),
+                             (2, (1024, 4, 512), torch.bfloat16),
+                             (2, (1024, 4, 1408), torch.bfloat16),
+                             (2, (1024, 4, 8000), torch.bfloat16),
+                             (4, (512, 4, 1408), torch.bfloat16),
+                             (8, (256, 4, 1408), torch.bfloat16),
+                             (8, (3, 5, 7), torch.float32),
+                             (4, (1001,), torch.uint8)):
+        x = (torch.randn((rr, *shape), device=dev) * 50).to(dtype)
+        got = LC.lcsc_ring_all_gather(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, PK.all_gather_plain(x))
+                and torch.equal(got, PK.ring_all_gather(x))):
+            raise AssertionError(f"lcsc_ring_all_gather {tuple(x.shape)} "
+                                 f"{dtype}: not the plain gather or B3's")
+        print(f"[kernel] lcsc_ring_all_gather {tuple(x.shape)} {dtype}: "
+              "bit-identical to all_gather_plain and ring_all_gather",
+              flush=True)
+        if (rr, shape) != (2, (1024, 4, 1408)):
+            continue
+        blk = x[0].numel()
+        entries["lcsc_ring_all_gather"] = record(
+            "lcsc_ring_all_gather", f"x{tuple(x.shape)} bf16",
+            "src/repro_torch/kernels/csrc/lcsc.cu",
+            "src/repro/kernels/lcsc.py:110",
+            partial(LC.lcsc_ring_all_gather, x),
+            partial(PK.all_gather_plain, x),
+            lambda x=x, rr=rr: x.unsqueeze(0).repeat(rr, 1, 1, 1, 1),
+            0.0, (rr + rr * rr) * blk * 2, 0.0, checked=(0.0, 0.0))
     return entries
 
 
@@ -677,7 +790,9 @@ def check_backward(dev) -> None:
 
 KERNEL_COUNTERS = ("matmul", "flash_attention", "pk_matmul_ar",
                    "pk_all_gather", "pk_reduce_scatter", "grouped_matmul",
-                   "mamba_scan", "p2p_ring_shift", "flash_attention_hop")
+                   "mamba_scan", "p2p_ring_shift", "flash_attention_hop",
+                   "ag_matmul_fused", "matmul_rs_fused",
+                   "lcsc_ring_all_gather")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
 
@@ -687,6 +802,7 @@ def _counters():
     from repro_torch.kernels import collective_matmul as CM
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import grouped_matmul as GM
+    from repro_torch.kernels import lcsc as LC
     from repro_torch.kernels import mamba_scan as MS
     from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import pk_comm as PK
@@ -697,7 +813,10 @@ def _counters():
             "grouped_matmul": GM.grouped_matmul,
             "mamba_scan": MS.mamba_scan,
             "p2p_ring_shift": PK.p2p_ring_shift,
-            "flash_attention_hop": FA.flash_attention_hop}
+            "flash_attention_hop": FA.flash_attention_hop,
+            "ag_matmul_fused": CM.ag_matmul_fused,
+            "matmul_rs_fused": CM.matmul_rs_fused,
+            "lcsc_ring_all_gather": LC.lcsc_ring_all_gather}
 
 
 def serve(dev) -> dict:
@@ -1257,8 +1376,8 @@ def train(dev, steps: int = 4) -> dict:
     ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     counters = {k: fn for k, fn in _counters().items()
-                if k not in ("grouped_matmul", "mamba_scan",
-                             "p2p_ring_shift", "flash_attention_hop")}
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "pk_all_gather", "pk_reduce_scatter")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
@@ -1560,6 +1679,146 @@ def check_sp_reference(dev, seq: int = 2048) -> None:
                              f"f32 plain path: {errs}")
 
 
+def tp_gemm(dev, sweep=(4096, 8192, 16384)) -> dict:
+    """Phase 5e: the tensor-parallel GEMM pair (paper Fig. 7/8) through
+    ``CommContext`` and declared ``Island``s with ``Comm(op, m, n, k,
+    backend=...)``, as ``benchmarks/paper_figures._gemm_island`` declares
+    them, at tinyllama-1.1b's MLP at full width on (1, 4), batch 8 x seq
+    512 = 4096 tokens, bf16, weights and activations from seed 17:
+
+    * AG+GEMM: the row-sharded activations x (4096, 2048) -> (4, 1024,
+      2048) against the gate and up shards side by side, w (4, 2048, 2816)
+      -> (4, 4096, 2816);
+    * GEMM+RS: the K-sharded activations x (4096, 5632) -> (4, 4096, 1408)
+      against w (4, 1408, 2048) -> (4, 1024, 2048), sequence-sharded; every
+      rank then gathers it (the hand-off to the next layer's input) with
+      the LCSC ring all-gather, bit-identical to the plain gather.
+
+    Each side runs under ``bulk``, ``ring``, ``ring_bidir`` (AG only) and
+    ``fused``: every output finite, the others within ``TOL_BF16_OUT``
+    (relative) of ``bulk``; the AG×GEMM and GEMM×RS kernels launch exactly
+    once per fused call and never under the other backends, the LCSC
+    all-gather once per GEMM+RS call. Each island's plan is printed. Then
+    the paper's Fig. 7/8 sweep (``paper_figures.fig7_ag_gemm`` /
+    ``fig8_gemm_rs`` with R = 4 in place of N) at ``sweep``: fused and bulk
+    device times of each side."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import template as TT
+    from repro_torch.core.pgl import P, VirtualMesh
+    from repro_torch.kernels import lcsc as LC
+    from repro_torch.kernels import pk_comm as PK
+
+    cfg = get_config("tinyllama-1.1b")
+    mesh = VirtualMesh((1, 4), ("data", "model"), dev)
+    r = mesh.shape["model"]
+    tokens, d, ff = 8 * 512, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    def island(op, backend, specs, m, n, k):
+        xs, ws, out = specs
+        return TT.Island(
+            f"{op}/{backend}", mesh=mesh, axis="model",
+            inputs={"x": xs, "w": ws}, out_specs=out,
+            body=lambda ctx, x, w: getattr(ctx, op)(x, w, backend=backend),
+            comm=TT.Comm(op, m=m, n=n, k=k, backend=backend))
+
+    ag_specs = (P("model", None), P(None, "model"), TT.Stacked(P(None,
+                                                                 "model")))
+    rs_specs = (P(None, "model"), P("model", None), TT.Stacked(P("model",
+                                                                 None)))
+    sides = (
+        ("all_gather_matmul", ag_specs, randn(tokens, d),
+         randn(r, d, 2 * ff // r, scale=d ** -0.5), (tokens, 2 * ff // r, d),
+         ("bulk", "ring", "ring_bidir", "fused")),
+        ("matmul_reduce_scatter", rs_specs, randn(tokens, ff),
+         randn(r, ff // r, d, scale=ff ** -0.5), (tokens, d, ff // r),
+         ("bulk", "ring", "fused")))
+    kernel = {"all_gather_matmul": "ag_matmul_fused",
+              "matmul_reduce_scatter": "matmul_rs_fused"}
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("ag_matmul_fused", "matmul_rs_fused",
+                         "lcsc_ring_all_gather")}
+    runs, outs = [], {}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        for op, specs, x, w, (m, n, k), backends in sides:
+            for be in backends:
+                isl = island(op, be, specs, m, n, k)
+                before = {kk: fn.launches for kk, fn in counters.items()}
+                out = isl(x=x, w=w)
+                if op == "matmul_reduce_scatter":   # the hand-off gather
+                    full = LC.lcsc_ring_all_gather(out)
+                    torch.cuda.synchronize()
+                    if not torch.equal(full, PK.all_gather_plain(out)):
+                        raise AssertionError(f"{op}/{be}: the LCSC gather "
+                                             "of the output is not a copy")
+                    del full
+                torch.cuda.synchronize()
+                got = {kk: fn.launches - before[kk]
+                       for kk, fn in counters.items()}
+                want = {kernel[op]: int(be == "fused"),
+                        "lcsc_ring_all_gather":
+                            int(op == "matmul_reduce_scatter")}
+                if any(got[kk] != want.get(kk, 0) for kk in got):
+                    raise AssertionError(f"{op}/{be} launched {got}, not "
+                                         f"{want}")
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"{op}/{be}: non-finite output")
+                print(f"[tp-gemm] {op} backend={be}: out {tuple(out.shape)} "
+                      f"{out.dtype}, kernel launches {got}; plan "
+                      f"{isl.plan()}", flush=True)
+                runs.append((op, be, isl, x, w))
+                outs[op, be] = out
+    launches = {kk: fn.launches for kk, fn in counters.items()}
+    print(f"[tp-gemm] launches on the MLP pair: {launches}", flush=True)
+    for op, be, isl, x, w in runs:
+        err = rel_err(outs[op, be], outs[op, "bulk"])
+        diff = (outs[op, be].float() - outs[op, "bulk"].float()).abs().max()
+        with torch.no_grad():
+            ms = time_ms(lambda isl=isl, x=x, w=w: isl(x=x, w=w), iters=5,
+                         reps=3, warmup=1)
+        print(f"[tp-gemm] {op} {be}: device {ms:.4f} ms a call; vs bulk "
+              f"rel_err {err:.3e} (tol {TOL_BF16_OUT:g}), max |diff| "
+              f"{float(diff):.3e}", flush=True)
+        if not err <= TOL_BF16_OUT:
+            raise AssertionError(f"{op} {be} disagrees with bulk")
+    del runs, outs, sides
+
+    for nsz in sweep:
+        x7 = randn(nsz, nsz // 4)
+        w7 = randn(nsz // 4, nsz // 4, scale=(nsz // 4) ** -0.5)
+        x8 = randn(nsz, r * (nsz // 8))
+        w8 = randn(r * (nsz // 8), nsz // 4, scale=(r * nsz // 8) ** -0.5)
+        for tag, op, specs, x, w, mnk in (
+                ("fig7_ag_gemm", "all_gather_matmul",
+                 (P("model", None), P(None, None), P(None, None)), x7, w7,
+                 (nsz, nsz // 4, nsz // 4)),
+                ("fig8_gemm_rs", "matmul_reduce_scatter",
+                 (P(None, "model"), P("model", None), P("model", None)), x8,
+                 w8, (nsz, nsz // 4, nsz // 8))):
+            times = {}
+            with torch.no_grad():
+                for be in ("fused", "bulk"):
+                    isl = island(op, be, specs, *mnk)
+                    times[be] = time_ms(lambda isl=isl: isl(x=x, w=w),
+                                        iters=3, reps=3, warmup=1)
+            print(f"[tp-gemm] {tag} N={nsz} (m, n, k) = {mnk}: fused "
+                  f"{times['fused']:.4f} ms, bulk {times['bulk']:.4f} ms, "
+                  f"bulk/fused {times['bulk'] / times['fused']:.3f}",
+                  flush=True)
+        del x7, w7, x8, w8
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1586,17 +1845,22 @@ def main() -> int:
     check_train_reference(dev)
     sp_launches = train_sp(dev)
     check_sp_reference(dev)
+    tp_launches = tp_gemm(dev)
     main_entries = []
     for key in KERNEL_COUNTERS:
         by_path = {"serve": serve_launches.get(key, 0),
                    "serve_moe": moe_launches.get(key, 0),
                    "serve_ssm": ssm_launches.get(key, 0),
                    "train": train_launches.get(key, 0),
-                   "train_sp": sp_launches.get(key, 0)}
+                   "train_sp": sp_launches.get(key, 0),
+                   "tp_gemm": tp_launches.get(key, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",
-                     "flash_attention_hop": "train_sp"}.get(
+                     "flash_attention_hop": "train_sp",
+                     "ag_matmul_fused": "tp_gemm",
+                     "matmul_rs_fused": "tp_gemm",
+                     "lcsc_ring_all_gather": "tp_gemm"}.get(
             key, "serve" if key in serve_launches else "train")
         main_entries.append(dict(entries[key], launches=by_path[main_path],
                                  launches_by_path=by_path))

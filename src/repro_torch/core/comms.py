@@ -6,11 +6,13 @@ collective is arithmetic over dim 0 — a reduction over it for ``psum`` /
 ``pmax``, a roll of it for a ring hop — and the fused backend is one CUDA
 kernel that addresses every rank's slab through a pointer table.
 
-Ported in this slice (the serving path's ops)::
+Ported ops::
 
     ==============================  =======================================
     op                              backends
     ==============================  =======================================
+    ``all_gather_matmul(x, w)``     bulk | ring | ring_bidir | fused
+    ``matmul_reduce_scatter(x, w)`` bulk | ring | fused
     ``matmul_all_reduce(x, w)``     bulk | ring | fused
     ``psum(x)``                     bulk | ring
     ``pmax(x)``                     bulk
@@ -19,25 +21,25 @@ Ported in this slice (the serving path's ops)::
     ``ring_shift(tree)``            bulk | fused
     ==============================  =======================================
 
-``bulk``  — GEMM in f32, then the reduction over ranks in rank order.
-``ring``  — the accumulate-and-forward reduce-scatter ring of
-            ``repro.core.comms.pk_matmul_all_reduce`` (payload in the
-            activation dtype, each hop's add in f32), then the all-gather.
-``fused`` — ``kernels/collective_matmul.py``: the hand-written GEMM×AR
-            kernel on a CUDA device, its plain PyTorch version on the CPU;
-            for ``all_gather`` / ``reduce_scatter`` the ring kernels of
-            ``kernels/pk_comm.py``; for ``ring_shift`` its p2p kernel.
+``bulk``  — GEMM in f32, then the collective over ranks in rank order.
+``ring``  — the rings of ``repro.core.comms``: AG+GEMM rotates the row
+            shards one hop right per step and multiplies each on arrival;
+            GEMM+RS and GEMM+AR run the accumulate-and-forward
+            reduce-scatter ring (payload in the activation dtype, each
+            hop's add in f32), GEMM+AR then gathers. JAX's sub-chunks cut
+            independent rows or columns; here each step runs whole, so
+            ``n_chunks`` / ``chunk_dim`` cannot change the result.
+``ring_bidir`` — AG+GEMM only: the shard's top rows (ceil half) travel
+            right, the rest left.
+``fused`` — ``kernels/collective_matmul.py``: the hand-written AG×GEMM,
+            GEMM×RS and GEMM×AR kernels on a CUDA device, their plain
+            PyTorch versions on the CPU; for ``all_gather`` /
+            ``reduce_scatter`` the ring kernels of ``kernels/pk_comm.py``;
+            for ``ring_shift`` its p2p kernel. The fused AG×GEMM and GEMM×RS
+            are forward-only, as in JAX (ROADMAP C9).
 
-``all_gather`` and ``reduce_scatter`` are autograd Functions: the
-backward of a gather is the reduce-scatter of its cotangent over the same
-axis and backend (FSDP's gradient shard-reduce), and the other way round.
-``ring_shift`` moves every leaf of a pytree one hop around the ring (dim
-0 rolled by one); bulk is the roll and differentiates as one, fused
-launches the p2p kernel per leaf in the forward and takes the transpose of
-the hop (a roll the other way, in plain torch) in the backward.
-
-The other ops of ``OP_BACKENDS`` raise ``NotImplementedError`` naming the
-ROADMAP item that ports them. Backend precedence is the JAX package's:
+``all_to_all`` raises ``NotImplementedError`` naming the ROADMAP item that
+ports it. Backend precedence is the JAX package's:
 per-call ``backend=`` > context pin > policy, with the same ``ValueError``
 shape guards. The policy is analytic only (``policy="measured"/"auto"`` is
 queue item 12) and prices on ``H100_SXM`` by default; quantized wires are
@@ -59,6 +61,8 @@ from repro_torch.core.schedule import (GEMM_CHUNK_DIM, ChunkSchedule,
                                        choose_gemm_collective)
 
 __all__ = ["CommContext", "OP_BACKENDS", "GEMM_OP_KIND",
+           "all_gather_matmul_baseline", "pk_all_gather_matmul",
+           "matmul_reduce_scatter_baseline", "pk_matmul_reduce_scatter",
            "matmul_all_reduce_baseline", "pk_matmul_all_reduce",
            "psum_bulk", "pk_psum_ring", "pmax_bulk"]
 
@@ -80,10 +84,8 @@ GEMM_OP_KIND = {"all_gather_matmul": "all_gather",
                 "matmul_reduce_scatter": "reduce_scatter",
                 "matmul_all_reduce": "all_reduce"}
 
-#: ops of the JAX registry this slice does not port yet, and where they live
+#: ops of the JAX registry not ported yet, and where they live
 _NOT_PORTED = {
-    "all_gather_matmul": "ROADMAP A3 (all_gather_matmul, kernel B5)",
-    "matmul_reduce_scatter": "ROADMAP A3 (matmul_reduce_scatter, kernel B6)",
     "all_to_all": "ROADMAP A3 (chunked all_to_all, for MoE A9)",
 }
 
@@ -247,6 +249,90 @@ class CommContext:
 
     # -- GEMM × collective ops --------------------------------------------
 
+    def all_gather_matmul(self, x: torch.Tensor, w: torch.Tensor, *,
+                          backend: str | None = None,
+                          n_chunks: int | None = None,
+                          chunk_dim: str | None = None,
+                          wire: Any = None) -> torch.Tensor:
+        """x: (R, m_loc, k) row shards; w: (R, k, n_loc) each rank's own
+        weight -> (R, R·m_loc, n_loc): the gathered rows times rank r's
+        weight on rank r, in x's dtype (paper Fig. 7). ``ring_bidir`` needs
+        ``m_loc >= 2`` on an even axis (an odd shard splits ceil/floor)."""
+        self._check_stacked(x, w)
+        self._check_wire(wire)
+        n_dev = self.axis_size
+        m_loc, k = x.shape[1], x.shape[2]
+        n_out = w.shape[2]
+        dtype_bytes = x.element_size()
+
+        def auto() -> str:
+            return self.auto_gemm_backend(
+                "all_gather_matmul", m_loc * n_dev, n_out, k,
+                dtype_bytes=dtype_bytes, fused_ok=self._prefer_fused(),
+                bidir_ok=(m_loc >= 2))
+
+        be = self._resolve("all_gather_matmul", backend, auto)
+        if be == "ring_bidir":
+            be = self._shape_guard(
+                "all_gather_matmul", be, backend,
+                ok=(m_loc >= 2 or n_dev % 2 != 0),
+                constraint="at least 2 local rows to split across the two "
+                           "ring directions (m_loc >= 2)",
+                fallback="ring")
+        if be == "bulk":
+            return all_gather_matmul_baseline(x, w)
+        sched = self.gemm_chunk_schedule(
+            "all_gather_matmul", m_loc * n_dev, n_out, k, backend=be,
+            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim)
+        if be in ("ring", "ring_bidir"):
+            return pk_all_gather_matmul(x, w,
+                                        bidirectional=(be == "ring_bidir"),
+                                        n_chunks=sched.n_chunks,
+                                        chunk_dim=sched.chunk_dim)
+        from repro_torch.kernels import collective_matmul
+        return collective_matmul.ag_matmul_fused(
+            x, w, n_chunks=sched.n_chunks).to(x.dtype)
+
+    def matmul_reduce_scatter(self, x: torch.Tensor, w: torch.Tensor, *,
+                              backend: str | None = None,
+                              n_chunks: int | None = None,
+                              chunk_dim: str | None = None,
+                              wire: Any = None) -> torch.Tensor:
+        """x: (R, m, k_loc); w: (R, k_loc, n) -> (R, m/R, n): rank r holds
+        row block r of the sum over ranks of ``x[r] @ w[r]``, in x's dtype
+        (paper Fig. 8). Ring and fused need ``m`` divisible by the axis
+        size."""
+        self._check_stacked(x, w)
+        self._check_wire(wire)
+        n_dev = self.axis_size
+        m, k_loc = x.shape[1], x.shape[2]
+        n_out = w.shape[2]
+        dtype_bytes = x.element_size()
+
+        def auto() -> str:
+            if m % n_dev != 0:
+                return "bulk"            # ring needs m divisible by the axis
+            return self.auto_gemm_backend(
+                "matmul_reduce_scatter", m, n_out, k_loc,
+                dtype_bytes=dtype_bytes, fused_ok=self._prefer_fused())
+
+        be = self._resolve("matmul_reduce_scatter", backend, auto)
+        if be != "bulk":
+            be = self._shape_guard(
+                "matmul_reduce_scatter", be, backend, ok=(m % n_dev == 0),
+                constraint="m divisible by the axis size")
+        if be == "bulk":
+            return matmul_reduce_scatter_baseline(x, w)
+        sched = self.gemm_chunk_schedule(
+            "matmul_reduce_scatter", m, n_out, k_loc, backend=be,
+            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim)
+        if be == "ring":
+            return pk_matmul_reduce_scatter(x, w, n_chunks=sched.n_chunks,
+                                            chunk_dim=sched.chunk_dim)
+        from repro_torch.kernels import collective_matmul
+        return collective_matmul.matmul_rs_fused(
+            x, w, n_chunks=sched.n_chunks).to(x.dtype)
+
     def matmul_all_reduce(self, x: torch.Tensor, w: torch.Tensor, *,
                           backend: str | None = None,
                           n_chunks: int | None = None,
@@ -280,7 +366,8 @@ class CommContext:
             "matmul_all_reduce", m, n_out, k_loc, backend=be,
             dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim)
         if be == "ring":
-            return pk_matmul_all_reduce(x, w, n_chunks=sched.n_chunks)
+            return pk_matmul_all_reduce(x, w, n_chunks=sched.n_chunks,
+                                        chunk_dim=sched.chunk_dim)
         from repro_torch.kernels import collective_matmul
         return collective_matmul.matmul_ar_fused(
             x, w, n_chunks=sched.n_chunks).to(x.dtype)
@@ -288,12 +375,6 @@ class CommContext:
     def _not_ported(self, op: str):
         raise NotImplementedError(
             f"CommContext.{op} is not ported yet: {_NOT_PORTED[op]}")
-
-    def all_gather_matmul(self, x, w, **kw):
-        self._not_ported("all_gather_matmul")
-
-    def matmul_reduce_scatter(self, x, w, **kw):
-        self._not_ported("matmul_reduce_scatter")
 
     def all_to_all(self, x, **kw):
         self._not_ported("all_to_all")
@@ -499,6 +580,105 @@ class _ReduceScatter(torch.autograd.Function):
         return all_gather_stacked(g, axis, backend), None, None
 
 
+def all_gather_matmul_baseline(x: torch.Tensor,
+                               w: torch.Tensor) -> torch.Tensor:
+    """Bulk AG+GEMM: the row shards concatenated in rank order, then one
+    f32 GEMM against each rank's weight, in x's dtype: (R, R·m_loc, n),
+    ``out[d] = concat_s(x[s]) @ w[d]`` (also the fused kernel's plain
+    version)."""
+    x_full = x.reshape(-1, x.shape[2])
+    return torch.matmul(x_full.float(), w.float()).to(x.dtype)
+
+
+def _check_chunks(n_chunks: int, chunk_dim: str) -> None:
+    if n_chunks < 1:
+        raise ValueError("n_chunks must be >= 1")
+    if chunk_dim not in ("m", "n"):
+        raise ValueError(f"chunk_dim must be 'm' or 'n', not {chunk_dim!r}")
+
+
+def _ag_ring_lane(x: torch.Tensor, w: torch.Tensor, *,
+                  reverse: bool) -> torch.Tensor:
+    """One direction of the AG+GEMM ring (``repro.core.comms._ag_ring_lane``)
+    on x (R, rows, k), w (R, k, n): at step i rank d holds the shard of rank
+    (d - i) % R ((d + i) % R when ``reverse``), sends it one hop on and
+    multiplies it by its own weight. Returns (R, R, rows, n): slot s of
+    rank d is ``x[s] @ w[d]``."""
+    n = x.shape[0]
+    steps, cur = [], x
+    for i in range(n):
+        steps.append(torch.matmul(cur.float(), w.float()).to(x.dtype))
+        if i < n - 1:
+            cur = torch.roll(cur, -1 if reverse else 1, 0)
+    ranks = torch.arange(n, device=x.device)
+    hops = ranks[None, :] - ranks[:, None] if reverse \
+        else ranks[:, None] - ranks[None, :]
+    # rank d computed slot s at step (d - s) % R ((s - d) % R reversed)
+    return torch.stack(steps)[hops % n, ranks[:, None]]
+
+
+def pk_all_gather_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                         bidirectional: bool = False, n_chunks: int = 1,
+                         chunk_dim: str = "m") -> torch.Tensor:
+    """The AG+GEMM ring of ``repro.core.comms.pk_all_gather_matmul``:
+    x (R, m_loc, k), w (R, k, n) -> (R, R·m_loc, n) in x's dtype. The
+    bidirectional ring sends the shard's top ceil(m_loc / 2) rows right
+    and the rest left (even axis, m_loc >= 2; otherwise one ring).
+
+    JAX splits each hop into ``n_chunks`` sub-chunks (rows, or output
+    columns for ``chunk_dim="n"``) that GEMM on arrival; they cut
+    independent rows and columns of the step's GEMM, so every count gives
+    the same result. Here each step's GEMM runs whole, which makes that
+    bit-identity hold by construction (per-chunk CPU GEMMs of a few rows
+    round differently)."""
+    _check_chunks(n_chunks, chunk_dim)
+    n, m_loc = x.shape[0], x.shape[1]
+    if not bidirectional or n % 2 != 0 or m_loc < 2:
+        slots = _ag_ring_lane(x, w, reverse=False)
+    else:
+        h_r = (m_loc + 1) // 2
+        slots = torch.cat([_ag_ring_lane(x[:, :h_r], w, reverse=False),
+                           _ag_ring_lane(x[:, h_r:], w, reverse=True)],
+                          dim=2)
+    return slots.flatten(1, 2)
+
+
+def matmul_reduce_scatter_baseline(x: torch.Tensor,
+                                   w: torch.Tensor) -> torch.Tensor:
+    """Bulk GEMM+RS: f32 partials summed over ranks in rank order; rank r
+    keeps row block r, in x's dtype."""
+    r, m = x.shape[0], x.shape[1]
+    if m % r:
+        raise ValueError(f"GEMM+RS needs m ({m}) divisible by {r}")
+    partial = torch.matmul(x.float(), w.float())
+    return _rank_sum(partial).to(x.dtype).view(r, m // r, -1)
+
+
+def pk_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, *,
+                             n_chunks: int = 1,
+                             chunk_dim: str = "m") -> torch.Tensor:
+    """The GEMM+RS ring of ``repro.core.comms.pk_matmul_reduce_scatter``:
+    at step i rank d adds its partial for block (d+1+i) % R to the
+    accumulator arriving from rank d+1, so after R-1 hops rank d holds
+    block d fully reduced: x (R, m, k_loc), w (R, k_loc, n) -> (R, m/R, n).
+    The accumulator travels in x's dtype and each hop's add runs in f32.
+    As in ``pk_all_gather_matmul``, the sub-chunks cut independent rows or
+    columns, so the partials are computed whole and every count gives the
+    same bits."""
+    _check_chunks(n_chunks, chunk_dim)
+    n, m = x.shape[0], x.shape[1]
+    if m % n:
+        raise ValueError(f"ring GEMM+RS needs m ({m}) divisible by {n}")
+    m_blk = m // n
+    parts = torch.matmul(x.float(), w.float()).view(n, n, m_blk, -1)
+    ranks = torch.arange(n, device=x.device)
+    acc = parts[ranks, (ranks + 1) % n].to(x.dtype)
+    for i in range(1, n):
+        acc = (torch.roll(acc, -1, 0).float()
+               + parts[ranks, (ranks + 1 + i) % n]).to(x.dtype)
+    return acc
+
+
 def matmul_all_reduce_baseline(x: torch.Tensor,
                                w: torch.Tensor) -> torch.Tensor:
     """Bulk GEMM+AR: f32 partials, summed over ranks, in x's dtype."""
@@ -507,26 +687,11 @@ def matmul_all_reduce_baseline(x: torch.Tensor,
 
 
 def pk_matmul_all_reduce(x: torch.Tensor, w: torch.Tensor, *,
-                         n_chunks: int = 1) -> torch.Tensor:
-    """The GEMM+AR ring of ``repro.core.comms.pk_matmul_all_reduce``: at
-    step i rank d adds its partial for block (d+1+i) % R to the accumulator
-    arriving from rank d+1, so after R-1 hops rank d holds block d fully
-    reduced; the gather then gives every rank all blocks. The accumulator
-    travels in x's dtype and each hop's add runs in f32. Row chunking
-    (``n_chunks``) splits independent rows, so the result does not depend
-    on it and the ring is computed unchunked."""
-    if n_chunks < 1:
-        raise ValueError("n_chunks must be >= 1")
-    n, m, _ = x.shape
-    if m % n:
-        raise ValueError(f"ring GEMM+AR needs m ({m}) divisible by {n}")
-    m_blk = m // n
-    n_out = w.shape[2]
-    parts = torch.matmul(x.float(), w.float()).view(n, n, m_blk, n_out)
-    ranks = torch.arange(n, device=x.device)
-    acc = parts[ranks, (ranks + 1) % n].to(x.dtype)
-    for i in range(1, n):
-        acc = (torch.roll(acc, -1, 0).float()
-               + parts[ranks, (ranks + 1 + i) % n]).to(x.dtype)
-    out = acc.reshape(m, n_out)
-    return out.unsqueeze(0).expand(n, m, n_out)
+                         n_chunks: int = 1,
+                         chunk_dim: str = "m") -> torch.Tensor:
+    """The GEMM+AR ring of ``repro.core.comms.pk_matmul_all_reduce``: the
+    GEMM+RS ring, then every rank gathers the R reduced blocks."""
+    rs = pk_matmul_reduce_scatter(x, w, n_chunks=n_chunks,
+                                  chunk_dim=chunk_dim)
+    out = rs.reshape(-1, rs.shape[2])
+    return out.unsqueeze(0).expand(x.shape[0], *out.shape)

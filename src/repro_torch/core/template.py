@@ -381,8 +381,13 @@ class Island:
             m_loc = c.m // n_dev if c.m % n_dev == 0 else c.m
             fused_ok = ctx._prefer_fused()
             if c.backend is not None:
+                # a call-site pin is enforced by the runtime: a shape
+                # violation raises there rather than degrading
                 backend = c.backend
-                reason = f"pinned backend={c.backend}"
+                reason = f"pinned backend={c.backend}" if ring_ok or \
+                    backend == "bulk" else (
+                        f"pinned backend={c.backend} violates m % axis == 0 "
+                        "— the runtime raises ValueError for this call")
             elif ctx.backend in OP_BACKENDS.get(c.op, ()):
                 backend = ctx.backend
                 if backend != "bulk" and not ring_ok:

@@ -47,6 +47,14 @@ SIGNATURES = {
     # flags, R, M, N, K, stream
     "pk_matmul_ar_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
                          + [_P, _I, _I, _I, _I, _P],
+    "pk_matmul_rs_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
+                         + [_P, _I, _I, _I, _I, _P],
+    # x ptrs, w ptrs, out ptrs, R, M (rows a rank), N, K, stream
+    "pk_ag_matmul_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 3
+                         + [_I, _I, _I, _I, _P],
+    # in ptrs, out ptrs, flags, flag capacity (ints), R, blk bytes, stream
+    "pk_lcsc_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
+                          + [_P, _L, _I, _L, _P],
     # x, w, out, G, C, N, K, x strides (group, row), w strides, out
     # strides, out_f32, stream
     "pk_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,

@@ -1,50 +1,61 @@
-"""Fused GEMM × all-reduce over the ranks of a PGL — paper Fig. 9.
+"""Fused GEMM × collective kernels over the ranks of a PGL — paper Fig. 7-9.
 
-Replaces ``repro/kernels/collective_matmul.py::matmul_ar_fused`` (the
-Pallas ``_mm_ar_kernel`` + ``_rs_ring``): a K-sharded GEMM whose partial
-products are reduce-scattered around an accumulate-and-forward ring, then
-all-gathered inside the same kernel, giving the (n_dev, m/n_dev, n) f32
-reduced blocks on every device. The TPU version walks the ring step by step
-on one core, waiting on DMA semaphores between steps.
+Replace three Pallas kernels of ``repro/kernels/collective_matmul.py``. On
+the TPU each walks a ring of R-1 hops on one core, waiting on DMA
+semaphores between steps, with each hop split into row sub-chunks:
+
+* ``ag_matmul_fused`` (``_ag_mm_kernel``): all-gather of row shards x
+  (m_loc, k) fused with the GEMM against the local w (k, n) -> (R, m_loc,
+  n) in x's dtype;
+* ``matmul_rs_fused`` (``_mm_rs_kernel`` + ``_rs_ring``): a K-sharded GEMM
+  whose partials are reduce-scattered around an accumulate-and-forward ring
+  -> this rank's (m/R, n) f32 block;
+* ``matmul_ar_fused`` (``_mm_ar_kernel``): the same ring, then an
+  all-gather inside the kernel -> (R, m/R, n) f32 on every rank.
 
 CUDA route (``csrc/collective_matmul.cu``, device functions in
-``csrc/pk.cuh`` and ``csrc/mm_tile.cuh``). Blocks run in parallel and in
-no order on Hopper, so the ring becomes a store-and-count reduction that no
-block ever waits in:
+``csrc/pk.cuh`` and ``csrc/mm_tile.cuh``, the 64 x 64 bf16 GEMM tile with
+f32 accumulation). Blocks run in parallel and in no order on Hopper, and a
+block that spin-waits on one not yet resident deadlocks, so no block of
+these kernels waits:
 
-1. grid (n tiles, m tiles, source rank r); the block computes its partial
-   tile ``x[r, rows] @ w[r, :, cols]`` in f32 with the ``mm_tile`` GEMM;
-2. the tile's rows belong to owner rank ``o = row // (m/R)`` (the
-   reduce-scatter destination); the block stores its partial into
-   ``landing[o][r]`` — the owner's PGL slot, addressed through the pointer
-   table (``store_async``);
-3. it fences and adds one to the tile's arrival flag (``signal``,
-   ``atom.add.release.gpu``);
-4. the block that arrives last (the add returned R-1) acquires (``wait``),
-   sums the R partials in rank order and stores the reduced tile into
-   ``out[d]`` for every rank d (the all-gather half).
+* AG×GEMM: grid (n tile, m_loc tile, destination rank d × hop i). The
+  block takes the source ``s = (d - i) mod R`` — the shard rank d holds
+  after i hops of the right-going ring — reads x[s]'s row tile through the
+  pointer table (on one card the read is the gather; a multi-GPU node
+  feeds peer pointers), multiplies it by w[d] and stores the tile into
+  rows ``s·m_loc + ...`` of out[d] in bf16. Nothing depends on another
+  block. Bound at tinyllama's MLP (x (4, 1024, 2048), w (4, 2048, 2816)):
+  the tensor cores, 1.9e11 operations.
+* GEMM×RS and GEMM×AR: one kernel, store-and-count:
+  1. grid (n tiles, m tiles, source rank r); the block computes its
+     partial tile ``x[r, rows] @ w[r, :, cols]`` in f32;
+  2. the tile's rows belong to owner rank ``o = row // (m/R)`` (the
+     reduce-scatter destination); the block stores its partial into
+     ``landing[o][r]`` — the owner's PGL slot (``store_async``);
+  3. it fences and adds one to the tile's arrival flag (``signal``,
+     ``atom.add.release.gpu``);
+  4. the block that arrives last (the add returned R-1) acquires
+     (``wait``), sums the R partials in rank order and stores the reduced
+     tile into out[o] only (RS) or into out[d] for every rank d (AR).
+  The launcher zeroes the flags on the stream before each launch; landing
+  slots and flags are scratch cached per (device, stream, R, m, n), so
+  launches that share them run one after another on that stream. Bound:
+  the tensor cores at prefill (the landing round trip, R·m·n·4 bytes
+  written and read, comes on top), reading w at decode.
 
-The launcher zeroes the flags on the stream before each launch. Landing
-slots and flags are scratch cached per (device, stream, R, m, n): launches
-that share them run one after another on that stream, so no two launches
-ever count into the same flags at once.
+The fixed summation order makes every result independent of arrival order.
+Row chunking (``n_chunks``) is implicit in the 64-row tiles: it is
+validated with ``fit_chunks`` and cannot change the result.
 
-No block spin-waits, so the kernel is correct for any grid size and block
-order, and the fixed summation order makes the result independent of
-arrival order. Row chunking (``n_chunks``) is implicit in the 64-row
-tiles: it is accepted and cannot change the result. What bounds it on the
-card: at prefill (m = 2048, n = 2048, k = R·1408) the tensor cores, with
-the landing round trip (R·m·n·4 bytes written and read) and the R-fold
-output on top; at decode (m = 8) reading w. On one card the pointer tables
-hold R slices of one allocation; a multi-GPU node feeds the same kernel
-peer pointers.
-
-On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises. The wrapper is a ``torch.autograd.Function``:
-the kernel in forward; in backward the all-reduce's cotangent
-``dy = Σ_r g_r`` (every rank's output is the same sum), then
-``dx_r = dy @ w_rᵀ`` and ``dw_r = x_rᵀ @ dy`` with ``torch.matmul`` — the
-JAX package has no backward kernel for it (XLA transposes the island).
+On CPU tensors the wrappers run the plain versions; on CUDA tensors they
+launch the kernels or raise. GEMM×AR is a ``torch.autograd.Function``: the
+kernel in forward; in backward the all-reduce's cotangent ``dy = Σ_r g_r``
+(every rank's output is the same sum), then ``dx_r = dy @ w_rᵀ`` and
+``dw_r = x_rᵀ @ dy`` with ``torch.matmul`` — the JAX package has no
+backward kernel for it (XLA transposes the island). AG×GEMM and GEMM×RS are
+forward-only, as their Pallas kernels (which have no VJP, ROADMAP C9): a
+call that would need a gradient raises.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import pgl
+from repro_torch.core.comms import \
+    all_gather_matmul_baseline as ag_matmul_plain
 from repro_torch.core.schedule import fit_chunks
 from repro_torch.kernels import _build
 
@@ -65,29 +78,63 @@ MAX_RANKS = 8
 _SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def matmul_ar_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Stacked partials ``x[r] @ w[r]`` in f32, summed over ranks in rank
-    order and broadcast to every rank: (R, m, n) f32."""
+def _partial_sum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The stacked partials ``x[r] @ w[r]`` in f32, summed over ranks in
+    rank order: (m, n)."""
     parts = torch.einsum("rmk,rkn->rmn", x.float(), w.float())
     acc = parts[0]
     for r in range(1, parts.shape[0]):
         acc = acc + parts[r]
-    return acc.unsqueeze(0).expand_as(parts).contiguous()
+    return acc
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, n_chunks: int) -> None:
+def matmul_ar_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The reduced product broadcast to every rank: (R, m, n) f32."""
+    acc = _partial_sum(x, w)
+    return acc.unsqueeze(0).expand(x.shape[0], *acc.shape).contiguous()
+
+
+def matmul_rs_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Rank o's row block of the reduced product: (R, m/R, n) f32."""
+    return _partial_sum(x, w).view(x.shape[0], -1, w.shape[2])
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, n_chunks: int, name: str, *,
+           scatter: bool = True) -> None:
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
-        raise ValueError(f"matmul_ar takes stacked x (R, m, k_loc) and w "
-                         f"(R, k_loc, n); got {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}")
-    if x.shape[1] % x.shape[0]:
+        raise ValueError(f"{name} takes stacked x (R, m, k) and w (R, k, n); "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}")
+    if scatter and x.shape[1] % x.shape[0]:
         raise ValueError(f"m ({x.shape[1]}) must be divisible by the rank "
                          f"count ({x.shape[0]})")
     if n_chunks < 1:
         raise ValueError("n_chunks must be >= 1")
     if x.device != w.device:
         raise ValueError("x and w must be on one device")
+    rows = x.shape[1] // x.shape[0] if scatter else x.shape[1]
+    fit_chunks(rows, n_chunks)       # validated; the tiles chunk implicitly
+
+
+def _forward_only(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            f"{name} is forward-only: the JAX package's fused kernel has no "
+            "gradient either (ROADMAP C9); use backend='bulk' or 'ring' to "
+            "differentiate")
+
+
+def _cuda_operands(x: torch.Tensor, w: torch.Tensor, name: str):
+    """The checks every CUDA launch shares; contiguous operands."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA {name} takes bf16 operands")
+    if x.shape[0] > MAX_RANKS:
+        raise ValueError(f"at most {MAX_RANKS} ranks, got {x.shape[0]}")
+    if x.shape[2] % 8 or w.shape[2] % 8:
+        raise ValueError("k and n must be multiples of 8 (16-byte rows)")
+    return x.contiguous(), w.contiguous()
 
 
 def _scratch(device, stream: int, r: int, m: int, n: int):
@@ -101,28 +148,30 @@ def _scratch(device, stream: int, r: int, m: int, n: int):
     return _SCRATCH[key]
 
 
-def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return matmul_ar_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul_ar runs on cpu or cuda, not {x.device}")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError("the CUDA matmul_ar takes bf16 operands")
+def _reduce(x: torch.Tensor, w: torch.Tensor, gather: bool,
+            name: str) -> torch.Tensor:
+    """Launch the store-and-count GEMM×RS (``gather`` False: (R, m/R, n))
+    or GEMM×AR (True: (R, m, n)) kernel; f32 out."""
+    x, w = _cuda_operands(x, w, name)
     r, m, k = x.shape
     n = w.shape[2]
-    if r > MAX_RANKS:
-        raise ValueError(f"at most {MAX_RANKS} ranks, got {r}")
-    if k % 8 or n % 8:
-        raise ValueError("k_loc and n must be multiples of 8 (16-byte rows)")
-    x, w = x.contiguous(), w.contiguous()
-    out = torch.empty((r, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((r, m if gather else m // r, n), dtype=torch.float32,
+                      device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     landing, flags = _scratch(x.device, stream, r, m, n)
     tables = [_build.host_table(pgl.pointer_table(t))
               for t in (x, w, landing, out)]
-    lib = _build.library()
-    err = lib.pk_matmul_ar_bf16(*tables, flags.data_ptr(), r, m, n, k, stream)
-    _build.check(err, "pk_matmul_ar_bf16")
+    fn = "pk_matmul_ar_bf16" if gather else "pk_matmul_rs_bf16"
+    err = getattr(_build.library(), fn)(*tables, flags.data_ptr(), r, m, n,
+                                       k, stream)
+    _build.check(err, fn)
+    return out
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return matmul_ar_plain(x, w)
+    out = _reduce(x, w, True, "matmul_ar")
     matmul_ar_fused.launches += 1
     return out
 
@@ -151,9 +200,49 @@ def matmul_ar_fused(x: torch.Tensor, w: torch.Tensor, *,
                     n_chunks: int = 1) -> torch.Tensor:
     """x (R, m, k_loc) bf16, w (R, k_loc, n) bf16 -> (R, m, n) f32: the
     all-reduced product, identical on every rank."""
-    _check(x, w, n_chunks)
-    fit_chunks(x.shape[1] // x.shape[0], n_chunks)   # validated, no effect
+    _check(x, w, n_chunks, "matmul_ar")
     return _MatmulAR.apply(x, w)
 
 
 matmul_ar_fused.launches = 0
+
+
+def ag_matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
+                    n_chunks: int = 1) -> torch.Tensor:
+    """x (R, m_loc, k) bf16 row shards, w (R, k, n) bf16 -> (R, R·m_loc, n)
+    bf16: rank d's gathered rows times w[d]. Forward-only."""
+    _check(x, w, n_chunks, "ag_matmul", scatter=False)
+    _forward_only(x, w, "ag_matmul_fused")
+    if x.device.type == "cpu":
+        return ag_matmul_plain(x, w)
+    x, w = _cuda_operands(x, w, "ag_matmul")
+    r, m_loc, k = x.shape
+    n = w.shape[2]
+    out = torch.empty((r, r * m_loc, n), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    err = _build.library().pk_ag_matmul_bf16(
+        *[_build.host_table(pgl.pointer_table(t)) for t in (x, w, out)],
+        r, m_loc, n, k, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "pk_ag_matmul_bf16")
+    ag_matmul_fused.launches += 1
+    return out
+
+
+ag_matmul_fused.launches = 0
+
+
+def matmul_rs_fused(x: torch.Tensor, w: torch.Tensor, *,
+                    n_chunks: int = 1) -> torch.Tensor:
+    """x (R, m, k_loc) bf16, w (R, k_loc, n) bf16 -> (R, m/R, n) f32: rank
+    o's row block of the product summed over ranks. Forward-only."""
+    _check(x, w, n_chunks, "matmul_rs")
+    _forward_only(x, w, "matmul_rs_fused")
+    if x.device.type == "cpu":
+        return matmul_rs_plain(x, w)
+    out = _reduce(x, w, False, "matmul_rs")
+    matmul_rs_fused.launches += 1
+    return out
+
+
+matmul_rs_fused.launches = 0

@@ -1,26 +1,69 @@
-// Fused GEMM x all-reduce over the ranks of a PGL (paper Fig. 9). Port of
-// repro/kernels/collective_matmul.py::matmul_ar_fused; the design note is
-// in kernels/collective_matmul.py.
+// Fused GEMM x collective kernels over the ranks of a PGL (paper Fig. 7-9).
+// Ports of repro/kernels/collective_matmul.py::ag_matmul_fused,
+// ::matmul_rs_fused and ::matmul_ar_fused; the design note is in
+// kernels/collective_matmul.py.
 //
-// x: R slabs of (M x K) bf16, w: R slabs of (K x N) bf16 (K is each rank's
-// shard of the reduction dim). landing: R owner slots of (R x M/R x N) f32;
-// out: R slabs of (M x N) f32. flags: one int per (m tile, n tile), zeroed
-// on the stream before every launch, so a launch that aborted part-way
-// cannot leave a count behind for the next.
+// AG x GEMM: x: R slabs of (M x K) bf16 row shards, w: R slabs of (K x N)
+// bf16; out: R slabs of (R*M x N) bf16, rows s*M.. of out[d] = x[s] @ w[d].
+// No block depends on another.
 //
-// Why it cannot deadlock: no block ever waits for another. Each block
-// publishes its partial tile and counts itself in; only the block that
-// finds all R partials published goes on to reduce them.
+// GEMM x RS / AR: x: R slabs of (M x K) bf16, w: R slabs of (K x N) bf16
+// (K is each rank's shard of the reduction dim). landing: R owner slots of
+// (R x M/R x N) f32; out: R slabs of (M/R x N) f32 (RS) or (M x N) f32
+// (AR). flags: one int per (m tile, n tile), zeroed on the stream before
+// every launch, so a launch that aborted part-way cannot leave a count
+// behind for the next.
+//
+// Why neither can deadlock: no block ever waits for another. Each RS/AR
+// block publishes its partial tile and counts itself in; only the block
+// that finds all R partials published goes on to reduce them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mm_tile.cuh"
 #include "pk.cuh"
 
+// AG x GEMM: grid (n tile, m tile, d * R + i); hop i of the right-going
+// ring brings rank d the shard of rank s = (d - i) mod R.
 __global__ void __launch_bounds__(MT_THREADS)
-    pk_matmul_ar_kernel(pk::PtrTable xs, pk::PtrTable ws, pk::PtrTable lands,
-                        pk::PtrTable outs, int* __restrict__ flags, int R,
-                        int M, int N, int K) {
+    pk_ag_matmul_kernel(pk::PtrTable xs, pk::PtrTable ws, pk::PtrTable outs,
+                        int R, int M, int N, int K) {
+  __shared__ MmTileSmem sm;
+  const int nt = blockIdx.x, mt = blockIdx.y;
+  const int d = blockIdx.z / R, i = blockIdx.z - d * R;
+  const int s = (d - i + R) % R;
+  const int m0 = mt * MT_BM, n0 = nt * MT_BN;
+
+  // the peer read of x[s] through the pointer table is the gather
+  float acc[2][4][4];
+  mm_tile((const __nv_bfloat16*)xs.p[s], K, (const __nv_bfloat16*)ws.p[d],
+          N, M, N, K, m0, n0, sm, acc);
+
+  __nv_bfloat16* out = (__nv_bfloat16*)outs.p[d] + (long)s * M * N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm + a * 16 + g + h * 8;
+        const int col = n0 + wn + j * 8 + t4 * 2;  // N even: col + 1 < N
+        if (row >= M || col >= N) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + (long)row * N + col) =
+            __floats2bfloat162_rn(acc[a][j][2 * h], acc[a][j][2 * h + 1]);
+      }
+}
+
+// GEMM x RS (kGather false) and GEMM x AR (true): store-and-count.
+template <bool kGather>
+__global__ void __launch_bounds__(MT_THREADS)
+    pk_matmul_reduce_kernel(pk::PtrTable xs, pk::PtrTable ws,
+                            pk::PtrTable lands, pk::PtrTable outs,
+                            int* __restrict__ flags, int R, int M, int N,
+                            int K) {
   __shared__ MmTileSmem sm;
   __shared__ int s_last;
   const int nt = blockIdx.x, mt = blockIdx.y, r = blockIdx.z;
@@ -63,7 +106,8 @@ __global__ void __launch_bounds__(MT_THREADS)
   __syncthreads();
   if (!s_last) return;
 
-  // 4. sum the R partials in rank order; store to every rank (all-gather)
+  // 4. sum the R partials in rank order; store to the owner (RS) or to
+  //    every rank (AR: the all-gather half)
   for (int c = threadIdx.x; c < MT_BM * (MT_BN / 4); c += MT_THREADS) {
     const int row = m0 + c / (MT_BN / 4);
     const int col = n0 + (c % (MT_BN / 4)) * 4;
@@ -79,11 +123,64 @@ __global__ void __launch_bounds__(MT_THREADS)
       s.z += v.z;
       s.w += v.w;
     }
-    for (int d = 0; d < R; ++d)
+    if (kGather) {
+      for (int d = 0; d < R; ++d)
+        pk::store_async(reinterpret_cast<float4*>((float*)outs.p[d] +
+                                                  (long)row * N + col),
+                        s);
+    } else {
       pk::store_async(
-          reinterpret_cast<float4*>((float*)outs.p[d] + (long)row * N + col),
+          reinterpret_cast<float4*>((float*)outs.p[o] + (long)lr * N + col),
           s);
+    }
   }
+}
+
+namespace {
+
+template <bool kGather>
+int launch_reduce(const unsigned long long* x_ptrs,
+                  const unsigned long long* w_ptrs,
+                  const unsigned long long* landing_ptrs,
+                  const unsigned long long* out_ptrs, void* flags, int R,
+                  int M, int N, int K, void* stream) {
+  if (R < 1 || R > PK_MAX_RANKS || M % R != 0 || N % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + MT_BN - 1) / MT_BN, (M + MT_BM - 1) / MT_BM, R);
+  cudaError_t err = cudaMemsetAsync(
+      flags, 0, sizeof(int) * grid.x * grid.y, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  pk_matmul_reduce_kernel<kGather>
+      <<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
+          pk::table(x_ptrs, R), pk::table(w_ptrs, R),
+          pk::table(landing_ptrs, R), pk::table(out_ptrs, R), (int*)flags,
+          R, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pk_ag_matmul_bf16(const unsigned long long* x_ptrs,
+                                 const unsigned long long* w_ptrs,
+                                 const unsigned long long* out_ptrs, int R,
+                                 int M, int N, int K, void* stream) {
+  if (R < 1 || R > PK_MAX_RANKS || N % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + MT_BN - 1) / MT_BN, (M + MT_BM - 1) / MT_BM, R * R);
+  pk_ag_matmul_kernel<<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
+      pk::table(x_ptrs, R), pk::table(w_ptrs, R), pk::table(out_ptrs, R), R,
+      M, N, K);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pk_matmul_rs_bf16(const unsigned long long* x_ptrs,
+                                 const unsigned long long* w_ptrs,
+                                 const unsigned long long* landing_ptrs,
+                                 const unsigned long long* out_ptrs,
+                                 void* flags, int R, int M, int N, int K,
+                                 void* stream) {
+  return launch_reduce<false>(x_ptrs, w_ptrs, landing_ptrs, out_ptrs, flags,
+                              R, M, N, K, stream);
 }
 
 extern "C" int pk_matmul_ar_bf16(const unsigned long long* x_ptrs,
@@ -92,20 +189,6 @@ extern "C" int pk_matmul_ar_bf16(const unsigned long long* x_ptrs,
                                  const unsigned long long* out_ptrs,
                                  void* flags, int R, int M, int N, int K,
                                  void* stream) {
-  if (R < 1 || R > PK_MAX_RANKS || M % R != 0 || N % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  pk::PtrTable xs{}, ws{}, ls{}, os{};
-  for (int i = 0; i < R; ++i) {
-    xs.p[i] = x_ptrs[i];
-    ws.p[i] = w_ptrs[i];
-    ls.p[i] = landing_ptrs[i];
-    os.p[i] = out_ptrs[i];
-  }
-  dim3 grid((N + MT_BN - 1) / MT_BN, (M + MT_BM - 1) / MT_BM, R);
-  cudaError_t err = cudaMemsetAsync(
-      flags, 0, sizeof(int) * grid.x * grid.y, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  pk_matmul_ar_kernel<<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
-      xs, ws, ls, os, (int*)flags, R, M, N, K);
-  return (int)cudaGetLastError();
+  return launch_reduce<true>(x_ptrs, w_ptrs, landing_ptrs, out_ptrs, flags,
+                             R, M, N, K, stream);
 }

@@ -20,6 +20,25 @@ struct PtrTable {
   unsigned long long p[PK_MAX_RANKS];
 };
 
+// A pointer table from a host array of R rank addresses.
+inline PtrTable table(const unsigned long long* ptrs, int R) {
+  PtrTable t{};
+  for (int i = 0; i < R; ++i) t.p[i] = ptrs[i];
+  return t;
+}
+
+// Calls f(U{}) for the widest word type U — 16, 8, 4, 2 or 1 bytes — that
+// divides `bits` (a size or'ed with every address a copy touches) and
+// returns its result.
+template <class F>
+int with_word(unsigned long long bits, F f) {
+  if (bits % 16 == 0) return f(uint4{});
+  if (bits % 8 == 0) return f(uint2{});
+  if (bits % 4 == 0) return f(0u);
+  if (bits % 2 == 0) return f((unsigned short)0);
+  return f((unsigned char)0);
+}
+
 // store_async: one vector store (up to 16 bytes) into a (possibly remote)
 // slot. Ordering against the flag is the caller's fence + signal.
 template <typename U>

@@ -202,12 +202,6 @@ int launch_p2p(pk::PtrTable s, pk::PtrTable d, int* flags, int R,
   return (int)cudaGetLastError();
 }
 
-pk::PtrTable table(const unsigned long long* ptrs, int R) {
-  pk::PtrTable t{};
-  for (int i = 0; i < R; ++i) t.p[i] = ptrs[i];
-  return t;
-}
-
 bool aligned16(const unsigned long long* ptrs, int R) {
   for (int i = 0; i < R; ++i)
     if (ptrs[i] % 16) return false;
@@ -228,7 +222,8 @@ int launch_rs(const unsigned long long* in, const unsigned long long* out,
   cudaError_t err =
       cudaMemsetAsync(flags, 0, sizeof(int) * grid.x * R, stream);
   if (err != cudaSuccess) return (int)err;
-  pk::PtrTable s = table(in, R), d = table(out, R), l = table(landing, R);
+  pk::PtrTable s = pk::table(in, R), d = pk::table(out, R),
+               l = pk::table(landing, R);
   if (vec)
     pk_reduce_scatter_kernel<T, V><<<grid, THREADS, 0, stream>>>(
         s, d, l, (int*)flags, R, blk, chunk, tiles);
@@ -250,7 +245,7 @@ extern "C" int pk_all_gather(const unsigned long long* in_ptrs,
       blk_bytes % chunk_bytes != 0)
     return (int)cudaErrorInvalidValue;
   if (blk_bytes == 0) return 0;
-  pk::PtrTable s = table(in_ptrs, R), d = table(out_ptrs, R);
+  pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
   const int n_chunks = (int)(blk_bytes / chunk_bytes);
   const cudaStream_t st = (cudaStream_t)stream;
   if (chunk_bytes % 16 == 0 && aligned16(in_ptrs, R) &&
@@ -313,13 +308,8 @@ extern "C" int pk_p2p_ring_shift(const unsigned long long* in_ptrs,
   if (blk_bytes == 0) return 0;
   unsigned long long bits = (unsigned long long)blk_bytes;
   for (int i = 0; i < R; ++i) bits |= in_ptrs[i] | out_ptrs[i];
-  pk::PtrTable s = table(in_ptrs, R), d = table(out_ptrs, R);
-  int* f = (int*)flags;
-  if (bits % 16 == 0) return launch_p2p<uint4>(s, d, f, R, blk_bytes, st);
-  if (bits % 8 == 0) return launch_p2p<uint2>(s, d, f, R, blk_bytes, st);
-  if (bits % 4 == 0)
-    return launch_p2p<unsigned int>(s, d, f, R, blk_bytes, st);
-  if (bits % 2 == 0)
-    return launch_p2p<unsigned short>(s, d, f, R, blk_bytes, st);
-  return launch_p2p<unsigned char>(s, d, f, R, blk_bytes, st);
+  pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
+  return pk::with_word(bits, [&](auto word) {
+    return launch_p2p<decltype(word)>(s, d, (int*)flags, R, blk_bytes, st);
+  });
 }

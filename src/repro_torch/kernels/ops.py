@@ -4,7 +4,9 @@ repeat GQA heads; the CUDA kernels mask ragged edges and read KV heads in
 place, so nothing is left to wrap and these are plain re-exports."""
 
 from repro_torch.kernels.collective_matmul import (  # noqa: F401
+    ag_matmul_fused as pk_ag_matmul,
     matmul_ar_fused as pk_matmul_ar,
+    matmul_rs_fused as pk_matmul_rs,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention,

@@ -36,6 +36,18 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def ag_matmul_ref(x, w):
+    """Global semantics of AG+GEMM: the plain product (the gather makes
+    every row available to every rank)."""
+    return matmul_ref(x, w)
+
+
+def matmul_rs_ref(x, w):
+    """Global semantics of GEMM+RS: the plain product; sharding splits
+    rows."""
+    return matmul_ref(x, w)
+
+
 def matmul_ar_ref(x, w):
     """Global semantics of GEMM+AR: the plain product, f32 out."""
     return torch.matmul(x.float(), w.float())

@@ -201,8 +201,8 @@ def test_not_ported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         CommContext("x", mesh=mesh, wire="int8")
     with pytest.raises(NotImplementedError, match="A3"):
-        CommContext("x", mesh=mesh).all_gather_matmul(torch.ones(4, 2, 2),
-                                                      torch.ones(4, 2, 2))
+        CommContext("x", mesh=mesh).all_to_all(torch.ones(4, 2, 2),
+                                               split_axis=0, concat_axis=1)
 
 
 # ---------------------------------------------------------------------------

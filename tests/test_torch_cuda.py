@@ -499,3 +499,65 @@ def test_seq_sharded_train_on_card_runs_ring_kernels(cuda):
     with torch.no_grad():
         dense, _ = T.forward_train(params, batch, cfg, run, rules)
     assert abs(float(loss) - float(dense)) <= 1e-2 * abs(float(dense))
+
+
+@pytest.mark.parametrize("r,m_loc,k,n", [(2, 8, 16, 8), (4, 100, 264, 200),
+                                         (4, 64, 128, 192), (8, 3, 40, 24)])
+def test_ag_matmul_kernel(cuda, r, m_loc, k, n):
+    from repro_torch.kernels import collective_matmul as CM
+    x = _randn(cuda, r, m_loc, k, seed=1)
+    w = _randn(cuda, r, k, n, scale=k ** -0.5, seed=2)
+    want = CM.ag_matmul_plain(x, w)
+    before = CM.ag_matmul_fused.launches
+    first = CM.ag_matmul_fused(x, w)
+    torch.cuda.synchronize()
+    assert first.shape == (r, r * m_loc, n) and first.dtype == torch.bfloat16
+    assert _rel(first, want) <= 1e-2
+    for nc in (2, 3, 4):            # the tiles chunk implicitly: same bits
+        assert torch.equal(CM.ag_matmul_fused(x, w, n_chunks=nc), first)
+    assert CM.ag_matmul_fused.launches == before + 4
+
+
+@pytest.mark.parametrize("r,m,k,n", [(2, 8, 16, 8), (4, 200, 136, 120),
+                                     (4, 256, 128, 192), (8, 24, 40, 16)])
+def test_matmul_rs_kernel(cuda, r, m, k, n):
+    from repro_torch.kernels import collective_matmul as CM
+    x = _randn(cuda, r, m, k, seed=1)
+    w = _randn(cuda, r, k, n, scale=(r * k) ** -0.5, seed=2)
+    want = CM.matmul_rs_plain(x, w)
+    first = CM.matmul_rs_fused(x, w)
+    torch.cuda.synchronize()
+    assert first.shape == (r, m // r, n) and first.dtype == torch.float32
+    assert _rel(first, want) <= 1e-3
+    for nc in (2, 3, 4):            # the arrival flags reset between launches
+        assert torch.equal(CM.matmul_rs_fused(x, w, n_chunks=nc), first)
+
+
+def test_gemm_collective_kernels_refuse_gradients(cuda):
+    from repro_torch.kernels import collective_matmul as CM
+    x = _randn(cuda, 4, 16, 32, seed=1).requires_grad_(True)
+    w = _randn(cuda, 4, 32, 16, seed=2)
+    for fn in (CM.ag_matmul_fused, CM.matmul_rs_fused):
+        with pytest.raises(NotImplementedError, match="C9"):
+            fn(x, w)
+        with torch.no_grad():
+            fn(x, w)
+
+
+@pytest.mark.parametrize("r,shape,dtype", [
+    (2, (4, 24), torch.bfloat16), (4, (3, 5), torch.bfloat16),
+    (8, (6, 7), torch.float32), (4, (1001,), torch.uint8),
+    (2, (1024, 4, 1408), torch.bfloat16), (8, (256, 4, 1408), torch.bfloat16),
+    (1, (8, 8), torch.float32)])
+def test_lcsc_ring_all_gather_kernel(cuda, r, shape, dtype):
+    from repro_torch.kernels import lcsc as LC
+    from repro_torch.kernels import pk_comm as PK
+    x = (torch.randn((r, *shape), device=cuda) * 50).to(dtype)
+    before = LC.lcsc_ring_all_gather.launches
+    for _ in range(2):              # the arrival flags reset between launches
+        got = LC.lcsc_ring_all_gather(x)
+        torch.cuda.synchronize()
+        assert got.shape == (r, r, *shape) and got.dtype == dtype
+        assert torch.equal(got, PK.all_gather_plain(x))
+        assert torch.equal(got, PK.ring_all_gather(x))
+    assert LC.lcsc_ring_all_gather.launches == before + 2

@@ -162,12 +162,14 @@ def test_ctx_gather_scatter_resolution_and_guards():
         ctx.reduce_scatter(torch.ones(2, 3, 6))
     with pytest.raises(ValueError, match="stacked"):
         ctx.all_gather(torch.ones(3, 4))
-    for op, item in (("all_gather_matmul", "B5"),
-                     ("matmul_reduce_scatter", "B6"),
-                     ("all_to_all", "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(ctx, op)(x) if op == "all_to_all" \
-                else getattr(ctx, op)(x, x)
+    with pytest.raises(NotImplementedError, match="A9"):
+        ctx.all_to_all(x)
+    # the GEMM collectives take stacked operands over this axis too
+    w = torch.ones(2, 6, 4)
+    assert ctx.all_gather_matmul(x, w).shape == (2, 8, 4)
+    assert ctx.matmul_reduce_scatter(x, w).shape == (2, 2, 4)
+    with pytest.raises(ValueError, match="stacked"):
+        ctx.all_gather_matmul(torch.ones(3, 4, 6), w)
     # ring_shift is ported (kernel B8): one hop right, dim 0 rolled
     np.testing.assert_array_equal(ctx.ring_shift(x).numpy(),
                                   torch.roll(x, 1, 0).numpy())

@@ -10,15 +10,18 @@ Phases (any failure exits non-zero before the last line is printed):
 2. build: the hand-written kernels of ``src/repro_torch/kernels/csrc`` are
    compiled by nvcc for sm_90a (seconds printed);
 3. kernels: each kernel of the serving and training paths runs at the
-   shapes those paths give it (every GEMM+AR site and prefill bucket, flash
+   shapes those paths give it (the GEMM at M 1-200 x ragged K, N, at the
+   dense decode logits as one stacked launch over the 4 ranks' shards —
+   bit-identical to one launch a shard and to a second call —, one shard,
+   the training loss (stacked bit-identical too), an MLP shape and the
+   moonshot and falcon logits; every GEMM+AR site and prefill bucket, flash
    on the strided views prefill passes — also at moonshot's 16 heads of
    128 —, the grouped GEMM at every MoE shape (64 groups; C = 1, 60, 240;
-   w1/w3 and w2; f32 and bf16 out), the GEMM tile at moonshot's logits
-   shape, the selective scan at falcon-mamba's prefill groups (S = 60, 174,
-   405) and decode (B = 8, S = 1) with the stacked state — bit-identical
-   for chunk 1, 64 and 256 and over S + 4 steps chained —, the ring
-   all-gather and
-   reduce-scatter at every FSDP shard shape of the (2, 4) training run and
+   w1/w3 and w2; f32 and bf16 out), the selective scan at falcon-mamba's
+   prefill groups (S = 60, 174, 405) and decode (B = 8, S = 1) with the
+   stacked state — bit-identical for chunk 1, 64 and 256 and over S + 4
+   steps chained —, the ring all-gather and reduce-scatter at every FSDP
+   shard shape of the (2, 4) training run and
    at 4 and 8 ranks, each for 1-4 chunks, whose results must be
    bit-identical; the p2p ring shift on k of the sequence-parallel path,
    (4, 1, 4, 2048, 64) bf16, and at ragged shapes, bit-identical to the
@@ -36,18 +39,26 @@ Phases (any failure exits non-zero before the last line is printed):
    plain version, one PyTorch library call of the same function where one
    exists (a yardstick only, never called by the port) and its bound
    (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16 — 67 TFLOP/s
-   f32 for the scan —, the larger);
+   f32 for the scan —, the larger). The decode-shaped GEMM rows and the
+   loss row are timed cold: each call takes the next of a set of weights
+   larger than the 50 MB L2 (``rotate``), kernel, plain, library call and
+   before-column alike, as a serving step reads each head shard once; the
+   others warm, with the same operands every call (``timing`` in each
+   entry). The GEMM and AG×GEMM rows also time the mma.sync kernels they
+   ran on before the Hopper mainloop (``ms_mm_tile``);
 4. serving: the continuous-batching engine serves 8 requests of a seeded
    synthetic trace with tinyllama-1.1b at full width and depth on 4 virtual
    tensor-parallel ranks, every GEMM+AR site pinned to the fused kernel;
    every request must complete with finite logits, and every kernel's
-   launch count over that run must be > 0. The same trace then runs with
-   the ``bulk`` backend (no GEMM+AR kernel) for the share of agreeing greedy
-   tokens and the first prefill logits' largest difference (beside the
-   ring backend's, a third summation order);
-3b. backward: the autograd wrappers of the GEMM tile, flash attention and
-   GEMM+AR at the training path's shapes — outputs and gradients against
-   plain-torch autograd of their plain versions, relative error <= 2e-2;
+   launch count over that run must be > 0 — the GEMM's exactly one a step
+   (one stacked launch for the 4 ranks' logits). The same trace then runs
+   with the ``bulk`` backend (no GEMM+AR kernel) for the share of agreeing
+   greedy tokens and the first prefill logits' largest difference (beside
+   the ring backend's, a third summation order);
+3b. backward: the autograd wrappers of the GEMM (and its stacked form),
+   flash attention and GEMM+AR at the training path's shapes — outputs and
+   gradients against plain-torch autograd of their plain versions,
+   relative error <= 2e-2;
 4b. reference: tinyllama-1.1b at full width cut to 2 layers, card path
    (bf16, kernels) against the port's plain float32 path on the CPU with
    the same weights, on one small prefill group — relative Frobenius error
@@ -57,9 +68,10 @@ Phases (any failure exits non-zero before the last line is printed):
    depth (48 layers, 64 experts top-6, 56 GB of bf16 parameters, built
    once) on 4 virtual ranks, expert parallel (16 experts per rank), every
    GEMM+AR site on the fused kernel; every request must complete with
-   finite logits and the grouped-GEMM, flash, GEMM+AR and GEMM-tile
-   kernels must each launch. The same parameters then serve the trace with
-   the ring MoE combine for the share of agreeing greedy tokens;
+   finite logits and the grouped-GEMM, flash, GEMM+AR and GEMM kernels
+   must each launch, the GEMM exactly once a step. The same parameters then
+   serve the trace with the ring MoE combine for the share of agreeing
+   greedy tokens;
 4c'. MoE block: ``pk_moe_replicated`` at full width on a 512-bucket
    prefill group, the grouped-GEMM kernel against the plain grouped GEMM
    on the same inputs — relative Frobenius error <= 1e-2;
@@ -73,7 +85,7 @@ Phases (any failure exits non-zero before the last line is printed):
    bf16 parameters) on 4 virtual ranks with exact buckets (one bucket per
    prompt length); every request must complete with finite logits, the
    selective-scan kernel must launch exactly 64 x (prefill + decode steps)
-   times and the GEMM tile must launch;
+   times and the GEMM exactly once a step;
 4f. SSM reference: the same model cut to 2 layers, one prefill group on
    the card against the port's plain f32 path on the CPU on the same
    (1, 4) mesh — logits within 3e-2 — and, on the card, a prefill of 60
@@ -85,7 +97,8 @@ Phases (any failure exits non-zero before the last line is printed):
    seq 512 in 2 microbatches, 4 steps, and writes a checkpoint; every loss
    must be finite and every kernel of the path (the ring all-gather of each
    FSDP weight gather, the ring reduce-scatter of each FSDP gradient, the
-   GEMM+AR, flash and GEMM-tile kernels inside autograd) must launch;
+   GEMM+AR, flash and GEMM kernels inside autograd) must launch, the GEMM
+   exactly once a dp group, microbatch and step (the loss, stacked);
 5b. train reference: the same model cut to 2 layers, one forward and
    backward on the card (bf16, kernels) against the port's plain float32
    path on the CPU with the same weights and batch — loss within relative
@@ -93,9 +106,9 @@ Phases (any failure exits non-zero before the last line is printed):
 5c. sequence-parallel training: ``forward_train(seq_sharded=True)`` and
    its backward, 3 calls, tinyllama-1.1b at full width and depth on (1, 4)
    with ring attention over 4 virtual ranks, batch 1 x seq 8192,
-   ``comm_backend="fused"``, remat; every loss finite, the p2p and flash
-   hop launches exactly what the code implies, the dense mix's loss within
-   1e-2, one layer's island under fused equal to bulk bit for bit
+   ``comm_backend="fused"``, remat; every loss finite, the p2p, flash hop
+   and GEMM launches exactly what the code implies, the dense mix's loss
+   within 1e-2, one layer's island under fused equal to bulk bit for bit
    (details in ``train_sp``);
 5d. SP reference: the same model cut to 2 layers, seq 2048 on (1, 4), the
    card against the port's plain f32 path on the CPU — loss within
@@ -121,6 +134,7 @@ It needs one CUDA device and the repository's ``src/`` beside it.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -196,6 +210,49 @@ def time_ms_single(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def rotate(fn, arg_sets):
+    """A call of ``fn`` on the next of ``arg_sets`` each time: the cold
+    method. Rotating over a set of distinct operands larger than the L2 makes
+    every call read its operands from device memory, as the serving path
+    does when it reads each rank's head shard once a step."""
+    it = itertools.cycle(arg_sets)
+    return lambda: fn(*next(it))
+
+
+def mm_tile_matmul(x, w):
+    """B1's earlier kernel (``csrc/mm_tile_yardstick.cu``: the mma.sync
+    tile it ran on before the Hopper mainloop), timed as the before-column
+    ``ms_mm_tile``; the port never calls it."""
+    import torch
+
+    from repro_torch.kernels import _build
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    _build.check(_build.library().pk_mm_tile_matmul_bf16(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], w.shape[1],
+        x.shape[1], x.stride(0), w.stride(0), out.stride(0),
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "pk_mm_tile_matmul_bf16")
+    return out
+
+
+def mm_tile_ag_matmul(x, w):
+    """B5's earlier kernel on the mma.sync tile, the before-column of
+    ``ag_matmul_fused``; the port never calls it."""
+    import torch
+
+    from repro_torch.core import pgl
+    from repro_torch.kernels import _build
+    r, m_loc, k = x.shape
+    out = torch.empty((r, r * m_loc, w.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    _build.check(_build.library().pk_mm_tile_ag_matmul_bf16(
+        *[_build.host_table(pgl.pointer_table(t)) for t in (x, w, out)], r,
+        m_loc, w.shape[2], k, torch.cuda.current_stream(x.device).cuda_stream),
+        "pk_mm_tile_ag_matmul_bf16")
+    return out
+
+
 def rel_err(got, want) -> float:
     got, want = got.detach().float(), want.detach().float()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
@@ -244,9 +301,12 @@ def check_kernels(dev) -> dict:
 
     def record(name, shape, source, replaces, run, plain, library, tol,
                nbytes, flops, peak=PEAK_BF16_FLOPS, plain_iters=20,
-               checked=None):
+               checked=None, before=None, timing="warm"):
         """Compare (unless ``checked`` gives the (rel, max abs) errors of a
-        check already made), then time; the kernel's JSON entry."""
+        check already made), then time; the kernel's JSON entry. ``before``
+        times the kernel this one replaced (``ms_mm_tile``); ``timing``
+        names the method: "warm" (the same operands every call) or "cold
+        ..." (``rotate``), for kernel, plain, library and before alike."""
         err, max_abs = checked or compare(name, shape, run, plain, tol)
         ms = time_ms(run)
         plain_ms = time_ms(plain, iters=plain_iters, reps=min(5, plain_iters))
@@ -254,28 +314,21 @@ def check_kernels(dev) -> dict:
         single = time_ms_single(run)
         b_ms, by = bound_ms(nbytes, flops, peak)
         lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "shape": shape, "launches": 0,
+                 "max_abs_err": max_abs, "rel_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                 "library_ms": lib_ms, "ms_single": single, "timing": timing}
+        extra = ""
+        if before is not None:
+            entry["ms_mm_tile"] = time_ms(before)
+            extra = f" ms_mm_tile={entry['ms_mm_tile']:.4f}"
         print(f"[kernel] {name} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_txt} bound_ms={b_ms:.4f} ({by}); "
-              f"ms_single={single:.4f}", flush=True)
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "shape": shape, "launches": 0,
-                "max_abs_err": max_abs, "rel_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-                "library_ms": lib_ms, "ms_single": single}
+              f"ms_single={single:.4f}{extra}; timing {timing}", flush=True)
+        return entry
 
-    # matmul: the logits GEMM of a decode step, one rank's vocab shard
-    # (x (8, 2048) @ lm_head (2048, 32000/4)); then the MLP-shaped GEMM
-    # of the issue's bound table as a second, compute-bound check
-    for m, k, n, key in ((8, 2048, 8000, "matmul"),
-                         (2048, 2048, 1408, "matmul@mlp")):
-        x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
-        e = record("matmul", f"x({m},{k})@w({k},{n})",
-                   "src/repro_torch/kernels/csrc/matmul.cu",
-                   "src/repro/kernels/matmul.py:31",
-                   lambda: MM.matmul(x, w), lambda: MM.matmul_plain(x, w),
-                   lambda: torch.matmul(x, w), TOL_BF16_OUT,
-                   (m * k + k * n + m * n) * 2, 2.0 * m * n * k)
-        entries[key] = e
+    entries.update(check_matmul(dev, record, compare, randn))
 
     # flash attention: the prefill bucket groups (B=4, S=512 and S=128),
     # tinyllama heads. Prefill hands the kernel head-transposed views of
@@ -416,38 +469,140 @@ def check_kernels(dev) -> dict:
             TOL_BF16_OUT, 4 * q.numel() * 2,
             4.0 * b * h * hd * (s * (s + 1) // 2))
 
-    # the GEMM tile at the moonshot logits shape: a decode step's 8 tokens
-    # against one rank's vocab shard (163840 / 4)
-    m, k, n = 8, 2048, 40960
-    x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
-    entries["matmul@moonshot"] = record(
-        "matmul", f"x({m},{k})@w({k},{n})",
-        "src/repro_torch/kernels/csrc/matmul.cu",
-        "src/repro/kernels/matmul.py:31", lambda: MM.matmul(x, w),
-        lambda: MM.matmul_plain(x, w), lambda: torch.matmul(x, w),
-        TOL_BF16_OUT, (m * k + k * n + m * n) * 2, 2.0 * m * n * k)
-
-    # the GEMM tile at the falcon-mamba-7b logits shape: one rank's vocab
-    # shard (65024 / 4) against a prefill group's 4 rows (checked) and a
-    # decode step's 8 tokens (timed)
-    k, n = 4096, 16256
-    w = randn(k, n, scale=k ** -0.5)
-    for m in (4, 8):
-        x = randn(m, k)
-        shape = f"x({m},{k})@w({k},{n})"
-        run = partial(MM.matmul, x, w)
-        plain = partial(MM.matmul_plain, x, w)
-        if m != 8:
-            compare("matmul", shape, run, plain, TOL_BF16_OUT)
-            continue
-        entries["matmul@falcon"] = record(
-            "matmul", shape, "src/repro_torch/kernels/csrc/matmul.cu",
-            "src/repro/kernels/matmul.py:31", run, plain,
-            partial(torch.matmul, x, w), TOL_BF16_OUT,
-            (m * k + k * n + m * n) * 2, 2.0 * m * n * k)
     entries.update(check_mamba_scan(dev, record, compare))
     entries.update(check_ring_kernels(dev, record, compare, randn))
     entries.update(check_tp_kernels(dev, record, compare, randn))
+    return entries
+
+
+def check_matmul(dev, record, compare, randn) -> dict:
+    """Phase 3, B1 (``kernels/matmul.py``) at the shapes its paths give it,
+    against ``matmul_plain`` within ``TOL_BF16_OUT``:
+
+    * M in (1, 8, 16, 63, 64, 65, 200) x ragged (K, N) (40, 72), (264,
+      136), checked;
+    * the dense decode logits as serving runs them, x (8, 2048) against the
+      4 ranks' stacked head shards (4, 2048, 8000) in one launch
+      (``matmul_stacked``): bit-identical to one launch a shard and to a
+      second call; timed cold (rotated over 2 stacks, 262 MB);
+    * one rank's shard x (8, 2048) @ w (2048, 8000), timed cold (rotated over
+      the 4 shards, 131 MB);
+    * the MLP-shaped compute-bound row x (2048, 2048) @ w (2048, 1408),
+      timed warm as before;
+    * the training loss, x (1024, 2048) @ w (2048, 8000) a rank, timed cold
+      (the 4 shards), and its stacked form bit-identical to one launch a
+      shard;
+    * the moonshot and falcon-mamba logits, x (8, 2048) @ w (2048, 40960)
+      and x (8, 4096) @ w (4096, 16256) (and the falcon prefill group's 4
+      rows, checked), timed cold (2 copies each, 336 / 266 MB).
+
+    Every timed row also times ``mm_tile_matmul``, the kernel B1 ran on
+    before, by the same method (``ms_mm_tile``); the stacked row's is its
+    four launches, as serving made them."""
+    import torch
+
+    from repro_torch.kernels import matmul as MM
+    src, rep = ("src/repro_torch/kernels/csrc/matmul.cu",
+                "src/repro/kernels/matmul.py:31")
+    entries = {}
+
+    def cost(m, k, n, r=1):
+        return (m * k + r * k * n + r * m * n) * 2, 2.0 * r * m * n * k
+
+    for m in (1, 8, 16, 63, 64, 65, 200):
+        for k, n in ((40, 72), (264, 136)):
+            x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+            compare("matmul", f"x({m},{k})@w({k},{n})",
+                    partial(MM.matmul, x, w), partial(MM.matmul_plain, x, w),
+                    TOL_BF16_OUT)
+
+    def same_bits(x, w, shape):
+        got = MM.matmul_stacked(x, w)
+        ranks = torch.stack([MM.matmul(x, w[j]) for j in range(w.shape[0])])
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ranks)
+                and torch.equal(got, MM.matmul_stacked(x, w))):
+            raise AssertionError(f"matmul_stacked {shape}: not bit-identical "
+                                 "to one launch a shard, or to itself")
+        print(f"[kernel] matmul_stacked {shape}: bit-identical to "
+              f"{w.shape[0]} single launches and to a second call",
+              flush=True)
+
+    # the dense decode logits: x against the 4 ranks' stacked shards
+    m, k, n, r = 8, 2048, 8000, 4
+    x = randn(m, k)
+    stacks = [randn(r, k, n, scale=k ** -0.5) for _ in range(2)]
+    shape = f"x({m},{k})@w({r},{k},{n}) stacked"
+    same_bits(x, stacks[0], shape)
+    checked = compare("matmul", shape, partial(MM.matmul_stacked, x,
+                                               stacks[0]),
+                      partial(MM.matmul_stacked_plain, x, stacks[0]),
+                      TOL_BF16_OUT)
+    sets = [(x, w) for w in stacks]
+    entries["matmul"] = record(
+        "matmul", shape, src, rep, rotate(MM.matmul_stacked, sets),
+        rotate(MM.matmul_stacked_plain, sets), rotate(torch.matmul, sets),
+        TOL_BF16_OUT, *cost(m, k, n, r), checked=checked,
+        before=rotate(lambda x, w: [mm_tile_matmul(x, w[j])
+                                    for j in range(r)], sets),
+        timing="cold (w rotated over 2 stacks, 262 MB)")
+    # one rank's shard, rotated over the 4 shards of a stack
+    shards = [(x, stacks[0][j]) for j in range(r)]
+    shape = f"x({m},{k})@w({k},{n})"
+    checked = compare("matmul", shape, partial(MM.matmul, *shards[0]),
+                      partial(MM.matmul_plain, *shards[0]), TOL_BF16_OUT)
+    entries["matmul@rank"] = record(
+        "matmul", shape, src, rep, rotate(MM.matmul, shards),
+        rotate(MM.matmul_plain, shards), rotate(torch.matmul, shards),
+        TOL_BF16_OUT, *cost(m, k, n), checked=checked,
+        before=rotate(mm_tile_matmul, shards),
+        timing="cold (w rotated over 4 shards, 131 MB)")
+    # the training loss a rank, rotated over the 4 shards; stacked bits
+    xl = randn(1024, k)
+    same_bits(xl, stacks[0], f"x(1024,{k})@w({r},{k},{n}) stacked")
+    shards = [(xl, stacks[0][j]) for j in range(r)]
+    shape = f"x(1024,{k})@w({k},{n})"
+    checked = compare("matmul", shape, partial(MM.matmul, *shards[0]),
+                      partial(MM.matmul_plain, *shards[0]), TOL_BF16_OUT)
+    entries["matmul@loss"] = record(
+        "matmul", shape, src, rep, rotate(MM.matmul, shards),
+        rotate(MM.matmul_plain, shards), rotate(torch.matmul, shards),
+        TOL_BF16_OUT, *cost(1024, k, n), checked=checked,
+        before=rotate(mm_tile_matmul, shards),
+        timing="cold (w rotated over 4 shards, 131 MB)")
+    del stacks, shards, sets
+
+    # the compute-bound MLP-shaped row, warm as it was
+    m, k, n = 2048, 2048, 1408
+    x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+    entries["matmul@mlp"] = record(
+        "matmul", f"x({m},{k})@w({k},{n})", src, rep,
+        partial(MM.matmul, x, w), partial(MM.matmul_plain, x, w),
+        partial(torch.matmul, x, w), TOL_BF16_OUT, *cost(m, k, n),
+        before=partial(mm_tile_matmul, x, w))
+
+    # the moonshot logits (163840 / 4 a rank) and the falcon-mamba logits
+    # (65024 / 4; a prefill group's 4 rows checked), 2 copies of w each
+    for key, k, n, ms in (("matmul@moonshot", 2048, 40960, (8,)),
+                          ("matmul@falcon", 4096, 16256, (4, 8))):
+        ws = [randn(k, n, scale=k ** -0.5) for _ in range(2)]
+        for m in ms:
+            x = randn(m, k)
+            shape = f"x({m},{k})@w({k},{n})"
+            checked = compare("matmul", shape, partial(MM.matmul, x, ws[0]),
+                              partial(MM.matmul_plain, x, ws[0]),
+                              TOL_BF16_OUT)
+            if m != 8:
+                continue
+            sets = [(x, w) for w in ws]
+            entries[key] = record(
+                "matmul", shape, src, rep, rotate(MM.matmul, sets),
+                rotate(MM.matmul_plain, sets), rotate(torch.matmul, sets),
+                TOL_BF16_OUT, *cost(m, k, n), checked=checked,
+                before=rotate(mm_tile_matmul, sets),
+                timing=f"cold (w rotated over 2 copies, "
+                       f"{2 * k * n * 2 / 1e6:.0f} MB)")
+        del ws
     return entries
 
 
@@ -620,7 +775,8 @@ def check_tp_kernels(dev, record, compare, randn) -> dict:
                 name, shape,
                 "src/repro_torch/kernels/csrc/collective_matmul.cu",
                 replaces, run, plain, library, tol,
-                (x.numel() + w.numel()) * 2 + out_bytes, flops)
+                (x.numel() + w.numel()) * 2 + out_bytes, flops,
+                before=partial(mm_tile_ag_matmul, x, w) if ag else None)
     print("[kernel] ag_matmul_fused / matmul_rs_fused: bit-identical for "
           "n_chunks 1-4 at every shape", flush=True)
 
@@ -770,6 +926,9 @@ def check_backward(dev) -> None:
          partial(FA.flash_attention, causal=True),
          partial(FA.flash_attention_plain, causal=True),
          tuple(randn(b, s, h, hd).transpose(1, 2) for h in (hq, hkv, hkv))),
+        ("matmul_stacked", "x(1024,2048)@w(4,2048,8000)", MM.matmul_stacked,
+         MM.matmul_stacked_plain,
+         (randn(1024, 2048), randn(4, 2048, 8000, scale=2048 ** -0.5))),
         ("pk_matmul_ar", "x(4,1024,1408)@w(4,1408,2048)", CM.matmul_ar_fused,
          CM.matmul_ar_plain,
          (randn(4, 1024, 1408), randn(4, 1408, 2048, scale=5632 ** -0.5))))
@@ -817,6 +976,18 @@ def _counters():
             "ag_matmul_fused": CM.ag_matmul_fused,
             "matmul_rs_fused": CM.matmul_rs_fused,
             "lcsc_ring_all_gather": LC.lcsc_ring_all_gather}
+
+
+def check_logits_launches(tag: str, launches: dict, st: dict) -> None:
+    """A serving run computes its logits once a step, all ranks' vocab
+    shards in one stacked launch: B1 launches exactly prefill + decode
+    steps times."""
+    want = st["prefill_steps"] + st["decode_steps"]
+    print(f"[{tag}] matmul launches {launches['matmul']}, expected one a "
+          f"step: {want}", flush=True)
+    if launches["matmul"] != want:
+        raise AssertionError(f"{tag} launched matmul {launches['matmul']} "
+                             f"times, not {want}")
 
 
 def serve(dev) -> dict:
@@ -871,6 +1042,7 @@ def serve(dev) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"the serving run launched no {name} kernel")
+    check_logits_launches("serve", launches, st)
 
     # the same trace through the bulk backend: no GEMM+AR kernel
     ref = engine("bulk")
@@ -1014,6 +1186,7 @@ def serve_moe(dev) -> dict:
         if n <= 0:
             raise AssertionError(f"the MoE serving run launched no {name} "
                                  "kernel")
+    check_logits_launches("serve-moe", launches, st)
 
     # the same trace with the MoE combine as a ring (bf16 hops) on the same
     # parameter tree: a second summation order
@@ -1270,8 +1443,7 @@ def serve_ssm(dev) -> dict:
                              f"{launches['mamba_scan']} times, not "
                              f"{cfg.n_layers} layers x {st['steps']} steps "
                              f"= {want}")
-    if launches["matmul"] <= 0:
-        raise AssertionError("the SSM serving run launched no matmul kernel")
+    check_logits_launches("serve-ssm", launches, st)
     check_ssm_reference(dev, eng)
     del eng, done
     gc.collect()
@@ -1420,6 +1592,13 @@ def train(dev, steps: int = 4) -> dict:
         if n <= 0:
             raise AssertionError(f"the training run launched no {name} "
                                  "kernel")
+    # the loss island runs once a dp group and microbatch, one stacked B1
+    # launch a 512-token chunk of its sequences
+    want = steps * 2 * mb * max(1, seq // 512)
+    if launches["matmul"] != want:
+        raise AssertionError(f"training launched matmul {launches['matmul']} "
+                             f"times, not steps x dp x microbatches x loss "
+                             f"chunks = {want}")
     return launches
 
 
@@ -1555,7 +1734,8 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
     med = statistics.median(walls)
     passes = 2 if run.remat else 1
     want = {"p2p_ring_shift": 2 * (r - 1) * cfg.n_layers * passes * calls,
-            "flash_attention_hop": r * cfg.n_layers * passes * calls}
+            "flash_attention_hop": r * cfg.n_layers * passes * calls,
+            "matmul": (seq // 512) * calls}
     print(f"[train-sp] tinyllama-1.1b full width and depth, mesh (1, 4), "
           f"seq_sharded ring attention, comm_backend=fused, batch 1 x seq "
           f"{seq} ({seq // r} tokens a rank), remat: losses "
@@ -1567,9 +1747,10 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
     print(f"[train-sp] launches over {calls} calls {launches}; per call "
           f"{ {k: v / calls for k, v in launches.items()} }; expected p2p "
           f"2·(R-1)·layers·passes = {want['p2p_ring_shift'] // calls}, hop "
-          f"R·layers·passes = {want['flash_attention_hop'] // calls} a call "
-          f"(passes = {passes}: remat reruns each layer's forward in the "
-          "backward)", flush=True)
+          f"R·layers·passes = {want['flash_attention_hop'] // calls}, matmul "
+          f"one stacked launch a 512-token loss chunk = "
+          f"{want['matmul'] // calls} a call (passes = {passes}: remat reruns "
+          "each layer's forward in the backward)", flush=True)
     if not (all(map(math.isfinite, losses)) and finite):
         raise AssertionError(f"sp-train losses or gradients not finite: "
                              f"{losses}")
@@ -1577,9 +1758,8 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
         if launches[name] != n:
             raise AssertionError(f"sp-train launched {name} "
                                  f"{launches[name]} times, not {n}")
-    for name in ("matmul", "pk_matmul_ar"):
-        if launches[name] <= 0:
-            raise AssertionError(f"sp-train launched no {name} kernel")
+    if launches["pk_matmul_ar"] <= 0:
+        raise AssertionError("sp-train launched no pk_matmul_ar kernel")
     for p in leaves:
         p.requires_grad_(False)
     with torch.no_grad():
@@ -1864,7 +2044,8 @@ def main() -> int:
             key, "serve" if key in serve_launches else "train")
         main_entries.append(dict(entries[key], launches=by_path[main_path],
                                  launches_by_path=by_path))
-    for key in ("matmul@mlp", "pk_matmul_ar@decode", "matmul@moonshot",
+    for key in ("matmul@rank", "matmul@loss", "matmul@mlp",
+                "pk_matmul_ar@decode", "matmul@moonshot",
                 "flash_attention@moonshot", "grouped_matmul@prefill",
                 "matmul@falcon", "mamba_scan@prefill",
                 "flash_attention_hop@0", "flash_attention_hop@2",

@@ -8,8 +8,9 @@ keyed by a hash of the sources and the flags, built at first use into
 sources are unchanged. Nothing but the repository's sources and the CUDA
 toolkit goes into it. A failed build raises with nvcc's output.
 
-Each C launcher returns ``cudaGetLastError()`` after its launch; the
-Python wrappers raise when it is not 0.
+Each C launcher returns ``cudaGetLastError()`` after its launch (or minus
+the ``CUresult`` with which ``cuTensorMapEncodeTiled`` refused a tensor
+map); the Python wrappers raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -36,8 +37,11 @@ _L = ctypes.c_int64
 
 #: C symbol -> argtypes (restype is int: the cudaError_t of the launch)
 SIGNATURES = {
-    # x, w, out, M, N, K, ldx, ldw, ldo, stream
-    "pk_matmul_bf16": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
+    # x, ldx, w slab ptrs, Z (slabs), ldw, out slab ptrs, M, N, K, cfg,
+    # grid (the plan's), stream
+    "pk_matmul_bf16": [_P, _L, ctypes.POINTER(ctypes.c_uint64), _I, _L,
+                       ctypes.POINTER(ctypes.c_uint64), _I, _I, _I, _I, _I,
+                       _P],
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, q strides (b, h, s),
     # k strides, v strides, causal, window, scale, stream
     "pk_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -49,9 +53,17 @@ SIGNATURES = {
                          + [_P, _I, _I, _I, _I, _P],
     "pk_matmul_rs_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
                          + [_P, _I, _I, _I, _I, _P],
-    # x ptrs, w ptrs, out ptrs, R, M (rows a rank), N, K, stream
+    # x ptrs, w ptrs, out ptrs, R, M (rows a rank), N, K, cfg, grid (the
+    # plan's), stream
     "pk_ag_matmul_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 3
-                         + [_I, _I, _I, _I, _P],
+                         + [_I] * 6 + [_P],
+    # the mma.sync kernels B1 and B5 ran on before the Hopper mainloop, a
+    # timing yardstick (csrc/mm_tile_yardstick.cu): x, w, out, M, N, K,
+    # ldx, ldw, ldo, stream; and x ptrs, w ptrs, out ptrs, R, M, N, K,
+    # stream
+    "pk_mm_tile_matmul_bf16": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
+    "pk_mm_tile_ag_matmul_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 3
+                                 + [_I, _I, _I, _I, _P],
     # in ptrs, out ptrs, flags, flag capacity (ints), R, blk bytes, stream
     "pk_lcsc_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
                           + [_P, _L, _I, _L, _P],
@@ -140,7 +152,11 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, name: str) -> None:
-    """Raise when a launcher reports a CUDA error."""
+    """Raise when a launcher reports an error: a cudaError_t (> 0), or minus
+    the CUresult of a refused tensor-map encode (< 0)."""
+    if err < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a tensor "
+                           f"map with CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 

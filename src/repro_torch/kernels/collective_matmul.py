@@ -14,20 +14,24 @@ semaphores between steps, with each hop split into row sub-chunks:
   all-gather inside the kernel -> (R, m/R, n) f32 on every rank.
 
 CUDA route (``csrc/collective_matmul.cu``, device functions in
-``csrc/pk.cuh`` and ``csrc/mm_tile.cuh``, the 64 x 64 bf16 GEMM tile with
-f32 accumulation). Blocks run in parallel and in no order on Hopper, and a
+``csrc/pk.cuh``). Blocks run in parallel and in no order on Hopper, and a
 block that spin-waits on one not yet resident deadlocks, so no block of
 these kernels waits:
 
-* AG×GEMM: grid (n tile, m_loc tile, destination rank d × hop i). The
-  block takes the source ``s = (d - i) mod R`` — the shard rank d holds
-  after i hops of the right-going ring — reads x[s]'s row tile through the
-  pointer table (on one card the read is the gather; a multi-GPU node
-  feeds peer pointers), multiplies it by w[d] and stores the tile into
-  rows ``s·m_loc + ...`` of out[d] in bf16. Nothing depends on another
-  block. Bound at tinyllama's MLP (x (4, 1024, 2048), w (4, 2048, 2816)):
-  the tensor cores, 1.9e11 operations.
-* GEMM×RS and GEMM×AR: one kernel, store-and-count:
+* AG×GEMM, on the Hopper mainloop of ``csrc/hopper_gemm.cuh`` (TMA,
+  mbarrier stages, ``wgmma``; the regime and grid from
+  ``kernels/matmul.py::plan``): problem (destination rank d, hop i) takes
+  the source ``s = (d - i) mod R`` — the shard rank d holds after i hops of
+  the right-going ring —, loads x[s]'s row tiles through source s's tensor
+  map (on one card the load is the gather; on a multi-GPU node the same
+  maps take peer pointers), multiplies them by w[d] and stores the tiles
+  into rows ``s·m_loc + ...`` of out[d] in bf16, masked at m_loc so that a
+  ragged tile never reaches source s+1's rows. Nothing depends on another
+  block, and the tiling does not depend on ``n_chunks``. Bound at
+  tinyllama's MLP (x (4, 1024, 2048), w (4, 2048, 2816)): the tensor
+  cores, 1.9e11 operations.
+* GEMM×RS and GEMM×AR: one kernel on the 64 x 64 ``mma.sync`` tile of
+  ``csrc/mm_tile.cuh`` (f32 accumulation), store-and-count:
   1. grid (n tiles, m tiles, source rank r); the block computes its
      partial tile ``x[r, rows] @ w[r, :, cols]`` in f32;
   2. the tile's rows belong to owner rank ``o = row // (m/R)`` (the
@@ -45,7 +49,7 @@ these kernels waits:
   written and read, comes on top), reading w at decode.
 
 The fixed summation order makes every result independent of arrival order.
-Row chunking (``n_chunks``) is implicit in the 64-row tiles: it is
+Row chunking (``n_chunks``) is implicit in the row tiles: it is
 validated with ``fit_chunks`` and cannot change the result.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
@@ -67,8 +71,9 @@ from repro_torch.core.comms import \
     all_gather_matmul_baseline as ag_matmul_plain
 from repro_torch.core.schedule import fit_chunks
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import check_tma_operand, plan, sm_count
 
-#: the kernel's output tile (csrc/mm_tile.cuh: MT_BM x MT_BN)
+#: the GEMM×RS / AR kernel's output tile (csrc/mm_tile.cuh: MT_BM x MT_BN)
 TILE_M = 64
 TILE_N = 64
 #: pointer tables are passed to the kernel by value, at most this many ranks
@@ -218,12 +223,19 @@ def ag_matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
     x, w = _cuda_operands(x, w, "ag_matmul")
     r, m_loc, k = x.shape
     n = w.shape[2]
+    for j in range(r):
+        check_tma_operand(x[j], "ag_matmul x")
+        check_tma_operand(w[j], "ag_matmul w")
     out = torch.empty((r, r * m_loc, n), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    if k == 0:
+        return out.zero_()
+    p = plan(m_loc, n, k, r * r, sms=sm_count(x.device), gather=True)
     err = _build.library().pk_ag_matmul_bf16(
         *[_build.host_table(pgl.pointer_table(t)) for t in (x, w, out)],
-        r, m_loc, n, k, torch.cuda.current_stream(x.device).cuda_stream)
+        r, m_loc, n, k, p.cfg, p.grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pk_ag_matmul_bf16")
     ag_matmul_fused.launches += 1
     return out

@@ -5,7 +5,9 @@
 //
 // AG x GEMM: x: R slabs of (M x K) bf16 row shards, w: R slabs of (K x N)
 // bf16; out: R slabs of (R*M x N) bf16, rows s*M.. of out[d] = x[s] @ w[d].
-// No block depends on another.
+// It runs on the Hopper mainloop of hopper_gemm.cuh (TMA, mbarrier stages,
+// wgmma); no block depends on another. GEMM x RS / AR keep the mma.sync
+// tile of mm_tile.cuh.
 //
 // GEMM x RS / AR: x: R slabs of (M x K) bf16, w: R slabs of (K x N) bf16
 // (K is each rank's shard of the reduction dim). landing: R owner slots of
@@ -20,42 +22,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_gemm.cuh"
 #include "mm_tile.cuh"
 #include "pk.cuh"
-
-// AG x GEMM: grid (n tile, m tile, d * R + i); hop i of the right-going
-// ring brings rank d the shard of rank s = (d - i) mod R.
-__global__ void __launch_bounds__(MT_THREADS)
-    pk_ag_matmul_kernel(pk::PtrTable xs, pk::PtrTable ws, pk::PtrTable outs,
-                        int R, int M, int N, int K) {
-  __shared__ MmTileSmem sm;
-  const int nt = blockIdx.x, mt = blockIdx.y;
-  const int d = blockIdx.z / R, i = blockIdx.z - d * R;
-  const int s = (d - i + R) % R;
-  const int m0 = mt * MT_BM, n0 = nt * MT_BN;
-
-  // the peer read of x[s] through the pointer table is the gather
-  float acc[2][4][4];
-  mm_tile((const __nv_bfloat16*)xs.p[s], K, (const __nv_bfloat16*)ws.p[d],
-          N, M, N, K, m0, n0, sm, acc);
-
-  __nv_bfloat16* out = (__nv_bfloat16*)outs.p[d] + (long)s * M * N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + a * 16 + g + h * 8;
-        const int col = n0 + wn + j * 8 + t4 * 2;  // N even: col + 1 < N
-        if (row >= M || col >= N) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (long)row * N + col) =
-            __floats2bfloat162_rn(acc[a][j][2 * h], acc[a][j][2 * h + 1]);
-      }
-}
 
 // GEMM x RS (kGather false) and GEMM x AR (true): store-and-count.
 template <bool kGather>
@@ -160,17 +129,19 @@ int launch_reduce(const unsigned long long* x_ptrs,
 
 }  // namespace
 
+// AG x GEMM on the Hopper mainloop: problem d * R + i is hop i of
+// destination rank d; its A is the tensor map of source s = (d - i) mod R's
+// x slab (the peer read is the gather), its B rank d's w, its rows s*M.. of
+// out[d]. cfg and grid come from the plan (kernels/matmul.py::plan).
 extern "C" int pk_ag_matmul_bf16(const unsigned long long* x_ptrs,
                                  const unsigned long long* w_ptrs,
                                  const unsigned long long* out_ptrs, int R,
-                                 int M, int N, int K, void* stream) {
-  if (R < 1 || R > PK_MAX_RANKS || N % 2 != 0)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((N + MT_BN - 1) / MT_BN, (M + MT_BM - 1) / MT_BM, R * R);
-  pk_ag_matmul_kernel<<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
-      pk::table(x_ptrs, R), pk::table(w_ptrs, R), pk::table(out_ptrs, R), R,
-      M, N, K);
-  return (int)cudaGetLastError();
+                                 int M, int N, int K, int cfg, int grid,
+                                 void* stream) {
+  if (R < 1 || R > PK_MAX_RANKS) return (int)cudaErrorInvalidValue;
+  const hg::Args g{R * R, R, 1, M, N, K};
+  return hg::launch(x_ptrs, R, K, w_ptrs, R, N, out_ptrs, R, g, cfg, grid,
+                    (cudaStream_t)stream);
 }
 
 extern "C" int pk_matmul_rs_bf16(const unsigned long long* x_ptrs,

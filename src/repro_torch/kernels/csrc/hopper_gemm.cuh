@@ -1,0 +1,572 @@
+// The Hopper GEMM mainloop shared by kernels/matmul.py (the port of
+// repro/kernels/matmul.py::matmul) and the AG x GEMM kernel of
+// kernels/collective_matmul.py (the port of
+// repro/kernels/collective_matmul.py::ag_matmul_fused).
+//
+// out (M x N, bf16) = A (M x K, bf16, row-major) @ B (K x N, bf16,
+// row-major), f32 accumulation, for Z problems in one launch. Problem z
+// reads A and B through tensor maps of a MapTable and stores into a slab of
+// an output pointer table (HgProblem below): the stacked form of B1 (one
+// x, R vocab shards of w) and B5 (block (d, i) reads source s = (d - i)
+// mod R's x slab) are two decodings of z.
+//
+// What bounds it on an H100 SXM, and what the design does about it:
+//
+// * compute-bound (M >= 65: prefill, the loss, the MLP GEMMs of B5):
+//   2*M*N*K operations over 989 TFLOP/s. Only wgmma reaches that rate, and
+//   only when its operands arrive in shared memory ahead of it. A block of
+//   three warpgroups computes 128 x 256 (or 128 x 192) output tiles: one
+//   producer thread issues TMA loads of 128 x 64 A and 64 x 256 B tiles
+//   into a ring of 4 stages (5 at 192; 128-byte swizzle, 48 KB a stage),
+//   two consumer warpgroups each run wgmma m64n256k16 on their 64 rows
+//   (the accumulator is 128 of a thread's 168 registers; no spills). Each
+//   stage has a full mbarrier (the producer's expect_tx; TMA completes the
+//   bytes) and an empty one (every consumer warp arrives once the wgmma
+//   that read the stage has retired: wait_group 1 keeps one K step of
+//   wgmma in flight). The grid is persistent, one block an SM walking the
+//   tiles, so the ring does not drain between tiles and the next tile's
+//   loads overlap this tile's epilogue. Wide tiles matter: each block
+//   re-reads its A and B tiles from L2, 48 KB per 4.2 MFLOP at 128 x 256
+//   against 32 KB per 2.1 MFLOP at 128 x 128, which measured slower.
+//   Multicasting B to the two blocks of a 2-block cluster (a third less L2
+//   traffic) measured no faster, so L2 is not what bounds the wide tile;
+//   the time outside the mainloop is (the epilogue below, the last wave).
+//   The plan takes 192 columns where that fills more SMs in the last wave.
+// * bytes-bound (M <= 64: the decode logits, a few tokens against a 33 to
+//   168 MB weight): B's bytes over 3.35 TB/s. The tensor-core work of a
+//   64-row wgmma with 8 real rows is noise next to streaming w, so the same
+//   mainloop runs with one consumer warpgroup, 64 x 64 tiles and 6 stages
+//   (16 KB each, 48 KB of w in flight a block, two blocks an SM), and x's
+//   box shrinks to M rounded up to 8 rows. The serving path multiplies the
+//   tokens by all R vocab shards in one launch (R x 125 tiles at tinyllama,
+//   R x 254 at falcon-mamba), which fills the card. K is never split: even
+//   at one rank's shard alone (125 tiles), splitting K in two and summing
+//   the f32 partials in a second kernel measured slower than one block a
+//   tile. Swapping A and B (w as the 64-row operand) would waste less
+//   tensor-core work but needs an MN-major A; the waste is not what bounds
+//   this regime.
+//
+// Ragged M, N and K edges come from TMA's zero fill (a box counts its full
+// bytes toward complete_tx even where it fills zeros); rows and columns
+// past M and N are masked at the store. TMA needs 16-byte-aligned bases
+// and row strides: the wrappers check both and raise before a launch.
+//
+// The shared-memory matrix descriptors (PTX ISA, wgmma "matrix
+// descriptor"): start address >> 4; for A, K-major 128B swizzle, the
+// stride between 8-row groups (SBO) is 1024 bytes and a k16 step advances
+// the start address by 32 bytes inside the swizzle atom; for B, MN-major
+// 128B swizzle (the transpose-b immediate), each TMA box is one 64-column
+// atom of 64 K rows, the stride between atoms (LBO) is 8192 bytes, between
+// 8-row K groups (SBO) 1024 bytes, and a k16 step advances 2048 bytes.
+// Every stage starts on a 1024-byte boundary, as the swizzle requires.
+//
+// Tensor maps are encoded on the host with cuTensorMapEncodeTiled, reached
+// through cudaGetDriverEntryPoint, so the library links the runtime only,
+// and are passed as __grid_constant__ kernel parameters.
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define HG_MAX_MAPS 8
+#define HG_BK 64                // K a stage: 64 bf16 = one 128-byte row
+#define HG_ATOM_BYTES 8192      // one 64 x 64 bf16 swizzled box
+
+namespace hg {
+
+struct MapTable {
+  CUtensorMap m[HG_MAX_MAPS];
+};
+
+struct OutTable {
+  unsigned long long p[HG_MAX_MAPS];
+};
+
+// problem z of a launch: A map a, B map b, output slab o, first row row0
+struct HgProblem {
+  int a, b, o, row0;
+};
+
+// ag 0: problem z multiplies A map 0 by B map z into slab z (matmul and
+// its stacked form); ag 1: z = d * R + i is hop i of destination rank d,
+// source s = (d - i) mod R: A map s, B map d, rows s*M.. of slab d.
+__device__ __forceinline__ HgProblem problem(int z, int R, int M, int ag) {
+  if (!ag) return {0, z, z, 0};
+  const int d = z / R, i = z - d * R;
+  const int s = (d - i + R) % R;
+  return {s, d, d, s * M};
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed; a wait
+// that outlasts ~2^34 cycles (seconds) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
+  } while (!done);
+}
+
+// one TMA box at (c0 innermost, c1) into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// a 128B-swizzled shared-memory matrix descriptor (lbo, sbo in bytes)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a @ b for one m64n64k16 step: a K-major, b MN-major (trans-b),
+// both through 128B-swizzled shared-memory descriptors; scale_d 0 drops d.
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the same for m64n192k16
+__device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the same for m64n256k16
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// v[i] for a runtime i, without indexing a register array at run time
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  if constexpr (BN == 64)
+    wgmma_m64n64(d, da, db, scale_d);
+  else if constexpr (BN == 192)
+    wgmma_m64n192(d, da, db, scale_d);
+  else
+    wgmma_m64n256(d, da, db, scale_d);
+}
+
+// A launch: Z problems of M x N x K.
+struct Args {
+  int Z, R, ag, M, N, K;
+  int a_rows;  // rows of x's TMA box: min(block rows, M rounded up to 8)
+};
+
+// NC consumer warpgroups (block rows 64 * NC), BN columns, STAGES stages;
+// warpgroups 0..NC-1 consume, warpgroup NC produces.
+template <int NC, int BN, int STAGES>
+__global__ void __launch_bounds__((NC + 1) * 128, NC == 1 ? 2 : 1)
+    hg_gemm_kernel(const __grid_constant__ MapTable amaps,
+                   const __grid_constant__ MapTable bmaps,
+                   const __grid_constant__ OutTable outs, Args g) {
+  constexpr int BM = NC * 64;
+  constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128;
+  constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bars = base + STAGES * STAGE_BYTES;  // full, then empty
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), NC * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int m_tiles = (g.M + BM - 1) / BM, n_tiles = (g.N + BN - 1) / BN;
+  const int k_blocks = (g.K + HG_BK - 1) / HG_BK;
+  const int total = g.Z * m_tiles * n_tiles;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == NC) {
+    // producer: one thread keeps the ring full across all of this block's
+    // tiles
+    if (threadIdx.x != NC * 128) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+      const int mt = t % m_tiles, nt = t / m_tiles % n_tiles;
+      const HgProblem p = problem(t / m_tiles / n_tiles, g.R, g.M, g.ag);
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(full(stage), g.a_rows * 128 + B_BYTES);
+        const uint32_t sa = base + stage * STAGE_BYTES;
+        tma_load(sa, &amaps.m[p.a], kb * HG_BK, mt * BM, full(stage));
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(sa + A_BYTES + j * HG_ATOM_BYTES, &bmaps.m[p.b],
+                   nt * BN + j * 64, kb * HG_BK, full(stage));
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64*wg.. of each tile
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const int mt = t % m_tiles, nt = t / m_tiles % n_tiles;
+    const HgProblem p = problem(t / m_tiles / n_tiles, g.R, g.M, g.ag);
+
+    int prev = -1;
+    fence_acc(acc);
+    for (int kb = 0; kb < k_blocks; ++kb) {
+      mbar_wait(full(stage), phase);
+      const uint32_t sa = base + stage * STAGE_BYTES + wg * 64 * 128;
+      const uint32_t sb = base + stage * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HG_BK / 16; ++kk)
+        wgmma_step<BN>(acc, desc(sa + kk * 32, 16, 1024),
+                       desc(sb + kk * 2048, HG_ATOM_BYTES, 1024),
+                       (kb > 0 || kk > 0) ? 1 : 0);
+      wgmma_commit();
+      // the K step before this one has retired: release its stage
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
+
+    // epilogue: the accumulator fragment of m64nBN — element 4 j + e at
+    // row 16 warp + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2
+    const int row_base = mt * BM + wg * 64 + warp * 16 + lane / 4;
+    // the four threads of a quad hold 8 neighbouring columns of a row
+    // per 8-column chunk: transpose 4 chunks across the quad so that each
+    // thread stores one chunk as 16 bytes (4-byte stores, each half a
+    // sector, held the consumers long enough to show in every tile's time)
+    const int t4 = lane % 4;
+    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(outs.p[p.o]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_base + 8 * h;
+#pragma unroll
+      for (int q = 0; q < BN / 32; ++q) {
+        uint32_t mine[4], got[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          mine[c] = pack_bf16x2(acc[4 * (4 * q + c) + 2 * h],
+                                acc[4 * (4 * q + c) + 2 * h + 1]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          // send my share of chunk (t4 - r), receive lane (t4 + r)'s
+          // share of chunk t4
+          const int src = (t4 + r) & 3;
+          const uint32_t v = __shfl_sync(
+              0xffffffffu, pick4(mine, (t4 - r) & 3), (lane & ~3) | src);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) got[i] = src == i ? v : got[i];
+        }
+        const int col = nt * BN + 8 * (4 * q + t4);
+        if (row < g.M && col < g.N)  // N % 8 == 0: the whole chunk fits
+          *reinterpret_cast<uint4*>(out + (long)(p.row0 + row) * g.N +
+                                    col) =
+              make_uint4(got[0], got[1], got[2], got[3]);
+      }
+    }
+  }
+}
+
+// ---- host side ------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 2-D bf16 tensor map with 128-byte swizzle: `outer` rows of `inner`
+// elements, rows `row_bytes` apart, boxes of box_inner x box_outer.
+// Returns 0, or minus the CUresult of a refused encode.
+inline int encode(CUtensorMap* map, unsigned long long ptr, uint64_t inner,
+                  uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                  uint32_t box_outer) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        reinterpret_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+template <int NC, int BN, int STAGES>
+int launch_cfg(const unsigned long long* a_ptrs, int n_a, long long lda,
+               const unsigned long long* b_ptrs, int n_b, long long ldb,
+               const unsigned long long* out_ptrs, int n_out, Args g,
+               int grid, cudaStream_t stream) {
+  constexpr int BM = NC * 64;
+  constexpr int SMEM = STAGES * (BM + BN) * 128 + 1024 + 16 * STAGES;
+  MapTable am{}, bm{};
+  OutTable ot{};
+  g.a_rows = (g.M + 7) / 8 * 8 < BM ? (g.M + 7) / 8 * 8 : BM;
+  for (int i = 0; i < n_a; ++i) {
+    const int e =
+        encode(&am.m[i], a_ptrs[i], g.K, g.M, lda * 2, HG_BK, g.a_rows);
+    if (e) return e;
+  }
+  for (int i = 0; i < n_b; ++i) {
+    const int e = encode(&bm.m[i], b_ptrs[i], g.N, g.K, ldb * 2, 64, HG_BK);
+    if (e) return e;
+  }
+  for (int i = 0; i < n_out; ++i) ot.p[i] = out_ptrs[i];
+  auto kern = hg_gemm_kernel<NC, BN, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, (NC + 1) * 128, SMEM, stream>>>(am, bm, ot, g);
+  return (int)cudaGetLastError();
+}
+
+// The launcher of both wrappers. cfg 0: the bytes-bound regime (one
+// consumer warpgroup, 64 x 64 tiles, 6 stages); cfg 1 and 2: the
+// compute-bound regime (two consumer warpgroups, 128 x 192 tiles and 5
+// stages, 128 x 256 tiles and 4 stages). The plan (kernels/matmul.py::plan)
+// chooses cfg and grid.
+inline int launch(const unsigned long long* a_ptrs, int n_a, long long lda,
+                  const unsigned long long* b_ptrs, int n_b, long long ldb,
+                  const unsigned long long* out_ptrs, int n_out, Args g,
+                  int cfg, int grid, cudaStream_t stream) {
+  if (n_a < 1 || n_a > HG_MAX_MAPS || n_b < 1 || n_b > HG_MAX_MAPS ||
+      n_out < 1 || n_out > HG_MAX_MAPS || g.N % 8 != 0 || lda % 8 != 0 ||
+      ldb % 8 != 0 || grid < 1 || g.M < 1 || g.K < 1)
+    return (int)cudaErrorInvalidValue;
+  if (g.ag ? (g.Z != g.R * g.R || n_a < g.R || n_b < g.R || n_out < g.R)
+           : (g.Z > n_b || g.Z > n_out))
+    return (int)cudaErrorInvalidValue;
+  if (cfg == 0)
+    return launch_cfg<1, 64, 6>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, out_ptrs,
+                                   n_out, g, grid, stream);
+  if (cfg == 1)
+    return launch_cfg<2, 192, 5>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb,
+                                 out_ptrs, n_out, g, grid, stream);
+  if (cfg == 2)
+    return launch_cfg<2, 256, 4>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb,
+                                 out_ptrs, n_out, g, grid, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace hg

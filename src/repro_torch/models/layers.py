@@ -14,7 +14,7 @@ training attention — whose causal mix is ``kernels/flash_attention.py``,
 the hand-written kernel on the card — the GEMM+AR islands
 (``attn_out_island``, ``mlp_island``), the vocab-parallel embedding, the
 serving logits and the chunked vocab-parallel loss (``lm_loss_island``),
-whose logits go through the GEMM-tile kernel. With FSDP on a dp > 1 mesh
+whose logits go through the GEMM kernel. With FSDP on a dp > 1 mesh
 every sharded weight is gathered before use (``core.template.fsdp_gather``):
 inside islands through their ``Gather`` declarations, and for the q/k/v
 projections where they are used (the gathers XLA inserts in JAX).
@@ -41,7 +41,7 @@ from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
                                        Stacked, comm_context, fsdp_gather,
                                        rank_index)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.matmul import matmul
+from repro_torch.kernels.matmul import matmul, matmul_stacked
 from repro_torch.models.sharding import ShardingRules
 
 NEG_INF = -1e30
@@ -664,7 +664,7 @@ def embed_tokens(p, tokens, rules: ShardingRules | None,
 
 
 def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """(..., d) @ head (d, v) through the GEMM-tile kernel, in f32."""
+    """(..., d) @ head (d, v) through the GEMM kernel, in f32."""
     y = matmul(x.reshape(-1, x.shape[-1]).contiguous(), head)
     return y.float().reshape(*x.shape[:-1], head.shape[-1])
 
@@ -672,9 +672,10 @@ def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 def lm_loss_island(run: RunConfig, rules: ShardingRules | None, b: int,
                    d: int, v: int) -> Island:
     """Chunked vocab-parallel cross-entropy island: each rank's logits over
-    its vocab shard (the GEMM-tile kernel), softmax statistics merged over
-    tp with ``pmax`` (the max without gradient) and ``psum``; never holds
-    (B, S, V) at once. Returns per-dp-rank (loss sum, weight sum)."""
+    its vocab shard (one stacked GEMM launch for all ranks), softmax
+    statistics merged over tp with ``pmax`` (the max without gradient) and
+    ``psum``; never holds (B, S, V) at once. Returns per-dp-rank (loss sum,
+    weight sum)."""
 
     def reference(xc, tc, wc, head):
         tot = torch.zeros((), dtype=torch.float32, device=xc.device)
@@ -700,7 +701,9 @@ def lm_loss_island(run: RunConfig, rules: ShardingRules | None, b: int,
         for i in range(xc.shape[1]):
             # x, targets and weights are replicated over tp: rank 0's slab
             xi, ti, wi = xc[0, i], tc[:, i], wc[:, i]
-            logits = torch.stack([_logits(xi, head[j]) for j in range(r)])
+            logits = matmul_stacked(xi.reshape(-1, xi.shape[-1]).contiguous(),
+                                    head)
+            logits = logits.float().reshape(r, *xi.shape[:-1], v_loc)
             m = ctx.pmax(logits.detach().amax(dim=-1))
             se = ctx.psum(torch.exp(logits - m[..., None]).sum(dim=-1),
                           backend="bulk")
@@ -745,15 +748,14 @@ def lm_loss(p, x, targets, weights, cfg: ArchConfig, run: RunConfig,
 
 def lm_logits(p, x):
     """Serving logits (B, S, V) in f32: bf16 products rounded like the JAX
-    einsum, through the GEMM-tile kernel (``kernels/matmul.py``) — per rank
-    when the head is stored stacked over the vocab."""
+    einsum, through the GEMM kernel (``kernels/matmul.py``) — one stacked
+    launch over the ranks' vocab shards when the head is stored stacked."""
     head = p["lm_head"]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if head.dim() == 2:
         y = matmul(x2, head)
     else:
-        y = torch.cat([matmul(x2, head[r]) for r in range(head.shape[0])],
-                      dim=-1)
+        y = matmul_stacked(x2, head).permute(1, 0, 2).reshape(x2.shape[0], -1)
     return y.float().reshape(*x.shape[:-1], -1)
 
 

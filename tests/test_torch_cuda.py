@@ -38,8 +38,11 @@ def _rel(got, want):
     return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (65, 40, 72), (130, 264, 136),
-                                   (8, 2048, 8000), (2048, 2048, 1408)])
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (130, 264, 136),
+                                   (8, 2048, 8000), (2048, 2048, 1408),
+                                   (1024, 2048, 8000), (8, 4096, 16256)]
+                         + [(m, k, n) for m in (1, 8, 16, 63, 64, 65, 200)
+                            for k, n in ((40, 72), (264, 136))])
 def test_matmul_kernel(cuda, m, k, n):
     from repro_torch.kernels import matmul as MM
     x = _randn(cuda, m, k, seed=1)
@@ -50,6 +53,43 @@ def test_matmul_kernel(cuda, m, k, n):
     assert MM.matmul.launches == before + 1
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     assert _rel(got, MM.matmul_plain(x, w)) <= 1e-2
+
+
+@pytest.mark.parametrize("m,k,n,r", [(8, 2048, 8000, 4), (1024, 2048, 8000, 4),
+                                     (65, 264, 136, 3), (1, 40, 72, 8),
+                                     (200, 40, 72, 2)])
+def test_matmul_stacked_kernel_equals_single_launches(cuda, m, k, n, r):
+    """One launch over R stacked shards gives the bits of R launches, and a
+    second call the same bits."""
+    from repro_torch.kernels import matmul as MM
+    x = _randn(cuda, m, k, seed=1)
+    w = _randn(cuda, r, k, n, scale=k ** -0.5, seed=2)
+    before = MM.matmul.launches
+    got = MM.matmul_stacked(x, w)
+    torch.cuda.synchronize()
+    assert MM.matmul.launches == before + 1
+    assert got.shape == (r, m, n) and got.dtype == torch.bfloat16
+    assert _rel(got, MM.matmul_stacked_plain(x, w)) <= 1e-2
+    assert torch.equal(got, torch.stack([MM.matmul(x, w[j])
+                                         for j in range(r)]))
+    assert torch.equal(got, MM.matmul_stacked(x, w))
+
+
+def test_matmul_kernel_refuses_misaligned_views(cuda):
+    """A view whose base is not 16-byte aligned raises before any launch."""
+    from repro_torch.kernels import matmul as MM
+    buf = _randn(cuda, 8 * 64 + 8, seed=1)
+    x = buf[1:1 + 8 * 64].view(8, 64)             # base 2 bytes off
+    w = _randn(cuda, 64, 64, seed=2)
+    ws = _randn(cuda, 2, 64, 64, seed=3)
+    before = MM.matmul.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MM.matmul(x, w)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MM.matmul_stacked(x, ws)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MM.matmul(x.contiguous(), buf[1:1 + 64 * 8].view(64, 8))
+    assert MM.matmul.launches == before
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,hd,causal,window", [
@@ -502,7 +542,9 @@ def test_seq_sharded_train_on_card_runs_ring_kernels(cuda):
 
 
 @pytest.mark.parametrize("r,m_loc,k,n", [(2, 8, 16, 8), (4, 100, 264, 200),
-                                         (4, 64, 128, 192), (8, 3, 40, 24)])
+                                         (4, 64, 128, 192), (8, 3, 40, 24),
+                                         (8, 100, 264, 200),
+                                         (4, 1024, 2048, 2816)])
 def test_ag_matmul_kernel(cuda, r, m_loc, k, n):
     from repro_torch.kernels import collective_matmul as CM
     x = _randn(cuda, r, m_loc, k, seed=1)

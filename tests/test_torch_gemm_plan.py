@@ -1,0 +1,193 @@
+"""The GEMM kernel's plan and its stacked form, on the CPU.
+
+``kernels/matmul.py::plan`` picks the configuration the Hopper mainloop
+runs (``csrc/hopper_gemm.cuh``): the regime, the tile and the grid. It is
+pure Python, so its promises are checked here at every shape
+``chip_smoke.py`` phase 3 and the model paths give the kernel: decode
+launches take the bytes-bound regime with at least one block an SM, every
+TMA box fits the hardware's limits, and nothing that changes the bits
+depends on how many problems a launch stacks. ``matmul_stacked``'s plain
+path is held against the JAX package's ``ops.matmul`` (Pallas, interpret
+mode) rank by rank, numpy-seeded, in float32 (rtol = atol = 1e-5: the same
+sums in another order); its gradients against autograd of the per-rank
+plain products.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import collective_matmul as CM  # noqa: E402
+from repro_torch.kernels import matmul as MM  # noqa: E402
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+SMEM_PER_BLOCK = 232448         # an H100 block's shared memory limit
+SMEM_PER_SM = 233472            # 228 KB an SM, 1 KB of it reserved a block
+
+# (m, n, k, problems) as phase 3 and the model paths launch them: the
+# serving paths' decode logits stacked over 4 vocab shards (tinyllama,
+# moonshot, falcon-mamba and its prefill group), and phase 3's rows of one
+# shard
+DECODE = [(8, 8000, 2048, 4), (8, 40960, 2048, 4), (8, 16256, 4096, 4),
+          (4, 16256, 4096, 4), (1, 8000, 2048, 4), (8, 40960, 2048, 1),
+          (8, 16256, 4096, 1)]
+COMPUTE = [(2048, 1408, 2048, 1), (1024, 8000, 2048, 4),
+           (1024, 8000, 2048, 1), (512, 8000, 2048, 4),
+           (2048, 8000, 2048, 4), (65, 72, 40, 1), (200, 136, 264, 1)]
+AG = [(1024, 2816, 2048, 16), (1024, 1024, 1024, 16), (100, 200, 264, 16),
+      (3, 24, 40, 64), (8, 8, 16, 4)]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _np(*shape, seed=0, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,n,k,problems", DECODE)
+def test_plan_decode_is_bytes_bound_on_every_sm(m, n, k, problems):
+    p = MM.plan(m, n, k, problems)
+    assert p.regime == "bytes" and (p.block_m, p.block_n) == (64, 64)
+    assert p.blocks == problems * p.tiles >= MM.H100_SMS
+    assert p.grid == min(p.blocks, 2 * MM.H100_SMS)
+    # each block keeps >= 32 KB of w in flight: its ring's B stages
+    assert p.stages * p.block_n * MM.BLOCK_K * 2 >= 32 * 1024
+
+
+def test_plan_one_tinyllama_shard_keeps_whole_tiles():
+    """One rank's shard of the tinyllama head alone has 125 tiles, fewer
+    than the SMs; the plan does not split K for it (a split measured slower
+    on the card), and the serving path launches the 4 shards stacked."""
+    p = MM.plan(8, 8000, 2048)
+    assert p.regime == "bytes" and p.blocks == p.tiles == 125
+    assert MM.plan(8, 8000, 2048, 4).blocks == 500
+
+
+@pytest.mark.parametrize("m,n,k,problems", DECODE + COMPUTE + AG)
+def test_plan_fits_tma_and_shared_memory(m, n, k, problems):
+    p = MM.plan(m, n, k, problems, gather=(m, n, k, problems) in AG)
+    for box in (p.a_box, p.b_box):
+        assert all(1 <= d <= 256 for d in box)      # TMA's box limit
+        assert box[0] * 2 <= 128                    # one 128-byte swizzle row
+    assert p.a_box[1] % 8 == 0 and p.a_box[1] <= p.block_m
+    assert p.a_box[1] >= min(m, p.block_m)
+    # global row strides: 16-byte multiples for TMA
+    assert (k * 2) % 16 == 0 and (n * 2) % 16 == 0
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+    per_sm = MM.CONFIGS[p.cfg]["per_sm"]
+    assert per_sm * (p.smem_bytes + 1024) <= SMEM_PER_SM
+    assert p.threads == (p.block_m // 64 + 1) * 128
+    assert 1 <= p.grid <= per_sm * MM.H100_SMS
+
+
+@pytest.mark.parametrize("m,n,k,problems", COMPUTE)
+def test_plan_compute_regime(m, n, k, problems):
+    p = MM.plan(m, n, k, problems)
+    assert p.regime == "compute"
+    assert (p.block_m, p.block_n) in ((128, 192), (128, 256))
+    # persistent: one block an SM, never more blocks than tiles
+    tiles = problems * _cdiv(m, 128) * _cdiv(n, p.block_n)
+    assert p.tiles * problems == tiles
+    assert p.grid == min(tiles, MM.H100_SMS)
+
+
+def test_plan_tile_width_fills_the_last_wave():
+    # 2048 x 1408: 96 tiles of 256 leave 36 SMs idle, 128 of 192 leave 4
+    assert MM.plan(2048, 1408, 2048).block_n == 192
+    # the loss: 256 tiles of 256 are 2 waves, 336 of 192 would be 3
+    assert MM.plan(1024, 8000, 2048).block_n == 256
+
+
+@pytest.mark.parametrize("m,n,k,problems", DECODE + COMPUTE)
+def test_plan_bits_do_not_depend_on_the_stack_or_card(m, n, k, problems):
+    """What changes the bits (the configuration) is a function of (m, n,
+    k): a stacked launch gives the bits of one launch a problem."""
+    one = MM.plan(m, n, k, 1)
+    for p in (MM.plan(m, n, k, problems), MM.plan(m, n, k, problems, sms=114),
+              MM.plan(m, n, k, 8, sms=78)):
+        assert (p.cfg, p.block_m, p.block_n) == \
+            (one.cfg, one.block_m, one.block_n)
+
+
+@pytest.mark.parametrize("m,n,k,problems", AG)
+def test_plan_gather_counts_every_problem(m, n, k, problems):
+    p = MM.plan(m, n, k, problems, gather=True)
+    assert p.blocks == problems * p.tiles
+    assert p.grid == min(p.blocks, MM.CONFIGS[p.cfg]["per_sm"] * MM.H100_SMS)
+
+
+@pytest.mark.parametrize("m,k,n,r", [(8, 64, 40, 4), (1, 16, 8, 8),
+                                     (37, 50, 29, 3), (130, 64, 200, 2)])
+def test_matmul_stacked_plain_matches_jax(m, k, n, r):
+    x, w = _np(m, k, seed=1), _np(r, k, n, seed=2)
+    before = MM.matmul.launches
+    got = MM.matmul_stacked(torch.from_numpy(x), torch.from_numpy(w))
+    assert MM.matmul.launches == before          # a CPU tensor: no kernel
+    assert got.dtype == torch.float32 and got.shape == (r, m, n)
+    for j in range(r):
+        np.testing.assert_allclose(
+            got[j].numpy(), np.asarray(jops.matmul(x, w[j], interpret=True)),
+            **TOL)
+        np.testing.assert_allclose(
+            got[j].numpy(),
+            MM.matmul(torch.from_numpy(x), torch.from_numpy(w[j])).numpy(),
+            **TOL)
+
+
+def test_matmul_stacked_gradients_match_per_rank_autograd():
+    x, w = _np(12, 24, seed=3), _np(3, 24, 16, seed=4)
+    gy = torch.from_numpy(_np(3, 12, 16, seed=5))
+
+    def grads(fn):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        wt = torch.from_numpy(w).requires_grad_(True)
+        y = fn(xt, wt)
+        return [y, *torch.autograd.grad(y, (xt, wt), gy)]
+
+    got = grads(MM.matmul_stacked)
+    want = grads(lambda xt, wt: torch.stack(
+        [MM.matmul_plain(xt, wt[j]) for j in range(wt.shape[0])]))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   **TOL)
+
+
+def test_matmul_stacked_refuses_bad_shapes():
+    with pytest.raises(ValueError, match="matmul takes"):
+        MM.matmul_stacked(torch.zeros(2, 3), torch.zeros(3, 4))
+    with pytest.raises(ValueError, match="matmul takes"):
+        MM.matmul_stacked(torch.zeros(2, 3), torch.zeros(2, 4, 5))
+
+
+@pytest.mark.parametrize("offset,shape,ok", [(0, (8, 16), True),
+                                             (1, (8, 16), False),
+                                             (8, (8, 16), True),
+                                             (0, (8, 12), False)])
+def test_tma_operand_check_raises_before_a_launch(offset, shape, ok):
+    """A view whose base, rows or row length is not 16-byte aligned is
+    refused by the wrappers' check before any launch (TMA would fault)."""
+    buf = torch.zeros(256, dtype=torch.bfloat16)
+    base = buf.data_ptr() % 16 // 2            # elements to a 16-byte edge
+    start = (8 - base) % 8 + offset
+    t = buf[start:start + shape[0] * shape[1]].view(shape)
+    if ok:
+        MM.check_tma_operand(t, "x")
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            MM.check_tma_operand(t, "x")
+    with pytest.raises(ValueError, match="bf16"):
+        MM.check_tma_operand(t.float(), "x")
+
+
+def test_ag_matmul_uses_the_gather_plan():
+    """B5's wrapper is on the mainloop: its module plans with ``gather``."""
+    assert CM.plan is MM.plan
+    p = MM.plan(1024, 2816, 2048, 16, gather=True)
+    assert (p.block_m, p.block_n) == (128, 256)

@@ -39,13 +39,16 @@ Phases (any failure exits non-zero before the last line is printed):
    plain version, one PyTorch library call of the same function where one
    exists (a yardstick only, never called by the port) and its bound
    (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16 — 67 TFLOP/s
-   f32 for the scan —, the larger). The decode-shaped GEMM rows and the
-   loss row are timed cold: each call takes the next of a set of weights
-   larger than the 50 MB L2 (``rotate``), kernel, plain, library call and
-   before-column alike, as a serving step reads each head shard once; the
-   others warm, with the same operands every call (``timing`` in each
-   entry). The GEMM and AG×GEMM rows also time the mma.sync kernels they
-   ran on before the Hopper mainloop (``ms_mm_tile``);
+   f32 for the scan —, the larger). The decode-shaped GEMM and GEMM+AR
+   rows and the loss row are timed cold: each call takes the next of a set
+   of weights larger than the 50 MB L2 (``rotate``), kernel, plain,
+   library call and before-column alike, as a serving step reads each
+   weight once; the others warm, with the same operands every call
+   (``timing`` in each entry). The GEMM, AG×GEMM, GEMM×RS and GEMM+AR rows
+   also time the mma.sync kernels they ran on before the Hopper mainloop
+   (``ms_mm_tile``, from ``csrc/mm_tile_yardstick.cu``). GEMM+AR is held
+   at every site and bucket, bit-identical for 1-4 chunks and a second
+   call, and GEMM×RS equal to GEMM+AR's owner rows bit for bit;
 4. serving: the continuous-batching engine serves 8 requests of a seeded
    synthetic trace with tinyllama-1.1b at full width and depth on 4 virtual
    tensor-parallel ranks, every GEMM+AR site pinned to the fused kernel;
@@ -126,7 +129,9 @@ Phases (any failure exits non-zero before the last line is printed):
    selective scan, the training run's for the ring AG/RS kernels, the
    sequence-parallel run's for the p2p shift and the flash hop, the TP
    GEMM pair's for AG×GEMM, GEMM×RS and the LCSC all-gather;
-   ``launches_by_path`` has all six);
+   ``launches_by_path`` has all six), then GEMM+AR's cold decode row, whose
+   counts are GEMM+AR's whole-path counts (prefill and decode together,
+   the counter named by ``launches_counter``), not its own;
 7. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository's ``src/`` beside it.
@@ -253,6 +258,32 @@ def mm_tile_ag_matmul(x, w):
     return out
 
 
+def mm_tile_reduce(x, w, gather):
+    """B4's (``gather``) and B6's earlier kernel on the mma.sync tile, the
+    before-column of ``matmul_ar_fused`` / ``matmul_rs_fused``: its own
+    landing slots and flags (one int a 64 x 64 tile) each call; the port
+    never calls it."""
+    import torch
+
+    from repro_torch.core import pgl
+    from repro_torch.kernels import _build
+    r, m, k = x.shape
+    n = w.shape[2]
+    out = torch.empty((r, m if gather else m // r, n), dtype=torch.float32,
+                      device=x.device)
+    landing = torch.empty((r, r, m // r, n), dtype=torch.float32,
+                          device=x.device)
+    flags = torch.empty((-(-m // 64) * -(-n // 64),), dtype=torch.int32,
+                        device=x.device)
+    fn = ("pk_mm_tile_matmul_ar_bf16" if gather
+          else "pk_mm_tile_matmul_rs_bf16")
+    _build.check(getattr(_build.library(), fn)(
+        *[_build.host_table(pgl.pointer_table(t))
+          for t in (x, w, landing, out)], flags.data_ptr(), r, m, n, k,
+        torch.cuda.current_stream(x.device).cuda_stream), fn)
+    return out
+
+
 def rel_err(got, want) -> float:
     got, want = got.detach().float(), want.detach().float()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
@@ -362,27 +393,54 @@ def check_kernels(dev) -> dict:
 
     # GEMM+AR, R = 4 ranks: the MLP down-projection island (k_loc = ff/R =
     # 1408) at prefill (m = 4 x 512 and 4 x 128) and decode (m = 8), and
-    # the attention out-projection island (k_loc = d/R = 512) at prefill.
-    # The 512-bucket MLP and the decode MLP are timed; the rest are checked.
+    # the attention out-projection island (k_loc = d/R = 512) at prefill
+    # and decode. Every shape must give the same bits for n_chunks 1-4 and
+    # a second call. The 512-bucket MLP is timed warm; the decode MLP cold,
+    # rotated over 3 copies of w (69 MB > the 50 MB L2: 23 MB would stay in
+    # L2 and beat its HBM bound), as a decode step reads each weight once;
+    # the rest are checked. Both timed rows also time the kernel B4 ran on
+    # before (``mm_tile_reduce``) by the same method.
     r, n = 4, 2048
     for m, kl, key in ((2048, 1408, "pk_matmul_ar"),
                        (8, 1408, "pk_matmul_ar@decode"),
                        (512, 1408, None), (2048, 512, None),
-                       (512, 512, None)):
-        x, w = randn(r, m, kl), randn(r, kl, n, scale=(r * kl) ** -0.5)
+                       (512, 512, None), (8, 512, None)):
+        copies = 3 if key == "pk_matmul_ar@decode" else 1
+        sets = [(randn(r, m, kl), randn(r, kl, n, scale=(r * kl) ** -0.5))
+                for _ in range(copies)]
+        x, w = sets[0]
         shape = f"x({r},{m},{kl})@w({r},{kl},{n})"
+        first = CM.matmul_ar_fused(x, w)
+        for nc in (1, 2, 3, 4):
+            if not torch.equal(CM.matmul_ar_fused(x, w, n_chunks=nc), first):
+                raise AssertionError(f"pk_matmul_ar {shape}: n_chunks={nc} "
+                                     "or a second call changed the result")
         run = partial(CM.matmul_ar_fused, x, w)
         plain = partial(CM.matmul_ar_plain, x, w)
+        checked = compare("pk_matmul_ar", shape, run, plain, TOL_F32_OUT)
         if key is None:
-            compare("pk_matmul_ar", shape, run, plain, TOL_F32_OUT)
             continue
+        nbytes = (x.numel() + w.numel()) * 2 + r * m * n * 4
+        if copies > 1:
+            timing = (f"cold (w rotated over {copies} copies, "
+                      f"{copies * w.numel() * 2 / 1e6:.0f} MB)")
+            run, plain = (rotate(CM.matmul_ar_fused, sets),
+                          rotate(CM.matmul_ar_plain, sets))
+            library = rotate(lambda x, w: torch.matmul(x, w).sum(0), sets)
+            before = rotate(lambda x, w: mm_tile_reduce(x, w, True), sets)
+        else:
+            timing = "warm"
+            library = lambda x=x, w=w: torch.matmul(x, w).sum(0)  # noqa
+            before = partial(mm_tile_reduce, x, w, True)
         entries[key] = record(
             "pk_matmul_ar", shape,
             "src/repro_torch/kernels/csrc/collective_matmul.cu",
             "src/repro/kernels/collective_matmul.py:306", run, plain,
-            lambda: torch.matmul(x, w).sum(0), TOL_F32_OUT,
-            (x.numel() + w.numel()) * 2 + r * m * n * 4,
-            2.0 * r * m * kl * n)
+            library, TOL_F32_OUT, nbytes, 2.0 * r * m * kl * n,
+            checked=checked, before=before, timing=timing)
+        del sets
+    print("[kernel] pk_matmul_ar: bit-identical for n_chunks 1-4 and a "
+          "second call at every shape", flush=True)
 
     # ring all-gather / reduce-scatter at the FSDP shard shapes of the
     # (2, 4) training run: a dp rank's shard of a tp-stacked weight with the
@@ -722,7 +780,10 @@ def check_tp_kernels(dev, record, compare, randn) -> dict:
       2048) (timed), a Fig. 8 shape, x (4, 4096, 512) @ w (4, 512, 1024),
       and a ragged one (m/R 50, n 120): f32 out within ``TOL_F32_OUT`` of
       ``matmul_rs_plain``;
-    * each bit-identical for n_chunks 1-4 at every shape;
+    * each bit-identical for n_chunks 1-4 at every shape, and GEMM×RS
+      bit-identical to GEMM×AR's owner rows (on every rank) at every shape;
+    * each timed row also times the mma.sync kernel it ran on before
+      (``ms_mm_tile``);
     * the LCSC ring all-gather at every shape phase 3 runs the ring
       all-gather at, and at ragged f32 and byte shapes: bit-identical to
       ``all_gather_plain`` and to ``pk_comm.ring_all_gather``; timed at the
@@ -760,6 +821,17 @@ def check_tp_kernels(dev, record, compare, randn) -> dict:
                 if not torch.equal(fn(x, w, n_chunks=nc), first):
                     raise AssertionError(f"{name} {shape}: n_chunks={nc} "
                                          "changed the result")
+            if not ag:      # RS and AR share the plan and the sums
+                ar = CM.matmul_ar_fused(x, w)
+                torch.cuda.synchronize()
+                if not all(torch.equal(first[o], ar[d, o * (m // r):
+                                                     (o + 1) * (m // r)])
+                           for o in range(r) for d in range(r)):
+                    raise AssertionError(f"{name} {shape}: not matmul_ar_"
+                                         "fused's owner rows bit for bit")
+                print(f"[kernel] {name} {shape}: bit-identical to "
+                      "matmul_ar_fused's owner rows on every rank",
+                      flush=True)
             if not timed:
                 compare(name, shape, run, plain, tol)
                 continue
@@ -776,7 +848,8 @@ def check_tp_kernels(dev, record, compare, randn) -> dict:
                 "src/repro_torch/kernels/csrc/collective_matmul.cu",
                 replaces, run, plain, library, tol,
                 (x.numel() + w.numel()) * 2 + out_bytes, flops,
-                before=partial(mm_tile_ag_matmul, x, w) if ag else None)
+                before=(partial(mm_tile_ag_matmul, x, w) if ag
+                        else partial(mm_tile_reduce, x, w, False)))
     print("[kernel] ag_matmul_fused / matmul_rs_fused: bit-identical for "
           "n_chunks 1-4 at every shape", flush=True)
 
@@ -2027,13 +2100,14 @@ def main() -> int:
     check_sp_reference(dev)
     tp_launches = tp_gemm(dev)
     main_entries = []
-    for key in KERNEL_COUNTERS:
-        by_path = {"serve": serve_launches.get(key, 0),
-                   "serve_moe": moe_launches.get(key, 0),
-                   "serve_ssm": ssm_launches.get(key, 0),
-                   "train": train_launches.get(key, 0),
-                   "train_sp": sp_launches.get(key, 0),
-                   "tp_gemm": tp_launches.get(key, 0)}
+    for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",):
+        counter = key.split("@")[0]
+        by_path = {"serve": serve_launches.get(counter, 0),
+                   "serve_moe": moe_launches.get(counter, 0),
+                   "serve_ssm": ssm_launches.get(counter, 0),
+                   "train": train_launches.get(counter, 0),
+                   "train_sp": sp_launches.get(counter, 0),
+                   "tp_gemm": tp_launches.get(counter, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",
@@ -2041,11 +2115,14 @@ def main() -> int:
                      "ag_matmul_fused": "tp_gemm",
                      "matmul_rs_fused": "tp_gemm",
                      "lcsc_ring_all_gather": "tp_gemm"}.get(
-            key, "serve" if key in serve_launches else "train")
-        main_entries.append(dict(entries[key], launches=by_path[main_path],
-                                 launches_by_path=by_path))
+            counter, "serve" if counter in serve_launches else "train")
+        entry = dict(entries[key], launches=by_path[main_path],
+                     launches_by_path=by_path)
+        if key != counter:              # a row sharing another's counter
+            entry["launches_counter"] = counter
+        main_entries.append(entry)
     for key in ("matmul@rank", "matmul@loss", "matmul@mlp",
-                "pk_matmul_ar@decode", "matmul@moonshot",
+                "matmul@moonshot",
                 "flash_attention@moonshot", "grouped_matmul@prefill",
                 "matmul@falcon", "mamba_scan@prefill",
                 "flash_attention_hop@0", "flash_attention_hop@2",

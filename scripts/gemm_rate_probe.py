@@ -10,8 +10,13 @@ calls queued behind a spin kernel, median of 5), operands warm. A line fit
 of time against K splits the kernel's time into a part that grows with K —
 its mainloop, whose slope gives the rate the tensor cores are fed at — and
 a part that does not: launch, pipeline fill, the last partial wave and
-each tile's epilogue. Prints the card's name and power limit, one JSON
-line per shape, then the fit. Needs a CUDA device; exits 1 without one.
+each tile's epilogue. The same sweep of GEMM×RS (``matmul_rs_fused``, R =
+4, at the TP pair's m = 4096, n = 2048; beside ``torch.matmul(x,
+w).sum(0)``) splits its time into the mainloop and what its
+store-and-count epilogue adds (the f32 partials written, counted and read
+back), which does not grow with K. Prints the card's name and power
+limit, one JSON line per shape, then the fits. Needs a CUDA device; exits
+1 without one.
 """
 
 from __future__ import annotations
@@ -29,6 +34,21 @@ sys.path.insert(0, ROOT)
 #: tinyllama's MLP gate/up, one rank's 2816 columns), then squares
 SHAPES = [(4096, 2816, k) for k in (512, 1024, 2048, 4096, 8192)] + [
     (4096, 4096, 4096), (8192, 8192, 8192)]
+#: GEMM×RS over R ranks at the TP pair's (m, n), k_loc from 64 to 2048
+RS_RANKS, RS_M, RS_N = 4, 4096, 2048
+RS_KS = (64, 256, 512, 1024, 1408, 2048)
+
+
+def fit(rows, key, flops):
+    """Least squares of rows' ``key`` against k: the fixed ms, the ms per
+    1024 of K and the rate the slope implies for ``flops`` per unit of K."""
+    ks = [r["k"] for r in rows]
+    ts = [r[key] for r in rows]
+    kbar, tbar = sum(ks) / len(ks), sum(ts) / len(ts)
+    slope = (sum((a - kbar) * (b - tbar) for a, b in zip(ks, ts))
+             / sum((a - kbar) ** 2 for a in ks))
+    return {"ms_fixed": tbar - slope * kbar, "ms_per_1024_k": slope * 1024,
+            "marginal_tflops": flops / slope / 1e9}
 
 
 def main() -> int:
@@ -40,6 +60,7 @@ def main() -> int:
         print("gemm_rate_probe: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as C
+    from repro_torch.kernels import collective_matmul as CM
     from repro_torch.kernels import matmul as MM
 
     dev = torch.device("cuda", 0)
@@ -61,18 +82,28 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         del x, w
     sweep = [r for r in rows if (r["m"], r["n"]) == (4096, 2816)]
-    ks = [r["k"] for r in sweep]
-    kbar = sum(ks) / len(ks)
-    for key in ("ms", "library_ms"):
-        ts = [r[key] for r in sweep]
-        tbar = sum(ts) / len(ts)
-        slope = (sum((a - kbar) * (b - tbar) for a, b in zip(ks, ts))
-                 / sum((a - kbar) ** 2 for a in ks))
-        fit = {"fit": key, "ms_fixed": tbar - slope * kbar,
-               "ms_per_1024_k": slope * 1024,
-               "marginal_tflops": 2 * 4096 * 2816 / slope / 1e9}
-        rows.append(fit)
-        print(json.dumps(fit), flush=True)
+    fits = [{"fit": key, **fit(sweep, key, 2 * 4096 * 2816)}
+            for key in ("ms", "library_ms")]
+    rs = []
+    for k in RS_KS:
+        x = torch.randn((RS_RANKS, RS_M, k), generator=g, device=dev
+                        ).to(torch.bfloat16)
+        w = (torch.randn((RS_RANKS, k, RS_N), generator=g, device=dev)
+             * (RS_RANKS * k) ** -0.5).to(torch.bfloat16)
+        row = {"kernel": "matmul_rs_fused", "r": RS_RANKS, "m": RS_M,
+               "n": RS_N, "k": k,
+               "ms": C.time_ms(lambda: CM.matmul_rs_fused(x, w)),
+               "library_ms": C.time_ms(
+                   lambda: torch.matmul(x, w).sum(0))}
+        rs.append(row)
+        print(json.dumps(row), flush=True)
+        del x, w
+    fits += [{"fit": f"matmul_rs_fused {key}",
+              **fit(rs, key, 2 * RS_RANKS * RS_M * RS_N)}
+             for key in ("ms", "library_ms")]
+    rows += rs + fits
+    for f in fits:
+        print(json.dumps(f), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             for r in rows:

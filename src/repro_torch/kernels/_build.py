@@ -48,22 +48,27 @@ SIGNATURES = {
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                 _I, _I, ctypes.c_float, _P],
     # x ptrs, w ptrs, landing ptrs, out ptrs (host tables of R addresses),
-    # flags, R, M, N, K, stream
+    # flags, flag count (ints), R, M, N, K, cfg, grid (the plan's), stream
     "pk_matmul_ar_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
-                         + [_P, _I, _I, _I, _I, _P],
+                         + [_P, _L] + [_I] * 6 + [_P],
     "pk_matmul_rs_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
-                         + [_P, _I, _I, _I, _I, _P],
+                         + [_P, _L] + [_I] * 6 + [_P],
     # x ptrs, w ptrs, out ptrs, R, M (rows a rank), N, K, cfg, grid (the
     # plan's), stream
     "pk_ag_matmul_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 3
                          + [_I] * 6 + [_P],
-    # the mma.sync kernels B1 and B5 ran on before the Hopper mainloop, a
-    # timing yardstick (csrc/mm_tile_yardstick.cu): x, w, out, M, N, K,
-    # ldx, ldw, ldo, stream; and x ptrs, w ptrs, out ptrs, R, M, N, K,
-    # stream
+    # the mma.sync kernels B1, B5, B6 and B4 ran on before the Hopper
+    # mainloop, a timing yardstick (csrc/mm_tile_yardstick.cu): x, w, out,
+    # M, N, K, ldx, ldw, ldo, stream; x ptrs, w ptrs, out ptrs, R, M, N, K,
+    # stream; and x ptrs, w ptrs, landing ptrs, out ptrs, flags (one int a
+    # 64 x 64 tile), R, M, N, K, stream
     "pk_mm_tile_matmul_bf16": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     "pk_mm_tile_ag_matmul_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 3
                                  + [_I, _I, _I, _I, _P],
+    "pk_mm_tile_matmul_rs_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
+                                 + [_P, _I, _I, _I, _I, _P],
+    "pk_mm_tile_matmul_ar_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
+                                 + [_P, _I, _I, _I, _I, _P],
     # in ptrs, out ptrs, flags, flag capacity (ints), R, blk bytes, stream
     "pk_lcsc_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
                           + [_P, _L, _I, _L, _P],

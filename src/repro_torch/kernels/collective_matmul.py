@@ -14,39 +14,60 @@ semaphores between steps, with each hop split into row sub-chunks:
   all-gather inside the kernel -> (R, m/R, n) f32 on every rank.
 
 CUDA route (``csrc/collective_matmul.cu``, device functions in
-``csrc/pk.cuh``). Blocks run in parallel and in no order on Hopper, and a
-block that spin-waits on one not yet resident deadlocks, so no block of
-these kernels waits:
+``csrc/pk.cuh``). All three run on the Hopper mainloop of
+``csrc/hopper_gemm.cuh`` (TMA loads into a ring of mbarrier stages, one
+producer thread, consumer warpgroups on ``wgmma``, a persistent grid), with
+the regime, tile and grid from ``kernels/matmul.py::plan``. Blocks run in
+parallel and in no order on Hopper, and a block that spin-waits on one not
+yet resident deadlocks, so no block of these kernels waits:
 
-* AG×GEMM, on the Hopper mainloop of ``csrc/hopper_gemm.cuh`` (TMA,
-  mbarrier stages, ``wgmma``; the regime and grid from
-  ``kernels/matmul.py::plan``): problem (destination rank d, hop i) takes
-  the source ``s = (d - i) mod R`` — the shard rank d holds after i hops of
-  the right-going ring —, loads x[s]'s row tiles through source s's tensor
-  map (on one card the load is the gather; on a multi-GPU node the same
-  maps take peer pointers), multiplies them by w[d] and stores the tiles
-  into rows ``s·m_loc + ...`` of out[d] in bf16, masked at m_loc so that a
-  ragged tile never reaches source s+1's rows. Nothing depends on another
-  block, and the tiling does not depend on ``n_chunks``. Bound at
-  tinyllama's MLP (x (4, 1024, 2048), w (4, 2048, 2816)): the tensor
+* AG×GEMM (``plan(..., count_all=True)``): problem (destination rank d, hop
+  i) takes the source ``s = (d - i) mod R`` — the shard rank d holds after
+  i hops of the right-going ring —, loads x[s]'s row tiles through source
+  s's tensor map (on one card the load is the gather; on a multi-GPU node
+  the same maps take peer pointers), multiplies them by w[d] and stores
+  the tiles into rows ``s·m_loc + ...`` of out[d] in bf16, masked at m_loc
+  so that a ragged tile never reaches source s+1's rows. Nothing depends
+  on another block, and the tiling does not depend on ``n_chunks``. Bound
+  at tinyllama's MLP (x (4, 1024, 2048), w (4, 2048, 2816)): the tensor
   cores, 1.9e11 operations.
-* GEMM×RS and GEMM×AR: one kernel on the 64 x 64 ``mma.sync`` tile of
-  ``csrc/mm_tile.cuh`` (f32 accumulation), store-and-count:
-  1. grid (n tiles, m tiles, source rank r); the block computes its
-     partial tile ``x[r, rows] @ w[r, :, cols]`` in f32;
-  2. the tile's rows belong to owner rank ``o = row // (m/R)`` (the
-     reduce-scatter destination); the block stores its partial into
-     ``landing[o][r]`` — the owner's PGL slot (``store_async``);
-  3. it fences and adds one to the tile's arrival flag (``signal``,
-     ``atom.add.release.gpu``);
-  4. the block that arrives last (the add returned R-1) acquires
-     (``wait``), sums the R partials in rank order and stores the reduced
-     tile into out[o] only (RS) or into out[d] for every rank d (AR).
-  The launcher zeroes the flags on the stream before each launch; landing
-  slots and flags are scratch cached per (device, stream, R, m, n), so
-  launches that share them run one after another on that stream. Bound:
-  the tensor cores at prefill (the landing round trip, R·m·n·4 bytes
-  written and read, comes on top), reading w at decode.
+* GEMM×RS and GEMM×AR (``plan(..., count_all=True)``): one kernel,
+  store-and-count, the CUDA form of the TPU kernels' accumulate-and-forward
+  ring:
+
+  1. problem r is source rank r's partial ``x[r] @ w[r]``; its block reads
+     only x[r] and w[r] through their tensor maps (so the same kernel takes
+     peer pointers on a multi-GPU node), never the other ranks' K;
+  2. tiles are taken with r fastest, so the R partials of one output tile
+     are computed in the same wave and are read back from L2;
+  3. each consumer warp stores its 16 rows (a strip) of the f32 partial
+     into ``landing[o][r]`` — owner rank ``o = row // (m/R)``, the
+     reduce-scatter destination, per row, since at decode (m/R = 2) one
+     tile spans every owner — as ``float2``s (``store_async``: each quad a
+     full 32-byte sector), then hands the tile through an mbarrier to the
+     three idle warps of the producer warpgroup and goes on to the next
+     tile's ``wgmma``;
+  4. those "drain" warps add one to each strip's arrival count (``signal``,
+     ``atom.add.release.gpu``, cumulative over the consumers' stores);
+  5. a strip whose count is R (``wait``, acquire) is reduced in R parts of
+     its rows, each claimed by compare-and-swap: source rank r's block
+     settles part r of its previous tile's strips, and at the end every
+     warp of a block sweeps its tiles for unclaimed parts. A part's R
+     partials are read back (once, as last use), summed in rank order and
+     stored into out[o] only (RS) or into out[d] for every rank d (AR).
+
+  No block waits for another: an incomplete strip is left to the block
+  that completes its count, which sweeps after counting. Spreading the
+  parts over the R source blocks matters: "the last arrival reduces" piled
+  the work onto whichever blocks ran late and measured slower. Counts,
+  claims and landing slots follow the plan's tile (``_scratch``), cached
+  per (device, stream, R, m, n, flags), so launches that share them run
+  one after another on that stream; the launcher zeroes counts and claims
+  on the stream before each launch. The plan depends on (m, n, k, R) alone,
+  so RS and AR of one shape run the same tiles and RS's output is AR's
+  owner rows bit for bit. Bound: the tensor cores at prefill (the landing
+  round trip, R·m·n·4 bytes written and read, comes on top), reading w at
+  decode.
 
 The fixed summation order makes every result independent of arrival order.
 Row chunking (``n_chunks``) is implicit in the row tiles: it is
@@ -73,13 +94,16 @@ from repro_torch.core.schedule import fit_chunks
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import check_tma_operand, plan, sm_count
 
-#: the GEMM×RS / AR kernel's output tile (csrc/mm_tile.cuh: MT_BM x MT_BN)
-TILE_M = 64
-TILE_N = 64
 #: pointer tables are passed to the kernel by value, at most this many ranks
 MAX_RANKS = 8
 
-# landing slots + arrival flags, cached by (device, stream, R, m, n)
+#: rows a consumer warp owns in a tile: the store-and-count epilogue
+#: counts arrivals per strip of this many rows (``StoreAndCount`` in
+#: csrc/collective_matmul.cu)
+STRIP_M = 16
+
+# landing slots + counts and claims, cached by (device, stream, R, m, n,
+# flags)
 _SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -142,43 +166,55 @@ def _cuda_operands(x: torch.Tensor, w: torch.Tensor, name: str):
     return x.contiguous(), w.contiguous()
 
 
-def _scratch(device, stream: int, r: int, m: int, n: int):
-    key = (device, stream, r, m, n)
+def _scratch(device, stream: int, r: int, m: int, n: int, p):
+    """The landing slots, (R, R, m/R, n) f32, and for each 16-row strip of
+    the plan's output tiles an arrival count and R part claims."""
+    flags = (r + 1) * p.tiles * p.block_m // STRIP_M
+    key = (device, stream, r, m, n, flags)
     if key not in _SCRATCH:
-        tiles = -(-m // TILE_M) * -(-n // TILE_N)
         _SCRATCH[key] = (
             torch.empty((r, r, m // r, n), dtype=torch.float32,
                         device=device),
-            torch.empty((tiles,), dtype=torch.int32, device=device))
+            torch.empty((flags,), dtype=torch.int32, device=device))
     return _SCRATCH[key]
 
 
 def _reduce(x: torch.Tensor, w: torch.Tensor, gather: bool,
             name: str) -> torch.Tensor:
     """Launch the store-and-count GEMM×RS (``gather`` False: (R, m/R, n))
-    or GEMM×AR (True: (R, m, n)) kernel; f32 out."""
+    or GEMM×AR (True: (R, m, n)) kernel; f32 out. Counts the launch in
+    ``matmul_ar_fused.launches`` or ``matmul_rs_fused.launches``; an empty
+    or K = 0 call launches nothing and counts nothing."""
     x, w = _cuda_operands(x, w, name)
     r, m, k = x.shape
     n = w.shape[2]
     out = torch.empty((r, m if gather else m // r, n), dtype=torch.float32,
                       device=x.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    for j in range(r):
+        check_tma_operand(x[j], f"{name} x")
+        check_tma_operand(w[j], f"{name} w")
+    p = plan(m, n, k, r, sms=sm_count(x.device), count_all=True)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    landing, flags = _scratch(x.device, stream, r, m, n)
+    landing, flags = _scratch(x.device, stream, r, m, n, p)
     tables = [_build.host_table(pgl.pointer_table(t))
               for t in (x, w, landing, out)]
     fn = "pk_matmul_ar_bf16" if gather else "pk_matmul_rs_bf16"
-    err = getattr(_build.library(), fn)(*tables, flags.data_ptr(), r, m, n,
-                                       k, stream)
+    err = getattr(_build.library(), fn)(*tables, flags.data_ptr(),
+                                       flags.numel(), r, m, n, k, p.cfg,
+                                       p.grid, stream)
     _build.check(err, fn)
+    (matmul_ar_fused if gather else matmul_rs_fused).launches += 1
     return out
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return matmul_ar_plain(x, w)
-    out = _reduce(x, w, True, "matmul_ar")
-    matmul_ar_fused.launches += 1
-    return out
+    return _reduce(x, w, True, "matmul_ar")
 
 
 class _MatmulAR(torch.autograd.Function):
@@ -231,7 +267,7 @@ def ag_matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
         return out
     if k == 0:
         return out.zero_()
-    p = plan(m_loc, n, k, r * r, sms=sm_count(x.device), gather=True)
+    p = plan(m_loc, n, k, r * r, sms=sm_count(x.device), count_all=True)
     err = _build.library().pk_ag_matmul_bf16(
         *[_build.host_table(pgl.pointer_table(t)) for t in (x, w, out)],
         r, m_loc, n, k, p.cfg, p.grid,
@@ -252,9 +288,7 @@ def matmul_rs_fused(x: torch.Tensor, w: torch.Tensor, *,
     _forward_only(x, w, "matmul_rs_fused")
     if x.device.type == "cpu":
         return matmul_rs_plain(x, w)
-    out = _reduce(x, w, False, "matmul_rs")
-    matmul_rs_fused.launches += 1
-    return out
+    return _reduce(x, w, False, "matmul_rs")
 
 
 matmul_rs_fused.launches = 0

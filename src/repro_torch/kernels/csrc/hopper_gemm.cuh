@@ -1,14 +1,19 @@
 // The Hopper GEMM mainloop shared by kernels/matmul.py (the port of
-// repro/kernels/matmul.py::matmul) and the AG x GEMM kernel of
-// kernels/collective_matmul.py (the port of
-// repro/kernels/collective_matmul.py::ag_matmul_fused).
+// repro/kernels/matmul.py::matmul) and the three GEMM x collective kernels
+// of kernels/collective_matmul.py (the ports of
+// repro/kernels/collective_matmul.py::ag_matmul_fused, ::matmul_rs_fused
+// and ::matmul_ar_fused).
 //
-// out (M x N, bf16) = A (M x K, bf16, row-major) @ B (K x N, bf16,
-// row-major), f32 accumulation, for Z problems in one launch. Problem z
-// reads A and B through tensor maps of a MapTable and stores into a slab of
-// an output pointer table (HgProblem below): the stacked form of B1 (one
-// x, R vocab shards of w) and B5 (block (d, i) reads source s = (d - i)
-// mod R's x slab) are two decodings of z.
+// A (M x K, bf16, row-major) @ B (K x N, bf16, row-major), f32
+// accumulation, for Z problems in one launch. Problem z reads A and B
+// through tensor maps of a MapTable (HgProblem below): the stacked form of
+// B1 (one x, R vocab shards of w), B5 (block (d, i) reads source s = (d -
+// i) mod R's x slab) and the reduce of B4/B6 (problem r is source rank r's
+// partial product x[r] @ w[r]) are three decodings of z. What a finished
+// tile's accumulator becomes is the kernel's epilogue, a template
+// parameter: StoreBf16 below stores it in bf16 (B1, B5); the
+// store-and-count epilogue of collective_matmul.cu reduces the R ranks'
+// partials (B4, B6).
 //
 // What bounds it on an H100 SXM, and what the design does about it:
 //
@@ -73,6 +78,8 @@
 #define HG_MAX_MAPS 8
 #define HG_BK 64                // K a stage: 64 bf16 = one 128-byte row
 #define HG_ATOM_BYTES 8192      // one 64 x 64 bf16 swizzled box
+#define HG_SLOTS 2              // tiles in flight from consumers to drainers
+#define HG_DRAIN_WARPS 3        // warps 1-3 of the producer warpgroup
 
 namespace hg {
 
@@ -84,16 +91,22 @@ struct OutTable {
   unsigned long long p[HG_MAX_MAPS];
 };
 
+// How a launch's problem index z decodes (Args::mode)
+enum Mode { kStacked = 0, kGather = 1, kReduce = 2 };
+
 // problem z of a launch: A map a, B map b, output slab o, first row row0
 struct HgProblem {
   int a, b, o, row0;
 };
 
-// ag 0: problem z multiplies A map 0 by B map z into slab z (matmul and
-// its stacked form); ag 1: z = d * R + i is hop i of destination rank d,
-// source s = (d - i) mod R: A map s, B map d, rows s*M.. of slab d.
-__device__ __forceinline__ HgProblem problem(int z, int R, int M, int ag) {
-  if (!ag) return {0, z, z, 0};
+// kStacked: problem z multiplies A map 0 by B map z into slab z (matmul
+// and its stacked form); kGather: z = d * R + i is hop i of destination
+// rank d, source s = (d - i) mod R: A map s, B map d, rows s*M.. of slab d;
+// kReduce: z is source rank r: A map r, B map r, no output slab (the
+// epilogue stores the partial into the owners' landing slots).
+__device__ __forceinline__ HgProblem problem(int z, int R, int M, int mode) {
+  if (mode == kStacked) return {0, z, z, 0};
+  if (mode == kReduce) return {z, z, -1, 0};
   const int d = z / R, i = z - d * R;
   const int s = (d - i + R) % R;
   return {s, d, d, s * M};
@@ -326,17 +339,101 @@ __device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da,
 
 // A launch: Z problems of M x N x K.
 struct Args {
-  int Z, R, ag, M, N, K;
+  int Z, R, mode, M, N, K;
   int a_rows;  // rows of x's TMA box: min(block rows, M rounded up to 8)
 };
 
+// one output tile of one problem: its problem, z, row and column tile
+struct Tile {
+  HgProblem p;
+  int z, mt, nt, n_tiles;
+};
+
+// tile t of a launch. kReduce takes z fastest, so that the R source
+// blocks of one output tile run in the same wave and the last of them
+// finds the others' partials still in L2; the others take the row tile
+// fastest. Every output element is one block's K loop whatever the order.
+__device__ __forceinline__ Tile tile_of(int t, int m_tiles, int n_tiles,
+                                        const Args& g) {
+  int z, mt, nt;
+  if (g.mode == kReduce) {
+    z = t % g.Z;
+    mt = t / g.Z % m_tiles;
+    nt = t / g.Z / m_tiles;
+  } else {
+    mt = t % m_tiles;
+    nt = t / m_tiles % n_tiles;
+    z = t / m_tiles / n_tiles;
+  }
+  return {problem(z, g.R, g.M, g.mode), z, mt, nt, n_tiles};
+}
+
+// The bf16 epilogue of B1 and B5: rows p.row0 + ... of output slab p.o.
+// The accumulator fragment of m64nBN — element 4 j + e at row 16 warp +
+// lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2 of the
+// warpgroup's 64 rows. The four threads of a quad hold 8 neighbouring
+// columns of a row per 8-column chunk: transpose 4 chunks across the quad
+// so that each thread stores one chunk as 16 bytes (4-byte stores, each
+// half a sector, held the consumers long enough to show in every tile's
+// time).
+struct StoreBf16 {
+  static constexpr bool kDrain = false;
+  OutTable outs;
+
+  template <int BM, int BN>
+  __device__ __forceinline__ void store(float (&acc)[BN / 2], const Tile& t,
+                                        const Args& g) const {
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int row_base = t.mt * BM + wg * 64 + warp * 16 + lane / 4;
+    const int t4 = lane % 4;
+    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(outs.p[t.p.o]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_base + 8 * h;
+#pragma unroll
+      for (int q = 0; q < BN / 32; ++q) {
+        uint32_t mine[4], got[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          mine[c] = pack_bf16x2(acc[4 * (4 * q + c) + 2 * h],
+                                acc[4 * (4 * q + c) + 2 * h + 1]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          // send my share of chunk (t4 - r), receive lane (t4 + r)'s
+          // share of chunk t4
+          const int src = (t4 + r) & 3;
+          const uint32_t v = __shfl_sync(
+              0xffffffffu, pick4(mine, (t4 - r) & 3), (lane & ~3) | src);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) got[i] = src == i ? v : got[i];
+        }
+        const int col = t.nt * BN + 8 * (4 * q + t4);
+        if (row < g.M && col < g.N)  // N % 8 == 0: the whole chunk fits
+          *reinterpret_cast<uint4*>(out + (long)(t.p.row0 + row) * g.N +
+                                    col) =
+              make_uint4(got[0], got[1], got[2], got[3]);
+      }
+    }
+  }
+};
+
 // NC consumer warpgroups (block rows 64 * NC), BN columns, STAGES stages;
-// warpgroups 0..NC-1 consume, warpgroup NC produces.
-template <int NC, int BN, int STAGES>
+// warpgroups 0..NC-1 consume, warpgroup NC produces. Epi turns each
+// finished tile's accumulator into output: Epi::store runs on the
+// consumers. Where Epi::kDrain, the consumers then hand the tile to the
+// three idle warps of the producer warpgroup ("drain warps") through a
+// ring of HG_SLOTS mbarrier pairs (full: every consumer warp arrives once
+// its part is stored; empty: every drain warp arrives once it has counted
+// the tile in, Epi::count_in), and go on to the next tile while the drain
+// warps finish the tile (Epi::settle); once their own tiles are done, the
+// consumers help settle them too. Nothing in an epilogue uses
+// __syncthreads() (the producer thread runs on).
+template <int NC, int BN, int STAGES, class Epi>
 __global__ void __launch_bounds__((NC + 1) * 128, NC == 1 ? 2 : 1)
     hg_gemm_kernel(const __grid_constant__ MapTable amaps,
                    const __grid_constant__ MapTable bmaps,
-                   const __grid_constant__ OutTable outs, Args g) {
+                   const __grid_constant__ Epi epi, Args g) {
   constexpr int BM = NC * 64;
   constexpr int A_BYTES = BM * 128, B_BYTES = BN * 128;
   constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
@@ -346,11 +443,22 @@ __global__ void __launch_bounds__((NC + 1) * 128, NC == 1 ? 2 : 1)
   const uint32_t bars = base + STAGES * STAGE_BYTES;  // full, then empty
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  // the hand-off ring, after the stages' barriers
+  auto slot_full = [&](int j) { return bars + 8 * (2 * STAGES + j); };
+  auto slot_empty = [&](int j) {
+    return bars + 8 * (2 * STAGES + HG_SLOTS + j);
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), NC * 4);
+    }
+    if constexpr (Epi::kDrain) {
+      for (int j = 0; j < HG_SLOTS; ++j) {
+        mbar_init(slot_full(j), NC * 4);
+        mbar_init(slot_empty(j), HG_DRAIN_WARPS);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -359,26 +467,51 @@ __global__ void __launch_bounds__((NC + 1) * 128, NC == 1 ? 2 : 1)
   const int m_tiles = (g.M + BM - 1) / BM, n_tiles = (g.N + BN - 1) / BN;
   const int k_blocks = (g.K + HG_BK - 1) / HG_BK;
   const int total = g.Z * m_tiles * n_tiles;
-  const int wg = threadIdx.x / 128;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
 
   if (wg == NC) {
+    if constexpr (Epi::kDrain) {
+      // drain warps (1-3 of the warpgroup): this block's tile `it` from
+      // hand-off slot it % HG_SLOTS; once it is handed on, what the
+      // previous tile leaves to this block (Epi::settle), and at the end
+      // what any of the block's tiles still leave
+      const int dw = threadIdx.x / 32 - NC * 4 - 1;
+      if (dw >= 0) {
+        int it = 0;
+        for (int t = blockIdx.x; t < total; t += gridDim.x, ++it) {
+          const int j = it % HG_SLOTS;
+          mbar_wait(slot_full(j), (it / HG_SLOTS) & 1);
+          epi.template count_in<BM, BN>(tile_of(t, m_tiles, n_tiles, g), g,
+                                        dw);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(slot_empty(j));
+          if (it > 0)
+            epi.template settle<BM, BN>(
+                tile_of(t - gridDim.x, m_tiles, n_tiles, g), g, dw,
+                HG_DRAIN_WARPS, false);
+        }
+        for (int t = blockIdx.x; t < total; t += gridDim.x)
+          epi.template settle<BM, BN>(tile_of(t, m_tiles, n_tiles, g), g, dw,
+                                      HG_DRAIN_WARPS, true);
+        return;
+      }
+    }
     // producer: one thread keeps the ring full across all of this block's
     // tiles
     if (threadIdx.x != NC * 128) return;
     int stage = 0;
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < total; t += gridDim.x) {
-      const int mt = t % m_tiles, nt = t / m_tiles % n_tiles;
-      const HgProblem p = problem(t / m_tiles / n_tiles, g.R, g.M, g.ag);
+      const Tile tl = tile_of(t, m_tiles, n_tiles, g);
       for (int kb = 0; kb < k_blocks; ++kb) {
         mbar_wait(empty(stage), phase ^ 1);
         mbar_expect_tx(full(stage), g.a_rows * 128 + B_BYTES);
         const uint32_t sa = base + stage * STAGE_BYTES;
-        tma_load(sa, &amaps.m[p.a], kb * HG_BK, mt * BM, full(stage));
+        tma_load(sa, &amaps.m[tl.p.a], kb * HG_BK, tl.mt * BM, full(stage));
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j)
-          tma_load(sa + A_BYTES + j * HG_ATOM_BYTES, &bmaps.m[p.b],
-                   nt * BN + j * 64, kb * HG_BK, full(stage));
+          tma_load(sa + A_BYTES + j * HG_ATOM_BYTES, &bmaps.m[tl.p.b],
+                   tl.nt * BN + j * 64, kb * HG_BK, full(stage));
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -389,16 +522,15 @@ __global__ void __launch_bounds__((NC + 1) * 128, NC == 1 ? 2 : 1)
   }
 
   // consumers: warpgroup wg owns rows 64*wg.. of each tile
-  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   int stage = 0;
   uint32_t phase = 0;
-  for (int t = blockIdx.x; t < total; t += gridDim.x) {
-    const int mt = t % m_tiles, nt = t / m_tiles % n_tiles;
-    const HgProblem p = problem(t / m_tiles / n_tiles, g.R, g.M, g.ag);
-
+  int it = 0;  // this block's tile count
+  for (int t = blockIdx.x; t < total; t += gridDim.x, ++it) {
+    // a fresh accumulator each tile (the first wgmma drops it: scale_d 0),
+    // so the last tile's is dead once its epilogue has read it
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     int prev = -1;
     fence_acc(acc);
     for (int kb = 0; kb < k_blocks; ++kb) {
@@ -426,42 +558,22 @@ __global__ void __launch_bounds__((NC + 1) * 128, NC == 1 ? 2 : 1)
     fence_acc(acc);
     if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
 
-    // epilogue: the accumulator fragment of m64nBN — element 4 j + e at
-    // row 16 warp + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2
-    const int row_base = mt * BM + wg * 64 + warp * 16 + lane / 4;
-    // the four threads of a quad hold 8 neighbouring columns of a row
-    // per 8-column chunk: transpose 4 chunks across the quad so that each
-    // thread stores one chunk as 16 bytes (4-byte stores, each half a
-    // sector, held the consumers long enough to show in every tile's time)
-    const int t4 = lane % 4;
-    __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(outs.p[p.o]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row_base + 8 * h;
-#pragma unroll
-      for (int q = 0; q < BN / 32; ++q) {
-        uint32_t mine[4], got[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          mine[c] = pack_bf16x2(acc[4 * (4 * q + c) + 2 * h],
-                                acc[4 * (4 * q + c) + 2 * h + 1]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          // send my share of chunk (t4 - r), receive lane (t4 + r)'s
-          // share of chunk t4
-          const int src = (t4 + r) & 3;
-          const uint32_t v = __shfl_sync(
-              0xffffffffu, pick4(mine, (t4 - r) & 3), (lane & ~3) | src);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) got[i] = src == i ? v : got[i];
-        }
-        const int col = nt * BN + 8 * (4 * q + t4);
-        if (row < g.M && col < g.N)  // N % 8 == 0: the whole chunk fits
-          *reinterpret_cast<uint4*>(out + (long)(p.row0 + row) * g.N +
-                                    col) =
-              make_uint4(got[0], got[1], got[2], got[3]);
-      }
+    epi.template store<BM, BN>(acc, tile_of(t, m_tiles, n_tiles, g), g);
+    if constexpr (Epi::kDrain) {
+      // hand the tile over: the slot's last use must be drained first; the
+      // arrive releases this warp's stores to the drain warps
+      const int j = it % HG_SLOTS;
+      mbar_wait(slot_empty(j), ((it / HG_SLOTS) & 1) ^ 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(slot_full(j));
     }
+  }
+  if constexpr (Epi::kDrain) {
+    // the consumers' tiles are done: help with what the block's tiles still
+    // leave, each warp its own strip
+    for (int t = blockIdx.x; t < total; t += gridDim.x)
+      epi.template settle<BM, BN>(tile_of(t, m_tiles, n_tiles, g), g,
+                                  wg * 4 + threadIdx.x / 32 % 4, BM / 16, true);
   }
 }
 
@@ -513,15 +625,19 @@ inline int encode(CUtensorMap* map, unsigned long long ptr, uint64_t inner,
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
-template <int NC, int BN, int STAGES>
+// block rows and columns of the launcher's configurations (CONFIGS in
+// kernels/matmul.py)
+inline int cfg_block_m(int cfg) { return cfg == 0 ? 64 : 128; }
+inline int cfg_block_n(int cfg) { return cfg == 0 ? 64 : cfg == 1 ? 192 : 256; }
+
+template <int NC, int BN, int STAGES, class Epi>
 int launch_cfg(const unsigned long long* a_ptrs, int n_a, long long lda,
                const unsigned long long* b_ptrs, int n_b, long long ldb,
-               const unsigned long long* out_ptrs, int n_out, Args g,
-               int grid, cudaStream_t stream) {
+               const Epi& epi, Args g, int grid, cudaStream_t stream) {
   constexpr int BM = NC * 64;
-  constexpr int SMEM = STAGES * (BM + BN) * 128 + 1024 + 16 * STAGES;
+  constexpr int SMEM =
+      STAGES * (BM + BN) * 128 + 1024 + 16 * (STAGES + HG_SLOTS);
   MapTable am{}, bm{};
-  OutTable ot{};
   g.a_rows = (g.M + 7) / 8 * 8 < BM ? (g.M + 7) / 8 * 8 : BM;
   for (int i = 0; i < n_a; ++i) {
     const int e =
@@ -532,41 +648,61 @@ int launch_cfg(const unsigned long long* a_ptrs, int n_a, long long lda,
     const int e = encode(&bm.m[i], b_ptrs[i], g.N, g.K, ldb * 2, 64, HG_BK);
     if (e) return e;
   }
-  for (int i = 0; i < n_out; ++i) ot.p[i] = out_ptrs[i];
-  auto kern = hg_gemm_kernel<NC, BN, STAGES>;
+  auto kern = hg_gemm_kernel<NC, BN, STAGES, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, (NC + 1) * 128, SMEM, stream>>>(am, bm, ot, g);
+  kern<<<grid, (NC + 1) * 128, SMEM, stream>>>(am, bm, epi, g);
   return (int)cudaGetLastError();
 }
 
-// The launcher of both wrappers. cfg 0: the bytes-bound regime (one
-// consumer warpgroup, 64 x 64 tiles, 6 stages); cfg 1 and 2: the
-// compute-bound regime (two consumer warpgroups, 128 x 192 tiles and 5
-// stages, 128 x 256 tiles and 4 stages). The plan (kernels/matmul.py::plan)
-// chooses cfg and grid.
-inline int launch(const unsigned long long* a_ptrs, int n_a, long long lda,
-                  const unsigned long long* b_ptrs, int n_b, long long ldb,
-                  const unsigned long long* out_ptrs, int n_out, Args g,
-                  int cfg, int grid, cudaStream_t stream) {
+// The launcher of every wrapper: Z problems decoded by g.mode, each tile
+// finished by epi. cfg 0: the bytes-bound regime (one consumer warpgroup,
+// 64 x 64 tiles, 6 stages); cfg 1 and 2: the compute-bound regime (two
+// consumer warpgroups, 128 x 192 tiles and 5 stages, 128 x 256 tiles and
+// 4 stages). The plan (kernels/matmul.py::plan) chooses cfg and grid.
+template <class Epi>
+int launch(const unsigned long long* a_ptrs, int n_a, long long lda,
+           const unsigned long long* b_ptrs, int n_b, long long ldb,
+           const Epi& epi, Args g, int cfg, int grid, cudaStream_t stream) {
   if (n_a < 1 || n_a > HG_MAX_MAPS || n_b < 1 || n_b > HG_MAX_MAPS ||
-      n_out < 1 || n_out > HG_MAX_MAPS || g.N % 8 != 0 || lda % 8 != 0 ||
-      ldb % 8 != 0 || grid < 1 || g.M < 1 || g.K < 1)
+      g.N % 8 != 0 || lda % 8 != 0 || ldb % 8 != 0 || grid < 1 || g.M < 1 ||
+      g.K < 1 || g.R < 1 || g.Z < 1)
     return (int)cudaErrorInvalidValue;
-  if (g.ag ? (g.Z != g.R * g.R || n_a < g.R || n_b < g.R || n_out < g.R)
-           : (g.Z > n_b || g.Z > n_out))
-    return (int)cudaErrorInvalidValue;
+  const bool ok =
+      g.mode == kStacked ? g.Z <= n_b
+      : g.mode == kGather
+          ? g.Z == g.R * g.R && n_a >= g.R && n_b >= g.R
+      : g.mode == kReduce
+          ? g.Z == g.R && n_a >= g.R && n_b >= g.R && g.M % g.R == 0
+          : false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (cfg == 0)
-    return launch_cfg<1, 64, 6>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, out_ptrs,
-                                   n_out, g, grid, stream);
+    return launch_cfg<1, 64, 6>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, epi, g,
+                                grid, stream);
   if (cfg == 1)
-    return launch_cfg<2, 192, 5>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb,
-                                 out_ptrs, n_out, g, grid, stream);
+    return launch_cfg<2, 192, 5>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, epi, g,
+                                 grid, stream);
   if (cfg == 2)
-    return launch_cfg<2, 256, 4>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb,
-                                 out_ptrs, n_out, g, grid, stream);
+    return launch_cfg<2, 256, 4>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, epi, g,
+                                 grid, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 launcher of B1 (kStacked: slab z of out_ptrs) and B5 (kGather:
+// slab d).
+inline int launch_bf16(const unsigned long long* a_ptrs, int n_a,
+                       long long lda, const unsigned long long* b_ptrs,
+                       int n_b, long long ldb,
+                       const unsigned long long* out_ptrs, int n_out, Args g,
+                       int cfg, int grid, cudaStream_t stream) {
+  if (n_out < 1 || n_out > HG_MAX_MAPS || g.mode == kReduce ||
+      n_out < (g.mode == kGather ? g.R : g.Z))
+    return (int)cudaErrorInvalidValue;
+  StoreBf16 epi{};
+  for (int i = 0; i < n_out; ++i) epi.outs.p[i] = out_ptrs[i];
+  return launch(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, epi, g, cfg, grid,
+                stream);
 }
 
 }  // namespace hg

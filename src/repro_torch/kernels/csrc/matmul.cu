@@ -15,7 +15,7 @@ extern "C" int pk_matmul_bf16(const void* x, long long ldx,
                               const unsigned long long* out_ptrs, int M,
                               int N, int K, int cfg, int grid, void* stream) {
   const unsigned long long a = reinterpret_cast<unsigned long long>(x);
-  const hg::Args g{Z, 1, 0, M, N, K};
-  return hg::launch(&a, 1, ldx, w_ptrs, Z, ldw, out_ptrs, Z, g, cfg, grid,
-                    static_cast<cudaStream_t>(stream));
+  const hg::Args g{Z, 1, hg::kStacked, M, N, K};
+  return hg::launch_bf16(&a, 1, ldx, w_ptrs, Z, ldw, out_ptrs, Z, g, cfg,
+                         grid, static_cast<cudaStream_t>(stream));
 }

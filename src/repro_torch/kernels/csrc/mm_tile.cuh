@@ -1,6 +1,9 @@
-// The bf16 GEMM tile shared by kernels/matmul.py and the fused GEMM×AR
-// kernel (the port of repro/kernels/matmul.py::_mm_kernel, the tile the
-// Pallas fused kernels build on).
+// The mma.sync bf16 GEMM tile of the grouped GEMM (grouped_matmul.cu), whose
+// fragment helpers flash attention (flash_attention.cu) uses too, and of
+// the yardstick kernels that B1, B4, B5 and B6 ran on before the Hopper
+// mainloop (mm_tile_yardstick.cu). It began as the port of
+// repro/kernels/matmul.py::_mm_kernel, the tile the Pallas fused kernels
+// build on.
 //
 // One CTA of MT_THREADS = 128 threads (4 warps, 2 x 2) computes a
 // MT_BM x MT_BN = 64 x 64 output tile of A (M x K, row-major) @ B (K x N,

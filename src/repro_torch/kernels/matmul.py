@@ -17,6 +17,10 @@ from the shape:
 * **bytes-bound** (M <= 64: decode logits, w's bytes over 3.35 TB/s):
   64×64 tiles, one consumer warpgroup, two blocks an SM; K is never split.
 
+The same ``plan`` serves the GEMM×collective kernels of
+``kernels/collective_matmul.py`` on that mainloop, AG×GEMM and GEMM×RS /
+GEMM×AR, with ``count_all``.
+
 ``matmul_stacked`` multiplies one x by R stacked vocab shards in one launch
 (the serving logits and the loss island had one launch per rank), so that
 the decode logits have R times the tiles to spread over the SMs. The
@@ -80,20 +84,22 @@ class GemmPlan:
 
 
 def plan(m: int, n: int, k: int, problems: int = 1, *, sms: int = H100_SMS,
-         gather: bool = False) -> GemmPlan:
+         count_all: bool = False) -> GemmPlan:
     """The configuration and grid for ``problems`` (m, k) @ (k, n) products
     on a card of ``sms`` SMs. M <= 64 is bytes-bound: 64 x 64 tiles.
     Otherwise the tile width (192 or 256) that leaves the fewest columns
     idle over whole waves of 132 blocks, the wider on a tie, counted for one
     problem, so that a stack gives the bits of one launch a problem;
-    ``gather`` (the AG×GEMM, whose problems are row slabs of one output)
-    counts all problems."""
+    ``count_all`` counts all problems, for kernels whose problems are parts
+    of one output: the AG×GEMM's row slabs, GEMM×RS and GEMM×AR's R rank
+    partials. Nothing in it depends on the card beyond the grid, or on how
+    a caller chunks the rows."""
     def tiles(cfg):
         c = CONFIGS[cfg]
         return _cdiv(m, c["block_m"]) * _cdiv(n, c["block_n"])
 
     def cost(cfg):                      # waves x tile width
-        waves = _cdiv((problems if gather else 1) * tiles(cfg), H100_SMS)
+        waves = _cdiv((problems if count_all else 1) * tiles(cfg), H100_SMS)
         return waves * CONFIGS[cfg]["block_n"]
 
     regime = "bytes" if m <= 64 else "compute"
@@ -105,7 +111,10 @@ def plan(m: int, n: int, k: int, problems: int = 1, *, sms: int = H100_SMS,
         regime=regime, cfg=cfg, block_m=bm, block_n=bn, stages=c["stages"],
         tiles=tiles(cfg), blocks=blocks,
         grid=max(1, min(blocks, c["per_sm"] * sms)), threads=c["threads"],
-        smem_bytes=c["stages"] * (bm + bn) * 128 + 1024 + 16 * c["stages"],
+        # the stages, 1 KB of alignment slack, the mbarrier pairs of the
+        # stages and of the two hand-off slots (HG_SLOTS)
+        smem_bytes=c["stages"] * (bm + bn) * 128 + 1024
+        + 16 * (c["stages"] + 2),
         a_box=(BLOCK_K, min(bm, _cdiv(m, 8) * 8)), b_box=(64, BLOCK_K))
 
 

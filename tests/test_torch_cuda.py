@@ -575,6 +575,66 @@ def test_matmul_rs_kernel(cuda, r, m, k, n):
         assert torch.equal(CM.matmul_rs_fused(x, w, n_chunks=nc), first)
 
 
+@pytest.mark.parametrize("r,m,k,n", [(4, 8, 1408, 2048), (4, 8, 512, 2048),
+                                     (4, 200, 136, 120), (8, 24, 40, 16),
+                                     (2, 260, 64, 72), (4, 4096, 1408, 2048)])
+def test_matmul_rs_equals_ar_owner_rows(cuda, r, m, k, n):
+    """GEMM×RS and GEMM×AR run one plan and one rank-ordered sum: RS's
+    block o is AR's rows o·m/R.. on every rank, bit for bit, and a second
+    call gives the same bits. Covers both decode shapes (m/R = 2: one tile
+    spans every owner) and m/R not a multiple of the tile height."""
+    from repro_torch.kernels import collective_matmul as CM
+    x = _randn(cuda, r, m, k, seed=1)
+    w = _randn(cuda, r, k, n, scale=(r * k) ** -0.5, seed=2)
+    before = (CM.matmul_ar_fused.launches, CM.matmul_rs_fused.launches)
+    ar, rs = CM.matmul_ar_fused(x, w), CM.matmul_rs_fused(x, w)
+    torch.cuda.synchronize()
+    assert (CM.matmul_ar_fused.launches, CM.matmul_rs_fused.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert _rel(ar, CM.matmul_ar_plain(x, w)) <= 1e-3
+    blk = m // r
+    for o in range(r):
+        for d in range(r):
+            assert torch.equal(rs[o], ar[d, o * blk:(o + 1) * blk])
+    assert torch.equal(CM.matmul_ar_fused(x, w), ar)
+    assert torch.equal(CM.matmul_rs_fused(x, w), rs)
+
+
+def test_matmul_reduce_kernels_refuse_misaligned_slabs(cuda):
+    """A slab whose base is not 16-byte aligned raises before any launch
+    (the kernels read every slab through a TMA tensor map)."""
+    from repro_torch.kernels import collective_matmul as CM
+    buf = _randn(cuda, 4 * 8 * 64 + 8, seed=1)
+    x = buf[1:1 + 4 * 8 * 64].view(4, 8, 64)      # base 2 bytes off
+    w = _randn(cuda, 4, 64, 64, seed=2)
+    wbuf = _randn(cuda, 4 * 64 * 64 + 8, seed=3)
+    w_off = wbuf[4:4 + 4 * 64 * 64].view(4, 64, 64)  # base 8 bytes off
+    before = (CM.matmul_ar_fused.launches, CM.matmul_rs_fused.launches)
+    for fn in (CM.matmul_ar_fused, CM.matmul_rs_fused):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(x, w)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(x.contiguous().clone(), w_off)
+    assert (CM.matmul_ar_fused.launches,
+            CM.matmul_rs_fused.launches) == before
+
+
+@pytest.mark.parametrize("r,m,k,n", [(4, 8, 0, 64), (4, 0, 64, 64),
+                                     (4, 8, 64, 0)])
+def test_matmul_reduce_kernels_count_no_launch_when_empty(cuda, r, m, k, n):
+    """A K = 0 or empty call returns zeros (or nothing) and launches no
+    kernel, so it leaves both launch counts as they were."""
+    from repro_torch.kernels import collective_matmul as CM
+    x = _randn(cuda, r, m, k, seed=1)
+    w = _randn(cuda, r, k, n, seed=2)
+    before = (CM.matmul_ar_fused.launches, CM.matmul_rs_fused.launches)
+    ar, rs = CM.matmul_ar_fused(x, w), CM.matmul_rs_fused(x, w)
+    assert (CM.matmul_ar_fused.launches,
+            CM.matmul_rs_fused.launches) == before
+    assert ar.shape == (r, m, n) and rs.shape == (r, m // r, n)
+    assert not ar.any() and not rs.any()
+
+
 def test_gemm_collective_kernels_refuse_gradients(cuda):
     from repro_torch.kernels import collective_matmul as CM
     x = _randn(cuda, 4, 16, 32, seed=1).requires_grad_(True)

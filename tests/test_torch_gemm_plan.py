@@ -6,12 +6,17 @@ pure Python, so its promises are checked here at every shape
 ``chip_smoke.py`` phase 3 and the model paths give the kernel: decode
 launches take the bytes-bound regime with at least one block an SM, every
 TMA box fits the hardware's limits, and nothing that changes the bits
-depends on how many problems a launch stacks. ``matmul_stacked``'s plain
+depends on how many problems a launch stacks. The reduce plan of GEMM×AR
+and GEMM×RS is checked at every shape of theirs the paths and phase 3
+launch, with the scratch the wrapper sizes from it, and is one plan for
+both kernels whatever the chunk count or the card. ``matmul_stacked``'s plain
 path is held against the JAX package's ``ops.matmul`` (Pallas, interpret
 mode) rank by rank, numpy-seeded, in float32 (rtol = atol = 1e-5: the same
 sums in another order); its gradients against autograd of the per-rank
 plain products.
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -40,6 +45,21 @@ COMPUTE = [(2048, 1408, 2048, 1), (1024, 8000, 2048, 4),
            (2048, 8000, 2048, 4), (65, 72, 40, 1), (200, 136, 264, 1)]
 AG = [(1024, 2816, 2048, 16), (1024, 1024, 1024, 16), (100, 200, 264, 16),
       (3, 24, 40, 64), (8, 8, 16, 4)]
+# (m, n, k_loc, R) of GEMM×AR (B4) and GEMM×RS (B6) as the paths and
+# phase 3 launch them: decode (m 8) at the attention out-projection (k_loc
+# 512) and the MLP down-projection (1408), the prefill buckets (m 512,
+# 2048), the training microbatch (1024) and the SP call (8192); the TP
+# pair, the Fig. 8 sweep and phase 3's ragged shape; R 2 and 8; and the
+# card tests' shapes
+REDUCE = [(8, 2048, 512, 4), (8, 2048, 1408, 4), (512, 2048, 512, 4),
+          (512, 2048, 1408, 4), (2048, 2048, 512, 4), (2048, 2048, 1408, 4),
+          (1024, 2048, 512, 4), (1024, 2048, 1408, 4), (8192, 2048, 512, 4),
+          (8192, 2048, 1408, 4), (4096, 2048, 1408, 4), (4096, 1024, 512, 4),
+          (8192, 2048, 1024, 4), (16384, 4096, 2048, 4), (200, 120, 136, 4),
+          (8, 2048, 1408, 2), (8, 2048, 1408, 8), (2048, 2048, 1408, 2),
+          (2048, 2048, 1408, 8), (200, 120, 136, 8), (8, 64, 64, 2),
+          (200, 136, 96, 4), (24, 16, 40, 8), (8, 8, 16, 2), (256, 192, 128, 4),
+          (260, 72, 64, 2)]
 
 
 def _cdiv(a, b):
@@ -72,7 +92,7 @@ def test_plan_one_tinyllama_shard_keeps_whole_tiles():
 
 @pytest.mark.parametrize("m,n,k,problems", DECODE + COMPUTE + AG)
 def test_plan_fits_tma_and_shared_memory(m, n, k, problems):
-    p = MM.plan(m, n, k, problems, gather=(m, n, k, problems) in AG)
+    p = MM.plan(m, n, k, problems, count_all=(m, n, k, problems) in AG)
     for box in (p.a_box, p.b_box):
         assert all(1 <= d <= 256 for d in box)      # TMA's box limit
         assert box[0] * 2 <= 128                    # one 128-byte swizzle row
@@ -118,7 +138,7 @@ def test_plan_bits_do_not_depend_on_the_stack_or_card(m, n, k, problems):
 
 @pytest.mark.parametrize("m,n,k,problems", AG)
 def test_plan_gather_counts_every_problem(m, n, k, problems):
-    p = MM.plan(m, n, k, problems, gather=True)
+    p = MM.plan(m, n, k, problems, count_all=True)
     assert p.blocks == problems * p.tiles
     assert p.grid == min(p.blocks, MM.CONFIGS[p.cfg]["per_sm"] * MM.H100_SMS)
 
@@ -187,7 +207,66 @@ def test_tma_operand_check_raises_before_a_launch(offset, shape, ok):
 
 
 def test_ag_matmul_uses_the_gather_plan():
-    """B5's wrapper is on the mainloop: its module plans with ``gather``."""
+    """B5's wrapper is on the mainloop: its module plans with
+    ``count_all``."""
     assert CM.plan is MM.plan
-    p = MM.plan(1024, 2816, 2048, 16, gather=True)
+    p = MM.plan(1024, 2816, 2048, 16, count_all=True)
     assert (p.block_m, p.block_n) == (128, 256)
+
+
+@pytest.mark.parametrize("m,n,k,r", REDUCE)
+def test_plan_reduce_at_every_b4_b6_shape(m, n, k, r):
+    """The reduce plan of GEMM×AR / GEMM×RS: the regime and tile from m,
+    every source rank's tiles counted for the wave fill, the persistent
+    grid within the card, TMA boxes and shared memory within the
+    hardware's limits, and the scratch the wrapper allocates for the plan's
+    tile what the launcher needs (``need`` in csrc/collective_matmul.cu: an
+    arrival count and R part claims per 16-row strip of each output tile;
+    R landing slots of (R, m/R, n) f32)."""
+    p = MM.plan(m, n, k, r, count_all=True)
+    if m <= 64:
+        assert (p.regime, p.cfg, p.block_m, p.block_n) == \
+            ("bytes", 0, 64, 64)
+    else:
+        assert p.regime == "compute" and p.cfg in (1, 2)
+        # every source rank's tiles fill the waves
+        assert p.cfg == min((2, 1), key=lambda c: _cdiv(
+            r * _cdiv(m, 128) * _cdiv(n, MM.CONFIGS[c]["block_n"]),
+            MM.H100_SMS) * MM.CONFIGS[c]["block_n"])
+    assert p.tiles == _cdiv(m, p.block_m) * _cdiv(n, p.block_n)
+    assert p.blocks == r * p.tiles
+    per_sm = MM.CONFIGS[p.cfg]["per_sm"]
+    assert 1 <= p.grid == min(p.blocks, per_sm * MM.H100_SMS)
+    assert p.a_box == (MM.BLOCK_K, min(p.block_m, _cdiv(m, 8) * 8))
+    assert p.b_box == (64, MM.BLOCK_K)
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+    assert per_sm * (p.smem_bytes + 1024) <= SMEM_PER_SM
+    if r * m * n * 4 <= 64 * 2 ** 20:    # the wrapper's own allocation
+        landing, flags = CM._scratch(torch.device("cpu"), 0, r, m, n, p)
+        CM._SCRATCH.clear()
+        assert landing.shape == (r, r, m // r, n)
+        assert landing.dtype == torch.float32
+        need = (r + 1) * _cdiv(m, p.block_m) * _cdiv(n, p.block_n) \
+            * (p.block_m // 16)
+        assert flags.dtype == torch.int32 and flags.numel() == need
+
+
+@pytest.mark.parametrize("m,n,k,r", REDUCE)
+def test_plan_reduce_is_one_plan_for_rs_and_ar(m, n, k, r):
+    """RS and AR of one shape run one plan, whatever ``n_chunks`` (which
+    the plan does not take) and the card (only the grid follows it), so
+    RS's output is AR's owner rows bit for bit."""
+    p = MM.plan(m, n, k, r, count_all=True)
+    for q in (MM.plan(m, n, k, r, count_all=True),
+              MM.plan(m, n, k, r, sms=114, count_all=True),
+              MM.plan(m, n, k, r, sms=78, count_all=True)):
+        assert (q.cfg, q.block_m, q.block_n, q.tiles, q.a_box, q.b_box) == \
+            (p.cfg, p.block_m, p.block_n, p.tiles, p.a_box, p.b_box)
+    assert "n_chunks" not in inspect.signature(MM.plan).parameters
+
+
+def test_plan_reduce_picks_the_wide_tile_at_the_tp_pair():
+    """B6 at the TP pair: 1,024 blocks of 128 x 256 fill 8 waves (2,048
+    columns), 1,408 of 128 x 192 would fill 11 (2,112)."""
+    p = MM.plan(4096, 2048, 1408, 4, count_all=True)
+    assert (p.block_m, p.block_n, p.blocks, p.grid) == (128, 256, 1024, 132)

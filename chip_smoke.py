@@ -17,7 +17,9 @@ Phases (any failure exits non-zero before the last line is printed):
    moonshot and falcon logits; every GEMM+AR site and prefill bucket, flash
    on the strided views prefill passes — also at moonshot's 16 heads of
    128 —, the grouped GEMM at every MoE shape (64 groups; C = 1, 60, 240;
-   w1/w3 and w2; f32 and bf16 out), the selective scan at falcon-mamba's
+   w1/w3 and w2; f32 and bf16 out; each group's bits the same launched
+   among 64 groups, alone, among 16 and on a second call), the selective
+   scan at falcon-mamba's
    prefill groups (S = 60, 174, 405) and decode (B = 8, S = 1) with the
    stacked state — bit-identical for chunk 1, 64 and 256 and over S + 4
    steps chained —, the ring all-gather and reduce-scatter at every FSDP
@@ -39,13 +41,15 @@ Phases (any failure exits non-zero before the last line is printed):
    plain version, one PyTorch library call of the same function where one
    exists (a yardstick only, never called by the port) and its bound
    (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16 — 67 TFLOP/s
-   f32 for the scan —, the larger). The decode-shaped GEMM and GEMM+AR
+   f32 for the scan —, the larger). The grouped GEMM's weights (369 MB)
+   exceed the L2 whatever the method. The decode-shaped GEMM and GEMM+AR
    rows and the loss row are timed cold: each call takes the next of a set
    of weights larger than the 50 MB L2 (``rotate``), kernel, plain,
    library call and before-column alike, as a serving step reads each
    weight once; the others warm, with the same operands every call
-   (``timing`` in each entry). The GEMM, AG×GEMM, GEMM×RS and GEMM+AR rows
-   also time the mma.sync kernels they ran on before the Hopper mainloop
+   (``timing`` in each entry). The GEMM, AG×GEMM, GEMM×RS, GEMM+AR and
+   grouped-GEMM rows also time the mma.sync kernels they ran on before the
+   Hopper mainloop
    (``ms_mm_tile``, from ``csrc/mm_tile_yardstick.cu``). GEMM+AR is held
    at every site and bucket, bit-identical for 1-4 chunks and a second
    call, and GEMM×RS equal to GEMM+AR's owner rows bit for bit;
@@ -284,6 +288,24 @@ def mm_tile_reduce(x, w, gather):
     return out
 
 
+def mm_tile_grouped_matmul(x, w, out_dtype):
+    """B9's earlier kernel on the mma.sync tile, the before-column of
+    ``grouped_matmul``; the port never calls it."""
+    import torch
+
+    from repro_torch.kernels import _build
+    g, c, k = x.shape
+    n = w.shape[2]
+    out = torch.empty((g, c, n), dtype=out_dtype, device=x.device)
+    _build.check(_build.library().pk_mm_tile_grouped_matmul_bf16(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), g, c, n, k, x.stride(0),
+        x.stride(1), w.stride(0), w.stride(1), out.stride(0), out.stride(1),
+        int(out_dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "pk_mm_tile_grouped_matmul_bf16")
+    return out
+
+
 def rel_err(got, want) -> float:
     got, want = got.detach().float(), want.detach().float()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
@@ -482,11 +504,28 @@ def check_kernels(dev) -> dict:
     # G = 4 ranks x 16 experts at every shape the MoE path gives it — w1/w3
     # (K, N) = (2048, 1408) and w2 (1408, 2048), capacity C = 1 (decode),
     # 60 (128 bucket) and 240 (512 bucket), f32 out (the path's) and bf16;
-    # decode w1 and prefill-512 w1 (f32 out) are timed
+    # each group's f32 bits must not depend on the groups beside it in the
+    # launch or on the call; decode w1 and prefill-512 w1 (f32 out) are
+    # timed, beside the kernel B9 ran on before (``mm_tile_grouped_matmul``)
     g_all = 64
     for c in (1, 60, 240):
         for k, n in ((2048, 1408), (1408, 2048)):
             x, w = randn(g_all, c, k), randn(g_all, k, n, scale=k ** -0.5)
+            full = GM.grouped_matmul(x, w, out_dtype=torch.float32)
+            parts = [GM.grouped_matmul(x, w, out_dtype=torch.float32)] + [
+                GM.grouped_matmul(x[z:z + 1], w[z:z + 1],
+                                  out_dtype=torch.float32)
+                for z in (0, 37, 63)] + [
+                GM.grouped_matmul(x[16:32], w[16:32],
+                                  out_dtype=torch.float32)]
+            for got, want in zip(parts, (full, full[0:1], full[37:38],
+                                         full[63:64], full[16:32])):
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"grouped_matmul x({g_all},{c},{k})@w({g_all},{k},"
+                        f"{n}): a group's bits changed with the groups "
+                        "launched beside it or on a second call")
+            del full, parts
             for out_dt, tol in ((torch.float32, TOL_F32_OUT),
                                 (torch.bfloat16, TOL_BF16_OUT)):
                 shape = (f"x({g_all},{c},{k})@w({g_all},{k},{n}) "
@@ -505,7 +544,11 @@ def check_kernels(dev) -> dict:
                     "src/repro/kernels/grouped_matmul.py:33", run, plain,
                     partial(torch.bmm, x, w), tol,
                     (x.numel() + w.numel()) * 2 + g_all * c * n * 4,
-                    2.0 * g_all * c * k * n)
+                    2.0 * g_all * c * k * n,
+                    before=partial(mm_tile_grouped_matmul, x, w, out_dt))
+    print("[kernel] grouped_matmul: each group's bits the same among 64 "
+          "groups, alone, among 16 and on a second call, at every shape",
+          flush=True)
 
     # flash at the moonshot prefill shape: 16 heads of 128, MHA, the
     # head-transposed views prefill passes (512 bucket timed, 128 checked)

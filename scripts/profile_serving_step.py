@@ -22,7 +22,8 @@ one JSON object with the median of, over the steps of that kind:
 
 each step's wall and busy time in step order (``*_each``), the mean
 device time per step by group — the port's hand-written kernels
-(``pk_*``), GEMMs of the vendor library, copies and memsets, and
+(``pk_*``, and ``hg::hg_gemm_kernel``, the Hopper mainloop of B1, B4, B5,
+B6 and B9), GEMMs of the vendor library, copies and memsets, and
 everything else (elementwise, reductions, softmax) — and the device ops
 that take the most time, with their time and calls per step. Exits 1 if
 the profiler recorded no device activity.
@@ -47,7 +48,7 @@ TOP = 12
 def group_of(name: str) -> str:
     low = name.lower().removeprefix("void ").removeprefix(
         "(anonymous namespace)::")
-    if low.startswith("pk_"):
+    if low.startswith(("pk_", "hg::")):     # hg::: the Hopper mainloop
         return "pk_kernels"
     if any(s in low for s in GEMM_MARKS):
         return "library_gemm"

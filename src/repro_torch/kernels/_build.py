@@ -57,11 +57,12 @@ SIGNATURES = {
     # plan's), stream
     "pk_ag_matmul_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 3
                          + [_I] * 6 + [_P],
-    # the mma.sync kernels B1, B5, B6 and B4 ran on before the Hopper
+    # the mma.sync kernels B1, B5, B6, B4 and B9 ran on before the Hopper
     # mainloop, a timing yardstick (csrc/mm_tile_yardstick.cu): x, w, out,
     # M, N, K, ldx, ldw, ldo, stream; x ptrs, w ptrs, out ptrs, R, M, N, K,
-    # stream; and x ptrs, w ptrs, landing ptrs, out ptrs, flags (one int a
-    # 64 x 64 tile), R, M, N, K, stream
+    # stream; x ptrs, w ptrs, landing ptrs, out ptrs, flags (one int a
+    # 64 x 64 tile), R, M, N, K, stream; and B9's arguments without cfg
+    # and grid
     "pk_mm_tile_matmul_bf16": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _P],
     "pk_mm_tile_ag_matmul_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 3
                                  + [_I, _I, _I, _I, _P],
@@ -69,13 +70,15 @@ SIGNATURES = {
                                  + [_P, _I, _I, _I, _I, _P],
     "pk_mm_tile_matmul_ar_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
                                  + [_P, _I, _I, _I, _I, _P],
+    "pk_mm_tile_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L,
+                                       _L, _L, _L, _L, _I, _P],
     # in ptrs, out ptrs, flags, flag capacity (ints), R, blk bytes, stream
     "pk_lcsc_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
                           + [_P, _L, _I, _L, _P],
     # x, w, out, G, C, N, K, x strides (group, row), w strides, out
-    # strides, out_f32, stream
+    # strides, out_f32, cfg, grid (the plan's), stream
     "pk_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
-                               _L, _L, _I, _P],
+                               _L, _L, _I, _I, _I, _P],
     # in ptrs, out ptrs, R, blk bytes, chunk bytes, stream
     "pk_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
                      + [_I, _L, _L, _P],

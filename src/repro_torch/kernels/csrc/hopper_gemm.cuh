@@ -1,17 +1,21 @@
 // The Hopper GEMM mainloop shared by kernels/matmul.py (the port of
-// repro/kernels/matmul.py::matmul) and the three GEMM x collective kernels
+// repro/kernels/matmul.py::matmul), the three GEMM x collective kernels
 // of kernels/collective_matmul.py (the ports of
 // repro/kernels/collective_matmul.py::ag_matmul_fused, ::matmul_rs_fused
-// and ::matmul_ar_fused).
+// and ::matmul_ar_fused) and the grouped expert GEMM of
+// kernels/grouped_matmul.py (the port of
+// repro/kernels/grouped_matmul.py::grouped_matmul).
 //
 // A (M x K, bf16, row-major) @ B (K x N, bf16, row-major), f32
 // accumulation, for Z problems in one launch. Problem z reads A and B
 // through tensor maps of a MapTable (HgProblem below): the stacked form of
 // B1 (one x, R vocab shards of w), B5 (block (d, i) reads source s = (d -
-// i) mod R's x slab) and the reduce of B4/B6 (problem r is source rank r's
-// partial product x[r] @ w[r]) are three decodings of z. What a finished
-// tile's accumulator becomes is the kernel's epilogue, a template
-// parameter: StoreBf16 below stores it in bf16 (B1, B5); the
+// i) mod R's x slab), the reduce of B4/B6 (problem r is source rank r's
+// partial product x[r] @ w[r]) and the groups of B9 (problem z is group
+// z, read from 3-D maps at group coordinate z) are four decodings of z.
+// What a finished tile's accumulator becomes is the kernel's epilogue, a
+// template parameter: StoreBf16 below stores it in bf16 (B1, B5),
+// StoreGrouped in f32 or bf16 at a group's strides (B9); the
 // store-and-count epilogue of collective_matmul.cu reduces the R ranks'
 // partials (B4, B6).
 //
@@ -56,6 +60,14 @@
 // past M and N are masked at the store. TMA needs 16-byte-aligned bases
 // and row strides: the wrappers check both and raise before a launch.
 //
+// Grouped (B9: 64 groups on the MoE path, more than a MapTable holds):
+// x is one 3-D map (K, M, groups) and w one (N, K, groups), the group
+// outermost, boxes one group deep. TMA zero-fills per dimension, so the
+// box at a group's K or M edge reads zeros, never the next group's rows
+// (which may hold anything, inf included: 0 * inf is NaN). An operand with
+// a group stride of 0 (x broadcast to every group) is a map of one group,
+// read at group 0.
+//
 // The shared-memory matrix descriptors (PTX ISA, wgmma "matrix
 // descriptor"): start address >> 4; for A, K-major 128B swizzle, the
 // stride between 8-row groups (SBO) is 1024 bytes and a k16 step advances
@@ -71,6 +83,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +105,7 @@ struct OutTable {
 };
 
 // How a launch's problem index z decodes (Args::mode)
-enum Mode { kStacked = 0, kGather = 1, kReduce = 2 };
+enum Mode { kStacked = 0, kGather = 1, kReduce = 2, kGrouped = 3 };
 
 // problem z of a launch: A map a, B map b, output slab o, first row row0
 struct HgProblem {
@@ -103,10 +116,12 @@ struct HgProblem {
 // and its stacked form); kGather: z = d * R + i is hop i of destination
 // rank d, source s = (d - i) mod R: A map s, B map d, rows s*M.. of slab d;
 // kReduce: z is source rank r: A map r, B map r, no output slab (the
-// epilogue stores the partial into the owners' landing slots).
+// epilogue stores the partial into the owners' landing slots); kGrouped: z
+// is group z of A map 0 and B map 0 (3-D), output group z.
 __device__ __forceinline__ HgProblem problem(int z, int R, int M, int mode) {
   if (mode == kStacked) return {0, z, z, 0};
   if (mode == kReduce) return {z, z, -1, 0};
+  if (mode == kGrouped) return {0, 0, z, 0};
   const int d = z / R, i = z - d * R;
   const int s = (d - i + R) % R;
   return {s, d, d, s * M};
@@ -158,6 +173,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// one box of a 3-D map at (c0 innermost, c1, c2), completing on bar
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
       : "memory");
 }
 
@@ -322,8 +349,28 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // v[i] for a runtime i, without indexing a register array at run time
-__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+template <class U>
+__device__ __forceinline__ U pick4(const U (&v)[4], int i) {
   return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// The quad transpose of the stores: lane t4 of each quad holds unit t4 (two
+// neighbouring columns) of 4 chunks, mine[c] of chunk c; after it, got[i]
+// is unit i of chunk t4, so a lane holds one chunk's columns in order.
+template <class U>
+__device__ __forceinline__ void quad_transpose(const U (&mine)[4],
+                                               U (&got)[4], int lane) {
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // send my share of chunk (t4 - r), receive lane (t4 + r)'s share of
+    // chunk t4
+    const int src = (t4 + r) & 3;
+    const U v =
+        __shfl_sync(0xffffffffu, pick4(mine, (t4 - r) & 3), (lane & ~3) | src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) got[i] = src == i ? v : got[i];
+  }
 }
 
 template <int BN>
@@ -341,6 +388,9 @@ __device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da,
 struct Args {
   int Z, R, mode, M, N, K;
   int a_rows;  // rows of x's TMA box: min(block rows, M rounded up to 8)
+  // kGrouped: the group coordinate of A's and B's map is z * step (0 for
+  // an operand that serves every group)
+  int a_gstep, b_gstep;
 };
 
 // one output tile of one problem: its problem, z, row and column tile
@@ -398,16 +448,7 @@ struct StoreBf16 {
         for (int c = 0; c < 4; ++c)
           mine[c] = pack_bf16x2(acc[4 * (4 * q + c) + 2 * h],
                                 acc[4 * (4 * q + c) + 2 * h + 1]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          // send my share of chunk (t4 - r), receive lane (t4 + r)'s
-          // share of chunk t4
-          const int src = (t4 + r) & 3;
-          const uint32_t v = __shfl_sync(
-              0xffffffffu, pick4(mine, (t4 - r) & 3), (lane & ~3) | src);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) got[i] = src == i ? v : got[i];
-        }
+        quad_transpose(mine, got, lane);
         const int col = t.nt * BN + 8 * (4 * q + t4);
         if (row < g.M && col < g.N)  // N % 8 == 0: the whole chunk fits
           *reinterpret_cast<uint4*>(out + (long)(t.p.row0 + row) * g.N +
@@ -417,6 +458,69 @@ struct StoreBf16 {
     }
   }
 };
+
+// The epilogue of B9: group t.z of a grouped output at base `out`, rows
+// ldo and groups sog elements apart, in f32 or bf16 (OutT), rows past M and
+// columns past N masked. The quad transpose of StoreBf16 with a unit of
+// two columns: 4 bytes in bf16, one 16-byte store a lane a chunk; 8 bytes
+// in f32, two 16-byte stores of one 32-byte sector. Stores are streaming
+// (evict first): nothing in the launch reads the output back, and the w
+// tile that the row tile beside this one still reads keeps its L2 lines.
+template <class OutT>
+struct StoreGrouped {
+  static constexpr bool kDrain = false;
+  unsigned long long out;
+  long long sog, ldo;
+
+  template <int BM, int BN>
+  __device__ __forceinline__ void store(float (&acc)[BN / 2], const Tile& t,
+                                        const Args& g) const {
+    constexpr bool kF32 = std::is_same_v<OutT, float>;
+    using U = std::conditional_t<kF32, unsigned long long, uint32_t>;
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int row_base = t.mt * BM + wg * 64 + warp * 16 + lane / 4;
+    const int t4 = lane % 4;
+    OutT* o = reinterpret_cast<OutT*>(out) + t.z * sog;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_base + 8 * h;
+#pragma unroll
+      for (int q = 0; q < BN / 32; ++q) {
+        U mine[4], got[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float lo = acc[4 * (4 * q + c) + 2 * h];
+          const float hi = acc[4 * (4 * q + c) + 2 * h + 1];
+          if constexpr (kF32)
+            mine[c] = (unsigned long long)__float_as_uint(hi) << 32 |
+                      __float_as_uint(lo);
+          else
+            mine[c] = pack_bf16x2(lo, hi);
+        }
+        quad_transpose(mine, got, lane);
+        const int col = t.nt * BN + 8 * (4 * q + t4);
+        if (row >= g.M || col >= g.N) continue;  // N % 8 == 0: chunks fit
+        uint4* dst = reinterpret_cast<uint4*>(o + row * ldo + col);
+        if constexpr (kF32) {
+          __stcs(dst, make_uint4((uint32_t)got[0], (uint32_t)(got[0] >> 32),
+                                 (uint32_t)got[1], (uint32_t)(got[1] >> 32)));
+          __stcs(dst + 1,
+                 make_uint4((uint32_t)got[2], (uint32_t)(got[2] >> 32),
+                            (uint32_t)got[3], (uint32_t)(got[3] >> 32)));
+        } else {
+          __stcs(dst, make_uint4(got[0], got[1], got[2], got[3]));
+        }
+      }
+    }
+  }
+};
+
+// whether a launch with epilogue Epi reads 3-D (grouped) tensor maps
+template <class Epi>
+inline constexpr bool kGroupedMaps = false;
+template <class OutT>
+inline constexpr bool kGroupedMaps<StoreGrouped<OutT>> = true;
 
 // NC consumer warpgroups (block rows 64 * NC), BN columns, STAGES stages;
 // warpgroups 0..NC-1 consume, warpgroup NC produces. Epi turns each
@@ -507,11 +611,22 @@ __global__ void __launch_bounds__((NC + 1) * 128, NC == 1 ? 2 : 1)
         mbar_wait(empty(stage), phase ^ 1);
         mbar_expect_tx(full(stage), g.a_rows * 128 + B_BYTES);
         const uint32_t sa = base + stage * STAGE_BYTES;
-        tma_load(sa, &amaps.m[tl.p.a], kb * HG_BK, tl.mt * BM, full(stage));
+        if constexpr (kGroupedMaps<Epi>) {
+          // the same boxes, one group deep, at group coordinate z
+          tma_load3(sa, &amaps.m[tl.p.a], kb * HG_BK, tl.mt * BM,
+                    tl.z * g.a_gstep, full(stage));
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load(sa + A_BYTES + j * HG_ATOM_BYTES, &bmaps.m[tl.p.b],
-                   tl.nt * BN + j * 64, kb * HG_BK, full(stage));
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load3(sa + A_BYTES + j * HG_ATOM_BYTES, &bmaps.m[tl.p.b],
+                      tl.nt * BN + j * 64, kb * HG_BK, tl.z * g.b_gstep,
+                      full(stage));
+        } else {
+          tma_load(sa, &amaps.m[tl.p.a], kb * HG_BK, tl.mt * BM, full(stage));
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(sa + A_BYTES + j * HG_ATOM_BYTES, &bmaps.m[tl.p.b],
+                     tl.nt * BN + j * 64, kb * HG_BK, full(stage));
+        }
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -604,19 +719,16 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A 2-D bf16 tensor map with 128-byte swizzle: `outer` rows of `inner`
-// elements, rows `row_bytes` apart, boxes of box_inner x box_outer.
+// A bf16 tensor map of `rank` (2 or 3) dimensions with 128-byte swizzle:
+// dims innermost first, strides (bytes) of the outer ones, one box.
 // Returns 0, or minus the CUresult of a refused encode.
-inline int encode(CUtensorMap* map, unsigned long long ptr, uint64_t inner,
-                  uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
-                  uint32_t box_outer) {
+inline int encode_tiled(CUtensorMap* map, unsigned long long ptr, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                         reinterpret_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -625,29 +737,46 @@ inline int encode(CUtensorMap* map, unsigned long long ptr, uint64_t inner,
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
+// A 2-D map: `outer` rows of `inner` elements, rows `row_bytes` apart,
+// boxes of box_inner x box_outer.
+inline int encode(CUtensorMap* map, unsigned long long ptr, uint64_t inner,
+                  uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                  uint32_t box_outer) {
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  return encode_tiled(map, ptr, 2, dims, strides, box);
+}
+
+// A 3-D map: `groups` slabs of `outer` rows of `inner` elements, rows
+// `row_bytes` and slabs `group_bytes` apart, boxes of box_inner x
+// box_outer x 1.
+inline int encode3(CUtensorMap* map, unsigned long long ptr, uint64_t inner,
+                   uint64_t outer, uint64_t groups, uint64_t row_bytes,
+                   uint64_t group_bytes, uint32_t box_inner,
+                   uint32_t box_outer) {
+  const cuuint64_t dims[3] = {inner, outer, groups};
+  const cuuint64_t strides[2] = {row_bytes, group_bytes};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  return encode_tiled(map, ptr, 3, dims, strides, box);
+}
+
 // block rows and columns of the launcher's configurations (CONFIGS in
 // kernels/matmul.py)
 inline int cfg_block_m(int cfg) { return cfg == 0 ? 64 : 128; }
 inline int cfg_block_n(int cfg) { return cfg == 0 ? 64 : cfg == 1 ? 192 : 256; }
 
-template <int NC, int BN, int STAGES, class Epi>
-int launch_cfg(const unsigned long long* a_ptrs, int n_a, long long lda,
-               const unsigned long long* b_ptrs, int n_b, long long ldb,
-               const Epi& epi, Args g, int grid, cudaStream_t stream) {
+// maps(am, bm, a_rows) encodes the launch's tensor maps, x's box a_rows
+// deep: 0, or minus the CUresult of a refused encode
+template <int NC, int BN, int STAGES, class Epi, class Maps>
+int launch_cfg(const Maps& maps, const Epi& epi, Args g, int grid,
+               cudaStream_t stream) {
   constexpr int BM = NC * 64;
   constexpr int SMEM =
       STAGES * (BM + BN) * 128 + 1024 + 16 * (STAGES + HG_SLOTS);
   MapTable am{}, bm{};
   g.a_rows = (g.M + 7) / 8 * 8 < BM ? (g.M + 7) / 8 * 8 : BM;
-  for (int i = 0; i < n_a; ++i) {
-    const int e =
-        encode(&am.m[i], a_ptrs[i], g.K, g.M, lda * 2, HG_BK, g.a_rows);
-    if (e) return e;
-  }
-  for (int i = 0; i < n_b; ++i) {
-    const int e = encode(&bm.m[i], b_ptrs[i], g.N, g.K, ldb * 2, 64, HG_BK);
-    if (e) return e;
-  }
+  if (const int e = maps(am, bm, g.a_rows)) return e;
   auto kern = hg_gemm_kernel<NC, BN, STAGES, Epi>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -656,11 +785,21 @@ int launch_cfg(const unsigned long long* a_ptrs, int n_a, long long lda,
   return (int)cudaGetLastError();
 }
 
-// The launcher of every wrapper: Z problems decoded by g.mode, each tile
-// finished by epi. cfg 0: the bytes-bound regime (one consumer warpgroup,
-// 64 x 64 tiles, 6 stages); cfg 1 and 2: the compute-bound regime (two
-// consumer warpgroups, 128 x 192 tiles and 5 stages, 128 x 256 tiles and
-// 4 stages). The plan (kernels/matmul.py::plan) chooses cfg and grid.
+// cfg 0: the bytes-bound regime (one consumer warpgroup, 64 x 64 tiles, 6
+// stages); cfg 1 and 2: the compute-bound regime (two consumer warpgroups,
+// 128 x 192 tiles and 5 stages, 128 x 256 tiles and 4 stages). The plan
+// (kernels/matmul.py::plan) chooses cfg and grid.
+template <class Epi, class Maps>
+int launch_maps(const Maps& maps, const Epi& epi, const Args& g, int cfg,
+                int grid, cudaStream_t stream) {
+  if (cfg == 0) return launch_cfg<1, 64, 6>(maps, epi, g, grid, stream);
+  if (cfg == 1) return launch_cfg<2, 192, 5>(maps, epi, g, grid, stream);
+  if (cfg == 2) return launch_cfg<2, 256, 4>(maps, epi, g, grid, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launcher of B1, B4, B5 and B6: Z problems decoded by g.mode from
+// 2-D maps of the n_a A and n_b B slabs, each tile finished by epi.
 template <class Epi>
 int launch(const unsigned long long* a_ptrs, int n_a, long long lda,
            const unsigned long long* b_ptrs, int n_b, long long ldb,
@@ -677,16 +816,44 @@ int launch(const unsigned long long* a_ptrs, int n_a, long long lda,
           ? g.Z == g.R && n_a >= g.R && n_b >= g.R && g.M % g.R == 0
           : false;
   if (!ok) return (int)cudaErrorInvalidValue;
-  if (cfg == 0)
-    return launch_cfg<1, 64, 6>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, epi, g,
-                                grid, stream);
-  if (cfg == 1)
-    return launch_cfg<2, 192, 5>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, epi, g,
-                                 grid, stream);
-  if (cfg == 2)
-    return launch_cfg<2, 256, 4>(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, epi, g,
-                                 grid, stream);
-  return (int)cudaErrorInvalidValue;
+  auto maps = [&](MapTable& am, MapTable& bm, int a_rows) {
+    for (int i = 0; i < n_a; ++i)
+      if (const int e =
+              encode(&am.m[i], a_ptrs[i], g.K, g.M, lda * 2, HG_BK, a_rows))
+        return e;
+    for (int i = 0; i < n_b; ++i)
+      if (const int e =
+              encode(&bm.m[i], b_ptrs[i], g.N, g.K, ldb * 2, 64, HG_BK))
+        return e;
+    return 0;
+  };
+  return launch_maps(maps, epi, g, cfg, grid, stream);
+}
+
+// The grouped launcher of B9 (kGrouped): out[z] = x[z] @ w[z] for the g.Z
+// groups, x (Z x M x K) and w (Z x K x N) bf16 through one 3-D map each,
+// group strides sxg and swg and row strides ldx and ldw in elements; a
+// group stride of 0 makes the operand one group that serves every group.
+template <class OutT>
+int launch_grouped(unsigned long long x, long long sxg, long long ldx,
+                   unsigned long long w, long long swg, long long ldw,
+                   const StoreGrouped<OutT>& epi, Args g, int cfg, int grid,
+                   cudaStream_t stream) {
+  if (g.mode != kGrouped || g.Z < 1 || g.M < 1 || g.K < 1 || g.N < 1 ||
+      g.N % 8 != 0 || ldx % 8 != 0 || ldw % 8 != 0 || sxg % 8 != 0 ||
+      swg % 8 != 0 || sxg < 0 || swg < 0 || epi.ldo % 8 != 0 ||
+      epi.sog % 8 != 0 || epi.out % 16 != 0 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  g.a_gstep = sxg != 0;
+  g.b_gstep = swg != 0;
+  auto maps = [&](MapTable& am, MapTable& bm, int a_rows) {
+    const int e = encode3(&am.m[0], x, g.K, g.M, sxg ? g.Z : 1, ldx * 2,
+                          (sxg ? sxg : ldx * g.M) * 2, HG_BK, a_rows);
+    return e ? e
+             : encode3(&bm.m[0], w, g.N, g.K, swg ? g.Z : 1, ldw * 2,
+                       (swg ? swg : ldw * g.K) * 2, 64, HG_BK);
+  };
+  return launch_maps(maps, epi, g, cfg, grid, stream);
 }
 
 // The bf16 launcher of B1 (kStacked: slab z of out_ptrs) and B5 (kGather:

@@ -19,7 +19,8 @@ from the shape:
 
 The same ``plan`` serves the GEMM×collective kernels of
 ``kernels/collective_matmul.py`` on that mainloop, AG×GEMM and GEMM×RS /
-GEMM×AR, with ``count_all``.
+GEMM×AR, with ``count_all``, and the grouped expert GEMM of
+``kernels/grouped_matmul.py``.
 
 ``matmul_stacked`` multiplies one x by R stacked vocab shards in one launch
 (the serving logits and the loss island had one launch per rank), so that
@@ -79,8 +80,10 @@ class GemmPlan:
     grid: int                   # persistent blocks launched
     threads: int
     smem_bytes: int             # dynamic shared memory a block
-    a_box: tuple[int, int]      # TMA box of x: (K, rows)
-    b_box: tuple[int, int]      # TMA box of w: (columns, K)
+    # TMA boxes, innermost first; one group deep (a third dimension of 1)
+    # for the grouped GEMM's 3-D maps
+    a_box: tuple[int, ...]      # of x: (K, rows)
+    b_box: tuple[int, ...]      # of w: (columns, K)
 
 
 def plan(m: int, n: int, k: int, problems: int = 1, *, sms: int = H100_SMS,

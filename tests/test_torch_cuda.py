@@ -208,6 +208,75 @@ def test_grouped_matmul_kernel_strided_groups(cuda):
         GM.grouped_matmul(x.float(), w.reshape(6, 64, 48).float())
 
 
+@pytest.mark.parametrize("c,k,n", [(1, 2048, 1408), (60, 1408, 2048),
+                                   (240, 2048, 1408), (240, 1408, 2048)])
+def test_grouped_matmul_kernel_bits_invariant_to_groups(cuda, c, k, n):
+    """A group's output is the same bits launched among 64 groups, alone,
+    among 16 and on a second call: the plan's tile is one group's, and each
+    output element is one block's K loop, in order."""
+    from repro_torch.kernels import grouped_matmul as GM
+    x = _randn(cuda, 64, c, k, seed=10)
+    w = _randn(cuda, 64, k, n, scale=k ** -0.5, seed=11)
+    full = GM.grouped_matmul(x, w, out_dtype=torch.float32)
+    assert torch.equal(GM.grouped_matmul(x, w, out_dtype=torch.float32), full)
+    for z in (0, 17, 63):
+        alone = GM.grouped_matmul(x[z:z + 1], w[z:z + 1],
+                                  out_dtype=torch.float32)
+        assert torch.equal(alone[0], full[z])
+    assert torch.equal(GM.grouped_matmul(x[16:32], w[16:32],
+                                         out_dtype=torch.float32),
+                       full[16:32])
+
+
+@pytest.mark.parametrize("k", [40, 136])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_grouped_matmul_kernel_zero_fills_inside_each_group(cuda, k,
+                                                            broadcast):
+    """Ragged K (and C, N) with every odd group's w filled with inf. TMA's
+    zero fill is per dimension of the 3-D maps, so an even group's last K
+    box reads zeros past K inside its own group, never the next group's
+    inf rows (0 * inf would be NaN): the even groups' outputs are finite
+    and match the plain version."""
+    from repro_torch.kernels import grouped_matmul as GM
+    g, c, n = 6, 5, 72
+    x = (_randn(cuda, c, k, seed=12).expand(g, c, k) if broadcast
+         else _randn(cuda, g, c, k, seed=12))
+    w = _randn(cuda, g, k, n, scale=k ** -0.5, seed=13)
+    w[1::2] = float("inf")
+    want = GM.grouped_matmul_plain(x[0::2], w[0::2], out_dtype=torch.float32)
+    for out_dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 1e-2)):
+        got = GM.grouped_matmul(x, w, out_dtype=out_dtype)[0::2]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= tol
+
+
+def test_grouped_matmul_kernel_broadcast_weight(cuda):
+    """One w serving every group (a group stride of 0 on w, a map of one
+    group read at group 0) against the plain version."""
+    from repro_torch.kernels import grouped_matmul as GM
+    x = _randn(cuda, 5, 3, 136, seed=16)
+    w = _randn(cuda, 136, 72, scale=136 ** -0.5, seed=17).expand(5, 136, 72)
+    got = GM.grouped_matmul(x, w, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _rel(got, GM.grouped_matmul_plain(
+        x, w, out_dtype=torch.float32)) <= 1e-3
+
+
+def test_grouped_matmul_kernel_refused_encode_raises(cuda):
+    """A view the operand check accepts but cuTensorMapEncodeTiled refuses
+    (a group stride of 2^40 elements: TMA strides stay below 2^40 bytes)
+    raises, and counts no launch."""
+    from repro_torch.kernels import grouped_matmul as GM
+    x = torch.as_strided(_randn(cuda, 8, 64, seed=14), (1, 8, 64),
+                         (2 ** 40, 64, 1))
+    w = _randn(cuda, 1, 64, 64, seed=15)
+    before = GM.grouped_matmul.launches
+    with pytest.raises(RuntimeError, match="refused"):
+        GM.grouped_matmul(x, w, out_dtype=torch.float32)
+    assert GM.grouped_matmul.launches == before
+
+
 def test_moe_on_card_matches_plain_gemm(cuda):
     """The replicated-dispatch MoE on 4 virtual ranks, bf16: the grouped
     GEMM kernel against the same function with the plain GEMM on the same

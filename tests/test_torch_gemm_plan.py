@@ -9,7 +9,10 @@ TMA box fits the hardware's limits, and nothing that changes the bits
 depends on how many problems a launch stacks. The reduce plan of GEMM×AR
 and GEMM×RS is checked at every shape of theirs the paths and phase 3
 launch, with the scratch the wrapper sizes from it, and is one plan for
-both kernels whatever the chunk count or the card. ``matmul_stacked``'s plain
+both kernels whatever the chunk count or the card. The grouped expert
+GEMM's plan (B9, 3-D tensor maps) is checked at every MoE shape, with its
+tile independent of the group count, and its operand check raises before
+any launch. ``matmul_stacked``'s plain
 path is held against the JAX package's ``ops.matmul`` (Pallas, interpret
 mode) rank by rank, numpy-seeded, in float32 (rtol = atol = 1e-5: the same
 sums in another order); its gradients against autograd of the per-rank
@@ -25,6 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import collective_matmul as CM  # noqa: E402
+from repro_torch.kernels import grouped_matmul as GM  # noqa: E402
 from repro_torch.kernels import matmul as MM  # noqa: E402
 
 torch.set_num_threads(1)
@@ -60,6 +64,12 @@ REDUCE = [(8, 2048, 512, 4), (8, 2048, 1408, 4), (512, 2048, 512, 4),
           (2048, 2048, 1408, 8), (200, 120, 136, 8), (8, 64, 64, 2),
           (200, 136, 96, 4), (24, 16, 40, 8), (8, 8, 16, 2), (256, 192, 128, 4),
           (260, 72, 64, 2)]
+
+# (g, c, k, n) of the grouped expert GEMM (B9) on moonshot-v1-16b-a3b's MoE
+# path: 4 ranks x 16 experts, capacity 1 at decode, 60 and 240 in the 128
+# and 512 buckets, w1/w3 (2048, 1408) and w2 (1408, 2048)
+GROUPED = [(64, c, k, n) for c in (1, 60, 240)
+           for k, n in ((2048, 1408), (1408, 2048))]
 
 
 def _cdiv(a, b):
@@ -270,3 +280,97 @@ def test_plan_reduce_picks_the_wide_tile_at_the_tp_pair():
     columns), 1,408 of 128 x 192 would fill 11 (2,112)."""
     p = MM.plan(4096, 2048, 1408, 4, count_all=True)
     assert (p.block_m, p.block_n, p.blocks, p.grid) == (128, 256, 1024, 132)
+
+
+@pytest.mark.parametrize("g,c,k,n", GROUPED)
+def test_grouped_plan_at_every_moe_shape(g, c, k, n):
+    """B9's plan: C <= 64 (decode, the 128 bucket) bytes-bound on 64 x 64
+    tiles, C = 240 the compute regime; one tile per row and column block
+    of every group, a persistent grid over all of them, 3-D TMA boxes one
+    group deep, shared memory within the card's."""
+    p = GM.plan(g, c, n, k)
+    if c <= 64:
+        assert (p.regime, p.cfg, p.block_m, p.block_n, p.stages) == \
+            ("bytes", 0, 64, 64, 6)
+    else:
+        assert (p.regime, p.cfg, p.block_m, p.block_n, p.stages) == \
+            ("compute", 1, 128, 192, 5)
+    assert p.tiles == _cdiv(c, p.block_m) * _cdiv(n, p.block_n)
+    assert p.blocks == g * p.tiles
+    per_sm = MM.CONFIGS[p.cfg]["per_sm"]
+    assert p.grid == min(p.blocks, per_sm * MM.H100_SMS)
+    assert p.a_box == (64, min(p.block_m, _cdiv(c, 8) * 8), 1)
+    assert p.b_box == (64, 64, 1)
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+    assert per_sm * (p.smem_bytes + 1024) <= SMEM_PER_SM
+    assert p.threads == (p.block_m // 64 + 1) * 128
+
+
+@pytest.mark.parametrize("g,c,k,n", GROUPED)
+def test_grouped_plan_tile_does_not_depend_on_groups(g, c, k, n):
+    """The tile is one group's (never counted over the groups), so a
+    group's bits are the same launched alone, among 16 or among 64; only
+    the grid follows the group count and the card."""
+    one = GM.plan(1, c, n, k)
+    for q in (GM.plan(g, c, n, k), GM.plan(16, c, n, k),
+              GM.plan(g, c, n, k, sms=114)):
+        assert (q.cfg, q.block_m, q.block_n, q.tiles, q.a_box, q.b_box) == \
+            (one.cfg, one.block_m, one.block_n, one.tiles, one.a_box,
+             one.b_box)
+
+
+def _view(shape, strides, offset=0):
+    """A bf16 view ``offset`` elements past a 16-byte edge."""
+    need = 1 + sum((d - 1) * st for d, st in zip(shape, strides))
+    buf = torch.zeros(need + 16, dtype=torch.bfloat16)
+    start = (8 - buf.data_ptr() % 16 // 2) % 8 + offset
+    return buf.as_strided(shape, strides, start)
+
+
+@pytest.mark.parametrize("x,w,match", [
+    (_view((4, 3, 16), (48, 16, 1), offset=1), _view((4, 16, 8), (128, 8, 1)),
+     "16-byte aligned"),
+    (_view((4, 3, 16), (48, 16, 1)), _view((4, 16, 8), (128, 8, 1), offset=4),
+     "16-byte aligned"),
+    (_view((4, 3, 16), (60, 20, 1)), _view((4, 16, 8), (128, 8, 1)),
+     "16-byte aligned"),
+    (_view((4, 3, 16), (48, 16, 1)), _view((4, 16, 8), (160, 10, 1)),
+     "16-byte aligned"),
+    (_view((4, 3, 16), (52, 16, 1)), _view((4, 16, 8), (128, 8, 1)),
+     "group stride"),
+    (_view((4, 3, 16), (48, 16, 1)), _view((4, 16, 8), (132, 8, 1)),
+     "group stride"),
+    (_view((4, 3, 16), (48, 16, 1)), _view((4, 16, 12), (192, 12, 1)),
+     "N % 8"),
+    (_view((4, 3, 16), (48, 16, 1)).float(),
+     _view((4, 16, 8), (128, 8, 1)), "bf16"),
+])
+def test_grouped_operand_check_raises_before_a_launch(x, w, match,
+                                                      monkeypatch):
+    """A misaligned base, a row or group stride that is not a multiple of
+    8 elements, N % 8 != 0 or another dtype is refused before the library
+    is built or a kernel launched (TMA would fault or read wrong rows)."""
+    def no_launch():
+        raise AssertionError("the kernel library was reached")
+    monkeypatch.setattr(GM._build, "library", no_launch)
+    before = GM.grouped_matmul.launches
+    with pytest.raises(ValueError, match=match):
+        GM.check_operands(x, w, torch.float32)
+    with pytest.raises(ValueError, match=match):
+        GM._launch(x, w, torch.float32)
+    assert GM.grouped_matmul.launches == before
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_grouped_operand_check_accepts_a_group_stride_of_zero(out_dtype):
+    """x broadcast to every group (the dense MoE oracle's input) and
+    aligned strided groups are what the kernel takes; another output
+    dtype is refused."""
+    x = _view((3, 16), (16, 1)).expand(4, 3, 16)
+    assert x.stride(0) == 0
+    w = _view((2, 2, 16, 8), (256, 128, 8, 1)).reshape(4, 16, 8)
+    GM.check_operands(x, w, out_dtype)
+    GM.check_operands(_view((4, 3, 16), (64, 16, 1)),
+                      _view((4, 16, 8), (0, 8, 1)), out_dtype)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        GM.check_operands(x, w, torch.float16)

@@ -148,11 +148,15 @@ class _GroupedMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        # f32 products of the cotangent as it comes (f32 where the caller
+        # asked for an f32 output), each result rounded once to its
+        # operand's dtype: JAX's VJP of an einsum with
+        # preferred_element_type=f32
         x, w = ctx.saved_tensors
-        dy = dy.to(x.dtype)
-        dx = torch.matmul(dy, w.transpose(1, 2)) \
+        dy = dy.float()
+        dx = torch.matmul(dy, w.float().transpose(1, 2)).to(x.dtype) \
             if ctx.needs_input_grad[0] else None
-        dw = torch.matmul(x.transpose(1, 2), dy) \
+        dw = torch.matmul(x.float().transpose(1, 2), dy).to(w.dtype) \
             if ctx.needs_input_grad[1] else None
         return dx, dw, None
 

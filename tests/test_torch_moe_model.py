@@ -216,7 +216,7 @@ def test_moe_run_options_not_ported_raise(tmp_path):
         L.moe_island(tcfg, rules.run, rules, B, 8)
     with pytest.raises(NotImplementedError, match="A9b"):
         T.forward_train({}, {}, tcfg, RunConfig(fsdp=False), None)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="A9b"):
         train_launch.build_and_train(ARCH, reduced=True, steps=1, batch=2,
                                      seq=8, mesh_shape=None,
                                      ckpt_dir=str(tmp_path), device="cpu")

@@ -50,7 +50,11 @@ Phases (any failure exits non-zero before the last line is printed):
    (``timing`` in each entry). The GEMM, AG×GEMM, GEMM×RS, GEMM+AR and
    grouped-GEMM rows also time the mma.sync kernels they ran on before the
    Hopper mainloop
-   (``ms_mm_tile``, from ``csrc/mm_tile_yardstick.cu``). GEMM+AR is held
+   (``ms_mm_tile``, from ``csrc/mm_tile_yardstick.cu``); the flash and hop
+   rows the mma.sync kernel flash ran on before its TMA + wgmma design
+   (``ms_mm_tile``, from ``csrc/flash_mma_yardstick.cu``), after the
+   flash kernel's own launch configuration is held against its plan
+   (``flash_plan``) at both widths. GEMM+AR is held
    at every site and bucket, bit-identical for 1-4 chunks and a second
    call, and GEMM×RS equal to GEMM+AR's owner rows bit for bit;
 4. serving: the continuous-batching engine serves 8 requests of a seeded
@@ -306,6 +310,44 @@ def mm_tile_grouped_matmul(x, w, out_dtype):
     return out
 
 
+def mm_tile_flash(q, k, v, causal=True):
+    """B7's earlier kernel (``csrc/flash_mma_yardstick.cu``: the mma.sync
+    flash it ran on before the TMA + wgmma design), the before-column
+    ``ms_mm_tile`` of the flash rows, at head_dim 64 or 128; the port never
+    calls it."""
+    import torch
+
+    from repro_torch.kernels import _build
+    b, hq, sq, hd = q.shape
+    out = torch.empty((b, hq, sq, hd), dtype=q.dtype, device=q.device)
+    _build.check(_build.library().pk_mm_tile_flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        k.shape[1], sq, k.shape[2], hd,
+        *[t.stride(i) for t in (q, k, v) for i in range(3)], int(causal), 0,
+        hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream),
+        "pk_mm_tile_flash_attention_bf16")
+    return out
+
+
+def mm_tile_flash_hop(q, k, v, ranks, hop):
+    """The hop's earlier kernel (causal, the yardstick of
+    ``mm_tile_flash``): o, m, l in f32; the port never calls it."""
+    import torch
+
+    from repro_torch.kernels import _build
+    b, hq, sq, hd = q.shape
+    o = torch.empty((b, hq, sq, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    l_ = torch.empty_like(m)
+    _build.check(_build.library().pk_mm_tile_flash_attention_hop_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
+        l_.data_ptr(), b, hq, k.shape[1], sq, k.shape[2], hd,
+        *[t.stride(i) for t in (q, k, v) for i in range(3)], ranks, hop, 1,
+        0, hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream),
+        "pk_mm_tile_flash_attention_hop_bf16")
+    return o, m, l_
+
+
 def rel_err(got, want) -> float:
     got, want = got.detach().float(), want.detach().float()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
@@ -383,6 +425,14 @@ def check_kernels(dev) -> dict:
 
     entries.update(check_matmul(dev, record, compare, randn))
 
+    for hd in FA.KERNEL_HEAD_DIMS:      # the built kernel is the plan's
+        st = (512 * hd, 256 * hd, hd, 1)
+        p = FA.flash_plan((1, 2, 256, hd), st, (1, 2, 256, hd), st)
+        want = (p.block_q, p.block_k, p.stages, p.threads, p.smem_bytes)
+        if FA.kernel_config(hd) != want:
+            raise AssertionError(f"flash at head_dim {hd}: the kernel's "
+                                 f"{FA.kernel_config(hd)} is not the plan's "
+                                 f"{want}")
     # flash attention: the prefill bucket groups (B=4, S=512 and S=128),
     # tinyllama heads. Prefill hands the kernel head-transposed views of
     # (B, S, H, hd) projections, so q/k/v are strided as there; the
@@ -411,7 +461,8 @@ def check_kernels(dev) -> dict:
             lambda: F.scaled_dot_product_attention(q, kr, vr,
                                                    is_causal=True),
             TOL_BF16_OUT, (2 * q.numel() + k_.numel() + v.numel()) * 2,
-            4.0 * b * hq * hd * visible)
+            4.0 * b * hq * hd * visible,
+            before=partial(mm_tile_flash, q, k_, v))
 
     # GEMM+AR, R = 4 ranks: the MLP down-projection island (k_loc = ff/R =
     # 1408) at prefill (m = 4 x 512 and 4 x 128) and decode (m = 8), and
@@ -568,7 +619,8 @@ def check_kernels(dev) -> dict:
             partial(F.scaled_dot_product_attention, q, k_, v,
                     is_causal=True),
             TOL_BF16_OUT, 4 * q.numel() * 2,
-            4.0 * b * h * hd * (s * (s + 1) // 2))
+            4.0 * b * h * hd * (s * (s + 1) // 2),
+            before=partial(mm_tile_flash, q, k_, v))
 
     entries.update(check_mamba_scan(dev, record, compare))
     entries.update(check_ring_kernels(dev, record, compare, randn))
@@ -798,7 +850,8 @@ def check_ring_kernels(dev, record, compare, randn) -> dict:
             live * b * (hq + 2 * hkv) * s * hd * 2
             + r * b * hq * s * (hd + 2) * 4,
             4.0 * b * hq * hd * pairs, plain_iters=2,
-            checked=(errs[0], float((got[0] - want[0]).abs().max())))
+            checked=(errs[0], float((got[0] - want[0]).abs().max())),
+            before=partial(mm_tile_flash_hop, q, k_, v, r, hop))
         del got, want
     entries["flash_attention_hop"] = entries.pop("flash_attention_hop@1")
 

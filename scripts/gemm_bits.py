@@ -4,7 +4,8 @@
     python3 scripts/gemm_bits.py [--src DIR] [--out FILE]
 
 Runs B1 (``matmul``, single and stacked), B5 (``ag_matmul_fused``), B6
-(``matmul_rs_fused``) and B4 (``matmul_ar_fused``) of the port found under
+(``matmul_rs_fused``), B4 (``matmul_ar_fused``) and B9 (``grouped_matmul``,
+f32 and bf16 out) of the port found under
 ``DIR`` (default: this checkout's ``src/``) at the shapes ``chip_smoke.py``
 times and two ragged ones, on inputs made on the card from seed 0, and
 prints the card's name and power limit, then one JSON object: a SHA-256
@@ -33,6 +34,8 @@ STACKED = [(8, 2048, 8000, 4), (1024, 2048, 8000, 4)]
 AG = [(4, 1024, 2048, 2816), (4, 100, 264, 200)]
 REDUCE = [(4, 4096, 1408, 2048), (4, 2048, 1408, 2048), (4, 8, 1408, 2048),
           (4, 200, 136, 120)]
+#: (G, C, K, N) of B9: the MoE path's decode and 512-bucket w1, a ragged one
+GROUPED = [(64, 1, 2048, 1408), (64, 240, 2048, 1408), (5, 70, 136, 64)]
 
 
 def main() -> int:
@@ -47,6 +50,7 @@ def main() -> int:
         print("gemm_bits: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import collective_matmul as CM
+    from repro_torch.kernels import grouped_matmul as GM
     from repro_torch.kernels import matmul as MM
 
     dev = torch.device("cuda", 0)
@@ -82,6 +86,11 @@ def main() -> int:
         shape = f"x({r},{m},{k})@w({r},{k},{n})"
         out[f"matmul_rs_fused {shape}"] = digest(CM.matmul_rs_fused(x, w))
         out[f"matmul_ar_fused {shape}"] = digest(CM.matmul_ar_fused(x, w))
+    for gs, c, k, n in GROUPED:
+        x, w = randn(gs, c, k), randn(gs, k, n, scale=k ** -0.5)
+        for dt in (torch.float32, torch.bfloat16):
+            out[f"grouped_matmul x({gs},{c},{k})@w({gs},{k},{n}) {dt}"] = \
+                digest(GM.grouped_matmul(x, w, out_dtype=dt))
     line = json.dumps({"src": os.path.abspath(args.src), "digests": out})
     print(line, flush=True)
     if args.out:

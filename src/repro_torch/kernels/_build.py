@@ -72,6 +72,17 @@ SIGNATURES = {
                                  + [_P, _I, _I, _I, _I, _P],
     "pk_mm_tile_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L,
                                        _L, _L, _L, _L, _I, _P],
+    # the launch configuration of a head_dim: D, int[5] out (query rows,
+    # keys a stage, stages, threads, shared memory bytes)
+    "pk_flash_attention_config": [_I, ctypes.POINTER(ctypes.c_int)],
+    # the mma.sync kernel flash and its hop ran on before the TMA + wgmma
+    # design, a timing yardstick (csrc/flash_mma_yardstick.cu): the
+    # arguments of pk_flash_attention_bf16 and pk_flash_attention_hop_bf16
+    "pk_mm_tile_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _L, _L, _L, _L, _L, _L, _L, _L,
+                                        _L, _I, _I, ctypes.c_float, _P],
+    "pk_mm_tile_flash_attention_hop_bf16": [_P] * 6 + [_I] * 6 + [_L] * 9
+                                           + [_I] * 4 + [ctypes.c_float, _P],
     # in ptrs, out ptrs, flags, flag capacity (ints), R, blk bytes, stream
     "pk_lcsc_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
                           + [_P, _L, _I, _L, _P],

@@ -1,20 +1,63 @@
-// FlashAttention forward, bf16 in/out, f32 online softmax. Port of
-// repro/kernels/flash_attention.py::flash_attention; the design note is in
-// kernels/flash_attention.py.
+// B7: FlashAttention forward and one ring-attention hop on Hopper, bf16 in,
+// f32 online softmax. Port of repro/kernels/flash_attention.py::
+// flash_attention; kernels/flash_attention.py holds the wrapper, the plan
+// (flash_plan, kv_blocks) and the design note.
 //
-// Grid (ceil(Sq / 64), B * Hq), 128 threads. Warp w owns query rows
-// [16 w, 16 w + 16) of the block. Per 64-key block: S = Q K^T and O += P V
-// with mma.sync m16n8k16; m, l and O stay in f32 registers.
+// What bounds it on an H100 SXM: at prefill and at the hop, the tensor
+// cores (4 * Sq * Skv * D operations a head where every key is visible,
+// half that under the causal mask) and, beside them, the exponentials of
+// the softmax (one a visible (row, key) pair, 16 an SM a clock). Only
+// wgmma reaches the tensor cores' rate, and only when its operands are in
+// shared memory ahead of it. The design, after FlashAttention-3's forward,
+// on the pieces of hopper_gemm.cuh (mbarriers, TMA, descriptors, the quad
+// transpose):
+//
+// * A block of three warpgroups computes one 128-row query tile of one
+//   (batch, head): warpgroups 0 and 1 consume, 64 rows each; one thread of
+//   warpgroup 2 produces. setmaxnreg moves the registers to the consumers
+//   (240 each, 24 for the producer).
+// * Q, K and V are read through 4-D tensor maps over (D, S, H, B) at the
+//   strides the caller passes, so the head-transposed views of prefill
+//   need no copy, and the KV head h / (Hq / Hkv) is a map coordinate, so
+//   GQA needs no repeat. The Q tile is loaded once; K and V blocks of 128
+//   keys stream through a ring of 2 stages, each with a full barrier for K,
+//   one for V (the producer's expect_tx; TMA completes the bytes) and an
+//   empty barrier (every consumer warp arrives once its wgmma have read the
+//   stage). 128-byte swizzle: a row of 64 columns is one box, so D = 128 is
+//   two boxes a tile, 16 KB apart.
+// * S = Q K^T is wgmma m64n128k16 with both operands in shared memory and
+//   K-major (trans-b 0): SBO 1024, a k16 step 32 bytes inside the 128-byte
+//   atom, steps 4-7 in the second atom at D = 128.
+// * O += P V is wgmma m64nDk16 with P from registers: the f32 S accumulator
+//   of n8 tiles 2c and 2c+1, rounded to bf16 (as the Pallas kernel rounds P
+//   to v's dtype), is the A fragment of key chunk c. V is the MN-major B
+//   (trans-b 1) of hopper_gemm's layout: SBO 1024, LBO the 16 KB between
+//   64-column atoms, a k16 step 2048 bytes.
+// * The online softmax stays in registers: each accumulator row is spread
+//   over a quad of lanes, reduced with two shuffles; the scale is folded
+//   into exp2 (log2 e). A row with nothing visible yet keeps m = -inf and
+//   exponentiates against 0.
+// * Key blocks are scheduled by kv_range below, the Pallas kernel's
+//   predicate (flash_attention.py:37-41) taken at the tile's real rows and
+//   keys: the blocks [lo, hi) hold every visible (row, key) pair and none
+//   is wholly masked. Producer and consumers both call it, so they walk the
+//   same blocks and the barriers' phases agree. The element mask takes the
+//   ragged key edge, causal and window; TMA zero-fills a box past S inside
+//   its own head (per-dimension bounds), and zero keys are masked, since
+//   they give s = 0, not -inf. Query tiles run heaviest first (the grid's
+//   y index counts them down), so the last wave is not the longest.
 //
 // HOP = true is one ring-attention hop (the JAX _block_update of
 // core/ring_attention.py from the zero state): the batch is R ranks x
 // rank_batch rows, rank r = b / rank_batch holds queries at global rows
-// r * Sq + i and, at hop `hop`, the keys of rank (r - hop) mod R at
-// global columns ((r - hop) mod R) * Skv + j. The causal / window skip and
-// the element mask are taken at those global positions, so a rank whose
-// block lies wholly in the future exits at once. It writes the f32
-// unnormalized O, the row max m (-1e30 where no key is visible) and the
-// row sum l, never dividing; the caller merges hops.
+// r * Sq + i and, at hop `hop`, the keys of rank (r - hop) mod R at global
+// columns ((r - hop) mod R) * Skv + j. The schedule and the mask are taken
+// at those global positions, so a rank whose block lies wholly in the
+// future loads nothing. It writes the f32 unnormalized O, the row max m
+// (-1e30 where no key is visible) and the row sum l, never dividing; the
+// caller merges hops. The forward divides by l (0 gives 0) and stores bf16.
+// Both stores are hopper_gemm's quad-transposed 16-byte stores.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -22,295 +65,521 @@
 #include <cmath>
 #include <cstdint>
 
-#include "mm_tile.cuh"  // mma_bf16_16816, mt_ld32
+#include "hopper_gemm.cuh"
 
-#define FA_BQ 64
-#define FA_BK 64
-#define FA_THREADS 128
+#define FA_BQ 128      // query rows a block: two consumer warpgroups of 64
+#define FA_BK 128      // keys a stage
+#define FA_STAGES 2
+#define FA_THREADS 384
 
-template <int D>
-struct FaSmem {
-  static constexpr int QS = D + 8;        // q / k row stride (bf16)
-  static constexpr int VS = FA_BK + 8;    // transposed v row stride
-  static constexpr int Q_ELEMS = FA_BQ * QS;
-  static constexpr int K_ELEMS = FA_BK * QS;
-  // v^T as [d][key], 8 elements of padding after every 8 rows of d
-  static constexpr int V_ELEMS = D * VS + (D / 8) * 8;
-  static constexpr int BYTES = (Q_ELEMS + K_ELEMS + V_ELEMS) * 2;
-  __device__ static int vidx(int d, int key) {
-    return d * VS + (d >> 3) * 8 + key;
-  }
+namespace fa {
+
+struct Maps {
+  CUtensorMap q, k, v;
 };
-
-__device__ __forceinline__ uint32_t fa_pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Load rows [r0, r0 + 64) of a (S x D) head slab with row stride `rs` into
-// shared memory as [row][d] (stride D + 8), zero past row S.
-template <int D>
-__device__ __forceinline__ void fa_load_rows(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             long rs, int r0, int S) {
-  for (int c = threadIdx.x; c < 64 * (D / 8); c += FA_THREADS) {
-    const int row = c / (D / 8), col = (c % (D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + row < S)
-      v = *reinterpret_cast<const uint4*>(src + (long)(r0 + row) * rs + col);
-    *reinterpret_cast<uint4*>(dst + row * (D + 8) + col) = v;
-  }
-}
 
 // Where the hop's outputs go (HOP only): f32 O (B, Hq, Sq, D), m and l
 // (B, Hq, Sq), all contiguous; the rank layout of the batch and the hop.
-struct FaHop {
+struct Hop {
   float* o;
   float* m;
   float* l;
   int rank_batch, n_ranks, hop;
 };
 
-template <int D, bool HOP>
-__global__ void __launch_bounds__(FA_THREADS)
-    pk_flash_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, FaHop hp, int Hq, int Hkv,
-                    int Sq, int Skv, long sqb, long sqh, long sqs, long skb,
-                    long skh, long sks, long svb, long svh, long svs,
-                    int causal, int window, float scale) {
-  using SM = FaSmem<D>;
-  extern __shared__ __align__(16) unsigned char fa_smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fa_smem_raw);
-  __nv_bfloat16* Ks = Qs + SM::Q_ELEMS;
-  __nv_bfloat16* Vt = Ks + SM::K_ELEMS;
+struct Args {
+  int Hq, Hkv, Sq, Skv, causal, window;
+  float scale_log2;  // the softmax scale times log2(e)
+};
 
-  const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);  // GQA: read the KV head in place
-  const int q_lo = blockIdx.x * FA_BQ;
+// the key blocks [lo, hi) that query tile q_lo.. schedules
+struct KvRange {
+  int lo, hi;
+};
+
+// The block list of one query tile, at global positions (q_off, kv_off):
+// a key block is scheduled iff it holds a (row, key) pair visible to a real
+// row (< Sq) at a real key (< Skv). The visible keys of rows r0..r1 form
+// one interval, [r0 - window + 1, r1] (causal) or from r0 - window + 1 on,
+// so the blocks are one range. kernels/flash_attention.py::kv_blocks is
+// its twin.
+__device__ __forceinline__ KvRange kv_range(int q_lo, int q_off, int kv_off,
+                                            const Args& a) {
+  const int n_kb = (a.Skv + FA_BK - 1) / FA_BK;
+  const int r0 = q_off + q_lo;
+  const int r1 = q_off + min(q_lo + FA_BQ, a.Sq) - 1;
+  int lo = 0, hi = n_kb;
+  if (a.causal) {  // the first key of the block at most r1
+    const int d = r1 - kv_off;
+    hi = d < 0 ? 0 : min(n_kb, d / FA_BK + 1);
+  }
+  if (a.window > 0) {  // the last real key of the block above r0 - window
+    const int t = r0 - a.window + 1 - kv_off;  // first visible local key
+    lo = t <= 0 ? 0 : t >= a.Skv ? n_kb : t / FA_BK;
+  }
+  return {lo, hi};
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// s = a @ b for one m64n128k16 step, a and b both K-major (trans-b 0),
+// through 128B-swizzled shared-memory descriptors; scale_d 0 drops s.
+__device__ __forceinline__ void wgmma_ss_m64n128_kmajor(float (&d)[64], uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a @ b for one m64n64k16 step, a from registers (the bf16x2 A
+// fragment), b MN-major (trans-b 1) through a 128B-swizzled descriptor; scale_d 0 drops d.
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// d (+)= a @ b for one m64n128k16 step, a from registers (the bf16x2 A
+// fragment), b MN-major (trans-b 1) through a 128B-swizzled descriptor; scale_d 0 drops d.
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_rs_m64n64(d, a, db, 1);
+  else
+    wgmma_rs_m64n128(d, a, db, 1);
+}
+
+// keeps the compiler from moving writes of A-fragment registers past the
+// wgmma fence (as hg::fence_acc does for accumulators)
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Shared memory from a 1024-byte boundary (the swizzle's): the Q tile, the
+// stages (K, then V), the barriers (q full; k full, v full and empty a
+// stage); 1 KB of slack for the alignment.
+template <int D>
+struct Smem {
+  static constexpr int ATOMS = D / 64;  // 64-column boxes a row
+  static constexpr int Q_BYTES = FA_BQ * D * 2;
+  static constexpr int KV_BYTES = FA_BK * D * 2;  // K or V of one stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BARS = 1 + 3 * FA_STAGES;
+  static constexpr int BYTES =
+      Q_BYTES + FA_STAGES * STAGE_BYTES + 1024 + 8 * BARS;
+};
+
+template <int D, bool HOP>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+    flash_kernel(const __grid_constant__ Maps maps, const Args a,
+                 const Hop hp, __nv_bfloat16* __restrict__ o) {
+  using SM = Smem<D>;
+  extern __shared__ uint8_t fa_smem[];
+  const uint32_t base = (hg::smem_addr(fa_smem) + 1023) & ~1023u;
+  const uint32_t bars = base + SM::Q_BYTES + FA_STAGES * SM::STAGE_BYTES;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + FA_STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * FA_STAGES + s); };
+  auto k_tile = [&](int s) {
+    return base + SM::Q_BYTES + s * SM::STAGE_BYTES;
+  };
+
+  const int bh = blockIdx.x, b = bh / a.Hq, h = bh - b * a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);  // GQA: the KV head, a map coordinate
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * FA_BQ;  // heaviest first
   // global positions of this rank's rows and of the held key block
   int q_off = 0, kv_off = 0;
   if (HOP) {
     const int r = b / hp.rank_batch;
-    q_off = r * Sq;
-    kv_off = ((r - hp.hop) % hp.n_ranks + hp.n_ranks) % hp.n_ranks * Skv;
+    q_off = r * a.Sq;
+    kv_off = ((r - hp.hop) % hp.n_ranks + hp.n_ranks) % hp.n_ranks * a.Skv;
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  const KvRange kr = kv_range(q_lo, q_off, kv_off, a);
 
-  const __nv_bfloat16* qh = q + b * sqb + h * sqh;
-  const __nv_bfloat16* kh = k + b * skb + hk * skh;
-  const __nv_bfloat16* vh = v + b * svb + hk * svh;
-
-  fa_load_rows<D>(Qs, qh, sqs, q_lo, Sq);
+  if (threadIdx.x == 0) {
+    hg::mbar_init(q_full, 1);
+    for (int s = 0; s < FA_STAGES; ++s) {
+      hg::mbar_init(k_full(s), 1);
+      hg::mbar_init(v_full(s), 1);
+      hg::mbar_init(empty(s), 8);  // the consumers' 8 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int r = warp * 16 + g, c = kk * 16 + t4 * 2;
-    qf[kk][0] = mt_ld32(&Qs[r * SM::QS + c]);
-    qf[kk][1] = mt_ld32(&Qs[(r + 8) * SM::QS + c]);
-    qf[kk][2] = mt_ld32(&Qs[r * SM::QS + c + 8]);
-    qf[kk][3] = mt_ld32(&Qs[(r + 8) * SM::QS + c + 8]);
-  }
 
-  const int row_a = q_lo + warp * 16 + g, row_b = row_a + 8;
-  // each row's visible global key columns [lo, hi]: the ragged key edge,
-  // the causal bound, the window (keys > row - window)
-  const int last = kv_off + Skv - 1;
-  const int hi_a = causal ? min(q_off + row_a, last) : last;
-  const int hi_b = causal ? min(q_off + row_b, last) : last;
-  const int lo_a = window > 0 ? q_off + row_a - window + 1 : INT_MIN;
-  const int lo_b = window > 0 ? q_off + row_b - window + 1 : INT_MIN;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  float oacc[D / 8][4];
+  if (threadIdx.x >= 256) {
+    // the producer warpgroup: one thread loads the Q tile once, then K and
+    // V of every scheduled block into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256 && kr.lo < kr.hi) {
+      hg::mbar_expect_tx(q_full, SM::Q_BYTES);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+      for (int at = 0; at < SM::ATOMS; ++at)
+        hg::tma_load4(base + at * FA_BQ * 128, &maps.q, at * 64, q_lo, h, b,
+                      q_full);
+      for (int kb = kr.lo, it = 0; kb < kr.hi; ++kb, ++it) {
+        const int s = it % FA_STAGES;
+        hg::mbar_wait(empty(s), ((it / FA_STAGES) & 1) ^ 1);
+        const uint32_t sk = k_tile(s), sv = sk + SM::KV_BYTES;
+        hg::mbar_expect_tx(k_full(s), SM::KV_BYTES);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
-
-  const int n_kb = (Skv + FA_BK - 1) / FA_BK;
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k_lo = kb * FA_BK;
-    // block-level schedule of flash_attention.py:37-41, at global
-    // positions: skip blocks with no visible entry for any row of this
-    // query block
-    const int gk = kv_off + k_lo, gq = q_off + q_lo;
-    if (causal && gk > gq + FA_BQ - 1) break;
-    if (window > 0 && !(gk + FA_BK - 1 > gq - window)) continue;
-
-    __syncthreads();  // the previous block's K / V^T reads are done
-    fa_load_rows<D>(Ks, kh, sks, k_lo, Skv);
-    for (int c = threadIdx.x; c < FA_BK * (D / 8); c += FA_THREADS) {
-      const int key = c / (D / 8), d0 = (c % (D / 8)) * 8;
-      alignas(16) __nv_bfloat16 t[8];
-      *reinterpret_cast<uint4*>(t) = make_uint4(0u, 0u, 0u, 0u);
-      if (k_lo + key < Skv)
-        *reinterpret_cast<uint4*>(t) = *reinterpret_cast<const uint4*>(
-            vh + (long)(k_lo + key) * svs + d0);
+        for (int at = 0; at < SM::ATOMS; ++at)
+          hg::tma_load4(sk + at * FA_BK * 128, &maps.k, at * 64, kb * FA_BK,
+                        hk, b, k_full(s));
+        hg::mbar_expect_tx(v_full(s), SM::KV_BYTES);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[SM::vidx(d0 + e, key)] = t[e];
+        for (int at = 0; at < SM::ATOMS; ++at)
+          hg::tma_load4(sv + at * FA_BK * 128, &maps.v, at * 64, kb * FA_BK,
+                        hk, b, v_full(s));
+      }
     }
-    __syncthreads();
+  } else {
+    // the consumer warpgroups: warpgroup wg owns rows 64 wg.. of the tile;
+    // each thread rows a = .. + lane / 4 and b = a + 8 of its warp's 16
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+    const int lane = threadIdx.x % 32, t4 = lane % 4;
+    const int row_a = q_lo + wg * 64 + warp * 16 + lane / 4;
+    const int row_b = row_a + 8;
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[FA_BK / 8][4];
+    if (kr.lo < kr.hi) {
+      // each row's visible global key columns [lo, hi]: the ragged key
+      // edge, the causal bound, the window (keys > row - window)
+      const int last = kv_off + a.Skv - 1;
+      const int gra = q_off + row_a, grb = q_off + row_b;
+      const int hi_a = a.causal ? min(gra, last) : last;
+      const int hi_b = a.causal ? min(grb, last) : last;
+      const int lo_a = a.window > 0 ? gra - a.window + 1 : INT_MIN;
+      const int lo_b = a.window > 0 ? grb - a.window + 1 : INT_MIN;
+      const uint32_t qa = base + wg * 64 * 128;  // this warpgroup's Q rows
+      hg::mbar_wait(q_full, 0);
+      for (int kb = kr.lo, it = 0; kb < kr.hi; ++kb, ++it) {
+        const int s = it % FA_STAGES;
+        const uint32_t ph = (it / FA_STAGES) & 1;
+        const uint32_t sk = k_tile(s), sv = sk + SM::KV_BYTES;
+
+        // S = Q K^T: 64 rows x 128 keys, D / 16 k16 steps
+        float sacc[FA_BK / 2];
 #pragma unroll
-    for (int j = 0; j < FA_BK / 8; ++j) {
+        for (int i = 0; i < FA_BK / 2; ++i) sacc[i] = 0.f;
+        hg::fence_acc(sacc);
+        hg::mbar_wait(k_full(s), ph);
+        hg::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_m64n128_kmajor(
+              sacc,
+              hg::desc(qa + (kk / 4) * FA_BQ * 128 + (kk % 4) * 32, 16, 1024),
+              hg::desc(sk + (kk / 4) * FA_BK * 128 + (kk % 4) * 32, 16, 1024),
+              kk > 0 ? 1 : 0);
+        hg::wgmma_commit();
+        hg::wgmma_wait<0>();
+        hg::fence_acc(sacc);
+
+        // scale (log2 units), mask, row maxima over the quad: element
+        // 4 j + e is row a (e < 2) or b, key 8 j + 2 t4 + e % 2
+        const int col0 = kv_off + kb * FA_BK + 2 * t4;
+        float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = &Ks[(j * 8 + g) * SM::QS + kk * 16 + t4 * 2];
-        mma_bf16_16816(s[j], qf[kk], mt_ld32(kr), mt_ld32(kr + 8));
+        for (int j = 0; j < FA_BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = col0 + 8 * j + (e & 1);
+            const bool keep = e < 2 ? (col >= lo_a) & (col <= hi_a)
+                                    : (col >= lo_b) & (col <= hi_b);
+            const float x = keep ? sacc[4 * j + e] * a.scale_log2 : -INFINITY;
+            sacc[4 * j + e] = x;
+            if (e < 2)
+              mx_a = fmaxf(mx_a, x);
+            else
+              mx_b = fmaxf(mx_b, x);
+          }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+        }
+        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        // a row with nothing visible yet keeps m = -inf: exponentiate
+        // against 0
+        const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+        const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+        const float alpha_a = exp2_approx(m_a - base_a);
+        const float alpha_b = exp2_approx(m_b - base_b);
+        float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+        for (int j = 0; j < FA_BK / 8; ++j) {
+          sacc[4 * j] = exp2_approx(sacc[4 * j] - base_a);
+          sacc[4 * j + 1] = exp2_approx(sacc[4 * j + 1] - base_a);
+          sacc[4 * j + 2] = exp2_approx(sacc[4 * j + 2] - base_b);
+          sacc[4 * j + 3] = exp2_approx(sacc[4 * j + 3] - base_b);
+          ps_a += sacc[4 * j] + sacc[4 * j + 1];
+          ps_b += sacc[4 * j + 2] + sacc[4 * j + 3];
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          ps_a += __shfl_xor_sync(0xffffffffu, ps_a, off);
+          ps_b += __shfl_xor_sync(0xffffffffu, ps_b, off);
+        }
+        l_a = l_a * alpha_a + ps_a;
+        l_b = l_b * alpha_b + ps_b;
+        m_a = mn_a;
+        m_b = mn_b;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          oacc[4 * j] *= alpha_a;
+          oacc[4 * j + 1] *= alpha_a;
+          oacc[4 * j + 2] *= alpha_b;
+          oacc[4 * j + 3] *= alpha_b;
+        }
+        // P rounded to bf16: n8 tiles 2c and 2c + 1 are the A fragment of
+        // key chunk c
+        uint32_t pa[FA_BK / 16][4];
+#pragma unroll
+        for (int c = 0; c < FA_BK / 16; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pa[c][i] = hg::pack_bf16x2(sacc[8 * c + 2 * i],
+                                       sacc[8 * c + 2 * i + 1]);
+
+        // O += P V: D columns, 128 keys in 8 k16 chunks
+        fence_frag(pa);
+        hg::fence_acc(oacc);
+        hg::mbar_wait(v_full(s), ph);
+        hg::wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < FA_BK / 16; ++c)
+          wgmma_pv<D>(oacc, pa[c],
+                      hg::desc(sv + c * 2048, FA_BK * 128, 1024));
+        hg::wgmma_commit();
+        hg::wgmma_wait<0>();
+        hg::fence_acc(oacc);
+        __syncwarp();
+        if (lane == 0) hg::mbar_arrive(empty(s));  // the stage is read
       }
     }
 
-    // scale, mask, row maxima (each row is spread over a quad of lanes)
-    float mx_a = -INFINITY, mx_b = -INFINITY;
+    // the accumulator of n8 tile j: element 4 j + e at row a (e < 2) or b,
+    // column 8 j + 2 t4 + e % 2; the quad transpose gives each lane one
+    // 8-column chunk of a row in order, stored as 16 bytes
+    if (HOP) {  // unnormalized O, row max and row sum, for the merge
+      float* oh = hp.o + ((long)bh * a.Sq) * D;
 #pragma unroll
-    for (int j = 0; j < FA_BK / 8; ++j)
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = hh ? row_b : row_a;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv_off + k_lo + j * 8 + t4 * 2 + (e & 1);
-        const bool keep = e < 2 ? (col >= lo_a) & (col <= hi_a)
-                                : (col >= lo_b) & (col <= hi_b);
-        const float x = keep ? s[j][e] * scale : -INFINITY;
-        s[j][e] = x;
-        if (e < 2) mx_a = fmaxf(mx_a, x);
-        else mx_b = fmaxf(mx_b, x);
+        for (int q = 0; q < D / 32; ++q) {
+          unsigned long long mine[4], got[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            mine[c] = (unsigned long long)__float_as_uint(
+                          oacc[4 * (4 * q + c) + 2 * hh + 1])
+                          << 32 |
+                      __float_as_uint(oacc[4 * (4 * q + c) + 2 * hh]);
+          hg::quad_transpose(mine, got, lane);
+          if (row >= a.Sq) continue;
+          uint4* dst =
+              reinterpret_cast<uint4*>(oh + (long)row * D + 8 * (4 * q + t4));
+          dst[0] = make_uint4((uint32_t)got[0], (uint32_t)(got[0] >> 32),
+                              (uint32_t)got[1], (uint32_t)(got[1] >> 32));
+          dst[1] = make_uint4((uint32_t)got[2], (uint32_t)(got[2] >> 32),
+                              (uint32_t)got[3], (uint32_t)(got[3] >> 32));
+        }
       }
+      if (t4 == 0) {  // the quad's four lanes hold the same m and l
+        const long rb = (long)bh * a.Sq;
+        const float ln2 = 0.69314718055994531f;  // m back to natural units
+        if (row_a < a.Sq) {
+          hp.m[rb + row_a] = m_a == -INFINITY ? -1e30f : m_a * ln2;
+          hp.l[rb + row_a] = l_a;
+        }
+        if (row_b < a.Sq) {
+          hp.m[rb + row_b] = m_b == -INFINITY ? -1e30f : m_b * ln2;
+          hp.l[rb + row_b] = l_b;
+        }
+      }
+    } else {
+      const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+      const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+      __nv_bfloat16* oh = o + ((long)bh * a.Sq) * D;
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    // a row with nothing visible yet keeps m = -inf: exponentiate against 0
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float alpha_a = __expf(m_a - base_a), alpha_b = __expf(m_b - base_b);
-    float ps_a = 0.f, ps_b = 0.f;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = hh ? row_b : row_a;
+        const float inv = hh ? inv_b : inv_a;
 #pragma unroll
-    for (int j = 0; j < FA_BK / 8; ++j) {
-      s[j][0] = __expf(s[j][0] - base_a);
-      s[j][1] = __expf(s[j][1] - base_a);
-      s[j][2] = __expf(s[j][2] - base_b);
-      s[j][3] = __expf(s[j][3] - base_b);
-      ps_a += s[j][0] + s[j][1];
-      ps_b += s[j][2] + s[j][3];
-    }
+        for (int q = 0; q < D / 32; ++q) {
+          uint32_t mine[4], got[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      ps_a += __shfl_xor_sync(0xffffffffu, ps_a, off);
-      ps_b += __shfl_xor_sync(0xffffffffu, ps_b, off);
-    }
-    l_a = l_a * alpha_a + ps_a;
-    l_b = l_b * alpha_b + ps_b;
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      oacc[j][0] *= alpha_a;
-      oacc[j][1] *= alpha_a;
-      oacc[j][2] *= alpha_b;
-      oacc[j][3] *= alpha_b;
-    }
-
-    // O += P V: the S accumulator of two n8 tiles is the A fragment of
-    // one k16 step (P rounded to bf16, as the Pallas kernel rounds it)
-#pragma unroll
-    for (int kc = 0; kc < FA_BK / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = fa_pack(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = fa_pack(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = fa_pack(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = fa_pack(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int d = j * 8 + g, key = kc * 16 + t4 * 2;
-        mma_bf16_16816(oacc[j], pa, mt_ld32(&Vt[SM::vidx(d, key)]),
-                       mt_ld32(&Vt[SM::vidx(d, key + 8)]));
+          for (int c = 0; c < 4; ++c)
+            mine[c] = hg::pack_bf16x2(oacc[4 * (4 * q + c) + 2 * hh] * inv,
+                                      oacc[4 * (4 * q + c) + 2 * hh + 1] * inv);
+          hg::quad_transpose(mine, got, lane);
+          if (row < a.Sq)
+            *reinterpret_cast<uint4*>(oh + (long)row * D + 8 * (4 * q + t4)) =
+                make_uint4(got[0], got[1], got[2], got[3]);
+        }
       }
     }
-  }
-
-  if (HOP) {  // unnormalized O, row max and row sum, for the merge
-    float* oh = hp.o + ((long)bh * Sq) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = j * 8 + t4 * 2;
-      if (row_a < Sq)
-        *reinterpret_cast<float2*>(oh + (long)row_a * D + col) =
-            make_float2(oacc[j][0], oacc[j][1]);
-      if (row_b < Sq)
-        *reinterpret_cast<float2*>(oh + (long)row_b * D + col) =
-            make_float2(oacc[j][2], oacc[j][3]);
-    }
-    if (t4 == 0) {  // the quad's four lanes hold the same m and l
-      const long rb = (long)bh * Sq;
-      if (row_a < Sq) {
-        hp.m[rb + row_a] = m_a == -INFINITY ? -1e30f : m_a;
-        hp.l[rb + row_a] = l_a;
-      }
-      if (row_b < Sq) {
-        hp.m[rb + row_b] = m_b == -INFINITY ? -1e30f : m_b;
-        hp.l[rb + row_b] = l_b;
-      }
-    }
-    return;
-  }
-  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
-  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-  __nv_bfloat16* oh = o + ((long)bh * Sq) * D;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + t4 * 2;
-    if (row_a < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (long)row_a * D + col) =
-          __floats2bfloat162_rn(oacc[j][0] * inv_a, oacc[j][1] * inv_a);
-    if (row_b < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (long)row_b * D + col) =
-          __floats2bfloat162_rn(oacc[j][2] * inv_b, oacc[j][3] * inv_b);
   }
 }
 
+// ---- host side ------------------------------------------------------------
+
+// The 4-D maps of q, k and v over (D, S, H, B) at the strides st (elements:
+// q's b, h, s, then k's, then v's), boxes of 64 columns x `rows` x 1 x 1:
+// 0, or minus the CUresult of a refused encode.
+template <int D>
+int encode_maps(Maps& m, const void* q, const void* k, const void* v, int B,
+                int Hq, int Hkv, int Sq, int Skv, const long long* st) {
+  auto enc = [&](CUtensorMap* map, const void* p, int S, int H,
+                 const long long* s3, int rows) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)s3[2] * 2,
+                                   (cuuint64_t)s3[1] * 2,
+                                   (cuuint64_t)s3[0] * 2};
+    const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+    return hg::encode_tiled(map, reinterpret_cast<unsigned long long>(p), 4,
+                            dims, strides, box);
+  };
+  if (const int e = enc(&m.q, q, Sq, Hq, st, FA_BQ)) return e;
+  if (const int e = enc(&m.k, k, Skv, Hkv, st + 3, FA_BK)) return e;
+  return enc(&m.v, v, Skv, Hkv, st + 6, FA_BK);
+}
+
 template <int D, bool HOP>
-static int fa_launch(const void* q, const void* k, const void* v, void* o,
-                     FaHop hp, int B, int Hq, int Hkv, int Sq, int Skv,
-                     const long long* st, int causal, int window, float scale,
-                     cudaStream_t stream) {
-  const int bytes = FaSmem<D>::BYTES;
+int launch(const void* q, const void* k, const void* v, void* o, Hop hp,
+           int B, int Hq, int Hkv, int Sq, int Skv, const long long* st,
+           int causal, int window, float scale, cudaStream_t stream) {
+  Maps maps;
+  if (const int e = encode_maps<D>(maps, q, k, v, B, Hq, Hkv, Sq, Skv, st))
+    return e;
+  const Args a{Hq, Hkv, Sq, Skv, causal, window,
+               scale * 1.4426950408889634f};
+  auto kern = flash_kernel<D, HOP>;
   cudaError_t err = cudaFuncSetAttribute(
-      pk_flash_kernel<D, HOP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + FA_BQ - 1) / FA_BQ, B * Hq);
-  pk_flash_kernel<D, HOP><<<grid, FA_THREADS, bytes, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, hp, Hq, Hkv, Sq, Skv,
-      (long)st[0], (long)st[1], (long)st[2], (long)st[3], (long)st[4],
-      (long)st[5], (long)st[6], (long)st[7], (long)st[8], causal, window,
-      scale);
+  const dim3 grid(B * Hq, (Sq + FA_BQ - 1) / FA_BQ);
+  kern<<<grid, FA_THREADS, Smem<D>::BYTES, stream>>>(
+      maps, a, hp, static_cast<__nv_bfloat16*>(o));
   return (int)cudaGetLastError();
 }
 
 template <bool HOP>
-static int fa_dispatch(const void* q, const void* k, const void* v, void* o,
-                       FaHop hp, int B, int Hq, int Hkv, int Sq, int Skv,
-                       int D, const long long* st, int causal, int window,
-                       float scale, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+int dispatch(const void* q, const void* k, const void* v, void* o, Hop hp,
+             int B, int Hq, int Hkv, int Sq, int Skv, int D,
+             const long long* st, int causal, int window, float scale,
+             void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return fa_launch<64, HOP>(q, k, v, o, hp, B, Hq, Hkv, Sq, Skv, st,
-                              causal, window, scale, (cudaStream_t)stream);
+    return launch<64, HOP>(q, k, v, o, hp, B, Hq, Hkv, Sq, Skv, st, causal,
+                           window, scale, s);
   if (D == 128)
-    return fa_launch<128, HOP>(q, k, v, o, hp, B, Hq, Hkv, Sq, Skv, st,
-                               causal, window, scale, (cudaStream_t)stream);
+    return launch<128, HOP>(q, k, v, o, hp, B, Hq, Hkv, Sq, Skv, st, causal,
+                            window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
+}  // namespace fa
+
+// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) bf16 at strides in elements
+// (b, h, s; unit along D); o (B, Hq, Sq, D) bf16, contiguous.
 extern "C" int pk_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long sqb, long long sqh,
@@ -318,9 +587,9 @@ extern "C" int pk_flash_attention_bf16(
     long long svb, long long svh, long long svs, int causal, int window,
     float scale, void* stream) {
   const long long st[9] = {sqb, sqh, sqs, skb, skh, sks, svb, svh, svs};
-  const FaHop none{nullptr, nullptr, nullptr, 1, 1, 0};
-  return fa_dispatch<false>(q, k, v, o, none, B, Hq, Hkv, Sq, Skv, D, st,
-                            causal, window, scale, stream);
+  const fa::Hop none{nullptr, nullptr, nullptr, 1, 1, 0};
+  return fa::dispatch<false>(q, k, v, o, none, B, Hq, Hkv, Sq, Skv, D, st,
+                             causal, window, scale, stream);
 }
 
 // One ring-attention hop over B = n_ranks x rank_batch rows (see the top):
@@ -334,7 +603,22 @@ extern "C" int pk_flash_attention_hop_bf16(
     void* stream) {
   if (n_ranks < 1 || B % n_ranks != 0) return (int)cudaErrorInvalidValue;
   const long long st[9] = {sqb, sqh, sqs, skb, skh, sks, svb, svh, svs};
-  const FaHop hp{(float*)o, (float*)m, (float*)l, B / n_ranks, n_ranks, hop};
-  return fa_dispatch<true>(q, k, v, nullptr, hp, B, Hq, Hkv, Sq, Skv, D, st,
-                           causal, window, scale, stream);
+  const fa::Hop hp{(float*)o, (float*)m, (float*)l, B / n_ranks, n_ranks,
+                   hop};
+  return fa::dispatch<true>(q, k, v, nullptr, hp, B, Hq, Hkv, Sq, Skv, D, st,
+                            causal, window, scale, stream);
+}
+
+// The launch configuration of head_dim D, as kernels/flash_attention.py::
+// flash_plan computes it: out = {query rows a block, keys a stage, stages,
+// threads, dynamic shared memory bytes}. 0, or cudaErrorInvalidValue for a
+// D the kernel is not instantiated for.
+extern "C" int pk_flash_attention_config(int D, int* out) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  out[0] = FA_BQ;
+  out[1] = FA_BK;
+  out[2] = FA_STAGES;
+  out[3] = FA_THREADS;
+  out[4] = D == 64 ? fa::Smem<64>::BYTES : fa::Smem<128>::BYTES;
+  return 0;
 }

@@ -17,7 +17,9 @@
 // template parameter: StoreBf16 below stores it in bf16 (B1, B5),
 // StoreGrouped in f32 or bf16 at a group's strides (B9); the
 // store-and-count epilogue of collective_matmul.cu reduces the R ranks'
-// partials (B4, B6).
+// partials (B4, B6). The flash attention kernel (B7, flash_attention.cu)
+// builds on the same device pieces: mbarriers, TMA (4-D maps), shared-memory
+// descriptors and the quad-transposed stores.
 //
 // What bounds it on an H100 SXM, and what the design does about it:
 //
@@ -185,6 +187,18 @@ __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
+      : "memory");
+}
+
+// one box of a 4-D map at (c0 innermost, c1, c2, c3), completing on bar
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2, int c3,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
       : "memory");
 }
 
@@ -719,7 +733,7 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` (2 or 3) dimensions with 128-byte swizzle:
+// A bf16 tensor map of `rank` (2 to 5) dimensions with 128-byte swizzle:
 // dims innermost first, strides (bytes) of the outer ones, one box.
 // Returns 0, or minus the CUresult of a refused encode.
 inline int encode_tiled(CUtensorMap* map, unsigned long long ptr, int rank,
@@ -727,7 +741,7 @@ inline int encode_tiled(CUtensorMap* map, unsigned long long ptr, int rank,
                         const cuuint32_t* box) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                         reinterpret_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -5,23 +5,32 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
 sequential, m/l/acc in VMEM scratch, fully masked kv blocks skipped with
 ``pl.when``; GQA repeat and padding live in the JAX ``ops.flash_attention``.
 
-CUDA route (``csrc/flash_attention.cu``). One CTA per (64-query block,
-b·Hq); each of its four warps owns 16 query rows. The CTA reads KV head
-``h // (Hq/Hkv)`` directly, so GQA needs no repeat and no copy; it loops
-over 64-key blocks, skipping a block on the same causal/window predicate as
-the Pallas kernel (``flash_attention.py:37-41``), computes S = QKᵀ and
-O += PV with ``mma.sync`` m16n8k16 (bf16 in, f32 accumulate), keeps m, l
-and the O accumulator in f32 registers, masks the ragged sequence edge, and
-writes O in q's dtype. P is rounded to bf16 before the PV product, as the
-Pallas kernel rounds it to v's dtype. What bounds it on the card: at the
-prefill shapes (S = 512, hd = 64) reading q, k, v and writing o — about as
-many microseconds as its 4·B·Hq·S²·hd/2 causal operations take on the
-tensor cores; the design's answer is to read K/V once per query block and
-never write S or P to device memory. The kernel is instantiated for
-head_dim 64 and 128; any other head_dim up to 128 is zero-padded to the
-next of the two and the output sliced back, as JAX's
-``ops.flash_attention`` pads to 128 (zero columns add nothing to q·k, and
-v's padded columns are dropped); the scale stays that of the true width.
+CUDA route (``csrc/flash_attention.cu``; the design note is there). What
+bounds it on the card: the tensor cores — 4·Sq·Skv·hd operations a head
+where every key is visible, about half under the causal mask — with the
+softmax's exponentials beside them; at the prefill shapes (S = 512) also
+the bytes of q, k, v and o. The kernel is FlashAttention-3's forward on
+the pieces of ``csrc/hopper_gemm.cuh``: one CTA of three warpgroups a
+(128-query tile, b·Hq), two consumer warpgroups of 64 rows each and one
+producer thread; TMA reads q, k and v through 4-D tensor maps over (D, S,
+H, B) at the caller's strides (so the head-transposed views of prefill
+need no copy and GQA reads KV head ``h // (Hq/Hkv)`` in place), K and V
+blocks of 128 keys stream through a 2-stage mbarrier ring, S = QKᵀ is
+``wgmma`` from shared memory (K-major K), O += PV is ``wgmma`` with P from
+registers (rounded to bf16 as the Pallas kernel rounds it to v's dtype),
+and m, l and O stay in f32 registers. Key blocks are skipped by the
+Pallas kernel's predicate (``flash_attention.py:37-41``) at the tile's
+real rows and keys: :func:`kv_blocks` is the twin of the device's block
+list, :func:`flash_plan` the launch (tiles, grid, stages, shared memory,
+tensor maps), checked before any launch. The ragged sequence edge comes
+from TMA's per-dimension zero fill inside each head, and the element mask
+drops it. The kernel is instantiated for head_dim 64 and 128; any other
+head_dim up to 128 is zero-padded to the next of the two and the output
+sliced back, as JAX's ``ops.flash_attention`` pads to 128 (zero columns
+add nothing to q·k, and v's padded columns are dropped); the scale stays
+that of the true width. The ``mma.sync`` kernel it replaced is kept as a
+timing yardstick (``csrc/flash_mma_yardstick.cu``), which no wrapper
+calls.
 
 The hop (:func:`flash_attention_hop`) is one step of ring attention
 (``core/ring_attention.py``), the same kernel with ``HOP``: the batch is R
@@ -48,6 +57,9 @@ hand-written backward kernel is queued in ROADMAP B7.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -56,6 +68,133 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 #: head_dims the CUDA kernel is instantiated for; others pad up to one
 KERNEL_HEAD_DIMS = (64, 128)
+#: the kernel's tiles (``FA_BQ``, ``FA_BK``, ``FA_STAGES``, ``FA_THREADS``
+#: of csrc/flash_attention.cu): query rows a block (two consumer
+#: warpgroups of 64), keys a ring stage, stages, threads a block
+BLOCK_Q = 128
+BLOCK_K = 128
+STAGES = 2
+THREADS = 384
+#: columns of a TMA box: one 128-byte swizzle atom of bf16
+BOX_COLS = 64
+#: TMA's bound on a tensor map's strides, in bytes
+TMA_STRIDE_LIMIT = 2 ** 40
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorMap:
+    """A 4-D TMA map over one of q, k, v: dims (D, S, H, B) innermost
+    first, the byte strides of S, H and B, and the box it loads."""
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]
+    box: tuple[int, int, int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How the kernel runs one call (``csrc/flash_attention.cu``)."""
+    head_dim: int               # the kernel's width: 64 or 128
+    block_q: int
+    block_k: int
+    stages: int
+    threads: int
+    grid: tuple[int, int]       # (B·Hq, query tiles)
+    smem_bytes: int             # dynamic shared memory a block
+    boxes_per_row: int          # 64-column boxes a tile row: D / 64
+    q_map: TensorMap
+    k_map: TensorMap
+    v_map: TensorMap
+    # the element strides (b, h, s) of q, k and v the launcher takes, a
+    # size-1 dimension's replaced by a valid one (its coordinate is 0)
+    strides: tuple[int, ...]
+
+    def q_tile(self, y: int) -> int:
+        """The query tile that grid row y computes: the heaviest causal
+        tiles (the last) run first, so the last wave is not the longest."""
+        return self.grid[1] - 1 - y
+
+
+def smem_bytes(head_dim: int) -> int:
+    """The kernel's dynamic shared memory at ``head_dim``: the Q tile, the
+    stages (K and V), 1 KB of slack for the 1024-byte alignment the
+    swizzle needs, and the mbarriers (q full; k full, v full, empty a
+    stage)."""
+    return (BLOCK_Q * head_dim * 2 + STAGES * 2 * BLOCK_K * head_dim * 2
+            + 1024 + 8 * (1 + 3 * STAGES))
+
+
+def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,
+                                                         tuple[int, ...]]:
+    """The map of a (B, H, S, D) operand at element ``strides``; raises
+    where TMA would refuse it."""
+    b, h, s, d = shape
+    if strides[3] != 1:
+        raise ValueError(f"{name}: the CUDA flash kernel needs a unit "
+                         f"head_dim stride, got strides {tuple(strides)}")
+    # a dimension of extent 1 is read at coordinate 0 alone: give it the
+    # stride of a contiguous layout, whatever the view says
+    st_s = strides[2] if s > 1 else d
+    st_h = strides[1] if h > 1 else st_s * s
+    st_b = strides[0] if b > 1 else st_h * h
+    for st in (st_s, st_h, st_b):
+        if st % 8 or st <= 0 or st * 2 >= TMA_STRIDE_LIMIT:
+            raise ValueError(
+                f"{name}: TMA takes strides that are positive multiples of "
+                f"16 bytes below 2^40 bytes (16-byte aligned rows), got "
+                f"element strides {tuple(strides)} for shape {tuple(shape)}")
+    return (TensorMap(dims=(d, s, h, b),
+                      strides=(st_s * 2, st_h * 2, st_b * 2),
+                      box=(BOX_COLS, rows, 1, 1)), (st_b, st_h, st_s))
+
+
+def flash_plan(q_shape, q_strides, k_shape, k_strides,
+               v_strides=None) -> FlashPlan:
+    """The launch of q (B, Hq, Sq, D) over k, v (B, Hkv, Skv, D) at element
+    strides, D one of ``KERNEL_HEAD_DIMS`` (the wrapper pads others):
+    tiles, grid, stages, shared memory and the three tensor maps. Raises
+    ValueError, before any launch, where TMA would refuse a map."""
+    b, hq, sq, d = q_shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim {KERNEL_HEAD_DIMS}, "
+                         f"got {d}")
+    v_strides = k_strides if v_strides is None else v_strides
+    q_map, qs = _map("q", q_shape, q_strides, BLOCK_Q)
+    k_map, ks = _map("k", k_shape, k_strides, BLOCK_K)
+    v_map, vs = _map("v", k_shape, v_strides, BLOCK_K)
+    return FlashPlan(head_dim=d, block_q=BLOCK_Q, block_k=BLOCK_K,
+                     stages=STAGES, threads=THREADS,
+                     grid=(b * hq, _cdiv(sq, BLOCK_Q)),
+                     smem_bytes=smem_bytes(d), boxes_per_row=d // BOX_COLS,
+                     q_map=q_map, k_map=k_map, v_map=v_map,
+                     strides=qs + ks + vs)
+
+
+def kv_blocks(q_tile: int, *, sq: int, skv: int, causal: bool,
+              window: int | None, q_off: int = 0, kv_off: int = 0) -> range:
+    """The key blocks (of ``BLOCK_K``) that query tile ``q_tile`` schedules
+    — the twin of ``kv_range`` in csrc/flash_attention.cu. A block is
+    scheduled iff it holds a (row, key) pair visible to a real row (< sq)
+    at a real key (< skv), at global positions (``q_off`` + row, ``kv_off``
+    + key) for the hop: the Pallas kernel's predicate
+    (``flash_attention.py:37-41``) at the tile's real extent. The visible
+    keys of the tile's rows r0..r1 form one interval, so the blocks are one
+    range."""
+    n_kb = _cdiv(skv, BLOCK_K)
+    q_lo = q_tile * BLOCK_Q
+    r0 = q_off + q_lo
+    r1 = q_off + min(q_lo + BLOCK_Q, sq) - 1
+    lo, hi = 0, n_kb
+    if causal:                          # the block's first key <= r1
+        d = r1 - kv_off
+        hi = 0 if d < 0 else min(n_kb, d // BLOCK_K + 1)
+    if window:                          # its last real key > r0 - window
+        t = r0 - window + 1 - kv_off
+        lo = 0 if t <= 0 else n_kb if t >= skv else t // BLOCK_K
+    return range(lo, hi)
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None,
@@ -149,34 +288,42 @@ def _cuda_inputs(q, k, v, window, scale, name):
     if width != hd:
         q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
     for t in (q, k, v):
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"{name} needs a unit head_dim stride and "
-                             "16-byte aligned rows")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: TMA needs 16-byte aligned bases, got "
+                             f"{t.data_ptr():#x}")
     if window is not None and window < 1:
         raise ValueError("window must be >= 1")
-    return q, k, v, hd, scale if scale is not None else hd ** -0.5
+    plan = flash_plan(q.shape, q.stride(), k.shape, k.stride(), v.stride())
+    return q, k, v, hd, scale if scale is not None else hd ** -0.5, plan
 
 
-def _strides(q, k, v) -> list[int]:
-    return [t.stride(i) for t in (q, k, v) for i in range(3)]
+def kernel_config(head_dim: int) -> tuple[int, ...]:
+    """What the built kernel says of its launch at ``head_dim``: (query rows
+    a block, keys a stage, stages, threads, shared memory bytes), to hold
+    against :func:`flash_plan` on the card."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().pk_flash_attention_config(head_dim, out),
+                 "pk_flash_attention_config")
+    return tuple(out)
 
 
 def _forward(q, k, v, causal, window, scale):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
-    q, k, v, hd, scale = _cuda_inputs(q, k, v, window, scale,
-                                      "flash_attention")
+    q, k, v, hd, scale, plan = _cuda_inputs(q, k, v, window, scale,
+                                            "flash_attention")
     b, hq, sq, width = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty((b, hq, sq, width), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out[..., :hd]
+    if skv == 0:
+        return out.zero_()[..., :hd]
     lib = _build.library()
     err = lib.pk_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, skv, width, *_strides(q, k, v),
+        b, hq, hkv, sq, skv, width, *plan.strides,
         int(causal), int(window or 0), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "pk_flash_attention_bf16")
@@ -189,8 +336,8 @@ def _hop_forward(q, k, v, ranks, hop, causal, window, scale):
         return flash_attention_hop_plain(q, k, v, ranks=ranks, hop=hop,
                                          causal=causal, window=window,
                                          scale=scale)
-    q, k, v, hd, scale = _cuda_inputs(q, k, v, window, scale,
-                                      "flash_attention_hop")
+    q, k, v, hd, scale, plan = _cuda_inputs(q, k, v, window, scale,
+                                            "flash_attention_hop")
     b, hq, sq, width = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if ranks < 1 or b % ranks:
@@ -200,10 +347,12 @@ def _hop_forward(q, k, v, ranks, hop, causal, window, scale):
     l_ = torch.empty_like(m)
     if b == 0 or sq == 0:
         return o[..., :hd], m, l_
+    if skv == 0:
+        return o.zero_()[..., :hd], m.fill_(NEG_INF), l_.zero_()
     lib = _build.library()
     err = lib.pk_flash_attention_hop_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l_.data_ptr(), b, hq, hkv, sq, skv, width, *_strides(q, k, v),
+        l_.data_ptr(), b, hq, hkv, sq, skv, width, *plan.strides,
         ranks, hop, int(causal), int(window or 0), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "pk_flash_attention_hop_bf16")

@@ -570,6 +570,154 @@ def test_flash_attention_kernel_pads_head_dim(cuda, hd, causal, window):
                              for i in range(3)))
 
 
+def _qkv(dev, b, hq, hkv, sq, skv, hd, seed=0):
+    return (_randn(dev, b, hq, sq, hd, seed=seed + 1),
+            _randn(dev, b, hkv, skv, hd, seed=seed + 2),
+            _randn(dev, b, hkv, skv, hd, seed=seed + 3))
+
+
+@pytest.mark.parametrize("s", [1, 60, 130, 405])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 50)])
+def test_flash_attention_kernel_ragged_lengths(cuda, s, hd, causal, window):
+    """Sequence lengths that are no multiple of the 128-row tile: TMA
+    zero-fills past S and the mask drops those keys."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(cuda, 2, 8, 2, s, s, hd)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _rel(got, FA.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window)) <= 1e-2
+
+
+@pytest.mark.parametrize("sq,skv", [(60, 130), (130, 60), (405, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_hop_kernel_sq_ne_skv(cuda, sq, skv, causal):
+    """The hop with query and key blocks of different lengths: global
+    offsets r·Sq and src·Skv."""
+    from repro_torch.kernels import flash_attention as FA
+    r, b = 4, 1
+    q, k, v = _qkv(cuda, r * b, 8, 2, sq, skv, 64)
+    for hop in range(r):
+        got = FA.flash_attention_hop(q, k, v, ranks=r, hop=hop,
+                                     causal=causal)
+        want = FA.flash_attention_hop_plain(q, k, v, ranks=r, hop=hop,
+                                            causal=causal)
+        torch.cuda.synchronize()
+        dead = want[2] == 0
+        assert _rel(got[0], want[0]) <= 1e-2 and _rel(got[2], want[2]) <= 1e-2
+        if bool((~dead).any()):
+            assert _rel(got[1][~dead], want[1][~dead]) <= 1e-3
+        assert torch.equal(got[1][dead], want[1][dead])
+        assert not bool(got[2][dead].any() or got[0][dead].any())
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_kernel_reads_nothing_past_s(cuda, layout, hd):
+    """q, k and v are views of buffers whose rows past S hold inf: the
+    neighbouring head's rows (B, H, S', D) or the next batch's
+    (B, S', H, D). TMA's zero fill is per dimension, so no box reads them
+    (0·inf would be NaN); the output equals that of contiguous copies."""
+    from repro_torch.kernels import flash_attention as FA
+    b, hq, hkv, s, pad = 2, 8, 2, 130, 70
+
+    def view(h, seed):
+        shape = (b, h, s + pad, hd) if layout == "bhsd" else (b, s + pad, h,
+                                                               hd)
+        buf = torch.full(shape, float("inf"), device=cuda,
+                         dtype=torch.bfloat16)
+        if layout == "bhsd":
+            buf[:, :, :s] = _randn(cuda, b, h, s, hd, seed=seed)
+            return buf[:, :, :s]
+        buf[:, :s] = _randn(cuda, b, s, h, hd, seed=seed)
+        return buf[:, :s].transpose(1, 2)
+
+    q, k, v = view(hq, 1), view(hkv, 2), view(hkv, 3)
+    got = FA.flash_attention(q, k, v, causal=True)
+    hop = FA.flash_attention_hop(q, k, v, ranks=2, hop=1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert all(bool(torch.isfinite(t).all()) for t in hop)
+    want = FA.flash_attention(*(t.contiguous() for t in (q, k, v)),
+                              causal=True)
+    assert torch.equal(got, want)
+    assert _rel(got, FA.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                              v.contiguous())) <= 1e-2
+
+
+@pytest.mark.parametrize("ratio", [1, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_kernel_gqa_ratios(cuda, ratio, hd):
+    """GQA reads KV head h // (Hq/Hkv) as a map coordinate: each head's
+    output equals the kernel's on the repeated KV heads, bit for bit."""
+    from repro_torch.kernels import flash_attention as FA
+    hq = 16
+    q, k, v = _qkv(cuda, 2, hq, hq // ratio, 300, 300, hd)
+    got = FA.flash_attention(q, k, v, causal=True)
+    rep = FA.flash_attention(q, k.repeat_interleave(ratio, 1),
+                             v.repeat_interleave(ratio, 1), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rep)
+    assert _rel(got, FA.flash_attention_plain(q, k, v)) <= 1e-2
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_kernel_bits_invariant(cuda, hd):
+    """A head's output is the same bits alone and among 32 heads, and a
+    second call gives the first call's bits; so is the hop's."""
+    from repro_torch.kernels import flash_attention as FA
+    b, hq, hkv, s = 2, 32, 4, 400
+    q, k, v = _qkv(cuda, b, hq, hkv, s, s, hd)
+    full = FA.flash_attention(q, k, v, causal=True)
+    assert torch.equal(FA.flash_attention(q, k, v, causal=True), full)
+    for h in (0, 13, 31):
+        kh = h // (hq // hkv)
+        one = FA.flash_attention(q[:, h:h + 1], k[:, kh:kh + 1],
+                                 v[:, kh:kh + 1], causal=True)
+        assert torch.equal(one, full[:, h:h + 1])
+    hop = FA.flash_attention_hop(q, k, v, ranks=2, hop=1)
+    again = FA.flash_attention_hop(q, k, v, ranks=2, hop=1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(hop, again))
+
+
+def test_flash_attention_plan_matches_the_built_kernel(cuda):
+    """The plan's tiles, threads and shared memory are the kernel's own."""
+    from repro_torch.kernels import flash_attention as FA
+    for hd in FA.KERNEL_HEAD_DIMS:
+        p = FA.flash_plan((1, 2, 256, hd), (512 * hd, 256 * hd, hd, 1),
+                          (1, 2, 256, hd), (512 * hd, 256 * hd, hd, 1))
+        assert FA.kernel_config(hd) == (p.block_q, p.block_k, p.stages,
+                                        p.threads, p.smem_bytes)
+
+
+def test_flash_attention_kernel_refused_map_raises(cuda):
+    """A map cuTensorMapEncodeTiled refuses (a batch stride of 2^40 bytes)
+    makes the launcher return minus its CUresult, which raises; the
+    wrapper's own check raises on such a view before any launch, and no
+    launch is counted."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, 64)
+    out = torch.empty_like(q)
+    st = [2 ** 39, 64 * 64, 64] + [2 * 64 * 64, 64 * 64, 64] * 2
+    err = _build.library().pk_flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 2, 2,
+        64, 64, 64, *st, 1, 0, 0.125,
+        torch.cuda.current_stream().cuda_stream)
+    assert err < 0
+    with pytest.raises(RuntimeError, match="refused"):
+        _build.check(err, "pk_flash_attention_bf16")
+    big = torch.as_strided(q, (2, 2, 64, 64), (2 ** 39, 64 * 64, 64, 1))
+    before = FA.flash_attention.launches
+    with pytest.raises(ValueError, match="2\\^40"):
+        FA.flash_attention(big, k.expand(2, 2, 64, 64),
+                           v.expand(2, 2, 64, 64))
+    assert FA.flash_attention.launches == before
+
+
 def test_seq_sharded_train_on_card_runs_ring_kernels(cuda):
     """tinyllama-1.1b at full width cut to 2 layers, seq 1024 on (1, 4)
     with the fused ring shift: forward_train(seq_sharded=True) and its

@@ -330,6 +330,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     const int lane = threadIdx.x % 32, t4 = lane % 4;
     const int row_a = q_lo + wg * 64 + warp * 16 + lane / 4;
     const int row_b = row_a + 8;
+    // m in log2 units (the scale folded in), l and O in f32
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
     float oacc[D / 2];
 #pragma unroll
@@ -344,19 +345,16 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
       const int hi_b = a.causal ? min(grb, last) : last;
       const int lo_a = a.window > 0 ? gra - a.window + 1 : INT_MIN;
       const int lo_b = a.window > 0 ? grb - a.window + 1 : INT_MIN;
+      // the tile's real global rows: a block every one of whose keys each
+      // of them sees needs no element mask (rows past Sq read zero q and
+      // are never stored)
+      const int r0 = q_off + q_lo, r1 = q_off + min(q_lo + FA_BQ, a.Sq) - 1;
       const uint32_t qa = base + wg * 64 * 128;  // this warpgroup's Q rows
-      hg::mbar_wait(q_full, 0);
-      for (int kb = kr.lo, it = 0; kb < kr.hi; ++kb, ++it) {
-        const int s = it % FA_STAGES;
-        const uint32_t ph = (it / FA_STAGES) & 1;
-        const uint32_t sk = k_tile(s), sv = sk + SM::KV_BYTES;
 
-        // S = Q K^T: 64 rows x 128 keys, D / 16 k16 steps
-        float sacc[FA_BK / 2];
-#pragma unroll
-        for (int i = 0; i < FA_BK / 2; ++i) sacc[i] = 0.f;
-        hg::fence_acc(sacc);
-        hg::mbar_wait(k_full(s), ph);
+      // S = Q K^T of the block in stage s: 64 rows x 128 keys, D / 16 k16
+      // steps, issued and committed, not waited for
+      auto issue_s = [&](float(&sacc)[FA_BK / 2], int s) {
+        const uint32_t sk = k_tile(s);
         hg::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
@@ -366,46 +364,69 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
               hg::desc(sk + (kk / 4) * FA_BK * 128 + (kk % 4) * 32, 16, 1024),
               kk > 0 ? 1 : 0);
         hg::wgmma_commit();
-        hg::wgmma_wait<0>();
-        hg::fence_acc(sacc);
-
-        // scale (log2 units), mask, row maxima over the quad: element
-        // 4 j + e is row a (e < 2) or b, key 8 j + 2 t4 + e % 2
-        const int col0 = kv_off + kb * FA_BK + 2 * t4;
+      };
+      // O += P V of the block in stage s: 128 keys in 8 k16 chunks,
+      // issued and committed
+      auto issue_pv = [&](uint32_t(&pa)[FA_BK / 16][4], int s) {
+        const uint32_t sv = k_tile(s) + SM::KV_BYTES;
+        fence_frag(pa);
+        hg::fence_acc(oacc);
+        hg::wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < FA_BK / 16; ++c)
+          wgmma_pv<D>(oacc, pa[c],
+                      hg::desc(sv + c * 2048, FA_BK * 128, 1024));
+        hg::wgmma_commit();
+      };
+      // the online softmax of block kb's S: the row maxima over the quad
+      // (of raw s: the scale is positive), m and l updated, P = exp2(s *
+      // scale_log2 - m) rounded to bf16 into pa (n8 tiles 2c and 2c + 1
+      // are the A fragment of key chunk c); returns O's rescale factors.
+      // Element 4 j + e of S is row a (e < 2) or b, key 8 j + 2 t4 + e % 2.
+      auto softmax = [&](float(&sacc)[FA_BK / 2], int kb,
+                         uint32_t(&pa)[FA_BK / 16][4]) -> float2 {
+        const int k0 = kv_off + kb * FA_BK;
+        const bool full = (kb + 1) * FA_BK <= a.Skv &&
+                          (!a.causal || k0 + FA_BK - 1 <= r0) &&
+                          (a.window <= 0 || k0 >= r1 - a.window + 1);
+        if (!full) {
+          const int col0 = k0 + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < FA_BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = col0 + 8 * j + (e & 1);
+              const bool keep = e < 2 ? (col >= lo_a) & (col <= hi_a)
+                                      : (col >= lo_b) & (col <= hi_b);
+              if (!keep) sacc[4 * j + e] = -INFINITY;
+            }
+        }
         float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < FA_BK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = col0 + 8 * j + (e & 1);
-            const bool keep = e < 2 ? (col >= lo_a) & (col <= hi_a)
-                                    : (col >= lo_b) & (col <= hi_b);
-            const float x = keep ? sacc[4 * j + e] * a.scale_log2 : -INFINITY;
-            sacc[4 * j + e] = x;
-            if (e < 2)
-              mx_a = fmaxf(mx_a, x);
-            else
-              mx_b = fmaxf(mx_b, x);
-          }
+        for (int j = 0; j < FA_BK / 8; ++j) {
+          mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+          mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+        }
 #pragma unroll
         for (int off = 1; off <= 2; off <<= 1) {
           mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
           mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
         }
-        const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+        const float mn_a = fmaxf(m_a, mx_a * a.scale_log2);
+        const float mn_b = fmaxf(m_b, mx_b * a.scale_log2);
         // a row with nothing visible yet keeps m = -inf: exponentiate
         // against 0
         const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
         const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-        const float alpha_a = exp2_approx(m_a - base_a);
-        const float alpha_b = exp2_approx(m_b - base_b);
+        const float2 alpha = make_float2(exp2_approx(m_a - base_a),
+                                         exp2_approx(m_b - base_b));
         float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
         for (int j = 0; j < FA_BK / 8; ++j) {
-          sacc[4 * j] = exp2_approx(sacc[4 * j] - base_a);
-          sacc[4 * j + 1] = exp2_approx(sacc[4 * j + 1] - base_a);
-          sacc[4 * j + 2] = exp2_approx(sacc[4 * j + 2] - base_b);
-          sacc[4 * j + 3] = exp2_approx(sacc[4 * j + 3] - base_b);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sacc[4 * j + e] = exp2_approx(
+                fmaf(sacc[4 * j + e], a.scale_log2, e < 2 ? -base_a : -base_b));
           ps_a += sacc[4 * j] + sacc[4 * j + 1];
           ps_b += sacc[4 * j + 2] + sacc[4 * j + 3];
         }
@@ -414,42 +435,71 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
           ps_a += __shfl_xor_sync(0xffffffffu, ps_a, off);
           ps_b += __shfl_xor_sync(0xffffffffu, ps_b, off);
         }
-        l_a = l_a * alpha_a + ps_a;
-        l_b = l_b * alpha_b + ps_b;
+        l_a = l_a * alpha.x + ps_a;
+        l_b = l_b * alpha.y + ps_b;
         m_a = mn_a;
         m_b = mn_b;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          oacc[4 * j] *= alpha_a;
-          oacc[4 * j + 1] *= alpha_a;
-          oacc[4 * j + 2] *= alpha_b;
-          oacc[4 * j + 3] *= alpha_b;
-        }
-        // P rounded to bf16: n8 tiles 2c and 2c + 1 are the A fragment of
-        // key chunk c
-        uint32_t pa[FA_BK / 16][4];
 #pragma unroll
         for (int c = 0; c < FA_BK / 16; ++c)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             pa[c][i] = hg::pack_bf16x2(sacc[8 * c + 2 * i],
                                        sacc[8 * c + 2 * i + 1]);
+        return alpha;
+      };
+      auto release = [&](int s) {  // the stage's K and V are read
+        __syncwarp();
+        if (lane == 0) hg::mbar_arrive(empty(s));
+      };
 
-        // O += P V: D columns, 128 keys in 8 k16 chunks
-        fence_frag(pa);
+      // Intra-warpgroup overlap: block it's S = Q K^T is issued before the
+      // previous block's O += P V, and its softmax runs while that product
+      // is in flight; O is rescaled once the product has landed.
+      uint32_t pa[FA_BK / 16][4];
+      {
+        float sacc[FA_BK / 2];
+        hg::mbar_wait(q_full, 0);
+        hg::mbar_wait(k_full(0), 0);
+        issue_s(sacc, 0);
+        hg::wgmma_wait<0>();
+        hg::fence_acc(sacc);
+        softmax(sacc, kr.lo, pa);  // O is still 0: no rescale
+      }
+      int it = 1;
+      for (int kb = kr.lo + 1; kb < kr.hi; ++kb, ++it) {
+        const int s = it % FA_STAGES, sp = (it - 1) % FA_STAGES;
+        float sacc[FA_BK / 2];
+        hg::mbar_wait(k_full(s), (it / FA_STAGES) & 1);
+        issue_s(sacc, s);
+        hg::mbar_wait(v_full(sp), ((it - 1) / FA_STAGES) & 1);
+        issue_pv(pa, sp);
+        hg::wgmma_wait<1>();  // S has landed; P V may still run
+        hg::fence_acc(sacc);
+        uint32_t pn[FA_BK / 16][4];
+        const float2 alpha = softmax(sacc, kb, pn);
+        hg::wgmma_wait<0>();  // P V has landed: pa and the stage are free
         hg::fence_acc(oacc);
-        hg::mbar_wait(v_full(s), ph);
-        hg::wgmma_fence();
+        fence_frag(pa);
+        release(sp);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          oacc[4 * j] *= alpha.x;
+          oacc[4 * j + 1] *= alpha.x;
+          oacc[4 * j + 2] *= alpha.y;
+          oacc[4 * j + 3] *= alpha.y;
+        }
 #pragma unroll
         for (int c = 0; c < FA_BK / 16; ++c)
-          wgmma_pv<D>(oacc, pa[c],
-                      hg::desc(sv + c * 2048, FA_BK * 128, 1024));
-        hg::wgmma_commit();
-        hg::wgmma_wait<0>();
-        hg::fence_acc(oacc);
-        __syncwarp();
-        if (lane == 0) hg::mbar_arrive(empty(s));  // the stage is read
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pa[c][i] = pn[c][i];
       }
+      const int sl = (it - 1) % FA_STAGES;
+      hg::mbar_wait(v_full(sl), ((it - 1) / FA_STAGES) & 1);
+      issue_pv(pa, sl);
+      hg::wgmma_wait<0>();
+      hg::fence_acc(oacc);
+      fence_frag(pa);
+      release(sl);
     }
 
     // the accumulator of n8 tile j: element 4 j + e at row a (e < 2) or b,

@@ -293,8 +293,12 @@ def _cuda_inputs(q, k, v, window, scale, name):
                              f"{t.data_ptr():#x}")
     if window is not None and window < 1:
         raise ValueError("window must be >= 1")
+    scale = scale if scale is not None else hd ** -0.5
+    if not scale > 0:       # the kernel takes row maxima of the raw scores
+        raise ValueError(f"the CUDA {name} takes a positive scale, got "
+                         f"{scale}")
     plan = flash_plan(q.shape, q.stride(), k.shape, k.stride(), v.stride())
-    return q, k, v, hd, scale if scale is not None else hd ** -0.5, plan
+    return q, k, v, hd, scale, plan
 
 
 def kernel_config(head_dim: int) -> tuple[int, ...]:

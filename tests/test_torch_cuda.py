@@ -695,9 +695,9 @@ def test_flash_attention_plan_matches_the_built_kernel(cuda):
 
 def test_flash_attention_kernel_refused_map_raises(cuda):
     """A map cuTensorMapEncodeTiled refuses (a batch stride of 2^40 bytes)
-    makes the launcher return minus its CUresult, which raises; the
-    wrapper's own check raises on such a view before any launch, and no
-    launch is counted."""
+    makes the launcher return minus its CUresult, which raises; a view the
+    wrapper's own check refuses (rows 136 bytes apart) raises before any
+    launch, and no launch is counted."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, 64)
@@ -710,11 +710,10 @@ def test_flash_attention_kernel_refused_map_raises(cuda):
     assert err < 0
     with pytest.raises(RuntimeError, match="refused"):
         _build.check(err, "pk_flash_attention_bf16")
-    big = torch.as_strided(q, (2, 2, 64, 64), (2 ** 39, 64 * 64, 64, 1))
+    odd = _randn(cuda, 1, 2, 64, 68, seed=9)[..., :64]     # rows 136 B apart
     before = FA.flash_attention.launches
-    with pytest.raises(ValueError, match="2\\^40"):
-        FA.flash_attention(big, k.expand(2, 2, 64, 64),
-                           v.expand(2, 2, 64, 64))
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        FA.flash_attention(odd, k, v)
     assert FA.flash_attention.launches == before
 
 

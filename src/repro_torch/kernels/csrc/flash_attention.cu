@@ -366,12 +366,10 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         hg::wgmma_commit();
       };
       // O += P V of the block in stage s: 128 keys in 8 k16 chunks,
-      // issued and committed
+      // issued and committed (pa and oacc fenced before the S product
+      // ahead of it, so that nothing defines them while wgmma runs)
       auto issue_pv = [&](uint32_t(&pa)[FA_BK / 16][4], int s) {
         const uint32_t sv = k_tile(s) + SM::KV_BYTES;
-        fence_frag(pa);
-        hg::fence_acc(oacc);
-        hg::wgmma_fence();
 #pragma unroll
         for (int c = 0; c < FA_BK / 16; ++c)
           wgmma_pv<D>(oacc, pa[c],
@@ -379,12 +377,10 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         hg::wgmma_commit();
       };
       // the online softmax of block kb's S: the row maxima over the quad
-      // (of raw s: the scale is positive), m and l updated, P = exp2(s *
-      // scale_log2 - m) rounded to bf16 into pa (n8 tiles 2c and 2c + 1
-      // are the A fragment of key chunk c); returns O's rescale factors.
+      // (of raw s: the scale is positive), m and l updated, S replaced by
+      // P = exp2(s * scale_log2 - m); returns O's rescale factors.
       // Element 4 j + e of S is row a (e < 2) or b, key 8 j + 2 t4 + e % 2.
-      auto softmax = [&](float(&sacc)[FA_BK / 2], int kb,
-                         uint32_t(&pa)[FA_BK / 16][4]) -> float2 {
+      auto softmax = [&](float(&sacc)[FA_BK / 2], int kb) -> float2 {
         const int k0 = kv_off + kb * FA_BK;
         const bool full = (kb + 1) * FA_BK <= a.Skv &&
                           (!a.causal || k0 + FA_BK - 1 <= r0) &&
@@ -439,22 +435,28 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         l_b = l_b * alpha.y + ps_b;
         m_a = mn_a;
         m_b = mn_b;
+        return alpha;
+      };
+      // P rounded to bf16: n8 tiles 2c and 2c + 1 of S are the A fragment
+      // of key chunk c
+      auto pack = [&](const float(&sacc)[FA_BK / 2],
+                      uint32_t(&pa)[FA_BK / 16][4]) {
 #pragma unroll
         for (int c = 0; c < FA_BK / 16; ++c)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             pa[c][i] = hg::pack_bf16x2(sacc[8 * c + 2 * i],
                                        sacc[8 * c + 2 * i + 1]);
-        return alpha;
       };
       auto release = [&](int s) {  // the stage's K and V are read
         __syncwarp();
         if (lane == 0) hg::mbar_arrive(empty(s));
       };
 
-      // Intra-warpgroup overlap: block it's S = Q K^T is issued before the
-      // previous block's O += P V, and its softmax runs while that product
-      // is in flight; O is rescaled once the product has landed.
+      // Intra-warpgroup overlap (FlashAttention-3's): block kb's S = Q K^T
+      // is issued before the previous block's O += P V, and its softmax
+      // runs while that product is in flight; once it has landed, O is
+      // rescaled and S becomes the next P in the same registers.
       uint32_t pa[FA_BK / 16][4];
       {
         float sacc[FA_BK / 2];
@@ -463,21 +465,23 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         issue_s(sacc, 0);
         hg::wgmma_wait<0>();
         hg::fence_acc(sacc);
-        softmax(sacc, kr.lo, pa);  // O is still 0: no rescale
+        softmax(sacc, kr.lo);  // O is still 0: no rescale
+        pack(sacc, pa);
       }
       int it = 1;
       for (int kb = kr.lo + 1; kb < kr.hi; ++kb, ++it) {
         const int s = it % FA_STAGES, sp = (it - 1) % FA_STAGES;
         float sacc[FA_BK / 2];
+        fence_frag(pa);  // P and O as the P V product reads them
+        hg::fence_acc(oacc);
         hg::mbar_wait(k_full(s), (it / FA_STAGES) & 1);
         issue_s(sacc, s);
         hg::mbar_wait(v_full(sp), ((it - 1) / FA_STAGES) & 1);
         issue_pv(pa, sp);
         hg::wgmma_wait<1>();  // S has landed; P V may still run
         hg::fence_acc(sacc);
-        uint32_t pn[FA_BK / 16][4];
-        const float2 alpha = softmax(sacc, kb, pn);
-        hg::wgmma_wait<0>();  // P V has landed: pa and the stage are free
+        const float2 alpha = softmax(sacc, kb);
+        hg::wgmma_wait<0>();  // P V has landed: pa, O and the stage free
         hg::fence_acc(oacc);
         fence_frag(pa);
         release(sp);
@@ -488,13 +492,13 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
           oacc[4 * j + 2] *= alpha.y;
           oacc[4 * j + 3] *= alpha.y;
         }
-#pragma unroll
-        for (int c = 0; c < FA_BK / 16; ++c)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pa[c][i] = pn[c][i];
+        pack(sacc, pa);
       }
       const int sl = (it - 1) % FA_STAGES;
+      fence_frag(pa);
+      hg::fence_acc(oacc);
       hg::mbar_wait(v_full(sl), ((it - 1) / FA_STAGES) & 1);
+      hg::wgmma_fence();
       issue_pv(pa, sl);
       hg::wgmma_wait<0>();
       hg::fence_acc(oacc);

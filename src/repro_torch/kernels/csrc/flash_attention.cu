@@ -68,11 +68,20 @@
 #include "hopper_gemm.cuh"
 
 #define FA_BQ 128      // query rows a block: two consumer warpgroups of 64
-#define FA_BK 128      // keys a stage
-#define FA_STAGES 2
 #define FA_THREADS 384
 
 namespace fa {
+
+// Keys a stage and ring stages at head_dim D. At D = 64 a block of 128 keys
+// keeps S (64 of a thread's f32) beside O (32) and P (32); at D = 128 O
+// takes 64, and a 128-key S spilled under the 168 registers ptxas gives a
+// thread of this block (the overlap below keeps S, P and O live at once),
+// so blocks are 64 keys, in 3 stages.
+template <int D>
+struct Cfg {
+  static constexpr int BK = D == 64 ? 128 : 64;
+  static constexpr int STAGES = D == 64 ? 2 : 3;
+};
 
 struct Maps {
   CUtensorMap q, k, v;
@@ -103,19 +112,20 @@ struct KvRange {
 // one interval, [r0 - window + 1, r1] (causal) or from r0 - window + 1 on,
 // so the blocks are one range. kernels/flash_attention.py::kv_blocks is
 // its twin.
+template <int BK>
 __device__ __forceinline__ KvRange kv_range(int q_lo, int q_off, int kv_off,
                                             const Args& a) {
-  const int n_kb = (a.Skv + FA_BK - 1) / FA_BK;
+  const int n_kb = (a.Skv + BK - 1) / BK;
   const int r0 = q_off + q_lo;
   const int r1 = q_off + min(q_lo + FA_BQ, a.Sq) - 1;
   int lo = 0, hi = n_kb;
   if (a.causal) {  // the first key of the block at most r1
     const int d = r1 - kv_off;
-    hi = d < 0 ? 0 : min(n_kb, d / FA_BK + 1);
+    hi = d < 0 ? 0 : min(n_kb, d / BK + 1);
   }
   if (a.window > 0) {  // the last real key of the block above r0 - window
     const int t = r0 - a.window + 1 - kv_off;  // first visible local key
-    lo = t <= 0 ? 0 : t >= a.Skv ? n_kb : t / FA_BK;
+    lo = t <= 0 ? 0 : t >= a.Skv ? n_kb : t / BK;
   }
   return {lo, hi};
 }
@@ -158,6 +168,30 @@ __device__ __forceinline__ void wgmma_ss_m64n128_kmajor(float (&d)[64], uint64_t
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the same for m64n64k16
+__device__ __forceinline__ void wgmma_ss_m64n64_kmajor(float (&d)[32],
+                                                       uint64_t da,
+                                                       uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -223,6 +257,15 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
         "r"(scale_d));
 }
 
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BK == 64)
+    wgmma_ss_m64n64_kmajor(d, da, db, scale_d);
+  else
+    wgmma_ss_m64n128_kmajor(d, da, db, scale_d);
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
@@ -248,13 +291,14 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
 // stage); 1 KB of slack for the alignment.
 template <int D>
 struct Smem {
+  static constexpr int BK = Cfg<D>::BK, STAGES = Cfg<D>::STAGES;
   static constexpr int ATOMS = D / 64;  // 64-column boxes a row
   static constexpr int Q_BYTES = FA_BQ * D * 2;
-  static constexpr int KV_BYTES = FA_BK * D * 2;  // K or V of one stage
+  static constexpr int KV_BYTES = BK * D * 2;  // K or V of one stage
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int BARS = 1 + 3 * FA_STAGES;
+  static constexpr int BARS = 1 + 3 * STAGES;
   static constexpr int BYTES =
-      Q_BYTES + FA_STAGES * STAGE_BYTES + 1024 + 8 * BARS;
+      Q_BYTES + STAGES * STAGE_BYTES + 1024 + 8 * BARS;
 };
 
 template <int D, bool HOP>
@@ -262,13 +306,14 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     flash_kernel(const __grid_constant__ Maps maps, const Args a,
                  const Hop hp, __nv_bfloat16* __restrict__ o) {
   using SM = Smem<D>;
+  constexpr int BK = Cfg<D>::BK, STAGES = Cfg<D>::STAGES;
   extern __shared__ uint8_t fa_smem[];
   const uint32_t base = (hg::smem_addr(fa_smem) + 1023) & ~1023u;
-  const uint32_t bars = base + SM::Q_BYTES + FA_STAGES * SM::STAGE_BYTES;
+  const uint32_t bars = base + SM::Q_BYTES + STAGES * SM::STAGE_BYTES;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
-  auto v_full = [&](int s) { return bars + 8 * (1 + FA_STAGES + s); };
-  auto empty = [&](int s) { return bars + 8 * (1 + 2 * FA_STAGES + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
   auto k_tile = [&](int s) {
     return base + SM::Q_BYTES + s * SM::STAGE_BYTES;
   };
@@ -283,11 +328,11 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     q_off = r * a.Sq;
     kv_off = ((r - hp.hop) % hp.n_ranks + hp.n_ranks) % hp.n_ranks * a.Skv;
   }
-  const KvRange kr = kv_range(q_lo, q_off, kv_off, a);
+  const KvRange kr = kv_range<BK>(q_lo, q_off, kv_off, a);
 
   if (threadIdx.x == 0) {
     hg::mbar_init(q_full, 1);
-    for (int s = 0; s < FA_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       hg::mbar_init(k_full(s), 1);
       hg::mbar_init(v_full(s), 1);
       hg::mbar_init(empty(s), 8);  // the consumers' 8 warps
@@ -307,18 +352,18 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         hg::tma_load4(base + at * FA_BQ * 128, &maps.q, at * 64, q_lo, h, b,
                       q_full);
       for (int kb = kr.lo, it = 0; kb < kr.hi; ++kb, ++it) {
-        const int s = it % FA_STAGES;
-        hg::mbar_wait(empty(s), ((it / FA_STAGES) & 1) ^ 1);
+        const int s = it % STAGES;
+        hg::mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
         const uint32_t sk = k_tile(s), sv = sk + SM::KV_BYTES;
         hg::mbar_expect_tx(k_full(s), SM::KV_BYTES);
 #pragma unroll
         for (int at = 0; at < SM::ATOMS; ++at)
-          hg::tma_load4(sk + at * FA_BK * 128, &maps.k, at * 64, kb * FA_BK,
+          hg::tma_load4(sk + at * BK * 128, &maps.k, at * 64, kb * BK,
                         hk, b, k_full(s));
         hg::mbar_expect_tx(v_full(s), SM::KV_BYTES);
 #pragma unroll
         for (int at = 0; at < SM::ATOMS; ++at)
-          hg::tma_load4(sv + at * FA_BK * 128, &maps.v, at * 64, kb * FA_BK,
+          hg::tma_load4(sv + at * BK * 128, &maps.v, at * 64, kb * BK,
                         hk, b, v_full(s));
       }
     }
@@ -353,42 +398,42 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
 
       // S = Q K^T of the block in stage s: 64 rows x 128 keys, D / 16 k16
       // steps, issued and committed, not waited for
-      auto issue_s = [&](float(&sacc)[FA_BK / 2], int s) {
+      auto issue_s = [&](float(&sacc)[BK / 2], int s) {
         const uint32_t sk = k_tile(s);
         hg::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_m64n128_kmajor(
+          wgmma_qk<BK>(
               sacc,
               hg::desc(qa + (kk / 4) * FA_BQ * 128 + (kk % 4) * 32, 16, 1024),
-              hg::desc(sk + (kk / 4) * FA_BK * 128 + (kk % 4) * 32, 16, 1024),
+              hg::desc(sk + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024),
               kk > 0 ? 1 : 0);
         hg::wgmma_commit();
       };
       // O += P V of the block in stage s: 128 keys in 8 k16 chunks,
       // issued and committed (pa and oacc fenced before the S product
       // ahead of it, so that nothing defines them while wgmma runs)
-      auto issue_pv = [&](uint32_t(&pa)[FA_BK / 16][4], int s) {
+      auto issue_pv = [&](uint32_t(&pa)[BK / 16][4], int s) {
         const uint32_t sv = k_tile(s) + SM::KV_BYTES;
 #pragma unroll
-        for (int c = 0; c < FA_BK / 16; ++c)
+        for (int c = 0; c < BK / 16; ++c)
           wgmma_pv<D>(oacc, pa[c],
-                      hg::desc(sv + c * 2048, FA_BK * 128, 1024));
+                      hg::desc(sv + c * 2048, BK * 128, 1024));
         hg::wgmma_commit();
       };
       // the online softmax of block kb's S: the row maxima over the quad
       // (of raw s: the scale is positive), m and l updated, S replaced by
       // P = exp2(s * scale_log2 - m); returns O's rescale factors.
       // Element 4 j + e of S is row a (e < 2) or b, key 8 j + 2 t4 + e % 2.
-      auto softmax = [&](float(&sacc)[FA_BK / 2], int kb) -> float2 {
-        const int k0 = kv_off + kb * FA_BK;
-        const bool full = (kb + 1) * FA_BK <= a.Skv &&
-                          (!a.causal || k0 + FA_BK - 1 <= r0) &&
+      auto softmax = [&](float(&sacc)[BK / 2], int kb) -> float2 {
+        const int k0 = kv_off + kb * BK;
+        const bool full = (kb + 1) * BK <= a.Skv &&
+                          (!a.causal || k0 + BK - 1 <= r0) &&
                           (a.window <= 0 || k0 >= r1 - a.window + 1);
         if (!full) {
           const int col0 = k0 + 2 * t4;
 #pragma unroll
-          for (int j = 0; j < FA_BK / 8; ++j)
+          for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = col0 + 8 * j + (e & 1);
@@ -399,7 +444,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         }
         float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < FA_BK / 8; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
           mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
           mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
         }
@@ -418,7 +463,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
                                          exp2_approx(m_b - base_b));
         float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
-        for (int j = 0; j < FA_BK / 8; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             sacc[4 * j + e] = exp2_approx(
@@ -439,10 +484,10 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
       };
       // P rounded to bf16: n8 tiles 2c and 2c + 1 of S are the A fragment
       // of key chunk c
-      auto pack = [&](const float(&sacc)[FA_BK / 2],
-                      uint32_t(&pa)[FA_BK / 16][4]) {
+      auto pack = [&](const float(&sacc)[BK / 2],
+                      uint32_t(&pa)[BK / 16][4]) {
 #pragma unroll
-        for (int c = 0; c < FA_BK / 16; ++c)
+        for (int c = 0; c < BK / 16; ++c)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             pa[c][i] = hg::pack_bf16x2(sacc[8 * c + 2 * i],
@@ -452,17 +497,32 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         __syncwarp();
         if (lane == 0) hg::mbar_arrive(empty(s));
       };
+      // Ping-pong (FlashAttention-3's): the two consumer warpgroups take
+      // turns to issue their products — named barrier 1 + wg is this
+      // warpgroup's turn, passed on once its products are issued — so that
+      // one's softmax runs while the other's products hold the tensor
+      // cores. Warpgroup 0 goes first; both take n + 1 turns for n blocks,
+      // and warpgroup 1 does not pass its last.
+      auto turn_wait = [&] {
+        asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+      };
+      auto turn_pass = [&] {
+        asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
+      };
+      if (wg == 1) turn_pass();
 
       // Intra-warpgroup overlap (FlashAttention-3's): block kb's S = Q K^T
       // is issued before the previous block's O += P V, and its softmax
       // runs while that product is in flight; once it has landed, O is
       // rescaled and S becomes the next P in the same registers.
-      uint32_t pa[FA_BK / 16][4];
+      uint32_t pa[BK / 16][4];
       {
-        float sacc[FA_BK / 2];
+        float sacc[BK / 2];
         hg::mbar_wait(q_full, 0);
         hg::mbar_wait(k_full(0), 0);
+        turn_wait();
         issue_s(sacc, 0);
+        turn_pass();
         hg::wgmma_wait<0>();
         hg::fence_acc(sacc);
         softmax(sacc, kr.lo);  // O is still 0: no rescale
@@ -470,14 +530,16 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
       }
       int it = 1;
       for (int kb = kr.lo + 1; kb < kr.hi; ++kb, ++it) {
-        const int s = it % FA_STAGES, sp = (it - 1) % FA_STAGES;
-        float sacc[FA_BK / 2];
+        const int s = it % STAGES, sp = (it - 1) % STAGES;
+        float sacc[BK / 2];
         fence_frag(pa);  // P and O as the P V product reads them
         hg::fence_acc(oacc);
-        hg::mbar_wait(k_full(s), (it / FA_STAGES) & 1);
+        hg::mbar_wait(k_full(s), (it / STAGES) & 1);
+        hg::mbar_wait(v_full(sp), ((it - 1) / STAGES) & 1);
+        turn_wait();
         issue_s(sacc, s);
-        hg::mbar_wait(v_full(sp), ((it - 1) / FA_STAGES) & 1);
         issue_pv(pa, sp);
+        turn_pass();
         hg::wgmma_wait<1>();  // S has landed; P V may still run
         hg::fence_acc(sacc);
         const float2 alpha = softmax(sacc, kb);
@@ -494,12 +556,14 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         }
         pack(sacc, pa);
       }
-      const int sl = (it - 1) % FA_STAGES;
+      const int sl = (it - 1) % STAGES;
       fence_frag(pa);
       hg::fence_acc(oacc);
-      hg::mbar_wait(v_full(sl), ((it - 1) / FA_STAGES) & 1);
+      hg::mbar_wait(v_full(sl), ((it - 1) / STAGES) & 1);
+      turn_wait();
       hg::wgmma_fence();
       issue_pv(pa, sl);
+      if (wg == 0) turn_pass();
       hg::wgmma_wait<0>();
       hg::fence_acc(oacc);
       fence_frag(pa);
@@ -590,8 +654,8 @@ int encode_maps(Maps& m, const void* q, const void* k, const void* v, int B,
                             dims, strides, box);
   };
   if (const int e = enc(&m.q, q, Sq, Hq, st, FA_BQ)) return e;
-  if (const int e = enc(&m.k, k, Skv, Hkv, st + 3, FA_BK)) return e;
-  return enc(&m.v, v, Skv, Hkv, st + 6, FA_BK);
+  if (const int e = enc(&m.k, k, Skv, Hkv, st + 3, Cfg<D>::BK)) return e;
+  return enc(&m.v, v, Skv, Hkv, st + 6, Cfg<D>::BK);
 }
 
 template <int D, bool HOP>
@@ -670,8 +734,8 @@ extern "C" int pk_flash_attention_hop_bf16(
 extern "C" int pk_flash_attention_config(int D, int* out) {
   if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   out[0] = FA_BQ;
-  out[1] = FA_BK;
-  out[2] = FA_STAGES;
+  out[1] = D == 64 ? fa::Cfg<64>::BK : fa::Cfg<128>::BK;
+  out[2] = D == 64 ? fa::Cfg<64>::STAGES : fa::Cfg<128>::STAGES;
   out[3] = FA_THREADS;
   out[4] = D == 64 ? fa::Smem<64>::BYTES : fa::Smem<128>::BYTES;
   return 0;

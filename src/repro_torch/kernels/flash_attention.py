@@ -15,7 +15,8 @@ the pieces of ``csrc/hopper_gemm.cuh``: one CTA of three warpgroups a
 producer thread; TMA reads q, k and v through 4-D tensor maps over (D, S,
 H, B) at the caller's strides (so the head-transposed views of prefill
 need no copy and GQA reads KV head ``h // (Hq/Hkv)`` in place), K and V
-blocks of 128 keys stream through a 2-stage mbarrier ring, S = QKᵀ is
+blocks of 128 keys (64 at head_dim 128) stream through an mbarrier ring,
+S = QKᵀ is
 ``wgmma`` from shared memory (K-major K), O += PV is ``wgmma`` with P from
 registers (rounded to bf16 as the Pallas kernel rounds it to v's dtype),
 and m, l and O stay in f32 registers. Key blocks are skipped by the
@@ -68,12 +69,13 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 #: head_dims the CUDA kernel is instantiated for; others pad up to one
 KERNEL_HEAD_DIMS = (64, 128)
-#: the kernel's tiles (``FA_BQ``, ``FA_BK``, ``FA_STAGES``, ``FA_THREADS``
-#: of csrc/flash_attention.cu): query rows a block (two consumer
-#: warpgroups of 64), keys a ring stage, stages, threads a block
+#: the kernel's tiles (``FA_BQ``, ``Cfg<D>`` and ``FA_THREADS`` of
+#: csrc/flash_attention.cu): query rows a block (two consumer warpgroups of
+#: 64), keys a ring stage and stages by head_dim (at 128, 64-key blocks keep
+#: S, P and O within a thread's registers), threads a block
 BLOCK_Q = 128
-BLOCK_K = 128
-STAGES = 2
+BLOCK_K = {64: 128, 128: 64}
+STAGES = {64: 2, 128: 3}
 THREADS = 384
 #: columns of a TMA box: one 128-byte swizzle atom of bf16
 BOX_COLS = 64
@@ -123,8 +125,9 @@ def smem_bytes(head_dim: int) -> int:
     stages (K and V), 1 KB of slack for the 1024-byte alignment the
     swizzle needs, and the mbarriers (q full; k full, v full, empty a
     stage)."""
-    return (BLOCK_Q * head_dim * 2 + STAGES * 2 * BLOCK_K * head_dim * 2
-            + 1024 + 8 * (1 + 3 * STAGES))
+    bk, stages = BLOCK_K[head_dim], STAGES[head_dim]
+    return (BLOCK_Q * head_dim * 2 + stages * 2 * bk * head_dim * 2
+            + 1024 + 8 * (1 + 3 * stages))
 
 
 def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,
@@ -162,20 +165,22 @@ def flash_plan(q_shape, q_strides, k_shape, k_strides,
         raise ValueError(f"the kernel takes head_dim {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
     v_strides = k_strides if v_strides is None else v_strides
+    bk = BLOCK_K[d]
     q_map, qs = _map("q", q_shape, q_strides, BLOCK_Q)
-    k_map, ks = _map("k", k_shape, k_strides, BLOCK_K)
-    v_map, vs = _map("v", k_shape, v_strides, BLOCK_K)
-    return FlashPlan(head_dim=d, block_q=BLOCK_Q, block_k=BLOCK_K,
-                     stages=STAGES, threads=THREADS,
+    k_map, ks = _map("k", k_shape, k_strides, bk)
+    v_map, vs = _map("v", k_shape, v_strides, bk)
+    return FlashPlan(head_dim=d, block_q=BLOCK_Q, block_k=bk,
+                     stages=STAGES[d], threads=THREADS,
                      grid=(b * hq, _cdiv(sq, BLOCK_Q)),
                      smem_bytes=smem_bytes(d), boxes_per_row=d // BOX_COLS,
                      q_map=q_map, k_map=k_map, v_map=v_map,
                      strides=qs + ks + vs)
 
 
-def kv_blocks(q_tile: int, *, sq: int, skv: int, causal: bool,
-              window: int | None, q_off: int = 0, kv_off: int = 0) -> range:
-    """The key blocks (of ``BLOCK_K``) that query tile ``q_tile`` schedules
+def kv_blocks(q_tile: int, *, block_k: int, sq: int, skv: int,
+              causal: bool, window: int | None, q_off: int = 0,
+              kv_off: int = 0) -> range:
+    """The key blocks (of ``block_k``) that query tile ``q_tile`` schedules
     — the twin of ``kv_range`` in csrc/flash_attention.cu. A block is
     scheduled iff it holds a (row, key) pair visible to a real row (< sq)
     at a real key (< skv), at global positions (``q_off`` + row, ``kv_off``
@@ -183,17 +188,17 @@ def kv_blocks(q_tile: int, *, sq: int, skv: int, causal: bool,
     (``flash_attention.py:37-41``) at the tile's real extent. The visible
     keys of the tile's rows r0..r1 form one interval, so the blocks are one
     range."""
-    n_kb = _cdiv(skv, BLOCK_K)
+    n_kb = _cdiv(skv, block_k)
     q_lo = q_tile * BLOCK_Q
     r0 = q_off + q_lo
     r1 = q_off + min(q_lo + BLOCK_Q, sq) - 1
     lo, hi = 0, n_kb
     if causal:                          # the block's first key <= r1
         d = r1 - kv_off
-        hi = 0 if d < 0 else min(n_kb, d // BLOCK_K + 1)
+        hi = 0 if d < 0 else min(n_kb, d // block_k + 1)
     if window:                          # its last real key > r0 - window
         t = r0 - window + 1 - kv_off
-        lo = 0 if t <= 0 else n_kb if t >= skv else t // BLOCK_K
+        lo = 0 if t <= 0 else n_kb if t >= skv else t // block_k
     return range(lo, hi)
 
 

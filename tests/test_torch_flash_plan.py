@@ -63,21 +63,22 @@ def _visible(sq, skv, q_off, kv_off, causal, window) -> np.ndarray:
     return keep
 
 
-def _check_schedule(sq, skv, q_off, kv_off, causal, window) -> int:
-    """Every visible pair in a scheduled block, no scheduled block wholly
-    masked for its query tile; the number of scheduled blocks."""
+def _check_schedule(sq, skv, q_off, kv_off, causal, window, bk) -> int:
+    """Every visible pair in a scheduled block (of ``bk`` keys), no
+    scheduled block wholly masked for its query tile; the number of
+    scheduled blocks."""
     keep = _visible(sq, skv, q_off, kv_off, causal, window)
     n = 0
     for t in range(-(-sq // FA.BLOCK_Q)):
         rows = keep[t * FA.BLOCK_Q:(t + 1) * FA.BLOCK_Q]
-        blocks = FA.kv_blocks(t, sq=sq, skv=skv, causal=causal,
+        blocks = FA.kv_blocks(t, block_k=bk, sq=sq, skv=skv, causal=causal,
                               window=window, q_off=q_off, kv_off=kv_off)
         cols = np.zeros(skv, bool)
         for kb in blocks:
-            part = rows[:, kb * FA.BLOCK_K:(kb + 1) * FA.BLOCK_K]
+            part = rows[:, kb * bk:(kb + 1) * bk]
             assert part.shape[1] > 0, (t, kb)
             assert part.any(), f"tile {t} schedules block {kb}, all masked"
-            cols[kb * FA.BLOCK_K:(kb + 1) * FA.BLOCK_K] = True
+            cols[kb * bk:(kb + 1) * bk] = True
         assert not (rows & ~cols[None, :]).any(), \
             f"tile {t} leaves a visible pair out of {list(blocks)}"
         n += len(blocks)
@@ -87,10 +88,12 @@ def _check_schedule(sq, skv, q_off, kv_off, causal, window) -> int:
 @pytest.mark.parametrize("b,hq,hkv,s,hd,causal,window", FORWARD)
 def test_forward_schedule_covers_the_mask_exactly(b, hq, hkv, s, hd, causal,
                                                   window):
-    n = _check_schedule(s, s, 0, 0, causal, window)
-    if causal and window is None:     # a causal tile t reads t + 1 blocks
+    bk = FA.BLOCK_K[_width(hd)]
+    n = _check_schedule(s, s, 0, 0, causal, window, bk)
+    if causal and window is None:     # tile t reads the keys up to its end
         tiles = -(-s // FA.BLOCK_Q)
-        assert n == sum(min(t + 1, -(-s // FA.BLOCK_K)) for t in range(tiles))
+        assert n == sum(-(-min((t + 1) * FA.BLOCK_Q, s) // bk)
+                        for t in range(tiles))
 
 
 @pytest.mark.parametrize("r,b,hq,hkv,s,hd,causal,window", HOPS)
@@ -102,7 +105,8 @@ def test_hop_schedule_at_global_offsets(r, b, hq, hkv, s, hd, causal, window):
         q_off, kv_off = FA._hop_offsets(r * b, r, hop, s, s)
         for rank in range(r):
             qo, ko = int(q_off[rank * b]), int(kv_off[rank * b])
-            n = _check_schedule(s, s, qo, ko, causal, window)
+            n = _check_schedule(s, s, qo, ko, causal, window,
+                                FA.BLOCK_K[_width(hd)])
             src = (rank - hop) % r
             if causal and src > rank:
                 assert n == 0
@@ -126,22 +130,24 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
     else:
         q, k = torch.empty(b, hq, s, w), torch.empty(b, hkv, s, w)
     p = FA.flash_plan(q.shape, q.stride(), k.shape, k.stride(), k.stride())
-    assert (p.block_q, p.block_k, p.stages, p.threads) == (128, 128, 2, 384)
+    bk, stages = {64: (128, 2), 128: (64, 3)}[w]
+    assert (p.block_q, p.block_k, p.stages, p.threads) == (128, bk, stages,
+                                                           384)
     assert p.head_dim == w and p.boxes_per_row == w // 64
     assert p.grid == (b * hq, -(-s // 128))
     assert [p.q_tile(y) for y in range(p.grid[1])] == \
         list(range(p.grid[1]))[::-1]
     assert p.smem_bytes <= SMEM_PER_BLOCK
-    assert p.smem_bytes == (128 * w * 2 + 2 * 2 * 128 * w * 2 + 1024
-                            + 8 * 7)
-    for m, (h, rows), t in ((p.q_map, (hq, 128), q), (p.k_map, (hkv, 128), k),
-                            (p.v_map, (hkv, 128), k)):
+    assert p.smem_bytes == (128 * w * 2 + stages * 2 * bk * w * 2 + 1024
+                            + 8 * (1 + 3 * stages))
+    for m, (h, rows), t in ((p.q_map, (hq, 128), q), (p.k_map, (hkv, bk), k),
+                            (p.v_map, (hkv, bk), k)):
         assert m.dims == (w, s, h, b)
         assert m.box == (64, rows, 1, 1)
         assert all(st % 16 == 0 and 0 < st < 2 ** 40 for st in m.strides)
         # a box is 128 bytes wide: the 128-byte swizzle's atom
         assert m.box[0] * 2 == 128 and m.box[1] <= 256
-        for dim, st, full in zip((2, 1, 0), m.strides, t.shape[1:][::-1]):
+        for dim, st in zip((2, 1, 0), m.strides):
             if t.shape[dim] > 1:
                 assert st == t.stride(dim) * 2
     assert p.strides[:3] == tuple(
@@ -149,8 +155,8 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
 
 
 def test_plan_shared_memory_at_both_widths():
-    assert FA.smem_bytes(64) == 83000
-    assert FA.smem_bytes(128) == 164920
+    assert FA.smem_bytes(64) == 83000      # Q 16 KB, 2 x (K, V) 32 KB
+    assert FA.smem_bytes(128) == 33792 + 3 * 32768 + 80  # 3 x (K, V) 32 KB
     assert all(FA.smem_bytes(w) <= SMEM_PER_BLOCK
                for w in FA.KERNEL_HEAD_DIMS)
 

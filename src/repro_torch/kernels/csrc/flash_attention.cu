@@ -80,7 +80,7 @@ namespace fa {
 template <int D>
 struct Cfg {
   static constexpr int BK = D == 64 ? 128 : 64;
-  static constexpr int STAGES = 3;
+  static constexpr int STAGES = 4;
 };
 
 struct Maps {

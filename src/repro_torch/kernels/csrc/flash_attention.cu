@@ -14,38 +14,49 @@
 //
 // * A block of three warpgroups computes one 128-row query tile of one
 //   (batch, head): warpgroups 0 and 1 consume, 64 rows each; one thread of
-//   warpgroup 2 produces. setmaxnreg moves the registers to the consumers
-//   (240 each, 24 for the producer).
+//   warpgroup 2 produces. setmaxnreg hands the producer's registers to the
+//   consumers (24 and 240).
 // * Q, K and V are read through 4-D tensor maps over (D, S, H, B) at the
 //   strides the caller passes, so the head-transposed views of prefill
 //   need no copy, and the KV head h / (Hq / Hkv) is a map coordinate, so
-//   GQA needs no repeat. The Q tile is loaded once; K and V blocks of 128
-//   keys stream through a ring of 2 stages, each with a full barrier for K,
-//   one for V (the producer's expect_tx; TMA completes the bytes) and an
-//   empty barrier (every consumer warp arrives once its wgmma have read the
-//   stage). 128-byte swizzle: a row of 64 columns is one box, so D = 128 is
-//   two boxes a tile, 16 KB apart.
-// * S = Q K^T is wgmma m64n128k16 with both operands in shared memory and
+//   GQA needs no repeat. The Q tile is loaded once; K and V blocks (Cfg:
+//   128 keys at D = 64, 64 at D = 128) stream through a ring of 3 stages,
+//   each with a full barrier for K, one for V (the producer's expect_tx;
+//   TMA completes the bytes) and an empty barrier (every consumer warp
+//   arrives once its products have read the stage). With 2 stages the
+//   producer could not load block j before the later warpgroup had
+//   finished block j - 2, and the other waited; a fourth stage measured no
+//   faster. 128-byte swizzle: a row of 64 columns is one box, so D = 128
+//   is two boxes a tile, one atom apart.
+// * S = Q K^T is wgmma m64nBKk16 with both operands in shared memory and
 //   K-major (trans-b 0): SBO 1024, a k16 step 32 bytes inside the 128-byte
 //   atom, steps 4-7 in the second atom at D = 128.
 // * O += P V is wgmma m64nDk16 with P from registers: the f32 S accumulator
 //   of n8 tiles 2c and 2c+1, rounded to bf16 (as the Pallas kernel rounds P
 //   to v's dtype), is the A fragment of key chunk c. V is the MN-major B
-//   (trans-b 1) of hopper_gemm's layout: SBO 1024, LBO the 16 KB between
-//   64-column atoms, a k16 step 2048 bytes.
+//   (trans-b 1) of hopper_gemm's layout: SBO 1024, LBO the BK * 128 bytes
+//   between 64-column atoms, a k16 step 2048 bytes.
 // * The online softmax stays in registers: each accumulator row is spread
-//   over a quad of lanes, reduced with two shuffles; the scale is folded
-//   into exp2 (log2 e). A row with nothing visible yet keeps m = -inf and
-//   exponentiates against 0.
+//   over a quad of lanes, reduced with two shuffles; the row maximum is
+//   taken of the raw scores (the scale is positive) and the scale folded
+//   into one FMA before exp2 (log2 e). A row with nothing visible yet keeps
+//   m = -inf and exponentiates against 0. Only a block that some row does
+//   not wholly see (the diagonal, the window's edge, the ragged end) takes
+//   the element mask.
+// * Two overlaps after FlashAttention-3: within a warpgroup, block j's S
+//   is issued before block j-1's P V and its softmax runs while that
+//   product is in flight; between the two warpgroups, named barriers make
+//   them take turns to issue their products, so that one's softmax (the
+//   exponentials, 16 an SM a clock, take about as long as the products at
+//   D = 64) runs while the other's products hold the tensor cores.
 // * Key blocks are scheduled by kv_range below, the Pallas kernel's
 //   predicate (flash_attention.py:37-41) taken at the tile's real rows and
 //   keys: the blocks [lo, hi) hold every visible (row, key) pair and none
 //   is wholly masked. Producer and consumers both call it, so they walk the
-//   same blocks and the barriers' phases agree. The element mask takes the
-//   ragged key edge, causal and window; TMA zero-fills a box past S inside
-//   its own head (per-dimension bounds), and zero keys are masked, since
-//   they give s = 0, not -inf. Query tiles run heaviest first (the grid's
-//   y index counts them down), so the last wave is not the longest.
+//   same blocks and the barriers' phases agree. TMA zero-fills a box past S
+//   inside its own head (per-dimension bounds), and zero keys are masked,
+//   since they give s = 0, not -inf. Query tiles run heaviest first (the
+//   grid's y index counts them down), so the last wave is not the longest.
 //
 // HOP = true is one ring-attention hop (the JAX _block_update of
 // core/ring_attention.py from the zero state): the batch is R ranks x
@@ -74,13 +85,12 @@ namespace fa {
 
 // Keys a stage and ring stages at head_dim D. At D = 64 a block of 128 keys
 // keeps S (64 of a thread's f32) beside O (32) and P (32); at D = 128 O
-// takes 64, and a 128-key S spilled under the 168 registers ptxas gives a
-// thread of this block (the overlap below keeps S, P and O live at once),
-// so blocks are 64 keys, in 3 stages.
+// takes 64, and with a 128-key S ptxas spilled and serialized the products
+// (the overlap below keeps S, P and O live at once), so blocks are 64 keys.
 template <int D>
 struct Cfg {
   static constexpr int BK = D == 64 ? 128 : 64;
-  static constexpr int STAGES = 4;
+  static constexpr int STAGES = 3;
 };
 
 struct Maps {

@@ -75,7 +75,7 @@ KERNEL_HEAD_DIMS = (64, 128)
 #: S, P and O within a thread's registers), threads a block
 BLOCK_Q = 128
 BLOCK_K = {64: 128, 128: 64}
-STAGES = {64: 4, 128: 4}
+STAGES = {64: 3, 128: 3}
 THREADS = 384
 #: columns of a TMA box: one 128-byte swizzle atom of bf16
 BOX_COLS = 64

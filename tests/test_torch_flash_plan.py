@@ -130,7 +130,7 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
     else:
         q, k = torch.empty(b, hq, s, w), torch.empty(b, hkv, s, w)
     p = FA.flash_plan(q.shape, q.stride(), k.shape, k.stride(), k.stride())
-    bk, stages = {64: (128, 4), 128: (64, 4)}[w]
+    bk, stages = {64: (128, 3), 128: (64, 3)}[w]
     assert (p.block_q, p.block_k, p.stages, p.threads) == (128, bk, stages,
                                                            384)
     assert p.head_dim == w and p.boxes_per_row == w // 64
@@ -155,8 +155,8 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
 
 
 def test_plan_shared_memory_at_both_widths():
-    assert FA.smem_bytes(64) == 16384 + 4 * 32768 + 1024 + 104
-    assert FA.smem_bytes(128) == 32768 + 4 * 32768 + 1024 + 104
+    assert FA.smem_bytes(64) == 16384 + 3 * 32768 + 1024 + 80
+    assert FA.smem_bytes(128) == 32768 + 3 * 32768 + 1024 + 80
     assert all(FA.smem_bytes(w) <= SMEM_PER_BLOCK
                for w in FA.KERNEL_HEAD_DIMS)
 

@@ -427,7 +427,7 @@ def check_kernels(dev) -> dict:
 
     for hd in FA.KERNEL_HEAD_DIMS:      # the built kernel is the plan's
         st = (512 * hd, 256 * hd, hd, 1)
-        p = FA.flash_plan((1, 2, 256, hd), st, (1, 2, 256, hd), st)
+        p = FA.flash_plan((1, 2, 256, hd), st, (1, 2, 256, hd), st, st)
         want = (p.block_q, p.block_k, p.stages, p.threads, p.smem_bytes)
         if FA.kernel_config(hd) != want:
             raise AssertionError(f"flash at head_dim {hd}: the kernel's "

@@ -79,18 +79,18 @@
 #include "hopper_gemm.cuh"
 
 #define FA_BQ 128      // query rows a block: two consumer warpgroups of 64
+#define FA_STAGES 3    // ring stages (see the top)
 #define FA_THREADS 384
 
 namespace fa {
 
-// Keys a stage and ring stages at head_dim D. At D = 64 a block of 128 keys
+// Keys a stage at head_dim D. At D = 64 a block of 128 keys
 // keeps S (64 of a thread's f32) beside O (32) and P (32); at D = 128 O
 // takes 64, and with a 128-key S ptxas spilled and serialized the products
 // (the overlap below keeps S, P and O live at once), so blocks are 64 keys.
 template <int D>
 struct Cfg {
   static constexpr int BK = D == 64 ? 128 : 64;
-  static constexpr int STAGES = 3;
 };
 
 struct Maps {
@@ -301,7 +301,7 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
 // stage); 1 KB of slack for the alignment.
 template <int D>
 struct Smem {
-  static constexpr int BK = Cfg<D>::BK, STAGES = Cfg<D>::STAGES;
+  static constexpr int BK = Cfg<D>::BK, STAGES = FA_STAGES;
   static constexpr int ATOMS = D / 64;  // 64-column boxes a row
   static constexpr int Q_BYTES = FA_BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // K or V of one stage
@@ -316,7 +316,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     flash_kernel(const __grid_constant__ Maps maps, const Args a,
                  const Hop hp, __nv_bfloat16* __restrict__ o) {
   using SM = Smem<D>;
-  constexpr int BK = Cfg<D>::BK, STAGES = Cfg<D>::STAGES;
+  constexpr int BK = Cfg<D>::BK, STAGES = FA_STAGES;
   extern __shared__ uint8_t fa_smem[];
   const uint32_t base = (hg::smem_addr(fa_smem) + 1023) & ~1023u;
   const uint32_t bars = base + SM::Q_BYTES + STAGES * SM::STAGE_BYTES;
@@ -745,7 +745,7 @@ extern "C" int pk_flash_attention_config(int D, int* out) {
   if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
   out[0] = FA_BQ;
   out[1] = D == 64 ? fa::Cfg<64>::BK : fa::Cfg<128>::BK;
-  out[2] = D == 64 ? fa::Cfg<64>::STAGES : fa::Cfg<128>::STAGES;
+  out[2] = FA_STAGES;
   out[3] = FA_THREADS;
   out[4] = D == 64 ? fa::Smem<64>::BYTES : fa::Smem<128>::BYTES;
   return 0;

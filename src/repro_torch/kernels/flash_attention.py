@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -69,13 +70,14 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 #: head_dims the CUDA kernel is instantiated for; others pad up to one
 KERNEL_HEAD_DIMS = (64, 128)
-#: the kernel's tiles (``FA_BQ``, ``Cfg<D>`` and ``FA_THREADS`` of
-#: csrc/flash_attention.cu): query rows a block (two consumer warpgroups of
-#: 64), keys a ring stage and stages by head_dim (at 128, 64-key blocks keep
-#: S, P and O within a thread's registers), threads a block
+#: the kernel's tiles (``FA_BQ``, ``Cfg<D>::BK``, ``FA_STAGES`` and
+#: ``FA_THREADS`` of csrc/flash_attention.cu): query rows a block (two
+#: consumer warpgroups of 64), keys a ring stage by head_dim (at 128,
+#: 64-key blocks keep S, P and O within a thread's registers), ring stages,
+#: threads a block
 BLOCK_Q = 128
 BLOCK_K = {64: 128, 128: 64}
-STAGES = {64: 3, 128: 3}
+STAGES = 3
 THREADS = 384
 #: columns of a TMA box: one 128-byte swizzle atom of bf16
 BOX_COLS = 64
@@ -125,9 +127,8 @@ def smem_bytes(head_dim: int) -> int:
     stages (K and V), 1 KB of slack for the 1024-byte alignment the
     swizzle needs, and the mbarriers (q full; k full, v full, empty a
     stage)."""
-    bk, stages = BLOCK_K[head_dim], STAGES[head_dim]
-    return (BLOCK_Q * head_dim * 2 + stages * 2 * bk * head_dim * 2
-            + 1024 + 8 * (1 + 3 * stages))
+    return (BLOCK_Q * head_dim * 2 + STAGES * 2 * BLOCK_K[head_dim]
+            * head_dim * 2 + 1024 + 8 * (1 + 3 * STAGES))
 
 
 def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,
@@ -154,23 +155,24 @@ def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,
                       box=(BOX_COLS, rows, 1, 1)), (st_b, st_h, st_s))
 
 
+@functools.lru_cache(maxsize=256)
 def flash_plan(q_shape, q_strides, k_shape, k_strides,
-               v_strides=None) -> FlashPlan:
+               v_strides) -> FlashPlan:
     """The launch of q (B, Hq, Sq, D) over k, v (B, Hkv, Skv, D) at element
     strides, D one of ``KERNEL_HEAD_DIMS`` (the wrapper pads others):
     tiles, grid, stages, shared memory and the three tensor maps. Raises
-    ValueError, before any launch, where TMA would refuse a map."""
+    ValueError, before any launch, where TMA would refuse a map. Cached:
+    the paths launch a handful of shapes, each many times."""
     b, hq, sq, d = q_shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel takes head_dim {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
-    v_strides = k_strides if v_strides is None else v_strides
     bk = BLOCK_K[d]
     q_map, qs = _map("q", q_shape, q_strides, BLOCK_Q)
     k_map, ks = _map("k", k_shape, k_strides, bk)
     v_map, vs = _map("v", k_shape, v_strides, bk)
     return FlashPlan(head_dim=d, block_q=BLOCK_Q, block_k=bk,
-                     stages=STAGES[d], threads=THREADS,
+                     stages=STAGES, threads=THREADS,
                      grid=(b * hq, _cdiv(sq, BLOCK_Q)),
                      smem_bytes=smem_bytes(d), boxes_per_row=d // BOX_COLS,
                      q_map=q_map, k_map=k_map, v_map=v_map,
@@ -302,7 +304,8 @@ def _cuda_inputs(q, k, v, window, scale, name):
     if not scale > 0:       # the kernel takes row maxima of the raw scores
         raise ValueError(f"the CUDA {name} takes a positive scale, got "
                          f"{scale}")
-    plan = flash_plan(q.shape, q.stride(), k.shape, k.stride(), v.stride())
+    plan = flash_plan(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                      v.stride())
     return q, k, v, hd, scale, plan
 
 
@@ -327,8 +330,6 @@ def _forward(q, k, v, causal, window, scale):
     out = torch.empty((b, hq, sq, width), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out[..., :hd]
-    if skv == 0:
-        return out.zero_()[..., :hd]
     lib = _build.library()
     err = lib.pk_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -356,8 +357,6 @@ def _hop_forward(q, k, v, ranks, hop, causal, window, scale):
     l_ = torch.empty_like(m)
     if b == 0 or sq == 0:
         return o[..., :hd], m, l_
-    if skv == 0:
-        return o.zero_()[..., :hd], m.fill_(NEG_INF), l_.zero_()
     lib = _build.library()
     err = lib.pk_flash_attention_hop_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),

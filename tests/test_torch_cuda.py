@@ -687,8 +687,8 @@ def test_flash_attention_plan_matches_the_built_kernel(cuda):
     """The plan's tiles, threads and shared memory are the kernel's own."""
     from repro_torch.kernels import flash_attention as FA
     for hd in FA.KERNEL_HEAD_DIMS:
-        p = FA.flash_plan((1, 2, 256, hd), (512 * hd, 256 * hd, hd, 1),
-                          (1, 2, 256, hd), (512 * hd, 256 * hd, hd, 1))
+        st = (512 * hd, 256 * hd, hd, 1)
+        p = FA.flash_plan((1, 2, 256, hd), st, (1, 2, 256, hd), st, st)
         assert FA.kernel_config(hd) == (p.block_q, p.block_k, p.stages,
                                         p.threads, p.smem_bytes)
 

@@ -167,7 +167,7 @@ def test_plan_normalises_unit_dims():
     replaced by a contiguous one."""
     q = torch.empty(1, 4, 1, 64)
     p = FA.flash_plan((1, 4, 1, 64), (3, 64, 3, 1), (1, 4, 1, 64),
-                      q.stride())
+                      q.stride(), q.stride())
     assert p.q_map.strides == (128, 128, 512)
     assert p.strides[:3] == (256, 64, 64)
 
@@ -192,5 +192,5 @@ def test_plan_refuses_what_tma_refuses(bad, match):
 
 def test_plan_refuses_uninstantiated_widths():
     with pytest.raises(ValueError, match="head_dim"):
-        FA.flash_plan((1, 2, 8, 120), (1920, 960, 120, 1), (1, 2, 8, 120),
-                      (1920, 960, 120, 1))
+        st = (1920, 960, 120, 1)
+        FA.flash_plan((1, 2, 8, 120), st, (1, 2, 8, 120), st, st)

@@ -12,9 +12,9 @@
 // on the pieces of hopper_gemm.cuh (mbarriers, TMA, descriptors, the quad
 // transpose):
 //
-// * A block of three warpgroups computes one 128-row query tile of one
-//   (batch, head): warpgroups 0 and 1 consume, 64 rows each; one thread of
-//   warpgroup 2 produces. setmaxnreg hands the producer's registers to the
+// * A block of three warpgroups computes 128-row query tiles of one
+//   (batch, head) at a time: warpgroups 0 and 1 consume, 64 rows each; one
+//   thread of warpgroup 2 produces. setmaxnreg hands the producer's registers to the
 //   consumers (24 and 240).
 // * Q, K and V are read through 4-D tensor maps over (D, S, H, B) at the
 //   strides the caller passes, so the head-transposed views of prefill
@@ -55,8 +55,13 @@
 //   is wholly masked. Producer and consumers both call it, so they walk the
 //   same blocks and the barriers' phases agree. TMA zero-fills a box past S
 //   inside its own head (per-dimension bounds), and zero keys are masked,
-//   since they give s = 0, not -inf. Query tiles run heaviest first (the
-//   grid's y index counts them down), so the last wave is not the longest.
+//   since they give s = 0, not -inf.
+// * A persistent grid, one block an SM: block i takes tiles i, i + grid,
+//   ..., the heaviest causal query tiles first (tile_of), so the last tiles
+//   are the lightest. The producer loads the next tile's Q (once the
+//   consumers release the last one, a q-empty barrier) and K/V while the
+//   consumers store the current tile, and the ring runs on across tiles;
+//   a block a tile paid its set-up and its stores on every tile.
 //
 // HOP = true is one ring-attention hop (the JAX _block_update of
 // core/ring_attention.py from the zero state): the batch is R ranks x
@@ -107,7 +112,7 @@ struct Hop {
 };
 
 struct Args {
-  int Hq, Hkv, Sq, Skv, causal, window;
+  int B, Hq, Hkv, Sq, Skv, causal, window;
   float scale_log2;  // the softmax scale times log2(e)
 };
 
@@ -140,6 +145,34 @@ __device__ __forceinline__ KvRange kv_range(int q_lo, int q_off, int kv_off,
   return {lo, hi};
 }
 
+// Tile t of a launch: (batch b, head h, query rows q_lo..) at the ranks'
+// global offsets, and its key blocks. The heaviest query tiles (the last,
+// under the causal mask) come first, every head of one before the next,
+// so the last tiles a block takes are the lightest.
+struct Tile {
+  int b, h, bh, q_lo, q_off, kv_off;
+  KvRange kr;
+};
+
+template <int BK, bool HOP>
+__device__ __forceinline__ Tile tile_of(int t, const Args& a, const Hop& hp) {
+  const int bhs = a.B * a.Hq, n_qt = (a.Sq + FA_BQ - 1) / FA_BQ;
+  Tile tl;
+  tl.bh = t % bhs;
+  tl.b = tl.bh / a.Hq;
+  tl.h = tl.bh - tl.b * a.Hq;
+  tl.q_lo = (n_qt - 1 - t / bhs) * FA_BQ;
+  tl.q_off = tl.kv_off = 0;
+  if (HOP) {
+    const int r = tl.b / hp.rank_batch;
+    tl.q_off = r * a.Sq;
+    tl.kv_off =
+        ((r - hp.hop) % hp.n_ranks + hp.n_ranks) % hp.n_ranks * a.Skv;
+  }
+  tl.kr = kv_range<BK>(tl.q_lo, tl.q_off, tl.kv_off, a);
+  return tl;
+}
+
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -148,8 +181,10 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 // s = a @ b for one m64n128k16 step, a and b both K-major (trans-b 0),
 // through 128B-swizzled shared-memory descriptors; scale_d 0 drops s.
-__device__ __forceinline__ void wgmma_ss_m64n128_kmajor(float (&d)[64], uint64_t da,
-                                                    uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_ss_m64n128_kmajor(float (&d)[64],
+                                                        uint64_t da,
+                                                        uint64_t db,
+                                                        int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -206,7 +241,8 @@ __device__ __forceinline__ void wgmma_ss_m64n64_kmajor(float (&d)[32],
 }
 
 // d (+)= a @ b for one m64n64k16 step, a from registers (the bf16x2 A
-// fragment), b MN-major (trans-b 1) through a 128B-swizzled descriptor; scale_d 0 drops d.
+// fragment), b MN-major (trans-b 1) through a 128B-swizzled descriptor;
+// scale_d 0 drops d.
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
                                               const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
@@ -231,7 +267,8 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
 }
 
 // d (+)= a @ b for one m64n128k16 step, a from registers (the bf16x2 A
-// fragment), b MN-major (trans-b 1) through a 128B-swizzled descriptor; scale_d 0 drops d.
+// fragment), b MN-major (trans-b 1) through a 128B-swizzled descriptor;
+// scale_d 0 drops d.
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
@@ -297,8 +334,8 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
 }
 
 // Shared memory from a 1024-byte boundary (the swizzle's): the Q tile, the
-// stages (K, then V), the barriers (q full; k full, v full and empty a
-// stage); 1 KB of slack for the alignment.
+// stages (K, then V), the barriers (q full, q empty; k full, v full and
+// empty a stage); 1 KB of slack for the alignment.
 template <int D>
 struct Smem {
   static constexpr int BK = Cfg<D>::BK, STAGES = FA_STAGES;
@@ -306,7 +343,7 @@ struct Smem {
   static constexpr int Q_BYTES = FA_BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // K or V of one stage
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int BARS = 1 + 3 * STAGES;
+  static constexpr int BARS = 2 + 3 * STAGES;
   static constexpr int BYTES =
       Q_BYTES + STAGES * STAGE_BYTES + 1024 + 8 * BARS;
 };
@@ -320,28 +357,23 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
   extern __shared__ uint8_t fa_smem[];
   const uint32_t base = (hg::smem_addr(fa_smem) + 1023) & ~1023u;
   const uint32_t bars = base + SM::Q_BYTES + STAGES * SM::STAGE_BYTES;
-  const uint32_t q_full = bars;
-  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
-  auto v_full = [&](int s) { return bars + 8 * (1 + STAGES + s); };
-  auto empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
+  const uint32_t q_full = bars, q_empty = bars + 8;
+  auto k_full = [&](int s) { return bars + 8 * (2 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (2 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 + 2 * STAGES + s); };
   auto k_tile = [&](int s) {
     return base + SM::Q_BYTES + s * SM::STAGE_BYTES;
   };
 
-  const int bh = blockIdx.x, b = bh / a.Hq, h = bh - b * a.Hq;
-  const int hk = h / (a.Hq / a.Hkv);  // GQA: the KV head, a map coordinate
-  const int q_lo = (gridDim.y - 1 - blockIdx.y) * FA_BQ;  // heaviest first
-  // global positions of this rank's rows and of the held key block
-  int q_off = 0, kv_off = 0;
-  if (HOP) {
-    const int r = b / hp.rank_batch;
-    q_off = r * a.Sq;
-    kv_off = ((r - hp.hop) % hp.n_ranks + hp.n_ranks) % hp.n_ranks * a.Skv;
-  }
-  const KvRange kr = kv_range<BK>(q_lo, q_off, kv_off, a);
+  // a persistent grid: block i takes tiles i, i + grid, ...; the producer
+  // and the consumers walk the same tiles and, in each, the same blocks,
+  // and count the ring's stages (it) and the Q loads (nq) across tiles
+  const int n_tiles = (a.Sq + FA_BQ - 1) / FA_BQ * a.B * a.Hq;
+  const int kv_group = a.Hq / a.Hkv;  // GQA: the KV head, a map coordinate
 
   if (threadIdx.x == 0) {
     hg::mbar_init(q_full, 1);
+    hg::mbar_init(q_empty, 8);  // the consumers' 8 warps
     for (int s = 0; s < STAGES; ++s) {
       hg::mbar_init(k_full(s), 1);
       hg::mbar_init(v_full(s), 1);
@@ -355,13 +387,20 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     // the producer warpgroup: one thread loads the Q tile once, then K and
     // V of every scheduled block into the ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 256 && kr.lo < kr.hi) {
+    if (threadIdx.x != 256) return;
+    int it = 0, nq = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const Tile tl = tile_of<BK, HOP>(t, a, hp);
+      if (tl.kr.lo >= tl.kr.hi) continue;
+      const int b = tl.b, hk = tl.h / kv_group;
+      // the Q tile once the consumers are done with the last one
+      hg::mbar_wait(q_empty, (nq++ & 1) ^ 1);
       hg::mbar_expect_tx(q_full, SM::Q_BYTES);
 #pragma unroll
       for (int at = 0; at < SM::ATOMS; ++at)
-        hg::tma_load4(base + at * FA_BQ * 128, &maps.q, at * 64, q_lo, h, b,
-                      q_full);
-      for (int kb = kr.lo, it = 0; kb < kr.hi; ++kb, ++it) {
+        hg::tma_load4(base + at * FA_BQ * 128, &maps.q, at * 64, tl.q_lo,
+                      tl.h, b, q_full);
+      for (int kb = tl.kr.lo; kb < tl.kr.hi; ++kb, ++it) {
         const int s = it % STAGES;
         hg::mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
         const uint32_t sk = k_tile(s), sv = sk + SM::KV_BYTES;
@@ -383,261 +422,272 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
     const int lane = threadIdx.x % 32, t4 = lane % 4;
-    const int row_a = q_lo + wg * 64 + warp * 16 + lane / 4;
-    const int row_b = row_a + 8;
-    // m in log2 units (the scale folded in), l and O in f32
-    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-    float oacc[D / 2];
+    const uint32_t qa = base + wg * 64 * 128;  // this warpgroup's Q rows
+    int it = 0, nq = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const Tile tl = tile_of<BK, HOP>(t, a, hp);
+      const KvRange kr = tl.kr;
+      const int bh = tl.bh, q_lo = tl.q_lo, q_off = tl.q_off;
+      const int kv_off = tl.kv_off;
+      const int row_a = q_lo + wg * 64 + warp * 16 + lane / 4;
+      const int row_b = row_a + 8;
+      // m in log2 units (the scale folded in), l and O in f32
+      float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+      float oacc[D / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
 
-    if (kr.lo < kr.hi) {
-      // each row's visible global key columns [lo, hi]: the ragged key
-      // edge, the causal bound, the window (keys > row - window)
-      const int last = kv_off + a.Skv - 1;
-      const int gra = q_off + row_a, grb = q_off + row_b;
-      const int hi_a = a.causal ? min(gra, last) : last;
-      const int hi_b = a.causal ? min(grb, last) : last;
-      const int lo_a = a.window > 0 ? gra - a.window + 1 : INT_MIN;
-      const int lo_b = a.window > 0 ? grb - a.window + 1 : INT_MIN;
-      // the tile's real global rows: a block every one of whose keys each
-      // of them sees needs no element mask (rows past Sq read zero q and
-      // are never stored)
-      const int r0 = q_off + q_lo, r1 = q_off + min(q_lo + FA_BQ, a.Sq) - 1;
-      const uint32_t qa = base + wg * 64 * 128;  // this warpgroup's Q rows
+      if (kr.lo < kr.hi) {
+        // each row's visible global key columns [lo, hi]: the ragged key
+        // edge, the causal bound, the window (keys > row - window)
+        const int last = kv_off + a.Skv - 1;
+        const int gra = q_off + row_a, grb = q_off + row_b;
+        const int hi_a = a.causal ? min(gra, last) : last;
+        const int hi_b = a.causal ? min(grb, last) : last;
+        const int lo_a = a.window > 0 ? gra - a.window + 1 : INT_MIN;
+        const int lo_b = a.window > 0 ? grb - a.window + 1 : INT_MIN;
+        // the tile's real global rows: a block every one of whose keys each
+        // of them sees needs no element mask (rows past Sq read zero q and
+        // are never stored)
+        const int r0 = q_off + q_lo, r1 = q_off + min(q_lo + FA_BQ, a.Sq) - 1;
 
-      // S = Q K^T of the block in stage s: 64 rows x 128 keys, D / 16 k16
-      // steps, issued and committed, not waited for
-      auto issue_s = [&](float(&sacc)[BK / 2], int s) {
-        const uint32_t sk = k_tile(s);
-        hg::wgmma_fence();
+        // S = Q K^T of the block in stage s: 64 rows x 128 keys, D / 16 k16
+        // steps, issued and committed, not waited for
+        auto issue_s = [&](float(&sacc)[BK / 2], int s) {
+          const uint32_t sk = k_tile(s);
+          hg::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_qk<BK>(
-              sacc,
-              hg::desc(qa + (kk / 4) * FA_BQ * 128 + (kk % 4) * 32, 16, 1024),
-              hg::desc(sk + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024),
-              kk > 0 ? 1 : 0);
-        hg::wgmma_commit();
-      };
-      // O += P V of the block in stage s: 128 keys in 8 k16 chunks,
-      // issued and committed (pa and oacc fenced before the S product
-      // ahead of it, so that nothing defines them while wgmma runs)
-      auto issue_pv = [&](uint32_t(&pa)[BK / 16][4], int s) {
-        const uint32_t sv = k_tile(s) + SM::KV_BYTES;
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_qk<BK>(
+                sacc,
+                hg::desc(qa + (kk / 4) * FA_BQ * 128 + (kk % 4) * 32, 16, 1024),
+                hg::desc(sk + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024),
+                kk > 0 ? 1 : 0);
+          hg::wgmma_commit();
+        };
+        // O += P V of the block in stage s: 128 keys in 8 k16 chunks,
+        // issued and committed (pa and oacc fenced before the S product
+        // ahead of it, so that nothing defines them while wgmma runs)
+        auto issue_pv = [&](uint32_t(&pa)[BK / 16][4], int s) {
+          const uint32_t sv = k_tile(s) + SM::KV_BYTES;
 #pragma unroll
-        for (int c = 0; c < BK / 16; ++c)
-          wgmma_pv<D>(oacc, pa[c],
-                      hg::desc(sv + c * 2048, BK * 128, 1024));
-        hg::wgmma_commit();
-      };
-      // the online softmax of block kb's S: the row maxima over the quad
-      // (of raw s: the scale is positive), m and l updated, S replaced by
-      // P = exp2(s * scale_log2 - m); returns O's rescale factors.
-      // Element 4 j + e of S is row a (e < 2) or b, key 8 j + 2 t4 + e % 2.
-      auto softmax = [&](float(&sacc)[BK / 2], int kb) -> float2 {
-        const int k0 = kv_off + kb * BK;
-        const bool full = (kb + 1) * BK <= a.Skv &&
-                          (!a.causal || k0 + BK - 1 <= r0) &&
-                          (a.window <= 0 || k0 >= r1 - a.window + 1);
-        if (!full) {
-          const int col0 = k0 + 2 * t4;
+          for (int c = 0; c < BK / 16; ++c)
+            wgmma_pv<D>(oacc, pa[c],
+                        hg::desc(sv + c * 2048, BK * 128, 1024));
+          hg::wgmma_commit();
+        };
+        // the online softmax of block kb's S: the row maxima over the quad
+        // (of raw s: the scale is positive), m and l updated, S replaced by
+        // P = exp2(s * scale_log2 - m); returns O's rescale factors.
+        // Element 4 j + e of S is row a (e < 2) or b, key 8 j + 2 t4 + e % 2.
+        auto softmax = [&](float(&sacc)[BK / 2], int kb) -> float2 {
+          const int k0 = kv_off + kb * BK;
+          const bool full = (kb + 1) * BK <= a.Skv &&
+                            (!a.causal || k0 + BK - 1 <= r0) &&
+                            (a.window <= 0 || k0 >= r1 - a.window + 1);
+          if (!full) {
+            const int col0 = k0 + 2 * t4;
 #pragma unroll
-          for (int j = 0; j < BK / 8; ++j)
+            for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int col = col0 + 8 * j + (e & 1);
-              const bool keep = e < 2 ? (col >= lo_a) & (col <= hi_a)
-                                      : (col >= lo_b) & (col <= hi_b);
-              if (!keep) sacc[4 * j + e] = -INFINITY;
-            }
-        }
-        float mx_a = -INFINITY, mx_b = -INFINITY;
+              for (int e = 0; e < 4; ++e) {
+                const int col = col0 + 8 * j + (e & 1);
+                const bool keep = e < 2 ? (col >= lo_a) & (col <= hi_a)
+                                        : (col >= lo_b) & (col <= hi_b);
+                if (!keep) sacc[4 * j + e] = -INFINITY;
+              }
+          }
+          float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
-          mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
-        }
+          for (int j = 0; j < BK / 8; ++j) {
+            mx_a = fmaxf(mx_a, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+            mx_b = fmaxf(mx_b, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+          }
 #pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-        }
-        const float mn_a = fmaxf(m_a, mx_a * a.scale_log2);
-        const float mn_b = fmaxf(m_b, mx_b * a.scale_log2);
-        // a row with nothing visible yet keeps m = -inf: exponentiate
-        // against 0
-        const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
-        const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-        const float2 alpha = make_float2(exp2_approx(m_a - base_a),
-                                         exp2_approx(m_b - base_b));
-        float ps_a = 0.f, ps_b = 0.f;
+          for (int off = 1; off <= 2; off <<= 1) {
+            mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+            mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+          }
+          const float mn_a = fmaxf(m_a, mx_a * a.scale_log2);
+          const float mn_b = fmaxf(m_b, mx_b * a.scale_log2);
+          // a row with nothing visible yet keeps m = -inf: exponentiate
+          // against 0
+          const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+          const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+          const float2 alpha = make_float2(exp2_approx(m_a - base_a),
+                                           exp2_approx(m_b - base_b));
+          float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
+          for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sacc[4 * j + e] = exp2_approx(
-                fmaf(sacc[4 * j + e], a.scale_log2, e < 2 ? -base_a : -base_b));
-          ps_a += sacc[4 * j] + sacc[4 * j + 1];
-          ps_b += sacc[4 * j + 2] + sacc[4 * j + 3];
-        }
+            for (int e = 0; e < 4; ++e)
+              sacc[4 * j + e] = exp2_approx(
+                  fmaf(sacc[4 * j + e], a.scale_log2,
+                       e < 2 ? -base_a : -base_b));
+            ps_a += sacc[4 * j] + sacc[4 * j + 1];
+            ps_b += sacc[4 * j + 2] + sacc[4 * j + 3];
+          }
 #pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          ps_a += __shfl_xor_sync(0xffffffffu, ps_a, off);
-          ps_b += __shfl_xor_sync(0xffffffffu, ps_b, off);
-        }
-        l_a = l_a * alpha.x + ps_a;
-        l_b = l_b * alpha.y + ps_b;
-        m_a = mn_a;
-        m_b = mn_b;
-        return alpha;
-      };
-      // P rounded to bf16: n8 tiles 2c and 2c + 1 of S are the A fragment
-      // of key chunk c
-      auto pack = [&](const float(&sacc)[BK / 2],
-                      uint32_t(&pa)[BK / 16][4]) {
+          for (int off = 1; off <= 2; off <<= 1) {
+            ps_a += __shfl_xor_sync(0xffffffffu, ps_a, off);
+            ps_b += __shfl_xor_sync(0xffffffffu, ps_b, off);
+          }
+          l_a = l_a * alpha.x + ps_a;
+          l_b = l_b * alpha.y + ps_b;
+          m_a = mn_a;
+          m_b = mn_b;
+          return alpha;
+        };
+        // P rounded to bf16: n8 tiles 2c and 2c + 1 of S are the A fragment
+        // of key chunk c
+        auto pack = [&](const float(&sacc)[BK / 2],
+                        uint32_t(&pa)[BK / 16][4]) {
 #pragma unroll
-        for (int c = 0; c < BK / 16; ++c)
+          for (int c = 0; c < BK / 16; ++c)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            pa[c][i] = hg::pack_bf16x2(sacc[8 * c + 2 * i],
-                                       sacc[8 * c + 2 * i + 1]);
-      };
-      auto release = [&](int s) {  // the stage's K and V are read
-        __syncwarp();
-        if (lane == 0) hg::mbar_arrive(empty(s));
-      };
-      // Ping-pong (FlashAttention-3's): the two consumer warpgroups take
-      // turns to issue their products — named barrier 1 + wg is this
-      // warpgroup's turn, passed on once its products are issued — so that
-      // one's softmax runs while the other's products hold the tensor
-      // cores. Warpgroup 0 goes first; both take n + 1 turns for n blocks,
-      // and warpgroup 1 does not pass its last.
-      auto turn_wait = [&] {
-        asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
-      };
-      auto turn_pass = [&] {
-        asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
-      };
-      if (wg == 1) turn_pass();
+            for (int i = 0; i < 4; ++i)
+              pa[c][i] = hg::pack_bf16x2(sacc[8 * c + 2 * i],
+                                         sacc[8 * c + 2 * i + 1]);
+        };
+        auto release = [&](int s) {  // the stage's K and V are read
+          __syncwarp();
+          if (lane == 0) hg::mbar_arrive(empty(s));
+        };
+        // Ping-pong (FlashAttention-3's): the two consumer warpgroups take
+        // turns to issue their products — named barrier 1 + wg is this
+        // warpgroup's turn, passed on once its products are issued — so that
+        // one's softmax runs while the other's products hold the tensor
+        // cores. Warpgroup 0 goes first; both take n + 1 turns for n blocks,
+        // and warpgroup 1 does not pass its last.
+        auto turn_wait = [&] {
+          asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+        };
+        auto turn_pass = [&] {
+          asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
+        };
+        if (wg == 1) turn_pass();
 
-      // Intra-warpgroup overlap (FlashAttention-3's): block kb's S = Q K^T
-      // is issued before the previous block's O += P V, and its softmax
-      // runs while that product is in flight; once it has landed, O is
-      // rescaled and S becomes the next P in the same registers.
-      uint32_t pa[BK / 16][4];
-      {
-        float sacc[BK / 2];
-        hg::mbar_wait(q_full, 0);
-        hg::mbar_wait(k_full(0), 0);
-        turn_wait();
-        issue_s(sacc, 0);
-        turn_pass();
-        hg::wgmma_wait<0>();
-        hg::fence_acc(sacc);
-        softmax(sacc, kr.lo);  // O is still 0: no rescale
-        pack(sacc, pa);
-      }
-      int it = 1;
-      for (int kb = kr.lo + 1; kb < kr.hi; ++kb, ++it) {
-        const int s = it % STAGES, sp = (it - 1) % STAGES;
-        float sacc[BK / 2];
-        fence_frag(pa);  // P and O as the P V product reads them
+        // Intra-warpgroup overlap (FlashAttention-3's): block kb's S = Q K^T
+        // is issued before the previous block's O += P V, and its softmax
+        // runs while that product is in flight; once it has landed, O is
+        // rescaled and S becomes the next P in the same registers.
+        uint32_t pa[BK / 16][4];
+        {
+          float sacc[BK / 2];
+          hg::mbar_wait(q_full, nq & 1);
+          hg::mbar_wait(k_full(it % STAGES), (it / STAGES) & 1);
+          turn_wait();
+          issue_s(sacc, it % STAGES);
+          turn_pass();
+          hg::wgmma_wait<0>();
+          hg::fence_acc(sacc);
+          softmax(sacc, kr.lo);  // O is still 0: no rescale
+          pack(sacc, pa);
+        }
+        ++it;
+        for (int kb = kr.lo + 1; kb < kr.hi; ++kb, ++it) {
+          const int s = it % STAGES, sp = (it - 1) % STAGES;
+          float sacc[BK / 2];
+          fence_frag(pa);  // P and O as the P V product reads them
+          hg::fence_acc(oacc);
+          hg::mbar_wait(k_full(s), (it / STAGES) & 1);
+          hg::mbar_wait(v_full(sp), ((it - 1) / STAGES) & 1);
+          turn_wait();
+          issue_s(sacc, s);
+          issue_pv(pa, sp);
+          turn_pass();
+          hg::wgmma_wait<1>();  // S has landed; P V may still run
+          hg::fence_acc(sacc);
+          const float2 alpha = softmax(sacc, kb);
+          hg::wgmma_wait<0>();  // P V has landed: pa, O and the stage free
+          hg::fence_acc(oacc);
+          fence_frag(pa);
+          release(sp);
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            oacc[4 * j] *= alpha.x;
+            oacc[4 * j + 1] *= alpha.x;
+            oacc[4 * j + 2] *= alpha.y;
+            oacc[4 * j + 3] *= alpha.y;
+          }
+          pack(sacc, pa);
+        }
+        const int sl = (it - 1) % STAGES;
+        fence_frag(pa);
         hg::fence_acc(oacc);
-        hg::mbar_wait(k_full(s), (it / STAGES) & 1);
-        hg::mbar_wait(v_full(sp), ((it - 1) / STAGES) & 1);
+        hg::mbar_wait(v_full(sl), ((it - 1) / STAGES) & 1);
         turn_wait();
-        issue_s(sacc, s);
-        issue_pv(pa, sp);
-        turn_pass();
-        hg::wgmma_wait<1>();  // S has landed; P V may still run
-        hg::fence_acc(sacc);
-        const float2 alpha = softmax(sacc, kb);
-        hg::wgmma_wait<0>();  // P V has landed: pa, O and the stage free
+        hg::wgmma_fence();
+        issue_pv(pa, sl);
+        if (wg == 0) turn_pass();
+        hg::wgmma_wait<0>();
         hg::fence_acc(oacc);
         fence_frag(pa);
-        release(sp);
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          oacc[4 * j] *= alpha.x;
-          oacc[4 * j + 1] *= alpha.x;
-          oacc[4 * j + 2] *= alpha.y;
-          oacc[4 * j + 3] *= alpha.y;
-        }
-        pack(sacc, pa);
+        release(sl);
+        if (lane == 0) hg::mbar_arrive(q_empty);  // the tile's Q is read
+        ++nq;
       }
-      const int sl = (it - 1) % STAGES;
-      fence_frag(pa);
-      hg::fence_acc(oacc);
-      hg::mbar_wait(v_full(sl), ((it - 1) / STAGES) & 1);
-      turn_wait();
-      hg::wgmma_fence();
-      issue_pv(pa, sl);
-      if (wg == 0) turn_pass();
-      hg::wgmma_wait<0>();
-      hg::fence_acc(oacc);
-      fence_frag(pa);
-      release(sl);
-    }
 
-    // the accumulator of n8 tile j: element 4 j + e at row a (e < 2) or b,
-    // column 8 j + 2 t4 + e % 2; the quad transpose gives each lane one
-    // 8-column chunk of a row in order, stored as 16 bytes
-    if (HOP) {  // unnormalized O, row max and row sum, for the merge
-      float* oh = hp.o + ((long)bh * a.Sq) * D;
+      // the accumulator of n8 tile j: element 4 j + e at row a (e < 2) or b,
+      // column 8 j + 2 t4 + e % 2; the quad transpose gives each lane one
+      // 8-column chunk of a row in order, stored as 16 bytes
+      if (HOP) {  // unnormalized O, row max and row sum, for the merge
+        float* oh = hp.o + ((long)bh * a.Sq) * D;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = hh ? row_b : row_a;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = hh ? row_b : row_a;
 #pragma unroll
-        for (int q = 0; q < D / 32; ++q) {
-          unsigned long long mine[4], got[4] = {0, 0, 0, 0};
+          for (int q = 0; q < D / 32; ++q) {
+            unsigned long long mine[4], got[4] = {0, 0, 0, 0};
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            mine[c] = (unsigned long long)__float_as_uint(
-                          oacc[4 * (4 * q + c) + 2 * hh + 1])
-                          << 32 |
-                      __float_as_uint(oacc[4 * (4 * q + c) + 2 * hh]);
-          hg::quad_transpose(mine, got, lane);
-          if (row >= a.Sq) continue;
-          uint4* dst =
-              reinterpret_cast<uint4*>(oh + (long)row * D + 8 * (4 * q + t4));
-          dst[0] = make_uint4((uint32_t)got[0], (uint32_t)(got[0] >> 32),
-                              (uint32_t)got[1], (uint32_t)(got[1] >> 32));
-          dst[1] = make_uint4((uint32_t)got[2], (uint32_t)(got[2] >> 32),
-                              (uint32_t)got[3], (uint32_t)(got[3] >> 32));
+            for (int c = 0; c < 4; ++c)
+              mine[c] = (unsigned long long)__float_as_uint(
+                            oacc[4 * (4 * q + c) + 2 * hh + 1])
+                            << 32 |
+                        __float_as_uint(oacc[4 * (4 * q + c) + 2 * hh]);
+            hg::quad_transpose(mine, got, lane);
+            if (row >= a.Sq) continue;
+            uint4* dst =
+                reinterpret_cast<uint4*>(oh + (long)row * D + 8 * (4 * q + t4));
+            dst[0] = make_uint4((uint32_t)got[0], (uint32_t)(got[0] >> 32),
+                                (uint32_t)got[1], (uint32_t)(got[1] >> 32));
+            dst[1] = make_uint4((uint32_t)got[2], (uint32_t)(got[2] >> 32),
+                                (uint32_t)got[3], (uint32_t)(got[3] >> 32));
+          }
         }
-      }
-      if (t4 == 0) {  // the quad's four lanes hold the same m and l
-        const long rb = (long)bh * a.Sq;
-        const float ln2 = 0.69314718055994531f;  // m back to natural units
-        if (row_a < a.Sq) {
-          hp.m[rb + row_a] = m_a == -INFINITY ? -1e30f : m_a * ln2;
-          hp.l[rb + row_a] = l_a;
+        if (t4 == 0) {  // the quad's four lanes hold the same m and l
+          const long rb = (long)bh * a.Sq;
+          const float ln2 = 0.69314718055994531f;  // m back to natural units
+          if (row_a < a.Sq) {
+            hp.m[rb + row_a] = m_a == -INFINITY ? -1e30f : m_a * ln2;
+            hp.l[rb + row_a] = l_a;
+          }
+          if (row_b < a.Sq) {
+            hp.m[rb + row_b] = m_b == -INFINITY ? -1e30f : m_b * ln2;
+            hp.l[rb + row_b] = l_b;
+          }
         }
-        if (row_b < a.Sq) {
-          hp.m[rb + row_b] = m_b == -INFINITY ? -1e30f : m_b * ln2;
-          hp.l[rb + row_b] = l_b;
-        }
-      }
-    } else {
-      const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
-      const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-      __nv_bfloat16* oh = o + ((long)bh * a.Sq) * D;
+      } else {
+        const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+        const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+        __nv_bfloat16* oh = o + ((long)bh * a.Sq) * D;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = hh ? row_b : row_a;
-        const float inv = hh ? inv_b : inv_a;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = hh ? row_b : row_a;
+          const float inv = hh ? inv_b : inv_a;
 #pragma unroll
-        for (int q = 0; q < D / 32; ++q) {
-          uint32_t mine[4], got[4] = {0, 0, 0, 0};
+          for (int q = 0; q < D / 32; ++q) {
+            uint32_t mine[4], got[4] = {0, 0, 0, 0};
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            mine[c] = hg::pack_bf16x2(oacc[4 * (4 * q + c) + 2 * hh] * inv,
-                                      oacc[4 * (4 * q + c) + 2 * hh + 1] * inv);
-          hg::quad_transpose(mine, got, lane);
-          if (row < a.Sq)
-            *reinterpret_cast<uint4*>(oh + (long)row * D + 8 * (4 * q + t4)) =
-                make_uint4(got[0], got[1], got[2], got[3]);
+            for (int c = 0; c < 4; ++c)
+              mine[c] =
+                  hg::pack_bf16x2(oacc[4 * (4 * q + c) + 2 * hh] * inv,
+                                  oacc[4 * (4 * q + c) + 2 * hh + 1] * inv);
+            hg::quad_transpose(mine, got, lane);
+            if (row < a.Sq)
+              *reinterpret_cast<uint4*>(oh + (long)row * D + 8 * (4 * q + t4)) =
+                  make_uint4(got[0], got[1], got[2], got[3]);
+          }
         }
       }
     }
@@ -675,13 +725,20 @@ int launch(const void* q, const void* k, const void* v, void* o, Hop hp,
   Maps maps;
   if (const int e = encode_maps<D>(maps, q, k, v, B, Hq, Hkv, Sq, Skv, st))
     return e;
-  const Args a{Hq, Hkv, Sq, Skv, causal, window,
+  const Args a{B, Hq, Hkv, Sq, Skv, causal, window,
                scale * 1.4426950408889634f};
   auto kern = flash_kernel<D, HOP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * Hq, (Sq + FA_BQ - 1) / FA_BQ);
+  // the persistent grid: one block an SM, or one a tile where fewer
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  const long long tiles = (long long)((Sq + FA_BQ - 1) / FA_BQ) * B * Hq;
+  const int grid = (int)(tiles < sms ? tiles : sms);
   kern<<<grid, FA_THREADS, Smem<D>::BYTES, stream>>>(
       maps, a, hp, static_cast<__nv_bfloat16*>(o));
   return (int)cudaGetLastError();

@@ -83,6 +83,8 @@ THREADS = 384
 BOX_COLS = 64
 #: TMA's bound on a tensor map's strides, in bytes
 TMA_STRIDE_LIMIT = 2 ** 40
+#: an H100 SXM's SMs: the plan's persistent grid on the card it is for
+H100_SMS = 132
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -106,7 +108,8 @@ class FlashPlan:
     block_k: int
     stages: int
     threads: int
-    grid: tuple[int, int]       # (B·Hq, query tiles)
+    tiles: int                  # (query tile, b, head) tiles: ⌈Sq/128⌉·B·Hq
+    grid: int                   # persistent blocks: one an SM, at most
     smem_bytes: int             # dynamic shared memory a block
     boxes_per_row: int          # 64-column boxes a tile row: D / 64
     q_map: TensorMap
@@ -116,19 +119,21 @@ class FlashPlan:
     # size-1 dimension's replaced by a valid one (its coordinate is 0)
     strides: tuple[int, ...]
 
-    def q_tile(self, y: int) -> int:
-        """The query tile that grid row y computes: the heaviest causal
-        tiles (the last) run first, so the last wave is not the longest."""
-        return self.grid[1] - 1 - y
+    def tile(self, t: int) -> tuple[int, int]:
+        """(b·Hq + head, query tile) of tile t — ``tile_of`` in the .cu.
+        Block i takes tiles i, i + grid, ...; the heaviest causal query
+        tiles (the last) come first, every head of one before the next."""
+        bhs = self.q_map.dims[2] * self.q_map.dims[3]
+        return t % bhs, self.tiles // bhs - 1 - t // bhs
 
 
 def smem_bytes(head_dim: int) -> int:
     """The kernel's dynamic shared memory at ``head_dim``: the Q tile, the
     stages (K and V), 1 KB of slack for the 1024-byte alignment the
-    swizzle needs, and the mbarriers (q full; k full, v full, empty a
-    stage)."""
+    swizzle needs, and the mbarriers (q full, q empty; k full, v full,
+    empty a stage)."""
     return (BLOCK_Q * head_dim * 2 + STAGES * 2 * BLOCK_K[head_dim]
-            * head_dim * 2 + 1024 + 8 * (1 + 3 * STAGES))
+            * head_dim * 2 + 1024 + 8 * (2 + 3 * STAGES))
 
 
 def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,
@@ -156,11 +161,13 @@ def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,
 
 
 @functools.lru_cache(maxsize=256)
-def flash_plan(q_shape, q_strides, k_shape, k_strides,
-               v_strides) -> FlashPlan:
+def flash_plan(q_shape, q_strides, k_shape, k_strides, v_strides, *,
+               sms: int = H100_SMS) -> FlashPlan:
     """The launch of q (B, Hq, Sq, D) over k, v (B, Hkv, Skv, D) at element
     strides, D one of ``KERNEL_HEAD_DIMS`` (the wrapper pads others):
-    tiles, grid, stages, shared memory and the three tensor maps. Raises
+    tiles, the persistent grid on a card of ``sms`` SMs (the kernel sizes
+    it from the card it runs on), stages, shared memory and the three
+    tensor maps. Raises
     ValueError, before any launch, where TMA would refuse a map. Cached:
     the paths launch a handful of shapes, each many times."""
     b, hq, sq, d = q_shape
@@ -171,9 +178,10 @@ def flash_plan(q_shape, q_strides, k_shape, k_strides,
     q_map, qs = _map("q", q_shape, q_strides, BLOCK_Q)
     k_map, ks = _map("k", k_shape, k_strides, bk)
     v_map, vs = _map("v", k_shape, v_strides, bk)
+    tiles = _cdiv(sq, BLOCK_Q) * b * hq
     return FlashPlan(head_dim=d, block_q=BLOCK_Q, block_k=bk,
-                     stages=STAGES, threads=THREADS,
-                     grid=(b * hq, _cdiv(sq, BLOCK_Q)),
+                     stages=STAGES, threads=THREADS, tiles=tiles,
+                     grid=min(tiles, sms),
                      smem_bytes=smem_bytes(d), boxes_per_row=d // BOX_COLS,
                      q_map=q_map, k_map=k_map, v_map=v_map,
                      strides=qs + ks + vs)

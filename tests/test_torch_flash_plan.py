@@ -119,9 +119,10 @@ def test_hop_schedule_at_global_offsets(r, b, hq, hkv, s, hd, causal, window):
 @pytest.mark.parametrize("strided", [False, True])
 def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
                                   strided):
-    """The plan of the padded width: tiles, grid (B·Hq, query tiles run
-    heaviest first), shared memory within a block's limit, three 4-D maps
-    over (D, S, H, B) with 64-column boxes, the strides of prefill's
+    """The plan of the padded width: tiles, a persistent grid of one block
+    an SM at most, every (head, query tile) once with the heaviest query
+    tiles first, shared memory within a block's limit, three 4-D maps over
+    (D, S, H, B) with 64-column boxes, the strides of prefill's
     head-transposed views taken as they are."""
     w = _width(hd)
     if strided:           # (B, S, H, D) projections viewed as (B, H, S, D)
@@ -134,12 +135,16 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
     assert (p.block_q, p.block_k, p.stages, p.threads) == (128, bk, stages,
                                                            384)
     assert p.head_dim == w and p.boxes_per_row == w // 64
-    assert p.grid == (b * hq, -(-s // 128))
-    assert [p.q_tile(y) for y in range(p.grid[1])] == \
-        list(range(p.grid[1]))[::-1]
+    n_qt = -(-s // 128)
+    assert p.tiles == n_qt * b * hq and p.grid == min(p.tiles, 132)
+    order = [p.tile(t) for t in range(p.tiles)]
+    assert sorted(order) == [(bh, qt) for bh in range(b * hq)
+                             for qt in range(n_qt)]
+    assert [qt for _, qt in order] == sorted((qt for _, qt in order),
+                                             reverse=True)
     assert p.smem_bytes <= SMEM_PER_BLOCK
     assert p.smem_bytes == (128 * w * 2 + stages * 2 * bk * w * 2 + 1024
-                            + 8 * (1 + 3 * stages))
+                            + 8 * (2 + 3 * stages))
     for m, (h, rows), t in ((p.q_map, (hq, 128), q), (p.k_map, (hkv, bk), k),
                             (p.v_map, (hkv, bk), k)):
         assert m.dims == (w, s, h, b)
@@ -155,8 +160,8 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
 
 
 def test_plan_shared_memory_at_both_widths():
-    assert FA.smem_bytes(64) == 16384 + 3 * 32768 + 1024 + 80
-    assert FA.smem_bytes(128) == 32768 + 3 * 32768 + 1024 + 80
+    assert FA.smem_bytes(64) == 16384 + 3 * 32768 + 1024 + 88
+    assert FA.smem_bytes(128) == 32768 + 3 * 32768 + 1024 + 88
     assert all(FA.smem_bytes(w) <= SMEM_PER_BLOCK
                for w in FA.KERNEL_HEAD_DIMS)
 

@@ -56,9 +56,13 @@
 //   same blocks and the barriers' phases agree. TMA zero-fills a box past S
 //   inside its own head (per-dimension bounds), and zero keys are masked,
 //   since they give s = 0, not -inf.
-// * A persistent grid, one block an SM: block i takes tiles i, i + grid,
-//   ..., the heaviest causal query tiles first (tile_of), so the last tiles
-//   are the lightest. The producer loads the next tile's Q (once the
+// * A persistent grid, one block an SM. The producer takes tiles from a
+//   launch-wide counter as it needs them (an atomic; tile_of orders them
+//   heaviest causal query tile first) and hands each to the consumers
+//   through one of two tile slots, so the blocks stay balanced whatever a
+//   tile costs: at a hop, whole ranks see nothing, and a fixed assignment
+//   of tiles to blocks (i, i + grid, ...) left some blocks twice the
+//   others' work. The producer loads the next tile's Q (once the
 //   consumers release the last one, a q-empty barrier) and K/V while the
 //   consumers store the current tile, and the ring runs on across tiles;
 //   a block a tile paid its set-up and its stores on every tile.
@@ -144,6 +148,15 @@ __device__ __forceinline__ KvRange kv_range(int q_lo, int q_off, int kv_off,
   }
   return {lo, hi};
 }
+
+// The launch's tile counter (next: the next tile to take; done: blocks
+// that have taken their last), one an instantiation, zero at load and
+// reset by the last block of each launch. Launches of one instantiation
+// must not overlap: the wrappers launch on one stream.
+struct Sched {
+  unsigned int next, done;
+};
+__device__ Sched fa_sched[4];
 
 // Tile t of a launch: (batch b, head h, query rows q_lo..) at the ranks'
 // global offsets, and its key blocks. The heaviest query tiles (the last,
@@ -334,8 +347,9 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
 }
 
 // Shared memory from a 1024-byte boundary (the swizzle's): the Q tile, the
-// stages (K, then V), the barriers (q full, q empty; k full, v full and
-// empty a stage); 1 KB of slack for the alignment.
+// stages (K, then V), the barriers (q full, q empty, tile full and empty
+// of 2 tile slots; k full, v full and empty a stage), the 2 tile slots;
+// 1 KB of slack for the alignment.
 template <int D>
 struct Smem {
   static constexpr int BK = Cfg<D>::BK, STAGES = FA_STAGES;
@@ -343,9 +357,9 @@ struct Smem {
   static constexpr int Q_BYTES = FA_BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // K or V of one stage
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
-  static constexpr int BARS = 2 + 3 * STAGES;
+  static constexpr int BARS = 6 + 3 * STAGES;
   static constexpr int BYTES =
-      Q_BYTES + STAGES * STAGE_BYTES + 1024 + 8 * BARS;
+      Q_BYTES + STAGES * STAGE_BYTES + 1024 + 8 * BARS + 8;
 };
 
 template <int D, bool HOP>
@@ -358,22 +372,33 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
   const uint32_t base = (hg::smem_addr(fa_smem) + 1023) & ~1023u;
   const uint32_t bars = base + SM::Q_BYTES + STAGES * SM::STAGE_BYTES;
   const uint32_t q_full = bars, q_empty = bars + 8;
-  auto k_full = [&](int s) { return bars + 8 * (2 + s); };
-  auto v_full = [&](int s) { return bars + 8 * (2 + STAGES + s); };
-  auto empty = [&](int s) { return bars + 8 * (2 + 2 * STAGES + s); };
+  auto t_full = [&](int j) { return bars + 8 * (2 + j); };
+  auto t_empty = [&](int j) { return bars + 8 * (4 + j); };
+  auto k_full = [&](int s) { return bars + 8 * (6 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (6 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (6 + 2 * STAGES + s); };
+  // the tile slots: the producer hands each tile it takes to the consumers
+  volatile int* slot = reinterpret_cast<volatile int*>(
+      fa_smem + (bars + 8 * SM::BARS - hg::smem_addr(fa_smem)));
   auto k_tile = [&](int s) {
     return base + SM::Q_BYTES + s * SM::STAGE_BYTES;
   };
 
-  // a persistent grid: block i takes tiles i, i + grid, ...; the producer
-  // and the consumers walk the same tiles and, in each, the same blocks,
-  // and count the ring's stages (it) and the Q loads (nq) across tiles
+  // a persistent grid: the producer takes the next tile from the launch's
+  // counter and hands it to the consumers through a tile slot; both walk
+  // the same tiles and, in each, the same blocks, and count the ring's
+  // stages (it), the Q loads (nq) and the tiles (j) across tiles
   const int n_tiles = (a.Sq + FA_BQ - 1) / FA_BQ * a.B * a.Hq;
+  Sched* sched = &fa_sched[(D == 128) * 2 + HOP];
   const int kv_group = a.Hq / a.Hkv;  // GQA: the KV head, a map coordinate
 
   if (threadIdx.x == 0) {
     hg::mbar_init(q_full, 1);
     hg::mbar_init(q_empty, 8);  // the consumers' 8 warps
+    for (int j = 0; j < 2; ++j) {
+      hg::mbar_init(t_full(j), 1);
+      hg::mbar_init(t_empty(j), 8);
+    }
     for (int s = 0; s < STAGES; ++s) {
       hg::mbar_init(k_full(s), 1);
       hg::mbar_init(v_full(s), 1);
@@ -389,7 +414,12 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x != 256) return;
     int it = 0, nq = 0;
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    for (int j = 0;; ++j) {
+      const int t = (int)atomicAdd(&sched->next, 1u);
+      hg::mbar_wait(t_empty(j & 1), ((j >> 1) & 1) ^ 1);
+      slot[j & 1] = t;
+      hg::mbar_arrive(t_full(j & 1));  // releases the slot's write
+      if (t >= n_tiles) break;
       const Tile tl = tile_of<BK, HOP>(t, a, hp);
       if (tl.kr.lo >= tl.kr.hi) continue;
       const int b = tl.b, hk = tl.h / kv_group;
@@ -416,6 +446,13 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
                         hk, b, v_full(s));
       }
     }
+    // the last block to take its final ticket resets the counter for the
+    // next launch
+    if (atomicAdd(&sched->done, 1u) == gridDim.x - 1) {
+      sched->next = 0;
+      sched->done = 0;
+      __threadfence();
+    }
   } else {
     // the consumer warpgroups: warpgroup wg owns rows 64 wg.. of the tile;
     // each thread rows a = .. + lane / 4 and b = a + 8 of its warp's 16
@@ -424,7 +461,12 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     const int lane = threadIdx.x % 32, t4 = lane % 4;
     const uint32_t qa = base + wg * 64 * 128;  // this warpgroup's Q rows
     int it = 0, nq = 0;
-    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    for (int j = 0;; ++j) {
+      hg::mbar_wait(t_full(j & 1), (j >> 1) & 1);
+      const int t = slot[j & 1];
+      __syncwarp();
+      if (lane == 0) hg::mbar_arrive(t_empty(j & 1));
+      if (t >= n_tiles) break;
       const Tile tl = tile_of<BK, HOP>(t, a, hp);
       const KvRange kr = tl.kr;
       const int bh = tl.bh, q_lo = tl.q_lo, q_off = tl.q_off;

@@ -109,7 +109,7 @@ class FlashPlan:
     stages: int
     threads: int
     tiles: int                  # (query tile, b, head) tiles: ⌈Sq/128⌉·B·Hq
-    grid: int                   # persistent blocks: one an SM, at most
+    grid: int                   # persistent blocks: one an SM at most
     smem_bytes: int             # dynamic shared memory a block
     boxes_per_row: int          # 64-column boxes a tile row: D / 64
     q_map: TensorMap
@@ -121,8 +121,9 @@ class FlashPlan:
 
     def tile(self, t: int) -> tuple[int, int]:
         """(b·Hq + head, query tile) of tile t — ``tile_of`` in the .cu.
-        Block i takes tiles i, i + grid, ...; the heaviest causal query
-        tiles (the last) come first, every head of one before the next."""
+        Blocks take tiles in this order from a launch-wide counter; the
+        heaviest causal query tiles (the last) come first, every head of
+        one before the next."""
         bhs = self.q_map.dims[2] * self.q_map.dims[3]
         return t % bhs, self.tiles // bhs - 1 - t // bhs
 
@@ -130,10 +131,10 @@ class FlashPlan:
 def smem_bytes(head_dim: int) -> int:
     """The kernel's dynamic shared memory at ``head_dim``: the Q tile, the
     stages (K and V), 1 KB of slack for the 1024-byte alignment the
-    swizzle needs, and the mbarriers (q full, q empty; k full, v full,
-    empty a stage)."""
+    swizzle needs, the mbarriers (q full, q empty, tile full and empty of
+    two tile slots; k full, v full, empty a stage) and the tile slots."""
     return (BLOCK_Q * head_dim * 2 + STAGES * 2 * BLOCK_K[head_dim]
-            * head_dim * 2 + 1024 + 8 * (2 + 3 * STAGES))
+            * head_dim * 2 + 1024 + 8 * (6 + 3 * STAGES) + 8)
 
 
 def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,

@@ -144,7 +144,7 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
                                              reverse=True)
     assert p.smem_bytes <= SMEM_PER_BLOCK
     assert p.smem_bytes == (128 * w * 2 + stages * 2 * bk * w * 2 + 1024
-                            + 8 * (2 + 3 * stages))
+                            + 8 * (6 + 3 * stages) + 8)
     for m, (h, rows), t in ((p.q_map, (hq, 128), q), (p.k_map, (hkv, bk), k),
                             (p.v_map, (hkv, bk), k)):
         assert m.dims == (w, s, h, b)
@@ -160,8 +160,8 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
 
 
 def test_plan_shared_memory_at_both_widths():
-    assert FA.smem_bytes(64) == 16384 + 3 * 32768 + 1024 + 88
-    assert FA.smem_bytes(128) == 32768 + 3 * 32768 + 1024 + 88
+    assert FA.smem_bytes(64) == 16384 + 3 * 32768 + 1024 + 128
+    assert FA.smem_bytes(128) == 32768 + 3 * 32768 + 1024 + 128
     assert all(FA.smem_bytes(w) <= SMEM_PER_BLOCK
                for w in FA.KERNEL_HEAD_DIMS)
 

@@ -409,8 +409,8 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // the producer warpgroup: one thread loads the Q tile once, then K and
-    // V of every scheduled block into the ring
+    // the producer warpgroup: one thread takes the tiles; of each, it loads
+    // the Q tile once, then K and V of every scheduled block into the ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x != 256) return;
     int it = 0, nq = 0;

@@ -10,8 +10,9 @@ bounds it on the card: the tensor cores — 4·Sq·Skv·hd operations a head
 where every key is visible, about half under the causal mask — with the
 softmax's exponentials beside them; at the prefill shapes (S = 512) also
 the bytes of q, k, v and o. The kernel is FlashAttention-3's forward on
-the pieces of ``csrc/hopper_gemm.cuh``: one CTA of three warpgroups a
-(128-query tile, b·Hq), two consumer warpgroups of 64 rows each and one
+the pieces of ``csrc/hopper_gemm.cuh``: a persistent grid of CTAs of
+three warpgroups, each taking (128-query tile, b·Hq) tiles from a
+launch-wide counter, two consumer warpgroups of 64 rows each and one
 producer thread; TMA reads q, k and v through 4-D tensor maps over (D, S,
 H, B) at the caller's strides (so the head-transposed views of prefill
 need no copy and GQA reads KV head ``h // (Hq/Hkv)`` in place), K and V

@@ -43,10 +43,11 @@ SIGNATURES = {
                        ctypes.POINTER(ctypes.c_uint64), _I, _I, _I, _I, _I,
                        _P],
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, q strides (b, h, s),
-    # k strides, v strides, causal, window, scale, stream
+    # k strides, v strides, causal, window, scale, grid (the plan's), the
+    # stream's tile counter, stream
     "pk_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                _I, _I, ctypes.c_float, _P],
+                                _I, _I, ctypes.c_float, _I, _P, _P],
     # x ptrs, w ptrs, landing ptrs, out ptrs (host tables of R addresses),
     # flags, flag count (ints), R, M, N, K, cfg, grid (the plan's), stream
     "pk_matmul_ar_bf16": [ctypes.POINTER(ctypes.c_uint64)] * 4
@@ -78,6 +79,7 @@ SIGNATURES = {
     # the mma.sync kernel flash and its hop ran on before the TMA + wgmma
     # design, a timing yardstick (csrc/flash_mma_yardstick.cu): the
     # arguments of pk_flash_attention_bf16 and pk_flash_attention_hop_bf16
+    # without grid and tile counter
     "pk_mm_tile_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _I, _L, _L, _L, _L, _L, _L, _L, _L,
                                         _L, _I, _I, ctypes.c_float, _P],
@@ -101,9 +103,10 @@ SIGNATURES = {
     "pk_p2p_ring_shift": [ctypes.POINTER(ctypes.c_uint64)] * 2
                          + [_P, _I, _L, _P],
     # q, k, v, o, m, l, B, Hq, Hkv, Sq, Skv, D, q/k/v strides (b, h, s),
-    # n_ranks, hop, causal, window, scale, stream
+    # n_ranks, hop, causal, window, scale, grid (the plan's), the stream's
+    # tile counter, stream
     "pk_flash_attention_hop_bf16": [_P] * 6 + [_I] * 6 + [_L] * 9
-                                   + [_I] * 4 + [ctypes.c_float, _P],
+                                   + [_I] * 4 + [ctypes.c_float, _I, _P, _P],
     # dt, x, b, c, a, h0, y, h_out, B, S, D, N, chunk, x/b/c bf16 flag,
     # dt, x, b, c strides (batch, step), dl, h0 strides (rank, batch),
     # h_out strides (rank, batch), stream

@@ -14,8 +14,8 @@
 //
 // * A block of three warpgroups computes 128-row query tiles of one
 //   (batch, head) at a time: warpgroups 0 and 1 consume, 64 rows each; one
-//   thread of warpgroup 2 produces. setmaxnreg hands the producer's registers to the
-//   consumers (24 and 240).
+//   thread of warpgroup 2 produces. setmaxnreg hands the producer's
+//   registers to the consumers (24 and 240).
 // * Q, K and V are read through 4-D tensor maps over (D, S, H, B) at the
 //   strides the caller passes, so the head-transposed views of prefill
 //   need no copy, and the KV head h / (Hq / Hkv) is a map coordinate, so
@@ -56,16 +56,17 @@
 //   same blocks and the barriers' phases agree. TMA zero-fills a box past S
 //   inside its own head (per-dimension bounds), and zero keys are masked,
 //   since they give s = 0, not -inf.
-// * A persistent grid, one block an SM. The producer takes tiles from a
-//   launch-wide counter as it needs them (an atomic; tile_of orders them
-//   heaviest causal query tile first) and hands each to the consumers
-//   through one of two tile slots, so the blocks stay balanced whatever a
-//   tile costs: at a hop, whole ranks see nothing, and a fixed assignment
-//   of tiles to blocks (i, i + grid, ...) left some blocks twice the
-//   others' work. The producer loads the next tile's Q (once the
-//   consumers release the last one, a q-empty barrier) and K/V while the
-//   consumers store the current tile, and the ring runs on across tiles;
-//   a block a tile paid its set-up and its stores on every tile.
+// * A persistent grid, one block an SM (the wrapper's plan sizes it). The
+//   producer takes tiles from the launch's own counter as it needs them
+//   (an atomic; tile_of orders them heaviest causal query tile first) and
+//   hands each to the consumers through one of two tile slots, so the
+//   blocks stay balanced whatever a tile costs: at a hop, whole ranks see
+//   nothing, and a fixed assignment of tiles to blocks (i, i + grid, ...)
+//   left some blocks twice the others' work. The producer loads the next
+//   tile's Q (once the consumers release the last one, a q-empty barrier)
+//   and K/V while the consumers store the current tile, and the ring runs
+//   on across tiles; a block a tile paid its set-up and its stores on every
+//   tile.
 //
 // HOP = true is one ring-attention hop (the JAX _block_update of
 // core/ring_attention.py from the zero state): the batch is R ranks x
@@ -150,13 +151,12 @@ __device__ __forceinline__ KvRange kv_range(int q_lo, int q_off, int kv_off,
 }
 
 // The launch's tile counter (next: the next tile to take; done: blocks
-// that have taken their last), one an instantiation, zero at load and
-// reset by the last block of each launch. Launches of one instantiation
-// must not overlap: the wrappers launch on one stream.
+// that have taken their last): zero before the launch and reset by its last
+// block. The caller passes a counter of its own to each stream, so launches
+// on one stream reuse it in turn and launches on two never share one.
 struct Sched {
   unsigned int next, done;
 };
-__device__ Sched fa_sched[4];
 
 // Tile t of a launch: (batch b, head h, query rows q_lo..) at the ranks'
 // global offsets, and its key blocks. The heaviest query tiles (the last,
@@ -365,7 +365,8 @@ struct Smem {
 template <int D, bool HOP>
 __global__ void __launch_bounds__(FA_THREADS, 1)
     flash_kernel(const __grid_constant__ Maps maps, const Args a,
-                 const Hop hp, __nv_bfloat16* __restrict__ o) {
+                 const Hop hp, Sched* __restrict__ sched,
+                 __nv_bfloat16* __restrict__ o) {
   using SM = Smem<D>;
   constexpr int BK = Cfg<D>::BK, STAGES = FA_STAGES;
   extern __shared__ uint8_t fa_smem[];
@@ -389,7 +390,6 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
   // the same tiles and, in each, the same blocks, and count the ring's
   // stages (it), the Q loads (nq) and the tiles (j) across tiles
   const int n_tiles = (a.Sq + FA_BQ - 1) / FA_BQ * a.B * a.Hq;
-  Sched* sched = &fa_sched[(D == 128) * 2 + HOP];
   const int kv_group = a.Hq / a.Hkv;  // GQA: the KV head, a map coordinate
 
   if (threadIdx.x == 0) {
@@ -447,7 +447,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
       }
     }
     // the last block to take its final ticket resets the counter for the
-    // next launch
+    // stream's next launch
     if (atomicAdd(&sched->done, 1u) == gridDim.x - 1) {
       sched->next = 0;
       sched->done = 0;
@@ -763,7 +763,8 @@ int encode_maps(Maps& m, const void* q, const void* k, const void* v, int B,
 template <int D, bool HOP>
 int launch(const void* q, const void* k, const void* v, void* o, Hop hp,
            int B, int Hq, int Hkv, int Sq, int Skv, const long long* st,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int causal, int window, float scale, int grid, void* sched,
+           cudaStream_t stream) {
   Maps maps;
   if (const int e = encode_maps<D>(maps, q, k, v, B, Hq, Hkv, Sq, Skv, st))
     return e;
@@ -773,16 +774,9 @@ int launch(const void* q, const void* k, const void* v, void* o, Hop hp,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
   if (err != cudaSuccess) return (int)err;
-  // the persistent grid: one block an SM, or one a tile where fewer
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  const long long tiles = (long long)((Sq + FA_BQ - 1) / FA_BQ) * B * Hq;
-  const int grid = (int)(tiles < sms ? tiles : sms);
   kern<<<grid, FA_THREADS, Smem<D>::BYTES, stream>>>(
-      maps, a, hp, static_cast<__nv_bfloat16*>(o));
+      maps, a, hp, static_cast<Sched*>(sched),
+      static_cast<__nv_bfloat16*>(o));
   return (int)cudaGetLastError();
 }
 
@@ -790,33 +784,36 @@ template <bool HOP>
 int dispatch(const void* q, const void* k, const void* v, void* o, Hop hp,
              int B, int Hq, int Hkv, int Sq, int Skv, int D,
              const long long* st, int causal, int window, float scale,
-             void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0)
+             int grid, void* sched, void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || grid < 1 ||
+      sched == nullptr)
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch<64, HOP>(q, k, v, o, hp, B, Hq, Hkv, Sq, Skv, st, causal,
-                           window, scale, s);
+                           window, scale, grid, sched, s);
   if (D == 128)
     return launch<128, HOP>(q, k, v, o, hp, B, Hq, Hkv, Sq, Skv, st, causal,
-                            window, scale, s);
+                            window, scale, grid, sched, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace fa
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D) bf16 at strides in elements
-// (b, h, s; unit along D); o (B, Hq, Sq, D) bf16, contiguous.
+// (b, h, s; unit along D); o (B, Hq, Sq, D) bf16, contiguous; grid the
+// persistent blocks (the plan's); sched the stream's tile counter, two
+// unsigned ints, zero between launches.
 extern "C" int pk_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long sqb, long long sqh,
     long long sqs, long long skb, long long skh, long long sks,
     long long svb, long long svh, long long svs, int causal, int window,
-    float scale, void* stream) {
+    float scale, int grid, void* sched, void* stream) {
   const long long st[9] = {sqb, sqh, sqs, skb, skh, sks, svb, svh, svs};
   const fa::Hop none{nullptr, nullptr, nullptr, 1, 1, 0};
   return fa::dispatch<false>(q, k, v, o, none, B, Hq, Hkv, Sq, Skv, D, st,
-                             causal, window, scale, stream);
+                             causal, window, scale, grid, sched, stream);
 }
 
 // One ring-attention hop over B = n_ranks x rank_batch rows (see the top):
@@ -826,14 +823,14 @@ extern "C" int pk_flash_attention_hop_bf16(
     int B, int Hq, int Hkv, int Sq, int Skv, int D, long long sqb,
     long long sqh, long long sqs, long long skb, long long skh,
     long long sks, long long svb, long long svh, long long svs,
-    int n_ranks, int hop, int causal, int window, float scale,
-    void* stream) {
+    int n_ranks, int hop, int causal, int window, float scale, int grid,
+    void* sched, void* stream) {
   if (n_ranks < 1 || B % n_ranks != 0) return (int)cudaErrorInvalidValue;
   const long long st[9] = {sqb, sqh, sqs, skb, skh, sks, svb, svh, svs};
   const fa::Hop hp{(float*)o, (float*)m, (float*)l, B / n_ranks, n_ranks,
                    hop};
   return fa::dispatch<true>(q, k, v, nullptr, hp, B, Hq, Hkv, Sq, Skv, D, st,
-                            causal, window, scale, stream);
+                            causal, window, scale, grid, sched, stream);
 }
 
 // The launch configuration of head_dim D, as kernels/flash_attention.py::

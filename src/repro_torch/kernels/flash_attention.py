@@ -11,20 +11,22 @@ where every key is visible, about half under the causal mask — with the
 softmax's exponentials beside them; at the prefill shapes (S = 512) also
 the bytes of q, k, v and o. The kernel is FlashAttention-3's forward on
 the pieces of ``csrc/hopper_gemm.cuh``: a persistent grid of CTAs of
-three warpgroups, each taking (128-query tile, b·Hq) tiles from a
-launch-wide counter, two consumer warpgroups of 64 rows each and one
-producer thread; TMA reads q, k and v through 4-D tensor maps over (D, S,
-H, B) at the caller's strides (so the head-transposed views of prefill
-need no copy and GQA reads KV head ``h // (Hq/Hkv)`` in place), K and V
-blocks of 128 keys (64 at head_dim 128) stream through an mbarrier ring,
-S = QKᵀ is
-``wgmma`` from shared memory (K-major K), O += PV is ``wgmma`` with P from
-registers (rounded to bf16 as the Pallas kernel rounds it to v's dtype),
-and m, l and O stay in f32 registers. Key blocks are skipped by the
+three warpgroups, each taking (128-query tile, b·Hq) tiles from the
+launch's counter (one a stream, :func:`_tile_counter`), two consumer
+warpgroups of 64 rows each and one producer thread; TMA reads q, k and v
+through 4-D tensor maps over (D, S, H, B) at the caller's strides (so the
+head-transposed views of prefill need no copy and GQA reads KV head
+``h // (Hq/Hkv)`` in place), K and V blocks of 128 keys (64 at head_dim
+128) stream through an mbarrier ring, S = QKᵀ is ``wgmma`` from shared
+memory (K-major K), O += PV is ``wgmma`` with P from registers (rounded
+to bf16 as the Pallas kernel rounds it to v's dtype), and m, l and O stay
+in f32 registers. Key blocks are skipped by the
 Pallas kernel's predicate (``flash_attention.py:37-41``) at the tile's
 real rows and keys: :func:`kv_blocks` is the twin of the device's block
-list, :func:`flash_plan` the launch (tiles, grid, stages, shared memory,
-tensor maps), checked before any launch. The ragged sequence edge comes
+list. :func:`flash_plan` is the launch: the persistent grid and the
+strides the tensor maps are encoded at, checked before any launch, beside
+the tiles, stages and shared memory that the card tests hold against the
+built kernel (:func:`kernel_config`). The ragged sequence edge comes
 from TMA's per-dimension zero fill inside each head, and the element mask
 drops it. The kernel is instantiated for head_dim 64 and 128; any other
 head_dim up to 128 is zero-padded to the next of the two and the output
@@ -67,6 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import H100_SMS, sm_count
 
 NEG_INF = -1e30
 #: head_dims the CUDA kernel is instantiated for; others pad up to one
@@ -80,12 +83,8 @@ BLOCK_Q = 128
 BLOCK_K = {64: 128, 128: 64}
 STAGES = 3
 THREADS = 384
-#: columns of a TMA box: one 128-byte swizzle atom of bf16
-BOX_COLS = 64
 #: TMA's bound on a tensor map's strides, in bytes
 TMA_STRIDE_LIMIT = 2 ** 40
-#: an H100 SXM's SMs: the plan's persistent grid on the card it is for
-H100_SMS = 132
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -93,18 +92,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class TensorMap:
-    """A 4-D TMA map over one of q, k, v: dims (D, S, H, B) innermost
-    first, the byte strides of S, H and B, and the box it loads."""
-    dims: tuple[int, int, int, int]
-    strides: tuple[int, int, int]
-    box: tuple[int, int, int, int]
-
-
-@dataclasses.dataclass(frozen=True)
 class FlashPlan:
     """How the kernel runs one call (``csrc/flash_attention.cu``)."""
-    head_dim: int               # the kernel's width: 64 or 128
     block_q: int
     block_k: int
     stages: int
@@ -112,21 +101,9 @@ class FlashPlan:
     tiles: int                  # (query tile, b, head) tiles: ⌈Sq/128⌉·B·Hq
     grid: int                   # persistent blocks: one an SM at most
     smem_bytes: int             # dynamic shared memory a block
-    boxes_per_row: int          # 64-column boxes a tile row: D / 64
-    q_map: TensorMap
-    k_map: TensorMap
-    v_map: TensorMap
-    # the element strides (b, h, s) of q, k and v the launcher takes, a
-    # size-1 dimension's replaced by a valid one (its coordinate is 0)
+    # the element strides (b, h, s) of q, k and v the maps are encoded at,
+    # a size-1 dimension's replaced by a valid one (its coordinate is 0)
     strides: tuple[int, ...]
-
-    def tile(self, t: int) -> tuple[int, int]:
-        """(b·Hq + head, query tile) of tile t — ``tile_of`` in the .cu.
-        Blocks take tiles in this order from a launch-wide counter; the
-        heaviest causal query tiles (the last) come first, every head of
-        one before the next."""
-        bhs = self.q_map.dims[2] * self.q_map.dims[3]
-        return t % bhs, self.tiles // bhs - 1 - t // bhs
 
 
 def smem_bytes(head_dim: int) -> int:
@@ -138,10 +115,9 @@ def smem_bytes(head_dim: int) -> int:
             * head_dim * 2 + 1024 + 8 * (6 + 3 * STAGES) + 8)
 
 
-def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,
-                                                         tuple[int, ...]]:
-    """The map of a (B, H, S, D) operand at element ``strides``; raises
-    where TMA would refuse it."""
+def _map_strides(name: str, shape, strides) -> tuple[int, int, int]:
+    """The element strides (b, h, s) a (B, H, S, D) operand's 4-D map over
+    (D, S, H, B) is encoded at; raises where TMA would refuse them."""
     b, h, s, d = shape
     if strides[3] != 1:
         raise ValueError(f"{name}: the CUDA flash kernel needs a unit "
@@ -157,9 +133,7 @@ def _map(name: str, shape, strides, rows: int) -> tuple[TensorMap,
                 f"{name}: TMA takes strides that are positive multiples of "
                 f"16 bytes below 2^40 bytes (16-byte aligned rows), got "
                 f"element strides {tuple(strides)} for shape {tuple(shape)}")
-    return (TensorMap(dims=(d, s, h, b),
-                      strides=(st_s * 2, st_h * 2, st_b * 2),
-                      box=(BOX_COLS, rows, 1, 1)), (st_b, st_h, st_s))
+    return st_b, st_h, st_s
 
 
 @functools.lru_cache(maxsize=256)
@@ -167,26 +141,22 @@ def flash_plan(q_shape, q_strides, k_shape, k_strides, v_strides, *,
                sms: int = H100_SMS) -> FlashPlan:
     """The launch of q (B, Hq, Sq, D) over k, v (B, Hkv, Skv, D) at element
     strides, D one of ``KERNEL_HEAD_DIMS`` (the wrapper pads others):
-    tiles, the persistent grid on a card of ``sms`` SMs (the kernel sizes
-    it from the card it runs on), stages, shared memory and the three
-    tensor maps. Raises
-    ValueError, before any launch, where TMA would refuse a map. Cached:
-    the paths launch a handful of shapes, each many times."""
+    tiles, the persistent grid on a card of ``sms`` SMs, stages, shared
+    memory and the strides of the three tensor maps. Raises ValueError,
+    before any launch, where TMA would refuse a map. Cached: the paths
+    launch a handful of shapes, each many times."""
     b, hq, sq, d = q_shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel takes head_dim {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
-    bk = BLOCK_K[d]
-    q_map, qs = _map("q", q_shape, q_strides, BLOCK_Q)
-    k_map, ks = _map("k", k_shape, k_strides, bk)
-    v_map, vs = _map("v", k_shape, v_strides, bk)
+    strides = (_map_strides("q", q_shape, q_strides)
+               + _map_strides("k", k_shape, k_strides)
+               + _map_strides("v", k_shape, v_strides))
     tiles = _cdiv(sq, BLOCK_Q) * b * hq
-    return FlashPlan(head_dim=d, block_q=BLOCK_Q, block_k=bk,
-                     stages=STAGES, threads=THREADS, tiles=tiles,
-                     grid=min(tiles, sms),
-                     smem_bytes=smem_bytes(d), boxes_per_row=d // BOX_COLS,
-                     q_map=q_map, k_map=k_map, v_map=v_map,
-                     strides=qs + ks + vs)
+    return FlashPlan(block_q=BLOCK_Q, block_k=BLOCK_K[d], stages=STAGES,
+                     threads=THREADS, tiles=tiles,
+                     grid=max(1, min(tiles, sms)),
+                     smem_bytes=smem_bytes(d), strides=strides)
 
 
 def kv_blocks(q_tile: int, *, block_k: int, sq: int, skv: int,
@@ -315,8 +285,23 @@ def _cuda_inputs(q, k, v, window, scale, name):
         raise ValueError(f"the CUDA {name} takes a positive scale, got "
                          f"{scale}")
     plan = flash_plan(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
-                      v.stride())
+                      v.stride(), sms=sm_count(q.device))
     return q, k, v, hd, scale, plan
+
+
+_TILE_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tile_counter(device: torch.device) -> tuple[int, int]:
+    """The current stream's tile counter on ``device`` (two zeroed int32
+    the kernel's last block resets) and the stream. Launches on one stream
+    run in turn and reuse it; launches on two streams never share one, so
+    neither takes the other's tiles."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    if key not in _TILE_COUNTERS:
+        _TILE_COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _TILE_COUNTERS[key].data_ptr(), stream
 
 
 def kernel_config(head_dim: int) -> tuple[int, ...]:
@@ -344,8 +329,8 @@ def _forward(q, k, v, causal, window, scale):
     err = lib.pk_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, hq, hkv, sq, skv, width, *plan.strides,
-        int(causal), int(window or 0), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(causal), int(window or 0), float(scale), plan.grid,
+        *_tile_counter(q.device))
     _build.check(err, "pk_flash_attention_bf16")
     flash_attention.launches += 1
     return out[..., :hd]
@@ -371,8 +356,8 @@ def _hop_forward(q, k, v, ranks, hop, causal, window, scale):
     err = lib.pk_flash_attention_hop_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
         l_.data_ptr(), b, hq, hkv, sq, skv, width, *plan.strides,
-        ranks, hop, int(causal), int(window or 0), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ranks, hop, int(causal), int(window or 0), float(scale), plan.grid,
+        *_tile_counter(q.device))
     _build.check(err, "pk_flash_attention_hop_bf16")
     flash_attention_hop.launches += 1
     return o[..., :hd], m, l_

@@ -55,16 +55,11 @@ def build_and_train(arch: str, *, steps: int, reduced: bool, mesh_shape,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    pattern = cfg.layer_pattern()
-    todo = (["MoE training is ROADMAP A9b"]
-            if any(sp.mlp == "moe" for sp in pattern) else [])
-    if any(sp.mixer != "attn" for sp in pattern):
-        todo.append("SSM/hybrid training is ROADMAP A10b")
-    if any(sp.mixer != "attn" or sp.mlp != "dense" for sp in pattern) \
-            or cfg.encoder_decoder:
+    if any(sp.mixer != "attn" or sp.mlp != "dense"
+           for sp in cfg.layer_pattern()) or cfg.encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the port trains dense decoders; "
-            + ("; ".join(todo) or "not encoder-decoders"))
+            f"{cfg.name}: the port trains dense decoders; MoE is ROADMAP "
+            "A9b and SSM/hybrid A10b")
     mesh = VirtualMesh(mesh_shape, mesh_axes, dev) if mesh_shape else None
     run = RunConfig(dp_axes=tuple(a for a in (mesh_axes or ())
                                   if a != "model") or ("data",),

@@ -693,6 +693,76 @@ def test_flash_attention_plan_matches_the_built_kernel(cuda):
                                         p.threads, p.smem_bytes)
 
 
+def test_flash_attention_kernel_any_grid_same_bits(cuda):
+    """The launcher runs the grid the plan gives it: blocks take tiles from
+    the counter, so 1, 5 or 132 blocks compute every tile, with the bits of
+    the wrapper's own launch (forward and hop)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    b, hq, hkv, s, hd = 2, 8, 2, 300, 64
+    q, k, v = _qkv(cuda, b, hq, hkv, s, s, hd)
+    want = FA.flash_attention(q, k, v, causal=True)
+    hop_want = FA.flash_attention_hop(q, k, v, ranks=2, hop=1)
+    lib = _build.library()
+    for sms in (1, 5, 132):
+        p = FA.flash_plan(tuple(q.shape), q.stride(), tuple(k.shape),
+                          k.stride(), v.stride(), sms=sms)
+        assert p.grid == min(sms, p.tiles)
+        out = torch.empty_like(q)
+        _build.check(lib.pk_flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, s, s, hd, *p.strides, 1, 0, hd ** -0.5, p.grid,
+            *FA._tile_counter(cuda)), "pk_flash_attention_bf16")
+        o, m, l_ = (torch.empty_like(t) for t in hop_want)
+        _build.check(lib.pk_flash_attention_hop_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l_.data_ptr(), b, hq, hkv, s, s, hd, *p.strides,
+            2, 1, 1, 0, hd ** -0.5, p.grid, *FA._tile_counter(cuda)),
+            "pk_flash_attention_hop_bf16")
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), sms
+        assert all(torch.equal(g, w) for g, w in zip((o, m, l_), hop_want))
+
+
+def test_flash_attention_kernel_on_two_streams(cuda):
+    """Launches of one kernel in flight at once on two streams: each stream
+    has its own tile counter, so neither launch takes the other's tiles and
+    both give the bits of a launch alone. Both streams wait on one event
+    behind a spin kernel, so their launches start together; each covers 64
+    tiles, half the card's SMs. Outputs are overwritten with NaN once
+    checked, so a later output that reuses their memory cannot pass with a
+    tile left out."""
+    from repro_torch.kernels import flash_attention as FA
+    inputs = [_qkv(cuda, 1, 16, 4, 512, 512, hd, seed=10 * i)
+              for i, hd in enumerate((64, 64, 128, 128))]
+    flash = [FA.flash_attention(*t, causal=True) for t in inputs]
+    hops = [FA.flash_attention_hop(*t, ranks=1, hop=0) for t in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for pair in ((0, 1), (2, 3)):
+        for _ in range(3):
+            torch.cuda._sleep(20_000_000)
+            go = torch.cuda.Event()
+            go.record()
+            got = []
+            for st, i in zip(streams, pair):
+                st.wait_event(go)
+                with torch.cuda.stream(st):
+                    got.append((FA.flash_attention(*inputs[i], causal=True),
+                                FA.flash_attention_hop(*inputs[i], ranks=1,
+                                                       hop=0)))
+            torch.cuda.synchronize()
+            for i, (o, hop) in zip(pair, got):
+                assert torch.equal(o, flash[i])
+                assert all(torch.equal(g, w) for g, w in zip(hop, hops[i]))
+                # a tile no block computed would keep this memory's bits
+                for t in (o, *hop):
+                    t.fill_(float("nan"))
+            torch.cuda.synchronize()
+    for t, o in zip(inputs, flash):
+        assert _rel(o, FA.flash_attention_plain(*t)) <= 1e-2
+
+
 def test_flash_attention_kernel_refused_map_raises(cuda):
     """A map cuTensorMapEncodeTiled refuses (a batch stride of 2^40 bytes)
     makes the launcher return minus its CUresult, which raises; a view the
@@ -705,8 +775,7 @@ def test_flash_attention_kernel_refused_map_raises(cuda):
     st = [2 ** 39, 64 * 64, 64] + [2 * 64 * 64, 64 * 64, 64] * 2
     err = _build.library().pk_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 2, 2,
-        64, 64, 64, *st, 1, 0, 0.125,
-        torch.cuda.current_stream().cuda_stream)
+        64, 64, 64, *st, 1, 0, 0.125, 1, *FA._tile_counter(cuda))
     assert err < 0
     with pytest.raises(RuntimeError, match="refused"):
         _build.check(err, "pk_flash_attention_bf16")

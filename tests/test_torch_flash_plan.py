@@ -1,8 +1,10 @@
 """The flash attention kernel's plan and block schedule, on the CPU.
 
 ``kernels/flash_attention.py::flash_plan`` is the launch of the TMA +
-``wgmma`` kernel (``csrc/flash_attention.cu``): tiles, grid, stages, shared
-memory and the three 4-D tensor maps; ``kv_blocks`` is the Python twin of
+``wgmma`` kernel (``csrc/flash_attention.cu``): the persistent grid and the
+strides of the three 4-D tensor maps, which the wrapper passes to the
+launcher, beside the tiles, stages and shared memory the card tests hold
+against the built kernel; ``kv_blocks`` is the Python twin of
 the device's block list (``kv_range``), which the producer and the
 consumers both walk. They are pure Python, so their promises are checked
 here at every shape the model paths and ``chip_smoke.py`` give the kernel:
@@ -120,10 +122,9 @@ def test_hop_schedule_at_global_offsets(r, b, hq, hkv, s, hd, causal, window):
 def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
                                   strided):
     """The plan of the padded width: tiles, a persistent grid of one block
-    an SM at most, every (head, query tile) once with the heaviest query
-    tiles first, shared memory within a block's limit, three 4-D maps over
-    (D, S, H, B) with 64-column boxes, the strides of prefill's
-    head-transposed views taken as they are."""
+    an SM at most on the card it is given, shared memory within a block's
+    limit, map strides TMA takes (multiples of 16 bytes below 2^40 bytes),
+    the strides of prefill's head-transposed views taken as they are."""
     w = _width(hd)
     if strided:           # (B, S, H, D) projections viewed as (B, H, S, D)
         q = torch.empty(b, s, hq, w).transpose(1, 2)
@@ -134,29 +135,20 @@ def test_plan_at_the_paths_shapes(b, hq, hkv, s, hd, causal, window,
     bk, stages = {64: (128, 3), 128: (64, 3)}[w]
     assert (p.block_q, p.block_k, p.stages, p.threads) == (128, bk, stages,
                                                            384)
-    assert p.head_dim == w and p.boxes_per_row == w // 64
     n_qt = -(-s // 128)
     assert p.tiles == n_qt * b * hq and p.grid == min(p.tiles, 132)
-    order = [p.tile(t) for t in range(p.tiles)]
-    assert sorted(order) == [(bh, qt) for bh in range(b * hq)
-                             for qt in range(n_qt)]
-    assert [qt for _, qt in order] == sorted((qt for _, qt in order),
-                                             reverse=True)
+    small = FA.flash_plan(q.shape, q.stride(), k.shape, k.stride(),
+                          k.stride(), sms=7)
+    assert small.grid == min(p.tiles, 7)
     assert p.smem_bytes <= SMEM_PER_BLOCK
     assert p.smem_bytes == (128 * w * 2 + stages * 2 * bk * w * 2 + 1024
                             + 8 * (6 + 3 * stages) + 8)
-    for m, (h, rows), t in ((p.q_map, (hq, 128), q), (p.k_map, (hkv, bk), k),
-                            (p.v_map, (hkv, bk), k)):
-        assert m.dims == (w, s, h, b)
-        assert m.box == (64, rows, 1, 1)
-        assert all(st % 16 == 0 and 0 < st < 2 ** 40 for st in m.strides)
-        # a box is 128 bytes wide: the 128-byte swizzle's atom
-        assert m.box[0] * 2 == 128 and m.box[1] <= 256
-        for dim, st in zip((2, 1, 0), m.strides):
+    for i, t in enumerate((q, k, k)):         # q's, k's, v's (b, h, s)
+        st = p.strides[3 * i:3 * i + 3]
+        assert all(x * 2 % 16 == 0 and 0 < x * 2 < 2 ** 40 for x in st)
+        for dim, x in zip((0, 1, 2), st):
             if t.shape[dim] > 1:
-                assert st == t.stride(dim) * 2
-    assert p.strides[:3] == tuple(
-        m // 2 for m in p.q_map.strides[::-1])
+                assert x == t.stride(dim)
 
 
 def test_plan_shared_memory_at_both_widths():
@@ -173,8 +165,8 @@ def test_plan_normalises_unit_dims():
     q = torch.empty(1, 4, 1, 64)
     p = FA.flash_plan((1, 4, 1, 64), (3, 64, 3, 1), (1, 4, 1, 64),
                       q.stride(), q.stride())
-    assert p.q_map.strides == (128, 128, 512)
     assert p.strides[:3] == (256, 64, 64)
+    assert p.strides[3:] == (256, 64, 64) * 2
 
 
 @pytest.mark.parametrize("bad,match", [

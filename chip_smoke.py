@@ -348,6 +348,84 @@ def mm_tile_flash_hop(q, k, v, ranks, hop):
     return o, m, l_
 
 
+_MM_TILE_RS_SCRATCH: dict = {}
+
+
+def mm_tile_reduce_scatter(x, n_chunks=1):
+    """B3's reduce-scatter kernel before its pull-and-sum design
+    (``csrc/pk_comm_yardstick.cu``: store-and-count through landing slots
+    and flags), the before-column ``ms_mm_tile`` of the RS rows; the port
+    never calls it. Landing slots and flags are cached by shape."""
+    import torch
+
+    from repro_torch.core import pgl
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import pk_comm as PK
+    r, blk = x.shape[0], x[0, 0].numel()
+    rows = x.shape[2] if x.dim() > 2 else 1
+    chunk = blk // PK._chunks(rows, n_chunks)
+    n_flags = r * (blk // chunk) * -(-chunk // 1024)   # (owner, tile) at most
+    key = (x.device, r, blk, x.dtype)
+    if key not in _MM_TILE_RS_SCRATCH or \
+            _MM_TILE_RS_SCRATCH[key][1].numel() < n_flags:
+        _MM_TILE_RS_SCRATCH[key] = (
+            torch.empty((r, r, blk), dtype=x.dtype, device=x.device),
+            torch.empty((n_flags,), dtype=torch.int32, device=x.device))
+    landing, flags = _MM_TILE_RS_SCRATCH[key]
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    _build.check(_build.library().pk_mm_tile_reduce_scatter(
+        _build.host_table(pgl.pointer_table(x)),
+        _build.host_table(pgl.pointer_table(out)),
+        _build.host_table(pgl.pointer_table(landing)), flags.data_ptr(), r,
+        blk, chunk, PK._DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "pk_mm_tile_reduce_scatter")
+    return out
+
+
+def mm_tile_mamba_scan(dt, b_ssm, c_ssm, x, a, h0, chunk=128):
+    """B10's kernel before its staged, pipelined design
+    (``csrc/mamba_scan_yardstick.cu``: one lane a state, staging no load
+    overlapped), the before-column ``ms_mm_tile`` of the scan rows: y and
+    h_last in h0's layout; the port never calls it."""
+    import torch
+
+    from repro_torch.kernels import _build
+    bsz, s, d = dt.shape
+    n = a.shape[-1]
+    h_out = torch.empty_like(h0)
+    if h0.dim() == 3:
+        dl, h0r, h0b, hor, hob = d, 0, h0.stride(0), 0, h_out.stride(0)
+    else:
+        dl, h0r, h0b = h0.shape[2], h0.stride(0), h0.stride(1)
+        hor, hob = h_out.stride(0), h_out.stride(1)
+    y = torch.empty((bsz, s, d), dtype=torch.float32, device=dt.device)
+    _build.check(_build.library().pk_mm_tile_mamba_scan(
+        dt.data_ptr(), x.data_ptr(), b_ssm.data_ptr(), c_ssm.data_ptr(),
+        a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), bsz, s,
+        d, n, chunk, int(x.dtype == torch.bfloat16), dt.stride(0),
+        dt.stride(1), x.stride(0), x.stride(1), b_ssm.stride(0),
+        b_ssm.stride(1), c_ssm.stride(0), c_ssm.stride(1), dl, h0r, h0b,
+        hor, hob, torch.cuda.current_stream(dt.device).cuda_stream),
+        "pk_mm_tile_mamba_scan")
+    return y, h_out
+
+
+def exp_floor_ms(b, s, d, n, sms, clock_mhz) -> float:
+    """The selective scan's exponential floor: B·S·D·N exponentials at 16
+    an SM a clock (the SFU's ex2 rate) on ``sms`` SMs at ``clock_mhz``."""
+    return b * s * d * n / (16.0 * sms * clock_mhz * 1e6) * 1e3
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock as ``nvidia-smi`` reports it (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def rel_err(got, want) -> float:
     got, want = got.detach().float(), want.detach().float()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))

@@ -5,133 +5,367 @@
 // Port of repro/kernels/mamba_scan.py::mamba_scan; see
 // kernels/mamba_scan.py for the design note.
 //
-// One thread per (channel, state): N lanes (a power of two <= 32) hold one
-// channel's N states in registers for the whole sequence, and y_t is their
-// sum by an xor butterfly of warp shuffles inside the N-lane group, so
-// every lane of the group ends with the same bits. A block of 256 threads
-// covers 256 / N channels of one batch row (grid: channel blocks x B).
-// The sequence runs through the block in runs of `run` steps: dt and x for
-// the block's channels and b, c for the row are staged, as f32, through
-// shared memory (coalesced reads across the channels), the run is scanned
-// from shared memory, and y is staged back and written coalesced. The state
-// is addressed through strides, so the stacked per-rank layout of the
-// serving cache, (R, B, D/R, N), is read and written in place: channel d
-// lives at rank d / dl, local channel d % dl.
+// The recurrence stays sequential in t for every state. A lane holds K =
+// min(4, N) states of one channel in registers (K independent FMA chains),
+// L = N / K lanes make a channel, and y_t is the lane's K products summed
+// in order then an xor butterfly of log2 L shuffles, so every lane of the
+// channel ends with the same bits. A block covers `ch` channels (64 or 128,
+// the plan's) of one batch row: grid (channel tiles, B).
+//
+// Two kernels run that same step (scan_step), so they give the same bits:
+//
+// * staged (prefill): a producer warp's elected thread loads, for each run
+//   of `run` steps, the tiles dt [run x ch], x [run x ch], b and c [run x
+//   N] by TMA (3-D maps over (inner, step, batch), zero-filled past S and
+//   D) into a ring of `stages` shared-memory stages with full and empty
+//   mbarriers, so the next runs load while this one is scanned; the
+//   consumer lanes read the stage, write y_t into a double-buffered [run x
+//   ch] tile, free the stage, meet at a named barrier and store the tile's
+//   rows as 16-byte words.
+// * direct (decode, S = 1, or operands a tensor map cannot take): no
+//   staging and no block barrier; each lane reads its dt, x, b, c, a and
+//   state from global memory, steps and writes y and the state.
 //
 // Every operation is rounded explicitly (__fmul_rn, __fmaf_rn, __fadd_rn:
-// no contraction left to the compiler), so a channel runs the same
-// operations in the same order whatever the run length is, and a scan over
-// S + k steps equals a scan over S steps followed by k scans of one step
-// chained through h0, bit for bit.
+// no contraction left to the compiler) and y's sum over n has one order, so
+// a channel runs the same operations in the same order whatever the run
+// length, the stage boundaries or the kernel: a scan over S + k steps
+// equals a scan over S steps followed by k scans of one step chained
+// through h0, bit for bit. The state is addressed through strides, so the
+// stacked per-rank layout of the serving cache, (R, B, D/R, N), is read
+// and written in place: channel d lives at rank d / dl, local channel d %
+// dl.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_gemm.cuh"
+
 namespace {
 
-constexpr int MS_THREADS = 256;
-constexpr int MS_MAX_RUN = 128;
-constexpr int MS_SMEM_LIMIT = 48 * 1024;   // static-launch shared memory
+constexpr int SC_MAX_CONSUMERS = 512;
+constexpr int SC_MAX_STAGES = 4;
+constexpr int SC_SMEM_LIMIT = 232448;
 
-struct MsArgs {
+struct ScArgs {
   const void* dt;
   const void* x;
   const void* b;
   const void* c;
-  const float* a;      // (D, N) contiguous
+  const float* a;  // (D, N) contiguous
   const float* h0;
-  float* y;            // (B, S, D) contiguous
+  float* y;        // (B, S, D) contiguous
   float* h_out;
-  int S, D, N, run, dl;
-  long sdb, sds, sxb, sxs, sbb, sbs, scb, scs;   // (batch, step) strides
-  long h0r, h0b, hor, hob;                       // state (rank, batch)
+  int S, D, dl, ch, run, stages;
+  long sdb, sds, sxb, sxs, sbb, sbs, scb, scs;  // (batch, step) strides
+  long h0r, h0b, hor, hob;                      // state (rank, batch)
 };
 
-__device__ __forceinline__ float ms_ld(const float* p) { return __ldg(p); }
+__host__ __device__ constexpr int k_states(int n) { return n < 4 ? n : 4; }
 
-__device__ __forceinline__ float ms_ld(const __nv_bfloat16* p) {
+__host__ __device__ inline int align128(int bytes) {
+  return (bytes + 127) / 128 * 128;
+}
+
+// the staged kernel's shared memory: `stages` stages of dt, x, b, c tiles,
+// then the two y tiles, then the mbarriers
+struct ScLayout {
+  int o_x, o_b, o_c, stage, o_y, o_bars, total;
+  __host__ __device__ ScLayout(int ch, int run, int n, int es, int stages) {
+    o_x = align128(run * ch * 4);
+    o_b = o_x + align128(run * ch * es);
+    o_c = o_b + align128(run * n * es);
+    stage = o_c + align128(run * n * es);
+    o_y = stages * stage;
+    o_bars = o_y + 2 * run * ch * 4;
+    total = o_bars + 2 * stages * 8;
+  }
+};
+
+__device__ __forceinline__ float ld_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// K consecutive values from shared memory, aligned to K elements
+template <int K>
+__device__ __forceinline__ void lds_k(const float* p, float (&v)[K]) {
+  if constexpr (K == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+  } else if constexpr (K == 2) {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    v[0] = w.x, v[1] = w.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int K>
+__device__ __forceinline__ void lds_k(const __nv_bfloat16* p, float (&v)[K]) {
+  if constexpr (K == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w.y));
+    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+  } else if constexpr (K == 2) {
+    const float2 w =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = w.x, v[1] = w.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+// One step of the K states of one channel that this lane holds; returns
+// the channel's y_t, the same bits in each of its L = N / K lanes.
+template <int N>
+__device__ __forceinline__ float scan_step(float (&h)[k_states(N)],
+                                           const float (&av)[k_states(N)],
+                                           float dtv, float xv,
+                                           const float (&bv)[k_states(N)],
+                                           const float (&cv)[k_states(N)]) {
+  constexpr int K = k_states(N), L = N / K;
+  const float dtx = __fmul_rn(dtv, xv);
+  float y = 0.f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const float abar = expf(__fmul_rn(dtv, av[j]));
+    h[j] = __fmaf_rn(abar, h[j], __fmul_rn(dtx, bv[j]));
+    y = j == 0 ? __fmul_rn(h[j], cv[j]) : __fmaf_rn(h[j], cv[j], y);
+  }
+#pragma unroll
+  for (int off = L >> 1; off > 0; off >>= 1)
+    y = __fadd_rn(y, __shfl_xor_sync(0xffffffffu, y, off, L));
+  return y;
+}
+
+// The lane's channel, first state, state offsets, a and h0.
+template <int N>
+struct ScLane {
+  static constexpr int K = k_states(N), L = N / K;
+  int ch, n0, d;
+  bool live;
+  long ho;
+  float h[K], av[K];
+  __device__ __forceinline__ ScLane(const ScArgs& p, int tid, long bi) {
+    ch = tid / L;
+    n0 = (tid - ch * L) * K;
+    d = blockIdx.x * p.ch + ch;
+    live = d < p.D;
+    ho = 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j) h[j] = av[j] = 0.f;
+    if (live) {
+      const int r = d / p.dl, jj = d - r * p.dl;
+      const long h0_off = r * p.h0r + bi * p.h0b + (long)jj * N + n0;
+      ho = r * p.hor + bi * p.hob + (long)jj * N + n0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        av[j] = __ldg(p.a + (long)d * N + n0 + j);
+        h[j] = p.h0[h0_off + j];
+      }
+    }
+  }
+  __device__ __forceinline__ void store_state(const ScArgs& p) const {
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) p.h_out[ho + j] = h[j];
+    }
+  }
+};
 
 // dt is f32; x, b and c are all T (f32 or bf16)
-template <typename T>
-__global__ void __launch_bounds__(MS_THREADS)
-    pk_mamba_scan_kernel(const MsArgs p) {
-  extern __shared__ float smem[];
-  const int N = p.N, D = p.D, S = p.S, run = p.run;
-  const int cpb = MS_THREADS / N;            // channels per block
-  float* s_dt = smem;                        // [run][cpb]
-  float* s_x = s_dt + run * cpb;             // [run][cpb]
-  float* s_y = s_x + run * cpb;              // [run][cpb]
-  float* s_b = s_y + run * cpb;              // [run][N]
-  float* s_c = s_b + run * N;                // [run][N]
-  const float* dt = static_cast<const float*>(p.dt);
-  const T* x = static_cast<const T*>(p.x);
-  const T* bm = static_cast<const T*>(p.b);
-  const T* cm = static_cast<const T*>(p.c);
-
-  const int tid = threadIdx.x;
-  const int ch = tid / N, n = tid - ch * N;
+template <typename T, int N>
+__global__ void __launch_bounds__(SC_MAX_CONSUMERS)
+    scan_direct_kernel(const ScArgs p) {
+  constexpr int K = k_states(N);
   const long bi = blockIdx.y;
-  const int d0 = blockIdx.x * cpb;
-  const int d = d0 + ch;
-  const bool live = d < D;
-  long h0_off = 0, ho_off = 0;
-  float av = 0.f, h = 0.f;
-  if (live) {
-    const int r = d / p.dl, j = d - r * p.dl;
-    h0_off = r * p.h0r + bi * p.h0b + (long)j * N + n;
-    ho_off = r * p.hor + bi * p.hob + (long)j * N + n;
-    av = p.a[(long)d * N + n];
-    h = p.h0[h0_off];
+  ScLane<N> ln(p, threadIdx.x, bi);
+  const float* dt = static_cast<const float*>(p.dt) + bi * p.sdb;
+  const T* x = static_cast<const T*>(p.x) + bi * p.sxb;
+  const T* bm = static_cast<const T*>(p.b) + bi * p.sbb + ln.n0;
+  const T* cm = static_cast<const T*>(p.c) + bi * p.scb + ln.n0;
+  // lanes of a dead channel (the ragged last tile) still step: the
+  // shuffles need every lane of the warp
+  for (int t = 0; t < p.S; ++t) {
+    float dtv = 0.f, xv = 0.f, bv[K], cv[K];
+    if (ln.live) {
+      dtv = ld_f32(dt + t * p.sds + ln.d);
+      xv = ld_f32(x + t * p.sxs + ln.d);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      bv[j] = ld_f32(bm + t * p.sbs + j);
+      cv[j] = ld_f32(cm + t * p.scs + j);
+    }
+    const float yv = scan_step<N>(ln.h, ln.av, dtv, xv, bv, cv);
+    if (ln.live && ln.n0 == 0) p.y[(bi * p.S + t) * (long)p.D + ln.d] = yv;
   }
-  // lanes of a dead channel (the ragged last block) still run the loop:
-  // the shuffles need every lane of the warp
-  for (int t0 = 0; t0 < S; t0 += run) {
-    const int len = min(run, S - t0);
-    __syncthreads();                         // the last run's y is stored
-    for (int e = tid; e < len * cpb; e += MS_THREADS) {
-      const int t = e / cpb, dd = d0 + (e - t * cpb);
-      float vd = 0.f, vx = 0.f;
-      if (dd < D) {
-        vd = ms_ld(dt + bi * p.sdb + (long)(t0 + t) * p.sds + dd);
-        vx = ms_ld(x + bi * p.sxb + (long)(t0 + t) * p.sxs + dd);
+  ln.store_state(p);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(SC_MAX_CONSUMERS + 32)
+    scan_staged_kernel(const __grid_constant__ ScArgs p,
+                       const __grid_constant__ CUtensorMap m_dt,
+                       const __grid_constant__ CUtensorMap m_x,
+                       const __grid_constant__ CUtensorMap m_b,
+                       const __grid_constant__ CUtensorMap m_c) {
+  constexpr int K = k_states(N), L = N / K;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int CH = p.ch, RUN = p.run, consumers = CH * L;
+  const ScLayout lay(CH, RUN, N, sizeof(T), p.stages);
+  const uint32_t full0 = hg::smem_addr(smem + lay.o_bars);
+  const uint32_t empty0 = full0 + 8 * p.stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      hg::mbar_init(full0 + 8 * s, 1);
+      hg::mbar_init(empty0 + 8 * s, consumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const long bi = blockIdx.y;
+  const int d0 = blockIdx.x * CH;
+  const int n_runs = (p.S + RUN - 1) / RUN;
+
+  if (threadIdx.x >= consumers) {  // the producer warp
+    if (threadIdx.x == consumers) {
+      const uint32_t bytes =
+          RUN * CH * (4 + sizeof(T)) + 2 * RUN * N * sizeof(T);
+      for (int j = 0; j < n_runs; ++j) {
+        const int stage = j % p.stages;
+        const uint32_t full = full0 + 8 * stage;
+        hg::mbar_wait(empty0 + 8 * stage, ((j / p.stages) & 1) ^ 1);
+        hg::mbar_expect_tx(full, bytes);
+        const uint32_t base = hg::smem_addr(smem + stage * lay.stage);
+        hg::tma_load3(base, &m_dt, d0, j * RUN, (int)bi, full);
+        hg::tma_load3(base + lay.o_x, &m_x, d0, j * RUN, (int)bi, full);
+        hg::tma_load3(base + lay.o_b, &m_b, 0, j * RUN, (int)bi, full);
+        hg::tma_load3(base + lay.o_c, &m_c, 0, j * RUN, (int)bi, full);
       }
-      s_dt[e] = vd;
-      s_x[e] = vx;
     }
-    for (int e = tid; e < len * N; e += MS_THREADS) {
-      const int t = e / N, nn = e - t * N;
-      s_b[e] = ms_ld(bm + bi * p.sbb + (long)(t0 + t) * p.sbs + nn);
-      s_c[e] = ms_ld(cm + bi * p.scb + (long)(t0 + t) * p.scs + nn);
-    }
-    __syncthreads();
+    return;
+  }
+
+  ScLane<N> ln(p, threadIdx.x, bi);
+  const int ch = ln.ch;
+  for (int j = 0; j < n_runs; ++j) {
+    const int stage = j % p.stages;
+    const int t0 = j * RUN, len = min(RUN, p.S - t0);
+    hg::mbar_wait(full0 + 8 * stage, (j / p.stages) & 1);
+    const unsigned char* st = smem + stage * lay.stage;
+    const float* s_dt = reinterpret_cast<const float*>(st);
+    const T* s_x = reinterpret_cast<const T*>(st + lay.o_x);
+    const T* s_b = reinterpret_cast<const T*>(st + lay.o_b) + ln.n0;
+    const T* s_c = reinterpret_cast<const T*>(st + lay.o_c) + ln.n0;
+    float* yt = reinterpret_cast<float*>(smem + lay.o_y) + (j & 1) * RUN * CH;
     for (int t = 0; t < len; ++t) {
-      const float dtv = s_dt[t * cpb + ch];
-      const float abar = expf(__fmul_rn(dtv, av));
-      const float bx = __fmul_rn(__fmul_rn(dtv, s_x[t * cpb + ch]),
-                                 s_b[t * N + n]);
-      h = __fmaf_rn(abar, h, bx);
-      float yv = __fmul_rn(h, s_c[t * N + n]);
-      for (int off = N >> 1; off > 0; off >>= 1)
-        yv = __fadd_rn(yv, __shfl_xor_sync(0xffffffffu, yv, off, N));
-      if (n == 0) s_y[t * cpb + ch] = yv;
+      float bv[K], cv[K];
+      lds_k<K>(s_b + t * N, bv);
+      lds_k<K>(s_c + t * N, cv);
+      const float yv = scan_step<N>(ln.h, ln.av, s_dt[t * CH + ch],
+                                    to_f32(s_x[t * CH + ch]), bv, cv);
+      if (ln.n0 == 0) yt[t * CH + ch] = yv;
     }
-    __syncthreads();
-    for (int e = tid; e < len * cpb; e += MS_THREADS) {
-      const int t = e / cpb, dd = d0 + (e - t * cpb);
-      if (dd < D) p.y[(bi * S + t0 + t) * (long)D + dd] = s_y[e];
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) hg::mbar_arrive(empty0 + 8 * stage);
+    // the y tile is whole once every consumer is here; the other tile's
+    // stores (run j - 1) are done, as each consumer passed this barrier
+    // after them
+    asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+    const int row4 = CH / 4;
+    for (int v = threadIdx.x; v < len * row4; v += consumers) {
+      const int t = v / row4, c4 = (v - t * row4) * 4;
+      if (d0 + c4 < p.D)
+        *reinterpret_cast<float4*>(p.y + (bi * p.S + t0 + t) * (long)p.D +
+                                   d0 + c4) =
+            *reinterpret_cast<const float4*>(yt + t * CH + c4);
     }
   }
-  if (live) p.h_out[ho_off] = h;
+  ln.store_state(p);
+}
+
+// A 3-D map over (inner, step, batch) of f32 or bf16 elements, strides in
+// elements, boxes of box_inner x run x 1, no swizzle, zero fill.
+int encode_scan_map(CUtensorMap* map, const void* ptr, bool bf16, long inner,
+                    long steps, long batch, long s_step, long s_batch,
+                    int box_inner, int run) {
+  hg::EncodeTiledFn fn = hg::encode_fn();
+  if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
+  const long es = bf16 ? 2 : 4;
+  // a batch of one is never stepped over: give it a stride TMA takes
+  if (batch == 1) s_batch = steps * s_step;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)steps,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)(s_step * es),
+                                 (cuuint64_t)(s_batch * es)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)run, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+template <typename T, int N>
+int sc_launch(const ScArgs& p, int B, bool staged, cudaStream_t stream) {
+  constexpr int L = N / k_states(N);
+  const int consumers = p.ch * L;
+  if (consumers % 32 || consumers > SC_MAX_CONSUMERS)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((p.D + p.ch - 1) / p.ch, B);
+  if (!staged) {
+    scan_direct_kernel<T, N><<<grid, consumers, 0, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  const bool bf16 = sizeof(T) == 2;
+  const ScLayout lay(p.ch, p.run, N, sizeof(T), p.stages);
+  if (p.S < 1 || p.D % 4 || p.run < 1 || p.run > 256 || p.stages < 1 ||
+      p.stages > SC_MAX_STAGES || lay.total > SC_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m_dt, m_x, m_b, m_c;
+  int e = encode_scan_map(&m_dt, p.dt, false, p.D, p.S, B, p.sds, p.sdb,
+                          p.ch, p.run);
+  if (!e) e = encode_scan_map(&m_x, p.x, bf16, p.D, p.S, B, p.sxs, p.sxb,
+                              p.ch, p.run);
+  if (!e) e = encode_scan_map(&m_b, p.b, bf16, N, p.S, B, p.sbs, p.sbb, N,
+                              p.run);
+  if (!e) e = encode_scan_map(&m_c, p.c, bf16, N, p.S, B, p.scs, p.scb, N,
+                              p.run);
+  if (e) return e;
+  static int granted = 0;  // the attribute this instantiation was given
+  if (lay.total > granted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        scan_staged_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lay.total);
+    if (err != cudaSuccess) return (int)err;
+    granted = lay.total;
+  }
+  scan_staged_kernel<T, N><<<grid, consumers + 32, lay.total, stream>>>(
+      p, m_dt, m_x, m_b, m_c);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t ms_launch(const MsArgs& p, int B, cudaStream_t stream) {
-  const int cpb = MS_THREADS / p.N;
-  const size_t smem = (size_t)p.run * (3 * cpb + 2 * p.N) * sizeof(float);
-  dim3 grid((p.D + cpb - 1) / cpb, B);
-  pk_mamba_scan_kernel<T><<<grid, MS_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+int sc_dispatch(const ScArgs& p, int B, int N, bool staged, cudaStream_t s) {
+  switch (N) {
+    case 1: return sc_launch<T, 1>(p, B, staged, s);
+    case 2: return sc_launch<T, 2>(p, B, staged, s);
+    case 4: return sc_launch<T, 4>(p, B, staged, s);
+    case 8: return sc_launch<T, 8>(p, B, staged, s);
+    case 16: return sc_launch<T, 16>(p, B, staged, s);
+    case 32: return sc_launch<T, 32>(p, B, staged, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -139,29 +373,26 @@ cudaError_t ms_launch(const MsArgs& p, int B, cudaStream_t stream) {
 // dt is f32; x, b and c are bf16 when x_bf16 is 1, f32 when 0. Strides in
 // elements; the last dim of dt, x, b, c and the state is contiguous. The
 // state of channel d = r * dl + j sits at r * h0r + batch * h0b + j * N.
-// `chunk` is the run of steps staged through shared memory at once (capped
-// at 128 and by 48 KB of shared memory); it never changes the result.
+// The launch is the plan's (kernels/mamba_scan.py scan_plan): `channels` a
+// block, and for the staged kernel (staged = 1) the steps a stage (`run`)
+// and the stages; neither changes the result.
 extern "C" int pk_mamba_scan(const void* dt, const void* x, const void* b,
                              const void* c, const void* a, const void* h0,
                              void* y, void* h_out, int B, int S, int D,
-                             int N, int chunk, int x_bf16, long long sdb,
-                             long long sds, long long sxb, long long sxs,
-                             long long sbb, long long sbs, long long scb,
-                             long long scs, int dl, long long h0r,
-                             long long h0b, long long hor, long long hob,
-                             void* stream) {
-  if (N < 1 || N > 32 || (N & (N - 1)) || dl < 1 || D % dl || chunk < 1)
+                             int N, int x_bf16, long long sdb, long long sds,
+                             long long sxb, long long sxs, long long sbb,
+                             long long sbs, long long scb, long long scs,
+                             int dl, long long h0r, long long h0b,
+                             long long hor, long long hob, int channels,
+                             int run, int stages, int staged, void* stream) {
+  if (N < 1 || N > 32 || (N & (N - 1)) || dl < 1 || D % dl || channels < 1)
     return (int)cudaErrorInvalidValue;
-  const int cpb = MS_THREADS / N;
-  const int per_step = (3 * cpb + 2 * N) * (int)sizeof(float);
-  int run = chunk < MS_MAX_RUN ? chunk : MS_MAX_RUN;
-  if (run > MS_SMEM_LIMIT / per_step) run = MS_SMEM_LIMIT / per_step;
-  if (S > 0 && run > S) run = S;
-  MsArgs p{dt, x, b, c, (const float*)a, (const float*)h0, (float*)y,
-           (float*)h_out, S, D, N, run, dl, (long)sdb, (long)sds,
-           (long)sxb, (long)sxs, (long)sbb, (long)sbs, (long)scb,
+  if (B == 0 || D == 0) return 0;
+  ScArgs p{dt, x, b, c, (const float*)a, (const float*)h0, (float*)y,
+           (float*)h_out, S, D, dl, channels, run, stages, (long)sdb,
+           (long)sds, (long)sxb, (long)sxs, (long)sbb, (long)sbs, (long)scb,
            (long)scs, (long)h0r, (long)h0b, (long)hor, (long)hob};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(x_bf16 ? ms_launch<__nv_bfloat16>(p, B, s)
-                      : ms_launch<float>(p, B, s));
+  return x_bf16 ? sc_dispatch<__nv_bfloat16>(p, B, N, staged, s)
+                : sc_dispatch<float>(p, B, N, staged, s);
 }

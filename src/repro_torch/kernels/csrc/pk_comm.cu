@@ -4,17 +4,24 @@
 // kernels/pk_comm.py.
 //
 // A rank's block is blk_elems elements (its rows, flattened), split into
-// n_chunks row chunks of chunk_elems each; a chunk is cut into tiles of
-// TILE_VECS vectors of VEC elements, and one CUDA block moves one tile.
+// n_chunks row chunks of chunk_elems each; tiles never cross a chunk.
 //
 // all-gather:     grid (tile, source s): the block reads its tile of in[s]
 //                 once and stores it into slot s of every rank's output.
 //                 No block waits: a copy depends on nothing but its source.
-// reduce-scatter: grid (tile, source s, owner o): the block stores tile of
-//                 in[s] slot o into landing[o] slot s, fences and counts
-//                 itself in on the tile's flag; the last of the R arrivals
-//                 acquires, sums the R partials in rank order in f32 and
-//                 stores the reduced tile into out[o]. No block waits either.
+// reduce-scatter: pull and sum. A persistent grid walks the (owner o,
+//                 tile) items; for each, one producer thread issues R TMA
+//                 bulk copies (cp.async.bulk, completing on the stage's
+//                 full mbarrier) of the tile of in[s] slot o, s = 0..R-1,
+//                 into a ring of shared-memory stages; eight consumer warps
+//                 sum the R tiles in f32 in rank order, round once and
+//                 store 16-byte words into out[o], then free the stage
+//                 (its empty mbarrier). R^2 blk read and R blk written, the
+//                 bytes of the bound: no landing slot, no flag, no second
+//                 pass. No block waits on another. Shapes that bulk copies
+//                 cannot take (a chunk not a multiple of 16 bytes, an
+//                 address not 16-byte aligned) run an element-wise pull
+//                 kernel with the same sums in the same order.
 // p2p ring shift: grid (tile, source s): the block stores its tile of in[s]
 //                 into out[(s + 1) % R] (store_async), fences and counts
 //                 itself in on the destination's flag (signal, release).
@@ -32,6 +39,7 @@
 
 #include <cstdint>
 
+#include "hopper_gemm.cuh"
 #include "pk.cuh"
 
 namespace {
@@ -62,7 +70,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// -- reduce-scatter: store-and-count, f32 sum in rank order --
+// -- reduce-scatter: pull and sum, f32 in rank order --
 
 template <typename T>
 struct Vec;  // VEC elements of T moved as one 16-byte word
@@ -77,6 +85,21 @@ struct Vec<__nv_bfloat16> {
   using W = uint4;
 };
 
+__device__ __forceinline__ void acc_set(float* a, float4 w) {
+  a[0] = w.x;
+  a[1] = w.y;
+  a[2] = w.z;
+  a[3] = w.w;
+}
+__device__ __forceinline__ void acc_set(float* a, uint4 w) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    a[2 * i] = f.x;
+    a[2 * i + 1] = f.y;
+  }
+}
 __device__ __forceinline__ void acc_add(float* a, float4 w) {
   a[0] += w.x;
   a[1] += w.y;
@@ -113,65 +136,104 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// VEC: 1 (element by element) or Vec<T>::N (16-byte words).
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-    pk_reduce_scatter_kernel(pk::PtrTable src, pk::PtrTable dst,
-                             pk::PtrTable land, int* __restrict__ flags, int R,
-                             long blk_elems, long chunk_elems,
-                             int tiles_per_chunk) {
-  __shared__ int s_last;
-  const int s = blockIdx.y, o = blockIdx.z;
-  const int c = blockIdx.x / tiles_per_chunk;
-  const int t = blockIdx.x - c * tiles_per_chunk;
-  const long begin = (long)c * chunk_elems + (long)t * TILE_VECS * VEC;
-  const long end = lmin(begin + (long)TILE_VECS * VEC,
-                        (long)(c + 1) * chunk_elems);
+constexpr int RS_CONSUMERS = 256;              // 8 warps sum and store
+constexpr int RS_THREADS = RS_CONSUMERS + 32;  // + the producer warp
+constexpr int RS_MAX_STAGES = 8;
+constexpr int RS_ELEM_THREADS = 256;
+
+// one TMA bulk copy of `bytes` (a multiple of 16) from global `src` into
+// shared `dst`, both 16-byte aligned, completing on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+struct RsArgs {
+  pk::PtrTable src, dst;
+  long blk, chunk, items;  // items: R owners x n_chunks x tiles a chunk
+  int R, tile, tiles_per_chunk, stages;
+};
+
+// The persistent pull-and-sum kernel: block b takes items b, b + grid, ...
+// (the same number of tiles each, give or take one). Item i is owner o =
+// i / (items / R), then chunk c and tile t of that owner's block. Stage j
+// of the ring holds R tiles of `tile` elements, source s at s * tile.
+template <typename T>
+__global__ void __launch_bounds__(RS_THREADS)
+    pk_rs_pull_kernel(const __grid_constant__ RsArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
   using W = typename Vec<T>::W;
-
-  // 1. store_async: my partial for owner o into o's landing slot s
-  const T* part = reinterpret_cast<const T*>(src.p[s]) + (long)o * blk_elems;
-  T* slot = reinterpret_cast<T*>(land.p[o]) + (long)s * blk_elems;
-  for (long i = begin + (long)threadIdx.x * VEC; i < end;
-       i += (long)THREADS * VEC) {
-    if constexpr (VEC == 1) {
-      slot[i] = part[i];
-    } else {
-      *reinterpret_cast<W*>(slot + i) =
-          __ldg(reinterpret_cast<const W*>(part + i));
-    }
-  }
-
-  // 2. signal arrival on the tile's flag; the last of R arrivals reduces
-  __threadfence();
-  __syncthreads();
-  int* flag = flags + ((long)o * gridDim.x + blockIdx.x);
+  constexpr int V = Vec<T>::N;
+  const long stage_elems = (long)p.R * p.tile;
+  T* ring = reinterpret_cast<T*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + (size_t)p.stages * stage_elems * sizeof(T));
+  const uint32_t full0 = hg::smem_addr(bars);
+  const uint32_t empty0 = hg::smem_addr(bars + p.stages);
   if (threadIdx.x == 0) {
-    const int old = pk::signal(flag, 1);
-    s_last = (old == R - 1);
-    if (s_last) pk::wait(flag);  // acquire: all R slots are visible now
+    for (int s = 0; s < p.stages; ++s) {
+      hg::mbar_init(full0 + 8 * s, 1);
+      hg::mbar_init(empty0 + 8 * s, RS_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (!s_last) return;
-
-  // 3. sum the R landing slots in rank order (f32), round once, store
-  const T* base = reinterpret_cast<const T*>(land.p[o]);
-  T* out = reinterpret_cast<T*>(dst.p[o]);
-  for (long i = begin + (long)threadIdx.x * VEC; i < end;
-       i += (long)THREADS * VEC) {
-    if constexpr (VEC == 1) {
-      float a = 0.f;
-      for (int r = 0; r < R; ++r) a += to_f32(base[(long)r * blk_elems + i]);
-      from_f32(out + i, a);
+  const bool producer = threadIdx.x >= RS_CONSUMERS;
+  if (producer && threadIdx.x != RS_CONSUMERS) return;
+  const long per_owner = p.items / p.R;
+  int j = 0;
+  for (long i = blockIdx.x; i < p.items; i += gridDim.x, ++j) {
+    const int stage = j % p.stages;
+    const uint32_t phase = (j / p.stages) & 1;
+    const int o = (int)(i / per_owner);
+    const long rest = i - o * per_owner;
+    const long c = rest / p.tiles_per_chunk;
+    const long begin = c * p.chunk + (rest - c * p.tiles_per_chunk) * p.tile;
+    const int len = (int)lmin(p.tile, (c + 1) * p.chunk - begin);
+    T* st = ring + stage * stage_elems;
+    if (producer) {
+      hg::mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      const uint32_t bytes = (uint32_t)len * sizeof(T);
+      hg::mbar_expect_tx(full0 + 8 * stage, (uint32_t)p.R * bytes);
+      for (int s = 0; s < p.R; ++s)
+        bulk_load(hg::smem_addr(st + (long)s * p.tile),
+                  reinterpret_cast<const T*>(p.src.p[s]) +
+                      (long)o * p.blk + begin,
+                  bytes, full0 + 8 * stage);
     } else {
-      float a[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) a[j] = 0.f;
-      for (int r = 0; r < R; ++r)
-        acc_add(a, __ldcg(reinterpret_cast<const W*>(
-                       base + (long)r * blk_elems + i)));
-      *reinterpret_cast<W*>(out + i) = pack(a, (W*)nullptr);
+      hg::mbar_wait(full0 + 8 * stage, phase);
+      T* out = reinterpret_cast<T*>(p.dst.p[o]) + begin;
+      for (int v = threadIdx.x; v < len / V; v += RS_CONSUMERS) {
+        float a[V];
+        acc_set(a, reinterpret_cast<const W*>(st)[v]);
+        for (int s = 1; s < p.R; ++s)
+          acc_add(a, reinterpret_cast<const W*>(st + (long)s * p.tile)[v]);
+        reinterpret_cast<W*>(out)[v] = pack(a, (W*)nullptr);
+      }
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) hg::mbar_arrive(empty0 + 8 * stage);
     }
+  }
+}
+
+// Element by element, for shapes the bulk copies cannot take: the same f32
+// sums in rank order, rounded once.
+template <typename T>
+__global__ void __launch_bounds__(RS_ELEM_THREADS)
+    pk_rs_pull_elem_kernel(pk::PtrTable src, pk::PtrTable dst, int R,
+                           long blk) {
+  const long total = (long)R * blk;
+  for (long e = (long)blockIdx.x * RS_ELEM_THREADS + threadIdx.x; e < total;
+       e += (long)gridDim.x * RS_ELEM_THREADS) {
+    const int o = (int)(e / blk);  // slot o of every source is at e
+    float a = to_f32(reinterpret_cast<const T*>(src.p[0])[e]);
+    for (int s = 1; s < R; ++s)
+      a += to_f32(reinterpret_cast<const T*>(src.p[s])[e]);
+    from_f32(reinterpret_cast<T*>(dst.p[o]) + (e - (long)o * blk), a);
   }
 }
 
@@ -208,28 +270,41 @@ bool aligned16(const unsigned long long* ptrs, int R) {
   return true;
 }
 
+// The bulk kernel's dynamic shared memory: the ring and its mbarriers.
+template <typename T>
+size_t rs_smem(int R, int tile, int stages) {
+  return (size_t)stages * R * tile * sizeof(T) + 2 * stages * sizeof(uint64_t);
+}
+
 template <typename T>
 int launch_rs(const unsigned long long* in, const unsigned long long* out,
-              const unsigned long long* landing, void* flags, int R,
-              long blk, long chunk, cudaStream_t stream) {
-  constexpr int V = Vec<T>::N;
-  const bool vec = chunk % V == 0 && blk % V == 0 && aligned16(in, R) &&
-                   aligned16(out, R) && aligned16(landing, R);
-  const int per_tile = TILE_VECS * (vec ? V : 1);
-  const int tiles = (int)((chunk + per_tile - 1) / per_tile);
-  const int n_chunks = (int)(blk / chunk);
-  dim3 grid(n_chunks * tiles, R, R);
-  cudaError_t err =
-      cudaMemsetAsync(flags, 0, sizeof(int) * grid.x * R, stream);
-  if (err != cudaSuccess) return (int)err;
-  pk::PtrTable s = pk::table(in, R), d = pk::table(out, R),
-               l = pk::table(landing, R);
-  if (vec)
-    pk_reduce_scatter_kernel<T, V><<<grid, THREADS, 0, stream>>>(
-        s, d, l, (int*)flags, R, blk, chunk, tiles);
-  else
-    pk_reduce_scatter_kernel<T, 1><<<grid, THREADS, 0, stream>>>(
-        s, d, l, (int*)flags, R, blk, chunk, tiles);
+              int R, long blk, long chunk, int tile, int grid, int stages,
+              cudaStream_t stream) {
+  pk::PtrTable s = pk::table(in, R), d = pk::table(out, R);
+  if (tile == 0) {  // element by element
+    pk_rs_pull_elem_kernel<T>
+        <<<grid, RS_ELEM_THREADS, 0, stream>>>(s, d, R, blk);
+    return (int)cudaGetLastError();
+  }
+  // bulk copies: 16-byte addresses and sizes, a tile inside a chunk
+  const long es = sizeof(T);
+  if (tile < 0 || (tile * es) % 16 || (chunk * es) % 16 ||
+      !aligned16(in, R) || !aligned16(out, R) || stages < 1 ||
+      stages > RS_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = rs_smem<T>(R, tile, stages);
+  static size_t granted = 0;  // the attribute this instantiation was given
+  if (smem > granted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        pk_rs_pull_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    granted = smem;
+  }
+  const int tpc = (int)((chunk + tile - 1) / tile);
+  RsArgs a{s, d, blk, chunk, (long)R * (blk / chunk) * tpc, R, tile, tpc,
+           stages};
+  pk_rs_pull_kernel<T><<<grid, RS_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -270,25 +345,26 @@ extern "C" int pk_all_gather(const unsigned long long* in_ptrs,
 }
 
 // in: R rank tables of R slots of blk elements (slot o = the partial for
-// owner o); out: R ranks of blk elements; landing: R owner slots of R x blk
-// elements; flags: one int per (owner, tile), zeroed here on the stream.
-// dtype: 0 = float32, 1 = bfloat16.
+// owner o); out: R ranks of blk elements. dtype: 0 = float32, 1 =
+// bfloat16. The launch is the plan's (kernels/pk_comm.py rs_plan): tile
+// elements a source a stage (0: the element-wise kernel), the persistent
+// grid and the ring's stages.
 extern "C" int pk_reduce_scatter(const unsigned long long* in_ptrs,
-                                 const unsigned long long* out_ptrs,
-                                 const unsigned long long* landing_ptrs,
-                                 void* flags, int R, long blk_elems,
-                                 long chunk_elems, int dtype, void* stream) {
+                                 const unsigned long long* out_ptrs, int R,
+                                 long blk_elems, long chunk_elems, int dtype,
+                                 int tile, int grid, int stages,
+                                 void* stream) {
   if (R < 1 || R > PK_MAX_RANKS || chunk_elems <= 0 ||
-      blk_elems % chunk_elems != 0)
+      blk_elems % chunk_elems != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
   if (blk_elems == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_rs<float>(in_ptrs, out_ptrs, landing_ptrs, flags, R,
-                            blk_elems, chunk_elems, st);
+    return launch_rs<float>(in_ptrs, out_ptrs, R, blk_elems, chunk_elems,
+                            tile, grid, stages, st);
   if (dtype == 1)
-    return launch_rs<__nv_bfloat16>(in_ptrs, out_ptrs, landing_ptrs, flags,
-                                    R, blk_elems, chunk_elems, st);
+    return launch_rs<__nv_bfloat16>(in_ptrs, out_ptrs, R, blk_elems,
+                                    chunk_elems, tile, grid, stages, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,38 +9,50 @@ with the chunk axis sequential and the (D, N) state carried across chunks
 in VMEM.
 
 CUDA route (``csrc/mamba_scan.cu``). On Hopper the recurrence is
-independent per (batch, channel), so a loop over t inside the block takes
-the place of the sequential grid axis and the state never leaves
-registers. One thread per (channel, state n) — 16 lanes a channel at the
-path's N = 16 — rather than one thread per channel: a B = 1 prefill then
-has B·D·N = 131,072 threads where one a channel would give 8,192 and leave
-half of the 132 SMs idle, and at decode each lane reads and writes one f32
-of the state, coalesced. y_t is the sum over the N lanes by a butterfly of
-warp shuffles. dt and x (read coalesced across the block's channels) and
-b, c (N values a step, shared by every channel of the row) are staged
-through shared memory for a run of steps; y is staged back and written
-coalesced. Inputs come in their own types — dt f32 with x, b, c bf16 (the
-model's path: softplus plus the f32 ``dt_bias`` promotes dt) or all f32
-(the tests); other mixes are refused — and are widened in the kernel,
-never cast on the host. The state is read and written through strides, so the
-serving cache's stacked per-rank layout (R, B, D/R, N) is used in place —
-one launch covers the channels of every virtual rank — and ``h_out`` lets
-the caller give the slab the new state goes to.
+independent per (batch, channel, state), so a loop over t inside the block
+takes the place of the sequential grid axis and the state never leaves
+registers. The recurrence stays sequential in t: a parallel scan over S
+would re-associate the products and break the bit identity below. A lane
+holds K = min(4, N) states of one channel (K independent FMA chains) and N
+/ K lanes make a channel, so y_t is the lane's K products summed in order
+and a butterfly of log2(N / K) warp shuffles (2 at the path's N = 16). A
+block covers a tile of 64 or 128 channels (``scan_plan``: 128 where the
+batch rows still give every SM a block, so each staged row of dt is 512
+contiguous bytes) of one batch row. Two kernels run the same step:
+
+* staged (prefill, S > 1): a producer warp loads each run of steps' dt, x
+  tiles [run x channels] and b, c [run x N] by TMA (3-D tensor maps,
+  zero-filled past S and D) into a ring of 3 shared-memory stages under
+  full and empty mbarriers, so the next runs load while this one is
+  scanned; y_t goes out through a double-buffered shared-memory tile in
+  16-byte words.
+* direct (decode, S = 1, and operands a tensor map cannot take: an address
+  or a row stride not a multiple of 16 bytes, b and c rows under 16 bytes,
+  D not a multiple of 4): no staging and no block barrier; each lane reads
+  its dt, x, b, c, a and state directly, steps, and writes y and the state.
+
+Inputs come in their own types — dt f32 with x, b, c bf16 (the model's
+path: softplus plus the f32 ``dt_bias`` promotes dt) or all f32 (the
+tests); other mixes are refused — and are widened in the kernel, never cast
+on the host. The state is read and written through strides, so the serving
+cache's stacked per-rank layout (R, B, D/R, N) is used in place — one
+launch covers the channels of every virtual rank — and ``h_out`` lets the
+caller give the slab the new state goes to.
 
 What bounds it on the card: bytes — dt, x and y over (B, S, D), b and c
-over (B, S, N), the state read once and written once; the B·S·D·N
-exponentials and products are below the f32 rate. This first version is
-far from that bound at prefill: each lane runs one serial chain over S,
-some 35 instructions a step with four dependent shuffles, so it is
-issue-bound (PERF.md has its times). It has no chunked parallel scan, no
-TMA load pipeline, and leaves ``x·D``, the ``silu(z)`` gate and the conv
-unfused.
+over (B, S, N), the state read once and written once — against the
+B·S·D·N exponentials and some dozen other instructions a state a step
+(the exponentials alone run at 16 an SM a clock). It leaves ``x·D``, the
+``silu(z)`` gate and the conv unfused. The kernel it replaced, one lane a
+state with shared-memory staging that no load overlapped, is
+``csrc/mamba_scan_yardstick.cu`` (a timing yardstick; the port never
+calls it).
 
-``chunk`` keeps the JAX signature: it is the run of steps staged at once
-(at most 128). Every channel runs the same rounded operations in the same
-order whatever it is, so the result is bit-identical for every chunk, and
-a scan over S + k steps equals a scan over S followed by k scans of one
-step chained through h0.
+``chunk`` keeps the JAX signature: it caps the run of steps a stage holds
+(``scan_plan``). Every channel runs the same rounded operations in the
+same order whatever the run, the stage or the kernel, so the result is
+bit-identical for every chunk, and a scan over S + k steps equals a scan
+over S followed by k scans of one step chained through h0.
 
 On a CPU tensor the wrapper runs the plain version (the sequential f32
 recurrence); on a CUDA tensor it launches the kernel or raises.
@@ -48,11 +60,91 @@ recurrence); on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import _build
 
 _TYPES = (torch.float32, torch.bfloat16)
+#: an H100 SXM's SMs (``kernels/matmul.py``): the default card of the plan
+H100_SMS = 132
+#: steps a stage holds at most, stages of the staged kernel's ring
+RUN_MAX = 32
+STAGES = 3
+#: consumer lanes a block at most (csrc/mamba_scan.cu SC_MAX_CONSUMERS)
+MAX_CONSUMERS = 512
+#: shared memory a block may take on an H100 (bytes)
+SMEM_LIMIT = 232448
+#: tensor-map strides stay below 2^40 bytes
+_TMA_STRIDE_LIMIT = 1 << 40
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How the kernel runs a scan of (B, S, D) with N states."""
+    staged: bool        # the TMA-staged kernel (else the direct one)
+    k_states: int       # states a lane
+    lanes: int          # lanes a channel, N / k_states
+    channels: int       # channels a block
+    run: int            # steps a stage (0: direct)
+    stages: int         # (0: direct)
+    threads: int        # consumer lanes, + a producer warp when staged
+    grid: tuple[int, int]   # (channel tiles, B)
+    smem_bytes: int     # dynamic shared memory a block
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def scan_plan(b: int, s: int, d: int, n: int, elsize: int, *,
+              chunk: int = 256, tma_ok: bool = True,
+              sms: int = H100_SMS) -> ScanPlan:
+    """The launch of a scan of (B, S, D) with N states (a power of two <=
+    32), x, b, c of ``elsize`` bytes, on a card of ``sms`` SMs. ``tma_ok``:
+    every operand's address and (step, batch) strides are 16-byte
+    multiples below 2^40 bytes (``_tma_ok``). The staged kernel takes S >
+    1, D a multiple of 4 and b, c rows of at least 16 bytes; anything else
+    runs the direct kernel. A block covers 128 channels where B·D/128
+    blocks still give every SM one and 128·N/K lanes fit, else 64; its
+    shared memory is ``stages`` stages of dt and x [run x channels] and b,
+    c [run x N] (each 128-byte aligned), two y tiles [run x channels] f32
+    and the mbarriers — the layout of ``ScLayout`` in the .cu."""
+    if n < 1 or n > 32 or n & (n - 1):
+        raise ValueError(f"the CUDA mamba_scan needs N a power of two <= 32, "
+                         f"got N = {n}")
+    k = min(4, n)
+    lanes = n // k
+    ch = 128 if (b * -(-d // 128) >= sms
+                 and 128 * lanes <= MAX_CONSUMERS) else 64
+    grid = (-(-d // ch), b)
+    staged = (tma_ok and s > 1 and d % 4 == 0 and n * elsize >= 16)
+    if not staged:
+        return ScanPlan(False, k, lanes, ch, 0, 0, ch * lanes, grid, 0)
+    run = max(1, min(chunk, RUN_MAX, s))
+    return ScanPlan(True, k, lanes, ch, run, STAGES, ch * lanes + 32, grid,
+                    staged_smem(ch, run, n, elsize, STAGES))
+
+
+def staged_smem(ch: int, run: int, n: int, elsize: int, stages: int) -> int:
+    """The staged kernel's shared memory (``ScLayout`` in the .cu)."""
+    stage = (_align128(run * ch * 4) + _align128(run * ch * elsize)
+             + 2 * _align128(run * n * elsize))
+    return stages * stage + 2 * run * ch * 4 + 2 * stages * 8
+
+
+def _tma_ok(*tensors) -> bool:
+    """Every tensor's address and its two outer strides (the batch stride
+    only where B > 1) are 16-byte multiples below 2^40 bytes."""
+    for t in tensors:
+        es = t.element_size()
+        strides = [t.stride(1)] + ([t.stride(0)] if t.shape[0] > 1 else [])
+        if t.data_ptr() % 16 or any(
+                st * es % 16 or not 0 < st * es < _TMA_STRIDE_LIMIT
+                for st in strides):
+            return False
+    return True
 
 
 def mamba_scan_plain(dt, b_ssm, c_ssm, x, a, h0):
@@ -101,7 +193,9 @@ def _check(dt, b_ssm, c_ssm, x, a, h0, h_out) -> None:
         raise ValueError("mamba_scan's inputs must be on one device")
 
 
-def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out):
+def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out, plan=None):
+    """Check and launch, at ``scan_plan``'s launch or at ``plan`` (the
+    probe's variants)."""
     bsz, s, d = dt.shape
     n = a.shape[-1]
     if n > 32 or n & (n - 1):
@@ -134,13 +228,17 @@ def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out):
         h0r, h0b = h0.stride(0), h0.stride(1)
         hor, hob = h_out.stride(0), h_out.stride(1)
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=dt.device)
+    p = plan or scan_plan(bsz, s, d, n, x.element_size(), chunk=int(chunk),
+                          tma_ok=_tma_ok(dt, x, b_ssm, c_ssm),
+                          sms=torch.cuda.get_device_properties(
+                              dt.device).multi_processor_count)
     err = _build.library().pk_mamba_scan(
         dt.data_ptr(), x.data_ptr(), b_ssm.data_ptr(), c_ssm.data_ptr(),
         a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-        bsz, s, d, n, int(chunk), int(low == torch.bfloat16),
+        bsz, s, d, n, int(low == torch.bfloat16),
         dt.stride(0), dt.stride(1), x.stride(0), x.stride(1),
         b_ssm.stride(0), b_ssm.stride(1), c_ssm.stride(0), c_ssm.stride(1),
-        dl, h0r, h0b, hor, hob,
+        dl, h0r, h0b, hor, hob, p.channels, p.run, p.stages, int(p.staged),
         torch.cuda.current_stream(dt.device).cuda_stream)
     _build.check(err, "pk_mamba_scan")
     mamba_scan.launches += 1

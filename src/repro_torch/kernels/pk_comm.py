@@ -19,17 +19,27 @@ spin-waits on one not yet resident deadlocks, so neither kernel waits:
   output through the pointer tables (one-way stores, 16-byte words when
   the rows align). A copy is exact, so the result is bit-identical for
   every ``n_chunks``.
-* reduce-scatter: the store-and-count scheme of the GEMM+AR kernel. Each
-  (tile, source s, owner o) block stores its partial for owner o into o's
-  landing slot s, fences and adds one to the tile's flag
-  (``atom.add.release.gpu``); the block that arrives last acquires
-  (``ld.acquire.gpu``), sums the R partials in rank order in f32 and rounds
-  once to the output dtype. Unlike the TPU ring, which rounds at each hop
-  in ``x.dtype`` and sums block b in ring order (rank b-1 first), the sum
-  here is f32 in rank order — fixed, so independent of arrival order and of
-  ``n_chunks``. The flags are zeroed on the stream before each launch;
-  landing slots and flags are scratch cached per (device, stream, R, shard
-  size, dtype), so launches that share them run one after another.
+* reduce-scatter: pull and sum. The TPU ring's running accumulator
+  becomes one pass over the partials: a persistent grid (``rs_plan``: one
+  block an SM, or two where that fills the card) walks the (owner o, tile)
+  items, tiles never crossing a chunk. For each item one producer thread
+  issues R TMA bulk copies (``cp.async.bulk``) of the tile of ``x[s, o]``,
+  s = 0..R-1, into a ring of shared-memory stages (full and empty
+  mbarriers); eight consumer warps sum the R tiles in f32 in rank order,
+  round once to the output dtype and store 16-byte words into ``out[o]``.
+  Unlike the TPU ring, which rounds at each hop in ``x.dtype`` and sums
+  block b in ring order (rank b-1 first), the sum here is f32 in rank order
+  — ``reduce_scatter_plain``'s arithmetic, so the result is bit-identical
+  to it and independent of ``n_chunks``. No block waits on another, so a
+  launch cannot deadlock; the stream orders it after the writes of its
+  sources. The kernel moves R²·blk read and R·blk written, the bytes its
+  bound counts: no landing slot, no flag, no second pass (the
+  store-and-count kernel it replaced, ``csrc/pk_comm_yardstick.cu``, also
+  wrote and re-read R²·blk through landing slots). Shapes bulk copies
+  cannot take (a chunk not a multiple of 16 bytes, an address not 16-byte
+  aligned) run an element-wise pull kernel with the same sums. On a
+  multi-GPU node the same kernel would read peer pointers from the pointer
+  table after a barrier between the cards; that is not built.
 
 * p2p ring shift (one hop of ring attention's KV rotation): the TPU
   kernel waits on a neighbour barrier, then DMAs its whole buffer into the
@@ -48,8 +58,8 @@ spin-waits on one not yet resident deadlocks, so neither kernel waits:
 ``n_chunks`` splits a rank's rows into chunks (``fit_chunks``'
 largest-divisor fallback, as in JAX); tiles never cross a chunk. What bounds
 both on the card: bytes — the all-gather reads R·blk and writes R²·blk, the
-reduce-scatter reads R²·blk and writes R·blk (plus the landing round trip,
-R²·blk written and read again); neither does arithmetic worth counting. On
+reduce-scatter reads R²·blk and writes R·blk; neither does arithmetic worth
+counting. On
 one card the pointer tables hold R slices of one allocation; a multi-GPU
 node feeds the same kernels peer pointers.
 
@@ -64,6 +74,8 @@ or raise.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import pgl
@@ -75,10 +87,21 @@ MAX_RANKS = 8
 #: vectors one block moves (csrc/pk_comm.cu TILE_VECS)
 TILE_VECS = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-# reduce-scatter landing slots + arrival flags, by (device, stream, R, blk,
-# dtype); the flags grow to the most tiles a launch has asked for
-_SCRATCH: dict[tuple, list[torch.Tensor]] = {}
+#: an H100 SXM's SMs (``kernels/matmul.py``): the default card of the plan
+H100_SMS = 132
+#: the reduce-scatter's bulk kernel: consumer threads + a producer warp,
+#: bytes of R source tiles a stage, stages, blocks an SM (csrc/pk_comm.cu)
+RS_THREADS = 256 + 32
+RS_STAGE_BYTES = 32768
+RS_STAGES = 3
+RS_PER_SM = 2
+#: the smallest tile a source the plan cuts a small shape into, in bytes
+RS_MIN_TILE_BYTES = 2048
+#: the element-wise kernel's block, and the most of its blocks an SM
+RS_ELEM_THREADS = 256
+RS_ELEM_PER_SM = 8
+#: shared memory a block may take on an H100 (bytes)
+SMEM_LIMIT = 232448
 # p2p arrival flags (MAX_RANKS ints) by (device, stream)
 _P2P_FLAGS: dict[tuple, torch.Tensor] = {}
 
@@ -106,6 +129,10 @@ def _chunks(rows: int, n_chunks: int) -> int:
     if n_chunks < 1:
         raise ValueError("n_chunks must be >= 1")
     return fit_chunks(rows, n_chunks) if rows else 1
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda(x: torch.Tensor, name: str) -> None:
@@ -142,16 +169,51 @@ def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
 ring_all_gather.launches = 0
 
 
-def _scratch(device, stream: int, r: int, blk: int, dtype, n_chunks: int):
-    key = (device, stream, r, blk, dtype)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = [torch.empty((r, r, blk), dtype=dtype, device=device),
-                         torch.empty((0,), dtype=torch.int32, device=device)]
-    tiles = n_chunks * -(-(blk // n_chunks) // TILE_VECS)  # the most it uses
-    if _SCRATCH[key][1].numel() < r * tiles:
-        _SCRATCH[key][1] = torch.empty((r * tiles,), dtype=torch.int32,
-                                       device=device)
-    return _SCRATCH[key]
+@dataclasses.dataclass(frozen=True)
+class RsPlan:
+    """How the reduce-scatter kernel runs R owners' blocks of ``blk``
+    elements in chunks of ``chunk``."""
+    bulk: bool          # TMA bulk copies (else the element-wise kernel)
+    tile: int           # elements a source a stage (0: element-wise)
+    tiles_per_chunk: int
+    items: int          # (owner, tile) work items; element-wise: outputs
+    grid: int           # persistent blocks launched
+    threads: int
+    stages: int
+    smem_bytes: int     # dynamic shared memory a block
+
+
+def rs_plan(r: int, blk: int, chunk: int, elsize: int, *, aligned: bool,
+            sms: int = H100_SMS, stage_bytes: int = RS_STAGE_BYTES,
+            stages: int = RS_STAGES, per_sm: int = RS_PER_SM) -> RsPlan:
+    """The launch of a reduce-scatter of R ranks' (R, blk) partials in
+    chunks of ``chunk`` elements of ``elsize`` bytes on a card of ``sms``
+    SMs. Bulk copies take 16-byte aligned addresses (``aligned``: every
+    rank's input and output) and chunks of a multiple of 16 bytes; a stage
+    holds R tiles of about ``stage_bytes`` together, halved (down to
+    ``RS_MIN_TILE_BYTES`` a source) while the items would not give every
+    block of the grid (``per_sm`` blocks an SM) one. Item i is owner i //
+    (items / R), then chunk and tile; block b takes items b, b + grid, ...
+    The keywords after ``sms`` exist for the probe that chose them."""
+    if r < 1 or chunk < 1 or blk % chunk:
+        raise ValueError(f"rs_plan: R={r}, blk={blk}, chunk={chunk}")
+    if not (aligned and chunk * elsize % 16 == 0):
+        grid = max(1, min(-(-r * blk // RS_ELEM_THREADS),
+                          RS_ELEM_PER_SM * sms))
+        return RsPlan(False, 0, 0, r * blk, grid, RS_ELEM_THREADS, 0, 0)
+    tile_bytes = stage_bytes // r // 16 * 16
+    cap = per_sm * sms
+
+    def items(tb):
+        return r * (blk // chunk) * -(-chunk * elsize // tb)
+    while tile_bytes // 2 >= RS_MIN_TILE_BYTES and items(tile_bytes) < cap:
+        tile_bytes = tile_bytes // 2 // 16 * 16
+    tile = min(tile_bytes // elsize, chunk)
+    tile_bytes = tile * elsize
+    tpc = -(-chunk // tile)
+    n = r * (blk // chunk) * tpc
+    return RsPlan(True, tile, tpc, n, max(1, min(n, cap)), RS_THREADS,
+                  stages, stages * r * tile_bytes + 2 * stages * 8)
 
 
 def ring_reduce_scatter(x: torch.Tensor, *,
@@ -161,7 +223,6 @@ def ring_reduce_scatter(x: torch.Tensor, *,
     if x.dim() < 2 or x.shape[0] != x.shape[1]:
         raise ValueError(f"ring_reduce_scatter takes stacked partials "
                          f"(R, R, ...), got {tuple(x.shape)}")
-    r = x.shape[0]
     rows = x.shape[2] if x.dim() > 2 else 1
     n_chunks = _chunks(rows, n_chunks)
     if x.device.type == "cpu":
@@ -170,17 +231,24 @@ def ring_reduce_scatter(x: torch.Tensor, *,
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"the CUDA reduce-scatter takes float32 or "
                          f"bfloat16, not {x.dtype}")
-    x = x.contiguous()
+    return _reduce_scatter_cuda(x.contiguous(), n_chunks)
+
+
+def _reduce_scatter_cuda(x: torch.Tensor, n_chunks: int,
+                         plan: RsPlan | None = None) -> torch.Tensor:
+    """Launch the reduce-scatter kernel on contiguous CUDA partials, at
+    ``rs_plan``'s launch or at ``plan`` (the probe's variants)."""
+    r = x.shape[0]
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
     blk = x[0, 0].numel()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    landing, flags = _scratch(x.device, stream, r, blk, x.dtype, n_chunks)
-    lib = _build.library()
-    err = lib.pk_reduce_scatter(
-        _build.host_table(pgl.pointer_table(x)),
-        _build.host_table(pgl.pointer_table(out)),
-        _build.host_table(pgl.pointer_table(landing)), flags.data_ptr(), r,
-        blk, blk // n_chunks, _DTYPE_CODE[x.dtype], stream)
+    ins, outs = pgl.pointer_table(x), pgl.pointer_table(out)
+    p = plan or rs_plan(r, blk, blk // n_chunks, x.element_size(),
+                        aligned=all(a % 16 == 0 for a in ins + outs),
+                        sms=_sm_count(x.device))
+    err = _build.library().pk_reduce_scatter(
+        _build.host_table(ins), _build.host_table(outs), r, blk,
+        blk // n_chunks, _DTYPE_CODE[x.dtype], p.tile, p.grid, p.stages,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pk_reduce_scatter")
     ring_reduce_scatter.launches += 1
     return out

@@ -81,7 +81,8 @@
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint, so the library links the runtime only,
-// and are passed as __grid_constant__ kernel parameters.
+// and are passed as __grid_constant__ kernel parameters. The mbarrier, TMA
+// and encode helpers are in tma.cuh.
 #pragma once
 
 #include <cstdint>
@@ -89,6 +90,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tma.cuh"
 
 #define HG_MAX_MAPS 8
 #define HG_BK 64                // K a stage: 64 bf16 = one 128-byte row
@@ -127,79 +130,6 @@ __device__ __forceinline__ HgProblem problem(int z, int R, int M, int mode) {
   const int d = z / R, i = z - d * R;
   const int s = (d - i + R) % R;
   return {s, d, d, s * M};
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the barrier's phase of parity `parity` has completed; a wait
-// that outlasts ~2^34 cycles (seconds) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  } while (!done);
-}
-
-// one TMA box at (c0 innermost, c1) into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// one box of a 3-D map at (c0 innermost, c1, c2), completing on bar
-__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-// one box of a 4-D map at (c0 innermost, c1, c2, c3), completing on bar
-__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2, int c3,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
 }
 
 // a 128B-swizzled shared-memory matrix descriptor (lbo, sbo in bytes)
@@ -707,31 +637,6 @@ __global__ void __launch_bounds__((NC + 1) * 128, NC == 1 ? 2 : 1)
 }
 
 // ---- host side ------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // A bf16 tensor map of `rank` (2 to 5) dimensions with 128-byte swizzle:
 // dims innermost first, strides (bytes) of the outer ones, one box.

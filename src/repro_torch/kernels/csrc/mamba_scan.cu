@@ -38,7 +38,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "hopper_gemm.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -121,6 +121,20 @@ __device__ __forceinline__ void lds_k(const __nv_bfloat16* p, float (&v)[K]) {
   }
 }
 
+#ifdef PK_SCAN_EX2
+// a probe's variant: exp(v) as ex2.approx.ftz of v * log2(e), with a
+// scaled by log2(e) once when it is loaded
+constexpr float kAScale = 1.4426950408889634f;
+__device__ __forceinline__ float exp_of(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+#else
+constexpr float kAScale = 1.f;
+__device__ __forceinline__ float exp_of(float v) { return expf(v); }
+#endif
+
 // One step of the K states of one channel that this lane holds; returns
 // the channel's y_t, the same bits in each of its L = N / K lanes.
 template <int N>
@@ -134,7 +148,7 @@ __device__ __forceinline__ float scan_step(float (&h)[k_states(N)],
   float y = 0.f;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const float abar = expf(__fmul_rn(dtv, av[j]));
+    const float abar = exp_of(__fmul_rn(dtv, av[j]));
     h[j] = __fmaf_rn(abar, h[j], __fmul_rn(dtx, bv[j]));
     y = j == 0 ? __fmul_rn(h[j], cv[j]) : __fmaf_rn(h[j], cv[j], y);
   }
@@ -164,18 +178,35 @@ struct ScLane {
       const int r = d / p.dl, jj = d - r * p.dl;
       const long h0_off = r * p.h0r + bi * p.h0b + (long)jj * N + n0;
       ho = r * p.hor + bi * p.hob + (long)jj * N + n0;
+      const float* a = p.a + (long)d * N + n0;
+      if (K == 4 && aligned16(a) && aligned16(p.h0 + h0_off)) {
+        const float4 va = __ldg(reinterpret_cast<const float4*>(a));
+        const float4 vh = *reinterpret_cast<const float4*>(p.h0 + h0_off);
+        av[0] = va.x, av[1 % K] = va.y, av[2 % K] = va.z, av[3 % K] = va.w;
+        h[0] = vh.x, h[1 % K] = vh.y, h[2 % K] = vh.z, h[3 % K] = vh.w;
+      } else {
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        av[j] = __ldg(p.a + (long)d * N + n0 + j);
-        h[j] = p.h0[h0_off + j];
+        for (int j = 0; j < K; ++j) {
+          av[j] = __ldg(a + j);
+          h[j] = p.h0[h0_off + j];
+        }
       }
+#pragma unroll
+      for (int j = 0; j < K; ++j) av[j] = __fmul_rn(av[j], kAScale);
     }
   }
   __device__ __forceinline__ void store_state(const ScArgs& p) const {
-    if (live) {
+    if (!live) return;
+    if (K == 4 && aligned16(p.h_out + ho)) {
+      *reinterpret_cast<float4*>(p.h_out + ho) =
+          make_float4(h[0], h[1 % K], h[2 % K], h[3 % K]);
+    } else {
 #pragma unroll
       for (int j = 0; j < K; ++j) p.h_out[ho + j] = h[j];
     }
+  }
+  static __device__ __forceinline__ bool aligned16(const float* q) {
+    return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
   }
 };
 

@@ -155,21 +155,51 @@ def test_ring_all_gather_kernel(cuda, r, shape, dtype):
     assert PK.ring_all_gather.launches == before + 4
 
 
+def _chip_smoke():
+    """chip_smoke.py, for the yardstick kernels' wrappers (the port never
+    calls them)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("r,shape,dtype", [
     (2, (4, 24), torch.bfloat16), (4, (3, 5), torch.bfloat16),
     (8, (6, 7), torch.float32), (4, (16, 2048), torch.float32),
-    (2, (4, 1024, 1408), torch.bfloat16)])
+    (2, (4, 1024, 1408), torch.bfloat16),
+    (4, (512, 4, 1408), torch.bfloat16),    # the MLP shard over 4 ranks
+    (8, (256, 4, 1408), torch.bfloat16),    # and over 8
+    (2, (5, 4, 7), torch.bfloat16),         # 280-byte blocks: element-wise
+    (2, (1000, 4, 1408), torch.bfloat16)])  # items not a multiple of grid
 def test_ring_reduce_scatter_kernel(cuda, r, shape, dtype):
     """f32 sums in rank order, rounded once: the plain version's arithmetic,
-    so the results are equal, for every chunking and launch."""
+    so the results are equal bit for bit, for every chunking and launch,
+    and equal to the store-and-count kernel the RS ran on before."""
     from repro_torch.kernels import pk_comm as PK
     x = torch.randn((r, r, *shape), device=cuda).to(dtype)
     want = PK.reduce_scatter_plain(x)
+    before_kernel = _chip_smoke().mm_tile_reduce_scatter(x)
+    blk, es = x[0, 0].numel(), x.element_size()
+    p = PK.rs_plan(r, blk, blk, es, aligned=blk * es % 16 == 0,
+                   sms=torch.cuda.get_device_properties(cuda)
+                   .multi_processor_count)
+    if shape == (5, 4, 7):
+        assert not p.bulk
+    if shape == (1000, 4, 1408):
+        assert p.bulk and p.items % p.grid
+    before = PK.ring_reduce_scatter.launches
     for nc in (1, 3, 4, 1):
         got = PK.ring_reduce_scatter(x, n_chunks=nc)
         torch.cuda.synchronize()
         assert got.shape == (r, *shape) and got.dtype == dtype
-        assert torch.equal(got, want)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        assert torch.equal(got.view(torch.uint8),
+                           before_kernel.view(torch.uint8))
+    assert PK.ring_reduce_scatter.launches == before + 4
 
 
 @pytest.mark.parametrize("g,c,k,n", [(3, 1, 40, 72), (5, 70, 136, 64),
@@ -425,11 +455,18 @@ def _scan_inputs(dev, b, s, d, n, *, bf16, seed=0, r=None):
     (8, 1, 8192, 16, 4, True),          # decode
     (2, 129, 200, 16, None, True),      # ragged channel block, global state
     (3, 70, 96, 8, 2, False),           # N = 8 (the reduced configs), f32
-    (1, 5, 64, 32, None, False),        # N = 32: one channel a warp
+    (1, 5, 64, 32, None, False),        # N = 32: 8 lanes a channel
+    (1, 405, 8192, 16, 4, True),        # B = 1 prefill: 64-channel tiles
+    (2, 70, 200, 8, None, True),        # N = 8 bf16, ragged channel tile
+    (2, 70, 200, 32, None, False),      # N = 32 f32, ragged channel tile
+    (2, 33, 98, 16, None, True),        # D % 4 != 0: the direct kernel
 ])
 def test_mamba_scan_kernel(cuda, b, s, d, n, r, bf16):
     from repro_torch.kernels import mamba_scan as MS
     args = _scan_inputs(cuda, b, s, d, n, bf16=bf16, r=r)
+    p = MS.scan_plan(b, s, d, n, args[3].element_size(),
+                     tma_ok=MS._tma_ok(*args[:4]))
+    assert p.staged == (s > 1 and d % 4 == 0)
     before = MS.mamba_scan.launches
     y, h = MS.mamba_scan(*args)
     torch.cuda.synchronize()
@@ -452,13 +489,16 @@ def test_mamba_scan_kernel_refuses_other_dtype_mixes(cuda):
 
 
 def test_mamba_scan_kernel_bit_identical_over_chunks_and_chaining(cuda):
-    """Every chunk gives the same bits, and S + k steps in one launch equal
-    S steps then k single steps chained through h0 (written in place into
-    a slab of a larger state tensor, as the decode step does)."""
+    """Every chunk gives the same bits, and S + k steps in one launch (the
+    staged kernel) equal S steps then k single steps (the direct kernel,
+    the decode path) chained through h0 (written in place into a slab of a
+    larger state tensor, as the decode step does)."""
     from repro_torch.kernels import mamba_scan as MS
     s, k = 61, 4
     dt, bm, cm, x, a, h0 = _scan_inputs(cuda, 2, s + k, 512, 16, bf16=True,
                                         r=4, seed=1)
+    assert MS.scan_plan(2, s + k, 512, 16, 2).staged
+    assert not MS.scan_plan(2, 1, 512, 16, 2).staged
     full = MS.mamba_scan(dt, bm, cm, x, a, h0)
     for chunk in (1, 64, 256):
         y, h = MS.mamba_scan(dt, bm, cm, x, a, h0, chunk=chunk)

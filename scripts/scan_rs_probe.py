@@ -21,8 +21,8 @@ exponentials at 16 an SM a clock, at the card's highest SM clock as
 ``nvidia-smi`` reports it). ``--variants`` also times the launch's design
 choices at the timed rows (RS: blocks an SM, bytes a stage, stages; scan:
 channels a block, steps a stage, stages) and the kernel library built with
-each define of ``DEFINES`` (``ms_variant``: a design the sources keep
-under a macro while it is measured). Prints the card's name and power
+each set of macros of ``DEFINES`` (``ms_<macros>``: a design the sources
+keep under a macro while it is measured). Prints the card's name and power
 limit, then one JSON line a row. Needs a CUDA device; exits 1 without one.
 """
 
@@ -39,9 +39,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-#: kernel -> the macros of its variant library (``_build.library(*defines)``)
-DEFINES = {"ring_reduce_scatter": ("PK_RS_BULK_STORE",),
-           "mamba_scan": ("PK_SCAN_EX2",)}
+#: kernel -> the variant libraries' macros (``_build.library(*defines)``)
+DEFINES = {"ring_reduce_scatter": [],
+           "mamba_scan": [("PK_SCAN_K8",), ("PK_SCAN_UNROLL2",),
+                          ("PK_SCAN_K8", "PK_SCAN_UNROLL2")]}
 
 
 def variant(defines, fn):
@@ -122,12 +123,12 @@ def main() -> int:
                         partial(CS.mm_tile_reduce_scatter, x)),
                     library_ms=CS.time_ms(lambda: x.sum(0)),
                     bound_ms=CS.bound_ms(nbytes, 0.0)[0])
-                if args.variants:
-                    defs = DEFINES["ring_reduce_scatter"]
+                for defs in DEFINES["ring_reduce_scatter"] \
+                        if args.variants else ():
                     run = variant(defs, partial(PK.ring_reduce_scatter, x))
                     if not same_bits(run(), want):
                         raise AssertionError(f"RS {defs}: bits differ")
-                    row.update(variant=defs, ms_variant=CS.time_ms(run))
+                    row["ms_" + "+".join(defs)] = CS.time_ms(run)
             emit(row)
             if (args.variants and not args.quick and (r, n) == (2, 1408)
                     and dtype == torch.bfloat16):
@@ -184,13 +185,13 @@ def main() -> int:
                                      CS.PEAK_F32_FLOPS)[0],
                 exp_floor_ms=CS.exp_floor_ms(b, s, d, n, sms, clock),
                 max_sm_clock_mhz=clock)
-            if args.variants:
-                defs = DEFINES["mamba_scan"]
+            for defs in DEFINES["mamba_scan"] if args.variants else ():
                 run = variant(defs, lambda: MS.mamba_scan(*a_))
                 vy, vh = run()
-                row.update(variant=defs, ms_variant=CS.time_ms(run),
-                           rel_err_y_variant=CS.rel_err(vy, wy),
-                           rel_err_h_variant=CS.rel_err(vh, wh))
+                tag = "+".join(defs)
+                row.update({"ms_" + tag: CS.time_ms(run),
+                            "rel_err_" + tag: max(CS.rel_err(vy, wy),
+                                                  CS.rel_err(vh, wh))})
         emit(row)
         if args.variants and not args.quick and (b, s) == (4, 405):
             for ch in (64, 128):

@@ -60,7 +60,14 @@ struct ScArgs {
   long h0r, h0b, hor, hob;                      // state (rank, batch)
 };
 
-__host__ __device__ constexpr int k_states(int n) { return n < 4 ? n : 4; }
+#ifdef PK_SCAN_K8
+constexpr int kMaxStates = 8;  // a probe's variant
+#else
+constexpr int kMaxStates = 4;
+#endif
+__host__ __device__ constexpr int k_states(int n) {
+  return n < kMaxStates ? n : kMaxStates;
+}
 
 __host__ __device__ inline int align128(int bytes) {
   return (bytes + 127) / 128 * 128;
@@ -93,7 +100,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 // K consecutive values from shared memory, aligned to K elements
 template <int K>
 __device__ __forceinline__ void lds_k(const float* p, float (&v)[K]) {
-  if constexpr (K == 4) {
+  if constexpr (K == 8) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    const float4 u = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+    v[4] = u.x, v[5] = u.y, v[6] = u.z, v[7] = u.w;
+  } else if constexpr (K == 4) {
     const float4 w = *reinterpret_cast<const float4*>(p);
     v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
   } else if constexpr (K == 2) {
@@ -105,7 +117,16 @@ __device__ __forceinline__ void lds_k(const float* p, float (&v)[K]) {
 }
 template <int K>
 __device__ __forceinline__ void lds_k(const __nv_bfloat16* p, float (&v)[K]) {
-  if constexpr (K == 4) {
+  if constexpr (K == 8) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const unsigned q[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&q[i]));
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  } else if constexpr (K == 4) {
     const uint2 w = *reinterpret_cast<const uint2*>(p);
     const float2 lo = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&w.x));
@@ -121,19 +142,15 @@ __device__ __forceinline__ void lds_k(const __nv_bfloat16* p, float (&v)[K]) {
   }
 }
 
-#ifdef PK_SCAN_EX2
-// a probe's variant: exp(v) as ex2.approx.ftz of v * log2(e), with a
-// scaled by log2(e) once when it is loaded
-constexpr float kAScale = 1.4426950408889634f;
-__device__ __forceinline__ float exp_of(float v) {
+// exp(v) as ex2.approx.ftz of v * log2(e): a is scaled by log2(e) once
+// when it is loaded, so a state's step spends one FMUL and one MUFU.EX2 on
+// its exponential (the accurate expf took eight instructions)
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_approx(float v) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
   return r;
 }
-#else
-constexpr float kAScale = 1.f;
-__device__ __forceinline__ float exp_of(float v) { return expf(v); }
-#endif
 
 // One step of the K states of one channel that this lane holds; returns
 // the channel's y_t, the same bits in each of its L = N / K lanes.
@@ -148,7 +165,7 @@ __device__ __forceinline__ float scan_step(float (&h)[k_states(N)],
   float y = 0.f;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const float abar = exp_of(__fmul_rn(dtv, av[j]));
+    const float abar = exp2_approx(__fmul_rn(dtv, av[j]));
     h[j] = __fmaf_rn(abar, h[j], __fmul_rn(dtx, bv[j]));
     y = j == 0 ? __fmul_rn(h[j], cv[j]) : __fmaf_rn(h[j], cv[j], y);
   }
@@ -179,11 +196,17 @@ struct ScLane {
       const long h0_off = r * p.h0r + bi * p.h0b + (long)jj * N + n0;
       ho = r * p.hor + bi * p.hob + (long)jj * N + n0;
       const float* a = p.a + (long)d * N + n0;
-      if (K == 4 && aligned16(a) && aligned16(p.h0 + h0_off)) {
-        const float4 va = __ldg(reinterpret_cast<const float4*>(a));
-        const float4 vh = *reinterpret_cast<const float4*>(p.h0 + h0_off);
-        av[0] = va.x, av[1 % K] = va.y, av[2 % K] = va.z, av[3 % K] = va.w;
-        h[0] = vh.x, h[1 % K] = vh.y, h[2 % K] = vh.z, h[3 % K] = vh.w;
+      if (K % 4 == 0 && aligned16(a) && aligned16(p.h0 + h0_off)) {
+#pragma unroll
+        for (int q = 0; q < K; q += 4) {
+          const float4 va = __ldg(reinterpret_cast<const float4*>(a + q));
+          const float4 vh =
+              *reinterpret_cast<const float4*>(p.h0 + h0_off + q);
+          av[q] = va.x, av[(q + 1) % K] = va.y, av[(q + 2) % K] = va.z,
+          av[(q + 3) % K] = va.w;
+          h[q] = vh.x, h[(q + 1) % K] = vh.y, h[(q + 2) % K] = vh.z,
+          h[(q + 3) % K] = vh.w;
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < K; ++j) {
@@ -192,14 +215,16 @@ struct ScLane {
         }
       }
 #pragma unroll
-      for (int j = 0; j < K; ++j) av[j] = __fmul_rn(av[j], kAScale);
+      for (int j = 0; j < K; ++j) av[j] = __fmul_rn(av[j], kLog2e);
     }
   }
   __device__ __forceinline__ void store_state(const ScArgs& p) const {
     if (!live) return;
-    if (K == 4 && aligned16(p.h_out + ho)) {
-      *reinterpret_cast<float4*>(p.h_out + ho) =
-          make_float4(h[0], h[1 % K], h[2 % K], h[3 % K]);
+    if (K % 4 == 0 && aligned16(p.h_out + ho)) {
+#pragma unroll
+      for (int q = 0; q < K; q += 4)
+        *reinterpret_cast<float4*>(p.h_out + ho + q) = make_float4(
+            h[q], h[(q + 1) % K], h[(q + 2) % K], h[(q + 3) % K]);
     } else {
 #pragma unroll
       for (int j = 0; j < K; ++j) p.h_out[ho + j] = h[j];
@@ -296,6 +321,9 @@ __global__ void __launch_bounds__(SC_MAX_CONSUMERS + 32)
     const T* s_b = reinterpret_cast<const T*>(st + lay.o_b) + ln.n0;
     const T* s_c = reinterpret_cast<const T*>(st + lay.o_c) + ln.n0;
     float* yt = reinterpret_cast<float*>(smem + lay.o_y) + (j & 1) * RUN * CH;
+#ifdef PK_SCAN_UNROLL2
+#pragma unroll 2
+#endif
     for (int t = 0; t < len; ++t) {
       float bv[K], cv[K];
       lds_k<K>(s_b + t * N, bv);

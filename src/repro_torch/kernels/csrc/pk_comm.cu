@@ -152,22 +152,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-#ifdef PK_RS_BULK_STORE
-// a probe's variant: the sums go back over source 0's tile and one thread
-// writes the tile with a TMA bulk store
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-      "cp.async.bulk.commit_group;" ::"l"(dst),
-      "r"(src), "r"(bytes)
-      : "memory");
-}
-constexpr bool kBulkStore = true;
-#else
-constexpr bool kBulkStore = false;
-#endif
-
 struct RsArgs {
   pk::PtrTable src, dst;
   long blk, chunk, items;  // items: R owners x n_chunks x tiles a chunk
@@ -193,7 +177,7 @@ __global__ void __launch_bounds__(RS_THREADS)
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
       hg::mbar_init(full0 + 8 * s, 1);
-      hg::mbar_init(empty0 + 8 * s, kBulkStore ? 1 : RS_CONSUMERS / 32);
+      hg::mbar_init(empty0 + 8 * s, RS_CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -223,32 +207,17 @@ __global__ void __launch_bounds__(RS_THREADS)
     } else {
       hg::mbar_wait(full0 + 8 * stage, phase);
       T* out = reinterpret_cast<T*>(p.dst.p[o]) + begin;
-      W* dst = kBulkStore ? reinterpret_cast<W*>(st) : reinterpret_cast<W*>(out);
       for (int v = threadIdx.x; v < len / V; v += RS_CONSUMERS) {
         float a[V];
         acc_set(a, reinterpret_cast<const W*>(st)[v]);
         for (int s = 1; s < p.R; ++s)
           acc_add(a, reinterpret_cast<const W*>(st + (long)s * p.tile)[v]);
-        dst[v] = pack(a, (W*)nullptr);
+        reinterpret_cast<W*>(out)[v] = pack(a, (W*)nullptr);
       }
-#ifdef PK_RS_BULK_STORE
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      asm volatile("bar.sync 1, %0;" ::"r"(RS_CONSUMERS) : "memory");
-      if (threadIdx.x == 0) {
-        bulk_store(out, hg::smem_addr(st), (uint32_t)len * sizeof(T));
-        // the previous item's stage is free once its store has read it
-        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-        if (j > 0) hg::mbar_arrive(empty0 + 8 * ((j - 1) % p.stages));
-      }
-#else
       __syncwarp();
       if ((threadIdx.x & 31) == 0) hg::mbar_arrive(empty0 + 8 * stage);
-#endif
     }
   }
-#ifdef PK_RS_BULK_STORE
-  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-#endif
 }
 
 // Element by element, for shapes the bulk copies cannot take: the same f32

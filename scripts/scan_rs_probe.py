@@ -41,8 +41,7 @@ sys.path.insert(0, ROOT)
 
 #: kernel -> the variant libraries' macros (``_build.library(*defines)``)
 DEFINES = {"ring_reduce_scatter": [],
-           "mamba_scan": [("PK_SCAN_K8",), ("PK_SCAN_UNROLL2",),
-                          ("PK_SCAN_K8", "PK_SCAN_UNROLL2")]}
+           "mamba_scan": [("PK_SCAN_K8",)]}
 
 
 def variant(defines, fn):

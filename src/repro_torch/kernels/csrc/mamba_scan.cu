@@ -310,27 +310,26 @@ __global__ void __launch_bounds__(SC_MAX_CONSUMERS + 32)
   }
 
   ScLane<N> ln(p, threadIdx.x, bi);
-  const int ch = ln.ch;
+  float* const y_tiles = reinterpret_cast<float*>(smem + lay.o_y);
   for (int j = 0; j < n_runs; ++j) {
     const int stage = j % p.stages;
     const int t0 = j * RUN, len = min(RUN, p.S - t0);
     hg::mbar_wait(full0 + 8 * stage, (j / p.stages) & 1);
+    // this lane's column of the stage's tiles, walked a step at a time
     const unsigned char* st = smem + stage * lay.stage;
-    const float* s_dt = reinterpret_cast<const float*>(st);
-    const T* s_x = reinterpret_cast<const T*>(st + lay.o_x);
+    const float* s_dt = reinterpret_cast<const float*>(st) + ln.ch;
+    const T* s_x = reinterpret_cast<const T*>(st + lay.o_x) + ln.ch;
     const T* s_b = reinterpret_cast<const T*>(st + lay.o_b) + ln.n0;
     const T* s_c = reinterpret_cast<const T*>(st + lay.o_c) + ln.n0;
-    float* yt = reinterpret_cast<float*>(smem + lay.o_y) + (j & 1) * RUN * CH;
-#ifdef PK_SCAN_UNROLL2
-#pragma unroll 2
-#endif
+    float* yt = y_tiles + (j & 1) * RUN * CH;
+    float* s_y = yt + ln.ch;
     for (int t = 0; t < len; ++t) {
       float bv[K], cv[K];
-      lds_k<K>(s_b + t * N, bv);
-      lds_k<K>(s_c + t * N, cv);
-      const float yv = scan_step<N>(ln.h, ln.av, s_dt[t * CH + ch],
-                                    to_f32(s_x[t * CH + ch]), bv, cv);
-      if (ln.n0 == 0) yt[t * CH + ch] = yv;
+      lds_k<K>(s_b, bv);
+      lds_k<K>(s_c, cv);
+      const float yv = scan_step<N>(ln.h, ln.av, *s_dt, to_f32(*s_x), bv, cv);
+      if (ln.n0 == 0) *s_y = yv;
+      s_dt += CH, s_x += CH, s_b += N, s_c += N, s_y += CH;
     }
     __syncwarp();
     if ((threadIdx.x & 31) == 0) hg::mbar_arrive(empty0 + 8 * stage);

@@ -74,16 +74,18 @@ __host__ __device__ inline int align128(int bytes) {
 }
 
 // the staged kernel's shared memory: `stages` stages of dt, x, b, c tiles,
-// then the two y tiles, then the mbarriers
+// then the two y tiles, then (bf16 inputs) two runs of b and c widened to
+// f32, then the mbarriers
 struct ScLayout {
-  int o_x, o_b, o_c, stage, o_y, o_bars, total;
+  int o_x, o_b, o_c, stage, o_y, o_bc, o_bars, total;
   __host__ __device__ ScLayout(int ch, int run, int n, int es, int stages) {
     o_x = align128(run * ch * 4);
     o_b = o_x + align128(run * ch * es);
     o_c = o_b + align128(run * n * es);
     stage = o_c + align128(run * n * es);
     o_y = stages * stage;
-    o_bars = o_y + 2 * run * ch * 4;
+    o_bc = o_y + 2 * run * ch * 4;
+    o_bars = o_bc + (es == 2 ? 2 * 2 * run * n * 4 : 0);
     total = o_bars + 2 * stages * 8;
   }
 };
@@ -311,16 +313,46 @@ __global__ void __launch_bounds__(SC_MAX_CONSUMERS + 32)
 
   ScLane<N> ln(p, threadIdx.x, bi);
   float* const y_tiles = reinterpret_cast<float*>(smem + lay.o_y);
+  // b and c of run j in f32: bf16 is widened once a run, by all the
+  // consumers together, into widened[j & 1] (b, then c); f32 is read from
+  // the stage
+  constexpr bool kWiden = sizeof(T) == 2;
+  float* const widened = reinterpret_cast<float*>(smem + lay.o_bc);
+  auto widen = [&](int j) {
+    if constexpr (kWiden) {
+      const unsigned char* st = smem + (j % p.stages) * lay.stage;
+      const int pairs = RUN * N / 2;
+      const __nv_bfloat162* b2 =
+          reinterpret_cast<const __nv_bfloat162*>(st + lay.o_b);
+      const __nv_bfloat162* c2 =
+          reinterpret_cast<const __nv_bfloat162*>(st + lay.o_c);
+      float2* w = reinterpret_cast<float2*>(widened + (j & 1) * 2 * RUN * N);
+      for (int e = threadIdx.x; e < pairs; e += consumers) {
+        w[e] = __bfloat1622float2(b2[e]);
+        w[pairs + e] = __bfloat1622float2(c2[e]);
+      }
+    }
+  };
+  auto bar_consumers = [consumers] {
+    asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+  };
+  hg::mbar_wait(full0, 0);
+  widen(0);
+  bar_consumers();
   for (int j = 0; j < n_runs; ++j) {
     const int stage = j % p.stages;
     const int t0 = j * RUN, len = min(RUN, p.S - t0);
-    hg::mbar_wait(full0 + 8 * stage, (j / p.stages) & 1);
-    // this lane's column of the stage's tiles, walked a step at a time
+    // run j's stage is full (waited for before the last barrier); this
+    // lane's column of its tiles, walked a step at a time
     const unsigned char* st = smem + stage * lay.stage;
     const float* s_dt = reinterpret_cast<const float*>(st) + ln.ch;
     const T* s_x = reinterpret_cast<const T*>(st + lay.o_x) + ln.ch;
-    const T* s_b = reinterpret_cast<const T*>(st + lay.o_b) + ln.n0;
-    const T* s_c = reinterpret_cast<const T*>(st + lay.o_c) + ln.n0;
+    const float* s_b;
+    if constexpr (kWiden)
+      s_b = widened + (j & 1) * 2 * RUN * N + ln.n0;
+    else
+      s_b = reinterpret_cast<const float*>(st + lay.o_b) + ln.n0;
+    const float* s_c = s_b + (kWiden ? RUN * N : (lay.o_c - lay.o_b) / 4);
     float* yt = y_tiles + (j & 1) * RUN * CH;
     float* s_y = yt + ln.ch;
     for (int t = 0; t < len; ++t) {
@@ -333,10 +365,16 @@ __global__ void __launch_bounds__(SC_MAX_CONSUMERS + 32)
     }
     __syncwarp();
     if ((threadIdx.x & 31) == 0) hg::mbar_arrive(empty0 + 8 * stage);
-    // the y tile is whole once every consumer is here; the other tile's
-    // stores (run j - 1) are done, as each consumer passed this barrier
-    // after them
-    asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+    if (j + 1 < n_runs) {
+      hg::mbar_wait(full0 + 8 * ((j + 1) % p.stages),
+                    ((j + 1) / p.stages) & 1);
+      widen(j + 1);
+    }
+    // run j's y tile and run j + 1's widened b, c are whole once every
+    // consumer is here; the tiles written before (y of run j - 1, b and c
+    // of run j - 1) are no longer read, as each consumer passed the last
+    // barrier after reading them
+    bar_consumers();
     const int row4 = CH / 4;
     for (int v = threadIdx.x; v < len * row4; v += consumers) {
       const int t = v / row4, c4 = (v - t * row4) * 4;

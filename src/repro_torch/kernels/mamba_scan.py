@@ -22,10 +22,12 @@ contiguous bytes) of one batch row. Two kernels run the same step:
 
 * staged (prefill, S > 1): a producer warp loads each run of steps' dt, x
   tiles [run x channels] and b, c [run x N] by TMA (3-D tensor maps,
-  zero-filled past S and D) into a ring of 3 shared-memory stages under
-  full and empty mbarriers, so the next runs load while this one is
-  scanned; y_t goes out through a double-buffered shared-memory tile in
-  16-byte words.
+  zero-filled past S and D) into a ring of 2 shared-memory stages under
+  full and empty mbarriers, so the next run loads while this one is
+  scanned. bf16 b and c are widened to f32 once a run by all the lanes
+  together (each value is read by every channel), and y_t goes out through
+  a double-buffered shared-memory tile in 16-byte words; one barrier of
+  the consumer lanes a run covers both.
 * direct (decode, S = 1, and operands a tensor map cannot take: an address
   or a row stride not a multiple of 16 bytes, b and c rows under 16 bytes,
   D not a multiple of 4): no staging and no block barrier; each lane reads
@@ -71,7 +73,7 @@ _TYPES = (torch.float32, torch.bfloat16)
 H100_SMS = 132
 #: steps a stage holds at most, stages of the staged kernel's ring
 RUN_MAX = 32
-STAGES = 3
+STAGES = 2
 #: consumer lanes a block at most (csrc/mamba_scan.cu SC_MAX_CONSUMERS)
 MAX_CONSUMERS = 512
 #: shared memory a block may take on an H100 (bytes)
@@ -131,7 +133,8 @@ def staged_smem(ch: int, run: int, n: int, elsize: int, stages: int) -> int:
     """The staged kernel's shared memory (``ScLayout`` in the .cu)."""
     stage = (_align128(run * ch * 4) + _align128(run * ch * elsize)
              + 2 * _align128(run * n * elsize))
-    return stages * stage + 2 * run * ch * 4 + 2 * stages * 8
+    widened = 2 * 2 * run * n * 4 if elsize == 2 else 0
+    return stages * stage + 2 * run * ch * 4 + widened + 2 * stages * 8
 
 
 def _tma_ok(*tensors) -> bool:

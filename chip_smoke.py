@@ -25,7 +25,8 @@ Phases (any failure exits non-zero before the last line is printed):
    steps chained —, the ring all-gather and reduce-scatter at every FSDP
    shard shape of the (2, 4) training run and
    at 4 and 8 ranks, each for 1-4 chunks, whose results must be
-   bit-identical; the p2p ring shift on k of the sequence-parallel path,
+   bit-identical (the reduce-scatter's also to its plain version and to the
+   store-and-count kernel it ran on before); the p2p ring shift on k of the sequence-parallel path,
    (4, 1, 4, 2048, 64) bf16, and at ragged shapes, bit-identical to the
    roll; the flash hop at each of the 4 hops of that path at the ranks'
    global offsets; flash at head_dim 120, padded to 128; the AG×GEMM and
@@ -54,7 +55,11 @@ Phases (any failure exits non-zero before the last line is printed):
    rows the mma.sync kernel flash ran on before its TMA + wgmma design
    (``ms_mm_tile``, from ``csrc/flash_mma_yardstick.cu``), after the
    flash kernel's own launch configuration is held against its plan
-   (``flash_plan``) at both widths. GEMM+AR is held
+   (``flash_plan``) at both widths; the reduce-scatter rows (R = 2, 4, 8)
+   the store-and-count kernel it ran on before its pull-and-sum design
+   (``csrc/pk_comm_yardstick.cu``), the scan rows the kernel it ran on
+   before its staged design (``csrc/mamba_scan_yardstick.cu``), beside the
+   scan's exponential floor. GEMM+AR is held
    at every site and bucket, bit-identical for 1-4 chunks and a second
    call, and GEMM×RS equal to GEMM+AR's owner rows bit for bit;
 4. serving: the continuous-batching engine serves 8 requests of a seeded
@@ -598,7 +603,10 @@ def check_kernels(dev) -> dict:
     # gathered dim moved to the front, (R_dp, d/2, R_tp, n) for n = 64 (wk,
     # wv), 512 (wq, wo), 1408 (w1, w3, w2) and 8000 (embed, lm_head); then
     # the MLP shard over 4 and 8 ranks. Every chunk count must give the
-    # same bits; the MLP shape at R = 2 is timed.
+    # same bits; the reduce-scatter's must be the plain version's bits and
+    # those of the store-and-count kernel it ran on before
+    # (``mm_tile_reduce_scatter``). The MLP shape is timed: the all-gather
+    # at R = 2, the reduce-scatter at R = 2, 4 and 8, beside its yardstick.
     for r, rows, n in ((2, 1024, 64), (2, 1024, 512), (2, 1024, 1408),
                        (2, 1024, 8000), (4, 512, 1408), (8, 256, 1408)):
         x = randn(r, rows, 4, n)
@@ -618,16 +626,28 @@ def check_kernels(dev) -> dict:
                     raise AssertionError(f"{name} {shape}: n_chunks={nc} "
                                          "changed the result")
             run = partial(fn, arg)
-            if (r, n) != (2, 1408):
+            before = None
+            if name == "pk_reduce_scatter":
+                before = partial(mm_tile_reduce_scatter, parts)
+                bits = first.view(torch.int16)
+                if not (torch.equal(bits, plain(arg).view(torch.int16))
+                        and torch.equal(bits, before().view(torch.int16))):
+                    raise AssertionError(f"{name} {shape}: not the plain "
+                                         "version's or the store-and-count "
+                                         "kernel's bits")
+            key = name + ("" if r == 2 else f"@r{r}")
+            if n != 1408 or (name == "pk_all_gather" and r != 2):
                 compare(name, shape, run, partial(plain, arg), TOL_BF16_OUT)
                 continue
-            entries[name] = record(
+            entries[key] = record(
                 name, shape, "src/repro_torch/kernels/csrc/pk_comm.cu",
                 "src/repro/kernels/pk_comm.py:"
                 + ("151" if name == "pk_all_gather" else "242"),
-                run, partial(plain, arg), lib, TOL_BF16_OUT, nbytes, 0.0)
+                run, partial(plain, arg), lib, TOL_BF16_OUT, nbytes, 0.0,
+                before=before)
     print("[kernel] ring all-gather / reduce-scatter: bit-identical for "
-          "n_chunks 1-4 at every shape", flush=True)
+          "n_chunks 1-4 at every shape; the reduce-scatter bit-identical to "
+          "its plain version and to the store-and-count kernel", flush=True)
 
     # moonshot-v1-16b-a3b on (1, 4): the grouped expert GEMM over all
     # G = 4 ranks x 16 experts at every shape the MoE path gives it — w1/w3
@@ -1072,13 +1092,19 @@ def check_mamba_scan(dev, record, compare) -> dict:
     PyTorch call computes a selective scan, so there is no library time.
     Bound: bytes (dt, x, y over (B, S, D); b, c over (B, S, N); a; the state
     read once and written once) over 3.35 TB/s, or 7 f32 operations per
-    (b, t, d, n) (the exponential counted as one) over 67 TFLOP/s."""
+    (b, t, d, n) (the exponential counted as one) over 67 TFLOP/s. Each
+    timed row also times the kernel the scan ran on before
+    (``mm_tile_mamba_scan``, ``ms_mm_tile``) and carries the exponential
+    floor (``exp_floor_ms``: B·S·D·N exponentials at 16 an SM a clock at
+    the card's highest SM clock)."""
     import torch
 
     from repro_torch.kernels import mamba_scan as MS
 
     g = torch.Generator(device=dev).manual_seed(5)
     d, n, r = 8192, 16, 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = max_sm_clock_mhz()
 
     def inputs(b, s):
         def f(*sh):
@@ -1112,7 +1138,12 @@ def check_mamba_scan(dev, record, compare) -> dict:
             lambda: MS.mamba_scan(*args)[0],
             lambda: MS.mamba_scan_plain(*args)[0], None,
             TOL_F32_OUT, *cost(b, s), peak=PEAK_F32_FLOPS,
-            plain_iters=20 if s == 1 else 2)
+            plain_iters=20 if s == 1 else 2,
+            before=lambda: mm_tile_mamba_scan(*args)[0])
+        entries[key]["exp_floor_ms"] = exp_floor_ms(b, s, d, n, sms, clock)
+        print(f"[kernel] mamba_scan {shape}: exp_floor_ms="
+              f"{entries[key]['exp_floor_ms']:.4f} (B·S·D·N exponentials at "
+              f"16 an SM a clock, {sms} SMs at {clock:.0f} MHz)", flush=True)
 
     # bit-identity at the 174 prefill group: every chunk, and S + 4 steps
     # against S steps then 4 decode steps chained through h0
@@ -2299,6 +2330,7 @@ def main() -> int:
                 "matmul@moonshot",
                 "flash_attention@moonshot", "grouped_matmul@prefill",
                 "matmul@falcon", "mamba_scan@prefill",
+                "pk_reduce_scatter@r4", "pk_reduce_scatter@r8",
                 "flash_attention_hop@0", "flash_attention_hop@2",
                 "flash_attention_hop@3"):
         print(f"[kernel-extra] {json.dumps(entries[key])}", flush=True)

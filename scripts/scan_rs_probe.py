@@ -20,9 +20,7 @@ over 67 TFLOP/s) and, for the scan, its exponential floor (B·S·D·N
 exponentials at 16 an SM a clock, at the card's highest SM clock as
 ``nvidia-smi`` reports it). ``--variants`` also times the launch's design
 choices at the timed rows (RS: blocks an SM, bytes a stage, stages; scan:
-channels a block, steps a stage, stages) and the kernel library built with
-each set of macros of ``DEFINES`` (``ms_<macros>``: a design the sources
-keep under a macro while it is measured). Prints the card's name and power
+channels a block, steps a stage, stages). Prints the card's name and power
 limit, then one JSON line a row. Needs a CUDA device; exits 1 without one.
 """
 
@@ -38,25 +36,6 @@ from functools import partial
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
-
-#: kernel -> the variant libraries' macros (``_build.library(*defines)``)
-DEFINES = {"ring_reduce_scatter": [],
-           "mamba_scan": [("PK_SCAN_K8",)]}
-
-
-def variant(defines, fn):
-    """``fn`` with the wrappers launching from the library built with
-    ``defines``."""
-    from repro_torch.kernels import _build
-    lib = _build.library
-
-    def run():
-        _build.library = lambda: lib(*defines)
-        try:
-            return fn()
-        finally:
-            _build.library = lib
-    return run
 
 
 def main() -> int:
@@ -122,12 +101,6 @@ def main() -> int:
                         partial(CS.mm_tile_reduce_scatter, x)),
                     library_ms=CS.time_ms(lambda: x.sum(0)),
                     bound_ms=CS.bound_ms(nbytes, 0.0)[0])
-                for defs in DEFINES["ring_reduce_scatter"] \
-                        if args.variants else ():
-                    run = variant(defs, partial(PK.ring_reduce_scatter, x))
-                    if not same_bits(run(), want):
-                        raise AssertionError(f"RS {defs}: bits differ")
-                    row["ms_" + "+".join(defs)] = CS.time_ms(run)
             emit(row)
             if (args.variants and not args.quick and (r, n) == (2, 1408)
                     and dtype == torch.bfloat16):
@@ -184,13 +157,6 @@ def main() -> int:
                                      CS.PEAK_F32_FLOPS)[0],
                 exp_floor_ms=CS.exp_floor_ms(b, s, d, n, sms, clock),
                 max_sm_clock_mhz=clock)
-            for defs in DEFINES["mamba_scan"] if args.variants else ():
-                run = variant(defs, lambda: MS.mamba_scan(*a_))
-                vy, vh = run()
-                tag = "+".join(defs)
-                row.update({"ms_" + tag: CS.time_ms(run),
-                            "rel_err_" + tag: max(CS.rel_err(vy, wy),
-                                                  CS.rel_err(vh, wh))})
         emit(row)
         if args.variants and not args.quick and (b, s) == (4, 405):
             for ch in (64, 128):

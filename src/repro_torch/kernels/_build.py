@@ -132,8 +132,8 @@ def _sources() -> list[pathlib.Path]:
     return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def _digest(flags: tuple[str, ...]) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -154,11 +154,9 @@ def _run_all(cmds: list[list[str]]) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
 
 
-def build(defines: tuple[str, ...] = ()) -> pathlib.Path:
-    """Compile the library if no build of these sources exists; its path.
-    ``defines`` (macro names) build a variant a probe compares."""
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    lib = BUILD_DIR / f"libpk_kernels_{_digest(flags)}.so"
+def build() -> pathlib.Path:
+    """Compile the library if no build of these sources exists; its path."""
+    lib = BUILD_DIR / f"libpk_kernels_{_digest()}.so"
     if lib.exists():
         return lib
     nvcc = compat.nvcc_path()
@@ -169,19 +167,18 @@ def build(defines: tuple[str, ...] = ()) -> pathlib.Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         cus = [p for p in _sources() if p.suffix == ".cu"]
         objs = [os.path.join(tmp, p.stem + ".o") for p in cus]
-        _run_all([[nvcc, *flags, "-I", str(CSRC), "-c", str(p), "-o", o]
-                  for p, o in zip(cus, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p),
+                   "-o", o] for p, o in zip(cus, objs)])
         part = os.path.join(tmp, lib.name)
-        _run_all([[nvcc, "-shared", *flags, *objs, "-o", part]])
+        _run_all([[nvcc, "-shared", *NVCC_FLAGS, *objs, "-o", part]])
         os.replace(part, lib)      # atomic: a reader never sees half a file
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def library(*defines: str) -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed (a variant with
-    ``defines``, for a probe)."""
-    lib = ctypes.CDLL(str(build(defines)))
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

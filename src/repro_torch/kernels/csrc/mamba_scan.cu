@@ -60,14 +60,7 @@ struct ScArgs {
   long h0r, h0b, hor, hob;                      // state (rank, batch)
 };
 
-#ifdef PK_SCAN_K8
-constexpr int kMaxStates = 8;  // a probe's variant
-#else
-constexpr int kMaxStates = 4;
-#endif
-__host__ __device__ constexpr int k_states(int n) {
-  return n < kMaxStates ? n : kMaxStates;
-}
+__host__ __device__ constexpr int k_states(int n) { return n < 4 ? n : 4; }
 
 __host__ __device__ inline int align128(int bytes) {
   return (bytes + 127) / 128 * 128;
@@ -99,15 +92,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// K consecutive values from shared memory, aligned to K elements
+// K consecutive f32 values from shared memory, aligned to K elements
 template <int K>
 __device__ __forceinline__ void lds_k(const float* p, float (&v)[K]) {
-  if constexpr (K == 8) {
-    const float4 w = *reinterpret_cast<const float4*>(p);
-    const float4 u = *reinterpret_cast<const float4*>(p + 4);
-    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
-    v[4] = u.x, v[5] = u.y, v[6] = u.z, v[7] = u.w;
-  } else if constexpr (K == 4) {
+  if constexpr (K == 4) {
     const float4 w = *reinterpret_cast<const float4*>(p);
     v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
   } else if constexpr (K == 2) {
@@ -117,33 +105,6 @@ __device__ __forceinline__ void lds_k(const float* p, float (&v)[K]) {
     v[0] = *p;
   }
 }
-template <int K>
-__device__ __forceinline__ void lds_k(const __nv_bfloat16* p, float (&v)[K]) {
-  if constexpr (K == 8) {
-    const uint4 w = *reinterpret_cast<const uint4*>(p);
-    const unsigned q[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&q[i]));
-      v[2 * i] = f.x, v[2 * i + 1] = f.y;
-    }
-  } else if constexpr (K == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w.y));
-    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-  } else if constexpr (K == 2) {
-    const float2 w =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    v[0] = w.x, v[1] = w.y;
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
-
 // exp(v) as ex2.approx.ftz of v * log2(e): a is scaled by log2(e) once
 // when it is loaded, so a state's step spends one FMUL and one MUFU.EX2 on
 // its exponential (the accurate expf took eight instructions)
@@ -198,17 +159,11 @@ struct ScLane {
       const long h0_off = r * p.h0r + bi * p.h0b + (long)jj * N + n0;
       ho = r * p.hor + bi * p.hob + (long)jj * N + n0;
       const float* a = p.a + (long)d * N + n0;
-      if (K % 4 == 0 && aligned16(a) && aligned16(p.h0 + h0_off)) {
-#pragma unroll
-        for (int q = 0; q < K; q += 4) {
-          const float4 va = __ldg(reinterpret_cast<const float4*>(a + q));
-          const float4 vh =
-              *reinterpret_cast<const float4*>(p.h0 + h0_off + q);
-          av[q] = va.x, av[(q + 1) % K] = va.y, av[(q + 2) % K] = va.z,
-          av[(q + 3) % K] = va.w;
-          h[q] = vh.x, h[(q + 1) % K] = vh.y, h[(q + 2) % K] = vh.z,
-          h[(q + 3) % K] = vh.w;
-        }
+      if (K == 4 && aligned16(a) && aligned16(p.h0 + h0_off)) {
+        const float4 va = __ldg(reinterpret_cast<const float4*>(a));
+        const float4 vh = *reinterpret_cast<const float4*>(p.h0 + h0_off);
+        av[0] = va.x, av[1 % K] = va.y, av[2 % K] = va.z, av[3 % K] = va.w;
+        h[0] = vh.x, h[1 % K] = vh.y, h[2 % K] = vh.z, h[3 % K] = vh.w;
       } else {
 #pragma unroll
         for (int j = 0; j < K; ++j) {
@@ -222,11 +177,9 @@ struct ScLane {
   }
   __device__ __forceinline__ void store_state(const ScArgs& p) const {
     if (!live) return;
-    if (K % 4 == 0 && aligned16(p.h_out + ho)) {
-#pragma unroll
-      for (int q = 0; q < K; q += 4)
-        *reinterpret_cast<float4*>(p.h_out + ho + q) = make_float4(
-            h[q], h[(q + 1) % K], h[(q + 2) % K], h[(q + 3) % K]);
+    if (K == 4 && aligned16(p.h_out + ho)) {
+      *reinterpret_cast<float4*>(p.h_out + ho) =
+          make_float4(h[0], h[1 % K], h[2 % K], h[3 % K]);
     } else {
 #pragma unroll
       for (int j = 0; j < K; ++j) p.h_out[ho + j] = h[j];
@@ -240,7 +193,7 @@ struct ScLane {
 // dt is f32; x, b and c are all T (f32 or bf16)
 template <typename T, int N>
 __global__ void __launch_bounds__(SC_MAX_CONSUMERS)
-    scan_direct_kernel(const ScArgs p) {
+    pk_scan_direct_kernel(const ScArgs p) {
   constexpr int K = k_states(N);
   const long bi = blockIdx.y;
   ScLane<N> ln(p, threadIdx.x, bi);
@@ -269,7 +222,7 @@ __global__ void __launch_bounds__(SC_MAX_CONSUMERS)
 
 template <typename T, int N>
 __global__ void __launch_bounds__(SC_MAX_CONSUMERS + 32)
-    scan_staged_kernel(const __grid_constant__ ScArgs p,
+    pk_scan_staged_kernel(const __grid_constant__ ScArgs p,
                        const __grid_constant__ CUtensorMap m_dt,
                        const __grid_constant__ CUtensorMap m_x,
                        const __grid_constant__ CUtensorMap m_b,
@@ -420,7 +373,7 @@ int sc_launch(const ScArgs& p, int B, bool staged, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   const dim3 grid((p.D + p.ch - 1) / p.ch, B);
   if (!staged) {
-    scan_direct_kernel<T, N><<<grid, consumers, 0, stream>>>(p);
+    pk_scan_direct_kernel<T, N><<<grid, consumers, 0, stream>>>(p);
     return (int)cudaGetLastError();
   }
   const bool bf16 = sizeof(T) == 2;
@@ -441,12 +394,12 @@ int sc_launch(const ScArgs& p, int B, bool staged, cudaStream_t stream) {
   static int granted = 0;  // the attribute this instantiation was given
   if (lay.total > granted) {
     cudaError_t err = cudaFuncSetAttribute(
-        scan_staged_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        lay.total);
+        pk_scan_staged_kernel<T, N>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
     if (err != cudaSuccess) return (int)err;
     granted = lay.total;
   }
-  scan_staged_kernel<T, N><<<grid, consumers + 32, lay.total, stream>>>(
+  pk_scan_staged_kernel<T, N><<<grid, consumers + 32, lay.total, stream>>>(
       p, m_dt, m_x, m_b, m_c);
   return (int)cudaGetLastError();
 }

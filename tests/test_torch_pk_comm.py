@@ -184,3 +184,78 @@ def test_fused_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="n_chunks"):
         PK.ring_all_gather(torch.ones(2, 4), n_chunks=0)
 
+
+
+# ---------------------------------------------------------------------------
+# rs_plan: the CUDA reduce-scatter's launch, held on the CPU
+# ---------------------------------------------------------------------------
+
+#: (R, rows, n): the FSDP shard shapes of the (2, 4) training run, (R_dp,
+#: d/2, R_tp, n), and the MLP shard over 4 and 8 ranks
+RS_PATH_SHAPES = [(2, 1024, 64), (2, 1024, 512), (2, 1024, 1408),
+                  (2, 1024, 8000), (4, 512, 1408), (8, 256, 1408)]
+#: what two blocks an SM may take each (233,472 bytes an SM, 1 KB reserved
+#: a block)
+TWO_A_SM = 233472 // 2 - 1024
+
+
+def _rs_walk(p, r, chunk):
+    """The (owner, first element, elements) of every item the kernel's
+    blocks take, block b items b, b + grid, ... (csrc/pk_comm.cu)."""
+    per_owner = p.items // r
+    out = []
+    for b in range(p.grid):
+        for i in range(b, p.items, p.grid):
+            o, rest = divmod(i, per_owner)
+            c, t = divmod(rest, p.tiles_per_chunk)
+            begin = c * chunk + t * p.tile
+            out.append((o, begin, min(p.tile, (c + 1) * chunk - begin)))
+    return out
+
+
+@pytest.mark.parametrize("r,rows,n", RS_PATH_SHAPES)
+@pytest.mark.parametrize("n_chunks", CHUNKS)
+@pytest.mark.parametrize("elsize", [2, 4])
+def test_rs_plan_covers_every_owner_tile_once(r, rows, n, n_chunks, elsize):
+    """Every element of every owner's block is summed by exactly one item;
+    no tile crosses a chunk; every bulk copy is 16-byte aligned and a
+    multiple of 16 bytes; the ring fits two blocks an SM."""
+    blk = rows * 4 * n
+    chunk = blk // PK._chunks(rows, n_chunks)
+    p = PK.rs_plan(r, blk, chunk, elsize, aligned=True)
+    assert p.bulk and p.threads == PK.RS_THREADS
+    assert 1 <= p.grid <= PK.RS_PER_SM * PK.H100_SMS
+    assert p.smem_bytes <= TWO_A_SM
+    assert p.smem_bytes == p.stages * r * p.tile * elsize + 2 * p.stages * 8
+    covered = np.zeros((r, blk), np.int8)
+    for o, begin, length in _rs_walk(p, r, chunk):
+        assert length > 0 and begin // chunk == (begin + length - 1) // chunk
+        assert begin * elsize % 16 == 0 and length * elsize % 16 == 0
+        covered[o, begin:begin + length] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("r,blk,chunk,elsize,aligned", [
+    (2, 140, 70, 2, True),      # 140-byte chunks: not a multiple of 16
+    (2, 4096, 4096, 2, False),  # an address off 16 bytes
+    (8, 21, 7, 4, True)])
+def test_rs_plan_takes_the_element_wise_kernel_where_bulk_copies_cannot(
+        r, blk, chunk, elsize, aligned):
+    p = PK.rs_plan(r, blk, chunk, elsize, aligned=aligned)
+    assert not p.bulk and p.tile == 0 and p.smem_bytes == 0
+    assert p.items == r * blk
+    assert 1 <= p.grid <= -(-p.items // p.threads)
+
+
+def test_rs_plan_cuts_small_shapes_for_the_grid_and_caps_the_tile():
+    """A block the grid would leave idle halves the tile (down to 2 KB a
+    source); a chunk smaller than a tile is one tile."""
+    small = PK.rs_plan(2, 1024 * 4 * 64, 1024 * 4 * 64, 2, aligned=True)
+    assert small.tile * 2 == PK.RS_MIN_TILE_BYTES
+    big = PK.rs_plan(2, 1024 * 4 * 1408, 1024 * 4 * 1408, 2, aligned=True)
+    assert big.tile * 2 * 2 == PK.RS_STAGE_BYTES
+    assert big.items >= big.grid == PK.RS_PER_SM * PK.H100_SMS
+    tiny = PK.rs_plan(3, 288, 288, 2, aligned=True)
+    assert (tiny.tile, tiny.tiles_per_chunk, tiny.items) == (288, 1, 3)
+    with pytest.raises(ValueError, match="rs_plan"):
+        PK.rs_plan(2, 100, 30, 2, aligned=True)

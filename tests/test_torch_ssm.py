@@ -130,6 +130,77 @@ def test_scan_stacked_state_layout():
     assert torch.equal(y2, want_y)
 
 
+#: (B, S, D, N, bytes of x, b, c): falcon-mamba-7b's scan at the SSM
+#: serving path's shapes (prefill groups of 4 rows, a B = 1 prefill,
+#: decode of 8 rows), the reduced config's width and the widths the card's
+#: tests take
+SCAN_PLAN_SHAPES = [(4, 60, 8192, 16, 2), (4, 174, 8192, 16, 2),
+                    (4, 405, 8192, 16, 2), (1, 405, 8192, 16, 2),
+                    (8, 1, 8192, 16, 2), (2, 64, 128, 8, 2),
+                    (2, 129, 200, 16, 2), (3, 70, 96, 8, 4),
+                    (1, 5, 64, 32, 4), (2, 70, 200, 8, 2),
+                    (2, 70, 200, 32, 4), (2, 33, 98, 16, 2),
+                    (2, 7, 64, 4, 2), (1, 9, 40, 1, 4)]
+#: what two blocks an SM may take each (233,472 bytes an SM, 1 KB reserved
+#: a block)
+TWO_A_SM = 233472 // 2 - 1024
+
+
+@pytest.mark.parametrize("b,s,d,n,elsize", SCAN_PLAN_SHAPES)
+def test_scan_plan_covers_every_row_channel_and_state_once(b, s, d, n,
+                                                          elsize):
+    """The CUDA scan's launch, held on the CPU: blocks (channel tile, row)
+    and lanes (channel, state group) give every (row, channel, state)
+    exactly one lane; whole warps; the staged kernel where TMA takes the
+    operands and S > 1, with a run of steps that fits and shared memory
+    within a block's limit — two blocks an SM at the path's prefill."""
+    p = MS.scan_plan(b, s, d, n, elsize)
+    consumers = p.channels * p.lanes
+    assert p.k_states == min(4, n) and p.k_states * p.lanes == n
+    assert consumers % 32 == 0 and consumers <= MS.MAX_CONSUMERS
+    assert p.grid == (-(-d // p.channels), b)
+    tid = np.arange(consumers)
+    ch, group = tid // p.lanes, tid % p.lanes
+    covered = np.zeros((b, d, n), np.int16)
+    for tile in range(p.grid[0]):
+        dd = tile * p.channels + ch
+        live = dd < d
+        for j in range(p.k_states):
+            covered[:, dd[live], group[live] * p.k_states + j] += 1
+    assert (covered == 1).all()
+    assert p.staged == (s > 1 and d % 4 == 0 and n * elsize >= 16)
+    if p.staged:
+        assert 1 <= p.run <= min(MS.RUN_MAX, s) and p.stages == MS.STAGES
+        assert p.threads == consumers + 32
+        assert p.smem_bytes == MS.staged_smem(p.channels, p.run, n, elsize,
+                                              p.stages) <= MS.SMEM_LIMIT
+        if d == 8192:
+            assert p.smem_bytes <= TWO_A_SM
+    else:
+        assert (p.run, p.stages, p.smem_bytes) == (0, 0, 0)
+        assert p.threads == consumers
+
+
+def test_scan_plan_chunk_caps_the_run_and_tma_ok_reads_the_operands():
+    """``chunk`` caps the steps a stage holds (never the result, see the
+    bit-identity tests); a view off 16 bytes or a row stride TMA cannot
+    take sends the scan to the direct kernel."""
+    assert MS.scan_plan(4, 405, 8192, 16, 2, chunk=1).run == 1
+    assert MS.scan_plan(4, 405, 8192, 16, 2, chunk=7).run == 7
+    assert MS.scan_plan(4, 5, 8192, 16, 2).run == 5
+    assert not MS.scan_plan(4, 405, 8192, 16, 2, tma_ok=False).staged
+    assert MS._tma_ok(torch.zeros(2, 9, 68)[:, :, :64])   # rows 272 B apart
+    assert not MS._tma_ok(torch.zeros(2, 9, 65)[:, :, :64])   # 260 B
+    flat = torch.zeros(2, 9, 64)
+    assert MS._tma_ok(flat) and not MS._tma_ok(flat[:, :, 1:])  # base + 4 B
+    # a batch of one has no batch stride to check
+    odd = torch.zeros(1000).as_strided((1, 9, 64), (577, 64, 1))
+    assert MS._tma_ok(odd) and not MS._tma_ok(
+        torch.zeros(2000).as_strided((2, 9, 64), (577, 64, 1)))
+    with pytest.raises(ValueError, match="power of two"):
+        MS.scan_plan(1, 4, 64, 12, 2)
+
+
 def test_scan_rejects_bad_inputs():
     t = _torch(_scan_inputs(2, 4, 16, 8))
     with pytest.raises(ValueError, match="h0"):

@@ -114,9 +114,9 @@ __device__ __forceinline__ void lds_k(const float* p, float (&v)[K]) {
     v[0] = *p;
   }
 }
-// exp(v) as ex2.approx.ftz of v * log2(e): a is scaled by log2(e) once
-// when it is loaded, so a state's step spends one FMUL and one MUFU.EX2 on
-// its exponential (the accurate expf took eight instructions)
+
+// exp(v) as ex2.approx.ftz of v * log2(e); a is scaled by log2(e) once,
+// when a lane loads it
 constexpr float kLog2e = 1.4426950408889634f;
 __device__ __forceinline__ float exp2_approx(float v) {
   float r;

@@ -10,9 +10,10 @@ chunk); the reduce-scatter sends a running accumulator to the left
 neighbour's double-buffered landing slot, adds its own partial on arrival
 (in ``x.dtype``, so the sum rounds at every hop) and acks the slot.
 
-CUDA route (``csrc/pk_comm.cu``, flags and stores from ``csrc/pk.cuh``).
-Blocks run in parallel and in no order on Hopper, and a block that
-spin-waits on one not yet resident deadlocks, so neither kernel waits:
+CUDA route (``csrc/pk_comm.cu``, flags and stores from ``csrc/pk.cuh``,
+mbarriers and bulk copies from ``csrc/tma.cuh``). Blocks run in parallel
+and in no order on Hopper, and a block that spin-waits on one not yet
+resident deadlocks, so no kernel here waits on another block:
 
 * all-gather: grid (tile, source rank s); each block reads one tile of
   rank s's shard once and stores it straight into slot s of every rank's
@@ -20,9 +21,9 @@ spin-waits on one not yet resident deadlocks, so neither kernel waits:
   the rows align). A copy is exact, so the result is bit-identical for
   every ``n_chunks``.
 * reduce-scatter: pull and sum. The TPU ring's running accumulator
-  becomes one pass over the partials: a persistent grid (``rs_plan``: one
-  block an SM, or two where that fills the card) walks the (owner o, tile)
-  items, tiles never crossing a chunk. For each item one producer thread
+  becomes one pass over the partials: a persistent grid (``rs_plan``: two
+  blocks an SM, or one block an item where there are fewer) walks the
+  (owner o, tile) items, tiles never crossing a chunk. For each item one producer thread
   issues R TMA bulk copies (``cp.async.bulk``) of the tile of ``x[s, o]``,
   s = 0..R-1, into a ring of shared-memory stages (full and empty
   mbarriers); eight consumer warps sum the R tiles in f32 in rank order,
@@ -33,9 +34,9 @@ spin-waits on one not yet resident deadlocks, so neither kernel waits:
   to it and independent of ``n_chunks``. No block waits on another, so a
   launch cannot deadlock; the stream orders it after the writes of its
   sources. The kernel moves R²·blk read and R·blk written, the bytes its
-  bound counts: no landing slot, no flag, no second pass (the
-  store-and-count kernel it replaced, ``csrc/pk_comm_yardstick.cu``, also
-  wrote and re-read R²·blk through landing slots). Shapes bulk copies
+  bound counts: no landing slot, no flag, no second pass
+  (``csrc/pk_comm_yardstick.cu`` keeps the store-and-count kernel it
+  replaced, as a timing yardstick). Shapes bulk copies
   cannot take (a chunk not a multiple of 16 bytes, an address not 16-byte
   aligned) run an element-wise pull kernel with the same sums. On a
   multi-GPU node the same kernel would read peer pointers from the pointer
@@ -59,9 +60,8 @@ spin-waits on one not yet resident deadlocks, so neither kernel waits:
 largest-divisor fallback, as in JAX); tiles never cross a chunk. What bounds
 both on the card: bytes — the all-gather reads R·blk and writes R²·blk, the
 reduce-scatter reads R²·blk and writes R·blk; neither does arithmetic worth
-counting. On
-one card the pointer tables hold R slices of one allocation; a multi-GPU
-node feeds the same kernels peer pointers.
+counting. On one card the pointer tables hold R slices of one allocation;
+a multi-GPU node feeds the same kernels peer pointers.
 
 Stacked layout (``core/pgl.py``): ``ring_all_gather`` takes (R, blk, ...)
 — rank r's shard at ``x[r]`` — and returns (R, R, blk, ...);
@@ -84,8 +84,6 @@ from repro_torch.kernels import _build
 
 #: pointer tables are passed to the kernels by value, at most this many ranks
 MAX_RANKS = 8
-#: vectors one block moves (csrc/pk_comm.cu TILE_VECS)
-TILE_VECS = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: an H100 SXM's SMs (``kernels/matmul.py``): the default card of the plan
 H100_SMS = 132

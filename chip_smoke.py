@@ -26,7 +26,8 @@ Phases (any failure exits non-zero before the last line is printed):
    shard shape of the (2, 4) training run and
    at 4 and 8 ranks, each for 1-4 chunks, whose results must be
    bit-identical (the reduce-scatter's also to its plain version and to the
-   store-and-count kernel it ran on before); the p2p ring shift on k of the sequence-parallel path,
+   store-and-count kernel it ran on before); the p2p ring shift on k of
+   the sequence-parallel path,
    (4, 1, 4, 2048, 64) bf16, and at ragged shapes, bit-identical to the
    roll; the flash hop at each of the 4 hops of that path at the ranks'
    global offsets; flash at head_dim 120, padded to 128; the AG×GEMM and

@@ -45,10 +45,8 @@ What bounds it on the card: bytes — dt, x and y over (B, S, D), b and c
 over (B, S, N), the state read once and written once — against the
 B·S·D·N exponentials and some dozen other instructions a state a step
 (the exponentials alone run at 16 an SM a clock). It leaves ``x·D``, the
-``silu(z)`` gate and the conv unfused. The kernel it replaced, one lane a
-state with shared-memory staging that no load overlapped, is
-``csrc/mamba_scan_yardstick.cu`` (a timing yardstick; the port never
-calls it).
+``silu(z)`` gate and the conv unfused. ``csrc/mamba_scan_yardstick.cu``
+keeps the kernel it replaced, a timing yardstick the port never calls.
 
 ``chunk`` keeps the JAX signature: it caps the run of steps a stage holds
 (``scan_plan``). Every channel runs the same rounded operations in the
@@ -67,17 +65,14 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import H100_SMS, SMEM_LIMIT, sm_count
 
 _TYPES = (torch.float32, torch.bfloat16)
-#: an H100 SXM's SMs (``kernels/matmul.py``): the default card of the plan
-H100_SMS = 132
 #: steps a stage holds at most, stages of the staged kernel's ring
 RUN_MAX = 32
 STAGES = 2
 #: consumer lanes a block at most (csrc/mamba_scan.cu SC_MAX_CONSUMERS)
 MAX_CONSUMERS = 512
-#: shared memory a block may take on an H100 (bytes)
-SMEM_LIMIT = 232448
 #: tensor-map strides stay below 2^40 bytes
 _TMA_STRIDE_LIMIT = 1 << 40
 
@@ -109,10 +104,7 @@ def scan_plan(b: int, s: int, d: int, n: int, elsize: int, *,
     multiples below 2^40 bytes (``_tma_ok``). The staged kernel takes S >
     1, D a multiple of 4 and b, c rows of at least 16 bytes; anything else
     runs the direct kernel. A block covers 128 channels where B·D/128
-    blocks still give every SM one and 128·N/K lanes fit, else 64; its
-    shared memory is ``stages`` stages of dt and x [run x channels] and b,
-    c [run x N] (each 128-byte aligned), two y tiles [run x channels] f32
-    and the mbarriers — the layout of ``ScLayout`` in the .cu."""
+    blocks still give every SM one and 128·N/K lanes fit, else 64."""
     if n < 1 or n > 32 or n & (n - 1):
         raise ValueError(f"the CUDA mamba_scan needs N a power of two <= 32, "
                          f"got N = {n}")
@@ -130,7 +122,10 @@ def scan_plan(b: int, s: int, d: int, n: int, elsize: int, *,
 
 
 def staged_smem(ch: int, run: int, n: int, elsize: int, stages: int) -> int:
-    """The staged kernel's shared memory (``ScLayout`` in the .cu)."""
+    """The staged kernel's shared memory, ``ScLayout`` in the .cu:
+    ``stages`` stages of dt and x [run x ch] and b, c [run x N] (each
+    128-byte aligned), two y tiles [run x ch] f32, for bf16 two runs of b
+    and c widened to f32, and the mbarriers."""
     stage = (_align128(run * ch * 4) + _align128(run * ch * elsize)
              + 2 * _align128(run * n * elsize))
     widened = 2 * 2 * run * n * 4 if elsize == 2 else 0
@@ -233,8 +228,7 @@ def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out, plan=None):
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=dt.device)
     p = plan or scan_plan(bsz, s, d, n, x.element_size(), chunk=int(chunk),
                           tma_ok=_tma_ok(dt, x, b_ssm, c_ssm),
-                          sms=torch.cuda.get_device_properties(
-                              dt.device).multi_processor_count)
+                          sms=sm_count(dt.device))
     err = _build.library().pk_mamba_scan(
         dt.data_ptr(), x.data_ptr(), b_ssm.data_ptr(), c_ssm.data_ptr(),
         a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),

@@ -59,6 +59,8 @@ CONFIGS = {
 #: so the bits do not depend on it; only the persistent grid is sized for
 #: the card's own count.
 H100_SMS = 132
+#: shared memory one block may take on an H100 (bytes)
+SMEM_LIMIT = 232448
 #: w slabs (tensor maps) a launch takes (``HG_MAX_MAPS``)
 MAX_SLABS = 8
 

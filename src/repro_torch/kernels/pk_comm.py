@@ -23,11 +23,12 @@ resident deadlocks, so no kernel here waits on another block:
 * reduce-scatter: pull and sum. The TPU ring's running accumulator
   becomes one pass over the partials: a persistent grid (``rs_plan``: two
   blocks an SM, or one block an item where there are fewer) walks the
-  (owner o, tile) items, tiles never crossing a chunk. For each item one producer thread
-  issues R TMA bulk copies (``cp.async.bulk``) of the tile of ``x[s, o]``,
-  s = 0..R-1, into a ring of shared-memory stages (full and empty
-  mbarriers); eight consumer warps sum the R tiles in f32 in rank order,
-  round once to the output dtype and store 16-byte words into ``out[o]``.
+  (owner o, tile) items, tiles never crossing a chunk. For each item one
+  producer thread issues R TMA bulk copies (``cp.async.bulk``) of the tile
+  of ``x[s, o]``, s = 0..R-1, into a ring of shared-memory stages (full
+  and empty mbarriers); eight consumer warps sum the R tiles in f32 in
+  rank order, round once to the output dtype and store 16-byte words into
+  ``out[o]``.
   Unlike the TPU ring, which rounds at each hop in ``x.dtype`` and sums
   block b in ring order (rank b-1 first), the sum here is f32 in rank order
   — ``reduce_scatter_plain``'s arithmetic, so the result is bit-identical
@@ -81,12 +82,11 @@ import torch
 from repro_torch.core import pgl
 from repro_torch.core.schedule import fit_chunks
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import H100_SMS, SMEM_LIMIT, sm_count
 
 #: pointer tables are passed to the kernels by value, at most this many ranks
 MAX_RANKS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: an H100 SXM's SMs (``kernels/matmul.py``): the default card of the plan
-H100_SMS = 132
 #: the reduce-scatter's bulk kernel: consumer threads + a producer warp,
 #: bytes of R source tiles a stage, stages, blocks an SM (csrc/pk_comm.cu)
 RS_THREADS = 256 + 32
@@ -98,8 +98,6 @@ RS_MIN_TILE_BYTES = 2048
 #: the element-wise kernel's block, and the most of its blocks an SM
 RS_ELEM_THREADS = 256
 RS_ELEM_PER_SM = 8
-#: shared memory a block may take on an H100 (bytes)
-SMEM_LIMIT = 232448
 # p2p arrival flags (MAX_RANKS ints) by (device, stream)
 _P2P_FLAGS: dict[tuple, torch.Tensor] = {}
 
@@ -127,10 +125,6 @@ def _chunks(rows: int, n_chunks: int) -> int:
     if n_chunks < 1:
         raise ValueError("n_chunks must be >= 1")
     return fit_chunks(rows, n_chunks) if rows else 1
-
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda(x: torch.Tensor, name: str) -> None:
@@ -242,7 +236,7 @@ def _reduce_scatter_cuda(x: torch.Tensor, n_chunks: int,
     ins, outs = pgl.pointer_table(x), pgl.pointer_table(out)
     p = plan or rs_plan(r, blk, blk // n_chunks, x.element_size(),
                         aligned=all(a % 16 == 0 for a in ins + outs),
-                        sms=_sm_count(x.device))
+                        sms=sm_count(x.device))
     err = _build.library().pk_reduce_scatter(
         _build.host_table(ins), _build.host_table(outs), r, blk,
         blk // n_chunks, _DTYPE_CODE[x.dtype], p.tile, p.grid, p.stages,

@@ -59,8 +59,10 @@ Phases (any failure exits non-zero before the last line is printed):
    (``flash_plan``) at both widths; the reduce-scatter rows (R = 2, 4, 8)
    the store-and-count kernel it ran on before its pull-and-sum design
    (``csrc/pk_comm_yardstick.cu``), the scan rows the kernel it ran on
-   before its staged design (``csrc/mamba_scan_yardstick.cu``), beside the
-   scan's exponential floor. GEMM+AR is held
+   before its staged design (``csrc/mamba_scan_yardstick.cu``), its
+   exponential floor printed beside them; the scan is also held at B = 1
+   at every prompt length of the SSM serving run (4e), whose exact-bucket
+   prefills run that launch. GEMM+AR is held
    at every site and bucket, bit-identical for 1-4 chunks and a second
    call, and GEMM×RS equal to GEMM+AR's owner rows bit for bit;
 4. serving: the continuous-batching engine serves 8 requests of a seeded
@@ -1087,17 +1089,21 @@ def check_mamba_scan(dev, record, compare) -> dict:
     holds it): the prefill groups of the SSM serving run (4 rows, S = 60,
     174, 405) and decode (B = 8, S = 1, nonzero h0), against the plain
     sequential f32 recurrence — relative Frobenius error of y and h_last
-    <= 1e-3 (f32 outputs). Then bit-identity: chunk 1, 64 and 256 give the
-    same bits, and S + 4 steps in one launch equal S steps then 4 single
-    steps chained through h0. S = 405 and decode are timed; no single
-    PyTorch call computes a selective scan, so there is no library time.
-    Bound: bytes (dt, x, y over (B, S, D); b, c over (B, S, N); a; the state
-    read once and written once) over 3.35 TB/s, or 7 f32 operations per
-    (b, t, d, n) (the exponential counted as one) over 67 TFLOP/s. Each
-    timed row also times the kernel the scan ran on before
-    (``mm_tile_mamba_scan``, ``ms_mm_tile``) and carries the exponential
-    floor (``exp_floor_ms``: B·S·D·N exponentials at 16 an SM a clock at
-    the card's highest SM clock)."""
+    <= 1e-3 (f32 outputs). The SSM serving run's own prefills follow: exact
+    buckets make each prompt length a group of one, so every length of its
+    trace (``ssm_prompt_lengths``) is checked at B = 1, the launch
+    ``scan_plan`` gives them (64-channel tiles). Then bit-identity at B = 4
+    and B = 1: chunk 1, 64 and 256 give the same bits, and S + 4 steps in
+    one launch equal S steps then 4 single steps chained through h0. S =
+    405 at B = 4 and B = 1, and decode are timed; no single PyTorch call
+    computes a selective scan, so there is no library time. Bound: bytes
+    (dt, x, y over (B, S, D); b, c over (B, S, N); a; the state read once
+    and written once) over 3.35 TB/s, or 7 f32 operations per (b, t, d, n)
+    (the exponential counted as one) over 67 TFLOP/s. Each timed row also
+    times the kernel the scan ran on before (``mm_tile_mamba_scan``,
+    ``ms_mm_tile``), and its exponential floor (``exp_floor_ms``: B·S·D·N
+    exponentials at 16 an SM a clock at the card's highest SM clock) is
+    printed beside it."""
     import torch
 
     from repro_torch.kernels import mamba_scan as MS
@@ -1121,8 +1127,12 @@ def check_mamba_scan(dev, record, compare) -> dict:
         return nbytes, 7.0 * b * s * d * n
 
     entries = {}
-    for b, s, key in ((4, 60, None), (4, 174, None),
-                      (4, 405, "mamba_scan@prefill"), (8, 1, "mamba_scan")):
+    lengths = sorted(ssm_prompt_lengths())
+    rows = [(4, 60, None), (4, 174, None), (4, 405, "mamba_scan@prefill"),
+            (8, 1, "mamba_scan")]
+    rows += [(1, s, "mamba_scan@prefill-b1" if s == lengths[-1] else None)
+             for s in lengths]
+    for b, s, key in rows:
         args = inputs(b, s)
         shape = (f"dt({b},{s},{d}) f32, x/b/c bf16, N={n}, h0 stacked "
                  f"({r},{b},{d // r},{n})")
@@ -1141,34 +1151,38 @@ def check_mamba_scan(dev, record, compare) -> dict:
             TOL_F32_OUT, *cost(b, s), peak=PEAK_F32_FLOPS,
             plain_iters=20 if s == 1 else 2,
             before=lambda: mm_tile_mamba_scan(*args)[0])
-        entries[key]["exp_floor_ms"] = exp_floor_ms(b, s, d, n, sms, clock)
         print(f"[kernel] mamba_scan {shape}: exp_floor_ms="
-              f"{entries[key]['exp_floor_ms']:.4f} (B·S·D·N exponentials at "
-              f"16 an SM a clock, {sms} SMs at {clock:.0f} MHz)", flush=True)
+              f"{exp_floor_ms(b, s, d, n, sms, clock):.4f} (B·S·D·N "
+              f"exponentials at 16 an SM a clock, {sms} SMs at {clock:.0f} "
+              f"MHz)", flush=True)
 
-    # bit-identity at the 174 prefill group: every chunk, and S + 4 steps
-    # against S steps then 4 decode steps chained through h0
+    # bit-identity at the 174 prefill group, as a group of 4 and as the
+    # serving run's group of one: every chunk, and S + 4 steps against S
+    # steps then 4 decode steps chained through h0
     s, k = 170, 4
-    dt, bm, cm, x, a, h0 = inputs(4, s + k)
-    full = MS.mamba_scan(dt, bm, cm, x, a, h0)
-    for chunk in (1, 64, 256):
-        y, h = MS.mamba_scan(dt, bm, cm, x, a, h0, chunk=chunk)
-        if not (torch.equal(y, full[0]) and torch.equal(h, full[1])):
-            raise AssertionError(f"mamba_scan: chunk={chunk} changed the "
-                                 "result")
-    y, h = MS.mamba_scan(dt[:, :s], bm[:, :s], cm[:, :s], x[:, :s], a, h0)
-    ys = [y]
-    for i in range(s, s + k):
-        y, h = MS.mamba_scan(dt[:, i:i + 1], bm[:, i:i + 1], cm[:, i:i + 1],
-                             x[:, i:i + 1], a, h)
-        ys.append(y)
-    torch.cuda.synchronize()
-    if not (torch.equal(torch.cat(ys, 1), full[0])
-            and torch.equal(h, full[1])):
-        raise AssertionError("mamba_scan: S + k steps in one launch differ "
-                             "from S steps then k chained single steps")
-    print(f"[kernel] mamba_scan: bit-identical for chunk 1, 64, 256 and for "
-          f"{s} + {k} steps chained through h0", flush=True)
+    for b in (4, 1):
+        dt, bm, cm, x, a, h0 = inputs(b, s + k)
+        full = MS.mamba_scan(dt, bm, cm, x, a, h0)
+        for chunk in (1, 64, 256):
+            y, h = MS.mamba_scan(dt, bm, cm, x, a, h0, chunk=chunk)
+            if not (torch.equal(y, full[0]) and torch.equal(h, full[1])):
+                raise AssertionError(f"mamba_scan: B={b} chunk={chunk} "
+                                     "changed the result")
+        y, h = MS.mamba_scan(dt[:, :s], bm[:, :s], cm[:, :s], x[:, :s], a,
+                             h0)
+        ys = [y]
+        for i in range(s, s + k):
+            y, h = MS.mamba_scan(dt[:, i:i + 1], bm[:, i:i + 1],
+                                 cm[:, i:i + 1], x[:, i:i + 1], a, h)
+            ys.append(y)
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.cat(ys, 1), full[0])
+                and torch.equal(h, full[1])):
+            raise AssertionError(f"mamba_scan: B={b}: S + k steps in one "
+                                 "launch differ from S steps then k chained "
+                                 "single steps")
+        print(f"[kernel] mamba_scan: B={b} bit-identical for chunk 1, 64, "
+              f"256 and for {s} + {k} steps chained through h0", flush=True)
     return entries
 
 
@@ -1233,6 +1247,23 @@ KERNEL_COUNTERS = ("matmul", "flash_attention", "pk_matmul_ar",
                    "lcsc_ring_all_gather")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
+
+
+def ssm_serve_config():
+    """The SSM serving run's settings: exact buckets, one per prompt
+    length, so every prefill group is one request."""
+    from repro_torch.configs.base import ServeConfig
+    return ServeConfig(max_batch=8, prefill_batch=4, bucket_edges=(128, 512),
+                       max_new_tokens=32, exact_buckets=True)
+
+
+def ssm_prompt_lengths() -> list[int]:
+    """The prompt lengths of the SSM serving run's trace (8 requests, seed
+    0), each a prefill of one row."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import synthetic_trace
+    return [len(p) for p in synthetic_trace(
+        8, ssm_serve_config(), get_config(SSM_ARCH).vocab_size, seed=0)]
 
 
 def _counters():
@@ -1667,13 +1698,10 @@ def serve_ssm(dev) -> dict:
 
     import torch
 
-    from repro_torch.configs.base import ServeConfig
     from repro_torch.launch.serve import build_engine, synthetic_trace
     from repro_torch.models.transformer import leaves
 
-    cfg_serve = ServeConfig(max_batch=8, prefill_batch=4,
-                            bucket_edges=(128, 512), max_new_tokens=32,
-                            exact_buckets=True)
+    cfg_serve = ssm_serve_config()
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2331,6 +2359,7 @@ def main() -> int:
                 "matmul@moonshot",
                 "flash_attention@moonshot", "grouped_matmul@prefill",
                 "matmul@falcon", "mamba_scan@prefill",
+                "mamba_scan@prefill-b1",
                 "pk_reduce_scatter@r4", "pk_reduce_scatter@r8",
                 "flash_attention_hop@0", "flash_attention_hop@2",
                 "flash_attention_hop@3"):

@@ -2,6 +2,7 @@
 """Digests of the Hopper GEMM kernels' outputs on seeded inputs, on one GPU.
 
     python3 scripts/gemm_bits.py [--src DIR] [--out FILE]
+    python3 scripts/gemm_bits.py --compare A.json B.json
 
 Runs B1 (``matmul``, single and stacked), B5 (``ag_matmul_fused``), B6
 (``matmul_rs_fused``), B4 (``matmul_ar_fused``) and B9 (``grouped_matmul``,
@@ -13,6 +14,9 @@ digest of each output's bytes. Two checkouts print the same digests
 exactly when their kernels give the same bits, so running it on a parent
 tree and on a change shows whether a change to the shared mainloop moved
 any of these kernels' bits. Needs a CUDA device; exits 1 without one.
+``--compare`` reads two files written by ``--out`` and prints whether
+their digests (only those: each file also names its own tree) are equal;
+it exits 1 when they differ and needs no device.
 """
 
 from __future__ import annotations
@@ -43,7 +47,16 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="the src/ directory whose repro_torch runs")
     ap.add_argument("--out", default=None, help="also write the JSON line")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                    help="compare the digests of two --out files")
     args = ap.parse_args()
+    if args.compare:
+        a, b = ([json.loads(line) for line in open(f) if line.strip()][-1]
+                ["digests"] for f in args.compare)
+        same = sum(a[k] == b.get(k) for k in a)
+        print(f"digests equal {a == b}: {same} of {len(a)} the same "
+              f"({len(b)} in B)", flush=True)
+        return 0 if a == b else 1
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():

@@ -20,13 +20,16 @@ over 67 TFLOP/s) and, for the scan, its exponential floor (B·S·D·N
 exponentials at 16 an SM a clock, at the card's highest SM clock as
 ``nvidia-smi`` reports it). ``--variants`` also times the launch's design
 choices at the timed rows (RS: blocks an SM, bytes a stage, stages; scan:
-channels a block, steps a stage, stages). Prints the card's name and power
-limit, then one JSON line a row. Needs a CUDA device; exits 1 without one.
+channels a block, steps a stage, stages), each by setting the plan's
+constants in its module for the timing (``constants``) and calling the
+wrapper. Prints the card's name and power limit, then one JSON line a row.
+Needs a CUDA device; exits 1 without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -36,6 +39,20 @@ from functools import partial
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
+
+
+@contextlib.contextmanager
+def constants(module, **values):
+    """Set ``module``'s constants to ``values`` inside the block; restore
+    them after."""
+    old = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
 
 
 def main() -> int:
@@ -104,24 +121,25 @@ def main() -> int:
             emit(row)
             if (args.variants and not args.quick and (r, n) == (2, 1408)
                     and dtype == torch.bfloat16):
-                xc = x.contiguous()
+                run = partial(PK.ring_reduce_scatter, x)
                 for per_sm in (1, 2):
                     for stage_bytes in (16384, 32768, 65536):
                         for stages in (2, 3, 4):
-                            v = PK.rs_plan(r, blk, blk, 2, aligned=True,
-                                           sms=sms, stage_bytes=stage_bytes,
-                                           stages=stages, per_sm=per_sm)
-                            if v.smem_bytes > PK.SMEM_LIMIT:
-                                continue
-                            run = partial(PK._reduce_scatter_cuda, xc, 1, v)
-                            if not same_bits(run(), want):
-                                raise AssertionError(f"RS variant {v}")
+                            with constants(PK, RS_PER_SM=per_sm,
+                                           RS_STAGE_BYTES=stage_bytes,
+                                           RS_STAGES=stages):
+                                v = PK.rs_plan(r, blk, blk, 2, aligned=True,
+                                               sms=sms)
+                                if v.smem_bytes > PK.SMEM_LIMIT:
+                                    continue
+                                if not same_bits(run(), want):
+                                    raise AssertionError(f"RS variant {v}")
+                                ms = CS.time_ms(run)
                             emit({"kernel": "ring_reduce_scatter variant",
                                   "shape": row["shape"], "per_sm": per_sm,
                                   "stage_bytes": stage_bytes,
                                   "stages": stages, "plan":
-                                  dataclasses.asdict(v),
-                                  "ms": CS.time_ms(run)})
+                                  dataclasses.asdict(v), "ms": ms})
             del x
 
     # -- selective scan --
@@ -159,23 +177,23 @@ def main() -> int:
                 max_sm_clock_mhz=clock)
         emit(row)
         if args.variants and not args.quick and (b, s) == (4, 405):
+            fn = partial(MS.mamba_scan, *a_, chunk=256)
             for ch in (64, 128):
                 for run in (16, 32, 64):
                     for stages in (2, 3, 4):
-                        smem = MS.staged_smem(ch, run, n, 2, stages)
-                        if smem > MS.SMEM_LIMIT:
-                            continue
-                        v = dataclasses.replace(
-                            p, channels=ch, run=run, stages=stages,
-                            threads=ch * p.lanes + 32,
-                            grid=(-(-d // ch), b), smem_bytes=smem)
-                        fn = partial(MS._launch, *a_, 256, None, v)
-                        if not torch.equal(fn()[0], y):
-                            raise AssertionError(f"scan variant {v}")
+                        with constants(MS, CHANNELS=(ch, ch), RUN_MAX=run,
+                                       STAGES=stages):
+                            v = MS.scan_plan(b, s, d, n, 2, chunk=256,
+                                             sms=sms)
+                            if v.smem_bytes > MS.SMEM_LIMIT:
+                                continue
+                            if not torch.equal(fn()[0], y):
+                                raise AssertionError(f"scan variant {v}")
+                            ms = CS.time_ms(fn)
                         emit({"kernel": "mamba_scan variant",
                               "shape": row["shape"], "channels": ch,
                               "run": run, "stages": stages,
-                              "smem_bytes": smem, "ms": CS.time_ms(fn)})
+                              "smem_bytes": v.smem_bytes, "ms": ms})
         del a_
 
     # bit identity: every chunk, and S + 4 steps against S then 4 chained

@@ -96,10 +96,10 @@ SIGNATURES = {
     "pk_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
                      + [_I, _L, _L, _P],
     # in ptrs, out ptrs, R, blk elems, chunk elems, dtype (0 f32, 1 bf16),
-    # tile (elements a source a stage; 0: element-wise), grid, stages (the
-    # plan's), stream
+    # tile (elements a source a stage; 0: element-wise), grid, stages,
+    # shared memory a block (the plan's), stream
     "pk_reduce_scatter": [ctypes.POINTER(ctypes.c_uint64)] * 2
-                         + [_I, _L, _L, _I, _I, _I, _I, _P],
+                         + [_I, _L, _L, _I, _I, _I, _I, _L, _P],
     # the store-and-count kernel the reduce-scatter ran on before, a timing
     # yardstick (csrc/pk_comm_yardstick.cu): in ptrs, out ptrs, landing
     # ptrs, flags, R, blk elems, chunk elems, dtype, stream
@@ -115,10 +115,10 @@ SIGNATURES = {
                                    + [_I] * 4 + [ctypes.c_float, _I, _P, _P],
     # dt, x, b, c, a, h0, y, h_out, B, S, D, N, x/b/c bf16 flag, dt, x,
     # b, c strides (batch, step), dl, h0 strides (rank, batch), h_out
-    # strides (rank, batch), channels a block, run, stages, staged (the
-    # plan's), stream
+    # strides (rank, batch), channels a block, run, stages, staged, shared
+    # memory a block (the plan's), stream
     "pk_mamba_scan": [_P] * 8 + [_I] * 5 + [_L] * 8 + [_I] + [_L] * 4
-                     + [_I] * 4 + [_P],
+                     + [_I] * 5 + [_P],
     # the kernel the scan ran on before its staged design, a timing
     # yardstick (csrc/mamba_scan_yardstick.cu): dt, x, b, c, a, h0, y,
     # h_out, B, S, D, N, chunk, x/b/c bf16 flag, the strides as above,

@@ -375,20 +375,23 @@ int encode_scan_map(CUtensorMap* map, const void* ptr, bool bf16, long inner,
 }
 
 template <typename T, int N>
-int sc_launch(const ScArgs& p, int B, bool staged, cudaStream_t stream) {
+int sc_launch(const ScArgs& p, int B, bool staged, int smem_bytes,
+              cudaStream_t stream) {
   constexpr int L = N / k_states(N);
   const int consumers = p.ch * L;
   if (consumers % 32 || consumers > SC_MAX_CONSUMERS)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((p.D + p.ch - 1) / p.ch, B);
   if (!staged) {
+    if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
     pk_scan_direct_kernel<T, N><<<grid, consumers, 0, stream>>>(p);
     return (int)cudaGetLastError();
   }
   const bool bf16 = sizeof(T) == 2;
   const ScLayout lay(p.ch, p.run, N, sizeof(T), p.stages);
   if (p.S < 1 || p.D % 4 || p.run < 1 || p.run > 256 || p.stages < 1 ||
-      p.stages > SC_MAX_STAGES || lay.total > SC_SMEM_LIMIT)
+      p.stages > SC_MAX_STAGES || lay.total > SC_SMEM_LIMIT ||
+      lay.total != smem_bytes)
     return (int)cudaErrorInvalidValue;
   CUtensorMap m_dt, m_x, m_b, m_c;
   int e = encode_scan_map(&m_dt, p.dt, false, p.D, p.S, B, p.sds, p.sdb,
@@ -414,14 +417,15 @@ int sc_launch(const ScArgs& p, int B, bool staged, cudaStream_t stream) {
 }
 
 template <typename T>
-int sc_dispatch(const ScArgs& p, int B, int N, bool staged, cudaStream_t s) {
+int sc_dispatch(const ScArgs& p, int B, int N, bool staged, int smem,
+                cudaStream_t s) {
   switch (N) {
-    case 1: return sc_launch<T, 1>(p, B, staged, s);
-    case 2: return sc_launch<T, 2>(p, B, staged, s);
-    case 4: return sc_launch<T, 4>(p, B, staged, s);
-    case 8: return sc_launch<T, 8>(p, B, staged, s);
-    case 16: return sc_launch<T, 16>(p, B, staged, s);
-    case 32: return sc_launch<T, 32>(p, B, staged, s);
+    case 1: return sc_launch<T, 1>(p, B, staged, smem, s);
+    case 2: return sc_launch<T, 2>(p, B, staged, smem, s);
+    case 4: return sc_launch<T, 4>(p, B, staged, smem, s);
+    case 8: return sc_launch<T, 8>(p, B, staged, smem, s);
+    case 16: return sc_launch<T, 16>(p, B, staged, smem, s);
+    case 32: return sc_launch<T, 32>(p, B, staged, smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -433,7 +437,9 @@ int sc_dispatch(const ScArgs& p, int B, int N, bool staged, cudaStream_t s) {
 // state of channel d = r * dl + j sits at r * h0r + batch * h0b + j * N.
 // The launch is the plan's (kernels/mamba_scan.py scan_plan): `channels` a
 // block, and for the staged kernel (staged = 1) the steps a stage (`run`)
-// and the stages; neither changes the result.
+// and the stages; neither changes the result. smem_bytes is the plan's
+// shared memory a block: a launch whose ScLayout differs (0 for the direct
+// kernel) is refused.
 extern "C" int pk_mamba_scan(const void* dt, const void* x, const void* b,
                              const void* c, const void* a, const void* h0,
                              void* y, void* h_out, int B, int S, int D,
@@ -442,7 +448,8 @@ extern "C" int pk_mamba_scan(const void* dt, const void* x, const void* b,
                              long long sbs, long long scb, long long scs,
                              int dl, long long h0r, long long h0b,
                              long long hor, long long hob, int channels,
-                             int run, int stages, int staged, void* stream) {
+                             int run, int stages, int staged,
+                             int smem_bytes, void* stream) {
   if (N < 1 || N > 32 || (N & (N - 1)) || dl < 1 || D % dl || channels < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return 0;
@@ -451,6 +458,6 @@ extern "C" int pk_mamba_scan(const void* dt, const void* x, const void* b,
            (long)sds, (long)sxb, (long)sxs, (long)sbb, (long)sbs, (long)scb,
            (long)scs, (long)h0r, (long)h0b, (long)hor, (long)hob};
   cudaStream_t s = (cudaStream_t)stream;
-  return x_bf16 ? sc_dispatch<__nv_bfloat16>(p, B, N, staged, s)
-                : sc_dispatch<float>(p, B, N, staged, s);
+  return x_bf16 ? sc_dispatch<__nv_bfloat16>(p, B, N, staged, smem_bytes, s)
+                : sc_dispatch<float>(p, B, N, staged, smem_bytes, s);
 }

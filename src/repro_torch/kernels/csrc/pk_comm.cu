@@ -279,9 +279,10 @@ size_t rs_smem(int R, int tile, int stages) {
 template <typename T>
 int launch_rs(const unsigned long long* in, const unsigned long long* out,
               int R, long blk, long chunk, int tile, int grid, int stages,
-              cudaStream_t stream) {
+              long smem_bytes, cudaStream_t stream) {
   pk::PtrTable s = pk::table(in, R), d = pk::table(out, R);
   if (tile == 0) {  // element by element
+    if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
     pk_rs_pull_elem_kernel<T>
         <<<grid, RS_ELEM_THREADS, 0, stream>>>(s, d, R, blk);
     return (int)cudaGetLastError();
@@ -293,6 +294,7 @@ int launch_rs(const unsigned long long* in, const unsigned long long* out,
       stages > RS_MAX_STAGES)
     return (int)cudaErrorInvalidValue;
   const size_t smem = rs_smem<T>(R, tile, stages);
+  if ((long)smem != smem_bytes) return (int)cudaErrorInvalidValue;
   static size_t granted = 0;  // the attribute this instantiation was given
   if (smem > granted) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -348,12 +350,13 @@ extern "C" int pk_all_gather(const unsigned long long* in_ptrs,
 // owner o); out: R ranks of blk elements. dtype: 0 = float32, 1 =
 // bfloat16. The launch is the plan's (kernels/pk_comm.py rs_plan): tile
 // elements a source a stage (0: the element-wise kernel), the persistent
-// grid and the ring's stages.
+// grid, the ring's stages and its shared memory a block: a launch whose
+// rs_smem differs (0 for the element-wise kernel) is refused.
 extern "C" int pk_reduce_scatter(const unsigned long long* in_ptrs,
                                  const unsigned long long* out_ptrs, int R,
                                  long blk_elems, long chunk_elems, int dtype,
                                  int tile, int grid, int stages,
-                                 void* stream) {
+                                 long long smem_bytes, void* stream) {
   if (R < 1 || R > PK_MAX_RANKS || chunk_elems <= 0 ||
       blk_elems % chunk_elems != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
@@ -361,10 +364,11 @@ extern "C" int pk_reduce_scatter(const unsigned long long* in_ptrs,
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_rs<float>(in_ptrs, out_ptrs, R, blk_elems, chunk_elems,
-                            tile, grid, stages, st);
+                            tile, grid, stages, (long)smem_bytes, st);
   if (dtype == 1)
     return launch_rs<__nv_bfloat16>(in_ptrs, out_ptrs, R, blk_elems,
-                                    chunk_elems, tile, grid, stages, st);
+                                    chunk_elems, tile, grid, stages,
+                                    (long)smem_bytes, st);
   return (int)cudaErrorInvalidValue;
 }
 

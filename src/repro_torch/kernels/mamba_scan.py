@@ -71,6 +71,9 @@ _TYPES = (torch.float32, torch.bfloat16)
 #: steps a stage holds at most, stages of the staged kernel's ring
 RUN_MAX = 32
 STAGES = 2
+#: channels a block: wide where B·D/wide blocks still give every SM one
+#: and the lanes fit, else narrow
+CHANNELS = (128, 64)
 #: consumer lanes a block at most (csrc/mamba_scan.cu SC_MAX_CONSUMERS)
 MAX_CONSUMERS = 512
 #: tensor-map strides stay below 2^40 bytes
@@ -88,7 +91,8 @@ class ScanPlan:
     stages: int         # (0: direct)
     threads: int        # consumer lanes, + a producer warp when staged
     grid: tuple[int, int]   # (channel tiles, B)
-    smem_bytes: int     # dynamic shared memory a block
+    smem_bytes: int     # dynamic shared memory a block: the .cu's
+                        # ScLayout, which the launch checks
 
 
 def _align128(n: int) -> int:
@@ -103,15 +107,17 @@ def scan_plan(b: int, s: int, d: int, n: int, elsize: int, *,
     every operand's address and (step, batch) strides are 16-byte
     multiples below 2^40 bytes (``_tma_ok``). The staged kernel takes S >
     1, D a multiple of 4 and b, c rows of at least 16 bytes; anything else
-    runs the direct kernel. A block covers 128 channels where B·D/128
-    blocks still give every SM one and 128·N/K lanes fit, else 64."""
+    runs the direct kernel. A block covers ``CHANNELS``' 128 channels where
+    B·D/128 blocks still give every SM one and 128·N/K lanes fit, else 64.
+    ``smem_bytes`` is the .cu's ``ScLayout``, which the launch checks."""
     if n < 1 or n > 32 or n & (n - 1):
         raise ValueError(f"the CUDA mamba_scan needs N a power of two <= 32, "
                          f"got N = {n}")
     k = min(4, n)
     lanes = n // k
-    ch = 128 if (b * -(-d // 128) >= sms
-                 and 128 * lanes <= MAX_CONSUMERS) else 64
+    wide, narrow = CHANNELS
+    ch = wide if (b * -(-d // wide) >= sms
+                  and wide * lanes <= MAX_CONSUMERS) else narrow
     grid = (-(-d // ch), b)
     staged = (tma_ok and s > 1 and d % 4 == 0 and n * elsize >= 16)
     if not staged:
@@ -191,9 +197,8 @@ def _check(dt, b_ssm, c_ssm, x, a, h0, h_out) -> None:
         raise ValueError("mamba_scan's inputs must be on one device")
 
 
-def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out, plan=None):
-    """Check and launch, at ``scan_plan``'s launch or at ``plan`` (the
-    probe's variants)."""
+def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out):
+    """Check and launch at ``scan_plan``'s launch."""
     bsz, s, d = dt.shape
     n = a.shape[-1]
     if n > 32 or n & (n - 1):
@@ -226,9 +231,8 @@ def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out, plan=None):
         h0r, h0b = h0.stride(0), h0.stride(1)
         hor, hob = h_out.stride(0), h_out.stride(1)
     y = torch.empty((bsz, s, d), dtype=torch.float32, device=dt.device)
-    p = plan or scan_plan(bsz, s, d, n, x.element_size(), chunk=int(chunk),
-                          tma_ok=_tma_ok(dt, x, b_ssm, c_ssm),
-                          sms=sm_count(dt.device))
+    p = scan_plan(bsz, s, d, n, x.element_size(), chunk=int(chunk),
+                  tma_ok=_tma_ok(dt, x, b_ssm, c_ssm), sms=sm_count(dt.device))
     err = _build.library().pk_mamba_scan(
         dt.data_ptr(), x.data_ptr(), b_ssm.data_ptr(), c_ssm.data_ptr(),
         a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
@@ -236,7 +240,7 @@ def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out, plan=None):
         dt.stride(0), dt.stride(1), x.stride(0), x.stride(1),
         b_ssm.stride(0), b_ssm.stride(1), c_ssm.stride(0), c_ssm.stride(1),
         dl, h0r, h0b, hor, hob, p.channels, p.run, p.stages, int(p.staged),
-        torch.cuda.current_stream(dt.device).cuda_stream)
+        p.smem_bytes, torch.cuda.current_stream(dt.device).cuda_stream)
     _build.check(err, "pk_mamba_scan")
     mamba_scan.launches += 1
     return y, h_out

@@ -172,29 +172,29 @@ class RsPlan:
     grid: int           # persistent blocks launched
     threads: int
     stages: int
-    smem_bytes: int     # dynamic shared memory a block
+    smem_bytes: int     # dynamic shared memory a block: the .cu's
+                        # rs_smem, which the launch checks
 
 
 def rs_plan(r: int, blk: int, chunk: int, elsize: int, *, aligned: bool,
-            sms: int = H100_SMS, stage_bytes: int = RS_STAGE_BYTES,
-            stages: int = RS_STAGES, per_sm: int = RS_PER_SM) -> RsPlan:
+            sms: int = H100_SMS) -> RsPlan:
     """The launch of a reduce-scatter of R ranks' (R, blk) partials in
     chunks of ``chunk`` elements of ``elsize`` bytes on a card of ``sms``
     SMs. Bulk copies take 16-byte aligned addresses (``aligned``: every
     rank's input and output) and chunks of a multiple of 16 bytes; a stage
-    holds R tiles of about ``stage_bytes`` together, halved (down to
+    holds R tiles of about ``RS_STAGE_BYTES`` together, halved (down to
     ``RS_MIN_TILE_BYTES`` a source) while the items would not give every
-    block of the grid (``per_sm`` blocks an SM) one. Item i is owner i //
-    (items / R), then chunk and tile; block b takes items b, b + grid, ...
-    The keywords after ``sms`` exist for the probe that chose them."""
+    block of the grid (``RS_PER_SM`` blocks an SM) one. Item i is owner i
+    // (items / R), then chunk and tile; block b takes items b, b + grid,
+    ..."""
     if r < 1 or chunk < 1 or blk % chunk:
         raise ValueError(f"rs_plan: R={r}, blk={blk}, chunk={chunk}")
     if not (aligned and chunk * elsize % 16 == 0):
         grid = max(1, min(-(-r * blk // RS_ELEM_THREADS),
                           RS_ELEM_PER_SM * sms))
         return RsPlan(False, 0, 0, r * blk, grid, RS_ELEM_THREADS, 0, 0)
-    tile_bytes = stage_bytes // r // 16 * 16
-    cap = per_sm * sms
+    tile_bytes = RS_STAGE_BYTES // r // 16 * 16
+    cap = RS_PER_SM * sms
 
     def items(tb):
         return r * (blk // chunk) * -(-chunk * elsize // tb)
@@ -205,7 +205,7 @@ def rs_plan(r: int, blk: int, chunk: int, elsize: int, *, aligned: bool,
     tpc = -(-chunk // tile)
     n = r * (blk // chunk) * tpc
     return RsPlan(True, tile, tpc, n, max(1, min(n, cap)), RS_THREADS,
-                  stages, stages * r * tile_bytes + 2 * stages * 8)
+                  RS_STAGES, RS_STAGES * r * tile_bytes + 2 * RS_STAGES * 8)
 
 
 def ring_reduce_scatter(x: torch.Tensor, *,
@@ -226,21 +226,20 @@ def ring_reduce_scatter(x: torch.Tensor, *,
     return _reduce_scatter_cuda(x.contiguous(), n_chunks)
 
 
-def _reduce_scatter_cuda(x: torch.Tensor, n_chunks: int,
-                         plan: RsPlan | None = None) -> torch.Tensor:
-    """Launch the reduce-scatter kernel on contiguous CUDA partials, at
-    ``rs_plan``'s launch or at ``plan`` (the probe's variants)."""
+def _reduce_scatter_cuda(x: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """Launch the reduce-scatter kernel on contiguous CUDA partials at
+    ``rs_plan``'s launch."""
     r = x.shape[0]
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
     blk = x[0, 0].numel()
     ins, outs = pgl.pointer_table(x), pgl.pointer_table(out)
-    p = plan or rs_plan(r, blk, blk // n_chunks, x.element_size(),
-                        aligned=all(a % 16 == 0 for a in ins + outs),
-                        sms=sm_count(x.device))
+    p = rs_plan(r, blk, blk // n_chunks, x.element_size(),
+                aligned=all(a % 16 == 0 for a in ins + outs),
+                sms=sm_count(x.device))
     err = _build.library().pk_reduce_scatter(
         _build.host_table(ins), _build.host_table(outs), r, blk,
         blk // n_chunks, _DTYPE_CODE[x.dtype], p.tile, p.grid, p.stages,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        p.smem_bytes, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pk_reduce_scatter")
     ring_reduce_scatter.launches += 1
     return out

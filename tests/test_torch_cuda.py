@@ -478,6 +478,32 @@ def test_mamba_scan_kernel(cuda, b, s, d, n, r, bf16):
     assert _rel(h, want_h) <= 1e-3
 
 
+@pytest.mark.parametrize("kernel,shape", [
+    ("scan", (1, 60, 512)), ("scan", (8, 1, 512)),
+    ("rs", (2, 1024, 4, 64)), ("rs", (2, 5, 4, 7))])
+def test_launch_refuses_a_plan_whose_shared_memory_is_not_the_kernels(
+        cuda, monkeypatch, kernel, shape):
+    """The plans' shared-memory sizes are the .cu's layouts: a launch given
+    other bytes (staged or direct scan, bulk or element-wise RS) is
+    refused, never run."""
+    from repro_torch.kernels import mamba_scan as MS
+    from repro_torch.kernels import pk_comm as PK
+    mod, name = (MS, "scan_plan") if kernel == "scan" else (PK, "rs_plan")
+    plan = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a, **k: dataclasses.replace(
+        plan(*a, **k), smem_bytes=plan(*a, **k).smem_bytes + 128))
+    if kernel == "scan":
+        b, s, d = shape
+        args = _scan_inputs(cuda, b, s, d, 16, bf16=True, r=4)
+        with pytest.raises(RuntimeError, match="pk_mamba_scan"):
+            MS.mamba_scan(*args)
+    else:
+        r = shape[0]
+        x = torch.randn((r, *shape), device=cuda).to(torch.bfloat16)
+        with pytest.raises(RuntimeError, match="pk_reduce_scatter"):
+            PK.ring_reduce_scatter(x)
+
+
 def test_mamba_scan_kernel_refuses_other_dtype_mixes(cuda):
     """The kernel takes dt f32 with x, b, c all bf16 or all f32."""
     from repro_torch.kernels import mamba_scan as MS

@@ -391,6 +391,63 @@ def mm_tile_reduce_scatter(x, n_chunks=1):
     return out
 
 
+def mm_tile_all_gather(x, n_chunks=1):
+    """B3's all-gather kernel before its TMA-staged design
+    (``csrc/pk_comm_yardstick.cu``: one 16-byte load a thread, R stores),
+    on a contiguous (R, blk, ...) -> (R, R, blk, ...); the before-column
+    ``ms_mm_tile`` of the all-gather rows. The port never calls it."""
+    import torch
+
+    from repro_torch.core import pgl
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import pk_comm as PK
+    r, rows = x.shape[0], x.shape[1] if x.dim() > 1 else 1
+    out = torch.empty((r, *x.shape), dtype=x.dtype, device=x.device)
+    blk = x[0].numel() * x.element_size()
+    _build.check(_build.library().pk_mm_tile_all_gather(
+        _build.host_table(pgl.pointer_table(x)),
+        _build.host_table(pgl.pointer_table(out)), r, blk,
+        blk // PK._chunks(rows, n_chunks),
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "pk_mm_tile_all_gather")
+    return out
+
+
+def mm_tile_path_gather(x, axis):
+    """What an FSDP gather of the strided view x (R, *local) along local dim
+    ``axis`` cost before the TMA design: the old wrapper's moves and copy
+    around the old kernel (``mm_tile_all_gather``), returning the
+    non-contiguous (R, *gathered) view it returned."""
+    front = x.movedim(1 + axis, 1).contiguous()
+    return mm_tile_all_gather(front).flatten(1, 2).movedim(1, 1 + axis)
+
+
+_MM_TILE_P2P_FLAGS: dict = {}
+
+
+def mm_tile_p2p_ring_shift(x):
+    """B8's kernel before its persistent design
+    (``csrc/pk_comm_yardstick.cu``: grid (tile, source), a memset of the
+    flags before every launch); the before-column of the p2p row."""
+    import torch
+
+    from repro_torch.core import pgl
+    from repro_torch.kernels import _build
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.device not in _MM_TILE_P2P_FLAGS:
+        _MM_TILE_P2P_FLAGS[x.device] = torch.zeros(
+            (8,), dtype=torch.int32, device=x.device)
+    _build.check(_build.library().pk_mm_tile_p2p_ring_shift(
+        _build.host_table(pgl.pointer_table(x)),
+        _build.host_table(pgl.pointer_table(out)),
+        _MM_TILE_P2P_FLAGS[x.device].data_ptr(), x.shape[0],
+        x[0].numel() * x.element_size(),
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "pk_mm_tile_p2p_ring_shift")
+    return out
+
+
 def mm_tile_mamba_scan(dt, b_ssm, c_ssm, x, a, h0, chunk=128):
     """B10's kernel before its staged, pipelined design
     (``csrc/mamba_scan_yardstick.cu``: one lane a state, staging no load
@@ -606,22 +663,22 @@ def check_kernels(dev) -> dict:
     # gathered dim moved to the front, (R_dp, d/2, R_tp, n) for n = 64 (wk,
     # wv), 512 (wq, wo), 1408 (w1, w3, w2) and 8000 (embed, lm_head); then
     # the MLP shard over 4 and 8 ranks. Every chunk count must give the
-    # same bits; the reduce-scatter's must be the plain version's bits and
-    # those of the store-and-count kernel it ran on before
-    # (``mm_tile_reduce_scatter``). The MLP shape is timed: the all-gather
-    # at R = 2, the reduce-scatter at R = 2, 4 and 8, beside its yardstick.
+    # same bits, the plain version's and those of the kernel each ran on
+    # before (``mm_tile_all_gather``, ``mm_tile_reduce_scatter``). The MLP
+    # shape is timed: the all-gather at R = 2, the reduce-scatter at R = 2,
+    # 4 and 8, beside its yardstick.
     for r, rows, n in ((2, 1024, 64), (2, 1024, 512), (2, 1024, 1408),
                        (2, 1024, 8000), (4, 512, 1408), (8, 256, 1408)):
         x = randn(r, rows, 4, n)
         parts = randn(r, r, rows, 4, n)
         blk = rows * 4 * n
-        for name, fn, plain, arg, lib, nbytes in (
+        for name, fn, plain, arg, lib, nbytes, yard in (
                 ("pk_all_gather", PK.ring_all_gather, PK.all_gather_plain,
                  x, lambda: x.unsqueeze(0).repeat(r, 1, 1, 1, 1),
-                 (r + r * r) * blk * 2),
+                 (r + r * r) * blk * 2, mm_tile_all_gather),
                 ("pk_reduce_scatter", PK.ring_reduce_scatter,
                  PK.reduce_scatter_plain, parts, lambda: parts.sum(0),
-                 (r * r + r) * blk * 2)):
+                 (r * r + r) * blk * 2, mm_tile_reduce_scatter)):
             shape = f"x{tuple(arg.shape)} bf16"
             first = fn(arg)
             for nc in (2, 3, 4):
@@ -629,15 +686,13 @@ def check_kernels(dev) -> dict:
                     raise AssertionError(f"{name} {shape}: n_chunks={nc} "
                                          "changed the result")
             run = partial(fn, arg)
-            before = None
-            if name == "pk_reduce_scatter":
-                before = partial(mm_tile_reduce_scatter, parts)
-                bits = first.view(torch.int16)
-                if not (torch.equal(bits, plain(arg).view(torch.int16))
-                        and torch.equal(bits, before().view(torch.int16))):
-                    raise AssertionError(f"{name} {shape}: not the plain "
-                                         "version's or the store-and-count "
-                                         "kernel's bits")
+            before = partial(yard, arg)
+            bits = first.view(torch.int16)
+            if not (torch.equal(bits, plain(arg).view(torch.int16))
+                    and torch.equal(bits, before().view(torch.int16))):
+                raise AssertionError(f"{name} {shape}: not the plain "
+                                     "version's or the earlier kernel's "
+                                     "bits")
             key = name + ("" if r == 2 else f"@r{r}")
             if n != 1408 or (name == "pk_all_gather" and r != 2):
                 compare(name, shape, run, partial(plain, arg), TOL_BF16_OUT)
@@ -649,8 +704,9 @@ def check_kernels(dev) -> dict:
                 run, partial(plain, arg), lib, TOL_BF16_OUT, nbytes, 0.0,
                 before=before)
     print("[kernel] ring all-gather / reduce-scatter: bit-identical for "
-          "n_chunks 1-4 at every shape; the reduce-scatter bit-identical to "
-          "its plain version and to the store-and-count kernel", flush=True)
+          "n_chunks 1-4 at every shape, to their plain versions and to the "
+          "kernels they ran on before", flush=True)
+    entries.update(check_fsdp_gathers(dev, record, compare, randn))
 
     # moonshot-v1-16b-a3b on (1, 4): the grouped expert GEMM over all
     # G = 4 ranks x 16 experts at every shape the MoE path gives it — w1/w3
@@ -860,6 +916,67 @@ def check_matmul(dev, record, compare, randn) -> dict:
     return entries
 
 
+#: full-width tinyllama-1.1b's FSDP-sharded weights, tp-stacked over 4
+#: ranks as stored, and the stored dim their gather runs along: rows (wq,
+#: wk/wv, w1/w3, head) and columns (wo, w2, emb)
+FSDP_WEIGHTS = ((4, 2048, 512, 1), (4, 2048, 64, 1), (4, 2048, 1408, 1),
+                (4, 2048, 8000, 1), (4, 512, 2048, 2), (4, 1408, 2048, 2),
+                (4, 8000, 2048, 2))
+
+
+def check_fsdp_gathers(dev, record, compare, randn) -> dict:
+    """Phase 3, B3's all-gather in its path form: every FSDP weight of the
+    (2, 4) training run, rows and columns, gathered as ``fsdp_gather``
+    gathers it, ``all_gather_stacked(dp_view(w), dim, "fused")`` on the
+    strided view, over 2 dp ranks: contiguous, bit-identical to the
+    ``bulk`` backend, to the plain gather and to the kernel it ran on
+    before behind its old wrapper (``mm_tile_path_gather``). The MLP weight
+    w (4, 2048, 1408) is timed with one dp group's ``.contiguous()`` (what
+    a consumer did to the old wrapper's strided result; a no-op now) beside
+    the old wrapper and kernel (``ms_mm_tile``) and the ``bulk`` backend
+    (``library_ms``)."""
+    import torch
+
+    from repro_torch.core import pgl
+    from repro_torch.core.comms import all_gather_stacked
+    from repro_torch.kernels import pk_comm as PK
+
+    entries = {}
+    r = 2
+    for *stored, sdim in FSDP_WEIGHTS:
+        w = randn(*stored)
+        x = pgl.dp_view(w, sdim, r)
+        shape = (f"w{tuple(stored)} bf16 along dim {sdim}, dp_view "
+                 f"x{tuple(x.shape)} strided, R={r}")
+        got = all_gather_stacked(x, sdim, "fused")
+        bits = got.view(torch.int16)
+        if not (got.is_contiguous() and torch.equal(
+                bits, all_gather_stacked(x, sdim, "bulk").view(torch.int16))
+                and torch.equal(bits, PK.gather_along_plain(x, sdim)
+                                .view(torch.int16))
+                and torch.equal(bits, mm_tile_path_gather(x, sdim)
+                                .contiguous().view(torch.int16))):
+            raise AssertionError(f"FSDP gather {shape}: not contiguous, or "
+                                 "not the bits of bulk, the plain gather and "
+                                 "the earlier kernel")
+        if tuple(stored) != (4, 2048, 1408):
+            continue
+        entries["pk_all_gather@path"] = record(
+            "pk_all_gather", "path form: all_gather_stacked + one group's "
+            ".contiguous(), " + shape,
+            "src/repro_torch/kernels/csrc/pk_comm.cu",
+            "src/repro/kernels/pk_comm.py:151",
+            lambda: all_gather_stacked(x, sdim, "fused")[0].contiguous(),
+            lambda: PK.gather_along_plain(x, sdim)[0].contiguous(),
+            lambda: all_gather_stacked(x, sdim, "bulk")[0].contiguous(),
+            TOL_BF16_OUT, (r + r * r) * x[0].numel() * 2, 0.0,
+            before=lambda: mm_tile_path_gather(x, sdim)[0].contiguous())
+    print(f"[kernel] FSDP gathers: all {len(FSDP_WEIGHTS)} weights, rows and "
+          "columns, from the strided dp_view: contiguous and bit-identical "
+          "to bulk, the plain gather and the earlier kernel", flush=True)
+    return entries
+
+
 def check_ring_kernels(dev, record, compare, randn) -> dict:
     """Phase 3, the sequence-parallel path's kernels at the shapes of the
     sp-train phase (tinyllama-1.1b, 4 ranks x 2048 tokens, batch 1):
@@ -890,21 +1007,29 @@ def check_ring_kernels(dev, record, compare, randn) -> dict:
 
     entries = {}
     r, b, hq, hkv, s, hd = 4, 1, 32, 4, 2048, 64
-    stream = torch.cuda.current_stream().cuda_stream
+    flags = PK.p2p_flags(dev, torch.cuda.current_stream().cuda_stream)
     for shape, dtype in (((r, b, hkv, s, hd), torch.bfloat16),
                          ((r, 3, 5, 7), torch.float32),
                          ((r, 1001), torch.uint8)):
-        x = (torch.randn(shape, device=dev) * 50).to(dtype)
-        got = PK.p2p_ring_shift(x)
-        torch.cuda.synchronize()
-        flags = PK.p2p_flags(x.device, stream)[:r].tolist()
-        if not torch.equal(got, PK.ring_shift_plain(x)) \
-                or len(set(flags)) != 1 or flags[0] < 1:
-            raise AssertionError(f"p2p_ring_shift {shape} {dtype}: not the "
-                                 f"plain roll, or flags {flags}")
-        print(f"[kernel] p2p_ring_shift {shape} {dtype}: bit-identical to "
-              f"ring_shift_plain, {flags[0]} tiles counted into every "
-              "rank", flush=True)
+        for _ in range(3):              # the flags are never reset
+            x = (torch.randn(shape, device=dev) * 50).to(dtype)
+            start = flags.counts(r)
+            got = PK.p2p_ring_shift(x)
+            counts = flags.counts(r)
+            tiles = PK.p2p_plan(r, x[0].numel() * x.element_size(),
+                                aligned=True).tiles
+            if not (torch.equal(got, PK.ring_shift_plain(x))
+                    and torch.equal(got, mm_tile_p2p_ring_shift(x))
+                    and counts == flags.expected[:r]
+                    == [(c + tiles) % 2 ** 32 for c in start]):
+                raise AssertionError(
+                    f"p2p_ring_shift {shape} {dtype}: not the plain roll or "
+                    f"the earlier kernel's bits, or flags {start} -> "
+                    f"{counts}, not {tiles} tiles more")
+        print(f"[kernel] p2p_ring_shift {shape} {dtype}: 3 launches "
+              f"bit-identical to ring_shift_plain and the earlier kernel, "
+              f"every rank's flag {tiles} tiles more each launch (now "
+              f"{counts[0]})", flush=True)
     kv = randn(r, b, hkv, s, hd)
     nbytes = 2 * kv.numel() * kv.element_size()
     entries["p2p_ring_shift"] = record(
@@ -912,7 +1037,7 @@ def check_ring_kernels(dev, record, compare, randn) -> dict:
         "src/repro_torch/kernels/csrc/pk_comm.cu",
         "src/repro/kernels/pk_comm.py:284", partial(PK.p2p_ring_shift, kv),
         partial(PK.ring_shift_plain, kv), partial(torch.roll, kv, 1, 0),
-        0.0, nbytes, 0.0)
+        0.0, nbytes, 0.0, before=partial(mm_tile_p2p_ring_shift, kv))
 
     q = randn(r * b, hq, s, hd)
     k_, v = randn(r * b, hkv, s, hd), randn(r * b, hkv, s, hd)
@@ -2334,7 +2459,8 @@ def main() -> int:
     check_sp_reference(dev)
     tp_launches = tp_gemm(dev)
     main_entries = []
-    for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",):
+    for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
+                                  "pk_all_gather@path"):
         counter = key.split("@")[0]
         by_path = {"serve": serve_launches.get(counter, 0),
                    "serve_moe": moe_launches.get(counter, 0),

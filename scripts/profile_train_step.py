@@ -21,7 +21,9 @@ with the median over the profiled steps of:
   ``wall_ms_unprofiled`` (the warm-up steps, without the profiler);
 - ``device_busy_ms``: the union of the device activities in that range, and
   ``device_idle_share`` = 1 - busy / wall;
-- ``device_ops``: the number of device activities; ``optimizer_wall_ms``
+- ``device_ops``: the number of device activities; ``device_copy_ops``
+  and ``device_copy_ms``: those whose name says copy (``.contiguous()``,
+  ``torch.cat``, memcpy) and their device time; ``optimizer_wall_ms``
   and ``optimizer_device_ms`` for the update alone;
 
 and the mean device time per step by group (the port's ``pk_*`` kernels,
@@ -163,8 +165,12 @@ def main() -> int:
             n = names.setdefault(e.name[:80], [0.0, 0])
             n[0] += dt
             n[1] += 1
+        copies = [e for e in inside if "copy" in e.name.lower()]
         steps.append({
             "wall_us": hi - lo, "ops": len(inside), "groups": groups,
+            "copy_ops": len(copies),
+            "copy_us": sum(e.time_range.end - e.time_range.start
+                           for e in copies),
             "names": names,
             "busy_us": busy_us((e.time_range.start, e.time_range.end)
                                for e in inside),
@@ -193,6 +199,8 @@ def main() -> int:
         "device_busy_ms": med("busy_us"),
         "device_idle_share": 1.0 - med("busy_us") / med("wall_us"),
         "device_ops": statistics.median(s["ops"] for s in steps),
+        "device_copy_ops": statistics.median(s["copy_ops"] for s in steps),
+        "device_copy_ms": med("copy_us"),
         f"{sub}_wall_ms": med("opt_wall_us"),
         f"{sub}_device_ms": med("opt_busy_us"),
         "device_ms_per_step_by_group": {

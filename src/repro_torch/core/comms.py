@@ -501,18 +501,16 @@ def pk_psum_ring(y: torch.Tensor) -> torch.Tensor:
 
 def all_gather_stacked(x: torch.Tensor, axis: int,
                        backend: str) -> torch.Tensor:
-    """(R, *local) -> (R, *gathered) along local dim ``axis``. ``fused``
-    moves the axis to the front, runs the ring kernel on (R, blk, ...) and
-    moves it back; ``bulk`` concatenates the shards in rank order."""
+    """(R, *local) -> (R, *gathered) along local dim ``axis``, contiguous.
+    ``fused`` runs the all-gather kernel on x's view as it is (an FSDP
+    ``dp_view`` is strided) into the gathered layout, no copy before or
+    after it; ``bulk`` concatenates the shards in rank order."""
     r = x.shape[0]
     if backend == "bulk":
         full = torch.cat(list(x.unbind(0)), dim=axis)
         return full.unsqueeze(0).expand(r, *full.shape).contiguous()
     from repro_torch.kernels import pk_comm
-    front = x.movedim(1 + axis, 1)
-    out = pk_comm.ring_all_gather(front)          # (R, R, L, *rest)
-    out = out.flatten(1, 2)                        # (R, R·L, *rest)
-    return out.movedim(1, 1 + axis)
+    return pk_comm.all_gather_along(x, axis)
 
 
 def reduce_scatter_stacked(x: torch.Tensor, axis: int,

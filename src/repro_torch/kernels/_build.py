@@ -92,9 +92,18 @@ SIGNATURES = {
     # strides, out_f32, cfg, grid (the plan's), stream
     "pk_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
                                _L, _L, _I, _I, _I, _P],
-    # in ptrs, out ptrs, R, blk bytes, chunk bytes, stream
-    "pk_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
-                     + [_I, _L, _L, _P],
+    # in, out, R, route (1 TMA, 0 words), unit, dims, extents, input and
+    # output strides (int64[dims]), source, slot and rank strides, box
+    # (int[3]), grid, stages, shared memory a block (the plan's), bulk
+    # stores, stream
+    "pk_all_gather": [_P, _P, _I, _I, _I, _I]
+                     + [ctypes.POINTER(ctypes.c_int64)] * 3 + [_L] * 3
+                     + [ctypes.POINTER(ctypes.c_int), _I, _I, _L, _I, _P],
+    # the kernel B3's all-gather ran on before, a timing yardstick
+    # (csrc/pk_comm_yardstick.cu): in ptrs, out ptrs, R, blk bytes, chunk
+    # bytes, stream
+    "pk_mm_tile_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
+                             + [_I, _L, _L, _P],
     # in ptrs, out ptrs, R, blk elems, chunk elems, dtype (0 f32, 1 bf16),
     # tile (elements a source a stage; 0: element-wise), grid, stages,
     # shared memory a block (the plan's), stream
@@ -105,9 +114,15 @@ SIGNATURES = {
     # ptrs, flags, R, blk elems, chunk elems, dtype, stream
     "pk_mm_tile_reduce_scatter": [ctypes.POINTER(ctypes.c_uint64)] * 3
                                  + [_P, _I, _L, _L, _I, _P],
-    # in ptrs, out ptrs, flags, R, blk bytes, stream
+    # in ptrs, out ptrs, flags, R, blk bytes, tile bytes, grid, bulk,
+    # shared memory a block (the plan's), stream
     "pk_p2p_ring_shift": [ctypes.POINTER(ctypes.c_uint64)] * 2
-                         + [_P, _I, _L, _P],
+                         + [_P, _I, _L, _L, _I, _I, _L, _P],
+    # the kernel B8 ran on before, a timing yardstick
+    # (csrc/pk_comm_yardstick.cu): in ptrs, out ptrs, flags, R, blk bytes,
+    # stream
+    "pk_mm_tile_p2p_ring_shift": [ctypes.POINTER(ctypes.c_uint64)] * 2
+                                 + [_P, _I, _L, _P],
     # q, k, v, o, m, l, B, Hq, Hkv, Sq, Skv, D, q/k/v strides (b, h, s),
     # n_ranks, hop, causal, window, scale, grid (the plan's), the stream's
     # tile counter, stream

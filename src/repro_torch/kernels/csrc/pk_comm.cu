@@ -3,12 +3,20 @@
 // ::ring_reduce_scatter and ::p2p_ring_shift; the design note is in
 // kernels/pk_comm.py.
 //
-// A rank's block is blk_elems elements (its rows, flattened), split into
-// n_chunks row chunks of chunk_elems each; tiles never cross a chunk.
-//
-// all-gather:     grid (tile, source s): the block reads its tile of in[s]
-//                 once and stores it into slot s of every rank's output.
-//                 No block waits: a copy depends on nothing but its source.
+// all-gather:     TMA staged. A persistent grid walks the (source s, tile)
+//                 items of the plan (kernels/pk_comm.py ag_plan); a tile is
+//                 one box of a tensor map over the input that carries the
+//                 strides of the view it was given. One producer thread
+//                 TMA-loads the tile into a ring of shared-memory stages
+//                 (full/empty mbarriers); the tile is then written into
+//                 slot s of every rank's output R times, through a second
+//                 map over the output laid out as the gathered tensor
+//                 (R, *gathered): either by R TMA bulk tensor stores from
+//                 the stage (bulk_group, the stage refilled after
+//                 wait_group.read) or by eight consumer warps storing
+//                 16-byte words. One read and R stores a tile; no block
+//                 waits on another. Shapes a tensor map cannot take run
+//                 a word kernel over the same strided description.
 // reduce-scatter: pull and sum. A persistent grid walks the (owner o,
 //                 tile) items; for each, one producer thread issues R TMA
 //                 bulk copies (cp.async.bulk, completing on the stage's
@@ -21,19 +29,21 @@
 //                 pass. No block waits on another. Shapes that bulk copies
 //                 cannot take (a chunk not a multiple of 16 bytes, an
 //                 address not 16-byte aligned) run an element-wise pull
-//                 kernel with the same sums in the same order.
-// p2p ring shift: grid (tile, source s): the block stores its tile of in[s]
-//                 into out[(s + 1) % R] (store_async), fences and counts
-//                 itself in on the destination's flag (signal, release).
-//                 The TPU kernel opens with a neighbour barrier so that no
-//                 chip writes into a buffer its neighbour still reads; on
-//                 one card, inside one launch, a block that spin-waited on
-//                 another rank's flag could wait on a block not yet resident
-//                 and deadlock. The hop needs no wait: its output is a fresh
-//                 buffer and the stream orders it after the producer of the
-//                 input. So no block waits; the flags count each rank's
-//                 arrived tiles (R ints, zeroed before the launch), which a
-//                 later consumer or a test can read.
+//                 kernel with the same sums in the same order. A rank's
+//                 block is blk elements, split into n_chunks chunks of
+//                 chunk elements; tiles never cross a chunk.
+// p2p ring shift: a persistent grid walks the (source s, tile) items; each
+//                 item stores its tile of in[s] into out[(s + 1) % R] and
+//                 counts itself in on the destination's flag (signal,
+//                 release) once its stores are visible. The flags are never
+//                 reset: every launch adds its tiles, and the wrapper keeps
+//                 the count they must reach. The TPU kernel opens with a
+//                 neighbour barrier so that no chip writes into a buffer
+//                 its neighbour still reads; on one card, inside one
+//                 launch, a block that spin-waited on another rank's flag
+//                 could wait on a block not yet resident and deadlock. The
+//                 hop needs no wait: its output is a fresh buffer and the
+//                 stream orders it after the producer of the input.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -44,30 +54,216 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE_VECS = 4 * THREADS;  // vectors a block moves
-
 __device__ __forceinline__ long lmin(long a, long b) { return a < b ? a : b; }
 
-// -- all-gather: a byte copy, in 16-byte vectors when everything aligns --
+// -- all-gather: TMA staged, one read and R stores a tile --
 
-template <typename U>
-__global__ void __launch_bounds__(THREADS)
-    pk_all_gather_kernel(pk::PtrTable src, pk::PtrTable dst, int R,
-                         long blk_units, long chunk_units,
-                         int tiles_per_chunk) {
-  const int s = blockIdx.y;
-  const int c = blockIdx.x / tiles_per_chunk;
-  const int t = blockIdx.x - c * tiles_per_chunk;
-  const long begin = (long)c * chunk_units + (long)t * TILE_VECS;
-  const long end = lmin(begin + TILE_VECS, (long)(c + 1) * chunk_units);
-  const U* in = reinterpret_cast<const U*>(src.p[s]);
-  const long slot = (long)s * blk_units;
-  for (long i = begin + threadIdx.x; i < end; i += THREADS) {
-    const U v = __ldg(in + i);
-    for (int d = 0; d < R; ++d)  // store_async into rank d's slot s
-      reinterpret_cast<U*>(dst.p[d])[slot + i] = v;
+constexpr int AG_CONSUMERS = 256;              // 8 warps store words
+constexpr int AG_THREADS = AG_CONSUMERS + 32;  // + the producer warp
+constexpr int AG_MAX_STAGES = 8;
+constexpr int AG_WORD_THREADS = 256;
+constexpr int AG_WORD_DIMS = 6;
+
+// one box of a 5-D map at (c0 innermost, ..., c4) from shared `src`, a TMA
+// bulk tensor store committed to the thread's current bulk group
+__device__ __forceinline__ void tma_store5(const CUtensorMap* map,
+                                           uint32_t src, int c0, int c1,
+                                           int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete: their
+// writes to global memory are performed
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
+struct AgArgs {
+  CUtensorMap in_map;   // (e0, e1, e2, source): the input view's strides
+  CUtensorMap out_map;  // (e0, e1, e2, slot, rank): the gathered layout
+  long long e0, e1, e2;        // the copy's extents (e0 in 8-byte units)
+  long long os1, os2;          // output strides of dims 1, 2 (bytes)
+  long long slot, rank;        // output bytes between slots, between ranks
+  unsigned long long out;      // the output's base address
+  int R, items, t0, t1, t2;    // ranks; (source, tile) items; tiles a dim
+  int b0, b1, b2, stages;      // the box (a tile), the ring's stages
+  int box_bytes, stage_bytes;  // a box; a stage: the box to 128 bytes
+};
+
+// The persistent TMA kernel: block b takes items b, b + grid, ... Item i is
+// source s = i / tiles, then tile (k0 fastest, k1, k2) at c = k * box.
+template <bool BULK_STORE>
+__global__ void __launch_bounds__(AG_THREADS)
+    pk_ag_tma_kernel(const __grid_constant__ AgArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + (size_t)p.stages * p.stage_bytes);
+  const uint32_t ring = hg::smem_addr(smem);
+  const uint32_t full0 = hg::smem_addr(bars);
+  const uint32_t empty0 = hg::smem_addr(bars + p.stages);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      hg::mbar_init(full0 + 8 * s, 1);
+      hg::mbar_init(empty0 + 8 * s, AG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
+  const int tiles = p.t0 * p.t1 * p.t2;
+  const int n = (int)blockIdx.x < p.items
+                    ? (p.items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                    : 0;
+  // item j of this block: its source and the box's first coordinates
+  auto at = [&](int j, int& s, int& c0, int& c1, int& c2) {
+    const int i = (int)blockIdx.x + j * (int)gridDim.x;
+    s = i / tiles;
+    int t = i - s * tiles;
+    c0 = (t % p.t0) * p.b0;
+    t /= p.t0;
+    c1 = (t % p.t1) * p.b1;
+    c2 = (t / p.t1) * p.b2;
+  };
+  auto load = [&](int j) {
+    const int stage = j % p.stages;
+    int s, c0, c1, c2;
+    at(j, s, c0, c1, c2);
+    hg::mbar_expect_tx(full0 + 8 * stage, (uint32_t)p.box_bytes);
+    hg::tma_load4(ring + stage * p.stage_bytes, &p.in_map, c0, c1, c2, s,
+                  full0 + 8 * stage);
+  };
+  if constexpr (BULK_STORE) {
+    // one thread: loads run stages - 1 items ahead; the stage of item j - 1
+    // is refilled once its R stores have read it (all but the newest group)
+    if (threadIdx.x != 0) return;
+    const int ahead = n < p.stages - 1 ? n : p.stages - 1;
+    for (int j = 0; j < ahead; ++j) load(j);
+    for (int j = 0; j < n; ++j) {
+      const int stage = j % p.stages;
+      hg::mbar_wait(full0 + 8 * stage, (j / p.stages) & 1);
+      // the stores read what the async proxy wrote: order them after it
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      int s, c0, c1, c2;
+      at(j, s, c0, c1, c2);
+      for (int d = 0; d < p.R; ++d)
+        tma_store5(&p.out_map, ring + stage * p.stage_bytes, c0, c1, c2, s,
+                   d);
+      bulk_commit();
+      if (j + p.stages - 1 < n) {
+        bulk_wait_read<1>();
+        load(j + p.stages - 1);
+      }
+    }
+    bulk_wait<0>();
+  } else {
+    const bool producer = threadIdx.x >= AG_CONSUMERS;
+    if (producer && threadIdx.x != AG_CONSUMERS) return;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+    const int words = p.b0 / 2;  // 16-byte words a box row
+    for (int j = 0; j < n; ++j) {
+      const int stage = j % p.stages;
+      const uint32_t phase = (j / p.stages) & 1;
+      if (producer) {
+        hg::mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        load(j);
+        continue;
+      }
+      hg::mbar_wait(full0 + 8 * stage, phase);
+      int s, c0, c1, c2;
+      at(j, s, c0, c1, c2);
+      const long long valid = p.e0 - c0 < p.b0 ? p.e0 - c0 : p.b0;
+      const uint4* st =
+          reinterpret_cast<const uint4*>(smem + (size_t)stage * p.stage_bytes);
+      for (int row = warp; row < p.b1 * p.b2; row += AG_CONSUMERS / 32) {
+        const int i1 = row % p.b1, i2 = row / p.b1;
+        if (c1 + i1 >= p.e1 || c2 + i2 >= p.e2) continue;
+        unsigned char* base = reinterpret_cast<unsigned char*>(p.out) +
+                              s * p.slot + 8ll * c0 + (c1 + i1) * p.os1 +
+                              (c2 + i2) * p.os2;
+        for (int w = lane; 2ll * w < valid; w += 32) {
+          const uint4 v = st[(long)row * words + w];
+          for (int d = 0; d < p.R; ++d)
+            reinterpret_cast<uint4*>(base + d * p.rank)[w] = v;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hg::mbar_arrive(empty0 + 8 * stage);
+    }
+  }
+}
+
+// The copy's description in words for the word kernel: dims inner first,
+// input and output strides in bytes.
+struct WordDims {
+  long long ext[AG_WORD_DIMS], in[AG_WORD_DIMS], out[AG_WORD_DIMS];
+};
+
+// Word by word, for shapes a tensor map cannot take: element e of a source
+// is split into its coordinates dim by dim.
+template <typename U>
+__global__ void __launch_bounds__(AG_WORD_THREADS)
+    pk_ag_word_kernel(const unsigned char* __restrict__ in,
+                      unsigned char* __restrict__ out, int R, int nd,
+                      const WordDims w, long long per_src, long long src,
+                      long long slot, long long rank) {
+  const long long total = (long long)R * per_src;
+  for (long long e = (long long)blockIdx.x * AG_WORD_THREADS + threadIdx.x;
+       e < total; e += (long long)gridDim.x * AG_WORD_THREADS) {
+    const long long s = e / per_src;
+    long long rest = e - s * per_src, io = s * src, oo = s * slot;
+    for (int k = 0; k < nd; ++k) {
+      const long long q = rest / w.ext[k];
+      const long long i = rest - q * w.ext[k];
+      io += i * w.in[k];
+      oo += i * w.out[k];
+      rest = q;
+    }
+    const U v = *reinterpret_cast<const U*>(in + io);
+    for (int d = 0; d < R; ++d)
+      *reinterpret_cast<U*>(out + d * rank + oo) = v;
+  }
+}
+
+// A map of 8-byte elements (no swizzle, no interleave), strides in bytes;
+// 0, or minus the CUresult of a refused encode.
+inline int encode_u64(CUtensorMap* map, unsigned long long ptr, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box) {
+  hg::EncodeTiledFn fn = hg::encode_fn();
+  if (fn == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT64, rank,
+                        reinterpret_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// A stage of the TMA kernel's ring: a box, rounded up to the 128-byte
+// alignment of a TMA copy's shared-memory address.
+inline int ag_stage_bytes(int box_bytes) { return (box_bytes + 127) / 128 * 128; }
+
+// The TMA kernel's dynamic shared memory: the ring and its mbarriers.
+inline size_t ag_smem(int box_bytes, int stages) {
+  return (size_t)stages * ag_stage_bytes(box_bytes) +
+         2 * stages * sizeof(uint64_t);
 }
 
 // -- reduce-scatter: pull and sum, f32 in rank order --
@@ -237,31 +433,83 @@ __global__ void __launch_bounds__(RS_ELEM_THREADS)
   }
 }
 
-// -- p2p ring shift: one hop to the right, store-and-count, no wait --
+// -- p2p ring shift: one hop to the right, persistent, monotonic flags --
 
+constexpr int P2P_THREADS = 256;
+constexpr int P2P_UNROLL = 4;  // words in flight a thread
+
+// Words: item i is source s = i / tiles, tile t; the block copies its tile
+// of in[s] into out[(s + 1) % R], P2P_UNROLL loads in flight a thread, then
+// fences and counts the tile in on the destination's flag.
 template <typename U>
-__global__ void __launch_bounds__(THREADS)
-    pk_p2p_kernel(pk::PtrTable src, pk::PtrTable dst, int* __restrict__ flags,
-                  int R, long units) {
-  const int s = blockIdx.y, d = (s + 1) % R;
-  const long begin = (long)blockIdx.x * TILE_VECS;
-  const long end = lmin(begin + TILE_VECS, units);
-  const U* in = reinterpret_cast<const U*>(src.p[s]);
-  U* out = reinterpret_cast<U*>(dst.p[d]);
-  for (long i = begin + threadIdx.x; i < end; i += THREADS)
-    pk::store_async(out + i, __ldg(in + i));
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) pk::signal(flags + d, 1);
+__global__ void __launch_bounds__(P2P_THREADS)
+    pk_p2p_kernel(const __grid_constant__ pk::PtrTable src,
+                  const __grid_constant__ pk::PtrTable dst,
+                  int* __restrict__ flags, int R, long units,
+                  long tile_units, int tiles) {
+  const int items = R * tiles;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const int s = i / tiles, d = (s + 1) % R;
+    const long begin = (long)(i - s * tiles) * tile_units;
+    const long end = lmin(begin + tile_units, units);
+    const U* in = reinterpret_cast<const U*>(src.p[s]);
+    U* out = reinterpret_cast<U*>(dst.p[d]);
+    for (long b = begin + threadIdx.x; b < end;
+         b += (long)P2P_THREADS * P2P_UNROLL) {
+      U v[P2P_UNROLL];
+#pragma unroll
+      for (int k = 0; k < P2P_UNROLL; ++k) {
+        const long e = b + (long)k * P2P_THREADS;
+        if (e < end) v[k] = __ldg(in + e);
+      }
+#pragma unroll
+      for (int k = 0; k < P2P_UNROLL; ++k) {
+        const long e = b + (long)k * P2P_THREADS;
+        if (e < end) pk::store_async(out + e, v[k]);
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) pk::signal(flags + d, 1);
+  }
 }
 
-template <typename U>
-int launch_p2p(pk::PtrTable s, pk::PtrTable d, int* flags, int R,
-               long blk_bytes, cudaStream_t st) {
-  const long units = blk_bytes / (long)sizeof(U);
-  const int tiles = (int)((units + TILE_VECS - 1) / TILE_VECS);
-  pk_p2p_kernel<U><<<dim3(tiles, R), THREADS, 0, st>>>(s, d, flags, R, units);
-  return (int)cudaGetLastError();
+// Bulk copies, one thread: each tile goes global -> shared by one TMA bulk
+// load and shared -> global by one bulk store; the flag is counted once the
+// store's writes are performed (wait_group 0, not .read) and ordered
+// before the generic proxy's release (fence.proxy.async.global).
+__global__ void __launch_bounds__(32)
+    pk_p2p_bulk_kernel(const __grid_constant__ pk::PtrTable src,
+                       const __grid_constant__ pk::PtrTable dst,
+                       int* __restrict__ flags, int R, long bytes,
+                       long tile_bytes, int tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if (threadIdx.x != 0) return;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + tile_bytes);
+  const uint32_t full = hg::smem_addr(bar), buf = hg::smem_addr(smem);
+  hg::mbar_init(full, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  const int items = R * tiles;
+  int j = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x, ++j) {
+    const int s = i / tiles, d = (s + 1) % R;
+    const long begin = (long)(i - s * tiles) * tile_bytes;
+    const uint32_t len = (uint32_t)lmin(tile_bytes, bytes - begin);
+    hg::mbar_expect_tx(full, len);
+    bulk_load(buf, reinterpret_cast<const unsigned char*>(src.p[s]) + begin,
+              len, full);
+    hg::mbar_wait(full, j & 1);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+            reinterpret_cast<unsigned char*>(dst.p[d]) + begin),
+        "r"(buf), "r"(len)
+        : "memory");
+    bulk_commit();
+    bulk_wait<0>();
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    pk::signal(flags + d, 1);
+  }
 }
 
 bool aligned16(const unsigned long long* ptrs, int R) {
@@ -312,37 +560,113 @@ int launch_rs(const unsigned long long* in, const unsigned long long* out,
 
 }  // namespace
 
-// in/out: host tables of R rank addresses. Rank r's input is blk_bytes
-// bytes; its output holds R slots of blk_bytes. chunk_bytes divides
-// blk_bytes.
-extern "C" int pk_all_gather(const unsigned long long* in_ptrs,
-                             const unsigned long long* out_ptrs, int R,
-                             long blk_bytes, long chunk_bytes, void* stream) {
-  if (R < 1 || R > PK_MAX_RANKS || chunk_bytes <= 0 ||
-      blk_bytes % chunk_bytes != 0)
+// in, out: the input view's and the (R, *gathered) output's base
+// addresses. The copy is the plan's (kernels/pk_comm.py ag_plan): nd dims,
+// inner first, extents `ext` (units of `unit` bytes) and input and output
+// strides `in_st`, `out_st` in bytes (the inner dim's are the unit: it is
+// contiguous in both), source s at s * src bytes of the input and slot s *
+// slot of a rank's output, rank d at d * rank. route 1: the TMA kernel
+// (unit 8, nd 3, tiles of box[0..2], the persistent grid, stages, shared
+// memory a block — a launch whose ag_smem differs is refused — and R TMA
+// bulk stores a tile or word stores); route 0: the word kernel (nd <= 6,
+// the unit a word of 1-16 bytes, grid blocks).
+extern "C" int pk_all_gather(const void* in, void* out, int R, int route,
+                             int unit, int nd, const long long* ext,
+                             const long long* in_st, const long long* out_st,
+                             long long src, long long slot, long long rank,
+                             const int* box, int grid, int stages,
+                             long long smem_bytes, int bulk_store,
+                             void* stream) {
+  if (R < 1 || grid < 1 || nd < 1 || nd > AG_WORD_DIMS)
     return (int)cudaErrorInvalidValue;
-  if (blk_bytes == 0) return 0;
-  pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
-  const int n_chunks = (int)(blk_bytes / chunk_bytes);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (chunk_bytes % 16 == 0 && aligned16(in_ptrs, R) &&
-      aligned16(out_ptrs, R)) {
-    const long cu = chunk_bytes / 16;
-    const int tiles = (int)((cu + TILE_VECS - 1) / TILE_VECS);
-    pk_all_gather_kernel<uint4><<<dim3(n_chunks * tiles, R), THREADS, 0,
-                                  st>>>(s, d, R, blk_bytes / 16, cu, tiles);
-  } else if (chunk_bytes % 2 == 0) {
-    const long cu = chunk_bytes / 2;
-    const int tiles = (int)((cu + TILE_VECS - 1) / TILE_VECS);
-    pk_all_gather_kernel<unsigned short>
-        <<<dim3(n_chunks * tiles, R), THREADS, 0, st>>>(
-            s, d, R, blk_bytes / 2, cu, tiles);
-  } else {
-    const int tiles = (int)((chunk_bytes + TILE_VECS - 1) / TILE_VECS);
-    pk_all_gather_kernel<unsigned char>
-        <<<dim3(n_chunks * tiles, R), THREADS, 0, st>>>(
-            s, d, R, blk_bytes, chunk_bytes, tiles);
+  long long per_src = 1;
+  for (int k = 0; k < nd; ++k) per_src *= ext[k];
+  if (per_src == 0) return 0;
+  if (route == 0) {
+    if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
+    WordDims w{};
+    for (int k = 0; k < nd; ++k) {
+      w.ext[k] = ext[k];
+      w.in[k] = in_st[k];
+      w.out[k] = out_st[k];
+    }
+    const unsigned char* i = static_cast<const unsigned char*>(in);
+    unsigned char* o = static_cast<unsigned char*>(out);
+    auto go = [&](auto word) {
+      pk_ag_word_kernel<decltype(word)><<<grid, AG_WORD_THREADS, 0, st>>>(
+          i, o, R, nd, w, per_src, src, slot, rank);
+      return (int)cudaGetLastError();
+    };
+    switch (unit) {
+      case 16: return go(uint4{});
+      case 8: return go(uint2{});
+      case 4: return go(0u);
+      case 2: return go((unsigned short)0);
+      case 1: return go((unsigned char)0);
+    }
+    return (int)cudaErrorInvalidValue;
   }
+  // the TMA route: 8-byte units, three dims, the inner one contiguous, a
+  // box row a multiple of 16 bytes, every address and stride 16-byte aligned
+  if (route != 1 || unit != 8 || nd != 3 || in_st[0] != 8 ||
+      out_st[0] != 8 || (reinterpret_cast<uintptr_t>(in) | 
+      reinterpret_cast<uintptr_t>(out)) % 16 || stages < 2 ||
+      stages > AG_MAX_STAGES || box[0] % 2)
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < 3; ++k)
+    if (box[k] < 1 || box[k] > 256) return (int)cudaErrorInvalidValue;
+  const int box_bytes = 8 * box[0] * box[1] * box[2];
+  const size_t smem = ag_smem(box_bytes, stages);
+  if ((long long)smem != smem_bytes) return (int)cudaErrorInvalidValue;
+  AgArgs a{};
+  const cuuint64_t idims[4] = {(cuuint64_t)ext[0], (cuuint64_t)ext[1],
+                               (cuuint64_t)ext[2], (cuuint64_t)R};
+  const cuuint64_t istr[3] = {(cuuint64_t)in_st[1], (cuuint64_t)in_st[2],
+                              (cuuint64_t)src};
+  const cuuint32_t ibox[4] = {(cuuint32_t)box[0], (cuuint32_t)box[1],
+                              (cuuint32_t)box[2], 1};
+  if (const int e = encode_u64(&a.in_map, reinterpret_cast<uintptr_t>(in),
+                               4, idims, istr, ibox))
+    return e;
+  const cuuint64_t odims[5] = {(cuuint64_t)ext[0], (cuuint64_t)ext[1],
+                               (cuuint64_t)ext[2], (cuuint64_t)R,
+                               (cuuint64_t)R};
+  const cuuint64_t ostr[4] = {(cuuint64_t)out_st[1], (cuuint64_t)out_st[2],
+                              (cuuint64_t)slot, (cuuint64_t)rank};
+  const cuuint32_t obox[5] = {(cuuint32_t)box[0], (cuuint32_t)box[1],
+                              (cuuint32_t)box[2], 1, 1};
+  if (const int e = encode_u64(&a.out_map, reinterpret_cast<uintptr_t>(out),
+                               5, odims, ostr, obox))
+    return e;
+  a.e0 = ext[0];
+  a.e1 = ext[1];
+  a.e2 = ext[2];
+  a.os1 = out_st[1];
+  a.os2 = out_st[2];
+  a.slot = slot;
+  a.rank = rank;
+  a.out = reinterpret_cast<uintptr_t>(out);
+  a.R = R;
+  a.b0 = box[0];
+  a.b1 = box[1];
+  a.b2 = box[2];
+  a.t0 = (int)((ext[0] + box[0] - 1) / box[0]);
+  a.t1 = (int)((ext[1] + box[1] - 1) / box[1]);
+  a.t2 = (int)((ext[2] + box[2] - 1) / box[2]);
+  a.items = R * a.t0 * a.t1 * a.t2;
+  a.stages = stages;
+  a.box_bytes = box_bytes;
+  a.stage_bytes = ag_stage_bytes(box_bytes);
+  auto kernel = bulk_store ? pk_ag_tma_kernel<true> : pk_ag_tma_kernel<false>;
+  static size_t granted[2] = {0, 0};  // the attribute each was given
+  if (smem > granted[bulk_store ? 1 : 0]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    granted[bulk_store ? 1 : 0] = smem;
+  }
+  kernel<<<grid, bulk_store ? 32 : AG_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -372,24 +696,49 @@ extern "C" int pk_reduce_scatter(const unsigned long long* in_ptrs,
   return (int)cudaErrorInvalidValue;
 }
 
-// in/out: host tables of R rank addresses of blk_bytes each; flags: R ints,
-// zeroed here on the stream, flags[d] counts the tiles that arrived in
-// rank d's output. Moves 16-, 8-, 4-, 2- or 1-byte words: the widest that
-// divides blk_bytes and every address.
+// in/out: host tables of R rank addresses of blk_bytes each; flags: R ints
+// that this launch adds its tiles to, never reset (flags[d] counts the
+// tiles that ever arrived in rank d's output on this stream). The launch is
+// the plan's (kernels/pk_comm.py p2p_plan): tiles of tile_bytes (a multiple
+// of 16), the persistent grid, and bulk copies (smem_bytes: the tile and
+// its mbarrier; 16-byte aligned addresses and sizes) or words, the widest
+// (16 down to 1 bytes) that divide blk_bytes and every address.
 extern "C" int pk_p2p_ring_shift(const unsigned long long* in_ptrs,
                                  const unsigned long long* out_ptrs,
                                  void* flags, int R, long blk_bytes,
-                                 void* stream) {
-  if (R < 1 || R > PK_MAX_RANKS || blk_bytes < 0)
+                                 long tile_bytes, int grid, int bulk,
+                                 long long smem_bytes, void* stream) {
+  if (R < 1 || R > PK_MAX_RANKS || blk_bytes < 0 || tile_bytes < 16 ||
+      tile_bytes % 16 || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * R, st);
-  if (err != cudaSuccess) return (int)err;
   if (blk_bytes == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = (int)((blk_bytes + tile_bytes - 1) / tile_bytes);
+  pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
+  if (bulk) {
+    if (blk_bytes % 16 || !aligned16(in_ptrs, R) || !aligned16(out_ptrs, R) ||
+        smem_bytes != tile_bytes + (long long)sizeof(uint64_t))
+      return (int)cudaErrorInvalidValue;
+    static long long granted = 0;
+    if (smem_bytes > granted) {
+      cudaError_t e = cudaFuncSetAttribute(
+          pk_p2p_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+      granted = smem_bytes;
+    }
+    pk_p2p_bulk_kernel<<<grid, 32, smem_bytes, st>>>(
+        s, d, (int*)flags, R, blk_bytes, tile_bytes, tiles);
+    return (int)cudaGetLastError();
+  }
+  if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
   unsigned long long bits = (unsigned long long)blk_bytes;
   for (int i = 0; i < R; ++i) bits |= in_ptrs[i] | out_ptrs[i];
-  pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
   return pk::with_word(bits, [&](auto word) {
-    return launch_p2p<decltype(word)>(s, d, (int*)flags, R, blk_bytes, st);
+    using U = decltype(word);
+    pk_p2p_kernel<U><<<grid, P2P_THREADS, 0, st>>>(
+        s, d, (int*)flags, R, blk_bytes / (long)sizeof(U),
+        tile_bytes / (long)sizeof(U), tiles);
+    return (int)cudaGetLastError();
   });
 }

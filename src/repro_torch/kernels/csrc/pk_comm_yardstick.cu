@@ -1,15 +1,24 @@
-// The store-and-count reduce-scatter kernel that ring_reduce_scatter ran on
-// before its pull-and-sum design (csrc/pk_comm.cu), kept as a timing
-// yardstick: no wrapper of the port calls it; chip_smoke.py and
-// scripts/scan_rs_probe.py time it beside the kernel that replaced it
+// The kernels B3 and B8 ran on before their redesigns (csrc/pk_comm.cu),
+// kept as timing yardsticks: no wrapper of the port calls them;
+// chip_smoke.py and the probes (scripts/scan_rs_probe.py,
+// scripts/ag_p2p_probe.py) time them beside the kernels that replaced them
 // (the ``ms_mm_tile`` column).
 //
-// Grid (tile, source s, owner o): the block stores tile of in[s] slot o
+// reduce-scatter, store-and-count. Grid (tile, source s, owner o): the block stores tile of in[s] slot o
 // into landing[o] slot s, fences and counts itself in on the tile's flag;
 // the last of the R arrivals acquires, sums the R partials in rank order in
 // f32 and stores the reduced tile into out[o]. No block waits. It moves
 // R^2 blk read, R^2 blk written to the landing slots and read again, and R
 // blk written, and zeroes the flags on the stream before every launch.
+//
+// all-gather, word copy. Grid (tile, source s): each block reads its tile
+// of in[s] (contiguous) with one 16-byte __ldg a thread in flight and
+// stores it R times, into slot s of every rank's (R, R, blk) output.
+//
+// p2p ring shift, store-and-count. Grid (tile, source s): the block stores
+// its tile of in[s] into out[(s + 1) % R], fences and counts itself in on
+// the destination's flag, after a memset of the flags on the stream before
+// every launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -135,6 +144,40 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <typename U>
+__global__ void __launch_bounds__(THREADS)
+    ag_word_kernel(pk::PtrTable src, pk::PtrTable dst, int R, long blk_units,
+                   long chunk_units, int tiles_per_chunk) {
+  const int s = blockIdx.y;
+  const int c = blockIdx.x / tiles_per_chunk;
+  const int t = blockIdx.x - c * tiles_per_chunk;
+  const long begin = (long)c * chunk_units + (long)t * TILE_VECS;
+  const long end = lmin(begin + TILE_VECS, (long)(c + 1) * chunk_units);
+  const U* in = reinterpret_cast<const U*>(src.p[s]);
+  const long slot = (long)s * blk_units;
+  for (long i = begin + threadIdx.x; i < end; i += THREADS) {
+    const U v = __ldg(in + i);
+    for (int d = 0; d < R; ++d)  // store_async into rank d's slot s
+      reinterpret_cast<U*>(dst.p[d])[slot + i] = v;
+  }
+}
+
+template <typename U>
+__global__ void __launch_bounds__(THREADS)
+    p2p_count_kernel(pk::PtrTable src, pk::PtrTable dst,
+                     int* __restrict__ flags, int R, long units) {
+  const int s = blockIdx.y, d = (s + 1) % R;
+  const long begin = (long)blockIdx.x * TILE_VECS;
+  const long end = lmin(begin + TILE_VECS, units);
+  const U* in = reinterpret_cast<const U*>(src.p[s]);
+  U* out = reinterpret_cast<U*>(dst.p[d]);
+  for (long i = begin + threadIdx.x; i < end; i += THREADS)
+    pk::store_async(out + i, __ldg(in + i));
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) pk::signal(flags + d, 1);
+}
+
 bool aligned16(const unsigned long long* ptrs, int R) {
   for (int i = 0; i < R; ++i)
     if (ptrs[i] % 16) return false;
@@ -191,4 +234,66 @@ extern "C" int pk_mm_tile_reduce_scatter(const unsigned long long* in_ptrs,
     return launch_rs<__nv_bfloat16>(in_ptrs, out_ptrs, landing, flags, R,
                                     blk_elems, chunk_elems, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// in/out: host tables of R rank addresses. Rank r's input is blk_bytes
+// bytes; its output holds R slots of blk_bytes. chunk_bytes divides
+// blk_bytes.
+extern "C" int pk_mm_tile_all_gather(const unsigned long long* in_ptrs,
+                                     const unsigned long long* out_ptrs,
+                                     int R, long blk_bytes, long chunk_bytes,
+                                     void* stream) {
+  if (R < 1 || R > PK_MAX_RANKS || chunk_bytes <= 0 ||
+      blk_bytes % chunk_bytes != 0)
+    return (int)cudaErrorInvalidValue;
+  if (blk_bytes == 0) return 0;
+  pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
+  const int n_chunks = (int)(blk_bytes / chunk_bytes);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (chunk_bytes % 16 == 0 && aligned16(in_ptrs, R) &&
+      aligned16(out_ptrs, R)) {
+    const long cu = chunk_bytes / 16;
+    const int tiles = (int)((cu + TILE_VECS - 1) / TILE_VECS);
+    ag_word_kernel<uint4><<<dim3(n_chunks * tiles, R), THREADS, 0, st>>>(
+        s, d, R, blk_bytes / 16, cu, tiles);
+  } else if (chunk_bytes % 2 == 0) {
+    const long cu = chunk_bytes / 2;
+    const int tiles = (int)((cu + TILE_VECS - 1) / TILE_VECS);
+    ag_word_kernel<unsigned short>
+        <<<dim3(n_chunks * tiles, R), THREADS, 0, st>>>(
+            s, d, R, blk_bytes / 2, cu, tiles);
+  } else {
+    const int tiles = (int)((chunk_bytes + TILE_VECS - 1) / TILE_VECS);
+    ag_word_kernel<unsigned char>
+        <<<dim3(n_chunks * tiles, R), THREADS, 0, st>>>(
+            s, d, R, blk_bytes, chunk_bytes, tiles);
+  }
+  return (int)cudaGetLastError();
+}
+
+// in/out: host tables of R rank addresses of blk_bytes each; flags: R ints,
+// zeroed here on the stream, flags[d] counts the tiles that arrived in
+// rank d's output. Moves the widest words that divide blk_bytes and every
+// address.
+extern "C" int pk_mm_tile_p2p_ring_shift(const unsigned long long* in_ptrs,
+                                         const unsigned long long* out_ptrs,
+                                         void* flags, int R, long blk_bytes,
+                                         void* stream) {
+  if (R < 1 || R > PK_MAX_RANKS || blk_bytes < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int) * R, st);
+  if (err != cudaSuccess) return (int)err;
+  if (blk_bytes == 0) return 0;
+  unsigned long long bits = (unsigned long long)blk_bytes;
+  for (int i = 0; i < R; ++i) bits |= in_ptrs[i] | out_ptrs[i];
+  pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
+  return pk::with_word(bits, [&](auto word) {
+    using U = decltype(word);
+    const long units = blk_bytes / (long)sizeof(U);
+    const int tiles = (int)((units + TILE_VECS - 1) / TILE_VECS);
+    p2p_count_kernel<U><<<dim3(tiles, R), THREADS, 0, st>>>(s, d, (int*)flags,
+                                                            R, units);
+    return (int)cudaGetLastError();
+  });
 }

@@ -75,7 +75,9 @@ or raise.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -98,13 +100,49 @@ RS_MIN_TILE_BYTES = 2048
 #: the element-wise kernel's block, and the most of its blocks an SM
 RS_ELEM_THREADS = 256
 RS_ELEM_PER_SM = 8
-# p2p arrival flags (MAX_RANKS ints) by (device, stream)
-_P2P_FLAGS: dict[tuple, torch.Tensor] = {}
+#: the all-gather's TMA route: bytes a tile (one box a stage), stages,
+#: blocks an SM, the smallest tile the plan cuts a small shape into, the
+#: shortest box row an inner dim is cut into, and whether a tile's R
+#: stores are TMA bulk tensor stores from the producer thread (else eight
+#: warps store 16-byte words); consumer threads + a producer warp
+AG_STAGE_BYTES = 32768
+AG_STAGES = 3
+AG_PER_SM = 2
+AG_MIN_TILE_BYTES = 4096
+AG_MIN_ROW_BYTES = 256
+AG_BULK_STORE = True
+AG_THREADS = 256 + 32
+#: the word route's block, and the most of its blocks an SM
+AG_WORD_THREADS = 256
+AG_WORD_PER_SM = 8
+#: a tensor map's element (UINT64), its longest box dim, the local dims a
+#: map takes (the input map adds the source, the output map the slot and
+#: the rank), the dims the word kernel takes
+_UNIT = 8
+_BOX_MAX = 256
+_MAP_DIMS = 3
+_WORD_DIMS = 6
+#: the p2p kernel: bytes a tile (one flag count), threads, blocks an SM,
+#: and whether a tile moves by one TMA bulk load and store (else 16-byte
+#: words, four loads in flight a thread)
+P2P_TILE_BYTES = 16384
+P2P_THREADS = 256
+P2P_PER_SM = 2
+P2P_BULK = False
+# p2p arrival flags by (device, stream)
+_P2P_FLAGS: dict[tuple, "P2pFlags"] = {}
 
 
 def all_gather_plain(x: torch.Tensor) -> torch.Tensor:
     """(R, blk, ...) -> (R, R, blk, ...): every rank holds every shard."""
     return x.unsqueeze(0).expand(x.shape[0], *x.shape).contiguous()
+
+
+def gather_along_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """(R, *local) -> (R, *gathered), contiguous: every rank holds the
+    shards concatenated in rank order along local dim ``axis``."""
+    full = torch.cat(list(x.unbind(0)), dim=axis)
+    return full.unsqueeze(0).expand(x.shape[0], *full.shape).contiguous()
 
 
 def reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
@@ -134,31 +172,231 @@ def _check_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"at most {MAX_RANKS} ranks, got {x.shape[0]}")
 
 
-def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
-    """x (R, blk, ...) stacked shards -> (R, R, blk, ...), in x's dtype."""
-    if x.dim() < 1:
-        raise ValueError("ring_all_gather takes a stacked (R, ...) tensor")
-    r = x.shape[0]
-    rows = x.shape[1] if x.dim() > 1 else 1
-    n_chunks = _chunks(rows, n_chunks)
-    if x.device.type == "cpu":
-        return all_gather_plain(x)
+def _launch_all_gather(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Launch the all-gather kernel at ``ag_plan``'s launch: x (R, *local),
+    any strides, -> a new contiguous (R, *gathered) along local dim
+    ``axis``."""
     _check_cuda(x, "ring_all_gather")
-    x = x.contiguous()
-    out = torch.empty((r, *x.shape), dtype=x.dtype, device=x.device)
-    blk_bytes = x[0].numel() * x.element_size()
-    lib = _build.library()
-    err = lib.pk_all_gather(
-        _build.host_table(pgl.pointer_table(x)),
-        _build.host_table(pgl.pointer_table(out)), r, blk_bytes,
-        blk_bytes // n_chunks,
+    r = x.shape[0]
+    gathered = list(x.shape[1:])
+    gathered[axis] *= r
+    out = torch.empty((r, *gathered), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    p = ag_plan(r, tuple(x.shape[1:]), tuple(x.stride()[1:]), x.stride(0),
+                axis, x.element_size(), addr=x.data_ptr(),
+                sms=sm_count(x.device))
+    nd = len(p.dims)
+    ext, ist, ost = zip(*p.dims)
+    err = _build.library().pk_all_gather(
+        x.data_ptr(), out.data_ptr(), r, int(p.route == "tma"), p.unit, nd,
+        (ctypes.c_int64 * nd)(*ext), (ctypes.c_int64 * nd)(*ist),
+        (ctypes.c_int64 * nd)(*ost), p.src_stride, p.slot_stride,
+        p.rank_stride, (ctypes.c_int * 3)(*(p.box or (0, 0, 0))), p.grid,
+        p.stages, p.smem_bytes, int(p.bulk_store),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pk_all_gather")
     ring_all_gather.launches += 1
     return out
 
 
+def all_gather_along(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x (R, *local) stacked shards, any strides -> (R, *gathered), a new
+    contiguous tensor: every rank's copy of the shards concatenated in rank
+    order along local dim ``axis`` (the FSDP weight gather). The kernel
+    reads x's view as it is and writes the gathered layout: no copy before
+    or after it."""
+    if x.dim() < 2 or not 0 <= axis < x.dim() - 1:
+        raise ValueError(f"all_gather_along takes a stacked (R, *local) "
+                         f"tensor and a local dim, got {tuple(x.shape)}, "
+                         f"axis {axis}")
+    if x.device.type == "cpu":
+        return gather_along_plain(x, axis)
+    return _launch_all_gather(x, axis)
+
+
+def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
+    """x (R, blk, ...) stacked shards -> (R, R, blk, ...), in x's dtype. A
+    copy: the result is the same for every ``n_chunks``, and the kernel's
+    tiling does not depend on it (``ag_plan``)."""
+    if x.dim() < 1:
+        raise ValueError("ring_all_gather takes a stacked (R, ...) tensor")
+    rows = x.shape[1] if x.dim() > 1 else 1
+    _chunks(rows, n_chunks)
+    if x.device.type == "cpu":
+        return all_gather_plain(x)
+    flat = x.unsqueeze(1) if x.dim() == 1 else x
+    out = _launch_all_gather(flat, 0)
+    return out.view(x.shape[0], *x.shape) if x.dim() > 1 else \
+        out.view(x.shape[0], x.shape[0])
+
+
 ring_all_gather.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AgPlan:
+    """How the all-gather kernel copies R sources' shards into the gathered
+    layout. ``dims``: the copy's dims, inner first, after merging the dims
+    that are contiguous in both the input and the output, each (extent in
+    units, input stride, output stride), strides in bytes; source s adds
+    ``s * src_stride`` bytes to the input and ``s * slot_stride`` to a
+    rank's output, rank d ``d * rank_stride`` to the output."""
+    route: str          # "tma" (the staged kernel) or "word"
+    reason: str         # why the word route ("" on the tma route)
+    unit: int           # bytes: a map element (8) or a word (1-16)
+    dims: tuple         # ((extent, in stride, out stride), ...)
+    src_stride: int
+    slot_stride: int
+    rank_stride: int
+    box: tuple          # tma: a tile's extent a dim; word: ()
+    tiles: int          # tma: tiles a source; word: units a source
+    items: int          # (source, tile) items; word: units
+    grid: int           # blocks launched (tma: persistent)
+    threads: int
+    stages: int
+    smem_bytes: int     # dynamic shared memory a block: the .cu's ag_smem
+    bulk_store: bool    # tma: R TMA bulk stores a tile, else word stores
+
+
+def _contiguous_strides(shape) -> list[int]:
+    st, acc = [], 1
+    for n in reversed(shape):
+        st.append(acc)
+        acc *= n
+    return st[::-1]
+
+
+def _merged_dims(local, strides, out_strides, elsize) -> list[list[int]]:
+    """The copy's dims, inner first: extents in elements, strides in bytes;
+    size-1 dims dropped and each dim merged into the one inside it where it
+    continues it in the input and in the output alike. The inner dim is
+    made contiguous in both (an element of extent 1 in front where it is
+    not)."""
+    dims: list[list[int]] = []
+    for n, si, so in reversed(list(zip(local, strides, out_strides))):
+        if n == 1:
+            continue
+        si, so = si * elsize, so * elsize
+        if dims and dims[-1][1] * dims[-1][0] == si \
+                and dims[-1][2] * dims[-1][0] == so:
+            dims[-1][0] *= n
+        else:
+            dims.append([n, si, so])
+    if not dims or dims[0][1] != elsize or dims[0][2] != elsize:
+        dims.insert(0, [1, elsize, elsize])
+    return dims
+
+
+def ag_plan(r: int, local, strides, src_stride: int, axis: int, elsize: int,
+            *, addr: int = 0, sms: int = H100_SMS) -> AgPlan:
+    """The launch of an all-gather of R sources of ``local`` shape, source s
+    at element ``s * src_stride + sum(i_k * strides[k])`` of an input at
+    byte address ``addr``, into a new contiguous (R, *gathered) output
+    (``local`` with dim ``axis`` R times longer, source s at slot s), on a
+    card of ``sms`` SMs.
+
+    The TMA route copies 8-byte units through two tensor maps, so it takes
+    an inner dim contiguous in both layouts and a multiple of 16 bytes,
+    every other stride a multiple of 16 bytes (below 2^40) and a 16-byte
+    aligned address; an inner dim longer than a box (256 units) is cut into
+    two where a divisor allows, and at most three dims remain (the output
+    map adds the slot and the rank: five). A tile is one box of about
+    ``AG_STAGE_BYTES``, filled inner dim first, halved (down to
+    ``AG_MIN_TILE_BYTES``) while the items would not give every block of
+    the grid (``AG_PER_SM`` an SM) one. Every other shape takes the word
+    route, whose word is the widest (16 down to 1 bytes) that divides every
+    extent, stride and the address; ``reason`` says why."""
+    local = tuple(int(n) for n in local)
+    if r < 1 or not 0 <= axis < len(local) or len(strides) != len(local):
+        raise ValueError(f"ag_plan: R={r}, local {local}, axis {axis}")
+    gathered = list(local)
+    gathered[axis] *= r
+    ostr = _contiguous_strides(gathered)
+    slot = local[axis] * ostr[axis] * elsize
+    rank = math.prod(gathered) * elsize
+    src = src_stride * elsize
+    dims = _merged_dims(local, strides, ostr, elsize)
+    inner = dims[0][0] * elsize                     # bytes, contiguous
+    outer = [d for dim in dims[1:] for d in dim[1:]] + [src, slot, rank]
+    why = ""
+    if addr % 16:
+        why = "address not 16-byte aligned"
+    elif inner % 16:
+        why = "inner run not a multiple of 16 bytes"
+    elif any(st % 16 or st >= 1 << 40 for st in outer):
+        why = "a stride not a multiple of 16 bytes"
+    elif any(n >= 1 << 32 for n, _, _ in dims):
+        why = "an extent of 2^32 or more"
+    else:
+        units = inner // _UNIT
+        tma = [[units, _UNIT, _UNIT]] + dims[1:]
+        if units > _BOX_MAX:
+            w = max(d for d in range(2, _BOX_MAX + 1, 2) if units % d == 0)
+            if w * _UNIT >= AG_MIN_ROW_BYTES:
+                tma[:1] = [[w, _UNIT, _UNIT],
+                           [units // w, w * _UNIT, w * _UNIT]]
+        if len(tma) > _MAP_DIMS:
+            why = f"{len(tma)} dims: a map takes {_MAP_DIMS}"
+    if why:
+        return _ag_word_plan(r, dims, elsize, src, slot, rank, addr, why,
+                             sms)
+    while len(tma) < _MAP_DIMS:         # extent-1 dims, strides continuing
+        n, si, so = tma[-1]
+        tma.append([1, si * n, so * n])
+    box = _ag_box(r, tma, AG_PER_SM * sms)
+    tiles = math.prod(-(-n // b) for (n, _, _), b in zip(tma, box))
+    stage_bytes = -(-_UNIT * math.prod(box) // 128) * 128   # TMA alignment
+    return AgPlan("tma", "", _UNIT, tuple(map(tuple, tma)), src, slot, rank,
+                  tuple(box), tiles, r * tiles,
+                  max(1, min(r * tiles, AG_PER_SM * sms)),
+                  32 if AG_BULK_STORE else AG_THREADS, AG_STAGES,
+                  AG_STAGES * stage_bytes + 2 * AG_STAGES * 8, AG_BULK_STORE)
+
+
+def _ag_box(r: int, dims, cap: int) -> list[int]:
+    """A tile: the inner dim's extent up to a box row, then each outer dim
+    up to about ``AG_STAGE_BYTES``; halved, outer dims first, while R
+    sources' tiles are fewer than ``cap`` blocks and the tile stays at
+    least ``AG_MIN_TILE_BYTES``."""
+    box = [min(dims[0][0], _BOX_MAX)]
+    left = max(1, AG_STAGE_BYTES // (_UNIT * box[0]))
+    for n, _, _ in dims[1:]:
+        b = max(1, min(n, _BOX_MAX, left))
+        box.append(b)
+        left = left // b if b == n else 1
+
+    def items(bx):
+        return r * math.prod(-(-n // b) for (n, _, _), b in zip(dims, bx))
+    while items(box) < cap and _UNIT * math.prod(box) // 2 \
+            >= AG_MIN_TILE_BYTES:
+        k = next((k for k in range(len(box) - 1, 0, -1) if box[k] > 1),
+                 0 if box[0] % 4 == 0 else None)
+        if k is None:
+            break
+        box[k] = -(-box[k] // 2) if k else box[k] // 2
+    return box
+
+
+def _ag_word_plan(r, dims, elsize, src, slot, rank, addr, why,
+                  sms) -> AgPlan:
+    """The word route: every dim in words of the widest size (16 down to 1
+    bytes) that divides the inner run, every stride and the address."""
+    inner = dims[0][0] * elsize
+    g = math.gcd(inner, addr, src, slot, rank,
+                 *(st for dim in dims[1:] for st in dim[1:]))
+    unit = next(u for u in (16, 8, 4, 2, 1) if g % u == 0)
+    words = [[inner // unit, unit, unit]] + [list(d) for d in dims[1:]]
+    if len(words) > _WORD_DIMS:
+        raise NotImplementedError(f"all-gather of a view of {len(words)} "
+                                  f"strided dims: the word kernel takes "
+                                  f"{_WORD_DIMS}")
+    per_src = math.prod(n for n, _, _ in words)
+    grid = max(1, min(-(-r * per_src // AG_WORD_THREADS),
+                      AG_WORD_PER_SM * sms))
+    return AgPlan("word", why, unit, tuple(map(tuple, words)), src, slot,
+                  rank, (), per_src, r * per_src, grid, AG_WORD_THREADS, 0,
+                  0, False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,14 +486,59 @@ def _reduce_scatter_cuda(x: torch.Tensor, n_chunks: int) -> torch.Tensor:
 ring_reduce_scatter.launches = 0
 
 
-def p2p_flags(device, stream: int) -> torch.Tensor:
-    """The arrival flags the p2p kernel counts into on ``stream``: after a
-    launch over R ranks, entry d holds the number of tiles stored into rank
-    d's output."""
+@dataclasses.dataclass(frozen=True)
+class P2pPlan:
+    """How the p2p kernel moves R ranks' buffers of ``blk`` bytes."""
+    bulk: bool          # a TMA bulk load and store a tile (else words)
+    tile_bytes: int
+    tiles: int          # tiles a rank: what a launch adds to each flag
+    grid: int           # persistent blocks launched
+    threads: int
+    smem_bytes: int     # bulk: the tile and its mbarrier; words: 0
+
+
+def p2p_plan(r: int, blk_bytes: int, *, aligned: bool,
+             sms: int = H100_SMS) -> P2pPlan:
+    """The launch of one hop of R buffers of ``blk_bytes`` each: tiles of
+    ``P2P_TILE_BYTES`` (the last one short), a persistent grid of at most
+    ``P2P_PER_SM`` blocks an SM walking the (source, tile) items. Bulk
+    copies (``P2P_BULK``) take 16-byte aligned buffers (``aligned``) of a
+    multiple of 16 bytes; other shapes move words."""
+    tiles = -(-blk_bytes // P2P_TILE_BYTES)
+    bulk = P2P_BULK and aligned and blk_bytes % 16 == 0
+    return P2pPlan(bulk, P2P_TILE_BYTES, tiles,
+                   max(1, min(r * tiles, P2P_PER_SM * sms)),
+                   32 if bulk else P2P_THREADS,
+                   P2P_TILE_BYTES + 8 if bulk else 0)
+
+
+@dataclasses.dataclass
+class P2pFlags:
+    """The arrival flags the p2p kernel counts into on one stream
+    (``MAX_RANKS`` int32 on the card) and the count each must have reached
+    once the launches so far have run. No launch resets them: one over R
+    ranks adds its plan's tiles to flags 0..R-1, and ``advance`` adds them
+    to ``expected`` (counts modulo 2^32, as the int32 adds wrap)."""
+    flags: torch.Tensor
+    expected: list
+
+    def advance(self, r: int, tiles: int) -> None:
+        for d in range(r):
+            self.expected[d] = (self.expected[d] + tiles) % 2 ** 32
+
+    def counts(self, r: int) -> list[int]:
+        """Flags 0..r-1 as they stand, modulo 2^32 (a device read)."""
+        return [v % 2 ** 32 for v in self.flags[:r].tolist()]
+
+
+def p2p_flags(device, stream: int) -> P2pFlags:
+    """The arrival flags of the p2p kernel on ``stream``: after the launches
+    so far, entry d has counted every tile stored into rank d's output."""
     key = (device, stream)
     if key not in _P2P_FLAGS:
-        _P2P_FLAGS[key] = torch.zeros((MAX_RANKS,), dtype=torch.int32,
-                                      device=device)
+        _P2P_FLAGS[key] = P2pFlags(
+            torch.zeros((MAX_RANKS,), dtype=torch.int32, device=device),
+            [0] * MAX_RANKS)
     return _P2P_FLAGS[key]
 
 
@@ -271,14 +554,19 @@ def p2p_ring_shift(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    r = x.shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = _build.library()
-    err = lib.pk_p2p_ring_shift(
-        _build.host_table(pgl.pointer_table(x)),
-        _build.host_table(pgl.pointer_table(out)),
-        p2p_flags(x.device, stream).data_ptr(), x.shape[0],
-        x[0].numel() * x.element_size(), stream)
+    ins, outs = pgl.pointer_table(x), pgl.pointer_table(out)
+    blk_bytes = x[0].numel() * x.element_size()
+    p = p2p_plan(r, blk_bytes, aligned=all(a % 16 == 0 for a in ins + outs),
+                 sms=sm_count(x.device))
+    flags = p2p_flags(x.device, stream)
+    err = _build.library().pk_p2p_ring_shift(
+        _build.host_table(ins), _build.host_table(outs),
+        flags.flags.data_ptr(), r, blk_bytes, p.tile_bytes, p.grid,
+        int(p.bulk), p.smem_bytes, stream)
     _build.check(err, "pk_p2p_ring_shift")
+    flags.advance(r, p.tiles)
     p2p_ring_shift.launches += 1
     return out
 

@@ -12,6 +12,7 @@ the attention kernel) and <= 1e-3 for the f32 output of the GEMM+AR kernel
 """
 
 import dataclasses
+import math
 
 import pytest
 
@@ -143,16 +144,62 @@ def test_matmul_ar_kernel(cuda, r, m, k, n):
     (8, (6, 7), torch.float32), (2, (5, 3), torch.uint8),
     (2, (4, 1024, 1408), torch.bfloat16), (8, (8, 2048), torch.float32)])
 def test_ring_all_gather_kernel(cuda, r, shape, dtype):
+    """A copy: bit-identical to the plain gather and to the kernel it ran on
+    before for every chunking, on the TMA route or the word route as the
+    plan names it; the output is contiguous."""
     from repro_torch.kernels import pk_comm as PK
     x = (torch.randn((r, *shape), device=cuda) * 50).to(dtype)
     want = PK.all_gather_plain(x)
+    assert torch.equal(_chip_smoke().mm_tile_all_gather(x), want)
     before = PK.ring_all_gather.launches
     for nc in (1, 2, 3, 4):             # a copy: exact for every chunking
         got = PK.ring_all_gather(x, n_chunks=nc)
         torch.cuda.synchronize()
         assert got.shape == (r, r, *shape) and got.dtype == dtype
-        assert torch.equal(got, want)
+        assert got.is_contiguous() and torch.equal(got, want)
     assert PK.ring_all_gather.launches == before + 4
+    p = PK.ag_plan(r, shape, x.stride()[1:], x.stride(0), 0,
+                   x.element_size(), addr=x.data_ptr())
+    assert p.route == ("tma" if shape[-1] in (24, 1408, 2048) else "word")
+
+
+#: full-width tinyllama-1.1b's FSDP-sharded weights, tp-stacked over 4
+#: ranks as stored, and the stored dim their gather runs along: rows (wq,
+#: wk/wv, w1/w3, head) and columns (wo, w2, emb)
+FSDP_WEIGHTS = [((4, 2048, 512), 1), ((4, 2048, 64), 1),
+                ((4, 2048, 1408), 1), ((4, 2048, 8000), 1),
+                ((4, 512, 2048), 2), ((4, 1408, 2048), 2),
+                ((4, 8000, 2048), 2)]
+
+
+@pytest.mark.parametrize("stored,sdim", FSDP_WEIGHTS)
+@pytest.mark.parametrize("r", [2, 4])
+def test_all_gather_fsdp_views_kernel(cuda, stored, sdim, r):
+    """The FSDP gather as the path runs it: the strided dp_view straight into
+    the kernel (TMA route), the gathered weight contiguous and bit-identical
+    to the bulk backend, to the plain gather and to the old kernel behind
+    its old wrapper (a copy before, a strided view after)."""
+    from repro_torch.core import pgl
+    from repro_torch.core.comms import all_gather_stacked
+    from repro_torch.kernels import pk_comm as PK
+    w = _randn(cuda, *stored, seed=sdim)
+    x = pgl.dp_view(w, sdim, r)
+    assert not x.is_contiguous()
+    p = PK.ag_plan(r, x.shape[1:], x.stride()[1:], x.stride(0), sdim, 2,
+                   addr=x.data_ptr())
+    assert p.route == "tma"
+    before = PK.ring_all_gather.launches
+    got = all_gather_stacked(x, sdim, "fused")
+    torch.cuda.synchronize()
+    assert PK.ring_all_gather.launches == before + 1
+    assert got.is_contiguous() and got.shape == (r, *stored)
+    want = all_gather_stacked(x, sdim, "bulk")
+    bits = got.view(torch.int16)
+    assert torch.equal(bits, want.view(torch.int16))
+    assert torch.equal(bits, PK.gather_along_plain(x, sdim).view(torch.int16))
+    old = _chip_smoke().mm_tile_path_gather(x, sdim)
+    assert torch.equal(bits, old.contiguous().view(torch.int16))
+    assert torch.equal(got[r - 1], w)
 
 
 def _chip_smoke():
@@ -572,18 +619,28 @@ def test_ssm_engine_on_card_continuous_matches_sequential(cuda):
     ((2, 9), torch.bfloat16), ((3, 5), torch.uint8), ((8, 6, 130),
                                                       torch.float32)])
 def test_p2p_ring_shift_kernel(cuda, shape, dtype):
-    """A copy: bit-identical to the roll, for any element count (16-byte
-    words down to single bytes); every rank's flag counts its tiles."""
+    """A copy: bit-identical to the roll and to the kernel it ran on before,
+    for any element count (16-byte words down to single bytes), over
+    consecutive launches; the flags are never reset, and after each launch
+    every rank's flag has counted exactly the plan's tiles more."""
     from repro_torch.kernels import pk_comm as PK
-    x = (torch.randn(shape, device=cuda) * 50).to(dtype)
+    r = shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    flags = PK.p2p_flags(cuda, stream)
+    blk = math.prod(shape[1:]) * torch.empty(0, dtype=dtype).element_size()
+    tiles = PK.p2p_plan(r, blk, aligned=True).tiles
     before = PK.p2p_ring_shift.launches
-    got = PK.p2p_ring_shift(x)
-    torch.cuda.synchronize()
-    assert PK.p2p_ring_shift.launches == before + 1
-    assert got.dtype == dtype and torch.equal(got, PK.ring_shift_plain(x))
-    flags = PK.p2p_flags(x.device, torch.cuda.current_stream().cuda_stream)
-    assert bool((flags[:shape[0]] > 0).all())
-    assert len(set(flags[:shape[0]].tolist())) == 1
+    for i in range(3):
+        x = (torch.randn(shape, device=cuda) * 50).to(dtype)
+        start = flags.counts(r)
+        assert start == flags.expected[:r]
+        got = PK.p2p_ring_shift(x)
+        torch.cuda.synchronize()
+        assert PK.p2p_ring_shift.launches == before + i + 1
+        assert got.dtype == dtype and torch.equal(got, PK.ring_shift_plain(x))
+        assert torch.equal(got, _chip_smoke().mm_tile_p2p_ring_shift(x))
+        assert flags.counts(r) == flags.expected[:r] == [
+            (c + tiles) % 2 ** 32 for c in start]
 
 
 @pytest.mark.parametrize("hd", [64, 120, 16, 128])
@@ -880,11 +937,18 @@ def test_seq_sharded_train_on_card_runs_ring_kernels(cuda):
     for p in leaves:
         p.requires_grad_(True)
     PK.p2p_ring_shift.launches = FA.flash_attention_hop.launches = 0
+    flags = PK.p2p_flags(cuda, torch.cuda.current_stream().cuda_stream)
+    counted = flags.counts(4)
     loss, _ = T.forward_train(params, batch, cfg, run, rules,
                               seq_sharded=True)
     grads = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
     assert PK.p2p_ring_shift.launches == 2 * 2 * 3 * 2
+    # no memset between the launches: each rank's flag counted every tile of
+    # every launch (k and v: 1 x 4 heads x 256 tokens x 64 bf16 a rank)
+    tiles = PK.p2p_plan(4, 4 * 256 * 64 * 2, aligned=True).tiles
+    assert flags.counts(4) == flags.expected[:4] == [
+        (c + 2 * 2 * 3 * 2 * tiles) % 2 ** 32 for c in counted]
     assert FA.flash_attention_hop.launches == 2 * 2 * 4
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     with torch.no_grad():

@@ -17,6 +17,8 @@ CPU, each backend's autograd backward equals the other op, and the JAX
 guards and resolution hold.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -259,3 +261,264 @@ def test_rs_plan_cuts_small_shapes_for_the_grid_and_caps_the_tile():
     assert (tiny.tile, tiny.tiles_per_chunk, tiny.items) == (288, 1, 3)
     with pytest.raises(ValueError, match="rs_plan"):
         PK.rs_plan(2, 100, 30, 2, aligned=True)
+
+
+# ---------------------------------------------------------------------------
+# ag_plan: the CUDA all-gather's launch, held on the CPU
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import pgl  # noqa: E402
+from repro_torch.core.comms import all_gather_stacked  # noqa: E402
+
+#: the FSDP-sharded weights of full-width tinyllama-1.1b, tp-stacked over 4
+#: ranks as stored, and the stored dim their gather runs along: rows (wq,
+#: wk/wv, w1/w3, head) and columns (wo, w2, emb)
+FSDP_WEIGHTS = [((4, 2048, 512), 1), ((4, 2048, 64), 1),
+                ((4, 2048, 1408), 1), ((4, 2048, 8000), 1),
+                ((4, 512, 2048), 2), ((4, 1408, 2048), 2),
+                ((4, 8000, 2048), 2)]
+
+
+def _fsdp_view(stored, sdim, r, device="meta", dtype=torch.bfloat16):
+    """The dp-stacked view an FSDP gather hands the kernel, and its axis."""
+    w = torch.empty(stored, dtype=dtype, device=device)
+    return pgl.dp_view(w, sdim, r), sdim
+
+
+def _plan_of(x, axis, addr=0):
+    return PK.ag_plan(x.shape[0], tuple(x.shape[1:]), tuple(x.stride()[1:]),
+                      x.stride(0), axis, x.element_size(), addr=addr)
+
+
+def _tma_items(p, r):
+    """The (source, tile coordinates) of every item the TMA kernel's blocks
+    take, block b items b, b + grid, ... (csrc/pk_comm.cu)."""
+    t = [-(-n // b) for (n, _, _), b in zip(p.dims, p.box)]
+    out = []
+    for blk in range(p.grid):
+        for i in range(blk, p.items, p.grid):
+            s, rest = divmod(i, p.tiles)
+            k0, rest = rest % t[0], rest // t[0]
+            out.append((s, k0, rest % t[1], rest // t[1]))
+    return out, t
+
+
+@pytest.mark.parametrize("stored,sdim", FSDP_WEIGHTS)
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_ag_plan_covers_every_source_tile_once(stored, sdim, r):
+    """At every FSDP shard shape, rows and columns, over R dp ranks: the
+    plan takes the TMA route on the strided view itself; its boxes tile
+    each dim; the blocks take every (source, tile) exactly once; the ring
+    fits two blocks an SM; the maps' strides and rows are 16-byte
+    multiples."""
+    x, axis = _fsdp_view(stored, sdim, r)
+    assert not x.is_contiguous()
+    p = _plan_of(x, sdim)
+    assert p.route == "tma" and p.reason == "" and p.unit == 8
+    assert len(p.dims) == len(p.box) == 3
+    assert p.smem_bytes <= TWO_A_SM
+    box_bytes = 8 * math.prod(p.box)
+    stage = -(-box_bytes // 128) * 128          # a TMA box 128-B aligned
+    assert p.smem_bytes == p.stages * stage + 2 * p.stages * 8
+    assert box_bytes <= PK.AG_STAGE_BYTES and p.box[0] % 2 == 0
+    assert all(1 <= b <= 256 for b in p.box)
+    assert p.dims[0][1:] == (8, 8)
+    for st in [s for d in p.dims[1:] for s in d[1:]] + [
+            p.src_stride, p.slot_stride, p.rank_stride]:
+        assert st % 16 == 0
+    assert 1 <= p.grid <= PK.AG_PER_SM * PK.H100_SMS
+    # the units of a source: every byte of the shard once
+    assert 8 * math.prod(n for n, _, _ in p.dims) == \
+        x[0].numel() * x.element_size()
+    items, t = _tma_items(p, r)
+    for (n, _, _), b, k in zip(p.dims, p.box, t):
+        assert (k - 1) * b < n <= k * b
+    assert len(items) == len(set(items)) == r * math.prod(t) == p.items
+
+
+@pytest.mark.parametrize("shape,dtype,make,why", [
+    ((2, 5, 3), torch.uint8, None, "inner run"),
+    ((2, 3, 5), torch.bfloat16, None, "inner run"),
+    ((8, 6, 7), torch.float32, None, "inner run"),
+    ((2, 4, 24), torch.bfloat16, None, ""),
+    ((2, 8, 2048), torch.float32, None, ""),
+    ((2, 4, 24), torch.bfloat16, "offset", "address"),
+    ((2, 4, 24), torch.bfloat16, "transpose", "inner run"),
+    ((2, 8, 12), torch.bfloat16, "columns", "inner run"),
+    ((2, 16, 40), torch.bfloat16, "rows-odd", "stride"),
+    ((2, 3, 4, 5, 16), torch.bfloat16, "every-other", "dims"),
+])
+def test_ag_plan_takes_the_word_route_exactly_where_a_map_cannot_go(
+        shape, dtype, make, why):
+    """The word route is taken for a misaligned address, an inner run not a
+    multiple of 16 bytes, a stride not a multiple of 16 bytes or more dims
+    than a map takes — and only then."""
+    base = torch.zeros(math.prod(shape) + 64, dtype=dtype)
+    x = base[:math.prod(shape)].view(shape)
+    axis, addr = 0, 0
+    if make == "offset":                   # 8 bytes past an aligned base
+        x = base[4:4 + math.prod(shape)].view(shape)
+        addr = 8
+    elif make == "transpose":
+        x = x.transpose(1, 2)
+    elif make == "columns":                # a stored (.., 8, 12) bf16 leaf
+        x = pgl.dp_view(base[:2 * 8 * 12].view(2, 8, 12), 2, 2)
+        axis = 2
+    elif make == "rows-odd":               # rows of 40 bf16 (80 bytes)
+        x = base[:2 * 16 * 41].view(2, 16, 41)[:, :, :40]
+    elif make == "every-other":            # 4 dims no merge joins
+        x = base.new_zeros((2, 6, 8, 5, 32))[:, ::2, ::2, :, :16]
+    p = _plan_of(x, axis, addr)
+    assert (p.route == "word") == bool(why)
+    assert why in p.reason
+    if p.route == "word":
+        assert p.smem_bytes == 0 and p.box == () and p.stages == 0
+        assert p.items == x.numel() * x.element_size() // p.unit
+
+
+def _as_units(t, unit):
+    """t's bytes (contiguous storage from t's first element) as a flat
+    tensor of ``unit``-byte words, and the byte offset of t in them."""
+    flat = torch.empty(0, dtype=t.dtype).set_(t.untyped_storage())
+    b = flat.view(torch.uint8)
+    words = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64, 16: torch.int64}[unit]
+    n = b.numel() // torch.empty(0, dtype=words).element_size()
+    return b[:n * torch.empty(0, dtype=words).element_size()].view(words), \
+        t.storage_offset() * t.element_size()
+
+
+def _walk(p, x, out):
+    """Run the plan on CPU tensors as the kernel would: the TMA route box by
+    box (a box of the input map stored into slot s of every rank's output
+    through the output map), the word route word by word."""
+    r = x.shape[0]
+    step = 16 if p.unit == 16 else p.unit
+    xin, off_in = _as_units(x, step)
+    xout, off_out = _as_units(out, step)
+    es = xin.element_size()
+    if p.route == "tma":
+        items, t = _tma_items(p, r)
+        for s, *ks in items:
+            c = [k * b for k, b in zip(ks, p.box)]
+            size = [min(b, n - ci) for (n, _, _), b, ci in
+                    zip(p.dims, p.box, c)]
+            rest = sum(ci * d[1] for ci, d in zip(c[1:], p.dims[1:]))
+            src = torch.as_strided(
+                xin, size[::-1], [d[1] // es for d in p.dims][::-1],
+                (off_in + s * p.src_stride + 8 * c[0] + rest) // es)
+            orest = sum(ci * d[2] for ci, d in zip(c[1:], p.dims[1:]))
+            for dst in range(r):
+                torch.as_strided(
+                    xout, size[::-1], [d[2] // es for d in p.dims][::-1],
+                    (off_out + dst * p.rank_stride + s * p.slot_stride
+                     + 8 * c[0] + orest) // es).copy_(src)
+        return
+    ext = [n for n, _, _ in p.dims]
+    idx = np.indices(ext[::-1]).reshape(len(ext), -1)[::-1]
+    io = sum(i * d[1] for i, d in zip(idx, p.dims))
+    oo = sum(i * d[2] for i, d in zip(idx, p.dims))
+    for s in range(r):
+        v = xin[torch.from_numpy((off_in + s * p.src_stride + io) // es)]
+        for dst in range(r):
+            xout[torch.from_numpy((off_out + dst * p.rank_stride
+                                   + s * p.slot_stride + oo) // es)] = v
+
+
+@pytest.mark.parametrize("stored,sdim", [((4, 64, 32), 1), ((4, 32, 64), 2),
+                                         ((4, 256, 96), 1),
+                                         ((4, 1408, 24), 1),
+                                         ((4, 48, 256), 2)])
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_ag_plan_walk_reproduces_the_gathered_layout(stored, sdim, r):
+    """The TMA route's boxes, walked over CPU tensors from a dp_view, write
+    exactly ``all_gather_stacked(..., "bulk")``, and through the public
+    layout ``all_gather_plain``."""
+    w = torch.from_numpy(_np(*stored, seed=r)).to(torch.bfloat16)
+    x = pgl.dp_view(w, sdim, r)
+    p = _plan_of(x, sdim)
+    assert p.route == "tma"
+    out = torch.full((r, *stored), float("nan"), dtype=w.dtype)
+    _walk(p, x, out)
+    want = all_gather_stacked(x, sdim, "bulk")
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    front = x.movedim(1 + sdim, 1).contiguous()
+    q = _plan_of(front, 0)
+    got = torch.empty((r, r * front.shape[1], *front.shape[2:]),
+                      dtype=w.dtype)
+    _walk(q, front, got)
+    assert torch.equal(got.view(r, *front.shape),
+                       PK.all_gather_plain(front))
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 5, 3), torch.uint8),
+                                         ((4, 3, 5), torch.bfloat16),
+                                         ((8, 6, 7), torch.float32)])
+def test_ag_plan_word_walk_reproduces_all_gather_plain(shape, dtype):
+    x = (torch.from_numpy(_np(*shape)) * 50).to(dtype)
+    p = _plan_of(x, 0)
+    assert p.route == "word"
+    out = torch.zeros((shape[0], shape[0] * shape[1], *shape[2:]),
+                      dtype=dtype)
+    _walk(p, x, out)
+    assert torch.equal(out.view(shape[0], *shape), PK.all_gather_plain(x))
+
+
+@pytest.mark.parametrize("stored,sdim", [((4, 64, 32), 1), ((4, 32, 64), 2)])
+@pytest.mark.parametrize("r", [2, 4])
+def test_fused_all_gather_stacked_is_contiguous_and_equals_bulk(stored, sdim,
+                                                                 r):
+    w = torch.from_numpy(_np(*stored, seed=sdim)).to(torch.bfloat16)
+    x = pgl.dp_view(w, sdim, r)
+    fused = all_gather_stacked(x, sdim, "fused")
+    assert fused.is_contiguous()
+    assert torch.equal(fused, all_gather_stacked(x, sdim, "bulk"))
+
+
+def test_ag_plan_does_not_depend_on_chunks_and_refuses_bad_arguments():
+    """A copy needs no chunking on the card: the public wrapper checks
+    n_chunks as before, and its plan is the same whatever the count."""
+    x = torch.from_numpy(_np(2, 1024, 4, 64))
+    for nc in CHUNKS:
+        assert torch.equal(PK.ring_all_gather(x, n_chunks=nc),
+                           PK.all_gather_plain(x))
+    with pytest.raises(ValueError, match="ag_plan"):
+        PK.ag_plan(2, (4, 8), (8, 1), 32, 2, 2)
+    with pytest.raises(ValueError, match="local dim"):
+        PK.all_gather_along(x, 3)
+
+
+# ---------------------------------------------------------------------------
+# p2p_plan and the monotonic arrival flags
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,elsize", [((4, 1, 4, 2048, 64), 2),
+                                          ((4, 3, 5, 7), 4), ((2, 9), 2),
+                                          ((3, 5), 1), ((8, 6, 130), 4)])
+def test_p2p_expected_count_advances_by_the_plan_tiles(shape, elsize):
+    """Each launch adds the plan's tiles a rank to flags 0..R-1 and to the
+    wrapper's expected counts, which wrap as the int32 flags do."""
+    r, blk = shape[0], math.prod(shape[1:]) * elsize
+    p = PK.p2p_plan(r, blk, aligned=True)
+    assert p.tiles == -(-blk // p.tile_bytes) >= 1
+    assert 1 <= p.grid <= min(r * p.tiles, PK.P2P_PER_SM * PK.H100_SMS)
+    f = PK.P2pFlags(torch.zeros(PK.MAX_RANKS, dtype=torch.int32),
+                    [0] * PK.MAX_RANKS)
+    for launch in range(1, 4):
+        f.advance(r, p.tiles)
+        f.flags[:r] += p.tiles          # what the kernel's signals add
+        assert f.expected[:r] == [launch * p.tiles] * r
+        assert f.counts(r) == f.expected[:r]
+    assert f.expected[r:] == [0] * (PK.MAX_RANKS - r)
+    f.expected[0] = 2 ** 32 - 1
+    f.advance(1, 2)
+    assert f.expected[0] == 1
+
+
+def test_p2p_plan_tiles_the_sp_hop():
+    """k of the SP path, 1 MB a rank: 64 tiles of 16 KB; bulk copies only
+    for 16-byte aligned buffers of a multiple of 16 bytes."""
+    p = PK.p2p_plan(4, 1 << 20, aligned=True)
+    assert (p.tiles, p.grid) == (64, 256)
+    assert PK.p2p_plan(4, 18, aligned=True).bulk is False
+    assert PK.p2p_plan(4, 1 << 20, aligned=False).bulk is False

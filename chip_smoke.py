@@ -1016,8 +1016,7 @@ def check_ring_kernels(dev, record, compare, randn) -> dict:
             start = flags.counts(r)
             got = PK.p2p_ring_shift(x)
             counts = flags.counts(r)
-            tiles = PK.p2p_plan(r, x[0].numel() * x.element_size(),
-                                aligned=True).tiles
+            tiles = PK.p2p_plan(r, x[0].numel() * x.element_size()).tiles
             if not (torch.equal(got, PK.ring_shift_plain(x))
                     and torch.equal(got, mm_tile_p2p_ring_shift(x))
                     and counts == flags.expected[:r]

@@ -23,12 +23,12 @@ costs, copies included: the kernel's ``all_gather_stacked`` and one dp
 group's ``.contiguous()`` (a no-op now), beside the same call on the
 kernel it ran on before behind its wrapper (a copy before, a strided view
 after, which the group's ``.contiguous()`` copies) and beside the ``bulk``
-backend. ``--variants`` also times the launch's design choices (AG: bulk
-tensor stores or word stores, bytes a tile, stages, blocks an SM; p2p:
-bulk copies or words, bytes a tile, blocks an SM), each by setting the
-plan's constants in ``kernels/pk_comm.py`` for the timing (``constants``)
-and calling the wrapper. Prints the card's name and power limit, then one
-JSON line a row. Needs a CUDA device; exits 1 without one.
+backend. ``--variants`` also times the launch's design choices (AG: bytes
+a tile, stages, blocks an SM; p2p: bytes a tile, blocks an SM), each by
+setting the plan's constants in ``kernels/pk_comm.py`` for the timing
+(``constants``) and calling the wrapper. Prints the card's name and power
+limit, then one JSON line a row. Needs a CUDA device; exits 1 without
+one.
 """
 
 from __future__ import annotations
@@ -91,13 +91,11 @@ def main() -> int:
         return (torch.randn(shape, generator=g, device=dev) * 50).to(dtype)
 
     def ag_variants():
-        for bulk in (True, False):
-            for stage_bytes in (16384, 32768, 65536):
-                for stages in (2, 3, 4):
-                    for per_sm in (1, 2):
-                        yield dict(AG_BULK_STORE=bulk,
-                                   AG_STAGE_BYTES=stage_bytes,
-                                   AG_STAGES=stages, AG_PER_SM=per_sm)
+        for stage_bytes in (16384, 32768, 65536):
+            for stages in (2, 3, 4):
+                for per_sm in (1, 2):
+                    yield dict(AG_STAGE_BYTES=stage_bytes, AG_STAGES=stages,
+                               AG_PER_SM=per_sm)
 
     # -- all-gather: the FSDP path's strided views --
     for stored, sdim in FSDP_WEIGHTS:
@@ -186,8 +184,7 @@ def main() -> int:
             x = randn(*shape, dtype=dtype)
             start = flags.counts(r)
             got = PK.p2p_ring_shift(x)
-            p = PK.p2p_plan(r, x[0].numel() * x.element_size(),
-                            aligned=x.data_ptr() % 16 == 0, sms=sms)
+            p = PK.p2p_plan(r, x[0].numel() * x.element_size(), sms=sms)
             counts = flags.counts(r)
             if not (same_bits(got, PK.ring_shift_plain(x))
                     and same_bits(got, CS.mm_tile_p2p_ring_shift(x))
@@ -209,17 +206,15 @@ def main() -> int:
         emit(row)
         if args.variants and timing and shape[3:4] == (2048,):
             want = PK.ring_shift_plain(x)
-            for bulk in (False, True):
-                for tile in (8192, 16384, 32768, 65536):
-                    for per_sm in (1, 2, 4):
-                        v = dict(P2P_BULK=bulk, P2P_TILE_BYTES=tile,
-                                 P2P_PER_SM=per_sm)
-                        with constants(PK, **v):
-                            if not same_bits(run(), want):
-                                raise AssertionError(f"p2p variant {v}")
-                            ms = CS.time_ms(run)
-                        emit({"kernel": "p2p_ring_shift variant",
-                              "shape": row["shape"], **v, "ms": ms})
+            for tile in (8192, 16384, 32768, 65536):
+                for per_sm in (1, 2, 4):
+                    v = dict(P2P_TILE_BYTES=tile, P2P_PER_SM=per_sm)
+                    with constants(PK, **v):
+                        if not same_bits(run(), want):
+                            raise AssertionError(f"p2p variant {v}")
+                        ms = CS.time_ms(run)
+                    emit({"kernel": "p2p_ring_shift variant",
+                          "shape": row["shape"], **v, "ms": ms})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -94,11 +94,10 @@ SIGNATURES = {
                                _L, _L, _I, _I, _I, _P],
     # in, out, R, route (1 TMA, 0 words), unit, dims, extents, input and
     # output strides (int64[dims]), source, slot and rank strides, box
-    # (int[3]), grid, stages, shared memory a block (the plan's), bulk
-    # stores, stream
+    # (int[3]), grid, stages, shared memory a block (the plan's), stream
     "pk_all_gather": [_P, _P, _I, _I, _I, _I]
                      + [ctypes.POINTER(ctypes.c_int64)] * 3 + [_L] * 3
-                     + [ctypes.POINTER(ctypes.c_int), _I, _I, _L, _I, _P],
+                     + [ctypes.POINTER(ctypes.c_int), _I, _I, _L, _P],
     # the kernel B3's all-gather ran on before, a timing yardstick
     # (csrc/pk_comm_yardstick.cu): in ptrs, out ptrs, R, blk bytes, chunk
     # bytes, stream
@@ -114,10 +113,10 @@ SIGNATURES = {
     # ptrs, flags, R, blk elems, chunk elems, dtype, stream
     "pk_mm_tile_reduce_scatter": [ctypes.POINTER(ctypes.c_uint64)] * 3
                                  + [_P, _I, _L, _L, _I, _P],
-    # in ptrs, out ptrs, flags, R, blk bytes, tile bytes, grid, bulk,
-    # shared memory a block (the plan's), stream
+    # in ptrs, out ptrs, flags, R, blk bytes, tile bytes, grid (the
+    # plan's), stream
     "pk_p2p_ring_shift": [ctypes.POINTER(ctypes.c_uint64)] * 2
-                         + [_P, _I, _L, _L, _I, _I, _L, _P],
+                         + [_P, _I, _L, _L, _I, _P],
     # the kernel B8 ran on before, a timing yardstick
     # (csrc/pk_comm_yardstick.cu): in ptrs, out ptrs, flags, R, blk bytes,
     # stream

@@ -8,15 +8,14 @@
 //                 one box of a tensor map over the input that carries the
 //                 strides of the view it was given. One producer thread
 //                 TMA-loads the tile into a ring of shared-memory stages
-//                 (full/empty mbarriers); the tile is then written into
-//                 slot s of every rank's output R times, through a second
-//                 map over the output laid out as the gathered tensor
-//                 (R, *gathered): either by R TMA bulk tensor stores from
-//                 the stage (bulk_group, the stage refilled after
-//                 wait_group.read) or by eight consumer warps storing
-//                 16-byte words. One read and R stores a tile; no block
-//                 waits on another. Shapes a tensor map cannot take run
-//                 a word kernel over the same strided description.
+//                 (an mbarrier each) and writes it into slot s of every
+//                 rank's output by R TMA bulk tensor stores from the stage,
+//                 through a second map over the output laid out as the
+//                 gathered tensor (R, *gathered); a stage is refilled once
+//                 its stores have read it (wait_group.read). One read and R
+//                 stores a tile; no block waits on another. Shapes a tensor
+//                 map cannot take run a word kernel over the same strided
+//                 description.
 // reduce-scatter: pull and sum. A persistent grid walks the (owner o,
 //                 tile) items; for each, one producer thread issues R TMA
 //                 bulk copies (cp.async.bulk, completing on the stage's
@@ -58,8 +57,7 @@ __device__ __forceinline__ long lmin(long a, long b) { return a < b ? a : b; }
 
 // -- all-gather: TMA staged, one read and R stores a tile --
 
-constexpr int AG_CONSUMERS = 256;              // 8 warps store words
-constexpr int AG_THREADS = AG_CONSUMERS + 32;  // + the producer warp
+constexpr int AG_THREADS = 32;  // one warp: its first thread does the work
 constexpr int AG_MAX_STAGES = 8;
 constexpr int AG_WORD_THREADS = 256;
 constexpr int AG_WORD_DIMS = 6;
@@ -87,44 +85,26 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
-// wait until at most N of this thread's bulk groups are incomplete: their
-// writes to global memory are performed
-template <int N>
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
-}
-
 struct AgArgs {
   CUtensorMap in_map;   // (e0, e1, e2, source): the input view's strides
   CUtensorMap out_map;  // (e0, e1, e2, slot, rank): the gathered layout
-  long long e0, e1, e2;        // the copy's extents (e0 in 8-byte units)
-  long long os1, os2;          // output strides of dims 1, 2 (bytes)
-  long long slot, rank;        // output bytes between slots, between ranks
-  unsigned long long out;      // the output's base address
   int R, items, t0, t1, t2;    // ranks; (source, tile) items; tiles a dim
   int b0, b1, b2, stages;      // the box (a tile), the ring's stages
   int box_bytes, stage_bytes;  // a box; a stage: the box to 128 bytes
 };
 
-// The persistent TMA kernel: block b takes items b, b + grid, ... Item i is
-// source s = i / tiles, then tile (k0 fastest, k1, k2) at c = k * box.
-template <bool BULK_STORE>
+// The persistent TMA kernel, one thread: block b takes items b, b + grid,
+// ... Item i is source s = i / tiles, then tile (k0 fastest, k1, k2) at
+// c = k * box. Loads run stages - 1 items ahead; the stage of item j - 1
+// is refilled once its R stores have read it (all but the newest group).
 __global__ void __launch_bounds__(AG_THREADS)
     pk_ag_tma_kernel(const __grid_constant__ AgArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(smem + (size_t)p.stages * p.stage_bytes);
+  if (threadIdx.x != 0) return;
   const uint32_t ring = hg::smem_addr(smem);
-  const uint32_t full0 = hg::smem_addr(bars);
-  const uint32_t empty0 = hg::smem_addr(bars + p.stages);
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < p.stages; ++s) {
-      hg::mbar_init(full0 + 8 * s, 1);
-      hg::mbar_init(empty0 + 8 * s, AG_CONSUMERS / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
+  const uint32_t full0 = ring + p.stages * p.stage_bytes;
+  for (int s = 0; s < p.stages; ++s) hg::mbar_init(full0 + 8 * s, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   const int tiles = p.t0 * p.t1 * p.t2;
   const int n = (int)blockIdx.x < p.items
                     ? (p.items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
@@ -147,64 +127,24 @@ __global__ void __launch_bounds__(AG_THREADS)
     hg::tma_load4(ring + stage * p.stage_bytes, &p.in_map, c0, c1, c2, s,
                   full0 + 8 * stage);
   };
-  if constexpr (BULK_STORE) {
-    // one thread: loads run stages - 1 items ahead; the stage of item j - 1
-    // is refilled once its R stores have read it (all but the newest group)
-    if (threadIdx.x != 0) return;
-    const int ahead = n < p.stages - 1 ? n : p.stages - 1;
-    for (int j = 0; j < ahead; ++j) load(j);
-    for (int j = 0; j < n; ++j) {
-      const int stage = j % p.stages;
-      hg::mbar_wait(full0 + 8 * stage, (j / p.stages) & 1);
-      // the stores read what the async proxy wrote: order them after it
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      int s, c0, c1, c2;
-      at(j, s, c0, c1, c2);
-      for (int d = 0; d < p.R; ++d)
-        tma_store5(&p.out_map, ring + stage * p.stage_bytes, c0, c1, c2, s,
-                   d);
-      bulk_commit();
-      if (j + p.stages - 1 < n) {
-        bulk_wait_read<1>();
-        load(j + p.stages - 1);
-      }
-    }
-    bulk_wait<0>();
-  } else {
-    const bool producer = threadIdx.x >= AG_CONSUMERS;
-    if (producer && threadIdx.x != AG_CONSUMERS) return;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-    const int words = p.b0 / 2;  // 16-byte words a box row
-    for (int j = 0; j < n; ++j) {
-      const int stage = j % p.stages;
-      const uint32_t phase = (j / p.stages) & 1;
-      if (producer) {
-        hg::mbar_wait(empty0 + 8 * stage, phase ^ 1);
-        load(j);
-        continue;
-      }
-      hg::mbar_wait(full0 + 8 * stage, phase);
-      int s, c0, c1, c2;
-      at(j, s, c0, c1, c2);
-      const long long valid = p.e0 - c0 < p.b0 ? p.e0 - c0 : p.b0;
-      const uint4* st =
-          reinterpret_cast<const uint4*>(smem + (size_t)stage * p.stage_bytes);
-      for (int row = warp; row < p.b1 * p.b2; row += AG_CONSUMERS / 32) {
-        const int i1 = row % p.b1, i2 = row / p.b1;
-        if (c1 + i1 >= p.e1 || c2 + i2 >= p.e2) continue;
-        unsigned char* base = reinterpret_cast<unsigned char*>(p.out) +
-                              s * p.slot + 8ll * c0 + (c1 + i1) * p.os1 +
-                              (c2 + i2) * p.os2;
-        for (int w = lane; 2ll * w < valid; w += 32) {
-          const uint4 v = st[(long)row * words + w];
-          for (int d = 0; d < p.R; ++d)
-            reinterpret_cast<uint4*>(base + d * p.rank)[w] = v;
-        }
-      }
-      __syncwarp();
-      if (lane == 0) hg::mbar_arrive(empty0 + 8 * stage);
+  const int ahead = n < p.stages - 1 ? n : p.stages - 1;
+  for (int j = 0; j < ahead; ++j) load(j);
+  for (int j = 0; j < n; ++j) {
+    const int stage = j % p.stages;
+    hg::mbar_wait(full0 + 8 * stage, (j / p.stages) & 1);
+    // the stores read what the async proxy wrote: order them after it
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    int s, c0, c1, c2;
+    at(j, s, c0, c1, c2);
+    for (int d = 0; d < p.R; ++d)
+      tma_store5(&p.out_map, ring + stage * p.stage_bytes, c0, c1, c2, s, d);
+    bulk_commit();
+    if (j + p.stages - 1 < n) {
+      bulk_wait_read<1>();
+      load(j + p.stages - 1);
     }
   }
+  bulk_wait_read<0>();  // the stores have read the ring before it is freed
 }
 
 // The copy's description in words for the word kernel: dims inner first,
@@ -263,7 +203,7 @@ inline int ag_stage_bytes(int box_bytes) { return (box_bytes + 127) / 128 * 128;
 // The TMA kernel's dynamic shared memory: the ring and its mbarriers.
 inline size_t ag_smem(int box_bytes, int stages) {
   return (size_t)stages * ag_stage_bytes(box_bytes) +
-         2 * stages * sizeof(uint64_t);
+         stages * sizeof(uint64_t);
 }
 
 // -- reduce-scatter: pull and sum, f32 in rank order --
@@ -438,7 +378,7 @@ __global__ void __launch_bounds__(RS_ELEM_THREADS)
 constexpr int P2P_THREADS = 256;
 constexpr int P2P_UNROLL = 4;  // words in flight a thread
 
-// Words: item i is source s = i / tiles, tile t; the block copies its tile
+// Item i is source s = i / tiles, tile t; the block copies its tile
 // of in[s] into out[(s + 1) % R], P2P_UNROLL loads in flight a thread, then
 // fences and counts the tile in on the destination's flag.
 template <typename U>
@@ -471,44 +411,6 @@ __global__ void __launch_bounds__(P2P_THREADS)
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0) pk::signal(flags + d, 1);
-  }
-}
-
-// Bulk copies, one thread: each tile goes global -> shared by one TMA bulk
-// load and shared -> global by one bulk store; the flag is counted once the
-// store's writes are performed (wait_group 0, not .read) and ordered
-// before the generic proxy's release (fence.proxy.async.global).
-__global__ void __launch_bounds__(32)
-    pk_p2p_bulk_kernel(const __grid_constant__ pk::PtrTable src,
-                       const __grid_constant__ pk::PtrTable dst,
-                       int* __restrict__ flags, int R, long bytes,
-                       long tile_bytes, int tiles) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  if (threadIdx.x != 0) return;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + tile_bytes);
-  const uint32_t full = hg::smem_addr(bar), buf = hg::smem_addr(smem);
-  hg::mbar_init(full, 1);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  const int items = R * tiles;
-  int j = 0;
-  for (int i = blockIdx.x; i < items; i += gridDim.x, ++j) {
-    const int s = i / tiles, d = (s + 1) % R;
-    const long begin = (long)(i - s * tiles) * tile_bytes;
-    const uint32_t len = (uint32_t)lmin(tile_bytes, bytes - begin);
-    hg::mbar_expect_tx(full, len);
-    bulk_load(buf, reinterpret_cast<const unsigned char*>(src.p[s]) + begin,
-              len, full);
-    hg::mbar_wait(full, j & 1);
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile(
-        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-            reinterpret_cast<unsigned char*>(dst.p[d]) + begin),
-        "r"(buf), "r"(len)
-        : "memory");
-    bulk_commit();
-    bulk_wait<0>();
-    asm volatile("fence.proxy.async.global;" ::: "memory");
-    pk::signal(flags + d, 1);
   }
 }
 
@@ -567,16 +469,14 @@ int launch_rs(const unsigned long long* in, const unsigned long long* out,
 // contiguous in both), source s at s * src bytes of the input and slot s *
 // slot of a rank's output, rank d at d * rank. route 1: the TMA kernel
 // (unit 8, nd 3, tiles of box[0..2], the persistent grid, stages, shared
-// memory a block — a launch whose ag_smem differs is refused — and R TMA
-// bulk stores a tile or word stores); route 0: the word kernel (nd <= 6,
-// the unit a word of 1-16 bytes, grid blocks).
+// memory a block: a launch whose ag_smem differs is refused); route 0: the
+// word kernel (nd <= 6, the unit a word of 1-16 bytes, grid blocks).
 extern "C" int pk_all_gather(const void* in, void* out, int R, int route,
                              int unit, int nd, const long long* ext,
                              const long long* in_st, const long long* out_st,
                              long long src, long long slot, long long rank,
                              const int* box, int grid, int stages,
-                             long long smem_bytes, int bulk_store,
-                             void* stream) {
+                             long long smem_bytes, void* stream) {
   if (R < 1 || grid < 1 || nd < 1 || nd > AG_WORD_DIMS)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -639,14 +539,6 @@ extern "C" int pk_all_gather(const void* in, void* out, int R, int route,
   if (const int e = encode_u64(&a.out_map, reinterpret_cast<uintptr_t>(out),
                                5, odims, ostr, obox))
     return e;
-  a.e0 = ext[0];
-  a.e1 = ext[1];
-  a.e2 = ext[2];
-  a.os1 = out_st[1];
-  a.os2 = out_st[2];
-  a.slot = slot;
-  a.rank = rank;
-  a.out = reinterpret_cast<uintptr_t>(out);
   a.R = R;
   a.b0 = box[0];
   a.b1 = box[1];
@@ -658,15 +550,15 @@ extern "C" int pk_all_gather(const void* in, void* out, int R, int route,
   a.stages = stages;
   a.box_bytes = box_bytes;
   a.stage_bytes = ag_stage_bytes(box_bytes);
-  auto kernel = bulk_store ? pk_ag_tma_kernel<true> : pk_ag_tma_kernel<false>;
-  static size_t granted[2] = {0, 0};  // the attribute each was given
-  if (smem > granted[bulk_store ? 1 : 0]) {
+  static size_t granted = 0;  // the attribute the kernel was given
+  if (smem > granted) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        pk_ag_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
-    granted[bulk_store ? 1 : 0] = smem;
+    granted = smem;
   }
-  kernel<<<grid, bulk_store ? 32 : AG_THREADS, smem, st>>>(a);
+  pk_ag_tma_kernel<<<grid, AG_THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -700,14 +592,12 @@ extern "C" int pk_reduce_scatter(const unsigned long long* in_ptrs,
 // that this launch adds its tiles to, never reset (flags[d] counts the
 // tiles that ever arrived in rank d's output on this stream). The launch is
 // the plan's (kernels/pk_comm.py p2p_plan): tiles of tile_bytes (a multiple
-// of 16), the persistent grid, and bulk copies (smem_bytes: the tile and
-// its mbarrier; 16-byte aligned addresses and sizes) or words, the widest
-// (16 down to 1 bytes) that divide blk_bytes and every address.
+// of 16), the persistent grid; words are the widest (16 down to 1 bytes)
+// that divide blk_bytes and every address.
 extern "C" int pk_p2p_ring_shift(const unsigned long long* in_ptrs,
                                  const unsigned long long* out_ptrs,
                                  void* flags, int R, long blk_bytes,
-                                 long tile_bytes, int grid, int bulk,
-                                 long long smem_bytes, void* stream) {
+                                 long tile_bytes, int grid, void* stream) {
   if (R < 1 || R > PK_MAX_RANKS || blk_bytes < 0 || tile_bytes < 16 ||
       tile_bytes % 16 || grid < 1)
     return (int)cudaErrorInvalidValue;
@@ -715,23 +605,6 @@ extern "C" int pk_p2p_ring_shift(const unsigned long long* in_ptrs,
   const cudaStream_t st = (cudaStream_t)stream;
   const int tiles = (int)((blk_bytes + tile_bytes - 1) / tile_bytes);
   pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
-  if (bulk) {
-    if (blk_bytes % 16 || !aligned16(in_ptrs, R) || !aligned16(out_ptrs, R) ||
-        smem_bytes != tile_bytes + (long long)sizeof(uint64_t))
-      return (int)cudaErrorInvalidValue;
-    static long long granted = 0;
-    if (smem_bytes > granted) {
-      cudaError_t e = cudaFuncSetAttribute(
-          pk_p2p_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem_bytes);
-      if (e != cudaSuccess) return (int)e;
-      granted = smem_bytes;
-    }
-    pk_p2p_bulk_kernel<<<grid, 32, smem_bytes, st>>>(
-        s, d, (int*)flags, R, blk_bytes, tile_bytes, tiles);
-    return (int)cudaGetLastError();
-  }
-  if (smem_bytes != 0) return (int)cudaErrorInvalidValue;
   unsigned long long bits = (unsigned long long)blk_bytes;
   for (int i = 0; i < R; ++i) bits |= in_ptrs[i] | out_ptrs[i];
   return pk::with_word(bits, [&](auto word) {

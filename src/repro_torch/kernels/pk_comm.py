@@ -102,16 +102,14 @@ RS_ELEM_THREADS = 256
 RS_ELEM_PER_SM = 8
 #: the all-gather's TMA route: bytes a tile (one box a stage), stages,
 #: blocks an SM, the smallest tile the plan cuts a small shape into, the
-#: shortest box row an inner dim is cut into, and whether a tile's R
-#: stores are TMA bulk tensor stores from the producer thread (else eight
-#: warps store 16-byte words); consumer threads + a producer warp
+#: shortest box row an inner dim is cut into; a block is one warp, whose
+#: first thread issues the loads and the stores
 AG_STAGE_BYTES = 32768
 AG_STAGES = 3
 AG_PER_SM = 2
 AG_MIN_TILE_BYTES = 4096
 AG_MIN_ROW_BYTES = 256
-AG_BULK_STORE = True
-AG_THREADS = 256 + 32
+AG_THREADS = 32
 #: the word route's block, and the most of its blocks an SM
 AG_WORD_THREADS = 256
 AG_WORD_PER_SM = 8
@@ -122,13 +120,11 @@ _UNIT = 8
 _BOX_MAX = 256
 _MAP_DIMS = 3
 _WORD_DIMS = 6
-#: the p2p kernel: bytes a tile (one flag count), threads, blocks an SM,
-#: and whether a tile moves by one TMA bulk load and store (else 16-byte
-#: words, four loads in flight a thread)
+#: the p2p kernel: bytes a tile (one flag count), threads (each with four
+#: loads in flight), blocks an SM
 P2P_TILE_BYTES = 16384
 P2P_THREADS = 256
 P2P_PER_SM = 2
-P2P_BULK = False
 # p2p arrival flags by (device, stream)
 _P2P_FLAGS: dict[tuple, "P2pFlags"] = {}
 
@@ -193,8 +189,8 @@ def _launch_all_gather(x: torch.Tensor, axis: int) -> torch.Tensor:
         (ctypes.c_int64 * nd)(*ext), (ctypes.c_int64 * nd)(*ist),
         (ctypes.c_int64 * nd)(*ost), p.src_stride, p.slot_stride,
         p.rank_stride, (ctypes.c_int * 3)(*(p.box or (0, 0, 0))), p.grid,
-        p.stages, p.smem_bytes, int(p.bulk_store),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        p.stages, p.smem_bytes, torch.cuda.current_stream(x.device)
+        .cuda_stream)
     _build.check(err, "pk_all_gather")
     ring_all_gather.launches += 1
     return out
@@ -256,7 +252,6 @@ class AgPlan:
     threads: int
     stages: int
     smem_bytes: int     # dynamic shared memory a block: the .cu's ag_smem
-    bulk_store: bool    # tma: R TMA bulk stores a tile, else word stores
 
 
 def _contiguous_strides(shape) -> list[int]:
@@ -349,9 +344,8 @@ def ag_plan(r: int, local, strides, src_stride: int, axis: int, elsize: int,
     stage_bytes = -(-_UNIT * math.prod(box) // 128) * 128   # TMA alignment
     return AgPlan("tma", "", _UNIT, tuple(map(tuple, tma)), src, slot, rank,
                   tuple(box), tiles, r * tiles,
-                  max(1, min(r * tiles, AG_PER_SM * sms)),
-                  32 if AG_BULK_STORE else AG_THREADS, AG_STAGES,
-                  AG_STAGES * stage_bytes + 2 * AG_STAGES * 8, AG_BULK_STORE)
+                  max(1, min(r * tiles, AG_PER_SM * sms)), AG_THREADS,
+                  AG_STAGES, AG_STAGES * stage_bytes + AG_STAGES * 8)
 
 
 def _ag_box(r: int, dims, cap: int) -> list[int]:
@@ -396,7 +390,7 @@ def _ag_word_plan(r, dims, elsize, src, slot, rank, addr, why,
                       AG_WORD_PER_SM * sms))
     return AgPlan("word", why, unit, tuple(map(tuple, words)), src, slot,
                   rank, (), per_src, r * per_src, grid, AG_WORD_THREADS, 0,
-                  0, False)
+                  0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -489,27 +483,19 @@ ring_reduce_scatter.launches = 0
 @dataclasses.dataclass(frozen=True)
 class P2pPlan:
     """How the p2p kernel moves R ranks' buffers of ``blk`` bytes."""
-    bulk: bool          # a TMA bulk load and store a tile (else words)
     tile_bytes: int
     tiles: int          # tiles a rank: what a launch adds to each flag
     grid: int           # persistent blocks launched
     threads: int
-    smem_bytes: int     # bulk: the tile and its mbarrier; words: 0
 
 
-def p2p_plan(r: int, blk_bytes: int, *, aligned: bool,
-             sms: int = H100_SMS) -> P2pPlan:
+def p2p_plan(r: int, blk_bytes: int, *, sms: int = H100_SMS) -> P2pPlan:
     """The launch of one hop of R buffers of ``blk_bytes`` each: tiles of
     ``P2P_TILE_BYTES`` (the last one short), a persistent grid of at most
-    ``P2P_PER_SM`` blocks an SM walking the (source, tile) items. Bulk
-    copies (``P2P_BULK``) take 16-byte aligned buffers (``aligned``) of a
-    multiple of 16 bytes; other shapes move words."""
+    ``P2P_PER_SM`` blocks an SM walking the (source, tile) items."""
     tiles = -(-blk_bytes // P2P_TILE_BYTES)
-    bulk = P2P_BULK and aligned and blk_bytes % 16 == 0
-    return P2pPlan(bulk, P2P_TILE_BYTES, tiles,
-                   max(1, min(r * tiles, P2P_PER_SM * sms)),
-                   32 if bulk else P2P_THREADS,
-                   P2P_TILE_BYTES + 8 if bulk else 0)
+    return P2pPlan(P2P_TILE_BYTES, tiles,
+                   max(1, min(r * tiles, P2P_PER_SM * sms)), P2P_THREADS)
 
 
 @dataclasses.dataclass
@@ -558,13 +544,11 @@ def p2p_ring_shift(x: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ins, outs = pgl.pointer_table(x), pgl.pointer_table(out)
     blk_bytes = x[0].numel() * x.element_size()
-    p = p2p_plan(r, blk_bytes, aligned=all(a % 16 == 0 for a in ins + outs),
-                 sms=sm_count(x.device))
+    p = p2p_plan(r, blk_bytes, sms=sm_count(x.device))
     flags = p2p_flags(x.device, stream)
     err = _build.library().pk_p2p_ring_shift(
         _build.host_table(ins), _build.host_table(outs),
-        flags.flags.data_ptr(), r, blk_bytes, p.tile_bytes, p.grid,
-        int(p.bulk), p.smem_bytes, stream)
+        flags.flags.data_ptr(), r, blk_bytes, p.tile_bytes, p.grid, stream)
     _build.check(err, "pk_p2p_ring_shift")
     flags.advance(r, p.tiles)
     p2p_ring_shift.launches += 1

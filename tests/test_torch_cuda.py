@@ -628,7 +628,7 @@ def test_p2p_ring_shift_kernel(cuda, shape, dtype):
     stream = torch.cuda.current_stream().cuda_stream
     flags = PK.p2p_flags(cuda, stream)
     blk = math.prod(shape[1:]) * torch.empty(0, dtype=dtype).element_size()
-    tiles = PK.p2p_plan(r, blk, aligned=True).tiles
+    tiles = PK.p2p_plan(r, blk).tiles
     before = PK.p2p_ring_shift.launches
     for i in range(3):
         x = (torch.randn(shape, device=cuda) * 50).to(dtype)
@@ -946,7 +946,7 @@ def test_seq_sharded_train_on_card_runs_ring_kernels(cuda):
     assert PK.p2p_ring_shift.launches == 2 * 2 * 3 * 2
     # no memset between the launches: each rank's flag counted every tile of
     # every launch (k and v: 1 x 4 heads x 256 tokens x 64 bf16 a rank)
-    tiles = PK.p2p_plan(4, 4 * 256 * 64 * 2, aligned=True).tiles
+    tiles = PK.p2p_plan(4, 4 * 256 * 64 * 2).tiles
     assert flags.counts(4) == flags.expected[:4] == [
         (c + 2 * 2 * 3 * 2 * tiles) % 2 ** 32 for c in counted]
     assert FA.flash_attention_hop.launches == 2 * 2 * 4

@@ -319,7 +319,7 @@ def test_ag_plan_covers_every_source_tile_once(stored, sdim, r):
     assert p.smem_bytes <= TWO_A_SM
     box_bytes = 8 * math.prod(p.box)
     stage = -(-box_bytes // 128) * 128          # a TMA box 128-B aligned
-    assert p.smem_bytes == p.stages * stage + 2 * p.stages * 8
+    assert p.smem_bytes == p.stages * stage + p.stages * 8
     assert box_bytes <= PK.AG_STAGE_BYTES and p.box[0] % 2 == 0
     assert all(1 <= b <= 256 for b in p.box)
     assert p.dims[0][1:] == (8, 8)
@@ -499,7 +499,7 @@ def test_p2p_expected_count_advances_by_the_plan_tiles(shape, elsize):
     """Each launch adds the plan's tiles a rank to flags 0..R-1 and to the
     wrapper's expected counts, which wrap as the int32 flags do."""
     r, blk = shape[0], math.prod(shape[1:]) * elsize
-    p = PK.p2p_plan(r, blk, aligned=True)
+    p = PK.p2p_plan(r, blk)
     assert p.tiles == -(-blk // p.tile_bytes) >= 1
     assert 1 <= p.grid <= min(r * p.tiles, PK.P2P_PER_SM * PK.H100_SMS)
     f = PK.P2pFlags(torch.zeros(PK.MAX_RANKS, dtype=torch.int32),
@@ -516,9 +516,9 @@ def test_p2p_expected_count_advances_by_the_plan_tiles(shape, elsize):
 
 
 def test_p2p_plan_tiles_the_sp_hop():
-    """k of the SP path, 1 MB a rank: 64 tiles of 16 KB; bulk copies only
-    for 16-byte aligned buffers of a multiple of 16 bytes."""
-    p = PK.p2p_plan(4, 1 << 20, aligned=True)
-    assert (p.tiles, p.grid) == (64, 256)
-    assert PK.p2p_plan(4, 18, aligned=True).bulk is False
-    assert PK.p2p_plan(4, 1 << 20, aligned=False).bulk is False
+    """k of the SP path, 1 MB a rank: 64 tiles of 16 KB, one block each; a
+    ragged buffer's last tile is short, and still one count."""
+    p = PK.p2p_plan(4, 1 << 20)
+    assert (p.tiles, p.grid, p.threads) == (64, 256, PK.P2P_THREADS)
+    assert PK.p2p_plan(4, 18).tiles == 1
+    assert PK.p2p_plan(4, PK.P2P_TILE_BYTES + 1).tiles == 2

@@ -25,11 +25,16 @@ Phases (any failure exits non-zero before the last line is printed):
    steps chained —, the ring all-gather and reduce-scatter at every FSDP
    shard shape of the (2, 4) training run and
    at 4 and 8 ranks, each for 1-4 chunks, whose results must be
-   bit-identical (the reduce-scatter's also to its plain version and to the
-   store-and-count kernel it ran on before); the p2p ring shift on k of
-   the sequence-parallel path,
-   (4, 1, 4, 2048, 64) bf16, and at ragged shapes, bit-identical to the
-   roll; the flash hop at each of the 4 hops of that path at the ranks'
+   bit-identical, to their plain versions and to the kernels they ran on
+   before; the all-gather also in its path form, every FSDP weight (rows
+   and columns) gathered from its strided ``dp_view`` by
+   ``all_gather_stacked``: contiguous and bit-identical to the ``bulk``
+   backend and to the old kernel behind its old wrapper; the p2p ring
+   shift on k of the sequence-parallel path,
+   (4, 1, 4, 2048, 64) bf16, and at ragged shapes, three launches each,
+   bit-identical to the roll and to the kernel it ran on before, every
+   rank's never-reset flag counting the plan's tiles more each launch;
+   the flash hop at each of the 4 hops of that path at the ranks'
    global offsets; flash at head_dim 120, padded to 128; the AG×GEMM and
    GEMM×RS kernels at tinyllama's MLP, a Fig. 7/8 shape and a ragged
    shape, bit-identical for 1-4 chunks; the LCSC ring all-gather at every
@@ -58,7 +63,11 @@ Phases (any failure exits non-zero before the last line is printed):
    flash kernel's own launch configuration is held against its plan
    (``flash_plan``) at both widths; the reduce-scatter rows (R = 2, 4, 8)
    the store-and-count kernel it ran on before its pull-and-sum design
-   (``csrc/pk_comm_yardstick.cu``), the scan rows the kernel it ran on
+   (``csrc/pk_comm_yardstick.cu``), the all-gather rows (the contiguous
+   one, and the path form: the old wrapper's copy in, the old kernel and
+   one dp group's copy of its strided result out, beside the ``bulk``
+   backend as its library call) and the p2p row the kernels they ran on
+   before (same file), the scan rows the kernel it ran on
    before its staged design (``csrc/mamba_scan_yardstick.cu``), its
    exponential floor printed beside them; the scan is also held at B = 1
    at every prompt length of the SSM serving run (4e), whose exact-bucket
@@ -147,7 +156,8 @@ Phases (any failure exits non-zero before the last line is printed):
    GEMM pair's for AG×GEMM, GEMM×RS and the LCSC all-gather;
    ``launches_by_path`` has all six), then GEMM+AR's cold decode row, whose
    counts are GEMM+AR's whole-path counts (prefill and decode together,
-   the counter named by ``launches_counter``), not its own;
+   the counter named by ``launches_counter``), not its own, and the
+   all-gather's path-form row, whose counts are the all-gather's;
 7. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository's ``src/`` beside it.
@@ -922,19 +932,24 @@ def check_matmul(dev, record, compare, randn) -> dict:
 FSDP_WEIGHTS = ((4, 2048, 512, 1), (4, 2048, 64, 1), (4, 2048, 1408, 1),
                 (4, 2048, 8000, 1), (4, 512, 2048, 2), (4, 1408, 2048, 2),
                 (4, 8000, 2048, 2))
+#: the memory order ``fsdp_gather`` gives a copy, by gathered dim: the
+#: global weight's (rows: tp-sharded over the columns, so the tp rank dim
+#: sits between d and n; columns: tp over the rows, contiguous)
+FSDP_ORDER = {1: (1, 0, 2), 2: None}
 
 
 def check_fsdp_gathers(dev, record, compare, randn) -> dict:
     """Phase 3, B3's all-gather in its path form: every FSDP weight of the
-    (2, 4) training run, rows and columns, gathered as ``fsdp_gather``
-    gathers it, ``all_gather_stacked(dp_view(w), dim, "fused")`` on the
-    strided view, over 2 dp ranks: contiguous, bit-identical to the
-    ``bulk`` backend, to the plain gather and to the kernel it ran on
-    before behind its old wrapper (``mm_tile_path_gather``). The MLP weight
-    w (4, 2048, 1408) is timed with one dp group's ``.contiguous()`` (what
-    a consumer did to the old wrapper's strided result; a no-op now) beside
-    the old wrapper and kernel (``ms_mm_tile``) and the ``bulk`` backend
-    (``library_ms``)."""
+    (2, 4) training run, rows and columns, gathered from the strided view,
+    ``all_gather_stacked(dp_view(w), dim, "fused")`` over 2 dp ranks, into
+    a contiguous output and into the memory order ``fsdp_gather`` gives it
+    (``FSDP_ORDER``): bit-identical to the ``bulk`` backend, to the plain
+    gather and to the kernel it ran on before behind its old wrapper
+    (``mm_tile_path_gather``). The MLP weight w (4, 2048, 1408) is timed
+    with one dp group's ``.contiguous()`` (what a consumer did to the old
+    wrapper's strided result; a no-op now) beside the old wrapper and
+    kernel (``ms_mm_tile``) and the ``bulk`` backend (``library_ms``); the
+    call in ``fsdp_gather``'s order is timed too (``ms_fsdp_order``)."""
     import torch
 
     from repro_torch.core import pgl
@@ -948,17 +963,19 @@ def check_fsdp_gathers(dev, record, compare, randn) -> dict:
         x = pgl.dp_view(w, sdim, r)
         shape = (f"w{tuple(stored)} bf16 along dim {sdim}, dp_view "
                  f"x{tuple(x.shape)} strided, R={r}")
-        got = all_gather_stacked(x, sdim, "fused")
-        bits = got.view(torch.int16)
-        if not (got.is_contiguous() and torch.equal(
-                bits, all_gather_stacked(x, sdim, "bulk").view(torch.int16))
-                and torch.equal(bits, PK.gather_along_plain(x, sdim)
-                                .view(torch.int16))
-                and torch.equal(bits, mm_tile_path_gather(x, sdim)
-                                .contiguous().view(torch.int16))):
-            raise AssertionError(f"FSDP gather {shape}: not contiguous, or "
-                                 "not the bits of bulk, the plain gather and "
-                                 "the earlier kernel")
+        want = PK.gather_along_plain(x, sdim).view(torch.int16)
+        old = mm_tile_path_gather(x, sdim).view(torch.int16)
+        for order in (None, FSDP_ORDER[sdim]):
+            got = all_gather_stacked(x, sdim, "fused", order)
+            bits = got.view(torch.int16)
+            if not (got.stride() == PK._gathered_empty(x, sdim, order)
+                    .stride() and torch.equal(bits, all_gather_stacked(
+                        x, sdim, "bulk", order).view(torch.int16))
+                    and torch.equal(bits, want) and torch.equal(bits, old)):
+                raise AssertionError(f"FSDP gather {shape} order {order}: "
+                                     "not the layout asked for, or not the "
+                                     "bits of bulk, the plain gather and "
+                                     "the earlier kernel")
         if tuple(stored) != (4, 2048, 1408):
             continue
         entries["pk_all_gather@path"] = record(
@@ -971,9 +988,14 @@ def check_fsdp_gathers(dev, record, compare, randn) -> dict:
             lambda: all_gather_stacked(x, sdim, "bulk")[0].contiguous(),
             TOL_BF16_OUT, (r + r * r) * x[0].numel() * 2, 0.0,
             before=lambda: mm_tile_path_gather(x, sdim)[0].contiguous())
+        entries["pk_all_gather@path"]["ms_fsdp_order"] = time_ms(
+            lambda: all_gather_stacked(x, sdim, "fused", FSDP_ORDER[sdim]))
     print(f"[kernel] FSDP gathers: all {len(FSDP_WEIGHTS)} weights, rows and "
-          "columns, from the strided dp_view: contiguous and bit-identical "
-          "to bulk, the plain gather and the earlier kernel", flush=True)
+          "columns, from the strided dp_view, contiguous and in "
+          "fsdp_gather's order: bit-identical to bulk, the plain gather and "
+          "the earlier kernel; in fsdp_gather's order "
+          f"{entries['pk_all_gather@path']['ms_fsdp_order']:.4f} ms",
+          flush=True)
     return entries
 
 

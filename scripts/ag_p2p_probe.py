@@ -10,7 +10,9 @@ against the kernel it ran on before (``csrc/pk_comm_yardstick.cu``, the
 wrappers ``mm_tile_all_gather`` and ``mm_tile_p2p_ring_shift`` of
 ``chip_smoke.py``): the all-gather at every FSDP weight of the (2, 4)
 tinyllama-1.1b training run, through the path's strided ``dp_view`` into
-``all_gather_stacked(..., "fused")`` (rows and columns, R = 2 and 4), and
+``all_gather_stacked(..., "fused")`` (rows and columns, R = 2 and 4, into
+a contiguous output and into the memory order ``fsdp_gather`` gives it),
+and
 at the contiguous (R, blk, ...) layout at R = 2, 4, 8 for n_chunks 1-4; the
 p2p shift at the SP path's k (4, 1, 4, 2048, 64) bf16 and ragged shapes
 over three launches, the flags reaching the wrapper's count each time.
@@ -102,16 +104,21 @@ def main() -> int:
         for r in (2, 4):
             w = randn(*stored)
             x = pgl.dp_view(w, sdim, r)
-            p = PK.ag_plan(r, x.shape[1:], x.stride()[1:], x.stride(0), sdim,
-                           2, addr=x.data_ptr(), sms=sms)
-            fused = partial(all_gather_stacked, x, sdim, "fused")
-            got = fused()
             old = CS.mm_tile_path_gather(x, sdim)
-            if not (p.route == "tma" and got.is_contiguous()
-                    and same_bits(got, all_gather_stacked(x, sdim, "bulk"))
-                    and same_bits(got, old) and same_bits(got[0], w)):
-                raise AssertionError(f"AG path form w{stored} dim {sdim} "
-                                     f"R={r}: bits or route differ ({p})")
+            for order in (None, CS.FSDP_ORDER[sdim]):
+                out = PK._gathered_empty(x, sdim, order)
+                p = PK.ag_plan(r, x.shape[1:], x.stride()[1:], x.stride(0),
+                               sdim, 2, addr=x.data_ptr(),
+                               out_strides=out.stride(), sms=sms)
+                got = all_gather_stacked(x, sdim, "fused", order)
+                if not (p.route == "tma" and got.stride() == out.stride()
+                        and same_bits(got, all_gather_stacked(
+                            x, sdim, "bulk", order))
+                        and same_bits(got, old) and same_bits(got[0], w)):
+                    raise AssertionError(f"AG path form w{stored} dim {sdim} "
+                                         f"R={r} order {order}: bits, "
+                                         f"layout or route differ ({p})")
+            fused = partial(all_gather_stacked, x, sdim, "fused")
             row = {"kernel": "ring_all_gather path form",
                    "shape": f"w{stored} bf16 gathered along dim {sdim}, "
                             f"R={r}", "plan": dataclasses.asdict(p),
@@ -126,6 +133,8 @@ def main() -> int:
                     library_ms=CS.time_ms(
                         lambda: all_gather_stacked(x, sdim, "bulk")[0]
                         .contiguous()),
+                    ms_fsdp_order=CS.time_ms(partial(
+                        all_gather_stacked, x, sdim, "fused", order)),
                     bound_ms=CS.bound_ms(nbytes, 0.0)[0])
             emit(row)
             del w, x, got, old

@@ -23,7 +23,8 @@ with the median over the profiled steps of:
   ``device_idle_share`` = 1 - busy / wall;
 - ``device_ops``: the number of device activities; ``device_copy_ops``
   and ``device_copy_ms``: those whose name says copy (``.contiguous()``,
-  ``torch.cat``, memcpy) and their device time; ``optimizer_wall_ms``
+  ``torch.cat``, memcpy) and their device time, ``copy_ops_by_name`` the
+  same by kernel name (its first 160 characters); ``optimizer_wall_ms``
   and ``optimizer_device_ms`` for the update alone;
 
 and the mean device time per step by group (the port's ``pk_*`` kernels,
@@ -162,7 +163,7 @@ def main() -> int:
         for e in inside:
             dt = e.time_range.end - e.time_range.start
             groups[group_of(e.name)] = groups.get(group_of(e.name), 0.0) + dt
-            n = names.setdefault(e.name[:80], [0.0, 0])
+            n = names.setdefault(e.name[:160], [0.0, 0])
             n[0] += dt
             n[1] += 1
         copies = [e for e in inside if "copy" in e.name.lower()]
@@ -201,13 +202,18 @@ def main() -> int:
         "device_ops": statistics.median(s["ops"] for s in steps),
         "device_copy_ops": statistics.median(s["copy_ops"] for s in steps),
         "device_copy_ms": med("copy_us"),
+        "copy_ops_by_name": {
+            n: {"calls_per_step": cnt / len(steps),
+                "ms_per_step": us / len(steps) / 1e3}
+            for n, (us, cnt) in sorted(by_name.items())
+            if "copy" in n.lower()},
         f"{sub}_wall_ms": med("opt_wall_us"),
         f"{sub}_device_ms": med("opt_busy_us"),
         "device_ms_per_step_by_group": {
             g: sum(s["groups"].get(g, 0.0) for s in steps) / len(steps)
             / 1e3 for g in groups},
         "top_device_ops": [
-            {"name": n, "group": group_of(n),
+            {"name": n[:80], "group": group_of(n),
              "ms_per_step": us / len(steps) / 1e3,
              "calls_per_step": cnt / len(steps)}
             for n, (us, cnt) in top]}

@@ -400,17 +400,19 @@ class CommContext:
     # -- data-movement ops -------------------------------------------------
 
     def all_gather(self, x: torch.Tensor, *, axis: int = 0,
-                   backend: str | None = None) -> torch.Tensor:
+                   backend: str | None = None, order=None) -> torch.Tensor:
         """Tiled all-gather along ``axis`` of each rank's local tensor:
         stacked (R, *local) -> (R, *gathered), ``gathered.shape[axis] =
         R · local.shape[axis]``, the same on every rank (the FSDP param
-        gather). ``auto`` resolves to bulk; fused is the ring kernel."""
+        gather). ``auto`` resolves to bulk; fused is the ring kernel. The
+        result is contiguous, or has its local dims in memory in ``order``
+        (outermost first), under either backend."""
         self._check_stacked(x)
         if x.dim() < 2:
             raise ValueError("all_gather takes a stacked (R, *local) tensor "
                              "with at least one local dim")
         be = self._resolve("all_gather", backend, lambda: "bulk")
-        return _AllGather.apply(x, axis % (x.dim() - 1), be)
+        return _AllGather.apply(x, axis % (x.dim() - 1), be, order)
 
     def reduce_scatter(self, x: torch.Tensor, *, axis: int = 0,
                        backend: str | None = None) -> torch.Tensor:
@@ -499,18 +501,21 @@ def pk_psum_ring(y: torch.Tensor) -> torch.Tensor:
     return out.unsqueeze(0).expand_as(y)
 
 
-def all_gather_stacked(x: torch.Tensor, axis: int,
-                       backend: str) -> torch.Tensor:
-    """(R, *local) -> (R, *gathered) along local dim ``axis``, contiguous.
+def all_gather_stacked(x: torch.Tensor, axis: int, backend: str,
+                       order=None) -> torch.Tensor:
+    """(R, *local) -> (R, *gathered) along local dim ``axis``, contiguous or
+    with the local dims in memory in ``order`` (outermost first).
     ``fused`` runs the all-gather kernel on x's view as it is (an FSDP
-    ``dp_view`` is strided) into the gathered layout, no copy before or
-    after it; ``bulk`` concatenates the shards in rank order."""
+    ``dp_view`` is strided) into that layout, no copy before or after it;
+    ``bulk`` concatenates the shards in rank order."""
     r = x.shape[0]
+    from repro_torch.kernels import pk_comm
     if backend == "bulk":
         full = torch.cat(list(x.unbind(0)), dim=axis)
-        return full.unsqueeze(0).expand(r, *full.shape).contiguous()
-    from repro_torch.kernels import pk_comm
-    return pk_comm.all_gather_along(x, axis)
+        full = full.unsqueeze(0).expand(r, *full.shape)
+        return full.contiguous() if order is None else \
+            pk_comm._gathered_empty(x, axis, order).copy_(full)
+    return pk_comm.all_gather_along(x, axis, order=order)
 
 
 def reduce_scatter_stacked(x: torch.Tensor, axis: int,
@@ -556,14 +561,14 @@ class _RingShift(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, backend):
+    def forward(ctx, x, axis, backend, order):
         ctx.opts = (axis, backend)
-        return all_gather_stacked(x, axis, backend)
+        return all_gather_stacked(x, axis, backend, order)
 
     @staticmethod
     def backward(ctx, g):
         axis, backend = ctx.opts
-        return reduce_scatter_stacked(g, axis, backend), None, None
+        return reduce_scatter_stacked(g, axis, backend), None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):

@@ -81,7 +81,11 @@ def fsdp_gather(w: torch.Tensor, spec: P, rules, run, *,
     full copies, one per dp group, all-gathered by the dp axis' context
     (``run.comm_backend`` picks bulk or the fused ring kernel); None when
     the leaf is not FSDP-sharded or the dp axis has size 1 (nothing to
-    gather)."""
+    gather). Each copy is laid out as the full weight: a leaf stacked over
+    a tp-sharded dim other than its first keeps the tp rank dim next to
+    that dim in memory, so every copy is the global weight, contiguous,
+    seen stacked — what ``_col_proj``'s matmul reads in place (it would
+    copy a stacked-contiguous one)."""
     if rules is None or rules.fsdp_axes is None \
             or spec[dim] != rules.fsdp_axes:
         return None
@@ -94,8 +98,11 @@ def fsdp_gather(w: torch.Tensor, spec: P, rules, run, *,
             f"FSDP over several dp axes {f}: the port gathers over one")
     stacked = w.dim() == len(spec) + 1
     sdim = dim + 1 if stacked else dim
+    t = pgl.split_dim(spec, rules.mesh, rules.tp) if stacked else None
+    order = (*range(1, t + 1), 0, *range(t + 1, len(spec) + 1)) if t \
+        else None
     ctx = comm_context(run, f, mesh=rules.mesh)
-    return ctx.all_gather(pgl.dp_view(w, sdim, n_dp), axis=sdim)
+    return ctx.all_gather(pgl.dp_view(w, sdim, n_dp), axis=sdim, order=order)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,11 +15,25 @@ mbarriers and bulk copies from ``csrc/tma.cuh``). Blocks run in parallel
 and in no order on Hopper, and a block that spin-waits on one not yet
 resident deadlocks, so no kernel here waits on another block:
 
-* all-gather: grid (tile, source rank s); each block reads one tile of
-  rank s's shard once and stores it straight into slot s of every rank's
-  output through the pointer tables (one-way stores, 16-byte words when
-  the rows align). A copy is exact, so the result is bit-identical for
-  every ``n_chunks``.
+* all-gather: TMA staged, one read and R stores a tile (``ag_plan``). The
+  kernel takes the shards as the view it is given — an FSDP ``dp_view`` is
+  strided — through a tensor map carrying its strides, and writes a new
+  contiguous (R, *gathered) output through a second map: slot s of every
+  rank's gathered tensor, so neither a copy before the launch nor one of
+  the result after it is needed. A persistent grid (two one-warp blocks an
+  SM) walks the (source s, tile) items; a tile is one box of about 32 KB.
+  Its one working thread TMA-loads a tile into a ring of shared-memory
+  stages (an mbarrier each) two items ahead and writes it by R TMA bulk
+  tensor stores into slot s of every rank, refilling a stage once its
+  stores have read it. Eight warps storing 16-byte words R times from the
+  stage ran as fast (``scripts/ag_p2p_probe.py``); the bulk stores need no
+  address arithmetic. Shapes a map cannot take (an inner run or a stride
+  not a multiple of 16 bytes, an unaligned address, more than three dims
+  after merging) run a word kernel over the same strided description: the
+  plan names that route and why. A copy is exact, so the result is
+  bit-identical for every ``n_chunks``; the TPU's chunks pipeline its R-1
+  DMA hops, and the card's one pass needs none, so the plan does not
+  depend on them. What bounds it: bytes, R·blk read and R²·blk written.
 * reduce-scatter: pull and sum. The TPU ring's running accumulator
   becomes one pass over the partials: a persistent grid (``rs_plan``: two
   blocks an SM, or one block an item where there are fewer) walks the
@@ -45,27 +59,35 @@ resident deadlocks, so no kernel here waits on another block:
 
 * p2p ring shift (one hop of ring attention's KV rotation): the TPU
   kernel waits on a neighbour barrier, then DMAs its whole buffer into the
-  right neighbour's output. Here grid (tile, source rank s): each block
-  stores one tile of rank s's buffer into rank (s + 1) % R's output slot
-  (``pk::store_async``), fences, and counts itself in on the destination's
-  flag (``pk::signal``, release). No block waits — the barrier guards a
-  buffer still being read, and a fresh output needs no such guard — so the
-  launch cannot deadlock on one card; the flags (one int per rank, zeroed
-  before each launch) end at the tile count of each rank's buffer. Any
-  shape and dtype: it moves the widest words (16 down to 1 byte) that
-  divide the buffer's size and every slab's address. What bounds it:
-  bytes, R·blk read and R·blk written; at ring attention's sizes (a few
-  MB) the launch latency dominates.
+  right neighbour's output. Here a persistent grid (``p2p_plan``: two
+  blocks an SM) walks the (source s, 16 KB tile) items; each block copies
+  its tile of rank s's buffer into rank (s + 1) % R's output with four
+  16-byte loads in flight a thread, fences and counts the tile in on the
+  destination's flag (``pk::signal``, release). No block waits — the
+  barrier guards a buffer still being read, and a fresh output needs no
+  such guard — so the launch cannot deadlock on one card. The flags are
+  never reset (no memset before a launch): each launch adds its tiles,
+  and ``P2pFlags`` keeps the count each flag must reach. Any shape and
+  dtype: it moves the widest words (16 down to 1 byte) that divide the
+  buffer's size and every slab's address. A TMA bulk load and store a
+  tile ran 12% faster at the SP path's shape on an H100 SXM at 700 W
+  (0.0045 against 0.0051 ms a launch); the words were kept, which need no
+  proxy fence before the signal. What
+  bounds it: bytes, R·blk read and R·blk written; at ring attention's sizes
+  (a few MB) the launch's fixed time dominates.
 
 ``n_chunks`` splits a rank's rows into chunks (``fit_chunks``'
-largest-divisor fallback, as in JAX); tiles never cross a chunk. What bounds
-both on the card: bytes — the all-gather reads R·blk and writes R²·blk, the
-reduce-scatter reads R²·blk and writes R·blk; neither does arithmetic worth
-counting. On one card the pointer tables hold R slices of one allocation;
-a multi-GPU node feeds the same kernels peer pointers.
+largest-divisor fallback, as in JAX); the reduce-scatter's tiles never
+cross a chunk. What bounds the three on the card: bytes; none does
+arithmetic worth counting. On one card the pointer tables (and the
+all-gather's maps) address R slices of one allocation; a multi-GPU node
+would feed the reduce-scatter and the shift peer pointers, and the
+all-gather one output map a card (not built).
 
 Stacked layout (``core/pgl.py``): ``ring_all_gather`` takes (R, blk, ...)
 — rank r's shard at ``x[r]`` — and returns (R, R, blk, ...);
+``all_gather_along`` takes (R, *local) in any layout and returns the
+contiguous (R, *gathered) along a local dim (the FSDP gather);
 ``ring_reduce_scatter`` takes (R, R, blk, ...) — rank s's partial for
 owner o at ``x[s, o]`` — and returns (R, blk, ...); ``p2p_ring_shift``
 takes (R, ...) and returns ``out[(r + 1) % R] = x[r]``. On CPU tensors the
@@ -168,20 +190,35 @@ def _check_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"at most {MAX_RANKS} ranks, got {x.shape[0]}")
 
 
-def _launch_all_gather(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """Launch the all-gather kernel at ``ag_plan``'s launch: x (R, *local),
-    any strides, -> a new contiguous (R, *gathered) along local dim
-    ``axis``."""
-    _check_cuda(x, "ring_all_gather")
+def _gathered_empty(x: torch.Tensor, axis: int, order) -> torch.Tensor:
+    """A new (R, *gathered) tensor for the gather of x along local dim
+    ``axis``: contiguous, or with its local dims laid out in memory in
+    ``order`` (outermost first) under the rank dim."""
     r = x.shape[0]
     gathered = list(x.shape[1:])
     gathered[axis] *= r
-    out = torch.empty((r, *gathered), dtype=x.dtype, device=x.device)
+    if order is None:
+        return x.new_empty((r, *gathered))
+    if sorted(order) != list(range(len(gathered))):
+        raise ValueError(f"order {order} is not a permutation of the "
+                         f"{len(gathered)} local dims")
+    perm = [0] + [1 + i for i in order]
+    base = x.new_empty([r] + [gathered[i] for i in order])
+    return base.permute([perm.index(i) for i in range(len(perm))])
+
+
+def _launch_all_gather(x: torch.Tensor, out: torch.Tensor,
+                       axis: int) -> torch.Tensor:
+    """Launch the all-gather kernel at ``ag_plan``'s launch: x (R, *local)
+    and a new ``out`` (R, *gathered) along local dim ``axis``, any strides
+    each."""
+    _check_cuda(x, "ring_all_gather")
+    r = x.shape[0]
     if out.numel() == 0:
         return out
     p = ag_plan(r, tuple(x.shape[1:]), tuple(x.stride()[1:]), x.stride(0),
                 axis, x.element_size(), addr=x.data_ptr(),
-                sms=sm_count(x.device))
+                out_strides=tuple(out.stride()), sms=sm_count(x.device))
     nd = len(p.dims)
     ext, ist, ost = zip(*p.dims)
     err = _build.library().pk_all_gather(
@@ -196,19 +233,23 @@ def _launch_all_gather(x: torch.Tensor, axis: int) -> torch.Tensor:
     return out
 
 
-def all_gather_along(x: torch.Tensor, axis: int) -> torch.Tensor:
+def all_gather_along(x: torch.Tensor, axis: int, *,
+                     order=None) -> torch.Tensor:
     """x (R, *local) stacked shards, any strides -> (R, *gathered), a new
-    contiguous tensor: every rank's copy of the shards concatenated in rank
-    order along local dim ``axis`` (the FSDP weight gather). The kernel
-    reads x's view as it is and writes the gathered layout: no copy before
-    or after it."""
+    tensor: every rank's copy of the shards concatenated in rank order
+    along local dim ``axis`` (the FSDP weight gather), contiguous, or with
+    the local dims laid out in memory in ``order`` (outermost first: the
+    layout its consumer reads). The kernel reads x's view as it is and
+    writes that layout: no copy before or after it."""
     if x.dim() < 2 or not 0 <= axis < x.dim() - 1:
         raise ValueError(f"all_gather_along takes a stacked (R, *local) "
                          f"tensor and a local dim, got {tuple(x.shape)}, "
                          f"axis {axis}")
     if x.device.type == "cpu":
-        return gather_along_plain(x, axis)
-    return _launch_all_gather(x, axis)
+        full = gather_along_plain(x, axis)
+        return full if order is None else \
+            _gathered_empty(x, axis, order).copy_(full)
+    return _launch_all_gather(x, _gathered_empty(x, axis, order), axis)
 
 
 def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
@@ -222,7 +263,7 @@ def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
     if x.device.type == "cpu":
         return all_gather_plain(x)
     flat = x.unsqueeze(1) if x.dim() == 1 else x
-    out = _launch_all_gather(flat, 0)
+    out = _launch_all_gather(flat, _gathered_empty(flat, 0, None), 0)
     return out.view(x.shape[0], *x.shape) if x.dim() > 1 else \
         out.view(x.shape[0], x.shape[0])
 
@@ -263,13 +304,14 @@ def _contiguous_strides(shape) -> list[int]:
 
 
 def _merged_dims(local, strides, out_strides, elsize) -> list[list[int]]:
-    """The copy's dims, inner first: extents in elements, strides in bytes;
-    size-1 dims dropped and each dim merged into the one inside it where it
-    continues it in the input and in the output alike. The inner dim is
-    made contiguous in both (an element of extent 1 in front where it is
-    not)."""
+    """The copy's dims, inner first by output stride: extents in elements,
+    strides in bytes; size-1 dims dropped and each dim merged into the one
+    inside it where it continues it in the input and in the output alike.
+    The inner dim is made contiguous in both (an element of extent 1 in
+    front where it is not)."""
     dims: list[list[int]] = []
-    for n, si, so in reversed(list(zip(local, strides, out_strides))):
+    for n, si, so in sorted(zip(local, strides, out_strides),
+                            key=lambda d: d[2]):
         if n == 1:
             continue
         si, so = si * elsize, so * elsize
@@ -284,19 +326,23 @@ def _merged_dims(local, strides, out_strides, elsize) -> list[list[int]]:
 
 
 def ag_plan(r: int, local, strides, src_stride: int, axis: int, elsize: int,
-            *, addr: int = 0, sms: int = H100_SMS) -> AgPlan:
+            *, addr: int = 0, out_strides=None,
+            sms: int = H100_SMS) -> AgPlan:
     """The launch of an all-gather of R sources of ``local`` shape, source s
     at element ``s * src_stride + sum(i_k * strides[k])`` of an input at
-    byte address ``addr``, into a new contiguous (R, *gathered) output
-    (``local`` with dim ``axis`` R times longer, source s at slot s), on a
-    card of ``sms`` SMs.
+    byte address ``addr``, into a new (R, *gathered) output (``local`` with
+    dim ``axis`` R times longer, source s at slot s) at element strides
+    ``out_strides`` (rank dim first; default contiguous), on a card of
+    ``sms`` SMs. The dims are walked inner first by their output stride.
 
     The TMA route copies 8-byte units through two tensor maps, so it takes
     an inner dim contiguous in both layouts and a multiple of 16 bytes,
     every other stride a multiple of 16 bytes (below 2^40) and a 16-byte
-    aligned address; an inner dim longer than a box (256 units) is cut into
-    two where a divisor allows, and at most three dims remain (the output
-    map adds the slot and the rank: five). A tile is one box of about
+    aligned address; at most three dims (the output map adds the slot and
+    the rank: five). An inner dim longer than a box row (256 units) is
+    tiled by its largest even divisor up to 256 (256 where that is shorter
+    than ``AG_MIN_ROW_BYTES``), and cut in two where a dim is left, so that
+    a box can span several of its rows. A tile is one box of about
     ``AG_STAGE_BYTES``, filled inner dim first, halved (down to
     ``AG_MIN_TILE_BYTES``) while the items would not give every block of
     the grid (``AG_PER_SM`` an SM) one. Every other shape takes the word
@@ -307,9 +353,10 @@ def ag_plan(r: int, local, strides, src_stride: int, axis: int, elsize: int,
         raise ValueError(f"ag_plan: R={r}, local {local}, axis {axis}")
     gathered = list(local)
     gathered[axis] *= r
-    ostr = _contiguous_strides(gathered)
+    out_strides = tuple(out_strides or _contiguous_strides([r, *gathered]))
+    ostr = out_strides[1:]
     slot = local[axis] * ostr[axis] * elsize
-    rank = math.prod(gathered) * elsize
+    rank = out_strides[0] * elsize
     src = src_stride * elsize
     dims = _merged_dims(local, strides, ostr, elsize)
     inner = dims[0][0] * elsize                     # bytes, contiguous
@@ -324,11 +371,12 @@ def ag_plan(r: int, local, strides, src_stride: int, axis: int, elsize: int,
     elif any(n >= 1 << 32 for n, _, _ in dims):
         why = "an extent of 2^32 or more"
     else:
-        units = inner // _UNIT
+        units = row = inner // _UNIT
         tma = [[units, _UNIT, _UNIT]] + dims[1:]
         if units > _BOX_MAX:
             w = max(d for d in range(2, _BOX_MAX + 1, 2) if units % d == 0)
-            if w * _UNIT >= AG_MIN_ROW_BYTES:
+            row = w if w * _UNIT >= AG_MIN_ROW_BYTES else _BOX_MAX
+            if row == w and len(tma) < _MAP_DIMS:
                 tma[:1] = [[w, _UNIT, _UNIT],
                            [units // w, w * _UNIT, w * _UNIT]]
         if len(tma) > _MAP_DIMS:
@@ -339,7 +387,7 @@ def ag_plan(r: int, local, strides, src_stride: int, axis: int, elsize: int,
     while len(tma) < _MAP_DIMS:         # extent-1 dims, strides continuing
         n, si, so = tma[-1]
         tma.append([1, si * n, so * n])
-    box = _ag_box(r, tma, AG_PER_SM * sms)
+    box = _ag_box(r, tma, row, AG_PER_SM * sms)
     tiles = math.prod(-(-n // b) for (n, _, _), b in zip(tma, box))
     stage_bytes = -(-_UNIT * math.prod(box) // 128) * 128   # TMA alignment
     return AgPlan("tma", "", _UNIT, tuple(map(tuple, tma)), src, slot, rank,
@@ -348,12 +396,12 @@ def ag_plan(r: int, local, strides, src_stride: int, axis: int, elsize: int,
                   AG_STAGES, AG_STAGES * stage_bytes + AG_STAGES * 8)
 
 
-def _ag_box(r: int, dims, cap: int) -> list[int]:
-    """A tile: the inner dim's extent up to a box row, then each outer dim
-    up to about ``AG_STAGE_BYTES``; halved, outer dims first, while R
-    sources' tiles are fewer than ``cap`` blocks and the tile stays at
-    least ``AG_MIN_TILE_BYTES``."""
-    box = [min(dims[0][0], _BOX_MAX)]
+def _ag_box(r: int, dims, row: int, cap: int) -> list[int]:
+    """A tile: the inner dim's extent up to a box row of ``row`` units,
+    then each outer dim up to about ``AG_STAGE_BYTES``; halved, outer dims
+    first, while R sources' tiles are fewer than ``cap`` blocks and the
+    tile stays at least ``AG_MIN_TILE_BYTES``."""
+    box = [min(dims[0][0], row)]
     left = max(1, AG_STAGE_BYTES // (_UNIT * box[0]))
     for n, _, _ in dims[1:]:
         b = max(1, min(n, _BOX_MAX, left))

@@ -174,31 +174,37 @@ FSDP_WEIGHTS = [((4, 2048, 512), 1), ((4, 2048, 64), 1),
 
 @pytest.mark.parametrize("stored,sdim", FSDP_WEIGHTS)
 @pytest.mark.parametrize("r", [2, 4])
-def test_all_gather_fsdp_views_kernel(cuda, stored, sdim, r):
+@pytest.mark.parametrize("layout", ["contiguous", "fsdp"])
+def test_all_gather_fsdp_views_kernel(cuda, stored, sdim, r, layout):
     """The FSDP gather as the path runs it: the strided dp_view straight into
-    the kernel (TMA route), the gathered weight contiguous and bit-identical
-    to the bulk backend, to the plain gather and to the old kernel behind
-    its old wrapper (a copy before, a strided view after)."""
+    the kernel (TMA route), into a contiguous output or the memory order
+    fsdp_gather gives it (the global weight: the tp rank dim next to the
+    dim tp shards), bit-identical to the bulk backend, to the plain gather
+    and to the old kernel behind its old wrapper (a copy before, a strided
+    view after)."""
     from repro_torch.core import pgl
     from repro_torch.core.comms import all_gather_stacked
     from repro_torch.kernels import pk_comm as PK
     w = _randn(cuda, *stored, seed=sdim)
     x = pgl.dp_view(w, sdim, r)
     assert not x.is_contiguous()
+    order = {1: (1, 0, 2), 2: None}[sdim] if layout == "fsdp" else None
+    empty = PK._gathered_empty(x, sdim, order)
     p = PK.ag_plan(r, x.shape[1:], x.stride()[1:], x.stride(0), sdim, 2,
-                   addr=x.data_ptr())
+                   addr=x.data_ptr(), out_strides=empty.stride())
     assert p.route == "tma"
     before = PK.ring_all_gather.launches
-    got = all_gather_stacked(x, sdim, "fused")
+    got = all_gather_stacked(x, sdim, "fused", order)
     torch.cuda.synchronize()
     assert PK.ring_all_gather.launches == before + 1
-    assert got.is_contiguous() and got.shape == (r, *stored)
-    want = all_gather_stacked(x, sdim, "bulk")
+    assert got.shape == (r, *stored) and got.stride() == empty.stride()
+    assert got.is_contiguous() == (order is None)
+    want = all_gather_stacked(x, sdim, "bulk", order)
     bits = got.view(torch.int16)
     assert torch.equal(bits, want.view(torch.int16))
     assert torch.equal(bits, PK.gather_along_plain(x, sdim).view(torch.int16))
     old = _chip_smoke().mm_tile_path_gather(x, sdim)
-    assert torch.equal(bits, old.contiguous().view(torch.int16))
+    assert torch.equal(bits, old.view(torch.int16))
     assert torch.equal(got[r - 1], w)
 
 

@@ -277,6 +277,10 @@ FSDP_WEIGHTS = [((4, 2048, 512), 1), ((4, 2048, 64), 1),
                 ((4, 2048, 1408), 1), ((4, 2048, 8000), 1),
                 ((4, 512, 2048), 2), ((4, 1408, 2048), 2),
                 ((4, 8000, 2048), 2)]
+#: the memory order fsdp_gather gives each copy: the global weight's. The
+#: row-gathered weights are tp-sharded over their columns (the tp rank dim
+#: sits between d and n in memory); the others over their rows (contiguous)
+FSDP_ORDER = {1: (1, 0, 2), 2: None}
 
 
 def _fsdp_view(stored, sdim, r, device="meta", dtype=torch.bfloat16):
@@ -285,9 +289,10 @@ def _fsdp_view(stored, sdim, r, device="meta", dtype=torch.bfloat16):
     return pgl.dp_view(w, sdim, r), sdim
 
 
-def _plan_of(x, axis, addr=0):
+def _plan_of(x, axis, addr=0, out=None):
     return PK.ag_plan(x.shape[0], tuple(x.shape[1:]), tuple(x.stride()[1:]),
-                      x.stride(0), axis, x.element_size(), addr=addr)
+                      x.stride(0), axis, x.element_size(), addr=addr,
+                      out_strides=None if out is None else out.stride())
 
 
 def _tma_items(p, r):
@@ -305,15 +310,19 @@ def _tma_items(p, r):
 
 @pytest.mark.parametrize("stored,sdim", FSDP_WEIGHTS)
 @pytest.mark.parametrize("r", [2, 4, 8])
-def test_ag_plan_covers_every_source_tile_once(stored, sdim, r):
-    """At every FSDP shard shape, rows and columns, over R dp ranks: the
+@pytest.mark.parametrize("layout", ["contiguous", "fsdp"])
+def test_ag_plan_covers_every_source_tile_once(stored, sdim, r, layout):
+    """At every FSDP shard shape, rows and columns, over R dp ranks, into a
+    contiguous output and into the memory order fsdp_gather gives it: the
     plan takes the TMA route on the strided view itself; its boxes tile
     each dim; the blocks take every (source, tile) exactly once; the ring
     fits two blocks an SM; the maps' strides and rows are 16-byte
     multiples."""
     x, axis = _fsdp_view(stored, sdim, r)
     assert not x.is_contiguous()
-    p = _plan_of(x, sdim)
+    order = FSDP_ORDER[sdim] if layout == "fsdp" else None
+    out = PK._gathered_empty(x, sdim, order)
+    p = _plan_of(x, sdim, out=out)
     assert p.route == "tma" and p.reason == "" and p.unit == 8
     assert len(p.dims) == len(p.box) == 3
     assert p.smem_bytes <= TWO_A_SM
@@ -430,18 +439,22 @@ def _walk(p, x, out):
                                          ((4, 1408, 24), 1),
                                          ((4, 48, 256), 2)])
 @pytest.mark.parametrize("r", [2, 4, 8])
-def test_ag_plan_walk_reproduces_the_gathered_layout(stored, sdim, r):
-    """The TMA route's boxes, walked over CPU tensors from a dp_view, write
-    exactly ``all_gather_stacked(..., "bulk")``, and through the public
-    layout ``all_gather_plain``."""
+@pytest.mark.parametrize("order", [None, (1, 0, 2), (2, 1, 0)])
+def test_ag_plan_walk_reproduces_the_gathered_layout(stored, sdim, r, order):
+    """The TMA route's boxes, walked over CPU tensors from a dp_view into a
+    contiguous or a permuted output, write exactly
+    ``all_gather_stacked(..., "bulk")``, and through the public layout
+    ``all_gather_plain``."""
     w = torch.from_numpy(_np(*stored, seed=r)).to(torch.bfloat16)
     x = pgl.dp_view(w, sdim, r)
-    p = _plan_of(x, sdim)
-    assert p.route == "tma"
-    out = torch.full((r, *stored), float("nan"), dtype=w.dtype)
+    out = PK._gathered_empty(x, sdim, order).fill_(float("nan"))
+    p = _plan_of(x, sdim, out=out)
+    assert p.route == ("word" if order == (2, 1, 0) else "tma")
     _walk(p, x, out)
     want = all_gather_stacked(x, sdim, "bulk")
     assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    if order is not None:
+        return
     front = x.movedim(1 + sdim, 1).contiguous()
     q = _plan_of(front, 0)
     got = torch.empty((r, r * front.shape[1], *front.shape[2:]),
@@ -468,11 +481,41 @@ def test_ag_plan_word_walk_reproduces_all_gather_plain(shape, dtype):
 @pytest.mark.parametrize("r", [2, 4])
 def test_fused_all_gather_stacked_is_contiguous_and_equals_bulk(stored, sdim,
                                                                  r):
+    """Contiguous by default; in fsdp_gather's memory order each copy is the
+    global weight, contiguous (the tp rank dim next to the dim tp shards);
+    both backends give the same values in the same layout."""
     w = torch.from_numpy(_np(*stored, seed=sdim)).to(torch.bfloat16)
     x = pgl.dp_view(w, sdim, r)
     fused = all_gather_stacked(x, sdim, "fused")
     assert fused.is_contiguous()
     assert torch.equal(fused, all_gather_stacked(x, sdim, "bulk"))
+    order = FSDP_ORDER[sdim]
+    for be in ("fused", "bulk"):
+        got = all_gather_stacked(x, sdim, be, order)
+        assert torch.equal(got, fused) and got.stride() == \
+            PK._gathered_empty(x, sdim, order).stride()
+        if order is not None:          # rank r's copy: the global (d, n)
+            assert got[r - 1].transpose(0, 1).reshape(stored[1], -1) \
+                .data_ptr() == got[r - 1].data_ptr()
+
+
+def test_fsdp_gather_lays_each_copy_out_as_the_global_weight():
+    """Through fsdp_gather on a (2, 4) mesh: a weight tp-sharded over its
+    columns (w1) comes back with the tp rank dim between d and n in memory,
+    one over its rows (w2) contiguous; both equal the stored weight."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.template import fsdp_gather
+    from repro_torch.models.sharding import ShardingRules
+    run = RunConfig(fsdp=True, comm_backend="fused")
+    rules = ShardingRules(VirtualMesh((2, 4), ("data", "model")), run)
+    for spec_dims, stored, dim in (((16, 32), (4, 16, 8), 0),
+                                   ((32, 16), (4, 8, 16), 1)):
+        w = torch.from_numpy(_np(*stored))
+        spec = rules.w2d(*spec_dims, tp_dim=1 - dim)
+        c = fsdp_gather(w, spec, rules, run, dim=dim)
+        assert c.shape == (2, *stored) and torch.equal(c[1], w)
+        glob = c[0].movedim(0, 1) if dim == 0 else c[0]     # (d_in, R, ..)
+        assert glob.is_contiguous() and c.is_contiguous() == (dim == 1)
 
 
 def test_ag_plan_does_not_depend_on_chunks_and_refuses_bad_arguments():

@@ -968,7 +968,7 @@ def check_fsdp_gathers(dev, record, compare, randn) -> dict:
         for order in (None, FSDP_ORDER[sdim]):
             got = all_gather_stacked(x, sdim, "fused", order)
             bits = got.view(torch.int16)
-            if not (got.stride() == PK._gathered_empty(x, sdim, order)
+            if not (got.stride() == PK.gathered_empty(x, sdim, order)
                     .stride() and torch.equal(bits, all_gather_stacked(
                         x, sdim, "bulk", order).view(torch.int16))
                     and torch.equal(bits, want) and torch.equal(bits, old)):

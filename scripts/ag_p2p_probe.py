@@ -106,7 +106,7 @@ def main() -> int:
             x = pgl.dp_view(w, sdim, r)
             old = CS.mm_tile_path_gather(x, sdim)
             for order in (None, CS.FSDP_ORDER[sdim]):
-                out = PK._gathered_empty(x, sdim, order)
+                out = PK.gathered_empty(x, sdim, order)
                 p = PK.ag_plan(r, x.shape[1:], x.stride()[1:], x.stride(0),
                                sdim, 2, addr=x.data_ptr(),
                                out_strides=out.stride(), sms=sms)

@@ -508,13 +508,9 @@ def all_gather_stacked(x: torch.Tensor, axis: int, backend: str,
     ``fused`` runs the all-gather kernel on x's view as it is (an FSDP
     ``dp_view`` is strided) into that layout, no copy before or after it;
     ``bulk`` concatenates the shards in rank order."""
-    r = x.shape[0]
     from repro_torch.kernels import pk_comm
     if backend == "bulk":
-        full = torch.cat(list(x.unbind(0)), dim=axis)
-        full = full.unsqueeze(0).expand(r, *full.shape)
-        return full.contiguous() if order is None else \
-            pk_comm._gathered_empty(x, axis, order).copy_(full)
+        return pk_comm.gather_along_plain(x, axis, order)
     return pk_comm.all_gather_along(x, axis, order=order)
 
 

@@ -156,11 +156,15 @@ def all_gather_plain(x: torch.Tensor) -> torch.Tensor:
     return x.unsqueeze(0).expand(x.shape[0], *x.shape).contiguous()
 
 
-def gather_along_plain(x: torch.Tensor, axis: int) -> torch.Tensor:
-    """(R, *local) -> (R, *gathered), contiguous: every rank holds the
-    shards concatenated in rank order along local dim ``axis``."""
+def gather_along_plain(x: torch.Tensor, axis: int,
+                       order=None) -> torch.Tensor:
+    """(R, *local) -> (R, *gathered): every rank holds the shards
+    concatenated in rank order along local dim ``axis``; contiguous, or
+    laid out as ``gathered_empty`` lays it out for ``order``."""
     full = torch.cat(list(x.unbind(0)), dim=axis)
-    return full.unsqueeze(0).expand(x.shape[0], *full.shape).contiguous()
+    full = full.unsqueeze(0).expand(x.shape[0], *full.shape)
+    return full.contiguous() if order is None else \
+        gathered_empty(x, axis, order).copy_(full)
 
 
 def reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
@@ -190,7 +194,7 @@ def _check_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"at most {MAX_RANKS} ranks, got {x.shape[0]}")
 
 
-def _gathered_empty(x: torch.Tensor, axis: int, order) -> torch.Tensor:
+def gathered_empty(x: torch.Tensor, axis: int, order) -> torch.Tensor:
     """A new (R, *gathered) tensor for the gather of x along local dim
     ``axis``: contiguous, or with its local dims laid out in memory in
     ``order`` (outermost first) under the rank dim."""
@@ -246,10 +250,8 @@ def all_gather_along(x: torch.Tensor, axis: int, *,
                          f"tensor and a local dim, got {tuple(x.shape)}, "
                          f"axis {axis}")
     if x.device.type == "cpu":
-        full = gather_along_plain(x, axis)
-        return full if order is None else \
-            _gathered_empty(x, axis, order).copy_(full)
-    return _launch_all_gather(x, _gathered_empty(x, axis, order), axis)
+        return gather_along_plain(x, axis, order)
+    return _launch_all_gather(x, gathered_empty(x, axis, order), axis)
 
 
 def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
@@ -263,7 +265,7 @@ def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
     if x.device.type == "cpu":
         return all_gather_plain(x)
     flat = x.unsqueeze(1) if x.dim() == 1 else x
-    out = _launch_all_gather(flat, _gathered_empty(flat, 0, None), 0)
+    out = _launch_all_gather(flat, gathered_empty(flat, 0, None), 0)
     return out.view(x.shape[0], *x.shape) if x.dim() > 1 else \
         out.view(x.shape[0], x.shape[0])
 

@@ -189,7 +189,7 @@ def test_all_gather_fsdp_views_kernel(cuda, stored, sdim, r, layout):
     x = pgl.dp_view(w, sdim, r)
     assert not x.is_contiguous()
     order = {1: (1, 0, 2), 2: None}[sdim] if layout == "fsdp" else None
-    empty = PK._gathered_empty(x, sdim, order)
+    empty = PK.gathered_empty(x, sdim, order)
     p = PK.ag_plan(r, x.shape[1:], x.stride()[1:], x.stride(0), sdim, 2,
                    addr=x.data_ptr(), out_strides=empty.stride())
     assert p.route == "tma"

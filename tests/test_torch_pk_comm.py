@@ -321,7 +321,7 @@ def test_ag_plan_covers_every_source_tile_once(stored, sdim, r, layout):
     x, axis = _fsdp_view(stored, sdim, r)
     assert not x.is_contiguous()
     order = FSDP_ORDER[sdim] if layout == "fsdp" else None
-    out = PK._gathered_empty(x, sdim, order)
+    out = PK.gathered_empty(x, sdim, order)
     p = _plan_of(x, sdim, out=out)
     assert p.route == "tma" and p.reason == "" and p.unit == 8
     assert len(p.dims) == len(p.box) == 3
@@ -447,7 +447,7 @@ def test_ag_plan_walk_reproduces_the_gathered_layout(stored, sdim, r, order):
     ``all_gather_plain``."""
     w = torch.from_numpy(_np(*stored, seed=r)).to(torch.bfloat16)
     x = pgl.dp_view(w, sdim, r)
-    out = PK._gathered_empty(x, sdim, order).fill_(float("nan"))
+    out = PK.gathered_empty(x, sdim, order).fill_(float("nan"))
     p = _plan_of(x, sdim, out=out)
     assert p.route == ("word" if order == (2, 1, 0) else "tma")
     _walk(p, x, out)
@@ -493,7 +493,7 @@ def test_fused_all_gather_stacked_is_contiguous_and_equals_bulk(stored, sdim,
     for be in ("fused", "bulk"):
         got = all_gather_stacked(x, sdim, be, order)
         assert torch.equal(got, fused) and got.stride() == \
-            PK._gathered_empty(x, sdim, order).stride()
+            PK.gathered_empty(x, sdim, order).stride()
         if order is not None:          # rank r's copy: the global (d, n)
             assert got[r - 1].transpose(0, 1).reshape(stored[1], -1) \
                 .data_ptr() == got[r - 1].data_ptr()

@@ -18,9 +18,11 @@ resident deadlocks, so no kernel here waits on another block:
 * all-gather: TMA staged, one read and R stores a tile (``ag_plan``). The
   kernel takes the shards as the view it is given — an FSDP ``dp_view`` is
   strided — through a tensor map carrying its strides, and writes a new
-  contiguous (R, *gathered) output through a second map: slot s of every
-  rank's gathered tensor, so neither a copy before the launch nor one of
-  the result after it is needed. A persistent grid (two one-warp blocks an
+  (R, *gathered) output through a second map, slot s of every rank's
+  gathered tensor, contiguous or in the memory order the caller asks
+  (``fsdp_gather``: the weight's global layout, which its consumers read
+  in place), so neither a copy before the launch nor one of the result
+  after it is needed. A persistent grid (two one-warp blocks an
   SM) walks the (source s, tile) items; a tile is one box of about 32 KB.
   Its one working thread TMA-loads a tile into a ring of shared-memory
   stages (an mbarrier each) two items ahead and writes it by R TMA bulk

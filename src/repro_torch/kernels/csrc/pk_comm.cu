@@ -198,7 +198,9 @@ inline int encode_u64(CUtensorMap* map, unsigned long long ptr, int rank,
 
 // A stage of the TMA kernel's ring: a box, rounded up to the 128-byte
 // alignment of a TMA copy's shared-memory address.
-inline int ag_stage_bytes(int box_bytes) { return (box_bytes + 127) / 128 * 128; }
+inline int ag_stage_bytes(int box_bytes) {
+  return (box_bytes + 127) / 128 * 128;
+}
 
 // The TMA kernel's dynamic shared memory: the ring and its mbarriers.
 inline size_t ag_smem(int box_bytes, int stages) {

@@ -4,8 +4,9 @@
 // scripts/ag_p2p_probe.py) time them beside the kernels that replaced them
 // (the ``ms_mm_tile`` column).
 //
-// reduce-scatter, store-and-count. Grid (tile, source s, owner o): the block stores tile of in[s] slot o
-// into landing[o] slot s, fences and counts itself in on the tile's flag;
+// reduce-scatter, store-and-count. Grid (tile, source s, owner o): the
+// block stores tile of in[s] slot o into landing[o] slot s, fences and
+// counts itself in on the tile's flag;
 // the last of the R arrivals acquires, sums the R partials in rank order in
 // f32 and stores the reduced tile into out[o]. No block waits. It moves
 // R^2 blk read, R^2 blk written to the landing slots and read again, and R

@@ -101,6 +101,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import torch
@@ -222,9 +223,11 @@ def _launch_all_gather(x: torch.Tensor, out: torch.Tensor,
     r = x.shape[0]
     if out.numel() == 0:
         return out
-    p = ag_plan(r, tuple(x.shape[1:]), tuple(x.stride()[1:]), x.stride(0),
-                axis, x.element_size(), addr=x.data_ptr(),
-                out_strides=tuple(out.stride()), sms=sm_count(x.device))
+    p = _kept_ag_plan(r, tuple(x.shape[1:]), tuple(x.stride()[1:]),
+                      x.stride(0), axis, x.element_size(), x.data_ptr() % 16,
+                      tuple(out.stride()), sm_count(x.device),
+                      (AG_STAGE_BYTES, AG_STAGES, AG_PER_SM,
+                       AG_MIN_TILE_BYTES, AG_MIN_ROW_BYTES))
     nd = len(p.dims)
     ext, ist, ost = zip(*p.dims)
     err = _build.library().pk_all_gather(
@@ -237,6 +240,17 @@ def _launch_all_gather(x: torch.Tensor, out: torch.Tensor,
     _build.check(err, "pk_all_gather")
     ring_all_gather.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _kept_ag_plan(r, local, strides, src_stride, axis, elsize, addr,
+                  out_strides, sms, constants) -> "AgPlan":
+    """``ag_plan`` of a launch, kept: a training step gathers a few shapes
+    hundreds of times, and a plan costs tens of microseconds of host time.
+    Only the address modulo 16 matters to a plan; the plan's constants are
+    part of the key, so setting them (the probe's variants) plans anew."""
+    return ag_plan(r, local, strides, src_stride, axis, elsize, addr=addr,
+                   out_strides=out_strides, sms=sms)
 
 
 def all_gather_along(x: torch.Tensor, axis: int, *,

@@ -19,7 +19,9 @@ over three launches, the flags reaching the wrapper's count each time.
 Then, unless ``--quick``, each row is timed with the CUDA-event method of
 ``chip_smoke.py`` (``time_ms``), operands warm, beside the kernel it
 replaced (``ms_mm_tile``), one PyTorch call of the same function
-(``repeat``, ``torch.roll``) and its bound (bytes over 3.35 TB/s). The
+(``repeat``, ``torch.roll``), its bound (bytes over 3.35 TB/s) and, for
+the path form and the p2p row, the host time of a call's enqueue beside
+the earlier kernel's (``host_us``, ``host_us_mm_tile``). The
 path form times what an FSDP gather of the MLP weight w (4, 2048, 1408)
 costs, copies included: the kernel's ``all_gather_stacked`` and one dp
 group's ``.contiguous()`` (a no-op now), beside the same call on the
@@ -40,6 +42,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 from functools import partial
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,6 +92,19 @@ def main() -> int:
         return a.shape == b.shape and torch.equal(
             a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
+    def host_us(fn, n=200):
+        """Host time of one call's enqueue, the device kept busy by a spin
+        kernel so that no call waits on it."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return dt
+
     def randn(*shape, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=g, device=dev) * 50).to(dtype)
 
@@ -135,7 +151,12 @@ def main() -> int:
                         .contiguous()),
                     ms_fsdp_order=CS.time_ms(partial(
                         all_gather_stacked, x, sdim, "fused", order)),
-                    bound_ms=CS.bound_ms(nbytes, 0.0)[0])
+                    bound_ms=CS.bound_ms(nbytes, 0.0)[0],
+                    host_us=host_us(partial(all_gather_stacked, x, sdim,
+                                            "fused", order)),
+                    host_us_mm_tile=host_us(
+                        lambda: CS.mm_tile_path_gather(x, sdim)[0]
+                        .contiguous()))
             emit(row)
             del w, x, got, old
 
@@ -211,7 +232,9 @@ def main() -> int:
                        ms_mm_tile=CS.time_ms(
                            partial(CS.mm_tile_p2p_ring_shift, x)),
                        library_ms=CS.time_ms(partial(torch.roll, x, 1, 0)),
-                       bound_ms=CS.bound_ms(2 * x.numel() * 2, 0.0)[0])
+                       bound_ms=CS.bound_ms(2 * x.numel() * 2, 0.0)[0],
+                       host_us=host_us(run), host_us_mm_tile=host_us(
+                           partial(CS.mm_tile_p2p_ring_shift, x)))
         emit(row)
         if args.variants and timing and shape[3:4] == (2048,):
             want = PK.ring_shift_plain(x)

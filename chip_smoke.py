@@ -38,8 +38,9 @@ Phases (any failure exits non-zero before the last line is printed):
    global offsets; flash at head_dim 120, padded to 128; the AG×GEMM and
    GEMM×RS kernels at tinyllama's MLP, a Fig. 7/8 shape and a ragged
    shape, bit-identical for 1-4 chunks; the LCSC ring all-gather at every
-   ring all-gather shape and at 4 and 8 ranks, bit-identical to the plain
-   gather and to the ring all-gather kernel) and is held
+   ring all-gather shape and at 4 and 8 ranks, over repeated and
+   alternating launches, bit-identical to the plain gather and to the ring
+   all-gather kernel) and is held
    against its plain PyTorch version on the same
    inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
    <= 1e-3 for f32 outputs of bf16 inputs; one shape of each is then
@@ -67,7 +68,9 @@ Phases (any failure exits non-zero before the last line is printed):
    one, and the path form: the old wrapper's copy in, the old kernel and
    one dp group's copy of its strided result out, beside the ``bulk``
    backend as its library call) and the p2p row the kernels they ran on
-   before (same file), the scan rows the kernel it ran on
+   before (same file), the LCSC rows (R = 2, 4, 8) the step-synchronous
+   kernel they ran on before (``csrc/lcsc_yardstick.cu``), the scan rows
+   the kernel it ran on
    before its staged design (``csrc/mamba_scan_yardstick.cu``), its
    exponential floor printed beside them; the scan is also held at B = 1
    at every prompt length of the SSM serving run (4e), whose exact-bucket
@@ -455,6 +458,32 @@ def mm_tile_p2p_ring_shift(x):
         x[0].numel() * x.element_size(),
         torch.cuda.current_stream(x.device).cuda_stream),
         "pk_mm_tile_p2p_ring_shift")
+    return out
+
+
+_MM_TILE_LCSC_FLAGS: dict = {}
+
+
+def mm_tile_lcsc_all_gather(x):
+    """B11's kernel before its item walk (``csrc/lcsc_yardstick.cu``: the
+    step-synchronous template, a memset of its flags before every launch,
+    word copies through registers), the before-column of the LCSC rows."""
+    import torch
+
+    from repro_torch.core import pgl
+    from repro_torch.kernels import _build
+    x = x.contiguous()
+    out = torch.empty((x.shape[0], *x.shape), dtype=x.dtype, device=x.device)
+    if x.device not in _MM_TILE_LCSC_FLAGS:
+        _MM_TILE_LCSC_FLAGS[x.device] = torch.empty(
+            (1 << 16,), dtype=torch.int32, device=x.device)
+    flags = _MM_TILE_LCSC_FLAGS[x.device]
+    _build.check(_build.library().pk_mm_tile_lcsc_all_gather(
+        _build.host_table(pgl.pointer_table(x)),
+        _build.host_table(pgl.pointer_table(out)), flags.data_ptr(),
+        flags.numel(), x.shape[0], x[0].numel() * x.element_size(),
+        torch.cuda.current_stream(x.device).cuda_stream),
+        "pk_mm_tile_lcsc_all_gather")
     return out
 
 
@@ -1128,13 +1157,19 @@ def check_tp_kernels(dev, record, compare, randn) -> dict:
     * each timed row also times the mma.sync kernel it ran on before
       (``ms_mm_tile``);
     * the LCSC ring all-gather at every shape phase 3 runs the ring
-      all-gather at, and at ragged f32 and byte shapes: bit-identical to
+      all-gather at, and at ragged f32 and byte shapes (the word route),
+      each launched twice in a row, then again in reverse order (the
+      never-reset flags holding other shapes' epochs): bit-identical to
       ``all_gather_plain`` and to ``pk_comm.ring_all_gather``; timed at the
-      training run's MLP shard (2, 1024, 4, 1408) beside ``repeat``.
+      training run's MLP shard over 2, 4 and 8 ranks, (R, 2048 / R, 4,
+      1408), beside ``repeat`` and the step-synchronous kernel it ran on
+      before (``mm_tile_lcsc_all_gather``), whose bits it also equals.
 
     Bounds: AG×GEMM and GEMM×RS by their operations (2·R·m·k·n over 989
     TFLOP/s) against their bytes (x, w read once; the output written
-    once); the all-gather by bytes (R·blk read, R²·blk written)."""
+    once); the all-gather by bytes (R·blk read, R²·blk written); the LCSC
+    rows also carry the ring's own floor (``ring_floor_ms``: R (R - 1) blk
+    read and R² blk written, what a ring of dependent hops must move)."""
     import torch
 
     from repro_torch.kernels import collective_matmul as CM
@@ -1196,35 +1231,60 @@ def check_tp_kernels(dev, record, compare, randn) -> dict:
     print("[kernel] ag_matmul_fused / matmul_rs_fused: bit-identical for "
           "n_chunks 1-4 at every shape", flush=True)
 
-    for rr, shape, dtype in ((2, (1024, 4, 64), torch.bfloat16),
-                             (2, (1024, 4, 512), torch.bfloat16),
-                             (2, (1024, 4, 1408), torch.bfloat16),
-                             (2, (1024, 4, 8000), torch.bfloat16),
-                             (4, (512, 4, 1408), torch.bfloat16),
-                             (8, (256, 4, 1408), torch.bfloat16),
-                             (8, (3, 5, 7), torch.float32),
-                             (4, (1001,), torch.uint8)):
-        x = (torch.randn((rr, *shape), device=dev) * 50).to(dtype)
-        got = LC.lcsc_ring_all_gather(x)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, PK.all_gather_plain(x))
-                and torch.equal(got, PK.ring_all_gather(x))):
-            raise AssertionError(f"lcsc_ring_all_gather {tuple(x.shape)} "
-                                 f"{dtype}: not the plain gather or B3's")
-        print(f"[kernel] lcsc_ring_all_gather {tuple(x.shape)} {dtype}: "
-              "bit-identical to all_gather_plain and ring_all_gather",
-              flush=True)
-        if (rr, shape) != (2, (1024, 4, 1408)):
+    lcsc_cases = ((2, (1024, 4, 64), torch.bfloat16),
+                  (2, (1024, 4, 512), torch.bfloat16),
+                  (2, (1024, 4, 1408), torch.bfloat16),
+                  (2, (1024, 4, 8000), torch.bfloat16),
+                  (4, (512, 4, 1408), torch.bfloat16),
+                  (8, (256, 4, 1408), torch.bfloat16),
+                  (8, (3, 5, 7), torch.float32),
+                  (4, (1001,), torch.uint8))
+    xs = [(torch.randn((rr, *shape), device=dev) * 50).to(dtype)
+          for rr, shape, dtype in lcsc_cases]
+    # every shape twice in a row, then the shapes again in reverse: the
+    # never-reset flags hold other shapes' old epochs at each launch
+    for x in xs + xs[::-1]:
+        for _ in range(2):
+            got = LC.lcsc_ring_all_gather(x)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, PK.all_gather_plain(x))
+                    and torch.equal(got, PK.ring_all_gather(x))):
+                raise AssertionError(f"lcsc_ring_all_gather "
+                                     f"{tuple(x.shape)} {x.dtype}: not the "
+                                     "plain gather or B3's")
+    for x in xs:
+        print(f"[kernel] lcsc_ring_all_gather {tuple(x.shape)} {x.dtype}: "
+              "bit-identical to all_gather_plain and ring_all_gather over "
+              "repeated and alternating launches", flush=True)
+    for x in xs:
+        rr = x.shape[0]
+        if tuple(x.shape[1:]) != (2048 // rr, 4, 1408):
             continue
         blk = x[0].numel()
-        entries["lcsc_ring_all_gather"] = record(
+        if not torch.equal(mm_tile_lcsc_all_gather(x),
+                           LC.lcsc_ring_all_gather(x)):
+            raise AssertionError(f"lcsc_ring_all_gather {tuple(x.shape)}: "
+                                 "not the earlier kernel's bits")
+        key = "lcsc_ring_all_gather" + ("" if rr == 2 else f"@r{rr}")
+        entries[key] = record(
             "lcsc_ring_all_gather", f"x{tuple(x.shape)} bf16",
             "src/repro_torch/kernels/csrc/lcsc.cu",
             "src/repro/kernels/lcsc.py:110",
             partial(LC.lcsc_ring_all_gather, x),
             partial(PK.all_gather_plain, x),
             lambda x=x, rr=rr: x.unsqueeze(0).repeat(rr, 1, 1, 1, 1),
-            0.0, (rr + rr * rr) * blk * 2, 0.0, checked=(0.0, 0.0))
+            0.0, (rr + rr * rr) * blk * 2, 0.0, checked=(0.0, 0.0),
+            before=partial(mm_tile_lcsc_all_gather, x))
+        # the ring's own floor: R (R - 1) blk read and R^2 blk written
+        entries[key]["ring_floor_ms"] = bound_ms(
+            (rr * (rr - 1) + rr * rr) * blk * 2, 0.0)[0]
+        e = entries[key]
+        print(f"[kernel] lcsc_ring_all_gather x{tuple(x.shape)}: "
+              f"{e['ms']:.4f} ms = {e['bound_ms'] / e['ms']:.0%} of the "
+              f"gather's bound, {e['ring_floor_ms'] / e['ms']:.0%} of the "
+              f"ring's floor {e['ring_floor_ms']:.4f}; "
+              f"{e['ms'] / e['ms_mm_tile']:.2f} x the earlier kernel",
+              flush=True)
     return entries
 
 
@@ -2508,6 +2568,7 @@ def main() -> int:
                 "matmul@falcon", "mamba_scan@prefill",
                 "mamba_scan@prefill-b1",
                 "pk_reduce_scatter@r4", "pk_reduce_scatter@r8",
+                "lcsc_ring_all_gather@r4", "lcsc_ring_all_gather@r8",
                 "flash_attention_hop@0", "flash_attention_hop@2",
                 "flash_attention_hop@3"):
         print(f"[kernel-extra] {json.dumps(entries[key])}", flush=True)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The ring all-gather (B3's AG) and p2p ring shift (B8) kernels at the
-paths' shapes, on one GPU.
+"""The ring all-gather (B3's AG), the p2p ring shift (B8) and the LCSC
+ring all-gather (B11) kernels at the paths' shapes, on one GPU.
 
     python3 scripts/ag_p2p_probe.py [--out probe.jsonl] [--quick]
                                     [--variants]
@@ -30,7 +30,15 @@ after, which the group's ``.contiguous()`` copies) and beside the ``bulk``
 backend. ``--variants`` also times the launch's design choices (AG: bytes
 a tile, stages, blocks an SM; p2p: bytes a tile, blocks an SM), each by
 setting the plan's constants in ``kernels/pk_comm.py`` for the timing
-(``constants``) and calling the wrapper. Prints the card's name and power
+(``constants``) and calling the wrapper. The LCSC all-gather is held, over
+three launches a shape, against its plain version and the step-synchronous
+kernel it ran on before (``csrc/lcsc_yardstick.cu``, the wrapper
+``mm_tile_lcsc_all_gather`` of ``chip_smoke.py``), its flags holding each
+launch's epoch; the MLP shard over R = 2, 4 and 8 is timed beside the
+yardstick, ``repeat``, the gather's bound and the ring's own floor (R (R -
+1) blk read, R² blk written), with both wrappers' host enqueue times;
+``--variants`` sweeps bytes a tile, stages and blocks an SM at R = 2 and 8
+(``kernels/lcsc.py``'s constants). Prints the card's name and power
 limit, then one JSON line a row. Needs a CUDA device; exits 1 without
 one.
 """
@@ -74,6 +82,7 @@ def main() -> int:
     import chip_smoke as CS
     from repro_torch.core import pgl
     from repro_torch.core.comms import all_gather_stacked
+    from repro_torch.kernels import lcsc as LC
     from repro_torch.kernels import pk_comm as PK
     from scan_rs_probe import constants
 
@@ -247,6 +256,66 @@ def main() -> int:
                         ms = CS.time_ms(run)
                     emit({"kernel": "p2p_ring_shift variant",
                           "shape": row["shape"], **v, "ms": ms})
+    # -- the LCSC ring all-gather (B11) --
+    def lcsc_variants():
+        for tile in (16384, 32768, 65536):
+            for stages in (2, 3, 4):
+                for per_sm in (1, 2):
+                    yield dict(LCSC_TILE_BYTES=tile, LCSC_STAGES=stages,
+                               LCSC_PER_SM=per_sm)
+
+    for shape, dtype in (((2, 1024, 4, 1408), torch.bfloat16),
+                         ((4, 512, 4, 1408), torch.bfloat16),
+                         ((8, 256, 4, 1408), torch.bfloat16),
+                         ((2, 1024, 4, 64), torch.bfloat16),
+                         ((8, 3, 5, 7), torch.float32),
+                         ((4, 1001), torch.uint8)):
+        r = shape[0]
+        x = randn(*shape, dtype=dtype)
+        want = PK.all_gather_plain(x)
+        if not same_bits(CS.mm_tile_lcsc_all_gather(x), want):
+            raise AssertionError(f"LCSC yardstick x{shape}")
+        run = partial(LC.lcsc_ring_all_gather, x)
+        stream = torch.cuda.current_stream().cuda_stream
+        for i in range(3):
+            got = run()
+            flags = LC.lcsc_flags(dev, stream)
+            p = LC.lcsc_plan(r, x[0].numel() * x.element_size(),
+                             x.element_size(), x.data_ptr() % 16, sms=sms)
+            if not (same_bits(got, want)
+                    and bool((flags.flags[:p.items] == flags.epoch).all())):
+                raise AssertionError(f"LCSC x{shape} launch {i}: bits or "
+                                     "flags differ")
+        row = {"kernel": "lcsc_ring_all_gather",
+               "shape": f"x{shape} {str(dtype)[6:]}",
+               "plan": dataclasses.asdict(p), "bit_identical": True,
+               "epoch": flags.epoch}
+        if timing and shape[-1] == 1408:
+            blk = x[0].numel() * 2
+            row.update(ms=CS.time_ms(run),
+                       ms_mm_tile=CS.time_ms(
+                           partial(CS.mm_tile_lcsc_all_gather, x)),
+                       library_ms=CS.time_ms(
+                           lambda: x.unsqueeze(0).repeat(r, 1, 1, 1, 1)),
+                       bound_ms=CS.bound_ms((r + r * r) * blk, 0.0)[0],
+                       ring_floor_ms=CS.bound_ms(
+                           (r * (r - 1) + r * r) * blk, 0.0)[0],
+                       host_us=host_us(run), host_us_mm_tile=host_us(
+                           partial(CS.mm_tile_lcsc_all_gather, x)))
+        emit(row)
+        if args.variants and timing and shape[-1] == 1408 and r in (2, 8):
+            for v in lcsc_variants():
+                with constants(LC, **v):
+                    q = LC.lcsc_plan(r, x[0].numel() * 2, 2, 0, sms=sms)
+                    if (q.smem_bytes + 1024) * v["LCSC_PER_SM"] > 233472:
+                        continue
+                    if not same_bits(run(), want):
+                        raise AssertionError(f"LCSC variant {v}")
+                    ms = CS.time_ms(run)
+                emit({"kernel": "lcsc_ring_all_gather variant",
+                      "shape": row["shape"], **v, "tiles": q.tiles,
+                      "grid": q.grid, "ms": ms})
+        del x, want
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -85,9 +85,16 @@ SIGNATURES = {
                                         _L, _I, _I, ctypes.c_float, _P],
     "pk_mm_tile_flash_attention_hop_bf16": [_P] * 6 + [_I] * 6 + [_L] * 9
                                            + [_I] * 4 + [ctypes.c_float, _P],
-    # in ptrs, out ptrs, flags, flag capacity (ints), R, blk bytes, stream
+    # in ptrs, out ptrs, flags, flag ints, R, blk bytes, route (1 TMA, 0
+    # words), unit, tile bytes, grid, stages, shared memory a block (the
+    # plan's), epoch, stream
     "pk_lcsc_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
-                          + [_P, _L, _I, _L, _P],
+                          + [_P, _L, _I, _L, _I, _I, _L, _I, _I, _L, _I, _P],
+    # the kernel B11 ran on before, a timing yardstick
+    # (csrc/lcsc_yardstick.cu): in ptrs, out ptrs, flags, flag capacity
+    # (ints, zeroed by the launch), R, blk bytes, stream
+    "pk_mm_tile_lcsc_all_gather": [ctypes.POINTER(ctypes.c_uint64)] * 2
+                                  + [_P, _L, _I, _L, _P],
     # x, w, out, G, C, N, K, x strides (group, row), w strides, out
     # strides, out_f32, cfg, grid (the plan's), stream
     "pk_grouped_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,

@@ -75,16 +75,6 @@ __device__ __forceinline__ void tma_store5(const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// wait until at most N of this thread's bulk groups still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
 struct AgArgs {
   CUtensorMap in_map;   // (e0, e1, e2, source): the input view's strides
   CUtensorMap out_map;  // (e0, e1, e2, slot, rank): the gathered layout
@@ -138,13 +128,13 @@ __global__ void __launch_bounds__(AG_THREADS)
     at(j, s, c0, c1, c2);
     for (int d = 0; d < p.R; ++d)
       tma_store5(&p.out_map, ring + stage * p.stage_bytes, c0, c1, c2, s, d);
-    bulk_commit();
+    hg::bulk_commit();
     if (j + p.stages - 1 < n) {
-      bulk_wait_read<1>();
+      hg::bulk_wait_read<1>();
       load(j + p.stages - 1);
     }
   }
-  bulk_wait_read<0>();  // the stores have read the ring before it is freed
+  hg::bulk_wait_read<0>();  // the stores have read the ring before it goes
 }
 
 // The copy's description in words for the word kernel: dims inner first,
@@ -279,17 +269,6 @@ constexpr int RS_THREADS = RS_CONSUMERS + 32;  // + the producer warp
 constexpr int RS_MAX_STAGES = 8;
 constexpr int RS_ELEM_THREADS = 256;
 
-// one TMA bulk copy of `bytes` (a multiple of 16) from global `src` into
-// shared `dst`, both 16-byte aligned, completing on mbarrier `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 struct RsArgs {
   pk::PtrTable src, dst;
   long blk, chunk, items;  // items: R owners x n_chunks x tiles a chunk
@@ -338,7 +317,7 @@ __global__ void __launch_bounds__(RS_THREADS)
       const uint32_t bytes = (uint32_t)len * sizeof(T);
       hg::mbar_expect_tx(full0 + 8 * stage, (uint32_t)p.R * bytes);
       for (int s = 0; s < p.R; ++s)
-        bulk_load(hg::smem_addr(st + (long)s * p.tile),
+        hg::bulk_load(hg::smem_addr(st + (long)s * p.tile),
                   reinterpret_cast<const T*>(p.src.p[s]) +
                       (long)o * p.blk + begin,
                   bytes, full0 + 8 * stage);

@@ -1,7 +1,8 @@
 // mbarriers, TMA loads and the tensor-map encoder reached through the
 // runtime: the device pieces shared by the Hopper GEMM mainloop
-// (hopper_gemm.cuh), flash attention, the reduce-scatter's bulk copies
-// (pk_comm.cu) and the selective scan's staged loads (mamba_scan.cu).
+// (hopper_gemm.cuh), flash attention, the all-gather's and reduce-scatter's
+// bulk copies (pk_comm.cu), the selective scan's staged loads
+// (mamba_scan.cu) and the LCSC template's stages (lcsc.cuh).
 #pragma once
 
 #include <cstdint>
@@ -81,6 +82,43 @@ __device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
+}
+
+// one bulk copy of `bytes` (a multiple of 16) from global `src` into shared
+// `dst`, both 16-byte aligned, completing on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// one bulk copy of `bytes` (a multiple of 16) from shared `src` into global
+// `dst`, both 16-byte aligned, committed to the thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete: the
+// writes of every older group are done
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---- host side ------------------------------------------------------------

@@ -1073,14 +1073,96 @@ def test_gemm_collective_kernels_refuse_gradients(cuda):
     (2, (1024, 4, 1408), torch.bfloat16), (8, (256, 4, 1408), torch.bfloat16),
     (1, (8, 8), torch.float32)])
 def test_lcsc_ring_all_gather_kernel(cuda, r, shape, dtype):
+    """Three launches of a shape in a row, each bit-identical to the plain
+    gather and to B3's kernel; the never-reset flags hold each launch's
+    epoch on every item after it."""
     from repro_torch.kernels import lcsc as LC
     from repro_torch.kernels import pk_comm as PK
     x = (torch.randn((r, *shape), device=cuda) * 50).to(dtype)
     before = LC.lcsc_ring_all_gather.launches
-    for _ in range(2):              # the arrival flags reset between launches
+    for _ in range(3):
         got = LC.lcsc_ring_all_gather(x)
         torch.cuda.synchronize()
         assert got.shape == (r, r, *shape) and got.dtype == dtype
         assert torch.equal(got, PK.all_gather_plain(x))
         assert torch.equal(got, PK.ring_all_gather(x))
-    assert LC.lcsc_ring_all_gather.launches == before + 2
+        _assert_lcsc_flags_stamped(x)
+    assert LC.lcsc_ring_all_gather.launches == before + 3
+
+
+def _lcsc_plan_of(x):
+    from repro_torch.core import pgl
+    from repro_torch.kernels import lcsc as LC
+    bits = 0
+    for a in pgl.pointer_table(x):
+        bits |= a
+    return LC.lcsc_plan(x.shape[0], x[0].numel() * x.element_size(),
+                        x.element_size(), bits % 16,
+                        sms=torch.cuda.get_device_properties(x.device)
+                        .multi_processor_count)
+
+
+def _assert_lcsc_flags_stamped(x):
+    """After the last launch on x's stream, every item of x's plan holds
+    that launch's epoch."""
+    from repro_torch.kernels import lcsc as LC
+    f = LC.lcsc_flags(x.device, torch.cuda.current_stream(x.device)
+                      .cuda_stream)
+    p = _lcsc_plan_of(x)
+    assert (f.flags[:p.items] == f.epoch).all()
+
+
+def test_lcsc_kernel_alternates_shapes_of_different_tile_counts(cuda):
+    """Launches alternating between shapes of 1, 128, 88 and 352 tiles a
+    rank and R 2, 4, 8 — each leaving flags of the others' items with old
+    epochs — stay bit-identical to the plain gather and to B3's kernel."""
+    from repro_torch.kernels import lcsc as LC
+    from repro_torch.kernels import pk_comm as PK
+    xs = [(torch.randn(s, device=cuda) * 50).to(torch.bfloat16)
+          for s in ((8, 256, 4, 1408), (2, 4, 24), (2, 1024, 4, 64),
+                    (4, 512, 4, 1408), (2, 1024, 4, 1408))]
+    assert len({_lcsc_plan_of(x).tiles for x in xs}) >= 4
+    for x in xs + xs[::-1] + xs:
+        got = LC.lcsc_ring_all_gather(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, PK.all_gather_plain(x))
+        assert torch.equal(got, PK.ring_all_gather(x))
+        _assert_lcsc_flags_stamped(x)
+
+
+@pytest.mark.parametrize("r,n,offset", [(2, 4096, 1), (4, 1000, 8),
+                                        (8, 130, 2), (4, 1001, 0)])
+def test_lcsc_kernel_word_route(cuda, r, n, offset):
+    """Blocks or addresses off 16 bytes take the word route (the plan says
+    why), bit for bit as the TMA route, over repeated launches."""
+    from repro_torch.kernels import lcsc as LC
+    from repro_torch.kernels import pk_comm as PK
+    buf = torch.randint(0, 256, (offset + r * n,), dtype=torch.uint8,
+                        device=cuda)
+    x = buf[offset:].view(r, n)
+    assert _lcsc_plan_of(x).route == "word"
+    for _ in range(3):
+        got = LC.lcsc_ring_all_gather(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, PK.all_gather_plain(x))
+        _assert_lcsc_flags_stamped(x)
+
+
+def test_lcsc_kernel_is_one_device_op_a_launch(cuda):
+    """No memset before a launch: the profiler sees one device op, the
+    kernel, for each of three launches (the TP run's hand-off gathers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import lcsc as LC
+    x = (torch.randn((4, 1024, 2048), device=cuda)).to(torch.bfloat16)
+    LC.lcsc_ring_all_gather(x)          # the plan and the flags exist
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs = [LC.lcsc_ring_all_gather(x) for _ in range(3)]
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 3, device
+    assert all("lcsc_all_gather" in name for name in device), device
+    del outs

@@ -260,7 +260,7 @@ def main() -> int:
     def lcsc_variants():
         for tile in (16384, 32768, 65536):
             for stages in (2, 3, 4):
-                for per_sm in (1, 2):
+                for per_sm in (1, 2, 3, 4):
                     yield dict(LCSC_TILE_BYTES=tile, LCSC_STAGES=stages,
                                LCSC_PER_SM=per_sm)
 

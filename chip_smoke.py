@@ -1168,8 +1168,9 @@ def check_tp_kernels(dev, record, compare, randn) -> dict:
     Bounds: AG×GEMM and GEMM×RS by their operations (2·R·m·k·n over 989
     TFLOP/s) against their bytes (x, w read once; the output written
     once); the all-gather by bytes (R·blk read, R²·blk written); the LCSC
-    rows also carry the ring's own floor (``ring_floor_ms``: R (R - 1) blk
-    read and R² blk written, what a ring of dependent hops must move)."""
+    rows' print lines also give the ring's own floor (R (R - 1) blk read
+    and R² blk written, what a ring of dependent hops must move), which is
+    no key of their entries."""
     import torch
 
     from repro_torch.kernels import collective_matmul as CM
@@ -1276,13 +1277,12 @@ def check_tp_kernels(dev, record, compare, randn) -> dict:
             0.0, (rr + rr * rr) * blk * 2, 0.0, checked=(0.0, 0.0),
             before=partial(mm_tile_lcsc_all_gather, x))
         # the ring's own floor: R (R - 1) blk read and R^2 blk written
-        entries[key]["ring_floor_ms"] = bound_ms(
-            (rr * (rr - 1) + rr * rr) * blk * 2, 0.0)[0]
+        floor = bound_ms((rr * (rr - 1) + rr * rr) * blk * 2, 0.0)[0]
         e = entries[key]
         print(f"[kernel] lcsc_ring_all_gather x{tuple(x.shape)}: "
               f"{e['ms']:.4f} ms = {e['bound_ms'] / e['ms']:.0%} of the "
-              f"gather's bound, {e['ring_floor_ms'] / e['ms']:.0%} of the "
-              f"ring's floor {e['ring_floor_ms']:.4f}; "
+              f"gather's bound, {floor / e['ms']:.0%} of the "
+              f"ring's floor {floor:.4f}; "
               f"{e['ms'] / e['ms_mm_tile']:.2f} x the earlier kernel",
               flush=True)
     return entries

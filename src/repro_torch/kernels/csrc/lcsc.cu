@@ -61,10 +61,10 @@ int launch_ag(const lcsc::Grid& g, int grid, size_t smem,
 // (kernels/lcsc.py lcsc_plan): tiles of tile_bytes; route 1, TMA: blk and
 // tile multiples of 16 bytes, every address 16-byte aligned, `stages`
 // stages and smem_bytes of shared memory a block (a launch whose
-// lcsc::smem differs is refused); route 0, words of `unit` bytes. grid
-// blocks, co-resident (a cooperative launch). flags: flag_ints ints that
-// this launch's items stamp with `epoch` (item k, flags[k]); a plan of more
-// items is refused.
+// lcsc::smem differs is refused), unit 0; route 0, words of `unit`
+// bytes. grid blocks, co-resident (a cooperative launch). flags: flag_ints
+// ints that this launch's items stamp with `epoch` (item k, flags[k]); a
+// plan of more items is refused.
 extern "C" int pk_lcsc_all_gather(const unsigned long long* in_ptrs,
                                   const unsigned long long* out_ptrs,
                                   void* flags, long long flag_ints, int R,
@@ -100,7 +100,8 @@ extern "C" int pk_lcsc_all_gather(const unsigned long long* in_ptrs,
   }
   g.stage_bytes = (int)((tile_bytes + 127) / 128 * 128);
   const size_t smem = lcsc::smem(g.stage_bytes, stages);
-  if (route != 1 || bits % 16 || stages < 2 || stages > lcsc::kMaxStages ||
+  if (route != 1 || unit != 0 || bits % 16 || stages < 2 ||
+      stages > lcsc::kMaxStages ||
       (long long)smem != smem_bytes)
     return (int)cudaErrorInvalidValue;
   return launch_ag<lcsc::Staged>(g, grid, smem, in_ptrs, out_ptrs, st);

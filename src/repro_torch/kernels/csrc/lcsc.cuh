@@ -34,7 +34,9 @@
 // waits until (int)(flag - epoch) >= 0 (acquire). A flag an earlier launch
 // stamped, of whatever shape, holds an earlier epoch and satisfies no wait
 // (the wrapper zeroes the flags once every 2^30 launches, so the difference
-// never wraps). No memset: a launch is one device op.
+// never wraps). No memset: a launch is one device op. The epoch is a launch
+// argument, so a CUDA graph would replay one epoch and a replay's waits
+// would be met by the replay before's stamps: the wrapper refuses capture.
 //
 // Memory order across proxies: a tile is written by bulk stores (the async
 // proxy), signalled by a flag store (the generic proxy) and read by another

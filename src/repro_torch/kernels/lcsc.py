@@ -41,7 +41,11 @@ communication kernel of the port, blocks wait on other blocks. The design:
   op. (A count kept per launch shape, as the p2p shift's flags keep, would
   go wrong here: a smaller launch leaves some (step, tile) flags untouched.)
   Every 2^30 launches the wrapper zeroes the flags once, so that the int32
-  difference never wraps;
+  difference never wraps. The host picks the epoch, so the kernel cannot
+  be captured in a CUDA graph (every replay would reuse one epoch, and a
+  replay's waits would be met by the one before's stamps: a stale read).
+  The wrapper raises under stream capture; an epoch kept on the card and
+  advanced by the kernel would lift that;
 * memory order across proxies (written once, in the template): a tile is
   written by bulk stores (async proxy), signalled by a flag store (generic
   proxy) and read by another block's TMA load (async proxy). The producer
@@ -89,13 +93,12 @@ from repro_torch.kernels.matmul import H100_SMS, sm_count
 from repro_torch.kernels.pk_comm import _check_cuda, all_gather_plain
 
 #: the TMA route: bytes a tile (one stage), stages, blocks an SM, the
-#: smallest tile the plan cuts a small shape into; a block is one warp,
-#: whose first thread issues the loads and the stores
+#: smallest tile the plan cuts a small shape into; a block is one warp
+#: (``lcsc::kThreads``), whose first thread issues the loads and the stores
 LCSC_TILE_BYTES = 32768
 LCSC_STAGES = 3
 LCSC_PER_SM = 2
 LCSC_MIN_TILE_BYTES = 4096
-LCSC_THREADS = 32
 #: the word route: bytes a tile, one-warp blocks an SM
 LCSC_WORD_TILE_BYTES = 4096
 LCSC_WORD_PER_SM = 8
@@ -116,20 +119,15 @@ class LcscPlan:
     """How the LCSC all-gather walks R ranks' blocks of ``blk_bytes``."""
     route: str          # "tma" (bulk copies through stages) or "word"
     reason: str         # why the word route ("" on the tma route)
-    unit: int           # tma: 16 (bulk copy granule); word: 1-8 bytes
+    unit: int           # word: the word's bytes, 1-8; tma: 0
     tile_bytes: int
     tiles: int          # tiles a rank's block (the last one short)
     steps: int          # steps walked: max(R - 1, 1)
     items: int          # steps x R x tiles; item k stamps flag k
     grid: int           # persistent blocks, co-resident
-    threads: int
     stages: int         # tma: the ring; word: 0
     smem_bytes: int     # dynamic shared memory a block: the .cu's
                         # lcsc::smem, which the launch checks
-
-    @property
-    def flag_ints(self) -> int:
-        return self.items
 
 
 def lcsc_plan(r: int, blk_bytes: int, elsize: int, addr_bits: int, *,
@@ -158,13 +156,13 @@ def lcsc_plan(r: int, blk_bytes: int, elsize: int, addr_bits: int, *,
         tile = LCSC_WORD_TILE_BYTES
         per_sm, stages, smem = LCSC_WORD_PER_SM, 0, 0
     else:
-        unit, tile = 16, LCSC_TILE_BYTES
+        unit, tile = 0, LCSC_TILE_BYTES
         cap = LCSC_PER_SM * sms
         while tile // 2 >= LCSC_MIN_TILE_BYTES \
                 and r * -(-blk_bytes // tile) < cap:
             tile //= 2
         per_sm, stages = LCSC_PER_SM, LCSC_STAGES
-    tile = max(unit, min(tile, blk_bytes))          # a small block: one tile
+    tile = max(unit or 16, min(tile, blk_bytes))    # a small block: one tile
     if not why:
         stage = -(-tile // 128) * 128               # TMA's 128-byte stages
         smem = stages * (stage + _MBAR_BYTES + _HOP_BYTES)
@@ -174,8 +172,7 @@ def lcsc_plan(r: int, blk_bytes: int, elsize: int, addr_bits: int, *,
         raise ValueError(f"lcsc_plan: {items} items (R={r}, {tiles} tiles "
                          f"of {tile} bytes) exceed the {FLAG_INTS} flags")
     return LcscPlan("word" if why else "tma", why, unit, tile, tiles, steps,
-                    items, max(1, min(items, per_sm * sms)), LCSC_THREADS,
-                    stages, smem)
+                    items, max(1, min(items, per_sm * sms)), stages, smem)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -226,6 +223,12 @@ def lcsc_ring_all_gather(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return all_gather_plain(x)
     _check_cuda(x, "lcsc_ring_all_gather")
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("lcsc_ring_all_gather cannot be captured in a "
+                           "CUDA graph: the epoch its flags wait on is "
+                           "chosen on the host at each launch, so every "
+                           "replay would reuse one and its waits would be "
+                           "met by the last replay's stamps")
     x = x.contiguous()
     r = x.shape[0]
     out = torch.empty((r, *x.shape), dtype=x.dtype, device=x.device)

@@ -1166,3 +1166,25 @@ def test_lcsc_kernel_is_one_device_op_a_launch(cuda):
     assert len(device) == 3, device
     assert all("lcsc_all_gather" in name for name in device), device
     del outs
+
+
+def test_lcsc_kernel_refuses_cuda_graph_capture(cuda):
+    """The epoch is chosen on the host at each launch, so a captured launch
+    would replay one epoch and its waits could be met by the last replay's
+    stamps: the wrapper raises under stream capture, launches nothing, and
+    the next eager launch is still bit-identical."""
+    from repro_torch.kernels import lcsc as LC
+    from repro_torch.kernels import pk_comm as PK
+    x = (torch.randn((2, 1024, 4, 64), device=cuda) * 50).to(torch.bfloat16)
+    LC.lcsc_ring_all_gather(x)          # the plan and the flags exist
+    torch.cuda.synchronize()
+    before = LC.lcsc_ring_all_gather.launches
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            LC.lcsc_ring_all_gather(x)
+    assert LC.lcsc_ring_all_gather.launches == before
+    got = LC.lcsc_ring_all_gather(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, PK.all_gather_plain(x))
+    _assert_lcsc_flags_stamped(x)

@@ -140,13 +140,13 @@ def test_lcsc_plan_at_every_path_shape(r, shape, elsize):
     p = LC.lcsc_plan(r, blk, elsize, 0)
     assert p.route == ("tma" if blk % 16 == 0 else "word")
     assert bool(p.reason) == (p.route == "word")
-    assert p.tile_bytes % p.unit == 0 and blk % p.unit == 0
+    granule = p.unit or 16              # the TMA route's bulk granule
+    assert p.tile_bytes % granule == 0 and blk % granule == 0
     assert (p.tiles - 1) * p.tile_bytes < blk <= p.tiles * p.tile_bytes
     assert p.steps == max(r - 1, 1)
-    assert p.items == p.flag_ints == p.steps * r * p.tiles <= LC.FLAG_INTS
-    assert p.threads == LC.LCSC_THREADS == 32
+    assert p.items == p.steps * r * p.tiles <= LC.FLAG_INTS
     if p.route == "tma":
-        assert p.unit == 16
+        assert p.unit == 0
         assert p.tile_bytes <= LC.LCSC_TILE_BYTES
         assert p.tile_bytes >= min(blk, LC.LCSC_MIN_TILE_BYTES)
         assert 1 <= p.grid == min(p.items, LC.LCSC_PER_SM * LC.H100_SMS)
@@ -170,11 +170,11 @@ def test_lcsc_plan_routes_r1_empty_unaligned_and_refusals():
         ("tma", 1, 1, 1, 1)
     empty = LC.lcsc_plan(4, 0, 2, 0)
     assert empty.items == 0 and empty.grid == 1
-    for addr, unit in ((8, 8), (4, 4), (2, 2), (1, 1), (16, 16), (32, 16)):
+    for addr, unit in ((8, 8), (4, 4), (2, 2), (1, 1), (16, 0), (32, 0)):
         p = LC.lcsc_plan(2, 1 << 20, 2, addr)
         assert p.unit == unit
-        assert p.route == ("tma" if unit == 16 else "word")
-        if unit < 16:
+        assert p.route == ("tma" if unit == 0 else "word")
+        if unit:
             assert p.reason == "address not 16-byte aligned"
     assert LC.lcsc_plan(4, 1001, 1, 0).reason == \
         "block not a multiple of 16 bytes"

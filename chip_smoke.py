@@ -40,7 +40,9 @@ Phases (any failure exits non-zero before the last line is printed):
    shape, bit-identical for 1-4 chunks; the LCSC ring all-gather at every
    ring all-gather shape and at 4 and 8 ranks, over repeated and
    alternating launches, bit-identical to the plain gather and to the ring
-   all-gather kernel) and is held
+   all-gather kernel; the all-to-all at Ulysses' q, kv and output
+   shapes at 1 and 2 chunks and the a2a MoE dispatch, bit-identical to
+   ``all_to_all_plain``, timed beside the bulk backend) and is held
    against its plain PyTorch version on the same
    inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
    <= 1e-3 for f32 outputs of bf16 inputs; one shape of each is then
@@ -144,6 +146,15 @@ Phases (any failure exits non-zero before the last line is printed):
 5d. SP reference: the same model cut to 2 layers, seq 2048 on (1, 4), the
    card against the port's plain f32 path on the CPU — loss within
    relative 1e-2, gradient norm within 3e-2;
+5f. Ulysses training: the model, parameters and batch of 5c with
+   ``sp_attention="ulysses"``, ``ulysses_chunks=2``, 3 calls; the
+   all-to-all and flash launches exactly what the code implies, no p2p or
+   hop, the loss within 1e-2 of 5c's ring loss, one layer's island at 2
+   chunks equal to 1 chunk bit for bit (details in ``train_ulysses``);
+5g. a2a MoE: ``pk_moe_a2a`` at moonshot-v1-16b-a3b's layer width on 4
+   virtual ranks x 512 tokens, within 1e-2 of the dense oracle, 2 chunks
+   within 1e-3 of 1, the grouped GEMM 3 launches a chunk (details in
+   ``moe_a2a``);
 5e. TP GEMM pair: tinyllama-1.1b's MLP at full width on (1, 4), 4096
    tokens, through declared ``Island``s: AG+GEMM (gate/up) and GEMM+RS
    (down) under every backend, fused within 1e-2 of bulk, the AG×GEMM and
@@ -155,9 +166,10 @@ Phases (any failure exits non-zero before the last line is printed):
    the tinyllama serving run's count for the serving kernels, the MoE
    serving run's for the grouped GEMM, the SSM serving run's for the
    selective scan, the training run's for the ring AG/RS kernels, the
-   sequence-parallel run's for the p2p shift and the flash hop, the TP
-   GEMM pair's for AG×GEMM, GEMM×RS and the LCSC all-gather;
-   ``launches_by_path`` has all six), then GEMM+AR's cold decode row, whose
+   sequence-parallel run's for the p2p shift and the flash hop, the
+   Ulysses run's for the all-to-all, the TP GEMM pair's for AG×GEMM,
+   GEMM×RS and the LCSC all-gather; ``launches_by_path`` has all eight
+   paths, 5g's a2a MoE among them), then GEMM+AR's cold decode row, whose
    counts are GEMM+AR's whole-path counts (prefill and decode together,
    the counter named by ``launches_counter``), not its own, and the
    all-gather's path-form row, whose counts are the all-gather's;
@@ -821,6 +833,67 @@ def check_kernels(dev) -> dict:
     entries.update(check_mamba_scan(dev, record, compare))
     entries.update(check_ring_kernels(dev, record, compare, randn))
     entries.update(check_tp_kernels(dev, record, compare, randn))
+    entries.update(check_a2a_kernel(dev, record, randn))
+    return entries
+
+
+def check_a2a_kernel(dev, record, randn) -> dict:
+    """Phase 3, the all-to-all kernel (``pk_comm.all_to_all``, the chunked
+    backend of ``CommContext.all_to_all``; it replaces no Pallas kernel) at
+    the shapes its paths give it, R = 4 ranks: Ulysses' q (4, 1, 32, 2048,
+    64) split 1 concat 2 at 1 and 2 chunks, its output's inverse (4, 1, 8,
+    8192, 64) split 2 concat 1 and kv (4, 1, 4, 2048, 64) at 2 chunks (the
+    path's, 64-byte rows) and 1, the a2a MoE dispatch (4, 4, 16, 512, 2048)
+    split = concat = 0 (phase 5g's capacity), q in f32 once; each
+    bit-identical to ``all_to_all_plain`` and on a second call. Timed: q
+    and the output at 2 chunks, the MoE dispatch, beside the bulk backend
+    (one strided torch copy, the library call) and the bytes bound (read
+    once, written once)."""
+    import torch
+
+    from repro_torch.core.comms import CommContext
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.kernels import pk_comm as PK
+
+    ctx = CommContext("x", mesh=VirtualMesh((4,), ("x",), dev))
+    entries = {}
+    for shape, a, c, key in (((4, 1, 32, 2048, 64), 1, 2, "pk_all_to_all"),
+                             ((4, 1, 8, 8192, 64), 2, 1, "pk_all_to_all@out"),
+                             ((4, 1, 4, 2048, 64), 1, 2, None),
+                             ((4, 4, 16, 512, 2048), 0, 0,
+                              "pk_all_to_all@moe"),
+                             ((4, 1, 32, 2048, 64), 1, 2, "f32")):
+        x = randn(*shape)
+        if key == "f32":
+            x, key = x.float(), None
+        want = PK.all_to_all_plain(x, a, c)
+        chunks = (1,) if a == c else (1, 2)
+        for n in chunks:
+            got = [PK.all_to_all(x, a, c, n_chunks=n) for _ in range(2)]
+            bits = [t.view(torch.uint8) for t in got + [want]]
+            if not (torch.equal(bits[0], bits[2])
+                    and torch.equal(bits[1], bits[2])):
+                raise AssertionError(f"pk_all_to_all {shape} split {a} "
+                                     f"concat {c} n_chunks {n}: not "
+                                     f"all_to_all_plain's bits")
+        print(f"[kernel] pk_all_to_all x{shape} {str(x.dtype)[6:]} split "
+              f"{a} concat {c}: bit-identical to all_to_all_plain at "
+              f"n_chunks {chunks}, twice each", flush=True)
+        if key is None:
+            continue
+        n = chunks[-1]
+        entries[key] = record(
+            "pk_all_to_all", f"x{shape} bf16 split {a} concat {c}, "
+            f"{n} chunk{'s' * (n > 1)}",
+            "src/repro_torch/kernels/csrc/pk_comm.cu",
+            "none: JAX's chunked all_to_all is lax.all_to_all "
+            "(src/repro/core/comms.py:1258)",
+            partial(PK.all_to_all, x, a, c, n_chunks=n),
+            partial(PK.all_to_all_plain, x, a, c),
+            partial(ctx.all_to_all, x, split_axis=a, concat_axis=c,
+                    backend="bulk"), 0.0, 2 * x.numel() * x.element_size(),
+            0.0, checked=(0.0, 0.0))
+        del x, want, got, bits
     return entries
 
 
@@ -1048,8 +1121,9 @@ def check_ring_kernels(dev, record, compare, randn) -> dict:
       same visible work — causal over all ranks at hop 0 (every block is
       its rank's own), non-causal over the ranks whose block is full
       (src < d) at hops 1-3;
-    * flash at head_dim 120 (h2o-danube-3-4b; padded to 128) against its
-      plain version."""
+    * flash at Ulysses' local mix (phase 5f), q (4·1, 8, 8192, 64) and kv
+      (4·1, 1, 8192, 64) causal, and at head_dim 120 (h2o-danube-3-4b;
+      padded to 128), against its plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -1130,6 +1204,16 @@ def check_ring_kernels(dev, record, compare, randn) -> dict:
             before=partial(mm_tile_flash_hop, q, k_, v, r, hop))
         del got, want
     entries["flash_attention_hop"] = entries.pop("flash_attention_hop@1")
+
+    # Ulysses' local mix (phase 5f): the 4 ranks folded into the batch, each
+    # with 8 of the 32 q heads and 1 of the 4 KV heads over all 8192 tokens
+    q, k_, v = (randn(r * b, h, r * s, hd) for h in (hq // r, hkv // r,
+                                                     hkv // r))
+    compare("flash_attention", f"q({r}*{b},{hq // r},{r * s},{hd}) "
+            f"kv({r}*{b},{hkv // r},{r * s},{hd}) causal (Ulysses' local "
+            "mix)", partial(FA.flash_attention, q, k_, v),
+            partial(FA.flash_attention_plain, q, k_, v), TOL_BF16_OUT)
+    del q, k_, v
 
     # C6: h2o-danube-3-4b's head_dim 120 (32 q heads, 8 KV heads), padded
     q, k_, v = (randn(2, 512, h, 120).transpose(1, 2) for h in (32, 8, 8))
@@ -1450,7 +1534,7 @@ KERNEL_COUNTERS = ("matmul", "flash_attention", "pk_matmul_ar",
                    "pk_all_gather", "pk_reduce_scatter", "grouped_matmul",
                    "mamba_scan", "p2p_ring_shift", "flash_attention_hop",
                    "ag_matmul_fused", "matmul_rs_fused",
-                   "lcsc_ring_all_gather")
+                   "lcsc_ring_all_gather", "pk_all_to_all")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
 
@@ -1491,7 +1575,8 @@ def _counters():
             "flash_attention_hop": FA.flash_attention_hop,
             "ag_matmul_fused": CM.ag_matmul_fused,
             "matmul_rs_fused": CM.matmul_rs_fused,
-            "lcsc_ring_all_gather": LC.lcsc_ring_all_gather}
+            "lcsc_ring_all_gather": LC.lcsc_ring_all_gather,
+            "pk_all_to_all": PK.all_to_all}
 
 
 def check_logits_launches(tag: str, launches: dict, st: dict) -> None:
@@ -2178,21 +2263,12 @@ def check_train_reference(dev) -> None:
                              f"plain path: {errs}")
 
 
-def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
-    """Phase 5c: the sequence-parallel training path — tinyllama-1.1b at
-    full width and depth (22 layers, d 2048, 32 q heads and 4 KV heads of
-    64, ff 5632, vocab 32000) on (1, 4), batch 1 x seq 8192 (2048 tokens a
-    virtual rank), ``comm_backend="fused"``, FSDP off, remat on (the
-    RunConfig default: a layer's forward runs again in the backward),
-    random weights from seed 0, tokens from a numpy seed. ``calls`` times
-    ``forward_train(seq_sharded=True)`` and its backward, with launch
-    counts around them: per call and layer the p2p kernel shifts k and v
-    R - 1 times and the flash hop runs R times in each of the 2 forward
-    passes. Then, on the same parameters and batch, the dense mix's loss
-    (a forward only) within 1e-2 of the ring's, and one layer's SP island
-    under fused equal to it under bulk, bit for bit (the shift is a
-    copy)."""
-    import dataclasses
+def sp_setup(dev, seq: int = 8192) -> dict:
+    """The sequence-parallel phases' model, shared by 5c and 5f:
+    tinyllama-1.1b at full width and depth (22 layers, d 2048, 32 q heads
+    and 4 KV heads of 64, ff 5632, vocab 32000) on (1, 4), batch 1 x seq
+    8192 (2048 tokens a virtual rank), FSDP off, random weights from seed
+    0, tokens from a numpy seed."""
     import gc
 
     import numpy as np
@@ -2201,7 +2277,6 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.pgl import VirtualMesh
-    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models.sharding import ShardingRules
 
@@ -2210,7 +2285,6 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
     cfg = get_config("tinyllama-1.1b")
     run = RunConfig(fsdp=False, comm_backend="fused")
     rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), dev), run)
-    r = rules.mesh.shape["model"]
     gen = torch.Generator(device=dev).manual_seed(0)
     params = T.init_params(T.param_template(cfg, run, rules), gen,
                            cfg.d_model, rules=rules, device=dev)
@@ -2220,12 +2294,21 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
              "targets": torch.from_numpy(rng.integers(
                  0, cfg.vocab_size, (1, seq))).to(dev),
              "weights": torch.ones((1, seq), device=dev)}
-    leaves = [p for _, p in T.leaves(params)]
+    return {"cfg": cfg, "run": run, "rules": rules, "params": params,
+            "batch": batch, "seq": seq}
+
+
+def sp_calls(dev, sp: dict, run, counters: dict, calls: int) -> dict:
+    """``calls`` times ``forward_train(seq_sharded=True)`` and its backward
+    on ``sp``'s model under ``run``, with the launch counts around them:
+    losses, wall times, launches, peak memory, gradients finite."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    leaves = [p for _, p in T.leaves(sp["params"])]
     for p in leaves:
         p.requires_grad_(True)
-    counters = {k: fn for k, fn in _counters().items()
-                if k in ("matmul", "flash_attention", "pk_matmul_ar",
-                         "p2p_ring_shift", "flash_attention_hop")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     at_start = torch.cuda.memory_allocated(dev)
@@ -2234,16 +2317,49 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
     losses, walls = [], []
     for _ in range(calls):
         t0 = time.perf_counter()
-        loss, _ = T.forward_train(params, batch, cfg, run, rules,
-                                  seq_sharded=True)
+        loss, _ = T.forward_train(sp["params"], sp["batch"], sp["cfg"], run,
+                                  sp["rules"], seq_sharded=True)
         grads = torch.autograd.grad(loss, leaves)
         losses.append(float(loss.detach()))  # the device->host read
         walls.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
-    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    out = {"losses": losses, "walls": walls, "at_start": at_start,
+           "launches": {k: fn.launches for k, fn in counters.items()},
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "finite": all(bool(torch.isfinite(g).all()) for g in grads)}
     del grads
+    for p in leaves:
+        p.requires_grad_(False)
+    return out
+
+
+def train_sp(dev, sp: dict, calls: int = 3) -> tuple[dict, float]:
+    """Phase 5c: the sequence-parallel training path on ``sp_setup``'s
+    model with ring attention, ``comm_backend="fused"``, remat on (the
+    RunConfig default: a layer's forward runs again in the backward).
+    ``calls`` times ``forward_train(seq_sharded=True)`` and its backward,
+    with launch counts around them: per call and layer the p2p kernel
+    shifts k and v R - 1 times and the flash hop runs R times in each of
+    the 2 forward passes. Then, on the same parameters and batch, the dense
+    mix's loss (a forward only) within 1e-2 of the ring's, and one layer's
+    SP island under fused equal to it under bulk, bit for bit (the shift
+    is a copy). Returns the launches and the first ring loss."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg, run, rules, seq = sp["cfg"], sp["run"], sp["rules"], sp["seq"]
+    params, batch = sp["params"], sp["batch"]
+    r = rules.mesh.shape["model"]
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "p2p_ring_shift", "flash_attention_hop")}
+    res = sp_calls(dev, sp, run, counters, calls)
+    losses, walls, launches = res["losses"], res["walls"], res["launches"]
+    peak, at_start, finite = res["peak"], res["at_start"], res["finite"]
     med = statistics.median(walls)
     passes = 2 if run.remat else 1
     want = {"p2p_ring_shift": 2 * (r - 1) * cfg.n_layers * passes * calls,
@@ -2273,8 +2389,6 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
                                  f"{launches[name]} times, not {n}")
     if launches["pk_matmul_ar"] <= 0:
         raise AssertionError("sp-train launched no pk_matmul_ar kernel")
-    for p in leaves:
-        p.requires_grad_(False)
     with torch.no_grad():
         dense = float(T.forward_train(params, batch, cfg, run, rules)[0])
     print(f"[train-sp] dense mix (seq_sharded=False, forward only) loss "
@@ -2302,10 +2416,201 @@ def train_sp(dev, calls: int = 3, seq: int = 8192) -> dict:
     if not same:
         raise AssertionError("the fused ring shift changed the island's "
                              "output")
-    del params, leaves, outs
+    return launches, losses[0]
+
+
+def train_ulysses(dev, sp: dict, ring_loss: float, calls: int = 3,
+                  chunks: int = 2) -> dict:
+    """Phase 5f: Ulysses sequence-parallel training on ``sp_setup``'s model
+    (the parameters and batch of phase 5c), ``RunConfig(fsdp=False,
+    comm_backend="fused", sp_attention="ulysses", ulysses_chunks=2)``:
+    ``calls`` times ``forward_train(seq_sharded=True)`` and its backward.
+    Per call and layer the all-to-all kernel runs ``chunks`` launches for
+    each of q, k, v and the output in each of the 2 forward passes (remat)
+    and for each of their 4 gradients, 4·c·layers·(passes + 1); the flash
+    kernel once a forward pass (its backward is the plain f32 recompute);
+    no p2p shift, no hop. The first loss within 1e-2 of phase 5c's ring
+    loss on the same batch; one layer's Ulysses island at the path's shape
+    under 2 chunks (the kernel) equal to it under 1 (bulk, a torch copy)
+    bit for bit: the all-to-all is a copy."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers as L
+
+    cfg, rules, seq = sp["cfg"], sp["rules"], sp["seq"]
+    run = dataclasses.replace(sp["run"], sp_attention="ulysses",
+                              ulysses_chunks=chunks)
+    r = rules.mesh.shape["model"]
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "p2p_ring_shift", "flash_attention_hop",
+                         "pk_all_to_all")}
+    res = sp_calls(dev, sp, run, counters, calls)
+    losses, walls, launches = res["losses"], res["walls"], res["launches"]
+    med = statistics.median(walls)
+    passes = 2 if run.remat else 1
+    want = {"pk_all_to_all": 4 * chunks * cfg.n_layers * (passes + 1)
+            * calls,
+            "flash_attention": cfg.n_layers * passes * calls,
+            "p2p_ring_shift": 0, "flash_attention_hop": 0,
+            "matmul": (seq // 512) * calls}
+    print(f"[train-ulysses] tinyllama-1.1b full width and depth, mesh (1, "
+          f"{r}), seq_sharded Ulysses attention, ulysses_chunks={chunks}, "
+          f"comm_backend=fused, batch 1 x seq {seq} ({seq // r} tokens a "
+          f"rank), remat: losses {[round(x, 5) for x in losses]}; wall "
+          f"times (host clock, each call ends in the loss's device->host "
+          f"read) {[round(t, 4) for t in walls]} s, median {med:.4f} s = "
+          f"{seq / med:.1f} tokens/s; max_memory_allocated {res['peak']} B "
+          f"({res['at_start']} B allocated at the start)", flush=True)
+    print(f"[train-ulysses] launches over {calls} calls {launches}; per "
+          f"call { {k: v / calls for k, v in launches.items()} }; expected "
+          f"all-to-all 4·c·layers·(passes + 1) = "
+          f"{want['pk_all_to_all'] // calls} (c = {chunks}: q, k, v and "
+          f"the output, each forward pass and their gradients), flash "
+          f"layers·passes = {want['flash_attention'] // calls}, matmul "
+          f"{want['matmul'] // calls}, p2p and hop 0 (passes = {passes})",
+          flush=True)
+    if not (all(map(math.isfinite, losses)) and res["finite"]):
+        raise AssertionError(f"ulysses losses or gradients not finite: "
+                             f"{losses}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"ulysses training launched {name} "
+                                 f"{launches[name]} times, not {n}")
+    if launches["pk_matmul_ar"] <= 0:
+        raise AssertionError("ulysses training launched no pk_matmul_ar "
+                             "kernel")
+    print(f"[train-ulysses] loss {losses[0]:.5f} vs ring (phase 5c) "
+          f"{ring_loss:.5f}: |diff| {abs(losses[0] - ring_loss):.3e} (tol "
+          f"1e-2)", flush=True)
+    if not abs(losses[0] - ring_loss) <= 1e-2:
+        raise AssertionError("the Ulysses loss disagrees with the ring's")
+
+    # one layer's island at the path's shape, chunked (the kernel) against
+    # bulk (a torch copy)
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = ((torch.randn((1, h, seq, cfg.hd), generator=g, device=dev)
+                ).to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads,
+                                               cfg.n_kv_heads))
+    outs, kern = {}, _counters()["pk_all_to_all"]
+    with torch.no_grad():
+        for c in (chunks, 1):
+            kern.launches = 0
+            isl = L.sp_attention_island(
+                cfg, dataclasses.replace(run, ulysses_chunks=c), rules, 1,
+                seq)
+            outs[c] = isl(q=q, k=k, v=v)
+            print(f"[train-ulysses] island ulysses_chunks={c}: plan "
+                  f"{isl.plan()}; all-to-all kernel launches "
+                  f"{kern.launches}", flush=True)
+            if kern.launches != (4 * c if c > 1 else 0):
+                raise AssertionError(f"the Ulysses island at {c} chunks "
+                                     f"launched the all-to-all kernel "
+                                     f"{kern.launches} times")
+    torch.cuda.synchronize()
+    same = torch.equal(outs[chunks], outs[1])
+    print(f"[train-ulysses] one layer's Ulysses island q(1,{cfg.n_heads},"
+          f"{seq},{cfg.hd}): {chunks} chunks equal 1 chunk (bulk) bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        raise AssertionError("the chunked all-to-all changed the Ulysses "
+                             "island's output")
+    return launches
+
+
+def moe_a2a(dev, tokens: int = 512, seed: int = 11) -> dict:
+    """Phase 5g: ``pk_moe_a2a`` at moonshot-v1-16b-a3b's layer width (64
+    experts top-6, d 2048, expert ff 1408, bf16) on 4 virtual ranks, 16
+    experts a rank, one layer's random weights (1.1 GB of experts) and
+    ``tokens`` tokens a rank from seed ``seed``, capacity factor E / k so
+    nothing drops (capacity = tokens): the output within relative 1e-2 of
+    ``moe_reference_dense`` on all 4 x ``tokens`` tokens (the same bf16
+    kernels, routing decided alike: only roundings differ), 2 capacity
+    chunks within relative 1e-3 of 1 (the f32 combine; the scatter order
+    and the expert GEMMs' row counts differ), the grouped GEMM launched 3
+    times a chunk (first held against its plain version at the path's
+    shape); device ms of one call at 1 and 2 chunks."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe
+    from repro_torch.core.comms import CommContext
+    from repro_torch.core.pgl import VirtualMesh
+
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    cfg = get_config(MOE_ARCH)
+    e, k, d, ff, r = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff, 4
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    x = randn(r, tokens, d)
+    wr = randn(d, e, scale=d ** -0.5)
+    w1, w3 = randn(e, d, ff, scale=d ** -0.5), randn(e, d, ff,
+                                                      scale=d ** -0.5)
+    w2 = randn(e, ff, d, scale=ff ** -0.5)
+    ctx = CommContext("x", mesh=VirtualMesh((r,), ("x",), dev))
+    kw = dict(ctx=ctx, n_experts=e, top_k=k, capacity_factor=e / k)
+    cap = moe.dispatch_plan(tokens, n_experts=e, top_k=k,
+                            capacity_factor=e / k).cap
+    gm, a2a = _counters()["grouped_matmul"], _counters()["pk_all_to_all"]
+    from repro_torch.kernels import grouped_matmul as GM
+    xg = randn(e, r * cap, d)              # the expert GEMM's w1 at 1 chunk
+    err_g = rel_err(GM.grouped_matmul(xg, w1, out_dtype=torch.float32),
+                    GM.grouped_matmul_plain(xg, w1, out_dtype=torch.float32))
+    print(f"[moe-a2a] grouped_matmul x({e},{r * cap},{d})@w({e},{d},{ff}) "
+          f"f32 out: rel_err {err_g:.3e} (tol {TOL_F32_OUT:g})", flush=True)
+    if not err_g <= TOL_F32_OUT:
+        raise AssertionError("grouped_matmul disagrees with its plain "
+                             "version at the a2a MoE's shape")
+    del xg
+
+    def call(n_chunks):
+        return moe.pk_moe_a2a(
+            x, wr.expand(r, d, e), *(w.view(r, e // r, *w.shape[1:])
+                                     for w in (w1, w3, w2)),
+            n_chunks=n_chunks, **kw)
+
+    outs, launches = {}, {}
+    for n_chunks in (1, 2):
+        gm.launches = a2a.launches = 0
+        outs[n_chunks] = call(n_chunks)
+        torch.cuda.synchronize()
+        launches[n_chunks] = {"grouped_matmul": gm.launches,
+                              "pk_all_to_all": a2a.launches}
+        if gm.launches != 3 * n_chunks:
+            raise AssertionError(f"pk_moe_a2a at {n_chunks} chunks launched "
+                                 f"grouped_matmul {gm.launches} times, not "
+                                 f"{3 * n_chunks}")
+    want, _ = moe.moe_reference_dense(x.view(r * tokens, d), wr, w1, w3, w2,
+                                      n_experts=e, top_k=k)
+    got = outs[1][0].view(r * tokens, d)
+    err = rel_err(got, want)
+    err2 = rel_err(outs[2][0], outs[1][0])
+    aux_ok = torch.allclose(outs[2][1], outs[1][1])
+    ms = {c: time_ms(partial(call, c), iters=5, reps=3, warmup=1)
+          for c in (1, 2)}
+    print(f"[moe-a2a] pk_moe_a2a {MOE_ARCH} layer width (E {e}, top-{k}, d "
+          f"{d}, ff {ff}) on {r} virtual ranks x {tokens} tokens, capacity "
+          f"{cap} (factor E/k): vs moe_reference_dense rel_err {err:.3e} "
+          f"(tol 1e-2); 2 chunks vs 1 rel_err {err2:.3e} (tol 1e-3), aux "
+          f"equal: {aux_ok}; launches {launches}; device ms a call: 1 "
+          f"chunk {ms[1]:.4f}, 2 chunks {ms[2]:.4f}", flush=True)
+    if not (err <= 1e-2 and err2 <= 1e-3 and aux_ok
+            and all(map(math.isfinite, (err, err2)))):
+        raise AssertionError(f"pk_moe_a2a disagrees: dense {err:.3e}, "
+                             f"chunks {err2:.3e}, aux {aux_ok}")
+    del outs, want, got, x, w1, w3, w2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches[1]
 
 
 def check_sp_reference(dev, seq: int = 2048) -> None:
@@ -2536,8 +2841,12 @@ def main() -> int:
     ssm_launches = serve_ssm(dev)
     train_launches = train(dev)
     check_train_reference(dev)
-    sp_launches = train_sp(dev)
+    sp = sp_setup(dev)
+    sp_launches, ring_loss = train_sp(dev, sp)
+    ulysses_launches = train_ulysses(dev, sp, ring_loss)
+    del sp
     check_sp_reference(dev)
+    moe_a2a_launches = moe_a2a(dev)
     tp_launches = tp_gemm(dev)
     main_entries = []
     for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
@@ -2548,6 +2857,8 @@ def main() -> int:
                    "serve_ssm": ssm_launches.get(counter, 0),
                    "train": train_launches.get(counter, 0),
                    "train_sp": sp_launches.get(counter, 0),
+                   "train_ulysses": ulysses_launches.get(counter, 0),
+                   "moe_a2a": moe_a2a_launches.get(counter, 0),
                    "tp_gemm": tp_launches.get(counter, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
@@ -2555,7 +2866,8 @@ def main() -> int:
                      "flash_attention_hop": "train_sp",
                      "ag_matmul_fused": "tp_gemm",
                      "matmul_rs_fused": "tp_gemm",
-                     "lcsc_ring_all_gather": "tp_gemm"}.get(
+                     "lcsc_ring_all_gather": "tp_gemm",
+                     "pk_all_to_all": "train_ulysses"}.get(
             counter, "serve" if counter in serve_launches else "train")
         entry = dict(entries[key], launches=by_path[main_path],
                      launches_by_path=by_path)
@@ -2570,7 +2882,8 @@ def main() -> int:
                 "pk_reduce_scatter@r4", "pk_reduce_scatter@r8",
                 "lcsc_ring_all_gather@r4", "lcsc_ring_all_gather@r8",
                 "flash_attention_hop@0", "flash_attention_hop@2",
-                "flash_attention_hop@3"):
+                "flash_attention_hop@3", "pk_all_to_all@out",
+                "pk_all_to_all@moe"):
         print(f"[kernel-extra] {json.dumps(entries[key])}", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": main_entries}), flush=True)

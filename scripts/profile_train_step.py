@@ -3,6 +3,7 @@
 
     python3 scripts/profile_train_step.py [--out FILE] [--steps N]
                                           [--seq-sharded]
+                                          [--sp-attention ring|ulysses]
 
 Builds the training run of ``chip_smoke.py`` — tinyllama-1.1b at full width
 and depth on a (2, 4) virtual mesh (data x model) with FSDP, every
@@ -13,8 +14,10 @@ step in its own ``record_function`` range and the optimizer update in a
 range of its own. With ``--seq-sharded`` it profiles chip_smoke's
 sequence-parallel run instead: ``forward_train(seq_sharded=True)`` and its
 backward (no optimizer) on (1, 4), batch 1 x seq 8192, ring attention over
-the fused p2p shift, the backward in a range of its own (reported as
-``backward_*`` in place of ``optimizer_*``). It prints one JSON object
+the fused p2p shift (``--sp-attention ulysses``: Ulysses, as chip_smoke's
+phase 5f runs it, ``ulysses_chunks=2`` on the all-to-all kernel), the
+backward in a range of its own (reported as ``backward_*`` in place of
+``optimizer_*``). It prints one JSON object
 with the median over the profiled steps of:
 
 - ``wall_ms``: the step's host wall time (the profiler's CPU range), beside
@@ -57,8 +60,12 @@ def main() -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced config (a rehearsal of the script)")
     ap.add_argument("--seq-sharded", action="store_true",
-                    help="profile the sequence-parallel (ring attention) "
-                         "forward and backward of chip_smoke's sp-train")
+                    help="profile the sequence-parallel forward and "
+                         "backward of chip_smoke's sp-train")
+    ap.add_argument("--sp-attention", choices=("ring", "ulysses"),
+                    default="ring",
+                    help="with --seq-sharded: ring (phase 5c) or Ulysses "
+                         "attention (phase 5f)")
     ap.add_argument("--device", default=None,
                     help="default cuda; cpu rehearses the script and exits "
                          "1, with no device activity to read")
@@ -90,9 +97,11 @@ def main() -> int:
     if args.seq_sharded:
         batch, seq, mesh, sub = 1, 64 if args.reduced else 8192, (1, 4), \
             "backward"
-        run = RunConfig(fsdp=False, comm_backend="fused")
-        config = (f"{cfg.name} mesh (1, 4) seq_sharded ring attention, "
-                  f"fused, batch {batch} x seq {seq}, remat, no optimizer")
+        run = RunConfig(fsdp=False, comm_backend="fused",
+                        sp_attention=args.sp_attention, ulysses_chunks=2)
+        config = (f"{cfg.name} mesh (1, 4) seq_sharded {args.sp_attention} "
+                  f"attention, fused, batch {batch} x seq {seq}, remat, no "
+                  "optimizer")
     else:
         batch, seq, mesh, sub = 8, 512, (2, 4), "optimizer"
         run = RunConfig(fsdp=True, microbatches=2, comm_backend="fused")

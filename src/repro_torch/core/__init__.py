@@ -8,3 +8,7 @@ from repro_torch.core.ring_attention import (  # noqa: F401
     ring_attention_baseline,
     ssm_entry_states,
 )
+from repro_torch.core.ulysses import (  # noqa: F401
+    pk_ulysses_attention,
+    ulysses_attention_baseline,
+)

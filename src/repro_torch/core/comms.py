@@ -19,6 +19,7 @@ Ported ops::
     ``all_gather(x, axis=)``        bulk | fused
     ``reduce_scatter(x, axis=)``    bulk | fused
     ``ring_shift(tree)``            bulk | fused
+    ``all_to_all(x, split, concat)`` bulk | chunked
     ==============================  =======================================
 
 ``bulk``  — GEMM in f32, then the collective over ranks in rank order.
@@ -37,9 +38,14 @@ Ported ops::
             ``reduce_scatter`` the ring kernels of ``kernels/pk_comm.py``;
             for ``ring_shift`` its p2p kernel. The fused AG×GEMM and GEMM×RS
             are forward-only, as in JAX (ROADMAP C9).
+``chunked`` — ``all_to_all`` only: the payload cut along a bystander dim
+            (``schedule.a2a_chunk_axis``), one launch of the all-to-all
+            kernel of ``kernels/pk_comm.py`` a chunk on a CUDA device, its
+            plain version on the CPU; bulk where no bystander dim splits,
+            as in JAX. Bulk is one strided torch copy. The op is a copy, so
+            every chunk count gives bulk's bits.
 
-``all_to_all`` raises ``NotImplementedError`` naming the ROADMAP item that
-ports it. Backend precedence is the JAX package's:
+Backend precedence is the JAX package's:
 per-call ``backend=`` > context pin > policy, with the same ``ValueError``
 shape guards. The policy is analytic only (``policy="measured"/"auto"`` is
 queue item 12) and prices on ``H100_SXM`` by default; quantized wires are
@@ -56,8 +62,8 @@ import torch
 
 from repro_torch.core import costmodel as cm
 from repro_torch.core.schedule import (GEMM_CHUNK_DIM, ChunkSchedule,
-                                       OverlapPolicy, choose_a2a_chunks,
-                                       choose_gemm_chunks,
+                                       OverlapPolicy, a2a_chunk_axis,
+                                       choose_a2a_chunks, choose_gemm_chunks,
                                        choose_gemm_collective)
 
 __all__ = ["CommContext", "OP_BACKENDS", "GEMM_OP_KIND",
@@ -83,11 +89,6 @@ _ALL_BACKENDS = {b for bs in OP_BACKENDS.values() for b in bs}
 GEMM_OP_KIND = {"all_gather_matmul": "all_gather",
                 "matmul_reduce_scatter": "reduce_scatter",
                 "matmul_all_reduce": "all_reduce"}
-
-#: ops of the JAX registry not ported yet, and where they live
-_NOT_PORTED = {
-    "all_to_all": "ROADMAP A3 (chunked all_to_all, for MoE A9)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,13 +373,6 @@ class CommContext:
         return collective_matmul.matmul_ar_fused(
             x, w, n_chunks=sched.n_chunks).to(x.dtype)
 
-    def _not_ported(self, op: str):
-        raise NotImplementedError(
-            f"CommContext.{op} is not ported yet: {_NOT_PORTED[op]}")
-
-    def all_to_all(self, x, **kw):
-        self._not_ported("all_to_all")
-
     def ring_shift(self, x, *, reverse: bool = False,
                    backend: str | None = None):
         """One-hop ring rotation of a pytree of stacked ``(R, ...)``
@@ -398,6 +392,44 @@ class CommContext:
         return _tree_map(shift, x)
 
     # -- data-movement ops -------------------------------------------------
+
+    def all_to_all(self, x: torch.Tensor, *, split_axis: int,
+                   concat_axis: int, backend: str | None = None,
+                   n_chunks: int | None = None,
+                   downstream_compute_s: float = 0.0) -> torch.Tensor:
+        """Re-sharding all-to-all (paper Fig. 11/17: Ulysses head <->
+        sequence, MoE dispatch): stacked (R, *local) -> (R, *local'), the
+        local ``split_axis`` R times shorter and ``concat_axis`` R times
+        longer; block r of rank s's split dim lands at concat position s on
+        rank r. ``auto`` takes ``chunked`` when ``n_chunks`` (else the
+        analytic ``choose_a2a_chunks``) is above 1; a pinned ``chunked``
+        runs at least 2 chunks. The gradient is the same all-to-all with
+        the axes swapped, on the same backend and chunk count."""
+        self._check_stacked(x)
+        from repro_torch.kernels import pk_comm
+        local = tuple(x.shape[1:])
+        pk_comm.a2a_local_shape(local, self.axis_size, split_axis,
+                                concat_axis)
+
+        def auto_chunks() -> int:
+            return choose_a2a_chunks(
+                math.prod(local) * x.element_size(),
+                axis_size=self.axis_size,
+                downstream_compute_s=downstream_compute_s, hw=self.hw,
+                shape=local, split_axis=split_axis, concat_axis=concat_axis)
+
+        def auto() -> str:
+            c = n_chunks if n_chunks is not None else auto_chunks()
+            return "chunked" if c > 1 else "bulk"
+
+        be = self._resolve("all_to_all", backend, auto)
+        c = 1
+        if be == "chunked":
+            want = max(2, n_chunks if n_chunks is not None
+                       else auto_chunks())
+            fit = a2a_chunk_axis(local, split_axis, concat_axis, want)
+            c = fit[1] if fit is not None else 1
+        return _AllToAll.apply(x, split_axis, concat_axis, c)
 
     def all_gather(self, x: torch.Tensor, *, axis: int = 0,
                    backend: str | None = None, order=None) -> torch.Tensor:
@@ -553,6 +585,32 @@ class _RingShift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return torch.roll(g, -1, 0)
+
+
+def all_to_all_stacked(x: torch.Tensor, split_axis: int, concat_axis: int,
+                       n_chunks: int) -> torch.Tensor:
+    """The all-to-all of (R, *local): bulk (one strided torch copy) for one
+    chunk, else the kernel of ``kernels/pk_comm.py``, one launch a chunk."""
+    from repro_torch.kernels import pk_comm
+    if n_chunks == 1:
+        return pk_comm.all_to_all_plain(x, split_axis, concat_axis)
+    return pk_comm.all_to_all(x, split_axis, concat_axis, n_chunks=n_chunks)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The transpose of an all-to-all is the all-to-all with split and
+    concat swapped (JAX's rule for ``lax.all_to_all``): a copy both ways."""
+
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, n_chunks):
+        ctx.opts = (split_axis, concat_axis, n_chunks)
+        return all_to_all_stacked(x, split_axis, concat_axis, n_chunks)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis, n_chunks = ctx.opts
+        return (all_to_all_stacked(g, concat_axis, split_axis, n_chunks),
+                None, None, None)
 
 
 class _AllGather(torch.autograd.Function):

@@ -16,10 +16,17 @@ every rank), the capacity selection per rank, and the three expert GEMMs of
 all ``R · E_loc`` experts run as one launch each of the grouped-GEMM kernel
 (``kernels/grouped_matmul.py``).
 
+A2a dispatch (:func:`pk_moe_a2a`, the paper-faithful GShard schedule of
+§4.3): each rank holds its own tokens, routes them, all-to-alls each
+expert's chosen tokens to the rank that owns the expert, runs the expert
+GEMMs there and all-to-alls the outputs back, once per capacity chunk. On
+virtual ranks the body runs once: routing and capacity are per rank, on its
+own tokens; the expert GEMMs of all ``R · E_loc`` experts are one
+grouped-GEMM launch each. Neither package's model calls it
+(``RunConfig.moe_strategy`` is read by neither), so it is an op.
+
 Every top-k goes through :func:`topk_stable`, which breaks ties toward the
-lower index as ``lax.top_k`` does (``torch.topk`` does not). The
-a2a-dispatch strategy (``pk_moe_a2a``) needs ``CommContext.all_to_all`` and
-is not ported (ROADMAP A9).
+lower index as ``lax.top_k`` does (``torch.topk`` does not).
 """
 
 from __future__ import annotations
@@ -178,6 +185,62 @@ def pk_moe_replicated(x, router_w, w1, w3, w2, *, ctx, n_experts: int,
     y = ctx.psum(y.view(r_n, t, d).to(x.dtype),
                  backend="ring" if ring_combine else "bulk")
     return y, aux_load_balance_loss(r, n_experts)
+
+
+def pk_moe_a2a(x, router_w, w1, w3, w2, *, ctx, n_experts: int, top_k: int,
+               capacity_factor: float = 1.25, norm_topk: bool = True,
+               n_chunks: int = 1, plan: DispatchPlan | None = None):
+    """A2a-dispatch MoE over the stacked ranks of ``ctx``'s axis (JAX
+    ``pk_moe_a2a``): experts sharded ``E_loc = E / R`` (rank r owns experts
+    ``[r · E_loc, ...)``), each rank's tokens its own.
+
+    x: (R, T, d); router_w: (R, d, E), the same on every rank; w1/w3: (R,
+    E_loc, d, ff), w2: (R, E_loc, ff, d) (w3 None: ungated). Returns ((R,
+    T, d) in x's dtype, each rank's aux loss (R,)). ``n_chunks`` > 1 splits
+    the capacity loop (the shared ``DispatchPlan``); each chunk's dispatch
+    is the destination-major ``(R, E_loc, Cc, d)`` of every rank, sent and
+    returned by bulk all-to-alls (split = concat = 0), as JAX pins them;
+    the combine scatter-adds in f32."""
+    r_n, t, d = x.shape
+    if n_experts % r_n or w1.shape[1] != n_experts // r_n:
+        raise ValueError(f"{n_experts} experts over {r_n} ranks, w1 holding "
+                         f"{w1.shape[1]} a rank")
+    e_loc = n_experts // r_n
+    if plan is None:
+        plan = dispatch_plan(t, n_experts=n_experts, top_k=top_k,
+                             capacity_factor=capacity_factor,
+                             n_chunks=n_chunks)
+    rt = route(x, router_w, top_k=top_k, norm_topk=norm_topk)  # (R, T, ..)
+    hit = rt.top_idx[..., None] == torch.arange(n_experts, device=x.device)
+    gates = torch.einsum("rtke,rtk->ret", hit.float(), rt.top_vals)
+    sel_gate, sel_idx = topk_stable(gates, plan.cap)         # (R, E, C)
+    valid = (sel_gate > 0).float()
+    aux = torch.stack([aux_load_balance_loss(
+        RouterOut(rt.probs[i], rt.top_vals[i], rt.top_idx[i]), n_experts)
+        for i in range(r_n)])
+
+    rows = (torch.arange(r_n, device=x.device) * t).view(r_n, 1, 1)
+    x_all = x.reshape(r_n * t, d)
+    y = torch.zeros((r_n * t, d), dtype=torch.float32, device=x.device)
+    c = plan.chunk
+    for ci in range(plan.n_chunks):
+        sl = slice(ci * c, (ci + 1) * c)
+        idx_c = sel_idx[..., sl] + rows                          # (R, E, Cc)
+        # [src, dst, local expert, slot] -> [dst, src, ...]: the tokens
+        # rank src sends to the owner of each expert, arriving by source
+        x_send = x_all.index_select(0, idx_c.reshape(-1)).view(
+            r_n, r_n, e_loc, c, d)
+        x_recv = ctx.all_to_all(x_send, split_axis=0, concat_axis=0,
+                                backend="bulk")
+        x_mine = x_recv.transpose(1, 2).reshape(r_n, e_loc, r_n * c, d)
+        out = _expert_ffn(x_mine, w1, w3, w2).to(x.dtype)
+        out = out.view(r_n, e_loc, r_n, c, d).transpose(1, 2)
+        back = ctx.all_to_all(out, split_axis=0, concat_axis=0,
+                              backend="bulk").reshape(r_n, n_experts, c, d)
+        wgt = (sel_gate[..., sl] * valid[..., sl])[..., None]
+        y.index_add_(0, idx_c.reshape(-1),
+                     (back.float() * wgt).reshape(-1, d))
+    return y.view(r_n, t, d).to(x.dtype), aux
 
 
 def moe_reference_dense(x, router_w, w1_full, w3_full, w2_full, *,

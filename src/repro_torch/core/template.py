@@ -38,6 +38,7 @@ import torch
 from repro_torch.core import pgl
 from repro_torch.core.comms import GEMM_OP_KIND, OP_BACKENDS, CommContext
 from repro_torch.core.pgl import P
+from repro_torch.core.schedule import a2a_chunk_axis
 
 __all__ = ["Island", "Gather", "Comm", "IslandPlan", "Stacked",
            "comm_context", "render_plans", "plan_overrides",
@@ -132,6 +133,14 @@ class Comm:
     n_chunks: int | None = None
     chunk_dim: str | None = None
     backend: str | None = None
+    #: an all-to-all's local payload shape and axes, so plan() fits the
+    #: chunk count to the splittable bystander dims as the runtime does
+    shape: tuple[int, ...] | None = None
+    split_axis: int | None = None
+    concat_axis: int | None = None
+    #: where a declared n_chunks came from ("plan" for a frozen override,
+    #: "analytic" for the chunk policy); plan() reports it
+    source: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +182,8 @@ def render_plans(plans: Sequence[IslandPlan]) -> str:
 def plan_overrides(plans: Sequence[IslandPlan]) -> tuple:
     """Freeze resolved plans into ``RunConfig.island_overrides`` entries:
     ``(island, backend, sub-chunks per ring step)`` for GEMM×collective
-    islands, ``(island, backend, None)`` for the others."""
+    islands, ``(island, backend, total chunks)`` for all-to-all islands,
+    ``(island, backend, None)`` for the others."""
     out = []
     for p in plans:
         if p.fallback or p.backend is None:
@@ -182,6 +192,8 @@ def plan_overrides(plans: Sequence[IslandPlan]) -> tuple:
         if (p.op in GEMM_OP_KIND and p.n_chunks
                 and p.backend in ("ring", "ring_bidir", "fused")):
             chunks = max(1, p.n_chunks // max(p.axis_size, 1))
+        elif p.op == "all_to_all":
+            chunks = p.n_chunks
         out.append((p.island, p.backend, chunks))
     return tuple(out)
 
@@ -429,6 +441,24 @@ class Island:
                 chunk_dim=chunk_dim, hidden_fraction=hidden,
                 source="analytic", wire=wire,
                 reason=reason if reason is not None else pol.reason)
+        if c.op == "all_to_all":
+            # the island's constructor resolved the count and its source
+            # (Ulysses: ulysses_chunks, a frozen plan or the policy)
+            n_chunks = c.n_chunks
+            if n_chunks > 1:
+                # the runtime's bystander-dim fit: never report a chunking
+                # it would bulk away
+                fit = a2a_chunk_axis(c.shape, c.split_axis, c.concat_axis,
+                                     n_chunks)
+                n_chunks = fit[1] if fit is not None else 1
+            backend = c.backend or ("chunked" if n_chunks > 1 else "bulk")
+            if backend == "chunked" and n_chunks <= 1:
+                backend = "bulk"
+            return dataclasses.replace(
+                base, backend=backend, n_chunks=n_chunks,
+                hidden_fraction=1.0 - 1.0 / n_chunks if n_chunks > 1
+                else 0.0, source=c.source or "analytic",
+                reason=f"a2a chunk policy -> {n_chunks} chunks")
         backend = c.backend
         if backend is None and ctx.backend in OP_BACKENDS.get(c.op, ()):
             backend = ctx.backend

@@ -124,6 +124,12 @@ SIGNATURES = {
     # plan's), stream
     "pk_p2p_ring_shift": [ctypes.POINTER(ctypes.c_uint64)] * 2
                          + [_P, _I, _L, _L, _I, _P],
+    # in ptrs, out ptrs, R, unit, dims, extents, input and output strides
+    # (int64[dims]), dst_in, src_out, rows, row words, tail, piece, pieces,
+    # rows a tile, grid (the plan's), stream
+    "pk_all_to_all": [ctypes.POINTER(ctypes.c_uint64)] * 2 + [_I, _I, _I]
+                     + [ctypes.POINTER(ctypes.c_int64)] * 3 + [_L, _L]
+                     + [_I] * 7 + [_P],
     # the kernel B8 ran on before, a timing yardstick
     # (csrc/pk_comm_yardstick.cu): in ptrs, out ptrs, flags, R, blk bytes,
     # stream

@@ -1,7 +1,9 @@
-// Ring all-gather, ring reduce-scatter and the one-hop p2p ring shift over
-// the ranks of a PGL. Port of repro/kernels/pk_comm.py::ring_all_gather,
-// ::ring_reduce_scatter and ::p2p_ring_shift; the design note is in
-// kernels/pk_comm.py.
+// Ring all-gather, ring reduce-scatter, the one-hop p2p ring shift and the
+// all-to-all over the ranks of a PGL. Port of
+// repro/kernels/pk_comm.py::ring_all_gather, ::ring_reduce_scatter and
+// ::p2p_ring_shift; the all-to-all replaces no Pallas kernel (JAX's chunked
+// all-to-all is lax.all_to_all, the TPU's native collective). The design
+// note is in kernels/pk_comm.py.
 //
 // all-gather:     TMA staged. A persistent grid walks the (source s, tile)
 //                 items of the plan (kernels/pk_comm.py ag_plan); a tile is
@@ -43,6 +45,15 @@
 //                 could wait on a block not yet resident and deadlock. The
 //                 hop needs no wait: its output is a fresh buffer and the
 //                 stream orders it after the producer of the input.
+// all-to-all:     a persistent grid walks the (source s, destination d,
+//                 tile) items of the plan (kernels/pk_comm.py a2a_plan);
+//                 block d of in[s]'s split dim goes to slot s of out[d]'s
+//                 concat dim. A block is rows of contiguous bytes under up
+//                 to four strided dims; a tile is a run of rows times a
+//                 piece of a row. Threads move the widest word every row
+//                 start allows, four loads in flight, and a row's tail
+//                 past its whole words byte by byte. No flag, no wait:
+//                 the items are independent.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -395,6 +406,94 @@ __global__ void __launch_bounds__(P2P_THREADS)
   }
 }
 
+// -- all-to-all: a strided copy of R x R blocks, persistent, no flags --
+
+constexpr int A2A_THREADS = 512;
+constexpr int A2A_UNROLL = 4;  // words in flight a thread
+constexpr int A2A_DIMS = 4;
+
+// The strided dims above a row, inner first: extents, input and output
+// strides in bytes.
+struct A2aDims {
+  int ext[A2A_DIMS];
+  long long in[A2A_DIMS], out[A2A_DIMS];
+};
+
+// Row `row` of a block: its input and output byte offsets.
+__device__ __forceinline__ void a2a_row(const A2aDims& w, int nd, int row,
+                                        long long& io, long long& oo) {
+  io = 0;
+  oo = 0;
+#pragma unroll
+  for (int k = 0; k < A2A_DIMS; ++k) {
+    if (k < nd) {
+      const int q = row / w.ext[k];
+      const int i = row - q * w.ext[k];
+      io += i * w.in[k];
+      oo += i * w.out[k];
+      row = q;
+    }
+  }
+}
+
+// Item i is pair (s, d) = divmod(i / tiles, R), tile t = i % tiles: rows
+// [row0, row0 + rows_per_tile) of the block, words [w0, w0 + piece) of each
+// row, and the row's tail with its last piece.
+template <typename U>
+__global__ void __launch_bounds__(A2A_THREADS)
+    pk_a2a_kernel(const __grid_constant__ pk::PtrTable src,
+                  const __grid_constant__ pk::PtrTable dst,
+                  const __grid_constant__ A2aDims w, int nd, int R,
+                  long long dst_in, long long src_out, int rows,
+                  int row_words, int tail, int piece, int pieces,
+                  int rows_per_tile, int tiles) {
+  const int items = R * R * tiles;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const int pair = i / tiles, t = i - pair * tiles;
+    const int s = pair / R, d = pair - s * R;
+    const int rt = t / pieces, pc = t - rt * pieces;
+    const int row0 = rt * rows_per_tile;
+    const int nrows = min(rows_per_tile, rows - row0);
+    const int w0 = pc * piece;
+    const int nw = min(piece, row_words - w0);
+    const unsigned char* in =
+        reinterpret_cast<const unsigned char*>(src.p[s]) + d * dst_in;
+    unsigned char* out = reinterpret_cast<unsigned char*>(dst.p[d]) +
+                         s * src_out;
+    const int n = nw > 0 ? nrows * nw : 0;
+    for (int f = threadIdx.x; f < n; f += A2A_THREADS * A2A_UNROLL) {
+      U v[A2A_UNROLL];
+      long long to[A2A_UNROLL];
+#pragma unroll
+      for (int k = 0; k < A2A_UNROLL; ++k) {
+        const int e = f + k * A2A_THREADS;
+        if (e < n) {
+          const int row = row0 + e / nw;
+          const long long col = (long long)(w0 + e % nw) * sizeof(U);
+          long long io, oo;
+          a2a_row(w, nd, row, io, oo);
+          v[k] = __ldg(reinterpret_cast<const U*>(in + io + col));
+          to[k] = oo + col;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < A2A_UNROLL; ++k) {
+        const int e = f + k * A2A_THREADS;
+        if (e < n) *reinterpret_cast<U*>(out + to[k]) = v[k];
+      }
+    }
+    if (tail > 0 && pc == pieces - 1) {
+      const long long lo = (long long)row_words * sizeof(U);
+      for (int f = threadIdx.x; f < nrows * tail; f += A2A_THREADS) {
+        const int row = row0 + f / tail;
+        long long io, oo;
+        a2a_row(w, nd, row, io, oo);
+        out[oo + lo + f % tail] = in[io + lo + f % tail];
+      }
+    }
+  }
+}
+
 bool aligned16(const unsigned long long* ptrs, int R) {
   for (int i = 0; i < R; ++i)
     if (ptrs[i] % 16) return false;
@@ -595,4 +694,59 @@ extern "C" int pk_p2p_ring_shift(const unsigned long long* in_ptrs,
         tile_bytes / (long)sizeof(U), tiles);
     return (int)cudaGetLastError();
   });
+}
+
+// in/out: host tables of R rank addresses: rank s's input (its local
+// tensor, any strides) and rank d's output (its local tensor after the
+// all-to-all). The launch is the plan's (kernels/pk_comm.py a2a_plan): the
+// word of `unit` bytes, nd <= 4 strided dims above a row (extents, input
+// and output strides in bytes), block (s, d) at in[s] + d * dst_in and
+// out[d] + s * src_out, rows of row_words words and tail bytes, items of
+// rows_per_tile rows times a piece of piece words (pieces a row), the
+// persistent grid. A unit that does not divide every address and stride
+// is refused.
+extern "C" int pk_all_to_all(const unsigned long long* in_ptrs,
+                             const unsigned long long* out_ptrs, int R,
+                             int unit, int nd, const long long* ext,
+                             const long long* in_st, const long long* out_st,
+                             long long dst_in, long long src_out, int rows,
+                             int row_words, int tail, int piece, int pieces,
+                             int rows_per_tile, int grid, void* stream) {
+  if (R < 1 || R > PK_MAX_RANKS || nd < 0 || nd > A2A_DIMS || grid < 1 ||
+      rows < 0 || row_words < 0 || tail < 0 || tail >= unit || piece < 1 ||
+      pieces < 1 || rows_per_tile < 1 ||
+      (unit != 16 && unit != 8 && unit != 4 && unit != 2 && unit != 1))
+    return (int)cudaErrorInvalidValue;
+  unsigned long long bits = (unsigned long long)(dst_in | src_out);
+  long long n_rows = 1;
+  A2aDims w{};
+  for (int k = 0; k < nd; ++k) {
+    if (ext[k] < 1) return (int)cudaErrorInvalidValue;
+    w.ext[k] = (int)ext[k];
+    w.in[k] = in_st[k];
+    w.out[k] = out_st[k];
+    bits |= (unsigned long long)(in_st[k] | out_st[k]);
+    n_rows *= ext[k];
+  }
+  for (int i = 0; i < R; ++i) bits |= in_ptrs[i] | out_ptrs[i];
+  const long long tiles =
+      (rows + (long long)rows_per_tile - 1) / rows_per_tile * pieces;
+  if (bits % unit || n_rows != rows || (long long)R * R * tiles >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || (row_words == 0 && tail == 0)) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const pk::PtrTable s = pk::table(in_ptrs, R), d = pk::table(out_ptrs, R);
+  auto go = [&](auto word) {
+    pk_a2a_kernel<decltype(word)><<<grid, A2A_THREADS, 0, st>>>(
+        s, d, w, nd, R, dst_in, src_out, rows, row_words, tail, piece,
+        pieces, rows_per_tile, (int)tiles);
+    return (int)cudaGetLastError();
+  };
+  switch (unit) {
+    case 16: return go(uint4{});
+    case 8: return go(uint2{});
+    case 4: return go(0u);
+    case 2: return go((unsigned short)0);
+    default: return go((unsigned char)0);
+  }
 }

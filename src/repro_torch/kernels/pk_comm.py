@@ -1,5 +1,5 @@
-"""Ring all-gather, ring reduce-scatter and the p2p ring shift over the
-ranks of a PGL.
+"""Ring all-gather, ring reduce-scatter, the p2p ring shift and the
+all-to-all over the ranks of a PGL.
 
 Replace ``repro/kernels/pk_comm.py::ring_all_gather`` (the Pallas
 ``_ag_kernel``), ``::ring_reduce_scatter`` (``_rs_kernel``) and
@@ -78,6 +78,24 @@ resident deadlocks, so no kernel here waits on another block:
   bounds it: bytes, R·blk read and R·blk written; at ring attention's sizes
   (a few MB) the launch's fixed time dominates.
 
+* all-to-all (``CommContext.all_to_all``'s chunked backend; it replaces
+  no Pallas kernel: JAX's chunked all-to-all rides ``lax.all_to_all``, the
+  TPU's native collective on the strided layout, and on virtual ranks of
+  one card the counterpart of that collective is a copy kernel). Block r of
+  rank s's split dim is stored into slot s of rank r's concat dim, through
+  pointer tables as the other kernels here, the form a peer-card version
+  will take. ``a2a_plan`` merges the block's dims that continue each other
+  in the input and the output, leaving rows (the inner run, contiguous in
+  both) under up to four strided dims; a persistent grid (``A2A_PER_SM``
+  blocks an SM) walks the (source, destination, tile) items, a tile being
+  a run of rows or a piece of a long row. Each thread moves the widest
+  words (16 down to 1 bytes) that every row start allows, four loads in
+  flight, and bytes for a row's tail past its last whole word. No flag and
+  no wait: items are independent on one card (a peer-card version adds a
+  barrier). One launch writes one chunk's slice of the output, a strided
+  view, in place, so the chunked call needs no concatenation. What bounds
+  it: bytes, the payload read once and written once.
+
 ``n_chunks`` splits a rank's rows into chunks (``fit_chunks``'
 largest-divisor fallback, as in JAX); the reduce-scatter's tiles never
 cross a chunk. What bounds the three on the card: bytes; none does
@@ -92,7 +110,9 @@ Stacked layout (``core/pgl.py``): ``ring_all_gather`` takes (R, blk, ...)
 contiguous (R, *gathered) along a local dim (the FSDP gather);
 ``ring_reduce_scatter`` takes (R, R, blk, ...) — rank s's partial for
 owner o at ``x[s, o]`` — and returns (R, blk, ...); ``p2p_ring_shift``
-takes (R, ...) and returns ``out[(r + 1) % R] = x[r]``. On CPU tensors the
+takes (R, ...) and returns ``out[(r + 1) % R] = x[r]``; ``all_to_all``
+takes (R, *local) and returns (R, *local') with the split dim R times
+shorter and the concat dim R times longer. On CPU tensors the
 wrappers run the plain versions; on CUDA tensors they launch the kernels
 or raise.
 """
@@ -107,7 +127,7 @@ import math
 import torch
 
 from repro_torch.core import pgl
-from repro_torch.core.schedule import fit_chunks
+from repro_torch.core.schedule import a2a_chunk_axis, fit_chunks
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import H100_SMS, SMEM_LIMIT, sm_count
 
@@ -150,6 +170,12 @@ _WORD_DIMS = 6
 P2P_TILE_BYTES = 16384
 P2P_THREADS = 256
 P2P_PER_SM = 2
+#: the all-to-all kernel (512 threads a block, each with four loads in
+#: flight): bytes a tile, blocks an SM, the strided dims it takes above a
+#: row
+A2A_TILE_BYTES = 32768
+A2A_PER_SM = 1
+A2A_DIMS = 4
 # p2p arrival flags by (device, stream)
 _P2P_FLAGS: dict[tuple, "P2pFlags"] = {}
 
@@ -622,3 +648,208 @@ def p2p_ring_shift(x: torch.Tensor) -> torch.Tensor:
 
 
 p2p_ring_shift.launches = 0
+
+
+def a2a_local_shape(local, r: int, split_axis: int,
+                    concat_axis: int) -> tuple[int, ...]:
+    """The local shape an all-to-all over ``r`` ranks leaves: ``local`` with
+    the split dim divided by r and the concat dim multiplied by r."""
+    local = list(local)
+    if not (0 <= split_axis < len(local) and 0 <= concat_axis < len(local)):
+        raise ValueError(f"all_to_all axes ({split_axis}, {concat_axis}) of "
+                         f"a local shape {tuple(local)}")
+    if local[split_axis] % r:
+        raise ValueError(f"all_to_all: split dim {split_axis} of the local "
+                         f"shape {tuple(local)} is not divisible by {r} ranks")
+    local[split_axis] //= r
+    local[concat_axis] *= r
+    return tuple(local)
+
+
+def all_to_all_plain(x: torch.Tensor, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """(R, *local) -> (R, *local'): rank d holds, in rank order s along its
+    concat dim, block d of rank s's split dim (``lax.all_to_all(tiled=
+    True)``). One strided copy into a new contiguous tensor."""
+    r = x.shape[0]
+    a, c = split_axis, concat_axis
+    shape = a2a_local_shape(x.shape[1:], r, a, c)
+    y = x.unflatten(1 + a, (r, x.shape[1 + a] // r))   # (s, .., d, j, ..)
+    dims = [1 + k if k < a else 2 + k for k in range(x.dim() - 1)]
+    dims[a] = 2 + a
+    perm = [1 + a]
+    for k, dim in enumerate(dims):
+        perm += [0, dim] if k == c else [dim]
+    src = y.permute(perm)
+    return x.new_empty(src.shape).copy_(src).view(r, *shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class A2aPlan:
+    """How the all-to-all kernel copies the R x R blocks of one launch. A
+    block is ``rows`` rows of ``row_bytes`` contiguous bytes in the input
+    and the output; row i sits at the offsets its coordinates give over
+    ``dims`` (the strided dims above a row, inner first: (extent, input
+    stride, output stride), bytes). Block (s, d) is read at rank s's input
+    plus ``d * dst_in`` and written at rank d's output plus ``s * src_out``.
+    An item is a tile of ``rows_per_tile`` rows times a piece of ``piece``
+    words of a row; a row's ``tail`` bytes past its whole words go with its
+    last piece."""
+    unit: int           # bytes a word: 16, 8, 4, 2 or 1
+    row_bytes: int
+    dims: tuple         # ((extent, in stride, out stride), ...)
+    dst_in: int
+    src_out: int
+    rows: int
+    row_words: int
+    tail: int
+    piece: int          # words of a row an item copies
+    pieces: int         # items a row is cut into
+    rows_per_tile: int
+    tiles: int          # items a (source, destination) pair
+    items: int
+    grid: int           # persistent blocks launched
+
+
+def a2a_plan(r: int, local, strides, out_strides, split_axis: int,
+             concat_axis: int, elsize: int, *, addr: int = 0,
+             sms: int = H100_SMS) -> A2aPlan:
+    """The launch of an all-to-all over R ranks of a ``local`` input (the
+    shape one rank holds) at element ``strides``, into an output whose
+    local dims (``a2a_local_shape``) have element ``out_strides``, on a card
+    of ``sms`` SMs. ``addr``: every rank's input and output address or'ed
+    together (only its low four bits matter). The word is the widest (16
+    down to 1 bytes) that divides every row start: the addresses and every
+    stride; a tile holds about ``A2A_TILE_BYTES``."""
+    local = tuple(int(n) for n in local)
+    block = list(local)
+    block[split_axis] //= r
+    if len(strides) != len(local) or len(out_strides) != len(local) \
+            or block[split_axis] * r != local[split_axis]:
+        raise ValueError(f"a2a_plan: R={r}, local {local}, strides "
+                         f"{tuple(strides)}, {tuple(out_strides)}")
+    dst_in = block[split_axis] * strides[split_axis] * elsize
+    src_out = block[concat_axis] * out_strides[concat_axis] * elsize
+    dims = _merged_dims(block, strides, out_strides, elsize)
+    row_bytes = dims[0][0] * elsize
+    dims = [tuple(d) for d in dims[1:]]
+    if len(dims) > A2A_DIMS:
+        raise NotImplementedError(f"all-to-all of a block of {len(dims)} "
+                                  f"strided dims above its rows: the kernel "
+                                  f"takes {A2A_DIMS}")
+    bits = addr | dst_in | src_out
+    for _, si, so in dims:
+        bits |= si | so
+    unit = next(u for u in (16, 8, 4, 2, 1) if bits % u == 0)
+    rows = math.prod(n for n, _, _ in dims)
+    row_words, tail = divmod(row_bytes, unit)
+    tile_words = A2A_TILE_BYTES // unit
+    piece = max(1, min(row_words, tile_words))
+    pieces = max(1, -(-row_words // piece))
+    rows_per_tile = max(1, tile_words // piece)
+    tiles = -(-rows // rows_per_tile) * pieces
+    items = r * r * tiles
+    if items >= 1 << 31 or rows >= 1 << 31:
+        raise NotImplementedError(f"all-to-all of {items} items of {rows} "
+                                  "rows: the kernel counts them in int32")
+    return A2aPlan(unit, row_bytes, tuple(dims), dst_in, src_out, rows,
+                   row_words, tail, piece, pieces, rows_per_tile, tiles,
+                   items, max(1, min(items, A2A_PER_SM * sms)))
+
+
+def a2a_items(p: A2aPlan, r: int):
+    """The device's item walk, in Python: for item i (block b takes i = b,
+    b + grid, ...), (s, d, rows, lo, hi): block (s, d)'s rows ``rows`` (a
+    range) each copy bytes [lo, hi) of the row."""
+    for i in range(p.items):
+        pair, t = divmod(i, p.tiles)
+        s, d = divmod(pair, r)
+        rt, pc = divmod(t, p.pieces)
+        row0 = rt * p.rows_per_tile
+        w0 = pc * p.piece
+        hi = p.row_bytes if pc == p.pieces - 1 else \
+            min(w0 + p.piece, p.row_words) * p.unit
+        yield (s, d, range(row0, min(row0 + p.rows_per_tile, p.rows)),
+               w0 * p.unit, hi)
+
+
+def a2a_row_offsets(p: A2aPlan, rows: torch.Tensor):
+    """(input, output) byte offsets of ``rows`` in a block, as the kernel
+    splits a row index into its coordinates over ``p.dims``."""
+    io = torch.zeros_like(rows)
+    oo = torch.zeros_like(rows)
+    rest = rows
+    for n, si, so in p.dims:
+        rest, i = rest // n, rest % n
+        io = io + i * si
+        oo = oo + i * so
+    return io, oo
+
+
+def a2a_chunks(x: torch.Tensor, out: torch.Tensor, split_axis: int,
+               concat_axis: int, n_chunks: int):
+    """The (input, output) views of each launch: ``n_chunks`` fitted to a
+    bystander dim by ``a2a_chunk_axis`` (one launch when none splits), each
+    chunk's slice of x and of the output."""
+    fit = a2a_chunk_axis(tuple(x.shape[1:]), split_axis, concat_axis,
+                         n_chunks) if n_chunks > 1 else None
+    if fit is None:
+        return [(x, out)]
+    axis, c = fit
+    size = x.shape[1 + axis] // c
+    return [(x.narrow(1 + axis, i * size, size),
+             out.narrow(1 + axis, i * size, size)) for i in range(c)]
+
+
+@functools.lru_cache(maxsize=1024)
+def _kept_a2a_plan(r, local, strides, out_strides, split_axis, concat_axis,
+                   elsize, addr, sms) -> A2aPlan:
+    """``a2a_plan`` of a launch, kept: a training step runs a few shapes
+    hundreds of times."""
+    return a2a_plan(r, local, strides, out_strides, split_axis, concat_axis,
+                    elsize, addr=addr, sms=sms)
+
+
+def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int, *,
+               n_chunks: int = 1) -> torch.Tensor:
+    """x (R, *local) stacked, any strides -> (R, *local') contiguous, in
+    x's dtype, bit for bit ``all_to_all_plain``: one kernel launch per
+    chunk (``a2a_chunks``), each writing its chunk's slice of the output."""
+    if x.dim() < 2:
+        raise ValueError("all_to_all takes a stacked (R, *local) tensor")
+    r = x.shape[0]
+    shape = a2a_local_shape(x.shape[1:], r, split_axis, concat_axis)
+    if n_chunks < 1:
+        raise ValueError("n_chunks must be >= 1")
+    if x.device.type == "cpu":
+        return all_to_all_plain(x, split_axis, concat_axis)
+    _check_cuda(x, "all_to_all")
+    out = x.new_empty((r, *shape))
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for xi, oi in a2a_chunks(x, out, split_axis, concat_axis, n_chunks):
+        ins = [xi[s].data_ptr() for s in range(r)]
+        outs = [oi[d].data_ptr() for d in range(r)]
+        addr = 0
+        for a in ins + outs:
+            addr |= a % 16
+        p = _kept_a2a_plan(r, tuple(xi.shape[1:]), tuple(xi.stride()[1:]),
+                           tuple(oi.stride()[1:]), split_axis, concat_axis,
+                           x.element_size(), addr, sm_count(x.device))
+        nd = len(p.dims)
+        ext, ist, ost = zip(*p.dims) if nd else ((), (), ())
+        err = lib.pk_all_to_all(
+            _build.host_table(ins), _build.host_table(outs), r, p.unit, nd,
+            (ctypes.c_int64 * max(nd, 1))(*ext),
+            (ctypes.c_int64 * max(nd, 1))(*ist),
+            (ctypes.c_int64 * max(nd, 1))(*ost), p.dst_in, p.src_out,
+            p.rows, p.row_words, p.tail, p.piece, p.pieces, p.rows_per_tile,
+            p.grid, stream)
+        _build.check(err, "pk_all_to_all")
+        all_to_all.launches += 1
+    return out
+
+
+all_to_all.launches = 0

@@ -19,9 +19,10 @@ every sharded weight is gathered before use (``core.template.fsdp_gather``):
 inside islands through their ``Gather`` declarations, and for the q/k/v
 projections where they are used (the gathers XLA inserts in JAX).
 Sequence-parallel training attention (``attention_block(seq_sharded=
-True)``) runs ring attention over the tp axis in ``sp_attention_island``
-(``core/ring_attention.py``: the p2p kernel and flash hops). Not ported:
-Ulysses attention (ROADMAP queue A item 3), the XLA chunked
+True)``) runs over the tp axis in ``sp_attention_island``: ring attention
+(``core/ring_attention.py``: the p2p kernel and flash hops) or, under
+``sp_attention="ulysses"``, Ulysses (``core/ulysses.py``: the all-to-all
+kernel and one flash launch). Not ported: the XLA chunked
 attention (the flash kernel computes the same function at any length),
 the resident 2D-TP MoE serving layout (``serve_moe_tp_data``, A9c), paged
 and int8 caches (A7, A11). The MoE island runs the replicated-dispatch
@@ -39,7 +40,8 @@ from repro_torch.core.pgl import P
 from repro_torch.core.ring_attention import pk_ring_attention
 from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
                                        Stacked, comm_context, fsdp_gather,
-                                       rank_index)
+                                       island_override, rank_index)
+from repro_torch.core.ulysses import pk_ulysses_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import matmul, matmul_stacked
 from repro_torch.models.sharding import ShardingRules
@@ -183,31 +185,57 @@ def attn_out_island(cfg: ArchConfig, run: RunConfig,
 def sp_attention_island(cfg: ArchConfig, run: RunConfig,
                         rules: ShardingRules | None, b: int, s: int, *,
                         causal: bool = True, reference=None) -> Island:
-    """Sequence-parallel attention island: ring attention (paper §4.2)
-    over the tp axis, q/k/v sequence-sharded on dim 2; once per dp group.
-    Ulysses (``sp_attention="ulysses"``) is not ported."""
-    hkv, hd = cfg.n_kv_heads, cfg.hd
+    """Sequence-parallel attention island over the tp axis, q/k/v
+    sequence-sharded on dim 2; once per dp group. Ring attention (paper
+    §4.2), or Ulysses under ``sp_attention="ulysses"``: its all-to-all
+    chunk count is ``run.ulysses_chunks``, or with 0 (auto) the island's
+    frozen plan (``island_overrides``), then the analytic a2a chunk policy
+    (measured rows are ROADMAP item 12, so JAX's calibration key for the
+    island has no twin here)."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if rules is None:
         return Island("attn_sp", run=run, reference=reference)
-    if run.sp_attention == "ulysses":
-        raise NotImplementedError(
-            "Ulysses sequence-parallel attention (sp_attention='ulysses') "
-            "is ROADMAP queue A item 3")
     axis = rules.tp
     tp_size = rules.mesh.shape[axis]
     spec = P(rules.dim(b, rules.dp), None, axis, None)
+    b_loc = rules.local_batch(b)
     s_loc = max(s // tp_size, 1)
-    comm = Comm("ring_shift", backend="bulk", n_chunks=tp_size,
-                payload_bytes=2 * rules.local_batch(b) * hkv * s_loc * hd
-                * _dtype_bytes(cfg))
+    dtb = _dtype_bytes(cfg)
+    ulysses = run.sp_attention == "ulysses"
+    divisible = [(s, axis)] + ([(hq, axis)] if ulysses else [])
+    if ulysses:
+        shape = (b_loc, hq, s_loc, hd)
+        ov = island_override(run, "attn_ulysses")
+        source = None
+        if ov is not None and ov[1] is not None:
+            a2a_chunks, source = max(1, ov[1]), ov[2]
+        elif run.ulysses_chunks > 0:
+            a2a_chunks = run.ulysses_chunks
+        else:
+            sched = comm_context(run, axis, mesh=rules.mesh
+                                 ).a2a_chunk_schedule(shape, 1, 2,
+                                                      dtype_bytes=dtb)
+            a2a_chunks, source = sched.n_chunks, sched.source
+        comm = Comm("all_to_all", n_chunks=a2a_chunks,
+                    backend="chunked" if a2a_chunks > 1 else "bulk",
+                    payload_bytes=b_loc * hq * s_loc * hd * dtb,
+                    shape=shape, split_axis=1, concat_axis=2, source=source)
 
-    def body(ctx, q, k, v):
-        return pk_ring_attention(q, k, v, ctx=ctx, causal=causal,
-                                 window=cfg.sliding_window)
+        def body(ctx, q, k, v):
+            return pk_ulysses_attention(q, k, v, ctx=ctx, causal=causal,
+                                        window=cfg.sliding_window,
+                                        n_chunks=comm.n_chunks)
+    else:
+        comm = Comm("ring_shift", backend="bulk", n_chunks=tp_size,
+                    payload_bytes=2 * b_loc * hkv * s_loc * hd * dtb)
+
+        def body(ctx, q, k, v):
+            return pk_ring_attention(q, k, v, ctx=ctx, causal=causal,
+                                     window=cfg.sliding_window)
 
     return Island(f"attn_{run.sp_attention}", rules=rules, run=run,
                   inputs={"q": spec, "k": spec, "v": spec}, out_specs=spec,
-                  body=body, reference=reference, divisible=[(s, axis)],
+                  body=body, reference=reference, divisible=divisible,
                   comm=comm)
 
 
@@ -216,9 +244,9 @@ def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
                     positions=None, seq_sharded=False):
     """Full-sequence self-attention sub-layer without a cache (training):
     projections, RoPE, the causal GQA mix — the flash kernel, with its
-    autograd backward; with ``seq_sharded`` ring attention over the tp
-    axis in the SP island — and the out-projection island. x: (B, S,
-    d)."""
+    autograd backward; with ``seq_sharded`` ring or Ulysses attention over
+    the tp axis in the SP island — and the out-projection island. x: (B,
+    S, d)."""
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 

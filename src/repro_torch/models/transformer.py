@@ -328,8 +328,8 @@ def _mlp_sub(m, x, cfg, run, rules):
 def _apply_block(bp, x, cfg: ArchConfig, run: RunConfig, rules, *,
                  seq_sharded=False):
     """One dense layer, pre-norm residual (JAX ``_apply_block``); with
-    ``seq_sharded`` the attention mix is ring attention over the tp axis.
-    With ``run.remat`` and ``run.save_collectives`` each sub-block is
+    ``seq_sharded`` the attention mix is ring or Ulysses attention over
+    the tp axis (``run.sp_attention``). With ``run.remat`` and ``run.save_collectives`` each sub-block is
     checkpointed on its own, so its output survives to the backward while
     everything inside it is recomputed (the JAX policy saving
     ``subblock_out``)."""
@@ -391,8 +391,8 @@ def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
     weights (B, S) [+ frontend_embeds (B, n, d) for vision configs]. Dense
     decoders; the loss is the chunked vocab-parallel cross-entropy
     (``layers.lm_loss``) and the aux loss is 0. ``seq_sharded``: every
-    attention mix is ring attention over the tp axis (the SP island), as
-    in JAX; JAX's launcher never sets it, and neither does the port's."""
+    attention mix is ring or Ulysses attention (``run.sp_attention``)
+    over the tp axis (the SP island), as in JAX; JAX's launcher never sets it, and neither does the port's."""
     _check_decoder(cfg)
     if has_ssm(cfg):
         raise NotImplementedError(

@@ -200,9 +200,13 @@ def test_not_ported_paths_raise():
         CommContext("x", mesh=mesh, policy="measured")
     with pytest.raises(NotImplementedError, match="item 11"):
         CommContext("x", mesh=mesh, wire="int8")
-    with pytest.raises(NotImplementedError, match="A3"):
-        CommContext("x", mesh=mesh).all_to_all(torch.ones(4, 2, 2),
-                                               split_axis=0, concat_axis=1)
+    # all_to_all is ported: block r of rank s lands at slot s of rank r
+    x = torch.arange(4 * 4 * 2.0).view(4, 4, 2)
+    out = CommContext("x", mesh=mesh).all_to_all(x, split_axis=0,
+                                                  concat_axis=1)
+    assert out.shape == (4, 1, 8)
+    for r in range(4):
+        assert torch.equal(out[r, 0], x[:, r].reshape(8))
 
 
 # ---------------------------------------------------------------------------

@@ -1188,3 +1188,99 @@ def test_lcsc_kernel_refuses_cuda_graph_capture(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, PK.all_gather_plain(x))
     _assert_lcsc_flags_stamped(x)
+
+
+def _a2a_plans(x, out, a, c, n):
+    """The plans of ``pk_comm.all_to_all``'s launches, as the wrapper
+    makes them."""
+    from repro_torch.kernels import pk_comm as PK
+    plans = []
+    for xi, oi in PK.a2a_chunks(x, out, a, c, n):
+        addr = 0
+        for t in list(xi.unbind(0)) + list(oi.unbind(0)):
+            addr |= t.data_ptr() % 16
+        plans.append(PK.a2a_plan(x.shape[0], xi.shape[1:], xi.stride()[1:],
+                                 oi.stride()[1:], a, c, x.element_size(),
+                                 addr=addr))
+    return plans
+
+
+@pytest.mark.parametrize("r", [2, 4, 8])
+@pytest.mark.parametrize("shape,a,c,dtype", [
+    ((2, 4, 40), 0, 1, torch.bfloat16),      # 40-byte rows: a tail
+    ((3, 2, 5), 1, 0, torch.float32),
+    ((2, 3, 7), 0, 2, torch.bfloat16),
+    ((4, 1, 6), 1, 1, torch.uint8),
+    ((2, 2, 2, 3), 1, 3, torch.float32),
+    ((1, 4, 64, 64), 1, 2, torch.bfloat16)])
+def test_all_to_all_kernel(cuda, r, shape, a, c, dtype):
+    """Every chunk count 1-4, contiguous and with the last two dims
+    transposed in memory: bit for bit ``all_to_all_plain``, one launch a
+    chunk, the same bits on a second call."""
+    from repro_torch.kernels import pk_comm as PK
+    local = list(shape)
+    local[a] *= r
+    g = torch.Generator(device=cuda).manual_seed(r)
+    x = torch.randint(0, 255, (r, *local), generator=g,
+                      device=cuda).to(dtype)
+    for view in (x, x.transpose(-1, -2).contiguous().transpose(-1, -2)):
+        want = PK.all_to_all_plain(view, a, c)
+        for n in (1, 2, 3, 4):
+            out = torch.empty_like(want)
+            chunks = len(PK.a2a_chunks(view, out, a, c, n))
+            before = PK.all_to_all.launches
+            got = PK.all_to_all(view, a, c, n_chunks=n)
+            torch.cuda.synchronize()
+            assert PK.all_to_all.launches == before + chunks
+            assert got.is_contiguous()
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            assert torch.equal(PK.all_to_all(view, a, c, n_chunks=n), got)
+
+
+@pytest.mark.parametrize("offset,elsize", [(1, 1), (2, 2), (4, 4), (8, 2),
+                                          (0, 2)])
+def test_all_to_all_kernel_words_and_tails(cuda, offset, elsize):
+    """Addresses off 16 bytes narrow the word to what every row start
+    allows; rows whose bytes the word does not divide copy a tail: bit for
+    bit the plain version either way."""
+    from repro_torch.kernels import pk_comm as PK
+    dtype = {1: torch.uint8, 2: torch.bfloat16, 4: torch.float32}[elsize]
+    r, n = 4, 4 * 3 * 40
+    buf = torch.randint(0, 255, (offset // elsize + r * n,), device=cuda
+                        ).to(dtype)
+    x = buf[offset // elsize:].view(r, 4, 3, 40)
+    want = PK.all_to_all_plain(x, 0, 1)
+    plans = _a2a_plans(x, torch.empty_like(want), 0, 1, 2)
+    assert plans[0].unit == (16 if offset == 0 else offset)
+    if offset == 0 and elsize == 2:
+        assert plans[0].tail > 0            # 40-byte rows chunked from 80
+    got = PK.all_to_all(x, 0, 1, n_chunks=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_all_to_all_ctx_gradient_on_card(cuda):
+    """``CommContext.all_to_all`` chunked on the card, forward and backward,
+    bit for bit the bulk backend's; an empty tensor launches nothing."""
+    from repro_torch.core.comms import CommContext
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.kernels import pk_comm as PK
+    ctx = CommContext("x", mesh=VirtualMesh((4,), ("x",), cuda))
+    x = _randn(cuda, 4, 1, 32, 256, 64, seed=3)
+    w = _randn(cuda, 4, 1, 8, 1024, 64, seed=4)
+    grads = {}
+    for be, n in (("chunked", 2), ("bulk", None)):
+        xt = x.clone().requires_grad_(True)
+        before = PK.all_to_all.launches
+        out = ctx.all_to_all(xt, split_axis=1, concat_axis=2, backend=be,
+                             n_chunks=n)
+        (out.float() * w.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert PK.all_to_all.launches == before + (4 if n else 0)
+        grads[be] = (out.detach(), xt.grad)
+    assert torch.equal(grads["chunked"][0], grads["bulk"][0])
+    assert torch.equal(grads["chunked"][1], grads["bulk"][1])
+    before = PK.all_to_all.launches
+    empty = PK.all_to_all(torch.empty(4, 4, 0, device=cuda), 0, 1,
+                          n_chunks=2)
+    assert empty.shape == (4, 1, 0) and PK.all_to_all.launches == before

@@ -164,8 +164,10 @@ def test_ctx_gather_scatter_resolution_and_guards():
         ctx.reduce_scatter(torch.ones(2, 3, 6))
     with pytest.raises(ValueError, match="stacked"):
         ctx.all_gather(torch.ones(3, 4))
-    with pytest.raises(NotImplementedError, match="A9"):
-        ctx.all_to_all(x)
+    # all_to_all is ported: its guards, as the other data-movement ops
+    assert ctx.all_to_all(x, split_axis=0, concat_axis=1).shape == (2, 2, 12)
+    with pytest.raises(ValueError, match="not divisible by 2 ranks"):
+        ctx.all_to_all(torch.ones(2, 3, 6), split_axis=0, concat_axis=1)
     # the GEMM collectives take stacked operands over this axis too
     w = torch.ones(2, 6, 4)
     assert ctx.all_gather_matmul(x, w).shape == (2, 8, 4)

@@ -10,8 +10,13 @@ merge against the JAX package, in float32 on the CPU.
   halves carry equal tokens (ROADMAP C4) — atol 1e-5 on the loss, 1e-4 on
   the gradients (ring attention merges its hops in another order than
   JAX's sequential update).
-* ``island_plans(phase="all")`` lists the ring island where JAX's does;
-  ``sp_attention="ulysses"`` raises, naming ROADMAP queue A item 3.
+* the same with ``sp_attention="ulysses"``: both archs on (1, 2), (1, 4)
+  (2 KV heads repeated to 4 ranks) and (2, 2), the port at 1 and 2
+  all-to-all chunks against JAX's at 2 (JAX's chunks are bulk's bits), the
+  two chunk counts bit for bit;
+* ``island_plans(phase="all")`` lists the ring island where JAX's does,
+  and the Ulysses island with JAX's op, backend, chunk count and fallback
+  for ``ulysses_chunks`` 0 (auto), 1 and 2;
 * internvl2-26b ``.reduced()`` with ``frontend_embeds`` (ROADMAP C5): the
   first ``n_frontend_tokens`` embeddings replaced as in JAX — loss and
   every gradient within 1e-5, with no mesh and on (1, 4).
@@ -38,6 +43,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.core.pgl import VirtualMesh  # noqa: E402
+from repro_torch.core.template import plan_overrides  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.sharding import ShardingRules  # noqa: E402
@@ -190,15 +196,72 @@ def test_island_plans_list_the_ring_island_as_jax(sp_attention,
                                                       mesh_shape[1], False)
 
 
-def test_ulysses_raises_naming_queue_a_item_3():
-    _, t = _both("tinyllama-1.1b", (1, 4), sp_attention="ulysses")
-    batch = _batch(t["cfg"].vocab_size)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        T.forward_train(t["params"], {k: torch.from_numpy(v)
-                                      for k, v in batch.items()},
-                        t["cfg"], t["run"], t["rules"], seq_sharded=True)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        L.island_plans(t["cfg"], t["run"], t["rules"], batch=4, seq=32)
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (1, 4), (2, 2)])
+def test_seq_sharded_ulysses_forward_train_matches_jax(arch, mesh_shape):
+    """Ulysses through ``forward_train(seq_sharded=True)``: loss 1e-5 and
+    gradients 1e-4 against JAX, the chunked all-to-alls (2 chunks along
+    head_dim, the kernel's wrapper on the card) bit for bit bulk's."""
+    from unittest import mock
+
+    from repro_torch.kernels import pk_comm as PK
+    j, t = _both(arch, mesh_shape, sp_attention="ulysses", ulysses_chunks=2)
+    batch = _batch(t["cfg"].vocab_size, seed=1,
+                   equal_halves=mesh_shape[0] > 1)
+    want = _jax_loss_grads(j, batch, seq_sharded=True)
+    with mock.patch.object(PK, "all_to_all", wraps=PK.all_to_all) as kern:
+        got = _port_loss_grads(t, batch, seq_sharded=True)
+    # q, k, v and the output a layer and dp group, forward (twice under
+    # remat) and backward
+    passes = 2 if t["run"].remat else 1
+    assert kern.call_count == (4 * t["cfg"].n_layers * mesh_shape[0]
+                               * (passes + 1))
+    _assert_close(got, want, GRAD_ATOL)
+    t1 = dict(t, run=dataclasses.replace(t["run"], ulysses_chunks=1))
+    bulk = _port_loss_grads(t1, batch, seq_sharded=True)
+    assert bulk[0] == got[0]
+    for path, g in T.leaves(got[1]):
+        w = bulk[1]
+        for k in path:
+            w = w[k]
+        np.testing.assert_array_equal(g, w, err_msg="/".join(path))
+
+
+@pytest.mark.parametrize("ulysses_chunks", [0, 1, 2])
+@pytest.mark.parametrize("mesh_shape", [(1, 4), (2, 2)])
+def test_island_plans_list_the_ulysses_island_as_jax(mesh_shape,
+                                                     ulysses_chunks):
+    """``attn_ulysses`` where JAX lists it, with its op, backend, chunk
+    count and fallback (0: the analytic a2a policy, which prices on the
+    H100 here and on the TPU in JAX; at these sizes both say 1)."""
+    j, t = _both("tinyllama-1.1b", mesh_shape, sp_attention="ulysses",
+                 ulysses_chunks=ulysses_chunks)
+    for phase in ("prefill", "decode", "all"):
+        want = JL.island_plans(j["cfg"], j["run"], j["rules"], batch=4,
+                               seq=32, phase=phase)
+        got = L.island_plans(t["cfg"], t["run"], t["rules"], batch=4,
+                             seq=32, phase=phase)
+        assert [p.island for p in got] == [p.island for p in want]
+    (g,) = [p for p in got if p.island == "attn_ulysses"]
+    (w,) = [p for p in want if p.island == "attn_ulysses"]
+    assert (g.op, g.backend, g.n_chunks, g.fallback, g.source) \
+        == (w.op, w.backend, w.n_chunks, w.fallback, w.source)
+    assert g.op == "all_to_all" and g.backend == (
+        "chunked" if ulysses_chunks == 2 else "bulk")
+    # a frozen plan (RunConfig.island_overrides) wins over ulysses_chunks,
+    # and plan_overrides freezes the all-to-all's total chunk count
+    ov = (("attn_ulysses", "chunked", 2),)
+    w = [p for p in JL.island_plans(
+        j["cfg"], dataclasses.replace(j["run"], island_overrides=ov),
+        j["rules"], batch=4, seq=32) if p.island == "attn_ulysses"][0]
+    plans = L.island_plans(
+        t["cfg"], dataclasses.replace(t["run"], island_overrides=ov),
+        t["rules"], batch=4, seq=32)
+    g = [p for p in plans if p.island == "attn_ulysses"][0]
+    assert (g.backend, g.n_chunks, g.source) == (w.backend, w.n_chunks,
+                                                 w.source) \
+        == ("chunked", 2, "plan")
+    assert ("attn_ulysses", "chunked", 2) in plan_overrides(plans)
 
 
 @pytest.mark.parametrize("mesh_shape", [None, (1, 4)])

@@ -42,7 +42,11 @@ Phases (any failure exits non-zero before the last line is printed):
    alternating launches, bit-identical to the plain gather and to the ring
    all-gather kernel; the all-to-all at Ulysses' q, kv and output
    shapes at 1 and 2 chunks and the a2a MoE dispatch, bit-identical to
-   ``all_to_all_plain``, timed beside the bulk backend) and is held
+   ``all_to_all_plain``, timed beside the bulk backend; flash non-causal
+   at whisper-medium's encoder, q, kv (8, 16, 1500, 64), and
+   cross-attention, q (4, 16, 448, 64) over kv (4, 16, 1500, 64), timed,
+   and its 4-token prompt over the 1500 frames; the GEMM at whisper's
+   decode logits, whose 12967 columns a rank the wrapper pads) and is held
    against its plain PyTorch version on the same
    inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
    <= 1e-3 for f32 outputs of bf16 inputs; one shape of each is then
@@ -155,6 +159,22 @@ Phases (any failure exits non-zero before the last line is printed):
    virtual ranks x 512 tokens, within 1e-2 of the dense oracle, 2 chunks
    within 1e-3 of 1, the grouped GEMM 3 launches a chunk (details in
    ``moe_a2a``);
+5h. encoder-decoder serving: whisper-medium at full width and depth
+   (24 encoder and 24 decoder layers, 0.81 B parameters) on (1, 4), the
+   encoder over (8, 1500, 1024) frames and the cross K/V into the cache
+   (``encode_cross``), a 4-token prompt and 32 greedy tokens through
+   ``decode_step_encdec``; launches exact (flash, the GEMM, GEMM+AR), the
+   logits after the prompt within a derived tolerance of
+   ``forward_prefill``'s (details in ``serve_encdec``);
+5i. encoder-decoder training: the same model on (2, 4) with FSDP, batch
+   8 x 448 decoder tokens + their frames, 2 microbatches, remat, AdamW, 3
+   steps through ``make_train_step``; losses finite, every kernel of the
+   path launched, the GEMM exactly once a dp group, microbatch and step
+   (details in ``train_encdec``);
+5j. encoder-decoder reference: whisper-medium at full width cut to 2
+   encoder and 2 decoder layers, the card against the port's plain f32
+   path on the CPU: decode logits within 3e-2, the loss within 1e-2 and
+   the gradient norm within 3e-2 (details in ``check_encdec_reference``);
 5e. TP GEMM pair: tinyllama-1.1b's MLP at full width on (1, 4), 4096
    tokens, through declared ``Island``s: AG+GEMM (gate/up) and GEMM+RS
    (down) under every backend, fused within 1e-2 of bulk, the AG×GEMM and
@@ -168,11 +188,13 @@ Phases (any failure exits non-zero before the last line is printed):
    selective scan, the training run's for the ring AG/RS kernels, the
    sequence-parallel run's for the p2p shift and the flash hop, the
    Ulysses run's for the all-to-all, the TP GEMM pair's for AG×GEMM,
-   GEMM×RS and the LCSC all-gather; ``launches_by_path`` has all eight
-   paths, 5g's a2a MoE among them), then GEMM+AR's cold decode row, whose
-   counts are GEMM+AR's whole-path counts (prefill and decode together,
-   the counter named by ``launches_counter``), not its own, and the
-   all-gather's path-form row, whose counts are the all-gather's;
+   GEMM×RS and the LCSC all-gather; ``launches_by_path`` has all ten
+   paths, 5g's a2a MoE and the whisper runs 5h and 5i among them), then
+   GEMM+AR's cold decode row, whose counts are GEMM+AR's whole-path
+   counts (prefill and decode together, the counter named by
+   ``launches_counter``), not its own, the all-gather's path-form row,
+   whose counts are the all-gather's, and flash's whisper rows, whose
+   ``launches`` are flash's in 5h (encoder) and 5i (cross);
 7. the last line, ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA device and the repository's ``src/`` beside it.
@@ -830,6 +852,32 @@ def check_kernels(dev) -> dict:
             4.0 * b * h * hd * (s * (s + 1) // 2),
             before=partial(mm_tile_flash, q, k_, v))
 
+    # whisper-medium (16 heads of 64, MHA), non-causal: the encoder's
+    # self-attention over 1500 frames at the serving batch (8), the
+    # cross-attention of the training microbatch's 448 decoder tokens over
+    # them (4 rows), both timed, and the serving check's 4-token prompt
+    # over them, checked; all on the projections' head-transposed views
+    h, hd, se = 16, 64, 1500
+    for key, b, sq in (("flash_attention@encoder", 8, se),
+                       ("flash_attention@cross", 4, 448), (None, 8, 4)):
+        q = randn(b, sq, h, hd).transpose(1, 2)
+        k_, v = (randn(b, se, h, hd).transpose(1, 2) for _ in range(2))
+        shape = (f"q({b},{h},{sq},{hd}) kv({b},{h},{se},{hd}) non-causal "
+                 "strided")
+        run = partial(FA.flash_attention, q, k_, v, causal=False)
+        plain = partial(FA.flash_attention_plain, q, k_, v, causal=False)
+        if key is None:
+            compare("flash_attention", shape, run, plain, TOL_BF16_OUT)
+            continue
+        entries[key] = record(
+            "flash_attention", shape,
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:73", run, plain,
+            partial(F.scaled_dot_product_attention, q, k_, v),
+            TOL_BF16_OUT, (2 * q.numel() + k_.numel() + v.numel()) * 2,
+            4.0 * b * h * hd * sq * se,
+            before=partial(mm_tile_flash, q, k_, v, causal=False))
+
     entries.update(check_mamba_scan(dev, record, compare))
     entries.update(check_ring_kernels(dev, record, compare, randn))
     entries.update(check_tp_kernels(dev, record, compare, randn))
@@ -1025,6 +1073,27 @@ def check_matmul(dev, record, compare, randn) -> dict:
                 timing=f"cold (w rotated over 2 copies, "
                        f"{2 * k * n * 2 / 1e6:.0f} MB)")
         del ws
+
+    # the whisper-medium decode logits on (1, 4): 51868 / 4 = 12967
+    # columns a rank, no multiple of 8, so the wrapper pads w's rows in a
+    # copy (its time is in the row's); stacked as serving runs it, timed
+    # cold (2 stacks, 212 MB)
+    m, k, n, r = 8, 1024, 12967, 4
+    x = randn(m, k)
+    stacks = [randn(r, k, n, scale=k ** -0.5) for _ in range(2)]
+    shape = f"x({m},{k})@w({r},{k},{n}) stacked, ragged N"
+    same_bits(x, stacks[0], shape)
+    checked = compare("matmul", shape, partial(MM.matmul_stacked, x,
+                                               stacks[0]),
+                      partial(MM.matmul_stacked_plain, x, stacks[0]),
+                      TOL_BF16_OUT)
+    sets = [(x, w) for w in stacks]
+    entries["matmul@whisper"] = record(
+        "matmul", shape, src, rep, rotate(MM.matmul_stacked, sets),
+        rotate(MM.matmul_stacked_plain, sets), rotate(torch.matmul, sets),
+        TOL_BF16_OUT, *cost(m, k, n, r), checked=checked,
+        timing="cold (w rotated over 2 stacks, 212 MB)")
+    del stacks, sets
     return entries
 
 
@@ -2677,6 +2746,321 @@ def check_sp_reference(dev, seq: int = 2048) -> None:
                              f"f32 plain path: {errs}")
 
 
+ENCDEC_ARCH = "whisper-medium"
+
+
+def encdec_model(dev, run, mesh_shape, seed, **cut):
+    """whisper-medium (``cut`` replaces its depth) on a virtual mesh:
+    (cfg, rules, random parameters from ``seed``, the generator)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+
+    cfg = dataclasses.replace(get_config(ENCDEC_ARCH), **cut)
+    rules = ShardingRules(VirtualMesh(mesh_shape, ("data", "model"), dev),
+                          run)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(T.param_template(cfg, run, rules), gen,
+                           cfg.d_model, rules=rules, device=dev)
+    return cfg, rules, params, gen
+
+
+def encdec_decode(params, enc, tokens, cfg, run, rules, s_max, dev):
+    """The encoder and the cross K/V into a fresh cache (``encode_cross``),
+    then ``tokens`` (B, n) fed one at a time through the serve step
+    (``decode_step_encdec``): (last logits, cache)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_serve_step
+
+    tmpl = T.cache_template(cfg, run, rules, batch=tokens.shape[0],
+                            s_max=s_max, enc_len=enc.shape[1])
+    cache = T.encode_cross(params, T.zeros(tmpl, rules, dev), enc, cfg, run,
+                           rules)
+    step = make_serve_step(cfg, run, rules)
+    for i in range(tokens.shape[1]):
+        logits, cache = step(params, cache, tokens[:, i:i + 1])
+    return logits, cache
+
+
+def serve_encdec(dev, batch: int = 8, enc_len: int = 1500, s_max: int = 448,
+                 prompt: int = 4, new: int = 32) -> dict:
+    """Phase 5h: whisper-medium at full width and depth (24 encoder and 24
+    decoder layers, d 1024, 16 heads of 64, ff 4096, vocab 51865) on (1, 4)
+    virtual ranks, ``comm_backend="fused"`` with the attention out-projection
+    island: ``enc_embeds`` (8, 1500, 1024) bf16 (the stub frontend's 30-s
+    window) through the encoder and every decoder layer's cross K/V into
+    ``cache["cross"]`` (``encode_cross``, the helpers ``forward_train``
+    runs), then a 4-token prompt fed one token at a time through the serve
+    step (``decode_step_encdec``) and 32 greedy tokens, a self cache of
+    448 (Whisper's max_target_positions). Launch counts around that run:
+    flash once an encoder layer, B1 once a step, B4 twice an encoder layer
+    (attention out-projection and MLP) and once a decoder layer a step
+    (the MLP; decode's out-projections and mixes are plain, as in JAX).
+    Then ``forward_prefill`` over the same prompt and frames (flash causal
+    over 4 tokens, non-causal over 4 x 1500): its logits must match the
+    decode path's after the 4th prompt token within a tolerance derived
+    here — the two paths share the encoder and the cross K/V (the same
+    kernels at the same shapes, the same bits) and differ in the decoder's
+    24 layers, each rounding about 16 bf16 intermediates an element
+    (relative rms 2^-8/sqrt(3)) in another order: if every one reached the
+    logits whole, the relative difference would be sqrt(2 x 24 x 16) x
+    2^-8/sqrt(3) = 6.2e-2, the tolerance."""
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    run = RunConfig(fsdp=False, comm_backend="fused", pk_attn_out_island=True)
+    t0 = time.perf_counter()
+    cfg, rules, params, gen = encdec_model(dev, run, (1, 4), seed=0)
+    enc = torch.randn((batch, enc_len, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                           device=dev)
+    print(f"[serve-encdec] {cfg.name} ({cfg.param_count() / 1e9:.3f} B "
+          f"parameters, {cfg.n_encoder_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d {cfg.d_model}) built in "
+          f"{time.perf_counter() - t0:.1f}s on (1, 4); batch {batch}, frames "
+          f"{enc_len}, prompt {prompt}, {new} new tokens, s_max {s_max}",
+          flush=True)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    tmpl = T.cache_template(cfg, run, rules, batch=batch, s_max=s_max,
+                            enc_len=enc_len)
+    step = make_serve_step(cfg, run, rules)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cache = T.encode_cross(params, T.zeros(tmpl, rules, dev), enc, cfg,
+                               run, rules)
+        torch.cuda.synchronize()
+        enc_ms = 1e3 * (time.perf_counter() - t0)
+        for i in range(prompt):
+            logits, cache = step(params, cache, tokens[:, i:i + 1])
+        prompt_logits = logits
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(new):
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            logits, cache = step(params, cache, nxt)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t1
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = prompt + new
+    print(f"[serve-encdec] encoder + cross K/V {enc_ms:.1f} ms (host clock, "
+          f"first call, ends in a synchronize); {new} greedy steps in "
+          f"{dec_s:.3f} s = {batch * new / dec_s:.1f} tokens/s "
+          f"({1e3 * dec_s / new:.2f} ms a step, host clock); "
+          f"max_memory_allocated {peak} B; launches {launches}", flush=True)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite whisper decode logits")
+    again = []
+    with torch.no_grad():
+        for _ in range(2):      # steady: the first call imports and plans
+            t0 = time.perf_counter()
+            T.encode_cross(params, T.zeros(tmpl, rules, dev), enc, cfg, run,
+                           rules)
+            torch.cuda.synchronize()
+            again.append(1e3 * (time.perf_counter() - t0))
+    print(f"[serve-encdec] encoder + cross K/V again (not counted): "
+          f"{[round(t, 1) for t in again]} ms", flush=True)
+    want = {"matmul": steps, "flash_attention": cfg.n_encoder_layers,
+            "pk_matmul_ar": 2 * cfg.n_encoder_layers + cfg.n_layers * steps}
+    if launches != want:
+        raise AssertionError(f"whisper serving launches {launches}, "
+                             f"expected {want}")
+    with torch.no_grad():
+        pre = make_prefill_step(cfg, run, rules)(
+            params, {"tokens": tokens, "enc_embeds": enc})
+    tol = math.sqrt(2 * cfg.n_layers * 16) * 2 ** -8 / math.sqrt(3)
+    err = rel_err(prompt_logits, pre)
+    agree = int((prompt_logits[:, -1].argmax(-1) == pre[:, -1].argmax(-1))
+                .sum())
+    print(f"[serve-encdec] logits after the 4th prompt token, decode path "
+          f"vs forward_prefill: rel_err={err:.3e} (tol {tol:.3e}), max "
+          f"|diff| {float((prompt_logits - pre).abs().max()):.3e}, argmax "
+          f"agrees in {agree}/{batch} rows", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"whisper decode logits disagree with "
+                             f"forward_prefill: rel_err {err:.3e}")
+    del params, cache
+    return launches
+
+
+def train_encdec(dev, steps: int = 3, batch: int = 8, seq: int = 448,
+                 enc_len: int = 1500, mb: int = 2) -> dict:
+    """Phase 5i: whisper-medium at full width and depth on a (2, 4)
+    virtual mesh (data 2 x model 4) with FSDP, every collective on the
+    kernels (``comm_backend="fused"``), remat, AdamW through
+    ``make_train_step``: batch 8 x 448 decoder tokens with their
+    ``enc_embeds`` (8, 1500, 1024), 2 microbatches, 3 steps. Every loss
+    finite; the ring all-gather (each FSDP weight gather, the encoder's and
+    the cross-attention's among them), the ring reduce-scatter (each FSDP
+    gradient), GEMM+AR, flash (encoder, decoder, cross) and the GEMM must
+    each launch, the GEMM exactly once a dp group, microbatch and step
+    (the loss, stacked, one 448-token chunk)."""
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import TrainState, make_train_step
+
+    run = RunConfig(fsdp=True, comm_backend="fused", microbatches=mb)
+    cfg, rules, params, gen = encdec_model(dev, run, (2, 4), seed=1)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=1),
+                       device=dev)
+    opt = AdamW(lr=1e-4, weight_decay=0.01)
+    step = make_train_step(cfg, run, rules, opt)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "pk_all_gather", "pk_reduce_scatter")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = TrainState(params, opt.init(params))
+    del params
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for i in range(steps):
+        b = data.batch(i)
+        b["enc_embeds"] = torch.randn((batch, enc_len, cfg.d_model),
+                                      generator=gen, device=dev).to(
+                                          torch.bfloat16)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[train-encdec] {cfg.name} full width and depth, mesh (2, 4) "
+          f"FSDP, comm_backend=fused, remat, batch {batch} x {seq} decoder "
+          f"tokens + {enc_len} frames, microbatches {mb}: losses "
+          f"{[round(x, 4) for x in losses]}; step wall times (host clock, "
+          f"each ends in a device->host read) {[round(t, 4) for t in times]}"
+          f" s; max_memory_allocated {peak} B", flush=True)
+    print(f"[train-encdec] launches over {steps} steps {launches}; per step "
+          f"{ {k: v / steps for k, v in launches.items()} }", flush=True)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"whisper training losses not all finite: "
+                             f"{losses}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"whisper training launched no {name} "
+                                 "kernel")
+    want = steps * 2 * mb * max(1, seq // 512)
+    if launches["matmul"] != want:
+        raise AssertionError(f"whisper training launched matmul "
+                             f"{launches['matmul']} times, not {want}")
+    del state
+    return launches
+
+
+def check_encdec_reference(dev, enc_len: int = 1500) -> None:
+    """Phase 5j: whisper-medium at full width cut to 2 encoder and 2
+    decoder layers, the card (bf16, kernels, fused collectives) against the
+    port's plain float32 path on the CPU with the same weights (bf16 values
+    widened) and inputs: the decode logits after 3 tokens over 1500 frames
+    on (1, 4) (encode_cross, then decode_step_encdec) within relative 3e-2,
+    as phase 4b; one forward and backward of 2 x 64 decoder tokens with
+    their frames on (2, 4) with FSDP, the loss within relative 1e-2 and the
+    global gradient norm within 3e-2, as phase 5b (the same rounding
+    budgets: two layers of each stack)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.optim.adamw import AdamW
+
+    def on_cpu(tree):
+        out: dict = {}
+        for path, t in T.leaves(tree):
+            T.set_path(out, path, t.detach().float().cpu())
+        return out
+
+    cut = dict(n_layers=2, n_encoder_layers=2)
+    srun = RunConfig(fsdp=False, comm_backend="fused",
+                     pk_attn_out_island=True)
+    cfg, rules, params, gen = encdec_model(dev, srun, (1, 4), seed=3, **cut)
+    enc = torch.randn((2, enc_len, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 3), generator=gen,
+                           device=dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu_rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), "cpu"),
+                              srun)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = encdec_decode(params, enc, tokens, cfg, srun, rules, 16,
+                            dev)[0].cpu()
+        want = encdec_decode(on_cpu(params), enc.float().cpu(), tokens.cpu(),
+                             cfg32, srun, cpu_rules, 16, "cpu")[0]
+    err = rel_err(got, want)
+    print(f"[encdec-reference] 2+2-layer full-width decode logits, card "
+          f"(bf16 kernels) vs cpu (f32 plain, {time.perf_counter() - t0:.1f}"
+          f" s): rel_err={err:.3e} (tol 3e-2), max |diff| "
+          f"{float((got - want).abs().max()):.3e}", flush=True)
+    if not err <= 3e-2:
+        raise AssertionError(f"whisper decode logits disagree with the f32 "
+                             f"plain path: rel_err {err:.3e}")
+    del params
+
+    trun = RunConfig(fsdp=True, comm_backend="fused")
+    cfg, rules, params, gen = encdec_model(dev, trun, (2, 4), seed=4, **cut)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                     generator=gen, device=dev),
+             "targets": torch.randint(0, cfg.vocab_size, (2, 64),
+                                      generator=gen, device=dev),
+             "weights": torch.ones((2, 64), device=dev),
+             "enc_embeds": torch.randn((2, enc_len, cfg.d_model),
+                                       generator=gen, device=dev).to(
+                                           torch.bfloat16)}
+
+    def loss_and_norm(cfg, params, batch, device):
+        rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), device),
+                              trun)
+        paths = list(T.leaves(params))
+        for _, p in paths:
+            p.requires_grad_(True)
+        loss, _ = T.forward_train(params, batch, cfg, trun, rules)
+        gs = torch.autograd.grad(loss, [p for _, p in paths])
+        tree: dict = {}
+        for (path, _), g in zip(paths, gs):
+            T.set_path(tree, path, g)
+        return float(loss.detach()), float(AdamW.global_norm(tree))
+
+    cpu_params = on_cpu(params)
+    got = loss_and_norm(cfg, params, batch, dev)
+    t0 = time.perf_counter()
+    want = loss_and_norm(dataclasses.replace(cfg, dtype="float32"),
+                         cpu_params, {k: (v.float() if v.is_floating_point()
+                                          else v).cpu()
+                                      for k, v in batch.items()}, "cpu")
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    print(f"[encdec-reference] 2+2-layer full-width (2, 4) FSDP step, card "
+          f"(bf16 kernels) vs cpu (f32 plain, {time.perf_counter() - t0:.1f}"
+          f" s): loss {got[0]:.5f} vs {want[0]:.5f} (rel {errs[0]:.3e}, tol "
+          f"1e-2), grad norm {got[1]:.5f} vs {want[1]:.5f} (rel "
+          f"{errs[1]:.3e}, tol 3e-2)", flush=True)
+    if not (errs[0] <= 1e-2 and errs[1] <= 3e-2):
+        raise AssertionError(f"whisper training step disagrees with the f32 "
+                             f"plain path: {errs}")
+
+
 def tp_gemm(dev, sweep=(4096, 8192, 16384)) -> dict:
     """Phase 5e: the tensor-parallel GEMM pair (paper Fig. 7/8) through
     ``CommContext`` and declared ``Island``s with ``Comm(op, m, n, k,
@@ -2847,10 +3231,15 @@ def main() -> int:
     del sp
     check_sp_reference(dev)
     moe_a2a_launches = moe_a2a(dev)
+    encdec_serve_launches = serve_encdec(dev)
+    encdec_train_launches = train_encdec(dev)
+    check_encdec_reference(dev)
     tp_launches = tp_gemm(dev)
     main_entries = []
     for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
-                                  "pk_all_gather@path"):
+                                  "pk_all_gather@path",
+                                  "flash_attention@encoder",
+                                  "flash_attention@cross"):
         counter = key.split("@")[0]
         by_path = {"serve": serve_launches.get(counter, 0),
                    "serve_moe": moe_launches.get(counter, 0),
@@ -2859,7 +3248,9 @@ def main() -> int:
                    "train_sp": sp_launches.get(counter, 0),
                    "train_ulysses": ulysses_launches.get(counter, 0),
                    "moe_a2a": moe_a2a_launches.get(counter, 0),
-                   "tp_gemm": tp_launches.get(counter, 0)}
+                   "tp_gemm": tp_launches.get(counter, 0),
+                   "serve_encdec": encdec_serve_launches.get(counter, 0),
+                   "train_encdec": encdec_train_launches.get(counter, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",
@@ -2867,15 +3258,17 @@ def main() -> int:
                      "ag_matmul_fused": "tp_gemm",
                      "matmul_rs_fused": "tp_gemm",
                      "lcsc_ring_all_gather": "tp_gemm",
-                     "pk_all_to_all": "train_ulysses"}.get(
-            counter, "serve" if counter in serve_launches else "train")
+                     "pk_all_to_all": "train_ulysses",
+                     "flash_attention@encoder": "serve_encdec",
+                     "flash_attention@cross": "train_encdec"}.get(
+            key, "serve" if counter in serve_launches else "train")
         entry = dict(entries[key], launches=by_path[main_path],
                      launches_by_path=by_path)
         if key != counter:              # a row sharing another's counter
             entry["launches_counter"] = counter
         main_entries.append(entry)
     for key in ("matmul@rank", "matmul@loss", "matmul@mlp",
-                "matmul@moonshot",
+                "matmul@moonshot", "matmul@whisper",
                 "flash_attention@moonshot", "grouped_matmul@prefill",
                 "matmul@falcon", "mamba_scan@prefill",
                 "mamba_scan@prefill-b1",

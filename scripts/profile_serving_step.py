@@ -22,8 +22,9 @@ one JSON object with the median of, over the steps of that kind:
 
 each step's wall and busy time in step order (``*_each``), the mean
 device time per step by group — the port's hand-written kernels
-(``pk_*``, and ``hg::hg_gemm_kernel``, the Hopper mainloop of B1, B4, B5,
-B6 and B9), GEMMs of the vendor library, copies and memsets, and
+(``pk_*``, ``hg::hg_gemm_kernel``, the Hopper mainloop of B1, B4, B5,
+B6 and B9, and ``fa::flash_kernel``, B7), GEMMs of the vendor library,
+copies and memsets, and
 everything else (elementwise, reductions, softmax) — and the device ops
 that take the most time, with their time and calls per step. Exits 1 if
 the profiler recorded no device activity.
@@ -48,7 +49,8 @@ TOP = 12
 def group_of(name: str) -> str:
     low = name.lower().removeprefix("void ").removeprefix(
         "(anonymous namespace)::")
-    if low.startswith(("pk_", "hg::")):     # hg::: the Hopper mainloop
+    # hg::: the Hopper mainloop; fa::: flash attention and its hop
+    if low.startswith(("pk_", "hg::", "fa::")):
         return "pk_kernels"
     if any(s in low for s in GEMM_MARKS):
         return "library_gemm"
@@ -72,68 +74,21 @@ def busy_us(spans) -> float:
     return total
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b",
-                    choices=["tinyllama-1.1b", "moonshot-v1-16b-a3b",
-                             "falcon-mamba-7b"],
-                    help="the served model (chip_smoke.py's phase 4, 4c or "
-                         "4e)")
-    ap.add_argument("--out", default=None,
-                    help="also write the JSON objects to this file")
-    ap.add_argument("--reduced", action="store_true",
-                    help="the reduced config (a rehearsal of the script)")
-    ap.add_argument("--device", default=None,
-                    help="default cuda; cpu rehearses the script and exits "
-                         "1, with no device activity to read")
-    args = ap.parse_args()
-
-    import torch
+def summarize(events, labels, unprofiled) -> list[dict] | None:
+    """One JSON object a step kind from a profile whose steps ran in
+    ``record_function`` ranges: ``labels`` are (range name, kind) pairs,
+    ``unprofiled`` the kind's median wall seconds without the profiler
+    (see the module docstring); None when no device activity was
+    recorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.compat import resolve_device
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ServeConfig
-    from repro_torch.launch.serve import build_engine, synthetic_trace
-    from repro_torch.models.transformer import has_ssm
-
-    dev = resolve_device(args.device)
-    serve = ServeConfig(max_batch=8, prefill_batch=4, bucket_edges=(128, 512),
-                        max_new_tokens=32,
-                        exact_buckets=has_ssm(get_config(args.arch)))
-    eng = build_engine(args.arch, reduced=args.reduced,
-                       mesh_shape=(1, 4), serve=serve, seed=0, device=dev,
-                       run_overrides={"comm_backend": "fused",
-                                      "pk_attn_out_island": True})
-    trace = synthetic_trace(8, serve, eng.cfg.vocab_size, seed=0)
-    eng.run(trace)                                   # warm-up
-    unprofiled = {k: statistics.median(
-        t for kk, t in zip(eng.step_kinds, eng.step_times) if kk == k)
-        for k in set(eng.step_kinds)}
-    for p in trace:
-        eng.submit(p)
-    labels = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        while True:
-            label = f"engine_step_{len(labels)}"
-            with record_function(label):
-                kind = eng.step()
-            if kind is None:
-                break
-            labels.append((label, kind))
-
-    events = prof.events()
     ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
               if e.device_type == DeviceType.CPU
               and e.name.startswith("engine_step_")}
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and not e.name.startswith("engine_step_")]
     if not device:
-        print("profile_serving_step: the profiler recorded no device "
-              "activity", file=sys.stderr)
-        return 1
+        return None
 
     per_kind: dict[str, list[dict]] = {}
     for label, kind in labels:
@@ -184,6 +139,64 @@ def main() -> int:
                  "ms_per_step": us / len(steps) / 1e3,
                  "calls_per_step": cnt / len(steps)}
                 for n, (us, cnt) in top]})
+    return lines
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    choices=["tinyllama-1.1b", "moonshot-v1-16b-a3b",
+                             "falcon-mamba-7b"],
+                    help="the served model (chip_smoke.py's phase 4, 4c or "
+                         "4e)")
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON objects to this file")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the reduced config (a rehearsal of the script)")
+    ap.add_argument("--device", default=None,
+                    help="default cuda; cpu rehearses the script and exits "
+                         "1, with no device activity to read")
+    args = ap.parse_args()
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.compat import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch.serve import build_engine, synthetic_trace
+    from repro_torch.models.transformer import has_ssm
+
+    dev = resolve_device(args.device)
+    serve = ServeConfig(max_batch=8, prefill_batch=4, bucket_edges=(128, 512),
+                        max_new_tokens=32,
+                        exact_buckets=has_ssm(get_config(args.arch)))
+    eng = build_engine(args.arch, reduced=args.reduced,
+                       mesh_shape=(1, 4), serve=serve, seed=0, device=dev,
+                       run_overrides={"comm_backend": "fused",
+                                      "pk_attn_out_island": True})
+    trace = synthetic_trace(8, serve, eng.cfg.vocab_size, seed=0)
+    eng.run(trace)                                   # warm-up
+    unprofiled = {k: statistics.median(
+        t for kk, t in zip(eng.step_kinds, eng.step_times) if kk == k)
+        for k in set(eng.step_kinds)}
+    for p in trace:
+        eng.submit(p)
+    labels = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        while True:
+            label = f"engine_step_{len(labels)}"
+            with record_function(label):
+                kind = eng.step()
+            if kind is None:
+                break
+            labels.append((label, kind))
+
+    lines = summarize(prof.events(), labels, unprofiled)
+    if lines is None:
+        print("profile_serving_step: the profiler recorded no device "
+              "activity", file=sys.stderr)
+        return 1
     for line in lines:
         print(json.dumps(line), flush=True)
     if args.out:

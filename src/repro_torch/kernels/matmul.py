@@ -8,7 +8,9 @@ CUDA route (``csrc/matmul.cu`` on the mainloop of ``csrc/hopper_gemm.cuh``;
 the design note is there): TMA loads of 128-byte-swizzled tiles into a ring
 of shared-memory stages, one producer thread, one or two consumer
 warpgroups running ``wgmma``, a persistent grid. Ragged edges come from
-TMA's zero fill, never from padding. ``plan`` picks one of two regimes
+TMA's zero fill, never from padding, except a row length N that is no
+multiple of 8 (whisper's vocab shard a rank): there the wrapper pads w's
+rows with zero columns in a copy. ``plan`` picks one of two regimes
 from the shape:
 
 * **compute-bound** (M > 64: prefill and loss logits, 2·M·N·K operations
@@ -167,6 +169,17 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"matmul runs on cpu or cuda, not {x.device}")
     r, k, n = w.shape
     m = x.shape[0]
+    if n % 8:
+        # a ragged vocab shard (whisper's 51868 columns over 4 ranks are
+        # 12967 a rank): TMA reads w's rows at 16-byte aligned strides and
+        # the epilogue stores whole 16-byte words of out's rows, so w is
+        # copied into rows padded with zero columns to a multiple of 8 and
+        # the output sliced back — JAX's ops.matmul pads to its tile
+        # likewise. Each output element's K loop is unchanged: the real
+        # columns keep their bits.
+        wp = w.new_zeros(r, k, -(-n // 8) * 8)
+        wp[..., :n] = w
+        return _launch(x, wp)[..., :n].contiguous()
     if r > MAX_SLABS:
         raise ValueError(f"at most {MAX_SLABS} stacked shards, got {r}")
     check_tma_operand(x, "x")

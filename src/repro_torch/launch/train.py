@@ -56,10 +56,16 @@ def build_and_train(arch: str, *, steps: int, reduced: bool, mesh_shape,
     if reduced:
         cfg = cfg.reduced()
     if any(sp.mixer != "attn" or sp.mlp != "dense"
-           for sp in cfg.layer_pattern()) or cfg.encoder_decoder:
+           for sp in cfg.layer_pattern()):
         raise NotImplementedError(
             f"{cfg.name}: the port trains dense decoders; MoE is ROADMAP "
             "A9b and SSM/hybrid A10b")
+    if cfg.encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the launcher's data pipeline feeds no enc_embeds "
+            "(nor does the JAX launcher's); train an encoder-decoder through "
+            "models.transformer.forward_train or train.step.make_train_step "
+            "with an enc_embeds batch")
     mesh = VirtualMesh(mesh_shape, mesh_axes, dev) if mesh_shape else None
     run = RunConfig(dp_axes=tuple(a for a in (mesh_axes or ())
                                   if a != "model") or ("data",),

@@ -10,8 +10,11 @@ tp-sharded weight out once); the helpers :func:`_col_proj` and
 
 Ported: norms, activations, RoPE, ``_full_attention``, the slab KV-cache
 islands (``decode_island``, ``prefill_write_island``), prefill and
-training attention — whose causal mix is ``kernels/flash_attention.py``,
-the hand-written kernel on the card — the GEMM+AR islands
+training attention — whose mix is ``kernels/flash_attention.py``, the
+hand-written kernel on the card: causal, or non-causal in an
+encoder-decoder's encoder and cross-attention (``cross_kv``), whose
+one-token decode merges each rank's slice of the encoder's K/V
+(``cross_decode_island``) — the GEMM+AR islands
 (``attn_out_island``, ``mlp_island``), the vocab-parallel embedding, the
 serving logits and the chunked vocab-parallel loss (``lm_loss_island``),
 whose logits go through the GEMM kernel. With FSDP on a dp > 1 mesh
@@ -239,36 +242,51 @@ def sp_attention_island(cfg: ArchConfig, run: RunConfig,
                   comm=comm)
 
 
+def project(x: torch.Tensor, w, n: int, rules: ShardingRules | None,
+            run: RunConfig) -> torch.Tensor:
+    """x (..., d) @ w (d, n), a column-sharded projection (q, k, v; the
+    cross-attention K/V of the encoder's output). With FSDP on a dp > 1
+    mesh the weight is first gathered, one copy per dp group — the gather
+    XLA inserts in JAX — and each group's batch slice of x is projected
+    with its copy."""
+    if rules is not None:
+        c = fsdp_gather(w, rules.w2d(x.shape[-1], n, tp_dim=1), rules, run,
+                        dim=0)
+        if c is not None:
+            w = tuple(c.unbind(0))
+    return _col_proj(x, w)
+
+
 def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
                     rules: ShardingRules | None, *, causal=True,
-                    positions=None, seq_sharded=False):
-    """Full-sequence self-attention sub-layer without a cache (training):
-    projections, RoPE, the causal GQA mix — the flash kernel, with its
-    autograd backward; with ``seq_sharded`` ring or Ulysses attention over
-    the tp axis in the SP island — and the out-projection island. x: (B,
-    S, d)."""
+                    positions=None, cross_kv=None, seq_sharded=False):
+    """Full-sequence attention sub-layer without a cache (training):
+    projections, RoPE, the GQA mix — the flash kernel, with its autograd
+    backward; with ``seq_sharded`` ring or Ulysses attention over the tp
+    axis in the SP island — and the out-projection island. x: (B, S, d).
+    ``cross_kv``: the precomputed (k, v) (B, Hkv, Se, hd) of an
+    encoder-decoder's cross-attention — no K/V projection, no RoPE, no
+    window; the caller passes ``causal=False``, as in JAX."""
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-
-    def proj(name, n):
-        w = p[name]
-        if rules is not None:
-            c = fsdp_gather(w, rules.w2d(d, n, tp_dim=1), rules, run, dim=0)
-            if c is not None:
-                w = tuple(c.unbind(0))          # one copy per dp group
-        return _col_proj(x, w)
-
-    q = proj("wq", hq * hd).reshape(b, s, hq, hd).transpose(1, 2)
-    k = proj("wk", hkv * hd).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = proj("wv", hkv * hd).reshape(b, s, hkv, hd).transpose(1, 2)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = project(x, p["wq"], hq * hd, rules, run).reshape(
+        b, s, hq, hd).transpose(1, 2)
+    if cross_kv is None:
+        k = project(x, p["wk"], hkv * hd, rules, run).reshape(
+            b, s, hkv, hd).transpose(1, 2)
+        v = project(x, p["wv"], hkv * hd, rules, run).reshape(
+            b, s, hkv, hd).transpose(1, 2)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        window = cfg.sliding_window
+    else:
+        k, v = cross_kv
+        window = None
 
     def dense_mix(q, k, v):
-        return flash_attention(q, k, v, causal=causal,
-                               window=cfg.sliding_window)
+        return flash_attention(q, k, v, causal=causal, window=window)
 
     if seq_sharded and rules is not None:
         island = sp_attention_island(cfg, run, rules, b, s, causal=causal,
@@ -295,42 +313,45 @@ def _cache_write(cache, new, pos):
     return torch.where(oh[:, None, :, None], new.to(cache.dtype), cache)
 
 
+def _sharded_mix(ctx, q, k_, v_, kvl, window, cfg: ArchConfig):
+    """One query token (R, B, Hq, 1, hd) over a stacked, sequence-sharded
+    K/V (R, B, Hkv, s_loc, hd): rank r's keys sit at global positions
+    r·s_loc + j, visible iff < ``kvl`` (and, with a window, > kvl - 1 -
+    window); each rank's partial softmax is merged by log-sum-exp over the
+    ranks — the pmax / psum of the JAX decode island, acting on the stacked
+    rank axis."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    r, s_loc = q.shape[0], k_.shape[3]
+    g = hq // hkv
+    qg = q.reshape(r, q.shape[1], hkv, g, 1, hd).float()
+    sc = torch.einsum("rbkgqd,rbksd->rbkgqs", qg, k_.float()) * hd ** -0.5
+    ki = ((rank_index(k_) * s_loc).view(r, 1, 1, 1, 1, 1)
+          + torch.arange(s_loc, device=q.device))
+    keep = ki < kvl
+    if window is not None:
+        keep = keep & (ki > (kvl - 1) - window)
+    sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+    m_glob = ctx.pmax(sc.amax(dim=-1))
+    p_ = torch.exp(sc - m_glob[..., None])
+    l_glob = ctx.psum(p_.sum(dim=-1), backend="bulk")
+    o_glob = ctx.psum(torch.einsum("rbkgqs,rbksd->rbkgqd", p_, v_.float()),
+                      backend="bulk")
+    o = o_glob / l_glob.clamp_min(1e-30)[..., None]
+    return o.reshape(r, q.shape[1], hq, 1, hd).to(q.dtype)
+
+
 def decode_island(cfg: ArchConfig, run: RunConfig,
                   rules: ShardingRules | None, b: int, s_max: int, *,
                   long_ctx: bool, pos, kv_len, window) -> Island:
     """One-token decode over the sequence-sharded KV cache: rank-local slot
-    write + flash-decode log-sum-exp merge over the tp ranks (the pmax /
-    psum of the JAX island act on the stacked rank axis). ``pos`` is a
-    scalar (lockstep) or a per-slot (B,) vector (the engine's pool)."""
+    write + flash-decode log-sum-exp merge over the tp ranks
+    (:func:`_sharded_mix`). ``pos`` is a scalar (lockstep) or a per-slot
+    (B,) vector (the engine's pool)."""
     if long_ctx:
         raise NotImplementedError(
             "long-context decode over (dp × tp) is ROADMAP item A8")
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     vec = torch.is_tensor(pos) and pos.dim() > 0
-
-    def _mix(ctx, q, k_, v_, offset, s_loc, pos_in):
-        r = q.shape[0]
-        g = hq // hkv
-        qg = q.reshape(r, q.shape[1], hkv, g, 1, hd).float()
-        sc = torch.einsum("rbkgqd,rbksd->rbkgqs", qg, k_.float()) \
-            * hd ** -0.5
-        ki = (offset.view(r, 1, 1, 1, 1, 1)
-              + torch.arange(s_loc, device=q.device))
-        if vec:
-            kvl = (pos_in + 1).view(r, -1, 1, 1, 1, 1)
-        else:
-            kvl = kv_len
-        keep = ki < kvl
-        if window is not None:
-            keep = keep & (ki > (kvl - 1) - window)
-        sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
-        m_glob = ctx.pmax(sc.amax(dim=-1))
-        p_ = torch.exp(sc - m_glob[..., None])
-        l_glob = ctx.psum(p_.sum(dim=-1), backend="bulk")
-        o_glob = ctx.psum(torch.einsum("rbkgqs,rbksd->rbkgqd", p_,
-                                       v_.float()), backend="bulk")
-        o = o_glob / l_glob.clamp_min(1e-30)[..., None]
-        return o.reshape(r, q.shape[1], hq, 1, hd).to(q.dtype)
 
     def reference(q, cache_k, cache_v, k_new, v_new, **kw):
         p_ = kw.get("pos", pos)
@@ -356,16 +377,16 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
             hit = (local >= 0) & (local < s_loc)
             oh = (ar == local[..., None]) & hit[..., None]          # (R,B,s)
             mask = oh[:, :, None, :, None]
-            pos_in = kw["pos"]
+            kvl = (kw["pos"] + 1).view(*kw["pos"].shape, 1, 1, 1, 1)
         else:
             local = pos - offset                                    # (R,)
             hit = (local >= 0) & (local < s_loc)
             oh = (ar[None, :] == local[:, None]) & hit[:, None]     # (R, s)
             mask = oh[:, None, None, :, None]
-            pos_in = pos
+            kvl = kv_len
         k_ = torch.where(mask, k_new.to(cache_k.dtype), cache_k)
         v_ = torch.where(mask, v_new.to(cache_v.dtype), cache_v)
-        return _mix(ctx, q, k_, v_, offset, s_loc, pos_in), k_, v_
+        return _sharded_mix(ctx, q, k_, v_, kvl, window, cfg), k_, v_
 
     inputs = {"q": qspec, "cache_k": cache_spec, "cache_v": cache_spec,
               "k_new": qspec, "v_new": qspec}
@@ -382,14 +403,61 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
                   payload_bytes=2 * b * hq * hd * 4))
 
 
+def cross_decode_island(cfg: ArchConfig, run: RunConfig,
+                        rules: ShardingRules | None, b: int,
+                        enc_len: int) -> Island:
+    """One-token cross-attention of an encoder-decoder over the encoder's
+    K/V (``cache["cross"]``), which JAX stores sequence-sharded over tp:
+    every key is visible, and each rank's partial softmax over its slice
+    of the ``enc_len`` positions is merged by log-sum-exp over the ranks
+    (:func:`_sharded_mix`), with no cache write. JAX leaves the same
+    ``_full_attention`` to XLA's partitioner."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def reference(q, k, v):
+        return _full_attention(q, k, v, causal=False, window=None,
+                               q_offset=0, kv_len=enc_len)
+
+    if rules is None:
+        return Island("cross_decode_attn", run=run, reference=reference)
+    tp = rules.tp
+    bspec = rules.dim(b, rules.dp)
+    qspec = P(bspec, None, None, None)
+    kv_spec = P(bspec, None, rules.dim(enc_len, tp), None)
+
+    def body(ctx, q, k, v):
+        return _sharded_mix(ctx, q, k, v, enc_len, None, cfg)
+
+    return Island(
+        "cross_decode_attn", rules=rules, run=run, axis=tp,
+        fallback_axes=tp, inputs={"q": qspec, "k": kv_spec, "v": kv_spec},
+        out_specs=qspec, body=body, reference=reference,
+        enable=run.decode_seq_shard, divisible=((enc_len, tp),),
+        comm=Comm("psum", backend="bulk", n_chunks=1,
+                  payload_bytes=2 * b * hq * hd * 4))
+
+
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ArchConfig,
-                     run: RunConfig, rules: ShardingRules | None):
+                     run: RunConfig, rules: ShardingRules | None, *,
+                     cross_kv=None):
     """One-token decode with KV cache. x: (B, 1, d); cache_k/v: global
     (B, Hkv, S_max, hd), or stacked per rank when sequence-sharded; pos:
-    scalar or per-slot (B,). Returns (out (B, 1, d), new_k, new_v)."""
+    scalar or per-slot (B,). Returns (out (B, 1, d), new_k, new_v).
+    ``cross_kv``: an encoder-decoder's cross-attention over the encoder's
+    (k, v) (B, Hkv, Se, hd), stored like the cache — no cache, no RoPE, no
+    window, every key visible (:func:`cross_decode_island` on a mesh) —
+    returning (out, None, None)."""
     b, _, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _col_proj(x, p["wq"]).reshape(b, 1, hq, hd).transpose(1, 2)
+    if cross_kv is not None:
+        k, v = cross_kv
+        enc_len = k.shape[-2] * (rules.mesh.shape[rules.tp]
+                                 if rules is not None and k.dim() == 5
+                                 else 1)
+        o = cross_decode_island(cfg, run, rules, b, enc_len)(q=q, k=k, v=v)
+        o = o.transpose(1, 2).reshape(b, 1, hq * hd)
+        return torch.matmul(o, _row_weight(p["wo"])), None, None
     k_new = _col_proj(x, p["wk"]).reshape(b, 1, hkv, hd).transpose(1, 2)
     v_new = _col_proj(x, p["wv"]).reshape(b, 1, hkv, hd).transpose(1, 2)
     vec = torch.is_tensor(pos) and pos.dim() > 0

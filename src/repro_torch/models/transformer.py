@@ -1,8 +1,9 @@
 """Model assembly for the serving and training paths — the twin of
 ``repro/models/transformer.py``: parameter and cache templates (shape,
 spec and init in one place), the training forward (``forward_train``),
-then the cache-building prefill and the one-token decode step, looping over
-layer periods in Python where the JAX package scans.
+the last-position prefill forward (``forward_prefill``), then the
+cache-building prefill and the one-token decode steps, looping over layer
+periods in Python where the JAX package scans.
 
 Storage layout: a leaf whose spec shards a dim over the tensor-parallel
 axis is stored stacked per rank, once (``core.pgl.layout`` with the rank
@@ -11,8 +12,13 @@ With no mesh every leaf is global. Layers mix with attention or a mamba
 block (``models/ssm.py``; its state cache ``h`` (np, R, B, di/R, N) f32
 and conv tail (np, R, B, ck-1, di/R)) and have a dense, MoE (expert
 weights device-major over tp, ``core/moe.py``) or no FFN, so dense, MoE,
-SSM and hybrid decoders serve. Encoder-decoder configs raise
-``NotImplementedError``, and so does training MoE or SSM layers.
+SSM and hybrid decoders serve. An encoder-decoder (whisper) adds the
+non-causal encoder (``enc_blocks``, ``enc_final_norm``) and a
+cross-attention sub-block in every decoder layer; it trains
+(``forward_train``), runs ``forward_prefill`` and decodes one token at a
+time over the encoder's K/V in ``cache["cross"]``
+(``decode_step_encdec``), as in JAX. Training or ``forward_prefill`` of
+MoE or SSM layers raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compat import DTYPES
-from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec, RunConfig
 from repro_torch.core import pgl
 from repro_torch.core.moe import ep_tp_split
 from repro_torch.core.pgl import P
@@ -64,10 +70,16 @@ def set_path(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def _check_decoder(cfg: ArchConfig) -> None:
-    if cfg.encoder_decoder:
+def _check_dense(cfg: ArchConfig) -> None:
+    """The training block loop runs attention and dense MLP layers only."""
+    if has_ssm(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder decode is ROADMAP item A7")
+            f"{cfg.name}: SSM training is ROADMAP item A10b; the port serves "
+            "SSM and hybrid models")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training is ROADMAP item A9b; the port serves "
+            "MoE models")
 
 
 def has_ssm(cfg: ArchConfig) -> bool:
@@ -149,10 +161,29 @@ def _mamba_pds(cfg: ArchConfig, r: ShardingRules | None, dt) -> dict:
     }
 
 
+def _block_pds(spec: LayerSpec, cfg: ArchConfig, r, dt, *,
+               cross: bool) -> dict:
+    out = ({"attn": _attn_pds(cfg, r, dt)} if spec.mixer == "attn"
+           else {"mamba": _mamba_pds(cfg, r, dt)})
+    if cross:
+        out["cross"] = _attn_pds(cfg, r, dt)
+    if spec.mlp == "moe":
+        out["moe"] = _moe_pds(cfg, r, dt)
+    elif spec.mlp == "dense":
+        out["mlp"] = _mlp_pds(cfg, r, dt)
+    return out
+
+
+def _stacked(pds: dict, n: int) -> dict:
+    return {g: {k: pd.stacked(n) for k, pd in sub.items()}
+            for g, sub in pds.items()}
+
+
 def param_template(cfg: ArchConfig, run: RunConfig,
                    rules: ShardingRules | None) -> dict:
-    """The full parameter tree as PDs (the JAX template's shapes/specs)."""
-    _check_decoder(cfg)
+    """The full parameter tree as PDs (the JAX template's shapes/specs);
+    an encoder-decoder adds a ``cross`` sub-tree to every decoder block,
+    the encoder's ``enc_blocks`` and ``enc_final_norm``."""
     dt = DTYPES[cfg.dtype]
     d = cfg.d_model
     v = cfg.padded_vocab(rules.mesh.shape[rules.tp] if rules else 16)
@@ -164,18 +195,16 @@ def param_template(cfg: ArchConfig, run: RunConfig,
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = PD((d, v), P(fs, tpv), "normal", dt)
-    blocks = {}
-    for i, spec in enumerate(cfg.layer_pattern()):
-        pds = ({"attn": _attn_pds(cfg, rules, dt)} if spec.mixer == "attn"
-               else {"mamba": _mamba_pds(cfg, rules, dt)})
-        if spec.mlp == "moe":
-            pds["moe"] = _moe_pds(cfg, rules, dt)
-        elif spec.mlp == "dense":
-            pds["mlp"] = _mlp_pds(cfg, rules, dt)
-        blocks[f"pos{i}"] = {g: {k: pd.stacked(cfg.n_periods)
-                                 for k, pd in sub.items()}
-                             for g, sub in pds.items()}
-    tree["blocks"] = blocks
+    tree["blocks"] = {
+        f"pos{i}": _stacked(_block_pds(spec, cfg, rules, dt,
+                                       cross=cfg.encoder_decoder),
+                            cfg.n_periods)
+        for i, spec in enumerate(cfg.layer_pattern())}
+    if cfg.encoder_decoder:
+        tree["enc_blocks"] = _stacked(
+            _block_pds(LayerSpec("attn", "dense"), cfg, rules, dt,
+                       cross=False), cfg.n_encoder_layers)
+        tree["enc_final_norm"] = PD((d,), P(None), "ones", dt)
     return tree
 
 
@@ -255,13 +284,16 @@ def zeros(template, rules: ShardingRules | None, device) -> dict:
 
 def cache_template(cfg: ArchConfig, run: RunConfig,
                    rules: ShardingRules | None, *, batch: int, s_max: int,
-                   slot_pos: bool = False, kv_dtype: str = "bf16") -> dict:
+                   enc_len: int = 0, slot_pos: bool = False,
+                   kv_dtype: str = "bf16") -> dict:
     """Slab decode cache: per layer period (np, B, Hkv, S_max, hd) K and V
     (sequence-sharded over tp with a mesh) for attention layers, the f32
     state ``h`` (np, B, di, N) and conv tail (np, B, ck-1, di) (di over tp)
     for mamba layers, and the position — a scalar, or one per slot with
-    ``slot_pos=True`` (the serving engine's pool)."""
-    _check_decoder(cfg)
+    ``slot_pos=True`` (the serving engine's pool). An encoder-decoder with
+    ``enc_len`` adds ``cross``: the encoder's K and V for every decoder
+    layer, (np·len(pattern), B, Hkv, enc_len, hd), sequence-sharded over
+    tp as JAX shards them (replicated, they cost 27 GB a device there)."""
     attn = any(sp.mixer == "attn" for sp in cfg.layer_pattern())
     if attn and rules is not None and not run.decode_seq_shard:
         raise NotImplementedError(
@@ -292,7 +324,22 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
                      "conv": PD((batch, ck - 1, di), conv_spec, "zeros", dt)}
         tree["blocks"][f"pos{i}"] = {k: pd.stacked(cfg.n_periods)
                                      for k, pd in entry.items()}
+    if cfg.encoder_decoder and enc_len:
+        kv = _cross_pd(cfg, rules, batch, enc_len)
+        tree["cross"] = {"k": kv, "v": kv}
     return tree
+
+
+def _cross_pd(cfg: ArchConfig, rules: ShardingRules | None, batch: int,
+              enc_len: int) -> PD:
+    """One leaf of ``cache["cross"]``: a decoder layer's encoder K or V a
+    row, (np·len(pattern), B, Hkv, enc_len, hd), enc_len over tp."""
+    bspec = rules.dim(batch, rules.dp) if rules else None
+    enc_sp = rules.dim(enc_len, rules.tp) if rules else None
+    return PD((cfg.n_periods * len(cfg.layer_pattern()), batch,
+               cfg.n_kv_heads, enc_len, cfg.hd),
+              P(None, bspec, None, enc_sp, None), "zeros", DTYPES[cfg.dtype],
+              periods=True)
 
 
 # ---------------------------------------------------------------------------
@@ -315,9 +362,27 @@ class _BF16GradBarrier(torch.autograd.Function):
         return g
 
 
-def _attn_sub(a, x, cfg, run, rules, *, seq_sharded):
+def _attn_sub(a, x, cfg, run, rules, *, causal, seq_sharded):
     return L.attention_block(a, L.rms_norm(a["norm"], x, cfg.norm_eps), cfg,
-                             run, rules, causal=True, seq_sharded=seq_sharded)
+                             run, rules, causal=causal,
+                             seq_sharded=seq_sharded)
+
+
+def cross_kv(c, enc_out, cfg: ArchConfig, run: RunConfig, rules):
+    """A decoder layer's cross-attention K and V, (B, Hkv, Se, hd) each:
+    the encoder's output (B, Se, d) through the layer's ``cross.wk`` and
+    ``cross.wv`` — column projections, FSDP-gathered like q, k and v (JAX
+    computes the same einsums inline in ``_apply_block``)."""
+    b, se, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    return tuple(L.project(enc_out, c[name], hkv * hd, rules, run).reshape(
+        b, se, hkv, hd).transpose(1, 2) for name in ("wk", "wv"))
+
+
+def _cross_sub(c, x, cfg, run, rules, *, enc_out):
+    return L.attention_block(c, L.rms_norm(c["norm"], x, cfg.norm_eps), cfg,
+                             run, rules, causal=False,
+                             cross_kv=cross_kv(c, enc_out, cfg, run, rules))
 
 
 def _mlp_sub(m, x, cfg, run, rules):
@@ -326,18 +391,29 @@ def _mlp_sub(m, x, cfg, run, rules):
 
 
 def _apply_block(bp, x, cfg: ArchConfig, run: RunConfig, rules, *,
-                 seq_sharded=False):
-    """One dense layer, pre-norm residual (JAX ``_apply_block``); with
-    ``seq_sharded`` the attention mix is ring or Ulysses attention over
-    the tp axis (``run.sp_attention``). With ``run.remat`` and ``run.save_collectives`` each sub-block is
-    checkpointed on its own, so its output survives to the backward while
-    everything inside it is recomputed (the JAX policy saving
-    ``subblock_out``)."""
+                 causal=True, enc_out=None, seq_sharded=False,
+                 sub_remat=None):
+    """One dense layer, pre-norm residual (JAX ``_apply_block``): attention
+    (causal or, in the encoder, not), then — given the encoder's output
+    ``enc_out`` — cross-attention over it, then the MLP. With
+    ``seq_sharded`` the attention mix is ring or Ulysses attention over the
+    tp axis (``run.sp_attention``). ``sub_remat`` (default: ``run.remat``
+    and ``run.save_collectives``) checkpoints each sub-block on its own, so
+    its output survives to the backward while everything inside it is
+    recomputed (the JAX policy saving ``subblock_out``; JAX leaves the
+    cross sub-block's output unnamed and recomputes it, the port keeps it:
+    one (B, S, d) more a layer, the same numbers)."""
     if run.bf16_backward_ars:
         x = _BF16GradBarrier.apply(x)
-    sub_remat = run.remat and run.save_collectives
-    attn = functools.partial(_attn_sub, seq_sharded=seq_sharded)
-    for fn, sp in ((attn, bp["attn"]), (_mlp_sub, bp["mlp"])):
+    if sub_remat is None:
+        sub_remat = run.remat and run.save_collectives
+    subs = [(functools.partial(_attn_sub, causal=causal,
+                               seq_sharded=seq_sharded), bp["attn"])]
+    if enc_out is not None and "cross" in bp:
+        subs.append((functools.partial(_cross_sub, enc_out=enc_out),
+                     bp["cross"]))
+    subs.append((_mlp_sub, bp["mlp"]))
+    for fn, sp in subs:
         if sub_remat:
             h = checkpoint(fn, sp, x, cfg, run, rules, use_reentrant=False)
         else:
@@ -346,25 +422,32 @@ def _apply_block(bp, x, cfg: ArchConfig, run: RunConfig, rules, *,
     return x
 
 
+def _layers(blocks: list) -> list:
+    """Per-layer views of stacked leaves, one unbind per leaf: its backward
+    stacks the layers' gradients in one copy, where indexing each layer
+    would zero-fill and add the whole stacked leaf once per layer."""
+    return [{g: {k: t.unbind(0) for k, t in sub.items()}
+             for g, sub in blk.items()} for blk in blocks]
+
+
+def _layer(views: dict, li: int) -> dict:
+    return {g: {k: ts[li] for k, ts in sub.items()}
+            for g, sub in views.items()}
+
+
 def _scan_blocks(blocks, x, cfg: ArchConfig, run: RunConfig, rules, *,
-                 seq_sharded=False):
+                 causal=True, enc_out=None, seq_sharded=False):
     """The layer periods in order (JAX ``lax.scan``). With ``run.remat``
     and no ``save_collectives`` a whole period is checkpointed: only its
     input is kept and everything else is recomputed in the backward (the
     JAX policy ``None``)."""
     pattern = cfg.layer_pattern()
-    # one unbind per stacked leaf: its backward stacks the layers' gradients
-    # in one copy, where indexing each layer would zero-fill and add the
-    # whole stacked leaf once per layer
-    layers = [{g: {k: t.unbind(0) for k, t in sub.items()}
-               for g, sub in blocks[f"pos{i}"].items()}
-              for i in range(len(pattern))]
+    layers = _layers([blocks[f"pos{i}"] for i in range(len(pattern))])
 
     def period(x, li):
-        for i in range(len(pattern)):
-            bp = {g: {k: ts[li] for k, ts in sub.items()}
-                  for g, sub in layers[i].items()}
-            x = _apply_block(bp, x, cfg, run, rules,
+        for views in layers:
+            x = _apply_block(_layer(views, li), x, cfg, run, rules,
+                             causal=causal, enc_out=enc_out,
                              seq_sharded=seq_sharded)
         return x
 
@@ -376,6 +459,32 @@ def _scan_blocks(blocks, x, cfg: ArchConfig, run: RunConfig, rules, *,
     return x
 
 
+def _scan_encoder(enc_blocks, x, cfg: ArchConfig, run: RunConfig, rules):
+    """The encoder's layers in order (JAX ``_scan_encoder``): non-causal
+    attention and the MLP; with ``run.remat`` each layer is checkpointed
+    whole, whatever ``save_collectives`` says (JAX's encoder remat has no
+    policy)."""
+    views, = _layers([enc_blocks])
+
+    def layer(x, li):
+        return _apply_block(_layer(views, li), x, cfg, run, rules,
+                            causal=False, sub_remat=False)
+
+    for li in range(cfg.n_encoder_layers):
+        x = (checkpoint(layer, x, li, use_reentrant=False) if run.remat
+             else layer(x, li))
+    return x
+
+
+def encode(params, enc_embeds, cfg: ArchConfig, run: RunConfig, rules):
+    """The encoder's output (B, Se, d): the stub frontend's frame
+    embeddings through ``enc_blocks`` and ``enc_final_norm``."""
+    x = _scan_encoder(params["enc_blocks"],
+                      enc_embeds.to(params["enc_final_norm"].dtype), cfg,
+                      run, rules)
+    return L.rms_norm(params["enc_final_norm"], x, cfg.norm_eps)
+
+
 def _merge_frontend(x_tok, frontend_embeds, cfg: ArchConfig):
     """VLM: replace the first ``n_frontend_tokens`` embeddings with the
     precomputed patch embeddings (JAX ``_merge_frontend``)."""
@@ -385,36 +494,52 @@ def _merge_frontend(x_tok, frontend_embeds, cfg: ArchConfig):
     return torch.cat([frontend_embeds.to(x_tok.dtype), x_tok[:, n:]], dim=1)
 
 
+def _hidden_states(params, batch, cfg: ArchConfig, run: RunConfig, rules,
+                   *, seq_sharded=False):
+    """Embedding, frontend merge, the encoder where there is one, the
+    decoder blocks and the final norm: (B, S, d)."""
+    x = L.embed_tokens(params, batch["tokens"], rules, run)
+    x = _merge_frontend(x, batch.get("frontend_embeds"), cfg)
+    enc_out = (encode(params, batch["enc_embeds"], cfg, run, rules)
+               if cfg.encoder_decoder else None)
+    x = _scan_blocks(params["blocks"], x, cfg, run, rules, enc_out=enc_out,
+                     seq_sharded=seq_sharded)
+    return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+
 def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
                   rules: ShardingRules | None, *, seq_sharded=False):
     """Returns (loss, metrics). batch: tokens (B, S), targets (B, S),
-    weights (B, S) [+ frontend_embeds (B, n, d) for vision configs]. Dense
-    decoders; the loss is the chunked vocab-parallel cross-entropy
+    weights (B, S) [+ frontend_embeds (B, n, d) for vision configs |
+    enc_embeds (B, Se, d) for encoder-decoders]. Dense decoders and
+    encoder-decoders; the loss is the chunked vocab-parallel cross-entropy
     (``layers.lm_loss``) and the aux loss is 0. ``seq_sharded``: every
-    attention mix is ring or Ulysses attention (``run.sp_attention``)
-    over the tp axis (the SP island), as in JAX; JAX's launcher never sets it, and neither does the port's."""
-    _check_decoder(cfg)
-    if has_ssm(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM training is ROADMAP item A10b; the port serves "
-            "SSM and hybrid models")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training is ROADMAP item A9b; the port serves "
-            "MoE models")
+    decoder self-attention mix is ring or Ulysses attention
+    (``run.sp_attention``) over the tp axis (the SP island), as in JAX;
+    JAX's launcher never sets it, and neither does the port's."""
+    _check_dense(cfg)
     if "lm_head" not in params and rules is not None:
         raise NotImplementedError(
             "tied embeddings on a mesh: the port's head is stored untied")
-    x = L.embed_tokens(params, batch["tokens"], rules, run)
-    x = _merge_frontend(x, batch.get("frontend_embeds"), cfg)
-    x = _scan_blocks(params["blocks"], x, cfg, run, rules,
-                     seq_sharded=seq_sharded)
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = _hidden_states(params, batch, cfg, run, rules,
+                       seq_sharded=seq_sharded)
     head = params["lm_head"] if "lm_head" in params else _head(params)
     loss = L.lm_loss({"lm_head": head}, x, batch["targets"],
                      batch["weights"], cfg, run, rules, chunk=run.loss_chunk)
     aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
+
+
+def forward_prefill(params, batch, cfg: ArchConfig, run: RunConfig,
+                    rules: ShardingRules | None):
+    """Prefill forward (JAX ``forward_prefill``): the training forward
+    without the loss, returning the last position's logits (B, 1, V) f32
+    through ``lm_logits``. batch: tokens (B, S) [+ frontend_embeds |
+    enc_embeds]. Dense decoders and encoder-decoders, as
+    ``forward_train``."""
+    _check_dense(cfg)
+    x = _hidden_states(params, batch, cfg, run, rules)
+    return L.lm_logits({"lm_head": _head(params)}, x[:, -1:])
 
 
 # ---------------------------------------------------------------------------
@@ -441,13 +566,14 @@ def _ffn(bp, li, x, cfg: ArchConfig, run: RunConfig, rules):
 
 
 def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
-                  rules, attend):
+                  rules, attend, cross=None):
     """Every layer in order (period by period, pattern position by
     position) over a serving cache: the mixer — ``attend(a, x_norm,
     cache_k, cache_v) -> (h, k, v)`` for attention, the mamba block for
     SSM layers, whose new state the kernel writes straight into the new
-    cache's slab — then the FFN if the layer has one. Returns (x, new
-    cache blocks)."""
+    cache's slab — then, given the encoder's K/V ``cross`` (``cache[
+    "cross"]``), the layer's one-token cross-attention over them, then the
+    FFN if the layer has one. Returns (x, new cache blocks)."""
     pattern = cfg.layer_pattern()
     new = {}
     for i, spec in enumerate(pattern):
@@ -472,6 +598,14 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
                     h_out=nc["h"][li])
                 nc["conv"].append(tail)
             x = x + h
+            if cross is not None:
+                c = {k: t[li] for k, t in bp["cross"].items()}
+                n = li * len(pattern) + i
+                h, _, _ = L.decode_attention(
+                    c, L.rms_norm(c["norm"], x, cfg.norm_eps), None, None,
+                    cache["pos"], cfg, run, rules,
+                    cross_kv=(cross["k"][n], cross["v"][n]))
+                x = x + h
             if spec.mlp != "none":
                 x = x + _ffn(bp, li, x, cfg, run, rules)
     return x, {name: {k: v if isinstance(v, torch.Tensor) else
@@ -479,21 +613,64 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
                for name, nc in new.items()}
 
 
-def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
-                rules: ShardingRules | None):
-    """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V) f32,
-    new_cache) with ``pos`` advanced by one."""
-    _check_decoder(cfg)
+def _decode(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
+            rules, cross=None):
     pos = cache["pos"]
     x = L.embed_tokens(params, tokens, rules, run)
 
     def attend(a, xn, ck, cv):
         return L.decode_attention(a, xn, ck, cv, pos, cfg, run, rules)
 
-    x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend)
+    x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend,
+                                  cross)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.lm_logits({"lm_head": _head(params)}, x)
-    return logits, {"pos": pos + 1, "blocks": new_blocks}
+    new = {"pos": pos + 1, "blocks": new_blocks}
+    if "cross" in cache:
+        new["cross"] = cache["cross"]
+    return logits, new
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
+                rules: ShardingRules | None):
+    """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V) f32,
+    new_cache) with ``pos`` advanced by one (a ``cross`` entry passes
+    through unused, as in JAX)."""
+    return _decode(params, cache, tokens, cfg, run, rules)
+
+
+def decode_step_encdec(params, cache, tokens, cfg: ArchConfig,
+                       run: RunConfig, rules: ShardingRules | None):
+    """One decode step of an encoder-decoder (JAX ``decode_step_encdec``):
+    in every decoder layer self-attention over the slab cache, then
+    cross-attention over the encoder's K/V in ``cache["cross"]`` (filled
+    by :func:`encode_cross`), then the MLP. Returns (logits (B, 1, V) f32,
+    new_cache)."""
+    return _decode(params, cache, tokens, cfg, run, rules, cache["cross"])
+
+
+def encode_cross(params, cache, enc_embeds, cfg: ArchConfig, run: RunConfig,
+                 rules: ShardingRules | None) -> dict:
+    """``cache`` with ``cross`` filled for :func:`decode_step_encdec`: the
+    encoder over ``enc_embeds`` (B, Se, d) (:func:`encode`), then every
+    decoder layer's cross K/V (:func:`cross_kv`) — the helpers
+    ``forward_train`` runs — written layer by layer into new leaves laid
+    out as ``cache_template`` stores them."""
+    enc_out = encode(params, enc_embeds, cfg, run, rules)
+    b, se, _ = enc_out.shape
+    pd = _cross_pd(cfg, rules, b, se)
+    out = {name: torch.empty(stored_shape(pd, rules), dtype=pd.dtype,
+                             device=enc_out.device) for name in ("k", "v")}
+    for li in range(cfg.n_periods):
+        for i in range(len(cfg.layer_pattern())):
+            c = {k: t[li] for k, t in params["blocks"][f"pos{i}"]["cross"]
+                 .items()}
+            n = li * len(cfg.layer_pattern()) + i
+            for name, t in zip(("k", "v"),
+                               cross_kv(c, enc_out, cfg, run, rules)):
+                out[name][n].copy_(t if rules is None else pgl.layout(
+                    t, P(*pd.spec[1:]), rules.mesh, rules.tp, expand=False))
+    return {**cache, "cross": out}
 
 
 def prefill_step(params, cache, tokens, prompt_lens, cfg: ArchConfig,
@@ -504,7 +681,10 @@ def prefill_step(params, cache, tokens, prompt_lens, cfg: ArchConfig,
     its last real position, with ``cache["pos"]`` set to the prompt
     lengths. SSM state cannot mask right-padding: SSM and hybrid callers
     prefill at the exact prompt length (the engine's ``exact_buckets``)."""
-    _check_decoder(cfg)
+    if cfg.encoder_decoder:
+        raise NotImplementedError(
+            "batched cache prefill covers decoder-only models; the enc-dec "
+            "path precomputes cross K/V separately (decode_step_encdec)")
     b, _ = tokens.shape
     x = L.embed_tokens(params, tokens, rules, run)
 

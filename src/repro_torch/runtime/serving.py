@@ -158,6 +158,9 @@ class ServingEngine:
                  serve: ServeConfig | None = None, *, device=None):
         self.cfg = cfg
         self.serve = serve if serve is not None else ServeConfig()
+        if cfg.encoder_decoder:
+            raise NotImplementedError(
+                "the continuous-batching engine covers decoder-only models")
         _check_serve(self.serve)
         if T.has_ssm(cfg) and not self.serve.exact_buckets:
             raise ValueError(

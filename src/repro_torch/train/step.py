@@ -1,5 +1,5 @@
 """Step-function factories — the twins of ``make_train_step``,
-``make_serve_step`` and ``make_prefill_cache_step`` in
+``make_serve_step``, ``make_prefill_step`` and ``make_prefill_cache_step`` in
 ``repro/train/step.py``. PyTorch runs eagerly, so where JAX jits these
 closures the port calls them directly (the serving engine under
 ``torch.no_grad``)."""
@@ -71,10 +71,22 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
 def make_serve_step(cfg: ArchConfig, run: RunConfig,
                     rules: ShardingRules | None):
     """serve_step(params, cache, tokens) -> (logits, cache): one new token
-    against a pre-filled KV cache."""
+    against a pre-filled KV cache (for an encoder-decoder also the
+    encoder's K/V in ``cache["cross"]``: ``decode_step_encdec``)."""
+    step = T.decode_step_encdec if cfg.encoder_decoder else T.decode_step
+
     def serve_step(params, cache, tokens):
-        return T.decode_step(params, cache, tokens, cfg, run, rules)
+        return step(params, cache, tokens, cfg, run, rules)
     return serve_step
+
+
+def make_prefill_step(cfg: ArchConfig, run: RunConfig,
+                      rules: ShardingRules | None):
+    """prefill(params, batch) -> logits (B, 1, V): the last position's
+    logits of a full-sequence forward (``forward_prefill``)."""
+    def prefill_step(params, batch):
+        return T.forward_prefill(params, batch, cfg, run, rules)
+    return prefill_step
 
 
 def make_prefill_cache_step(cfg: ArchConfig, run: RunConfig,

@@ -58,10 +58,13 @@ def test_matmul_kernel(cuda, m, k, n):
 
 @pytest.mark.parametrize("m,k,n,r", [(8, 2048, 8000, 4), (1024, 2048, 8000, 4),
                                      (65, 264, 136, 3), (1, 40, 72, 8),
-                                     (200, 40, 72, 2)])
+                                     (200, 40, 72, 2), (8, 1024, 12967, 4),
+                                     (3, 40, 13, 2)])
 def test_matmul_stacked_kernel_equals_single_launches(cuda, m, k, n, r):
     """One launch over R stacked shards gives the bits of R launches, and a
-    second call the same bits."""
+    second call the same bits; a row length N that is no multiple of 8
+    (whisper's vocab shard, 12967 columns) runs on rows padded in a
+    copy."""
     from repro_torch.kernels import matmul as MM
     x = _randn(cuda, m, k, seed=1)
     w = _randn(cuda, r, k, n, scale=k ** -0.5, seed=2)
@@ -718,6 +721,27 @@ def test_flash_attention_kernel_ragged_lengths(cuda, s, hd, causal, window):
     torch.cuda.synchronize()
     assert _rel(got, FA.flash_attention_plain(q, k, v, causal=causal,
                                               window=window)) <= 1e-2
+
+
+@pytest.mark.parametrize("sq,skv", [(448, 1500), (1, 1500), (60, 130),
+                                    (130, 60)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_kernel_cross_lengths(cuda, sq, skv, hd):
+    """Non-causal attention of queries over keys of another length, as an
+    encoder-decoder's cross-attention runs it (whisper: the decoder's
+    tokens over 1500 encoder frames), on the projections' head-transposed
+    views; the ragged key edge is masked."""
+    from repro_torch.kernels import flash_attention as FA
+    b, hq, hkv = 2, 8, 2
+    q = _randn(cuda, b, sq, hq, hd, seed=1).transpose(1, 2)
+    k = _randn(cuda, b, skv, hkv, hd, seed=2).transpose(1, 2)
+    v = _randn(cuda, b, skv, hkv, hd, seed=3).transpose(1, 2)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert got.shape == q.shape
+    assert _rel(got, FA.flash_attention_plain(q, k, v, causal=False)) <= 1e-2
 
 
 @pytest.mark.parametrize("sq,skv", [(60, 130), (130, 60), (405, 128)])

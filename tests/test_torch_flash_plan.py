@@ -41,6 +41,16 @@ FORWARD = [(4, 32, 4, 512, 64, True, None), (4, 32, 4, 128, 64, True, None),
            (1, 4, 1, 130, 128, True, None), (2, 8, 2, 200, 16, True, 32),
            (1, 8, 8, 1, 64, True, None), (1, 8, 1, 60, 64, False, None),
            (2, 32, 4, 405, 128, True, 100), (1, 4, 4, 130, 64, False, 7)]
+# (B, Hq, Hkv, Sq, Skv, head_dim) of non-causal attention with queries
+# and keys of their own lengths: whisper-medium's encoder (16 heads of 64
+# over 1500 frames), its cross-attention (the training run's 448 decoder
+# tokens, the serving check's 4-token prompt, one decode token) over the
+# 1500 frames, and the card tests' ragged pairs at both widths
+CROSS = [(8, 16, 16, 1500, 1500, 64), (4, 16, 16, 448, 1500, 64),
+         (8, 16, 16, 4, 1500, 64)] + [
+    (2, 8, 2, sq, skv, hd) for sq, skv in ((448, 1500), (1, 1500), (60, 130),
+                                           (130, 60))
+    for hd in (64, 128)]
 # (R, B, Hq, Hkv, S, head_dim, causal, window) of the hop: the SP path's
 # ring (tinyllama at seq 8192 on 4 ranks), the card tests' shapes
 HOPS = [(4, 1, 32, 4, 2048, 64, True, None), (4, 2, 8, 2, 96, 64, True, None),
@@ -96,6 +106,24 @@ def test_forward_schedule_covers_the_mask_exactly(b, hq, hkv, s, hd, causal,
         tiles = -(-s // FA.BLOCK_Q)
         assert n == sum(-(-min((t + 1) * FA.BLOCK_Q, s) // bk)
                         for t in range(tiles))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,hd", CROSS)
+def test_cross_schedule_reads_every_key_block(b, hq, hkv, sq, skv, hd):
+    """Non-causal with Sq != Skv: every query tile schedules every key
+    block, the ragged last one included, and its plan takes the
+    projections' head-transposed views as they are."""
+    bk = FA.BLOCK_K[_width(hd)]
+    n = _check_schedule(sq, skv, 0, 0, False, None, bk)
+    assert n == -(-sq // FA.BLOCK_Q) * -(-skv // bk)
+    q = torch.empty(b, sq, hq, _width(hd)).transpose(1, 2)
+    k = torch.empty(b, skv, hkv, _width(hd)).transpose(1, 2)
+    p = FA.flash_plan(q.shape, q.stride(), k.shape, k.stride(), k.stride())
+    assert p.tiles == -(-sq // FA.BLOCK_Q) * b * hq
+    for i, t in enumerate((q, k, k)):
+        for dim, x in zip((0, 1, 2), p.strides[3 * i:3 * i + 3]):
+            if t.shape[dim] > 1:
+                assert x == t.stride(dim)
 
 
 @pytest.mark.parametrize("r,b,hq,hkv,s,hd,causal,window", HOPS)

@@ -267,7 +267,7 @@ def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
     ``cross_kv``: the precomputed (k, v) (B, Hkv, Se, hd) of an
     encoder-decoder's cross-attention — no K/V projection, no RoPE, no
     window; the caller passes ``causal=False``, as in JAX."""
-    b, s, d = x.shape
+    b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = project(x, p["wq"], hq * hd, rules, run).reshape(
         b, s, hq, hd).transpose(1, 2)
@@ -412,7 +412,7 @@ def cross_decode_island(cfg: ArchConfig, run: RunConfig,
     of the ``enc_len`` positions is merged by log-sum-exp over the ranks
     (:func:`_sharded_mix`), with no cache write. JAX leaves the same
     ``_full_attention`` to XLA's partitioner."""
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hq, hd = cfg.n_heads, cfg.hd
 
     def reference(q, k, v):
         return _full_attention(q, k, v, causal=False, window=None,

@@ -9,8 +9,9 @@ the device's block list (``kv_range``), which the producer and the
 consumers both walk. They are pure Python, so their promises are checked
 here at every shape the model paths and ``chip_smoke.py`` give the kernel:
 the prefill buckets at tinyllama, moonshot and h2o-danube widths, the
-training microbatch, the four hops of the sequence-parallel path, the
-card tests' ragged shapes, head_dim 16/64/120/128 (padded to 64 or 128),
+training microbatch, the four hops of the sequence-parallel path,
+whisper's encoder and cross-attention (non-causal, Sq != Skv), the card
+tests' ragged shapes, head_dim 16/64/120/128 (padded to 64 or 128),
 causal, windowed and neither. Every visible (row, key) pair of the plain
 version's mask lies in a scheduled block, no scheduled block is wholly
 masked for its query tile, rank 0 schedules nothing at hops >= 1, the

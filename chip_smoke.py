@@ -46,7 +46,11 @@ Phases (any failure exits non-zero before the last line is printed):
    at whisper-medium's encoder, q, kv (8, 16, 1500, 64), and
    cross-attention, q (4, 16, 448, 64) over kv (4, 16, 1500, 64), timed,
    and its 4-token prompt over the 1500 frames; the GEMM at whisper's
-   decode logits, whose 12967 columns a rank the wrapper pads) and is held
+   decode logits and training loss (2 x 448 rows), whose 12967 columns a
+   rank the head stores in rows padded to 16 bytes, stacked bit-identical
+   too; GEMM+AR at whisper's encoder (8 x 1500 and 2 x 1500 rows) and
+   decoder sites; the ring all-gather and reduce-scatter at whisper's FSDP
+   shards, and whisper's padded head through ``fsdp_gather``) and is held
    against its plain PyTorch version on the same
    inputs — relative Frobenius error <= 1e-2 for bf16 outputs,
    <= 1e-3 for f32 outputs of bf16 inputs; one shape of each is then
@@ -173,8 +177,10 @@ Phases (any failure exits non-zero before the last line is printed):
    (details in ``train_encdec``);
 5j. encoder-decoder reference: whisper-medium at full width cut to 2
    encoder and 2 decoder layers, the card against the port's plain f32
-   path on the CPU: decode logits within 3e-2, the loss within 1e-2 and
-   the gradient norm within 3e-2 (details in ``check_encdec_reference``);
+   path on the CPU: decode logits within 3e-2, the loss within 1e-3, the
+   gradient norm within 3e-2 and the encoder's, the cross-attention's and
+   the rest's gradients each within 3e-2 (details in
+   ``check_encdec_reference``);
 5e. TP GEMM pair: tinyllama-1.1b's MLP at full width on (1, 4), 4096
    tokens, through declared ``Island``s: AG+GEMM (gate/up) and GEMM+RS
    (down) under every backend, fused within 1e-2 of bulk, the AG×GEMM and
@@ -688,12 +694,22 @@ def check_kernels(dev) -> dict:
     # rotated over 3 copies of w (69 MB > the 50 MB L2: 23 MB would stay in
     # L2 and beat its HBM bound), as a decode step reads each weight once;
     # the rest are checked. Both timed rows also time the kernel B4 ran on
-    # before (``mm_tile_reduce``) by the same method.
-    r, n = 4, 2048
-    for m, kl, key in ((2048, 1408, "pk_matmul_ar"),
-                       (8, 1408, "pk_matmul_ar@decode"),
-                       (512, 1408, None), (2048, 512, None),
-                       (512, 512, None), (8, 512, None)):
+    # before (``mm_tile_reduce``) by the same method. Then whisper-medium's
+    # sites (n = d = 1024; attention out-projection k_loc = 1024/4 = 256,
+    # MLP 4096/4 = 1024), checked alike: the encoder at the serving batch's
+    # 8 x 1500 frames (5h) and at a training dp group's microbatch, 2 x
+    # 1500 (5i), the decoder's MLP at a decode step (m = 8), and the
+    # decoder's out-projections (self and cross) and MLP at the training
+    # microbatch's 2 x 448 tokens.
+    r = 4
+    for m, kl, n, key in ((2048, 1408, 2048, "pk_matmul_ar"),
+                          (8, 1408, 2048, "pk_matmul_ar@decode"),
+                          (512, 1408, 2048, None), (2048, 512, 2048, None),
+                          (512, 512, 2048, None), (8, 512, 2048, None),
+                          (12000, 256, 1024, None), (12000, 1024, 1024, None),
+                          (8, 1024, 1024, None), (3000, 256, 1024, None),
+                          (3000, 1024, 1024, None), (896, 256, 1024, None),
+                          (896, 1024, 1024, None)):
         copies = 3 if key == "pk_matmul_ar@decode" else 1
         sets = [(randn(r, m, kl), randn(r, kl, n, scale=(r * kl) ** -0.5))
                 for _ in range(copies)]
@@ -735,13 +751,17 @@ def check_kernels(dev) -> dict:
     # (2, 4) training run: a dp rank's shard of a tp-stacked weight with the
     # gathered dim moved to the front, (R_dp, d/2, R_tp, n) for n = 64 (wk,
     # wv), 512 (wq, wo), 1408 (w1, w3, w2) and 8000 (embed, lm_head); then
-    # the MLP shard over 4 and 8 ranks. Every chunk count must give the
+    # the MLP shard over 4 and 8 ranks; then whisper-medium's on (2, 4)
+    # (5i), d/2 = 512 rows: n = 256 (the self- and cross-attention's
+    # projections), 1024 (w1, w2) and 12968 (the head, its 12967 columns a
+    # rank in rows padded to 16 bytes). Every chunk count must give the
     # same bits, the plain version's and those of the kernel each ran on
     # before (``mm_tile_all_gather``, ``mm_tile_reduce_scatter``). The MLP
     # shape is timed: the all-gather at R = 2, the reduce-scatter at R = 2,
     # 4 and 8, beside its yardstick.
     for r, rows, n in ((2, 1024, 64), (2, 1024, 512), (2, 1024, 1408),
-                       (2, 1024, 8000), (4, 512, 1408), (8, 256, 1408)):
+                       (2, 1024, 8000), (4, 512, 1408), (8, 256, 1408),
+                       (2, 512, 256), (2, 512, 1024), (2, 512, 12968)):
         x = randn(r, rows, 4, n)
         parts = randn(r, r, rows, 4, n)
         blk = rows * 4 * n
@@ -1075,12 +1095,14 @@ def check_matmul(dev, record, compare, randn) -> dict:
         del ws
 
     # the whisper-medium decode logits on (1, 4): 51868 / 4 = 12967
-    # columns a rank, no multiple of 8, so the wrapper pads w's rows in a
-    # copy (its time is in the row's); stacked as serving runs it, timed
-    # cold (2 stacks, 212 MB)
+    # columns a rank, no multiple of 8, so the head is stored in rows
+    # padded to 12968 (``pgl.aligned_rows``) and the kernel reads them as
+    # they are; stacked as serving runs it, timed cold (2 stacks, 212 MB)
+    from repro_torch.core import pgl
     m, k, n, r = 8, 1024, 12967, 4
     x = randn(m, k)
-    stacks = [randn(r, k, n, scale=k ** -0.5) for _ in range(2)]
+    stacks = [pgl.aligned_rows(randn(r, k, n, scale=k ** -0.5))
+              for _ in range(2)]
     shape = f"x({m},{k})@w({r},{k},{n}) stacked, ragged N"
     same_bits(x, stacks[0], shape)
     checked = compare("matmul", shape, partial(MM.matmul_stacked, x,
@@ -1094,6 +1116,17 @@ def check_matmul(dev, record, compare, randn) -> dict:
         TOL_BF16_OUT, *cost(m, k, n, r), checked=checked,
         timing="cold (w rotated over 2 stacks, 212 MB)")
     del stacks, sets
+    # whisper's training loss on (2, 4) with FSDP (phase 5i): a dp group's
+    # microbatch, 2 x 448 rows (compute-bound), against a gathered copy of
+    # the head, laid out as the global (1024, 4 x 12968) weight seen
+    # stacked (``fsdp_gather``'s order, the rows' padding kept)
+    m = 2 * 448
+    x = randn(m, k)
+    w = randn(k, r, 12968, scale=k ** -0.5).permute(1, 0, 2)[..., :n]
+    shape = f"x({m},{k})@w({r},{k},{n}) stacked, ragged N, gathered copy"
+    same_bits(x, w, shape)
+    compare("matmul", shape, partial(MM.matmul_stacked, x, w),
+            partial(MM.matmul_stacked_plain, x, w), TOL_BF16_OUT)
     return entries
 
 
@@ -1102,7 +1135,11 @@ def check_matmul(dev, record, compare, randn) -> dict:
 #: wk/wv, w1/w3, head) and columns (wo, w2, emb)
 FSDP_WEIGHTS = ((4, 2048, 512, 1), (4, 2048, 64, 1), (4, 2048, 1408, 1),
                 (4, 2048, 8000, 1), (4, 512, 2048, 2), (4, 1408, 2048, 2),
-                (4, 8000, 2048, 2))
+                (4, 8000, 2048, 2),
+                # whisper-medium's: wq/wk/wv and the cross-attention's, w1,
+                # wo, w2
+                (4, 1024, 256, 1), (4, 1024, 1024, 1), (4, 256, 1024, 2),
+                (4, 1024, 1024, 2))
 #: the memory order ``fsdp_gather`` gives a copy, by gathered dim: the
 #: global weight's (rows: tp-sharded over the columns, so the tp rank dim
 #: sits between d and n; columns: tp over the rows, contiguous)
@@ -1167,7 +1204,50 @@ def check_fsdp_gathers(dev, record, compare, randn) -> dict:
           "the earlier kernel; in fsdp_gather's order "
           f"{entries['pk_all_gather@path']['ms_fsdp_order']:.4f} ms",
           flush=True)
+    check_padded_head_gather(dev, randn)
     return entries
+
+
+def check_padded_head_gather(dev, randn) -> None:
+    """Phase 3, whisper-medium's head on (2, 4) with FSDP: stored in rows
+    padded to 16 bytes (12967 columns a rank in rows of 12968), gathered
+    by ``fsdp_gather`` with its rows' padding on the all-gather kernel. The
+    copies must keep rows the GEMM's tensor maps read (a multiple of 8
+    elements apart) and hold the bits of the ``bulk`` backend's gather and
+    of the plain gather of the unpadded leaf."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import pgl
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.core.template import fsdp_gather
+    from repro_torch.kernels import pk_comm as PK
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+
+    head = pgl.aligned_rows(randn(4, 1024, 12967))
+    got = {}
+    for backend in ("fused", "bulk"):
+        run = RunConfig(fsdp=True, comm_backend=backend)
+        rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), dev),
+                              run)
+        spec = T.param_template(get_config(ENCDEC_ARCH), run,
+                                rules)["lm_head"].spec
+        got[backend] = fsdp_gather(head, spec, rules, run, dim=0)
+    want = PK.gather_along_plain(pgl.dp_view(head.contiguous(), 1, 2), 1,
+                                 FSDP_ORDER[1])
+    fused = got["fused"]
+    if not (fused.stride(-2) % 8 == 0 and fused.shape == want.shape
+            and torch.equal(fused.contiguous().view(torch.int16),
+                            want.contiguous().view(torch.int16))
+            and torch.equal(fused, got["bulk"])):
+        raise AssertionError("whisper's padded head: the FSDP gather lost "
+                             "its rows' padding or its bits")
+    print(f"[kernel] FSDP gather of whisper's padded head "
+          f"{tuple(head.shape)} (rows {head.stride(-2)} apart): copies "
+          f"{tuple(fused.shape)}, rows {fused.stride(-2)} apart, "
+          f"bit-identical to bulk and to the plain gather", flush=True)
 
 
 def check_ring_kernels(dev, record, compare, randn) -> dict:
@@ -2747,6 +2827,15 @@ def check_sp_reference(dev, seq: int = 2048) -> None:
 
 
 ENCDEC_ARCH = "whisper-medium"
+#: phase 5j's limits beside 5b's gradient norm (3e-2): the loss, and each
+#: part's gradient (encoder, cross-attention, the rest) as one vector,
+#: relative to the f32 path's. Set from the readings on an H100 80GB HBM3
+#: at 700 W (loss 2.2e-5; the parts' gradients 7.4e-3-8.0e-3), some times
+#: above them: at random init the loss sits near ln V, so a wrong encoder
+#: or cross path could move it by less than 5b's 1e-2; it moves its part's
+#: gradient by O(1).
+ENCDEC_TOL_LOSS = 1e-3
+ENCDEC_TOL_GRAD = 3e-2
 
 
 def encdec_model(dev, run, mesh_shape, seed, **cut):
@@ -2973,9 +3062,10 @@ def check_encdec_reference(dev, enc_len: int = 1500) -> None:
     widened) and inputs: the decode logits after 3 tokens over 1500 frames
     on (1, 4) (encode_cross, then decode_step_encdec) within relative 3e-2,
     as phase 4b; one forward and backward of 2 x 64 decoder tokens with
-    their frames on (2, 4) with FSDP, the loss within relative 1e-2 and the
-    global gradient norm within 3e-2, as phase 5b (the same rounding
-    budgets: two layers of each stack)."""
+    their frames on (2, 4) with FSDP, the global gradient norm within 3e-2,
+    as phase 5b, the loss within ``ENCDEC_TOL_LOSS`` and the gradients of
+    the encoder, of the cross-attention and of the rest, each as one
+    vector, within ``ENCDEC_TOL_GRAD`` relative Frobenius error."""
     import dataclasses
 
     import torch
@@ -3030,7 +3120,7 @@ def check_encdec_reference(dev, enc_len: int = 1500) -> None:
                                        generator=gen, device=dev).to(
                                            torch.bfloat16)}
 
-    def loss_and_norm(cfg, params, batch, device):
+    def loss_and_grads(cfg, params, batch, device):
         rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), device),
                               trun)
         paths = list(T.leaves(params))
@@ -3041,24 +3131,46 @@ def check_encdec_reference(dev, enc_len: int = 1500) -> None:
         tree: dict = {}
         for (path, _), g in zip(paths, gs):
             T.set_path(tree, path, g)
-        return float(loss.detach()), float(AdamW.global_norm(tree))
+        return float(loss.detach()), float(AdamW.global_norm(tree)), tree
 
     cpu_params = on_cpu(params)
-    got = loss_and_norm(cfg, params, batch, dev)
+    got = loss_and_grads(cfg, params, batch, dev)
     t0 = time.perf_counter()
-    want = loss_and_norm(dataclasses.replace(cfg, dtype="float32"),
-                         cpu_params, {k: (v.float() if v.is_floating_point()
-                                          else v).cpu()
-                                      for k, v in batch.items()}, "cpu")
-    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    want = loss_and_grads(dataclasses.replace(cfg, dtype="float32"),
+                          cpu_params, {k: (v.float() if v.is_floating_point()
+                                           else v).cpu()
+                                       for k, v in batch.items()}, "cpu")
+    errs = [abs(a - b) / abs(b) for a, b in zip(got[:2], want[:2])]
+    # each part's gradient against the f32 path's, as one vector: a
+    # dropped or wrong encoder or cross-attention moves its part by O(1)
+    diff: dict = {}
+    ref: dict = {}
+    for path, g in T.leaves(got[2]):
+        part = ("encoder" if path[0] in ("enc_blocks", "enc_final_norm")
+                else "cross" if "cross" in path else "decoder")
+        w = _leaf(want[2], path)
+        diff[part] = diff.get(part, 0.0) + float(
+            (g.detach().float().cpu() - w).pow(2).sum())
+        ref[part] = ref.get(part, 0.0) + float(w.pow(2).sum())
+    part_errs = {k: math.sqrt(diff[k] / ref[k]) for k in sorted(diff)}
     print(f"[encdec-reference] 2+2-layer full-width (2, 4) FSDP step, card "
           f"(bf16 kernels) vs cpu (f32 plain, {time.perf_counter() - t0:.1f}"
           f" s): loss {got[0]:.5f} vs {want[0]:.5f} (rel {errs[0]:.3e}, tol "
-          f"1e-2), grad norm {got[1]:.5f} vs {want[1]:.5f} (rel "
-          f"{errs[1]:.3e}, tol 3e-2)", flush=True)
-    if not (errs[0] <= 1e-2 and errs[1] <= 3e-2):
+          f"{ENCDEC_TOL_LOSS:g}), grad norm {got[1]:.5f} vs {want[1]:.5f} "
+          f"(rel {errs[1]:.3e}, tol 3e-2); each part's gradient, relative "
+          f"error {', '.join(f'{k} {v:.3e}' for k, v in part_errs.items())}"
+          f" (tol {ENCDEC_TOL_GRAD:g})", flush=True)
+    if not (errs[0] <= ENCDEC_TOL_LOSS and errs[1] <= 3e-2
+            and set(part_errs) == {"encoder", "cross", "decoder"}
+            and all(e <= ENCDEC_TOL_GRAD for e in part_errs.values())):
         raise AssertionError(f"whisper training step disagrees with the f32 "
-                             f"plain path: {errs}")
+                             f"plain path: {errs}, {part_errs}")
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def tp_gemm(dev, sweep=(4096, 8192, 16384)) -> dict:

@@ -23,6 +23,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import pgl
+
 
 def _flatten(tree, prefix: str = "") -> dict[str, Any]:
     """'a/b/0'-keyed leaves of nested dicts, tuples and NamedTuples."""
@@ -42,7 +44,8 @@ def _flatten(tree, prefix: str = "") -> dict[str, Any]:
 
 def _rebuild(template, flat: dict, prefix: str = ""):
     """``template``'s structure with leaves from ``flat``; tensors land on
-    the template leaf's device and dtype."""
+    the template leaf's device and dtype, in padded rows where the template
+    leaf's are (``pgl.aligned_rows``)."""
     if isinstance(template, dict):
         return {k: _rebuild(v, flat, f"{prefix}{k}/")
                 for k, v in template.items()}
@@ -54,7 +57,8 @@ def _rebuild(template, flat: dict, prefix: str = ""):
             else tuple(kids)
     leaf = flat[prefix[:-1]]
     if isinstance(template, torch.Tensor):
-        return leaf.to(device=template.device, dtype=template.dtype)
+        out = leaf.to(device=template.device, dtype=template.dtype)
+        return pgl.aligned_rows(out) if pgl.padded_rows(template) else out
     return leaf
 
 

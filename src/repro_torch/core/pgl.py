@@ -195,6 +195,43 @@ def stacked_shape(shape, spec: P, mesh: VirtualMesh, axis: str, *,
     return (*out[:lead], r, *out[lead:])
 
 
+#: the row alignment a tensor map takes (TMA: row strides of 16 bytes)
+ROW_ALIGN_BYTES = 16
+
+
+def aligned_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where its rows (last dim) are contiguous and a multiple
+    of 16 bytes long; else a copy in a buffer whose rows are padded with
+    zeros to 16 bytes, seen at ``x``'s shape. The stored layout of a leaf
+    the GEMM reads through a tensor map (a vocab shard of 12967 columns),
+    so that no call copies it."""
+    per = ROW_ALIGN_BYTES // x.element_size()
+    n = x.shape[-1] if x.dim() else 0
+    if x.dim() < 2 or (n % per == 0 and x.is_contiguous()):
+        return x
+    buf = x.new_zeros(*x.shape[:-1], -(-n // per) * per)
+    buf[..., :n] = x
+    return buf[..., :n]
+
+
+def padded_rows(x: torch.Tensor) -> bool:
+    """Is ``x`` seen in a buffer of longer rows that holds their padding
+    (an :func:`aligned_rows` leaf or a slice of its rows)?"""
+    if x.dim() < 2 or x.stride(-1) != 1 or x.stride(-2) <= x.shape[-1]:
+        return False
+    end = x.storage_offset() + sum((n - 1) * st for n, st in
+                                   zip(x.shape, x.stride())) \
+        + x.stride(-2) - x.shape[-1]
+    return end < x.untyped_storage().nbytes() // x.element_size()
+
+
+def whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """A :func:`padded_rows` tensor seen with its rows' padding: shape
+    ``(..., x.stride(-2))``, the same strides."""
+    return x.as_strided((*x.shape[:-1], x.stride(-2)), x.stride(),
+                        x.storage_offset())
+
+
 def is_split(spec: P, mesh: VirtualMesh | None, axis: str | None) -> bool:
     """Does ``spec`` shard a dim over ``axis`` on this mesh?"""
     if mesh is None or axis is None or mesh.shape.get(axis, 1) == 1:

@@ -86,7 +86,9 @@ def fsdp_gather(w: torch.Tensor, spec: P, rules, run, *,
     a tp-sharded dim other than its first keeps the tp rank dim next to
     that dim in memory, so every copy is the global weight, contiguous,
     seen stacked — what ``_col_proj``'s matmul reads in place (it would
-    copy a stacked-contiguous one)."""
+    copy a stacked-contiguous one). A leaf stored with padded rows
+    (``pgl.aligned_rows``: the head) is gathered with its rows' padding, so
+    that each copy keeps the 16-byte rows the GEMM's tensor maps read."""
     if rules is None or rules.fsdp_axes is None \
             or spec[dim] != rules.fsdp_axes:
         return None
@@ -103,7 +105,26 @@ def fsdp_gather(w: torch.Tensor, spec: P, rules, run, *,
     order = (*range(1, t + 1), 0, *range(t + 1, len(spec) + 1)) if t \
         else None
     ctx = comm_context(run, f, mesh=rules.mesh)
-    return ctx.all_gather(pgl.dp_view(w, sdim, n_dp), axis=sdim, order=order)
+    n = w.shape[-1]
+    whole = sdim != w.dim() - 1 and pgl.padded_rows(w)
+    if whole:
+        w = _WholeRows.apply(w)
+    out = ctx.all_gather(pgl.dp_view(w, sdim, n_dp), axis=sdim, order=order)
+    return out[..., :n] if whole else out
+
+
+class _WholeRows(torch.autograd.Function):
+    """A padded-rows leaf seen with its padding (``pgl.whole_rows``); the
+    padding's gradient is dropped."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.n = w.shape[-1]
+        return pgl.whole_rows(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., :ctx.n]
 
 
 @dataclasses.dataclass(frozen=True)

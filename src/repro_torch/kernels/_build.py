@@ -37,11 +37,11 @@ _L = ctypes.c_int64
 
 #: C symbol -> argtypes (restype is int: the cudaError_t of the launch)
 SIGNATURES = {
-    # x, ldx, w slab ptrs, Z (slabs), ldw, out slab ptrs, M, N, K, cfg,
-    # grid (the plan's), stream
+    # x, ldx, w slab ptrs, Z (slabs), ldw, out slab ptrs, ldo, M, N, K,
+    # cfg, grid (the plan's), stream
     "pk_matmul_bf16": [_P, _L, ctypes.POINTER(ctypes.c_uint64), _I, _L,
-                       ctypes.POINTER(ctypes.c_uint64), _I, _I, _I, _I, _I,
-                       _P],
+                       ctypes.POINTER(ctypes.c_uint64), _L, _I, _I, _I, _I,
+                       _I, _P],
     # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, q strides (b, h, s),
     # k strides, v strides, causal, window, scale, grid (the plan's), the
     # stream's tile counter, stream

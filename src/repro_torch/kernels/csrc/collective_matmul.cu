@@ -270,8 +270,8 @@ extern "C" int pk_ag_matmul_bf16(const unsigned long long* x_ptrs,
                                  void* stream) {
   if (R < 1 || R > PK_MAX_RANKS) return (int)cudaErrorInvalidValue;
   const hg::Args g{R * R, R, hg::kGather, M, N, K};
-  return hg::launch_bf16(x_ptrs, R, K, w_ptrs, R, N, out_ptrs, R, g, cfg,
-                         grid, (cudaStream_t)stream);
+  return hg::launch_bf16(x_ptrs, R, K, w_ptrs, R, N, out_ptrs, R, N, g,
+                         cfg, grid, (cudaStream_t)stream);
 }
 
 // GEMM x RS and GEMM x AR: the store-and-count epilogue on the mainloop;

@@ -362,7 +362,10 @@ __device__ __forceinline__ Tile tile_of(int t, int m_tiles, int n_tiles,
   return {problem(z, g.R, g.M, g.mode), z, mt, nt, n_tiles};
 }
 
-// The bf16 epilogue of B1 and B5: rows p.row0 + ... of output slab p.o.
+// The bf16 epilogue of B1 and B5: rows p.row0 + ... of output slab p.o,
+// rows ldo apart. A ragged N (B1 only) stores its last chunk whole into the
+// row's padding: ldo >= N rounded up to 8, and TMA's zero fill past N
+// makes those columns 0.
 // The accumulator fragment of m64nBN — element 4 j + e at row 16 warp +
 // lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2 of the
 // warpgroup's 64 rows. The four threads of a quad hold 8 neighbouring
@@ -373,6 +376,7 @@ __device__ __forceinline__ Tile tile_of(int t, int m_tiles, int n_tiles,
 struct StoreBf16 {
   static constexpr bool kDrain = false;
   OutTable outs;
+  long long ldo;
 
   template <int BM, int BN>
   __device__ __forceinline__ void store(float (&acc)[BN / 2], const Tile& t,
@@ -394,8 +398,8 @@ struct StoreBf16 {
                                 acc[4 * (4 * q + c) + 2 * h + 1]);
         quad_transpose(mine, got, lane);
         const int col = t.nt * BN + 8 * (4 * q + t4);
-        if (row < g.M && col < g.N)  // N % 8 == 0: the whole chunk fits
-          *reinterpret_cast<uint4*>(out + (long)(t.p.row0 + row) * g.N +
+        if (row < g.M && col < g.N)  // the chunk fits in ldo
+          *reinterpret_cast<uint4*>(out + (long)(t.p.row0 + row) * ldo +
                                     col) =
               make_uint4(got[0], got[1], got[2], got[3]);
       }
@@ -718,13 +722,16 @@ int launch_maps(const Maps& maps, const Epi& epi, const Args& g, int cfg,
 }
 
 // The launcher of B1, B4, B5 and B6: Z problems decoded by g.mode from
-// 2-D maps of the n_a A and n_b B slabs, each tile finished by epi.
+// 2-D maps of the n_a A and n_b B slabs, each tile finished by epi. N is a
+// multiple of 8 but in B1 (kStacked), whose epilogue stores into padded
+// rows (launch_bf16 checks them); B's rows are ldb apart all the same.
 template <class Epi>
 int launch(const unsigned long long* a_ptrs, int n_a, long long lda,
            const unsigned long long* b_ptrs, int n_b, long long ldb,
            const Epi& epi, Args g, int cfg, int grid, cudaStream_t stream) {
   if (n_a < 1 || n_a > HG_MAX_MAPS || n_b < 1 || n_b > HG_MAX_MAPS ||
-      g.N % 8 != 0 || lda % 8 != 0 || ldb % 8 != 0 || grid < 1 || g.M < 1 ||
+      (g.N % 8 != 0 && g.mode != kStacked) || g.N < 1 || ldb < g.N ||
+      lda % 8 != 0 || ldb % 8 != 0 || grid < 1 || g.M < 1 ||
       g.K < 1 || g.R < 1 || g.Z < 1)
     return (int)cudaErrorInvalidValue;
   const bool ok =
@@ -776,16 +783,20 @@ int launch_grouped(unsigned long long x, long long sxg, long long ldx,
 }
 
 // The bf16 launcher of B1 (kStacked: slab z of out_ptrs) and B5 (kGather:
-// slab d).
+// slab d), output rows ldo apart: a multiple of 8 elements, at least N
+// rounded up to 8.
 inline int launch_bf16(const unsigned long long* a_ptrs, int n_a,
                        long long lda, const unsigned long long* b_ptrs,
                        int n_b, long long ldb,
-                       const unsigned long long* out_ptrs, int n_out, Args g,
-                       int cfg, int grid, cudaStream_t stream) {
+                       const unsigned long long* out_ptrs, int n_out,
+                       long long ldo, Args g, int cfg, int grid,
+                       cudaStream_t stream) {
   if (n_out < 1 || n_out > HG_MAX_MAPS || g.mode == kReduce ||
-      n_out < (g.mode == kGather ? g.R : g.Z))
+      n_out < (g.mode == kGather ? g.R : g.Z) || ldo % 8 != 0 ||
+      ldo < (g.N + 7) / 8 * 8)
     return (int)cudaErrorInvalidValue;
   StoreBf16 epi{};
+  epi.ldo = ldo;
   for (int i = 0; i < n_out; ++i) epi.outs.p[i] = out_ptrs[i];
   return launch(a_ptrs, n_a, lda, b_ptrs, n_b, ldb, epi, g, cfg, grid,
                 stream);

@@ -8,9 +8,11 @@ CUDA route (``csrc/matmul.cu`` on the mainloop of ``csrc/hopper_gemm.cuh``;
 the design note is there): TMA loads of 128-byte-swizzled tiles into a ring
 of shared-memory stages, one producer thread, one or two consumer
 warpgroups running ``wgmma``, a persistent grid. Ragged edges come from
-TMA's zero fill, never from padding, except a row length N that is no
-multiple of 8 (whisper's vocab shard a rank): there the wrapper pads w's
-rows with zero columns in a copy. ``plan`` picks one of two regimes
+TMA's zero fill, never from padding. A row length N that is no multiple
+of 8 (whisper's vocab shard a rank, 12967 columns) takes w in rows padded
+to 16 bytes, as the head is stored (``pgl.aligned_rows``), and returns a
+view of an output whose rows are padded likewise: the epilogue stores the
+last chunk whole into the padding. ``plan`` picks one of two regimes
 from the shape:
 
 * **compute-bound** (M > 64: prefill and loss logits, 2·M·N·K operations
@@ -130,13 +132,15 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check_tma_operand(t: torch.Tensor, name: str) -> None:
+def check_tma_operand(t: torch.Tensor, name: str, *,
+                      ragged: bool = False) -> None:
     """TMA reads rows through a tensor map: bf16, unit stride along the row,
-    rows and base 16-byte aligned. Raises before any launch."""
+    rows and base 16-byte aligned, and (unless ``ragged``) a row length of
+    16 bytes. Raises before any launch."""
     if t.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the CUDA kernel takes bf16 operands")
-    if t.stride(-1) != 1 or t.stride(-2) % 8 or t.shape[-1] % 8 \
-            or t.data_ptr() % 16:
+    if t.stride(-1) != 1 or t.stride(-2) % 8 or t.data_ptr() % 16 \
+            or (t.shape[-1] % 8 and not ragged):
         raise ValueError(f"{name}: the CUDA kernel takes row-major operands "
                          "with 16-byte aligned base, rows and row length, "
                          f"got shape {tuple(t.shape)} strides {t.stride()} "
@@ -164,28 +168,19 @@ def _check(x: torch.Tensor, w: torch.Tensor, stacked: bool) -> None:
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel over the slabs of w (R, K, N): out (R, M, N) bf16."""
+    """The kernel over the slabs of w (R, K, N): out (R, M, N) bf16, a view
+    of rows padded to 16 bytes where N is no multiple of 8."""
     if x.device.type != "cuda":
         raise ValueError(f"matmul runs on cpu or cuda, not {x.device}")
     r, k, n = w.shape
     m = x.shape[0]
-    if n % 8:
-        # a ragged vocab shard (whisper's 51868 columns over 4 ranks are
-        # 12967 a rank): TMA reads w's rows at 16-byte aligned strides and
-        # the epilogue stores whole 16-byte words of out's rows, so w is
-        # copied into rows padded with zero columns to a multiple of 8 and
-        # the output sliced back — JAX's ops.matmul pads to its tile
-        # likewise. Each output element's K loop is unchanged: the real
-        # columns keep their bits.
-        wp = w.new_zeros(r, k, -(-n // 8) * 8)
-        wp[..., :n] = w
-        return _launch(x, wp)[..., :n].contiguous()
     if r > MAX_SLABS:
         raise ValueError(f"at most {MAX_SLABS} stacked shards, got {r}")
     check_tma_operand(x, "x")
     for j in range(r):
-        check_tma_operand(w[j], "w")
-    out = torch.empty((r, m, n), dtype=x.dtype, device=x.device)
+        check_tma_operand(w[j], "w", ragged=True)
+    ldo = _cdiv(n, 8) * 8
+    out = torch.empty((r, m, ldo), dtype=x.dtype, device=x.device)[..., :n]
     if m == 0 or n == 0 or r == 0:
         return out
     if k == 0:
@@ -195,7 +190,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), x.stride(0),
         _build.host_table([w[j].data_ptr() for j in range(r)]), r,
         w.stride(1), _build.host_table([out[j].data_ptr() for j in range(r)]),
-        m, n, k, p.cfg, p.grid,
+        ldo, m, n, k, p.cfg, p.grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pk_matmul_bf16")
     matmul.launches += 1

@@ -49,6 +49,9 @@ class PD:
     init: str = "normal"          # normal | zeros | ones | a_log | dt_bias
     dtype: torch.dtype = torch.bfloat16
     periods: bool = False
+    #: stored with 16-byte rows (``pgl.aligned_rows``): the GEMM reads it
+    #: through a tensor map (the head, whose vocab shard may be ragged)
+    aligned: bool = False
 
     def stacked(self, n: int) -> "PD":
         return dataclasses.replace(self, shape=(n, *self.shape),
@@ -194,7 +197,8 @@ def param_template(cfg: ArchConfig, run: RunConfig,
         "final_norm": PD((d,), P(None), "ones", dt),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = PD((d, v), P(fs, tpv), "normal", dt)
+        tree["lm_head"] = PD((d, v), P(fs, tpv), "normal", dt,
+                             aligned=True)
     tree["blocks"] = {
         f"pos{i}": _stacked(_block_pds(spec, cfg, rules, dt,
                                        cross=cfg.encoder_decoder),
@@ -209,11 +213,12 @@ def param_template(cfg: ArchConfig, run: RunConfig,
 
 
 def to_stored(x: torch.Tensor, pd: PD, rules: ShardingRules | None):
-    """A global tensor in its stored layout (stacked when sharded)."""
-    if rules is None:
-        return x
-    return pgl.layout(x, pd.spec, rules.mesh, rules.tp,
-                      lead=int(pd.periods), expand=False).contiguous()
+    """A global tensor in its stored layout (stacked when sharded; rows of
+    16 bytes where ``pd.aligned``)."""
+    if rules is not None:
+        x = pgl.layout(x, pd.spec, rules.mesh, rules.tp,
+                       lead=int(pd.periods), expand=False).contiguous()
+    return pgl.aligned_rows(x) if pd.aligned else x
 
 
 def stored_shape(pd: PD, rules: ShardingRules | None) -> tuple[int, ...]:
@@ -549,7 +554,7 @@ def forward_prefill(params, batch, cfg: ArchConfig, run: RunConfig,
 def _head(params) -> torch.Tensor:
     if "lm_head" in params:
         return params["lm_head"]
-    return L._row_weight(params["embed"]).T.contiguous()
+    return pgl.aligned_rows(L._row_weight(params["embed"]).T)
 
 
 def _ffn(bp, li, x, cfg: ArchConfig, run: RunConfig, rules):

@@ -63,16 +63,18 @@ def test_matmul_kernel(cuda, m, k, n):
 def test_matmul_stacked_kernel_equals_single_launches(cuda, m, k, n, r):
     """One launch over R stacked shards gives the bits of R launches, and a
     second call the same bits; a row length N that is no multiple of 8
-    (whisper's vocab shard, 12967 columns) runs on rows padded in a
-    copy."""
+    (whisper's vocab shard, 12967 columns) takes w stored in rows padded
+    to 16 bytes, as the head is, and gives a view of padded rows."""
+    from repro_torch.core import pgl
     from repro_torch.kernels import matmul as MM
     x = _randn(cuda, m, k, seed=1)
-    w = _randn(cuda, r, k, n, scale=k ** -0.5, seed=2)
+    w = pgl.aligned_rows(_randn(cuda, r, k, n, scale=k ** -0.5, seed=2))
     before = MM.matmul.launches
     got = MM.matmul_stacked(x, w)
     torch.cuda.synchronize()
     assert MM.matmul.launches == before + 1
     assert got.shape == (r, m, n) and got.dtype == torch.bfloat16
+    assert got.stride(-2) == -(-n // 8) * 8
     assert _rel(got, MM.matmul_stacked_plain(x, w)) <= 1e-2
     assert torch.equal(got, torch.stack([MM.matmul(x, w[j])
                                          for j in range(r)]))
@@ -93,6 +95,9 @@ def test_matmul_kernel_refuses_misaligned_views(cuda):
         MM.matmul_stacked(x, ws)
     with pytest.raises(ValueError, match="16-byte aligned"):
         MM.matmul(x.contiguous(), buf[1:1 + 64 * 8].view(64, 8))
+    # a ragged row length in contiguous rows: the head is stored padded
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MM.matmul(x.contiguous(), _randn(cuda, 64, 13, seed=4))
     assert MM.matmul.launches == before
 
 

@@ -65,12 +65,15 @@ ARCH = "whisper-medium"
 B, S, SE, S_MAX = 4, 16, 24, 16
 
 
-def _both(mesh_shape, arch=ARCH, *, fsdp=None, **run_kw):
+def _both(mesh_shape, arch=ARCH, *, fsdp=None, vocab=None, **run_kw):
     """(jax side, port side): cfg, run, rules, params (and the JAX mesh).
     FSDP on a mesh with a data axis larger than 1, as the launchers set it;
-    the decode cache's sequence dim sharded over tp on a mesh."""
-    jcfg = dataclasses.replace(jax_config(arch).reduced(), dtype="float32")
-    tcfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    the decode cache's sequence dim sharded over tp on a mesh; ``vocab``
+    replaces the reduced config's 256."""
+    cut = dict(dtype="float32") | ({} if vocab is None
+                                   else dict(vocab_size=vocab))
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **cut)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **cut)
     if fsdp is None:
         fsdp = mesh_shape is not None and mesh_shape[0] > 1
     backend = run_kw.pop("comm_backend", "fused" if fsdp else None)
@@ -93,13 +96,13 @@ def _both(mesh_shape, arch=ARCH, *, fsdp=None, **run_kw):
             dict(cfg=tcfg, run=trun, rules=trules, params=tparams))
 
 
-def _batch(seed=0, equal_halves=False, microbatches=1):
+def _batch(seed=0, equal_halves=False, microbatches=1, vocab=256):
     """Tokens, targets, weights and the encoder's frame embeddings;
     ``equal_halves``: in every microbatch the second dp half's tokens and
     targets repeat the first's (the frames and weights differ)."""
     rng = np.random.default_rng(seed)
-    tok = rng.integers(0, 256, (B, S)).astype(np.int32)
-    tgt = rng.integers(0, 256, (B, S)).astype(np.int32)
+    tok = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    tgt = rng.integers(0, vocab, (B, S)).astype(np.int32)
     if equal_halves:
         for a in (tok, tgt):
             mb = a.reshape(microbatches, 2, B // microbatches // 2, S)
@@ -183,6 +186,34 @@ def test_forward_train_matches_jax(mesh_shape):
 def test_forward_train_run_options_match_jax(run_kw):
     j, t = _both((2, 2), **run_kw)
     batch = _batch(seed=3, equal_halves=True)
+    jl, jg = _jax_loss_grads(j, batch)
+    tl, tg = _port_loss_grads(t, batch)
+    assert abs(tl - jl) <= ATOL_LOSS, (tl, jl)
+    _assert_grads(tg, jg)
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 4), (2, 2)])
+def test_forward_train_ragged_vocab_shard_matches_jax(mesh_shape):
+    """A vocab of 250: shards of 63 (1, 4) or 125 (2, 2) columns, f32 rows
+    of no multiple of 16 bytes, as whisper's 12967-column bf16 shard on the
+    card. The head is stored in rows padded to 16 bytes (the GEMM's tensor
+    maps read them so, with no copy a call), the FSDP gather's copies keep
+    that padding, and the loss and every gradient match JAX's."""
+    from repro_torch.core import pgl
+    from repro_torch.core.template import fsdp_gather
+    j, t = _both(mesh_shape, vocab=250)
+    head = t["params"]["lm_head"]
+    assert head.stride(-2) % 4 == 0 and head.stride(-2) > head.shape[-1]
+    assert pgl.padded_rows(head)
+    if t["run"].fsdp:
+        spec = T.param_template(t["cfg"], t["run"],
+                                t["rules"])["lm_head"].spec
+        got = fsdp_gather(head, spec, t["rules"], t["run"], dim=0)
+        assert got.stride(-2) % 4 == 0
+        want = fsdp_gather(head.contiguous(), spec, t["rules"], t["run"],
+                           dim=0)
+        assert torch.equal(got, want)
+    batch = _batch(equal_halves=True, vocab=250)
     jl, jg = _jax_loss_grads(j, batch)
     tl, tg = _port_loss_grads(t, batch)
     assert abs(tl - jl) <= ATOL_LOSS, (tl, jl)

@@ -280,6 +280,21 @@ def test_checkpoint_roundtrip_keep_and_async(tmp_path):
     assert torch.equal(restored.params["a"], state.params["a"])
 
 
+def test_checkpoint_restore_keeps_padded_rows(tmp_path):
+    """A leaf stored in rows padded to 16 bytes (the head of a ragged vocab
+    shard) comes back from a checkpoint in padded rows, not contiguous."""
+    from repro_torch.core import pgl
+    head = pgl.aligned_rows(torch.randn(2, 3, 13).to(torch.bfloat16))
+    assert pgl.padded_rows(head) and head.stride(-2) == 16
+    state = TrainState({"h": head}, AdamW().init({"h": head}))
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    mgr.save(1, state)
+    restored, _ = mgr.restore(state)
+    got = restored.params["h"]
+    assert got.stride() == head.stride() and torch.equal(got, head)
+    assert restored.opt.m["h"].is_contiguous()
+
+
 def test_data_pipeline_rule_and_determinism():
     data = SyntheticLM(DataConfig(vocab_size=97, seq_len=64,
                                   global_batch=8, seed=3, noise=0.0))

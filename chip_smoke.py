@@ -22,7 +22,11 @@ Phases (any failure exits non-zero before the last line is printed):
    scan at falcon-mamba's
    prefill groups (S = 60, 174, 405) and decode (B = 8, S = 1) with the
    stacked state — bit-identical for chunk 1, 64 and 256 and over S + 4
-   steps chained —, the ring all-gather and reduce-scatter at every FSDP
+   steps chained —, the scan's backward (B10-bwd, no Pallas counterpart)
+   at falcon's training shapes (4, 512) and (2, 512) and the prefill
+   shape (4, 405) x 8192 against its plain reverse recurrence, every
+   output within 1e-3, bit-identical for chunk 64, 128 and 256 and a
+   second call (details in ``check_mamba_scan_bwd``), the ring all-gather and reduce-scatter at every FSDP
    shard shape of the (2, 4) training run and
    at 4 and 8 ranks, each for 1-4 chunks, whose results must be
    bit-identical, to their plain versions and to the kernels they ran on
@@ -97,9 +101,10 @@ Phases (any failure exits non-zero before the last line is printed):
    greedy tokens and the first prefill logits' largest difference (beside
    the ring backend's, a third summation order);
 3b. backward: the autograd wrappers of the GEMM (and its stacked form),
-   flash attention and GEMM+AR at the training path's shapes — outputs and
-   gradients against plain-torch autograd of their plain versions,
-   relative error <= 2e-2;
+   flash attention and GEMM+AR at the training path's shapes, and the
+   grouped GEMM at moonshot's MoE training shapes (64 groups, capacity
+   240 and 120, K 2048 and 1408) — outputs and gradients against
+   plain-torch autograd of their plain versions, relative error <= 2e-2;
 4b. reference: tinyllama-1.1b at full width cut to 2 layers, card path
    (bf16, kernels) against the port's plain float32 path on the CPU with
    the same weights, on one small prefill group — relative Frobenius error
@@ -181,6 +186,21 @@ Phases (any failure exits non-zero before the last line is printed):
    gradient norm within 3e-2 and the encoder's, the cross-attention's and
    the rest's gradients each within 3e-2 (details in
    ``check_encdec_reference``);
+5k. MoE training: moonshot-v1-16b-a3b at full width cut to 4 of its 48
+   layers on (2, 4) with FSDP, batch 8 x 512 in 2 microbatches, remat,
+   AdamW, 3 steps; losses and aux losses finite, flash, GEMM+AR, the GEMM
+   and B3's AG and RS launched, the grouped GEMM exactly 3 launches a
+   layer, dp group, microbatch and forward (details in ``train_moe``);
+5l. SSM training: falcon-mamba-7b at full width cut to 16 of its 64
+   layers, the same run; the scan's forward kernel exactly 2 launches
+   and its backward kernel 1 a layer and microbatch (``train_ssm``);
+5m. hybrid training: jamba-1.5-large-398b ``.reduced()`` through the
+   launcher on (2, 4) with FSDP, 3 steps; every kernel of the path
+   launched (``train_hybrid``);
+5n. MoE and SSM reference: 2-layer moonshot and falcon at full width,
+   one step on (2, 4) with FSDP against the port's plain f32 CPU path on
+   the card's routing — the loss within 1e-3, each gradient group within
+   3e-2 (``check_family_reference``);
 5e. TP GEMM pair: tinyllama-1.1b's MLP at full width on (1, 4), 4096
    tokens, through declared ``Island``s: AG+GEMM (gate/up) and GEMM+RS
    (down) under every backend, fused within 1e-2 of bulk, the AG×GEMM and
@@ -194,8 +214,9 @@ Phases (any failure exits non-zero before the last line is printed):
    selective scan, the training run's for the ring AG/RS kernels, the
    sequence-parallel run's for the p2p shift and the flash hop, the
    Ulysses run's for the all-to-all, the TP GEMM pair's for AG×GEMM,
-   GEMM×RS and the LCSC all-gather; ``launches_by_path`` has all ten
-   paths, 5g's a2a MoE and the whisper runs 5h and 5i among them), then
+   GEMM×RS and the LCSC all-gather, the SSM training run's for the scan's
+   backward; ``launches_by_path`` has all thirteen paths, 5g's a2a MoE,
+   the whisper runs 5h and 5i and the training runs 5k-5m among them), then
    GEMM+AR's cold decode row, whose counts are GEMM+AR's whole-path
    counts (prefill and decode together, the counter named by
    ``launches_counter``), not its own, the all-gather's path-form row,
@@ -899,6 +920,7 @@ def check_kernels(dev) -> dict:
             before=partial(mm_tile_flash, q, k_, v, causal=False))
 
     entries.update(check_mamba_scan(dev, record, compare))
+    entries.update(check_mamba_scan_bwd(dev, record, compare))
     entries.update(check_ring_kernels(dev, record, compare, randn))
     entries.update(check_tp_kernels(dev, record, compare, randn))
     entries.update(check_a2a_kernel(dev, record, randn))
@@ -1625,6 +1647,98 @@ def check_mamba_scan(dev, record, compare) -> dict:
     return entries
 
 
+def check_mamba_scan_bwd(dev, record, compare) -> dict:
+    """Phase 3, the selective scan's backward (B10-bwd, no Pallas
+    counterpart: JAX differentiates its XLA scan) at falcon-mamba-7b's
+    training shapes — the 5l run's microbatch dt (4, 512, 8192), the dp
+    group's half (2, 512, 8192) — and its serving prefill shape (4, 405,
+    8192); dt and dy f32, x, b, c bf16, N 16, h0 = 0 as in training,
+    against ``mamba_scan_bwd_plain`` (the sequential f32 reverse
+    recurrence) on the card: every output's relative Frobenius error <=
+    1e-3 (ddt and da f32; dx, db, dc rounded once to bf16 on both sides).
+    Then the same bits for chunk 64, 128 and 256 and on a second call.
+    Bound: bytes (dt, x, dy read, ddt, dx written over (B, S, D); b, c
+    read and db, dc written over (B, S, N); a read, da written) over 3.35
+    TB/s, or 18 f32 operations per (b, t, d, n) — the forward step that
+    rebuilds h_{t-1} and the reverse step, the exponential counted as one
+    — over 67 TFLOP/s; the exponential floor (two exponentials a state a
+    step: abar for the reverse step and for the rebuilt forward) printed
+    beside it. No PyTorch call computes the scan's backward: no library
+    time."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as MS
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    d, n = 8192, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = max_sm_clock_mhz()
+
+    def inputs(b, s):
+        def f(*sh):
+            return torch.randn(sh, generator=g, device=dev)
+        return (torch.nn.functional.softplus(f(b, s, d) - 2.0),
+                f(b, s, n).to(torch.bfloat16), f(b, s, n).to(torch.bfloat16),
+                f(b, s, d).to(torch.bfloat16), -torch.exp(f(d, n)),
+                torch.zeros(b, d, n, device=dev), f(b, s, d))
+
+    def cost(b, s):
+        nbytes = b * s * d * (4 + 2 + 4 + 4 + 2) + 4 * b * s * n * 2 \
+            + 2 * d * n * 4
+        return nbytes, 18.0 * b * s * d * n
+
+    entries = {}
+    for b, s, key in ((4, 512, "mamba_scan_bwd"),
+                      (2, 512, "mamba_scan_bwd@dp-half"),
+                      (4, 405, "mamba_scan_bwd@prefill")):
+        args = inputs(b, s)
+        shape = (f"dt({b},{s},{d}) f32, x/b/c bf16, N={n}, dy f32, h0 0")
+        got = MS.mamba_scan_bwd(*args)
+        want = MS.mamba_scan_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, gv, wv in zip(("ddt", "db", "dc", "dx", "da"), got, want):
+            if gv.dtype != wv.dtype or gv.shape != wv.shape:
+                raise AssertionError(f"mamba_scan_bwd {name}: {gv.dtype} "
+                                     f"{tuple(gv.shape)} against the plain "
+                                     f"{wv.dtype} {tuple(wv.shape)}")
+            errs[name] = (rel_err(gv, wv),
+                          float((gv.float() - wv.float()).abs().max()))
+        print(f"[kernel] mamba_scan_bwd {shape}: rel_err "
+              f"{ {k: f'{v[0]:.3e}' for k, v in errs.items()} } (tol "
+              f"{TOL_F32_OUT:g})", flush=True)
+        if not all(v[0] <= TOL_F32_OUT for v in errs.values()):
+            raise AssertionError(f"mamba_scan_bwd {shape} disagrees with "
+                                 f"its plain version: {errs}")
+        for chunk in (64, 128, 256):
+            again = MS.mamba_scan_bwd(*args, chunk=chunk)
+            if not all(torch.equal(p, q) for p, q in zip(again, got)):
+                raise AssertionError(f"mamba_scan_bwd {shape}: chunk {chunk}"
+                                     " or a second call changed the bits")
+        print(f"[kernel] mamba_scan_bwd {shape}: bit-identical for chunk "
+              f"64, 128, 256 and a second call", flush=True)
+        worst = (max(v[0] for v in errs.values()),
+                 max(v[1] for v in errs.values()))
+        entries[key] = record(
+            "mamba_scan_bwd", shape,
+            "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+            "none: JAX differentiates its XLA associative scan "
+            "(src/repro/models/ssm.py:33); the forward's Pallas kernel is "
+            "src/repro/kernels/mamba_scan.py:53",
+            lambda: MS.mamba_scan_bwd(*args),
+            lambda: MS.mamba_scan_bwd_plain(*args), None, TOL_F32_OUT,
+            *cost(b, s), peak=PEAK_F32_FLOPS, plain_iters=2,
+            checked=worst)
+        entries[key]["rel_err_by_output"] = {k: v[0]
+                                             for k, v in errs.items()}
+        floor = 2 * exp_floor_ms(b, s, d, n, sms, clock)
+        entries[key]["exp_floor_ms"] = floor
+        print(f"[kernel] mamba_scan_bwd {shape}: exp_floor_ms={floor:.4f} "
+              f"(2 B·S·D·N exponentials at 16 an SM a clock, {sms} SMs at "
+              f"{clock:.0f} MHz)", flush=True)
+    return entries
+
+
 def check_backward(dev) -> None:
     """Phase 3b: the autograd wrappers' outputs and gradients against
     plain-torch autograd of the plain versions, at the training path's
@@ -1635,6 +1749,7 @@ def check_backward(dev) -> None:
 
     from repro_torch.kernels import collective_matmul as CM
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import grouped_matmul as GM
     from repro_torch.kernels import matmul as MM
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1664,6 +1779,18 @@ def check_backward(dev) -> None:
         ("pk_matmul_ar", "x(4,1024,1408)@w(4,1408,2048)", CM.matmul_ar_fused,
          CM.matmul_ar_plain,
          (randn(4, 1024, 1408), randn(4, 1408, 2048, scale=5632 ** -0.5))))
+    # the grouped GEMM (B9) at moonshot's MoE training shapes: 64 groups (4
+    # ranks x 16 experts), capacity 240 (2,048 tokens a group) and 120
+    # (5k's 1,024), w1/w3 (K 2048) and w2 (K 1408), f32 out; its backward
+    # is torch.matmul
+    for c in (240, 120):
+        for k, n in ((2048, 1408), (1408, 2048)):
+            cases += (("grouped_matmul", f"x(64,{c},{k})@w(64,{k},{n}) "
+                       "f32 out",
+                       partial(GM.grouped_matmul, out_dtype=torch.float32),
+                       partial(GM.grouped_matmul_plain,
+                               out_dtype=torch.float32),
+                       (randn(64, c, k), randn(64, k, n, scale=k ** -0.5))),)
     for name, shape, fn, plain, args in cases:
         gen_state = g.get_state()
         got = grads(fn, args)
@@ -1683,7 +1810,8 @@ KERNEL_COUNTERS = ("matmul", "flash_attention", "pk_matmul_ar",
                    "pk_all_gather", "pk_reduce_scatter", "grouped_matmul",
                    "mamba_scan", "p2p_ring_shift", "flash_attention_hop",
                    "ag_matmul_fused", "matmul_rs_fused",
-                   "lcsc_ring_all_gather", "pk_all_to_all")
+                   "lcsc_ring_all_gather", "pk_all_to_all",
+                   "mamba_scan_bwd")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
 
@@ -1720,6 +1848,7 @@ def _counters():
             "pk_reduce_scatter": PK.ring_reduce_scatter,
             "grouped_matmul": GM.grouped_matmul,
             "mamba_scan": MS.mamba_scan,
+            "mamba_scan_bwd": MS.mamba_scan_bwd,
             "p2p_ring_shift": PK.p2p_ring_shift,
             "flash_attention_hop": FA.flash_attention_hop,
             "ag_matmul_fused": CM.ag_matmul_fused,
@@ -3167,6 +3296,336 @@ def check_encdec_reference(dev, enc_len: int = 1500) -> None:
                              f"plain path: {errs}, {part_errs}")
 
 
+MOE_TRAIN_LAYERS = 4       # of moonshot-v1-16b-a3b's 48
+SSM_TRAIN_LAYERS = 16      # of falcon-mamba-7b's 64
+HYBRID_ARCH = "jamba-1.5-large-398b"
+FAMILY_TOL_LOSS = 1e-3
+FAMILY_TOL_GRAD = 3e-2
+
+
+def train_family(dev, tag: str, cfg, run, *, names, steps: int = 3,
+                 batch: int = 8, seq: int = 512, seed: int = 1) -> dict:
+    """A full-width training run of ``cfg`` on a (2, 4) virtual mesh (data
+    2 x model 4) with FSDP, through ``make_train_step`` with AdamW: random
+    parameters from ``seed``, ``steps`` steps of ``batch`` x ``seq``
+    synthetic tokens in ``run.microbatches`` microbatches. Prints the
+    losses (the total, which is differentiated, and the MoE aux loss), the
+    step wall times (host clock, each ending in the loss's device->host
+    read), the peak ``max_memory_allocated`` and the launches a step of the
+    kernels ``names``; fails unless every loss is finite, every kernel
+    launched and the GEMM exactly once a dp group, microbatch and step (the
+    loss, stacked, one 512-token chunk). Returns the launches over the run
+    and the run's numbers."""
+    import torch
+
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import TrainState, make_train_step
+
+    rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), dev), run)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(T.param_template(cfg, run, rules), gen,
+                           cfg.d_model, rules=rules, device=dev)
+    n_params = sum(p.numel() for _, p in T.leaves(params))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=seed),
+                       device=dev)
+    opt = AdamW(lr=1e-4, weight_decay=0.01)
+    step = make_train_step(cfg, run, rules, opt)
+    state = TrainState(params, opt.init(params))
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = {k: fn for k, fn in _counters().items() if k in names}
+    for fn in counters.values():
+        fn.launches = 0
+    losses, auxes, times = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch(i))
+        losses.append(float(m["loss"]))
+        auxes.append(float(m["aux_loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"[{tag}] {cfg.name} full width, {cfg.n_layers} layers "
+          f"({n_params} parameters, built in {build_s:.1f} s), mesh (2, 4) "
+          f"FSDP, comm_backend={run.comm_backend}, remat={run.remat}, batch "
+          f"{batch} x seq {seq}, microbatches {run.microbatches}: losses "
+          f"(loss + 0.01 aux) {[round(x, 4) for x in losses]}, aux_loss "
+          f"{[round(x, 4) for x in auxes]}; step wall times (host clock, "
+          f"each ends in a device->host read) {[round(t, 4) for t in times]}"
+          f" s; max_memory_allocated {peak} B", flush=True)
+    print(f"[{tag}] launches a step {per_step}", flush=True)
+    if not all(map(math.isfinite, losses + auxes)):
+        raise AssertionError(f"{tag}: losses not all finite: {losses}, "
+                             f"{auxes}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{tag} launched no {name} kernel")
+    want = steps * 2 * run.microbatches * max(1, seq // run.loss_chunk)
+    if launches["matmul"] != want:
+        raise AssertionError(f"{tag} launched matmul {launches['matmul']} "
+                             f"times, not {want}")
+    del state
+    torch.cuda.empty_cache()
+    return launches, {"losses": losses, "aux": auxes, "times": times,
+                      "peak": peak, "params": n_params}
+
+
+def train_moe(dev) -> dict:
+    """Phase 5k: MoE training — moonshot-v1-16b-a3b at full width (d 2048,
+    16 heads of 128, 64 experts top-6, expert ff 1408, vocab 163840) cut to
+    4 of its 48 layers: 4 x 570 M + 2 x 335 M (embedding, head) = 2.95 B
+    parameters, about 41 GB of training state at 14 bytes a parameter
+    (bf16 weight, f32 AdamW moments, f32 gradient sums); all 48 layers
+    would need about 390 GB. On (2, 4) with FSDP, every collective on the
+    kernels, the attention out-projection on the GEMM+AR island
+    (``pk_attn_out_island``: no layer has a dense MLP), remat, batch 8 x
+    512 in 2 microbatches, 3 steps. The MoE island runs once a dp group on
+    its 2 x 512 = 1,024 tokens (capacity 120); the grouped GEMM must launch
+    exactly 3 x its chunks a layer, dp group and microbatch, twice (remat
+    reruns the forward), and flash, GEMM+AR, the GEMM and B3's AG and RS
+    must launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.sharding import ShardingRules
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    run = RunConfig(fsdp=True, comm_backend="fused", microbatches=2,
+                    pk_attn_out_island=True)
+    rules = ShardingRules(VirtualMesh((2, 4), ("data", "model")), run)
+    island = L.moe_island(cfg, run, rules, 4, 512)
+    chunks = island.comm.n_chunks
+    launches, st = train_family(
+        dev, "train-moe", cfg, run,
+        names=("matmul", "flash_attention", "pk_matmul_ar", "pk_all_gather",
+               "pk_reduce_scatter", "grouped_matmul"))
+    want = 3 * cfg.n_layers * 2 * run.microbatches * 3 * chunks * 2
+    print(f"[train-moe] grouped_matmul launches {launches['grouped_matmul']}"
+          f", expected {want} (3 steps x {cfg.n_layers} layers x 2 dp groups"
+          f" x 2 microbatches x 3 GEMMs x {chunks} chunk(s) x 2 forwards)",
+          flush=True)
+    if launches["grouped_matmul"] != want:
+        raise AssertionError(f"MoE training launched the grouped GEMM "
+                             f"{launches['grouped_matmul']} times, not "
+                             f"{want}")
+    if not all(a > 0 for a in st["aux"]):
+        raise AssertionError(f"MoE training's aux loss is not positive: "
+                             f"{st['aux']}")
+    return launches
+
+
+def train_ssm(dev) -> dict:
+    """Phase 5l: SSM training — falcon-mamba-7b at full width (d 4096,
+    d_inner 8192, N 16, dt_rank 256, vocab 65024) cut to 16 of its 64
+    layers: 16 x 105 M + 2 x 266 M = 2.21 B parameters, about 31 GB of
+    training state at 14 bytes a parameter; all 64 layers would need about
+    102 GB. On (2, 4) with FSDP (``in_proj`` and ``out_proj`` gathered),
+    every collective on the kernels, remat, batch 8 x 512 in 2
+    microbatches, 3 steps. The scan runs on the microbatch's global (4,
+    512, 8192) activations: its forward kernel exactly twice a layer and
+    microbatch (remat reruns the forward), its backward kernel once; the
+    GEMM and B3's AG and RS must launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              n_layers=SSM_TRAIN_LAYERS)
+    run = RunConfig(fsdp=True, comm_backend="fused", microbatches=2)
+    launches, st = train_family(
+        dev, "train-ssm", cfg, run,
+        names=("matmul", "pk_all_gather", "pk_reduce_scatter", "mamba_scan",
+               "mamba_scan_bwd"))
+    per = 3 * cfg.n_layers * run.microbatches
+    want = {"mamba_scan": 2 * per, "mamba_scan_bwd": per}
+    print(f"[train-ssm] scan launches forward {launches['mamba_scan']}, "
+          f"backward {launches['mamba_scan_bwd']}; expected {want}",
+          flush=True)
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"SSM training's scan launches {launches} are "
+                             f"not {want}")
+    if any(st["aux"]):
+        raise AssertionError(f"SSM training has an aux loss: {st['aux']}")
+    return launches
+
+
+def train_hybrid(dev, steps: int = 3) -> dict:
+    """Phase 5m: the hybrid — jamba-1.5-large-398b ``.reduced()`` (8
+    layers: attention, mamba, dense and MoE FFNs in one period; d 64)
+    trained by the launcher (``build_and_train``) on (2, 4) with FSDP,
+    every collective on the kernels, batch 8 x 128 in 2 microbatches, 3
+    steps. Only width is cut: one full-width MoE layer of jamba alone
+    holds 16 x 3 x 8192 x 24576 = 9.7 B parameters. Every mixer and FFN
+    kind in one model: losses finite, the aux loss positive, and every
+    kernel of the path launched — flash, the GEMM, GEMM+AR (the dense MLP
+    island), B3's AG and RS, the grouped GEMM, the scan and its
+    backward."""
+    import torch
+
+    from repro_torch.launch.train import build_and_train
+
+    names = ("matmul", "flash_attention", "pk_matmul_ar", "pk_all_gather",
+             "pk_reduce_scatter", "grouped_matmul", "mamba_scan",
+             "mamba_scan_bwd")
+    counters = {k: fn for k, fn in _counters().items() if k in names}
+    for fn in counters.values():
+        fn.launches = 0
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_hybrid_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    _, log = build_and_train(HYBRID_ARCH, steps=steps, reduced=True,
+                             mesh_shape=(2, 4), batch=8, seq=128,
+                             microbatches=2, ckpt_dir=ckpt, log_every=1,
+                             comm_backend="fused", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = [m["loss"] for m in log]
+    auxes = [m["aux_loss"] for m in log]
+    print(f"[train-hybrid] {HYBRID_ARCH} reduced, mesh (2, 4) FSDP fused, "
+          f"batch 8 x 128, 2 microbatches: losses {losses}, aux_loss "
+          f"{auxes}; build + {steps} steps + checkpoint {wall:.1f} s; "
+          f"launches a step { {k: v / steps for k, v in launches.items()} }",
+          flush=True)
+    if not (len(log) == steps and all(map(math.isfinite, losses + auxes))
+            and all(a > 0 for a in auxes)):
+        raise AssertionError(f"hybrid training: losses {losses}, aux "
+                             f"{auxes}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"hybrid training launched no {name} "
+                                 "kernel")
+    return launches
+
+
+def check_family_reference(dev, seq: int = 64) -> None:
+    """Phase 5n: moonshot-v1-16b-a3b and falcon-mamba-7b at full width cut
+    to 2 layers, one forward and backward of 2 x 64 tokens on (2, 4) with
+    FSDP, the card (bf16, kernels, fused collectives) against the port's
+    plain float32 path on the CPU with the same weights (bf16 values
+    widened) and batch: the loss (the total, loss + 0.01 aux) within
+    relative ``FAMILY_TOL_LOSS`` and each group's gradient, as one vector,
+    within ``FAMILY_TOL_GRAD`` relative Frobenius error — moonshot's
+    router, experts and the rest; falcon's mamba leaves and the rest. No
+    remat (the forward runs once). Routing is discontinuous (bf16 against
+    f32 moves 4-15% of the decisions a layer, phase 4d), so the f32 path
+    replays the card's routing — each top-k returns the card's indices,
+    with the f32 path's own values at them — and computes the same
+    function."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import moe
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+
+    real_topk = moe.topk_stable
+
+    def loss_and_grads(cfg, run, params, batch, device, topk):
+        rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), device),
+                              run)
+        paths = list(T.leaves(params))
+        for _, p in paths:
+            p.requires_grad_(True)
+        with mock.patch.object(moe, "topk_stable", topk):
+            total, m = T.forward_train(params, batch, cfg, run, rules)
+            gs = torch.autograd.grad(total, [p for _, p in paths])
+        tree: dict = {}
+        for (path, _), g in zip(paths, gs):
+            T.set_path(tree, path, g.detach().float().cpu())
+        return float(total.detach()), float(m["aux_loss"].detach()), tree
+
+    for arch, group in ((MOE_ARCH, lambda p: (
+            "router" if p[-1] == "router" else "experts"
+            if "moe" in p and p[-1] in ("w1", "w2", "w3") else "rest")),
+            (SSM_ARCH, lambda p: "mamba" if "mamba" in p else "rest")):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        run = RunConfig(fsdp=True, comm_backend="fused", remat=False,
+                        pk_attn_out_island=True)
+        rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), dev),
+                              run)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        params = T.init_params(T.param_template(cfg, run, rules), gen,
+                               cfg.d_model, rules=rules, device=dev)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, seq),
+                                         generator=gen, device=dev),
+                 "targets": torch.randint(0, cfg.vocab_size, (2, seq),
+                                          generator=gen, device=dev),
+                 "weights": torch.ones((2, seq), device=dev)}
+        cpu_params: dict = {}
+        for path, t in T.leaves(params):
+            T.set_path(cpu_params, path, t.detach().float().cpu())
+        calls: list = []
+
+        def record(x, k):
+            out = real_topk(x, k)
+            calls.append(out[1])
+            return out
+
+        got = loss_and_grads(cfg, run, params, batch, dev, record)
+        del params
+        replayed = iter(calls)
+
+        def replay(x, k):
+            idx = next(replayed).to(x.device)
+            return x.gather(-1, idx), idx
+
+        t0 = time.perf_counter()
+        want = loss_and_grads(dataclasses.replace(cfg, dtype="float32"),
+                              run, cpu_params,
+                              {k: v.cpu() for k, v in batch.items()},
+                              "cpu", replay)
+        cpu_s = time.perf_counter() - t0
+        if next(replayed, None) is not None:
+            raise AssertionError(f"{arch}: the f32 path made fewer top-k "
+                                 "calls than the card")
+        loss_err = abs(got[0] - want[0]) / abs(want[0])
+        diff: dict = {}
+        ref: dict = {}
+        for path, g in T.leaves(got[2]):
+            part = group(path)
+            w = _leaf(want[2], path)
+            diff[part] = diff.get(part, 0.0) + float((g - w).pow(2).sum())
+            ref[part] = ref.get(part, 0.0) + float(w.pow(2).sum())
+        part_errs = {k: math.sqrt(diff[k] / ref[k]) for k in sorted(diff)}
+        print(f"[family-reference] {arch} 2-layer full-width (2, 4) FSDP "
+              f"step, card (bf16 kernels, {len(calls)} top-k calls "
+              f"replayed) vs cpu (f32 plain, {cpu_s:.1f} s): loss "
+              f"{got[0]:.5f} vs {want[0]:.5f} (rel {loss_err:.3e}, tol "
+              f"{FAMILY_TOL_LOSS:g}), aux {got[1]:.5f} vs {want[1]:.5f}; "
+              f"each group's gradient, relative error "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in part_errs.items())} "
+              f"(tol {FAMILY_TOL_GRAD:g})", flush=True)
+        groups = ({"router", "experts", "rest"} if arch == MOE_ARCH
+                  else {"mamba", "rest"})
+        if not (loss_err <= FAMILY_TOL_LOSS and set(part_errs) == groups
+                and all(e <= FAMILY_TOL_GRAD for e in part_errs.values())):
+            raise AssertionError(f"{arch} training step disagrees with the "
+                                 f"f32 plain path: loss {loss_err:.3e}, "
+                                 f"{part_errs}")
+        del got, want, cpu_params
+        torch.cuda.empty_cache()
+
+
 def _leaf(tree, path):
     for k in path:
         tree = tree[k]
@@ -3346,6 +3805,10 @@ def main() -> int:
     encdec_serve_launches = serve_encdec(dev)
     encdec_train_launches = train_encdec(dev)
     check_encdec_reference(dev)
+    moe_train_launches = train_moe(dev)
+    ssm_train_launches = train_ssm(dev)
+    hybrid_train_launches = train_hybrid(dev)
+    check_family_reference(dev)
     tp_launches = tp_gemm(dev)
     main_entries = []
     for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
@@ -3362,7 +3825,10 @@ def main() -> int:
                    "moe_a2a": moe_a2a_launches.get(counter, 0),
                    "tp_gemm": tp_launches.get(counter, 0),
                    "serve_encdec": encdec_serve_launches.get(counter, 0),
-                   "train_encdec": encdec_train_launches.get(counter, 0)}
+                   "train_encdec": encdec_train_launches.get(counter, 0),
+                   "train_moe": moe_train_launches.get(counter, 0),
+                   "train_ssm": ssm_train_launches.get(counter, 0),
+                   "train_hybrid": hybrid_train_launches.get(counter, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",
@@ -3372,7 +3838,8 @@ def main() -> int:
                      "lcsc_ring_all_gather": "tp_gemm",
                      "pk_all_to_all": "train_ulysses",
                      "flash_attention@encoder": "serve_encdec",
-                     "flash_attention@cross": "train_encdec"}.get(
+                     "flash_attention@cross": "train_encdec",
+                     "mamba_scan_bwd": "train_ssm"}.get(
             key, "serve" if counter in serve_launches else "train")
         entry = dict(entries[key], launches=by_path[main_path],
                      launches_by_path=by_path)
@@ -3388,7 +3855,8 @@ def main() -> int:
                 "lcsc_ring_all_gather@r4", "lcsc_ring_all_gather@r8",
                 "flash_attention_hop@0", "flash_attention_hop@2",
                 "flash_attention_hop@3", "pk_all_to_all@out",
-                "pk_all_to_all@moe"):
+                "pk_all_to_all@moe", "mamba_scan_bwd@dp-half",
+                "mamba_scan_bwd@prefill"):
         print(f"[kernel-extra] {json.dumps(entries[key])}", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": main_entries}), flush=True)

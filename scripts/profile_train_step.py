@@ -4,6 +4,7 @@
     python3 scripts/profile_train_step.py [--out FILE] [--steps N]
                                           [--seq-sharded]
                                           [--sp-attention ring|ulysses]
+                                          [--arch NAME --layers N]
 
 Builds the training run of ``chip_smoke.py`` — tinyllama-1.1b at full width
 and depth on a (2, 4) virtual mesh (data x model) with FSDP, every
@@ -17,7 +18,12 @@ backward (no optimizer) on (1, 4), batch 1 x seq 8192, ring attention over
 the fused p2p shift (``--sp-attention ulysses``: Ulysses, as chip_smoke's
 phase 5f runs it, ``ulysses_chunks=2`` on the all-to-all kernel), the
 backward in a range of its own (reported as ``backward_*`` in place of
-``optimizer_*``). It prints one JSON object
+``optimizer_*``). ``--arch`` with ``--layers`` profiles another
+architecture's FSDP run at full width cut to that depth, as chip_smoke's
+MoE and SSM training phases run them (``--arch moonshot-v1-16b-a3b
+--layers 4``: phase 5k, the attention out-projection on the GEMM+AR
+island; ``--arch falcon-mamba-7b --layers 16``: phase 5l). It prints one
+JSON object
 with the median over the profiled steps of:
 
 - ``wall_ms``: the step's host wall time (the profiler's CPU range), beside
@@ -38,6 +44,7 @@ take the most time. Exits 1 if the profiler recorded no device activity.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -66,6 +73,10 @@ def main() -> int:
                     default="ring",
                     help="with --seq-sharded: ring (phase 5c) or Ulysses "
                          "attention (phase 5f)")
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="the architecture of the FSDP run")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the architecture to this many layers")
     ap.add_argument("--device", default=None,
                     help="default cuda; cpu rehearses the script and exits "
                          "1, with no device activity to read")
@@ -91,9 +102,11 @@ def main() -> int:
                 return super().update(grads, state, params)
 
     dev = resolve_device(args.device)
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.seq_sharded:
         batch, seq, mesh, sub = 1, 64 if args.reduced else 8192, (1, 4), \
             "backward"
@@ -104,9 +117,10 @@ def main() -> int:
                   "optimizer")
     else:
         batch, seq, mesh, sub = 8, 512, (2, 4), "optimizer"
-        run = RunConfig(fsdp=True, microbatches=2, comm_backend="fused")
-        config = (f"{cfg.name} mesh (2, 4) FSDP fused, batch {batch} x seq "
-                  f"{seq}, 2 microbatches")
+        run = RunConfig(fsdp=True, microbatches=2, comm_backend="fused",
+                        pk_attn_out_island=cfg.is_moe)
+        config = (f"{cfg.name} {cfg.n_layers} layers mesh (2, 4) FSDP "
+                  f"fused, batch {batch} x seq {seq}, 2 microbatches")
     rules = ShardingRules(VirtualMesh(mesh, ("data", "model"), dev), run)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = T.init_params(T.param_template(cfg, run, rules), gen,

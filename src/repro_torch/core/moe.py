@@ -145,7 +145,11 @@ def pk_moe_replicated(x, router_w, w1, w3, w2, *, ctx, n_experts: int,
     ff_loc, d) — each rank's device-major slice (w3 None: ungated).
     Returns ((R, T, d) output in x's dtype, the same on every rank; the
     aux loss, a scalar). ``plan`` carries the shared gating/capacity
-    decision; when None it is derived here from ``n_chunks``."""
+    decision; when None it is derived here from ``n_chunks``. Under
+    autograd the tokens and the router are read from rank 0's slab only
+    (every slab is the same replicated tensor), so their gradients reach
+    the global ``x`` and ``router`` once, not once a rank; the psum's
+    backward gives every rank's partial the output's cotangent."""
     r_n, t, d = x.shape
     ep, tp_ff = ep_tp_split(n_experts, r_n)
     e_loc = n_experts // ep

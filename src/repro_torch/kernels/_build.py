@@ -146,6 +146,11 @@ SIGNATURES = {
     # memory a block (the plan's), stream
     "pk_mamba_scan": [_P] * 8 + [_I] * 5 + [_L] * 8 + [_I] + [_L] * 4
                      + [_I] * 5 + [_P],
+    # the scan's backward: dt, x, b, c, a, h0, dy, ckpt, ddt, dx, db, dc,
+    # da, the partials of db, dc and da, B, S, D, N, x/b/c bf16 flag,
+    # steps a segment and shared memory a block (the plan's), dt, x, b,
+    # c, dy strides (batch, step), stream
+    "pk_mamba_scan_bwd": [_P] * 16 + [_I] * 7 + [_L] * 10 + [_P],
     # the kernel the scan ran on before its staged design, a timing
     # yardstick (csrc/mamba_scan_yardstick.cu): dt, x, b, c, a, h0, y,
     # h_out, B, S, D, N, chunk, x/b/c bf16 flag, the strides as above,

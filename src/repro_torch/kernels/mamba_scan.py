@@ -56,6 +56,29 @@ over S followed by k scans of one step chained through h0.
 
 On a CPU tensor the wrapper runs the plain version (the sequential f32
 recurrence); on a CUDA tensor it launches the kernel or raises.
+
+Backward (``csrc/mamba_scan_bwd.cu``, no Pallas counterpart: JAX
+differentiates its XLA associative scan). ``mamba_scan`` is an autograd
+Function wherever an input requires a gradient: its forward is the kernel
+above, its backward ``mamba_scan_bwd`` — the hand-written kernel on the
+card, ``mamba_scan_bwd_plain`` on the CPU. With g_t = dy_t·c_t +
+exp(dt_{t+1}·a)·g_{t+1} the reverse recurrence over the states, it
+returns dx, ddt, db, dc and da (sums over n, over d and over (b, t)). A
+lane holds K = min(4, N) states of one channel, as in the forward, and a
+block of 256 lanes covers 256·K/N channels of one batch row. The sequence
+runs in segments of min(chunk, 8) steps (``scan_bwd_plan``), each staged
+in shared memory (dt, x, dy over the block's channels, b and c), widened
+to f32, by coalesced loads. The block first runs the forward from h0 and
+stores the state at every segment's start, then re-runs each segment
+from its start, last segment first, keeping every h_{t-1} in shared
+memory, and walks it backward with g in registers, keeping every g_t
+there too; after the walk the block sums db and dc over its channels,
+one (step, state) a thread. Sums over d go through one partial a block,
+over (b, t) through one partial a batch row, summed in index order by a
+second kernel: no float atomics, so the gradient is the same bits run to
+run and for every ``chunk``. Training
+starts from h0 = 0 and never reads ``h_last``: the Function refuses an h0
+that requires a gradient and a ``h_last`` cotangent that is not zero.
 """
 
 from __future__ import annotations
@@ -246,15 +269,8 @@ def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out):
     return y, h_out
 
 
-def mamba_scan(dt, b_ssm, c_ssm, x, a, h0, *, chunk: int = 128,
-               h_out: torch.Tensor | None = None):
-    """dt, x: (B, S, D); b_ssm, c_ssm: (B, S, N); a: (D, N) f32; h0:
-    (B, D, N) f32, or the stacked per-rank (R, B, D/R, N). Returns
-    (y (B, S, D) f32, h_last f32 in h0's layout — written into ``h_out``
-    when one is given)."""
-    _check(dt, b_ssm, c_ssm, x, a, h0, h_out)
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
+def _scan(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out):
+    """The forward on ``dt``'s device: the kernel or the plain version."""
     dev = dt.device.type
     if dev == "cuda":
         return _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out)
@@ -267,4 +283,200 @@ def mamba_scan(dt, b_ssm, c_ssm, x, a, h0, *, chunk: int = 128,
     return y, h_out
 
 
+class _ScanFn(torch.autograd.Function):
+    """``mamba_scan`` with a gradient: forward the scan, backward
+    ``mamba_scan_bwd`` from the saved inputs (h0 takes none)."""
+
+    @staticmethod
+    def forward(ctx, dt, b_ssm, c_ssm, x, a, h0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dt, b_ssm, c_ssm, x, a, h0)
+        ctx.chunk = chunk
+        return _scan(dt, b_ssm, c_ssm, x, a, h0, chunk, None)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        if dh_last is not None and bool(dh_last.any()):
+            raise NotImplementedError(
+                "mamba_scan's backward takes no gradient of h_last (training "
+                "never reads the last state)")
+        dt, b_ssm, c_ssm, x, a, h0 = ctx.saved_tensors
+        if dy is None:
+            return (None,) * 7
+        return (*mamba_scan_bwd(dt, b_ssm, c_ssm, x, a, h0, dy,
+                                chunk=ctx.chunk), None, None)
+
+
+def mamba_scan(dt, b_ssm, c_ssm, x, a, h0, *, chunk: int = 128,
+               h_out: torch.Tensor | None = None):
+    """dt, x: (B, S, D); b_ssm, c_ssm: (B, S, N); a: (D, N) f32; h0:
+    (B, D, N) f32, or the stacked per-rank (R, B, D/R, N). Returns
+    (y (B, S, D) f32, h_last f32 in h0's layout — written into ``h_out``
+    when one is given). Where grad mode is on and dt, b, c, x or a
+    requires a gradient, the scan is an autograd Function whose backward is
+    :func:`mamba_scan_bwd` (then h0 must not require one, and ``h_out`` is
+    refused)."""
+    _check(dt, b_ssm, c_ssm, x, a, h0, h_out)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, b_ssm, c_ssm, x, a, h0)):
+        if h0.requires_grad:
+            raise NotImplementedError(
+                "mamba_scan's backward gives no gradient of h0 (training "
+                "starts from a zero state)")
+        if h_out is not None:
+            raise ValueError("a differentiated mamba_scan returns a new "
+                             "h_last; h_out is for serving")
+        return _ScanFn.apply(dt, b_ssm, c_ssm, x, a, h0, int(chunk))
+    return _scan(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out)
+
+
 mamba_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+#: lanes a block of the backward kernel, steps a segment at most (shared
+#: memory holds a segment's h and g), the pad of a row of lanes' states
+BWD_THREADS = 256
+BWD_SEG_MAX = 8
+BWD_PAD = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanBwdPlan:
+    """How the backward kernel runs a scan of (B, S, D) with N states."""
+    seg: int            # steps a segment
+    nseg: int           # segments, ceil(S / seg)
+    k_states: int       # states a lane
+    channels: int       # channels a block, 256 / (N / k_states)
+    nblk: int           # channel tiles: the partials of db and dc a step
+    grid: tuple[int, int]   # (channel tiles, B)
+    smem_bytes: int     # the .cu's sb_smem_floats, which the launch checks
+
+
+def scan_bwd_plan(b: int, s: int, d: int, n: int, *,
+                  chunk: int = 128) -> ScanBwdPlan:
+    """The backward kernel's launch for a scan of (B, S, D), N states (a
+    power of two <= 32): segments of min(chunk, S, 8) steps, K = min(4, N)
+    states a lane, 256·K/N channels a block. Shared memory: a segment's
+    h_{t-1} and last h and its g (rows of 256·K states, padded), the
+    staged dt, x, dy and the dx, ddt rows (a segment's steps x the
+    channels), the staged b and c."""
+    if n < 1 or n > 32 or n & (n - 1):
+        raise ValueError(f"the CUDA mamba_scan backward needs N a power of "
+                         f"two <= 32, got N = {n}")
+    seg = max(1, min(int(chunk), s, BWD_SEG_MAX))
+    k = min(4, n)
+    ch = BWD_THREADS // (n // k)
+    nblk = -(-d // ch)
+    row = BWD_THREADS * k + BWD_PAD
+    smem = ((2 * seg + 1) * row + 5 * seg * ch + 2 * seg * n) * 4
+    return ScanBwdPlan(seg, -(-s // seg), k, ch, nblk, (nblk, b), smem)
+
+
+def mamba_scan_bwd_plain(dt, b_ssm, c_ssm, x, a, h0, dy):
+    """The reverse recurrence in f32 with a loop over S: given y's
+    cotangent ``dy`` (B, S, D), returns (ddt, db, dc, dx, da) — ddt and da
+    f32, db, dc and dx in x's dtype. h0 (B, D, N) f32."""
+    dtf, xf = dt.float(), x.float()
+    bf, cf, af, dyf = b_ssm.float(), c_ssm.float(), a.float(), dy.float()
+    s = dt.shape[1]
+    hs = [h0.float()]                       # h_{t-1} of every step
+    for t in range(s - 1):
+        dt_t = dtf[:, t, :, None]
+        hs.append(torch.exp(dt_t * af) * hs[-1]
+                  + (dt_t * xf[:, t, :, None]) * bf[:, t, None, :])
+    g = torch.zeros_like(hs[0])
+    a_next = torch.zeros_like(hs[0])
+    ddt, dx, db, dc = (torch.empty_like(dtf), torch.empty_like(dtf),
+                       torch.empty_like(bf), torch.empty_like(cf))
+    da = torch.zeros_like(af)
+    for t in reversed(range(s)):
+        dt_t, x_t = dtf[:, t, :, None], xf[:, t, :, None]
+        b_t, c_t = bf[:, t, None, :], cf[:, t, None, :]
+        h_prev = hs[t]
+        abar = torch.exp(dt_t * af)
+        h_t = abar * h_prev + (dt_t * x_t) * b_t
+        g = a_next * g + dyf[:, t, :, None] * c_t
+        a_next = abar
+        gb = (g * b_t).sum(-1)
+        gh = g * h_prev
+        dx[:, t] = dt_t[..., 0] * gb
+        ddt[:, t] = x_t[..., 0] * gb + (gh * af * abar).sum(-1)
+        da += (gh * dt_t * abar).sum(0)
+        db[:, t] = (g * (dt_t * x_t)).sum(1)
+        dc[:, t] = (dyf[:, t, :, None] * h_t).sum(1)
+    low = x.dtype
+    return ddt, db.to(low), dc.to(low), dx.to(low), da
+
+
+def _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, chunk):
+    """Check and launch the backward at ``scan_bwd_plan``'s launch."""
+    bsz, s, d = dt.shape
+    n = a.shape[-1]
+    low = x.dtype
+    if dt.dtype != torch.float32 or low not in _TYPES \
+            or b_ssm.dtype != low or c_ssm.dtype != low:
+        raise ValueError(f"the CUDA mamba_scan backward takes dt f32 and x, "
+                         f"b, c all f32 or all bf16, got dt {dt.dtype}, x "
+                         f"{x.dtype}, b {b_ssm.dtype}, c {c_ssm.dtype}")
+    dy = dy.float()
+    for name, t in (("dt", dt), ("x", x), ("b", b_ssm), ("c", c_ssm),
+                    ("dy", dy)):
+        if t.stride(2) != 1:
+            raise ValueError(f"the CUDA mamba_scan backward takes {name} "
+                             f"with a contiguous last dim, got strides "
+                             f"{t.stride()}")
+    a, h0 = a.float().contiguous(), h0.float().contiguous()
+    p = scan_bwd_plan(bsz, s, d, n, chunk=chunk)
+    dev = dt.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    ckpt = torch.empty((bsz, p.nseg, d, n), **f32)
+    part_db = torch.empty((bsz, s, p.nblk, n), **f32)
+    part_dc = torch.empty_like(part_db)
+    part_da = torch.empty((bsz, d, n), **f32)
+    ddt = torch.empty((bsz, s, d), **f32)
+    dx = torch.empty((bsz, s, d), dtype=low, device=dev)
+    db = torch.empty((bsz, s, n), dtype=low, device=dev)
+    dc = torch.empty_like(db)
+    da = torch.empty((d, n), **f32)
+    err = _build.library().pk_mamba_scan_bwd(
+        dt.data_ptr(), x.data_ptr(), b_ssm.data_ptr(), c_ssm.data_ptr(),
+        a.data_ptr(), h0.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
+        ddt.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        da.data_ptr(), part_db.data_ptr(), part_dc.data_ptr(),
+        part_da.data_ptr(), bsz, s, d, n, int(low == torch.bfloat16), p.seg,
+        p.smem_bytes, dt.stride(0), dt.stride(1), x.stride(0), x.stride(1),
+        b_ssm.stride(0), b_ssm.stride(1), c_ssm.stride(0), c_ssm.stride(1),
+        dy.stride(0), dy.stride(1),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "pk_mamba_scan_bwd")
+    mamba_scan_bwd.launches += 1
+    return ddt, db, dc, dx, da
+
+
+def mamba_scan_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, *, chunk: int = 128):
+    """The scan's gradients given y's cotangent ``dy`` (B, S, D): (ddt f32,
+    db, dc, dx in x's dtype, da (D, N) f32) for the forward from h0 (B, D,
+    N) f32. The kernel on a CUDA tensor (or raises), the plain version on
+    a CPU one; ``chunk`` never changes the result."""
+    _check(dt, b_ssm, c_ssm, x, a, h0, None)
+    if h0.dim() != 3 or dy.shape != dt.shape:
+        raise ValueError(f"mamba_scan_bwd takes h0 (B, D, N) and dy like dt, "
+                         f"got {tuple(h0.shape)}, {tuple(dy.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    dev = dt.device.type
+    if dev == "cuda":
+        return _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, int(chunk))
+    if dev != "cpu":
+        raise ValueError(f"mamba_scan_bwd runs on cpu or cuda, not "
+                         f"{dt.device}")
+    return mamba_scan_bwd_plain(dt, b_ssm, c_ssm, x, a, h0, dy)
+
+
+mamba_scan_bwd.launches = 0

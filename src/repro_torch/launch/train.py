@@ -10,8 +10,9 @@ weight gather runs ``CommContext.all_gather`` over the data axis and every
 gradient reduction its reduce-scatter (the ring kernels with
 ``comm_backend="fused"``). The entry points run on ``cuda`` unless
 ``device`` names another device; with no GPU and no device they raise.
-Dense architectures only; the int8 gradient and wire formats are ROADMAP
-item 11.
+Every decoder family trains: dense, MoE, SSM and hybrid. An
+encoder-decoder is refused (no data pipeline feeds its frames, in JAX
+either); the int8 gradient and wire formats are ROADMAP item 11.
 """
 
 from __future__ import annotations
@@ -55,11 +56,6 @@ def build_and_train(arch: str, *, steps: int, reduced: bool, mesh_shape,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    if any(sp.mixer != "attn" or sp.mlp != "dense"
-           for sp in cfg.layer_pattern()):
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains dense decoders; MoE is ROADMAP "
-            "A9b and SSM/hybrid A10b")
     if cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the launcher's data pipeline feeds no enc_embeds "

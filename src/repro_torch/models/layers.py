@@ -20,7 +20,8 @@ serving logits and the chunked vocab-parallel loss (``lm_loss_island``),
 whose logits go through the GEMM kernel. With FSDP on a dp > 1 mesh
 every sharded weight is gathered before use (``core.template.fsdp_gather``):
 inside islands through their ``Gather`` declarations, and for the q/k/v
-projections where they are used (the gathers XLA inserts in JAX).
+projections and mamba's ``in_proj``/``out_proj`` where they are used
+(:func:`project`, :func:`row_project`: the gathers XLA inserts in JAX).
 Sequence-parallel training attention (``attention_block(seq_sharded=
 True)``) runs over the tp axis in ``sp_attention_island``: ring attention
 (``core/ring_attention.py``: the p2p kernel and flash hops) or, under
@@ -255,6 +256,21 @@ def project(x: torch.Tensor, w, n: int, rules: ShardingRules | None,
         if c is not None:
             w = tuple(c.unbind(0))
     return _col_proj(x, w)
+
+
+def row_project(x: torch.Tensor, w, rules: ShardingRules | None,
+                run: RunConfig) -> torch.Tensor:
+    """x (..., k) @ w (k, n), a row-sharded projection whose output dim is
+    FSDP-sharded (mamba's ``out_proj``): with FSDP on a dp > 1 mesh the
+    weight is first gathered, one copy per dp group, and each group's
+    batch slice of x is projected with its copy (one copy when the batch
+    is replicated over dp)."""
+    if rules is not None:
+        c = fsdp_gather(w, rules.w2d(x.shape[-1], w.shape[-1], tp_dim=0),
+                        rules, run, dim=1)
+        if c is not None:
+            return _col_proj(x, tuple(_row_weight(wg) for wg in c.unbind(0)))
+    return torch.matmul(x, _row_weight(w))
 
 
 def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
@@ -617,7 +633,13 @@ def moe_island(cfg: ArchConfig, run: RunConfig,
     (``core/moe.py``, replicated dispatch): one gating/capacity plan
     (``pk_moe.dispatch_plan``), the expert GEMMs of every virtual rank in
     one grouped-GEMM launch each, the combine a psum over tp. Returns
-    (out, aux) with out_specs (P(b), P(b))."""
+    (out, aux) with out_specs (P(b), P(b)). On a dp > 1 mesh it runs once
+    a dp group on the group's ``b_loc·s`` tokens (the plan's count, as in
+    JAX) with FSDP-gathered expert weights, and the groups' aux losses
+    are joined over dp, so ``moe_block``'s mean is JAX's mean of the dp
+    groups' values. It differentiates: routing, the capacity gather, the
+    weighted combine and the psum are autograd ops, the grouped GEMM has
+    its backward; with no mesh the dense oracle differentiates too."""
     check_moe_run(run)
     d = cfg.d_model
     gated = cfg.gated_mlp

@@ -1,12 +1,14 @@
 """Mamba-1 selective SSM block (falcon-mamba, jamba's mamba layers) — the
-twin of ``repro/models/ssm.py`` for serving.
+twin of ``repro/models/ssm.py``, for serving and training.
 
 Where the JAX model runs ``selective_scan_chunked`` (an XLA associative
 scan), the port runs the hand-written scan kernel
 (``kernels/mamba_scan.py``), which computes what the Pallas
 ``mamba_scan`` computes, and adds ``x·D`` after it as
-``selective_scan_chunked`` does. The causal conv, the projections and the
-gate are plain PyTorch.
+``selective_scan_chunked`` does. In training the scan is an autograd
+Function whose backward is the scan's hand-written backward kernel
+(``mamba_scan_bwd``). The causal conv, the projections and the gate are
+plain PyTorch.
 
 Weights sharded over tp are stored stacked per rank (``core/pgl.py``):
 ``in_proj`` (R, d, 2·di/R) and ``dt_proj`` (R, dtr, di/R) over their
@@ -17,14 +19,19 @@ and the per-channel leaves over di, whose rank slabs are contiguous row
 blocks, so their global view is a reshape (``layers._row_weight``) and
 the products
 that JAX sums over ranks (``x_proj``, ``out_proj``) are one product over
-the whole di. No global copy of a weight is made. Activations are global
+the whole di. No global copy of a weight is made. With FSDP on a dp > 1
+mesh ``in_proj`` (sharded over d) and ``out_proj`` (over its output d)
+are first gathered, one copy per dp group (``layers.project`` and
+``layers.row_project``: the gathers XLA inserts in JAX). Activations are global
 (B, S, di), channel r·di/R + j being rank r's channel j. The serving
 cache's state ``h`` is stacked (R, B, di/R, N) and goes to the kernel as
 it is; the conv tail (R, B, ck-1, di/R) is small and is reassembled
 (``pgl.assemble`` / ``pgl.layout``).
 
-Not ported: SSM training (ROADMAP A10b), with the bf16 scan dtype
-(``run.ssm_scan_dtype``) that only the training forward reads, and
+Not ported: the bf16 scan dtype (``run.ssm_scan_dtype="bfloat16"``, ROADMAP
+A10e), which only the forward without a cache reads — there JAX rounds
+the associative scan's terms to bf16 in XLA's tree order, which a
+sequential kernel cannot reproduce, so that forward raises — and
 sequence-parallel SSM in the model (A10d; its state ring,
 ``core/ring_attention.ssm_entry_states``, is ported, and no model calls
 it, in JAX either).
@@ -39,7 +46,8 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import pgl
 from repro_torch.core.pgl import P
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.models.layers import _col_proj, _row_weight
+from repro_torch.models.layers import (_col_proj, _row_weight, project,
+                                       row_project)
 from repro_torch.models.sharding import ShardingRules
 
 
@@ -62,9 +70,12 @@ def selective_scan_chunked(dt, b_ssm, c_ssm, x_conv, a, d_skip, h0, *,
     dt, x_conv: (B, S, di); b_ssm, c_ssm: (B, S, N); a: (di, N) f32;
     d_skip: (di,) f32; h0: (B, di, N) f32 or stacked (R, B, di/R, N).
     Returns (y (B, S, di) f32, h_last in h0's layout). The scan is the
-    kernel; ``chunk`` never changes its result."""
+    kernel; ``chunk`` never changes its result. The skip is added in place
+    unless autograd tracks y."""
     y, h_last = mamba_scan(dt, b_ssm, c_ssm, x_conv, a, h0, chunk=chunk,
                            h_out=h_out)
+    if y.requires_grad:
+        return torch.addcmul(y, x_conv, d_skip), h_last
     return y.addcmul_(x_conv, d_skip), h_last
 
 
@@ -114,12 +125,18 @@ def mamba_block(p, x, cfg: ArchConfig, run: RunConfig,
                 h_out: torch.Tensor | None = None):
     """Full mamba block: in_proj -> conv/SSM mix -> gate -> out_proj.
 
-    Without a cache (a whole sequence from a zero state) returns (out,
-    None). With ``cache = (h, conv)`` in the serving cache's layout
-    returns (out, (h_last, conv_tail)) in that layout; the new state is
-    written into ``h_out`` when one is given."""
+    Without a cache (a whole sequence from a zero state: training and
+    ``forward_prefill``) returns (out, None). With ``cache = (h, conv)``
+    in the serving cache's layout returns (out, (h_last, conv_tail)) in
+    that layout; the new state is written into ``h_out`` when one is
+    given."""
     di = cfg.d_inner
-    xz = _col_proj(x, p["in_proj"])
+    if cache is None and run.ssm_scan_dtype != "float32":
+        raise NotImplementedError(
+            f"ssm_scan_dtype={run.ssm_scan_dtype!r}: the bf16 scan terms of "
+            "JAX's associative scan are ROADMAP item A10e; the port scans "
+            "in float32")
+    xz = project(x, p["in_proj"], 2 * di, rules, run)
     x_ssm, z = xz.split(di, dim=-1)
     if cache is None:
         y = mamba_mix(p, x_ssm, cfg, chunk=run.ssm_chunk)
@@ -136,8 +153,7 @@ def mamba_block(p, x, cfg: ArchConfig, run: RunConfig,
             tail = pgl.layout(tail, spec, rules.mesh, rules.tp)
         new_cache = (h_last, tail)
     y = y * F.silu(z)
-    out = torch.matmul(y, _row_weight(p["out_proj"]))
-    return out, new_cache
+    return row_project(y, p["out_proj"], rules, run), new_cache
 
 
 def init_mamba_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,

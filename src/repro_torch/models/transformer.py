@@ -17,8 +17,9 @@ non-causal encoder (``enc_blocks``, ``enc_final_norm``) and a
 cross-attention sub-block in every decoder layer; it trains
 (``forward_train``), runs ``forward_prefill`` and decodes one token at a
 time over the encoder's K/V in ``cache["cross"]``
-(``decode_step_encdec``), as in JAX. Training or ``forward_prefill`` of
-MoE or SSM layers raises ``NotImplementedError``.
+(``decode_step_encdec``), as in JAX. Every family trains and runs
+``forward_prefill``: the block loop runs attention or mamba mixers and
+dense, MoE or no FFN, carrying the MoE aux loss, as JAX's does.
 """
 
 from __future__ import annotations
@@ -71,18 +72,6 @@ def set_path(tree: dict, path: tuple, value) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = value
-
-
-def _check_dense(cfg: ArchConfig) -> None:
-    """The training block loop runs attention and dense MLP layers only."""
-    if has_ssm(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM training is ROADMAP item A10b; the port serves "
-            "SSM and hybrid models")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training is ROADMAP item A9b; the port serves "
-            "MoE models")
 
 
 def has_ssm(cfg: ArchConfig) -> bool:
@@ -395,36 +384,60 @@ def _mlp_sub(m, x, cfg, run, rules):
                        rules)
 
 
-def _apply_block(bp, x, cfg: ArchConfig, run: RunConfig, rules, *,
-                 causal=True, enc_out=None, seq_sharded=False,
+def _mamba_sub(m, x, cfg, run, rules):
+    h, _ = S.mamba_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps), cfg,
+                         run, rules)
+    return h
+
+
+def _moe_sub(m, x, cfg, run, rules):
+    """(out, aux loss) of the MoE sub-block."""
+    return L.moe_block(m, L.rms_norm(m["norm"], x, cfg.norm_eps), cfg, run,
+                       rules)
+
+
+def _apply_block(bp, spec: LayerSpec, x, cfg: ArchConfig, run: RunConfig,
+                 rules, *, causal=True, enc_out=None, seq_sharded=False,
                  sub_remat=None):
-    """One dense layer, pre-norm residual (JAX ``_apply_block``): attention
-    (causal or, in the encoder, not), then — given the encoder's output
-    ``enc_out`` — cross-attention over it, then the MLP. With
-    ``seq_sharded`` the attention mix is ring or Ulysses attention over the
-    tp axis (``run.sp_attention``). ``sub_remat`` (default: ``run.remat``
-    and ``run.save_collectives``) checkpoints each sub-block on its own, so
-    its output survives to the backward while everything inside it is
-    recomputed (the JAX policy saving ``subblock_out``; JAX leaves the
-    cross sub-block's output unnamed and recomputes it, the port keeps it:
-    one (B, S, d) more a layer, the same numbers)."""
+    """One layer, pre-norm residual (JAX ``_apply_block``): the mixer —
+    attention (causal or, in the encoder, not) or the mamba block — then,
+    given the encoder's output ``enc_out``, cross-attention over it, then
+    the FFN (dense MLP, MoE or none). Returns (x, the MoE aux loss, 0
+    without one). With ``seq_sharded`` the attention mix is ring or Ulysses
+    attention over the tp axis (``run.sp_attention``). ``sub_remat``
+    (default: ``run.remat`` and ``run.save_collectives``) checkpoints each
+    sub-block on its own, so its output survives to the backward while
+    everything inside it is recomputed (the JAX policy saving
+    ``subblock_out``; JAX leaves the cross sub-block's output unnamed and
+    recomputes it, the port keeps it: one (B, S, d) more a layer, the same
+    numbers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if run.bf16_backward_ars:
         x = _BF16GradBarrier.apply(x)
     if sub_remat is None:
         sub_remat = run.remat and run.save_collectives
-    subs = [(functools.partial(_attn_sub, causal=causal,
-                               seq_sharded=seq_sharded), bp["attn"])]
+    if spec.mixer == "attn":
+        subs = [(functools.partial(_attn_sub, causal=causal,
+                                   seq_sharded=seq_sharded), bp["attn"])]
+    else:
+        subs = [(_mamba_sub, bp["mamba"])]
     if enc_out is not None and "cross" in bp:
         subs.append((functools.partial(_cross_sub, enc_out=enc_out),
                      bp["cross"]))
-    subs.append((_mlp_sub, bp["mlp"]))
+    if spec.mlp == "dense":
+        subs.append((_mlp_sub, bp["mlp"]))
+    elif spec.mlp == "moe":
+        subs.append((_moe_sub, bp["moe"]))
     for fn, sp in subs:
         if sub_remat:
             h = checkpoint(fn, sp, x, cfg, run, rules, use_reentrant=False)
         else:
             h = fn(sp, x, cfg, run, rules)
+        if isinstance(h, tuple):
+            h, a = h
+            aux = aux + a
         x = x + h
-    return x
+    return x, aux
 
 
 def _layers(blocks: list) -> list:
@@ -442,26 +455,29 @@ def _layer(views: dict, li: int) -> dict:
 
 def _scan_blocks(blocks, x, cfg: ArchConfig, run: RunConfig, rules, *,
                  causal=True, enc_out=None, seq_sharded=False):
-    """The layer periods in order (JAX ``lax.scan``). With ``run.remat``
-    and no ``save_collectives`` a whole period is checkpointed: only its
-    input is kept and everything else is recomputed in the backward (the
-    JAX policy ``None``)."""
+    """The layer periods in order (JAX ``lax.scan``), carrying the sum of
+    the MoE aux losses; returns (x, aux). With ``run.remat`` and no
+    ``save_collectives`` a whole period is checkpointed: only its input is
+    kept and everything else is recomputed in the backward (the JAX policy
+    ``None``)."""
     pattern = cfg.layer_pattern()
     layers = _layers([blocks[f"pos{i}"] for i in range(len(pattern))])
 
-    def period(x, li):
-        for views in layers:
-            x = _apply_block(_layer(views, li), x, cfg, run, rules,
-                             causal=causal, enc_out=enc_out,
-                             seq_sharded=seq_sharded)
-        return x
+    def period(x, aux, li):
+        for spec, views in zip(pattern, layers):
+            x, a = _apply_block(_layer(views, li), spec, x, cfg, run, rules,
+                                causal=causal, enc_out=enc_out,
+                                seq_sharded=seq_sharded)
+            aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.n_periods):
         if run.remat and not run.save_collectives:
-            x = checkpoint(period, x, li, use_reentrant=False)
+            x, aux = checkpoint(period, x, aux, li, use_reentrant=False)
         else:
-            x = period(x, li)
-    return x
+            x, aux = period(x, aux, li)
+    return x, aux
 
 
 def _scan_encoder(enc_blocks, x, cfg: ArchConfig, run: RunConfig, rules):
@@ -472,8 +488,9 @@ def _scan_encoder(enc_blocks, x, cfg: ArchConfig, run: RunConfig, rules):
     views, = _layers([enc_blocks])
 
     def layer(x, li):
-        return _apply_block(_layer(views, li), x, cfg, run, rules,
-                            causal=False, sub_remat=False)
+        return _apply_block(_layer(views, li), LayerSpec("attn", "dense"), x,
+                            cfg, run, rules, causal=False,
+                            sub_remat=False)[0]
 
     for li in range(cfg.n_encoder_layers):
         x = (checkpoint(layer, x, li, use_reentrant=False) if run.remat
@@ -502,36 +519,37 @@ def _merge_frontend(x_tok, frontend_embeds, cfg: ArchConfig):
 def _hidden_states(params, batch, cfg: ArchConfig, run: RunConfig, rules,
                    *, seq_sharded=False):
     """Embedding, frontend merge, the encoder where there is one, the
-    decoder blocks and the final norm: (B, S, d)."""
+    decoder blocks and the final norm: (B, S, d), and the blocks' summed
+    MoE aux loss."""
     x = L.embed_tokens(params, batch["tokens"], rules, run)
     x = _merge_frontend(x, batch.get("frontend_embeds"), cfg)
     enc_out = (encode(params, batch["enc_embeds"], cfg, run, rules)
                if cfg.encoder_decoder else None)
-    x = _scan_blocks(params["blocks"], x, cfg, run, rules, enc_out=enc_out,
-                     seq_sharded=seq_sharded)
-    return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x, aux = _scan_blocks(params["blocks"], x, cfg, run, rules,
+                          enc_out=enc_out, seq_sharded=seq_sharded)
+    return L.rms_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
                   rules: ShardingRules | None, *, seq_sharded=False):
     """Returns (loss, metrics). batch: tokens (B, S), targets (B, S),
     weights (B, S) [+ frontend_embeds (B, n, d) for vision configs |
-    enc_embeds (B, Se, d) for encoder-decoders]. Dense decoders and
-    encoder-decoders; the loss is the chunked vocab-parallel cross-entropy
-    (``layers.lm_loss``) and the aux loss is 0. ``seq_sharded``: every
-    decoder self-attention mix is ring or Ulysses attention
-    (``run.sp_attention``) over the tp axis (the SP island), as in JAX;
-    JAX's launcher never sets it, and neither does the port's."""
-    _check_dense(cfg)
+    enc_embeds (B, Se, d) for encoder-decoders]. Every family: dense, MoE,
+    SSM, hybrid and encoder-decoder. The loss is the chunked
+    vocab-parallel cross-entropy (``layers.lm_loss``); the total is loss +
+    0.01·aux, aux the MoE layers' summed load-balance loss (0 without
+    one). ``seq_sharded``: every decoder self-attention mix is ring or
+    Ulysses attention (``run.sp_attention``) over the tp axis (the SP
+    island), as in JAX; JAX's launcher never sets it, and neither does the
+    port's."""
     if "lm_head" not in params and rules is not None:
         raise NotImplementedError(
             "tied embeddings on a mesh: the port's head is stored untied")
-    x = _hidden_states(params, batch, cfg, run, rules,
-                       seq_sharded=seq_sharded)
+    x, aux = _hidden_states(params, batch, cfg, run, rules,
+                            seq_sharded=seq_sharded)
     head = params["lm_head"] if "lm_head" in params else _head(params)
     loss = L.lm_loss({"lm_head": head}, x, batch["targets"],
                      batch["weights"], cfg, run, rules, chunk=run.loss_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
@@ -540,10 +558,8 @@ def forward_prefill(params, batch, cfg: ArchConfig, run: RunConfig,
     """Prefill forward (JAX ``forward_prefill``): the training forward
     without the loss, returning the last position's logits (B, 1, V) f32
     through ``lm_logits``. batch: tokens (B, S) [+ frontend_embeds |
-    enc_embeds]. Dense decoders and encoder-decoders, as
-    ``forward_train``."""
-    _check_dense(cfg)
-    x = _hidden_states(params, batch, cfg, run, rules)
+    enc_embeds]. Every family, as ``forward_train``."""
+    x, _ = _hidden_states(params, batch, cfg, run, rules)
     return L.lm_logits({"lm_head": _head(params)}, x[:, -1:])
 
 

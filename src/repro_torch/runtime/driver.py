@@ -67,6 +67,7 @@ class TrainDriver:
                 m["step"] = step
                 self.metrics_log.append(m)
                 print(f"[driver] step {step}: loss {m['loss']:.4f} "
+                      f"aux_loss {m.get('aux_loss', 0.0):.4f} "
                       f"({t.dt * 1e3:.0f} ms)")
             if step % cfg.ckpt_every == 0:
                 self.ckpt.save(step, self.state, {"data_cursor": step})

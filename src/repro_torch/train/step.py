@@ -29,16 +29,19 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
     ``run.microbatches`` contiguous chunks; each chunk's gradient is
     accumulated in f32 (divided by the count), the loss likewise, and one
     optimizer update follows. With one microbatch the gradients keep the
-    parameters' dtype, as in JAX. (JAX's ``grad_transform`` hook serves the
-    int8 gradient compression, ROADMAP item 11.) metrics: loss, grad_norm
-    (f32 tensors) and step (int)."""
+    parameters' dtype, as in JAX. The loss differentiated and reported is
+    ``forward_train``'s total (cross-entropy + 0.01·aux), as in JAX. (JAX's
+    ``grad_transform`` hook serves the int8 gradient compression, ROADMAP
+    item 11.) metrics: loss, aux_loss (the MoE load-balance loss, averaged
+    over microbatches like the loss), grad_norm (f32 tensors) and step
+    (int)."""
 
     def grads_of(params, paths, mb):
         for _, p in paths:
             p.requires_grad_(True)
-        loss, _ = T.forward_train(params, mb, cfg, run, rules)
+        loss, metrics = T.forward_train(params, mb, cfg, run, rules)
         gs = torch.autograd.grad(loss, [p for _, p in paths])
-        return loss.detach(), gs
+        return loss.detach(), metrics["aux_loss"].detach(), gs
 
     def train_step(state: TrainState, batch):
         params = state.params
@@ -49,20 +52,22 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
                     for k, v in batch.items()} for i in range(nm)]
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for _, p in paths]
-            loss = 0.0
+            loss = aux = 0.0
             for mb in mbs:
-                l_mb, gs = grads_of(params, paths, mb)
+                l_mb, a_mb, gs = grads_of(params, paths, mb)
                 for a, g in zip(acc, gs):
                     a.add_(g.float() / nm)
                 loss = loss + l_mb / nm
+                aux = aux + a_mb / nm
             gs = acc
         else:
-            loss, gs = grads_of(params, paths, batch)
+            loss, aux, gs = grads_of(params, paths, batch)
         grads: dict = {}
         for (path, _), g in zip(paths, gs):
             T.set_path(grads, path, g)
         params, opt, gnorm = optimizer.update(grads, state.opt, params)
-        return TrainState(params, opt), {"loss": loss, "grad_norm": gnorm,
+        return TrainState(params, opt), {"loss": loss, "aux_loss": aux,
+                                         "grad_norm": gnorm,
                                          "step": opt.step}
 
     return train_step

@@ -16,8 +16,8 @@ gathered):
   mesh and the capacity dispatch on the mesh, in both packages.
 * one ``forward_train`` loss within 1e-5 and every gradient within 1e-5
   of ``jax.value_and_grad(forward_train)``; internvl2's batch carries its
-  ``frontend_embeds``. grok's training raises ``NotImplementedError``
-  naming ROADMAP A9b.
+  ``frontend_embeds``; grok's total carries its MoE aux loss, and its
+  router's and experts' gradients are among them.
 """
 
 import dataclasses
@@ -145,11 +145,6 @@ def test_forward_train_matches_jax(arch, mesh_shape):
             (B, t["cfg"].n_frontend_tokens, t["cfg"].d_model)).astype(
                 np.float32)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    if t["cfg"].is_moe:
-        with pytest.raises(NotImplementedError, match="A9b"):
-            T.forward_train(t["params"], tbatch, t["cfg"], t["run"],
-                            t["rules"])
-        return
     jl, jg = jax.jit(jax.value_and_grad(lambda p, bt: JT.forward_train(
         p, bt, j["cfg"], j["run"], j["rules"])[0]))(
             j["params"], {k: jnp.asarray(v) for k, v in batch.items()})

@@ -17,8 +17,9 @@ initialised by the JAX package and converted with
   distinct halves the port is held against JAX with no mesh. One
   ``make_train_step`` with 2 microbatches: loss and grad norm rtol 1e-5.
 * ``forward_prefill`` logits within 1e-4 for whisper and tinyllama (the
-  dense archs of JAX's ``test_prefill_smoke``), and its refusals for
-  moonshot (A9b) and falcon-mamba (A10b).
+  dense archs of JAX's ``test_prefill_smoke``), and for moonshot (MoE,
+  once ROADMAP A9b) and falcon-mamba (SSM, once A10b), JAX's other
+  ``test_prefill_smoke`` archs.
 * 4 chained ``decode_step_encdec`` steps, logits and self cache within
   1e-4, with no mesh, on (1, 2) and (1, 4), from one random cache (self
   and cross) made by the JAX package and converted.
@@ -273,9 +274,19 @@ def test_forward_prefill_matches_jax(arch, mesh_shape):
 @pytest.mark.parametrize("arch,item", [("moonshot-v1-16b-a3b", "A9b"),
                                        ("falcon-mamba-7b", "A10b")])
 def test_forward_prefill_refuses_moe_and_ssm(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        T.forward_prefill({}, {}, get_config(arch).reduced(),
-                          RunConfig(fsdp=False), None)
+    """The MoE and SSM prefill that ROADMAP ``item`` refused runs, and its
+    logits equal JAX's ``forward_prefill`` with no mesh."""
+    j, t = _both(None, arch)
+    batch = {"tokens": _batch(seed=4)["tokens"]}
+    want = jax.jit(partial(JT.forward_prefill, cfg=j["cfg"], run=j["run"],
+                           rules=None))(
+        j["params"], {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got = T.forward_prefill(t["params"], {k: torch.from_numpy(v)
+                                              for k, v in batch.items()},
+                                t["cfg"], t["run"], None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL_LOGITS, rtol=0, err_msg=item)
 
 
 def _jax_cache(j, batch, *, seed=5):

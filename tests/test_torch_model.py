@@ -218,16 +218,22 @@ def test_decode_island_matches_jax():
 def test_dense_only_and_data_axis_raise():
     _, tcfg = _cfgs()
     run = RunConfig(fsdp=False)
-    # MoE models serve (tests/test_torch_moe_model.py); training them is
-    # ROADMAP A9b
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.forward_train({}, {}, get_config("moonshot-v1-16b-a3b").reduced(),
-                        run, None)
-    # SSM models serve (tests/test_torch_ssm_model.py); training them is
-    # ROADMAP A10b
-    with pytest.raises(NotImplementedError, match="A10b"):
-        T.forward_train({}, {}, get_config("falcon-mamba-7b").reduced(),
-                        run, None)
+    # MoE and SSM models train (ROADMAP A9b, A10b; held against JAX in
+    # tests/test_torch_moe_train.py and tests/test_torch_ssm_train.py): a
+    # finite loss from random parameters, the aux loss only where there
+    # are experts
+    rng = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, 256, (2, 8), generator=rng),
+             "targets": torch.randint(0, 256, (2, 8), generator=rng),
+             "weights": torch.ones(2, 8)}
+    for arch in ("moonshot-v1-16b-a3b", "falcon-mamba-7b"):
+        cfg = get_config(arch).reduced()
+        params = T.init_params(T.param_template(cfg, run, None),
+                               torch.Generator().manual_seed(0),
+                               cfg.d_model, device="cpu")
+        total, m = T.forward_train(params, batch, cfg, run, None)
+        assert torch.isfinite(total)
+        assert (float(m["aux_loss"]) > 0) == cfg.is_moe
     # data axes larger than 1 run (below); what still raises on them: a
     # dim sharded over dp and tp at once, and per-rank (serving) outputs
     mesh = VirtualMesh((2, 2), ("data", "model"))

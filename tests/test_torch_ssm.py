@@ -327,7 +327,7 @@ def test_causal_conv_and_init_cache_match_jax():
 def test_bf16_scan_dtype_is_training_only():
     """The serving path (a block with a cache) does not read the bf16 scan
     dtype, as in JAX: the block still equals JAX's under that run option.
-    The training forward, which would read it, raises naming A10b."""
+    The forward without a cache, which reads it, raises naming A10e."""
     from repro_torch.models import transformer as T
     jcfg, jp, tcfg, tp, _ = _layer(None)
     b, s, d = 2, 4, tcfg.d_model
@@ -344,5 +344,13 @@ def test_bf16_scan_dtype_is_training_only():
                                cache=tuple(map(torch.from_numpy, cache)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        T.forward_train({}, {}, tcfg, run, None)
+    with pytest.raises(NotImplementedError, match="A10e"):
+        S.mamba_block(tp, torch.from_numpy(x), tcfg, run, None)
+    params = T.init_params(T.param_template(tcfg, run, None),
+                           torch.Generator().manual_seed(0), tcfg.d_model,
+                           device="cpu")
+    batch = {"tokens": torch.zeros(b, s, dtype=torch.long),
+             "targets": torch.zeros(b, s, dtype=torch.long),
+             "weights": torch.ones(b, s)}
+    with pytest.raises(NotImplementedError, match="A10e"):
+        T.forward_train(params, batch, tcfg, run, None)

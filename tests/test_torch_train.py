@@ -338,7 +338,8 @@ def test_training_plans_and_options_that_raise(capsys, tmp_path):
                         (dict(comm_wire="int8"), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             launch.build_and_train("tinyllama-1.1b", **kw, **extra)
-    for arch, item in (("moonshot-v1-16b-a3b", "A9b"),
-                       ("falcon-mamba-7b", "A10b")):
-        with pytest.raises(NotImplementedError, match=item):
-            launch.build_and_train(arch, **kw)
+    # MoE and SSM archs train (once ROADMAP A9b and A10b)
+    for arch in ("moonshot-v1-16b-a3b", "falcon-mamba-7b"):
+        _, log = launch.build_and_train(
+            arch, **dict(kw, ckpt_dir=str(tmp_path / arch)))
+        assert np.isfinite(log[-1]["loss"])

@@ -25,8 +25,8 @@ Phases (any failure exits non-zero before the last line is printed):
    steps chained —, the scan's backward (B10-bwd, no Pallas counterpart)
    at falcon's training shapes (4, 512) and (2, 512) and the prefill
    shape (4, 405) x 8192 against its plain reverse recurrence, every
-   output within 1e-3, bit-identical for chunk 64, 128 and 256 and a
-   second call (details in ``check_mamba_scan_bwd``), the ring all-gather and reduce-scatter at every FSDP
+   output within 1e-3, bit-identical for segments of 1, 3 and 8 steps
+   and a second call (details in ``check_mamba_scan_bwd``), the ring all-gather and reduce-scatter at every FSDP
    shard shape of the (2, 4) training run and
    at 4 and 8 ranks, each for 1-4 chunks, whose results must be
    bit-identical, to their plain versions and to the kernels they ran on
@@ -1656,7 +1656,9 @@ def check_mamba_scan_bwd(dev, record, compare) -> dict:
     against ``mamba_scan_bwd_plain`` (the sequential f32 reverse
     recurrence) on the card: every output's relative Frobenius error <=
     1e-3 (ddt and da f32; dx, db, dc rounded once to bf16 on both sides).
-    Then the same bits for chunk 64, 128 and 256 and on a second call.
+    Then the same bits for segments of 1, 3 and 8 steps (8 is the path's;
+    3 divides neither 512 nor 405, 8 not 405: ragged last segments) and on
+    a second call.
     Bound: bytes (dt, x, dy read, ddt, dx written over (B, S, D); b, c
     read and db, dc written over (B, S, N); a read, da written) over 3.35
     TB/s, or 18 f32 operations per (b, t, d, n) — the forward step that
@@ -1710,13 +1712,16 @@ def check_mamba_scan_bwd(dev, record, compare) -> dict:
         if not all(v[0] <= TOL_F32_OUT for v in errs.values()):
             raise AssertionError(f"mamba_scan_bwd {shape} disagrees with "
                                  f"its plain version: {errs}")
-        for chunk in (64, 128, 256):
-            again = MS.mamba_scan_bwd(*args, chunk=chunk)
+        for seg in (1, 3, MS.BWD_SEG_MAX, None):
+            again = (MS.mamba_scan_bwd(*args) if seg is None
+                     else MS._launch_bwd(*args, seg=seg))
             if not all(torch.equal(p, q) for p, q in zip(again, got)):
-                raise AssertionError(f"mamba_scan_bwd {shape}: chunk {chunk}"
-                                     " or a second call changed the bits")
-        print(f"[kernel] mamba_scan_bwd {shape}: bit-identical for chunk "
-              f"64, 128, 256 and a second call", flush=True)
+                raise AssertionError(f"mamba_scan_bwd {shape}: segments of "
+                                     f"{seg or 'the plan'} steps changed the "
+                                     "bits")
+        print(f"[kernel] mamba_scan_bwd {shape}: bit-identical for segments "
+              f"of 1, 3 and {MS.BWD_SEG_MAX} steps and a second call",
+              flush=True)
         worst = (max(v[0] for v in errs.values()),
                  max(v[1] for v in errs.values()))
         entries[key] = record(
@@ -3115,72 +3120,35 @@ def serve_encdec(dev, batch: int = 8, enc_len: int = 1500, s_max: int = 448,
     return launches
 
 
-def train_encdec(dev, steps: int = 3, batch: int = 8, seq: int = 448,
-                 enc_len: int = 1500, mb: int = 2) -> dict:
+def train_encdec(dev, batch: int = 8, seq: int = 448,
+                 enc_len: int = 1500) -> dict:
     """Phase 5i: whisper-medium at full width and depth on a (2, 4)
     virtual mesh (data 2 x model 4) with FSDP, every collective on the
     kernels (``comm_backend="fused"``), remat, AdamW through
-    ``make_train_step``: batch 8 x 448 decoder tokens with their
-    ``enc_embeds`` (8, 1500, 1024), 2 microbatches, 3 steps. Every loss
-    finite; the ring all-gather (each FSDP weight gather, the encoder's and
-    the cross-attention's among them), the ring reduce-scatter (each FSDP
-    gradient), GEMM+AR, flash (encoder, decoder, cross) and the GEMM must
-    each launch, the GEMM exactly once a dp group, microbatch and step
-    (the loss, stacked, one 448-token chunk)."""
+    ``make_train_step`` (``train_family``): batch 8 x 448 decoder tokens
+    with their ``enc_embeds`` (8, 1500, 1024), 2 microbatches, 3 steps.
+    Every loss finite; the ring all-gather (each FSDP weight gather, the
+    encoder's and the cross-attention's among them), the ring
+    reduce-scatter (each FSDP gradient), GEMM+AR, flash (encoder, decoder,
+    cross) and the GEMM must each launch, the GEMM exactly once a dp group,
+    microbatch and step (the loss, stacked, one 448-token chunk)."""
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.optim.adamw import AdamW
-    from repro_torch.train.step import TrainState, make_train_step
 
-    run = RunConfig(fsdp=True, comm_backend="fused", microbatches=mb)
-    cfg, rules, params, gen = encdec_model(dev, run, (2, 4), seed=1)
-    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=1),
-                       device=dev)
-    opt = AdamW(lr=1e-4, weight_decay=0.01)
-    step = make_train_step(cfg, run, rules, opt)
-    counters = {k: fn for k, fn in _counters().items()
-                if k in ("matmul", "flash_attention", "pk_matmul_ar",
-                         "pk_all_gather", "pk_reduce_scatter")}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    state = TrainState(params, opt.init(params))
-    del params
-    for fn in counters.values():
-        fn.launches = 0
-    losses, times = [], []
-    for i in range(steps):
-        b = data.batch(i)
-        b["enc_embeds"] = torch.randn((batch, enc_len, cfg.d_model),
-                                      generator=gen, device=dev).to(
-                                          torch.bfloat16)
-        t0 = time.perf_counter()
-        state, m = step(state, b)
-        losses.append(float(m["loss"]))
-        times.append(time.perf_counter() - t0)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
-    print(f"[train-encdec] {cfg.name} full width and depth, mesh (2, 4) "
-          f"FSDP, comm_backend=fused, remat, batch {batch} x {seq} decoder "
-          f"tokens + {enc_len} frames, microbatches {mb}: losses "
-          f"{[round(x, 4) for x in losses]}; step wall times (host clock, "
-          f"each ends in a device->host read) {[round(t, 4) for t in times]}"
-          f" s; max_memory_allocated {peak} B", flush=True)
-    print(f"[train-encdec] launches over {steps} steps {launches}; per step "
-          f"{ {k: v / steps for k, v in launches.items()} }", flush=True)
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError(f"whisper training losses not all finite: "
-                             f"{losses}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"whisper training launched no {name} "
-                                 "kernel")
-    want = steps * 2 * mb * max(1, seq // 512)
-    if launches["matmul"] != want:
-        raise AssertionError(f"whisper training launched matmul "
-                             f"{launches['matmul']} times, not {want}")
-    del state
+    cfg = get_config(ENCDEC_ARCH)
+
+    def frames(gen):
+        return {"enc_embeds": torch.randn(
+            (batch, enc_len, cfg.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)}
+
+    launches, _ = train_family(
+        dev, "train-encdec", cfg,
+        RunConfig(fsdp=True, comm_backend="fused", microbatches=2),
+        names=("matmul", "flash_attention", "pk_matmul_ar", "pk_all_gather",
+               "pk_reduce_scatter"), batch=batch, seq=seq, extra=frames)
     return launches
 
 
@@ -3304,17 +3272,20 @@ FAMILY_TOL_GRAD = 3e-2
 
 
 def train_family(dev, tag: str, cfg, run, *, names, steps: int = 3,
-                 batch: int = 8, seq: int = 512, seed: int = 1) -> dict:
+                 batch: int = 8, seq: int = 512, seed: int = 1,
+                 extra=None) -> dict:
     """A full-width training run of ``cfg`` on a (2, 4) virtual mesh (data
     2 x model 4) with FSDP, through ``make_train_step`` with AdamW: random
     parameters from ``seed``, ``steps`` steps of ``batch`` x ``seq``
-    synthetic tokens in ``run.microbatches`` microbatches. Prints the
+    synthetic tokens in ``run.microbatches`` microbatches, each batch
+    joined by ``extra(generator)``'s inputs where one is given. Prints the
     losses (the total, which is differentiated, and the MoE aux loss), the
     step wall times (host clock, each ending in the loss's device->host
     read), the peak ``max_memory_allocated`` and the launches a step of the
     kernels ``names``; fails unless every loss is finite, every kernel
     launched and the GEMM exactly once a dp group, microbatch and step (the
-    loss, stacked, one 512-token chunk). Returns the launches over the run
+    loss, stacked, one chunk of at most ``run.loss_chunk`` tokens). Returns
+    the launches over the run
     and the run's numbers."""
     import torch
 
@@ -3345,8 +3316,11 @@ def train_family(dev, tag: str, cfg, run, *, names, steps: int = 3,
         fn.launches = 0
     losses, auxes, times = [], [], []
     for i in range(steps):
+        b = data.batch(i)
+        if extra is not None:
+            b.update(extra(gen))
         t0 = time.perf_counter()
-        state, m = step(state, data.batch(i))
+        state, m = step(state, b)
         losses.append(float(m["loss"]))
         auxes.append(float(m["aux_loss"]))
         times.append(time.perf_counter() - t0)
@@ -3520,7 +3494,10 @@ def check_family_reference(dev, seq: int = 64) -> None:
     widened) and batch: the loss (the total, loss + 0.01 aux) within
     relative ``FAMILY_TOL_LOSS`` and each group's gradient, as one vector,
     within ``FAMILY_TOL_GRAD`` relative Frobenius error — moonshot's
-    router, experts and the rest; falcon's mamba leaves and the rest. No
+    router, experts and the rest; falcon's scan leaves (``A_log``, ``D``,
+    ``dt_bias``: small beside the projections, so a wrong da or ddt from
+    the backward kernel would hardly move the mamba group), the other mamba
+    leaves and the rest. No
     remat (the forward runs once). Routing is discontinuous (bf16 against
     f32 moves 4-15% of the decisions a layer, phase 4d), so the f32 path
     replays the card's routing — each top-k returns the card's indices,
@@ -3557,7 +3534,9 @@ def check_family_reference(dev, seq: int = 64) -> None:
     for arch, group in ((MOE_ARCH, lambda p: (
             "router" if p[-1] == "router" else "experts"
             if "moe" in p and p[-1] in ("w1", "w2", "w3") else "rest")),
-            (SSM_ARCH, lambda p: "mamba" if "mamba" in p else "rest")):
+            (SSM_ARCH, lambda p: (
+                "scan" if p[-1] in ("A_log", "D", "dt_bias") else "mamba"
+                if "mamba" in p else "rest"))):
         cfg = dataclasses.replace(get_config(arch), n_layers=2)
         run = RunConfig(fsdp=True, comm_backend="fused", remat=False,
                         pk_attn_out_island=True)
@@ -3616,7 +3595,7 @@ def check_family_reference(dev, seq: int = 64) -> None:
               f"{', '.join(f'{k} {v:.3e}' for k, v in part_errs.items())} "
               f"(tol {FAMILY_TOL_GRAD:g})", flush=True)
         groups = ({"router", "experts", "rest"} if arch == MOE_ARCH
-                  else {"mamba", "rest"})
+                  else {"scan", "mamba", "rest"})
         if not (loss_err <= FAMILY_TOL_LOSS and set(part_errs) == groups
                 and all(e <= FAMILY_TOL_GRAD for e in part_errs.values())):
             raise AssertionError(f"{arch} training step disagrees with the "

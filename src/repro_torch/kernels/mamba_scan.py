@@ -66,7 +66,7 @@ exp(dt_{t+1}·a)·g_{t+1} the reverse recurrence over the states, it
 returns dx, ddt, db, dc and da (sums over n, over d and over (b, t)). A
 lane holds K = min(4, N) states of one channel, as in the forward, and a
 block of 256 lanes covers 256·K/N channels of one batch row. The sequence
-runs in segments of min(chunk, 8) steps (``scan_bwd_plan``), each staged
+runs in segments of min(S, 8) steps (``scan_bwd_plan``), each staged
 in shared memory (dt, x, dy over the block's channels, b and c), widened
 to f32, by coalesced loads. The block first runs the forward from h0 and
 stores the state at every segment's start, then re-runs each segment
@@ -76,7 +76,8 @@ there too; after the walk the block sums db and dc over its channels,
 one (step, state) a thread. Sums over d go through one partial a block,
 over (b, t) through one partial a batch row, summed in index order by a
 second kernel: no float atomics, so the gradient is the same bits run to
-run and for every ``chunk``. Training
+run and for every segment length (``_launch_bwd``'s ``seg`` lets a test
+shorten them). Training
 starts from h0 = 0 and never reads ``h_last``: the Function refuses an h0
 that requires a gradient and a ``h_last`` cotangent that is not zero.
 """
@@ -291,7 +292,6 @@ class _ScanFn(torch.autograd.Function):
     def forward(ctx, dt, b_ssm, c_ssm, x, a, h0, chunk):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(dt, b_ssm, c_ssm, x, a, h0)
-        ctx.chunk = chunk
         return _scan(dt, b_ssm, c_ssm, x, a, h0, chunk, None)
 
     @staticmethod
@@ -303,8 +303,7 @@ class _ScanFn(torch.autograd.Function):
         dt, b_ssm, c_ssm, x, a, h0 = ctx.saved_tensors
         if dy is None:
             return (None,) * 7
-        return (*mamba_scan_bwd(dt, b_ssm, c_ssm, x, a, h0, dy,
-                                chunk=ctx.chunk), None, None)
+        return (*mamba_scan_bwd(dt, b_ssm, c_ssm, x, a, h0, dy), None, None)
 
 
 def mamba_scan(dt, b_ssm, c_ssm, x, a, h0, *, chunk: int = 128,
@@ -358,18 +357,25 @@ class ScanBwdPlan:
     smem_bytes: int     # the .cu's sb_smem_floats, which the launch checks
 
 
-def scan_bwd_plan(b: int, s: int, d: int, n: int, *,
-                  chunk: int = 128) -> ScanBwdPlan:
+def scan_bwd_plan(b: int, s: int, d: int, n: int) -> ScanBwdPlan:
     """The backward kernel's launch for a scan of (B, S, D), N states (a
-    power of two <= 32): segments of min(chunk, S, 8) steps, K = min(4, N)
+    power of two <= 32): segments of min(S, 8) steps, K = min(4, N)
     states a lane, 256·K/N channels a block. Shared memory: a segment's
     h_{t-1} and last h and its g (rows of 256·K states, padded), the
     staged dt, x, dy and the dx, ddt rows (a segment's steps x the
     channels), the staged b and c."""
+    return _bwd_plan(b, s, d, n, min(s, BWD_SEG_MAX))
+
+
+def _bwd_plan(b: int, s: int, d: int, n: int, seg: int) -> ScanBwdPlan:
+    """``scan_bwd_plan`` with segments of ``seg`` steps, 1 <= seg <=
+    min(S, 8): tests reach short and ragged segments through it."""
+    if not 1 <= seg <= min(s, BWD_SEG_MAX):
+        raise ValueError(f"a segment takes 1 to min(S, {BWD_SEG_MAX}) = "
+                         f"{min(s, BWD_SEG_MAX)} steps, got {seg}")
     if n < 1 or n > 32 or n & (n - 1):
         raise ValueError(f"the CUDA mamba_scan backward needs N a power of "
                          f"two <= 32, got N = {n}")
-    seg = max(1, min(int(chunk), s, BWD_SEG_MAX))
     k = min(4, n)
     ch = BWD_THREADS // (n // k)
     nblk = -(-d // ch)
@@ -414,8 +420,9 @@ def mamba_scan_bwd_plain(dt, b_ssm, c_ssm, x, a, h0, dy):
     return ddt, db.to(low), dc.to(low), dx.to(low), da
 
 
-def _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, chunk):
-    """Check and launch the backward at ``scan_bwd_plan``'s launch."""
+def _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, seg: int | None = None):
+    """Check and launch the backward at ``scan_bwd_plan``'s launch, or
+    with segments of ``seg`` steps where a test gives one."""
     bsz, s, d = dt.shape
     n = a.shape[-1]
     low = x.dtype
@@ -432,7 +439,8 @@ def _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, chunk):
                              f"with a contiguous last dim, got strides "
                              f"{t.stride()}")
     a, h0 = a.float().contiguous(), h0.float().contiguous()
-    p = scan_bwd_plan(bsz, s, d, n, chunk=chunk)
+    p = (scan_bwd_plan(bsz, s, d, n) if seg is None
+         else _bwd_plan(bsz, s, d, n, seg))
     dev = dt.device
     f32 = dict(dtype=torch.float32, device=dev)
     ckpt = torch.empty((bsz, p.nseg, d, n), **f32)
@@ -459,20 +467,18 @@ def _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, chunk):
     return ddt, db, dc, dx, da
 
 
-def mamba_scan_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, *, chunk: int = 128):
+def mamba_scan_bwd(dt, b_ssm, c_ssm, x, a, h0, dy):
     """The scan's gradients given y's cotangent ``dy`` (B, S, D): (ddt f32,
     db, dc, dx in x's dtype, da (D, N) f32) for the forward from h0 (B, D,
     N) f32. The kernel on a CUDA tensor (or raises), the plain version on
-    a CPU one; ``chunk`` never changes the result."""
+    a CPU one."""
     _check(dt, b_ssm, c_ssm, x, a, h0, None)
     if h0.dim() != 3 or dy.shape != dt.shape:
         raise ValueError(f"mamba_scan_bwd takes h0 (B, D, N) and dy like dt, "
                          f"got {tuple(h0.shape)}, {tuple(dy.shape)}")
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
     dev = dt.device.type
     if dev == "cuda":
-        return _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy, int(chunk))
+        return _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy)
     if dev != "cpu":
         raise ValueError(f"mamba_scan_bwd runs on cpu or cuda, not "
                          f"{dt.device}")

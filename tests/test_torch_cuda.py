@@ -611,7 +611,8 @@ def test_mamba_scan_bwd_kernel(cuda, b, s, d, n, bf16):
     """The scan's backward kernel against the plain reverse recurrence
     (relative Frobenius error <= 1e-3 for the f32 ddt and da; dx, db, dc
     rounded once to x's dtype, <= 1e-2 in bf16), one count a call, and
-    the same bits for chunk 1, 7 and 256 and on a second call."""
+    the same bits for segments of 1, 3 and 8 steps (the path's) and on a
+    second call."""
     from repro_torch.kernels import mamba_scan as MS
     dt, bm, cm, x, a, h0 = _scan_inputs(cuda, b, s, d, n, bf16=bf16)
     h0 = torch.zeros_like(h0)
@@ -625,9 +626,11 @@ def test_mamba_scan_bwd_kernel(cuda, b, s, d, n, bf16):
         assert gv.dtype == wv.dtype and gv.shape == wv.shape, name
         tol = 1e-3 if gv.dtype == torch.float32 else 1e-2
         assert _rel(gv, wv) <= tol, name
-    for chunk in (1, 7, 256, 128):
-        again = MS.mamba_scan_bwd(dt, bm, cm, x, a, h0, dy, chunk=chunk)
-        assert all(torch.equal(p, q) for p, q in zip(again, got)), chunk
+    for seg in (1, 3, MS.BWD_SEG_MAX):
+        again = MS._launch_bwd(dt, bm, cm, x, a, h0, dy, seg=seg)
+        assert all(torch.equal(p, q) for p, q in zip(again, got)), seg
+    again = MS.mamba_scan_bwd(dt, bm, cm, x, a, h0, dy)
+    assert all(torch.equal(p, q) for p, q in zip(again, got))
 
 
 def test_mamba_scan_autograd_launches_the_backward_kernel(cuda):

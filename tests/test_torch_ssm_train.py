@@ -136,18 +136,26 @@ def test_scan_function_refuses_state_gradients():
     assert dt.grad is not None and torch.isfinite(dt.grad).all()
 
 
-@pytest.mark.parametrize("b,s,d,n,chunk", [(2, 512, 8192, 16, 256),
-                                           (4, 405, 8192, 16, 256),
-                                           (4, 32, 128, 8, 256),
-                                           (1, 7, 200, 32, 3)])
-def test_scan_bwd_plan_at_the_path_shapes(b, s, d, n, chunk):
-    """Segments cover every step once, channel tiles every channel (K =
-    min(4, N) states a lane, a channel's N / K lanes, 256 lanes a block),
-    and a block's shared memory (a segment's h and g for 256 lanes, the
-    staged inputs and output rows) stays within a block's limit, for
-    two blocks an SM at the path's N = 16."""
-    p = MS.scan_bwd_plan(b, s, d, n, chunk=chunk)
-    assert 1 <= p.seg <= min(MS.BWD_SEG_MAX, s, chunk)
+@pytest.mark.parametrize("b,s,d,n,seg", [(2, 512, 8192, 16, None),
+                                         (4, 405, 8192, 16, None),
+                                         (4, 32, 128, 8, None),
+                                         (1, 7, 200, 32, 3)])
+def test_scan_bwd_plan_at_the_path_shapes(b, s, d, n, seg):
+    """Segments of min(S, 8) steps (or the ``seg`` a test gives) cover
+    every step once, channel tiles every channel (K = min(4, N) states a
+    lane, a channel's N / K lanes, 256 lanes a block), and a block's shared
+    memory (a segment's h and g for 256 lanes, the staged inputs and output
+    rows) stays within a block's limit, for two blocks an SM at the path's
+    N = 16."""
+    if seg is None:
+        p = MS.scan_bwd_plan(b, s, d, n)
+        assert p.seg == min(MS.BWD_SEG_MAX, s)
+    else:
+        p = MS._bwd_plan(b, s, d, n, seg)
+        assert p.seg == seg
+        for bad in (0, min(MS.BWD_SEG_MAX, s) + 1):
+            with pytest.raises(ValueError, match="segment"):
+                MS._bwd_plan(b, s, d, n, bad)
     assert (p.nseg - 1) * p.seg < s <= p.nseg * p.seg
     assert p.k_states == min(4, n)
     assert p.channels * (n // p.k_states) == MS.BWD_THREADS

@@ -208,6 +208,21 @@ Phases (any failure exits non-zero before the last line is printed):
    otherwise, the sequence-sharded output gathered to every rank by the
    LCSC all-gather; then the paper's Fig. 7/8 sweep, fused and bulk
    device times (details in ``tp_gemm``);
+5o. paged serving: the engine serves phase 4's trace plus 4 requests that
+   share a prefix with it (``paged_trace``) with tinyllama-1.1b at full
+   width and depth on (1, 4), phase 4's settings with
+   ``cache_layout="paged"``, pages of 16 tokens and prefill chunks of 128;
+   every request completes with finite logits, a prefix hit and a copied
+   boundary page, a decode step between two chunks of one job, B1 once a
+   step and B4 launched; then the same trace with a pool of a quarter of
+   the slab's bytes: admission blocked, every request done; the greedy
+   tokens' agreement with phase 4's slab run printed, not gated (details
+   in ``serve_paged``);
+5p. the same model cut to 4 layers: paged serving on (2, 4), slab serving
+   with head-sharded caches on (1, 4) (B7 launched at prefill), and a
+   2-layer paged prefill group and 4 decode ticks against the port's plain
+   f32 path on the CPU — each step's logits within 3e-2 relative (details
+   in ``serve_paged_cut``);
 6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
    the tinyllama serving run's count for the serving kernels, the MoE
    serving run's for the grouped GEMM, the SSM serving run's for the
@@ -215,8 +230,9 @@ Phases (any failure exits non-zero before the last line is printed):
    sequence-parallel run's for the p2p shift and the flash hop, the
    Ulysses run's for the all-to-all, the TP GEMM pair's for AG×GEMM,
    GEMM×RS and the LCSC all-gather, the SSM training run's for the scan's
-   backward; ``launches_by_path`` has all thirteen paths, 5g's a2a MoE,
-   the whisper runs 5h and 5i and the training runs 5k-5m among them), then
+   backward; ``launches_by_path`` has all sixteen paths, 5g's a2a MoE,
+   the whisper runs 5h and 5i, the training runs 5k-5m and the paged and
+   head-sharded serving runs 5o and 5p among them), then
    GEMM+AR's cold decode row, whose counts are GEMM+AR's whole-path
    counts (prefill and decode together, the counter named by
    ``launches_counter``), not its own, the all-gather's path-form row,
@@ -1875,7 +1891,8 @@ def check_logits_launches(tag: str, launches: dict, st: dict) -> None:
 
 
 def serve(dev) -> dict:
-    """Phase 4: the port's main path, with launch counts around it."""
+    """Phase 4: the port's main path, with launch counts around it.
+    Returns (launches, each request's greedy tokens)."""
     import torch
 
     from repro_torch.configs.base import ServeConfig
@@ -1947,7 +1964,7 @@ def serve(dev) -> dict:
           f"fused-bulk {float((lf - lb).abs().max()):.4e}, ring-bulk "
           f"{float((lr - lb).abs().max()):.4e} (scale "
           f"{float(lb.abs().max()):.3e})", flush=True)
-    return launches
+    return launches, {c.rid: c.tokens for c in done}
 
 
 def check_reference(dev) -> None:
@@ -2312,7 +2329,8 @@ def serve_ssm(dev) -> dict:
           f"({st['tokens_per_s']:.1f} tok/s); {st['prefill_steps']} prefill "
           f"+ {st['decode_steps']} decode steps; max_memory_allocated="
           f"{torch.cuda.max_memory_allocated(dev)} B ({at_start} B allocated "
-          f"at the run's start); state cache {st['cache']['hbm_bytes']} B; "
+          f"at the run's start); state cache "
+          f"{sum(t.nbytes for _, t in leaves(eng.cache))} B; "
           f"launches {launches}", flush=True)
     # every request completes (the engine raises on non-finite logits)
     if len(done) != len(trace) or any(
@@ -3751,6 +3769,304 @@ def tp_gemm(dev, sweep=(4096, 8192, 16384)) -> dict:
     return launches
 
 
+#: phase 5o's serving settings: phase 4's, with the paged cache
+PAGED_SERVE = dict(max_batch=8, prefill_batch=4, bucket_edges=(128, 512),
+                   max_new_tokens=32, cache_layout="paged", page_size=16,
+                   prefill_chunk=128)
+PAGED_CUT_LAYERS = 4        # phase 5p: of tinyllama-1.1b's 22
+
+
+def paged_trace(vocab: int) -> list:
+    """Phase 4's 8 requests, then 4 that share a prefix with the first 4
+    of them that have 40 tokens or more: each fork keeps 3/4 of its donor
+    (one less where that is a whole number of 16-token pages, so that the
+    boundary page is copied on write), changes the next token and adds 8
+    seeded ones."""
+    import random
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch.serve import synthetic_trace
+
+    slab = {k: v for k, v in PAGED_SERVE.items()
+            if k not in ("cache_layout", "page_size", "prefill_chunk")}
+    trace = synthetic_trace(8, ServeConfig(**slab), vocab, seed=0)
+    rng = random.Random(5)
+    forks = []
+    for donor in [p for p in trace if len(p) >= 40][:4]:
+        k = len(donor) * 3 // 4
+        if k % 16 == 0:
+            k -= 1
+        forks.append(donor[:k] + ((donor[k] + 1) % vocab,)
+                     + tuple(rng.randrange(vocab) for _ in range(8)))
+    return trace + forks
+
+
+def _chunk_gaps(eng) -> list:
+    """Per prefill job, the step kinds between its consecutive chunks."""
+    jobs: dict = {}
+    for e in eng.events:
+        if e[0] == "prefill_chunk":
+            jobs.setdefault(e[2], []).append(e[1])
+    return [[eng.step_kinds[s] for s in range(a + 1, b)]
+            for steps in jobs.values() for a, b in zip(steps, steps[1:])]
+
+
+def _serve_run(tag: str, eng, trace, dev, counters) -> dict:
+    """Run ``trace`` through ``eng`` with launch counts around it; print
+    the step times, tokens/s and peak memory; gate completion. Returns the
+    launches."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    done = eng.run(trace)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    st = eng.stats()
+    step_ms = {kind: 1e3 * statistics.median(
+        t for k, t in zip(eng.step_kinds, eng.step_times) if k == kind)
+        for kind in ("prefill", "decode")}
+    print(f"[{tag}] median step wall time (host clock, each step ends in a "
+          f"device->host copy): prefill {step_ms['prefill']:.2f} ms, decode "
+          f"{step_ms['decode']:.2f} ms; {len(done)}/{len(trace)} requests, "
+          f"{st['tokens_generated']} tokens in {st['wall_s']:.3f}s "
+          f"({st['tokens_per_s']:.1f} tok/s); {st['prefill_steps']} prefill "
+          f"+ {st['decode_steps']} decode steps; max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated(dev)} B; launches {launches}",
+          flush=True)
+    if len(done) != len(trace) or any(
+            len(c.tokens) != eng.serve.max_new_tokens for c in done):
+        raise AssertionError(f"{tag}: not every request completed")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{tag} launched no {name} kernel")
+    if "matmul" in launches:
+        check_logits_launches(tag, launches, st)
+    return launches
+
+
+def serve_paged(dev, slab_tokens: dict) -> dict:
+    """Phase 5o: the paged KV cache — tinyllama-1.1b at full width and depth
+    on (1, 4), phase 4's settings with ``cache_layout="paged"``, pages of
+    16 tokens, prefill in chunks of 128, over phase 4's trace plus 4
+    requests sharing a prefix with it. Gates: every request completes with
+    finite logits (the engine raises on others), a prefix hit and a
+    copied boundary page, a decode step between two chunks of one prefill
+    job, B1 once a step and B4 launched; then the same trace with a pool of
+    a quarter of the slab's bytes: admission blocked at least once, every
+    request done. Prints the greedy tokens' agreement with phase 4's slab
+    run (not gated: bf16 rounds the paged and slab mixes differently)."""
+    import torch
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.runtime.serving import ServingEngine
+
+    serve_cfg = ServeConfig(**PAGED_SERVE)
+    t0 = time.perf_counter()
+    eng = build_engine("tinyllama-1.1b", reduced=False, mesh_shape=(1, 4),
+                       serve=serve_cfg, seed=0, device=dev,
+                       run_overrides={"comm_backend": "fused",
+                                      "pk_attn_out_island": True})
+    trace = paged_trace(eng.cfg.vocab_size)
+    g = eng.geom
+    print(f"[serve-paged] engine built in {time.perf_counter() - t0:.1f}s: "
+          f"pages of {g.page_size} tokens, {g.n_pages} pages, "
+          f"{g.pages_per_slot} a slot, chunks of "
+          f"{serve_cfg.prefill_chunk}; prompt lengths "
+          f"{[len(p) for p in trace]}", flush=True)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "pk_matmul_ar")}
+    launches = _serve_run("serve-paged", eng, trace, dev, counters)
+    cs = eng.cache_stats()
+    gaps = _chunk_gaps(eng)
+    print(f"[serve-paged] pool {cs['hbm_bytes']} B vs slab "
+          f"{cs['slab_bytes']} B; peak pages {cs['peak_resident_pages']}/"
+          f"{cs['n_pages']}, prefix hits {cs['prefix_hits']}, shared pages "
+          f"{cs['shared_pages_reused']}, copied pages {cs['cow_copies']}, "
+          f"admission blocked {cs['admission_blocked']}; steps between "
+          f"chunks of one job {gaps}", flush=True)
+    if not (cs["prefix_hits"] > 0 and cs["cow_copies"] > 0):
+        raise AssertionError(f"no prefix shared or page copied: {cs}")
+    if not any("decode" in gap for gap in gaps):
+        raise AssertionError("no decode step between two chunks of a job")
+    got = {c.rid: c.tokens for c in eng.completions.values()}
+    same = sum(a == b for r, toks in slab_tokens.items()
+               for a, b in zip(got[r], toks))
+    total = sum(map(len, slab_tokens.values()))
+    print(f"[serve-paged] greedy tokens paged vs phase 4's slab run: "
+          f"{same}/{total} agree ({same / total:.3f})", flush=True)
+
+    small = ServeConfig(**dict(PAGED_SERVE, n_pages=g.n_pages // 4))
+    tight = ServingEngine(eng.cfg, eng.base_run, eng.rules, eng.params,
+                          small, device=dev)
+    _serve_run("serve-paged-quarter", tight, trace, dev, counters)
+    cs = tight.cache_stats()
+    print(f"[serve-paged-quarter] pool {cs['hbm_bytes']} B "
+          f"({cs['hbm_bytes'] / cs['slab_bytes']:.3f} of the slab's), peak "
+          f"pages {cs['peak_resident_pages']}/{cs['n_pages']}, peak slots "
+          f"{cs['peak_resident_slots']}, admission blocked "
+          f"{cs['admission_blocked']}", flush=True)
+    if cs["admission_blocked"] <= 0:
+        raise AssertionError("the quarter pool never blocked admission")
+    del eng, tight
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _cut_params(params, n_layers: int) -> dict:
+    """The first ``n_layers`` layers of a one-position pattern's blocks."""
+    return {**params, "blocks": {"pos0": {
+        g: {k: t[:n_layers] for k, t in sub.items()}
+        for g, sub in params["blocks"]["pos0"].items()}}}
+
+
+def paged_logits(cfg, run, rules, params, geom, prompts, dev, feed=None,
+                 ticks: int = 4, chunk: int = 128) -> tuple[list, list]:
+    """One paged prefill group (``prefill_paged_step`` chunk by chunk, each
+    row's logits from the chunk that holds its last token) and ``ticks``
+    decode steps over a fresh pool, the block tables mapping row r to pages
+    ``[r·P, (r+1)·P)``. Decode feeds ``feed``'s tokens, or the greedy ones.
+    Returns (each step's logits on the CPU, the tokens fed)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import paging
+
+    g = len(prompts)
+    pps = geom.pages_per_slot
+    n_chunks = -(-max(map(len, prompts)) // chunk)
+    tmpl = paging.paged_cache_template(cfg, run, rules, batch=g, geom=geom)
+    cache = T.zeros(tmpl, rules, dev)
+    bt = torch.arange(g * pps, dtype=torch.int32, device=dev).view(g, pps)
+    tokens = torch.zeros((g, n_chunks * chunk), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    wf = torch.zeros(g, dtype=torch.int64, device=dev)
+    first = None
+    with torch.no_grad():
+        for c in range(n_chunks):
+            logits, cache = T.prefill_paged_step(
+                params, cache, tokens[:, c * chunk:(c + 1) * chunk].to(dev),
+                bt, lens, c * chunk, wf, cfg, run, rules,
+                page_size=geom.page_size)
+            here = ((lens - 1) // chunk == c).view(g, 1, 1)
+            first = logits if first is None else torch.where(here, logits,
+                                                             first)
+        cache["block_tables"] = bt
+        cache["pos"] = lens.to(torch.int32)
+        outs, fed = [first.cpu()], []
+        logits = first
+        for t in range(ticks):
+            nxt = (feed[t] if feed is not None else
+                   logits[:, -1, :cfg.vocab_size].argmax(-1).cpu())
+            fed.append(nxt)
+            logits, cache = T.decode_step(params, cache,
+                                          nxt.view(g, 1).to(dev), cfg, run,
+                                          rules, page_size=geom.page_size)
+            outs.append(logits.cpu())
+    return outs, fed
+
+
+def serve_paged_cut(dev) -> dict:
+    """Phase 5p: tinyllama-1.1b at full width cut to 4 layers — (a) paged
+    serving on (2, 4), dp 2 x tp 4, the pool partitioned over the dp
+    groups; (b) slab serving with head-sharded caches
+    (``decode_seq_shard=False``) on (1, 4), whose prefill mixes through
+    flash over the global cache; (c) a 2-layer paged prefill group (2
+    chunks) and 4 decode ticks on (1, 4) against the port's plain f32 path
+    on the CPU with the same weights, fed the card's greedy tokens: each
+    step's logits within phase 4b's 3e-2 relative. Returns (a)'s and (b)'s
+    launches, by run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.models.transformer import leaves, set_path
+    from repro_torch.runtime.serving import ServingEngine, \
+        resolve_page_geometry
+
+    full = build_engine("tinyllama-1.1b", reduced=False, mesh_shape=(1, 4),
+                        serve=ServeConfig(**PAGED_SERVE), seed=2, device=dev,
+                        run_overrides={"comm_backend": "fused",
+                                       "pk_attn_out_island": True})
+    cfg = dataclasses.replace(full.cfg, n_layers=PAGED_CUT_LAYERS)
+    params = _cut_params(full.params, PAGED_CUT_LAYERS)
+    base_run = full.base_run
+    del full
+    trace = paged_trace(cfg.vocab_size)[:8]
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "pk_matmul_ar", "flash_attention")}
+    out = {}
+
+    rules24 = ShardingRules(VirtualMesh((2, 4), ("data", "model"), dev),
+                            base_run)
+    eng = ServingEngine(cfg, base_run, rules24, params,
+                        ServeConfig(**PAGED_SERVE), device=dev)
+    print(f"[serve-paged-dp] {cfg.n_layers} layers on (2, 4): pool of "
+          f"{eng.geom.n_pages} pages in {eng.geom.n_partitions} partitions",
+          flush=True)
+    out["dp"] = _serve_run("serve-paged-dp", eng, trace, dev,
+                           {k: counters[k] for k in ("matmul",
+                                                     "pk_matmul_ar")})
+    del eng
+
+    run_hs = dataclasses.replace(base_run, decode_seq_shard=False)
+    rules_hs = ShardingRules(VirtualMesh((1, 4), ("data", "model"), dev),
+                             run_hs)
+    slab = {k: v for k, v in PAGED_SERVE.items()
+            if k not in ("cache_layout", "page_size", "prefill_chunk")}
+    eng = ServingEngine(cfg, run_hs, rules_hs, params, ServeConfig(**slab),
+                        device=dev)
+    print(f"[serve-head-sharded] {cfg.n_layers} layers on (1, 4), slab "
+          f"cache stored global: {tuple(eng.cache['blocks']['pos0']['k'].shape)}",
+          flush=True)
+    out["head_sharded"] = _serve_run("serve-head-sharded", eng, trace, dev,
+                                     counters)
+    del eng
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params2 = _cut_params(params, 2)
+    rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), dev),
+                          base_run)
+    serve_ref = ServeConfig(max_batch=4, prefill_batch=4,
+                            bucket_edges=(256,), max_new_tokens=8,
+                            cache_layout="paged", page_size=16,
+                            prefill_chunk=128)
+    geom = resolve_page_geometry(serve_ref, rules)
+    import random
+    rng = random.Random(7)
+    prompts = [tuple(rng.randrange(cfg.vocab_size) for _ in range(n))
+               for n in (200, 77, 130, 15)]
+    got, fed = paged_logits(cfg2, base_run, rules, params2, geom, prompts,
+                            dev)
+    cpu_params = {}
+    for path, t in leaves(params2):
+        set_path(cpu_params, path, t.float().cpu())
+    cpu_rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), "cpu"),
+                              base_run)
+    want, _ = paged_logits(dataclasses.replace(cfg2, dtype="float32"),
+                           base_run, cpu_rules, cpu_params, geom, prompts,
+                           "cpu", feed=fed)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    print(f"[paged-reference] 2-layer paged prefill (2 chunks of 128) + 4 "
+          f"decode ticks, card (bf16) vs cpu (f32 plain): rel_err "
+          f"{[f'{e:.3e}' for e in errs]} (tol 3e-2)", flush=True)
+    if not all(e <= 3e-2 for e in errs):
+        raise AssertionError(f"paged logits disagree with the f32 path: "
+                             f"{errs}")
+    del params, params2
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3769,7 +4085,7 @@ def main() -> int:
           flush=True)
     entries = check_kernels(dev)
     check_backward(dev)
-    serve_launches = serve(dev)
+    serve_launches, slab_tokens = serve(dev)
     check_reference(dev)
     moe_launches = serve_moe(dev)
     ssm_launches = serve_ssm(dev)
@@ -3789,6 +4105,8 @@ def main() -> int:
     hybrid_train_launches = train_hybrid(dev)
     check_family_reference(dev)
     tp_launches = tp_gemm(dev)
+    paged_launches = serve_paged(dev, slab_tokens)
+    paged_cut_launches = serve_paged_cut(dev)
     main_entries = []
     for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
                                   "pk_all_gather@path",
@@ -3807,7 +4125,12 @@ def main() -> int:
                    "train_encdec": encdec_train_launches.get(counter, 0),
                    "train_moe": moe_train_launches.get(counter, 0),
                    "train_ssm": ssm_train_launches.get(counter, 0),
-                   "train_hybrid": hybrid_train_launches.get(counter, 0)}
+                   "train_hybrid": hybrid_train_launches.get(counter, 0),
+                   "serve_paged": paged_launches.get(counter, 0),
+                   "serve_paged_dp": paged_cut_launches["dp"].get(counter,
+                                                                  0),
+                   "serve_head_sharded": paged_cut_launches[
+                       "head_sharded"].get(counter, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where a serving step of the PyTorch/CUDA port spends its time, on one GPU.
 
-    python3 scripts/profile_serving_step.py [--arch ARCH] [--out FILE]
+    python3 scripts/profile_serving_step.py [--arch ARCH]
+        [--cache-layout paged] [--out FILE]
 
 Serves a serving run of ``chip_smoke.py`` (``--arch`` tinyllama-1.1b, the
 default, moonshot-v1-16b-a3b or falcon-mamba-7b, at full width and depth,
 4 virtual ranks, 8 requests of ``synthetic_trace`` seed 0, every GEMM+AR
-site on the fused kernel; exact buckets for the SSM model) once to warm
-up, then again
+site on the fused kernel; exact buckets for the SSM model; with
+``--cache-layout paged`` phase 5o's paged cache, pages of 16 tokens and
+prefill chunks of 128, the profiled run on a fresh engine over the same
+parameters, so that the warm-up's prefix registry shares nothing) once
+to warm up, then again
 under ``torch.profiler`` with each engine step in its own
 ``record_function`` range. For each step kind (prefill, decode) it prints
 one JSON object with the median of, over the steps of that kind:
@@ -149,6 +153,10 @@ def main() -> int:
                              "falcon-mamba-7b"],
                     help="the served model (chip_smoke.py's phase 4, 4c or "
                          "4e)")
+    ap.add_argument("--cache-layout", default="slab",
+                    choices=["slab", "paged"],
+                    help="paged: chip_smoke.py's phase 5o cache (pages of "
+                         "16 tokens, prefill chunks of 128)")
     ap.add_argument("--out", default=None,
                     help="also write the JSON objects to this file")
     ap.add_argument("--reduced", action="store_true",
@@ -165,11 +173,15 @@ def main() -> int:
     from repro_torch.configs.base import ServeConfig
     from repro_torch.launch.serve import build_engine, synthetic_trace
     from repro_torch.models.transformer import has_ssm
+    from repro_torch.runtime.serving import ServingEngine
 
     dev = resolve_device(args.device)
+    paged = args.cache_layout == "paged"
     serve = ServeConfig(max_batch=8, prefill_batch=4, bucket_edges=(128, 512),
                         max_new_tokens=32,
-                        exact_buckets=has_ssm(get_config(args.arch)))
+                        exact_buckets=has_ssm(get_config(args.arch)),
+                        **(dict(cache_layout="paged", page_size=16,
+                                prefill_chunk=128) if paged else {}))
     eng = build_engine(args.arch, reduced=args.reduced,
                        mesh_shape=(1, 4), serve=serve, seed=0, device=dev,
                        run_overrides={"comm_backend": "fused",
@@ -179,6 +191,9 @@ def main() -> int:
     unprofiled = {k: statistics.median(
         t for kk, t in zip(eng.step_kinds, eng.step_times) if kk == k)
         for k in set(eng.step_kinds)}
+    if paged:
+        eng = ServingEngine(eng.cfg, eng.base_run, eng.rules, eng.params,
+                            serve, device=dev)
     for p in trace:
         eng.submit(p)
     labels = []

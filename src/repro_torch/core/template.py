@@ -24,8 +24,11 @@ ring kernel, as JAX's ``maybe_allgather`` runs inside ``shard_map`` — then
 group g takes its slice of every dp-sharded input and copy g of every
 gathered weight, and the groups' outputs are concatenated over dp. The
 gather's autograd backward is the reduce-scatter of the copies' gradients.
-Measured plans, guards and scripted faults are not ported (ROADMAP items
-12 and 13).
+An input stored stacked (a KV cache, a page pool) whose spec shards a dim
+over dp is sliced along that dim after its rank axis, and a
+:class:`Stacked` output is joined there: group g's KV cache rows, or its
+partition of a page pool. Measured plans, guards and scripted faults are
+not ported (ROADMAP items 12 and 13).
 """
 
 from __future__ import annotations
@@ -238,18 +241,19 @@ def _map_specs(fn, specs, outs):
     return fn(outs, specs)
 
 
-def _join_groups(specs, outs: list, dp, name: str):
+def _join_groups(specs, outs: list, dp):
     """Concatenate the dp groups' outputs over each out spec's dp-sharded
-    dim (group 0's output when the spec replicates it over dp)."""
+    dim (group 0's output when the spec replicates it over dp); a
+    :class:`Stacked` output that carries its rank axis is joined along that
+    dim after the rank axis."""
     if isinstance(specs, tuple) and not isinstance(specs, P):
-        return tuple(_join_groups(s, [o[i] for o in outs], dp, name)
+        return tuple(_join_groups(s, [o[i] for o in outs], dp)
                      for i, s in enumerate(specs))
-    if isinstance(specs, Stacked):
-        raise NotImplementedError(
-            f"island {name!r} keeps a per-rank output on a dp > 1 mesh: "
-            "serving on data-parallel meshes is ROADMAP item A7c")
-    d = pgl.dp_dim(specs, dp)
-    return outs[0] if d is None else torch.cat(outs, dim=d)
+    spec = specs.spec if isinstance(specs, Stacked) else specs
+    d = pgl.dp_dim(spec, dp)
+    if d is None:
+        return outs[0]
+    return torch.cat(outs, dim=d + (outs[0].dim() - len(spec)))
 
 
 class Island:
@@ -332,9 +336,10 @@ class Island:
         return comm_context(self.run, self.axis, mesh=self.mesh, **kw)
 
     def _global(self, x, spec):
-        """An input as the dense reference expects it: global."""
+        """An input as the dense reference expects it: global (a tensor
+        stored stacked over an axis of size 1 too)."""
         if isinstance(x, torch.Tensor) and x.dim() == len(spec) + 1 \
-                and pgl.is_split(spec, self.mesh, self.axis):
+                and pgl.split_dim(spec, self.mesh, self.axis) is not None:
             return pgl.assemble(x, spec, self.mesh, self.axis)
         return x
 
@@ -361,13 +366,11 @@ class Island:
                 spec = self.inputs.get(n, P())
                 d = pgl.dp_dim(spec, dp) if isinstance(a, torch.Tensor) \
                     else None
-                if d is not None and a.dim() != len(spec):
-                    raise NotImplementedError(
-                        f"island {self.name!r}: input {n!r} is stored "
-                        "sharded over dp and declares no Gather")
+                if d is not None and a.dim() == len(spec) + 1:
+                    d += 1               # stored stacked: after the rank axis
                 grp[n] = pgl.dp_slice(a, d, n_dp, gi)
             outs.append(self._run(grp))
-        return _join_groups(self.out_specs, outs, dp, self.name)
+        return _join_groups(self.out_specs, outs, dp)
 
     def _run(self, arrays):
         """The island on one dp group's inputs (see the module docstring)."""
@@ -384,13 +387,15 @@ class Island:
             if self.mesh is None:
                 return self.reference(**arrays)
             # stacked inputs -> global for the reference; outputs marked
-            # Stacked go back to the per-rank layout the caller stores
+            # Stacked go back to the per-rank layout the caller stores (a
+            # spec that replicates them over the axis keeps them global)
             out = self.reference(**{
                 n: self._global(a, self.inputs.get(n, P()))
                 for n, a in arrays.items()})
             return _map_specs(
-                lambda o, s: (pgl.layout(o, s.spec, self.mesh, self.axis)
-                              .contiguous() if isinstance(s, Stacked) else o),
+                lambda o, s: (pgl.layout(o, s.spec, self.mesh, self.axis,
+                                         expand=False).contiguous()
+                              if isinstance(s, Stacked) else o),
                 self.out_specs, out)
         ctx = self.make_context()
         stacked = {n: pgl.layout(a, self.inputs[n], self.mesh, self.axis)

@@ -1,6 +1,6 @@
 """Serving launcher of the port — a thin CLI over the continuous-batching
 engine (``repro_torch.runtime.serving``), the twin of
-``repro/launch/serve.py`` without the fleet, paging, int8 and fault flags.
+``repro/launch/serve.py`` without the fleet, int8 and fault flags.
 
     # static batch, on the GPU
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
@@ -13,6 +13,11 @@ engine (``repro_torch.runtime.serving``), the twin of
     # an SSM model (exact buckets: one bucket per prompt length)
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --reduced \
         --mesh-shape 1 4 --mode continuous --device cpu
+
+    # the paged KV cache with chunked prefill, on a (2, 4) mesh
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
+        --mesh-shape 2 4 --mode continuous --cache-layout paged \
+        --page-size 4 --prefill-chunk 8 --device cpu
 
 The entry points run on ``cuda`` unless ``device`` names another device;
 with no GPU and no device they raise.
@@ -125,6 +130,17 @@ def main(argv=None):
     ap.add_argument("--bucket-edges", type=int, nargs="*", default=None)
     ap.add_argument("--queue-policy", default="fcfs",
                     choices=["fcfs", "bucket-greedy"])
+    ap.add_argument("--cache-layout", default="slab",
+                    choices=["slab", "paged"],
+                    help="KV cache layout; SSM and hybrid models refuse "
+                         "paged (their recurrent state cannot be paged)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="paged layout: tokens per KV page")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="paged layout: pool pages (0 = slab-equivalent)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="paged layout: split prefill into page-aligned "
+                         "chunks so decode ticks interleave (0 = off)")
     ap.add_argument("--mesh-shape", type=int, nargs="*", default=None)
     ap.add_argument("--comm-chunks", type=int, default=None)
     ap.add_argument("--comm-backend", default=None,
@@ -149,13 +165,21 @@ def main(argv=None):
                         prefill_batch=args.prefill_batch,
                         bucket_edges=edges, max_new_tokens=args.tokens,
                         queue_policy=args.queue_policy,
-                        exact_buckets=T.has_ssm(get_config(args.arch)))
+                        exact_buckets=T.has_ssm(get_config(args.arch)),
+                        cache_layout=args.cache_layout,
+                        page_size=args.page_size, n_pages=args.n_pages,
+                        prefill_chunk=args.prefill_chunk)
     eng = build_engine(args.arch, reduced=args.reduced,
                        mesh_shape=args.mesh_shape, serve=serve,
                        seed=args.seed, comm_chunks=args.comm_chunks,
                        run_overrides=overrides, device=args.device)
     if eng.rules is not None:
         print(render_serving_plans(eng.bucket_plans))
+    if eng.paged:
+        g = eng.geom
+        print(f"[cache] paged: page={g.page_size} pool={g.n_pages} pages "
+              f"x {g.n_partitions} partitions "
+              f"(chunk={serve.prefill_chunk or 'off'})")
     trace = synthetic_trace(args.requests, serve, eng.cfg.vocab_size,
                             seed=args.seed)
     done = eng.run(trace)
@@ -165,6 +189,18 @@ def main(argv=None):
           f"({st['tokens_per_s']:.1f} tok/s; "
           f"{st['prefill_steps']} prefill + {st['decode_steps']} decode "
           f"steps; buckets built: {st['compiled_buckets']})")
+    cs = st["cache"]
+    line = (f"[cache] layout={cs['layout']} kv={cs['kv_dtype']} "
+            f"hbm={cs['hbm_bytes']/1e6:.1f}MB "
+            f"(slab-equivalent {cs['slab_bytes']/1e6:.1f}MB) "
+            f"peak_slots={cs['peak_resident_slots']}")
+    if cs["layout"] == "paged":
+        line += (f" peak_pages={cs['peak_resident_pages']}/{cs['n_pages']} "
+                 f"prefix_hits={cs['prefix_hits']} "
+                 f"shared_pages={cs['shared_pages_reused']} "
+                 f"cow={cs['cow_copies']} "
+                 f"blocked={cs['admission_blocked']}")
+    print(line)
 
 
 if __name__ == "__main__":

@@ -26,11 +26,19 @@ Sequence-parallel training attention (``attention_block(seq_sharded=
 True)``) runs over the tp axis in ``sp_attention_island``: ring attention
 (``core/ring_attention.py``: the p2p kernel and flash hops) or, under
 ``sp_attention="ulysses"``, Ulysses (``core/ulysses.py``: the all-to-all
-kernel and one flash launch). Not ported: the XLA chunked
-attention (the flash kernel computes the same function at any length),
-the resident 2D-TP MoE serving layout (``serve_moe_tp_data``, A9c), paged
-and int8 caches (A7, A11). The MoE island runs the replicated-dispatch
-strategy (``core/moe.py``), whose expert GEMMs are the grouped-GEMM kernel.
+kernel and one flash launch). The XLA chunked attention
+(``_chunked_attention``) is the CPU's plain mix at kv lengths from
+``XLA_ATTN_CHUNK_THRESHOLD`` on, as JAX picks it; the card runs the flash
+kernel at every length. The paged KV cache (``runtime/paging.py``) has its
+own islands, ``paged_decode_island`` and ``paged_prefill_island``: the page
+interior is striped over tp like the slab's sequence dim, block tables map
+each slot's logical pages to the pool, and their mix is plain torch, as
+JAX's is XLA (no Pallas kernel). Head-sharded caches
+(``decode_seq_shard=False``) run no island: their decode is
+``_full_attention`` over the global cache, as in JAX. Not ported: the
+resident 2D-TP MoE serving layout (``serve_moe_tp_data``, A9c) and int8
+caches (A11). The MoE island runs the replicated-dispatch strategy
+(``core/moe.py``), whose expert GEMMs are the grouped-GEMM kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import moe as pk_moe
 from repro_torch.core.pgl import P
+from repro_torch.core.pgl import axes_size as pgl_axes_size
 from repro_torch.core.ring_attention import pk_ring_attention
 from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
                                        Stacked, comm_context, fsdp_gather,
@@ -149,6 +158,70 @@ def _full_attention(q, k, v, *, causal, window, q_offset=0, kv_len=None,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
     return o.reshape(b, hq, sq, hd).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, *, causal, window, scale=None,
+                       qc: int = 512, kc: int = 1024):
+    """Memory-bounded attention (JAX ``_chunked_attention``): an online
+    softmax over kv blocks of ``kc`` keys for each block of ``qc`` queries,
+    f32 statistics; a kv block that the causal or window mask hides from
+    the whole q block is skipped, as JAX skips it with ``lax.cond``."""
+    b, hq, s, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else hd ** -0.5
+    qc, kc = min(qc, s), min(kc, skv)
+    if s % qc or skv % kc:
+        raise ValueError(f"chunks ({qc}, {kc}) do not divide ({s}, {skv})")
+    qg = q.reshape(b, hkv, g, s, hd).float()
+    ar_q = torch.arange(qc, device=q.device)[:, None]
+    ar_k = torch.arange(kc, device=q.device)[None, :]
+    outs = []
+    for q_lo in range(0, s, qc):
+        qblk = qg[:, :, :, q_lo:q_lo + qc]
+        m = torch.full((b, hkv, g, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l_ = torch.zeros_like(m)
+        o = torch.zeros((b, hkv, g, qc, hd), dtype=torch.float32,
+                        device=q.device)
+        for k_lo in range(0, skv, kc):
+            if causal and k_lo > q_lo + qc - 1:
+                continue
+            if window is not None and not k_lo + kc - 1 > q_lo - window:
+                continue
+            sc = torch.einsum("bkgqd,bksd->bkgqs", qblk,
+                              k[:, :, k_lo:k_lo + kc].float()) * scale
+            rows, cols = q_lo + ar_q, k_lo + ar_k
+            keep = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
+            if causal:
+                keep &= cols <= rows
+            if window is not None:
+                keep &= cols > rows - window
+            sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p_ = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l_ = l_ * alpha + p_.sum(dim=-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bkgqs,bksd->bkgqd", p_, v[:, :, k_lo:k_lo + kc].float())
+            m = m_new
+        outs.append(o / l_.clamp_min(1e-30)[..., None])
+    return torch.cat(outs, dim=3).reshape(b, hq, s, hd).to(q.dtype)
+
+
+#: kv lengths from here on take the chunked plain mix on the CPU (JAX's
+#: threshold for its XLA chunked path)
+XLA_ATTN_CHUNK_THRESHOLD = 8192
+
+
+def _mix(q, k, v, *, causal, window):
+    """The attention mix of training and prefill: the flash kernel on the
+    card at every length; on the CPU its plain version, or
+    :func:`_chunked_attention` at kv lengths >= ``XLA_ATTN_CHUNK_THRESHOLD``
+    (where JAX leaves the full scores)."""
+    if not q.is_cuda and k.shape[2] >= XLA_ATTN_CHUNK_THRESHOLD:
+        return _chunked_attention(q, k, v, causal=causal, window=window)
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def attn_out_island(cfg: ArchConfig, run: RunConfig,
@@ -302,7 +375,7 @@ def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
         window = None
 
     def dense_mix(q, k, v):
-        return flash_attention(q, k, v, causal=causal, window=window)
+        return _mix(q, k, v, causal=causal, window=window)
 
     if seq_sharded and rules is not None:
         island = sp_attention_island(cfg, run, rules, b, s, causal=causal,
@@ -506,7 +579,9 @@ def prefill_write_island(cfg: ArchConfig, run: RunConfig,
                          L: int) -> Island:
     """Rank-local write of a prompt's K/V block into the sequence-sharded
     cache: rank r takes its own [r·s_loc, (r+1)·s_loc) window of the new
-    (replicated) K/V."""
+    (replicated) K/V. A head-sharded cache (``decode_seq_shard=False``) is
+    stored global, and the write is the reference's, as JAX's disabled
+    island runs it."""
     hkv = cfg.n_kv_heads
 
     def reference(cache, new):
@@ -514,7 +589,7 @@ def prefill_write_island(cfg: ArchConfig, run: RunConfig,
         out[:, :, :new.shape[2]] = new.to(cache.dtype)
         return out
 
-    if rules is None:
+    if rules is None or not run.decode_seq_shard:
         return Island("prefill_write", run=run, reference=reference)
     cache_spec = rules.kv_cache(hkv, b)
     bspec = rules.dim(b, rules.dp)
@@ -550,13 +625,338 @@ def prefill_attention_block(p, x, cache_k, cache_v, cfg: ArchConfig,
     positions = torch.arange(s, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    o = _mix(q, k, v, causal=True, window=cfg.sliding_window)
     write = prefill_write_island(cfg, run, rules, b, s)
     new_k = write(cache=cache_k, new=k)
     new_v = write(cache=cache_v, new=v)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     out = attn_out_island(cfg, run, rules, b, s)(o=o, wo=p["wo"])
     return out, new_k, new_v
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (runtime/paging.py pool + block tables)
+# ---------------------------------------------------------------------------
+#
+# The paged islands are the block-table twins of decode_island /
+# prefill_write_island: the page interior is striped over the tp axis like
+# the slab's sequence dim, so each rank writes its own stripe of every page
+# and attention keeps the flash-decode log-sum-exp merge. The helpers take
+# a leading rank axis (R, ...) — the stacked ranks in an island's body, one
+# rank holding whole pages in the dense reference. Reads gather pages
+# through the block table; writes go through a copy of the pool with one
+# scratch page past its end, where every miss lands (JAX's
+# ``.at[...].set(mode="drop")`` sends them out of range): rows whose block
+# table is the engine's -1 sentinel (free slots, slots mid-prefill) write
+# nothing, which is what makes decode ticks between prefill chunks safe.
+
+
+def _paged_gather(pool, bt):
+    """pool (R, N, Hkv, s, hd); bt (R, B, P) page ids (clipped into the
+    pool) -> (R, B, Hkv, P*s, hd)."""
+    r = pool.shape[0]
+    ranks = torch.arange(r, device=pool.device).view(r, 1, 1)
+    g = pool[ranks, bt.clamp(0, pool.shape[1] - 1).long()]  # (R,B,P,Hkv,s,hd)
+    g = g.movedim(2, 3)
+    return g.reshape(r, g.shape[1], g.shape[2], -1, g.shape[-1])
+
+
+def _page_positions(pmax: int, ps: int, off, s_loc: int):
+    """Global cache position of every gathered cell, (R, P*s_loc): page p's
+    cell j on the rank at stripe offset ``off`` (R,) is p·ps + off + j."""
+    cells = (torch.arange(pmax, device=off.device)[:, None] * ps
+             + torch.arange(s_loc, device=off.device)[None, :]).reshape(-1)
+    return off[:, None] + cells
+
+
+def _paged_mix(q, gk, gv, ki, *, kv_len=None, q_pos=None, window, ctx):
+    """Attention of q (R, B, Hq, sq, hd) over gathered pages gk, gv
+    (R, B, Hkv, P*s, hd) whose cells sit at global positions ``ki``
+    (R, P*s). Masking is ``ki < kv_len`` (decode, (R, B)) or
+    ``ki <= q_pos`` (a prefill chunk, causal against the queries' global
+    positions (R, sq)), so allocated but unwritten page tails are never
+    attended. ``ctx`` None = whole pages on each row (the dense
+    reference); else shard-local partials merged by log-sum-exp over the
+    ranks (``pmax``/``psum``, as :func:`_sharded_mix`)."""
+    r, b, hq, sq, hd = q.shape
+    hkv = gk.shape[2]
+    g = hq // hkv
+    qg = q.reshape(r, b, hkv, g, sq, hd).float()
+    sc = torch.einsum("rbkgqd,rbksd->rbkgqs", qg, gk.float()) * hd ** -0.5
+    kib = ki.view(r, 1, 1, 1, 1, -1)
+    if kv_len is not None:
+        lim = kv_len.view(r, b, 1, 1, 1, 1) - 1
+        keep = kib <= lim
+    else:
+        lim = q_pos.view(r, 1, 1, 1, sq, 1)
+        keep = kib <= lim
+    if window is not None:
+        keep = keep & (kib > lim - window)
+    sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(dim=-1)
+    if ctx is not None:
+        m = ctx.pmax(m)
+    p_ = torch.exp(sc - m[..., None])
+    l_ = p_.sum(dim=-1)
+    o = torch.einsum("rbkgqs,rbksd->rbkgqd", p_, gv.float())
+    if ctx is not None:
+        l_ = ctx.psum(l_, backend="bulk")
+        o = ctx.psum(o, backend="bulk")
+    o = o / l_.clamp_min(1e-30)[..., None]
+    return o.reshape(r, b, hq, sq, hd).to(q.dtype)
+
+
+def _with_scratch(pool):
+    """A copy of pool (R, N, ...) with one more page, N, where dropped
+    writes land; its first N pages are the result."""
+    buf = pool.new_empty((pool.shape[0], pool.shape[1] + 1,
+                          *pool.shape[2:]))
+    buf[:, :pool.shape[1]] = pool
+    return buf
+
+
+def _paged_decode_write(pool, new, bt, pos, ps: int, off, s_loc: int):
+    """Write one token a slot, new (R, B, Hkv, 1, hd), into its block-table
+    page at ``pos`` (R, B). Misses (the position outside this rank's
+    stripe, an unmapped page) are dropped. Returns the new pool."""
+    r, n = pool.shape[:2]
+    lp = (pos // ps).clamp(0, bt.shape[-1] - 1)
+    pid = bt.gather(-1, lp[..., None].long())[..., 0]              # (R, B)
+    rr = pos % ps
+    o = off[:, None]
+    hit = (rr >= o) & (rr < o + s_loc) & (pid >= 0)
+    rl = (rr - o).clamp(0, s_loc - 1).long()
+    buf = _with_scratch(pool)
+    ranks = torch.arange(r, device=pool.device)[:, None]
+    buf[ranks, torch.where(hit, pid, n).long(), :, rl] = \
+        new[:, :, :, 0].to(pool.dtype)
+    return buf[:, :n]
+
+
+def _paged_chunk_write(pool, new, bt, c0, wf, ps: int, off, s_loc: int):
+    """Write one prefill chunk's K/V, new (R, B, Hkv, sq, hd) at global
+    positions [c0, c0+sq), into block-table pages: gather the touched
+    pages, select per cell between the chunk's value and the current
+    content, scatter whole pages back (unmapped ones dropped). The per-cell
+    select is what makes copy-on-write prefix resume sound: positions below
+    the per-slot floor ``wf`` (R, B) keep the donor pages' bytes even though
+    the boundary chunk recomputes them. ``c0`` is (R,)."""
+    r, n = pool.shape[:2]
+    b, hk, sq = new.shape[1:4]
+    pmax = bt.shape[-1]
+    npg = -(-sq // ps)
+    dev = pool.device
+    pgs = c0.view(r, 1) // ps + torch.arange(npg, device=dev)    # (R, npg)
+    pid = bt.gather(-1, pgs.clamp(0, pmax - 1)[:, None, :]
+                    .expand(r, b, npg).long())                    # (R,B,npg)
+    pid = torch.where((pgs < pmax)[:, None, :], pid, torch.full_like(pid, -1))
+    tt = (torch.arange(npg, device=dev)[:, None] * ps
+          + torch.arange(s_loc, device=dev)[None, :])[None] \
+        + off.view(r, 1, 1)                                    # (R,npg,s)
+    ranks = torch.arange(r, device=dev)
+    src = new[ranks[:, None], :, :, tt.clamp(0, sq - 1).reshape(r, -1)]
+    src = src.reshape(r, npg, s_loc, b, hk, -1).permute(0, 3, 1, 4, 2, 5)
+    cur = pool[ranks.view(r, 1, 1), pid.clamp(0, n - 1).long()]
+    t_glob = c0.view(r, 1, 1) + tt
+    cell = ((tt < sq)[:, None, :, None, :]
+            & (t_glob[:, None, :, None, :] >= wf.view(r, b, 1, 1, 1)))
+    vals = torch.where(cell[..., None], src.to(pool.dtype), cur)
+    buf = _with_scratch(pool)
+    buf[ranks.view(r, 1, 1), torch.where(pid >= 0, pid, n).long()] = vals
+    return buf[:, :n]
+
+
+def _dp_pool_base(rules: ShardingRules | None, b: int, n_pages: int,
+                  device) -> torch.Tensor:
+    """The first global page id of each dp group's pool partition, (n_dp,),
+    when the pool is partitioned (the batch of ``b`` slots shards over dp),
+    else one 0: the paged islands' ``base`` input, which the dp groups
+    slice like the batch (JAX's ``_dp_pool_base`` computes it from
+    ``axis_index`` in the body)."""
+    if rules is None or rules.dim(b, rules.dp) is None:
+        return torch.zeros(1, dtype=torch.int64, device=device)
+    n_dp = pgl_axes_size(rules.mesh, rules.dp)
+    return torch.arange(n_dp, device=device) * (n_pages // n_dp)
+
+
+def _local_pages(bt, base):
+    """Global block-table page ids -> ids in the dp group's pool partition
+    that starts at page ``base``; -1 (unmapped) stays -1."""
+    return torch.where(bt >= 0, bt - base, -1)
+
+
+def _zero_offset(x) -> torch.Tensor:
+    """The stripe offset (1,) of the dense reference: one rank holding
+    whole pages."""
+    return torch.zeros(1, dtype=torch.int64, device=x.device)
+
+
+def paged_decode_island(cfg: ArchConfig, run: RunConfig,
+                        rules: ShardingRules | None, b: int, page_size: int,
+                        *, window) -> Island:
+    """One-token decode over the paged pool: block-table page write, page
+    gather and the flash-decode log-sum-exp merge over the tp ranks. It
+    keeps the slab ``decode_island``'s name and ``Comm`` — the merge
+    collective is the same — so frozen per-bucket plans apply unchanged to
+    the paged layout."""
+    hq, hd = cfg.n_heads, cfg.hd
+
+    def attend(q, pool_k, pool_v, k_new, v_new, bt, pos, ps, off, s_loc,
+               ctx):
+        pk = _paged_decode_write(pool_k, k_new, bt, pos, ps, off, s_loc)
+        pv = _paged_decode_write(pool_v, v_new, bt, pos, ps, off, s_loc)
+        ki = _page_positions(bt.shape[-1], ps, off, s_loc)
+        o = _paged_mix(q, _paged_gather(pk, bt), _paged_gather(pv, bt), ki,
+                       kv_len=pos + 1, window=window, ctx=ctx)
+        return o, pk, pv
+
+    def reference(q, pool_k, pool_v, k_new, v_new, bt, pos, base):
+        o, pk, pv = attend(q[None], pool_k[None], pool_v[None], k_new[None],
+                           v_new[None], _local_pages(bt, base)[None],
+                           pos[None], page_size, _zero_offset(q), page_size,
+                           None)
+        return o[0], pk[0], pv[0]
+
+    if rules is None:
+        return Island("decode_attn", run=run, reference=reference)
+    tp = rules.tp
+    bspec, pool_spec = rules.dim(b, rules.dp), rules.kv_pool(b)
+    qspec = P(bspec, None, None, None)
+
+    def body(ctx, q, pool_k, pool_v, k_new, v_new, bt, pos, base):
+        s_loc = pool_k.shape[3]
+        off = rank_index(pool_k) * s_loc
+        bt_l = _local_pages(bt, base.view(-1, 1, 1))
+        return attend(q, pool_k, pool_v, k_new, v_new, bt_l, pos, page_size,
+                      off, s_loc, ctx)
+
+    return Island(
+        "decode_attn", rules=rules, run=run, axis=tp, fallback_axes=tp,
+        inputs={"q": qspec, "pool_k": pool_spec, "pool_v": pool_spec,
+                "k_new": qspec, "v_new": qspec, "bt": P(bspec, None),
+                "pos": P(bspec),
+                "base": P(pool_spec[0])},
+        out_specs=(qspec, Stacked(pool_spec), Stacked(pool_spec)),
+        body=body, reference=reference,
+        enable=run.decode_seq_shard,
+        divisible=((page_size, tp),),
+        comm=Comm("psum", backend="bulk", n_chunks=1,
+                  payload_bytes=2 * b * hq * hd * 4))
+
+
+def paged_prefill_island(cfg: ArchConfig, run: RunConfig,
+                         rules: ShardingRules | None, b: int, s: int,
+                         page_size: int, *, window) -> Island:
+    """One prefill chunk over the paged pool: the chunk's K/V written into
+    the group's block-table pages (rank-local stripes), then causal
+    attention of the chunk's queries over every mapped page — a donor
+    prefix, earlier chunks and the chunk itself — with the tp log-sum-exp
+    merge. ``c0`` is the chunk's global start, ``wf`` the per-slot
+    write_from floor below which writes are suppressed (copy-on-write
+    prefix resume)."""
+    hq, hd = cfg.n_heads, cfg.hd
+
+    def attend(q, pool_k, pool_v, k_new, v_new, bt, c0, wf, ps, off, s_loc,
+               ctx):
+        pk = _paged_chunk_write(pool_k, k_new, bt, c0, wf, ps, off, s_loc)
+        pv = _paged_chunk_write(pool_v, v_new, bt, c0, wf, ps, off, s_loc)
+        ki = _page_positions(bt.shape[-1], ps, off, s_loc)
+        q_pos = c0.view(-1, 1) + torch.arange(s, device=q.device)
+        o = _paged_mix(q, _paged_gather(pk, bt), _paged_gather(pv, bt), ki,
+                       q_pos=q_pos, window=window, ctx=ctx)
+        return o, pk, pv
+
+    def reference(q, pool_k, pool_v, k_new, v_new, bt, c0, wf, base):
+        o, pk, pv = attend(q[None], pool_k[None], pool_v[None], k_new[None],
+                           v_new[None], _local_pages(bt, base)[None],
+                           c0.view(1), wf[None], page_size, _zero_offset(q),
+                           page_size, None)
+        return o[0], pk[0], pv[0]
+
+    if rules is None:
+        return Island("paged_prefill_attn", run=run, reference=reference)
+    tp = rules.tp
+    bspec, pool_spec = rules.dim(b, rules.dp), rules.kv_pool(b)
+    qspec = P(bspec, None, None, None)
+
+    def body(ctx, q, pool_k, pool_v, k_new, v_new, bt, c0, wf, base):
+        s_loc = pool_k.shape[3]
+        off = rank_index(pool_k) * s_loc
+        bt_l = _local_pages(bt, base.view(-1, 1, 1))
+        return attend(q, pool_k, pool_v, k_new, v_new, bt_l, c0, wf,
+                      page_size, off, s_loc, ctx)
+
+    return Island(
+        "paged_prefill_attn", rules=rules, run=run, axis=tp,
+        fallback_axes=tp,
+        inputs={"q": qspec, "pool_k": pool_spec, "pool_v": pool_spec,
+                "k_new": qspec, "v_new": qspec, "bt": P(bspec, None),
+                "c0": P(), "wf": P(bspec),
+                "base": P(pool_spec[0])},
+        out_specs=(qspec, Stacked(pool_spec), Stacked(pool_spec)),
+        body=body, reference=reference,
+        enable=run.decode_seq_shard,
+        divisible=((page_size, tp),),
+        comm=Comm("psum", backend="bulk", n_chunks=1,
+                  payload_bytes=2 * b * hq * s * hd * 4))
+
+
+def paged_decode_attention(p, x, pool_k, pool_v, bt, pos, cfg: ArchConfig,
+                           run: RunConfig, rules: ShardingRules | None, *,
+                           page_size: int):
+    """One-token decode against the paged pool (the block-table twin of
+    :func:`decode_attention`). x: (B, 1, d); pool_k/v: one layer's pool as
+    stored (``paging.paged_cache_template``) of ``page_size``-token pages
+    (the engine's ``PageGeometry``); bt: (B, P) block table (−1 =
+    unmapped: the write drops, so free and mid-prefill slots are inert);
+    pos: per-slot (B,). Returns (out (B, 1, d), new_pool_k, new_pool_v);
+    the out-projection is a plain product, as in the slab decode."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _col_proj(x, p["wq"]).reshape(b, 1, hq, hd).transpose(1, 2)
+    k_new = _col_proj(x, p["wk"]).reshape(b, 1, hkv, hd).transpose(1, 2)
+    v_new = _col_proj(x, p["wv"]).reshape(b, 1, hkv, hd).transpose(1, 2)
+    positions = pos[:, None]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    island = paged_decode_island(cfg, run, rules, b, page_size,
+                                 window=cfg.sliding_window)
+    o, pool_k, pool_v = island(
+        q=q, pool_k=pool_k, pool_v=pool_v, k_new=k_new, v_new=v_new, bt=bt,
+        pos=pos, base=_dp_pool_base(rules, b, pool_k.shape[-4], x.device))
+    o = o.transpose(1, 2).reshape(b, 1, hq * hd)
+    return torch.matmul(o, _row_weight(p["wo"])), pool_k, pool_v
+
+
+def paged_prefill_attention_block(p, x, pool_k, pool_v, bt, chunk_start,
+                                  write_from, cfg: ArchConfig,
+                                  run: RunConfig,
+                                  rules: ShardingRules | None, *,
+                                  page_size: int):
+    """One chunk of paged prefill attention: x (B, cl, d) are the chunk's
+    hidden states at global positions [chunk_start, chunk_start+cl); its
+    K/V land in the block table's ``page_size``-token pages and its queries
+    attend over every mapped page. ``write_from`` (B,): the per-slot copy-on-write floor.
+    Returns (out (B, cl, d), new_pool_k, new_pool_v); the out-projection is
+    the GEMM+AR island."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _col_proj(x, p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
+    k = _col_proj(x, p["wk"]).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = _col_proj(x, p["wv"]).reshape(b, s, hkv, hd).transpose(1, 2)
+    c0 = torch.as_tensor(chunk_start, dtype=torch.int64, device=x.device)
+    positions = c0 + torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    island = paged_prefill_island(cfg, run, rules, b, s, page_size,
+                                  window=cfg.sliding_window)
+    o, pool_k, pool_v = island(
+        q=q, pool_k=pool_k, pool_v=pool_v, k_new=k, v_new=v, bt=bt, c0=c0,
+        wf=write_from, base=_dp_pool_base(rules, b, pool_k.shape[-4],
+                                          x.device))
+    o = o.transpose(1, 2).reshape(b, s, hq * hd)
+    out = attn_out_island(cfg, run, rules, b, s)(o=o, wo=p["wo"])
+    return out, pool_k, pool_v
 
 
 # ---------------------------------------------------------------------------
@@ -623,8 +1023,7 @@ def check_moe_run(run: RunConfig) -> None:
     if run.serve_moe_tp_data:
         raise NotImplementedError(
             "serve_moe_tp_data (resident 2D-TP expert weights, ff sliced over "
-            "the dp axes) is ROADMAP item A9c; it needs serving on dp > 1 "
-            "meshes (A7c)")
+            "the dp axes) is ROADMAP item A9c")
 
 
 def moe_island(cfg: ArchConfig, run: RunConfig,
@@ -883,7 +1282,8 @@ def lm_logits(p, x):
 
 def _forward_islands(cfg: ArchConfig, run: RunConfig,
                      rules: ShardingRules | None, *, batch: int = 8,
-                     seq: int = 128, phase: str = "all") -> list:
+                     seq: int = 128, phase: str = "all",
+                     page_size: int = 0) -> list:
     """Every island a forward pass (and a decode step) builds: ``prefill``
     (GEMM islands at m = B·seq), ``decode`` (m = B·1 plus the decode
     attention island) or ``all`` (the union, plus the loss island — what
@@ -892,7 +1292,10 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
     True)``, as JAX lists it). The attention islands only where a layer
     attends — mamba layers have none: their collectives are implicit in
     JAX's GSPMD program, and the port computes them on global activations
-    (``models/ssm.py``)."""
+    (``models/ssm.py``). ``page_size`` > 0 lists the paged cache's islands
+    in the serving phases: decode keeps the ``decode_attn`` name and
+    ``Comm`` (frozen plans apply unchanged) and prefill gains the
+    ``paged_prefill_attn`` merge island the chunk step runs."""
     if phase not in ("all", "prefill", "decode"):
         raise ValueError(f"unknown island phase {phase!r}")
     pattern = cfg.layer_pattern()
@@ -905,7 +1308,13 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
             islands.append(
                 sp_attention_island(cfg, run, rules, b, s, causal=True))
         islands.append(attn_out_island(cfg, run, rules, b, s))
-        if phase in ("all", "decode"):
+        if page_size and phase == "prefill":
+            islands.append(paged_prefill_island(
+                cfg, run, rules, b, s, page_size, window=cfg.sliding_window))
+        if page_size and phase == "decode":
+            islands.append(paged_decode_island(
+                cfg, run, rules, b, page_size, window=cfg.sliding_window))
+        elif phase in ("all", "decode"):
             islands.append(decode_island(cfg, run, rules, b, seq,
                                          long_ctx=False, pos=0, kv_len=1,
                                          window=cfg.sliding_window))
@@ -920,8 +1329,11 @@ def _forward_islands(cfg: ArchConfig, run: RunConfig,
 
 def island_plans(cfg: ArchConfig, run: RunConfig,
                  rules: ShardingRules | None, *, batch: int = 8,
-                 seq: int = 128, phase: str = "all") -> list[IslandPlan]:
+                 seq: int = 128, phase: str = "all",
+                 page_size: int = 0) -> list[IslandPlan]:
     """Trace-free overlap schedule of every island of one serving bucket
-    (``phase`` prefill / decode) or of a training forward (``all``)."""
+    (``phase`` prefill / decode; ``page_size`` > 0 for the paged cache) or
+    of a training forward (``all``)."""
     return [i.plan() for i in _forward_islands(cfg, run, rules, batch=batch,
-                                               seq=seq, phase=phase)]
+                                               seq=seq, phase=phase,
+                                               page_size=page_size)]

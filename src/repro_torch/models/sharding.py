@@ -88,3 +88,13 @@ class ShardingRules:
             return P(self.dim(batch, self.dp), self.dim(n_kv, self.tp),
                      None, None)
         return P(self.dim(batch, self.dp), None, self.tp, None)
+
+    def kv_pool(self, batch: int) -> P:
+        """(N_pages, Hkv, page, hd), the paged twin of :meth:`kv_cache`:
+        pages over dp iff the batch of ``batch`` slots shards (a slot's
+        pages live in its dp group), the page interior over tp. With
+        ``decode_seq_shard=False`` no island reads the pool per rank, so it
+        is stored unsplit over tp (JAX shards its heads there)."""
+        part = self.dp if self.dim(batch, self.dp) is not None else None
+        return P(part, None, self.tp if self.run.decode_seq_shard else None,
+                 None)

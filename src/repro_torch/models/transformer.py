@@ -19,7 +19,11 @@ cross-attention sub-block in every decoder layer; it trains
 time over the encoder's K/V in ``cache["cross"]``
 (``decode_step_encdec``), as in JAX. Every family trains and runs
 ``forward_prefill``: the block loop runs attention or mamba mixers and
-dense, MoE or no FFN, carrying the MoE aux loss, as JAX's does.
+dense, MoE or no FFN, carrying the MoE aux loss, as JAX's does. The
+serving steps run over the slab cache of ``cache_template`` or over the
+page pool of ``runtime/paging.py``: ``decode_step`` routes a cache that
+carries block tables through the paged islands, and
+``prefill_paged_step`` prefills one chunk into the pool.
 """
 
 from __future__ import annotations
@@ -287,20 +291,19 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
     ``slot_pos=True`` (the serving engine's pool). An encoder-decoder with
     ``enc_len`` adds ``cross``: the encoder's K and V for every decoder
     layer, (np·len(pattern), B, Hkv, enc_len, hd), sequence-sharded over
-    tp as JAX shards them (replicated, they cost 27 GB a device there)."""
-    attn = any(sp.mixer == "attn" for sp in cfg.layer_pattern())
-    if attn and rules is not None and not run.decode_seq_shard:
-        raise NotImplementedError(
-            "head-sharded KV caches (decode_seq_shard=False on a mesh) are "
-            "ROADMAP item A7; the port shards the cache's sequence dim")
+    tp as JAX shards them (replicated, they cost 27 GB a device there).
+    Head-sharded caches (``decode_seq_shard=False``; JAX shards their heads
+    over tp) are stored global: no island reads them per rank — the decode
+    is ``_full_attention`` over the whole cache, as in JAX."""
     if kv_dtype != "bf16":
         raise NotImplementedError(
             f"kv_dtype {kv_dtype!r}: the int8 KV cache is ROADMAP item A11")
     dt = DTYPES[cfg.dtype]
     hkv, hd = cfg.n_kv_heads, cfg.hd
-    kv_spec = rules.kv_cache(hkv, batch) if rules else P(None, None, None,
-                                                          None)
     bspec = rules.dim(batch, rules.dp) if rules else None
+    kv_spec = (rules.kv_cache(hkv, batch)
+               if rules is not None and run.decode_seq_shard
+               else P(bspec, None, None, None))
     tree: dict[str, Any] = {
         "pos": (PD((batch,), P(bspec), "zeros", torch.int32) if slot_pos
                 else PD((), P(), "zeros", torch.int32)),
@@ -635,11 +638,17 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
 
 
 def _decode(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
-            rules, cross=None):
+            rules, cross=None, page_size: int = 0):
     pos = cache["pos"]
+    bt = cache.get("block_tables")
+    if bt is not None and not page_size:
+        raise ValueError("a paged cache (block_tables) needs its page_size")
     x = L.embed_tokens(params, tokens, rules, run)
 
     def attend(a, xn, ck, cv):
+        if bt is not None:
+            return L.paged_decode_attention(a, xn, ck, cv, bt, pos, cfg, run,
+                                            rules, page_size=page_size)
         return L.decode_attention(a, xn, ck, cv, pos, cfg, run, rules)
 
     x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend,
@@ -647,17 +656,22 @@ def _decode(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = L.lm_logits({"lm_head": _head(params)}, x)
     new = {"pos": pos + 1, "blocks": new_blocks}
+    if bt is not None:
+        new["block_tables"] = bt
     if "cross" in cache:
         new["cross"] = cache["cross"]
     return logits, new
 
 
 def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
-                rules: ShardingRules | None):
+                rules: ShardingRules | None, *, page_size: int = 0):
     """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V) f32,
     new_cache) with ``pos`` advanced by one (a ``cross`` entry passes
-    through unused, as in JAX)."""
-    return _decode(params, cache, tokens, cfg, run, rules)
+    through unused, as in JAX). A cache carrying ``block_tables`` (the
+    paged layout, ``runtime/paging.py``) attends through the paged
+    islands over pages of ``page_size`` tokens."""
+    return _decode(params, cache, tokens, cfg, run, rules,
+                   page_size=page_size)
 
 
 def decode_step_encdec(params, cache, tokens, cfg: ArchConfig,
@@ -724,3 +738,43 @@ def prefill_step(params, cache, tokens, prompt_lens, cfg: ArchConfig,
     else:
         new_pos = lens.reshape(()).to(torch.int32)
     return logits, {"pos": new_pos, "blocks": new_blocks}
+
+
+def prefill_paged_step(params, cache, tokens, block_tables, prompt_lens,
+                       chunk_start, write_from, cfg: ArchConfig,
+                       run: RunConfig, rules: ShardingRules | None, *,
+                       page_size: int):
+    """One chunk of paged cache-building prefill (JAX
+    ``prefill_paged_step``). tokens: (G, cl), the chunk's window at global
+    positions [chunk_start, chunk_start+cl); block_tables: (G, P) the
+    *group's* page mapping — not the live cache's rows, which stay at the
+    −1 sentinel until the engine commits the last chunk, so decode ticks
+    between chunks cannot touch half-built pages; prompt_lens: (G,) real
+    lengths; write_from: (G,) per-slot floor below which K/V writes are
+    suppressed (positions a shared prefix already holds); page_size: the
+    pool's tokens a page (``PageGeometry``). Returns (logits
+    (G, 1, V) f32 at each row's last real position clamped into this
+    chunk — the engine keeps the chunk that holds L−1 — and the cache with
+    new pools; ``pos`` and the live block tables pass through untouched).
+    Attention-only architectures (``paging.paged_cache_template``
+    checks)."""
+    b, s = tokens.shape
+    dev = tokens.device
+    x = L.embed_tokens(params, tokens, rules, run)
+    bt = torch.as_tensor(block_tables, device=dev)
+    wf = torch.as_tensor(write_from, device=dev)
+    c0 = int(chunk_start)
+
+    def attend(a, xn, ck, cv):
+        return L.paged_prefill_attention_block(a, xn, ck, cv, bt, c0, wf,
+                                               cfg, run, rules,
+                                               page_size=page_size)
+
+    x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    lens = torch.as_tensor(prompt_lens, device=dev).reshape(-1)
+    idx = (lens - 1 - c0).clamp(0, s - 1).expand(b)
+    x_last = x[torch.arange(b, device=dev), idx.long()][:, None]
+    logits = L.lm_logits({"lm_head": _head(params)}, x_last)
+    return logits, {"pos": cache["pos"], "blocks": new_blocks,
+                    "block_tables": cache["block_tables"]}

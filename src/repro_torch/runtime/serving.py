@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine, slab KV layout — the twin of
+"""Continuous-batching serving engine — the twin of
 ``repro/runtime/serving.py``.
 
 The plan loop is the JAX engine's: per shape bucket, ``island_plans()``
@@ -18,10 +18,21 @@ over the pool. Admission, eviction and greedy token choice are pure
 functions of the submitted trace, so continuous-batched output equals
 one-request-at-a-time output.
 
-Not ported (each raises when ``ServeConfig`` asks for it): the paged cache
-and chunked prefill (ROADMAP A7), the int8 KV cache (A11), the health
-monitor, retries, deadlines and comm faults, and the fleet hooks (A13).
-Non-finite logits raise ``FloatingPointError`` instead of being retried.
+Memory: ``ServeConfig.cache_layout`` picks the dense per-slot slab or the
+paged pool (``runtime/paging.py``): a fixed page pool, per-slot block
+tables and a host-side refcounting allocator, with copy-on-write prefix
+sharing and page-aligned chunked prefill (``prefill_chunk``), so that a
+long prompt's prefill is split over engine steps and decode ticks run
+between its chunks. Paged admission allocates a request's whole page span
+up front; an exhausted pool shows as admission backpressure (the step
+decodes instead, draining pages), never as an error. MoE models serve
+paged with prefix sharing off: capacity dropping makes their K/V depend on
+the batch, so a donor's pages are not reusable bit for bit.
+
+Still raising when ``ServeConfig`` asks for them: the int8 KV cache
+(ROADMAP A11), and the health monitor and request deadlines (A13).
+Non-finite logits raise ``FloatingPointError``: JAX's retry and quarantine
+are A13 too.
 """
 
 from __future__ import annotations
@@ -40,10 +51,13 @@ from repro_torch.core.template import IslandPlan, plan_overrides, render_plans
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import island_plans
 from repro_torch.models.sharding import ShardingRules
-from repro_torch.train.step import make_prefill_cache_step, make_serve_step
+from repro_torch.runtime import paging
+from repro_torch.train.step import (make_paged_prefill_step,
+                                    make_prefill_cache_step, make_serve_step)
 
 __all__ = ["Request", "Completion", "BucketPlan", "ServingEngine",
-           "padded_s_max", "resolve_serving_plans", "render_serving_plans"]
+           "padded_s_max", "resolve_page_geometry", "resolve_serving_plans",
+           "render_serving_plans", "serving_plan_record"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,22 +106,43 @@ def padded_s_max(serve: ServeConfig, rules: ShardingRules | None) -> int:
     return -(-serve.s_max // tp) * tp
 
 
+def resolve_page_geometry(serve: ServeConfig,
+                          rules: ShardingRules | None) -> paging.PageGeometry:
+    """The engine's page-pool geometry for this (serve, mesh) pair: the
+    page padded to the tp stripe, the pool partitioned with the slot
+    batch."""
+    tp = rules.mesh.shape[rules.tp] if rules is not None else 1
+    return paging.resolve_page_geometry(
+        serve, s_max=padded_s_max(serve, rules), tp_size=tp,
+        n_partitions=paging.page_partitions(rules, serve.max_batch))
+
+
 def resolve_serving_plans(cfg: ArchConfig, run: RunConfig,
                           rules: ShardingRules | None,
                           serve: ServeConfig) -> dict[str, BucketPlan]:
     """``island_plans()`` per shape bucket: one prefill entry per bucket
-    edge at (prefill_batch, L) plus the decode pool's one-token entry."""
+    edge at (prefill_batch, L) plus the decode pool's one-token entry. In
+    the paged layout the decode entry resolves the paged decode island
+    (same name and ``Comm``), and with ``prefill_chunk`` every bucket shares
+    one chunk-shaped prefill step: a single ``prefill@chunk{cl}`` entry at
+    (prefill_batch, chunk)."""
+    paged = serve.cache_layout == "paged"
+    ps = resolve_page_geometry(serve, rules).page_size if paged else 0
     out: dict[str, BucketPlan] = {}
-    for edge in serve.bucket_edges:
+    if paged and serve.prefill_chunk:
+        cl = serve.prefill_chunk
+        edges = [(f"prefill@chunk{cl}", cl)]
+    else:
+        edges = [(f"prefill@{e}", e) for e in serve.bucket_edges]
+    for name, seq in edges:
         plans = tuple(island_plans(cfg, run, rules,
-                                   batch=serve.prefill_batch, seq=edge,
-                                   phase="prefill"))
-        out[f"prefill@{edge}"] = BucketPlan(
-            "prefill", edge, serve.prefill_batch, edge, plans,
-            plan_overrides(plans))
+                                   batch=serve.prefill_batch, seq=seq,
+                                   phase="prefill", page_size=ps))
+        out[name] = BucketPlan("prefill", seq, serve.prefill_batch, seq,
+                               plans, plan_overrides(plans))
     plans = tuple(island_plans(cfg, run, rules, batch=serve.max_batch,
                                seq=padded_s_max(serve, rules),
-                               phase="decode"))
+                               phase="decode", page_size=ps))
     out["decode"] = BucketPlan("decode", serve.max_batch, serve.max_batch,
                                1, plans, plan_overrides(plans))
     return out
@@ -122,10 +157,52 @@ def render_serving_plans(table: dict[str, BucketPlan]) -> str:
     return "\n".join(lines)
 
 
+def serving_plan_record(cfg: ArchConfig, run: RunConfig,
+                        rules: ShardingRules | None,
+                        serve: ServeConfig) -> dict:
+    """JSON-able per-bucket plan table with the cache's geometry: the whole
+    serving schedule resolved without building the engine (JAX
+    ``serving_plan_record``)."""
+    table = resolve_serving_plans(cfg, run, rules, serve)
+    s_max = padded_s_max(serve, rules)
+    kv_dt = serve.kv_dtype
+    cache: dict[str, Any] = {"layout": serve.cache_layout,
+                             "s_max": s_max,
+                             "kv_dtype": kv_dt,
+                             "scale_bytes_per_pos": (
+                                 cfg.n_layers * cfg.n_kv_heads * 2 * 4
+                                 if kv_dt == "int8" else 0),
+                             "slab_bytes": paging.slab_hbm_bytes(
+                                 cfg, serve.max_batch, s_max,
+                                 kv_dtype=kv_dt)}
+    if serve.cache_layout == "paged":
+        geom = resolve_page_geometry(serve, rules)
+        cache.update({
+            "page_size": geom.page_size, "n_pages": geom.n_pages,
+            "pages_per_slot": geom.pages_per_slot,
+            "n_partitions": geom.n_partitions,
+            "prefill_chunk": serve.prefill_chunk,
+            "pool_bytes": paging.pool_hbm_bytes(cfg, geom, kv_dtype=kv_dt),
+            # per-bucket resident slots at a full span (L + max_new)
+            "resident_capacity": {
+                str(e): geom.resident_capacity(e + serve.max_new_tokens,
+                                               serve.max_batch)
+                for e in serve.bucket_edges}})
+    else:
+        cache["resident_capacity"] = {str(e): serve.max_batch
+                                      for e in serve.bucket_edges}
+    return {"config": {"max_batch": serve.max_batch,
+                       "prefill_batch": serve.prefill_batch,
+                       "bucket_edges": list(serve.bucket_edges),
+                       "max_new_tokens": serve.max_new_tokens,
+                       "queue_policy": serve.queue_policy},
+            "comm_policy": run.comm_policy,
+            "comm_wire": run.comm_wire or "bf16",
+            "cache": cache,
+            "buckets": {name: bp.asdict() for name, bp in table.items()}}
+
+
 def _check_serve(serve: ServeConfig) -> None:
-    if serve.cache_layout != "slab" or serve.prefill_chunk:
-        raise NotImplementedError(
-            "the paged KV cache and chunked prefill are ROADMAP item A7")
     if serve.kv_dtype != "bf16":
         raise NotImplementedError("the int8 KV cache is ROADMAP item A11")
     if serve.health_monitor or serve.deadline_steps:
@@ -142,6 +219,30 @@ class _Slot:
     admitted_step: int
     bucket: int
     prompt_len: int
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    """One in-flight chunked paged prefill: a bucket group whose chunks run
+    over engine steps, decode ticks between them. Group rows are
+    partition-aligned: row ``p*rows_per_part + i`` computes in dp group
+    ``p`` and writes that group's pool partition."""
+
+    bucket: int
+    chunk_len: int
+    n_chunks: int                    # ceil(bucket / chunk_len)
+    next_chunk: int                  # resumes past fully shared chunks
+    end_chunk: int                   # last chunk any row needs
+    reqs: list                       # Request | None per group row
+    slot_ids: list                   # int | None per group row
+    tokens: np.ndarray               # (G, n_chunks*cl) right-padded prompts
+    lens: np.ndarray                 # (G,) real lengths (1 for pad rows)
+    write_from: np.ndarray           # (G,) shared-prefix write floor
+    group_bt: np.ndarray             # (G, pages_per_slot) global page ids
+    pages: list                      # per row: owned page list (refs held)
+    logit_chunk: list                # per row: chunk containing L-1
+    first_token: list                # per row: its greedy first token
+    started_step: int
 
 
 class ServingEngine:
@@ -181,11 +282,37 @@ class ServingEngine:
         # --- decode pool state -------------------------------------------
         b = self.serve.max_batch
         self.s_max = padded_s_max(self.serve, rules)
-        self._cache_tmpl = T.cache_template(
-            cfg, self._runs["decode"], rules, batch=b, s_max=self.s_max,
-            slot_pos=True)
-        self.cache = T.zeros(self._cache_tmpl, rules, self.device)
-        self._decode_fn = make_serve_step(cfg, self._runs["decode"], rules)
+        self.paged = self.serve.cache_layout == "paged"
+        if self.paged:
+            self.geom = resolve_page_geometry(self.serve, rules)
+            if self.serve.prefill_batch % self.geom.n_partitions:
+                raise ValueError(
+                    f"paged prefill groups are partition-aligned: "
+                    f"prefill_batch ({self.serve.prefill_batch}) must be a "
+                    f"multiple of the pool partition count "
+                    f"({self.geom.n_partitions})")
+            self._cache_tmpl = paging.paged_cache_template(
+                cfg, self._runs["decode"], rules, batch=b, geom=self.geom,
+                kv_dtype=self.serve.kv_dtype)
+            self.cache = T.zeros(self._cache_tmpl, rules, self.device)
+            # block tables start unmapped (-1), never all zeros: a zero row
+            # would alias every free slot onto physical page 0
+            self.cache["block_tables"].fill_(-1)
+            self.allocator = paging.PageAllocator(self.geom)
+            self.prefix = paging.PrefixCache(self.allocator)
+            self._share_ok = all(sp.mlp == "dense"
+                                 for sp in cfg.layer_pattern())
+            self._slot_pages: list[list[int] | None] = [None] * b
+        else:
+            self.geom = None
+            self._cache_tmpl = T.cache_template(
+                cfg, self._runs["decode"], rules, batch=b, s_max=self.s_max,
+                slot_pos=True)
+            self.cache = T.zeros(self._cache_tmpl, rules, self.device)
+        self._job: _PrefillJob | None = None
+        self._decode_fn = make_serve_step(
+            cfg, self._runs["decode"], rules,
+            page_size=self.geom.page_size if self.paged else 0)
         self._prefill_fns: dict[int, Any] = {}
         self._prefill_tmpls: dict[int, Any] = {}
         self._static_fns: dict[tuple[int, int], tuple] = {}
@@ -199,21 +326,35 @@ class ServingEngine:
         self.step_times: list[float] = []
         self.tokens_generated = 0
         self._next_rid = 0
+        # cache-memory accounting (both layouts track peak residency)
+        self.prefix_hits = 0
+        self.shared_pages_reused = 0
+        self.cow_copies = 0
+        self.admission_blocked = 0
+        self._peak_pages = 0
         self._peak_slots = 0
 
     # -- plumbing ----------------------------------------------------------
 
     def _batch_dim(self, pd: T.PD) -> int:
-        """Index of the slot dim of a stored cache leaf."""
+        """Index of the slot dim of a stored cache leaf (the page dim of a
+        page pool)."""
         if not pd.periods:
             return 0
         stacked = len(T.stored_shape(pd, self.rules)) > len(pd.shape)
         return 2 if stacked else 1
 
     def _mem_metrics(self) -> dict:
+        """Cache-memory snapshot attached to every admit/retire event."""
         live = sum(s is not None for s in self.slots)
         self._peak_slots = max(self._peak_slots, live)
-        return {"resident_slots": live}
+        m: dict[str, Any] = {"resident_slots": live}
+        if self.paged:
+            rp = self.allocator.resident_pages
+            self._peak_pages = max(self._peak_pages, rp)
+            m["resident_pages"] = rp
+            m["free_pages"] = self.geom.n_pages - rp
+        return m
 
     def _greedy(self, logits) -> np.ndarray:
         """Next token per slot (argmax over the real vocab; the first
@@ -249,10 +390,45 @@ class ServingEngine:
                 s_max=self.s_max, slot_pos=True)
         return self._prefill_fns[bucket]
 
+    def _paged_prefill_fn(self, bucket: int):
+        """The chunk step, keyed by chunk length: with ``prefill_chunk``
+        every bucket shares one (G, cl) step; single-shot paged prefill
+        (chunk = bucket) has one a bucket, as the slab path."""
+        cl = self.serve.prefill_chunk or bucket
+        if cl not in self._prefill_fns:
+            name = (f"prefill@chunk{cl}" if self.serve.prefill_chunk
+                    else f"prefill@{bucket}")
+            if name not in self.bucket_plans:
+                run = self.base_run
+                plans = tuple(island_plans(
+                    self.cfg, run, self.rules,
+                    batch=self.serve.prefill_batch, seq=cl, phase="prefill",
+                    page_size=self.geom.page_size))
+                self.bucket_plans[name] = BucketPlan(
+                    "prefill", bucket, self.serve.prefill_batch, cl,
+                    plans, plan_overrides(plans))
+                self._runs[name] = dataclasses.replace(
+                    run, island_overrides=self.bucket_plans[name].overrides)
+            self._prefill_fns[cl] = make_paged_prefill_step(
+                self.cfg, self._runs[name], self.rules, self.geom.page_size)
+        return self._prefill_fns[cl]
+
     @property
     def compiled_buckets(self) -> list[int]:
-        """Prefill buckets a step function has been built for."""
+        """Prefill buckets (chunk lengths, paged) a step function has been
+        built for."""
         return sorted(self._prefill_fns)
+
+    def prefix_match_len(self, prompt: Sequence[int]) -> int:
+        """Longest prefix of ``prompt`` the paged ``PrefixCache`` already
+        holds (0 for the slab layout or when sharing is off)."""
+        if not self.paged or not self._share_ok:
+            return 0
+        prompt = tuple(int(t) for t in prompt)
+        sched = ("chunk", self.serve.prefill_chunk
+                 or self.serve.bucket_for(len(prompt)))
+        return max(self.prefix.lookup(p, prompt, sched)[0]
+                   for p in range(self.geom.n_partitions))
 
     # -- request intake ----------------------------------------------------
 
@@ -300,6 +476,213 @@ class ServingEngine:
         for r in group:
             self.queue.remove(r)
         return head_bucket, group, free[:len(group)]
+
+    # -- paged scheduling --------------------------------------------------
+
+    def _next_group_paged(self):
+        """Paged admission: place queued head-bucket requests into
+        partition-aligned group rows, allocating each request's whole page
+        span (prompt + max_new: no allocation mid-decode) up front, with a
+        prefix-share lookup in the registry. Stops at the first request
+        that fits nowhere (strict order: deterministic backpressure);
+        returns (bucket, placements) or None. A placement is (request,
+        slot, row, pages, n_shared, cow_src, write_from)."""
+        if self._job is not None or not self.queue:
+            return None
+        geom, serve = self.geom, self.serve
+        b_loc = serve.max_batch // geom.n_partitions
+        rows_per_part = serve.prefill_batch // geom.n_partitions
+        free = {p: [i for i in range(p * b_loc, (p + 1) * b_loc)
+                    if self.slots[i] is None]
+                for p in range(geom.n_partitions)}
+        if not any(free.values()):
+            return None
+        head_bucket = serve.bucket_for(len(self.queue[0].prompt))
+        if serve.queue_policy == "fcfs":
+            cands = []
+            for r in self.queue:
+                if serve.bucket_for(len(r.prompt)) != head_bucket:
+                    break
+                cands.append(r)
+        else:                                    # bucket-greedy
+            cands = [r for r in self.queue
+                     if serve.bucket_for(len(r.prompt)) == head_bucket]
+        sched = ("chunk", serve.prefill_chunk or head_bucket)
+        placements, used = [], {p: 0 for p in range(geom.n_partitions)}
+        blocked = False
+        for r in cands:
+            if len(placements) == serve.prefill_batch:
+                break
+            need = geom.pages_for(len(r.prompt) + r.max_new_tokens)
+            placed = False
+            for p in range(geom.n_partitions):
+                if not free[p] or used[p] >= rows_per_part:
+                    continue
+                shared, cow_src, wf = [], None, 0
+                if self._share_ok:
+                    m, ent = self.prefix.lookup(p, r.prompt, sched)
+                    if ent is not None and m:
+                        nfull = m // geom.page_size
+                        shared = list(ent.pages[:nfull])
+                        if m % geom.page_size and nfull < len(ent.pages):
+                            cow_src = ent.pages[nfull]
+                        wf = m
+                # retain before evicting, so that evicting the donor entry
+                # cannot free the pages about to be shared
+                self.allocator.retain(shared)
+                if cow_src is not None:
+                    self.allocator.retain([cow_src])
+                while True:
+                    fresh = self.allocator.alloc(p, need - len(shared))
+                    if fresh is not None or not self.prefix.evict_one(p):
+                        break
+                if fresh is None:
+                    self.allocator.release(shared)
+                    if cow_src is not None:
+                        self.allocator.release([cow_src])
+                    continue
+                slot = free[p].pop(0)
+                row = p * rows_per_part + used[p]
+                used[p] += 1
+                placements.append((r, slot, row, shared + fresh,
+                                   len(shared), cow_src, wf))
+                placed = True
+                break
+            if not placed:
+                blocked = True
+                break
+        if not placements:
+            if blocked:
+                self.admission_blocked += 1
+            return None
+        for pl in placements:
+            self.queue.remove(pl[0])
+        return head_bucket, placements
+
+    def _start_prefill_job(self, bucket: int, placements: list) -> None:
+        geom, serve = self.geom, self.serve
+        g = serve.prefill_batch
+        cl = serve.prefill_chunk or bucket
+        n_chunks = -(-bucket // cl)
+        job = _PrefillJob(
+            bucket=bucket, chunk_len=cl, n_chunks=n_chunks,
+            next_chunk=n_chunks - 1, end_chunk=0,
+            reqs=[None] * g, slot_ids=[None] * g,
+            tokens=np.zeros((g, n_chunks * cl), np.int64),
+            lens=np.ones((g,), np.int64),
+            write_from=np.zeros((g,), np.int64),
+            group_bt=np.full((g, geom.pages_per_slot), -1, np.int32),
+            pages=[[] for _ in range(g)],
+            logit_chunk=[0] * g, first_token=[None] * g,
+            started_step=self.step_no)
+        copies = []
+        for (r, slot, row, pages, nsh, cow_src, wf) in placements:
+            length = len(r.prompt)
+            job.reqs[row], job.slot_ids[row] = r, slot
+            job.tokens[row, :length] = r.prompt
+            job.lens[row] = length
+            job.write_from[row] = wf
+            job.group_bt[row, :len(pages)] = pages
+            job.pages[row] = pages
+            if cow_src is not None:
+                # the boundary page: copy the donor's into the first fresh
+                copies.append((cow_src, pages[nsh]))
+                self.cow_copies += 1
+            if wf:
+                self.prefix_hits += 1
+                self.shared_pages_reused += nsh
+            lc = (length - 1) // cl
+            job.logit_chunk[row] = lc
+            job.end_chunk = max(job.end_chunk, lc)
+            # a fully shared prefix still owes the chunk of its logits
+            job.next_chunk = min(job.next_chunk, min(wf // cl, lc))
+        if copies:
+            self._cow_device_copy(copies)
+        for (_, _, _, _, _, cow_src, _) in placements:
+            if cow_src is not None:
+                self.allocator.release([cow_src])   # admission's retain
+        self._job = job
+
+    def _cow_device_copy(self, copies: list[tuple[int, int]]) -> None:
+        """Copy donor boundary pages into fresh ones in every layer's K and
+        V pool, in place. The page dim of a stored pool follows the period
+        dim, and the rank axis where the pool is stacked; src and dst share
+        a partition, as they share a dp group."""
+        src = torch.as_tensor([s_ for s_, _ in copies], device=self.device)
+        dst = torch.as_tensor([d for _, d in copies], device=self.device)
+        for path, pd in T.leaves(self._cache_tmpl):
+            if path[0] != "blocks":
+                continue
+            x = self.cache
+            for k in path:
+                x = x[k]
+            dim = self._batch_dim(pd)
+            x.index_copy_(dim, dst, x.index_select(dim, src))
+
+    def _prefill_chunk_step(self) -> None:
+        """Run the job's next chunk; the live cache's block-table rows stay
+        at the -1 sentinel until ``_finish_prefill_job`` commits them, so
+        decode ticks between chunks cannot touch half-built pages."""
+        job = self._job
+        c = job.next_chunk
+        c0 = c * job.chunk_len
+        fn = self._paged_prefill_fn(job.bucket)
+        dev = self.device
+        with torch.no_grad():
+            logits, self.cache = fn(
+                self.params, self.cache,
+                torch.from_numpy(job.tokens[:, c0:c0 + job.chunk_len])
+                .to(dev),
+                torch.from_numpy(job.group_bt).to(dev),
+                torch.from_numpy(job.lens).to(dev), c0,
+                torch.from_numpy(job.write_from).to(dev))
+        rows = [row for row, r in enumerate(job.reqs)
+                if r is not None and job.logit_chunk[row] == c]
+        if rows:
+            self._check_finite(logits[rows])
+        first = self._greedy(logits)
+        for row in rows:
+            job.first_token[row] = int(first[row])
+        self.events.append(
+            ("prefill_chunk", self.step_no,
+             tuple(r.rid for r in job.reqs if r is not None),
+             c, job.n_chunks))
+        job.next_chunk += 1
+        if job.next_chunk > job.end_chunk:
+            self._finish_prefill_job()
+
+    def _finish_prefill_job(self) -> None:
+        """Last chunk done: commit block-table rows and positions into the
+        live cache, open the slots, register the prompts for prefix
+        sharing."""
+        job, geom = self._job, self.geom
+        self._job = None
+        rows = [i for i, r in enumerate(job.reqs) if r is not None]
+        idx = torch.as_tensor([job.slot_ids[i] for i in rows],
+                              device=self.device)
+        self.cache["block_tables"][idx] = torch.from_numpy(
+            job.group_bt[rows]).to(self.device)
+        self.cache["pos"][idx] = torch.from_numpy(job.lens[rows]).to(
+            device=self.device, dtype=self.cache["pos"].dtype)
+        for i in rows:
+            r, slot = job.reqs[i], job.slot_ids[i]
+            self._slot_pages[slot] = job.pages[i]
+            if self._share_ok:
+                part = geom.slot_partition(slot, self.serve.max_batch)
+                self.prefix.register(
+                    part, r.prompt,
+                    job.pages[i][:geom.pages_for(len(r.prompt))],
+                    ("chunk", job.chunk_len))
+            tok = job.first_token[i]
+            self.slots[slot] = _Slot(
+                rid=r.rid, last_token=tok, remaining=r.max_new_tokens - 1,
+                tokens=[tok], admitted_step=job.started_step,
+                bucket=job.bucket, prompt_len=len(r.prompt))
+            self.tokens_generated += 1
+            self.events.append(("admit", self.step_no, r.rid, slot,
+                                job.bucket, self._mem_metrics()))
+            if self.slots[slot].remaining == 0:
+                self._retire(slot)
 
     def _run_prefill(self, bucket: int, prompts: Sequence[Sequence[int]]):
         """One bucket group's prefill step on a fresh group cache: returns
@@ -362,6 +745,13 @@ class ServingEngine:
             tokens=list(s.tokens), admitted_step=s.admitted_step,
             finished_step=self.step_no, slot=slot)
         self.slots[slot] = None
+        if self.paged:
+            # unmap before releasing: a freed page may be allocated again
+            # next step, and this slot keeps decoding inertly (its writes
+            # must hit the -1 sentinel and drop, never a recycled page)
+            self.cache["block_tables"][slot] = -1
+            self.allocator.release(self._slot_pages[slot] or [])
+            self._slot_pages[slot] = None
         self.events.append(("retire", self.step_no, s.rid, slot,
                             self._mem_metrics()))
 
@@ -390,9 +780,38 @@ class ServingEngine:
         """One engine step: a bucket prefill when admission is possible,
         else a decode tick over the pool; None when fully idle. The step
         time is host wall time around work that ends in a device->host
-        copy of the chosen tokens."""
+        copy of the chosen tokens.
+
+        The paged layout runs ONE prefill chunk a prefill step and
+        alternates with decode ticks while a job is in flight (chunk,
+        decode, chunk, ...), so a decode waits for one chunk at most. An
+        exhausted pool shows here as no group with a queue left: the step
+        decodes instead, draining pages."""
+        active = any(s is not None for s in self.slots)
+        if self.paged:
+            group = self._next_group_paged()
+            if group is None and self._job is None and not active:
+                if self.queue:
+                    raise RuntimeError(
+                        "paged admission deadlock: queue non-empty but "
+                        "no slots/pages can ever free (pool undersized?)")
+                return None
+            t0 = time.perf_counter()
+            if group is not None:
+                self._start_prefill_job(*group)
+                self._prefill_chunk_step()
+                kind = "prefill"
+            elif self._job is not None and not (
+                    active and self.step_kinds
+                    and self.step_kinds[-1] == "prefill"):
+                self._prefill_chunk_step()
+                kind = "prefill"
+            else:
+                self._decode_tick()
+                kind = "decode"
+            return self._record_step(kind, t0)
         group = self._next_group()
-        if group is None and not any(s is not None for s in self.slots):
+        if group is None and not active:
             return None
         t0 = time.perf_counter()
         if group is not None:
@@ -401,6 +820,9 @@ class ServingEngine:
         else:
             self._decode_tick()
             kind = "decode"
+        return self._record_step(kind, t0)
+
+    def _record_step(self, kind: str, t0: float) -> str:
         self.step_no += 1
         self.step_kinds.append(kind)
         self.step_times.append(time.perf_counter() - t0)
@@ -489,11 +911,38 @@ class ServingEngine:
         return [seq[:mx] for seq in out]
 
     def cache_stats(self) -> dict:
-        nbytes = sum(t.numel() * t.element_size()
-                     for _, t in T.leaves(self.cache))
-        return {"layout": "slab", "kv_dtype": self.serve.kv_dtype,
-                "peak_resident_slots": self._peak_slots,
-                "hbm_bytes": nbytes}
+        """The cache's memory: layout, pool bytes against the slab
+        equivalent, residency peaks, prefix-sharing and backpressure
+        counters (JAX's keys; the byte counts are K/V's, by
+        ``paging.slab_hbm_bytes`` and ``pool_hbm_bytes``)."""
+        slab = paging.slab_hbm_bytes(self.cfg, self.serve.max_batch,
+                                     self.s_max,
+                                     kv_dtype=self.serve.kv_dtype)
+        out: dict[str, Any] = {
+            "layout": self.serve.cache_layout,
+            "kv_dtype": self.serve.kv_dtype,
+            "peak_resident_slots": self._peak_slots,
+            "slab_bytes": slab,
+        }
+        if not self.paged:
+            out["hbm_bytes"] = slab
+            return out
+        g = self.geom
+        out.update({
+            "hbm_bytes": paging.pool_hbm_bytes(self.cfg, g,
+                                               kv_dtype=self.serve.kv_dtype),
+            "page_size": g.page_size, "n_pages": g.n_pages,
+            "pages_per_slot": g.pages_per_slot,
+            "n_partitions": g.n_partitions,
+            "resident_pages": self.allocator.resident_pages,
+            "peak_resident_pages": self._peak_pages,
+            "peak_pool_occupancy": self._peak_pages / g.n_pages,
+            "prefix_hits": self.prefix_hits,
+            "shared_pages_reused": self.shared_pages_reused,
+            "cow_copies": self.cow_copies,
+            "admission_blocked": self.admission_blocked,
+        })
+        return out
 
     def stats(self) -> dict:
         total = sum(self.step_times)

@@ -1,6 +1,6 @@
 """Step-function factories — the twins of ``make_train_step``,
-``make_serve_step``, ``make_prefill_step`` and ``make_prefill_cache_step`` in
-``repro/train/step.py``. PyTorch runs eagerly, so where JAX jits these
+``make_serve_step``, ``make_prefill_step``, ``make_prefill_cache_step`` and
+``make_paged_prefill_step`` in ``repro/train/step.py``. PyTorch runs eagerly, so where JAX jits these
 closures the port calls them directly (the serving engine under
 ``torch.no_grad``)."""
 
@@ -74,14 +74,21 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
 
 
 def make_serve_step(cfg: ArchConfig, run: RunConfig,
-                    rules: ShardingRules | None):
+                    rules: ShardingRules | None, *, page_size: int = 0):
     """serve_step(params, cache, tokens) -> (logits, cache): one new token
     against a pre-filled KV cache (for an encoder-decoder also the
-    encoder's K/V in ``cache["cross"]``: ``decode_step_encdec``)."""
-    step = T.decode_step_encdec if cfg.encoder_decoder else T.decode_step
+    encoder's K/V in ``cache["cross"]``: ``decode_step_encdec``).
+    ``page_size`` > 0: the cache is a page pool of ``page_size``-token
+    pages (``runtime/paging.py``)."""
+    if cfg.encoder_decoder:
+        def serve_step(params, cache, tokens):
+            return T.decode_step_encdec(params, cache, tokens, cfg, run,
+                                        rules)
+        return serve_step
 
     def serve_step(params, cache, tokens):
-        return step(params, cache, tokens, cfg, run, rules)
+        return T.decode_step(params, cache, tokens, cfg, run, rules,
+                             page_size=page_size)
     return serve_step
 
 
@@ -101,4 +108,20 @@ def make_prefill_cache_step(cfg: ArchConfig, run: RunConfig,
     def prefill_step(params, cache, tokens, prompt_lens):
         return T.prefill_step(params, cache, tokens, prompt_lens, cfg, run,
                               rules)
+    return prefill_step
+
+
+def make_paged_prefill_step(cfg: ArchConfig, run: RunConfig,
+                            rules: ShardingRules | None, page_size: int):
+    """prefill(params, cache, tokens, block_tables, prompt_lens,
+    chunk_start, write_from) -> (logits, cache): one chunk of paged
+    cache-building prefill against a pool of ``page_size``-token pages
+    (``runtime/paging.py``).
+    With ``prefill_chunk`` set every bucket shares one (G, cl) step and
+    only the chunk count varies."""
+    def prefill_step(params, cache, tokens, block_tables, prompt_lens,
+                     chunk_start, write_from):
+        return T.prefill_paged_step(params, cache, tokens, block_tables,
+                                    prompt_lens, chunk_start, write_from,
+                                    cfg, run, rules, page_size=page_size)
     return prefill_step

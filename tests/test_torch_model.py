@@ -235,15 +235,22 @@ def test_dense_only_and_data_axis_raise():
         assert torch.isfinite(total)
         assert (float(m["aux_loss"]) > 0) == cfg.is_moe
     # data axes larger than 1 run (below); what still raises on them: a
-    # dim sharded over dp and tp at once, and per-rank (serving) outputs
+    # dim sharded over dp and tp at once
     mesh = VirtualMesh((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="A8"):
         pgl.layout(torch.zeros(4, 4), pgl.P(("data", "model"), None), mesh,
                    "model")
+    # per-rank (serving) outputs join over dp (ROADMAP A7c): each dp group
+    # writes its rows of the cache stored per rank
     rules = ShardingRules(mesh, RunConfig(fsdp=False))
     write = L.prefill_write_island(tcfg, rules.run, rules, B, 8)
-    with pytest.raises(NotImplementedError, match="A7c"):
-        write(cache=torch.zeros(B, 2, S_MAX, 16), new=torch.zeros(B, 2, 8, 16))
+    spec = rules.kv_cache(2, B)
+    cache, new = torch.randn(B, 2, S_MAX, 16), torch.randn(B, 2, 8, 16)
+    got = write(cache=pgl.layout(cache, spec, mesh, "model").contiguous(),
+                new=new)
+    want = cache.clone()
+    want[:, :, :8] = new
+    assert torch.equal(pgl.assemble(got, spec, mesh, "model"), want)
 
 
 def test_forward_train_on_data_axis_mesh():
@@ -262,3 +269,55 @@ def test_forward_train_on_data_axis_mesh():
             t["params"], {k: torch.from_numpy(v) for k, v in batch.items()},
             t["cfg"], t["run"], t["rules"])
     np.testing.assert_allclose(float(got), float(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 5),
+                                           (False, None), (False, 7)])
+def test_chunked_attention_matches_jax(causal, window):
+    """``_chunked_attention`` (the CPU's mix at kv >= 8192) against JAX's at
+    small blocks, GQA, causal and windowed: blocks the mask hides whole
+    are skipped in both."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 4, 32, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 32, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 32, 16)).astype(np.float32)
+    want = JL._chunked_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal,
+                                 window=window, qc=8, kc=4)
+    got = L._chunked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal,
+                               window=window, qc=8, kc=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    full = L._full_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal,
+                             window=window)
+    np.testing.assert_allclose(got.numpy(), full.numpy(), atol=1e-5, rtol=0)
+
+
+def test_long_kv_takes_the_chunked_mix_on_the_cpu(monkeypatch):
+    """At kv lengths from the threshold on, the CPU's attention mix is the
+    chunked one, as JAX's: ``attention_block`` equals JAX's with both
+    thresholds lowered to the sequence length."""
+    j, t = _both(None)
+    calls = []
+    real = L._chunked_attention
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(L, "XLA_ATTN_CHUNK_THRESHOLD", 16)
+    monkeypatch.setattr(JL, "XLA_ATTN_CHUNK_THRESHOLD", 16)
+    monkeypatch.setattr(L, "_chunked_attention", spy)
+    x = np.random.default_rng(3).standard_normal((B, 16, 64)) \
+        .astype(np.float32)
+    ja = jax.tree.map(lambda a: a[0], j["params"]["blocks"]["pos0"]["attn"])
+    ta = {k: v[0] for k, v in t["params"]["blocks"]["pos0"]["attn"].items()}
+    want = JL.attention_block(ja, jnp.asarray(x), j["cfg"], j["run"], None)
+    with torch.no_grad():
+        got = L.attention_block(ta, torch.from_numpy(x), t["cfg"], t["run"],
+                                None)
+    assert calls
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)

@@ -223,6 +223,24 @@ Phases (any failure exits non-zero before the last line is printed):
    2-layer paged prefill group and 4 decode ticks against the port's plain
    f32 path on the CPU — each step's logits within 3e-2 relative (details
    in ``serve_paged_cut``);
+5q. int8 KV cache: phase 4's model, settings and trace with
+   ``kv_dtype="int8"``, slab and then paged with 5o's settings; every
+   request done, the cache at (64 + 4) / 128 of phase 4's and 5o's bytes,
+   B1 once a step, B4 launched, B7 once a layer a slab prefill step; a
+   2-layer int8 slab prefill group and 4 decode ticks against the port's
+   plain f32 path on the CPU with the same cache format, within 3e-2
+   (details in ``serve_int8``);
+5r. int8 wire: phase 5e's GEMM pair with ``wire="int8"`` and
+   ``"int8_sr"`` under the rings, 1/2/4 chunks bit-identical, within 2e-2
+   of bulk, ``auto`` a ring, B5/B6 never launched; then 4 layers served
+   with ``comm_wire="int8"`` and B4 never launched (``tp_gemm_int8``);
+5s. compressed training: phase 5's run with ``compress_grads=True``, 3
+   steps: losses finite, the error-feedback residual nonzero after step 1,
+   B3's AG and RS a step as in phase 5 (``train_compressed``);
+5t. 2D-TP MoE serving: moonshot at full width cut to 4 layers on (2, 4)
+   with ``serve_moe_tp_data``: every request done, the grouped GEMM 3
+   launches a chunk, layer, dp group and step, no weight gather; phase
+   4d's 2-layer reference on that engine (``serve_moe_tp_data``);
 6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
    the tinyllama serving run's count for the serving kernels, the MoE
    serving run's for the grouped GEMM, the SSM serving run's for the
@@ -230,9 +248,10 @@ Phases (any failure exits non-zero before the last line is printed):
    sequence-parallel run's for the p2p shift and the flash hop, the
    Ulysses run's for the all-to-all, the TP GEMM pair's for AG×GEMM,
    GEMM×RS and the LCSC all-gather, the SSM training run's for the scan's
-   backward; ``launches_by_path`` has all sixteen paths, 5g's a2a MoE,
-   the whisper runs 5h and 5i, the training runs 5k-5m and the paged and
-   head-sharded serving runs 5o and 5p among them), then
+   backward; ``launches_by_path`` has all twenty-one paths, 5g's a2a MoE,
+   the whisper runs 5h and 5i, the training runs 5k-5m, the paged and
+   head-sharded serving runs 5o and 5p and the runs of 5q-5t among them),
+   then
    GEMM+AR's cold decode row, whose counts are GEMM+AR's whole-path
    counts (prefill and decode together, the counter named by
    ``launches_counter``), not its own, the all-gather's path-form row,
@@ -2166,13 +2185,15 @@ def _routes(calls, n_tok: int) -> list:
     return out
 
 
-def check_moe_reference(dev, eng) -> None:
+def check_moe_reference(dev, eng, tag: str = "moe-reference") -> None:
     """Phase 4d: moonshot at full width cut to 2 layers (the engine's first
     two layers), one prefill group of 4 prompts (bucket 64, 256 routed
     tokens, capacity 30) on the card (bf16, kernels, (1, 4)) against the
     port's plain f32 path on the CPU on the same (1, 4) mesh (with no mesh
     the CPU would run the dense oracle, other semantics), with the same
-    weights (bf16 values widened).
+    weights (bf16 values widened). Phase 5t runs it on its (2, 4) engine
+    with ``serve_moe_tp_data``, where every dp group routes all 256 tokens
+    (its top-k calls are checked alike, group by group).
 
     Routing is discontinuous: a token whose router probabilities nearly
     tie may take another expert under bf16 rounding, and then take a
@@ -2212,8 +2233,10 @@ def check_moe_reference(dev, eng) -> None:
     cpu_params: dict = {}
     for path, t in leaves(params):
         set_path(cpu_params, path, t.cpu().float())
-    cpu_rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), "cpu"),
-                              eng.base_run)
+    mesh_shape = tuple(eng.rules.mesh.shape[a] for a in ("data", "model"))
+    groups = mesh_shape[0] if eng.base_run.serve_moe_tp_data else 1
+    cpu_rules = ShardingRules(VirtualMesh(mesh_shape, ("data", "model"),
+                                          "cpu"), eng.base_run)
     cpu = ServingEngine(dataclasses.replace(cfg, dtype="float32"),
                         eng.base_run, cpu_rules, cpu_params, serve_cfg,
                         device="cpu")
@@ -2245,9 +2268,10 @@ def check_moe_reference(dev, eng) -> None:
     want = prefill(cpu, replay)
     cpu_s = time.perf_counter() - t0
     want_free = prefill(cpu, recorder(free))
-    if not len(card) == len(own) == len(free) == 4:
-        raise AssertionError("expected 2 top-k calls per MoE layer, got "
-                             f"{len(card)} / {len(own)} / {len(free)}")
+    if not len(card) == len(own) == len(free) == 4 * groups:
+        raise AssertionError("expected 2 top-k calls per MoE layer and "
+                             f"routing group, got {len(card)} / {len(own)} "
+                             f"/ {len(free)}")
     r_card = _routes(card, n_tok)
 
     def alike(routes):
@@ -2260,14 +2284,15 @@ def check_moe_reference(dev, eng) -> None:
     share, per_layer = alike(_routes(own, n_tok))
     free_share, free_layer = alike(_routes(free, n_tok))
     err = rel_err(got, want)
-    print(f"[moe-reference] 2-layer full-width prefill (4 prompts, {n_tok} "
-          f"routed tokens, mesh (1, 4)), card (bf16 kernels) vs cpu (f32 "
+    print(f"[{tag}] 2-layer full-width prefill (4 prompts, {n_tok} "
+          f"routed tokens, mesh {mesh_shape}), card (bf16 kernels) vs cpu "
+          f"(f32 "
           f"plain, {cpu_s:.1f} s) on the card's routing: logits rel_err="
           f"{err:.3e} (tol 3e-2), max |diff| "
           f"{float((got - want).abs().max()):.3e}; tokens whose f32 routing "
           f"is the card's in both layers {share:.4f} (gate 0.8), per layer "
           f"{[round(v, 4) for v in per_layer]}", flush=True)
-    print(f"[moe-reference] free-running f32 (its own routing): tokens "
+    print(f"[{tag}] free-running f32 (its own routing): tokens "
           f"routed as on the card in both layers {free_share:.4f}, per "
           f"layer {[round(v, 4) for v in free_layer]}; logits rel_err "
           f"{rel_err(got, want_free):.3e}", flush=True)
@@ -4066,6 +4091,449 @@ def serve_paged_cut(dev) -> dict:
     torch.cuda.empty_cache()
     return out
 
+#: phase 4's serving settings, which phase 5q runs with an int8 cache
+SERVE4 = dict(max_batch=8, prefill_batch=4, bucket_edges=(128, 512),
+              max_new_tokens=32)
+INT8_KV_RATIO = (64 + 4) / 128     # tinyllama: (hd + 4 scale bytes) / 2·hd
+
+
+def slab_logits(cfg, run, rules, params, prompts, dev, *, kv_dtype: str,
+                feed=None, ticks: int = 4, bucket: int = 256
+                ) -> tuple[list, list]:
+    """One slab prefill group (``prefill_step`` over the prompts
+    right-padded to ``bucket``) and ``ticks`` decode steps with a
+    ``kv_dtype`` cache. Decode feeds ``feed``'s tokens, or the greedy ones.
+    Returns (each step's logits on the CPU, the tokens fed)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    g = len(prompts)
+    tmpl = T.cache_template(cfg, run, rules, batch=g, s_max=bucket + ticks,
+                            slot_pos=True, kv_dtype=kv_dtype)
+    cache = T.zeros(tmpl, rules, dev)
+    tokens = torch.zeros((g, bucket), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    outs, fed = [], []
+    with torch.no_grad():
+        logits, cache = T.prefill_step(params, cache, tokens.to(dev), lens,
+                                       cfg, run, rules)
+        outs.append(logits.cpu())
+        for t in range(ticks):
+            nxt = (feed[t] if feed is not None else
+                   logits[:, -1, :cfg.vocab_size].argmax(-1).cpu())
+            fed.append(nxt)
+            logits, cache = T.decode_step(params, cache,
+                                          nxt.view(g, 1).to(dev), cfg, run,
+                                          rules)
+            outs.append(logits.cpu())
+    return outs, fed
+
+
+def serve_int8(dev, slab_tokens: dict) -> dict:
+    """Phase 5q: the int8 KV cache — tinyllama-1.1b at full width and depth
+    on (1, 4), phase 4's settings and trace with ``kv_dtype="int8"``: the
+    slab cache, then the paged one with 5o's settings. Gates: every request
+    completes with finite logits; the cache's bytes are (64 + 4) / 128 =
+    0.531 of the bf16 slab's (phase 4) and pool's (5o); B1 once a step, B4
+    launched, B7 once a layer a prefill step on the slab (the prompt
+    attends over its dequantized K/V) and never on the paged cache (its mix
+    is plain torch, as JAX's is XLA). The greedy tokens' agreement with
+    phase 4's bf16 run is printed, not gated. Then the model cut to 2
+    layers: one slab prefill group (4 prompts, bucket 256) and 4 decode
+    ticks with an int8 cache on the card against the port's plain f32 path
+    on the CPU with the same cache format, fed the card's tokens — each
+    step's logits within 3e-2 relative. Returns the two runs' launches."""
+    import dataclasses
+    import random
+
+    import torch
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.launch.serve import build_engine, synthetic_trace
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.models.transformer import leaves, set_path
+    from repro_torch.runtime import paging
+    from repro_torch.runtime.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    eng = build_engine("tinyllama-1.1b", reduced=False, mesh_shape=(1, 4),
+                       serve=ServeConfig(**SERVE4, kv_dtype="int8"), seed=0,
+                       device=dev,
+                       run_overrides={"comm_backend": "fused",
+                                      "pk_attn_out_island": True})
+    cfg = eng.cfg
+    trace = synthetic_trace(8, eng.serve, cfg.vocab_size, seed=0)
+    print(f"[serve-int8] engine built in {time.perf_counter() - t0:.1f}s: "
+          f"int8 K/V {tuple(eng.cache['blocks']['pos0']['k'].shape)} "
+          f"{eng.cache['blocks']['pos0']['k'].dtype}, scales "
+          f"{tuple(eng.cache['blocks']['pos0']['k_scale'].shape)}",
+          flush=True)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "pk_matmul_ar", "flash_attention")}
+    out = {}
+    runs = (("serve-int8", eng.serve,
+             paging.slab_hbm_bytes(cfg, 8, eng.s_max)),
+            ("serve-int8-paged", ServeConfig(**PAGED_SERVE, kv_dtype="int8"),
+             None))
+    for tag, serve_cfg, bf16_bytes in runs:
+        e = eng if tag == "serve-int8" else ServingEngine(
+            cfg, eng.base_run, eng.rules, eng.params, serve_cfg, device=dev)
+        if bf16_bytes is None:
+            bf16_bytes = paging.pool_hbm_bytes(cfg, e.geom)
+        paged = e.paged
+        for fn in counters.values():
+            fn.launches = 0
+        launches = _serve_run(tag, e, trace, dev,
+                              {k: v for k, v in counters.items()
+                               if not (paged and k == "flash_attention")})
+        fl = counters["flash_attention"].launches
+        want_fl = 0 if paged else cfg.n_layers * e.stats()["prefill_steps"]
+        cs = e.cache_stats()
+        ratio = cs["hbm_bytes"] / bf16_bytes
+        got = {c.rid: c.tokens for c in e.completions.values()}
+        same = sum(a == b for r, toks in slab_tokens.items()
+                   for a, b in zip(got[r], toks))
+        total = sum(map(len, slab_tokens.values()))
+        print(f"[{tag}] cache {cs['hbm_bytes']} B = {ratio:.5f} of the "
+              f"bf16 cache's {bf16_bytes} B (expected {INT8_KV_RATIO}); "
+              f"flash launches {fl} (expected {want_fl}); greedy tokens vs "
+              f"phase 4's bf16 slab run: {same}/{total} agree "
+              f"({same / total:.3f}, not gated)", flush=True)
+        if ratio != INT8_KV_RATIO:
+            raise AssertionError(f"{tag}: int8 cache bytes {ratio} of bf16")
+        if fl != want_fl:
+            raise AssertionError(f"{tag} launched flash {fl} times, not "
+                                 f"{want_fl}")
+        out[tag] = dict(launches, flash_attention=fl)
+        del e
+    params = {**eng.params, "blocks": {"pos0": {
+        g: {k: t[:2] for k, t in sub.items()}
+        for g, sub in eng.params["blocks"]["pos0"].items()}}}
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    run, rules = eng.base_run, eng.rules
+    del eng
+    rng = random.Random(9)
+    prompts = [tuple(rng.randrange(cfg.vocab_size) for _ in range(n))
+               for n in (200, 77, 256, 15)]
+    got, fed = slab_logits(cfg2, run, rules, params, prompts, dev,
+                           kv_dtype="int8")
+    cpu_params = {}
+    for path, t in leaves(params):
+        set_path(cpu_params, path, t.float().cpu())
+    cpu_rules = ShardingRules(VirtualMesh((1, 4), ("data", "model"), "cpu"),
+                              run)
+    want, _ = slab_logits(dataclasses.replace(cfg2, dtype="float32"), run,
+                          cpu_rules, cpu_params, prompts, "cpu",
+                          kv_dtype="int8", feed=fed)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    print(f"[int8-reference] 2-layer slab prefill (bucket 256) + 4 decode "
+          f"ticks with an int8 cache, card (bf16) vs cpu (f32 plain, int8 "
+          f"cache): rel_err {[f'{e:.3e}' for e in errs]} (tol 3e-2)",
+          flush=True)
+    if not all(e <= 3e-2 for e in errs):
+        raise AssertionError(f"int8-cache logits disagree with the f32 "
+                             f"path: {errs}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_gemm_int8(dev) -> dict:
+    """Phase 5r: the int8 wire — phase 5e's TP GEMM pair at tinyllama-1.1b's
+    MLP on (1, 4) (4096 tokens, seed 17), ``CommContext(wire=...)`` with
+    ``"int8"`` and ``"int8_sr"`` under ``ring`` and ``ring_bidir`` (AG) and
+    ``ring`` (RS). Gates: 1, 2 and 4 chunks bit-identical; every output
+    within 2e-2 relative of ``bulk`` at full precision; ``auto`` never
+    ``fused`` under a quantized wire (on the card the policy takes the
+    fused kernels for a full-precision wire; they ship full precision) but
+    a ring where the policy overlaps, bulk where it does not (GEMM+RS at
+    this shape: its GEMM is below the sync cost, whatever the wire), and
+    the AG×GEMM and GEMM×RS kernels (B5, B6) never launched under one. Each call's device time is
+    printed beside bulk's and fused's. Then tinyllama cut to 4 layers
+    serves phase 4's trace with ``comm_wire="int8"``: the GEMM+AR sites'
+    plans under ``auto`` are printed (never ``fused``; at these shapes the
+    analytic policy keeps bulk, as it does at full precision), then the
+    run with the sites pinned to ``ring``, which ships the int8 wire:
+    every plan (ring, int8), every request done, the GEMM+AR kernel (B4)
+    never launched. Returns that run's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ServeConfig
+    from repro_torch.core.comms import GEMM_OP_KIND, CommContext
+    from repro_torch.core.pgl import P, VirtualMesh, layout
+    from repro_torch.launch.serve import synthetic_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import island_plans
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.runtime.serving import ServingEngine
+
+    cfg = get_config("tinyllama-1.1b")
+    mesh = VirtualMesh((1, 4), ("data", "model"), dev)
+    r = mesh.shape["model"]
+    tokens, d, ff = 8 * 512, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    ag = ("all_gather_matmul",
+          layout(randn(tokens, d), P("model", None), mesh, "model"),
+          randn(r, d, 2 * ff // r, scale=d ** -0.5), ("ring", "ring_bidir"),
+          (tokens, 2 * ff // r, d))
+    rs = ("matmul_reduce_scatter",
+          layout(randn(tokens, ff), P(None, "model"), mesh, "model"),
+          randn(r, ff // r, d, scale=ff ** -0.5), ("ring",),
+          (tokens, d, ff // r))
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("ag_matmul_fused", "matmul_rs_fused")}
+    full = CommContext("model", mesh=mesh)
+    with torch.no_grad():
+        for op, x, w, backends, mnk in (ag, rs):
+            bulk = getattr(full, op)(x, w, backend="bulk")
+            t_bulk = time_ms(lambda: getattr(full, op)(x, w, backend="bulk"),
+                             iters=5, reps=3, warmup=1)
+            t_fused = time_ms(lambda: getattr(full, op)(x, w,
+                                                        backend="fused"),
+                              iters=5, reps=3, warmup=1)
+            auto16 = full.auto_gemm_backend(op, *mnk,
+                                            fused_ok=full._prefer_fused())
+            for wire in ("int8", "int8_sr"):
+                ctx = CommContext("model", mesh=mesh, wire=wire)
+                auto = ctx.auto_gemm_backend(op, *mnk,
+                                             fused_ok=ctx._prefer_fused())
+                overlap = ctx.gemm_policy(
+                    *mnk, kind=GEMM_OP_KIND[op]).enabled
+                for fn in counters.values():
+                    fn.launches = 0
+                auto_out = getattr(ctx, op)(x, w)
+                for be in backends:
+                    outs = [getattr(ctx, op)(x, w, backend=be, n_chunks=c)
+                            for c in (1, 2, 4)]
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(o, outs[0]) for o in outs[1:])
+                    err = rel_err(outs[0], bulk)
+                    ms = time_ms(lambda be=be: getattr(ctx, op)(
+                        x, w, backend=be), iters=5, reps=3, warmup=1)
+                    print(f"[wire-int8] {op} wire={wire} backend={be}: "
+                          f"out {tuple(outs[0].shape)}, chunks 1/2/4 "
+                          f"bit-identical {same}, rel_err vs bulk bf16 "
+                          f"{err:.3e} (tol 2e-2); device {ms:.4f} ms a "
+                          f"call (bulk {t_bulk:.4f}, fused {t_fused:.4f})",
+                          flush=True)
+                    if not (same and err <= 2e-2
+                            and bool(torch.isfinite(outs[0]).all())):
+                        raise AssertionError(f"{op} {wire} {be}: chunks "
+                                             f"alike {same}, rel_err {err}")
+                launched = {k: fn.launches for k, fn in counters.items()}
+                print(f"[wire-int8] {op} wire={wire}: auto -> {auto} (the "
+                      f"policy overlaps: {overlap}; at full precision auto "
+                      f"-> {auto16}); B5/B6 launches under the quantized "
+                      f"wire {launched}", flush=True)
+                if (auto in ("ring", "ring_bidir")) != overlap or \
+                        auto == "fused" or any(launched.values()):
+                    raise AssertionError(f"{op} {wire}: auto {auto}, "
+                                         f"launches {launched}")
+                if rel_err(auto_out, bulk) > 2e-2:
+                    raise AssertionError(f"{op} {wire}: auto's output off")
+            del bulk
+    del ag, rs
+
+    cfg4 = dataclasses.replace(cfg, n_layers=PAGED_CUT_LAYERS)
+    run = RunConfig(fsdp=False, decode_seq_shard=True, comm_wire="int8",
+                    pk_attn_out_island=True)
+    rules = ShardingRules(mesh, run)
+    params = T.init_params(T.param_template(cfg4, run, rules),
+                           torch.Generator(device=dev).manual_seed(3),
+                           cfg4.d_model, rules=rules, device=dev)
+
+    def gemm_ar_plans(eng):
+        return {(name, p.island): (p.backend, p.wire)
+                for name, bp in eng.bucket_plans.items() for p in bp.plans
+                if p.op == "matmul_all_reduce"}
+
+    auto = gemm_ar_plans(ServingEngine(cfg4, run, rules, params,
+                                       ServeConfig(**SERVE4), device=dev))
+    run = dataclasses.replace(run, comm_backend="ring")
+    eng = ServingEngine(cfg4, run, rules, params, ServeConfig(**SERVE4),
+                        device=dev)
+    plans = gemm_ar_plans(eng)
+    print(f"[serve-wire-int8] {cfg4.n_layers} layers on (1, 4), "
+          f"comm_wire=int8, GEMM+AR plans (bucket, island) -> (backend, "
+          f"wire) under auto {auto}; pinned to ring {plans}", flush=True)
+    if any(be == "fused" for be, _ in auto.values()) or set(
+            plans.values()) != {("ring", "int8")}:
+        raise AssertionError(f"GEMM+AR plans under the int8 wire: {auto}, "
+                             f"{plans}")
+    trace = synthetic_trace(8, eng.serve, cfg4.vocab_size, seed=0)
+    ar = _counters()["pk_matmul_ar"]
+    ar.launches = 0
+    launches = _serve_run("serve-wire-int8", eng, trace, dev,
+                          {k: fn for k, fn in _counters().items()
+                           if k in ("matmul", "flash_attention")})
+    launches["pk_matmul_ar"] = ar.launches
+    if ar.launches:
+        raise AssertionError(f"GEMM+AR kernel launched {ar.launches} times "
+                             "under comm_wire=int8")
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_compressed(dev, train_launches: dict, train_steps: int) -> dict:
+    """Phase 5s: compressed FSDP training — phase 5's run (tinyllama-1.1b at
+    full width and depth on (2, 4), FSDP, ``comm_backend="fused"``, batch
+    8 x 512 in 2 microbatches) through ``build_and_train(compress_grads=
+    True)`` for 3 steps: int8 error-feedback compression of every step's
+    gradient, its residual (f32, every weight's global layout) carried in
+    the train state. Gates: the losses finite, the residual nonzero after
+    step 1 (the transform's output state, read at every call), B3's AG
+    and RS launched a step as in phase 5. Returns the launches."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.launch.train import build_and_train
+    from repro_torch.models.transformer import leaves
+    from repro_torch.optim.compress import ErrorFeedbackInt8
+
+    steps, batch, seq, mb = 3, 8, 512, 2
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "pk_all_gather", "pk_reduce_scatter")}
+    residual_abs = []
+    real = ErrorFeedbackInt8.transform
+
+    def spy(self, grads, state):
+        out, new = real(self, grads, state)
+        residual_abs.append(float(sum(r.abs().sum()
+                                      for _, r in leaves(new.residual))))
+        return out, new
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        with mock.patch.object(ErrorFeedbackInt8, "transform", spy):
+            state, log = build_and_train(
+                "tinyllama-1.1b", steps=steps, reduced=False,
+                mesh_shape=(2, 4), mesh_axes=("data", "model"), batch=batch,
+                seq=seq, ckpt_dir=ckpt, microbatches=mb, log_every=1,
+                ckpt_every=100, comm_backend="fused", compress_grads=True,
+                device=dev)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del state
+    losses = [m["loss"] for m in log]
+    times = [m["step_time_s"] for m in log]
+    per_step = {k: v / steps for k, v in launches.items()}
+    base = {k: train_launches[k] / train_steps
+            for k in ("pk_all_gather", "pk_reduce_scatter")}
+    print(f"[train-compressed] tinyllama-1.1b full width and depth, (2, 4) "
+          f"FSDP, compress_grads: losses {[round(x, 4) for x in losses]}, "
+          f"grad norms {[round(m['grad_norm'], 4) for m in log]}; step wall "
+          f"times (host clock) {[round(t, 4) for t in times]} s; residual "
+          f"sum |r| after each step {residual_abs}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev)} B", flush=True)
+    print(f"[train-compressed] launches a step {per_step}; phase 5's AG/RS "
+          f"a step {base}", flush=True)
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"compressed losses not all finite: {losses}")
+    if len(residual_abs) != steps or not residual_abs[0] > 0:
+        raise AssertionError(f"residual after step 1: {residual_abs}")
+    if any(per_step[k] != base[k] for k in base):
+        raise AssertionError(f"AG/RS a step {per_step} != phase 5's {base}")
+    return launches
+
+
+def serve_moe_tp_data(dev) -> dict:
+    """Phase 5t: resident 2D-TP MoE serving (``serve_moe_tp_data``) —
+    moonshot-v1-16b-a3b at full width cut to 4 of its 48 layers, as 5k
+    cuts it, on (2, 4): expert weights stay put, their ff sliced over the
+    2 dp groups; every dp group dispatches all the tokens with its slice
+    and the f32 partials are summed over dp. The engine serves phase 4c's
+    trace (8 requests, 32 new tokens, buckets 128/512). Gates: every
+    request completes; the grouped GEMM launches exactly 3 x its chunks a
+    layer, dp group and step; no FSDP gather of expert weights (no
+    all-gather kernel at all, and the MoE island declares none); then the
+    2-layer reference of phase 4d on this (2, 4) engine: logits within 3e-2
+    of the port's plain f32 CPU path on the card's routing. Returns the
+    serving run's launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ServeConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.launch.serve import synthetic_trace
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.runtime.serving import ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    run = RunConfig(fsdp=False, decode_seq_shard=True,
+                    serve_moe_tp_data=True, comm_backend="fused",
+                    pk_attn_out_island=True)
+    rules = ShardingRules(VirtualMesh((2, 4), ("data", "model"), dev), run)
+    t0 = time.perf_counter()
+    params = T.init_params(T.param_template(cfg, run, rules),
+                           torch.Generator(device=dev).manual_seed(0),
+                           cfg.d_model, rules=rules, device=dev)
+    eng = ServingEngine(cfg, run, rules, params, ServeConfig(**SERVE4),
+                        device=dev)
+    isl = L.moe_island(cfg, run, rules, 8, 1)
+    chunks = isl.comm.n_chunks
+    w1 = params["blocks"]["pos0"]["moe"]["w1"]
+    print(f"[serve-moe-tp-data] {cfg.name} cut to {cfg.n_layers} layers on "
+          f"(2, 4), built in {time.perf_counter() - t0:.1f}s: expert w1 "
+          f"stored {tuple(w1.shape)} (ff sliced over dp in the island), "
+          f"island gathers {isl.gathers}, chunks {chunks}", flush=True)
+    trace = synthetic_trace(8, eng.serve, cfg.vocab_size, seed=0)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "grouped_matmul")}
+    gather = _counters()["pk_all_gather"]
+    gather.launches = 0
+    launches = _serve_run("serve-moe-tp-data", eng, trace, dev, counters)
+    st = eng.stats()
+    steps = st["prefill_steps"] + st["decode_steps"]
+    want = 3 * cfg.n_layers * 2 * chunks * steps
+    print(f"[serve-moe-tp-data] grouped_matmul launches "
+          f"{launches['grouped_matmul']}, expected {want} (3 GEMMs x "
+          f"{chunks} chunk(s) x {cfg.n_layers} layers x 2 dp groups x "
+          f"{steps} steps); all-gather launches {gather.launches}",
+          flush=True)
+    if launches["grouped_matmul"] != want:
+        raise AssertionError(f"2D-TP MoE launched the grouped GEMM "
+                             f"{launches['grouped_matmul']} times, not "
+                             f"{want}")
+    if gather.launches or isl.gathers:
+        raise AssertionError("2D-TP MoE serving gathered weights")
+    launches["pk_all_gather"] = gather.launches
+    check_moe_reference(dev, eng, tag="moe-tp-data-reference")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main() -> int:
     import torch
@@ -4107,6 +4575,10 @@ def main() -> int:
     tp_launches = tp_gemm(dev)
     paged_launches = serve_paged(dev, slab_tokens)
     paged_cut_launches = serve_paged_cut(dev)
+    int8_launches = serve_int8(dev, slab_tokens)
+    wire_launches = tp_gemm_int8(dev)
+    compressed_launches = train_compressed(dev, train_launches, 4)
+    tp_data_launches = serve_moe_tp_data(dev)
     main_entries = []
     for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
                                   "pk_all_gather@path",
@@ -4130,7 +4602,13 @@ def main() -> int:
                    "serve_paged_dp": paged_cut_launches["dp"].get(counter,
                                                                   0),
                    "serve_head_sharded": paged_cut_launches[
-                       "head_sharded"].get(counter, 0)}
+                       "head_sharded"].get(counter, 0),
+                   "serve_int8": int8_launches["serve-int8"].get(counter, 0),
+                   "serve_int8_paged": int8_launches[
+                       "serve-int8-paged"].get(counter, 0),
+                   "serve_wire_int8": wire_launches.get(counter, 0),
+                   "train_compressed": compressed_launches.get(counter, 0),
+                   "serve_moe_tp_data": tp_data_launches.get(counter, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",

@@ -29,7 +29,13 @@ Ported ops::
             reduce-scatter ring (payload in the activation dtype, each
             hop's add in f32), GEMM+AR then gathers. JAX's sub-chunks cut
             independent rows or columns; here each step runs whole, so
-            ``n_chunks`` / ``chunk_dim`` cannot change the result.
+            ``n_chunks`` / ``chunk_dim`` cannot change the result. Under a
+            quantized wire (``wire="int8"``/``"int8_sr"``,
+            ``core/quant.py``) each travelling shard or accumulator is
+            quantized once per row and travels as an (int8, f32 scales)
+            pair, dequantized and accumulated in f32 on arrival; GEMM+AR's
+            gather ships one more pair. Plain PyTorch on every device, as
+            JAX's rings are XLA.
 ``ring_bidir`` — AG+GEMM only: the shard's top rows (ceil half) travel
             right, the rest left.
 ``fused`` — ``kernels/collective_matmul.py``: the hand-written AG×GEMM,
@@ -48,8 +54,11 @@ Ported ops::
 Backend precedence is the JAX package's:
 per-call ``backend=`` > context pin > policy, with the same ``ValueError``
 shape guards. The policy is analytic only (``policy="measured"/"auto"`` is
-queue item 12) and prices on ``H100_SXM`` by default; quantized wires are
-queue item 11.
+queue item 12) and prices on ``H100_SXM`` by default. A quantized wire
+reprices the ring's transfer at the wire's bytes an element, pins row
+chunks, and keeps the policy off ``fused``: the fused kernels ship full
+precision, as JAX's do, so only the rings put int8 on the wire; ``bulk``
+and ``fused`` ignore the wire.
 """
 
 from __future__ import annotations
@@ -61,6 +70,9 @@ from typing import Any
 import torch
 
 from repro_torch.core import costmodel as cm
+from repro_torch.core.quant import (WireFormat, dequantize_add,
+                                    dequantize_blocks, quantize_blocks,
+                                    resolve_wire, tree_map)
 from repro_torch.core.schedule import (GEMM_CHUNK_DIM, ChunkSchedule,
                                        OverlapPolicy, a2a_chunk_axis,
                                        choose_a2a_chunks, choose_gemm_chunks,
@@ -117,7 +129,12 @@ class CommContext:
                 f"comm policy {self.policy!r} with calibration tables is "
                 "ROADMAP item 12 (core/autotune.py); the port dispatches "
                 "on the analytic cost model only")
-        self._check_wire(self.wire)
+        resolve_wire(self.wire)          # an unknown name raises here
+
+    def wire_format(self, override: Any = None) -> WireFormat | None:
+        """The call's quantized ``WireFormat`` (per-call ``wire=`` first,
+        then the context's), or None for a full-precision wire."""
+        return resolve_wire(override if override is not None else self.wire)
 
     # -- introspection -----------------------------------------------------
 
@@ -167,22 +184,26 @@ class CommContext:
                     dtype_bytes: int = 2, wire: Any = None) -> OverlapPolicy:
         """The §3.1.3 schedule decision for a GEMM×collective of global
         shape (m, n, k) over this axis; only AG+GEMM may credit the second
-        link-pair of a bidirectional ring."""
-        self._check_wire(wire)
+        link-pair of a bidirectional ring. A quantized wire prices the
+        ring's transfer at its bytes an element, scales included."""
+        fmt = self.wire_format(wire)
         return choose_gemm_collective(
             m, n, k, axis_size=self.axis_size, kind=kind,
             dtype_bytes=dtype_bytes, hw=self.hw,
-            allow_bidir=self.allow_bidir and kind == "all_gather")
+            allow_bidir=self.allow_bidir and kind == "all_gather",
+            wire_bytes=fmt.bytes_per_element if fmt is not None else None)
 
     def auto_gemm_backend(self, op: str, m: int, n: int, k: int, *,
                           dtype_bytes: int = 2, fused_ok: bool = False,
                           bidir_ok: bool = True, wire: Any = None) -> str:
-        """The backend ``backend=None`` resolves to, trace-free (analytic)."""
+        """The backend ``backend=None`` resolves to, trace-free (analytic).
+        Under a quantized wire it is never ``fused``: the fused kernels
+        ship full precision, so the rings are what put int8 on the wire."""
         pol = self.gemm_policy(m, n, k, kind=GEMM_OP_KIND[op],
                                dtype_bytes=dtype_bytes, wire=wire)
         if not pol.enabled:
             return "bulk"
-        if fused_ok:
+        if fused_ok and self.wire_format(wire) is None:
             return "fused"
         if (op == "all_gather_matmul" and pol.strategy == "ring_bidir"
                 and bidir_ok):
@@ -196,11 +217,13 @@ class CommContext:
                             wire: Any = None) -> ChunkSchedule:
         """Chunk-pipeline decision: per-call ``n_chunks`` > context
         ``chunks`` > the analytic argmin (``fused=True`` prices the fused
-        kernel). The fused kernel chunks the payload's rows."""
-        self._check_wire(wire)
+        kernel). The fused kernel chunks the payload's rows, and a
+        quantized wire pins row chunks too (its blocks are per row); the
+        fused schedule ignores the wire."""
         kind = GEMM_OP_KIND[op]
         fused = backend == "fused"
-        if fused:
+        fmt = self.wire_format(wire) if not fused else None
+        if fused or fmt is not None:
             chunk_dim = "m"
         dim = chunk_dim if chunk_dim is not None else GEMM_CHUNK_DIM[kind]
         if backend not in ("ring", "ring_bidir", "fused"):
@@ -214,7 +237,9 @@ class CommContext:
                                  source="explicit")
         sched = choose_gemm_chunks(
             m, n, k, axis_size=self.axis_size, kind=kind,
-            dtype_bytes=dtype_bytes, hw=self.hw, fused=fused)
+            dtype_bytes=dtype_bytes, hw=self.hw,
+            wire_bytes=fmt.bytes_per_element if fmt is not None else None,
+            fused=fused)
         return sched if chunk_dim is None else dataclasses.replace(
             sched, chunk_dim=chunk_dim)
 
@@ -233,13 +258,6 @@ class CommContext:
             shape=shape, split_axis=split_axis, concat_axis=concat_axis)
         return ChunkSchedule(c, "a2a", f"choose_a2a_chunks -> {c}",
                              source="analytic")
-
-    @staticmethod
-    def _check_wire(wire) -> None:
-        if wire not in (None, "bf16"):
-            raise NotImplementedError(
-                f"wire format {wire!r} is ROADMAP item 11 (core/quant.py); "
-                "the port ships full precision only")
 
     def _check_stacked(self, *ts: torch.Tensor) -> None:
         for t in ts:
@@ -260,17 +278,17 @@ class CommContext:
         weight on rank r, in x's dtype (paper Fig. 7). ``ring_bidir`` needs
         ``m_loc >= 2`` on an even axis (an odd shard splits ceil/floor)."""
         self._check_stacked(x, w)
-        self._check_wire(wire)
         n_dev = self.axis_size
         m_loc, k = x.shape[1], x.shape[2]
         n_out = w.shape[2]
         dtype_bytes = x.element_size()
+        fmt = self.wire_format(wire)
 
         def auto() -> str:
             return self.auto_gemm_backend(
                 "all_gather_matmul", m_loc * n_dev, n_out, k,
                 dtype_bytes=dtype_bytes, fused_ok=self._prefer_fused(),
-                bidir_ok=(m_loc >= 2))
+                bidir_ok=(m_loc >= 2), wire=fmt)
 
         be = self._resolve("all_gather_matmul", backend, auto)
         if be == "ring_bidir":
@@ -284,12 +302,13 @@ class CommContext:
             return all_gather_matmul_baseline(x, w)
         sched = self.gemm_chunk_schedule(
             "all_gather_matmul", m_loc * n_dev, n_out, k, backend=be,
-            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim)
+            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim,
+            wire=fmt)
         if be in ("ring", "ring_bidir"):
             return pk_all_gather_matmul(x, w,
                                         bidirectional=(be == "ring_bidir"),
                                         n_chunks=sched.n_chunks,
-                                        chunk_dim=sched.chunk_dim)
+                                        chunk_dim=sched.chunk_dim, wire=fmt)
         from repro_torch.kernels import collective_matmul
         return collective_matmul.ag_matmul_fused(
             x, w, n_chunks=sched.n_chunks).to(x.dtype)
@@ -304,18 +323,19 @@ class CommContext:
         (paper Fig. 8). Ring and fused need ``m`` divisible by the axis
         size."""
         self._check_stacked(x, w)
-        self._check_wire(wire)
         n_dev = self.axis_size
         m, k_loc = x.shape[1], x.shape[2]
         n_out = w.shape[2]
         dtype_bytes = x.element_size()
+        fmt = self.wire_format(wire)
 
         def auto() -> str:
             if m % n_dev != 0:
                 return "bulk"            # ring needs m divisible by the axis
             return self.auto_gemm_backend(
                 "matmul_reduce_scatter", m, n_out, k_loc,
-                dtype_bytes=dtype_bytes, fused_ok=self._prefer_fused())
+                dtype_bytes=dtype_bytes, fused_ok=self._prefer_fused(),
+                wire=fmt)
 
         be = self._resolve("matmul_reduce_scatter", backend, auto)
         if be != "bulk":
@@ -326,10 +346,12 @@ class CommContext:
             return matmul_reduce_scatter_baseline(x, w)
         sched = self.gemm_chunk_schedule(
             "matmul_reduce_scatter", m, n_out, k_loc, backend=be,
-            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim)
+            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim,
+            wire=fmt)
         if be == "ring":
             return pk_matmul_reduce_scatter(x, w, n_chunks=sched.n_chunks,
-                                            chunk_dim=sched.chunk_dim)
+                                            chunk_dim=sched.chunk_dim,
+                                            wire=fmt)
         from repro_torch.kernels import collective_matmul
         return collective_matmul.matmul_rs_fused(
             x, w, n_chunks=sched.n_chunks).to(x.dtype)
@@ -343,18 +365,19 @@ class CommContext:
         same on every rank, in x's dtype (paper Fig. 9). Ring and fused
         need ``m`` divisible by the axis size."""
         self._check_stacked(x, w)
-        self._check_wire(wire)
         n_dev = self.axis_size
         m, k_loc = x.shape[1], x.shape[2]
         n_out = w.shape[2]
         dtype_bytes = x.element_size()
+        fmt = self.wire_format(wire)
 
         def auto() -> str:
             if m % n_dev != 0:
                 return "bulk"
             return self.auto_gemm_backend(
                 "matmul_all_reduce", m, n_out, k_loc,
-                dtype_bytes=dtype_bytes, fused_ok=self._prefer_fused())
+                dtype_bytes=dtype_bytes, fused_ok=self._prefer_fused(),
+                wire=fmt)
 
         be = self._resolve("matmul_all_reduce", backend, auto)
         if be != "bulk":
@@ -365,10 +388,11 @@ class CommContext:
             return matmul_all_reduce_baseline(x, w)
         sched = self.gemm_chunk_schedule(
             "matmul_all_reduce", m, n_out, k_loc, backend=be,
-            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim)
+            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim,
+            wire=fmt)
         if be == "ring":
             return pk_matmul_all_reduce(x, w, n_chunks=sched.n_chunks,
-                                        chunk_dim=sched.chunk_dim)
+                                        chunk_dim=sched.chunk_dim, wire=fmt)
         from repro_torch.kernels import collective_matmul
         return collective_matmul.matmul_ar_fused(
             x, w, n_chunks=sched.n_chunks).to(x.dtype)
@@ -389,7 +413,7 @@ class CommContext:
                 return torch.roll(t, -1 if reverse else 1, 0)
             return _RingShift.apply(t)
 
-        return _tree_map(shift, x)
+        return tree_map(shift, x)
 
     # -- data-movement ops -------------------------------------------------
 
@@ -562,15 +586,6 @@ def reduce_scatter_stacked(x: torch.Tensor, axis: int,
     return pk_comm.ring_reduce_scatter(parts).movedim(1, 1 + axis)
 
 
-def _tree_map(fn, tree):
-    """``fn`` over the tensors of a pytree of dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 class _RingShift(torch.autograd.Function):
     """The fused hop: the p2p kernel forward. JAX's fused ring_shift has no
     gradient (a Pallas call with DMA semaphores has no VJP), so the
@@ -654,19 +669,57 @@ def _check_chunks(n_chunks: int, chunk_dim: str) -> None:
         raise ValueError(f"chunk_dim must be 'm' or 'n', not {chunk_dim!r}")
 
 
-def _ag_ring_lane(x: torch.Tensor, w: torch.Tensor, *,
-                  reverse: bool) -> torch.Tensor:
+#: the seed every stochastic-rounding generator derives from (JAX
+#: ``_wire_sr_key``'s PRNGKey(1729))
+_SR_SEED = 1729
+
+
+def _wire_generators(fmt: WireFormat | None, n: int, salt: int,
+                     device) -> list | None:
+    """One stochastic-rounding generator a rank for a quantized ring, or
+    None for round-to-nearest. Seeded from a fixed seed, the op's salt and
+    the rank (as ``repro.core.comms._wire_sr_key`` folds them into its key),
+    so every call of the same schedule rounds the same way while no two
+    ranks or ops share noise."""
+    if fmt is None or not fmt.stochastic_round:
+        return None
+    return [torch.Generator(device=device).manual_seed(
+        (_SR_SEED << 20) + (salt << 10) + r) for r in range(n)]
+
+
+def _wire_quantize(t: torch.Tensor, fmt: WireFormat,
+                   gens: list | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row block quantization of a stacked (R, rows, cols) payload:
+    (int8 (R, rows, nb, block), f32 scales (R, rows, nb, 1)); a rank's
+    stochastic rounding draws from its own generator."""
+    if gens is None:
+        return quantize_blocks(t, block=fmt.block)
+    parts = [quantize_blocks(t[r], block=fmt.block, generator=g)
+             for r, g in enumerate(gens)]
+    return (torch.stack([q for q, _ in parts]),
+            torch.stack([sc for _, sc in parts]))
+
+
+def _ag_ring_lane(x: torch.Tensor, w: torch.Tensor, *, reverse: bool,
+                  wire: WireFormat | None = None) -> torch.Tensor:
     """One direction of the AG+GEMM ring (``repro.core.comms._ag_ring_lane``)
     on x (R, rows, k), w (R, k, n): at step i rank d holds the shard of rank
     (d - i) % R ((d + i) % R when ``reverse``), sends it one hop on and
     multiplies it by its own weight. Returns (R, R, rows, n): slot s of
-    rank d is ``x[s] @ w[d]``."""
-    n = x.shape[0]
-    steps, cur = [], x
+    rank d is ``x[s] @ w[d]``. A quantized ``wire`` quantizes each shard
+    once, per row, before the first hop; the (int8, scales) pair travels
+    the ring and every arrival — the rank's own shard too — is dequantized
+    to f32 for its GEMM."""
+    n, k = x.shape[0], x.shape[2]
+    cur = x if wire is None else _wire_quantize(
+        x, wire, _wire_generators(wire, n, 1 if reverse else 0, x.device))
+    steps = []
     for i in range(n):
-        steps.append(torch.matmul(cur.float(), w.float()).to(x.dtype))
+        t = cur if wire is None else dequantize_blocks(*cur, k)
+        steps.append(torch.matmul(t.float(), w.float()).to(x.dtype))
         if i < n - 1:
-            cur = torch.roll(cur, -1 if reverse else 1, 0)
+            cur = tree_map(lambda c: torch.roll(c, -1 if reverse else 1, 0),
+                            cur)
     ranks = torch.arange(n, device=x.device)
     hops = ranks[None, :] - ranks[:, None] if reverse \
         else ranks[:, None] - ranks[None, :]
@@ -676,7 +729,8 @@ def _ag_ring_lane(x: torch.Tensor, w: torch.Tensor, *,
 
 def pk_all_gather_matmul(x: torch.Tensor, w: torch.Tensor, *,
                          bidirectional: bool = False, n_chunks: int = 1,
-                         chunk_dim: str = "m") -> torch.Tensor:
+                         chunk_dim: str = "m",
+                         wire: WireFormat | None = None) -> torch.Tensor:
     """The AG+GEMM ring of ``repro.core.comms.pk_all_gather_matmul``:
     x (R, m_loc, k), w (R, k, n) -> (R, R·m_loc, n) in x's dtype. The
     bidirectional ring sends the shard's top ceil(m_loc / 2) rows right
@@ -687,15 +741,18 @@ def pk_all_gather_matmul(x: torch.Tensor, w: torch.Tensor, *,
     independent rows and columns of the step's GEMM, so every count gives
     the same result. Here each step's GEMM runs whole, which makes that
     bit-identity hold by construction (per-chunk CPU GEMMs of a few rows
-    round differently)."""
+    round differently). A quantized ``wire`` (see :func:`_ag_ring_lane`)
+    gives a bulk all-gather of the per-row-quantized shards."""
     _check_chunks(n_chunks, chunk_dim)
     n, m_loc = x.shape[0], x.shape[1]
     if not bidirectional or n % 2 != 0 or m_loc < 2:
-        slots = _ag_ring_lane(x, w, reverse=False)
+        slots = _ag_ring_lane(x, w, reverse=False, wire=wire)
     else:
         h_r = (m_loc + 1) // 2
-        slots = torch.cat([_ag_ring_lane(x[:, :h_r], w, reverse=False),
-                           _ag_ring_lane(x[:, h_r:], w, reverse=True)],
+        slots = torch.cat([_ag_ring_lane(x[:, :h_r], w, reverse=False,
+                                         wire=wire),
+                           _ag_ring_lane(x[:, h_r:], w, reverse=True,
+                                         wire=wire)],
                           dim=2)
     return slots.flatten(1, 2)
 
@@ -712,8 +769,8 @@ def matmul_reduce_scatter_baseline(x: torch.Tensor,
 
 
 def pk_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, *,
-                             n_chunks: int = 1,
-                             chunk_dim: str = "m") -> torch.Tensor:
+                             n_chunks: int = 1, chunk_dim: str = "m",
+                             wire: WireFormat | None = None) -> torch.Tensor:
     """The GEMM+RS ring of ``repro.core.comms.pk_matmul_reduce_scatter``:
     at step i rank d adds its partial for block (d+1+i) % R to the
     accumulator arriving from rank d+1, so after R-1 hops rank d holds
@@ -721,7 +778,10 @@ def pk_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, *,
     The accumulator travels in x's dtype and each hop's add runs in f32.
     As in ``pk_all_gather_matmul``, the sub-chunks cut independent rows or
     columns, so the partials are computed whole and every count gives the
-    same bits."""
+    same bits. A quantized ``wire`` keeps the accumulator f32 on the rank
+    and ships it quantized per row: quantize, shift, then dequantize and
+    add as one fused multiply-add (``quant.dequantize_add``), as XLA
+    compiles JAX's ring."""
     _check_chunks(n_chunks, chunk_dim)
     n, m = x.shape[0], x.shape[1]
     if m % n:
@@ -729,6 +789,15 @@ def pk_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, *,
     m_blk = m // n
     parts = torch.matmul(x.float(), w.float()).view(n, n, m_blk, -1)
     ranks = torch.arange(n, device=x.device)
+    if wire is not None:
+        gens = _wire_generators(wire, n, 2, x.device)
+        acc = parts[ranks, (ranks + 1) % n]
+        for i in range(1, n):
+            q, sc = _wire_quantize(acc, wire, gens)
+            acc = dequantize_add(torch.roll(q, -1, 0), torch.roll(sc, -1, 0),
+                                 parts.shape[-1],
+                                 parts[ranks, (ranks + 1 + i) % n])
+        return acc.to(x.dtype)
     acc = parts[ranks, (ranks + 1) % n].to(x.dtype)
     for i in range(1, n):
         acc = (torch.roll(acc, -1, 0).float()
@@ -744,11 +813,18 @@ def matmul_all_reduce_baseline(x: torch.Tensor,
 
 
 def pk_matmul_all_reduce(x: torch.Tensor, w: torch.Tensor, *,
-                         n_chunks: int = 1,
-                         chunk_dim: str = "m") -> torch.Tensor:
+                         n_chunks: int = 1, chunk_dim: str = "m",
+                         wire: WireFormat | None = None) -> torch.Tensor:
     """The GEMM+AR ring of ``repro.core.comms.pk_matmul_all_reduce``: the
-    GEMM+RS ring, then every rank gathers the R reduced blocks."""
+    GEMM+RS ring, then every rank gathers the R reduced blocks. A quantized
+    ``wire`` applies to both halves: the gather ships each rank's reduced
+    block as one more (int8, scales) pair, dequantized after it."""
     rs = pk_matmul_reduce_scatter(x, w, n_chunks=n_chunks,
-                                  chunk_dim=chunk_dim)
+                                  chunk_dim=chunk_dim, wire=wire)
+    if wire is not None:
+        q, sc = _wire_quantize(
+            rs.float(), wire,
+            _wire_generators(wire, x.shape[0], 3, x.device))
+        rs = dequantize_blocks(q, sc, rs.shape[-1]).to(rs.dtype)
     out = rs.reshape(-1, rs.shape[2])
     return out.unsqueeze(0).expand(x.shape[0], *out.shape)

@@ -27,8 +27,10 @@ gather's autograd backward is the reduce-scatter of the copies' gradients.
 An input stored stacked (a KV cache, a page pool) whose spec shards a dim
 over dp is sliced along that dim after its rank axis, and a
 :class:`Stacked` output is joined there: group g's KV cache rows, or its
-partition of a page pool. Measured plans, guards and scripted faults are
-not ported (ROADMAP items 12 and 13).
+partition of a page pool. An output marked :class:`Summed` is a partial
+every dp group computes of the whole: the groups' outputs are summed in dp
+order (JAX's ``psum`` / ``psum_scatter`` over the dp axes). Measured plans,
+guards and scripted faults are not ported (ROADMAP items 12 and 13).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from repro_torch.core.comms import GEMM_OP_KIND, OP_BACKENDS, CommContext
 from repro_torch.core.pgl import P
 from repro_torch.core.schedule import a2a_chunk_axis
 
-__all__ = ["Island", "Gather", "Comm", "IslandPlan", "Stacked",
+__all__ = ["Island", "Gather", "Comm", "IslandPlan", "Stacked", "Summed",
            "comm_context", "render_plans", "plan_overrides",
            "island_override", "rank_index", "fsdp_gather", "dp_groups"]
 
@@ -142,6 +144,15 @@ class Gather:
 class Stacked:
     """Out spec marker: return this output as stacked ``(R, *local)``
     instead of reassembling the global tensor."""
+    spec: P
+
+
+@dataclasses.dataclass(frozen=True)
+class Summed:
+    """Out spec marker: on a dp > 1 mesh each dp group's output is a
+    partial of the global tensor ``spec`` describes, and the groups'
+    outputs are summed in dp order (the sum over the dp axes that JAX's
+    body runs as a ``psum_scatter``)."""
     spec: P
 
 
@@ -249,6 +260,11 @@ def _join_groups(specs, outs: list, dp):
     if isinstance(specs, tuple) and not isinstance(specs, P):
         return tuple(_join_groups(s, [o[i] for o in outs], dp)
                      for i, s in enumerate(specs))
+    if isinstance(specs, Summed):
+        acc = outs[0]
+        for o in outs[1:]:
+            acc = acc + o
+        return acc
     spec = specs.spec if isinstance(specs, Stacked) else specs
     d = pgl.dp_dim(spec, dp)
     if d is None:
@@ -402,8 +418,9 @@ class Island:
                    for n, a in arrays.items()}
         out = self.body(ctx, **stacked)
         return _map_specs(
-            lambda o, s: (o if isinstance(s, Stacked)
-                          else pgl.assemble(o, s, self.mesh, self.axis)),
+            lambda o, s: (o if isinstance(s, Stacked) else pgl.assemble(
+                o, s.spec if isinstance(s, Summed) else s, self.mesh,
+                self.axis)),
             self.out_specs, out)
 
     # -- introspection -----------------------------------------------------
@@ -461,7 +478,12 @@ class Island:
             else:
                 n_chunks = c.n_chunks if c.n_chunks is not None else 1
                 chunk_dim, hidden = None, 0.0
-            wire = "bf16" if backend in ("ring", "ring_bidir") else None
+            # only the rings ship a quantized wire; bulk and fused carry
+            # full precision whatever the config says
+            fmt = ctx.wire_format()
+            wire = None
+            if backend in ("ring", "ring_bidir"):
+                wire = fmt.name if fmt is not None else "bf16"
             return dataclasses.replace(
                 base, backend=backend, n_chunks=n_chunks,
                 chunk_dim=chunk_dim, hidden_fraction=hidden,

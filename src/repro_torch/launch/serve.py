@@ -1,6 +1,6 @@
 """Serving launcher of the port — a thin CLI over the continuous-batching
 engine (``repro_torch.runtime.serving``), the twin of
-``repro/launch/serve.py`` without the fleet, int8 and fault flags.
+``repro/launch/serve.py`` without the fleet and fault flags.
 
     # static batch, on the GPU
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
@@ -18,6 +18,11 @@ engine (``repro_torch.runtime.serving``), the twin of
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
         --mesh-shape 2 4 --mode continuous --cache-layout paged \
         --page-size 4 --prefill-chunk 8 --device cpu
+
+    # an int8 KV cache and int8 ring payloads
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
+        --mesh-shape 1 4 --mode continuous --kv-dtype int8 \
+        --comm-wire int8 --device cpu
 
 The entry points run on ``cuda`` unless ``device`` names another device;
 with no GPU and no device they raise.
@@ -87,14 +92,15 @@ def synthetic_trace(n_requests: int, serve: ServeConfig, vocab: int,
 def generate(arch: str, *, reduced: bool, batch: int, prompt_len: int,
              gen_tokens: int, mesh_shape=None, mesh_axes=("data", "model"),
              seed: int = 0, comm_chunks: int | None = None,
-             run_overrides=None, device=None) -> torch.Tensor:
+             run_overrides=None, kv_dtype: str = "bf16",
+             device=None) -> torch.Tensor:
     """Static-batch generation: ``batch`` synthetic prompts of
     ``prompt_len`` tokens, prefilled as one batch and decoded in lockstep.
     Returns the (batch, gen_tokens) ids and prints tokens/s."""
     serve = ServeConfig(bucket_edges=(max(prompt_len, 2),),
                         max_new_tokens=gen_tokens,
                         max_batch=batch, prefill_batch=min(batch, 8),
-                        exact_buckets=True)
+                        exact_buckets=True, kv_dtype=kv_dtype)
     eng = build_engine(arch, reduced=reduced, mesh_shape=mesh_shape,
                        mesh_axes=mesh_axes, serve=serve, seed=seed,
                        comm_chunks=comm_chunks, run_overrides=run_overrides,
@@ -146,18 +152,27 @@ def main(argv=None):
     ap.add_argument("--comm-backend", default=None,
                     help="pin every GEMM island's collective backend "
                          "(bulk / ring / fused)")
+    ap.add_argument("--comm-wire", default=None,
+                    choices=["bf16", "int8", "int8_sr"],
+                    help="GEMM-collective ring wire format (int8 ships "
+                         "quantized payloads + f32 scales)")
+    ap.add_argument("--kv-dtype", default="bf16", choices=["bf16", "int8"],
+                    help="KV-cache storage dtype: int8 quantizes on write "
+                         "with per-(token, head) f32 scales")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU, which must exist)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    overrides = {"comm_backend": args.comm_backend} if args.comm_backend \
-        else {}
+    overrides = {"comm_wire": args.comm_wire}
+    if args.comm_backend:
+        overrides["comm_backend"] = args.comm_backend
 
     if args.mode == "static":
         generate(args.arch, reduced=args.reduced, batch=args.batch,
                  prompt_len=args.prompt_len, gen_tokens=args.tokens,
                  mesh_shape=args.mesh_shape, comm_chunks=args.comm_chunks,
-                 seed=args.seed, run_overrides=overrides, device=args.device)
+                 seed=args.seed, run_overrides=overrides,
+                 kv_dtype=args.kv_dtype, device=args.device)
         return
 
     edges = tuple(args.bucket_edges) if args.bucket_edges else (8, 16, 32)
@@ -168,7 +183,8 @@ def main(argv=None):
                         exact_buckets=T.has_ssm(get_config(args.arch)),
                         cache_layout=args.cache_layout,
                         page_size=args.page_size, n_pages=args.n_pages,
-                        prefill_chunk=args.prefill_chunk)
+                        prefill_chunk=args.prefill_chunk,
+                        kv_dtype=args.kv_dtype)
     eng = build_engine(args.arch, reduced=args.reduced,
                        mesh_shape=args.mesh_shape, serve=serve,
                        seed=args.seed, comm_chunks=args.comm_chunks,

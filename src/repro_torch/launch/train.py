@@ -12,7 +12,19 @@ gradient reduction its reduce-scatter (the ring kernels with
 ``device`` names another device; with no GPU and no device they raise.
 Every decoder family trains: dense, MoE, SSM and hybrid. An
 encoder-decoder is refused (no data pipeline feeds its frames, in JAX
-either); the int8 gradient and wire formats are ROADMAP item 11.
+either). ``--comm-wire int8`` (or ``int8_sr``) ships the GEMM-collective
+rings' payloads quantized (``core/quant.py``); ``--compress-grads`` runs
+int8 gradient compression with error feedback
+(``optim.compress.ErrorFeedbackInt8``) on the accumulated gradient before
+each update.
+
+Where the port and JAX part: JAX's launcher keeps the error-feedback state
+in a dict that the function it jits reads and writes, so ``jax.jit``
+traces the residual once as a constant (zeros) and every step compresses
+without feedback (ROADMAP C14). The port carries the residual from step to
+step, as ``ErrorFeedbackInt8`` is specified to: it is the train state's
+``grad_state``, threaded through ``make_train_step`` and saved in the
+checkpoint with the rest of the state.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import island_plans
 from repro_torch.models.sharding import ShardingRules
 from repro_torch.optim.adamw import AdamW, warmup_cosine
+from repro_torch.optim.compress import ErrorFeedbackInt8
 from repro_torch.runtime.driver import DriverConfig, TrainDriver
 from repro_torch.train.step import TrainState, make_train_step
 
@@ -47,11 +60,10 @@ def build_and_train(arch: str, *, steps: int, reduced: bool, mesh_shape,
     """Config -> random parameters (``torch.Generator`` seeded with
     ``seed``) -> AdamW (warmup-cosine) -> ``TrainDriver``; returns
     (state, metrics_log). ``comm_backend`` pins every CommContext backend
-    (``"fused"``: the ring kernels for every FSDP gather and gradient)."""
-    if compress_grads or comm_wire not in (None, "bf16"):
-        raise NotImplementedError(
-            "int8 gradient compression and int8 wires are ROADMAP item 11 "
-            "(core/quant.py, optim/compress.py)")
+    (``"fused"``: the ring kernels for every FSDP gather and gradient).
+    ``compress_grads``: int8 error-feedback compression of each step's
+    gradient, its residual in ``state.grad_state`` (the global layout of
+    every weight, f32)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -80,8 +92,15 @@ def build_and_train(arch: str, *, steps: int, reduced: bool, mesh_shape,
     params = T.init_params(tmpl, gen, cfg.d_model, rules=rules, device=dev)
     opt = AdamW(lr=warmup_cosine(lr, max(10, steps // 20), steps),
                 weight_decay=0.01)
-    state = TrainState(params=params, opt=opt.init(params))
-    step_fn = make_train_step(cfg, run, rules, opt)
+    grad_transform = grad_state = None
+    if compress_grads:
+        ef = ErrorFeedbackInt8()
+        grad_transform = ef.transform
+        grad_state = ef.init(T.zeros(tmpl, None, dev))   # global shapes
+    state = TrainState(params=params, opt=opt.init(params),
+                       grad_state=grad_state)
+    step_fn = make_train_step(cfg, run, rules, opt,
+                              grad_transform=grad_transform)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch, seed=seed), device=dev)
     driver = TrainDriver(
@@ -105,7 +124,8 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default="build/repro_torch_ckpt")
-    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradient compression with error feedback")
     ap.add_argument("--no-pk", action="store_true")
     ap.add_argument("--comm-policy", default="analytic",
                     choices=["analytic", "measured", "auto"],
@@ -117,8 +137,9 @@ def main(argv=None):
                     help="a2a chunk count for the Ulysses attention island")
     ap.add_argument("--comm-wire", default=None,
                     choices=["bf16", "int8", "int8_sr"],
-                    help="GEMM-collective ring wire format (int8: ROADMAP "
-                         "item 11)")
+                    help="GEMM-collective ring wire format: int8 ships "
+                         "quantized payloads + f32 scales (int8_sr adds "
+                         "stochastic rounding); default full precision")
     ap.add_argument("--comm-backend", default=None,
                     help="pin one CommContext backend (bulk/ring/fused)")
     ap.add_argument("--device", default="cuda",

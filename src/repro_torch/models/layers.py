@@ -35,10 +35,14 @@ interior is striped over tp like the slab's sequence dim, block tables map
 each slot's logical pages to the pool, and their mix is plain torch, as
 JAX's is XLA (no Pallas kernel). Head-sharded caches
 (``decode_seq_shard=False``) run no island: their decode is
-``_full_attention`` over the global cache, as in JAX. Not ported: the
-resident 2D-TP MoE serving layout (``serve_moe_tp_data``, A9c) and int8
-caches (A11). The MoE island runs the replicated-dispatch strategy
-(``core/moe.py``), whose expert GEMMs are the grouped-GEMM kernel.
+``_full_attention`` over the global cache, as in JAX. Every cache may be
+int8 (``ServeConfig.kv_dtype="int8"``): one f32 scale a (token, head),
+quantized on write and dequantized on read, in plain torch as JAX's XLA.
+Under a quantized ``RunConfig.comm_wire`` the GEMM islands declare the
+wire's element width, as JAX's do. The MoE island runs the
+replicated-dispatch strategy (``core/moe.py``), whose expert GEMMs are the
+grouped-GEMM kernel, with device-major expert weights or, for serving,
+resident 2D-TP ones (``serve_moe_tp_data``: ff sliced over the dp axes).
 """
 
 from __future__ import annotations
@@ -50,10 +54,12 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import moe as pk_moe
 from repro_torch.core.pgl import P
 from repro_torch.core.pgl import axes_size as pgl_axes_size
+from repro_torch.core.quant import resolve_wire
 from repro_torch.core.ring_attention import pk_ring_attention
 from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
-                                       Stacked, comm_context, fsdp_gather,
-                                       island_override, rank_index)
+                                       Stacked, Summed, comm_context,
+                                       fsdp_gather, island_override,
+                                       rank_index)
 from repro_torch.core.ulysses import pk_ulysses_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import matmul, matmul_stacked
@@ -64,6 +70,13 @@ NEG_INF = -1e30
 
 def _dtype_bytes(cfg: ArchConfig) -> int:
     return 2 if cfg.dtype == "bfloat16" else 4
+
+
+def _wire_bytes(cfg: ArchConfig, run: RunConfig) -> int:
+    """Element width a GEMM island's ``Comm`` declares: under a quantized
+    ``RunConfig.comm_wire`` the wire's (1 for int8), else the dtype's."""
+    fmt = resolve_wire(run.comm_wire)
+    return fmt.dtype_bytes if fmt is not None else _dtype_bytes(cfg)
 
 
 def _col_proj(x: torch.Tensor, w) -> torch.Tensor:
@@ -256,7 +269,7 @@ def attn_out_island(cfg: ArchConfig, run: RunConfig,
         divisible=((h_full, tp), (b * s, tp)),
         comm=Comm("matmul_all_reduce", m=b_loc * s, n=d,
                   k=h_full // tp_size if h_full % tp_size == 0 else h_full,
-                  dtype_bytes=_dtype_bytes(cfg)))
+                  dtype_bytes=_wire_bytes(cfg, run)))
 
 
 def sp_attention_island(cfg: ArchConfig, run: RunConfig,
@@ -390,7 +403,8 @@ def attention_block(p, x, cfg: ArchConfig, run: RunConfig,
 def _cache_write(cache, new, pos):
     """Write a one-token K/V block into the cache's seq dim at ``pos``
     (scalar, or a per-slot (B,) vector; out-of-range positions write
-    nothing). Returns a new cache."""
+    nothing). Returns a new cache. A rank-3 (B, Hkv, S) cache is an int8
+    cache's scale plane."""
     if not (torch.is_tensor(pos) and pos.dim()):
         out = cache.clone()
         p = int(pos)
@@ -399,7 +413,30 @@ def _cache_write(cache, new, pos):
         return out
     oh = torch.arange(cache.shape[2], device=cache.device)[None, :] \
         == pos[:, None]                                         # (B, S)
-    return torch.where(oh[:, None, :, None], new.to(cache.dtype), cache)
+    mask = oh[:, None, :, None] if cache.dim() == 4 else oh[:, None, :]
+    return torch.where(mask, new.to(cache.dtype), cache)
+
+
+# int8 KV cache (``ServeConfig.kv_dtype="int8"``): K/V stored as int8 with
+# one f32 scale a (token, head), quantized on write and dequantized on read,
+# as in JAX. The scale planes are the cache's shape without hd and ride in
+# the cache tree as "k_scale"/"v_scale"; a bf16 tree never takes this path.
+
+KV_SCALE_EPS = 1e-12
+
+
+def _kv_quantize(new):
+    """Symmetric per-(token, head) int8: ``new (..., hd)`` -> ``(q int8,
+    scale f32 of shape new.shape[:-1])``."""
+    f = new.float()
+    # times the f32 reciprocal of 127, as XLA compiles JAX's division
+    scale = f.abs().amax(dim=-1).clamp_min(KV_SCALE_EPS) * (1.0 / 127.0)
+    q = torch.round(f / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _kv_dequantize(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def _sharded_mix(ctx, q, k_, v_, kvl, window, cfg: ArchConfig):
@@ -431,11 +468,15 @@ def _sharded_mix(ctx, q, k_, v_, kvl, window, cfg: ArchConfig):
 
 def decode_island(cfg: ArchConfig, run: RunConfig,
                   rules: ShardingRules | None, b: int, s_max: int, *,
-                  long_ctx: bool, pos, kv_len, window) -> Island:
+                  long_ctx: bool, pos, kv_len, window,
+                  quant: bool = False) -> Island:
     """One-token decode over the sequence-sharded KV cache: rank-local slot
     write + flash-decode log-sum-exp merge over the tp ranks
     (:func:`_sharded_mix`). ``pos`` is a scalar (lockstep) or a per-slot
-    (B,) vector (the engine's pool)."""
+    (B,) vector (the engine's pool). ``quant``: the cache is int8 with
+    per-(token, head) f32 scale planes (``cache_ks``/``cache_vs`` inputs,
+    stored like the cache) — the new token is quantized before its write
+    and the whole cache dequantized for the mix, as in JAX."""
     if long_ctx:
         raise NotImplementedError(
             "long-context decode over (dp × tp) is ROADMAP item A8")
@@ -444,16 +485,30 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
 
     def reference(q, cache_k, cache_v, k_new, v_new, **kw):
         p_ = kw.get("pos", pos)
+        kvl = p_ + 1 if vec else kv_len
+        if quant:
+            qk, sk = _kv_quantize(k_new)
+            qv, sv = _kv_quantize(v_new)
+            ck, cv = _cache_write(cache_k, qk, p_), _cache_write(cache_v,
+                                                                 qv, p_)
+            ks = _cache_write(kw["cache_ks"], sk, p_)
+            vs = _cache_write(kw["cache_vs"], sv, p_)
+            o = _full_attention(q, _kv_dequantize(ck, ks, q.dtype),
+                                _kv_dequantize(cv, vs, q.dtype),
+                                causal=False, window=window, q_offset=0,
+                                kv_len=kvl)
+            return o, ck, cv, ks, vs
         ck = _cache_write(cache_k, k_new, p_)
         cv = _cache_write(cache_v, v_new, p_)
         o = _full_attention(q, ck, cv, causal=False, window=window,
-                            q_offset=0, kv_len=p_ + 1 if vec else kv_len)
+                            q_offset=0, kv_len=kvl)
         return o, ck, cv
 
     if rules is None:
         return Island("decode_attn", run=run, reference=reference)
     tp = rules.tp
     cache_spec = rules.kv_cache(hkv, b)
+    scale_spec = P(*cache_spec[:3])
     bspec = rules.dim(b, rules.dp)
     qspec = P(bspec, None, None, None)
 
@@ -473,18 +528,35 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
             oh = (ar[None, :] == local[:, None]) & hit[:, None]     # (R, s)
             mask = oh[:, None, None, :, None]
             kvl = kv_len
-        k_ = torch.where(mask, k_new.to(cache_k.dtype), cache_k)
-        v_ = torch.where(mask, v_new.to(cache_v.dtype), cache_v)
+
+        def upd(c, n):                  # a scale plane lacks the hd dim
+            m = mask if c.dim() == 5 else mask[..., 0]
+            return torch.where(m, n.to(c.dtype), c)
+
+        if quant:
+            qk, sk = _kv_quantize(k_new)
+            qv, sv = _kv_quantize(v_new)
+            ck, cv = upd(cache_k, qk), upd(cache_v, qv)
+            ks, vs = upd(kw["cache_ks"], sk), upd(kw["cache_vs"], sv)
+            o = _sharded_mix(ctx, q, _kv_dequantize(ck, ks, q.dtype),
+                             _kv_dequantize(cv, vs, q.dtype), kvl, window,
+                             cfg)
+            return o, ck, cv, ks, vs
+        k_, v_ = upd(cache_k, k_new), upd(cache_v, v_new)
         return _sharded_mix(ctx, q, k_, v_, kvl, window, cfg), k_, v_
 
     inputs = {"q": qspec, "cache_k": cache_spec, "cache_v": cache_spec,
               "k_new": qspec, "v_new": qspec}
+    outs = (qspec, Stacked(cache_spec), Stacked(cache_spec))
+    if quant:
+        inputs["cache_ks"] = inputs["cache_vs"] = scale_spec
+        outs += (Stacked(scale_spec), Stacked(scale_spec))
     if vec:
         inputs["pos"] = P(bspec)
     return Island(
         "decode_attn", rules=rules, run=run, axis=tp, fallback_axes=tp,
         inputs=inputs,
-        out_specs=(qspec, Stacked(cache_spec), Stacked(cache_spec)),
+        out_specs=outs,
         body=body, reference=reference,
         enable=run.decode_seq_shard,
         divisible=((s_max, tp),),
@@ -528,14 +600,17 @@ def cross_decode_island(cfg: ArchConfig, run: RunConfig,
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ArchConfig,
                      run: RunConfig, rules: ShardingRules | None, *,
-                     cross_kv=None):
+                     cross_kv=None, k_scale=None, v_scale=None):
     """One-token decode with KV cache. x: (B, 1, d); cache_k/v: global
     (B, Hkv, S_max, hd), or stacked per rank when sequence-sharded; pos:
     scalar or per-slot (B,). Returns (out (B, 1, d), new_k, new_v).
     ``cross_kv``: an encoder-decoder's cross-attention over the encoder's
     (k, v) (B, Hkv, Se, hd), stored like the cache — no cache, no RoPE, no
     window, every key visible (:func:`cross_decode_island` on a mesh) —
-    returning (out, None, None)."""
+    returning (out, None, None). int8 mode (``k_scale``/``v_scale``, the
+    per-(token, head) scale planes stored like the cache): the new token
+    is quantized on write, the cache dequantized on read, and the return
+    grows to (out, new_k, new_v, new_k_scale, new_v_scale)."""
     b, _, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _col_proj(x, p["wq"]).reshape(b, 1, hq, hd).transpose(1, 2)
@@ -556,67 +631,110 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ArchConfig,
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     kv_len = pos + 1
     window = cfg.sliding_window
+    quant = k_scale is not None
+    scales = ()
     if rules is not None and run.decode_seq_shard:
         s_max = cache_k.shape[-2] * (rules.mesh.shape[rules.tp]
                                      if cache_k.dim() == 5 else 1)
         island = decode_island(cfg, run, rules, b, s_max, long_ctx=False,
-                               pos=pos, kv_len=kv_len, window=window)
+                               pos=pos, kv_len=kv_len, window=window,
+                               quant=quant)
         kw = {"pos": pos} if vec else {}
-        o, cache_k, cache_v = island(q=q, cache_k=cache_k, cache_v=cache_v,
-                                     k_new=k_new, v_new=v_new, **kw)
+        if quant:
+            kw.update(cache_ks=k_scale, cache_vs=v_scale)
+        o, cache_k, cache_v, *scales = island(
+            q=q, cache_k=cache_k, cache_v=cache_v, k_new=k_new, v_new=v_new,
+            **kw)
     else:
-        cache_k = _cache_write(cache_k, k_new, pos)
-        cache_v = _cache_write(cache_v, v_new, pos)
-        o = _full_attention(q, cache_k, cache_v, causal=False, window=window,
+        if quant:
+            # the head-sharded fallback quantizes outside any island
+            qk, sk = _kv_quantize(k_new)
+            qv, sv = _kv_quantize(v_new)
+            cache_k = _cache_write(cache_k, qk, pos)
+            cache_v = _cache_write(cache_v, qv, pos)
+            scales = (_cache_write(k_scale, sk, pos),
+                      _cache_write(v_scale, sv, pos))
+            k_att = _kv_dequantize(cache_k, scales[0], q.dtype)
+            v_att = _kv_dequantize(cache_v, scales[1], q.dtype)
+        else:
+            cache_k = _cache_write(cache_k, k_new, pos)
+            cache_v = _cache_write(cache_v, v_new, pos)
+            k_att, v_att = cache_k, cache_v
+        o = _full_attention(q, k_att, v_att, causal=False, window=window,
                             q_offset=0, kv_len=kv_len)
     o = o.transpose(1, 2).reshape(b, 1, hq * hd)
     out = torch.matmul(o, _row_weight(p["wo"]))
-    return out, cache_k, cache_v
+    return (out, cache_k, cache_v, *scales)
 
 
 def prefill_write_island(cfg: ArchConfig, run: RunConfig,
                          rules: ShardingRules | None, b: int,
-                         L: int) -> Island:
+                         L: int, *, quant: bool = False) -> Island:
     """Rank-local write of a prompt's K/V block into the sequence-sharded
     cache: rank r takes its own [r·s_loc, (r+1)·s_loc) window of the new
     (replicated) K/V. A head-sharded cache (``decode_seq_shard=False``) is
     stored global, and the write is the reference's, as JAX's disabled
-    island runs it."""
+    island runs it. ``quant``: ``new`` is the quantized int8 block and
+    ``new_s`` its per-(token, head) scale plane; both land in the (cache,
+    scale) pair."""
     hkv = cfg.n_kv_heads
 
-    def reference(cache, new):
+    def put(cache, new):
         out = cache.clone()
         out[:, :, :new.shape[2]] = new.to(cache.dtype)
         return out
+
+    def window(cache, new):
+        # rank r's [r·s_loc, (r+1)·s_loc) slice of the replicated block
+        s_loc = cache.shape[3]
+        idx = (rank_index(cache) * s_loc)[:, None] \
+            + torch.arange(s_loc, device=cache.device)              # (R, s)
+        win = new[0][:, :, idx.clamp(0, L - 1)].movedim(2, 0)
+        hit = (idx < L)[:, None, None, :]
+        if cache.dim() == 5:
+            hit = hit[..., None]
+        return torch.where(hit, win.to(cache.dtype), cache)
+
+    if quant:
+        def reference(cache, scale, new, new_s):
+            return put(cache, new), put(scale, new_s)
+
+        def body(ctx, cache, scale, new, new_s):
+            return window(cache, new), window(scale, new_s)
+    else:
+        def reference(cache, new):
+            return put(cache, new)
+
+        def body(ctx, cache, new):
+            return window(cache, new)
 
     if rules is None or not run.decode_seq_shard:
         return Island("prefill_write", run=run, reference=reference)
     cache_spec = rules.kv_cache(hkv, b)
     bspec = rules.dim(b, rules.dp)
-
-    def body(ctx, cache, new):
-        s_loc = cache.shape[3]
-        idx = (rank_index(cache) * s_loc)[:, None] \
-            + torch.arange(s_loc, device=cache.device)              # (R, s)
-        window = new[0][:, :, idx.clamp(0, L - 1)].movedim(2, 0)
-        hit = (idx < L)[:, None, None, :, None]
-        return torch.where(hit, window.to(cache.dtype), cache)
-
+    inputs = {"cache": cache_spec, "new": P(bspec, None, None, None)}
+    outs = Stacked(cache_spec)
+    if quant:
+        scale_spec = P(*cache_spec[:3])
+        inputs.update(scale=scale_spec, new_s=P(bspec, None, None))
+        outs = (outs, Stacked(scale_spec))
     return Island(
-        "prefill_write", rules=rules, run=run,
-        inputs={"cache": cache_spec, "new": P(bspec, None, None, None)},
-        out_specs=Stacked(cache_spec),
-        body=body, reference=reference,
+        "prefill_write", rules=rules, run=run, inputs=inputs,
+        out_specs=outs, body=body, reference=reference,
         enable=run.decode_seq_shard)
 
 
 def prefill_attention_block(p, x, cache_k, cache_v, cfg: ArchConfig,
-                            run: RunConfig, rules: ShardingRules | None):
+                            run: RunConfig, rules: ShardingRules | None, *,
+                            k_scale=None, v_scale=None):
     """Batched prefill: causal attention over the whole (right-padded)
     prompt — the flash kernel on the card — with K/V written into the
     decode cache at positions [0, L). Rows past a slot's real length are
     causal-masked garbage the caller discards, as in the JAX package.
-    Returns (out (B, L, d), new_cache_k, new_cache_v)."""
+    Returns (out (B, L, d), new_cache_k, new_cache_v), plus the new scale
+    planes in int8 mode (``k_scale``/``v_scale`` given): the prompt's K/V is
+    quantized once and attended over dequantized, so the prefill sees what
+    later decode steps read."""
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _col_proj(x, p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
@@ -625,13 +743,27 @@ def prefill_attention_block(p, x, cache_k, cache_v, cfg: ArchConfig,
     positions = torch.arange(s, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    quant = k_scale is not None
+    if quant:
+        qk, sk = _kv_quantize(k)
+        qv, sv = _kv_quantize(v)
+        k = _kv_dequantize(qk, sk, q.dtype)
+        v = _kv_dequantize(qv, sv, q.dtype)
     o = _mix(q, k, v, causal=True, window=cfg.sliding_window)
-    write = prefill_write_island(cfg, run, rules, b, s)
-    new_k = write(cache=cache_k, new=k)
-    new_v = write(cache=cache_v, new=v)
+    write = prefill_write_island(cfg, run, rules, b, s, quant=quant)
+    if quant:
+        new_k, k_scale = write(cache=cache_k, scale=k_scale, new=qk,
+                               new_s=sk)
+        new_v, v_scale = write(cache=cache_v, scale=v_scale, new=qv,
+                               new_s=sv)
+        scales = (k_scale, v_scale)
+    else:
+        new_k = write(cache=cache_k, new=k)
+        new_v = write(cache=cache_v, new=v)
+        scales = ()
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     out = attn_out_island(cfg, run, rules, b, s)(o=o, wo=p["wo"])
-    return out, new_k, new_v
+    return (out, new_k, new_v, *scales)
 
 
 # ---------------------------------------------------------------------------
@@ -652,13 +784,14 @@ def prefill_attention_block(p, x, cache_k, cache_v, cfg: ArchConfig,
 
 
 def _paged_gather(pool, bt):
-    """pool (R, N, Hkv, s, hd); bt (R, B, P) page ids (clipped into the
-    pool) -> (R, B, Hkv, P*s, hd)."""
+    """pool (R, N, Hkv, s[, hd]); bt (R, B, P) page ids (clipped into the
+    pool) -> (R, B, Hkv, P*s[, hd]). A pool without hd is an int8 pool's
+    scale pool."""
     r = pool.shape[0]
     ranks = torch.arange(r, device=pool.device).view(r, 1, 1)
-    g = pool[ranks, bt.clamp(0, pool.shape[1] - 1).long()]  # (R,B,P,Hkv,s,hd)
+    g = pool[ranks, bt.clamp(0, pool.shape[1] - 1).long()]  # (R,B,P,Hkv,s..)
     g = g.movedim(2, 3)
-    return g.reshape(r, g.shape[1], g.shape[2], -1, g.shape[-1])
+    return g.reshape(r, g.shape[1], g.shape[2], -1, *g.shape[5:])
 
 
 def _page_positions(pmax: int, ps: int, off, s_loc: int):
@@ -716,8 +849,8 @@ def _with_scratch(pool):
 
 
 def _paged_decode_write(pool, new, bt, pos, ps: int, off, s_loc: int):
-    """Write one token a slot, new (R, B, Hkv, 1, hd), into its block-table
-    page at ``pos`` (R, B). Misses (the position outside this rank's
+    """Write one token a slot, new (R, B, Hkv, 1[, hd]), into its
+    block-table page at ``pos`` (R, B). Misses (the position outside this rank's
     stripe, an unmapped page) are dropped. Returns the new pool."""
     r, n = pool.shape[:2]
     lp = (pos // ps).clamp(0, bt.shape[-1] - 1)
@@ -754,13 +887,17 @@ def _paged_chunk_write(pool, new, bt, c0, wf, ps: int, off, s_loc: int):
           + torch.arange(s_loc, device=dev)[None, :])[None] \
         + off.view(r, 1, 1)                                    # (R,npg,s)
     ranks = torch.arange(r, device=dev)
+    rest = new.shape[4:]                     # (hd,), or () for a scale pool
     src = new[ranks[:, None], :, :, tt.clamp(0, sq - 1).reshape(r, -1)]
-    src = src.reshape(r, npg, s_loc, b, hk, -1).permute(0, 3, 1, 4, 2, 5)
+    src = src.reshape(r, npg, s_loc, b, hk, *rest).permute(
+        0, 3, 1, 4, 2, *range(5, 5 + len(rest)))
     cur = pool[ranks.view(r, 1, 1), pid.clamp(0, n - 1).long()]
     t_glob = c0.view(r, 1, 1) + tt
     cell = ((tt < sq)[:, None, :, None, :]
             & (t_glob[:, None, :, None, :] >= wf.view(r, b, 1, 1, 1)))
-    vals = torch.where(cell[..., None], src.to(pool.dtype), cur)
+    if rest:
+        cell = cell[..., None]
+    vals = torch.where(cell, src.to(pool.dtype), cur)
     buf = _with_scratch(pool)
     buf[ranks.view(r, 1, 1), torch.where(pid >= 0, pid, n).long()] = vals
     return buf[:, :n]
@@ -791,31 +928,51 @@ def _zero_offset(x) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int64, device=x.device)
 
 
+def _paged_write_gather(write, pools, k_new, v_new, bt, quant: bool, qdt):
+    """The paged islands' shared write and gather: ``write(pool, new)``
+    into each pool, then the pages gathered through the block table ``bt``.
+    ``pools`` is (pool_k, pool_v), or with ``quant`` also the scale pools:
+    K/V are quantized before their writes and the gathered pages
+    dequantized to ``qdt``. Returns (gk, gv, new pools)."""
+    if not quant:
+        pk, pv = write(pools[0], k_new), write(pools[1], v_new)
+        return _paged_gather(pk, bt), _paged_gather(pv, bt), (pk, pv)
+    (qk, sk), (qv, sv) = _kv_quantize(k_new), _kv_quantize(v_new)
+    new = tuple(write(p, n) for p, n in zip(pools, (qk, qv, sk, sv)))
+    gk, gv = (_kv_dequantize(_paged_gather(new[i], bt),
+                             _paged_gather(new[i + 2], bt), qdt)
+              for i in (0, 1))
+    return gk, gv, new
+
+
 def paged_decode_island(cfg: ArchConfig, run: RunConfig,
                         rules: ShardingRules | None, b: int, page_size: int,
-                        *, window) -> Island:
+                        *, window, quant: bool = False) -> Island:
     """One-token decode over the paged pool: block-table page write, page
     gather and the flash-decode log-sum-exp merge over the tp ranks. It
     keeps the slab ``decode_island``'s name and ``Comm`` — the merge
     collective is the same — so frozen per-bucket plans apply unchanged to
-    the paged layout."""
+    the paged layout. ``quant``: int8 pools with per-(token, head) f32
+    scale pools (``pool_ks``/``pool_vs``, each stored like its pool) — the
+    token is quantized before its page write, gathers dequantize."""
     hq, hd = cfg.n_heads, cfg.hd
 
-    def attend(q, pool_k, pool_v, k_new, v_new, bt, pos, ps, off, s_loc,
-               ctx):
-        pk = _paged_decode_write(pool_k, k_new, bt, pos, ps, off, s_loc)
-        pv = _paged_decode_write(pool_v, v_new, bt, pos, ps, off, s_loc)
+    def attend(q, pools, k_new, v_new, bt, pos, ps, off, s_loc, ctx):
+        def write(pool, new):
+            return _paged_decode_write(pool, new, bt, pos, ps, off, s_loc)
+        gk, gv, new = _paged_write_gather(write, pools, k_new, v_new, bt,
+                                          quant, q.dtype)
         ki = _page_positions(bt.shape[-1], ps, off, s_loc)
-        o = _paged_mix(q, _paged_gather(pk, bt), _paged_gather(pv, bt), ki,
-                       kv_len=pos + 1, window=window, ctx=ctx)
-        return o, pk, pv
+        o = _paged_mix(q, gk, gv, ki, kv_len=pos + 1, window=window, ctx=ctx)
+        return (o, *new)
 
-    def reference(q, pool_k, pool_v, k_new, v_new, bt, pos, base):
-        o, pk, pv = attend(q[None], pool_k[None], pool_v[None], k_new[None],
-                           v_new[None], _local_pages(bt, base)[None],
-                           pos[None], page_size, _zero_offset(q), page_size,
-                           None)
-        return o[0], pk[0], pv[0]
+    def reference(q, pool_k, pool_v, k_new, v_new, bt, pos, base, **kw):
+        pools = (pool_k, pool_v) + ((kw["pool_ks"], kw["pool_vs"])
+                                    if quant else ())
+        out = attend(q[None], tuple(t[None] for t in pools), k_new[None],
+                     v_new[None], _local_pages(bt, base)[None], pos[None],
+                     page_size, _zero_offset(q), page_size, None)
+        return tuple(t[0] for t in out)
 
     if rules is None:
         return Island("decode_attn", run=run, reference=reference)
@@ -823,20 +980,22 @@ def paged_decode_island(cfg: ArchConfig, run: RunConfig,
     bspec, pool_spec = rules.dim(b, rules.dp), rules.kv_pool(b)
     qspec = P(bspec, None, None, None)
 
-    def body(ctx, q, pool_k, pool_v, k_new, v_new, bt, pos, base):
+    def body(ctx, q, pool_k, pool_v, k_new, v_new, bt, pos, base, **kw):
         s_loc = pool_k.shape[3]
         off = rank_index(pool_k) * s_loc
         bt_l = _local_pages(bt, base.view(-1, 1, 1))
-        return attend(q, pool_k, pool_v, k_new, v_new, bt_l, pos, page_size,
-                      off, s_loc, ctx)
+        pools = (pool_k, pool_v) + ((kw["pool_ks"], kw["pool_vs"])
+                                    if quant else ())
+        return attend(q, pools, k_new, v_new, bt_l, pos, page_size, off,
+                      s_loc, ctx)
 
+    inputs, outs = _paged_specs(pool_spec, qspec, quant)
     return Island(
         "decode_attn", rules=rules, run=run, axis=tp, fallback_axes=tp,
-        inputs={"q": qspec, "pool_k": pool_spec, "pool_v": pool_spec,
-                "k_new": qspec, "v_new": qspec, "bt": P(bspec, None),
-                "pos": P(bspec),
+        inputs={**inputs, "k_new": qspec, "v_new": qspec,
+                "bt": P(bspec, None), "pos": P(bspec),
                 "base": P(pool_spec[0])},
-        out_specs=(qspec, Stacked(pool_spec), Stacked(pool_spec)),
+        out_specs=outs,
         body=body, reference=reference,
         enable=run.decode_seq_shard,
         divisible=((page_size, tp),),
@@ -844,34 +1003,50 @@ def paged_decode_island(cfg: ArchConfig, run: RunConfig,
                   payload_bytes=2 * b * hq * hd * 4))
 
 
+def _paged_specs(pool_spec: P, qspec: P, quant: bool) -> tuple[dict, tuple]:
+    """The paged islands' query and pool inputs and their out_specs; int8
+    pools add the scale pools (the pool's spec without hd)."""
+    inputs = {"q": qspec, "pool_k": pool_spec, "pool_v": pool_spec}
+    outs = (qspec, Stacked(pool_spec), Stacked(pool_spec))
+    if quant:
+        scale_spec = P(*pool_spec[:3])
+        inputs.update(pool_ks=scale_spec, pool_vs=scale_spec)
+        outs += (Stacked(scale_spec), Stacked(scale_spec))
+    return inputs, outs
+
+
 def paged_prefill_island(cfg: ArchConfig, run: RunConfig,
                          rules: ShardingRules | None, b: int, s: int,
-                         page_size: int, *, window) -> Island:
+                         page_size: int, *, window,
+                         quant: bool = False) -> Island:
     """One prefill chunk over the paged pool: the chunk's K/V written into
     the group's block-table pages (rank-local stripes), then causal
     attention of the chunk's queries over every mapped page — a donor
     prefix, earlier chunks and the chunk itself — with the tp log-sum-exp
     merge. ``c0`` is the chunk's global start, ``wf`` the per-slot
     write_from floor below which writes are suppressed (copy-on-write
-    prefix resume)."""
+    prefix resume). ``quant``: int8 pools and scale pools; the chunk's K/V
+    is quantized once before the write and the queries attend over
+    dequantized pages, the chunk's own K/V included, as in JAX."""
     hq, hd = cfg.n_heads, cfg.hd
 
-    def attend(q, pool_k, pool_v, k_new, v_new, bt, c0, wf, ps, off, s_loc,
-               ctx):
-        pk = _paged_chunk_write(pool_k, k_new, bt, c0, wf, ps, off, s_loc)
-        pv = _paged_chunk_write(pool_v, v_new, bt, c0, wf, ps, off, s_loc)
+    def attend(q, pools, k_new, v_new, bt, c0, wf, ps, off, s_loc, ctx):
+        def write(pool, new):
+            return _paged_chunk_write(pool, new, bt, c0, wf, ps, off, s_loc)
+        gk, gv, new = _paged_write_gather(write, pools, k_new, v_new, bt,
+                                          quant, q.dtype)
         ki = _page_positions(bt.shape[-1], ps, off, s_loc)
         q_pos = c0.view(-1, 1) + torch.arange(s, device=q.device)
-        o = _paged_mix(q, _paged_gather(pk, bt), _paged_gather(pv, bt), ki,
-                       q_pos=q_pos, window=window, ctx=ctx)
-        return o, pk, pv
+        o = _paged_mix(q, gk, gv, ki, q_pos=q_pos, window=window, ctx=ctx)
+        return (o, *new)
 
-    def reference(q, pool_k, pool_v, k_new, v_new, bt, c0, wf, base):
-        o, pk, pv = attend(q[None], pool_k[None], pool_v[None], k_new[None],
-                           v_new[None], _local_pages(bt, base)[None],
-                           c0.view(1), wf[None], page_size, _zero_offset(q),
-                           page_size, None)
-        return o[0], pk[0], pv[0]
+    def reference(q, pool_k, pool_v, k_new, v_new, bt, c0, wf, base, **kw):
+        pools = (pool_k, pool_v) + ((kw["pool_ks"], kw["pool_vs"])
+                                    if quant else ())
+        out = attend(q[None], tuple(t[None] for t in pools), k_new[None],
+                     v_new[None], _local_pages(bt, base)[None], c0.view(1),
+                     wf[None], page_size, _zero_offset(q), page_size, None)
+        return tuple(t[0] for t in out)
 
     if rules is None:
         return Island("paged_prefill_attn", run=run, reference=reference)
@@ -879,21 +1054,23 @@ def paged_prefill_island(cfg: ArchConfig, run: RunConfig,
     bspec, pool_spec = rules.dim(b, rules.dp), rules.kv_pool(b)
     qspec = P(bspec, None, None, None)
 
-    def body(ctx, q, pool_k, pool_v, k_new, v_new, bt, c0, wf, base):
+    def body(ctx, q, pool_k, pool_v, k_new, v_new, bt, c0, wf, base, **kw):
         s_loc = pool_k.shape[3]
         off = rank_index(pool_k) * s_loc
         bt_l = _local_pages(bt, base.view(-1, 1, 1))
-        return attend(q, pool_k, pool_v, k_new, v_new, bt_l, c0, wf,
-                      page_size, off, s_loc, ctx)
+        pools = (pool_k, pool_v) + ((kw["pool_ks"], kw["pool_vs"])
+                                    if quant else ())
+        return attend(q, pools, k_new, v_new, bt_l, c0, wf, page_size, off,
+                      s_loc, ctx)
 
+    inputs, outs = _paged_specs(pool_spec, qspec, quant)
     return Island(
         "paged_prefill_attn", rules=rules, run=run, axis=tp,
         fallback_axes=tp,
-        inputs={"q": qspec, "pool_k": pool_spec, "pool_v": pool_spec,
-                "k_new": qspec, "v_new": qspec, "bt": P(bspec, None),
-                "c0": P(), "wf": P(bspec),
+        inputs={**inputs, "k_new": qspec, "v_new": qspec,
+                "bt": P(bspec, None), "c0": P(), "wf": P(bspec),
                 "base": P(pool_spec[0])},
-        out_specs=(qspec, Stacked(pool_spec), Stacked(pool_spec)),
+        out_specs=outs,
         body=body, reference=reference,
         enable=run.decode_seq_shard,
         divisible=((page_size, tp),),
@@ -903,13 +1080,14 @@ def paged_prefill_island(cfg: ArchConfig, run: RunConfig,
 
 def paged_decode_attention(p, x, pool_k, pool_v, bt, pos, cfg: ArchConfig,
                            run: RunConfig, rules: ShardingRules | None, *,
-                           page_size: int):
+                           page_size: int, k_scale=None, v_scale=None):
     """One-token decode against the paged pool (the block-table twin of
     :func:`decode_attention`). x: (B, 1, d); pool_k/v: one layer's pool as
     stored (``paging.paged_cache_template``) of ``page_size``-token pages
     (the engine's ``PageGeometry``); bt: (B, P) block table (−1 =
     unmapped: the write drops, so free and mid-prefill slots are inert);
-    pos: per-slot (B,). Returns (out (B, 1, d), new_pool_k, new_pool_v);
+    pos: per-slot (B,). Returns (out (B, 1, d), new_pool_k, new_pool_v),
+    plus the new scale pools in int8 mode (``k_scale``/``v_scale`` given);
     the out-projection is a plain product, as in the slab decode."""
     b = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -919,26 +1097,31 @@ def paged_decode_attention(p, x, pool_k, pool_v, bt, pos, cfg: ArchConfig,
     positions = pos[:, None]
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    quant = k_scale is not None
     island = paged_decode_island(cfg, run, rules, b, page_size,
-                                 window=cfg.sliding_window)
-    o, pool_k, pool_v = island(
+                                 window=cfg.sliding_window, quant=quant)
+    kw = {"pool_ks": k_scale, "pool_vs": v_scale} if quant else {}
+    o, *pools = island(
         q=q, pool_k=pool_k, pool_v=pool_v, k_new=k_new, v_new=v_new, bt=bt,
-        pos=pos, base=_dp_pool_base(rules, b, pool_k.shape[-4], x.device))
+        pos=pos, base=_dp_pool_base(rules, b, pool_k.shape[-4], x.device),
+        **kw)
     o = o.transpose(1, 2).reshape(b, 1, hq * hd)
-    return torch.matmul(o, _row_weight(p["wo"])), pool_k, pool_v
+    return (torch.matmul(o, _row_weight(p["wo"])), *pools)
 
 
 def paged_prefill_attention_block(p, x, pool_k, pool_v, bt, chunk_start,
                                   write_from, cfg: ArchConfig,
                                   run: RunConfig,
                                   rules: ShardingRules | None, *,
-                                  page_size: int):
+                                  page_size: int, k_scale=None,
+                                  v_scale=None):
     """One chunk of paged prefill attention: x (B, cl, d) are the chunk's
     hidden states at global positions [chunk_start, chunk_start+cl); its
     K/V land in the block table's ``page_size``-token pages and its queries
-    attend over every mapped page. ``write_from`` (B,): the per-slot copy-on-write floor.
-    Returns (out (B, cl, d), new_pool_k, new_pool_v); the out-projection is
-    the GEMM+AR island."""
+    attend over every mapped page. ``write_from`` (B,): the per-slot
+    copy-on-write floor. Returns (out (B, cl, d), new_pool_k, new_pool_v),
+    plus the new scale pools in int8 mode (``k_scale``/``v_scale`` given);
+    the out-projection is the GEMM+AR island."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _col_proj(x, p["wq"]).reshape(b, s, hq, hd).transpose(1, 2)
@@ -948,15 +1131,17 @@ def paged_prefill_attention_block(p, x, pool_k, pool_v, bt, chunk_start,
     positions = c0 + torch.arange(s, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    quant = k_scale is not None
     island = paged_prefill_island(cfg, run, rules, b, s, page_size,
-                                  window=cfg.sliding_window)
-    o, pool_k, pool_v = island(
+                                  window=cfg.sliding_window, quant=quant)
+    kw = {"pool_ks": k_scale, "pool_vs": v_scale} if quant else {}
+    o, *pools = island(
         q=q, pool_k=pool_k, pool_v=pool_v, k_new=k, v_new=v, bt=bt, c0=c0,
         wf=write_from, base=_dp_pool_base(rules, b, pool_k.shape[-4],
-                                          x.device))
+                                          x.device), **kw)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     out = attn_out_island(cfg, run, rules, b, s)(o=o, wo=p["wo"])
-    return out, pool_k, pool_v
+    return (out, *pools)
 
 
 # ---------------------------------------------------------------------------
@@ -1005,7 +1190,7 @@ def mlp_island(cfg: ArchConfig, run: RunConfig,
         divisible=((ff, tp),),
         comm=Comm("matmul_all_reduce", m=b_loc * s, n=d,
                   k=ff // tp_size if ff % tp_size == 0 else ff,
-                  dtype_bytes=_dtype_bytes(cfg)))
+                  dtype_bytes=_wire_bytes(cfg, run)))
 
 
 def mlp_block(p, x, cfg: ArchConfig, run: RunConfig,
@@ -1016,14 +1201,6 @@ def mlp_block(p, x, cfg: ArchConfig, run: RunConfig,
     w3 = p["w3"] if cfg.gated_mlp else torch.zeros((), dtype=x.dtype,
                                                    device=x.device)
     return island(x=x, w1=p["w1"], w3=w3, w2=p["w2"])
-
-
-def check_moe_run(run: RunConfig) -> None:
-    """Refuse the MoE run options the port does not have yet."""
-    if run.serve_moe_tp_data:
-        raise NotImplementedError(
-            "serve_moe_tp_data (resident 2D-TP expert weights, ff sliced over "
-            "the dp axes) is ROADMAP item A9c")
 
 
 def moe_island(cfg: ArchConfig, run: RunConfig,
@@ -1038,8 +1215,17 @@ def moe_island(cfg: ArchConfig, run: RunConfig,
     are joined over dp, so ``moe_block``'s mean is JAX's mean of the dp
     groups' values. It differentiates: routing, the capacity gather, the
     weighted combine and the psum are autograd ops, the grouped GEMM has
-    its backward; with no mesh the dense oracle differentiates too."""
-    check_moe_run(run)
+    its backward; with no mesh the dense oracle differentiates too.
+
+    ``run.serve_moe_tp_data`` (resident 2D-TP serving, JAX's other
+    branch): the expert weights stay put, ff sliced over the dp axes; every
+    dp group takes the tokens of all groups (its input is not sliced over
+    dp: the all-gather of JAX's body), runs the replicated dispatch on them
+    with its ff slice — the plan counts ``b·s`` tokens — and the groups' f32
+    partials are summed in dp order (a :class:`Summed` output, JAX's
+    ``psum_scatter``), each group keeping its own rows of the global
+    result. No ring combine, and no FSDP gather of expert weights, as in
+    JAX. The output is f32 there; ``moe_block`` casts it."""
     d = cfg.d_model
     gated = cfg.gated_mlp
 
@@ -1072,7 +1258,10 @@ def moe_island(cfg: ArchConfig, run: RunConfig,
     tp = rules.tp
     f = rules.fsdp_axes
     bspec = rules.dim(b, rules.dp)
-    n_tok = rules.local_batch(b) * s
+    tp_data = run.serve_moe_tp_data
+    # one gating/capacity plan: 2D-TP serving dispatches every dp group's
+    # tokens, the default layout its own
+    n_tok = b * s if tp_data else rules.local_batch(b) * s
     moe_chunks = run.moe_chunks
     if moe_chunks == 0:
         # auto: the analytic a2a chunk policy over the dispatch payload
@@ -1097,21 +1286,31 @@ def moe_island(cfg: ArchConfig, run: RunConfig,
             t, router, w1[:, 0], w3[:, 0] if gated else None, w2[:, 0],
             ctx=ctx, n_experts=cfg.n_experts, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor, plan=plan,
-            ring_combine=run.pk_ring_psum)
+            ring_combine=run.pk_ring_psum and not tp_data)
         aux = ctx.psum(aux.reshape(1, 1).expand(r, 1), backend="bulk") / r
-        return y.reshape(x.shape), aux
+        y = y.reshape(x.shape)
+        return (y.float() if tp_data else y), aux
 
-    # device-major PGL weights: (M, E_loc, d[, /fsdp], ff_loc)
-    wspec = P(tp, None, rules.dim(d, f), None)
-    w2spec = P(tp, None, None, rules.dim(d, f))
-    gathers = {"w1": Gather(dim=2, size=d), "w2": Gather(dim=3, size=d)}
-    if gated:
-        gathers["w3"] = Gather(dim=2, size=d)
+    gathers: dict[str, Gather] = {}
+    xspec = yspec = P(bspec, None, None)
+    if tp_data:
+        # resident 2D-TP: (M, E_loc, d, ff_loc/dp), no FSDP gather
+        dpff = rules.dim(cfg.d_ff // pk_moe.ep_tp_split(
+            cfg.n_experts, rules.mesh.shape[tp])[1], rules.dp)
+        wspec, w2spec = P(tp, None, None, dpff), P(tp, None, dpff, None)
+        xspec, yspec = P(None, None, None), Summed(yspec)
+    else:
+        # device-major PGL weights: (M, E_loc, d[, /fsdp], ff_loc)
+        wspec = P(tp, None, rules.dim(d, f), None)
+        w2spec = P(tp, None, None, rules.dim(d, f))
+        gathers = {"w1": Gather(dim=2, size=d), "w2": Gather(dim=3, size=d)}
+        if gated:
+            gathers["w3"] = Gather(dim=2, size=d)
     return Island(
         "moe", rules=rules, run=run,
-        inputs={"x": P(bspec, None, None), "router": P(None, None),
+        inputs={"x": xspec, "router": P(None, None),
                 "w1": wspec, "w3": wspec if gated else P(), "w2": w2spec},
-        out_specs=(P(bspec, None, None), P(bspec)),
+        out_specs=(yspec, P(bspec)),
         body=body, reference=reference, gathers=gathers,
         comm=Comm("psum", backend="ring" if run.pk_ring_psum else "bulk",
                   n_chunks=plan.n_chunks,
@@ -1126,7 +1325,7 @@ def moe_block(p, x, cfg: ArchConfig, run: RunConfig,
     w3 = p["w3"] if cfg.gated_mlp else torch.zeros((), dtype=x.dtype,
                                                    device=x.device)
     out, aux = island(x=x, router=p["router"], w1=p["w1"], w3=w3, w2=p["w2"])
-    return out, aux.float().mean()
+    return out.to(x.dtype), aux.float().mean()
 
 
 # ---------------------------------------------------------------------------

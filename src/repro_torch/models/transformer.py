@@ -121,10 +121,13 @@ def _moe_pds(cfg: ArchConfig, r: ShardingRules | None, dt) -> dict:
     e_loc, ff_loc = e // ep, ff // tp_ff
     fs = r.dim(d, r.fsdp_axes) if r is not None else None
     tp = r.tp if r is not None else None
-    if r is not None:
-        L.check_moe_run(r.run)
-    w1s = P(tp, None, fs, None)
-    w2s = P(tp, None, None, fs)
+    if r is not None and r.run.serve_moe_tp_data:
+        # resident 2D-TP serving: ff_loc sharded over the dp axes, so
+        # serving never gathers expert weights (JAX ``_moe_pds``)
+        dpff = r.dim(ff_loc, r.dp)
+        w1s, w2s = P(tp, None, None, dpff), P(tp, None, dpff, None)
+    else:
+        w1s, w2s = P(tp, None, fs, None), P(tp, None, None, fs)
     out = {
         "norm": PD((d,), P(None), "ones", dt),
         "router": PD((d, e), P(None, None), "normal", torch.float32),
@@ -294,11 +297,13 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
     tp as JAX shards them (replicated, they cost 27 GB a device there).
     Head-sharded caches (``decode_seq_shard=False``; JAX shards their heads
     over tp) are stored global: no island reads them per rank — the decode
-    is ``_full_attention`` over the whole cache, as in JAX."""
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: the int8 KV cache is ROADMAP item A11")
+    is ``_full_attention`` over the whole cache, as in JAX.
+    ``kv_dtype="int8"`` stores K and V as int8 and adds the per-(token,
+    head) f32 scale planes ``k_scale``/``v_scale`` (np, B, Hkv, S_max),
+    stored as the K/V they scale are: stacked when those are, global when
+    head-sharded. ``"bf16"`` keeps the tree as it was."""
     dt = DTYPES[cfg.dtype]
+    kv_dt = {"bf16": dt, "int8": torch.int8}[kv_dtype]
     hkv, hd = cfg.n_kv_heads, cfg.hd
     bspec = rules.dim(batch, rules.dp) if rules else None
     kv_spec = (rules.kv_cache(hkv, batch)
@@ -313,8 +318,12 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
     conv_spec = P(bspec, None, rules.dim(di, rules.tp) if rules else None)
     for i, spec in enumerate(cfg.layer_pattern()):
         if spec.mixer == "attn":
-            kv = PD((batch, hkv, s_max, hd), kv_spec, "zeros", dt)
+            kv = PD((batch, hkv, s_max, hd), kv_spec, "zeros", kv_dt)
             entry = {"k": kv, "v": kv}
+            if kv_dtype == "int8":
+                sc = PD((batch, hkv, s_max), P(*kv_spec[:3]), "zeros",
+                        torch.float32)
+                entry.update(k_scale=sc, v_scale=sc)
         else:
             entry = {"h": PD((batch, di, n), ssm_spec, "zeros",
                              torch.float32),
@@ -589,12 +598,19 @@ def _ffn(bp, li, x, cfg: ArchConfig, run: RunConfig, rules):
                        rules)
 
 
+def _kv_args(kv: dict) -> dict:
+    """The scale planes of one layer's int8 cache entry as the attention
+    functions' keywords (none for a bf16 entry)."""
+    return {k: kv[k] for k in ("k_scale", "v_scale") if k in kv}
+
+
 def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
                   rules, attend, cross=None):
     """Every layer in order (period by period, pattern position by
-    position) over a serving cache: the mixer — ``attend(a, x_norm,
-    cache_k, cache_v) -> (h, k, v)`` for attention, the mamba block for
-    SSM layers, whose new state the kernel writes straight into the new
+    position) over a serving cache: the mixer — ``attend(a, x_norm, kv) ->
+    (h, k, v[, k_scale, v_scale])`` for attention, ``kv`` the layer's
+    cache entry (K, V and an int8 cache's scale planes), the mamba block
+    for SSM layers, whose new state the kernel writes straight into the new
     cache's slab — then, given the encoder's K/V ``cross`` (``cache[
     "cross"]``), the layer's one-token cross-attention over them, then the
     FFN if the layer has one. Returns (x, new cache blocks)."""
@@ -602,7 +618,7 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
     new = {}
     for i, spec in enumerate(pattern):
         cp = cache["blocks"][f"pos{i}"]
-        new[f"pos{i}"] = ({"k": [], "v": []} if spec.mixer == "attn" else
+        new[f"pos{i}"] = ({k: [] for k in cp} if spec.mixer == "attn" else
                           {"h": torch.empty_like(cp["h"]), "conv": []})
     for li in range(cfg.n_periods):
         for i, spec in enumerate(pattern):
@@ -610,10 +626,10 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
             nc = new[f"pos{i}"]
             if spec.mixer == "attn":
                 a = {k: t[li] for k, t in bp["attn"].items()}
-                h, nk, nv = attend(a, L.rms_norm(a["norm"], x, cfg.norm_eps),
-                                   cp["k"][li], cp["v"][li])
-                nc["k"].append(nk)
-                nc["v"].append(nv)
+                h, *kv = attend(a, L.rms_norm(a["norm"], x, cfg.norm_eps),
+                                {k: t[li] for k, t in cp.items()})
+                for k, t in zip(("k", "v", "k_scale", "v_scale"), kv):
+                    nc[k].append(t)
             else:
                 m = {k: t[li] for k, t in bp["mamba"].items()}
                 h, (_, tail) = S.mamba_block(
@@ -645,11 +661,14 @@ def _decode(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
         raise ValueError("a paged cache (block_tables) needs its page_size")
     x = L.embed_tokens(params, tokens, rules, run)
 
-    def attend(a, xn, ck, cv):
+    def attend(a, xn, kv):
         if bt is not None:
-            return L.paged_decode_attention(a, xn, ck, cv, bt, pos, cfg, run,
-                                            rules, page_size=page_size)
-        return L.decode_attention(a, xn, ck, cv, pos, cfg, run, rules)
+            return L.paged_decode_attention(a, xn, kv["k"], kv["v"], bt, pos,
+                                            cfg, run, rules,
+                                            page_size=page_size,
+                                            **_kv_args(kv))
+        return L.decode_attention(a, xn, kv["k"], kv["v"], pos, cfg, run,
+                                  rules, **_kv_args(kv))
 
     x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend,
                                   cross)
@@ -723,8 +742,9 @@ def prefill_step(params, cache, tokens, prompt_lens, cfg: ArchConfig,
     b, _ = tokens.shape
     x = L.embed_tokens(params, tokens, rules, run)
 
-    def attend(a, xn, ck, cv):
-        return L.prefill_attention_block(a, xn, ck, cv, cfg, run, rules)
+    def attend(a, xn, kv):
+        return L.prefill_attention_block(a, xn, kv["k"], kv["v"], cfg, run,
+                                         rules, **_kv_args(kv))
 
     x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
@@ -765,10 +785,11 @@ def prefill_paged_step(params, cache, tokens, block_tables, prompt_lens,
     wf = torch.as_tensor(write_from, device=dev)
     c0 = int(chunk_start)
 
-    def attend(a, xn, ck, cv):
-        return L.paged_prefill_attention_block(a, xn, ck, cv, bt, c0, wf,
-                                               cfg, run, rules,
-                                               page_size=page_size)
+    def attend(a, xn, kv):
+        return L.paged_prefill_attention_block(a, xn, kv["k"], kv["v"], bt,
+                                               c0, wf, cfg, run, rules,
+                                               page_size=page_size,
+                                               **_kv_args(kv))
 
     x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

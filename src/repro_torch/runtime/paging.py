@@ -261,7 +261,11 @@ def paged_cache_template(cfg: ArchConfig, run: RunConfig,
     ``ShardingRules.kv_pool``), per-slot block tables (the engine fills
     them with −1 and maps rows at admission) and the per-slot position
     vector. Attention-only architectures: SSM recurrent state has no paged
-    equivalent, and neither has an encoder-decoder's cross cache."""
+    equivalent, and neither has an encoder-decoder's cross cache.
+    ``kv_dtype="int8"`` stores the pools as int8 and adds per-(page
+    position, head) f32 scale pools ``k_scale``/``v_scale`` (the pool's
+    shape without hd, stored as the pool is); the paged islands quantize on
+    write and dequantize on gather."""
     from repro_torch.models.transformer import PD
 
     if cfg.encoder_decoder:
@@ -271,12 +275,10 @@ def paged_cache_template(cfg: ArchConfig, run: RunConfig,
             f"cache_layout='paged' requires a pure-attention architecture; "
             f"{cfg.name} has SSM layers whose recurrent state cannot be "
             f"paged (use the slab layout / exact_buckets)")
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: the int8 KV cache is ROADMAP item A11")
     import torch
 
     dt = DTYPES[cfg.dtype]
+    kv_dt = {"bf16": dt, "int8": torch.int8}[kv_dtype]
     hkv, hd, np_ = cfg.n_kv_heads, cfg.hd, cfg.n_periods
     pool_spec = rules.kv_pool(batch) if rules else P(None, None, None, None)
     bspec = rules.dim(batch, rules.dp) if rules else None
@@ -287,9 +289,14 @@ def paged_cache_template(cfg: ArchConfig, run: RunConfig,
         "blocks": {},
     }
     pool = PD((geom.n_pages, hkv, geom.page_size, hd), pool_spec, "zeros",
-              dt).stacked(np_)
+              kv_dt).stacked(np_)
+    entry = {"k": pool, "v": pool}
+    if kv_dtype == "int8":
+        sc = PD((geom.n_pages, hkv, geom.page_size), P(*pool_spec[:3]),
+                "zeros", torch.float32).stacked(np_)
+        entry.update(k_scale=sc, v_scale=sc)
     for i, _spec in enumerate(cfg.layer_pattern()):
-        tree["blocks"][f"pos{i}"] = {"k": pool, "v": pool}
+        tree["blocks"][f"pos{i}"] = dict(entry)
     return tree
 
 

@@ -29,10 +29,13 @@ decodes instead, draining pages), never as an error. MoE models serve
 paged with prefix sharing off: capacity dropping makes their K/V depend on
 the batch, so a donor's pages are not reusable bit for bit.
 
-Still raising when ``ServeConfig`` asks for them: the int8 KV cache
-(ROADMAP A11), and the health monitor and request deadlines (A13).
-Non-finite logits raise ``FloatingPointError``: JAX's retry and quarantine
-are A13 too.
+``ServeConfig.kv_dtype="int8"`` stores either layout's K/V as int8 with
+per-(token, head) f32 scales (quantized on write, dequantized on read, as
+in JAX): (hd + 4) bytes a (position, head, K|V) against 2·hd.
+
+Still raising when ``ServeConfig`` asks for them: the health monitor and
+request deadlines (ROADMAP A13). Non-finite logits raise
+``FloatingPointError``: JAX's retry and quarantine are A13 too.
 """
 
 from __future__ import annotations
@@ -203,8 +206,6 @@ def serving_plan_record(cfg: ArchConfig, run: RunConfig,
 
 
 def _check_serve(serve: ServeConfig) -> None:
-    if serve.kv_dtype != "bf16":
-        raise NotImplementedError("the int8 KV cache is ROADMAP item A11")
     if serve.health_monitor or serve.deadline_steps:
         raise NotImplementedError(
             "the health monitor and request deadlines are ROADMAP item A13")
@@ -307,7 +308,7 @@ class ServingEngine:
             self.geom = None
             self._cache_tmpl = T.cache_template(
                 cfg, self._runs["decode"], rules, batch=b, s_max=self.s_max,
-                slot_pos=True)
+                slot_pos=True, kv_dtype=self.serve.kv_dtype)
             self.cache = T.zeros(self._cache_tmpl, rules, self.device)
         self._job: _PrefillJob | None = None
         self._decode_fn = make_serve_step(
@@ -387,7 +388,8 @@ class ServingEngine:
                 self.cfg, run, self.rules)
             self._prefill_tmpls[bucket] = T.cache_template(
                 self.cfg, run, self.rules, batch=self.serve.prefill_batch,
-                s_max=self.s_max, slot_pos=True)
+                s_max=self.s_max, slot_pos=True,
+                kv_dtype=self.serve.kv_dtype)
         return self._prefill_fns[bucket]
 
     def _paged_prefill_fn(self, bucket: int):
@@ -860,7 +862,8 @@ class ServingEngine:
             run_pre = dataclasses.replace(run, island_overrides=pre)
             run_dec = dataclasses.replace(run, island_overrides=dec)
             tmpl = T.cache_template(self.cfg, run_dec, self.rules, batch=n,
-                                    s_max=self.s_max, slot_pos=True)
+                                    s_max=self.s_max, slot_pos=True,
+                                    kv_dtype=self.serve.kv_dtype)
             self._static_fns[key] = (
                 make_prefill_cache_step(self.cfg, run_pre, self.rules),
                 make_serve_step(self.cfg, run_dec, self.rules), tmpl)

@@ -6,11 +6,12 @@ closures the port calls them directly (the serving engine under
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core import pgl
 from repro_torch.models import transformer as T
 from repro_torch.models.sharding import ShardingRules
 from repro_torch.optim.adamw import AdamW, AdamWState
@@ -19,10 +20,32 @@ from repro_torch.optim.adamw import AdamW, AdamWState
 class TrainState(NamedTuple):
     params: Any
     opt: AdamWState
+    #: the gradient transform's state, carried from step to step (the
+    #: error-feedback residual of int8 compression); None without one
+    grad_state: Any = None
+
+
+def _relayout(grads: dict, tmpl: dict, rules, to_global: bool) -> dict:
+    """Gradients in the stored layout -> each laid out as its global weight
+    (the JAX array), or back."""
+    if rules is None:
+        return grads
+    out: dict = {}
+    for path, pd in T.leaves(tmpl):
+        g = grads
+        for k in path:
+            g = g[k]
+        args = (pd.spec, rules.mesh, rules.tp)
+        T.set_path(out, path, pgl.assemble(g, *args, lead=int(pd.periods))
+                   if to_global else pgl.layout(
+                       g, *args, lead=int(pd.periods),
+                       expand=False).contiguous())
+    return out
 
 
 def make_train_step(cfg: ArchConfig, run: RunConfig,
-                    rules: ShardingRules | None, optimizer: AdamW):
+                    rules: ShardingRules | None, optimizer: AdamW,
+                    grad_transform: Callable | None = None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     Microbatching: the batch's leading dim is split into
@@ -30,11 +53,20 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
     accumulated in f32 (divided by the count), the loss likewise, and one
     optimizer update follows. With one microbatch the gradients keep the
     parameters' dtype, as in JAX. The loss differentiated and reported is
-    ``forward_train``'s total (cross-entropy + 0.01·aux), as in JAX. (JAX's
-    ``grad_transform`` hook serves the int8 gradient compression, ROADMAP
-    item 11.) metrics: loss, aux_loss (the MoE load-balance loss, averaged
-    over microbatches like the loss), grad_norm (f32 tensors) and step
-    (int)."""
+    ``forward_train``'s total (cross-entropy + 0.01·aux), as in JAX.
+    metrics: loss, aux_loss (the MoE load-balance loss, averaged over
+    microbatches like the loss), grad_norm (f32 tensors) and step (int).
+
+    ``grad_transform(grads, grad_state) -> (grads, grad_state)`` runs on
+    the accumulated gradient before the update (JAX's hook, e.g.
+    ``optim.compress.ErrorFeedbackInt8.transform``). It sees every gradient
+    laid out as its global weight, as JAX's sees its arrays, so a transform
+    that blocks the flattened gradient blocks it as JAX does. Its state
+    rides in ``TrainState.grad_state`` and is threaded from step to step:
+    JAX's hook is ``grads -> grads``, and its launcher's closure over a
+    dict, traced once by ``jax.jit``, keeps the state at its initial value
+    (ROADMAP C14)."""
+    tmpl = T.param_template(cfg, run, rules) if grad_transform else None
 
     def grads_of(params, paths, mb):
         for _, p in paths:
@@ -65,10 +97,15 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
         grads: dict = {}
         for (path, _), g in zip(paths, gs):
             T.set_path(grads, path, g)
+        grad_state = state.grad_state
+        if grad_transform is not None:
+            grads, grad_state = grad_transform(
+                _relayout(grads, tmpl, rules, True), grad_state)
+            grads = _relayout(grads, tmpl, rules, False)
         params, opt, gnorm = optimizer.update(grads, state.opt, params)
-        return TrainState(params, opt), {"loss": loss, "aux_loss": aux,
-                                         "grad_norm": gnorm,
-                                         "step": opt.step}
+        return TrainState(params, opt, grad_state), {
+            "loss": loss, "aux_loss": aux, "grad_norm": gnorm,
+            "step": opt.step}
 
     return train_step
 

@@ -198,8 +198,11 @@ def test_not_ported_paths_raise():
     mesh = VirtualMesh((4,), ("x",))
     with pytest.raises(NotImplementedError, match="item 12"):
         CommContext("x", mesh=mesh, policy="measured")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CommContext("x", mesh=mesh, wire="int8")
+    # quantized wires are ported (ROADMAP item 11,
+    # tests/test_torch_quant.py)
+    assert CommContext("x", mesh=mesh, wire="int8").wire_format().name == \
+        "int8"
+    assert CommContext("x", mesh=mesh, wire="bf16").wire_format() is None
     # all_to_all is ported: block r of rank s lands at slot s of rank r
     x = torch.arange(4 * 4 * 2.0).view(4, 4, 2)
     out = CommContext("x", mesh=mesh).all_to_all(x, split_axis=0,

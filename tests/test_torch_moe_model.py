@@ -13,6 +13,11 @@ drop), on a mesh the capacity dispatch, so the two give other tokens.
 Continuous batching does not equal one request at a time for MoE, in JAX
 either (per-expert capacity depends on the other rows of the batch), so
 nothing here asserts it.
+
+Resident 2D-TP serving (``serve_moe_tp_data``, ROADMAP A9c) on (1, 4),
+(2, 2) and (2, 4): the parameter template's specs (ff sliced over the dp
+axes), prefill and decode logits within 1e-4 of JAX's, the engine's tokens
+equal to the JAX engine's, and the island plans equal to JAX's.
 """
 
 import dataclasses
@@ -207,16 +212,130 @@ def test_moe_island_plans_match_jax(mesh_shape, moe_chunks):
 
 
 def test_moe_run_options_not_ported_raise(tmp_path):
+    """Every MoE run option is ported now: ``serve_moe_tp_data`` (once
+    ROADMAP A9c) builds its template and island, its island gathers no
+    expert weights, and its run ends in the engine."""
     _, tcfg = _cfgs()
-    rules = ShardingRules(VirtualMesh((1, 4), ("data", "model")),
-                          RunConfig(fsdp=False, serve_moe_tp_data=True))
-    with pytest.raises(NotImplementedError, match="A9c"):
-        T.param_template(tcfg, rules.run, rules)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        L.moe_island(tcfg, rules.run, rules, B, 8)
+    rules = ShardingRules(VirtualMesh((2, 2), ("data", "model")),
+                          RunConfig(fsdp=True, serve_moe_tp_data=True))
+    tmpl = T.param_template(tcfg, rules.run, rules)
+    assert tmpl["blocks"]["pos0"]["moe"]["w1"].spec[-1] == "data"
+    isl = L.moe_island(tcfg, rules.run, rules, B, 8)
+    assert isl.gathers == {} and isl.fallback_reason() is None
+    eng = launch.build_engine(ARCH, reduced=True, mesh_shape=(2, 2),
+                              serve=SERVE, device="cpu",
+                              run_overrides={"serve_moe_tp_data": True})
+    assert len(eng.run(launch.synthetic_trace(3, SERVE, 256))) == 3
     # MoE training (once ROADMAP A9b) runs, with no mesh
     _, log = train_launch.build_and_train(ARCH, reduced=True, steps=1,
                                           batch=2, seq=8, mesh_shape=None,
                                           ckpt_dir=str(tmp_path),
                                           device="cpu")
     assert np.isfinite(log[-1]["loss"]) and log[-1]["aux_loss"] > 0
+
+
+# ---------------------------------------------------------------------------
+# resident 2D-TP serving (serve_moe_tp_data)
+# ---------------------------------------------------------------------------
+
+TP_DATA_MESHES = [(1, 4), (2, 2), (2, 4)]
+
+
+@pytest.mark.parametrize("mesh_shape", TP_DATA_MESHES)
+def test_tp_data_param_template_matches_jax(mesh_shape):
+    j, t = _both(mesh_shape, serve_moe_tp_data=True)
+    want = JT.param_template(j["cfg"], j["run"], j["rules"])
+    got = T.param_template(t["cfg"], t["run"], t["rules"])
+    for path, pd in T.leaves(got):
+        w = want
+        for k in path:
+            w = w[k]
+        assert pd.shape == w.shape and tuple(pd.spec) == tuple(w.spec), path
+    moe = got["blocks"]["pos0"]["moe"]
+    assert moe["w1"].spec[-1] == moe["w2"].spec[-2] == "data"
+    # the global shapes are the default layout's: convert needs no change
+    base = T.param_template(t["cfg"], _both(mesh_shape)[1]["run"],
+                            t["rules"])
+    assert [pd.shape for _, pd in T.leaves(got)] == \
+        [pd.shape for _, pd in T.leaves(base)]
+
+
+@pytest.mark.parametrize("mesh_shape", TP_DATA_MESHES)
+def test_tp_data_prefill_and_decode_match_jax(mesh_shape):
+    j, t = _both(mesh_shape, serve_moe_tp_data=True)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, 256, size=(B, 8)).astype(np.int32)
+    lens = np.array([5, 8, 2, 7], np.int32)
+    jpre = jax.jit(partial(JT.prefill_step, cfg=j["cfg"], run=j["run"],
+                           rules=j["rules"]))
+    jdec = jax.jit(partial(JT.decode_step, cfg=j["cfg"], run=j["run"],
+                           rules=j["rules"]))
+    jl, jc = jpre(j["params"], _jax_cache(j, B), tokens, lens)
+    tc = T.zeros(T.cache_template(t["cfg"], t["run"], t["rules"], batch=B,
+                                  s_max=S_MAX, slot_pos=True),
+                 t["rules"], "cpu")
+    with torch.no_grad():
+        tl, tc = T.prefill_step(t["params"], tc, torch.from_numpy(tokens),
+                                torch.from_numpy(lens), t["cfg"], t["run"],
+                                t["rules"])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(np.int32)
+    for _ in range(2):
+        jl, jc = jdec(j["params"], jc, nxt[:, None])
+        with torch.no_grad():
+            tl, tc = T.decode_step(t["params"], tc,
+                                   torch.from_numpy(nxt[:, None]).long(),
+                                   t["cfg"], t["run"], t["rules"])
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                                   rtol=0)
+        nxt = np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("mesh_shape", TP_DATA_MESHES)
+def test_tp_data_block_matches_jax(mesh_shape):
+    """One MoE sub-layer: every dp group's f32 partial over all the tokens,
+    summed over dp (JAX's psum_scatter), and the aux loss."""
+    j, t = _both(mesh_shape, serve_moe_tp_data=True)
+    x = np.random.default_rng(3).standard_normal((B, 6, 64)).astype(
+        np.float32)
+    jp = jax.tree.map(lambda a: a[0], j["params"]["blocks"]["pos0"]["moe"])
+    want, jaux = jax.jit(partial(JL.moe_block, cfg=j["cfg"], run=j["run"],
+                                 rules=j["rules"]))(jp, x)
+    tp = {k: v[0] for k, v in t["params"]["blocks"]["pos0"]["moe"].items()}
+    with torch.no_grad():
+        got, aux = L.moe_block(tp, torch.from_numpy(x), t["cfg"], t["run"],
+                               t["rules"])
+    assert got.dtype == torch.float32 and got.shape == (B, 6, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("mesh_shape", TP_DATA_MESHES)
+def test_tp_data_engine_matches_jax(mesh_shape):
+    j, t = _both(mesh_shape, serve_moe_tp_data=True)
+    jeng = JaxEngine(j["cfg"], j["run"], j["rules"], j["params"],
+                     JaxServe(max_batch=4, prefill_batch=2,
+                              bucket_edges=(8, 16), max_new_tokens=4))
+    teng = ServingEngine(t["cfg"], t["run"], t["rules"], t["params"], SERVE,
+                         device="cpu")
+    trace = launch.synthetic_trace(5, SERVE, t["cfg"].vocab_size, seed=1)
+    assert {c.rid: c.tokens for c in teng.run(trace)} == \
+        {c.rid: c.tokens for c in jeng.run(trace)}
+    assert teng.step_kinds == jeng.step_kinds
+
+
+@pytest.mark.parametrize("mesh_shape", TP_DATA_MESHES)
+def test_tp_data_island_plans_match_jax(mesh_shape):
+    """The plan counts every dp group's tokens (``b·s``): the MoE island's
+    chunk count and payload follow it, as in JAX."""
+    kw = dict(sp_attention="none", moe_chunks=0, serve_moe_tp_data=True)
+    j, t = _both(mesh_shape, **kw)
+    for phase in ("prefill", "decode", "all"):
+        want = JL.island_plans(j["cfg"], j["run"], j["rules"], batch=4,
+                               seq=16, phase=phase)
+        got = L.island_plans(t["cfg"], t["run"], t["rules"], batch=4,
+                             seq=16, phase=phase)
+        assert [(p.island, p.op, p.backend, p.n_chunks, p.fallback)
+                for p in got] == [(p.island, p.op, p.backend, p.n_chunks,
+                                   p.fallback) for p in want], phase

@@ -317,19 +317,22 @@ def test_plan_record_cache_section_matches_jax(mesh22):
 
 
 def test_refusals_that_stay():
-    """int8 caches (A11), health and deadlines (A13) and
-    ``serve_moe_tp_data`` (A9c) still raise; a paged pool refuses SSM
+    """Health and deadlines (A13) still raise; int8 caches (A11) and
+    ``serve_moe_tp_data`` (A9c) serve paged now; a paged pool refuses SSM
     models, as JAX's template does."""
-    for extra, item in ((dict(kv_dtype="int8"), "A11"),
-                        (dict(health_monitor=True), "A13"),
+    for extra, item in ((dict(health_monitor=True), "A13"),
                         (dict(deadline_steps=3), "A13")):
         with pytest.raises(NotImplementedError, match=item):
             _engine(None, dict(PAGED, **extra))
-    with pytest.raises(NotImplementedError, match="A9c"):
-        launch.build_engine("moonshot-v1-16b-a3b", reduced=True,
-                            mesh_shape=(2, 2), serve=ServeConfig(**PAGED),
-                            device="cpu",
-                            run_overrides={"serve_moe_tp_data": True})
+    trace = _trace(PAGED, 3)
+    eng8 = _engine((1, 4), dict(PAGED, kv_dtype="int8"))
+    assert eng8.cache["blocks"]["pos0"]["k_scale"].dtype == torch.float32
+    assert len(eng8.run(trace)) == 3
+    moe = launch.build_engine("moonshot-v1-16b-a3b", reduced=True,
+                              mesh_shape=(2, 2), serve=ServeConfig(**PAGED),
+                              device="cpu",
+                              run_overrides={"serve_moe_tp_data": True})
+    assert len(moe.run(trace)) == 3
     with pytest.raises(ValueError, match="pure-attention"):
         launch.build_engine("falcon-mamba-7b", reduced=True,
                             serve=ServeConfig(**PAGED, exact_buckets=True),

@@ -167,14 +167,18 @@ def test_cli_runs_on_the_cpu(capsys):
 
 def test_not_ported_serving_options_raise():
     # the paged cache and chunked prefill are ported (ROADMAP A7,
-    # tests/test_torch_paged_serving.py); int8 caches (A11), the health
-    # monitor and deadlines (A13) still raise
+    # tests/test_torch_paged_serving.py), and int8 caches (A11,
+    # tests/test_torch_int8_serving.py); the health monitor and deadlines
+    # (A13) still raise
     assert launch.build_engine(
         "tinyllama-1.1b", reduced=True, device="cpu",
         serve=ServeConfig(cache_layout="paged", page_size=4,
                           prefill_chunk=8)).paged
-    for serve in (ServeConfig(kv_dtype="int8"),
-                  ServeConfig(health_monitor=True),
+    eng = launch.build_engine("tinyllama-1.1b", reduced=True, device="cpu",
+                              serve=ServeConfig(kv_dtype="int8"))
+    assert eng.cache["blocks"]["pos0"]["k"].dtype == torch.int8
+    assert len(eng.run([(1, 2, 3)])) == 1
+    for serve in (ServeConfig(health_monitor=True),
                   ServeConfig(deadline_steps=3)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             launch.build_engine("tinyllama-1.1b", reduced=True, serve=serve,

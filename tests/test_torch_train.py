@@ -22,6 +22,19 @@ The reduced tinyllama (2 layers, d = 64, 4 heads of 16, 2 KV heads, vocab
   the entries within 1e-6.
 * ``build_and_train`` as JAX's ``test_system.py`` runs it, and a crash at
   step 7 resumed from the checkpoint equals the clean run.
+* int8 gradient compression with error feedback: 2 steps of
+  ``make_train_step`` with ``ErrorFeedbackInt8.transform`` on (2, 2) with
+  FSDP against JAX's ``make_train_step`` with the same transform, its
+  residual carried out of and back into the compiled step: loss rtol 1e-5,
+  the updated parameters within 1e-4 (at step 1 AdamW moves each entry by
+  about lr·sign(g), and the quantized gradients agree but at rounding
+  ties), the residuals within 1e-6 but at those ties (at most 0.1% of the
+  entries, each off by one quantum: twice the residual's largest
+  magnitude); ``build_and_train(compress_grads=True)``
+  learns, as JAX's ``test_end_to_end_train_compressed_grads``, with a
+  nonzero residual; JAX's launcher pattern, whose compiled step reads the
+  residual once as a constant, repeats its output (ROADMAP C14), the
+  port's does not.
 """
 
 import dataclasses
@@ -42,6 +55,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro.models.sharding import ShardingRules as JaxRules  # noqa: E402
 from repro.optim.adamw import AdamW as JaxAdamW  # noqa: E402
 from repro.optim.adamw import warmup_cosine as jax_wc  # noqa: E402
+from repro.optim.compress import ErrorFeedbackInt8 as JaxEF  # noqa: E402
 from repro.train import step as JS  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.ckpt.manager import CheckpointManager  # noqa: E402
@@ -54,6 +68,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.sharding import ShardingRules  # noqa: E402
 from repro_torch.optim.adamw import AdamW, warmup_cosine  # noqa: E402
+from repro_torch.optim.compress import ErrorFeedbackInt8  # noqa: E402
 from repro_torch.train.step import TrainState, make_train_step  # noqa: E402
 
 torch.set_num_threads(1)
@@ -224,6 +239,127 @@ def test_train_step_matches_jax(microbatches):
     assert close >= 0.999 * total, (close, total)
 
 
+def test_compressed_train_steps_match_jax():
+    """Two steps with int8 error-feedback compression. JAX's hook is
+    ``grads -> grads``; the residual is carried the way that works under
+    ``jax.jit``: an input of the compiled step and one of its outputs."""
+    lr = 1e-3
+    j, t = _both((2, 2), comm_backend="fused")
+    jopt = JaxAdamW(lr=jax_wc(lr, 2, 10), weight_decay=0.01)
+    jef = JaxEF()
+
+    def jstep(state, batch, residual):
+        out = {}
+
+        def transform(grads):
+            g, out["ef"] = jef.transform(grads, residual)
+            return g
+        state, m = JS.make_train_step(j["cfg"], j["run"], j["rules"], jopt,
+                                      grad_transform=transform)(state, batch)
+        return state, m, out["ef"]
+
+    jstep = jax.jit(jstep)
+    jstate = JS.TrainState(j["params"], jopt.init(j["params"]))
+    jres = jef.init(j["params"])
+    topt = AdamW(lr=warmup_cosine(lr, 2, 10), weight_decay=0.01)
+    tef = ErrorFeedbackInt8()
+    tmpl = T.param_template(t["cfg"], t["run"], t["rules"])
+    tstate = TrainState(t["params"], topt.init(t["params"]),
+                        tef.init(T.zeros(tmpl, None, "cpu")))
+    step = make_train_step(t["cfg"], t["run"], t["rules"], topt,
+                           grad_transform=tef.transform)
+    ties = total = 0
+    for i in range(2):
+        batch = _batch(seed=20 + i, equal_halves=True)
+        jstate, jm, jres = jstep(jstate, {k: jnp.asarray(v)
+                                          for k, v in batch.items()}, jres)
+        tstate, tm = step(tstate, {k: torch.from_numpy(v)
+                                   for k, v in batch.items()})
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        got = convert.tree_to_numpy(tstate.params, tmpl, t["rules"])
+        for path, p in T.leaves(got):
+            want = jstate.params
+            res = jres.residual
+            for k in path:
+                want, res = want[k], res[k]
+            np.testing.assert_allclose(p, np.asarray(want), atol=1e-4,
+                                       rtol=0, err_msg=f"{i}: {path}")
+            r = tstate.grad_state.residual
+            for k in path:
+                r = r[k]
+            assert r.shape == np.shape(res)          # the global layout
+            diff = np.abs(r.numpy() - np.asarray(res))
+            assert diff.max() <= 2 * np.abs(np.asarray(res)).max() + 1e-6
+            ties += int((diff > 1e-6).sum())
+            total += diff.size
+    assert ties <= 1e-3 * total, (ties, total)
+    assert any(float(r.abs().max()) > 0
+               for _, r in T.leaves(tstate.grad_state.residual))
+
+
+def test_jax_jitted_compress_grads_drops_error_feedback():
+    """ROADMAP C14: JAX's launcher keeps the error-feedback state in a dict
+    that the jitted function reads and writes. The trace reads the residual
+    once, as a constant (zeros), so every call compresses the same gradient
+    to the same output and the dict is left holding a tracer; the port's
+    transform, with its state threaded, carries the residual and does
+    not repeat."""
+    g = {"w": _batch()["weights"][:, :7] * 0.01 + 1e-4}
+    jef = JaxEF()
+    ef_state = {"s": jef.init(jax.tree.map(jnp.asarray, g))}
+
+    @jax.jit
+    def jtransform(grads):
+        out, ef_state["s"] = jef.transform(grads, ef_state["s"])
+        return out
+
+    jg = jax.tree.map(jnp.asarray, g)
+    outs = [np.asarray(jtransform(jg)["w"]) for _ in range(3)]
+    assert all(np.array_equal(outs[0], o) for o in outs[1:])
+    assert isinstance(ef_state["s"].residual["w"], jax.core.Tracer)
+    tef = ErrorFeedbackInt8()
+    state = tef.init({"w": torch.from_numpy(g["w"])})
+    touts = []
+    for _ in range(3):
+        out, state = tef.transform({"w": torch.from_numpy(g["w"])}, state)
+        touts.append(out["w"].numpy())
+    np.testing.assert_array_equal(touts[0], outs[0])  # step 1 agrees
+    assert not np.array_equal(touts[0], touts[1])
+    assert not np.array_equal(touts[1], touts[2])
+    # what error feedback is for: the sum of the outputs tracks the sum of
+    # the gradients to one quantum; the repeated output does not
+    true = 3 * g["w"]
+    quantum = np.abs(g["w"]).max() / 127
+    assert np.abs(sum(touts) - true).max() <= 2 * quantum
+    assert np.abs(sum(touts) - true).max() < np.abs(3 * outs[0] - true).max()
+
+
+def test_build_and_train_compressed_grads(tmp_path):
+    """The twin of JAX's ``test_end_to_end_train_compressed_grads``: int8 +
+    error feedback still learns; the residual is nonzero after step 1 and
+    survives a checkpoint round trip."""
+    state, log = launch.build_and_train(
+        "tinyllama-1.1b", steps=20, reduced=True, mesh_shape=None, batch=4,
+        seq=32, ckpt_dir=str(tmp_path), lr=5e-3, compress_grads=True,
+        log_every=1, ckpt_every=100, device="cpu")
+    first = np.mean([m["loss"] for m in log[:3]])
+    last = np.mean([m["loss"] for m in log[-3:]])
+    assert last < first, "int8+EF compressed training must still learn"
+    res = state.grad_state.residual
+    assert all(r.dtype == torch.float32 for _, r in T.leaves(res))
+    assert sum(float(r.abs().sum()) for _, r in T.leaves(res)) > 0
+    restored, _ = CheckpointManager(tmp_path).restore(state)
+    for (_, a), (_, b) in zip(T.leaves(restored.grad_state.residual),
+                              T.leaves(res)):
+        assert torch.equal(a, b)
+    _, log1 = launch.build_and_train(
+        "tinyllama-1.1b", steps=1, reduced=True, mesh_shape=(2, 2), batch=4,
+        seq=16, ckpt_dir=str(tmp_path / "mesh"), compress_grads=True,
+        comm_wire="int8", log_every=1, device="cpu")
+    assert np.isfinite(log1[-1]["loss"])
+
+
 def test_build_and_train_on_mesh(tmp_path):
     """The twin of JAX ``test_end_to_end_train_on_mesh``."""
     state, log = launch.build_and_train(
@@ -334,10 +470,18 @@ def test_training_plans_and_options_that_raise(capsys, tmp_path):
     assert "lm_loss" in capsys.readouterr().out
     kw = dict(steps=1, reduced=True, mesh_shape=None, batch=2, seq=8,
               ckpt_dir=str(tmp_path), device="cpu")
-    for extra, item in ((dict(compress_grads=True), "item 11"),
-                        (dict(comm_wire="int8"), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            launch.build_and_train("tinyllama-1.1b", **kw, **extra)
+    # int8 compression and wires run (once ROADMAP item 11)
+    for i, extra in enumerate((dict(compress_grads=True),
+                               dict(comm_wire="int8", mesh_shape=(1, 4)),
+                               dict(comm_wire="int8_sr", mesh_shape=(2, 2),
+                                    comm_backend="ring"))):
+        _, log = launch.build_and_train(
+            "tinyllama-1.1b", **dict(kw, ckpt_dir=str(tmp_path / str(i)),
+                                     **extra))
+        assert np.isfinite(log[-1]["loss"])
+    with pytest.raises(ValueError, match="unknown wire format"):
+        launch.build_and_train("tinyllama-1.1b", **dict(kw, comm_wire="fp4",
+                                                        mesh_shape=(1, 4)))
     # MoE and SSM archs train (once ROADMAP A9b and A10b)
     for arch in ("moonshot-v1-16b-a3b", "falcon-mamba-7b"):
         _, log = launch.build_and_train(

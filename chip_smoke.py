@@ -241,6 +241,20 @@ Phases (any failure exits non-zero before the last line is printed):
    with ``serve_moe_tp_data``: every request done, the grouped GEMM 3
    launches a chunk, layer, dp group and step, no weight gather; phase
    4d's 2-layer reference on that engine (``serve_moe_tp_data``);
+5u. the empirical autotuner: ``calibrate`` on a (4,) mesh of virtual
+   ranks (grid ``small``, bf16 and int8 wires, per-island sweeps at phase
+   4's buckets and decode pool, the Ulysses island at 1 x 8192, moonshot's
+   MoE dispatch): every GEMM op with bulk, ring and fused rows, no fused b1
+   row, every island sweep with each row of its case grid, B4/B5/B6 and
+   the all-to-all kernel launched, the table round-trips JSON, the CLI's
+   ``show``/``diff``/``check --no-probe`` exit 0; then phase 4's engine and
+   trace with ``comm_policy="measured"`` from that table: every active
+   GEMM-collective bucket plan measured and equal to the table's argmin,
+   every request done with finite logits, B4 launched iff a plan says
+   fused; the shipped seed ``h100_sxm.json`` names this card; phase 5's
+   training unpinned under the analytic and the measured policy, step
+   times and plans printed, losses finite (``autotune_serve``,
+   ``train_policies``);
 6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
    the tinyllama serving run's count for the serving kernels, the MoE
    serving run's for the grouped GEMM, the SSM serving run's for the
@@ -248,9 +262,10 @@ Phases (any failure exits non-zero before the last line is printed):
    sequence-parallel run's for the p2p shift and the flash hop, the
    Ulysses run's for the all-to-all, the TP GEMM pair's for AG×GEMM,
    GEMM×RS and the LCSC all-gather, the SSM training run's for the scan's
-   backward; ``launches_by_path`` has all twenty-one paths, 5g's a2a MoE,
-   the whisper runs 5h and 5i, the training runs 5k-5m, the paged and
-   head-sharded serving runs 5o and 5p and the runs of 5q-5t among them),
+   backward; ``launches_by_path`` has all twenty-three paths, 5g's a2a
+   MoE, the whisper runs 5h and 5i, the training runs 5k-5m, the paged and
+   head-sharded serving runs 5o and 5p, the runs of 5q-5t and 5u's
+   calibration and measured serving among them),
    then
    GEMM+AR's cold decode row, whose counts are GEMM+AR's whole-path
    counts (prefill and decode together, the counter named by
@@ -4534,6 +4549,366 @@ def serve_moe_tp_data(dev) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+#: where phase 5u keeps its calibration table and the autotuner's cache
+AUTOTUNE_DIR = os.path.join(ROOT, "build", "autotune")
+
+
+def _serving_sweeps(cfg, run, rules, serve) -> list:
+    """The per-island sweeps of a serving engine's buckets: each prefill
+    bucket at (prefill_batch, edge) and the decode pool at (max_batch,
+    s_max), as ``resolve_serving_plans`` resolves them."""
+    from repro_torch.models.layers import island_comm_sweeps
+    from repro_torch.runtime.serving import padded_s_max
+
+    sweeps = []
+    for edge in serve.bucket_edges:
+        sweeps += island_comm_sweeps(cfg, run, rules,
+                                     batch=serve.prefill_batch, seq=edge,
+                                     phase="prefill")
+    sweeps += island_comm_sweeps(cfg, run, rules, batch=serve.max_batch,
+                                 seq=padded_s_max(serve, rules),
+                                 phase="decode")
+    return sweeps
+
+
+def _print_plans(tag: str, eng, serve_cfg, calibration) -> None:
+    """Print the GEMM-collective plans of ``eng``'s buckets resolved under
+    the analytic policy (``calibration=None``) or from the shipped seed
+    (``"seed"``), unpinned, for comparison with the measured ones."""
+    import dataclasses
+
+    from repro_torch.core import autotune as TA
+    from repro_torch.core.comms import GEMM_OP_KIND
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.runtime.serving import resolve_serving_plans
+
+    run = dataclasses.replace(eng.base_run, comm_policy="analytic",
+                              calibration_path=None)
+    if calibration == "seed":
+        seed = os.path.join(os.path.dirname(TA.__file__), "calibrations",
+                            "h100_sxm.json")
+        run = dataclasses.replace(run, comm_policy="measured",
+                                  calibration_path=seed)
+    plans = resolve_serving_plans(eng.cfg, run,
+                                  ShardingRules(eng.rules.mesh, run),
+                                  serve_cfg)
+    for name, bp in plans.items():
+        print(f"[{tag}] {name}: " + ", ".join(
+            f"{p.island} {p.backend} x{p.n_chunks} hidden "
+            f"{p.hidden_fraction:.3f} ({p.source})" for p in bp.plans
+            if not p.fallback and p.op in GEMM_OP_KIND), flush=True)
+
+
+def autotune_serve(dev, slab_tokens: dict) -> dict:
+    """Phase 5u: the empirical autotuner on the card, then serving from
+    the table it wrote.
+
+    (a) ``calibrate`` on a (4,) mesh of virtual ranks, grid ``small``, wire
+    widths bf16 and int8, with per-island sweeps for tinyllama-1.1b at full
+    width: phase 4's prefill buckets (4 x 128, 4 x 512) and decode pool
+    (8), their int8-wire twins, the Ulysses island at 1 x 8192 and
+    moonshot-v1-16b-a3b's MoE dispatch at 4 x 512 tokens. Gates: every GEMM
+    op has bulk, ring and fused rows and no b1 row is fused; every island
+    sweep has exactly the rows of its case grid (``island_sweep_cases``:
+    bulk, ring and, at b2, fused at each chunk count; ``a2a_sweep_cases``:
+    bulk and the chunked counts); B4, B5 and B6 launched during
+    calibration, the all-to-all kernel for the chunked rows; the table
+    round-trips JSON; ``show``, ``diff`` (one-sided) and ``check
+    --no-probe`` exit 0. Prints the fitted corrections beside H100_SXM's,
+    the GEMM probe's device time beside ``torch.matmul``'s, and the wall
+    time.
+    (b) phase 4's engine and trace with ``comm_policy="measured"`` and
+    ``calibration_path`` that table. Gates: every active GEMM-collective
+    island plan of every bucket is ``source="measured"`` with the backend
+    ``table.best_backend`` gives at that bucket's coordinates; every
+    request completes with finite prefill logits; B1 once a step, flash
+    launched; B4 launched iff some bucket plan says fused. Prints the
+    greedy tokens' agreement with phase 4 (not gated).
+    (c) the shipped seed ``core/calibrations/h100_sxm.json``: its
+    ``device_kind`` must be this card's name; prints whether
+    ``find_table("h100_sxm")`` resolves it.
+    (d) ``train_policies``: phase 5's training under both policies.
+    Returns the launches of (a) and (b)."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from repro_torch import autotune as cli
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ServeConfig
+    from repro_torch.core import autotune as TA
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.comms import GEMM_OP_KIND, OP_BACKENDS
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.launch.serve import build_engine, synthetic_trace
+    from repro_torch.models.layers import island_comm_sweeps
+    from repro_torch.models.sharding import ShardingRules
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(AUTOTUNE_DIR, exist_ok=True)
+    # the autotuner's cache search stays inside the checkout
+    os.environ["REPRO_CACHE_DIR"] = os.path.join(AUTOTUNE_DIR, "cache")
+    TA.clear_caches()
+    serve_cfg = ServeConfig(**SERVE4)
+    cfg = get_config("tinyllama-1.1b")
+    mesh = VirtualMesh((1, 4), ("data", "model"), dev)
+    srun = RunConfig(dp_axes=("data",), fsdp=False, pk_attn_out_island=True,
+                     sp_attention="ulysses")
+    srules = ShardingRules(mesh, srun)
+    sweeps = _serving_sweeps(cfg, srun, srules, serve_cfg)
+    sweeps += [sw for sw in island_comm_sweeps(cfg, srun, srules, batch=1,
+                                               seq=8192, phase="all")
+               if sw.op == "all_to_all"]
+    mcfg = get_config(MOE_ARCH)
+    mrun = RunConfig(dp_axes=("data",), fsdp=False, sp_attention="none")
+    sweeps += [sw for sw in island_comm_sweeps(
+        mcfg, mrun, ShardingRules(mesh, mrun), batch=SERVE4["prefill_batch"],
+        seq=SERVE4["bucket_edges"][-1], phase="prefill")
+        if sw.island.startswith("moe_dispatch|")]
+    sweeps += cli.int8_island_sweeps(sweeps)
+    keys = sorted({sw.island for sw in sweeps})
+    print(f"[autotune] {len(sweeps)} island sweeps: {keys}", flush=True)
+    if not any(k.startswith("attn_ulysses|") for k in keys) or not any(
+            k.startswith("moe_dispatch|") for k in keys):
+        raise AssertionError("the Ulysses and MoE-dispatch sweeps are "
+                             "missing")
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = TA.calibrate(VirtualMesh((4,), ("x",), dev), grid="small",
+                         reps=3, dtypes=(2, 1), islands=sweeps,
+                         notes="chip_smoke phase 5u")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cal_launches = {k: c.launches for k, c in counters.items()}
+    path = table.save(os.path.join(AUTOTUNE_DIR, "table.json"))
+    print(f"[autotune] calibrated in {wall:.2f}s: "
+          f"{len(table.measurements)} rows {table.ops_covered()}; "
+          f"fingerprint {table.fingerprint}; launches {cal_launches}",
+          flush=True)
+    a = torch.ones((512, 512), dtype=torch.bfloat16, device=dev)
+    t_lib = TA._device_seconds(torch.matmul, a, a, reps=3, device=dev)
+    t_wall = TA._timeit(torch.matmul, a, a, reps=3, device=dev)
+    lib_eff = 2 * 512 ** 3 / t_lib / cm.H100_SXM.peak_flops_bf16
+    print(f"[autotune] GEMM probe 512^3 bf16, device time: B1 "
+          f"{table.corrections['gemm_efficiency']:.4e} of the 989 TFLOP/s "
+          f"peak; torch.matmul (reference only) {lib_eff:.4e} "
+          f"({t_lib * 1e6:.2f} us of device time a call, {t_wall * 1e6:.1f}"
+          f" us synchronized wall)", flush=True)
+    print("[autotune] fitted corrections beside H100_SXM's:\n"
+          + "\n".join(cli._fmt_corrections(table.corrections, cm.H100_SXM)),
+          flush=True)
+    if table.fingerprint.device_kind != torch.cuda.get_device_name(0):
+        raise AssertionError("the table does not name the card")
+    grid = [r for r in table.measurements if not r.get("island")]
+    for op in TA.GEMM_OPS:
+        have = {r["backend"] for r in grid
+                if r["op"] == op and r["dtype_bytes"] == 2}
+        if not {"bulk", "ring", "fused"} <= have:
+            raise AssertionError(f"{op}: grid rows {sorted(have)} lack one "
+                                 "of bulk, ring, fused")
+    if any(r["backend"] == "fused" for r in table.measurements
+           if r.get("dtype_bytes") == 1):
+        raise AssertionError("a b1 (int8-wire) row was timed fused")
+    for name in ("pk_matmul_ar", "ag_matmul_fused", "matmul_rs_fused",
+                 "pk_all_to_all"):
+        if cal_launches[name] <= 0:
+            raise AssertionError(f"calibration launched no {name} kernel")
+    chunked = [r for r in table.measurements
+               if r["op"] == "all_to_all" and r["backend"] == "chunked"]
+    if not chunked:
+        raise AssertionError("no chunked all-to-all row was measured")
+    # every island sweep has each row its case grid calls for (on the card
+    # calibrate raises where a row fails; this holds the table to it
+    # apart): a GEMM sweep at b2 bulk, ring and fused at every count, an
+    # all-to-all sweep bulk and its chunked counts
+    for sw in sweeps:
+        if sw.op == "all_to_all":
+            want = set(TA.a2a_sweep_cases(sw, 4))
+        else:
+            want = set(TA.island_sweep_cases(sw, 4, OP_BACKENDS[sw.op], dev))
+            if sw.dtype_bytes == 2 and not {"bulk", "ring", "fused"} <= {
+                    be for be, _ in want}:
+                raise AssertionError(f"{sw.island}: cases {sorted(want)} "
+                                     "lack one of bulk, ring, fused")
+        if sw.op == "all_to_all" and not any(be == "chunked"
+                                             for be, _ in want):
+            raise AssertionError(f"{sw.island}: no chunked a2a case")
+        have = {(r["backend"], int(r.get("n_chunks", 1)))
+                for r in table.measurements if r.get("island") == sw.island
+                and (r["m"], r["n"], r["k"]) == (sw.m, sw.n, sw.k)}
+        if not want or have != want:
+            raise AssertionError(f"{sw.island} at ({sw.m}, {sw.n}, {sw.k}):"
+                                 f" rows {sorted(have)}, cases "
+                                 f"{sorted(want)}")
+    print(f"[autotune] all {len(sweeps)} island sweeps have every row of "
+          "their case grids", flush=True)
+    for r in table.measurements:
+        if r.get("island"):
+            print(f"[autotune] row {r['island']} {r['backend']} "
+                  f"c={r.get('n_chunks', 1)} m={r['m']} n={r['n']} "
+                  f"k={r['k']}: {r['us']:.1f} us", flush=True)
+    back = TA.CalibrationTable.load(path)
+    if back.to_json() != table.to_json():
+        raise AssertionError("the table does not round-trip JSON")
+    for argv in (["show", str(path)], ["diff", str(path)],
+                 ["check", str(path), "--no-probe"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        lines = buf.getvalue().splitlines()
+        print(f"[autotune] `{' '.join(argv[:1] + argv[2:])}` exit {rc}: "
+              f"{len(lines)} lines; " + " | ".join(lines[:3]), flush=True)
+        if rc != 0:
+            raise AssertionError(f"autotune {argv[0]} exited {rc}")
+
+    # (b) phase 4's engine and trace, dispatching from the table
+    TA.clear_caches()
+    t0 = time.perf_counter()
+    eng = build_engine("tinyllama-1.1b", reduced=False, mesh_shape=(1, 4),
+                       serve=serve_cfg, seed=0, device=dev,
+                       run_overrides={"pk_attn_out_island": True,
+                                      "comm_policy": "measured",
+                                      "calibration_path": str(path)})
+    print(f"[serve-measured] engine built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    fused_planned = False
+    for name, bp in eng.bucket_plans.items():
+        coords = {sw.island: sw for sw in island_comm_sweeps(
+            eng.cfg, eng.base_run, eng.rules, batch=bp.batch,
+            seq=(bp.seq if bp.phase == "prefill"
+                 else eng.s_max), phase=bp.phase)}
+        for p in bp.plans:
+            if p.fallback or p.op not in GEMM_OP_KIND:
+                continue
+            key = TA.island_key(p.island, p.op, 2)
+            sw = coords[key]
+            allowed = ["bulk", "ring", "fused"]
+            if p.op == "all_gather_matmul" and sw.m // 4 >= 2:
+                allowed.append("ring_bidir")
+            want = table.best_backend(p.op, sw.m, sw.n, sw.k,
+                                      allowed=allowed, axis_size=4,
+                                      dtype_bytes=sw.dtype_bytes,
+                                      island=key)
+            print(f"[serve-measured] {name} {p.island}: {p.backend} "
+                  f"x{p.n_chunks} hidden {p.hidden_fraction:.3f} "
+                  f"({p.source}); table argmin {want} at ({sw.m}, {sw.n}, "
+                  f"{sw.k})", flush=True)
+            if p.source != "measured" or p.backend != want:
+                raise AssertionError(f"{name} {p.island}: plan {p.backend} "
+                                     f"({p.source}), table argmin {want}")
+            fused_planned |= p.backend == "fused"
+    for tag, cal in (("analytic", None), ("seed", "seed")):
+        # the same buckets under the analytic policy, and from the seed
+        _print_plans(f"plans-{tag}", eng, serve_cfg, cal)
+    trace = synthetic_trace(8, serve_cfg, eng.cfg.vocab_size, seed=0)
+    ar = counters["pk_matmul_ar"]
+    ar.launches = 0
+    launches = _serve_run("serve-measured", eng, trace, dev,
+                          {k: counters[k] for k in ("matmul",
+                                                    "flash_attention")})
+    launches["pk_matmul_ar"] = ar.launches
+    print(f"[serve-measured] pk_matmul_ar launches {ar.launches}; a bucket "
+          f"plan says fused: {fused_planned}", flush=True)
+    if (ar.launches > 0) != fused_planned:
+        raise AssertionError("B4 launches disagree with the bucket plans")
+    group = [p for p in trace if serve_cfg.bucket_for(len(p))
+             == serve_cfg.bucket_for(len(trace[0]))][:serve_cfg.prefill_batch]
+    if not bool(torch.isfinite(eng.prefill_logits(group)).all()):
+        raise AssertionError("non-finite prefill logits")
+    done = {c.rid: c.tokens for c in eng.completions.values()}
+    same = sum(a == b for rid, toks in done.items()
+               for a, b in zip(toks, slab_tokens[rid]))
+    total = sum(len(t) for t in done.values())
+    print(f"[serve-measured] greedy tokens vs phase 4 (fused pinned): "
+          f"{same}/{total} agree ({same / total:.3f})", flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the shipped seed
+    seed_path = os.path.join(os.path.dirname(TA.__file__), "calibrations",
+                             "h100_sxm.json")
+    seed = TA.CalibrationTable.load(seed_path)
+    TA.clear_caches()
+    found = TA.find_table("h100_sxm")
+    resolved = found is not None and found.to_json() == seed.to_json()
+    print(f"[autotune] shipped seed: {seed.fingerprint}, "
+          f"{len(seed.measurements)} rows, created {seed.created}; "
+          f"find_table('h100_sxm') resolves it: {resolved}", flush=True)
+    if seed.fingerprint.device_kind != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the seed names {seed.fingerprint.device_kind!r}"
+                             f", not this card")
+    train_policies(dev, table)
+    return {"calibrate": cal_launches, "serve": launches}
+
+
+def train_policies(dev, table, steps: int = 3) -> None:
+    """Phase 5u (d): phase 5's training (tinyllama-1.1b, (2, 4) with FSDP,
+    8 x 512 tokens, 2 microbatches) unpinned under ``comm_policy=
+    "analytic"`` and then ``"measured"`` from 5u's table, put where the
+    launcher's search finds it (the user cache). Prints both runs' island
+    plans (the launcher's ``[plan]`` lines) and step times, and the host
+    cost of one measured dispatch decision against an analytic one. Gates:
+    the search resolves the table; both runs' losses are finite."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import autotune as TA
+    from repro_torch.core.comms import CommContext
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.launch.train import build_and_train
+
+    table.save(TA.cache_path(table.fingerprint))
+    TA.clear_caches()
+    if TA.find_table(table.fingerprint.hw) is None:
+        raise AssertionError("the launcher's search does not find 5u's table")
+    mesh = VirtualMesh((4,), ("x",), dev)
+    for policy in ("analytic", "measured"):
+        ctx = CommContext("x", mesh=mesh, policy=policy, island="mlp|"
+                          "matmul_all_reduce|b2")
+        ctx.auto_gemm_backend("matmul_all_reduce", 1024, 2048, 1408,
+                              fused_ok=True)
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            ctx.auto_gemm_backend("matmul_all_reduce", 1024, 2048, 1408,
+                                  fused_ok=True)
+            ctx.gemm_chunk_schedule("matmul_all_reduce", 1024, 2048, 1408,
+                                    backend="fused")
+        print(f"[train-policy] {policy}: one backend + chunk decision "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} us of host time",
+              flush=True)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    for policy in ("analytic", "measured"):
+        shutil.rmtree(ckpt, ignore_errors=True)
+        try:
+            state, log = build_and_train(
+                "tinyllama-1.1b", steps=steps, reduced=False,
+                mesh_shape=(2, 4), mesh_axes=("data", "model"), batch=8,
+                seq=512, ckpt_dir=ckpt, microbatches=2, log_every=1,
+                ckpt_every=100, comm_policy=policy, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        del state
+        losses = [m["loss"] for m in log]
+        step_s = [m["step_time_s"] for m in log]
+        print(f"[train-policy] {policy}: losses "
+              f"{[round(x, 4) for x in losses]}; step wall times (host "
+              f"clock) {[round(t, 4) for t in step_s]} s; median of steps "
+              f"2-{steps} {statistics.median(step_s[1:]):.4f} s", flush=True)
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{policy} training losses: {losses}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
 
 def main() -> int:
     import torch
@@ -4579,6 +4954,7 @@ def main() -> int:
     wire_launches = tp_gemm_int8(dev)
     compressed_launches = train_compressed(dev, train_launches, 4)
     tp_data_launches = serve_moe_tp_data(dev)
+    autotune_launches = autotune_serve(dev, slab_tokens)
     main_entries = []
     for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
                                   "pk_all_gather@path",
@@ -4608,7 +4984,11 @@ def main() -> int:
                        "serve-int8-paged"].get(counter, 0),
                    "serve_wire_int8": wire_launches.get(counter, 0),
                    "train_compressed": compressed_launches.get(counter, 0),
-                   "serve_moe_tp_data": tp_data_launches.get(counter, 0)}
+                   "serve_moe_tp_data": tp_data_launches.get(counter, 0),
+                   "autotune_calibrate": autotune_launches[
+                       "calibrate"].get(counter, 0),
+                   "serve_measured": autotune_launches["serve"].get(counter,
+                                                                   0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",

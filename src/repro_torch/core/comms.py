@@ -53,8 +53,12 @@ Ported ops::
 
 Backend precedence is the JAX package's:
 per-call ``backend=`` > context pin > policy, with the same ``ValueError``
-shape guards. The policy is analytic only (``policy="measured"/"auto"`` is
-queue item 12) and prices on ``H100_SXM`` by default. A quantized wire
+shape guards. The policy prices on ``H100_SXM`` by default: ``"analytic"``
+from its data-sheet constants, ``"measured"`` from a calibration table of
+``core/autotune.py`` (its rows first, the island's own before the global
+grid, then the analytic model on the table's corrected spec; a warning and
+the analytic policy when no table matches the device), ``"auto"`` the same
+without the warning. A quantized wire
 reprices the ring's transfer at the wire's bytes an element, pins row
 chunks, and keeps the policy off ``fused``: the fused kernels ship full
 precision, as JAX's do, so only the rings put int8 on the wire; ``bulk``
@@ -116,19 +120,23 @@ class CommContext:
     hw: cm.HardwareSpec = cm.H100_SXM
     backend: str | None = None
     allow_bidir: bool = True
+    #: "analytic" prices schedules from ``hw``'s data-sheet constants;
+    #: "measured" dispatches from a ``core/autotune.py`` calibration table
+    #: (the analytic policy, with a warning, when none matches the device);
+    #: "auto" is measured when a matching table exists, silently.
     policy: str = "analytic"
+    #: a ``CalibrationTable``, a path to one, or None (search the user cache
+    #: then the seed tables). Ignored under policy="analytic".
     calibration: Any = None
+    #: the island key (``autotune.island_key``) this context dispatches as:
+    #: measured lookups prefer rows tagged with it, then the global rows.
+    island: str | None = None
     chunks: int | None = None
     wire: Any = None
 
     def __post_init__(self):
         if self.mesh is None:
             raise ValueError("the port's CommContext needs a VirtualMesh")
-        if self.policy != "analytic" or self.calibration is not None:
-            raise NotImplementedError(
-                f"comm policy {self.policy!r} with calibration tables is "
-                "ROADMAP item 12 (core/autotune.py); the port dispatches "
-                "on the analytic cost model only")
         resolve_wire(self.wire)          # an unknown name raises here
 
     def wire_format(self, override: Any = None) -> WireFormat | None:
@@ -141,6 +149,29 @@ class CommContext:
     @property
     def axis_size(self) -> int:
         return self.mesh.shape[self.axis_name]
+
+    def available_backends(self, op: str) -> tuple[str, ...]:
+        """Backends of `op` that can execute here: all of them (``fused``
+        launches its kernel on a CUDA device and runs its plain version on
+        the CPU)."""
+        return OP_BACKENDS[op]
+
+    def active_calibration(self):
+        """The ``CalibrationTable`` this context's policy dispatches from,
+        or None when the policy is analytic (explicitly, or by fallback
+        because no table matches this device's fingerprint)."""
+        if self.policy == "analytic":
+            return None
+        from repro_torch.core import autotune
+        return autotune.resolve_table(self.calibration, self.hw.name,
+                                      self.policy,
+                                      device=self.mesh.device.type)
+
+    def effective_hw(self) -> cm.HardwareSpec:
+        """``hw`` with the measured corrections applied when the measured
+        policy is active: the spec every cost-model query below runs on."""
+        table = self.active_calibration()
+        return table.spec(self.hw) if table is not None else self.hw
 
     # -- dispatch plumbing -------------------------------------------------
 
@@ -181,29 +212,55 @@ class CommContext:
         return self.mesh.device.type == "cuda"
 
     def gemm_policy(self, m: int, n: int, k: int, *, kind: str,
-                    dtype_bytes: int = 2, wire: Any = None) -> OverlapPolicy:
+                    dtype_bytes: int = 2, hw: cm.HardwareSpec | None = None,
+                    wire: Any = None) -> OverlapPolicy:
         """The §3.1.3 schedule decision for a GEMM×collective of global
-        shape (m, n, k) over this axis; only AG+GEMM may credit the second
-        link-pair of a bidirectional ring. A quantized wire prices the
-        ring's transfer at its bytes an element, scales included."""
+        shape (m, n, k) over this axis, priced on ``hw`` (None: on
+        ``effective_hw()``); only AG+GEMM may credit the second link-pair
+        of a bidirectional ring. A quantized wire prices the ring's
+        transfer at its bytes an element, scales included."""
         fmt = self.wire_format(wire)
         return choose_gemm_collective(
             m, n, k, axis_size=self.axis_size, kind=kind,
-            dtype_bytes=dtype_bytes, hw=self.hw,
+            dtype_bytes=dtype_bytes,
+            hw=hw if hw is not None else self.effective_hw(),
             allow_bidir=self.allow_bidir and kind == "all_gather",
             wire_bytes=fmt.bytes_per_element if fmt is not None else None)
 
     def auto_gemm_backend(self, op: str, m: int, n: int, k: int, *,
                           dtype_bytes: int = 2, fused_ok: bool = False,
                           bidir_ok: bool = True, wire: Any = None) -> str:
-        """The backend ``backend=None`` resolves to, trace-free (analytic).
-        Under a quantized wire it is never ``fused``: the fused kernels
-        ship full precision, so the rings are what put int8 on the wire."""
-        pol = self.gemm_policy(m, n, k, kind=GEMM_OP_KIND[op],
-                               dtype_bytes=dtype_bytes, wire=wire)
+        """The backend ``backend=None`` resolves to, trace-free. Under the
+        measured policy the feasible backends measured near (m, n, k) are
+        compared on measured microseconds (``CalibrationTable.
+        best_backend``, the island's rows first, at the wire's width); the
+        analytic model answers where the table has no comparison, on the
+        table's corrected spec. Under a quantized wire it is never
+        ``fused``: the fused kernels ship full precision, so the rings are
+        what put int8 on the wire."""
+        fmt = self.wire_format(wire)
+        q_bytes = fmt.dtype_bytes if fmt is not None else dtype_bytes
+        table = self.active_calibration()
+        if table is not None:
+            allowed = ["bulk", "ring"]
+            if (op == "all_gather_matmul" and bidir_ok and self.allow_bidir
+                    and self.axis_size % 2 == 0):
+                allowed.append("ring_bidir")
+            if fused_ok:
+                allowed.append("fused")
+            best = table.best_backend(op, m, n, k, allowed=allowed,
+                                      axis_size=self.axis_size,
+                                      dtype_bytes=q_bytes,
+                                      island=self.island)
+            if best is not None:
+                return best
+        pol = self.gemm_policy(
+            m, n, k, kind=GEMM_OP_KIND[op], dtype_bytes=dtype_bytes,
+            hw=table.spec(self.hw) if table is not None else self.hw,
+            wire=wire)
         if not pol.enabled:
             return "bulk"
-        if fused_ok and self.wire_format(wire) is None:
+        if fused_ok and fmt is None:
             return "fused"
         if (op == "all_gather_matmul" and pol.strategy == "ring_bidir"
                 and bidir_ok):
@@ -216,10 +273,11 @@ class CommContext:
                             chunk_dim: str | None = None,
                             wire: Any = None) -> ChunkSchedule:
         """Chunk-pipeline decision: per-call ``n_chunks`` > context
-        ``chunks`` > the analytic argmin (``fused=True`` prices the fused
-        kernel). The fused kernel chunks the payload's rows, and a
-        quantized wire pins row chunks too (its blocks are per row); the
-        fused schedule ignores the wire."""
+        ``chunks`` > the chunk count measured in the calibration table (the
+        island's rows first, at the wire's width) > the analytic argmin
+        (``fused=True`` prices the fused kernel). The fused kernel chunks
+        the payload's rows, and a quantized wire pins row chunks too (its
+        blocks are per row); the fused schedule ignores the wire."""
         kind = GEMM_OP_KIND[op]
         fused = backend == "fused"
         fmt = self.wire_format(wire) if not fused else None
@@ -235,27 +293,79 @@ class CommContext:
             return ChunkSchedule(max(1, self.chunks), dim,
                                  "context chunks= (RunConfig.comm_chunks)",
                                  source="explicit")
+        q_bytes = fmt.dtype_bytes if fmt is not None else dtype_bytes
+        table = self.active_calibration()
+        if table is not None:
+            c = table.best_chunks(op, backend, m, n, k,
+                                  axis_size=self.axis_size,
+                                  dtype_bytes=q_bytes, island=self.island)
+            if c is not None:
+                return ChunkSchedule(c, dim, "measured chunk sweep argmin",
+                                     source="measured")
         sched = choose_gemm_chunks(
             m, n, k, axis_size=self.axis_size, kind=kind,
-            dtype_bytes=dtype_bytes, hw=self.hw,
+            dtype_bytes=dtype_bytes,
+            hw=table.spec(self.hw) if table is not None else self.hw,
             wire_bytes=fmt.bytes_per_element if fmt is not None else None,
             fused=fused)
         return sched if chunk_dim is None else dataclasses.replace(
             sched, chunk_dim=chunk_dim)
 
+    @staticmethod
+    def a2a_coords(shape, split_axis: int, concat_axis: int
+                   ) -> tuple[int, int, int]:
+        """The (m, n, k) an ``all_to_all`` calibration row is stored and
+        queried under: (local payload elements, split-dim extent, concat-dim
+        extent) — one convention for the per-island sweep and every
+        dispatch query."""
+        return (int(math.prod(shape)), int(shape[split_axis]),
+                int(shape[concat_axis]))
+
     def a2a_chunk_schedule(self, shape, split_axis: int, concat_axis: int, *,
                            dtype_bytes: int = 2,
                            downstream_compute_s: float = 0.0
                            ) -> ChunkSchedule:
-        """Chunk count for an ``all_to_all`` of local payload ``shape``:
-        the analytic ``schedule.choose_a2a_chunks`` policy (the JAX
-        package's fallback when no calibration table answers), fitted to
-        the payload's splittable bystander dims. The MoE island's
-        ``moe_chunks = 0`` (auto) resolves through it."""
+        """Chunk count for an ``all_to_all`` of local payload ``shape``.
+
+        Measured first: where the calibration table has a2a rows near
+        :meth:`a2a_coords` (``calibrate --per-island`` sweeps the Ulysses
+        and MoE-dispatch islands; the island's rows preferred), bulk vs
+        chunked and the count are the measured argmin; otherwise the
+        analytic ``schedule.choose_a2a_chunks`` answers. The count is
+        fitted to the payload's splittable bystander dims. The Ulysses
+        island's ``ulysses_chunks = 0`` and the MoE island's ``moe_chunks
+        = 0`` (auto) resolve through it."""
+        m, n, k = self.a2a_coords(shape, split_axis, concat_axis)
+        table = self.active_calibration()
+        if table is not None:
+            be = table.best_backend("all_to_all", m, n, k,
+                                    allowed=("bulk", "chunked"),
+                                    axis_size=self.axis_size,
+                                    dtype_bytes=dtype_bytes,
+                                    island=self.island)
+            if be == "bulk":
+                return ChunkSchedule(1, "a2a", "measured: bulk a2a wins",
+                                     source="measured")
+            if be == "chunked":
+                c = table.best_chunks("all_to_all", "chunked", m, n, k,
+                                      axis_size=self.axis_size,
+                                      dtype_bytes=dtype_bytes,
+                                      island=self.island)
+                c = c if c is not None else 2
+                fit = a2a_chunk_axis(shape, split_axis, concat_axis, c)
+                if fit is not None and fit[1] > 1:
+                    return ChunkSchedule(fit[1], "a2a",
+                                         "measured chunk sweep argmin",
+                                         source="measured")
+                return ChunkSchedule(1, "a2a",
+                                     "measured chunked win, but no "
+                                     "bystander dim splits", source="measured")
         c = choose_a2a_chunks(
             math.prod(shape) * dtype_bytes, axis_size=self.axis_size,
-            downstream_compute_s=downstream_compute_s, hw=self.hw,
-            shape=shape, split_axis=split_axis, concat_axis=concat_axis)
+            downstream_compute_s=downstream_compute_s,
+            hw=table.spec(self.hw) if table is not None else self.hw,
+            shape=shape, split_axis=split_axis,
+            concat_axis=concat_axis)
         return ChunkSchedule(c, "a2a", f"choose_a2a_chunks -> {c}",
                              source="analytic")
 
@@ -439,7 +549,8 @@ class CommContext:
             return choose_a2a_chunks(
                 math.prod(local) * x.element_size(),
                 axis_size=self.axis_size,
-                downstream_compute_s=downstream_compute_s, hw=self.hw,
+                downstream_compute_s=downstream_compute_s,
+                hw=self.effective_hw(),
                 shape=local, split_axis=split_axis, concat_axis=concat_axis)
 
         def auto() -> str:
@@ -495,11 +606,22 @@ class CommContext:
              backend: str | None = None) -> torch.Tensor:
         """All-reduce over the rank axis. "ring" keeps the payload dtype and
         needs ``x.shape[1]`` (the local leading dim) divisible by the axis
-        size; the policy picks it for bf16 payloads that split."""
+        size. The policy asks the calibration table first (rows at (local
+        leading dim, the rest of the local size, 1)), then picks the ring
+        for bf16 payloads that split."""
         self._check_stacked(x)
         ring_ok = x.dim() >= 2 and x.shape[1] % self.axis_size == 0
 
         def auto() -> str:
+            table = self.active_calibration()
+            if table is not None and ring_ok:
+                lead = x.shape[1]
+                best = table.best_backend(
+                    "psum", lead, max(x[0].numel() // max(lead, 1), 1), 1,
+                    allowed=("bulk", "ring"), axis_size=self.axis_size,
+                    dtype_bytes=x.element_size(), island=self.island)
+                if best is not None:
+                    return best
             return "ring" if ring_ok and x.dtype == torch.bfloat16 else "bulk"
 
         be = self._resolve("psum", backend, auto)

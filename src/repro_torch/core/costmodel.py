@@ -34,14 +34,14 @@ class HardwareSpec:
     local_sync_s: float = 64e-9       # paper: intra-SM mbarrier ~64 ns
     remote_sync_s: float = 1.5e-6     # cross-chip semaphore signal visibility
     # Fraction of peak the MXU sustains on a dense GEMM. The analytic default
-    # is the paper's ~90%; ``repro.core.autotune`` replaces it (and
+    # is the paper's ~90%; ``core/autotune.py`` replaces it (and
     # ici_bandwidth / remote_sync_s) with measured values via ``calibrated``.
     gemm_efficiency: float = 0.9
 
     def calibrated(self, **overrides: float) -> "HardwareSpec":
         """A copy of this spec with measured correction factors applied.
 
-        ``repro.core.autotune.CalibrationTable.spec`` calls this with the
+        ``core/autotune.py``'s ``CalibrationTable.spec`` calls this with the
         fitted ``ici_bandwidth`` / ``remote_sync_s`` / ``gemm_efficiency``
         (and optionally ``kernel_launch_s``) so the §3.1.1 cost model runs
         on achieved rather than datasheet numbers. Unknown field names are

@@ -29,8 +29,11 @@ over dp is sliced along that dim after its rank axis, and a
 :class:`Stacked` output is joined there: group g's KV cache rows, or its
 partition of a page pool. An output marked :class:`Summed` is a partial
 every dp group computes of the whole: the groups' outputs are summed in dp
-order (JAX's ``psum`` / ``psum_scatter`` over the dp axes). Measured plans,
-guards and scripted faults are not ported (ROADMAP items 12 and 13).
+order (JAX's ``psum`` / ``psum_scatter`` over the dp axes). Under
+``RunConfig.comm_policy="measured"`` an island's context dispatches as its
+:attr:`Island.island_key` and :meth:`Island.plan` reports measured
+decisions (``source="measured"``) from the calibration table. Guards and
+scripted faults are not ported (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from repro_torch.core import costmodel as cm
 from repro_torch.core import pgl
+from repro_torch.core.autotune import island_key as _island_key
 from repro_torch.core.comms import GEMM_OP_KIND, OP_BACKENDS, CommContext
 from repro_torch.core.pgl import P
 from repro_torch.core.schedule import a2a_chunk_axis
@@ -332,11 +337,22 @@ class Island:
 
     # -- execution ---------------------------------------------------------
 
+    @property
+    def island_key(self) -> str | None:
+        """The calibration-row key this island dispatches as (None without a
+        ``Comm``): ``autotune.island_key(name, op, dtype)``. ``calibrate
+        --per-island`` tags measured rows with it; the context built below
+        prefers those rows over the global shape grid."""
+        if self.comm is None:
+            return None
+        return _island_key(self.name, self.comm.op, self.comm.dtype_bytes)
+
     def make_context(self) -> CommContext:
-        """The island's CommContext: ``RunConfig`` knobs, then this island's
-        frozen plan (``island_overrides``) as backend pin and chunk default,
-        then a declared ``Comm.n_chunks`` unless ``comm_chunks`` is set."""
-        kw: dict[str, Any] = {}
+        """The island's CommContext: ``RunConfig`` knobs and its island key,
+        then this island's frozen plan (``island_overrides``) as backend pin
+        and chunk default, then a declared ``Comm.n_chunks`` unless
+        ``comm_chunks`` is set."""
+        kw: dict[str, Any] = {"island": self.island_key}
         ov = island_override(self.run, self.name)
         if ov is not None:
             be, chunks, _src = ov
@@ -425,9 +441,59 @@ class Island:
 
     # -- introspection -----------------------------------------------------
 
+    def _measured_hidden(self, ctx: CommContext, backend: str,
+                         kind: str) -> float | None:
+        """Measured hidden fraction for the chosen backend, or None.
+
+        On a calibrated mesh the bulk row is the serial GEMM-then-collective
+        baseline and the ring (or fused) row the overlapped schedule, so the
+        time saved over bulk IS the hidden communication: ``(us_bulk -
+        us_overlapped) / t_comm`` clamped to [0, 1], ``t_comm`` priced on the
+        calibrated spec. A measured bulk decision reports 0.0. Both sides of
+        the delta come from one tier — the island's rows, else the global
+        grid. None leaves the plan on the analytic prediction."""
+        if backend not in ("bulk", "ring", "ring_bidir", "fused"):
+            return None
+        table = ctx.active_calibration()
+        if table is None or self.comm is None:
+            return None
+        c = self.comm
+        n_dev = self.axis_size
+        ring_be = backend if backend != "bulk" else "ring"
+        tiers: list[dict[str, Any]] = []
+        if self.island_key is not None:
+            tiers.append({"island": self.island_key, "island_only": True})
+        tiers.append({"island": None})
+        us_ov = us_bulk = None
+        for sel in tiers:
+            kw: dict[str, Any] = dict(axis_size=n_dev,
+                                      dtype_bytes=c.dtype_bytes, **sel)
+            us_ov = table.measured_us(c.op, ring_be, c.m, c.n, c.k, **kw)
+            us_bulk = table.measured_us(c.op, "bulk", c.m, c.n, c.k, **kw)
+            if us_ov is not None and us_bulk is not None:
+                break
+        if us_ov is None or us_bulk is None:
+            return None
+        if backend == "bulk":
+            return 0.0          # nothing overlaps, by measurement
+        # a quantized wire shrinks the denominator to what the ring ships
+        fmt = ctx.wire_format()
+        elem_bytes = (fmt.bytes_per_element if fmt is not None
+                      else c.dtype_bytes)
+        shard = (cm.collective_tensor_bytes(c.m, c.n, c.k, 1, kind)
+                 * elem_bytes / max(n_dev, 1))
+        t_comm_us = cm.transfer_cost(
+            cm.ring_collective_bytes(shard, n_dev, kind),
+            ctx.effective_hw(),
+            links=2 if backend == "ring_bidir" else 1) * 1e6
+        if t_comm_us <= 0:
+            return None
+        return max(0.0, min(1.0, (us_bulk - us_ov) / t_comm_us))
+
     def plan(self) -> IslandPlan:
         """The trace-free §3.1.3 decision this island will make: backend,
-        chunk count, predicted hidden fraction — or the fallback reason."""
+        chunk count, hidden fraction (measured on a calibrated mesh, else
+        predicted) — or the fallback reason."""
         reason = self.fallback_reason()
         base = IslandPlan(self.name, self.axis, self.axis_size,
                           fallback=reason is not None,
@@ -475,9 +541,14 @@ class Island:
                 n_chunks = n_dev * sched.n_chunks
                 chunk_dim = sched.chunk_dim
                 hidden = pol.hidden_fraction
+                source = "measured" if sched.source == "measured" \
+                    else "analytic"
             else:
                 n_chunks = c.n_chunks if c.n_chunks is not None else 1
-                chunk_dim, hidden = None, 0.0
+                chunk_dim, hidden, source = None, 0.0, "analytic"
+            meas = self._measured_hidden(ctx, backend, GEMM_OP_KIND[c.op])
+            if meas is not None:
+                hidden, source = meas, "measured"
             # only the rings ship a quantized wire; bulk and fused carry
             # full precision whatever the config says
             fmt = ctx.wire_format()
@@ -487,7 +558,7 @@ class Island:
             return dataclasses.replace(
                 base, backend=backend, n_chunks=n_chunks,
                 chunk_dim=chunk_dim, hidden_fraction=hidden,
-                source="analytic", wire=wire,
+                source=source, wire=wire,
                 reason=reason if reason is not None else pol.reason)
         if c.op == "all_to_all":
             # the island's constructor resolved the count and its source

@@ -24,6 +24,11 @@ engine (``repro_torch.runtime.serving``), the twin of
         --mesh-shape 1 4 --mode continuous --kv-dtype int8 \
         --comm-wire int8 --device cpu
 
+    # backends from the calibration table of this device (one written by
+    # `python -m repro_torch.autotune calibrate`, or the shipped seed)
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --mesh-shape 1 4 --mode continuous --comm-policy measured
+
 The entry points run on ``cuda`` unless ``device`` names another device;
 with no GPU and no device they raise.
 """
@@ -106,6 +111,7 @@ def generate(arch: str, *, reduced: bool, batch: int, prompt_len: int,
                        comm_chunks=comm_chunks, run_overrides=run_overrides,
                        device=device)
     if eng.rules is not None:
+        print(f"[plan] comm_policy={eng.base_run.comm_policy}")
         print(render_serving_plans(eng.bucket_plans))
     rng = np.random.RandomState(seed)
     prompts = [tuple(int(t) for t in
@@ -148,6 +154,11 @@ def main(argv=None):
                     help="paged layout: split prefill into page-aligned "
                          "chunks so decode ticks interleave (0 = off)")
     ap.add_argument("--mesh-shape", type=int, nargs="*", default=None)
+    ap.add_argument("--comm-policy", default="analytic",
+                    choices=["analytic", "measured", "auto"],
+                    help="cost source for comm backend dispatch: measured "
+                         "reads this device's calibration table "
+                         "(python -m repro_torch.autotune calibrate)")
     ap.add_argument("--comm-chunks", type=int, default=None)
     ap.add_argument("--comm-backend", default=None,
                     help="pin every GEMM island's collective backend "
@@ -163,7 +174,8 @@ def main(argv=None):
                     help="torch device (default: the GPU, which must exist)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    overrides = {"comm_wire": args.comm_wire}
+    overrides = {"comm_wire": args.comm_wire,
+                 "comm_policy": args.comm_policy}
     if args.comm_backend:
         overrides["comm_backend"] = args.comm_backend
 
@@ -190,6 +202,7 @@ def main(argv=None):
                        seed=args.seed, comm_chunks=args.comm_chunks,
                        run_overrides=overrides, device=args.device)
     if eng.rules is not None:
+        print(f"[plan] comm_policy={args.comm_policy}")
         print(render_serving_plans(eng.bucket_plans))
     if eng.paged:
         g = eng.geom

@@ -129,8 +129,9 @@ def main(argv=None):
     ap.add_argument("--no-pk", action="store_true")
     ap.add_argument("--comm-policy", default="analytic",
                     choices=["analytic", "measured", "auto"],
-                    help="cost source for comm backend dispatch (the port "
-                         "has the analytic policy only: ROADMAP item 12)")
+                    help="cost source for comm backend dispatch: measured "
+                         "reads this device's calibration table "
+                         "(python -m repro_torch.autotune calibrate)")
     ap.add_argument("--comm-chunks", type=int, default=None,
                     help="force the ring GEMM-collective sub-chunk count")
     ap.add_argument("--ulysses-chunks", type=int, default=1,

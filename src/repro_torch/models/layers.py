@@ -52,6 +52,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import moe as pk_moe
+from repro_torch.core.autotune import IslandSweep, island_key
+from repro_torch.core.comms import GEMM_OP_KIND, CommContext
 from repro_torch.core.pgl import P
 from repro_torch.core.pgl import axes_size as pgl_axes_size
 from repro_torch.core.quant import resolve_wire
@@ -278,10 +280,10 @@ def sp_attention_island(cfg: ArchConfig, run: RunConfig,
     """Sequence-parallel attention island over the tp axis, q/k/v
     sequence-sharded on dim 2; once per dp group. Ring attention (paper
     §4.2), or Ulysses under ``sp_attention="ulysses"``: its all-to-all
-    chunk count is ``run.ulysses_chunks``, or with 0 (auto) the island's
-    frozen plan (``island_overrides``), then the analytic a2a chunk policy
-    (measured rows are ROADMAP item 12, so JAX's calibration key for the
-    island has no twin here)."""
+    chunk count is the island's frozen plan (``island_overrides``), else
+    ``run.ulysses_chunks``, else with 0 (auto) the a2a chunk policy under
+    the island key ``attn_ulysses|all_to_all|b<dtype>`` — measured rows of
+    ``calibrate --per-island`` first, the analytic policy otherwise."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if rules is None:
         return Island("attn_sp", run=run, reference=reference)
@@ -302,9 +304,10 @@ def sp_attention_island(cfg: ArchConfig, run: RunConfig,
         elif run.ulysses_chunks > 0:
             a2a_chunks = run.ulysses_chunks
         else:
-            sched = comm_context(run, axis, mesh=rules.mesh
-                                 ).a2a_chunk_schedule(shape, 1, 2,
-                                                      dtype_bytes=dtb)
+            ctx = comm_context(run, axis, mesh=rules.mesh,
+                               island=island_key("attn_ulysses",
+                                                 "all_to_all", dtb))
+            sched = ctx.a2a_chunk_schedule(shape, 1, 2, dtype_bytes=dtb)
             a2a_chunks, source = sched.n_chunks, sched.source
         comm = Comm("all_to_all", n_chunks=a2a_chunks,
                     backend="chunked" if a2a_chunks > 1 else "bulk",
@@ -1264,16 +1267,19 @@ def moe_island(cfg: ArchConfig, run: RunConfig,
     n_tok = b * s if tp_data else rules.local_batch(b) * s
     moe_chunks = run.moe_chunks
     if moe_chunks == 0:
-        # auto: the analytic a2a chunk policy over the dispatch payload
-        # (the JAX package asks its calibration table first, item 12)
+        # auto: measured first off the `calibrate --per-island` MoE-dispatch
+        # a2a rows (island "moe_dispatch"), the analytic a2a chunk policy
+        # otherwise — the Ulysses island's order
         n_dev = rules.mesh.shape[tp]
         base = pk_moe.dispatch_plan(n_tok, n_experts=cfg.n_experts,
                                     top_k=cfg.top_k,
                                     capacity_factor=cfg.capacity_factor)
         shape = (n_dev, max(cfg.n_experts // max(n_dev, 1), 1), base.cap, d)
-        moe_chunks = comm_context(run, tp, mesh=rules.mesh) \
-            .a2a_chunk_schedule(shape, 0, 0,
-                                dtype_bytes=_dtype_bytes(cfg)).n_chunks
+        ctx = comm_context(run, tp, mesh=rules.mesh,
+                           island=island_key("moe_dispatch", "all_to_all",
+                                             _dtype_bytes(cfg)))
+        moe_chunks = ctx.a2a_chunk_schedule(
+            shape, 0, 0, dtype_bytes=_dtype_bytes(cfg)).n_chunks
     plan = pk_moe.dispatch_plan(n_tok, n_experts=cfg.n_experts,
                                 top_k=cfg.top_k,
                                 capacity_factor=cfg.capacity_factor,
@@ -1536,3 +1542,56 @@ def island_plans(cfg: ArchConfig, run: RunConfig,
     return [i.plan() for i in _forward_islands(cfg, run, rules, batch=batch,
                                                seq=seq, phase=phase,
                                                page_size=page_size)]
+
+
+def island_comm_sweeps(cfg: ArchConfig, run: RunConfig,
+                       rules: ShardingRules | None, *, batch: int = 8,
+                       seq: int = 128, phase: str = "all"):
+    """Per-island calibration sweep specs (``autotune.IslandSweep``) for
+    every active GEMM-collective and all-to-all island of this forward
+    pass — the driver behind ``python -m repro_torch.autotune calibrate
+    --per-island``. GEMM islands carry the exact (op, m, n, k, dtype) their
+    ``CommContext`` dispatch queries with; a2a islands (Ulysses re-sharding)
+    the local payload shape and split/concat axes, stored under
+    ``CommContext.a2a_coords``. ``phase`` narrows to one serving bucket's
+    inventory. A MoE model adds its dispatch payload under the key
+    ``moe_dispatch|all_to_all|b<dtype>``, which ``moe_chunks = 0`` queries."""
+    sweeps = []
+    for isl in _forward_islands(cfg, run, rules, batch=batch, seq=seq,
+                                phase=phase):
+        c = isl.comm
+        if c is None or isl.fallback_reason() is not None:
+            continue
+        if c.op in GEMM_OP_KIND:
+            sweeps.append(IslandSweep(island=isl.island_key, op=c.op,
+                                      m=c.m, n=c.n, k=c.k,
+                                      dtype_bytes=c.dtype_bytes))
+        elif c.op == "all_to_all" and c.shape is not None:
+            m, n, k = CommContext.a2a_coords(c.shape, c.split_axis,
+                                             c.concat_axis)
+            sweeps.append(IslandSweep(
+                island=isl.island_key, op="all_to_all", m=m, n=n, k=k,
+                dtype_bytes=c.dtype_bytes, shape=tuple(c.shape),
+                split_axis=c.split_axis, concat_axis=c.concat_axis))
+    if any(sp.mlp == "moe" for sp in cfg.layer_pattern()) \
+            and rules is not None:
+        # the a2a dispatch payload (n_dev, E_loc, capacity, d), split ==
+        # concat == 0: not a declared island Comm (the MoE island's is the
+        # combine), but moe_chunks = 0 dispatches off these rows
+        n_dev = rules.mesh.shape[rules.tp]
+        if cfg.n_experts % n_dev == 0:
+            b_loc = rules.local_batch(batch)
+            s = 1 if phase == "decode" else seq
+            n_tok = batch * s if run.serve_moe_tp_data else b_loc * s
+            plan = pk_moe.dispatch_plan(n_tok, n_experts=cfg.n_experts,
+                                        top_k=cfg.top_k,
+                                        capacity_factor=cfg.capacity_factor)
+            shape = (n_dev, cfg.n_experts // n_dev, plan.cap, cfg.d_model)
+            m, n, k = CommContext.a2a_coords(shape, 0, 0)
+            sweeps.append(IslandSweep(
+                island=island_key("moe_dispatch", "all_to_all",
+                                  _dtype_bytes(cfg)),
+                op="all_to_all", m=m, n=n, k=k,
+                dtype_bytes=_dtype_bytes(cfg), shape=shape,
+                split_axis=0, concat_axis=0))
+    return sweeps

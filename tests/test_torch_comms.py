@@ -194,10 +194,18 @@ def test_shape_guard_raises_per_call_and_degrades_pinned(monkeypatch):
                                           backend="ring")
 
 
-def test_not_ported_paths_raise():
+def test_not_ported_paths_raise(tmp_path):
     mesh = VirtualMesh((4,), ("x",))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CommContext("x", mesh=mesh, policy="measured")
+    # the measured policy is ported (ROADMAP A12,
+    # tests/test_torch_autotune.py): without a table it warns and runs the
+    # analytic policy
+    from repro_torch.core import autotune
+    autotune.clear_caches()
+    ctx = CommContext("x", mesh=mesh, policy="measured",
+                      calibration=str(tmp_path / "missing.json"))
+    with pytest.warns(UserWarning, match="falling back to analytic"):
+        assert ctx.active_calibration() is None
+    autotune.clear_caches()
     # quantized wires are ported (ROADMAP item 11,
     # tests/test_torch_quant.py)
     assert CommContext("x", mesh=mesh, wire="int8").wire_format().name == \

@@ -255,6 +255,29 @@ Phases (any failure exits non-zero before the last line is printed):
    training unpinned under the analytic and the measured policy, step
    times and plans printed, losses finite (``autotune_serve``,
    ``train_policies``);
+5v. runtime health: phase 4's engine settings (tinyllama-1.1b at full
+   width and depth on (1, 4), 8 requests, one set of parameters): a ring
+   run; the same with island guards and a corrupt mlp hop at the step of
+   its last prefill group, that group quarantined, ``mlp`` tripped, every
+   other token the ring run's; the same with a retry, every token the ring
+   run's; fused with the health monitor and a 50 s stall on mlp's link:
+   one demotion (mlp -> bulk, drift), one promotion after probation, no B4
+   launch at mlp while demoted, the two steps after it under 5 s; fused
+   with guards and the monitor and no fault: no trip, no demotion; decode
+   step times with and without guards printed (``serve_health``);
+5w. the serving fleet: 2 replicas of phase 4's engine, ``least-loaded``,
+   12 requests — no fault, ``kill:1@4 rejoin:1@8`` (the rejoin seed in a
+   checkpoint under ``build/``) and a 4-tick delay of replica 1 that must
+   steal: every request done exactly once, the kill and delay runs' tokens
+   the no-fault run's, the rejoined parameters the snapshot's bit for bit,
+   B1, B7 and B4 launched on both replicas; then replica 0's drain
+   snapshot rejoins on a (2, 2) mesh through ``elastic_restore``, its
+   logical parameters bit-identical, and serves (``serve_fleet``);
+5x. GPipe: one tinyllama-1.1b decoder layer on no mesh as the stage, 22
+   stages on ``pipe = 2``, 4 microbatches of (2, 512): the bulk and
+   ``fused`` (B8) handoffs bit-identical, within 1e-2 of the sequential
+   layers; B8 5 launches a forward; ``gpipe_loss``'s gradients within
+   2e-2 of sequential autograd (``train_pipeline``);
 6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
    the tinyllama serving run's count for the serving kernels, the MoE
    serving run's for the grouped GEMM, the SSM serving run's for the
@@ -262,10 +285,11 @@ Phases (any failure exits non-zero before the last line is printed):
    sequence-parallel run's for the p2p shift and the flash hop, the
    Ulysses run's for the all-to-all, the TP GEMM pair's for AG×GEMM,
    GEMM×RS and the LCSC all-gather, the SSM training run's for the scan's
-   backward; ``launches_by_path`` has all twenty-three paths, 5g's a2a
+   backward; ``launches_by_path`` has all twenty-six paths, 5g's a2a
    MoE, the whisper runs 5h and 5i, the training runs 5k-5m, the paged and
-   head-sharded serving runs 5o and 5p, the runs of 5q-5t and 5u's
-   calibration and measured serving among them),
+   head-sharded serving runs 5o and 5p, the runs of 5q-5t, 5u's
+   calibration and measured serving, and 5v-5x's ``serve_health``,
+   ``serve_fleet`` and ``train_pipeline`` among them),
    then
    GEMM+AR's cold decode row, whose counts are GEMM+AR's whole-path
    counts (prefill and decode together, the counter named by
@@ -4910,6 +4934,552 @@ def train_policies(dev, table, steps: int = 3) -> None:
         torch.cuda.empty_cache()
 
 
+#: phase 5v's scripted stall (JAX tests/test_health.py's): 50 s a step on
+#: mlp's link for 4 engine steps from step 3
+HEALTH_STALL = dict(kind="stall", island="mlp", step=3, ticks=4,
+                    stall_dt=50.0)
+#: phase 5w: where the fleet keeps its rejoin snapshot (deleted after)
+FLEET_DIR = os.path.join(ROOT, "build", "fleet_ckpt")
+#: phase 5w's scripted straggler: replica 1 goes dark for 4 fleet ticks
+#: from fleet step 1, while its queue still holds requests
+FLEET_DELAY = "delay:1@1x4"
+#: phase 5x: the pipeline's microbatches, (M, batch, seq), and pipe ranks
+PIPE_MB, PIPE_RANKS = (4, 2, 512), 2
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _decode_ms(eng) -> float:
+    """Median decode step wall time of an engine's run, ms."""
+    return 1e3 * statistics.median(
+        t for k, t in zip(eng.step_kinds, eng.step_times) if k == "decode")
+
+
+def _health_kinds(eng) -> list:
+    return [(e[0], e[1]) for e in eng.events
+            if e[0] in ("comm_fault", "comm_fault_end", "guard_trip",
+                        "retry", "quarantine", "health_demote",
+                        "health_promote")]
+
+
+class _MlpB4:
+    """Counts, engine step by engine step, the GEMM+AR kernel's (B4)
+    launches at the mlp island — made by the calls whose weight has the
+    MLP down-projection's k (d_ff over the tp ranks; attn_out's is d_model
+    over them) — by wrapping ``CommContext.matmul_all_reduce`` while it is
+    open (the kernel's own counter is the one read)."""
+
+    def __init__(self, k_mlp: int):
+        from repro_torch.core.comms import CommContext
+        from repro_torch.kernels import collective_matmul as CM
+        self.ctx, self.cm, self.k = CommContext, CM, k_mlp
+        self.orig = CommContext.matmul_all_reduce
+        self.n = 0
+
+    def __enter__(self):
+        orig, cm = self.orig, self.cm
+
+        def counted(ctx, x, w, **kw):
+            before = cm.matmul_ar_fused.launches
+            out = orig(ctx, x, w, **kw)
+            if w.shape[1] == self.k:
+                self.n += cm.matmul_ar_fused.launches - before
+            return out
+
+        self.ctx.matmul_all_reduce = counted
+        return self
+
+    def __exit__(self, *a):
+        self.ctx.matmul_all_reduce = self.orig
+        return False
+
+
+def serve_health(dev) -> dict:
+    """Phase 5v: runtime health on phase 4's engine settings —
+    tinyllama-1.1b at full width and depth on (1, 4), 8 requests of
+    ``synthetic_trace(seed=0)``, one set of parameters for every run:
+
+    (a) every GEMM+AR site on ``ring``, no fault: the reference tokens;
+    (b) the same with ``island_guards``, ``max_retries=0`` and a corrupt
+        mlp hop at the step of (a)'s last prefill group: that group
+        quarantined (``prefill_nonfinite``), ``mlp`` among the islands that
+        tripped, every other request's tokens equal to (a)'s;
+    (c) as (b) with ``max_retries=1``: no quarantine, every token (a)'s.
+
+    (b) and (c) corrupt the last group, not the first: the ring's bf16
+    accumulator adds the ranks' partials in an order set by the row's
+    block of the GEMM, so a request's tokens depend on its slot and its row
+    in a prefill group, in JAX as here (ROADMAP C15). Quarantining the last
+    group moves no other request; quarantining the first would move every
+    later group to other slots.
+    (d) ``fused`` pinned, ``health_monitor``, a stall on mlp's link (50 s
+        a step, 4 steps from step 3): exactly one demotion (mlp -> bulk,
+        ``drift``) and one promotion at least ``health_probation`` steps
+        later, no B4 launch at mlp while demoted (and some before), the
+        first two steps after the demotion under 5 s;
+    (e) ``fused``, guards and the monitor on, no fault, on the card's own
+        step times: no guard trip, no demotion.
+
+    Prints each run's steps and health events and its median decode step
+    time, with and without guards. Returns the launches over the five
+    runs."""
+    import dataclasses
+
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.launch.serve import build_engine, synthetic_trace
+    from repro_torch.runtime.health import CommFaultEvent, CommFaultPlan
+    from repro_torch.runtime.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    base = build_engine("tinyllama-1.1b", reduced=False, mesh_shape=(1, 4),
+                        serve=ServeConfig(**SERVE4), seed=0, device=dev,
+                        run_overrides={"comm_backend": "ring",
+                                       "pk_attn_out_island": True})
+    trace = synthetic_trace(8, base.serve, base.cfg.vocab_size, seed=0)
+    print(f"[serve-health] engine built in {time.perf_counter() - t0:.1f}s;"
+          f" prompt lengths {[len(p) for p in trace]}", flush=True)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar")}
+    for fn in counters.values():
+        fn.launches = 0
+    k_mlp = base.cfg.d_ff // base.rules.mesh.shape[base.rules.tp]
+
+    def run(tag, backend, *, guards=False, faults=None, per_step=None,
+            **serve_kw):
+        eng = ServingEngine(
+            base.cfg, dataclasses.replace(base.base_run,
+                                          comm_backend=backend,
+                                          island_guards=guards),
+            base.rules, base.params, ServeConfig(**SERVE4, **serve_kw),
+            comm_faults=faults, device=dev)
+        _sync(dev)
+        for p in trace:
+            eng.submit(p)
+        while eng.pending:
+            if per_step is None:
+                eng.step()
+                continue
+            with _MlpB4(k_mlp) as mlp:
+                eng.step()
+            per_step[eng.step_no] = mlp.n
+        _sync(dev)
+        st = eng.stats()
+        print(f"[serve-health] ({tag}) {backend}, guards {guards}: "
+              f"{st['steps']} steps ({st['prefill_steps']} prefill, "
+              f"{st['decode_steps']} decode, {st['idle_steps']} idle), "
+              f"{len(eng.completions)} done, quarantined "
+              f"{sorted(eng.quarantined)}, retries {st['retries']}, guard "
+              f"trips {st['guard_trips']}, demotions "
+              f"{st['health_demotions']}; median decode step "
+              f"{_decode_ms(eng):.2f} ms; events {_health_kinds(eng)}",
+              flush=True)
+        for c in eng.completions.values():
+            if len(c.tokens) != SERVE4["max_new_tokens"]:
+                raise AssertionError(f"({tag}) request {c.rid} incomplete")
+        return eng, {c.rid: c.tokens for c in eng.completions.values()}
+
+    ref_eng, ref = run("a", "ring")
+    if len(ref) != len(trace):
+        raise AssertionError("(a) not every request completed")
+    last = max(e[1] for e in ref_eng.events if e[0] == "admit")
+    group = {e[2] for e in ref_eng.events if e[0] == "admit"
+             and e[1] == last}
+    fault = f"corrupt:mlp@{last + 1}"      # the step of that prefill
+    print(f"[serve-health] (a)'s last prefill group {sorted(group)} runs "
+          f"at step {last + 1}: {fault}", flush=True)
+
+    eng, got = run("b", "ring", guards=True, faults=fault, max_retries=0)
+    tripped = {e[2] for e in eng.events if e[0] == "guard_trip"}
+    if set(eng.quarantined) != group or {
+            r["reason"] for r in eng.quarantined.values()} != \
+            {"prefill_nonfinite"}:
+        raise AssertionError(f"(b) quarantined {eng.quarantined}, the "
+                             f"group is {sorted(group)}")
+    if "mlp" not in tripped:
+        raise AssertionError(f"(b) mlp did not trip: {sorted(tripped)}")
+    if set(got) != set(ref) - group or any(got[r] != ref[r] for r in got):
+        raise AssertionError("(b) the other requests' tokens differ from "
+                             "(a)'s")
+    guarded_ring = _decode_ms(eng)
+
+    eng, got = run("c", "ring", guards=True, faults=fault, max_retries=1)
+    if eng.quarantined or got != ref:
+        raise AssertionError("(c) the retried run differs from (a)")
+    print(f"[serve-health] decode step with ring: {_decode_ms(ref_eng):.2f} "
+          f"ms without guards, {guarded_ring:.2f} / {_decode_ms(eng):.2f} ms "
+          f"with them ((b) / (c))", flush=True)
+
+    per_step: dict = {}
+    eng, got = run("d", "fused", health_monitor=True, per_step=per_step,
+                   faults=CommFaultPlan(events=(
+                       CommFaultEvent(**HEALTH_STALL),)))
+    demotes = [e for e in eng.health.events if e[0] == "demote"]
+    promotes = [e for e in eng.health.events if e[0] == "promote"]
+    print(f"[serve-health] (d) health events {eng.health.events}; B4 "
+          f"launches at mlp a step {per_step}; step times "
+          f"{[round(t, 4) for t in eng.step_times]}", flush=True)
+    if len(demotes) != 1 or len(promotes) != 1 or \
+            demotes[0][2:] != ("mlp", "bulk", "drift"):
+        raise AssertionError(f"(d) wanted one mlp drift demotion and one "
+                             f"promotion: {eng.health.events}")
+    dstep, pstep = demotes[0][1], promotes[0][1]
+    if pstep - dstep < eng.serve.health_probation:
+        raise AssertionError(f"(d) promoted {pstep - dstep} steps after "
+                             "the demotion, under the probation")
+    if any(per_step[s] for s in range(dstep + 1, pstep + 1)) or not any(
+            per_step[s] for s in range(1, dstep + 1)):
+        raise AssertionError(f"(d) B4 at mlp while demoted: {per_step}")
+    after = eng.step_times[dstep:dstep + 2]
+    if len(after) < 2 or max(after) >= 5.0:
+        raise AssertionError(f"(d) steps after the demotion took {after}")
+    unguarded_fused = _decode_ms(eng)
+
+    eng, got = run("e", "fused", guards=True, health_monitor=True)
+    if eng.stats()["guard_trips"] or eng.stats()["health_demotions"] or \
+            len(got) != len(trace):
+        raise AssertionError(f"(e) a fault-free run tripped or demoted: "
+                             f"{eng.stats()}")
+    print(f"[serve-health] decode step with fused: {unguarded_fused:.2f} ms "
+          f"without guards ((d), the median over its stall), "
+          f"{_decode_ms(eng):.2f} ms with guards and the monitor ((e))",
+          flush=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"[serve-health] launches over (a)-(e) {launches}", flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"serve-health launched no {name} kernel")
+    del base, ref_eng, eng
+    _empty_cache(dev)
+    return launches
+
+
+def _empty_cache(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def serve_fleet(dev) -> dict:
+    """Phase 5w: the serving fleet — 2 replicas of phase 4's engine
+    (tinyllama-1.1b at full width and depth on (1, 4), fused GEMM+AR) behind
+    ``least-loaded``, 12 requests of ``synthetic_trace(seed=0)``: a run with
+    no fault; ``kill:1@4 rejoin:1@8`` with the rejoin seed (replica 1's
+    parameters) saved to a checkpoint under ``build/``; ``FLEET_DELAY``,
+    which must steal a queued request. Gates: every request completes
+    exactly once with finite logits (none quarantined); the kill run's and
+    the delay run's tokens equal the no-fault run's, token for token; the
+    rejoined replica's parameters equal the snapshot's bit for bit; B1, B7
+    and B4 launch on every replica. Then replica 0 drains (its snapshot
+    cut) and rejoins on a (2, 2) mesh through ``elastic_restore``: its
+    logical parameters, assembled, equal the snapshot's bit for bit, and 4
+    more requests complete there. Prints the fleet's stats, each replica's
+    tokens/s and, for comparison, one engine's over the same 12 requests.
+    Returns the launches over the four fleet runs."""
+    import torch
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.base import FleetConfig, ServeConfig
+    from repro_torch.core import pgl
+    from repro_torch.launch.serve import build_engine, synthetic_trace
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.fleet import FaultPlan, ServingFleet
+    from repro_torch.runtime.serving import ServingEngine
+
+    serve_cfg = ServeConfig(**SERVE4)
+    over = {"comm_backend": "fused", "pk_attn_out_island": True}
+    t0 = time.perf_counter()
+    base = build_engine("tinyllama-1.1b", reduced=False, mesh_shape=(1, 4),
+                        serve=serve_cfg, seed=0, device=dev,
+                        run_overrides=over)
+    trace = synthetic_trace(12, serve_cfg, base.cfg.vocab_size, seed=0)
+    print(f"[serve-fleet] parameters built in "
+          f"{time.perf_counter() - t0:.1f}s; prompt lengths "
+          f"{[len(p) for p in trace]}", flush=True)
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("matmul", "flash_attention", "pk_matmul_ar")}
+    total = dict.fromkeys(counters, 0)
+
+    def attributed(eng, idx, per_rep):
+        """``eng`` whose steps add their kernel launches to replica
+        ``idx``'s count."""
+        step = eng.step
+
+        def counted():
+            before = {k: fn.launches for k, fn in counters.items()}
+            kind = step()
+            got = per_rep.setdefault(idx, dict.fromkeys(counters, 0))
+            for k, fn in counters.items():
+                got[k] += fn.launches - before[k]
+            return kind
+
+        eng.step = counted
+        return eng
+
+    def fleet_run(tag, plan, per_rep, ckpt=None, seed_snapshot=False):
+        fleet = ServingFleet(
+            lambda i: attributed(ServingEngine(
+                base.cfg, base.base_run, base.rules, base.params,
+                serve_cfg, device=dev), i, per_rep),
+            FleetConfig(n_replicas=2, router="least-loaded"),
+            fault_plan=FaultPlan.parse(plan) if plan else None,
+            ckpt_dir=ckpt)
+        if seed_snapshot:
+            # the rejoin seed, as a drain cuts it
+            fleet._snapshot(fleet.replicas[1].engine)
+        _sync(dev)
+        done = fleet.run(trace)
+        _sync(dev)
+        st = fleet.stats()
+        quarantined = [r for rep in fleet.replicas if rep.alive
+                       for r in rep.engine.quarantined]
+        print(f"[serve-fleet] ({tag}) {len(done)}/{len(trace)} done in "
+              f"{st['fleet_steps']} fleet steps, {st['wall_s']:.3f}s "
+              f"({st['tokens_per_s']:.1f} tok/s), {st['steals']} steals, "
+              f"{st['requeued']} requeued, {st['live']}/2 live; per "
+              f"replica tok/s "
+              f"{[round(f.get('tokens_per_s', 0.0), 1) for f in st['per_replica'].values()]}"
+              f"; events {[e[:3] for e in fleet.events if e[0] != 'complete']}"
+              f"; launches by replica {per_rep}", flush=True)
+        rids = sorted(c.rid for c in done)
+        if rids != list(range(len(trace))) or quarantined or any(
+                len(c.tokens) != serve_cfg.max_new_tokens for c in done):
+            raise AssertionError(f"({tag}) not every request completed "
+                                 f"exactly once: {rids}, quarantined "
+                                 f"{quarantined}")
+        for idx in (0, 1):
+            for k, n in per_rep.get(idx, {}).items():
+                total[k] += n
+            if not all(per_rep.get(idx, {}).get(k, 0) > 0
+                       for k in counters):
+                raise AssertionError(f"({tag}) replica {idx} launched "
+                                     f"{per_rep.get(idx)}")
+        return fleet, {c.rid: c.tokens for c in done}
+
+    one = ServingEngine(base.cfg, base.base_run, base.rules, base.params,
+                        serve_cfg, device=dev)
+    _sync(dev)
+    one_done = {c.rid: c.tokens for c in one.run(trace)}
+    _sync(dev)
+    one_tps = one.stats()["tokens_per_s"]
+    _, ref = fleet_run("no fault", None, {})
+    print(f"[serve-fleet] one engine over the same 12 requests: "
+          f"{one_tps:.1f} tok/s; tokens equal to the fleet's "
+          f"{one_done == ref}", flush=True)
+    del one
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    fleet, got = fleet_run("kill", "kill:1@4 rejoin:1@8", {},
+                           ckpt=FLEET_DIR, seed_snapshot=True)
+    same = sum(a == b for r in ref for a, b in zip(ref[r], got[r]))
+    print(f"[serve-fleet] kill run vs no fault: {same}/"
+          f"{sum(map(len, ref.values()))} tokens agree", flush=True)
+    if got != ref:
+        raise AssertionError("the kill run's tokens differ from the no-fault "
+                             "run's")
+    flat, _ = CheckpointManager(FLEET_DIR, async_save=False).load_flat()
+    rejoined = fleet.replicas[1].engine
+    for path, pd in T.leaves(T.param_template(rejoined.cfg,
+                                              rejoined.base_run,
+                                              rejoined.rules)):
+        leaf = rejoined.params
+        for k in path:
+            leaf = leaf[k]
+        if not torch.equal(leaf.cpu(), flat["/".join(path)]):
+            raise AssertionError(f"the rejoined {'/'.join(path)} differs "
+                                 "from the snapshot's")
+    fleet, got = fleet_run("delay", FLEET_DELAY, {})
+    if fleet.steals < 1 or got != ref:
+        raise AssertionError(f"the delay run stole {fleet.steals} times, "
+                             f"tokens equal {got == ref}")
+
+    # a drain snapshot of replica 0 rejoins on a (2, 2) mesh
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    per_rep: dict = {}
+    fleet = ServingFleet(
+        lambda i: attributed(ServingEngine(
+            base.cfg, base.base_run, base.rules, base.params, serve_cfg,
+            device=dev), i, per_rep),
+        FleetConfig(n_replicas=2, router="least-loaded"),
+        ckpt_dir=FLEET_DIR)
+    for p in trace[:8]:
+        fleet.submit(p)
+    fleet.step()
+    fleet.drain(0)
+    fleet.run()
+    fleet.rejoin(0, factory=lambda i: attributed(build_engine(
+        "tinyllama-1.1b", reduced=False, mesh_shape=(2, 2),
+        serve=serve_cfg, seed=1, device=dev, run_overrides=over), i,
+        per_rep))
+    eng = fleet.replicas[0].engine
+    tmpl = T.param_template(eng.cfg, eng.base_run, eng.rules)
+    snap = T.param_template(base.cfg, base.base_run, base.rules)
+    for (path, pd), (_, spd) in zip(T.leaves(tmpl), T.leaves(snap)):
+        new, old = eng.params, base.params
+        for k in path:
+            new, old = new[k], old[k]
+        new = pgl.assemble(new, pd.spec, eng.rules.mesh, eng.rules.tp,
+                           lead=int(pd.periods)) \
+            if new.dim() == len(pd.shape) + 1 else new
+        old = pgl.assemble(old, spd.spec, base.rules.mesh, base.rules.tp,
+                           lead=int(spd.periods)) \
+            if old.dim() == len(spd.shape) + 1 else old
+        if not torch.equal(new, old):
+            raise AssertionError(f"(2, 2) rejoin: {'/'.join(path)} differs "
+                                 "from the snapshot's")
+    done = fleet.run(trace[8:])
+    st = fleet.stats()
+    print(f"[serve-fleet] (2, 2) rejoin: logical parameters bit-identical "
+          f"to replica 0's snapshot; {len(done)}/4 more requests done, "
+          f"assignments after the rejoin "
+          f"{[a for a in fleet.assignments if a[0] >= st['fleet_steps'] - 64][-4:]}"
+          f"; per replica tok/s "
+          f"{[round(f.get('tokens_per_s', 0.0), 1) for f in st['per_replica'].values()]}",
+          flush=True)
+    if len(done) != 4 or not any(a[2] == 0 for a in fleet.assignments[-4:]):
+        raise AssertionError("the (2, 2) replica served nothing after its "
+                             "rejoin")
+    for k in counters:
+        total[k] += sum(r.get(k, 0) for r in per_rep.values())
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    print(f"[serve-fleet] launches over the four runs {total}", flush=True)
+    del base, fleet, eng
+    _empty_cache(dev)
+    return total
+
+
+def train_pipeline(dev) -> dict:
+    """Phase 5x: GPipe over ``pipe = 2`` virtual ranks, the stage one
+    tinyllama-1.1b decoder layer on no mesh (full width, d 2048): its 22
+    layers as 22 stages, 11 virtual stages a rank, random weights from the
+    seed; 4 microbatches of (2, 512) tokens' hidden states. Gates:
+    ``gpipe_forward`` under the declared bulk handoff and under a ``fused``
+    override (the p2p kernel, B8) bit-identical to each other and within
+    1e-2 (relative Frobenius) of the 22 layers run in sequence on the
+    whole batch (whether that is bit-identical too is printed); B8
+    launched exactly M + n - 1 = 5 times a forward; ``gpipe_loss``'s
+    gradients through the fused handoff, for every stage parameter and the
+    input, within relative 2e-2 of sequential autograd. Returns the
+    launches of the fused forward and the loss's forward and backward."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.core.template import comm_context
+    from repro_torch.models import transformer as T
+    from repro_torch.train.pipeline import gpipe_forward, gpipe_loss
+
+    cfg = get_config("tinyllama-1.1b")
+    run = RunConfig(fsdp=False)
+    spec = cfg.layer_pattern()[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    blocks = T.init_params(T.param_template(cfg, run, None), gen,
+                           cfg.d_model, device=dev)["blocks"]["pos0"]
+    m, b, s = PIPE_MB
+    x = (torch.randn((m, b, s, cfg.d_model), generator=gen, device=dev)
+         * 0.5).to(torch.bfloat16)
+    mesh = VirtualMesh((PIPE_RANKS,), ("pipe",), dev)
+    fused = RunConfig(fsdp=False,
+                      island_overrides=(("gpipe", "fused", None),))
+    n_stages = cfg.n_layers
+
+    def stage(bp, h):
+        return T._apply_block(bp, spec, h, cfg, run, None)[0]
+
+    def sequential(bp, h):
+        h = h.reshape(m * b, s, -1)
+        for i in range(n_stages):
+            h = stage({g: {k: v[i] for k, v in sub.items()}
+                       for g, sub in bp.items()}, h)
+        return h.reshape(m, b, s, -1)
+
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("flash_attention", "p2p_ring_shift")}
+    with torch.no_grad():
+        bulk_out = gpipe_forward(stage, blocks, x, mesh, run=run)
+        for fn in counters.values():
+            fn.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        fused_out = gpipe_forward(stage, blocks, x, mesh, run=fused)
+        _sync(dev)
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+        fwd_launches = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        want = sequential(blocks, x)
+        _sync(dev)
+        seq_ms = 1e3 * (time.perf_counter() - t0)
+    err = rel_err(fused_out.float(), want.float())
+    print(f"[train-pipeline] {n_stages} stages on pipe={PIPE_RANKS}, "
+          f"microbatches {PIPE_MB}: fused forward {fwd_ms:.1f} ms (host "
+          f"clock, ends in a synchronize), sequential {seq_ms:.1f} ms; "
+          f"fused == bulk bit for bit {torch.equal(fused_out, bulk_out)}; "
+          f"vs sequential rel err {err:.3e}, bit-identical "
+          f"{torch.equal(fused_out, want)}; forward launches "
+          f"{fwd_launches}", flush=True)
+    if not torch.equal(fused_out, bulk_out):
+        raise AssertionError("the fused handoff differs from bulk")
+    if not err <= 1e-2:
+        raise AssertionError(f"the pipeline is {err:.3e} from sequential")
+    if fwd_launches["p2p_ring_shift"] != m + PIPE_RANKS - 1:
+        raise AssertionError(f"B8 launched {fwd_launches['p2p_ring_shift']}"
+                             f" times a forward, not {m + PIPE_RANKS - 1}")
+    del bulk_out, fused_out, want
+
+    def loss_fn(o, t):
+        return (o.float() ** 2).mean()
+
+    n_loc = n_stages // PIPE_RANKS
+
+    def rank_stages(slab, h):
+        # a rank's 11 virtual stages in order, as the island's body runs
+        for i in range(n_loc):
+            h = stage({g: {k: v[i] for k, v in sub.items()}
+                       for g, sub in slab.items()}, h)
+        return h
+
+    leaves = {g: {k: v.detach().clone().requires_grad_()
+                  for k, v in sub.items()} for g, sub in blocks.items()}
+    xg = x.clone().requires_grad_()
+    ctx = comm_context(None, "pipe", mesh=mesh, backend="fused")
+    for fn in counters.values():
+        fn.launches = 0
+    slabs = {g: {k: v.unflatten(0, (PIPE_RANKS, n_loc))
+                 for k, v in sub.items()} for g, sub in leaves.items()}
+    loss = gpipe_loss(rank_stages, loss_fn, slabs, xg, None, ctx)
+    loss.backward()
+    _sync(dev)
+    launches = {k: fn.launches + fwd_launches[k]
+                for k, fn in counters.items()}
+    ref_leaves = {g: {k: v.detach().clone().requires_grad_()
+                      for k, v in sub.items()} for g, sub in blocks.items()}
+    xr = x.clone().requires_grad_()
+    ref_loss = loss_fn(sequential(ref_leaves, xr), None)
+    ref_loss.backward()
+    errs = {"x": rel_err(xg.grad.float(), xr.grad.float())}
+    for g, sub in leaves.items():
+        for k, v in sub.items():
+            if v.grad is not None:
+                errs[f"{g}/{k}"] = rel_err(v.grad.float(),
+                                           ref_leaves[g][k].grad.float())
+    worst = max(errs, key=errs.get)
+    print(f"[train-pipeline] gpipe_loss {loss.item():.6f} vs sequential "
+          f"{ref_loss.item():.6f}; gradient rel errs {errs} (worst "
+          f"{worst}); launches {launches}", flush=True)
+    if not errs[worst] <= 2e-2:
+        raise AssertionError(f"pipeline gradient {worst} is {errs[worst]:.3e}"
+                             " from sequential autograd")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"train-pipeline launched no {name}")
+    del blocks, leaves, ref_leaves, x, xg, xr
+    _empty_cache(dev)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4955,6 +5525,9 @@ def main() -> int:
     compressed_launches = train_compressed(dev, train_launches, 4)
     tp_data_launches = serve_moe_tp_data(dev)
     autotune_launches = autotune_serve(dev, slab_tokens)
+    health_launches = serve_health(dev)
+    fleet_launches = serve_fleet(dev)
+    pipeline_launches = train_pipeline(dev)
     main_entries = []
     for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
                                   "pk_all_gather@path",
@@ -4988,7 +5561,10 @@ def main() -> int:
                    "autotune_calibrate": autotune_launches[
                        "calibrate"].get(counter, 0),
                    "serve_measured": autotune_launches["serve"].get(counter,
-                                                                   0)}
+                                                                   0),
+                   "serve_health": health_launches.get(counter, 0),
+                   "serve_fleet": fleet_launches.get(counter, 0),
+                   "train_pipeline": pipeline_launches.get(counter, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",

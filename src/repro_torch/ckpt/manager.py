@@ -141,9 +141,10 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, *, step: int | None = None):
-        """(state, extra) restored into the structure of ``template`` —
-        newest step by default; (None, None) when there is none."""
+    def load_flat(self, step: int | None = None):
+        """(flat state, extra) of a checkpoint as saved: 'a/b/c'-keyed
+        leaves on the CPU — newest step by default; (None, None) when there
+        is none."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
@@ -151,5 +152,12 @@ class CheckpointManager:
         manifest = json.loads((d / "manifest.json").read_text())
         flat = torch.load(d / "state.pt", map_location="cpu",
                           weights_only=True)
-        return (_rebuild(template, flat),
-                {"step": step, **manifest.get("extra", {})})
+        return flat, {"step": step, **manifest.get("extra", {})}
+
+    def restore(self, template, *, step: int | None = None):
+        """(state, extra) restored into the structure of ``template`` —
+        newest step by default; (None, None) when there is none."""
+        flat, extra = self.load_flat(step)
+        if flat is None:
+            return None, None
+        return _rebuild(template, flat), extra

@@ -63,6 +63,13 @@ reprices the ring's transfer at the wire's bytes an element, pins row
 chunks, and keeps the policy off ``fused``: the fused kernels ship full
 precision, as JAX's do, so only the rings put int8 on the wire; ``bulk``
 and ``fused`` ignore the wire.
+
+``CommContext.fault`` is the scripted payload fault of
+``runtime/health.py``: a ``(kind, hop)`` pair that NaNs the rings' hop
+``hop`` after its shift — every element for ``"corrupt"``, the first
+element of each travelling chunk for ``"bitflip"`` — on every rank, as
+JAX's ``_poison_hop`` does after each ``ppermute``. Bulk and fused ignore
+it: they have no hop to poison.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ from repro_torch.core.quant import (WireFormat, dequantize_add,
 from repro_torch.core.schedule import (GEMM_CHUNK_DIM, ChunkSchedule,
                                        OverlapPolicy, a2a_chunk_axis,
                                        choose_a2a_chunks, choose_gemm_chunks,
-                                       choose_gemm_collective)
+                                       choose_gemm_collective, fit_chunks)
 
 __all__ = ["CommContext", "OP_BACKENDS", "GEMM_OP_KIND",
            "all_gather_matmul_baseline", "pk_all_gather_matmul",
@@ -133,6 +140,10 @@ class CommContext:
     island: str | None = None
     chunks: int | None = None
     wire: Any = None
+    #: scripted payload fault ``(kind, hop)`` of ``runtime/health.py``
+    #: ("corrupt" or "bitflip"), applied to the ring GEMM×collectives' hop
+    #: ``hop``; None everywhere outside scripted fault injection
+    fault: Any = None
 
     def __post_init__(self):
         if self.mesh is None:
@@ -418,7 +429,8 @@ class CommContext:
             return pk_all_gather_matmul(x, w,
                                         bidirectional=(be == "ring_bidir"),
                                         n_chunks=sched.n_chunks,
-                                        chunk_dim=sched.chunk_dim, wire=fmt)
+                                        chunk_dim=sched.chunk_dim, wire=fmt,
+                                        fault=self.fault)
         from repro_torch.kernels import collective_matmul
         return collective_matmul.ag_matmul_fused(
             x, w, n_chunks=sched.n_chunks).to(x.dtype)
@@ -461,7 +473,7 @@ class CommContext:
         if be == "ring":
             return pk_matmul_reduce_scatter(x, w, n_chunks=sched.n_chunks,
                                             chunk_dim=sched.chunk_dim,
-                                            wire=fmt)
+                                            wire=fmt, fault=self.fault)
         from repro_torch.kernels import collective_matmul
         return collective_matmul.matmul_rs_fused(
             x, w, n_chunks=sched.n_chunks).to(x.dtype)
@@ -502,7 +514,8 @@ class CommContext:
             wire=fmt)
         if be == "ring":
             return pk_matmul_all_reduce(x, w, n_chunks=sched.n_chunks,
-                                        chunk_dim=sched.chunk_dim, wire=fmt)
+                                        chunk_dim=sched.chunk_dim, wire=fmt,
+                                        fault=self.fault)
         from repro_torch.kernels import collective_matmul
         return collective_matmul.matmul_ar_fused(
             x, w, n_chunks=sched.n_chunks).to(x.dtype)
@@ -822,8 +835,37 @@ def _wire_quantize(t: torch.Tensor, fmt: WireFormat,
             torch.stack([sc for _, sc in parts]))
 
 
+def _poison_hop(fault, hop: int, t: torch.Tensor,
+                starts: list[tuple[int, ...]]) -> torch.Tensor:
+    """Scripted payload fault (``CommContext.fault``) on a stacked
+    ``(R, ...)`` hop payload, every rank's arrival at once: when ``fault``
+    = (kind, hop') targets ring hop ``hop``, "corrupt" NaNs the whole
+    payload and "bitflip" one element of each travelling chunk of each
+    rank, at the chunk's first index (``starts``, one a chunk, into a
+    rank's payload). Float payloads only: a quantized wire is poisoned
+    through its f32 scales (``repro.core.comms._poison_hop``)."""
+    if fault is None or fault[1] != hop or not t.is_floating_point():
+        return t
+    if fault[0] == "bitflip":
+        t = t.clone()
+        for idx in starts:
+            t[(slice(None), *idx)] = float("nan")
+        return t
+    return torch.full_like(t, float("nan"))
+
+
+def _chunk_starts(extent: int, n_chunks: int, dim: int,
+                  ndim: int) -> list[tuple[int, ...]]:
+    """First index of each of the ``fit_chunks(extent, n_chunks)`` chunks
+    JAX cuts along ``dim`` of an ``ndim``-dim payload (a rank's)."""
+    c = fit_chunks(extent, n_chunks)
+    return [tuple(j * (extent // c) if d == dim else 0
+                  for d in range(ndim)) for j in range(c)]
+
+
 def _ag_ring_lane(x: torch.Tensor, w: torch.Tensor, *, reverse: bool,
-                  wire: WireFormat | None = None) -> torch.Tensor:
+                  wire: WireFormat | None = None, n_chunks: int = 1,
+                  chunk_dim: str = "m", fault=None) -> torch.Tensor:
     """One direction of the AG+GEMM ring (``repro.core.comms._ag_ring_lane``)
     on x (R, rows, k), w (R, k, n): at step i rank d holds the shard of rank
     (d - i) % R ((d + i) % R when ``reverse``), sends it one hop on and
@@ -831,10 +873,15 @@ def _ag_ring_lane(x: torch.Tensor, w: torch.Tensor, *, reverse: bool,
     rank d is ``x[s] @ w[d]``. A quantized ``wire`` quantizes each shard
     once, per row, before the first hop; the (int8, scales) pair travels
     the ring and every arrival — the rank's own shard too — is dequantized
-    to f32 for its GEMM."""
+    to f32 for its GEMM. ``fault`` poisons hop i after the shift (the
+    scales of a quantized pair); JAX's travelling chunks are the shard's
+    row chunks (``chunk_dim="m"``) or the whole shard ("n")."""
     n, k = x.shape[0], x.shape[2]
     cur = x if wire is None else _wire_quantize(
         x, wire, _wire_generators(wire, n, 1 if reverse else 0, x.device))
+    rows = x.shape[1]
+    starts = (_chunk_starts(rows, n_chunks, 0, 2 if wire is None else 3)
+              if chunk_dim == "m" else [(0,) * (2 if wire is None else 3)])
     steps = []
     for i in range(n):
         t = cur if wire is None else dequantize_blocks(*cur, k)
@@ -842,6 +889,10 @@ def _ag_ring_lane(x: torch.Tensor, w: torch.Tensor, *, reverse: bool,
         if i < n - 1:
             cur = tree_map(lambda c: torch.roll(c, -1 if reverse else 1, 0),
                             cur)
+            if wire is None:
+                cur = _poison_hop(fault, i, cur, starts)
+            else:
+                cur = (cur[0], _poison_hop(fault, i, cur[1], starts))
     ranks = torch.arange(n, device=x.device)
     hops = ranks[None, :] - ranks[:, None] if reverse \
         else ranks[:, None] - ranks[None, :]
@@ -852,7 +903,8 @@ def _ag_ring_lane(x: torch.Tensor, w: torch.Tensor, *, reverse: bool,
 def pk_all_gather_matmul(x: torch.Tensor, w: torch.Tensor, *,
                          bidirectional: bool = False, n_chunks: int = 1,
                          chunk_dim: str = "m",
-                         wire: WireFormat | None = None) -> torch.Tensor:
+                         wire: WireFormat | None = None,
+                         fault=None) -> torch.Tensor:
     """The AG+GEMM ring of ``repro.core.comms.pk_all_gather_matmul``:
     x (R, m_loc, k), w (R, k, n) -> (R, R·m_loc, n) in x's dtype. The
     bidirectional ring sends the shard's top ceil(m_loc / 2) rows right
@@ -867,14 +919,16 @@ def pk_all_gather_matmul(x: torch.Tensor, w: torch.Tensor, *,
     gives a bulk all-gather of the per-row-quantized shards."""
     _check_chunks(n_chunks, chunk_dim)
     n, m_loc = x.shape[0], x.shape[1]
+    lane = dict(wire=wire, n_chunks=n_chunks, chunk_dim=chunk_dim,
+                fault=fault)
     if not bidirectional or n % 2 != 0 or m_loc < 2:
-        slots = _ag_ring_lane(x, w, reverse=False, wire=wire)
+        slots = _ag_ring_lane(x, w, reverse=False, **lane)
     else:
         h_r = (m_loc + 1) // 2
         slots = torch.cat([_ag_ring_lane(x[:, :h_r], w, reverse=False,
-                                         wire=wire),
+                                         **lane),
                            _ag_ring_lane(x[:, h_r:], w, reverse=True,
-                                         wire=wire)],
+                                         **lane)],
                           dim=2)
     return slots.flatten(1, 2)
 
@@ -892,7 +946,8 @@ def matmul_reduce_scatter_baseline(x: torch.Tensor,
 
 def pk_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, *,
                              n_chunks: int = 1, chunk_dim: str = "m",
-                             wire: WireFormat | None = None) -> torch.Tensor:
+                             wire: WireFormat | None = None,
+                             fault=None) -> torch.Tensor:
     """The GEMM+RS ring of ``repro.core.comms.pk_matmul_reduce_scatter``:
     at step i rank d adds its partial for block (d+1+i) % R to the
     accumulator arriving from rank d+1, so after R-1 hops rank d holds
@@ -903,7 +958,10 @@ def pk_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, *,
     same bits. A quantized ``wire`` keeps the accumulator f32 on the rank
     and ships it quantized per row: quantize, shift, then dequantize and
     add as one fused multiply-add (``quant.dequantize_add``), as XLA
-    compiles JAX's ring."""
+    compiles JAX's ring. ``fault`` poisons hop i - 1 of step i after the
+    shift (a quantized pair's scales); JAX's travelling chunks are row
+    chunks of the block, or its output columns for ``chunk_dim="n"``
+    (a quantized wire forces rows)."""
     _check_chunks(n_chunks, chunk_dim)
     n, m = x.shape[0], x.shape[1]
     if m % n:
@@ -912,18 +970,22 @@ def pk_matmul_reduce_scatter(x: torch.Tensor, w: torch.Tensor, *,
     parts = torch.matmul(x.float(), w.float()).view(n, n, m_blk, -1)
     ranks = torch.arange(n, device=x.device)
     if wire is not None:
+        starts = _chunk_starts(m_blk, n_chunks, 0, 3)
         gens = _wire_generators(wire, n, 2, x.device)
         acc = parts[ranks, (ranks + 1) % n]
         for i in range(1, n):
             q, sc = _wire_quantize(acc, wire, gens)
-            acc = dequantize_add(torch.roll(q, -1, 0), torch.roll(sc, -1, 0),
-                                 parts.shape[-1],
-                                 parts[ranks, (ranks + 1 + i) % n])
+            acc = dequantize_add(
+                torch.roll(q, -1, 0),
+                _poison_hop(fault, i - 1, torch.roll(sc, -1, 0), starts),
+                parts.shape[-1], parts[ranks, (ranks + 1 + i) % n])
         return acc.to(x.dtype)
+    starts = (_chunk_starts(parts.shape[-1], n_chunks, 1, 2)
+              if chunk_dim == "n" else _chunk_starts(m_blk, n_chunks, 0, 2))
     acc = parts[ranks, (ranks + 1) % n].to(x.dtype)
     for i in range(1, n):
-        acc = (torch.roll(acc, -1, 0).float()
-               + parts[ranks, (ranks + 1 + i) % n]).to(x.dtype)
+        hop = _poison_hop(fault, i - 1, torch.roll(acc, -1, 0), starts)
+        acc = (hop.float() + parts[ranks, (ranks + 1 + i) % n]).to(x.dtype)
     return acc
 
 
@@ -936,13 +998,15 @@ def matmul_all_reduce_baseline(x: torch.Tensor,
 
 def pk_matmul_all_reduce(x: torch.Tensor, w: torch.Tensor, *,
                          n_chunks: int = 1, chunk_dim: str = "m",
-                         wire: WireFormat | None = None) -> torch.Tensor:
+                         wire: WireFormat | None = None,
+                         fault=None) -> torch.Tensor:
     """The GEMM+AR ring of ``repro.core.comms.pk_matmul_all_reduce``: the
     GEMM+RS ring, then every rank gathers the R reduced blocks. A quantized
     ``wire`` applies to both halves: the gather ships each rank's reduced
-    block as one more (int8, scales) pair, dequantized after it."""
+    block as one more (int8, scales) pair, dequantized after it. ``fault``
+    poisons the RS ring's hops, as in JAX (the gather has none)."""
     rs = pk_matmul_reduce_scatter(x, w, n_chunks=n_chunks,
-                                  chunk_dim=chunk_dim, wire=wire)
+                                  chunk_dim=chunk_dim, wire=wire, fault=fault)
     if wire is not None:
         q, sc = _wire_quantize(
             rs.float(), wire,

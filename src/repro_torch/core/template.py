@@ -32,8 +32,21 @@ every dp group computes of the whole: the groups' outputs are summed in dp
 order (JAX's ``psum`` / ``psum_scatter`` over the dp axes). Under
 ``RunConfig.comm_policy="measured"`` an island's context dispatches as its
 :attr:`Island.island_key` and :meth:`Island.plan` reports measured
-decisions (``source="measured"``) from the calibration table. Guards and
-scripted faults are not ported (ROADMAP item 13).
+decisions (``source="measured"``) from the calibration table.
+
+Runtime health (``runtime/health.py``): with ``RunConfig.island_guards``
+each island that runs on its ranks checks, at its boundary, that every
+float tensor it took in and gave back is finite. JAX sends the verdict to
+the host through an asynchronous ``jax.debug.callback``; a host read at
+every island of every layer would stall the card's queue, so here the
+verdict stays on the device: each island adds its trips to its slot of
+one int32 counter vector a device, and :func:`take_guard_trips` reads
+every counter in one copy, once an engine step, beside the tokens the
+engine reads back anyway. ``RunConfig.comm_fault`` (``(kind, island, hop)``, set
+by the serving engine while a scripted corrupt or bitflip fault is
+active) reaches the target island's ``CommContext.fault`` (``"*"``
+targets every island). An island's input may be a tree of tensors
+(dicts, lists, tuples) under one spec, or under a parallel tree of specs.
 """
 
 from __future__ import annotations
@@ -48,21 +61,110 @@ from repro_torch.core import pgl
 from repro_torch.core.autotune import island_key as _island_key
 from repro_torch.core.comms import GEMM_OP_KIND, OP_BACKENDS, CommContext
 from repro_torch.core.pgl import P
+from repro_torch.core.quant import tree_map
 from repro_torch.core.schedule import a2a_chunk_axis
 
 __all__ = ["Island", "Gather", "Comm", "IslandPlan", "Stacked", "Summed",
            "comm_context", "render_plans", "plan_overrides",
-           "island_override", "rank_index", "fsdp_gather", "dp_groups"]
+           "island_override", "rank_index", "fsdp_gather", "dp_groups",
+           "record_guard_trip", "take_guard_trips"]
+
+
+# ---------------------------------------------------------------------------
+# Island boundary guards (RunConfig.island_guards). A trip is counted on the
+# device, in the island's slot of its device's counter vector; the serving
+# engine drains the counters once a step (the fleet steps its replicas one
+# after another, so the plain dicts need no lock). runtime.health
+# re-exports the drain.
+# ---------------------------------------------------------------------------
+
+#: trips counted on the host by ``record_guard_trip``: island -> count
+_GUARD_TRIPS: dict[str, int] = {}
+#: island -> its slot in every device's counter vector
+_GUARD_SLOTS: dict[str, int] = {}
+#: device -> int32 trip counters, one slot an island
+_GUARD_FLAGS: dict[torch.device, torch.Tensor] = {}
+
+
+def record_guard_trip(island: str, ok) -> None:
+    """Count a trip of ``island`` on the host when ``ok`` is false (JAX's
+    callback target; a tensor ``ok`` is read here)."""
+    if not bool(ok):
+        _GUARD_TRIPS[island] = _GUARD_TRIPS.get(island, 0) + 1
+
+
+def _guard_counter(island: str, device: torch.device) -> torch.Tensor:
+    """The island's counter slot on ``device``, a (1,) int32 view."""
+    slot = _GUARD_SLOTS.setdefault(island, len(_GUARD_SLOTS))
+    flags = _GUARD_FLAGS.get(device)
+    if flags is None or flags.numel() <= slot:
+        grown = torch.zeros(max(64, 2 * (slot + 1)), dtype=torch.int32,
+                            device=device)
+        if flags is not None:
+            grown[:flags.numel()].copy_(flags)
+        _GUARD_FLAGS[device] = flags = grown
+    return flags.narrow(0, slot, 1)
+
+
+def take_guard_trips() -> dict[str, int]:
+    """Drain the guard trips: {island: trips since the last drain}. Each
+    device's counters are read in one copy (a host sync) and zeroed."""
+    out = dict(_GUARD_TRIPS)
+    _GUARD_TRIPS.clear()
+    names = {slot: name for name, slot in _GUARD_SLOTS.items()}
+    for flags in _GUARD_FLAGS.values():
+        counts = flags.tolist()
+        if not any(counts):
+            continue
+        flags.zero_()
+        for slot, n in enumerate(counts):
+            if n:
+                out[names[slot]] = out.get(names[slot], 0) + n
+    return out
+
+
+def _map_input(fn, a, spec):
+    """``fn(tensor, spec)`` over an island input's tensors: one spec for
+    every leaf of its tree, or a tree of specs parallel to it."""
+    if isinstance(spec, P):
+        return tree_map(
+            lambda t: fn(t, spec) if isinstance(t, torch.Tensor) else t, a)
+    return tree_map(
+        lambda t, s: fn(t, s) if isinstance(t, torch.Tensor) else t, a, spec)
+
+
+def _float_leaves(tree, acc: list) -> list:
+    if isinstance(tree, torch.Tensor):
+        if tree.is_floating_point() and tree.numel():
+            acc.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _float_leaves(v, acc)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _float_leaves(v, acc)
+    return acc
+
+
+def _boundary_guard(name: str, args, out) -> None:
+    """One finite check over every float tensor of an island's inputs and
+    outputs (JAX ``_boundary_guard``): each tensor's min and max (NaN
+    propagates through both, an infinity reaches one), then one all-finite
+    verdict added to the island's device counter. Nothing is read back."""
+    leaves = _float_leaves((args, out), [])
+    if not leaves:
+        return
+    with torch.no_grad():
+        ext = torch.stack([v.float() for t in leaves
+                           for v in torch.aminmax(t.detach())])
+        bad = torch.isfinite(ext).all().logical_not().to(torch.int32)
+        _guard_counter(name, ext.device).add_(bad)
 
 
 def comm_context(run, axis: str, mesh=None, **overrides) -> CommContext:
     """The single CommContext construction point for every island."""
     kw: dict[str, Any] = {"axis_name": axis, "mesh": mesh}
     if run is not None:
-        if run.comm_fault is not None or run.island_guards:
-            raise NotImplementedError(
-                "island guards and scripted comm faults are ROADMAP item "
-                "13 (runtime/health.py)")
         kw.update(backend=run.comm_backend, allow_bidir=run.pk_bidirectional,
                   policy=run.comm_policy, calibration=run.calibration_path,
                   chunks=run.comm_chunks, wire=run.comm_wire)
@@ -350,8 +452,9 @@ class Island:
     def make_context(self) -> CommContext:
         """The island's CommContext: ``RunConfig`` knobs and its island key,
         then this island's frozen plan (``island_overrides``) as backend pin
-        and chunk default, then a declared ``Comm.n_chunks`` unless
-        ``comm_chunks`` is set."""
+        and chunk default, the scripted payload fault of
+        ``RunConfig.comm_fault`` when it targets this island, then a
+        declared ``Comm.n_chunks`` unless ``comm_chunks`` is set."""
         kw: dict[str, Any] = {"island": self.island_key}
         ov = island_override(self.run, self.name)
         if ov is not None:
@@ -361,6 +464,9 @@ class Island:
             if (chunks is not None and self.comm is not None
                     and self.comm.op in GEMM_OP_KIND):
                 kw.setdefault("chunks", chunks)
+        ft = self.run.comm_fault if self.run is not None else None
+        if ft is not None and ft[1] in ("*", self.name):
+            kw.setdefault("fault", (ft[0], ft[2] if len(ft) > 2 else 0))
         if (self.comm is not None and self.comm.n_chunks is not None
                 and self.comm.op in GEMM_OP_KIND
                 and (self.run is None or self.run.comm_chunks is None)):
@@ -370,12 +476,23 @@ class Island:
     def _global(self, x, spec):
         """An input as the dense reference expects it: global (a tensor
         stored stacked over an axis of size 1 too)."""
-        if isinstance(x, torch.Tensor) and x.dim() == len(spec) + 1 \
-                and pgl.split_dim(spec, self.mesh, self.axis) is not None:
-            return pgl.assemble(x, spec, self.mesh, self.axis)
-        return x
+        def one(t, s):
+            if t.dim() == len(s) + 1 \
+                    and pgl.split_dim(s, self.mesh, self.axis) is not None:
+                return pgl.assemble(t, s, self.mesh, self.axis)
+            return t
+        return _map_input(one, x, spec)
 
     def __call__(self, **arrays):
+        out = self._call(arrays)
+        if self.run is not None and self.run.island_guards \
+                and self.fallback_reason() is None:
+            # at the island's boundary: one check covers its logical
+            # inputs and outputs, whatever the backend
+            _boundary_guard(self.name, arrays, out)
+        return out
+
+    def _call(self, arrays):
         dp, n_dp = dp_groups(self.rules)
         if n_dp == 1:
             return self._run(arrays)
@@ -430,8 +547,9 @@ class Island:
                               if isinstance(s, Stacked) else o),
                 self.out_specs, out)
         ctx = self.make_context()
-        stacked = {n: pgl.layout(a, self.inputs[n], self.mesh, self.axis)
-                   for n, a in arrays.items()}
+        stacked = {n: _map_input(
+            lambda t, s: pgl.layout(t, s, self.mesh, self.axis), a,
+            self.inputs[n]) for n, a in arrays.items()}
         out = self.body(ctx, **stacked)
         return _map_specs(
             lambda o, s: (o if isinstance(s, Stacked) else pgl.assemble(
@@ -549,6 +667,12 @@ class Island:
             meas = self._measured_hidden(ctx, backend, GEMM_OP_KIND[c.op])
             if meas is not None:
                 hidden, source = meas, "measured"
+            ov = island_override(self.run, self.name)
+            if ov is not None and ov[2] == "health" and ov[0] == backend:
+                # a HealthMonitor demotion is the decision on record,
+                # layered above the plan and measured dispatch
+                source = "health"
+                reason = f"health demotion -> {backend}"
             # only the rings ship a quantized wire; bulk and fused carry
             # full precision whatever the config says
             fmt = ctx.wire_format()

@@ -1,6 +1,6 @@
 """Serving launcher of the port — a thin CLI over the continuous-batching
 engine (``repro_torch.runtime.serving``), the twin of
-``repro/launch/serve.py`` without the fleet and fault flags.
+``repro/launch/serve.py``.
 
     # static batch, on the GPU
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
@@ -29,6 +29,26 @@ engine (``repro_torch.runtime.serving``), the twin of
     python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --mesh-shape 1 4 --mode continuous --comm-policy measured
 
+    # a 2-replica fleet with a scripted kill and rejoin
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
+        --mode continuous --replicas 2 --router least-loaded \
+        --fault-plan "kill:1@4 rejoin:1@8" --ckpt-dir /tmp/fleet \
+        --requests 12 --device cpu
+
+    # a corrupted ring hop caught by the island guards, and the monitor
+    python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
+        --mesh-shape 1 4 --mode continuous --comm-backend ring \
+        --island-guards --health-monitor \
+        --comm-fault-plan "corrupt:mlp@1 stall:mlp@5x6" --device cpu
+
+``--replicas N`` (N > 1) serves through a ``runtime.fleet.ServingFleet`` of N
+engine replicas behind ``--router``; ``--fault-plan`` scripts replica
+faults (``kind:replica[.island]@step[xticks]``: kill, delay, drain, rejoin,
+and the comm kinds aimed at one island of a replica) and
+``--comm-fault-plan`` one engine's comm faults
+(``kind:island@step[xticks]``). A rejoin restores the parameters a drain
+saved under ``--ckpt-dir``.
+
 The entry points run on ``cuda`` unless ``device`` names another device;
 with no GPU and no device they raise.
 """
@@ -54,12 +74,14 @@ def build_engine(arch: str, *, reduced: bool = True, mesh_shape=None,
                  mesh_axes=("data", "model"), serve: ServeConfig | None = None,
                  seed: int = 0, comm_chunks: int | None = None,
                  run_overrides: dict | None = None,
-                 device=None) -> ServingEngine:
+                 comm_faults=None, device=None) -> ServingEngine:
     """Config -> parameters -> ServingEngine on one device, the ranks of
     ``mesh_shape`` virtual. Parameters come from a ``torch.Generator``
     seeded with ``seed`` on that device; every tp-sharded weight is laid
     out once as its stacked (R, *local) tensor. With no ``serve`` given,
-    SSM and hybrid archs get ``ServeConfig(exact_buckets=True)``."""
+    SSM and hybrid archs get ``ServeConfig(exact_buckets=True)``.
+    ``comm_faults`` is a ``runtime.health.CommFaultPlan`` (or its spec
+    string) of scripted comms-level faults."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -77,7 +99,8 @@ def build_engine(arch: str, *, reduced: bool = True, mesh_shape=None,
     params = T.init_params(tmpl, gen, cfg.d_model, rules=rules, device=dev)
     if serve is None:
         serve = ServeConfig(exact_buckets=T.has_ssm(cfg))
-    return ServingEngine(cfg, run, rules, params, serve, device=dev)
+    return ServingEngine(cfg, run, rules, params, serve,
+                         comm_faults=comm_faults, device=dev)
 
 
 def synthetic_trace(n_requests: int, serve: ServeConfig, vocab: int,
@@ -126,6 +149,70 @@ def generate(arch: str, *, reduced: bool, batch: int, prompt_len: int,
     return torch.tensor(out, dtype=torch.int32)
 
 
+def serve_fleet(args, serve: ServeConfig, overrides: dict) -> None:
+    """Continuous mode with ``--replicas > 1``: a ServingFleet over
+    identical engine replicas (same arch, serve config and seed:
+    data-parallel), with scripted faults, ending in the fleet's and each
+    replica's stats."""
+    from repro_torch.configs.base import FleetConfig
+    from repro_torch.runtime.fleet import FaultPlan, ServingFleet
+
+    def factory(i: int) -> ServingEngine:
+        return build_engine(args.arch, reduced=args.reduced,
+                            mesh_shape=args.mesh_shape, serve=serve,
+                            seed=args.seed, comm_chunks=args.comm_chunks,
+                            run_overrides=overrides, device=args.device)
+
+    plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
+    fleet = ServingFleet(
+        factory, FleetConfig(n_replicas=args.replicas, router=args.router),
+        fault_plan=plan, ckpt_dir=args.ckpt_dir)
+    trace = synthetic_trace(args.requests, serve,
+                            fleet.replicas[0].engine.cfg.vocab_size,
+                            seed=args.seed)
+    done = fleet.run(trace)
+    st = fleet.stats()
+    print(f"[fleet] {args.arch} x{st['replicas']} ({st['router']}): "
+          f"{len(done)} requests, {st['useful_tokens']} tokens in "
+          f"{st['wall_s']:.2f}s ({st['tokens_per_s']:.1f} tok/s; "
+          f"{st['fleet_steps']} fleet steps, {st['assignments']} routed, "
+          f"{st['steals']} steals, {st['requeued']} requeued, "
+          f"{st['live']}/{st['replicas']} live)")
+    for idx, fb in sorted(st["per_replica"].items()):
+        if not fb["alive"]:
+            print(f"[fleet]   r{idx}: dead")
+            continue
+        print(f"[fleet]   r{idx}: load={fb['load']} "
+              f"queue={fb['queue_depth']} "
+              f"tok/s={fb['tokens_per_s']:.1f} "
+              f"buckets={fb['compiled_buckets']} "
+              f"ema={fb['watchdog_ema']:.3f}"
+              + (" (draining)" if fb["draining"] else ""))
+    if args.fault_plan:
+        kinds = [e[0] for e in fleet.events
+                 if e[0] in ("kill", "drain", "rejoin", "delay", "stall",
+                             "steal", "snapshot", "comm_fault")]
+        print(f"[fleet] fault events fired: {kinds}")
+
+
+def print_health(eng) -> None:
+    """The ``[health]`` report lines of one engine's run."""
+    st = eng.stats()
+    print(f"[health] quarantined={st['quarantined']} "
+          f"retries={st['retries']} guard_trips={st['guard_trips']} "
+          f"demotions={st['health_demotions']} "
+          f"idle_steps={st['idle_steps']}")
+    kinds = [e[0] for e in eng.events
+             if e[0] in ("comm_fault", "comm_fault_end", "guard_trip",
+                         "retry", "quarantine", "deadline",
+                         "health_demote", "health_promote",
+                         "health_link_up")]
+    print(f"[health] events fired: {kinds}")
+    hov = eng.plan_record()["health_overrides"]
+    if eng.health is not None and any(o[3] == "health" for o in hov):
+        print(f"[health] live overrides: {hov}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -170,12 +257,37 @@ def main(argv=None):
     ap.add_argument("--kv-dtype", default="bf16", choices=["bf16", "int8"],
                     help="KV-cache storage dtype: int8 quantizes on write "
                          "with per-(token, head) f32 scales")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="continuous mode: >1 runs a ServingFleet of "
+                         "data-parallel engine replicas")
+    ap.add_argument("--router", default="least-loaded",
+                    choices=["fcfs", "least-loaded", "cache-affinity"])
+    ap.add_argument("--fault-plan", default=None,
+                    help="scripted fleet faults, e.g. 'kill:1@4 rejoin:1@8', "
+                         "'delay:0@2x3', or comms-level "
+                         "'linkdown:1.mlp@4x3' "
+                         "(kind:replica[.island]@step[xticks])")
+    ap.add_argument("--comm-fault-plan", default=None,
+                    help="single-engine scripted comms faults, e.g. "
+                         "'corrupt:mlp@3 stall:mlp@5x6' "
+                         "(kind:island@step[xticks])")
+    ap.add_argument("--island-guards", action="store_true",
+                    help="finite checks on island inputs and outputs, "
+                         "counted on the device; trips feed the health "
+                         "monitor")
+    ap.add_argument("--health-monitor", action="store_true",
+                    help="per-island EMA health monitor: demote a drifting "
+                         "island's backend with hysteresis, promote it "
+                         "after probation")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="fleet: snapshot and rejoin checkpoint directory")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU, which must exist)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     overrides = {"comm_wire": args.comm_wire,
-                 "comm_policy": args.comm_policy}
+                 "comm_policy": args.comm_policy,
+                 "island_guards": args.island_guards}
     if args.comm_backend:
         overrides["comm_backend"] = args.comm_backend
 
@@ -196,11 +308,16 @@ def main(argv=None):
                         cache_layout=args.cache_layout,
                         page_size=args.page_size, n_pages=args.n_pages,
                         prefill_chunk=args.prefill_chunk,
-                        kv_dtype=args.kv_dtype)
+                        kv_dtype=args.kv_dtype,
+                        health_monitor=args.health_monitor)
+    if args.replicas > 1:
+        serve_fleet(args, serve, overrides)
+        return
     eng = build_engine(args.arch, reduced=args.reduced,
                        mesh_shape=args.mesh_shape, serve=serve,
                        seed=args.seed, comm_chunks=args.comm_chunks,
-                       run_overrides=overrides, device=args.device)
+                       run_overrides=overrides,
+                       comm_faults=args.comm_fault_plan, device=args.device)
     if eng.rules is not None:
         print(f"[plan] comm_policy={args.comm_policy}")
         print(render_serving_plans(eng.bucket_plans))
@@ -230,6 +347,8 @@ def main(argv=None):
                  f"cow={cs['cow_copies']} "
                  f"blocked={cs['admission_blocked']}")
     print(line)
+    if args.comm_fault_plan or args.island_guards or args.health_monitor:
+        print_health(eng)
 
 
 if __name__ == "__main__":

@@ -33,16 +33,34 @@ the batch, so a donor's pages are not reusable bit for bit.
 per-(token, head) f32 scales (quantized on write, dequantized on read, as
 in JAX): (hd + 4) bytes a (position, head, K|V) against 2·hd.
 
-Still raising when ``ServeConfig`` asks for them: the health monitor and
-request deadlines (ROADMAP A13). Non-finite logits raise
-``FloatingPointError``: JAX's retry and quarantine are A13 too.
+Runtime health (``runtime/health.py``), as in JAX: a ``CommFaultPlan``
+fires scripted comm faults at engine steps — a corrupt or bitflip step runs
+with ``RunConfig.comm_fault`` set, through step functions kept apart from
+the per-bucket ones, so that the engine launches exactly what it launched
+before once the fault ends; a stall adds synthetic time to a step while the
+island still runs a ring-family backend; a linkdown pins the island to
+``bulk``. A request whose logits are not finite is retried after a backoff
+(``max_retries``, ``retry_backoff``) or quarantined
+(``prefill_nonfinite``; ``decode_nonfinite`` quarantines at once).
+``deadline_steps`` expires requests, queued or in a slot. With
+``health_monitor`` a ``HealthMonitor`` reads each island's step times and
+the island guards' trips (drained once a step, beside the token read-back)
+and demotes a drifting island's backend, layering ``"health"`` overrides
+above every bucket's plan; ``plan_record()`` shows the live plans.
+
+Fleet hooks (``runtime/fleet.py`` steps N engines as replicas):
+``run(step_budget=k)`` runs at most k steps and returns; ``drain()`` stops
+admission and ``take_queued()`` hands the queue back; ``take_undone()``
+pops every request not completed (queued, in a prefill job, in a slot)
+exactly once, in rid order; ``load()`` is the router's feedback;
+``inject_step_delay(dt)`` adds to the next recorded step time, which feeds
+the engine's ``StragglerWatchdog`` and the fleet's.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -55,6 +73,10 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import island_plans
 from repro_torch.models.sharding import ShardingRules
 from repro_torch.runtime import paging
+from repro_torch.runtime.health import (COMM_FAULT_KINDS, PAYLOAD_FAULT_KINDS,
+                                        CommFaultPlan, HealthMonitor,
+                                        demotion_ladder, take_guard_trips)
+from repro_torch.runtime.straggler import StepTimer, StragglerWatchdog
 from repro_torch.train.step import (make_paged_prefill_step,
                                     make_prefill_cache_step, make_serve_step)
 
@@ -205,12 +227,6 @@ def serving_plan_record(cfg: ArchConfig, run: RunConfig,
             "buckets": {name: bp.asdict() for name, bp in table.items()}}
 
 
-def _check_serve(serve: ServeConfig) -> None:
-    if serve.health_monitor or serve.deadline_steps:
-        raise NotImplementedError(
-            "the health monitor and request deadlines are ROADMAP item A13")
-
-
 @dataclasses.dataclass
 class _Slot:
     rid: int
@@ -243,6 +259,7 @@ class _PrefillJob:
     pages: list                      # per row: owned page list (refs held)
     logit_chunk: list                # per row: chunk containing L-1
     first_token: list                # per row: its greedy first token
+    poisoned: list                   # per row: non-finite logits seen
     started_step: int
 
 
@@ -257,13 +274,14 @@ class ServingEngine:
 
     def __init__(self, cfg: ArchConfig, run: RunConfig,
                  rules: ShardingRules | None, params,
-                 serve: ServeConfig | None = None, *, device=None):
+                 serve: ServeConfig | None = None,
+                 comm_faults: CommFaultPlan | str | None = None, *,
+                 device=None):
         self.cfg = cfg
         self.serve = serve if serve is not None else ServeConfig()
         if cfg.encoder_decoder:
             raise NotImplementedError(
                 "the continuous-batching engine covers decoder-only models")
-        _check_serve(self.serve)
         if T.has_ssm(cfg) and not self.serve.exact_buckets:
             raise ValueError(
                 "SSM state cannot mask right-padded prompts; use "
@@ -324,9 +342,15 @@ class ServingEngine:
         self.events: list[tuple] = []
         self.step_no = 0
         self.step_kinds: list[str] = []
+        self.watchdog = StragglerWatchdog()
         self.step_times: list[float] = []
         self.tokens_generated = 0
         self._next_rid = 0
+        # fleet hooks: the Request of every live rid (a killed replica's
+        # work is requeued from it), the admission gate, injected delay
+        self._requests: dict[int, Request] = {}
+        self.draining = False
+        self._injected_delay = 0.0
         # cache-memory accounting (both layouts track peak residency)
         self.prefix_hits = 0
         self.shared_pages_reused = 0
@@ -334,6 +358,29 @@ class ServingEngine:
         self.admission_blocked = 0
         self._peak_pages = 0
         self._peak_slots = 0
+        # --- runtime health (runtime/health.py) ---------------------------
+        if isinstance(comm_faults, str):
+            comm_faults = CommFaultPlan.parse(comm_faults)
+        self.comm_faults = comm_faults if comm_faults is not None \
+            else CommFaultPlan()
+        self._active_faults: list[dict] = []
+        self._current_fault: tuple | None = None   # (kind, island, hop)
+        self._fault_fns: dict[tuple, Any] = {}     # faulted step functions
+        self._base_plans = dict(self.bucket_plans)  # as resolved, no health
+        self._hov: tuple = ()                      # live health overrides
+        self._retries: dict[int, int] = {}
+        self._not_before: dict[int, int] = {}      # retry backoff gate
+        self._submit_step: dict[int, int] = {}
+        self.quarantined: dict[int, dict] = {}
+        self.expired: dict[int, dict] = {}
+        self.health: HealthMonitor | None = None
+        self._health_ev_seen = 0
+        if self.serve.health_monitor:
+            self.health = HealthMonitor(
+                self._health_ladders(),
+                factor=self.serve.health_factor,
+                demote_after=self.serve.health_demote_after,
+                probation=self.serve.health_probation)
 
     # -- plumbing ----------------------------------------------------------
 
@@ -363,12 +410,16 @@ class ServingEngine:
         return logits[:, -1, :self.cfg.vocab_size].argmax(dim=-1) \
             .to(torch.int32).cpu().numpy()
 
-    def _check_finite(self, logits) -> None:
-        if not bool(torch.isfinite(logits[:, -1, :self.cfg.vocab_size])
-                    .all()):
-            raise FloatingPointError(
-                f"non-finite logits at engine step {self.step_no}; request "
-                "retry and quarantine are ROADMAP item A13")
+    def _read_rows(self, logits) -> tuple[np.ndarray, np.ndarray]:
+        """(greedy token, finite) per batch row, in one device->host copy:
+        the ``_greedy`` rule, and whether the row's last-position logits
+        over the real vocab are all finite — the poison detector (NaN and
+        ±inf both trip it)."""
+        last = logits[:, -1, :self.cfg.vocab_size]
+        both = torch.stack([last.argmax(dim=-1),
+                            torch.isfinite(last).all(dim=-1).long()]).cpu()
+        return (both[0].to(torch.int32).numpy(),
+                both[1].numpy().astype(bool))
 
     def _prefill_fn(self, bucket: int):
         if bucket not in self._prefill_fns:
@@ -381,8 +432,11 @@ class ServingEngine:
                 self.bucket_plans[name] = BucketPlan(
                     "prefill", bucket, self.serve.prefill_batch, bucket,
                     plans, plan_overrides(plans))
+                self._base_plans[name] = self.bucket_plans[name]
+                # live health demotions layer above a fresh plan too
                 self._runs[name] = dataclasses.replace(
-                    run, island_overrides=self.bucket_plans[name].overrides)
+                    run, island_overrides=(
+                        self.bucket_plans[name].overrides + self._hov))
             run = self._runs[name]
             self._prefill_fns[bucket] = make_prefill_cache_step(
                 self.cfg, run, self.rules)
@@ -409,8 +463,10 @@ class ServingEngine:
                 self.bucket_plans[name] = BucketPlan(
                     "prefill", bucket, self.serve.prefill_batch, cl,
                     plans, plan_overrides(plans))
+                self._base_plans[name] = self.bucket_plans[name]
                 self._runs[name] = dataclasses.replace(
-                    run, island_overrides=self.bucket_plans[name].overrides)
+                    run, island_overrides=(
+                        self.bucket_plans[name].overrides + self._hov))
             self._prefill_fns[cl] = make_paged_prefill_step(
                 self.cfg, self._runs[name], self.rules, self.geom.page_size)
         return self._prefill_fns[cl]
@@ -420,6 +476,261 @@ class ServingEngine:
         """Prefill buckets (chunk lengths, paged) a step function has been
         built for."""
         return sorted(self._prefill_fns)
+
+    # -- runtime health ----------------------------------------------------
+
+    def _health_ladders(self) -> dict:
+        """island -> demotion ladder, from the planned backends (the first
+        bucket declaring an island wins: a ladder needs only the backend
+        family, which is the same in every bucket)."""
+        ladders: dict[str, tuple] = {}
+        for bp in self.bucket_plans.values():
+            for p in bp.plans:
+                if p.fallback or p.backend is None or p.island in ladders:
+                    continue
+                lad = demotion_ladder(p.backend)
+                if lad:
+                    ladders[p.island] = lad
+        return ladders
+
+    def inject_comm_fault(self, kind: str, island: str, ticks: int = 1,
+                          hop: int = 0, stall_dt: float = 1.0) -> None:
+        """Start a comms-level fault now, for ``ticks`` engine steps — the
+        entry point of the fleet and of the scripted ``CommFaultPlan``."""
+        if kind not in COMM_FAULT_KINDS:
+            raise ValueError(f"unknown comm fault kind {kind!r}; one of "
+                             f"{COMM_FAULT_KINDS}")
+        self._active_faults.append({"kind": kind, "island": island,
+                                    "hop": int(hop),
+                                    "remaining": max(1, int(ticks)),
+                                    "stall_dt": float(stall_dt)})
+        self.events.append(("comm_fault", self.step_no, kind, island,
+                            max(1, int(ticks))))
+        if kind == "linkdown" and self.health is not None:
+            if self.health.link_down(island, self.step_no):
+                self._refresh_health_overrides()
+
+    def _fire_comm_faults(self) -> None:
+        """Start the scripted events of the step about to run, then pick the
+        payload fault (if any) this step's computation carries."""
+        for ev in self.comm_faults.at(self.step_no + 1):
+            self.inject_comm_fault(ev.kind, ev.island, ticks=ev.ticks,
+                                   hop=ev.hop, stall_dt=ev.stall_dt)
+        self._current_fault = None
+        for f in self._active_faults:
+            if f["kind"] in PAYLOAD_FAULT_KINDS:
+                self._current_fault = (f["kind"], f["island"], f["hop"])
+                break
+
+    def _tick_comm_faults(self) -> None:
+        still = []
+        for f in self._active_faults:
+            f["remaining"] -= 1
+            if f["remaining"] > 0:
+                still.append(f)
+            else:
+                self.events.append(("comm_fault_end", self.step_no,
+                                    f["kind"], f["island"]))
+                if f["kind"] == "linkdown" and self.health is not None:
+                    # the link is back; promotion earns its way through
+                    # the probation window, not at once
+                    self.health.link_up(f["island"], self.step_no)
+        self._active_faults = still
+
+    def _faulted_fn(self, key: tuple, fault: tuple):
+        """The step function whose ``RunConfig.comm_fault`` poisons the
+        targeted ring hop, cached per (step, fault) apart from the
+        per-bucket steps, which never see a fault (JAX re-jits the same
+        variant)."""
+        k = (key, fault)
+        if k not in self._fault_fns:
+            phase, bucket = key
+            if phase == "decode":
+                run = dataclasses.replace(self._runs["decode"],
+                                          comm_fault=fault)
+                fn = make_serve_step(
+                    self.cfg, run, self.rules,
+                    page_size=self.geom.page_size if self.paged else 0)
+            elif phase == "paged":
+                self._paged_prefill_fn(bucket)     # resolves the plan
+                cl = self.serve.prefill_chunk or bucket
+                name = (f"prefill@chunk{cl}" if self.serve.prefill_chunk
+                        else f"prefill@{bucket}")
+                run = dataclasses.replace(self._runs[name], comm_fault=fault)
+                fn = make_paged_prefill_step(self.cfg, run, self.rules,
+                                             self.geom.page_size)
+            else:
+                self._prefill_fn(bucket)           # resolves the plan
+                run = dataclasses.replace(self._runs[f"prefill@{bucket}"],
+                                          comm_fault=fault)
+                fn = make_prefill_cache_step(self.cfg, run, self.rules)
+            self._fault_fns[k] = fn
+        return self._fault_fns[k]
+
+    def _stall_applies(self, island: str, kind: str) -> bool:
+        """A scripted link stall costs a step only while the island's
+        current backend still rides the slow link (a ring-family schedule);
+        a health demotion to bulk routes around it — the recovery the
+        monitor's demotion buys."""
+        names = ([n for n, bp in self.bucket_plans.items()
+                  if bp.phase == "prefill"] if kind == "prefill"
+                 else ["decode"])
+        for n in names:
+            for p in self.bucket_plans[n].plans:
+                if p.fallback or p.island != island:
+                    continue
+                # health overrides patch bucket_plans, so p.backend
+                # already shows any demotion
+                if p.backend in ("ring", "ring_bidir", "chunked", "fused"):
+                    return True
+        return False
+
+    def _refresh_health_overrides(self) -> None:
+        """Layer the monitor's demotions (source ``"health"``) above every
+        bucket's frozen overrides, patch the live plan records and rebuild
+        the step functions. The calibration table and measured dispatch
+        below are never touched: a promotion is the override going away."""
+        hov = self.health.overrides() if self.health is not None else ()
+        self._hov = hov
+        by_island = {o[0]: o for o in hov}
+        for name, base in self._base_plans.items():
+            plans = tuple(
+                dataclasses.replace(
+                    p, backend=by_island[p.island][1],
+                    n_chunks=(by_island[p.island][2]
+                              if by_island[p.island][2] is not None
+                              else p.n_chunks),
+                    source="health",
+                    reason=f"health demotion -> {by_island[p.island][1]}")
+                if (not p.fallback and p.island in by_island) else p
+                for p in base.plans)
+            ov = base.overrides + hov
+            self.bucket_plans[name] = dataclasses.replace(
+                base, plans=plans, overrides=ov)
+            self._runs[name] = dataclasses.replace(
+                self.base_run, island_overrides=ov)
+        self._decode_fn = make_serve_step(
+            self.cfg, self._runs["decode"], self.rules,
+            page_size=self.geom.page_size if self.paged else 0)
+        self._prefill_fns.clear()
+        self._fault_fns.clear()
+
+    def _drain_health_events(self) -> None:
+        if self.health is None:
+            return
+        for ev in self.health.events[self._health_ev_seen:]:
+            self.events.append(("health_" + ev[0],) + tuple(ev[1:]))
+        self._health_ev_seen = len(self.health.events)
+
+    def plan_record(self) -> dict:
+        """The live per-bucket plan table: unlike ``serving_plan_record()``,
+        which resolves from the config, it shows runtime health demotions
+        (``src=health`` islands and the layered overrides)."""
+        return {"buckets": {n: bp.asdict()
+                            for n, bp in self.bucket_plans.items()},
+                "health_overrides": [list(o) for o in self._hov]}
+
+    def _poisoned(self, req: Request, reason: str) -> None:
+        """Retry after a backoff, or quarantine once the retries are
+        spent."""
+        attempt = self._retries.get(req.rid, 0)
+        if attempt < self.serve.max_retries:
+            self._retries[req.rid] = attempt + 1
+            self._not_before[req.rid] = (
+                self.step_no + self.serve.retry_backoff * (2 ** attempt))
+            self.queue.append(req)
+            self.events.append(("retry", self.step_no, req.rid, attempt + 1))
+        else:
+            self.quarantined[req.rid] = {"prompt_len": len(req.prompt),
+                                         "step": self.step_no,
+                                         "reason": reason}
+            self._requests.pop(req.rid, None)
+            self.events.append(("quarantine", self.step_no, req.rid))
+
+    def _evict_slot(self, slot: int) -> None:
+        """Drop a live slot without a completion (quarantine, deadline).
+        Slab cache rows left behind are inert: the next admission into the
+        slot writes every position it will attend to."""
+        s = self.slots[slot]
+        self._requests.pop(s.rid, None)
+        self.slots[slot] = None
+        if self.paged:
+            self.cache["block_tables"][slot] = -1
+            self.allocator.release(self._slot_pages[slot] or [])
+            self._slot_pages[slot] = None
+
+    def _expire_deadlines(self) -> None:
+        dl = self.serve.deadline_steps
+        if not dl:
+            return
+        for r in [r for r in self.queue
+                  if self.step_no - self._submit_step.get(r.rid,
+                                                          self.step_no) >= dl]:
+            self.queue.remove(r)
+            self._requests.pop(r.rid, None)
+            self.expired[r.rid] = {"tokens": [], "step": self.step_no,
+                                   "where": "queued"}
+            self.events.append(("deadline", self.step_no, r.rid))
+        for i, s in enumerate(self.slots):
+            if s is not None and (self.step_no - self._submit_step.get(
+                    s.rid, self.step_no)) >= dl:
+                self.expired[s.rid] = {"tokens": list(s.tokens),
+                                       "step": self.step_no, "where": "slot"}
+                self.events.append(("deadline", self.step_no, s.rid))
+                self._evict_slot(i)
+
+    # -- fleet hooks -------------------------------------------------------
+
+    @property
+    def pending(self) -> bool:
+        """True while a submitted request has not completed yet."""
+        return (bool(self.queue) or self._job is not None
+                or any(s is not None for s in self.slots))
+
+    def drain(self) -> None:
+        """Stop admitting: queued requests stay queued (the fleet's router
+        takes them with ``take_queued``), slots finish."""
+        if not self.draining:
+            self.draining = True
+            self.events.append(("drain", self.step_no))
+
+    def take_queued(self) -> list[Request]:
+        """Pop every queued (not admitted) request, in queue order; nothing
+        on the device refers to them."""
+        out = list(self.queue)
+        self.queue.clear()
+        return out
+
+    def take_undone(self) -> list[Request]:
+        """Pop every request not completed — queued, in a prefill job, in a
+        decode slot — exactly once, in rid order. The kill hook: the engine
+        is dead afterwards, and the router requeues what this returns."""
+        undone: dict[int, Request] = {r.rid: r for r in self.queue}
+        self.queue.clear()
+        if self._job is not None:
+            for r in self._job.reqs:
+                if r is not None:
+                    undone[r.rid] = r
+            self._job = None
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                undone[s.rid] = self._requests[s.rid]
+                self.slots[i] = None
+        return [undone[k] for k in sorted(undone)]
+
+    def load(self) -> int:
+        """Router feedback: queued + live decode slots + prefill job rows,
+        everything this replica still owes compute to."""
+        job_rows = 0 if self._job is None \
+            else sum(r is not None for r in self._job.reqs)
+        return (len(self.queue) + sum(s is not None for s in self.slots)
+                + job_rows)
+
+    def inject_step_delay(self, dt: float) -> None:
+        """Add ``dt`` seconds to the next recorded step time (a scripted
+        fault feeding the watchdog and the fleet's straggler signal, with
+        no sleep)."""
+        self._injected_delay += dt
 
     def prefix_match_len(self, prompt: Sequence[int]) -> int:
         """Longest prefix of ``prompt`` the paged ``PrefixCache`` already
@@ -450,7 +761,10 @@ class ServingEngine:
         if rid is None:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid) + 1
-        self.queue.append(Request(rid, prompt, mx))
+        req = Request(rid, prompt, mx)
+        self._requests[rid] = req
+        self._submit_step[rid] = self.step_no    # the deadline clock
+        self.queue.append(req)
         return rid
 
     # -- scheduling --------------------------------------------------------
@@ -458,19 +772,22 @@ class ServingEngine:
     def _next_group(self):
         """(bucket, requests, slot_ids) to prefill next, or None."""
         free = [i for i, s in enumerate(self.slots) if s is None]
-        if not free or not self.queue:
+        # retry backoff: a poisoned request waits until its gate opens
+        eligible = [r for r in self.queue
+                    if self._not_before.get(r.rid, 0) <= self.step_no]
+        if self.draining or not free or not eligible:
             return None
         cap = min(len(free), self.serve.prefill_batch)
-        head_bucket = self.serve.bucket_for(len(self.queue[0].prompt))
+        head_bucket = self.serve.bucket_for(len(eligible[0].prompt))
         group = []
         if self.serve.queue_policy == "fcfs":
-            for r in self.queue:
+            for r in eligible:
                 if len(group) == cap or \
                         self.serve.bucket_for(len(r.prompt)) != head_bucket:
                     break
                 group.append(r)
         else:                                    # bucket-greedy
-            for r in self.queue:
+            for r in eligible:
                 if len(group) == cap:
                     break
                 if self.serve.bucket_for(len(r.prompt)) == head_bucket:
@@ -489,7 +806,11 @@ class ServingEngine:
         that fits nowhere (strict order: deterministic backpressure);
         returns (bucket, placements) or None. A placement is (request,
         slot, row, pages, n_shared, cow_src, write_from)."""
-        if self._job is not None or not self.queue:
+        if self.draining or self._job is not None or not self.queue:
+            return None
+        eligible = [r for r in self.queue
+                    if self._not_before.get(r.rid, 0) <= self.step_no]
+        if not eligible:
             return None
         geom, serve = self.geom, self.serve
         b_loc = serve.max_batch // geom.n_partitions
@@ -499,15 +820,15 @@ class ServingEngine:
                 for p in range(geom.n_partitions)}
         if not any(free.values()):
             return None
-        head_bucket = serve.bucket_for(len(self.queue[0].prompt))
+        head_bucket = serve.bucket_for(len(eligible[0].prompt))
         if serve.queue_policy == "fcfs":
             cands = []
-            for r in self.queue:
+            for r in eligible:
                 if serve.bucket_for(len(r.prompt)) != head_bucket:
                     break
                 cands.append(r)
         else:                                    # bucket-greedy
-            cands = [r for r in self.queue
+            cands = [r for r in eligible
                      if serve.bucket_for(len(r.prompt)) == head_bucket]
         sched = ("chunk", serve.prefill_chunk or head_bucket)
         placements, used = [], {p: 0 for p in range(geom.n_partitions)}
@@ -576,7 +897,7 @@ class ServingEngine:
             group_bt=np.full((g, geom.pages_per_slot), -1, np.int32),
             pages=[[] for _ in range(g)],
             logit_chunk=[0] * g, first_token=[None] * g,
-            started_step=self.step_no)
+            poisoned=[False] * g, started_step=self.step_no)
         copies = []
         for (r, slot, row, pages, nsh, cow_src, wf) in placements:
             length = len(r.prompt)
@@ -629,6 +950,8 @@ class ServingEngine:
         c = job.next_chunk
         c0 = c * job.chunk_len
         fn = self._paged_prefill_fn(job.bucket)
+        if self._current_fault is not None:
+            fn = self._faulted_fn(("paged", job.bucket), self._current_fault)
         dev = self.device
         with torch.no_grad():
             logits, self.cache = fn(
@@ -638,13 +961,12 @@ class ServingEngine:
                 torch.from_numpy(job.group_bt).to(dev),
                 torch.from_numpy(job.lens).to(dev), c0,
                 torch.from_numpy(job.write_from).to(dev))
-        rows = [row for row, r in enumerate(job.reqs)
-                if r is not None and job.logit_chunk[row] == c]
-        if rows:
-            self._check_finite(logits[rows])
-        first = self._greedy(logits)
-        for row in rows:
-            job.first_token[row] = int(first[row])
+        first, finite = self._read_rows(logits)
+        for row, r in enumerate(job.reqs):
+            if r is not None and job.logit_chunk[row] == c:
+                if not finite[row]:
+                    job.poisoned[row] = True
+                job.first_token[row] = int(first[row])
         self.events.append(
             ("prefill_chunk", self.step_no,
              tuple(r.rid for r in job.reqs if r is not None),
@@ -659,7 +981,16 @@ class ServingEngine:
         sharing."""
         job, geom = self._job, self.geom
         self._job = None
-        rows = [i for i, r in enumerate(job.reqs) if r is not None]
+        # poisoned rows never commit: their block-table rows stay -1, their
+        # pages go back to the pool, the request retries or quarantines
+        for i in [i for i, r in enumerate(job.reqs)
+                  if r is not None and job.poisoned[i]]:
+            self.allocator.release(job.pages[i])
+            self._poisoned(job.reqs[i], "prefill_nonfinite")
+        rows = [i for i, r in enumerate(job.reqs)
+                if r is not None and not job.poisoned[i]]
+        if not rows:
+            return
         idx = torch.as_tensor([job.slot_ids[i] for i in rows],
                               device=self.device)
         self.cache["block_tables"][idx] = torch.from_numpy(
@@ -686,12 +1017,15 @@ class ServingEngine:
             if self.slots[slot].remaining == 0:
                 self._retire(slot)
 
-    def _run_prefill(self, bucket: int, prompts: Sequence[Sequence[int]]):
-        """One bucket group's prefill step on a fresh group cache: returns
-        (logits (prefill_batch, 1, V), group cache). Rows past
-        ``len(prompts)`` are inert one-token pads."""
+    def _run_prefill(self, bucket: int, prompts: Sequence[Sequence[int]],
+                     fn=None):
+        """One bucket group's prefill step (``fn``, the bucket's by
+        default) on a fresh group cache: returns (logits (prefill_batch, 1,
+        V), group cache). Rows past ``len(prompts)`` are inert one-token
+        pads."""
         g = self.serve.prefill_batch
-        fn = self._prefill_fn(bucket)
+        bucket_fn = self._prefill_fn(bucket)
+        fn = bucket_fn if fn is None else fn
         tokens = np.zeros((g, bucket), np.int64)
         lens = np.ones((g,), np.int64)
         for i, p in enumerate(prompts):
@@ -716,19 +1050,29 @@ class ServingEngine:
 
     def _prefill(self, bucket: int, reqs: list[Request],
                  slot_ids: list[int]) -> None:
-        logits, gcache = self._run_prefill(bucket, [r.prompt for r in reqs])
-        self._check_finite(logits)
-        first = self._greedy(logits)
-        idx = torch.as_tensor(slot_ids, device=self.device)
-        rows = torch.arange(len(reqs), device=self.device)
-        for path, pd in T.leaves(self._cache_tmpl):
-            dst, src = self.cache, gcache
-            for k in path:
-                dst, src = dst[k], src[k]
-            dim = self._batch_dim(pd)
-            dst.index_copy_(dim, idx, src.index_select(dim, rows))
-        for i, r in enumerate(reqs):
-            slot = slot_ids[i]
+        fn = None
+        if self._current_fault is not None:
+            fn = self._faulted_fn(("prefill", bucket), self._current_fault)
+        logits, gcache = self._run_prefill(bucket, [r.prompt for r in reqs],
+                                           fn)
+        first, finite = self._read_rows(logits)
+        # only finite rows go into the live cache and open slots; poisoned
+        # rows retry or quarantine, and every slot's cache row is its own,
+        # so the others' tokens do not change
+        ok = [i for i in range(len(reqs)) if finite[i]]
+        bad = [i for i in range(len(reqs)) if not finite[i]]
+        if ok:
+            idx = torch.as_tensor([slot_ids[i] for i in ok],
+                                  device=self.device)
+            rows = torch.as_tensor(ok, device=self.device)
+            for path, pd in T.leaves(self._cache_tmpl):
+                dst, src = self.cache, gcache
+                for k in path:
+                    dst, src = dst[k], src[k]
+                dim = self._batch_dim(pd)
+                dst.index_copy_(dim, idx, src.index_select(dim, rows))
+        for i in ok:
+            r, slot = reqs[i], slot_ids[i]
             self.slots[slot] = _Slot(
                 rid=r.rid, last_token=int(first[i]),
                 remaining=r.max_new_tokens - 1,
@@ -739,9 +1083,12 @@ class ServingEngine:
             self.tokens_generated += 1
             if self.slots[slot].remaining == 0:
                 self._retire(slot)
+        for i in bad:
+            self._poisoned(reqs[i], "prefill_nonfinite")
 
     def _retire(self, slot: int) -> None:
         s = self.slots[slot]
+        self._requests.pop(s.rid, None)
         self.completions[s.rid] = Completion(
             rid=s.rid, prompt_len=s.prompt_len, bucket=s.bucket,
             tokens=list(s.tokens), admitted_step=s.admitted_step,
@@ -762,15 +1109,26 @@ class ServingEngine:
         for i, s in enumerate(self.slots):
             if s is not None:
                 tokens[i, 0] = s.last_token
+        fn = self._decode_fn
+        if self._current_fault is not None:
+            fn = self._faulted_fn(("decode", 0), self._current_fault)
         with torch.no_grad():
-            logits, self.cache = self._decode_fn(
-                self.params, self.cache,
-                torch.from_numpy(tokens).to(self.device))
-        live = [i for i, s in enumerate(self.slots) if s is not None]
-        self._check_finite(logits[live])
-        nxt = self._greedy(logits)
-        for i in live:
-            s = self.slots[i]
+            logits, self.cache = fn(self.params, self.cache,
+                                    torch.from_numpy(tokens).to(self.device))
+        nxt, finite = self._read_rows(logits)
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            if not finite[i]:
+                # poisoned mid-decode: the slot's cache row may hold bad
+                # K/V, so quarantine at once — a partial generation cannot
+                # be replayed from poisoned state
+                self.quarantined[s.rid] = {"prompt_len": s.prompt_len,
+                                           "step": self.step_no,
+                                           "reason": "decode_nonfinite"}
+                self.events.append(("quarantine", self.step_no, s.rid))
+                self._evict_slot(i)
+                continue
             s.last_token = int(nxt[i])
             s.tokens.append(s.last_token)
             s.remaining -= 1
@@ -788,61 +1146,119 @@ class ServingEngine:
         alternates with decode ticks while a job is in flight (chunk,
         decode, chunk, ...), so a decode waits for one chunk at most. An
         exhausted pool shows here as no group with a queue left: the step
-        decodes instead, draining pages."""
+        decodes instead, draining pages. Before the work, the step starts
+        its scripted comm faults and expires deadlines; a step whose every
+        queued request waits out a retry backoff is an idle step."""
+        self._fire_comm_faults()
+        self._expire_deadlines()
         active = any(s is not None for s in self.slots)
         if self.paged:
             group = self._next_group_paged()
             if group is None and self._job is None and not active:
-                if self.queue:
-                    raise RuntimeError(
-                        "paged admission deadlock: queue non-empty but "
-                        "no slots/pages can ever free (pool undersized?)")
+                if self.queue and not self.draining:
+                    if any(self._not_before.get(r.rid, 0) <= self.step_no
+                           for r in self.queue):
+                        raise RuntimeError(
+                            "paged admission deadlock: queue non-empty but "
+                            "no slots/pages can ever free (pool undersized?)")
+                    # every queued request backs off after a retry: an idle
+                    # step lets the gates open
+                    return self._record_step("idle", 0.0)
                 return None
-            t0 = time.perf_counter()
+            with StepTimer() as t:
+                if group is not None:
+                    self._start_prefill_job(*group)
+                    self._prefill_chunk_step()
+                    kind = "prefill"
+                elif self._job is not None and not (
+                        active and self.step_kinds
+                        and self.step_kinds[-1] == "prefill"):
+                    self._prefill_chunk_step()
+                    kind = "prefill"
+                else:
+                    self._decode_tick()
+                    kind = "decode"
+            return self._record_step(kind, t.dt)
+        group = self._next_group()
+        if group is None and not active:
+            if self.queue and not self.draining:
+                # every queued request backs off after a retry: idle step
+                return self._record_step("idle", 0.0)
+            return None
+        with StepTimer() as t:
             if group is not None:
-                self._start_prefill_job(*group)
-                self._prefill_chunk_step()
-                kind = "prefill"
-            elif self._job is not None and not (
-                    active and self.step_kinds
-                    and self.step_kinds[-1] == "prefill"):
-                self._prefill_chunk_step()
+                self._prefill(*group)
                 kind = "prefill"
             else:
                 self._decode_tick()
                 kind = "decode"
-            return self._record_step(kind, t0)
-        group = self._next_group()
-        if group is None and not active:
-            return None
-        t0 = time.perf_counter()
-        if group is not None:
-            self._prefill(*group)
-            kind = "prefill"
-        else:
-            self._decode_tick()
-            kind = "decode"
-        return self._record_step(kind, t0)
+        return self._record_step(kind, t.dt)
 
-    def _record_step(self, kind: str, t0: float) -> str:
+    def _record_step(self, kind: str, dt: float) -> str:
+        """Step accounting, JAX's order: an injected delay is added to the
+        recorded time (the watchdog and the fleet see it; nothing sleeps),
+        a scripted stall adds its synthetic time to the step and to the
+        stalled island's health sample, the guards' trips are drained (the
+        step's one read of them), and the monitor's verdicts re-layer the
+        plans."""
+        dt += self._injected_delay
+        self._injected_delay = 0.0
+        # a stall costs only while the island's current backend still
+        # rides the slow link (after a demotion the step routes around it)
+        stall: dict[str, float] = {}
+        if kind in ("prefill", "decode"):
+            for f in self._active_faults:
+                if f["kind"] == "stall" and \
+                        self._stall_applies(f["island"], kind):
+                    stall[f["island"]] = (stall.get(f["island"], 0.0)
+                                          + f["stall_dt"])
+        dt += sum(stall.values())
         self.step_no += 1
         self.step_kinds.append(kind)
-        self.step_times.append(time.perf_counter() - t0)
+        self.step_times.append(dt)
+        if kind != "idle" and self.watchdog.record(self.step_no, dt):
+            print(f"[serve] STRAGGLER step {self.step_no} ({kind}): "
+                  f"{dt:.3f}s (deadline {self.watchdog.deadline:.3f}s)")
+        # the island guards that tripped during this step's device work
+        changed = False
+        for island, n in sorted(take_guard_trips().items()):
+            self.events.append(("guard_trip", self.step_no, island, n))
+            if self.health is not None:
+                changed |= self.health.guard_trip(island, self.step_no)
+        # per-island health samples: the step's own time plus the island's
+        # stall
+        if self.health is not None and kind in ("prefill", "decode"):
+            base = dt - sum(stall.values())
+            for island in self.health.islands:
+                changed |= self.health.record(
+                    island, self.step_no, base + stall.get(island, 0.0))
+        if changed:
+            self._refresh_health_overrides()
+        self._drain_health_events()
+        self._tick_comm_faults()
         return kind
 
-    def run(self, requests=None, max_steps: int = 100_000) -> list[Completion]:
+    def run(self, requests=None, max_steps: int = 100_000,
+            step_budget: int | None = None) -> list[Completion]:
         """Drain the queue (plus ``requests``, submitted first); returns the
-        completions finished during this call, in rid order."""
+        completions finished during this call, in rid order.
+        ``step_budget`` makes the call cooperative: at most that many steps,
+        then return what finished (no error for a queue left over) — the
+        fleet steps its replicas this way, in a fixed rotation."""
         done_before = set(self.completions)
         for r in requests or ():
             if isinstance(r, Request):
                 self.submit(r.prompt, r.max_new_tokens, rid=r.rid)
             else:
                 self.submit(r)
-        for _ in range(max_steps):
+        limit = max_steps if step_budget is None else min(max_steps,
+                                                          step_budget)
+        drained = False
+        for _ in range(limit):
             if self.step() is None:
+                drained = True
                 break
-        else:
+        if not drained and step_budget is None:
             raise RuntimeError(f"engine did not drain in {max_steps} steps")
         return [self.completions[k] for k in sorted(self.completions)
                 if k not in done_before]
@@ -953,9 +1369,18 @@ class ServingEngine:
             "steps": self.step_no,
             "prefill_steps": self.step_kinds.count("prefill"),
             "decode_steps": self.step_kinds.count("decode"),
+            "idle_steps": self.step_kinds.count("idle"),
             "tokens_generated": self.tokens_generated,
             "wall_s": total,
             "tokens_per_s": self.tokens_generated / total if total else 0.0,
+            "straggler_events": len(self.watchdog.events),
             "compiled_buckets": self.compiled_buckets,
             "cache": self.cache_stats(),
+            "quarantined": len(self.quarantined),
+            "expired": len(self.expired),
+            "retries": sum(self._retries.values()),
+            "guard_trips": sum(e[0] == "guard_trip" for e in self.events),
+            "health_demotions": (
+                sum(e[0] == "demote" for e in self.health.events)
+                if self.health is not None else 0),
         }

@@ -317,13 +317,17 @@ def test_plan_record_cache_section_matches_jax(mesh22):
 
 
 def test_refusals_that_stay():
-    """Health and deadlines (A13) still raise; int8 caches (A11) and
-    ``serve_moe_tp_data`` (A9c) serve paged now; a paged pool refuses SSM
-    models, as JAX's template does."""
-    for extra, item in ((dict(health_monitor=True), "A13"),
-                        (dict(deadline_steps=3), "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            _engine(None, dict(PAGED, **extra))
+    """Health and deadlines (A13), int8 caches (A11) and
+    ``serve_moe_tp_data`` (A9c) serve paged now — the first two as JAX's
+    paged engine does; a paged pool refuses SSM models, as JAX's template
+    does."""
+    for extra in (dict(health_monitor=True), dict(deadline_steps=3)):
+        jeng, teng = _pair("tinyllama-1.1b", None, dict(PAGED, **extra))
+        trace = _trace(PAGED, 5, seed=1)
+        assert _tokens(teng.run(trace)) == _tokens(jeng.run(trace))
+        assert teng.events == jeng.events
+        assert teng.expired == jeng.expired
+        assert teng.cache_stats() == jeng.cache_stats()
     trace = _trace(PAGED, 3)
     eng8 = _engine((1, 4), dict(PAGED, kv_dtype="int8"))
     assert eng8.cache["blocks"]["pos0"]["k_scale"].dtype == torch.float32

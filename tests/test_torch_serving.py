@@ -165,11 +165,30 @@ def test_cli_runs_on_the_cpu(capsys):
     assert "tok/s, batch=2" in out
 
 
+def _jax_and_port(serve: ServeConfig):
+    """(JAX engine, port engine) on no mesh over JAX's float32 parameters,
+    converted."""
+    jcfg = dataclasses.replace(jax_config("tinyllama-1.1b").reduced(),
+                               dtype="float32")
+    tcfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                               dtype="float32")
+    jrun, trun = JaxRun(fsdp=False), RunConfig(fsdp=False)
+    params = JT.init_params(JT.param_template(jcfg, jrun, None),
+                            jax.random.PRNGKey(0), jcfg.d_model)
+    jeng = JaxEngine(jcfg, jrun, None, params,
+                     JaxServe(**dataclasses.asdict(serve)))
+    teng = ServingEngine(tcfg, trun, None, convert.params_from_jax(
+        jax.tree.map(np.asarray, params), tcfg, trun, None), serve,
+        device="cpu")
+    return jeng, teng
+
+
 def test_not_ported_serving_options_raise():
     # the paged cache and chunked prefill are ported (ROADMAP A7,
-    # tests/test_torch_paged_serving.py), and int8 caches (A11,
-    # tests/test_torch_int8_serving.py); the health monitor and deadlines
-    # (A13) still raise
+    # tests/test_torch_paged_serving.py), int8 caches (A11,
+    # tests/test_torch_int8_serving.py), and the health monitor and
+    # deadlines (A13): those serve as JAX's engine does (the faults are in
+    # tests/test_torch_health.py)
     assert launch.build_engine(
         "tinyllama-1.1b", reduced=True, device="cpu",
         serve=ServeConfig(cache_layout="paged", page_size=4,
@@ -178,8 +197,12 @@ def test_not_ported_serving_options_raise():
                               serve=ServeConfig(kv_dtype="int8"))
     assert eng.cache["blocks"]["pos0"]["k"].dtype == torch.int8
     assert len(eng.run([(1, 2, 3)])) == 1
-    for serve in (ServeConfig(health_monitor=True),
-                  ServeConfig(deadline_steps=3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch.build_engine("tinyllama-1.1b", reduced=True, serve=serve,
-                                device="cpu")
+    for extra in (dict(health_monitor=True), dict(deadline_steps=3)):
+        jeng, teng = _jax_and_port(dataclasses.replace(SERVE, **extra))
+        trace = launch.synthetic_trace(6, SERVE, 256, seed=1)
+        assert {c.rid: c.tokens for c in teng.run(trace)} == \
+            {c.rid: c.tokens for c in jeng.run(trace)}
+        assert teng.events == jeng.events
+        assert teng.expired == jeng.expired
+        assert teng.stats()["expired"] == jeng.stats()["expired"]
+    assert teng.expired                   # the deadline run expired some

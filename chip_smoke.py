@@ -12,7 +12,9 @@ Phases (any failure exits non-zero before the last line is printed):
 3. kernels: each kernel of the serving and training paths runs at the
    shapes those paths give it (the GEMM at M 1-200 x ragged K, N, at the
    dense decode logits as one stacked launch over the 4 ranks' shards —
-   bit-identical to one launch a shard and to a second call —, one shard,
+   bit-identical to one launch a shard and to a second call —, over 11
+   and 16 stacked shards (two launches of at most 8, bit-identical too),
+   one shard,
    the training loss (stacked bit-identical too), an MLP shape and the
    moonshot and falcon logits; every GEMM+AR site and prefill bucket, flash
    on the strided views prefill passes — also at moonshot's 16 heads of
@@ -278,6 +280,27 @@ Phases (any failure exits non-zero before the last line is printed):
    ``fused`` (B8) handoffs bit-identical, within 1e-2 of the sequential
    layers; B8 5 launches a forward; ``gpipe_loss``'s gradients within
    2e-2 of sequential autograd (``train_pipeline``);
+5y. long-context decode (A8): h2o-danube-3-4b at full width cut to 8
+   of 24 layers on (2, 4), batch 1, s_max 524,288, the cache sharded
+   over (data, model) and seeded up to s_max - 16; 8 greedy steps
+   through ``make_serve_step(long_ctx=True)``, timed, B1 once a step;
+   with the window off, (2, 4) against no mesh: logits within 3e-2, the
+   tokens equal (``serve_long_ctx``; C17 for why the window is off);
+5z. FSDP over ("pod", "data"): tinyllama-1.1b full, 2 steps of 8 x 512
+   on (2, 2, 2) against (4, 2), fused: losses, grad norms and parameters
+   bit for bit, B3 as often in both (``train_multi_pod``);
+5aa. the bf16 scan (A10e): falcon-mamba-7b cut to 4 of 64 layers,
+   ``forward_prefill`` (2, 512) with the bf16 scan against the f32
+   kernel, within 5e-2, both timed (``prefill_bf16_scan``);
+5ab. the dry-run (A14): tinyllama (2 layers: a train step and a decode
+   step) and moonshot (2 layers, a train step) on (2, 4) counted on the
+   card, the card's step beside its roofline bound (``dryrun_check``);
+   then, after every timed phase, 11 cells counted on ``meta`` by worker
+   processes on the host, every one required, the report's tables
+   printed, and the same reduced steps counted on meta: FLOPs, bytes,
+   collectives and launches equal to the card's (the meta branches'
+   recorded launches against the wrappers' ``.launches``), the meta peak
+   within 10% of ``max_memory_allocated`` (``dryrun_finish``);
 6. a line ``{"kernels": [...]}`` with each kernel's numbers (``launches``:
    the tinyllama serving run's count for the serving kernels, the MoE
    serving run's for the grouped GEMM, the SSM serving run's for the
@@ -285,11 +308,13 @@ Phases (any failure exits non-zero before the last line is printed):
    sequence-parallel run's for the p2p shift and the flash hop, the
    Ulysses run's for the all-to-all, the TP GEMM pair's for AG×GEMM,
    GEMM×RS and the LCSC all-gather, the SSM training run's for the scan's
-   backward; ``launches_by_path`` has all twenty-six paths, 5g's a2a
+   backward; ``launches_by_path`` has all thirty paths, 5g's a2a
    MoE, the whisper runs 5h and 5i, the training runs 5k-5m, the paged and
    head-sharded serving runs 5o and 5p, the runs of 5q-5t, 5u's
    calibration and measured serving, and 5v-5x's ``serve_health``,
-   ``serve_fleet`` and ``train_pipeline`` among them),
+   ``serve_fleet`` and ``train_pipeline`` among them, and 5y-5ab's
+   ``serve_long_ctx``, ``train_multi_pod``, ``prefill_bf16_scan`` and
+   ``dryrun_check``),
    then
    GEMM+AR's cold decode row, whose counts are GEMM+AR's whole-path
    counts (prefill and decode together, the counter named by
@@ -303,6 +328,7 @@ It needs one CUDA device and the repository's ``src/`` beside it.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -1132,6 +1158,30 @@ def check_matmul(dev, record, compare, randn) -> dict:
         before=rotate(lambda x, w: [mm_tile_matmul(x, w[j])
                                     for j in range(r)], sets),
         timing="cold (w rotated over 2 stacks, 262 MB)")
+    # more slabs than a launch takes (MM.MAX_SLABS = 8), as 16 tp ranks
+    # stack them on a production mesh, and an uneven count: one launch a
+    # MAX_SLABS, bit-identical to one launch a slab, within the bf16 bound
+    # of the plain version
+    for many in (11, 16):
+        ws = randn(many, k, n, scale=k ** -0.5)
+        n0 = MM.matmul.launches
+        got = MM.matmul_stacked(x, ws)
+        torch.cuda.synchronize()
+        launched = MM.matmul.launches - n0
+        err = rel_err(got, MM.matmul_stacked_plain(x, ws))
+        shape_many = f"x({m},{k})@w({many},{k},{n}) stacked"
+        same_bits(x, ws, shape_many)
+        want = MM.launches(m, n, k, many)
+        print(f"[kernel] matmul_stacked {shape_many}: {launched} launches "
+              f"(expected {want}), rel_err vs plain {err:.3e} (tol "
+              f"{TOL_BF16_OUT})", flush=True)
+        if launched != want or want != 2:
+            raise AssertionError(f"matmul_stacked {shape_many}: {launched} "
+                                 f"launches, not 2")
+        if not err <= TOL_BF16_OUT:
+            raise AssertionError(f"matmul_stacked {shape_many}: rel_err "
+                                 f"{err} against the plain version")
+        del ws, got
     # one rank's shard, rotated over the 4 shards of a stack
     shards = [(x, stacks[0][j]) for j in range(r)]
     shape = f"x({m},{k})@w({k},{n})"
@@ -5480,6 +5530,568 @@ def train_pipeline(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 5y-5ab: long-context decode (A8), multi-pod FSDP, the bf16 scan and the
+# dry-run (A14)
+# ---------------------------------------------------------------------------
+
+def _global_params(params, cfg, run, rules):
+    """A mesh's stored parameters as the no-mesh tree (each leaf assembled
+    to its global weight, stored as the no-mesh template stores it)."""
+    from repro_torch.core import pgl
+    from repro_torch.models import transformer as T
+
+    out: dict = {}
+    flat = T.param_template(cfg, run, None)
+    for path, pd in T.leaves(T.param_template(cfg, run, rules)):
+        x = pgl.assemble(_leaf(params, path), pd.spec, rules.mesh,
+                         T.stack_axis(pd, rules), lead=int(pd.periods))
+        T.set_path(out, path, T.to_stored(x.contiguous(),
+                                          _leaf(flat, path), None))
+    return out
+
+
+def _long_ctx_cache(cfg, run, rules, s_max, fill, dev):
+    """The decode cache of ``cache_template(long_ctx=True)`` (``rules``
+    given) or the no-mesh one, K/V seeded a layer at a time on the card
+    (seed 100 + 2·layer for K, + 1 for V), zero from ``fill`` on, the
+    position ``fill``: the same values both ways."""
+    import torch
+
+    from repro_torch.core import pgl
+    from repro_torch.core.pgl import P
+    from repro_torch.models import transformer as T
+
+    tmpl = T.cache_template(cfg, run, rules, batch=1, s_max=s_max,
+                            long_ctx=True)
+    cache = T.zeros(tmpl, rules, dev)
+    cache["pos"] = torch.tensor(fill, dtype=torch.int32, device=dev)
+    pd = tmpl["blocks"]["pos0"]["k"]
+    shape = pd.shape[1:]
+    for li in range(cfg.n_layers):
+        for j, name in enumerate(("k", "v")):
+            g = torch.Generator(device=dev).manual_seed(100 + 2 * li + j)
+            x = torch.randn(shape, generator=g, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+            x[:, :, fill:] = 0
+            dst = cache["blocks"]["pos0"][name][li]
+            if rules is None:
+                dst.copy_(x)
+            else:
+                axis = T.stack_axis(pd, rules)
+                dst.copy_(pgl.layout(x, P(*pd.spec[1:]), rules.mesh,
+                                     axis))
+            del x
+    return cache
+
+
+def serve_long_ctx(dev, n_layers: int = 8, steps: int = 8) -> dict:
+    """Phase 5y: long-context decode over (dp x tp) (ROADMAP A8) —
+    h2o-danube-3-4b at full width (d 3840, 32/8 heads of 120, window 4096)
+    cut to ``n_layers`` of its 24 layers, on (2, 4), batch 1, ``s_max``
+    524,288: the cache sequence-sharded over (data, model) (8 flat ranks of
+    65,536 positions), seeded K/V up to position s_max - 16, then
+    ``steps`` greedy decode steps through ``make_serve_step(long_ctx=
+    True)`` with GEMM+AR pinned to the fused kernel (timed; B1 once a
+    step). B4 does not launch: the MLP island's m is the one token, not
+    divisible by the 4 tp ranks, and the fused kernel, like JAX's ring,
+    needs m % R == 0, so the pinned backend degrades to bulk there.
+
+    The reference: the no-mesh decode of JAX and the port measures the
+    window from position 0 and so attends to every cached key past it
+    (ROADMAP C17), where the sharded island windows at the decoded
+    position. So the same weights and cache run with the window off, on
+    (2, 4) and with no mesh. Gates: each step's logits within relative
+    Frobenius 3e-2 — the bound of this script's other model-level bf16
+    comparisons (4b, 4d, 4f, 5p, 5q); the two paths round 8 layers of bf16
+    GEMMs and the f32 mix in other orders — and the greedy tokens equal.
+    Returns the windowed mesh run's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train.step import make_serve_step
+
+    s_max = 524288
+    fill = s_max - 16
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"),
+                              n_layers=n_layers)
+    flat = dataclasses.replace(cfg, sliding_window=None)
+    run = RunConfig(fsdp=False, decode_seq_shard=True, comm_backend="fused")
+    rules = ShardingRules(make_mesh((2, 4), ("data", "model"), device=dev),
+                          run)
+    _empty_cache(dev)
+    params = T.init_params(T.param_template(cfg, run, rules),
+                           torch.Generator(device=dev).manual_seed(5),
+                           cfg.d_model, rules=rules, device=dev)
+    counters = _counters()
+    tok0 = int(torch.randint(0, cfg.vocab_size, (1,), generator=torch
+                             .Generator().manual_seed(9)))
+
+    def decode(cfg_, params_, rules_, run_):
+        cache = _long_ctx_cache(cfg_, run_, rules_, s_max, fill, dev)
+        step = make_serve_step(cfg_, run_, rules_,
+                               long_ctx=rules_ is not None)
+        tok = torch.tensor([[tok0]], device=dev)
+        logits, tokens, times = [], [], []
+        with torch.no_grad():
+            for _ in range(steps):
+                _sync(dev)
+                t0 = time.perf_counter()
+                out, cache = step(params_, cache, tok)
+                _sync(dev)
+                times.append(time.perf_counter() - t0)
+                logits.append(out.float().clone())
+                tok = out[:, -1].argmax(-1, keepdim=True)
+                tokens.append(int(tok))
+        pos = int(cache["pos"])
+        shape = tuple(cache["blocks"]["pos0"]["k"].shape)
+        del cache
+        _empty_cache(dev)
+        if pos != fill + steps:
+            raise AssertionError(f"long-context decode left pos {pos}, not "
+                                 f"{fill + steps}")
+        return logits, tokens, times, shape
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    win, win_tok, times, shape = decode(cfg, params, rules, run)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    kv_gb = 2 * math.prod(shape) * 2 / 1e9
+    print(f"[long-ctx] h2o-danube-3-4b full width, {n_layers} of 24 layers, "
+          f"(2, 4) data x model, batch 1, s_max {s_max}, window 4096: K "
+          f"leaf {shape} (8 flat ranks x 65536 positions), {kv_gb:.2f} GB "
+          f"of K/V, decode from position {fill}; step wall times "
+          f"{[round(t * 1e3, 2) for t in times]} ms (median "
+          f"{statistics.median(times) * 1e3:.2f}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; greedy tokens "
+          f"{win_tok}; max_memory_allocated {peak} B", flush=True)
+    if not all(torch.isfinite(x).all() for x in win):
+        raise AssertionError("long-context logits not finite")
+    if launches["matmul"] != steps:
+        raise AssertionError(f"long-context decode launched B1 "
+                             f"{launches['matmul']} times, not {steps}")
+    if launches["pk_matmul_ar"]:
+        raise AssertionError(f"long-context decode launched B4 "
+                             f"{launches['pk_matmul_ar']} times at m = 1")
+    got, got_tok, _, _ = decode(flat, params, rules, run)
+    ref_params = _global_params(params, cfg, run, rules)
+    del params
+    _empty_cache(dev)
+    want, want_tok, ref_times, _ = decode(flat, ref_params, None,
+                                          RunConfig(fsdp=False))
+    del ref_params
+    _empty_cache(dev)
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    print(f"[long-ctx] window off, (2, 4) against no mesh (same weights "
+          f"and cache): logits rel err a step {[f'{e:.2e}' for e in errs]} "
+          f"(<= 3e-2); greedy tokens {got_tok} vs {want_tok}; no-mesh step "
+          f"{statistics.median(ref_times) * 1e3:.2f} ms; the window moves "
+          f"the first step's logits by {rel_err(win[0], got[0]):.2e}",
+          flush=True)
+    if max(errs) > 3e-2:
+        raise AssertionError(f"long-context logits differ: {errs}")
+    if got_tok != want_tok:
+        raise AssertionError(f"long-context greedy tokens {got_tok} != "
+                             f"{want_tok}")
+    return launches
+
+
+def train_multi_pod(dev, steps: int = 2) -> dict:
+    """Phase 5z: FSDP over several dp axes — tinyllama-1.1b at full width
+    and depth, ``make_train_step`` (AdamW) with FSDP on (2, 2, 2) over
+    ("pod", "data", "model"), ``dp_axes=("pod", "data")``, every collective
+    on the kernels (``comm_backend="fused"``), batch 8 x 512, ``steps``
+    steps; then the same steps on (4, 2) over ("data", "model"). The
+    flattened (pod, data) group holds the same ranks in the same order, so
+    the gates are bit for bit: each step's loss and grad norm, and every
+    parameter after the last step; B3's all-gather and reduce-scatter
+    launched, as often in both runs. Returns the (2, 2, 2) run's
+    launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import TrainState, make_train_step
+
+    cfg = get_config("tinyllama-1.1b")
+    counters = _counters()
+    g = torch.Generator(device=dev).manual_seed(23)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (8, 512),
+                                        generator=g, device=dev),
+                "targets": torch.randint(0, cfg.vocab_size, (8, 512),
+                                         generator=g, device=dev),
+                "weights": torch.ones(8, 512, device=dev)}
+               for _ in range(steps)]
+    out = {}
+    for shape, axes, dp_axes in (((2, 2, 2), ("pod", "data", "model"),
+                                  ("pod", "data")),
+                                 ((4, 2), ("data", "model"), ("data",))):
+        run = RunConfig(fsdp=True, dp_axes=dp_axes, comm_backend="fused")
+        rules = ShardingRules(make_mesh(shape, axes, device=dev), run)
+        _empty_cache(dev)
+        params = T.init_params(T.param_template(cfg, run, rules),
+                               torch.Generator(device=dev).manual_seed(0),
+                               cfg.d_model, rules=rules, device=dev)
+        opt = AdamW()
+        state = TrainState(params, opt.init(params))
+        step = make_train_step(cfg, run, rules, opt)
+        for fn in counters.values():
+            fn.launches = 0
+        metrics, times = [], []
+        for b in batches:
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            metrics.append((m["loss"].detach().clone(),
+                            m["grad_norm"].detach().clone()))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        out[shape] = (metrics, [p.detach().clone()
+                                for _, p in T.leaves(state.params)],
+                      launches)
+        print(f"[multi-pod] tinyllama-1.1b full width and depth, FSDP on "
+              f"{shape} {axes}, dp axes {dp_axes}, fused, batch 8 x 512: "
+              f"losses {[round(float(l), 6) for l, _ in metrics]}, grad "
+              f"norms {[round(float(n), 6) for _, n in metrics]}, step "
+              f"wall {[round(t, 3) for t in times]} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        del state, params, step
+    (ma, pa, la), (mb, pb, lb) = out[(2, 2, 2)], out[(4, 2)]
+    same = all(torch.equal(x, y) for (x, _), (y, _) in zip(ma, mb)) and \
+        all(torch.equal(x, y) for (_, x), (_, y) in zip(ma, mb))
+    n_same = sum(torch.equal(x, y) for x, y in zip(pa, pb))
+    print(f"[multi-pod] (2, 2, 2) against (4, 2): losses and grad norms "
+          f"bit-identical {same}; parameters bit-identical {n_same}/"
+          f"{len(pa)} leaves", flush=True)
+    if not same or n_same != len(pa):
+        raise AssertionError("FSDP over (pod, data) differs from FSDP over "
+                             "one data axis of the same ranks")
+    for k in ("pk_all_gather", "pk_reduce_scatter"):
+        if la[k] <= 0 or la[k] != lb[k]:
+            raise AssertionError(f"B3 {k}: {la[k]} launches on (2, 2, 2), "
+                                 f"{lb[k]} on (4, 2)")
+    del out
+    _empty_cache(dev)
+    return la
+
+
+def prefill_bf16_scan(dev, n_layers: int = 4) -> dict:
+    """Phase 5aa: the bf16 scan (ROADMAP A10e) — falcon-mamba-7b at full
+    width cut to ``n_layers`` of its 64 layers on (1, 4),
+    ``forward_prefill`` of (2, 512) tokens with ``ssm_scan_dtype=
+    "bfloat16"`` (JAX's chunked scan in plain torch) against the f32
+    default (the scan kernel) on the same weights, each timed (host clock
+    around a synchronized call, the second of two). Gates: logits within
+    relative Frobenius 5e-2 of the f32 scan's (bf16 terms, relative step
+    2^-8, through a 256-step chunk's log-depth scan and the layers), the
+    scan kernel launched by the f32 forward only. Returns the f32
+    forward's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import ShardingRules
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              n_layers=n_layers)
+    run32 = RunConfig(fsdp=False)
+    rules = ShardingRules(make_mesh((1, 4), ("data", "model"), device=dev),
+                          run32)
+    _empty_cache(dev)
+    params = T.init_params(T.param_template(cfg, run32, rules),
+                           torch.Generator(device=dev).manual_seed(31),
+                           cfg.d_model, rules=rules, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 512), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    counters = _counters()
+    res = {}
+    for name, run in (("float32", run32),
+                      ("bfloat16", dataclasses.replace(
+                          run32, ssm_scan_dtype="bfloat16"))):
+        rules_ = ShardingRules(rules.mesh, run)
+        with torch.no_grad():
+            T.forward_prefill(params, {"tokens": tok}, cfg, run, rules_)
+            for fn in counters.values():
+                fn.launches = 0
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = T.forward_prefill(params, {"tokens": tok}, cfg, run,
+                                    rules_)
+            _sync(dev)
+        res[name] = (out.float(), time.perf_counter() - t0,
+                     {k: fn.launches for k, fn in counters.items() if
+                      fn.launches})
+    (l32, t32, n32), (l16, t16, n16) = res["float32"], res["bfloat16"]
+    err = rel_err(l16, l32)
+    print(f"[bf16-scan] falcon-mamba-7b full width, {n_layers} of 64 "
+          f"layers, (1, 4), forward_prefill (2, 512): bf16 scan against "
+          f"the f32 kernel scan, logits rel err {err:.3e} (<= 5e-2), "
+          f"greedy last tokens equal "
+          f"{bool((l16[:, -1].argmax(-1) == l32[:, -1].argmax(-1)).all())}; "
+          f"forward {t32 * 1e3:.1f} ms f32 (kernel) / {t16 * 1e3:.1f} ms "
+          f"bf16 (plain torch); launches f32 {n32}, bf16 {n16}",
+          flush=True)
+    if not math.isfinite(err) or err > 5e-2:
+        raise AssertionError(f"bf16 scan logits differ by {err}")
+    if n32.get("mamba_scan", 0) != n_layers or n16.get("mamba_scan", 0):
+        raise AssertionError(f"scan kernel launches f32 {n32}, bf16 {n16}")
+    del params
+    _empty_cache(dev)
+    return n32
+
+
+#: the dry-run cells: every cell of three archs on 16 x 16, one on
+#: 2 x 16 x 16, spread over three worker processes (the train cells
+#: first); the third also counts 5ab's reduced steps on meta
+DRYRUN_WORKERS = [
+    [("moonshot-v1-16b-a3b", "train_4k", "single")],
+    [("tinyllama-1.1b", "train_4k", "single"),
+     ("tinyllama-1.1b", "prefill_32k", "multi"),
+     ("moonshot-v1-16b-a3b", "prefill_32k", "single"),
+     ("moonshot-v1-16b-a3b", "decode_32k", "single")],
+    [("h2o-danube-3-4b", "train_4k", "single"),
+     ("tinyllama-1.1b", "prefill_32k", "single"),
+     ("tinyllama-1.1b", "decode_32k", "single"),
+     ("h2o-danube-3-4b", "prefill_32k", "single"),
+     ("h2o-danube-3-4b", "decode_32k", "single"),
+     ("h2o-danube-3-4b", "long_500k", "single")],
+]
+
+#: 5ab's reduced steps, counted on meta and on the card: tinyllama-1.1b
+#: at full width cut to 2 layers, a train step of 8 x 512 on (2, 4) with
+#: FSDP and the fused backends and a decode step (batch 8, s_max 4096),
+#: and moonshot-v1-16b-a3b at 2 layers, the same train step
+DRYRUN_CHECK_CASES = [("tinyllama-1.1b", "train"),
+                      ("tinyllama-1.1b", "decode"),
+                      ("moonshot-v1-16b-a3b", "train")]
+
+
+def _check_step(arch: str, kind: str, device):
+    """One of 5ab's reduced steps on ``device``: (step, args, grad)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeCell
+    from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.sharding import ShardingRules
+
+    cell = (ShapeCell("train_4k", 512, 8, "train") if kind == "train"
+            else ShapeCell("decode_32k", 4096, 8, "decode"))
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    run = RunConfig(fsdp=kind == "train", comm_backend="fused",
+                    microbatches=1)
+    mesh = VirtualMesh((2, 4), ("data", "model"), device=device)
+    step, args, _ = D.build_step(cfg, cell, run, ShardingRules(mesh, run),
+                                 mesh.device)
+    return step, args, cfg, kind == "train"
+
+
+def _summary(sc) -> dict:
+    """A counted step as JSON: FLOPs, bytes, collective bytes and calls by
+    kind a device, launches a kernel, the peak of live storages."""
+    from repro_torch.roofline import hlo as HLO
+    return json.loads(json.dumps({
+        "flops": sc.flops, "bytes": sc.bytes,
+        "collectives": HLO.collective_bytes(sc.comms, 8).by_kind,
+        "launches": sc.launches, "peak_bytes": sc.peak_bytes}))
+
+
+def dryrun_meta_counts(path: str) -> None:
+    """5ab's reduced steps counted on ``meta`` (in a dry-run worker, whose
+    meta ops run on ATen's C++ kernels as the dry-run's command line runs
+    them), written to ``path`` as JSON."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.roofline import counters as C
+    C.use_native_meta_kernels()
+    rows = {}
+    for arch, kind in DRYRUN_CHECK_CASES:
+        step, args, _, grad = _check_step(arch, kind, "meta")
+        rows[f"{arch} {kind}"] = _summary(
+            D.count_step(step, args, grad=grad, device="meta"))
+    with open(path, "w") as f:
+        json.dump(rows, f)
+
+
+def dryrun_start() -> tuple:
+    """Start the dry-run's cells and 5ab's meta counts (phase 5ab) in
+    worker processes on the host's cores, no card
+    (``CUDA_VISIBLE_DEVICES`` empty), once every timed card phase is done:
+    nothing else runs on the host meanwhile. Returns (processes, out
+    dir)."""
+    out = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for i, cells in enumerate(DRYRUN_WORKERS):
+        calls = "; ".join(
+            f"rc |= D.cli(['--arch', {a!r}, '--cell', {c!r}, '--mesh', "
+            f"{m!r}, '--out', {out!r}])" for a, c, m in cells)
+        if i == len(DRYRUN_WORKERS) - 1:
+            calls += ("; import chip_smoke; chip_smoke.dryrun_meta_counts("
+                      f"{os.path.join(out, 'check_counts.meta')!r})")
+        code = ("import sys, torch; torch.set_num_threads(1); "
+                "from repro_torch.launch import dryrun as D; rc = 0; "
+                f"{calls}; sys.exit(rc)")
+        log = open(os.path.join(out, f"worker{i}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code],
+                                       env=env, cwd=ROOT, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return procs, out
+
+
+def dryrun_finish(procs, out: str, card_counts: dict,
+                  timeout: float = 600.0) -> None:
+    """Phase 5ab (b): wait for the dry-run workers, require every cell
+    counted (``0 failed``), print each worker's lines and the report's two
+    tables (``python -m repro_torch.roofline.report``), and hold the meta
+    counts of 5ab's reduced steps to the card's (``dryrun_check``): FLOPs,
+    bytes, collective bytes and calls by kind and launches a kernel equal
+    (on meta the launches the wrappers' meta branches recorded on the
+    counter, on the card the wrappers' ``.launches``), the meta peak of
+    live storages within 10% of the card's ``max_memory_allocated`` over
+    the step (beyond the arguments)."""
+    t0 = time.perf_counter()
+    try:
+        for p, log in procs:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            log.close()
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = []
+    for i, (p, _) in enumerate(procs):
+        with open(os.path.join(out, f"worker{i}.log")) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith(("===", "  count", "  FAILED", "dry-run")):
+                print(f"[dryrun] {line.strip()}", flush=True)
+        if p.returncode != 0:
+            bad.append(i)
+            print(text[-4000:], flush=True)
+    n_files = len([f for f in os.listdir(out) if f.endswith(".json")])
+    n_cells = sum(len(c) for c in DRYRUN_WORKERS)
+    print(f"[dryrun] {n_files} of {n_cells} cells counted on meta in "
+          f"{time.perf_counter() - t0:.1f} s after the timed card phases",
+          flush=True)
+    if bad or n_files != n_cells:
+        raise AssertionError(f"dry-run workers {bad} failed")
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.report", "--dir", out],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        cwd=ROOT, capture_output=True, text=True, timeout=300, check=True)
+    print(rep.stdout, flush=True)
+    with open(os.path.join(out, "check_counts.meta")) as f:
+        meta_counts = json.load(f)
+    for tag, c in card_counts.items():
+        m = meta_counts[tag]
+        print(f"[dryrun-check] {tag} 2 layers on (2, 4): FLOPs meta "
+              f"{m['flops']} card {c['flops']}; bytes meta {m['bytes']} card "
+              f"{c['bytes']}; collective bytes/device and calls by kind meta "
+              f"{m['collectives']} card {c['collectives']}; launches meta "
+              f"(counter) {m['launches']} card (.launches) {c['launches']}; "
+              f"peak of live storages meta {m['peak_bytes']} B, card "
+              f"max_memory_allocated over the step {c['card_peak']} B "
+              f"(meta/card {m['peak_bytes'] / max(c['card_peak'], 1):.3f})",
+              flush=True)
+        for key in ("flops", "bytes", "collectives", "launches"):
+            if m[key] != c[key]:
+                raise AssertionError(f"{tag}: meta and card {key} differ")
+        if abs(m["peak_bytes"] - c["card_peak"]) > 0.1 * c["card_peak"]:
+            raise AssertionError(f"{tag}: meta peak {m['peak_bytes']} not "
+                                 f"within 10% of {c['card_peak']}")
+
+
+def _fill(tree, vocab: int, gen) -> None:
+    """Values for a tree the specs laid out on the card: float leaves
+    ~ N(0, 0.02²), integer leaves (tokens) uniform over the vocabulary."""
+    import torch
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _fill(v, vocab, gen)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _fill(v, vocab, gen)
+    elif isinstance(tree, torch.Tensor) and tree.is_cuda:
+        if tree.is_floating_point():
+            tree.normal_(0.0, 0.02, generator=gen)
+        else:
+            tree.random_(0, vocab, generator=gen)
+
+
+def dryrun_check(dev) -> tuple:
+    """Phase 5ab (a): 5ab's reduced steps (``DRYRUN_CHECK_CASES``) on the
+    card, each after one warm-up call, with its kernels launched under a
+    ``StepCounter``: their counts, held to the meta counts after the timed
+    phases (``dryrun_finish``), and ``max_memory_allocated`` over the step
+    beyond the arguments. Prints the card's step time (CUDA events) beside
+    the H100_SXM roofline bound of the step's whole count (every rank runs
+    on the one card): not a gate. Returns (the card runs' launches by
+    chip_smoke's names, the card counts by case)."""
+    import torch
+
+    from repro_torch.core.costmodel import H100_SXM
+    from repro_torch.launch import dryrun as D
+
+    total, counts = {}, {}
+    card = card_line()
+    for arch, kind in DRYRUN_CHECK_CASES:
+        step, args, cfg, grad = _check_step(arch, kind, dev)
+        _fill(args, cfg.vocab_size,
+              torch.Generator(device=dev).manual_seed(41))
+        with torch.set_grad_enabled(grad):
+            step(*args)                              # warm-up, not counted
+        # the warm-up's garbage freed now, not inside the step
+        gc.collect()
+        _sync(dev)
+        _empty_cache(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        sc = D.count_step(step, args, grad=grad, device="cuda")
+        ev[1].record()
+        _sync(dev)
+        seconds = ev[0].elapsed_time(ev[1]) / 1e3
+        tag = f"{arch} {kind}"
+        counts[tag] = dict(
+            _summary(sc),
+            card_peak=torch.cuda.max_memory_allocated(dev) - base)
+        bound = max(sc.flops / H100_SXM.peak_flops_bf16,
+                    sc.bytes / H100_SXM.hbm_bandwidth)
+        print(f"[dryrun-check] {tag} 2 layers on (2, 4), card: step "
+              f"{seconds * 1e3:.2f} ms (CUDA events) against the roofline "
+              f"bound {bound * 1e3:.3f} ms (modelled: H100_SXM 989 TFLOP/s "
+              f"bf16, 3.35 TB/s) on {card}; launches {sc.launches}",
+              flush=True)
+        for k, fn in _counters().items():       # chip_smoke's names
+            total[k] = total.get(k, 0) + sc.launches.get(fn.__name__, 0)
+        del step, args, sc
+        _empty_cache(dev)
+    return total, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5496,6 +6108,18 @@ def main() -> int:
     _build.library()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s",
           flush=True)
+    procs = []
+    try:
+        return _phases(dev, card, procs)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _phases(dev, card: str, procs: list) -> int:
+    import torch
     entries = check_kernels(dev)
     check_backward(dev)
     serve_launches, slab_tokens = serve(dev)
@@ -5528,6 +6152,14 @@ def main() -> int:
     health_launches = serve_health(dev)
     fleet_launches = serve_fleet(dev)
     pipeline_launches = train_pipeline(dev)
+    long_ctx_launches = serve_long_ctx(dev)
+    multi_pod_launches = train_multi_pod(dev)
+    bf16_scan_launches = prefill_bf16_scan(dev)
+    check_launches, card_counts = dryrun_check(dev)
+    # the last timed phase is done: the dry-run's workers have the host
+    workers, dry_out = dryrun_start()
+    procs.extend(workers)
+    dryrun_finish(procs, dry_out, card_counts)
     main_entries = []
     for key in KERNEL_COUNTERS + ("pk_matmul_ar@decode",
                                   "pk_all_gather@path",
@@ -5564,7 +6196,11 @@ def main() -> int:
                                                                    0),
                    "serve_health": health_launches.get(counter, 0),
                    "serve_fleet": fleet_launches.get(counter, 0),
-                   "train_pipeline": pipeline_launches.get(counter, 0)}
+                   "train_pipeline": pipeline_launches.get(counter, 0),
+                   "serve_long_ctx": long_ctx_launches.get(counter, 0),
+                   "train_multi_pod": multi_pod_launches.get(counter, 0),
+                   "prefill_bf16_scan": bf16_scan_launches.get(counter, 0),
+                   "dryrun_check": check_launches.get(counter, 0)}
         main_path = {"grouped_matmul": "serve_moe",
                      "mamba_scan": "serve_ssm",
                      "p2p_ring_shift": "train_sp",

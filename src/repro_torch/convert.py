@@ -53,8 +53,8 @@ def tree_to_numpy(tree, template, rules: ShardingRules | None) -> dict:
     for path, pd in T.leaves(template):
         x = _get(tree, path)
         if rules is not None:
-            x = pgl.assemble(x, pd.spec, rules.mesh, rules.tp,
-                             lead=int(pd.periods))
+            x = pgl.assemble(x, pd.spec, rules.mesh,
+                             T.stack_axis(pd, rules), lead=int(pd.periods))
         if x.dtype == torch.bfloat16:
             x = x.float()
         T.set_path(out, path, x.detach().cpu().numpy())

@@ -64,6 +64,14 @@ chunks, and keeps the policy off ``fused``: the fused kernels ship full
 precision, as JAX's do, so only the rings put int8 on the wire; ``bulk``
 and ``fused`` ignore the wire.
 
+Every op records itself on the active step counters
+(``roofline/counters.py``) under every backend — the comm trace the
+dry-run prices: the collective's kind, a rank's output bytes in the wire's
+dtype, the group size — and, when its output takes a gradient, the
+transposed collective its backward runs (an all-gather's reduce-scatter
+and back; all-reduce, all-to-all and permute their own kind). Nothing is
+recorded without a counter.
+
 ``CommContext.fault`` is the scripted payload fault of
 ``runtime/health.py``: a ``(kind, hop)`` pair that NaNs the rings' hop
 ``hop`` after its shift — every element for ``"corrupt"``, the first
@@ -81,6 +89,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import costmodel as cm
+from repro_torch.core import pgl
 from repro_torch.core.quant import (WireFormat, dequantize_add,
                                     dequantize_blocks, quantize_blocks,
                                     resolve_wire, tree_map)
@@ -88,6 +97,7 @@ from repro_torch.core.schedule import (GEMM_CHUNK_DIM, ChunkSchedule,
                                        OverlapPolicy, a2a_chunk_axis,
                                        choose_a2a_chunks, choose_gemm_chunks,
                                        choose_gemm_collective, fit_chunks)
+from repro_torch.roofline import counters
 
 __all__ = ["CommContext", "OP_BACKENDS", "GEMM_OP_KIND",
            "all_gather_matmul_baseline", "pk_all_gather_matmul",
@@ -114,6 +124,53 @@ GEMM_OP_KIND = {"all_gather_matmul": "all_gather",
                 "matmul_all_reduce": "all_reduce"}
 
 
+#: the collective an op's backward runs (JAX's transpose rules)
+_TRANSPOSE = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
+              "all-reduce": "all-reduce", "all-to-all": "all-to-all",
+              "collective-permute": "collective-permute"}
+
+
+class _Transposed(torch.autograd.Function):
+    """Identity whose backward records the transposed collective."""
+
+    @staticmethod
+    def forward(ctx, x, record):
+        ctx.record = record
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        counters.collective(*ctx.record)
+        return g, None
+
+
+def _trace(out: torch.Tensor, kind: str, nbytes, n: int,
+           lanes: int = 1) -> torch.Tensor:
+    """Record a collective on the active counters (see the module
+    docstring) and, where ``out`` takes a gradient, its transpose in the
+    backward: an all-gather of ``out_bytes = nbytes()`` a rank is
+    reduce-scattered back to ``out_bytes / n``, a reduce-scatter gathered
+    to ``out_bytes · n``. ``out`` unchanged, and ``nbytes`` not called,
+    without a counter."""
+    if counters.active() is None or n <= 1:
+        return out
+    out_bytes = nbytes()
+    counters.collective(kind, out_bytes, n, lanes)
+    if not (torch.is_grad_enabled() and out.requires_grad):
+        return out
+    back = {"all-gather": out_bytes / n,
+            "reduce-scatter": out_bytes * n}.get(kind, out_bytes)
+    return _Transposed.apply(out, (_TRANSPOSE[kind], back, n, lanes))
+
+
+def _wire_elem_bytes(x: torch.Tensor, fmt, be: str) -> float:
+    """Bytes an element on the wire: the quantized wire's on the rings,
+    the activation dtype's on bulk and fused (they ship full precision)."""
+    if fmt is not None and be in ("ring", "ring_bidir"):
+        return fmt.bytes_per_element
+    return x.element_size()
+
+
 @dataclasses.dataclass(frozen=True)
 class CommContext:
     """One handle for every overlapped collective over a mesh axis.
@@ -122,7 +179,9 @@ class CommContext:
     tensors whose dim 0 is this axis. ``backend`` pins every call (A/B
     runs); per-call ``backend=`` overrides even that."""
 
-    axis_name: str
+    #: a mesh axis, or a tuple of axes acting as one flattened axis
+    #: (several dp axes; the long-context decode's ``(*dp_axes, tp)``)
+    axis_name: Any
     mesh: Any = None
     hw: cm.HardwareSpec = cm.H100_SXM
     backend: str | None = None
@@ -159,7 +218,7 @@ class CommContext:
 
     @property
     def axis_size(self) -> int:
-        return self.mesh.shape[self.axis_name]
+        return pgl.axes_size(self.mesh, self.axis_name)
 
     def available_backends(self, op: str) -> tuple[str, ...]:
         """Backends of `op` that can execute here: all of them (``fused``
@@ -217,10 +276,15 @@ class CommContext:
         return fallback
 
     def _prefer_fused(self) -> bool:
-        """The policy picks the fused kernel on a CUDA device. (The JAX
-        package also checks that whole operands fit VMEM; the CUDA kernel
-        tiles K through shared memory, so no such limit applies.)"""
-        return self.mesh.device.type == "cuda"
+        """The policy picks the fused kernel on a CUDA device — and on
+        ``meta``, where the dry-run describes the card — over at most the
+        kernels' ``MAX_RANKS`` ranks (a 16-rank tp axis takes the ring).
+        (The JAX package also checks that whole operands fit VMEM; the
+        CUDA kernel tiles K through shared memory, so no such limit
+        applies.)"""
+        from repro_torch.kernels.collective_matmul import MAX_RANKS
+        return self.mesh.device.type in ("cuda", "meta") \
+            and self.axis_size <= MAX_RANKS
 
     def gemm_policy(self, m: int, n: int, k: int, *, kind: str,
                     dtype_bytes: int = 2, hw: cm.HardwareSpec | None = None,
@@ -419,6 +483,8 @@ class CommContext:
                 constraint="at least 2 local rows to split across the two "
                            "ring directions (m_loc >= 2)",
                 fallback="ring")
+        x = _trace(x, "all-gather", lambda: n_dev * m_loc * k
+                   * _wire_elem_bytes(x, fmt, be), n_dev)
         if be == "bulk":
             return all_gather_matmul_baseline(x, w)
         sched = self.gemm_chunk_schedule(
@@ -464,6 +530,13 @@ class CommContext:
             be = self._shape_guard(
                 "matmul_reduce_scatter", be, backend, ok=(m % n_dev == 0),
                 constraint="m divisible by the axis size")
+        out = self._gemm_rs(x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
+                            n_chunks, chunk_dim)
+        return _trace(out, "reduce-scatter", lambda: m // n_dev * n_out
+                      * _wire_elem_bytes(x, fmt, be), n_dev)
+
+    def _gemm_rs(self, x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
+                 n_chunks, chunk_dim):
         if be == "bulk":
             return matmul_reduce_scatter_baseline(x, w)
         sched = self.gemm_chunk_schedule(
@@ -506,6 +579,13 @@ class CommContext:
             be = self._shape_guard(
                 "matmul_all_reduce", be, backend, ok=(m % n_dev == 0),
                 constraint="m divisible by the axis size")
+        out = self._gemm_ar(x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
+                            n_chunks, chunk_dim)
+        return _trace(out, "all-reduce",
+                      lambda: m * n_out * _wire_elem_bytes(x, fmt, be), n_dev)
+
+    def _gemm_ar(self, x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
+                 n_chunks, chunk_dim):
         if be == "bulk":
             return matmul_all_reduce_baseline(x, w)
         sched = self.gemm_chunk_schedule(
@@ -533,8 +613,12 @@ class CommContext:
         def shift(t):
             self._check_stacked(t)
             if be == "bulk":
-                return torch.roll(t, -1 if reverse else 1, 0)
-            return _RingShift.apply(t)
+                out = torch.roll(t, -1 if reverse else 1, 0)
+            else:
+                out = _RingShift.apply(t)
+            return _trace(out, "collective-permute",
+                          lambda: t[0].numel() * t.element_size(),
+                          self.axis_size)
 
         return tree_map(shift, x)
 
@@ -577,22 +661,32 @@ class CommContext:
                        else auto_chunks())
             fit = a2a_chunk_axis(local, split_axis, concat_axis, want)
             c = fit[1] if fit is not None else 1
-        return _AllToAll.apply(x, split_axis, concat_axis, c)
+        return _trace(_AllToAll.apply(x, split_axis, concat_axis, c),
+                      "all-to-all", lambda: math.prod(local)
+                      * x.element_size(), self.axis_size)
 
     def all_gather(self, x: torch.Tensor, *, axis: int = 0,
-                   backend: str | None = None, order=None) -> torch.Tensor:
+                   backend: str | None = None, order=None, lanes: int = 1,
+                   split: int = 1) -> torch.Tensor:
         """Tiled all-gather along ``axis`` of each rank's local tensor:
         stacked (R, *local) -> (R, *gathered), ``gathered.shape[axis] =
         R · local.shape[axis]``, the same on every rank (the FSDP param
         gather). ``auto`` resolves to bulk; fused is the ring kernel. The
         result is contiguous, or has its local dims in memory in ``order``
-        (outermost first), under either backend."""
+        (outermost first), under either backend. ``lanes`` and ``split``
+        describe a stacked call that stands for several groups at once
+        (the FSDP gather of a tp-stacked leaf, ``template.fsdp_gather``):
+        it runs ``lanes`` groups, and a rank holds ``1 / split`` of the
+        local tensor — what the comm trace records."""
         self._check_stacked(x)
         if x.dim() < 2:
             raise ValueError("all_gather takes a stacked (R, *local) tensor "
                              "with at least one local dim")
         be = self._resolve("all_gather", backend, lambda: "bulk")
-        return _AllGather.apply(x, axis % (x.dim() - 1), be, order)
+        out = _AllGather.apply(x, axis % (x.dim() - 1), be, order)
+        return _trace(out, "all-gather",
+                      lambda: out[0].numel() * out.element_size() / split,
+                      self.axis_size, lanes)
 
     def reduce_scatter(self, x: torch.Tensor, *, axis: int = 0,
                        backend: str | None = None) -> torch.Tensor:
@@ -613,7 +707,10 @@ class CommContext:
                 f"reduce_scatter: dim {axis} of the local shape "
                 f"{tuple(x.shape[1:])} is not divisible by the axis size "
                 f"{self.axis_size}")
-        return _ReduceScatter.apply(x, axis, be)
+        out = _ReduceScatter.apply(x, axis, be)
+        return _trace(out, "reduce-scatter",
+                      lambda: out[0].numel() * out.element_size(),
+                      self.axis_size)
 
     def psum(self, x: torch.Tensor, *,
              backend: str | None = None) -> torch.Tensor:
@@ -642,14 +739,15 @@ class CommContext:
             be = self._shape_guard(
                 "psum", be, backend, ok=ring_ok,
                 constraint="shape[0] divisible by the axis size")
-        if be == "bulk":
-            return psum_bulk(x)
-        return pk_psum_ring(x)
+        out = psum_bulk(x) if be == "bulk" else pk_psum_ring(x)
+        return _trace(out, "all-reduce",
+                      lambda: x[0].numel() * x.element_size(), self.axis_size)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """Max over the rank axis, broadcast back (``lax.pmax``)."""
         self._check_stacked(x)
-        return pmax_bulk(x)
+        return _trace(pmax_bulk(x), "all-reduce",
+                      lambda: x[0].numel() * x.element_size(), self.axis_size)
 
 
 # ---------------------------------------------------------------------------

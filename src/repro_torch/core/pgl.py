@@ -33,8 +33,16 @@ group's batch slice, and its reduce-scatter is a real reduction. On one
 card the shards share one allocation, so the ZeRO-3 memory saving does not
 show; the gather traffic and the ``R_dp`` transient copies do.
 :func:`dp_view` and :func:`dp_slice` give the dp-stacked and per-group
-views. A dim sharded over the dp and tp axes at once (long-context decode)
-raises ``NotImplementedError``.
+views. Several dp axes (``("pod", "data")``) act as one flattened dp axis,
+pod-major: shard ``pod·n_data + data``, as ``P(("pod", "data"))`` orders it
+in JAX.
+
+A dim sharded over several axes at once — the long-context decode cache,
+whose sequence runs over ``(*dp_axes, tp)`` (ROADMAP A8) — is stored
+stacked over the flattened axes, ``(R_dp·R_tp, *local)``: flat rank ``r``
+holds the ``r``-th contiguous slice of that dim. :func:`stack_axis` names
+the axes a spec's storage stacks over, and every helper here takes a tuple
+of axes wherever it takes one axis.
 """
 
 from __future__ import annotations
@@ -84,24 +92,45 @@ def axes_size(mesh: VirtualMesh | None, axes) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
-def split_dim(spec: P, mesh: VirtualMesh, axis: str) -> int | None:
-    """The dim ``spec`` shards over ``axis`` (None = replicated over it).
-    Entries naming other axes are left to the caller (a dp-sharded dim is
-    sliced per dp group before the tp layout)."""
+def axis_names(axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def split_dim(spec: P, mesh: VirtualMesh, axis) -> int | None:
+    """The dim ``spec`` shards over ``axis`` — one axis name, or a tuple of
+    them flattened in order (None = replicated over it). Entries naming
+    other axes only are left to the caller (a dp-sharded dim is sliced per
+    dp group before the tp layout); an entry that names ``axis`` together
+    with another axis of size > 1, or only some of a tuple ``axis``,
+    raises: that dim is stored over other axes than the island runs on."""
+    want = axis_names(axis)
     hit = None
     for i, entry in enumerate(spec):
         if entry is None:
             continue
-        names = (entry,) if isinstance(entry, str) else tuple(entry)
-        if axis not in names:
+        names = axis_names(entry)
+        if not set(names) & set(want):
             continue
-        for a in names:
-            if a != axis and mesh.shape.get(a, 1) != 1:
-                raise NotImplementedError(
-                    f"dim {i} is sharded over {names} at once: long-context "
-                    "decode over (dp × tp) is ROADMAP item A8")
+        live = tuple(a for a in names
+                     if a in want or mesh.shape.get(a, 1) != 1)
+        if live != want:
+            raise NotImplementedError(
+                f"dim {i} is sharded over {names}; the island runs over "
+                f"{want}")
         hit = i
     return hit
+
+
+def stack_axis(spec: P, mesh: VirtualMesh, tp: str):
+    """The axes a leaf of ``spec`` is stored stacked over: ``tp``, or the
+    whole entry where a dim is sharded over ``tp`` and another axis of size
+    > 1 at once (the long-context cache's ``(*dp_axes, tp)``)."""
+    for entry in spec:
+        if entry is None or isinstance(entry, str) or tp not in entry:
+            continue
+        if any(a != tp and mesh.shape.get(a, 1) != 1 for a in entry):
+            return tuple(entry)
+    return tp
 
 
 def dp_dim(spec: P, dp) -> int | None:
@@ -135,7 +164,7 @@ def dp_view(x: torch.Tensor, dim: int, n_dp: int) -> torch.Tensor:
     return x.unflatten(dim, (n_dp, x.shape[dim] // n_dp)).movedim(dim, 0)
 
 
-def layout(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis: str, *,
+def layout(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis, *,
            lead: int = 0, expand: bool = True) -> torch.Tensor:
     """Global tensor -> stacked layout over ``axis``, by ``spec``.
 
@@ -147,7 +176,7 @@ def layout(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis: str, *,
     re-slice them. A sharded dim becomes a view (``unflatten`` +
     ``movedim``); a replicated tensor is broadcast without a copy
     (``expand``), or left global when ``expand`` is False (storage)."""
-    r = mesh.shape[axis]
+    r = axes_size(mesh, axis)
     if x.dim() == len(spec) + 1:
         if x.shape[lead] != r:
             raise ValueError(f"stacked tensor has {x.shape[lead]} ranks, "
@@ -170,7 +199,7 @@ def layout(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis: str, *,
     return x.unflatten(d, (r, x.shape[d] // r)).movedim(d, lead)
 
 
-def assemble(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis: str, *,
+def assemble(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis, *,
              lead: int = 0) -> torch.Tensor:
     """Stacked -> global tensor, by ``spec`` (the inverse of
     :func:`layout`): a sharded dim is concatenated over the ranks; a
@@ -182,14 +211,14 @@ def assemble(x: torch.Tensor, spec: P, mesh: VirtualMesh, axis: str, *,
     return x.movedim(lead, d).flatten(d, d + 1)
 
 
-def stacked_shape(shape, spec: P, mesh: VirtualMesh, axis: str, *,
+def stacked_shape(shape, spec: P, mesh: VirtualMesh, axis, *,
                   lead: int = 0) -> tuple[int, ...]:
     """Shape of the stored layout of a global ``shape``: stacked when
     ``spec`` shards it over ``axis``, global when it is replicated."""
     d = split_dim(spec, mesh, axis)
     if d is None:
         return tuple(shape)
-    r = mesh.shape[axis]
+    r = axes_size(mesh, axis)
     out = list(shape)
     out[d] //= r
     return (*out[:lead], r, *out[lead:])
@@ -232,9 +261,9 @@ def whole_rows(x: torch.Tensor) -> torch.Tensor:
                         x.storage_offset())
 
 
-def is_split(spec: P, mesh: VirtualMesh | None, axis: str | None) -> bool:
+def is_split(spec: P, mesh: VirtualMesh | None, axis) -> bool:
     """Does ``spec`` shard a dim over ``axis`` on this mesh?"""
-    if mesh is None or axis is None or mesh.shape.get(axis, 1) == 1:
+    if mesh is None or axis is None or axes_size(mesh, axis) == 1:
         return False
     return split_dim(spec, mesh, axis) is not None
 

@@ -27,7 +27,9 @@ gather's autograd backward is the reduce-scatter of the copies' gradients.
 An input stored stacked (a KV cache, a page pool) whose spec shards a dim
 over dp is sliced along that dim after its rank axis, and a
 :class:`Stacked` output is joined there: group g's KV cache rows, or its
-partition of a page pool. An output marked :class:`Summed` is a partial
+partition of a page pool. An island whose axis takes in the dp axes
+(:attr:`Island.spans_dp`) is the exception: it runs once over all their
+ranks. An output marked :class:`Summed` is a partial
 every dp group computes of the whole: the groups' outputs are summed in dp
 order (JAX's ``psum`` / ``psum_scatter`` over the dp axes). Under
 ``RunConfig.comm_policy="measured"`` an island's context dispatches as its
@@ -200,7 +202,9 @@ def fsdp_gather(w: torch.Tensor, spec: P, rules, run, *,
     seen stacked — what ``_col_proj``'s matmul reads in place (it would
     copy a stacked-contiguous one). A leaf stored with padded rows
     (``pgl.aligned_rows``: the head) is gathered with its rows' padding, so
-    that each copy keeps the 16-byte rows the GEMM's tensor maps read."""
+    that each copy keeps the 16-byte rows the GEMM's tensor maps read.
+    Several dp axes gather as one flattened axis, pod-major
+    (``core/pgl.py``)."""
     if rules is None or rules.fsdp_axes is None \
             or spec[dim] != rules.fsdp_axes:
         return None
@@ -208,9 +212,6 @@ def fsdp_gather(w: torch.Tensor, spec: P, rules, run, *,
     n_dp = pgl.axes_size(rules.mesh, f)
     if n_dp == 1:
         return None
-    if not isinstance(f, str):
-        raise NotImplementedError(
-            f"FSDP over several dp axes {f}: the port gathers over one")
     stacked = w.dim() == len(spec) + 1
     sdim = dim + 1 if stacked else dim
     t = pgl.split_dim(spec, rules.mesh, rules.tp) if stacked else None
@@ -221,7 +222,11 @@ def fsdp_gather(w: torch.Tensor, spec: P, rules, run, *,
     whole = sdim != w.dim() - 1 and pgl.padded_rows(w)
     if whole:
         w = _WholeRows.apply(w)
-    out = ctx.all_gather(pgl.dp_view(w, sdim, n_dp), axis=sdim, order=order)
+    # the stacked call stands for one gather a tp rank (a tp-stacked
+    # leaf's slab, or a replicated leaf's copy): the comm trace's lanes
+    r_tp = pgl.axes_size(rules.mesh, rules.tp)
+    out = ctx.all_gather(pgl.dp_view(w, sdim, n_dp), axis=sdim, order=order,
+                         lanes=r_tp, split=r_tp if stacked else 1)
     return out[..., :n] if whole else out
 
 
@@ -492,9 +497,20 @@ class Island:
             _boundary_guard(self.name, arrays, out)
         return out
 
+    @property
+    def spans_dp(self) -> bool:
+        """Does the island's axis take in the dp axes? Then it runs once
+        over all their ranks, not once per dp group: the long-context
+        decode island over ``(*dp_axes, tp)`` (ROADMAP A8), the one island
+        that does."""
+        dp, n_dp = dp_groups(self.rules)
+        if n_dp == 1 or self.axis is None or isinstance(self.axis, str):
+            return False
+        return set(pgl.axis_names(dp)) <= set(self.axis)
+
     def _call(self, arrays):
         dp, n_dp = dp_groups(self.rules)
-        if n_dp == 1:
+        if n_dp == 1 or self.spans_dp:
             return self._run(arrays)
         copies = {}
         for n, g in self.gathers.items():

@@ -93,6 +93,7 @@ from repro_torch.core.comms import \
 from repro_torch.core.schedule import fit_chunks
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import check_tma_operand, plan, sm_count
+from repro_torch.roofline import counters
 
 #: pointer tables are passed to the kernel by value, at most this many ranks
 MAX_RANKS = 8
@@ -153,9 +154,19 @@ def _forward_only(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
             "differentiate")
 
 
+def cost(r: int, m: int, n: int, k: int, out_rows: int,
+         out_elsize: int, elsize: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call over R ranks' (m, k) @ (k, n) products:
+    2·R·m·n·k operations; x and w read once, the (R, out_rows, n) output
+    written once."""
+    return (2 * r * m * n * k,
+            elsize * r * (m * k + k * n) + out_elsize * r * out_rows * n)
+
+
 def _cuda_operands(x: torch.Tensor, w: torch.Tensor, name: str):
-    """The checks every CUDA launch shares; contiguous operands."""
-    if x.device.type != "cuda":
+    """The checks every launch shares, on the card or on ``meta`` (the
+    dry-run describes the card's launch); contiguous operands."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA {name} takes bf16 operands")
@@ -190,6 +201,10 @@ def _reduce(x: torch.Tensor, w: torch.Tensor, gather: bool,
     n = w.shape[2]
     out = torch.empty((r, m if gather else m // r, n), dtype=torch.float32,
                       device=x.device)
+    if x.device.type == "meta":
+        counters.launched("matmul_ar_fused" if gather else "matmul_rs_fused",
+                          int(out.numel() > 0 and k > 0))
+        return out
     if out.numel() == 0:
         return out
     if k == 0:
@@ -212,9 +227,12 @@ def _reduce(x: torch.Tensor, w: torch.Tensor, gather: bool,
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return matmul_ar_plain(x, w)
-    return _reduce(x, w, True, "matmul_ar")
+    r, m, k = x.shape
+    with counters.kernel("matmul_ar_fused", lambda: cost(
+            r, m, w.shape[2], k, m, 4, x.element_size())):
+        if x.device.type == "cpu":
+            return matmul_ar_plain(x, w)
+        return _reduce(x, w, True, "matmul_ar")
 
 
 class _MatmulAR(torch.autograd.Function):
@@ -254,11 +272,23 @@ def ag_matmul_fused(x: torch.Tensor, w: torch.Tensor, *,
     bf16: rank d's gathered rows times w[d]. Forward-only."""
     _check(x, w, n_chunks, "ag_matmul", scatter=False)
     _forward_only(x, w, "ag_matmul_fused")
-    if x.device.type == "cpu":
-        return ag_matmul_plain(x, w)
+    r, m_loc, k = x.shape
+    with counters.kernel("ag_matmul_fused", lambda: cost(
+            r, r * m_loc, w.shape[2], k, r * m_loc, x.element_size(),
+            x.element_size())):
+        if x.device.type == "cpu":
+            return ag_matmul_plain(x, w)
+        return _ag_launch(x, w)
+
+
+def _ag_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x, w = _cuda_operands(x, w, "ag_matmul")
     r, m_loc, k = x.shape
     n = w.shape[2]
+    if x.device.type == "meta":
+        counters.launched("ag_matmul_fused", int(r * m_loc * n > 0
+                                                 and k > 0))
+        return x.new_empty((r, r * m_loc, n))
     for j in range(r):
         check_tma_operand(x[j], "ag_matmul x")
         check_tma_operand(w[j], "ag_matmul w")
@@ -286,9 +316,12 @@ def matmul_rs_fused(x: torch.Tensor, w: torch.Tensor, *,
     o's row block of the product summed over ranks. Forward-only."""
     _check(x, w, n_chunks, "matmul_rs")
     _forward_only(x, w, "matmul_rs_fused")
-    if x.device.type == "cpu":
-        return matmul_rs_plain(x, w)
-    return _reduce(x, w, False, "matmul_rs")
+    r, m, k = x.shape
+    with counters.kernel("matmul_rs_fused", lambda: cost(
+            r, m, w.shape[2], k, m // r, 4, x.element_size())):
+        if x.device.type == "cpu":
+            return matmul_rs_plain(x, w)
+        return _reduce(x, w, False, "matmul_rs")
 
 
 matmul_rs_fused.launches = 0

@@ -65,11 +65,13 @@ import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import H100_SMS, sm_count
+from repro_torch.roofline import counters
 
 NEG_INF = -1e30
 #: head_dims the CUDA kernel is instantiated for; others pad up to one
@@ -314,10 +316,68 @@ def kernel_config(head_dim: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=1024)
+def visible_pairs(sq: int, skv: int, causal: bool, window: int | None,
+                  q_off: int = 0, kv_off: int = 0) -> int:
+    """(query, key) pairs a head attends over: query i at global position
+    ``q_off + i`` sees key j at ``kv_off + j`` iff j < skv and, causal,
+    ``kv_off + j <= q_off + i`` and, windowed, ``kv_off + j > q_off + i -
+    window``."""
+    qi = np.arange(sq, dtype=np.int64) + q_off - kv_off   # in key indices
+    hi = np.minimum(qi + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(qi - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def cost(q_shape, k_shape, causal, window, elsize: int = 2, *, ranks=None,
+         hop: int = 0) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call: 4·D operations a visible (query, key)
+    pair a query head (QKᵀ and PV); q, k, v read once and the output
+    written once — like q for the forward, (o, m, l) in f32 for a hop
+    (``ranks`` given: the hop's global offsets)."""
+    b, hq, sq, d = q_shape
+    hkv, skv = k_shape[1], k_shape[2]
+    if ranks is None:
+        pairs = b * visible_pairs(sq, skv, causal, window)
+        out = b * hq * sq * d * elsize
+    else:
+        rows = b // ranks
+        pairs = rows * sum(visible_pairs(sq, skv, causal, window, r * sq,
+                                         (r - hop) % ranks * skv)
+                           for r in range(ranks))
+        out = b * hq * sq * (d + 2) * 4
+    ins = (b * hq * sq * d + 2 * b * hkv * skv * d) * elsize
+    return 4 * hq * d * pairs, ins + out
+
+
+def _meta_inputs(q, k, v):
+    """The CUDA branch's head-dim padding on ``meta``: (q, k, v, true
+    head_dim, padded width)."""
+    hd = q.shape[3]
+    width = next((w for w in KERNEL_HEAD_DIMS if hd <= w), None)
+    if width is None:
+        raise ValueError(f"head_dim must be at most {KERNEL_HEAD_DIMS[-1]}, "
+                         f"got {hd}")
+    if width != hd:
+        q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
+    return q, k, v, hd, width
+
+
 def _forward(q, k, v, causal, window, scale):
+    with counters.kernel("flash_attention", lambda: cost(
+            q.shape, k.shape, causal, window, q.element_size())):
+        return _forward_on(q, k, v, causal, window, scale)
+
+
+def _forward_on(q, k, v, causal, window, scale):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
+    if q.device.type == "meta":
+        q, k, v, hd, width = _meta_inputs(q, k, v)
+        b, hq, sq, _ = q.shape
+        counters.launched("flash_attention", int(b > 0 and sq > 0))
+        return q.new_empty((b, hq, sq, width))[..., :hd]
     q, k, v, hd, scale, plan = _cuda_inputs(q, k, v, window, scale,
                                             "flash_attention")
     b, hq, sq, width = q.shape
@@ -337,10 +397,24 @@ def _forward(q, k, v, causal, window, scale):
 
 
 def _hop_forward(q, k, v, ranks, hop, causal, window, scale):
+    with counters.kernel("flash_attention_hop", lambda: cost(
+            q.shape, k.shape, causal, window, q.element_size(),
+            ranks=ranks, hop=hop)):
+        return _hop_forward_on(q, k, v, ranks, hop, causal, window, scale)
+
+
+def _hop_forward_on(q, k, v, ranks, hop, causal, window, scale):
     if q.device.type == "cpu":
         return flash_attention_hop_plain(q, k, v, ranks=ranks, hop=hop,
                                          causal=causal, window=window,
                                          scale=scale)
+    if q.device.type == "meta":
+        q, k, v, hd, width = _meta_inputs(q, k, v)
+        b, hq, sq, _ = q.shape
+        o = q.new_empty((b, hq, sq, width), dtype=torch.float32)
+        m = q.new_empty((b, hq, sq), dtype=torch.float32)
+        counters.launched("flash_attention_hop", int(b > 0 and sq > 0))
+        return o[..., :hd], m, torch.empty_like(m)
     q, k, v, hd, scale, plan = _cuda_inputs(q, k, v, window, scale,
                                             "flash_attention_hop")
     b, hq, sq, width = q.shape

@@ -57,6 +57,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import matmul as MM
+from repro_torch.roofline import counters
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, *,
@@ -130,14 +131,31 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def cost(g: int, c: int, n: int, k: int, elsize: int,
+         out_elsize: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call: 2·G·C·N·K operations; x and w read
+    once, the (G, C, N) output written once."""
+    return (2 * g * c * n * k,
+            elsize * (g * c * k + g * k * n) + out_elsize * g * c * n)
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor,
              out_dtype: torch.dtype) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return grouped_matmul_plain(x, w, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"grouped_matmul runs on cpu or cuda, not "
-                         f"{x.device}")
-    return _launch(x, w, out_dtype)
+    g, c, k = x.shape
+    with counters.kernel("grouped_matmul", lambda: cost(
+            g, c, w.shape[2], k, x.element_size(),
+            torch.empty((), dtype=out_dtype).element_size())):
+        if x.device.type == "cpu":
+            return grouped_matmul_plain(x, w, out_dtype=out_dtype)
+        if x.device.type == "meta":
+            out = x.new_empty((g, c, w.shape[2]), dtype=out_dtype)
+            counters.launched("grouped_matmul", int(out.numel() > 0
+                                                    and k > 0))
+            return out
+        if x.device.type != "cuda":
+            raise ValueError(f"grouped_matmul runs on cpu or cuda, not "
+                             f"{x.device}")
+        return _launch(x, w, out_dtype)
 
 
 class _GroupedMatmul(torch.autograd.Function):

@@ -90,7 +90,9 @@ import torch
 from repro_torch.core import pgl
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import H100_SMS, sm_count
-from repro_torch.kernels.pk_comm import _check_cuda, all_gather_plain
+from repro_torch.kernels.pk_comm import (_check_cuda, all_gather_plain,
+                                        copy_cost)
+from repro_torch.roofline import counters
 
 #: the TMA route: bytes a tile (one stage), stages, blocks an SM, the
 #: smallest tile the plan cuts a small shape into; a block is one warp
@@ -220,9 +222,20 @@ def lcsc_ring_all_gather(x: torch.Tensor) -> torch.Tensor:
     if x.dim() < 1:
         raise ValueError("lcsc_ring_all_gather takes a stacked (R, ...) "
                          "tensor")
-    if x.device.type == "cpu":
-        return all_gather_plain(x)
-    _check_cuda(x, "lcsc_ring_all_gather")
+    with counters.kernel("lcsc_ring_all_gather",
+                         lambda: copy_cost(x, x.shape[0] * x.numel())):
+        if x.device.type == "cpu":
+            return all_gather_plain(x)
+        _check_cuda(x, "lcsc_ring_all_gather")
+        if x.device.type == "meta":
+            x = x.contiguous()
+            out = x.new_empty((x.shape[0], *x.shape))
+            counters.launched("lcsc_ring_all_gather", int(out.numel() > 0))
+            return out
+        return _launch(x)
+
+
+def _launch(x: torch.Tensor) -> torch.Tensor:
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError("lcsc_ring_all_gather cannot be captured in a "
                            "CUDA graph: the epoch its flags wait on is "

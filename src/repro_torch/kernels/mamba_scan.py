@@ -90,6 +90,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import H100_SMS, SMEM_LIMIT, sm_count
+from repro_torch.roofline import counters
 
 _TYPES = (torch.float32, torch.bfloat16)
 #: steps a stage holds at most, stages of the staged kernel's ring
@@ -270,11 +271,40 @@ def _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out):
     return y, h_out
 
 
+def cost(b: int, s: int, d: int, n: int, elsize: int, *,
+         backward: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call. The forward: 6 operations a (step,
+    channel, state) — ``dt·a`` (its exponential not counted), the decay,
+    ``dt·x·b``, the add, ``h·c`` and its sum — dt, a, h0 (f32) and x, b, c
+    read once, y and h_last (f32) written once. The backward recomputes the
+    forward and takes as many operations again for the gradients: 12; it
+    reads the forward's inputs and dy (f32) and writes ddt, da (f32) and
+    dx, db, dc."""
+    bsd, bsn, dn = b * s * d, b * s * n, d * n
+    ins = 4 * (bsd + dn + b * dn) + elsize * (bsd + 2 * bsn)
+    if not backward:
+        return 6 * bsd * n, ins + 4 * (bsd + b * dn)
+    return (12 * bsd * n,
+            ins + 4 * bsd + 4 * (bsd + dn) + elsize * (bsd + 2 * bsn))
+
+
 def _scan(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out):
     """The forward on ``dt``'s device: the kernel or the plain version."""
+    with counters.kernel("mamba_scan", lambda: cost(
+            *dt.shape, a.shape[-1], x.element_size())):
+        return _scan_on(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out)
+
+
+def _scan_on(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out):
     dev = dt.device.type
     if dev == "cuda":
         return _launch(dt, b_ssm, c_ssm, x, a, h0, chunk, h_out)
+    if dev == "meta":
+        counters.launched("mamba_scan")
+        if h_out is None:
+            h_out = torch.empty_like(h0,
+                                     memory_format=torch.contiguous_format)
+        return dt.new_empty(dt.shape, dtype=torch.float32), h_out
     if dev != "cpu":
         raise ValueError(f"mamba_scan runs on cpu or cuda, not {dt.device}")
     y, h = mamba_scan_plain(dt, b_ssm, c_ssm, x, a, h0)
@@ -476,13 +506,21 @@ def mamba_scan_bwd(dt, b_ssm, c_ssm, x, a, h0, dy):
     if h0.dim() != 3 or dy.shape != dt.shape:
         raise ValueError(f"mamba_scan_bwd takes h0 (B, D, N) and dy like dt, "
                          f"got {tuple(h0.shape)}, {tuple(dy.shape)}")
-    dev = dt.device.type
-    if dev == "cuda":
-        return _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy)
-    if dev != "cpu":
-        raise ValueError(f"mamba_scan_bwd runs on cpu or cuda, not "
-                         f"{dt.device}")
-    return mamba_scan_bwd_plain(dt, b_ssm, c_ssm, x, a, h0, dy)
+    with counters.kernel("mamba_scan_bwd", lambda: cost(
+            *dt.shape, a.shape[-1], x.element_size(), backward=True)):
+        dev = dt.device.type
+        if dev == "cuda":
+            return _launch_bwd(dt, b_ssm, c_ssm, x, a, h0, dy)
+        if dev == "meta":
+            counters.launched("mamba_scan_bwd")
+            f32 = dict(dtype=torch.float32)
+            return (dt.new_empty(dt.shape, **f32),
+                    *(t.new_empty(t.shape) for t in (b_ssm, c_ssm, x)),
+                    a.new_empty(a.shape[-2:], **f32))
+        if dev != "cpu":
+            raise ValueError(f"mamba_scan_bwd runs on cpu or cuda, not "
+                             f"{dt.device}")
+        return mamba_scan_bwd_plain(dt, b_ssm, c_ssm, x, a, h0, dy)
 
 
 mamba_scan_bwd.launches = 0

@@ -34,7 +34,11 @@ gives the bits of R single launches, and every call the same bits: each
 output element is one block's K loop, in order.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise. Both are ``torch.autograd.Function``s: the
+launch the kernel or raise; on a ``meta`` tensor (the dry-run) they return
+the launch's output without data and record on the counter
+(``roofline/counters.py``) the launches the card would make; ``.launches``
+counts only the card's. Every branch gives the counter the kernel's FLOPs
+and bytes by :func:`cost`. Both are ``torch.autograd.Function``s: the
 kernel (or the plain version) in forward, ``dx = dy @ wᵀ`` and ``dw = xᵀ @
 dy`` with ``torch.matmul`` in backward — the JAX package has no backward
 kernel for it either (XLA transposes the einsum).
@@ -47,6 +51,7 @@ import functools
 
 import torch
 
+from repro_torch.roofline import counters
 from repro_torch.kernels import _build
 
 #: K a stage (``HG_BK`` of csrc/hopper_gemm.cuh): 64 bf16, one 128-byte row
@@ -167,34 +172,71 @@ def _check(x: torch.Tensor, w: torch.Tensor, stacked: bool) -> None:
         raise ValueError("x and w must be on one device")
 
 
+def cost(m: int, n: int, k: int, r: int = 1,
+         elsize: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of x (m, k) against ``r`` slabs (k, n): 2·r·m·n·k
+    operations; x and the slabs read once, the (r, m, n) output written
+    once. The counter (``roofline/counters.py``) takes it on every device."""
+    return (2 * r * m * n * k,
+            elsize * (m * k + r * k * n + r * m * n))
+
+
+def launches(m: int, n: int, k: int, r: int) -> int:
+    """Launches of one call: one for every ``MAX_SLABS`` slabs (the tensor
+    maps a launch takes), none for an empty or K = 0 product."""
+    if m == 0 or n == 0 or r == 0 or k == 0:
+        return 0
+    return _cdiv(r, MAX_SLABS)
+
+
+def _empty_out(x: torch.Tensor, r: int, m: int, n: int) -> torch.Tensor:
+    """The (r, m, n) output, a view of rows padded to 16 bytes."""
+    ldo = _cdiv(n, 8) * 8
+    return torch.empty((r, m, ldo), dtype=x.dtype, device=x.device)[..., :n]
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The kernel over the slabs of w (R, K, N): out (R, M, N) bf16, a view
-    of rows padded to 16 bytes where N is no multiple of 8."""
+    of rows padded to 16 bytes where N is no multiple of 8. More than
+    ``MAX_SLABS`` slabs (16 tp ranks) take one launch a ``MAX_SLABS``; the
+    plan does not depend on the slab count, so the bits do not either."""
     if x.device.type != "cuda":
         raise ValueError(f"matmul runs on cpu or cuda, not {x.device}")
     r, k, n = w.shape
     m = x.shape[0]
-    if r > MAX_SLABS:
-        raise ValueError(f"at most {MAX_SLABS} stacked shards, got {r}")
     check_tma_operand(x, "x")
     for j in range(r):
         check_tma_operand(w[j], "w", ragged=True)
-    ldo = _cdiv(n, 8) * 8
-    out = torch.empty((r, m, ldo), dtype=x.dtype, device=x.device)[..., :n]
+    out = _empty_out(x, r, m, n)
     if m == 0 or n == 0 or r == 0:
         return out
     if k == 0:
         return out.zero_()
-    p = plan(m, n, k, r, sms=sm_count(x.device))
-    err = _build.library().pk_matmul_bf16(
-        x.data_ptr(), x.stride(0),
-        _build.host_table([w[j].data_ptr() for j in range(r)]), r,
-        w.stride(1), _build.host_table([out[j].data_ptr() for j in range(r)]),
-        ldo, m, n, k, p.cfg, p.grid,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "pk_matmul_bf16")
-    matmul.launches += 1
+    p = plan(m, n, k, min(r, MAX_SLABS), sms=sm_count(x.device))
+    for j0 in range(0, r, MAX_SLABS):
+        z = min(MAX_SLABS, r - j0)
+        err = _build.library().pk_matmul_bf16(
+            x.data_ptr(), x.stride(0),
+            _build.host_table([w[j].data_ptr() for j in range(j0, j0 + z)]),
+            z, w.stride(1),
+            _build.host_table([out[j].data_ptr()
+                               for j in range(j0, j0 + z)]),
+            out.stride(1), m, n, k, p.cfg,
+            plan(m, n, k, z, sms=sm_count(x.device)).grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "pk_matmul_bf16")
+        matmul.launches += 1
     return out
+
+
+def _meta(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The launch on ``meta`` (the dry-run): the output the card's launch
+    returns, no data, and the launches the card would make recorded on
+    the counter (``counters.launched``; ``matmul.launches`` counts only the
+    card's)."""
+    r, k, n = w.shape
+    counters.launched("matmul", launches(x.shape[0], n, k, r))
+    return _empty_out(x, r, x.shape[0], n)
 
 
 class _Matmul(torch.autograd.Function):
@@ -203,11 +245,15 @@ class _Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        if x.device.type == "cpu":
-            return matmul_plain(x, w)
-        if w.dim() == 2:
-            return _launch(x, w.unsqueeze(0))[0]
-        return _launch(x, w)
+        r = 1 if w.dim() == 2 else w.shape[0]
+        with counters.kernel("matmul", lambda: cost(
+                x.shape[0], w.shape[-1], x.shape[1], r, x.element_size())):
+            if x.device.type == "cpu":
+                return matmul_plain(x, w)
+            run = _meta if x.device.type == "meta" else _launch
+            if w.dim() == 2:
+                return run(x, w.unsqueeze(0))[0]
+            return run(x, w)
 
     @staticmethod
     def backward(ctx, dy):

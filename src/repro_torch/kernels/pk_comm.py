@@ -130,6 +130,7 @@ from repro_torch.core import pgl
 from repro_torch.core.schedule import a2a_chunk_axis, fit_chunks
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import H100_SMS, SMEM_LIMIT, sm_count
+from repro_torch.roofline import counters
 
 #: pointer tables are passed to the kernels by value, at most this many ranks
 MAX_RANKS = 8
@@ -217,10 +218,19 @@ def _chunks(rows: int, n_chunks: int) -> int:
 
 
 def _check_cuda(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cuda":
+    """The checks of a launch, on the card or on ``meta`` (the dry-run
+    describes the card's launch, its rank limit included)."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
     if x.shape[0] > MAX_RANKS:
         raise ValueError(f"at most {MAX_RANKS} ranks, got {x.shape[0]}")
+
+
+def copy_cost(x: torch.Tensor, out_numel: int,
+              flops: int = 0) -> tuple[int, int]:
+    """(FLOPs, bytes) of a data-movement kernel: x read once, an output of
+    ``out_numel`` elements written once (the counter's rule)."""
+    return flops, (x.numel() + out_numel) * x.element_size()
 
 
 def gathered_empty(x: torch.Tensor, axis: int, order) -> torch.Tensor:
@@ -291,9 +301,16 @@ def all_gather_along(x: torch.Tensor, axis: int, *,
         raise ValueError(f"all_gather_along takes a stacked (R, *local) "
                          f"tensor and a local dim, got {tuple(x.shape)}, "
                          f"axis {axis}")
-    if x.device.type == "cpu":
-        return gather_along_plain(x, axis, order)
-    return _launch_all_gather(x, gathered_empty(x, axis, order), axis)
+    with counters.kernel("ring_all_gather",
+                         lambda: copy_cost(x, x.shape[0] * x.numel())):
+        if x.device.type == "cpu":
+            return gather_along_plain(x, axis, order)
+        out = gathered_empty(x, axis, order)
+        if x.device.type == "meta":
+            _check_cuda(x, "ring_all_gather")
+            counters.launched("ring_all_gather", int(out.numel() > 0))
+            return out
+        return _launch_all_gather(x, out, axis)
 
 
 def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
@@ -304,12 +321,19 @@ def ring_all_gather(x: torch.Tensor, *, n_chunks: int = 1) -> torch.Tensor:
         raise ValueError("ring_all_gather takes a stacked (R, ...) tensor")
     rows = x.shape[1] if x.dim() > 1 else 1
     _chunks(rows, n_chunks)
-    if x.device.type == "cpu":
-        return all_gather_plain(x)
-    flat = x.unsqueeze(1) if x.dim() == 1 else x
-    out = _launch_all_gather(flat, gathered_empty(flat, 0, None), 0)
-    return out.view(x.shape[0], *x.shape) if x.dim() > 1 else \
-        out.view(x.shape[0], x.shape[0])
+    with counters.kernel("ring_all_gather",
+                         lambda: copy_cost(x, x.shape[0] * x.numel())):
+        if x.device.type == "cpu":
+            return all_gather_plain(x)
+        flat = x.unsqueeze(1) if x.dim() == 1 else x
+        out = gathered_empty(flat, 0, None)
+        if x.device.type == "meta":
+            _check_cuda(x, "ring_all_gather")
+            counters.launched("ring_all_gather", int(out.numel() > 0))
+        else:
+            out = _launch_all_gather(flat, out, 0)
+        return out.view(x.shape[0], *x.shape) if x.dim() > 1 else \
+            out.view(x.shape[0], x.shape[0])
 
 
 ring_all_gather.launches = 0
@@ -541,13 +565,20 @@ def ring_reduce_scatter(x: torch.Tensor, *,
                          f"(R, R, ...), got {tuple(x.shape)}")
     rows = x.shape[2] if x.dim() > 2 else 1
     n_chunks = _chunks(rows, n_chunks)
-    if x.device.type == "cpu":
-        return reduce_scatter_plain(x)
-    _check_cuda(x, "ring_reduce_scatter")
-    if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the CUDA reduce-scatter takes float32 or "
-                         f"bfloat16, not {x.dtype}")
-    return _reduce_scatter_cuda(x.contiguous(), n_chunks)
+    r = x.shape[0]
+    with counters.kernel("ring_reduce_scatter", lambda: copy_cost(
+            x, x.numel() // r, (r - 1) * (x.numel() // r))):
+        if x.device.type == "cpu":
+            return reduce_scatter_plain(x)
+        _check_cuda(x, "ring_reduce_scatter")
+        if x.dtype not in _DTYPE_CODE:
+            raise ValueError(f"the CUDA reduce-scatter takes float32 or "
+                             f"bfloat16, not {x.dtype}")
+        if x.device.type == "meta":
+            x = x.contiguous()
+            counters.launched("ring_reduce_scatter")
+            return x.new_empty(x.shape[1:])
+        return _reduce_scatter_cuda(x.contiguous(), n_chunks)
 
 
 def _reduce_scatter_cuda(x: torch.Tensor, n_chunks: int) -> torch.Tensor:
@@ -625,11 +656,20 @@ def p2p_ring_shift(x: torch.Tensor) -> torch.Tensor:
     x[r]``: one hop of the right-going ring, any dtype, bit for bit."""
     if x.dim() < 1:
         raise ValueError("p2p_ring_shift takes a stacked (R, ...) tensor")
-    if x.device.type == "cpu":
-        return ring_shift_plain(x)
-    _check_cuda(x, "p2p_ring_shift")
-    x = x.contiguous()
-    out = torch.empty_like(x)
+    with counters.kernel("p2p_ring_shift",
+                         lambda: copy_cost(x, x.numel())):
+        if x.device.type == "cpu":
+            return ring_shift_plain(x)
+        _check_cuda(x, "p2p_ring_shift")
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        if x.device.type == "meta":
+            counters.launched("p2p_ring_shift", int(x.numel() > 0))
+            return out
+        return _p2p_launch(x, out)
+
+
+def _p2p_launch(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return out
     r = x.shape[0]
@@ -821,10 +861,21 @@ def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int, *,
     shape = a2a_local_shape(x.shape[1:], r, split_axis, concat_axis)
     if n_chunks < 1:
         raise ValueError("n_chunks must be >= 1")
-    if x.device.type == "cpu":
-        return all_to_all_plain(x, split_axis, concat_axis)
-    _check_cuda(x, "all_to_all")
-    out = x.new_empty((r, *shape))
+    with counters.kernel("all_to_all", lambda: copy_cost(x, x.numel())):
+        if x.device.type == "cpu":
+            return all_to_all_plain(x, split_axis, concat_axis)
+        _check_cuda(x, "all_to_all")
+        out = x.new_empty((r, *shape))
+        if x.device.type == "meta":
+            if out.numel():
+                counters.launched("all_to_all", len(a2a_chunks(
+                    x, out, split_axis, concat_axis, n_chunks)))
+            return out
+        return _a2a_launch(x, out, split_axis, concat_axis, n_chunks)
+
+
+def _a2a_launch(x, out, split_axis, concat_axis, n_chunks):
+    r = x.shape[0]
     if out.numel() == 0:
         return out
     lib = _build.library()

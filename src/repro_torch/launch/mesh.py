@@ -1,9 +1,10 @@
 """Mesh construction of the port — the twin of ``repro/launch/mesh.py``.
 
 A mesh here is a ``core.pgl.VirtualMesh``: named axes over virtual ranks
-that share one torch device. ``make_production_mesh`` (JAX's 16 x 16 or
-2 x 16 x 16 slice for the dry-run) is not ported: it comes with the
-dry-run, ROADMAP A14.
+that share one torch device. ``make_production_mesh`` gives JAX's 16 x 16
+slice or its 2 x 16 x 16 two-pod slice; the dry-run
+(``launch/dryrun.py``) builds it on the ``meta`` device, where its 256 or
+512 ranks allocate nothing.
 """
 
 from __future__ import annotations
@@ -11,6 +12,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.pgl import VirtualMesh
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> VirtualMesh:
+    """JAX's production slice: (16, 16) over ("data", "model"), or with
+    ``multi_pod`` (2, 16, 16) over ("pod", "data", "model")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return VirtualMesh(shape, axes, device)
 
 
 def make_mesh(shape, axes, device="cpu") -> VirtualMesh:

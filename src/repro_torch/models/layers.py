@@ -234,7 +234,7 @@ def _mix(q, k, v, *, causal, window):
     card at every length; on the CPU its plain version, or
     :func:`_chunked_attention` at kv lengths >= ``XLA_ATTN_CHUNK_THRESHOLD``
     (where JAX leaves the full scores)."""
-    if not q.is_cuda and k.shape[2] >= XLA_ATTN_CHUNK_THRESHOLD:
+    if q.device.type == "cpu" and k.shape[2] >= XLA_ATTN_CHUNK_THRESHOLD:
         return _chunked_attention(q, k, v, causal=causal, window=window)
     return flash_attention(q, k, v, causal=causal, window=window)
 
@@ -479,10 +479,15 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
     (B,) vector (the engine's pool). ``quant``: the cache is int8 with
     per-(token, head) f32 scale planes (``cache_ks``/``cache_vs`` inputs,
     stored like the cache) — the new token is quantized before its write
-    and the whole cache dequantized for the mix, as in JAX."""
-    if long_ctx:
-        raise NotImplementedError(
-            "long-context decode over (dp × tp) is ROADMAP item A8")
+    and the whole cache dequantized for the mix, as in JAX.
+
+    ``long_ctx`` (ROADMAP A8; JAX's long_500k cell): the cache's sequence
+    is sharded over ``(*dp_axes, tp)`` at once, and the island runs ONCE
+    over all those ranks (``Island.spans_dp``), not once per dp group:
+    flat rank r holds positions r·s_loc … (r+1)·s_loc − 1, writes the new
+    token where it falls in that range, and the log-sum-exp merge runs
+    over every rank. q, the new K/V and the batch are replicated over dp,
+    as in JAX."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     vec = torch.is_tensor(pos) and pos.dim() > 0
 
@@ -510,9 +515,10 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
     if rules is None:
         return Island("decode_attn", run=run, reference=reference)
     tp = rules.tp
-    cache_spec = rules.kv_cache(hkv, b)
+    axis = (*run.dp_axes, tp) if long_ctx else tp
+    cache_spec = rules.kv_cache(hkv, b, long_ctx=long_ctx)
     scale_spec = P(*cache_spec[:3])
-    bspec = rules.dim(b, rules.dp)
+    bspec = None if long_ctx else rules.dim(b, rules.dp)
     qspec = P(bspec, None, None, None)
 
     def body(ctx, q, cache_k, cache_v, k_new, v_new, **kw):
@@ -557,12 +563,12 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
     if vec:
         inputs["pos"] = P(bspec)
     return Island(
-        "decode_attn", rules=rules, run=run, axis=tp, fallback_axes=tp,
+        "decode_attn", rules=rules, run=run, axis=axis, fallback_axes=axis,
         inputs=inputs,
         out_specs=outs,
         body=body, reference=reference,
         enable=run.decode_seq_shard,
-        divisible=((s_max, tp),),
+        divisible=((s_max, axis),),
         comm=Comm("psum", backend="bulk", n_chunks=1,
                   payload_bytes=2 * b * hq * hd * 4))
 
@@ -603,7 +609,8 @@ def cross_decode_island(cfg: ArchConfig, run: RunConfig,
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ArchConfig,
                      run: RunConfig, rules: ShardingRules | None, *,
-                     cross_kv=None, k_scale=None, v_scale=None):
+                     cross_kv=None, long_ctx: bool = False, k_scale=None,
+                     v_scale=None):
     """One-token decode with KV cache. x: (B, 1, d); cache_k/v: global
     (B, Hkv, S_max, hd), or stacked per rank when sequence-sharded; pos:
     scalar or per-slot (B,). Returns (out (B, 1, d), new_k, new_v).
@@ -613,7 +620,9 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ArchConfig,
     returning (out, None, None). int8 mode (``k_scale``/``v_scale``, the
     per-(token, head) scale planes stored like the cache): the new token
     is quantized on write, the cache dequantized on read, and the return
-    grows to (out, new_k, new_v, new_k_scale, new_v_scale)."""
+    grows to (out, new_k, new_v, new_k_scale, new_v_scale). ``long_ctx``:
+    the cache is sequence-sharded over the dp and tp axes at once
+    (:func:`decode_island`)."""
     b, _, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _col_proj(x, p["wq"]).reshape(b, 1, hq, hd).transpose(1, 2)
@@ -637,9 +646,10 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ArchConfig,
     quant = k_scale is not None
     scales = ()
     if rules is not None and run.decode_seq_shard:
-        s_max = cache_k.shape[-2] * (rules.mesh.shape[rules.tp]
+        # a stacked cache holds its ranks' slices on dim 0
+        s_max = cache_k.shape[-2] * (cache_k.shape[0]
                                      if cache_k.dim() == 5 else 1)
-        island = decode_island(cfg, run, rules, b, s_max, long_ctx=False,
+        island = decode_island(cfg, run, rules, b, s_max, long_ctx=long_ctx,
                                pos=pos, kv_len=kv_len, window=window,
                                quant=quant)
         kw = {"pos": pos} if vec else {}

@@ -80,13 +80,14 @@ class ShardingRules:
         return P(self.dim(batch, self.dp), self.tp, None)
 
     def kv_cache(self, n_kv: int, batch: int, *, long_ctx: bool = False) -> P:
-        """(B, Hkv, S_max, hd): batch over dp, seq over tp."""
-        if long_ctx:
-            raise NotImplementedError(
-                "long-context decode over (dp × tp) is ROADMAP item A8")
+        """(B, Hkv, S_max, hd): batch over dp, seq over tp; with
+        ``long_ctx`` (long_500k, batch 1) seq over the dp and tp axes at
+        once, flattened dp-major (ROADMAP A8)."""
         if not self.run.decode_seq_shard:
             return P(self.dim(batch, self.dp), self.dim(n_kv, self.tp),
                      None, None)
+        if long_ctx:
+            return P(None, None, (*self.run.dp_axes, self.tp), None)
         return P(self.dim(batch, self.dp), None, self.tp, None)
 
     def kv_pool(self, batch: int) -> P:

@@ -28,16 +28,21 @@ cache's state ``h`` is stacked (R, B, di/R, N) and goes to the kernel as
 it is; the conv tail (R, B, ck-1, di/R) is small and is reassembled
 (``pgl.assemble`` / ``pgl.layout``).
 
-Not ported: the bf16 scan dtype (``run.ssm_scan_dtype="bfloat16"``, ROADMAP
-A10e), which only the forward without a cache reads — there JAX rounds
-the associative scan's terms to bf16 in XLA's tree order, which a
-sequential kernel cannot reproduce, so that forward raises — and
-sequence-parallel SSM in the model (A10d; its state ring,
+``run.ssm_scan_dtype="bfloat16"`` (ROADMAP A10e), which only the forward
+without a cache reads, runs JAX's bf16 chunked scan in plain torch
+(:func:`selective_scan_chunked_bf16`): JAX runs that path in XLA, not in
+Pallas, and rounds ``a_bar``, ``bx`` and the ``h·c`` operands to bf16
+inside ``lax.associative_scan``, whose odd/even recursion
+:func:`associative_scan` copies so that the roundings fall on the same
+terms; the cross-chunk carry stays f32. The f32 default runs the kernel.
+Sequence-parallel SSM in the model (A10d) needs no port: its state ring,
 ``core/ring_attention.ssm_entry_states``, is ported, and no model calls
-it, in JAX either).
+it, in JAX either.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +67,71 @@ def _causal_conv1d(x, w, b):
     return out + b
 
 
+def associative_scan(fn, elems, dim: int):
+    """``lax.associative_scan(fn, elems, axis=dim)`` for a tuple of
+    tensors: JAX's odd/even recursion, step for step — adjacent pairs
+    combined, the odd results scanned by recursion, the even ones combined
+    from them, then interleaved — so that a rounding ``fn`` rounds the same
+    partial products as JAX's does."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(t, start, stop=None, step=1):
+        return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+    reduced = fn(tuple(sl(e, 0, n - 1, 2) for e in elems),
+                 tuple(sl(e, 1, None, 2) for e in elems))
+    odd = associative_scan(fn, reduced, dim)
+    if n % 2 == 0:
+        even = fn(tuple(sl(e, 0, -1) for e in odd),
+                  tuple(sl(e, 2, None, 2) for e in elems))
+    else:
+        even = fn(odd, tuple(sl(e, 2, None, 2) for e in elems))
+    even = tuple(torch.cat([sl(e, 0, 1), r], dim=dim)
+                 for e, r in zip(elems, even))
+    out = []
+    for ev, od in zip(even, odd):                # interleave along dim
+        full = ev.new_empty(*ev.shape[:dim], n, *ev.shape[dim + 1:])
+        full[(slice(None),) * dim + (slice(0, None, 2),)] = ev
+        full[(slice(None),) * dim + (slice(1, None, 2),)] = od
+        out.append(full)
+    return tuple(out)
+
+
+def selective_scan_chunked_bf16(dt, b_ssm, c_ssm, x_conv, a, d_skip, h0, *,
+                                chunk: int = 256):
+    """JAX's ``selective_scan_chunked`` with ``scan_dtype=bfloat16`` in
+    plain torch, with the ``x·D`` skip: a chunk's ``a_bar = exp(dt·a)`` and
+    ``bx = dt·b·x`` rounded to bf16, the affine composition scanned in bf16
+    by :func:`associative_scan`, ``h = aa·h_carry + bb`` in f32, then
+    ``y = Σ_n bf16(h)·bf16(c)`` accumulated in f32. The carry between
+    chunks stays f32. Returns (y (B, S, di) f32, h_last (B, di, N) f32)."""
+    b, s, di = dt.shape
+    if s % chunk != 0:
+        chunk = s
+    bf = torch.bfloat16
+
+    def comb(u, v):        # (a, b)∘(a', b') = (a'a, a'b + b'), in bf16
+        return (u[0] * v[0], v[0] * u[1] + v[1])
+
+    h = h0
+    ys = []
+    for c0 in range(0, s, chunk):
+        dt_i, b_i, c_i, x_i = (t[:, c0:c0 + chunk]
+                               for t in (dt, b_ssm, c_ssm, x_conv))
+        a_bar = torch.exp(dt_i.float()[..., None] * a).to(bf)
+        bx = (dt_i[..., None] * b_i[:, :, None, :]
+              * x_i[..., None]).to(bf)                    # (B, c, di, N)
+        aa, bb = associative_scan(comb, (a_bar, bx), 1)
+        h_all = aa.float() * h[:, None] + bb.float()
+        y_i = torch.einsum("bsdn,bsn->bsd", h_all.to(bf).float(),
+                           c_i.to(bf).float())
+        ys.append(y_i + x_i.float() * d_skip)
+        h = h_all[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
 def selective_scan_chunked(dt, b_ssm, c_ssm, x_conv, a, d_skip, h0, *,
                            chunk: int = 256,
                            h_out: torch.Tensor | None = None):
@@ -81,12 +151,15 @@ def selective_scan_chunked(dt, b_ssm, c_ssm, x_conv, a, d_skip, h0, *,
 
 def mamba_mix(p, x, cfg: ArchConfig, *, h0=None, conv_state=None,
               chunk: int = 256, return_state: bool = False,
-              h_out: torch.Tensor | None = None):
+              h_out: torch.Tensor | None = None,
+              scan_dtype: str = "float32"):
     """Core mamba mixing. x: (B, S, di) (post in_proj split, pre conv).
 
     p: {"conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log", "D"},
     global or stacked per rank. ``conv_state`` is the global (B, ck-1, di)
-    tail. Returns y (B, S, di) [+ (h_last, conv_tail) if return_state]."""
+    tail. ``scan_dtype="bfloat16"`` scans with bf16 terms
+    (:func:`selective_scan_chunked_bf16`). Returns y (B, S, di) [+
+    (h_last, conv_tail) if return_state]."""
     b, s, di = x.shape
     n = cfg.ssm_state
     conv_w, conv_b = _row_weight(p["conv_w"]), _row_weight(p["conv_b"], 1)
@@ -106,9 +179,10 @@ def mamba_mix(p, x, cfg: ArchConfig, *, h0=None, conv_state=None,
 
     if h0 is None:
         h0 = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-    y, h_last = selective_scan_chunked(
-        dt, b_ssm, c_ssm, x_conv, a, _row_weight(p["D"], 1).float(), h0,
-        chunk=chunk, h_out=h_out)
+    scan = (selective_scan_chunked_bf16 if scan_dtype == "bfloat16"
+            else functools.partial(selective_scan_chunked, h_out=h_out))
+    y, h_last = scan(dt, b_ssm, c_ssm, x_conv, a,
+                     _row_weight(p["D"], 1).float(), h0, chunk=chunk)
     y = y.to(x.dtype)
     if return_state:
         ck = conv_w.shape[1]
@@ -126,20 +200,17 @@ def mamba_block(p, x, cfg: ArchConfig, run: RunConfig,
     """Full mamba block: in_proj -> conv/SSM mix -> gate -> out_proj.
 
     Without a cache (a whole sequence from a zero state: training and
-    ``forward_prefill``) returns (out, None). With ``cache = (h, conv)``
+    ``forward_prefill``) returns (out, None), scanning in
+    ``run.ssm_scan_dtype``. With ``cache = (h, conv)``
     in the serving cache's layout returns (out, (h_last, conv_tail)) in
     that layout; the new state is written into ``h_out`` when one is
     given."""
     di = cfg.d_inner
-    if cache is None and run.ssm_scan_dtype != "float32":
-        raise NotImplementedError(
-            f"ssm_scan_dtype={run.ssm_scan_dtype!r}: the bf16 scan terms of "
-            "JAX's associative scan are ROADMAP item A10e; the port scans "
-            "in float32")
     xz = project(x, p["in_proj"], 2 * di, rules, run)
     x_ssm, z = xz.split(di, dim=-1)
     if cache is None:
-        y = mamba_mix(p, x_ssm, cfg, chunk=run.ssm_chunk)
+        y = mamba_mix(p, x_ssm, cfg, chunk=run.ssm_chunk,
+                      scan_dtype=run.ssm_scan_dtype)
         new_cache = None
     else:
         h, conv = cache

@@ -212,16 +212,22 @@ def to_stored(x: torch.Tensor, pd: PD, rules: ShardingRules | None):
     """A global tensor in its stored layout (stacked when sharded; rows of
     16 bytes where ``pd.aligned``)."""
     if rules is not None:
-        x = pgl.layout(x, pd.spec, rules.mesh, rules.tp,
+        x = pgl.layout(x, pd.spec, rules.mesh, stack_axis(pd, rules),
                        lead=int(pd.periods), expand=False).contiguous()
     return pgl.aligned_rows(x) if pd.aligned else x
+
+
+def stack_axis(pd: PD, rules: ShardingRules):
+    """The axes ``pd``'s storage is stacked over: tp, or the long-context
+    cache's ``(*dp_axes, tp)`` (``pgl.stack_axis``)."""
+    return pgl.stack_axis(pd.spec, rules.mesh, rules.tp)
 
 
 def stored_shape(pd: PD, rules: ShardingRules | None) -> tuple[int, ...]:
     if rules is None:
         return pd.shape
-    return pgl.stacked_shape(pd.shape, pd.spec, rules.mesh, rules.tp,
-                             lead=int(pd.periods))
+    return pgl.stacked_shape(pd.shape, pd.spec, rules.mesh,
+                             stack_axis(pd, rules), lead=int(pd.periods))
 
 
 # elements of one f32 draw in init_params (256 MiB): a leaf is drawn in
@@ -285,8 +291,8 @@ def zeros(template, rules: ShardingRules | None, device) -> dict:
 
 def cache_template(cfg: ArchConfig, run: RunConfig,
                    rules: ShardingRules | None, *, batch: int, s_max: int,
-                   enc_len: int = 0, slot_pos: bool = False,
-                   kv_dtype: str = "bf16") -> dict:
+                   enc_len: int = 0, long_ctx: bool = False,
+                   slot_pos: bool = False, kv_dtype: str = "bf16") -> dict:
     """Slab decode cache: per layer period (np, B, Hkv, S_max, hd) K and V
     (sequence-sharded over tp with a mesh) for attention layers, the f32
     state ``h`` (np, B, di, N) and conv tail (np, B, ck-1, di) (di over tp)
@@ -301,12 +307,14 @@ def cache_template(cfg: ArchConfig, run: RunConfig,
     ``kv_dtype="int8"`` stores K and V as int8 and adds the per-(token,
     head) f32 scale planes ``k_scale``/``v_scale`` (np, B, Hkv, S_max),
     stored as the K/V they scale are: stacked when those are, global when
-    head-sharded. ``"bf16"`` keeps the tree as it was."""
+    head-sharded. ``"bf16"`` keeps the tree as it was. ``long_ctx``
+    shards K, V and the scale planes' sequence over ``(*dp_axes, tp)`` at
+    once, stored stacked over those flattened ranks (ROADMAP A8)."""
     dt = DTYPES[cfg.dtype]
     kv_dt = {"bf16": dt, "int8": torch.int8}[kv_dtype]
     hkv, hd = cfg.n_kv_heads, cfg.hd
     bspec = rules.dim(batch, rules.dp) if rules else None
-    kv_spec = (rules.kv_cache(hkv, batch)
+    kv_spec = (rules.kv_cache(hkv, batch, long_ctx=long_ctx)
                if rules is not None and run.decode_seq_shard
                else P(bspec, None, None, None))
     tree: dict[str, Any] = {
@@ -554,9 +562,6 @@ def forward_train(params, batch, cfg: ArchConfig, run: RunConfig,
     Ulysses attention (``run.sp_attention``) over the tp axis (the SP
     island), as in JAX; JAX's launcher never sets it, and neither does the
     port's."""
-    if "lm_head" not in params and rules is not None:
-        raise NotImplementedError(
-            "tied embeddings on a mesh: the port's head is stored untied")
     x, aux = _hidden_states(params, batch, cfg, run, rules,
                             seq_sharded=seq_sharded)
     head = params["lm_head"] if "lm_head" in params else _head(params)
@@ -580,9 +585,13 @@ def forward_prefill(params, batch, cfg: ArchConfig, run: RunConfig,
 # ---------------------------------------------------------------------------
 
 def _head(params) -> torch.Tensor:
+    """The LM head: ``lm_head``, or with tied embeddings the embedding's
+    transpose, as JAX's ``params["embed"].T`` — on a mesh the embed's
+    tp-stacked (R, V/R, d), spec ``P(tpv, fs)``, seen as (R, d, V/R), the
+    head's ``P(fs, tpv)`` layout — in rows of 16 bytes."""
     if "lm_head" in params:
         return params["lm_head"]
-    return pgl.aligned_rows(L._row_weight(params["embed"]).T)
+    return pgl.aligned_rows(params["embed"].transpose(-2, -1))
 
 
 def _ffn(bp, li, x, cfg: ArchConfig, run: RunConfig, rules):
@@ -654,7 +663,7 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
 
 
 def _decode(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
-            rules, cross=None, page_size: int = 0):
+            rules, cross=None, page_size: int = 0, long_ctx: bool = False):
     pos = cache["pos"]
     bt = cache.get("block_tables")
     if bt is not None and not page_size:
@@ -668,7 +677,7 @@ def _decode(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
                                             page_size=page_size,
                                             **_kv_args(kv))
         return L.decode_attention(a, xn, kv["k"], kv["v"], pos, cfg, run,
-                                  rules, **_kv_args(kv))
+                                  rules, long_ctx=long_ctx, **_kv_args(kv))
 
     x, new_blocks = _serve_blocks(params, cache, x, cfg, run, rules, attend,
                                   cross)
@@ -683,14 +692,17 @@ def _decode(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
 
 
 def decode_step(params, cache, tokens, cfg: ArchConfig, run: RunConfig,
-                rules: ShardingRules | None, *, page_size: int = 0):
+                rules: ShardingRules | None, *, page_size: int = 0,
+                long_ctx: bool = False):
     """One decode step. tokens: (B, 1) int. Returns (logits (B, 1, V) f32,
     new_cache) with ``pos`` advanced by one (a ``cross`` entry passes
     through unused, as in JAX). A cache carrying ``block_tables`` (the
     paged layout, ``runtime/paging.py``) attends through the paged
-    islands over pages of ``page_size`` tokens."""
+    islands over pages of ``page_size`` tokens. ``long_ctx``: the cache of
+    ``cache_template(long_ctx=True)``, sequence-sharded over the dp and tp
+    axes at once (ROADMAP A8, JAX's long_500k cell)."""
     return _decode(params, cache, tokens, cfg, run, rules,
-                   page_size=page_size)
+                   page_size=page_size, long_ctx=long_ctx)
 
 
 def decode_step_encdec(params, cache, tokens, cfg: ArchConfig,

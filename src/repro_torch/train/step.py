@@ -111,12 +111,15 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
 
 
 def make_serve_step(cfg: ArchConfig, run: RunConfig,
-                    rules: ShardingRules | None, *, page_size: int = 0):
+                    rules: ShardingRules | None, *, page_size: int = 0,
+                    long_ctx: bool = False):
     """serve_step(params, cache, tokens) -> (logits, cache): one new token
     against a pre-filled KV cache (for an encoder-decoder also the
     encoder's K/V in ``cache["cross"]``: ``decode_step_encdec``).
     ``page_size`` > 0: the cache is a page pool of ``page_size``-token
-    pages (``runtime/paging.py``)."""
+    pages (``runtime/paging.py``). ``long_ctx``: the cache is
+    sequence-sharded over the dp and tp axes at once (the long_500k
+    cell)."""
     if cfg.encoder_decoder:
         def serve_step(params, cache, tokens):
             return T.decode_step_encdec(params, cache, tokens, cfg, run,
@@ -125,7 +128,7 @@ def make_serve_step(cfg: ArchConfig, run: RunConfig,
 
     def serve_step(params, cache, tokens):
         return T.decode_step(params, cache, tokens, cfg, run, rules,
-                             page_size=page_size)
+                             page_size=page_size, long_ctx=long_ctx)
     return serve_step
 
 

@@ -59,12 +59,15 @@ def test_matmul_kernel(cuda, m, k, n):
 @pytest.mark.parametrize("m,k,n,r", [(8, 2048, 8000, 4), (1024, 2048, 8000, 4),
                                      (65, 264, 136, 3), (1, 40, 72, 8),
                                      (200, 40, 72, 2), (8, 1024, 12967, 4),
-                                     (3, 40, 13, 2)])
+                                     (3, 40, 13, 2), (8, 2048, 8000, 16),
+                                     (65, 264, 136, 11)])
 def test_matmul_stacked_kernel_equals_single_launches(cuda, m, k, n, r):
     """One launch over R stacked shards gives the bits of R launches, and a
     second call the same bits; a row length N that is no multiple of 8
     (whisper's vocab shard, 12967 columns) takes w stored in rows padded
-    to 16 bytes, as the head is, and gives a view of padded rows."""
+    to 16 bytes, as the head is, and gives a view of padded rows. More
+    than ``MAX_SLABS`` (8) shards — 16 tp ranks, or an uneven 11 — take
+    one launch a ``MAX_SLABS``, with the same bits."""
     from repro_torch.core import pgl
     from repro_torch.kernels import matmul as MM
     x = _randn(cuda, m, k, seed=1)
@@ -72,7 +75,7 @@ def test_matmul_stacked_kernel_equals_single_launches(cuda, m, k, n, r):
     before = MM.matmul.launches
     got = MM.matmul_stacked(x, w)
     torch.cuda.synchronize()
-    assert MM.matmul.launches == before + 1
+    assert MM.matmul.launches == before + -(-r // MM.MAX_SLABS)
     assert got.shape == (r, m, n) and got.dtype == torch.bfloat16
     assert got.stride(-2) == -(-n // 8) * 8
     assert _rel(got, MM.matmul_stacked_plain(x, w)) <= 1e-2

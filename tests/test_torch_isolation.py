@@ -25,7 +25,10 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 for name in ("chip_smoke", "repro_torch.launch.serve",
-             "repro_torch.kernels._build"):
+             "repro_torch.kernels._build", "repro_torch.launch.dryrun",
+             "repro_torch.launch.specs", "repro_torch.roofline.counters",
+             "repro_torch.roofline.hlo", "repro_torch.roofline.model",
+             "repro_torch.roofline.report"):
     assert name in sys.modules, name
 bad = sorted(n for n in sys.modules
              if n in ("jax", "jaxlib", "repro")

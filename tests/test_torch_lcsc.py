@@ -49,8 +49,18 @@ def test_lcsc_plain_matches_pallas_kernel(r, shape, dtype):
 
 
 def test_lcsc_refuses_other_devices():
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        LC.lcsc_ring_all_gather(torch.empty(2, 4, device="meta"))
+    # meta is the dry-run's device: the card's output, its launch recorded
+    # on the counter (``.launches`` counts the card's alone), no data, and
+    # the card's rank limit
+    from repro_torch.roofline import counters
+    n = LC.lcsc_ring_all_gather.launches
+    with counters.StepCounter("meta") as c:
+        out = LC.lcsc_ring_all_gather(torch.empty(2, 4, device="meta"))
+    assert out.shape == (2, 2, 4) and out.is_meta
+    assert dict(c.launches) == {"lcsc_ring_all_gather": 1}
+    assert LC.lcsc_ring_all_gather.launches == n
+    with pytest.raises(ValueError, match="at most"):
+        LC.lcsc_ring_all_gather(torch.empty(9, 4, device="meta"))
     with pytest.raises(ValueError, match="stacked"):
         LC.lcsc_ring_all_gather(torch.tensor(1.0))
 

@@ -180,11 +180,24 @@ def test_ctx_gather_scatter_resolution_and_guards():
 
 
 def test_fused_wrappers_refuse_other_devices():
+    # meta is the dry-run's device: the card's output, its launches
+    # recorded on the counter (``.launches`` counts the card's alone), no
+    # data, and the card's rank limit
+    from repro_torch.roofline import counters
     x = torch.ones(2, 4, 8, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        PK.ring_all_gather(x)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        PK.ring_reduce_scatter(torch.ones(2, 2, 4, device="meta"))
+    n_ag, n_rs = PK.ring_all_gather.launches, PK.ring_reduce_scatter.launches
+    with counters.StepCounter("meta") as c:
+        assert PK.ring_all_gather(x).shape == (2, 2, 4, 8)
+        assert PK.ring_reduce_scatter(
+            torch.ones(2, 2, 4, device="meta")).shape == (2, 4)
+    assert dict(c.launches) == {"ring_all_gather": 1,
+                                "ring_reduce_scatter": 1}
+    assert (PK.ring_all_gather.launches, PK.ring_reduce_scatter.launches) \
+        == (n_ag, n_rs)
+    with pytest.raises(ValueError, match="at most"):
+        PK.ring_all_gather(torch.ones(9, 4, 8, device="meta"))
+    with pytest.raises(ValueError, match="at most"):
+        PK.ring_reduce_scatter(torch.ones(9, 9, 4, device="meta"))
     with pytest.raises(ValueError, match="n_chunks"):
         PK.ring_all_gather(torch.ones(2, 4), n_chunks=0)
 

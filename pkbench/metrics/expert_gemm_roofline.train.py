@@ -1,0 +1,10 @@
+"""Percent: the routed experts' grouped GEMM's roofline bound over its
+device time in a training window."""
+
+from pkbench.harness.readers import roofline_share
+
+
+def read(record):
+    if record["mode"] != "train":
+        return None
+    return roofline_share(record, only=("grouped_gemm",))

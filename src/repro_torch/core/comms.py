@@ -70,7 +70,11 @@ dry-run prices: the collective's kind, a rank's output bytes in the wire's
 dtype, the group size — and, when its output takes a gradient, the
 transposed collective its backward runs (an all-gather's reduce-scatter
 and back; all-reduce, all-to-all and permute their own kind). Nothing is
-recorded without a counter.
+recorded without a counter. While an engine step is traced
+(``core/trace.py``) every op is the span ``comm.<op>.<backend>``, opened
+once its backend is resolved, and adds the same output bytes to the
+counter ``comm.<op>.bytes``; a fused GEMM+collective's span holds its
+GEMM.
 
 ``CommContext.fault`` is the scripted payload fault of
 ``runtime/health.py``: a ``(kind, hop)`` pair that NaNs the rings' hop
@@ -89,7 +93,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import costmodel as cm
-from repro_torch.core import pgl
+from repro_torch.core import pgl, trace
 from repro_torch.core.quant import (WireFormat, dequantize_add,
                                     dequantize_blocks, quantize_blocks,
                                     resolve_wire, tree_map)
@@ -161,6 +165,17 @@ def _trace(out: torch.Tensor, kind: str, nbytes, n: int,
     back = {"all-gather": out_bytes / n,
             "reduce-scatter": out_bytes * n}.get(kind, out_bytes)
     return _Transposed.apply(out, (_TRANSPOSE[kind], back, n, lanes))
+
+
+def _span(op: str, be: str, nbytes):
+    """The op's span ``comm.<op>.<backend>`` (``core/trace.py``) and its
+    counter ``comm.<op>.bytes``, a rank's output bytes by the comm trace's
+    ``nbytes``; without tracing the shared null context, ``nbytes`` not
+    called."""
+    if not trace.tracing():
+        return trace.IDLE
+    trace.count(f"comm.{op}.bytes", nbytes())
+    return trace.span("comm", op, be)
 
 
 def _wire_elem_bytes(x: torch.Tensor, fmt, be: str) -> float:
@@ -483,23 +498,26 @@ class CommContext:
                 constraint="at least 2 local rows to split across the two "
                            "ring directions (m_loc >= 2)",
                 fallback="ring")
-        x = _trace(x, "all-gather", lambda: n_dev * m_loc * k
-                   * _wire_elem_bytes(x, fmt, be), n_dev)
-        if be == "bulk":
-            return all_gather_matmul_baseline(x, w)
-        sched = self.gemm_chunk_schedule(
-            "all_gather_matmul", m_loc * n_dev, n_out, k, backend=be,
-            dtype_bytes=dtype_bytes, n_chunks=n_chunks, chunk_dim=chunk_dim,
-            wire=fmt)
-        if be in ("ring", "ring_bidir"):
-            return pk_all_gather_matmul(x, w,
-                                        bidirectional=(be == "ring_bidir"),
-                                        n_chunks=sched.n_chunks,
-                                        chunk_dim=sched.chunk_dim, wire=fmt,
-                                        fault=self.fault)
-        from repro_torch.kernels import collective_matmul
-        return collective_matmul.ag_matmul_fused(
-            x, w, n_chunks=sched.n_chunks).to(x.dtype)
+
+        def nbytes():
+            return n_dev * m_loc * k * _wire_elem_bytes(x, fmt, be)
+
+        x = _trace(x, "all-gather", nbytes, n_dev)
+        with _span("all_gather_matmul", be, nbytes):
+            if be == "bulk":
+                return all_gather_matmul_baseline(x, w)
+            sched = self.gemm_chunk_schedule(
+                "all_gather_matmul", m_loc * n_dev, n_out, k, backend=be,
+                dtype_bytes=dtype_bytes, n_chunks=n_chunks,
+                chunk_dim=chunk_dim, wire=fmt)
+            if be in ("ring", "ring_bidir"):
+                return pk_all_gather_matmul(
+                    x, w, bidirectional=(be == "ring_bidir"),
+                    n_chunks=sched.n_chunks, chunk_dim=sched.chunk_dim,
+                    wire=fmt, fault=self.fault)
+            from repro_torch.kernels import collective_matmul
+            return collective_matmul.ag_matmul_fused(
+                x, w, n_chunks=sched.n_chunks).to(x.dtype)
 
     def matmul_reduce_scatter(self, x: torch.Tensor, w: torch.Tensor, *,
                               backend: str | None = None,
@@ -530,10 +548,14 @@ class CommContext:
             be = self._shape_guard(
                 "matmul_reduce_scatter", be, backend, ok=(m % n_dev == 0),
                 constraint="m divisible by the axis size")
-        out = self._gemm_rs(x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
-                            n_chunks, chunk_dim)
-        return _trace(out, "reduce-scatter", lambda: m // n_dev * n_out
-                      * _wire_elem_bytes(x, fmt, be), n_dev)
+
+        def nbytes():
+            return m // n_dev * n_out * _wire_elem_bytes(x, fmt, be)
+
+        with _span("matmul_reduce_scatter", be, nbytes):
+            out = self._gemm_rs(x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
+                                n_chunks, chunk_dim)
+        return _trace(out, "reduce-scatter", nbytes, n_dev)
 
     def _gemm_rs(self, x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
                  n_chunks, chunk_dim):
@@ -579,10 +601,14 @@ class CommContext:
             be = self._shape_guard(
                 "matmul_all_reduce", be, backend, ok=(m % n_dev == 0),
                 constraint="m divisible by the axis size")
-        out = self._gemm_ar(x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
-                            n_chunks, chunk_dim)
-        return _trace(out, "all-reduce",
-                      lambda: m * n_out * _wire_elem_bytes(x, fmt, be), n_dev)
+
+        def nbytes():
+            return m * n_out * _wire_elem_bytes(x, fmt, be)
+
+        with _span("matmul_all_reduce", be, nbytes):
+            out = self._gemm_ar(x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
+                                n_chunks, chunk_dim)
+        return _trace(out, "all-reduce", nbytes, n_dev)
 
     def _gemm_ar(self, x, w, be, fmt, m, n_out, k_loc, dtype_bytes,
                  n_chunks, chunk_dim):
@@ -620,7 +646,14 @@ class CommContext:
                           lambda: t[0].numel() * t.element_size(),
                           self.axis_size)
 
-        return tree_map(shift, x)
+        def nbytes():
+            sizes = []
+            tree_map(lambda t: sizes.append(t[0].numel() * t.element_size()),
+                     x)
+            return sum(sizes)
+
+        with _span("ring_shift", be, nbytes):
+            return tree_map(shift, x)
 
     # -- data-movement ops -------------------------------------------------
 
@@ -661,9 +694,13 @@ class CommContext:
                        else auto_chunks())
             fit = a2a_chunk_axis(local, split_axis, concat_axis, want)
             c = fit[1] if fit is not None else 1
-        return _trace(_AllToAll.apply(x, split_axis, concat_axis, c),
-                      "all-to-all", lambda: math.prod(local)
-                      * x.element_size(), self.axis_size)
+
+        def nbytes():
+            return math.prod(local) * x.element_size()
+
+        with _span("all_to_all", be, nbytes):
+            out = _AllToAll.apply(x, split_axis, concat_axis, c)
+        return _trace(out, "all-to-all", nbytes, self.axis_size)
 
     def all_gather(self, x: torch.Tensor, *, axis: int = 0,
                    backend: str | None = None, order=None, lanes: int = 1,
@@ -683,10 +720,14 @@ class CommContext:
             raise ValueError("all_gather takes a stacked (R, *local) tensor "
                              "with at least one local dim")
         be = self._resolve("all_gather", backend, lambda: "bulk")
-        out = _AllGather.apply(x, axis % (x.dim() - 1), be, order)
-        return _trace(out, "all-gather",
-                      lambda: out[0].numel() * out.element_size() / split,
-                      self.axis_size, lanes)
+
+        def nbytes():
+            return (x[0].numel() * self.axis_size * x.element_size()
+                    / split)
+
+        with _span("all_gather", be, nbytes):
+            out = _AllGather.apply(x, axis % (x.dim() - 1), be, order)
+        return _trace(out, "all-gather", nbytes, self.axis_size, lanes)
 
     def reduce_scatter(self, x: torch.Tensor, *, axis: int = 0,
                        backend: str | None = None) -> torch.Tensor:
@@ -707,10 +748,13 @@ class CommContext:
                 f"reduce_scatter: dim {axis} of the local shape "
                 f"{tuple(x.shape[1:])} is not divisible by the axis size "
                 f"{self.axis_size}")
-        out = _ReduceScatter.apply(x, axis, be)
-        return _trace(out, "reduce-scatter",
-                      lambda: out[0].numel() * out.element_size(),
-                      self.axis_size)
+
+        def nbytes():
+            return x[0].numel() // self.axis_size * x.element_size()
+
+        with _span("reduce_scatter", be, nbytes):
+            out = _ReduceScatter.apply(x, axis, be)
+        return _trace(out, "reduce-scatter", nbytes, self.axis_size)
 
     def psum(self, x: torch.Tensor, *,
              backend: str | None = None) -> torch.Tensor:
@@ -739,15 +783,24 @@ class CommContext:
             be = self._shape_guard(
                 "psum", be, backend, ok=ring_ok,
                 constraint="shape[0] divisible by the axis size")
-        out = psum_bulk(x) if be == "bulk" else pk_psum_ring(x)
-        return _trace(out, "all-reduce",
-                      lambda: x[0].numel() * x.element_size(), self.axis_size)
+
+        def nbytes():
+            return x[0].numel() * x.element_size()
+
+        with _span("psum", be, nbytes):
+            out = psum_bulk(x) if be == "bulk" else pk_psum_ring(x)
+        return _trace(out, "all-reduce", nbytes, self.axis_size)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         """Max over the rank axis, broadcast back (``lax.pmax``)."""
         self._check_stacked(x)
-        return _trace(pmax_bulk(x), "all-reduce",
-                      lambda: x[0].numel() * x.element_size(), self.axis_size)
+
+        def nbytes():
+            return x[0].numel() * x.element_size()
+
+        with _span("pmax", "bulk", nbytes):
+            out = pmax_bulk(x)
+        return _trace(out, "all-reduce", nbytes, self.axis_size)
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,8 @@ by the serving engine while a scripted corrupt or bitflip fault is
 active) reaches the target island's ``CommContext.fault`` (``"*"``
 targets every island). An island's input may be a tree of tensors
 (dicts, lists, tuples) under one spec, or under a parallel tree of specs.
+Each call is the span ``island.<name>`` of ``core/trace.py``, over the
+dp-group loop, the fallback and the guard.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 
 from repro_torch.core import costmodel as cm
-from repro_torch.core import pgl
+from repro_torch.core import pgl, trace
 from repro_torch.core.autotune import island_key as _island_key
 from repro_torch.core.comms import GEMM_OP_KIND, OP_BACKENDS, CommContext
 from repro_torch.core.pgl import P
@@ -489,12 +491,13 @@ class Island:
         return _map_input(one, x, spec)
 
     def __call__(self, **arrays):
-        out = self._call(arrays)
-        if self.run is not None and self.run.island_guards \
-                and self.fallback_reason() is None:
-            # at the island's boundary: one check covers its logical
-            # inputs and outputs, whatever the backend
-            _boundary_guard(self.name, arrays, out)
+        with trace.span("island", self.name):
+            out = self._call(arrays)
+            if self.run is not None and self.run.island_guards \
+                    and self.fallback_reason() is None:
+                # at the island's boundary: one check covers its logical
+                # inputs and outputs, whatever the backend
+                _boundary_guard(self.name, arrays, out)
         return out
 
     @property

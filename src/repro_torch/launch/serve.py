@@ -175,7 +175,7 @@ def serve_fleet(args, serve: ServeConfig, overrides: dict) -> None:
     print(f"[fleet] {args.arch} x{st['replicas']} ({st['router']}): "
           f"{len(done)} requests, {st['useful_tokens']} tokens in "
           f"{st['wall_s']:.2f}s ({st['tokens_per_s']:.1f} tok/s; "
-          f"{st['fleet_steps']} fleet steps, {st['assignments']} routed, "
+          f"{st['step_s']:.2f}s in steps, {st['fleet_steps']} fleet steps, {st['assignments']} routed, "
           f"{st['steals']} steals, {st['requeued']} requeued, "
           f"{st['live']}/{st['replicas']} live)")
     for idx, fb in sorted(st["per_replica"].items()):
@@ -332,7 +332,7 @@ def main(argv=None):
     st = eng.stats()
     print(f"[serve] {args.arch} on {eng.device}: {len(done)} requests, "
           f"{st['tokens_generated']} tokens in {st['wall_s']:.2f}s "
-          f"({st['tokens_per_s']:.1f} tok/s; "
+          f"({st['tokens_per_s']:.1f} tok/s; {st['step_s']:.2f}s in steps; "
           f"{st['prefill_steps']} prefill + {st['decode_steps']} decode "
           f"steps; buckets built: {st['compiled_buckets']})")
     cs = st["cache"]

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Callable, Sequence
 
 from repro_torch.configs.base import FleetConfig
@@ -241,6 +242,8 @@ class ServingFleet:
         self.events: list[tuple] = []
         self.step_no = 0
         self.step_times: list[float] = []
+        self._first_start: float | None = None   # host clock of the first
+        self._last_end = 0.0                     # step's start, last's end
         self.steals = 0
         self.requeued = 0
         self._next_rid = 0
@@ -448,6 +451,8 @@ class ServingFleet:
     def step(self) -> bool:
         """One fleet step; returns True if any replica made progress (ran
         engine steps or burned a stall tick)."""
+        if self._first_start is None:
+            self._first_start = time.perf_counter()
         for ev in self.plan.at(self.step_no):
             self._fire(ev)
         flagged = self._flagged()
@@ -477,6 +482,7 @@ class ServingFleet:
         self._harvest()
         self.step_times.append(t.dt)
         self.step_no += 1
+        self._last_end = time.perf_counter()
         return progressed
 
     def _harvest_replica(self, rep: _Replica) -> None:
@@ -554,17 +560,23 @@ class ServingFleet:
         return out
 
     def stats(self) -> dict[str, Any]:
-        total = sum(self.step_times)
+        """The fleet's counts; ``wall_s`` is host time from the first fleet
+        step's start to the last one's end, ``step_s`` the sum of the
+        fleet step times, ``tokens_per_s`` the useful tokens over
+        ``wall_s``."""
+        wall = (self._last_end - self._first_start
+                if self._first_start is not None else 0.0)
         useful = sum(len(c.tokens) for c in self.completions.values())
         return {
             "replicas": self.cfg.n_replicas,
             "live": sum(r.alive for r in self.replicas),
             "router": self.cfg.router,
             "fleet_steps": self.step_no,
-            "wall_s": total,
+            "wall_s": wall,
+            "step_s": sum(self.step_times),
             "completed": len(self.completions),
             "useful_tokens": useful,
-            "tokens_per_s": useful / total if total else 0.0,
+            "tokens_per_s": useful / wall if wall else 0.0,
             "steals": self.steals,
             "requeued": self.requeued,
             "assignments": len(self.assignments),

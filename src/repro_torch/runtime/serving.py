@@ -55,12 +55,24 @@ pops every request not completed (queued, in a prefill job, in a slot)
 exactly once, in rid order; ``load()`` is the router's feedback;
 ``inject_step_delay(dt)`` adds to the next recorded step time, which feeds
 the engine's ``StragglerWatchdog`` and the fleet's.
+
+Tracing (``core/trace.py``), only while a profiler records or after
+``trace.enable()``: each step is the span ``engine.step`` over its phases
+(``engine.schedule``, ``engine.forward``, ``engine.read``,
+``engine.insert``, ``engine.bookkeep``); admission counts each request's
+queue wait since ``submit``, each decode tick the cache's live tokens
+against its reserved ones, the watchdog each straggler step (which it
+logs). ``stats()["tokens_per_s"]`` divides by host wall time from the
+first step's start to the last step's end (``wall_s``); ``step_s`` sums
+the step times.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
+import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -68,6 +80,7 @@ import torch
 
 from repro_torch.compat import resolve_device
 from repro_torch.configs.base import ArchConfig, RunConfig, ServeConfig
+from repro_torch.core import trace
 from repro_torch.core.template import IslandPlan, plan_overrides, render_plans
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import island_plans
@@ -84,6 +97,8 @@ __all__ = ["Request", "Completion", "BucketPlan", "ServingEngine",
            "padded_s_max", "resolve_page_geometry", "resolve_serving_plans",
            "render_serving_plans", "serving_plan_record"]
 
+_log = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass(frozen=True)
 class Request:
@@ -93,6 +108,10 @@ class Request:
     rid: int
     prompt: tuple[int, ...]
     max_new_tokens: int
+    #: host time of ``ServingEngine.submit`` (``time.perf_counter``), the
+    #: start of the request's queue wait; not part of its identity
+    submit_t: float = dataclasses.field(default=0.0, compare=False,
+                                        repr=False)
 
 
 @dataclasses.dataclass
@@ -344,6 +363,8 @@ class ServingEngine:
         self.step_kinds: list[str] = []
         self.watchdog = StragglerWatchdog()
         self.step_times: list[float] = []
+        self._first_start: float | None = None   # host clock of the first
+        self._last_end = 0.0                     # step's start, last's end
         self.tokens_generated = 0
         self._next_rid = 0
         # fleet hooks: the Request of every live rid (a killed replica's
@@ -414,10 +435,14 @@ class ServingEngine:
         """(greedy token, finite) per batch row, in one device->host copy:
         the ``_greedy`` rule, and whether the row's last-position logits
         over the real vocab are all finite — the poison detector (NaN and
-        ±inf both trip it)."""
-        last = logits[:, -1, :self.cfg.vocab_size]
-        both = torch.stack([last.argmax(dim=-1),
-                            torch.isfinite(last).all(dim=-1).long()]).cpu()
+        ±inf both trip it). Earlier steps' stream times are read first,
+        while the device runs this one's forward."""
+        trace.resolve_finished()
+        with trace.span("engine.read"):
+            last = logits[:, -1, :self.cfg.vocab_size]
+            both = torch.stack([last.argmax(dim=-1),
+                                torch.isfinite(last).all(dim=-1).long()
+                                ]).cpu()
         return (both[0].to(torch.int32).numpy(),
                 both[1].numpy().astype(bool))
 
@@ -761,7 +786,7 @@ class ServingEngine:
         if rid is None:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid) + 1
-        req = Request(rid, prompt, mx)
+        req = Request(rid, prompt, mx, submit_t=time.perf_counter())
         self._requests[rid] = req
         self._submit_step[rid] = self.step_no    # the deadline clock
         self.queue.append(req)
@@ -794,7 +819,17 @@ class ServingEngine:
                     group.append(r)
         for r in group:
             self.queue.remove(r)
+        self._count_queue_waits(group)
         return head_bucket, group, free[:len(group)]
+
+    @staticmethod
+    def _count_queue_waits(reqs) -> None:
+        """Each admitted request's wait from submit to now (traced steps
+        only)."""
+        if trace.tracing():
+            now = time.perf_counter()
+            for r in reqs:
+                trace.count(trace.QUEUE_WAIT, now - r.submit_t)
 
     # -- paged scheduling --------------------------------------------------
 
@@ -880,6 +915,7 @@ class ServingEngine:
             return None
         for pl in placements:
             self.queue.remove(pl[0])
+        self._count_queue_waits([pl[0] for pl in placements])
         return head_bucket, placements
 
     def _start_prefill_job(self, bucket: int, placements: list) -> None:
@@ -953,7 +989,7 @@ class ServingEngine:
         if self._current_fault is not None:
             fn = self._faulted_fn(("paged", job.bucket), self._current_fault)
         dev = self.device
-        with torch.no_grad():
+        with trace.span("engine.forward"), torch.no_grad():
             logits, self.cache = fn(
                 self.params, self.cache,
                 torch.from_numpy(job.tokens[:, c0:c0 + job.chunk_len])
@@ -962,18 +998,19 @@ class ServingEngine:
                 torch.from_numpy(job.lens).to(dev), c0,
                 torch.from_numpy(job.write_from).to(dev))
         first, finite = self._read_rows(logits)
-        for row, r in enumerate(job.reqs):
-            if r is not None and job.logit_chunk[row] == c:
-                if not finite[row]:
-                    job.poisoned[row] = True
-                job.first_token[row] = int(first[row])
-        self.events.append(
-            ("prefill_chunk", self.step_no,
-             tuple(r.rid for r in job.reqs if r is not None),
-             c, job.n_chunks))
-        job.next_chunk += 1
-        if job.next_chunk > job.end_chunk:
-            self._finish_prefill_job()
+        with trace.span("engine.bookkeep"):
+            for row, r in enumerate(job.reqs):
+                if r is not None and job.logit_chunk[row] == c:
+                    if not finite[row]:
+                        job.poisoned[row] = True
+                    job.first_token[row] = int(first[row])
+            self.events.append(
+                ("prefill_chunk", self.step_no,
+                 tuple(r.rid for r in job.reqs if r is not None),
+                 c, job.n_chunks))
+            job.next_chunk += 1
+            if job.next_chunk > job.end_chunk:
+                self._finish_prefill_job()
 
     def _finish_prefill_job(self) -> None:
         """Last chunk done: commit block-table rows and positions into the
@@ -1053,8 +1090,9 @@ class ServingEngine:
         fn = None
         if self._current_fault is not None:
             fn = self._faulted_fn(("prefill", bucket), self._current_fault)
-        logits, gcache = self._run_prefill(bucket, [r.prompt for r in reqs],
-                                           fn)
+        with trace.span("engine.forward"):
+            logits, gcache = self._run_prefill(
+                bucket, [r.prompt for r in reqs], fn)
         first, finite = self._read_rows(logits)
         # only finite rows go into the live cache and open slots; poisoned
         # rows retry or quarantine, and every slot's cache row is its own,
@@ -1062,29 +1100,31 @@ class ServingEngine:
         ok = [i for i in range(len(reqs)) if finite[i]]
         bad = [i for i in range(len(reqs)) if not finite[i]]
         if ok:
-            idx = torch.as_tensor([slot_ids[i] for i in ok],
-                                  device=self.device)
-            rows = torch.as_tensor(ok, device=self.device)
-            for path, pd in T.leaves(self._cache_tmpl):
-                dst, src = self.cache, gcache
-                for k in path:
-                    dst, src = dst[k], src[k]
-                dim = self._batch_dim(pd)
-                dst.index_copy_(dim, idx, src.index_select(dim, rows))
-        for i in ok:
-            r, slot = reqs[i], slot_ids[i]
-            self.slots[slot] = _Slot(
-                rid=r.rid, last_token=int(first[i]),
-                remaining=r.max_new_tokens - 1,
-                tokens=[int(first[i])], admitted_step=self.step_no,
-                bucket=bucket, prompt_len=len(r.prompt))
-            self.events.append(("admit", self.step_no, r.rid, slot, bucket,
-                                self._mem_metrics()))
-            self.tokens_generated += 1
-            if self.slots[slot].remaining == 0:
-                self._retire(slot)
-        for i in bad:
-            self._poisoned(reqs[i], "prefill_nonfinite")
+            with trace.span("engine.insert"):
+                idx = torch.as_tensor([slot_ids[i] for i in ok],
+                                      device=self.device)
+                rows = torch.as_tensor(ok, device=self.device)
+                for path, pd in T.leaves(self._cache_tmpl):
+                    dst, src = self.cache, gcache
+                    for k in path:
+                        dst, src = dst[k], src[k]
+                    dim = self._batch_dim(pd)
+                    dst.index_copy_(dim, idx, src.index_select(dim, rows))
+        with trace.span("engine.bookkeep"):
+            for i in ok:
+                r, slot = reqs[i], slot_ids[i]
+                self.slots[slot] = _Slot(
+                    rid=r.rid, last_token=int(first[i]),
+                    remaining=r.max_new_tokens - 1,
+                    tokens=[int(first[i])], admitted_step=self.step_no,
+                    bucket=bucket, prompt_len=len(r.prompt))
+                self.events.append(("admit", self.step_no, r.rid, slot,
+                                    bucket, self._mem_metrics()))
+                self.tokens_generated += 1
+                if self.slots[slot].remaining == 0:
+                    self._retire(slot)
+            for i in bad:
+                self._poisoned(reqs[i], "prefill_nonfinite")
 
     def _retire(self, slot: int) -> None:
         s = self.slots[slot]
@@ -1112,29 +1152,48 @@ class ServingEngine:
         fn = self._decode_fn
         if self._current_fault is not None:
             fn = self._faulted_fn(("decode", 0), self._current_fault)
-        with torch.no_grad():
+        if trace.tracing():
+            self._count_kv_occupancy()
+        with trace.span("engine.forward"), torch.no_grad():
             logits, self.cache = fn(self.params, self.cache,
                                     torch.from_numpy(tokens).to(self.device))
         nxt, finite = self._read_rows(logits)
-        for i, s in enumerate(self.slots):
-            if s is None:
-                continue
-            if not finite[i]:
-                # poisoned mid-decode: the slot's cache row may hold bad
-                # K/V, so quarantine at once — a partial generation cannot
-                # be replayed from poisoned state
-                self.quarantined[s.rid] = {"prompt_len": s.prompt_len,
-                                           "step": self.step_no,
-                                           "reason": "decode_nonfinite"}
-                self.events.append(("quarantine", self.step_no, s.rid))
-                self._evict_slot(i)
-                continue
-            s.last_token = int(nxt[i])
-            s.tokens.append(s.last_token)
-            s.remaining -= 1
-            self.tokens_generated += 1
-            if s.remaining == 0:
-                self._retire(i)
+        with trace.span("engine.bookkeep"):
+            for i, s in enumerate(self.slots):
+                if s is None:
+                    continue
+                if not finite[i]:
+                    # poisoned mid-decode: the slot's cache row may hold
+                    # bad K/V, so quarantine at once — a partial generation
+                    # cannot be replayed from poisoned state
+                    self.quarantined[s.rid] = {"prompt_len": s.prompt_len,
+                                               "step": self.step_no,
+                                               "reason": "decode_nonfinite"}
+                    self.events.append(("quarantine", self.step_no, s.rid))
+                    self._evict_slot(i)
+                    continue
+                s.last_token = int(nxt[i])
+                s.tokens.append(s.last_token)
+                s.remaining -= 1
+                self.tokens_generated += 1
+                if s.remaining == 0:
+                    self._retire(i)
+
+    def _count_kv_occupancy(self) -> None:
+        """The tokens the decode about to run attends to against the cache
+        reserved for them: over the live slots, prompt plus generated
+        tokens against ``max_batch x s_max``; paged, the resident pages
+        against the pool, in tokens."""
+        if self.paged:
+            ps = self.geom.page_size
+            live = self.allocator.resident_pages * ps
+            reserved = self.geom.n_pages * ps
+        else:
+            live = sum(s.prompt_len + len(s.tokens) for s in self.slots
+                       if s is not None)
+            reserved = self.serve.max_batch * self.s_max
+        trace.count("engine.kv_live_tokens", live)
+        trace.count("engine.kv_slot_tokens", reserved)
 
     def step(self) -> str | None:
         """One engine step: a bucket prefill when admission is possible,
@@ -1149,11 +1208,28 @@ class ServingEngine:
         decodes instead, draining pages. Before the work, the step starts
         its scripted comm faults and expires deadlines; a step whose every
         queued request waits out a retry backoff is an idle step."""
-        self._fire_comm_faults()
-        self._expire_deadlines()
-        active = any(s is not None for s in self.slots)
+        t0 = time.perf_counter()
+        trace.begin_step(self.device)
+        kind = None
+        try:
+            with trace.span("engine.step"):
+                kind = self._step()
+        finally:
+            trace.end_step(self.step_no - 1, kind)
+        if kind is not None:
+            if self._first_start is None:
+                self._first_start = t0
+            self._last_end = time.perf_counter()
+        return kind
+
+    def _step(self) -> str | None:
+        with trace.span("engine.schedule"):
+            self._fire_comm_faults()
+            self._expire_deadlines()
+            active = any(s is not None for s in self.slots)
+            group = (self._next_group_paged() if self.paged
+                     else self._next_group())
         if self.paged:
-            group = self._next_group_paged()
             if group is None and self._job is None and not active:
                 if self.queue and not self.draining:
                     if any(self._not_before.get(r.rid, 0) <= self.step_no
@@ -1179,7 +1255,6 @@ class ServingEngine:
                     self._decode_tick()
                     kind = "decode"
             return self._record_step(kind, t.dt)
-        group = self._next_group()
         if group is None and not active:
             if self.queue and not self.draining:
                 # every queued request backs off after a retry: idle step
@@ -1201,42 +1276,45 @@ class ServingEngine:
         stalled island's health sample, the guards' trips are drained (the
         step's one read of them), and the monitor's verdicts re-layer the
         plans."""
-        dt += self._injected_delay
-        self._injected_delay = 0.0
-        # a stall costs only while the island's current backend still
-        # rides the slow link (after a demotion the step routes around it)
-        stall: dict[str, float] = {}
-        if kind in ("prefill", "decode"):
-            for f in self._active_faults:
-                if f["kind"] == "stall" and \
-                        self._stall_applies(f["island"], kind):
-                    stall[f["island"]] = (stall.get(f["island"], 0.0)
-                                          + f["stall_dt"])
-        dt += sum(stall.values())
-        self.step_no += 1
-        self.step_kinds.append(kind)
-        self.step_times.append(dt)
-        if kind != "idle" and self.watchdog.record(self.step_no, dt):
-            print(f"[serve] STRAGGLER step {self.step_no} ({kind}): "
-                  f"{dt:.3f}s (deadline {self.watchdog.deadline:.3f}s)")
-        # the island guards that tripped during this step's device work
-        changed = False
-        for island, n in sorted(take_guard_trips().items()):
-            self.events.append(("guard_trip", self.step_no, island, n))
-            if self.health is not None:
-                changed |= self.health.guard_trip(island, self.step_no)
-        # per-island health samples: the step's own time plus the island's
-        # stall
-        if self.health is not None and kind in ("prefill", "decode"):
-            base = dt - sum(stall.values())
-            for island in self.health.islands:
-                changed |= self.health.record(
-                    island, self.step_no, base + stall.get(island, 0.0))
-        if changed:
-            self._refresh_health_overrides()
-        self._drain_health_events()
-        self._tick_comm_faults()
-        return kind
+        with trace.span("engine.bookkeep"):
+            dt += self._injected_delay
+            self._injected_delay = 0.0
+            # a stall costs only while the island's current backend still
+            # rides the slow link (after a demotion the step routes around it)
+            stall: dict[str, float] = {}
+            if kind in ("prefill", "decode"):
+                for f in self._active_faults:
+                    if f["kind"] == "stall" and \
+                            self._stall_applies(f["island"], kind):
+                        stall[f["island"]] = (stall.get(f["island"], 0.0)
+                                              + f["stall_dt"])
+            dt += sum(stall.values())
+            self.step_no += 1
+            self.step_kinds.append(kind)
+            self.step_times.append(dt)
+            if kind != "idle" and self.watchdog.record(self.step_no, dt):
+                trace.count("engine.straggler_steps", 1)
+                _log.warning("[serve] STRAGGLER step %d (%s): %.3fs (deadline "
+                             "%.3fs)", self.step_no, kind, dt,
+                             self.watchdog.deadline)
+            # the island guards that tripped during this step's device work
+            changed = False
+            for island, n in sorted(take_guard_trips().items()):
+                self.events.append(("guard_trip", self.step_no, island, n))
+                if self.health is not None:
+                    changed |= self.health.guard_trip(island, self.step_no)
+            # per-island health samples: the step's own time plus the island's
+            # stall
+            if self.health is not None and kind in ("prefill", "decode"):
+                base = dt - sum(stall.values())
+                for island in self.health.islands:
+                    changed |= self.health.record(
+                        island, self.step_no, base + stall.get(island, 0.0))
+            if changed:
+                self._refresh_health_overrides()
+            self._drain_health_events()
+            self._tick_comm_faults()
+            return kind
 
     def run(self, requests=None, max_steps: int = 100_000,
             step_budget: int | None = None) -> list[Completion]:
@@ -1364,15 +1442,21 @@ class ServingEngine:
         return out
 
     def stats(self) -> dict:
-        total = sum(self.step_times)
+        """The run's counts; ``wall_s`` is host time from the first step's
+        start to the last step's end (the gaps between steps in it),
+        ``step_s`` the sum of the step times, and ``tokens_per_s`` the
+        tokens generated over ``wall_s``."""
+        wall = (self._last_end - self._first_start
+                if self._first_start is not None else 0.0)
         return {
             "steps": self.step_no,
             "prefill_steps": self.step_kinds.count("prefill"),
             "decode_steps": self.step_kinds.count("decode"),
             "idle_steps": self.step_kinds.count("idle"),
             "tokens_generated": self.tokens_generated,
-            "wall_s": total,
-            "tokens_per_s": self.tokens_generated / total if total else 0.0,
+            "wall_s": wall,
+            "step_s": sum(self.step_times),
+            "tokens_per_s": self.tokens_generated / wall if wall else 0.0,
             "straggler_events": len(self.watchdog.events),
             "compiled_buckets": self.compiled_buckets,
             "cache": self.cache_stats(),

@@ -1019,11 +1019,123 @@ def check_kernels(dev) -> dict:
             4.0 * b * h * hd * sq * se,
             before=partial(mm_tile_flash, q, k_, v, causal=False))
 
+    entries.update(check_decode_attention(dev, record, randn))
     entries.update(check_mamba_scan(dev, record, compare))
     entries.update(check_mamba_scan_bwd(dev, record, compare))
     entries.update(check_ring_kernels(dev, record, compare, randn))
     entries.update(check_tp_kernels(dev, record, compare, randn))
     entries.update(check_a2a_kernel(dev, record, randn))
+    return entries
+
+
+def decode_case(dev, randn, r, b, hq, hkv, s_loc, hd, window=None) -> dict:
+    """One layer of the one-pass decode attention kernel held against its
+    plain twin, slot lengths spread from 1 to s_max and one slot past it
+    (B = 1: one slot 1,000 positions short of s_max): the slab must be
+    written at each slot's position and nowhere else, as by the twin, and
+    the merged output agree within 1e-5 (f32 sums in another order).
+    Returns the calls to time (the kernel, the twin and, for B > 1,
+    ``scaled_dot_product_attention`` over the cache laid out globally with
+    a key mask of the lengths: a yardstick that reads every position), the
+    errors, the visible keys and the bytes and operations the call needs
+    (the visible K/V read once, q and the new row read, the row written,
+    o, m, l written in f32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+
+    s_max = r * s_loc
+    if b > 1:
+        pos = torch.linspace(0, s_max - 1, b - 1, device=dev).long()
+        pos = torch.cat([pos, pos.new_tensor([s_max + 5])])
+    else:
+        pos = torch.tensor([s_max - 1000], device=dev)
+    ck, cv = randn(r, b, hkv, s_loc, hd), randn(r, b, hkv, s_loc, hd)
+    q = randn(1, b, hq, 1, hd).expand(r, -1, -1, -1, -1)
+    kn, vn = (randn(1, b, hkv, 1, hd).expand(r, -1, -1, -1, -1)
+              for _ in range(2))
+    tk, tv = ck.clone(), cv.clone()
+    want = DA.decode_attention_plain(q, tk, tv, kn, vn, pos, window)
+    got = DA.decode_attention(q, ck, cv, kn, vn, pos, window=window)
+    torch.cuda.synchronize()
+    if not (torch.equal(ck, tk) and torch.equal(cv, tv)):
+        raise AssertionError("decode_attention: the slab differs from the "
+                             "plain twin's after the write")
+    del tk, tv
+
+    def merged(o, m, l_):
+        a = torch.exp(m - m.amax(0))
+        return (o * a[..., None]).sum(0) / (l_ * a).sum(0)[..., None]
+    err = rel_err(merged(*got), merged(*want))
+    max_abs = float((merged(*got) - merged(*want)).abs().max())
+    shape = (f"q({r},{b},{hq},1,{hd}) kv({r},{b},{hkv},{s_loc},{hd})"
+             + (f" window {window}" if window else ""))
+    print(f"[kernel] decode_attention {shape}: slab written as the twin "
+          f"writes it; rel_err={err:.3e} (tol 1e-5)", flush=True)
+    if not err <= 1e-5:
+        raise AssertionError(f"decode_attention {shape} disagrees with its "
+                             f"twin: rel_err {err:.3e} > 1e-5")
+    keys = sum(min(p + 1, s_max) - (max(0, p + 1 - window) if window else 0)
+               for p in pos.tolist())
+    library = None
+    if b > 1:
+        kg, vg = (t.permute(1, 2, 0, 3, 4).reshape(b, hkv, s_max, hd)
+                  .repeat_interleave(hq // hkv, 1) for t in (ck, cv))
+        ki = torch.arange(s_max, device=dev)[None, :]
+        mask = ki < (pos + 1)[:, None]
+        if window:
+            mask &= ki >= (pos + 1 - window)[:, None]
+        library = partial(F.scaled_dot_product_attention, q[0], kg, vg,
+                          attn_mask=mask[:, None, None, :])
+    return {"shape": shape, "err": err, "max_abs": max_abs, "keys": keys,
+            "run": partial(DA.decode_attention, q, ck, cv, kn, vn, pos,
+                           window=window),
+            "plain": partial(DA.decode_attention_plain, q, ck, cv, kn, vn,
+                             pos, window),
+            "library": library,
+            "nbytes": (2 * keys * hkv * hd * 2 + r * b * hq * hd * 2
+                       + 4 * r * b * hkv * hd * 2 + 4 * r * b * hq * (hd + 2)),
+            "flops": 4.0 * hq * hd * keys}
+
+
+#: check_decode_attention's rows: key, R, B, Hq, Hkv, s_loc, hd, window
+DECODE_ROWS = (
+    ("decode_attention", 4, 64, 16, 16, 2112, 128, None),
+    ("decode_attention@gqa8", 4, 64, 32, 4, 512, 64, None),
+    ("decode_attention@window", 4, 16, 32, 8, 2048, 120, 4096),
+    ("decode_attention@long_ctx", 8, 1, 32, 8, 65536, 120, 4096))
+
+
+def check_decode_attention(dev, record, randn) -> dict:
+    """The one-pass decode attention kernel at each of ``DECODE_ROWS``
+    (``decode_case``), checked against its plain twin, then timed beside
+    it and, for B > 1, the library call: the benchmark cell's layer
+    (moonshot's 16 heads of 128 over a 64 x 8448 slab on 4 ranks),
+    tinyllama's GQA 8 at hd 64, h2o-danube's hd 120 with its 4,096 window,
+    and its long-context decode (B = 1 over 8 ranks of 65,536 positions).
+    Where R·B·Hkv blocks are too few for the card (the window's and the
+    long-context rows) the keys split and ``da_combine`` merges the
+    splits: a second launch."""
+    from repro_torch.kernels import decode_attention as DA
+
+    entries = {}
+    for key, r, b, hq, hkv, s_loc, hd, window in DECODE_ROWS:
+        c = decode_case(dev, randn, r, b, hq, hkv, s_loc, hd, window)
+        splits = DA.decode_plan(r, b, hkv, hq // hkv, s_loc, hd).splits
+        if key == "decode_attention@long_ctx" and splits == 1:
+            raise AssertionError(f"decode_attention {c['shape']}: the "
+                                 f"long-context row must split its keys")
+        entries[key] = dict(record(
+            "decode_attention", c["shape"],
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "none (JAX leaves the mix to XLA: "
+            "src/repro/models/layers.py:384)",
+            c["run"], c["plain"], c["library"], 1e-5, c["nbytes"],
+            c["flops"], peak=PEAK_F32_FLOPS, plain_iters=3,
+            checked=(c["err"], c["max_abs"])), splits=splits,
+            launches_a_call=1 + (splits > 1))
+        del c
     return entries
 
 
@@ -1940,7 +2052,7 @@ KERNEL_COUNTERS = ("matmul", "flash_attention", "pk_matmul_ar",
                    "mamba_scan", "p2p_ring_shift", "flash_attention_hop",
                    "ag_matmul_fused", "matmul_rs_fused",
                    "lcsc_ring_all_gather", "pk_all_to_all",
-                   "mamba_scan_bwd")
+                   "mamba_scan_bwd", "decode_attention")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
 
@@ -1965,6 +2077,7 @@ def ssm_prompt_lengths() -> list[int]:
 def _counters():
     """Each kernel's launch counter: (module, wrapper attribute)."""
     from repro_torch.kernels import collective_matmul as CM
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import grouped_matmul as GM
     from repro_torch.kernels import lcsc as LC
@@ -1972,6 +2085,7 @@ def _counters():
     from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import pk_comm as PK
     return {"matmul": MM.matmul, "flash_attention": FA.flash_attention,
+            "decode_attention": DA.decode_attention,
             "pk_matmul_ar": CM.matmul_ar_fused,
             "pk_all_gather": PK.ring_all_gather,
             "pk_reduce_scatter": PK.ring_reduce_scatter,
@@ -1996,6 +2110,20 @@ def check_logits_launches(tag: str, launches: dict, st: dict) -> None:
     if launches["matmul"] != want:
         raise AssertionError(f"{tag} launched matmul {launches['matmul']} "
                              f"times, not {want}")
+
+
+def check_decode_launches(tag: str, launches: dict, st: dict,
+                          n_layers: int) -> None:
+    """A bf16 slab decode runs every attention layer through the one-pass
+    decode kernel: one launch a layer a decode step (no key split at a
+    serving batch), none in a prefill."""
+    want = n_layers * st["decode_steps"]
+    print(f"[{tag}] decode_attention launches {launches['decode_attention']}"
+          f", expected one a layer a decode step: {want}", flush=True)
+    if launches["decode_attention"] != want:
+        raise AssertionError(f"{tag} launched decode_attention "
+                             f"{launches['decode_attention']} times, not "
+                             f"{want}")
 
 
 def serve(dev) -> dict:
@@ -2026,7 +2154,8 @@ def serve(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     counters = {k: fn for k, fn in _counters().items()
-                if k in ("matmul", "flash_attention", "pk_matmul_ar")}
+                if k in ("matmul", "flash_attention", "pk_matmul_ar",
+                         "decode_attention")}
     for fn in counters.values():
         fn.launches = 0
     done = eng.run(trace)
@@ -2052,6 +2181,7 @@ def serve(dev) -> dict:
         if n <= 0:
             raise AssertionError(f"the serving run launched no {name} kernel")
     check_logits_launches("serve", launches, st)
+    check_decode_launches("serve", launches, st, eng.cfg.n_layers)
 
     # the same trace through the bulk backend: no GEMM+AR kernel
     ref = engine("bulk")
@@ -2168,7 +2298,7 @@ def serve_moe(dev) -> dict:
     at_start = torch.cuda.memory_allocated(dev)
     counters = {k: fn for k, fn in _counters().items()
                 if k in ("matmul", "flash_attention", "pk_matmul_ar",
-                         "grouped_matmul")}
+                         "grouped_matmul", "decode_attention")}
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
@@ -2196,6 +2326,7 @@ def serve_moe(dev) -> dict:
             raise AssertionError(f"the MoE serving run launched no {name} "
                                  "kernel")
     check_logits_launches("serve-moe", launches, st)
+    check_decode_launches("serve-moe", launches, st, eng.cfg.n_layers)
 
     # the same trace with the MoE combine as a ring (bf16 hops) on the same
     # parameter tree: a second summation order
@@ -6211,7 +6342,8 @@ def _phases(dev, card: str, procs: list) -> int:
                      "pk_all_to_all": "train_ulysses",
                      "flash_attention@encoder": "serve_encdec",
                      "flash_attention@cross": "train_encdec",
-                     "mamba_scan_bwd": "train_ssm"}.get(
+                     "mamba_scan_bwd": "train_ssm",
+                     "decode_attention": "serve_moe"}.get(
             key, "serve" if counter in serve_launches else "train")
         entry = dict(entries[key], launches=by_path[main_path],
                      launches_by_path=by_path)
@@ -6228,7 +6360,8 @@ def _phases(dev, card: str, procs: list) -> int:
                 "flash_attention_hop@0", "flash_attention_hop@2",
                 "flash_attention_hop@3", "pk_all_to_all@out",
                 "pk_all_to_all@moe", "mamba_scan_bwd@dp-half",
-                "mamba_scan_bwd@prefill"):
+                "mamba_scan_bwd@prefill", "decode_attention@gqa8",
+                "decode_attention@window", "decode_attention@long_ctx"):
         print(f"[kernel-extra] {json.dumps(entries[key])}", flush=True)
     print(f"[card] {card}", flush=True)
     print(json.dumps({"kernels": main_entries}), flush=True)

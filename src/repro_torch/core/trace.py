@@ -73,7 +73,8 @@ NAMES = (("engine.step", "engine.schedule", "engine.forward", "engine.read",
          + tuple(f"comm.{op}.{be}" for op, bes in _COMMS for be in bes)
          + tuple(f"comm.{op}.bytes" for op, _ in _COMMS)
          + (QUEUE_WAIT, "engine.kv_live_tokens", "engine.kv_slot_tokens",
-            "engine.straggler_steps"))
+            "engine.straggler_steps", "decode_attn.inplace_calls",
+            "decode_attn.slab_calls"))
 
 
 class _Idle:

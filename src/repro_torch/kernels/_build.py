@@ -151,6 +151,14 @@ SIGNATURES = {
     # steps a segment and shared memory a block (the plan's), dt, x, b,
     # c, dy strides (batch, step), stream
     "pk_mamba_scan_bwd": [_P] * 16 + [_I] * 7 + [_L] * 10 + [_P],
+    # q, k_new, v_new, cache k, cache v, pos (or null), pos scalar, pos
+    # stride, pos int64 flag, o, m, l (the splits' partials), the merged
+    # o, m, l, R, B, Hkv, g, s_loc, hd, window (-1: none), scale, q, k_new,
+    # v_new strides (rank, slot, head), cache k, v strides (rank, slot,
+    # head, position), heads a group, elements a lane, lanes, splits,
+    # shared memory a block (the plan's), bf16 flag, stream
+    "pk_decode_attention": [_P] * 6 + [_L, _L, _I] + [_P] * 6 + [_I] * 7
+                           + [ctypes.c_float] + [_L] * 17 + [_I] * 6 + [_P],
     # the kernel the scan ran on before its staged design, a timing
     # yardstick (csrc/mamba_scan_yardstick.cu): dt, x, b, c, a, h0, y,
     # h_out, B, S, D, N, chunk, x/b/c bf16 flag, the strides as above,

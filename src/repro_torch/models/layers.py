@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import moe as pk_moe
+from repro_torch.core import trace
 from repro_torch.core.autotune import IslandSweep, island_key
 from repro_torch.core.comms import GEMM_OP_KIND, CommContext
 from repro_torch.core.pgl import P
@@ -63,6 +64,7 @@ from repro_torch.core.template import (Comm, Gather, Island, IslandPlan,
                                        fsdp_gather, island_override,
                                        rank_index)
 from repro_torch.core.ulysses import pk_ulysses_attention
+from repro_torch.kernels import decode_attention as decode_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import matmul, matmul_stacked
 from repro_torch.models.sharding import ShardingRules
@@ -481,6 +483,17 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
     stored like the cache) — the new token is quantized before its write
     and the whole cache dequantized for the mix, as in JAX.
 
+    A float cache runs in one pass through ``kernels/decode_attention.py``
+    (the kernel on the card, its plain twin on the CPU): the new token is
+    written into the stored slab in place and each rank's partial (o, m,
+    l) over its visible keys is merged here by the same pmax and two bulk
+    psums; the island hands back ``cache_k``/``cache_v`` themselves, now
+    written (the engine replaces its cache every tick and never rereads
+    the old one; writing a token again at the same ``pos`` gives the same
+    cache). An int8 cache keeps the rewrite of the whole slab and the f32
+    mix (:func:`_sharded_mix`). The trace counts each body call of either
+    kind (``decode_attn.inplace_calls`` / ``decode_attn.slab_calls``).
+
     ``long_ctx`` (ROADMAP A8; JAX's long_500k cell): the cache's sequence
     is sharded over ``(*dp_axes, tp)`` at once, and the island runs ONCE
     over all those ranks (``Island.spans_dp``), not once per dp group:
@@ -522,6 +535,20 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
     qspec = P(bspec, None, None, None)
 
     def body(ctx, q, cache_k, cache_v, k_new, v_new, **kw):
+        if not quant:
+            # one pass: the new token written into the stored slab, each
+            # rank's partial over its visible keys, the log-sum-exp merge
+            trace.count("decode_attn.inplace_calls", 1)
+            o, m, l_ = decode_kernel.decode_attention(
+                q, cache_k, cache_v, k_new, v_new,
+                kw["pos"][0] if vec else pos, window=window)
+            m_glob = ctx.pmax(m)
+            a = torch.exp(m - m_glob)
+            l_ = ctx.psum(l_ * a, backend="bulk")
+            o = ctx.psum(o * a[..., None], backend="bulk")
+            o = o / l_.clamp_min(1e-30)[..., None]
+            return o.unsqueeze(3).to(q.dtype), cache_k, cache_v
+        trace.count("decode_attn.slab_calls", 1)
         s_loc = cache_k.shape[3]
         offset = rank_index(cache_k) * s_loc                    # (R,)
         ar = torch.arange(s_loc, device=q.device)
@@ -542,17 +569,13 @@ def decode_island(cfg: ArchConfig, run: RunConfig,
             m = mask if c.dim() == 5 else mask[..., 0]
             return torch.where(m, n.to(c.dtype), c)
 
-        if quant:
-            qk, sk = _kv_quantize(k_new)
-            qv, sv = _kv_quantize(v_new)
-            ck, cv = upd(cache_k, qk), upd(cache_v, qv)
-            ks, vs = upd(kw["cache_ks"], sk), upd(kw["cache_vs"], sv)
-            o = _sharded_mix(ctx, q, _kv_dequantize(ck, ks, q.dtype),
-                             _kv_dequantize(cv, vs, q.dtype), kvl, window,
-                             cfg)
-            return o, ck, cv, ks, vs
-        k_, v_ = upd(cache_k, k_new), upd(cache_v, v_new)
-        return _sharded_mix(ctx, q, k_, v_, kvl, window, cfg), k_, v_
+        qk, sk = _kv_quantize(k_new)
+        qv, sv = _kv_quantize(v_new)
+        ck, cv = upd(cache_k, qk), upd(cache_v, qv)
+        ks, vs = upd(kw["cache_ks"], sk), upd(kw["cache_vs"], sv)
+        o = _sharded_mix(ctx, q, _kv_dequantize(ck, ks, q.dtype),
+                         _kv_dequantize(cv, vs, q.dtype), kvl, window, cfg)
+        return o, ck, cv, ks, vs
 
     inputs = {"q": qspec, "cache_k": cache_spec, "cache_v": cache_spec,
               "k_new": qspec, "v_new": qspec}

@@ -622,7 +622,11 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
     for SSM layers, whose new state the kernel writes straight into the new
     cache's slab — then, given the encoder's K/V ``cross`` (``cache[
     "cross"]``), the layer's one-token cross-attention over them, then the
-    FFN if the layer has one. Returns (x, new cache blocks)."""
+    FFN if the layer has one. Returns (x, new cache blocks). An attention
+    layer that hands back the very layer slices of the stored cache it was
+    given (the decode island's one-pass kernel writes them in place) adds
+    no copy: where every layer of a pattern position does, the new block
+    is the stored tensor itself, and nothing is stacked."""
     pattern = cfg.layer_pattern()
     new = {}
     for i, spec in enumerate(pattern):
@@ -635,10 +639,11 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
             nc = new[f"pos{i}"]
             if spec.mixer == "attn":
                 a = {k: t[li] for k, t in bp["attn"].items()}
+                layer = {k: t[li] for k, t in cp.items()}
                 h, *kv = attend(a, L.rms_norm(a["norm"], x, cfg.norm_eps),
-                                {k: t[li] for k, t in cp.items()})
+                                layer)
                 for k, t in zip(("k", "v", "k_scale", "v_scale"), kv):
-                    nc[k].append(t)
+                    nc[k].append(None if t is layer[k] else t)
             else:
                 m = {k: t[li] for k, t in bp["mamba"].items()}
                 h, (_, tail) = S.mamba_block(
@@ -657,9 +662,21 @@ def _serve_blocks(params, cache, x, cfg: ArchConfig, run: RunConfig,
                 x = x + h
             if spec.mlp != "none":
                 x = x + _ffn(bp, li, x, cfg, run, rules)
-    return x, {name: {k: v if isinstance(v, torch.Tensor) else
-                      torch.stack(v) for k, v in nc.items()}
+    return x, {name: {k: _join_layers(cache["blocks"][name][k], v)
+                      for k, v in nc.items()}
                for name, nc in new.items()}
+
+
+def _join_layers(stored: torch.Tensor, parts) -> torch.Tensor:
+    """A pattern position's new cache leaf: ``parts`` when it is a tensor
+    already (the SSM state), the stored leaf when every layer wrote its
+    slice in place (None; the layers of a position share one cache type,
+    so all of them do or none), else the layers' tensors stacked."""
+    if isinstance(parts, torch.Tensor):
+        return parts
+    if all(p is None for p in parts):
+        return stored
+    return torch.stack(parts)
 
 
 def _decode(params, cache, tokens, cfg: ArchConfig, run: RunConfig,

@@ -286,10 +286,11 @@ def use_native_meta_kernels() -> int:
 
 def launch_counts() -> dict[str, int]:
     """Every hand-written kernel's ``.launches`` count, by wrapper name."""
-    from repro_torch.kernels import (collective_matmul, flash_attention,
-                                     grouped_matmul, lcsc, mamba_scan,
-                                     matmul, pk_comm)
+    from repro_torch.kernels import (collective_matmul, decode_attention,
+                                     flash_attention, grouped_matmul, lcsc,
+                                     mamba_scan, matmul, pk_comm)
     fns = [matmul.matmul, flash_attention.flash_attention,
+           decode_attention.decode_attention,
            flash_attention.flash_attention_hop,
            grouped_matmul.grouped_matmul, mamba_scan.mamba_scan,
            mamba_scan.mamba_scan_bwd, pk_comm.ring_all_gather,

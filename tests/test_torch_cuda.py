@@ -471,6 +471,7 @@ def test_engine_on_card_continuous_matches_sequential(cuda):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig, ServeConfig
     from repro_torch.core.pgl import VirtualMesh
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.launch.serve import synthetic_trace
     from repro_torch.models import transformer as T
     from repro_torch.models.sharding import ShardingRules
@@ -492,8 +493,12 @@ def test_engine_on_card_continuous_matches_sequential(cuda):
 
     eng = engine()
     trace = synthetic_trace(5, serve, cfg.vocab_size, seed=0)
+    before = DA.decode_attention.launches
     done = eng.run(trace)
     assert len(done) == len(trace)
+    # every decode step's attention layers went through the one-pass kernel
+    assert DA.decode_attention.launches - before == (
+        cfg.n_layers * eng.stats()["decode_steps"])
     for c in done[:2]:
         solo = engine().run([trace[c.rid]])[0]
         assert solo.tokens == c.tokens
@@ -1367,3 +1372,118 @@ def test_all_to_all_ctx_gradient_on_card(cuda):
     empty = PK.all_to_all(torch.empty(4, 4, 0, device=cuda), 0, 1,
                           n_chunks=2)
     assert empty.shape == (4, 1, 0) and PK.all_to_all.launches == before
+
+
+def _decode_case(dev, r, b, hq, hkv, s_loc, hd, pos, *, dtype=torch.bfloat16,
+                 seed=0):
+    """A layer's (R, B, Hkv, s_loc, hd) K and V as the second layer of a
+    stored two-layer slab (a view, as the engine hands them), q and the new
+    K/V replicated over the ranks, and the slab as it must be after the
+    write: the new row at each ``pos`` that a rank holds, nothing past
+    s_max."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    slab_k, slab_v = rn(2, r, b, hkv, s_loc, hd), rn(2, r, b, hkv, s_loc, hd)
+    q = rn(1, b, hq, 1, hd).expand(r, -1, -1, -1, -1)
+    kn, vn = (rn(1, b, hkv, 1, hd).expand(r, -1, -1, -1, -1)
+              for _ in range(2))
+    want_k, want_v = slab_k.clone(), slab_v.clone()
+    for i, p in enumerate(pos.tolist() if pos.dim() else [int(pos)] * b):
+        if p < r * s_loc:
+            want_k[1, p // s_loc, i, :, p % s_loc] = kn[0, i, :, 0]
+            want_v[1, p // s_loc, i, :, p % s_loc] = vn[0, i, :, 0]
+    return slab_k, slab_v, q, kn, vn, want_k, want_v
+
+
+def _merged(o, m, l_):
+    """The island's log-sum-exp merge of the ranks' partials."""
+    a = torch.exp(m - m.amax(0))
+    return (o * a[..., None]).sum(0) / (l_ * a).sum(0).clamp_min(1e-30)[
+        ..., None]
+
+
+@pytest.mark.parametrize("case", [
+    # the cell's: moonshot's 16 heads of 128 over a 64 x 8448 slab on 4
+    # ranks, slot lengths 1 to s_max and one slot past s_max
+    dict(r=4, b=64, hq=16, hkv=16, s_loc=2112, hd=128, window=None),
+    # tinyllama's GQA 8 at hd 64, scalar (lockstep) pos
+    dict(r=4, b=8, hq=32, hkv=4, s_loc=512, hd=64, window=None,
+         scalar=1100),
+    # h2o-danube's hd 120, GQA 4, window 4096
+    dict(r=4, b=6, hq=32, hkv=8, s_loc=2048, hd=120, window=4096),
+    # starcoder2's GQA 12 at hd 128, f16
+    dict(r=2, b=3, hq=48, hkv=4, s_loc=640, hd=128, window=None,
+         dtype=torch.float16),
+    # long_ctx: B = 1 over 8 flat ranks, the keys split
+    dict(r=8, b=1, hq=32, hkv=8, s_loc=16384, hd=120, window=4096,
+         scalar=80000),
+], ids=["cell", "gqa8-hd64-scalar", "hd120-window", "gqa12-f16",
+        "long-ctx-split"])
+def test_decode_attention_kernel(cuda, case):
+    """The one-pass decode kernel against its plain twin: the slab written
+    in place exactly at each slot's position (nothing else of it, nor of the
+    neighbouring layer, changes), and each rank's (o, m, l) within f32
+    rounding of the twin's: both sum in f32 but in another order (a score
+    over a row's lanes, the keys over lane groups, then splits), so 1e-5
+    relative."""
+    from repro_torch.kernels import decode_attention as DA
+    c = dict(case)
+    r, b, hkv, s_loc = c["r"], c["b"], c["hkv"], c["s_loc"]
+    s_max = r * s_loc
+    if "scalar" in c:
+        pos = torch.tensor(c["scalar"], dtype=torch.int32, device=cuda)
+    else:
+        pos = torch.linspace(0, s_max - 1, b - 1, device=cuda).long()
+        pos = torch.cat([pos, pos.new_tensor([s_max + 5])])
+    slab_k, slab_v, q, kn, vn, want_k, want_v = _decode_case(
+        cuda, r, b, c["hq"], hkv, s_loc, c["hd"], pos,
+        dtype=c.get("dtype", torch.bfloat16))
+    tk, tv = slab_k[1].clone(), slab_v[1].clone()
+    want = DA.decode_attention_plain(q, tk, tv, kn, vn, pos, c["window"])
+    plan = DA.decode_plan(r, b, hkv, c["hq"] // hkv, s_loc, c["hd"])
+    assert plan.splits > 1 or b > 1          # the long-context case splits
+    before = DA.decode_attention.launches
+    got = DA.decode_attention(q, slab_k[1], slab_v[1], kn, vn, pos,
+                              window=c["window"])
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == before + 1 + (plan.splits > 1)
+    assert torch.equal(slab_k, want_k) and torch.equal(slab_v, want_v)
+    assert torch.equal(slab_k[1], tk) and torch.equal(slab_v[1], tv)
+    o, m, l_ = got
+    assert o.shape == want[0].shape and m.shape == l_.shape == want[1].shape
+    seen = want[2] > 0
+    assert torch.equal(l_ > 0, seen)
+    assert float((m - want[1])[seen].abs().max()) <= 1e-5 * max(
+        1.0, float(want[1][seen].abs().max()))
+    assert _rel(l_, want[2]) <= 1e-5
+    assert _rel(_merged(*got), _merged(*want)) <= 1e-5
+
+
+def test_decode_attention_refuses_f32_on_card(cuda):
+    """On the card the wrapper launches the kernel or raises: an f32 cache
+    is no type the kernel is built for, and no plain path stands in."""
+    from repro_torch.kernels import decode_attention as DA
+    pos = torch.tensor([0, 100], device=cuda)
+    slab_k, slab_v, q, kn, vn, want_k, _ = _decode_case(
+        cuda, 2, 2, 4, 4, 64, 64, pos, dtype=torch.float32)
+    before = DA.decode_attention.launches
+    with pytest.raises(ValueError, match="bf16 or f16"):
+        DA.decode_attention(q, slab_k[1], slab_v[1], kn, vn, pos)
+    assert DA.decode_attention.launches == before
+
+
+def test_decode_attention_kernel_rewrite_is_idempotent(cuda):
+    """A second call at the same positions gives the same slab and output:
+    the engine may run a decode tick again over a cache it has written."""
+    from repro_torch.kernels import decode_attention as DA
+    pos = torch.tensor([0, 100, 700, 1023], device=cuda)
+    slab_k, slab_v, q, kn, vn, want_k, want_v = _decode_case(
+        cuda, 4, 4, 8, 2, 256, 128, pos)
+    first = DA.decode_attention(q, slab_k[1], slab_v[1], kn, vn, pos)
+    second = DA.decode_attention(q, slab_k[1], slab_v[1], kn, vn, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(slab_k, want_k) and torch.equal(slab_v, want_v)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)

@@ -201,6 +201,7 @@ def test_materialize_and_production_mesh():
 
 def _kernel_cases():
     from repro_torch.kernels import (collective_matmul as CM,
+                                     decode_attention as DA,
                                      flash_attention as FA,
                                      grouped_matmul as GM, lcsc as LC,
                                      mamba_scan as MS, matmul as MM,
@@ -253,6 +254,15 @@ def _kernel_cases():
          {}, CM.cost(4, 8, 24, 16, 2, 4), 1),
         ("ag_matmul_fused", CM.ag_matmul_fused, (r(4, 2, 16), r(4, 16, 24)),
          {}, CM.cost(4, 8, 24, 16, 8, 2), 1),
+        ("decode_attention", DA.decode_attention,
+         (r(2, 3, 4, 1, 16), r(2, 3, 2, 8, 16), r(2, 3, 2, 8, 16),
+          r(2, 3, 2, 1, 16), r(2, 3, 2, 1, 16), torch.tensor([1, 9, 20])),
+         {}, DA.cost(2, 3, 4, 2, 8, 16, 2), 1),
+        # B = 1: the keys split, and the splits' merge is a second launch
+        ("decode_attention", DA.decode_attention,
+         (r(2, 1, 4, 1, 16), r(2, 1, 2, 512, 16), r(2, 1, 2, 512, 16),
+          r(2, 1, 2, 1, 16), r(2, 1, 2, 1, 16), torch.tensor(700)),
+         {"window": 100}, DA.cost(2, 1, 4, 2, 512, 16, 2), 2),
     ]
 
 
@@ -260,7 +270,7 @@ def _outs(o):
     return o if isinstance(o, tuple) else (o,)
 
 
-@pytest.mark.parametrize("case", range(16))
+@pytest.mark.parametrize("case", range(18))
 def test_kernel_meta_branches(case):
     name, fn, args, kw, cost, n_launch = _kernel_cases()[case]
     with torch.no_grad():

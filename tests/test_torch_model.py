@@ -41,17 +41,18 @@ ATOL = 1e-4
 B, S_MAX = 2, 16
 
 
-def _cfgs():
+def _cfgs(**cfg_kw):
     return (dataclasses.replace(jax_config("tinyllama-1.1b").reduced(),
-                                dtype="float32"),
+                                dtype="float32", **cfg_kw),
             dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
-                                dtype="float32"))
+                                dtype="float32", **cfg_kw))
 
 
 def _both(mesh_shape, jax_backend=None, port_backend=None,
-          attn_island=False):
-    """(jax side, port side): each a dict of cfg, run, rules, params."""
-    jcfg, tcfg = _cfgs()
+          attn_island=False, **cfg_kw):
+    """(jax side, port side): each a dict of cfg, run, rules, params;
+    ``cfg_kw`` replaces fields of both configs."""
+    jcfg, tcfg = _cfgs(**cfg_kw)
     kw = dict(fsdp=False, decode_seq_shard=mesh_shape is not None,
               pk_attn_out_island=attn_island)
     jrun = JaxRun(comm_backend=jax_backend, **kw)
@@ -176,43 +177,113 @@ def test_mlp_island_matches_jax(port_backend):
                                rtol=0)
 
 
-def test_decode_island_matches_jax():
-    """One-token decode over a random sequence-sharded cache, per-slot
-    positions: the rank-local write and the log-sum-exp merge."""
-    j, t = _both((1, 4))
+@pytest.mark.parametrize("cfg_kw,pos", [
+    ({"n_kv_heads": 4}, [3, 19]),       # per-slot, one slot past s_max
+    ({}, 9),                             # scalar (lockstep)
+    ({"sliding_window": 6}, [13, 8]),    # window
+    ({"n_kv_heads": 1}, [5, 14]),        # GQA 4
+], ids=["vector", "scalar", "window", "gqa"])
+def test_decode_island_matches_jax(cfg_kw, pos):
+    """One-token decode over a random sequence-sharded cache: the rank-local
+    write into the stored slab, in place, and the log-sum-exp merge. The
+    returned cache is the input's storage, unchanged but at ``pos`` (a
+    position past s_max writes nothing)."""
+    j, t = _both((1, 4), **cfg_kw)
+    hkv = t["cfg"].n_kv_heads
     rng = np.random.default_rng(2)
     x = rng.standard_normal((B, 1, 64)).astype(np.float32)
-    ck = rng.standard_normal((B, 2, S_MAX, 16)).astype(np.float32)
-    cv = rng.standard_normal((B, 2, S_MAX, 16)).astype(np.float32)
-    pos = np.array([3, 11], np.int32)
+    ck = rng.standard_normal((B, hkv, S_MAX, 16)).astype(np.float32)
+    cv = rng.standard_normal((B, hkv, S_MAX, 16)).astype(np.float32)
+    pos = np.asarray(pos, np.int32)
     ja = jax.tree.map(lambda a: a[0], j["params"]["blocks"]["pos0"]["attn"])
-    spec = JSP.named(j["mesh"], j["rules"].kv_cache(2, B))
+    spec = JSP.named(j["mesh"], j["rules"].kv_cache(hkv, B))
     jout, jk, jv = jax.jit(partial(
         JL.decode_attention, cfg=j["cfg"], run=j["run"], rules=j["rules"]))(
             ja, x, jax.device_put(ck, spec), jax.device_put(cv, spec), pos)
+    vec = pos.ndim > 0
     island = L.decode_island(t["cfg"], t["run"], t["rules"], B, S_MAX,
                              long_ctx=False, pos=torch.from_numpy(pos),
-                             kv_len=None, window=None)
+                             kv_len=None if vec else int(pos) + 1,
+                             window=t["cfg"].sliding_window)
     assert island.fallback_reason() is None
-    tspec, mesh = t["rules"].kv_cache(2, B), t["rules"].mesh
+    tspec, mesh = t["rules"].kv_cache(hkv, B), t["rules"].mesh
 
     def stacked(a):
         return pgl.layout(torch.from_numpy(a), tspec, mesh,
                           "model").contiguous()
 
     ta = {k: v[0] for k, v in t["params"]["blocks"]["pos0"]["attn"].items()}
+    sk, sv = stacked(ck), stacked(cv)
+    tpos = torch.from_numpy(pos).long()
     with torch.no_grad():
-        out, tk, tv = L.decode_attention(ta, torch.from_numpy(x), stacked(ck),
-                                         stacked(cv),
-                                         torch.from_numpy(pos).long(),
+        out, tk, tv = L.decode_attention(ta, torch.from_numpy(x), sk, sv,
+                                         tpos if vec else tpos.squeeze(),
                                          t["cfg"], t["run"], t["rules"])
-    assert tk.shape == (4, B, 2, S_MAX // 4, 16)     # still stacked per rank
+    assert tk.shape == (4, B, hkv, S_MAX // 4, 16)  # still stacked per rank
+    assert tk.data_ptr() == sk.data_ptr() and tv.data_ptr() == sv.data_ptr()
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL,
                                rtol=0)
-    for got, want in ((tk, jk), (tv, jv)):
-        np.testing.assert_allclose(
-            pgl.assemble(got, tspec, mesh, "model").numpy(), np.asarray(want),
-            atol=ATOL, rtol=0)
+    for got, want, before in ((tk, jk, ck), (tv, jv, cv)):
+        got = pgl.assemble(got, tspec, mesh, "model").numpy()
+        np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
+        for slot, p in enumerate(np.broadcast_to(pos, (B,))):
+            if p < S_MAX:
+                assert not np.array_equal(got[slot, :, p], before[slot, :, p])
+            keep = np.arange(S_MAX) != p
+            np.testing.assert_array_equal(got[slot][:, keep],
+                                          before[slot][:, keep])
+
+
+def _bf16_model(kv_dtype="bf16", batch=2, s_max=16):
+    """The reduced tinyllama in its bf16 on (1, 4), its parameters and a
+    zero slab cache of ``kv_dtype``."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    run = RunConfig(fsdp=False, decode_seq_shard=True)
+    rules = ShardingRules(VirtualMesh((1, 4), ("data", "model")), run)
+    params = T.init_params(T.param_template(cfg, run, rules),
+                           torch.Generator().manual_seed(0), cfg.d_model,
+                           rules=rules, device="cpu")
+    cache = T.zeros(T.cache_template(cfg, run, rules, batch=batch,
+                                     s_max=s_max, slot_pos=True,
+                                     kv_dtype=kv_dtype), rules, "cpu")
+    return cfg, run, rules, params, cache
+
+
+def test_decode_step_hands_back_the_stored_slab():
+    """A decode step over a bf16 slab cache writes each layer's token in
+    place and hands back the stored block tensors themselves, nothing
+    stacked; prefill, and a decode over an int8 cache, still build new
+    blocks."""
+    cfg, run, rules, params, cache = _bf16_model()
+    tokens = torch.tensor([[3, 5, 7], [2, 4, 0]])
+    with torch.no_grad():
+        _, pre = T.prefill_step(params, cache, tokens, torch.tensor([3, 2]),
+                                cfg, run, rules)
+        stored = {k: v for k, v in pre["blocks"]["pos0"].items()}
+        assert all(stored[k] is not cache["blocks"]["pos0"][k]
+                   for k in ("k", "v"))
+        before = stored["k"].clone()
+        logits, new = T.decode_step(params, pre, torch.tensor([[1], [6]]),
+                                    cfg, run, rules)
+    assert torch.isfinite(logits).all()
+    for k in ("k", "v"):
+        assert new["blocks"]["pos0"][k] is stored[k]
+    assert torch.equal(new["pos"], pre["pos"] + 1)
+    # the write lands at each slot's position, in every layer, and only there
+    after = pgl.assemble(stored["k"], rules.kv_cache(cfg.n_kv_heads, 2),
+                         rules.mesh, "model", lead=1)
+    was = pgl.assemble(before, rules.kv_cache(cfg.n_kv_heads, 2), rules.mesh,
+                       "model", lead=1)
+    changed = (after != was).any(-1).any(2)            # (np, B, S)
+    assert changed[:, 0, 3].all() and changed[:, 1, 2].all()
+    assert int(changed.sum()) == 2 * cfg.n_periods
+
+    cfg, run, rules, params, cache = _bf16_model(kv_dtype="int8")
+    with torch.no_grad():
+        _, new = T.decode_step(params, cache, torch.tensor([[1], [6]]), cfg,
+                               run, rules)
+    for k in ("k", "v", "k_scale", "v_scale"):
+        assert new["blocks"]["pos0"][k] is not cache["blocks"]["pos0"][k]
 
 
 def test_dense_only_and_data_axis_raise():

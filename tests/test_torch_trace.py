@@ -8,9 +8,11 @@ MoE engine on the CPU.
   admission, the cache's occupancy in (0, 1];
 * tracing changes no token and no engine event;
 * ``stats()`` takes tokens over wall time, gaps between steps included;
-* the straggler watchdog logs and counts, and prints nothing.
+* the straggler watchdog logs and counts, and prints nothing;
+* decode attention counts the path each call took.
 """
 
+import dataclasses
 import logging
 import time
 
@@ -258,3 +260,29 @@ def test_straggler_is_logged_and_counted_not_printed(monkeypatch, caplog,
     assert eng.stats()["straggler_events"] == 1
     (rec,) = trace.snapshot()
     assert rec["counters"]["engine.straggler_steps"] == 1
+
+
+@pytest.mark.parametrize("kv_dtype,path", [("bf16", "inplace"),
+                                           ("int8", "slab")])
+def test_decode_attention_counts_the_path_taken(kv_dtype, path):
+    """Every decode step's decode attention calls, one a layer, count the
+    path they took: the one-pass kernel over the stored bf16 slab, or the
+    rewrite of the slab an int8 cache keeps."""
+    eng = launch.build_engine("moonshot-v1-16b-a3b", reduced=True,
+                              mesh_shape=(1, 4),
+                              serve=dataclasses.replace(SERVE,
+                                                        kv_dtype=kv_dtype),
+                              device="cpu")
+    _submit(eng)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _drain(eng)
+    recs = trace.snapshot()
+    other = "slab" if path == "inplace" else "inplace"
+    decode = [r["counters"] for r in recs if r["kind"] == "decode"]
+    assert decode
+    for c in decode:
+        assert c[f"decode_attn.{path}_calls"] == eng.cfg.n_layers
+        assert f"decode_attn.{other}_calls" not in c
+    assert not any("decode_attn.inplace_calls" in r["counters"]
+                   or "decode_attn.slab_calls" in r["counters"]
+                   for r in recs if r["kind"] != "decode")
